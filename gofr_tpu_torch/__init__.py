@@ -1,0 +1,28 @@
+"""PyTorch/CUDA port of gofr_tpu for one NVIDIA H100.
+
+This slice serves Llama-family decoders over ``POST /v1/completions``:
+``new()`` builds the app, ``register_openai_routes(app)`` adds the
+endpoint, and every attention call on a CUDA tensor runs the hand-written
+flash-attention forward kernel (``csrc/flash_fwd.cu``). Entry points run
+on ``cuda`` unless ``TORCH_DEVICE=cpu`` asks for the CPU (where the
+kernel's plain PyTorch version runs instead).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+__all__ = ["new", "App", "register_openai_routes"]
+
+
+def __getattr__(name: str) -> Any:
+    # lazy exports: importing the package must not import the server stack
+    if name in ("new", "App"):
+        from gofr_tpu_torch import app
+
+        return getattr(app, name)
+    if name == "register_openai_routes":
+        from gofr_tpu_torch.openai import register_openai_routes
+
+        return register_openai_routes
+    raise AttributeError(name)

@@ -1,0 +1,73 @@
+"""Config: the process environment over ``<configs_dir>/.env``.
+
+Trimmed copy of ``gofr_tpu/config.py``'s ``EnvFileConfig``. The port
+reads only the keys in ``DECLARED_KEYS``; asking for any other raises, so
+a key the port does not honor cannot be read by mistake.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+DECLARED_KEYS: dict[str, str] = {
+    "MODEL_NAME": "model config name (tiny | small | llama3-8b | llama3-70b)",
+    "MODEL_MAX_SEQ": "KV cache length per request (<= the model's max_seq)",
+    "MODEL_BUCKETS": "comma-separated prefill sequence buckets",
+    "MODEL_SEED": "seed of the random weight init",
+    "BATCH_MAX_SIZE": "prefill batch rows",
+    "BATCH_TIMEOUT_MS": "prefill batch fill deadline",
+    "DECODE_CHUNK": "decode steps per host fetch",
+    "TOKENIZER": "'byte' for the byte-level tokenizer",
+    "HTTP_PORT": "HTTP listen port",
+    "TORCH_DEVICE": "'cuda' (default) or 'cpu'",
+}
+
+
+def parse_env_file(path: str) -> dict[str, str]:
+    """Parse a dotenv file: KEY=VALUE lines, ``#`` comments, optional
+    quotes, ``export`` prefix tolerated. A missing file is empty."""
+    out: dict[str, str] = {}
+    try:
+        with open(path, "r", encoding="utf-8") as f:
+            lines = f.readlines()
+    except OSError:
+        return out
+    for raw in lines:
+        line = raw.strip()
+        if not line or line.startswith("#"):
+            continue
+        if line.startswith("export "):
+            line = line[len("export "):].lstrip()
+        if "=" not in line:
+            continue
+        key, _, value = line.partition("=")
+        key, value = key.strip(), value.strip()
+        if not key:
+            continue
+        if value[:1] in ("'", '"'):
+            closing = value.find(value[0], 1)
+            value = value[1:closing] if closing != -1 else value[1:]
+        elif " #" in value:
+            value = value.split(" #", 1)[0].rstrip()
+        out[key] = value
+    return out
+
+
+class EnvFileConfig:
+    """Loads ``<configs_dir>/.env`` into a private map; the environment
+    wins over the file."""
+
+    def __init__(self, configs_dir: str = "./configs") -> None:
+        self.configs_dir = configs_dir
+        self._file = parse_env_file(os.path.join(configs_dir, ".env"))
+
+    def get(self, key: str) -> Optional[str]:
+        if key not in DECLARED_KEYS:
+            raise KeyError(f"config key {key!r} is not read by gofr_tpu_torch")
+        value = os.environ.get(key)
+        return value if value is not None else self._file.get(key)
+
+    def get_or_default(self, key: str, default: str) -> str:
+        value = self.get(key)
+        return value if value not in (None, "") else default

@@ -1,0 +1,503 @@
+// Flash-attention forward for NVIDIA Hopper (sm_90a), bound with ctypes.
+//
+// Replaces: gofr_tpu/ops/flash.py::_kernel, launched by _flash_fwd_impl
+// through pl.pallas_call (gofr_tpu/ops/flash.py:224). Same function:
+// online softmax in f32 over K/V tiles, GQA head map h -> h / groups,
+// KV loop bounded by min(cdiv(kv_len), causal diagonal), masked scores at
+// -1e30, out in q's dtype plus a per-row log-sum-exp (f32) for the later
+// backward kernels; a row that sees no key gets out = 0 and LSE = +inf.
+//
+// Layout: q [B, Sq, Hq, D], k/v [B, Skv, Hkv, D], read in place with the
+// strides the caller passes (head dim contiguous; bf16 K/V rows 16-byte
+// aligned, loaded 16 bytes a thread). The TPU kernel's swap
+// to [B, H, S, D] was a TPU tiling need and is not carried over. out is
+// [B, Sq, Hq, D] contiguous, lse [B, Hq, Sq] contiguous.
+//
+// Work split: one block of 128 threads (4 warps) per (q tile, q head,
+// batch row). Each block reads its own q_offset and kv_len (the TPU's
+// scalar prefetch) and loops over K/V tiles staged in shared memory.
+// Scores, the running (m, l, acc) and P.V accumulate in f32; P is rounded
+// to the value dtype before P.V, as the TPU kernel does. Keys at or past
+// kv_len are never read (their tile rows are zero-filled) and get p = 0.
+// - bf16 (the serving path): tensor cores through mma.sync m16n8k16. A
+//   64-row q tile, 16 rows per warp; each warp keeps its Q fragments, its
+//   64-key score tile and its 16 x D output accumulator in registers, and
+//   feeds P to P.V straight from the score registers (FlashAttention-2).
+//   K/V tiles of 64 keys are bf16 in shared memory, rows padded by 16 bytes
+//   so every fragment load hits 32 distinct banks.
+// - f32 (the tiny model's check): CUDA-core FMAs. A 16-row q tile, 32-key
+//   K/V tiles as f32 in shared memory (rows padded by one word), one key
+//   per lane for the scores, one output column per thread for P.V.
+//
+// What bounds it on the H100 (989 TFLOP/s bf16 dense, 3.35 TB/s HBM):
+// - decode (Sq = 1): bytes, K+V of kv_len tokens per (batch, kv head);
+// - long prefill: operations, 4*B*Hq*Sq*Skv*D, about half that when causal.
+// What this simple design leaves on the table: mma.sync instead of wgmma
+// (about half the tensor-core rate at best); synchronous tile loads (no
+// cp.async or TMA pipeline, so a block waits on every tile); decode pads
+// its one query row to a 64-row tile (three warps idle), reads each KV head
+// once per query head of its group instead of packing the group into the
+// tile, and has no split-KV, so a batch-1 decode runs on Hq of 132 SMs.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr float kNegInf = -1e30f;
+
+struct Strides {
+  int64_t qb, qs, qh, kb, ks, kh, vb, vs, vh;
+};
+
+// ---------------------------------------------------------------- bf16 path
+
+constexpr int kMmaBlockQ = 16 * kWarps;  // 64 q rows per block
+constexpr int kMmaBlockKV = 64;           // keys per K/V tile
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// c += a (16x16, row) * b (16x8, col), bf16 inputs, f32 accumulators
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Fragment layout of m16n8k16 (g = lane / 4, t = lane % 4):
+//   A regs 0..3: (row g, cols 2t..2t+1), (g+8, 2t..), (g, 2t+8..), (g+8, 2t+8..)
+//   B regs 0..1: (k 2t..2t+1, col g), (k 2t+8..2t+9, col g)
+//   C 0..3:      (row g, cols 2t, 2t+1), (row g+8, cols 2t, 2t+1)
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_fwd_bf16_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ offsets,
+    const int32_t* __restrict__ kv_lens, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ lse, int sq, int skv, int hq, int groups, Strides st, float scale,
+    int causal) {
+  constexpr int LD = D + 8;  // 16 bytes of padding per row
+  constexpr int KSTEPS = D / 16;
+  constexpr int NT_S = kMmaBlockKV / 8;  // score n-tiles per warp
+  constexpr int NT_O = D / 8;            // output n-tiles per warp
+  static_assert(D % 16 == 0, "head dim");
+
+  __shared__ __align__(16) __nv_bfloat16 ks[kMmaBlockKV * LD];
+  __shared__ __align__(16) __nv_bfloat16 vs[kMmaBlockKV * LD];
+
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / groups;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * kMmaBlockQ;
+  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+  const int offset = offsets[b];
+  const int kv_len = min(max(kv_lens[b], 0), skv);
+  const bool active = q0 + warp * 16 < sq;  // a warp past Sq only helps load
+
+  const __nv_bfloat16* qb = q + b * st.qb + h * st.qh;
+  const __nv_bfloat16* kb = k + b * st.kb + hk * st.kh;
+  const __nv_bfloat16* vb = v + b * st.vb + hk * st.vh;
+
+  uint32_t qf[KSTEPS][4];
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {  // cols +0 and +8
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {  // rows +0 and +8
+        const int row = row0 + rr * 8;
+        const int col = kk * 16 + half * 8 + 2 * t;
+        uint32_t x = 0;
+        if (row < sq) x = pack_raw(qb[row * st.qs + col], qb[row * st.qs + col + 1]);
+        qf[kk][half * 2 + rr] = x;
+      }
+    }
+  }
+
+  int hi = (kv_len + kMmaBlockKV - 1) / kMmaBlockKV;
+  if (causal) {
+    const int last_q = offset + q0 + kMmaBlockQ;  // exclusive
+    hi = min(hi, max(0, (last_q + kMmaBlockKV - 1) / kMmaBlockKV));
+  }
+
+  float o[NT_O][4];
+#pragma unroll
+  for (int n = 0; n < NT_O; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf};
+  float l_run[2] = {0.f, 0.f};
+  const int qpos0 = offset + row0;
+
+  for (int j = 0; j < hi; ++j) {
+    const int k0 = j * kMmaBlockKV;
+    __syncthreads();  // the previous tile is consumed
+    // 16 bytes a thread: K/V rows are 16-byte aligned (the wrapper checks)
+    for (int c = tid; c < kMmaBlockKV * D / 8; c += kThreads) {
+      const int r = c / (D / 8), col = (c % (D / 8)) * 8;
+      const int pos = k0 + r;
+      uint4 kx = make_uint4(0, 0, 0, 0), vx = make_uint4(0, 0, 0, 0);
+      if (pos < kv_len) {
+        kx = *reinterpret_cast<const uint4*>(kb + pos * st.ks + col);
+        vx = *reinterpret_cast<const uint4*>(vb + pos * st.vs + col);
+      }
+      *reinterpret_cast<uint4*>(&ks[r * LD + col]) = kx;
+      *reinterpret_cast<uint4*>(&vs[r * LD + col]) = vx;
+    }
+    __syncthreads();
+    if (!active) continue;
+
+    float s[NT_S][4];
+#pragma unroll
+    for (int n = 0; n < NT_S; ++n) {
+      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      const __nv_bfloat16* krow = &ks[(n * 8 + g) * LD + 2 * t];
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + kk * 16);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8);
+        mma_16816(s[n], qf[kk], b0, b1);
+      }
+    }
+
+    // mask, then the online softmax over this tile (rows row0 and row0 + 8;
+    // the 4 threads of a quad hold a row between them)
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < NT_S; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = k0 + n * 8 + 2 * t + (e & 1);
+        const int qpos = qpos0 + (e >> 1) * 8;
+        const bool valid = kpos < kv_len && (!causal || kpos <= qpos);
+        s[n][e] = valid ? s[n][e] * scale : kNegInf;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+      }
+    }
+    float alpha[2], m_new[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      m_new[r] = fmaxf(m_run[r], mx[r]);
+      alpha[r] = expf(m_run[r] - m_new[r]);
+    }
+    uint32_t pf[kMmaBlockKV / 16][4];
+#pragma unroll
+    for (int n = 0; n < NT_S; ++n) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // masked keys contribute exactly 0, never exp(-1e30 - m)
+        p[e] = s[n][e] > 0.5f * kNegInf ? expf(s[n][e] - m_new[e >> 1]) : 0.f;
+        rsum[e >> 1] += p[e];
+      }
+      // the score tile's C layout is P.V's A layout: n-tiles 2i, 2i+1
+      // form the 16-key k-step i
+      pf[n / 2][(n & 1) * 2 + 0] = pack_bf16(p[0], p[1]);
+      pf[n / 2][(n & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 1);
+      rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 2);
+      l_run[r] = alpha[r] * l_run[r] + rsum[r];
+      m_run[r] = m_new[r];
+    }
+#pragma unroll
+    for (int n = 0; n < NT_O; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int i = 0; i < kMmaBlockKV / 16; ++i) {
+      const __nv_bfloat16* v0 = &vs[(i * 16 + 2 * t) * LD + g];
+#pragma unroll
+      for (int n = 0; n < NT_O; ++n) {
+        const __nv_bfloat16* vc = v0 + n * 8;
+        const uint32_t b0 = pack_raw(vc[0], vc[LD]);
+        const uint32_t b1 = pack_raw(vc[8 * LD], vc[9 * LD]);
+        mma_16816(o[n], pf[i], b0, b1);
+      }
+    }
+  }
+  if (!active) return;
+
+  const int64_t out_ss = (int64_t)hq * D;  // out is [B, Sq, Hq, D] contiguous
+  __nv_bfloat16* ob = out + (int64_t)b * sq * out_ss + (int64_t)h * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + r * 8;
+    if (row >= sq) continue;
+    const float inv = 1.f / (l_run[r] == 0.f ? 1.f : l_run[r]);
+#pragma unroll
+    for (int n = 0; n < NT_O; ++n) {
+      *reinterpret_cast<uint32_t*>(ob + row * out_ss + n * 8 + 2 * t) =
+          pack_bf16(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+    }
+    if (t == 0) {
+      lse[((int64_t)b * hq + h) * sq + row] =
+          l_run[r] > 0.f ? m_run[r] + logf(l_run[r]) : INFINITY;
+    }
+  }
+}
+
+// ----------------------------------------------------------------- f32 path
+
+constexpr int kBlockQ = 16;
+constexpr int kBlockKV = 32;  // one key per lane
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const int32_t* __restrict__ offsets, const int32_t* __restrict__ kv_lens,
+    float* __restrict__ out, float* __restrict__ lse, int sq, int skv, int hq, int groups,
+    Strides st, float scale, int causal) {
+  // +1 float per row: lane-strided row reads hit 32 distinct banks
+  constexpr int LD = D + 1;
+  constexpr int kRowsPerWarp = kBlockQ / kWarps;  // score rows per warp
+  constexpr int kRowGroups = kThreads / D;        // P.V: threads per column
+  constexpr int kAccRows = kBlockQ / kRowGroups;  // P.V rows per thread
+  static_assert(kThreads % D == 0 && kBlockQ % kRowGroups == 0, "tile shape");
+
+  __shared__ float qs[kBlockQ * LD];
+  __shared__ float ks[kBlockKV * LD];
+  __shared__ float vs[kBlockKV * LD];
+  __shared__ float ps[kBlockQ * kBlockKV];
+  __shared__ float row_alpha[kBlockQ];
+  __shared__ float row_m[kBlockQ];
+  __shared__ float row_l[kBlockQ];
+
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / groups;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q0 = blockIdx.x * kBlockQ;
+  const int offset = offsets[b];
+  const int kv_len = min(max(kv_lens[b], 0), skv);
+
+  const float* qb = q + b * st.qb + h * st.qh;
+  const float* kb = k + b * st.kb + hk * st.kh;
+  const float* vb = v + b * st.vb + hk * st.vh;
+
+  for (int e = tid; e < kBlockQ * D; e += kThreads) {
+    const int r = e / D, c = e % D;
+    const int row = q0 + r;
+    qs[r * LD + c] = row < sq ? qb[row * st.qs + c] : 0.f;
+  }
+
+  int hi = (kv_len + kBlockKV - 1) / kBlockKV;
+  if (causal) {
+    const int last_q = offset + q0 + kBlockQ;  // exclusive
+    hi = min(hi, max(0, (last_q + kBlockKV - 1) / kBlockKV));
+  }
+
+  float m_run[kRowsPerWarp];
+  float l_run[kRowsPerWarp];
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    m_run[i] = kNegInf;
+    l_run[i] = 0.f;
+  }
+  const int dcol = tid % D;
+  const int rgroup = tid / D;
+  float acc[kAccRows];
+#pragma unroll
+  for (int i = 0; i < kAccRows; ++i) acc[i] = 0.f;
+
+  for (int j = 0; j < hi; ++j) {
+    const int k0 = j * kBlockKV;
+    __syncthreads();  // the previous tile's ks/vs/ps are consumed
+    for (int e = tid; e < kBlockKV * D; e += kThreads) {
+      const int r = e / D, c = e % D;
+      const int pos = k0 + r;
+      const bool live = pos < kv_len;  // never read past the written prefix
+      ks[r * LD + c] = live ? kb[pos * st.ks + c] : 0.f;
+      vs[r * LD + c] = live ? vb[pos * st.vs + c] : 0.f;
+    }
+    __syncthreads();
+
+    // scores: warp w owns rows w, w + 4, ...; lane owns key k0 + lane
+    const int kpos = k0 + lane;
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      const int r = warp + i * kWarps;
+      float s = 0.f;
+#pragma unroll 16
+      for (int d = 0; d < D; ++d) s = fmaf(qs[r * LD + d], ks[lane * LD + d], s);
+      s *= scale;
+      const int qpos = offset + q0 + r;
+      const bool valid = kpos < kv_len && (!causal || kpos <= qpos);
+      s = valid ? s : kNegInf;
+      const float m_new = fmaxf(m_run[i], warp_max(s));
+      const float alpha = expf(m_run[i] - m_new);
+      const float p = valid ? expf(s - m_new) : 0.f;
+      l_run[i] = alpha * l_run[i] + warp_sum(p);
+      m_run[i] = m_new;
+      ps[r * kBlockKV + lane] = p;
+      if (lane == 0) row_alpha[r] = alpha;
+    }
+    __syncthreads();
+
+    // acc[r, d] = alpha_r * acc[r, d] + sum_c P[r, c] * V[c, d]
+#pragma unroll
+    for (int i = 0; i < kAccRows; ++i) {
+      const int r = rgroup + i * kRowGroups;
+      float a = acc[i] * row_alpha[r];
+#pragma unroll 8
+      for (int c = 0; c < kBlockKV; ++c) a = fmaf(ps[r * kBlockKV + c], vs[c * LD + dcol], a);
+      acc[i] = a;
+    }
+  }
+
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < kRowsPerWarp; ++i) {
+      const int r = warp + i * kWarps;
+      row_m[r] = m_run[i];
+      row_l[r] = l_run[i];
+    }
+  }
+  __syncthreads();
+
+  const int64_t out_ss = (int64_t)hq * D;  // out is [B, Sq, Hq, D] contiguous
+  float* ob = out + (int64_t)b * sq * out_ss + (int64_t)h * D;
+#pragma unroll
+  for (int i = 0; i < kAccRows; ++i) {
+    const int r = rgroup + i * kRowGroups;
+    const int row = q0 + r;
+    if (row < sq) {
+      const float l = row_l[r];
+      ob[row * out_ss + dcol] = acc[i] / (l == 0.f ? 1.f : l);
+    }
+  }
+  if (tid < kBlockQ) {
+    const int row = q0 + tid;
+    if (row < sq) {
+      const float l = row_l[tid];
+      lse[((int64_t)b * hq + h) * sq + row] = l > 0.f ? row_m[tid] + logf(l) : INFINITY;
+    }
+  }
+}
+
+// ------------------------------------------------------------------ launch
+
+struct Args {
+  const void *q, *k, *v;
+  const int32_t *offsets, *kv_lens;
+  void* out;
+  float* lse;
+  int b, sq, skv, hq, hkv;
+  Strides st;
+  float scale;
+  int causal;
+  cudaStream_t stream;
+};
+
+template <int D>
+void launch_bf16(const Args& a) {
+  dim3 grid((a.sq + kMmaBlockQ - 1) / kMmaBlockQ, a.hq, a.b);
+  flash_fwd_bf16_kernel<D><<<grid, kThreads, 0, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), a.offsets, a.kv_lens,
+      static_cast<__nv_bfloat16*>(a.out), a.lse, a.sq, a.skv, a.hq, a.hq / a.hkv, a.st,
+      a.scale, a.causal);
+}
+
+template <int D>
+void launch_f32(const Args& a) {
+  dim3 grid((a.sq + kBlockQ - 1) / kBlockQ, a.hq, a.b);
+  flash_fwd_f32_kernel<D><<<grid, kThreads, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), a.offsets, a.kv_lens, static_cast<float*>(a.out), a.lse,
+      a.sq, a.skv, a.hq, a.hq / a.hkv, a.st, a.scale, a.causal);
+}
+
+int dispatch(int dtype, int d, const Args& a) {
+  if (dtype == 0) {
+    switch (d) {
+      case 16: launch_f32<16>(a); break;
+      case 32: launch_f32<32>(a); break;
+      case 64: launch_f32<64>(a); break;
+      case 128: launch_f32<128>(a); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+  } else if (dtype == 1) {
+    switch (d) {
+      case 16: launch_bf16<16>(a); break;
+      case 32: launch_bf16<32>(a); break;
+      case 64: launch_bf16<64>(a); break;
+      case 128: launch_bf16<128>(a); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16. Strides are in elements, for the
+// batch, sequence and head dims of q, k and v in that order; for bf16, k
+// and v rows must be 16-byte aligned (pointers and strides). Returns the
+// launch's cudaGetLastError() (0 on success).
+int gofr_flash_fwd(int dtype, int head_dim, const void* q, const void* k, const void* v,
+                   const void* offsets, const void* kv_lens, void* out, void* lse,
+                   int b, int sq, int skv, int hq, int hkv,
+                   int64_t qsb, int64_t qss, int64_t qsh,
+                   int64_t ksb, int64_t kss, int64_t ksh,
+                   int64_t vsb, int64_t vss, int64_t vsh,
+                   float scale, int causal, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  Args a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.offsets = static_cast<const int32_t*>(offsets);
+  a.kv_lens = static_cast<const int32_t*>(kv_lens);
+  a.out = out;
+  a.lse = static_cast<float*>(lse);
+  a.b = b;
+  a.sq = sq;
+  a.skv = skv;
+  a.hq = hq;
+  a.hkv = hkv;
+  a.st = Strides{qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
+  a.scale = scale;
+  a.causal = causal;
+  a.stream = static_cast<cudaStream_t>(stream);
+  return dispatch(dtype, head_dim, a);
+}
+
+const char* gofr_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -1,0 +1,55 @@
+"""Error types with HTTP status mapping (trimmed copy of
+``gofr_tpu/errors.py``): any exception carrying ``status_code`` maps to
+that status, everything else is a 500."""
+
+from __future__ import annotations
+
+
+class GofrError(Exception):
+    status_code: int = 500
+
+    def __init__(self, message: str = ""):
+        super().__init__(message)
+        self.message = message or self.__class__.__name__
+
+    def __str__(self) -> str:
+        return self.message
+
+
+class InvalidParamError(GofrError):
+    """Bad request parameter -> 400."""
+
+    status_code = 400
+
+
+class RouteNotFoundError(GofrError):
+    status_code = 404
+
+    def __init__(self) -> None:
+        super().__init__("route not registered")
+
+
+class TooManyRequestsError(GofrError):
+    """Batch queue overflow -> 429."""
+
+    status_code = 429
+
+    def __init__(self, message: str = "server overloaded"):
+        super().__init__(message)
+
+
+class HTTPError(GofrError):
+    """Arbitrary status escape hatch."""
+
+    def __init__(self, status_code: int, message: str):
+        self.status_code = status_code
+        super().__init__(message)
+
+
+def status_from_error(err: BaseException | None) -> int:
+    if err is None:
+        return 200
+    code = getattr(err, "status_code", None)
+    if isinstance(code, int) and 100 <= code <= 599:
+        return code
+    return 500

@@ -1,0 +1,96 @@
+"""Transport-agnostic request façade for HTTP.
+
+Parity: GoFr's pkg/gofr/http/request.go:16-67 — ``Param`` (query,
+:28), ``PathParam`` (:36), ``Bind`` (JSON body unmarshal, :40), ``HostName``
+honoring X-Forwarded-Proto (:49), and re-readable body (:58-66; trivially
+true here since the body is held as bytes).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import urllib.parse
+from typing import Any, Optional
+
+
+class Request:
+    def __init__(
+        self,
+        method: str,
+        target: str,
+        headers: dict[str, str],
+        body: bytes = b"",
+        remote_addr: str = "",
+        path_params: Optional[dict[str, str]] = None,
+    ):
+        self.method = method.upper()
+        self.target = target
+        parsed = urllib.parse.urlsplit(target)
+        self.path = parsed.path or "/"
+        self.query = urllib.parse.parse_qs(parsed.query, keep_blank_values=True)
+        # header names are case-insensitive; store lowercase
+        self.headers = {k.lower(): v for k, v in headers.items()}
+        self.body = body
+        self.remote_addr = remote_addr
+        self.path_params: dict[str, str] = path_params or {}
+
+    # -- the Request interface (parity: pkg/gofr/request.go:10-16) ----------
+    def param(self, key: str) -> str:
+        """First query parameter value, '' if absent (request.go:28)."""
+        vals = self.query.get(key)
+        return vals[0] if vals else ""
+
+    def params(self, key: str) -> list[str]:
+        return self.query.get(key, [])
+
+    def path_param(self, key: str) -> str:
+        return self.path_params.get(key, "")
+
+    def bind(self, into: Any = None) -> Any:
+        """JSON-decode the body (request.go:40). With ``into``:
+
+        - a dataclass type -> constructed from matching fields;
+        - a plain class -> instance with attributes set from the object;
+        - None -> the decoded JSON value.
+        """
+        try:
+            data = json.loads(self.body.decode("utf-8") or "null")
+        except (json.JSONDecodeError, UnicodeDecodeError) as exc:
+            from gofr_tpu_torch.errors import HTTPError
+
+            raise HTTPError(400, "invalid request body") from exc
+        if into is None:
+            return data
+        if not isinstance(data, dict):
+            from gofr_tpu_torch.errors import HTTPError
+
+            raise HTTPError(400, "invalid request body: expected a JSON object")
+        if dataclasses.is_dataclass(into) and isinstance(into, type):
+            names = {f.name for f in dataclasses.fields(into)}
+            try:
+                return into(**{k: v for k, v in data.items() if k in names})
+            except TypeError as exc:  # missing required fields is a client error
+                from gofr_tpu_torch.errors import HTTPError
+
+                raise HTTPError(400, f"invalid request body: {exc}") from exc
+        if isinstance(into, type):
+            obj = into()
+            for k, v in data.items():
+                setattr(obj, k, v)
+            return obj
+        # pre-built object: set attributes in place
+        for k, v in data.items():
+            setattr(into, k, v)
+        return into
+
+    def header(self, name: str) -> str:
+        return self.headers.get(name.lower(), "")
+
+    def host_name(self) -> str:
+        """Scheme + host, honoring X-Forwarded-Proto (request.go:49-56)."""
+        proto = self.headers.get("x-forwarded-proto", "http")
+        return f"{proto}://{self.headers.get('host', '')}"
+
+    def context(self) -> "Request":
+        return self

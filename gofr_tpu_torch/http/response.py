@@ -1,0 +1,72 @@
+"""Response value types a handler can return.
+
+Parity: GoFr's pkg/gofr/http/response/raw.go:3-5 (``Raw`` bypasses
+the envelope) and response/file.go:3-6 (``File`` sets Content-Type).
+TPU-native additions (SURVEY.md §2 #6): ``Stream`` for server-sent-event
+token decode streams, and ``Response`` as the wire-level struct middleware
+operates on.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, AsyncIterator, Iterator, Optional, Union
+
+
+@dataclass
+class Response:
+    """Wire-level response: what the server actually writes."""
+
+    status: int = 200
+    headers: dict[str, str] = field(default_factory=dict)
+    body: bytes = b""
+    # When set, body is ignored and chunks are written as they arrive
+    # (chunked transfer encoding; used for SSE token streaming).
+    stream: Optional[Union[Iterator[bytes], AsyncIterator[bytes]]] = None
+
+
+@dataclass
+class Raw:
+    """Return from a handler to skip the ``{"data": ...}`` envelope; the
+    payload is JSON-encoded as-is. Parity: http/response/raw.go:3-5."""
+
+    data: Any
+
+
+@dataclass
+class File:
+    """Return from a handler to send raw bytes with a Content-Type.
+    Parity: http/response/file.go:3-6."""
+
+    content: bytes
+    content_type: str = "application/octet-stream"
+
+
+@dataclass
+class Stream:
+    """Return from a handler to stream chunks (e.g. decoded tokens) to the
+    client. ``events`` yields str or bytes; when ``sse`` is True each item is
+    framed as a server-sent event ``data: <item>\\n\\n``.
+
+    ``ids=True`` additionally numbers every frame with a monotonic SSE
+    ``id:`` line (``id_offset`` + frame index) — the resumable-stream
+    contract: the fleet router journals the last id it delivered to the
+    client, and a mid-stream failover resumes from that offset instead
+    of truncating (``X-Resume-From``). Frame ids are POSITIONS in the
+    deterministic event sequence, so a regenerated stream renumbers
+    identically and duplicates are filterable by id alone.
+
+    ``on_abort`` (optional callable) fires when the stream is torn
+    down BEFORE its events exhausted — a client disconnect (write
+    failure) or connection-task cancellation. The responder invokes it
+    directly (never through the events generator, which may be
+    suspended mid-``next`` on a pool thread): handlers use it to trip
+    the generation's stop event so an abandoned stream frees its
+    decode slot and paged-KV blocks within one chunk."""
+
+    events: Union[Iterator[Any], AsyncIterator[Any]]
+    sse: bool = True
+    content_type: str = "text/event-stream"
+    ids: bool = False
+    id_offset: int = 0
+    on_abort: Optional[Any] = None

@@ -1,0 +1,315 @@
+"""From-scratch asyncio HTTP/1.1 server.
+
+Parity: GoFr's pkg/gofr/httpServer.go:12-36 (net/http server around
+the router, 5s header read timeout). Built on asyncio rather than a
+third-party stack so the TPU batching queue and request futures share one
+event loop (SURVEY.md §7 hard part (b): deadline-based batch flush without
+destroying p50 TTFT).
+
+Features: keep-alive, Content-Length and chunked request bodies, chunked
+streaming responses (SSE), HEAD handling, header-size limits, per-connection
+read timeouts.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import socket
+import threading
+from typing import Any, Optional
+
+from gofr_tpu_torch.http.request import Request
+from gofr_tpu_torch.http.response import Response
+from gofr_tpu_torch.http.router import Router
+
+MAX_HEADER_BYTES = 64 * 1024
+MAX_BODY_BYTES = 64 * 1024 * 1024
+READ_HEADER_TIMEOUT = 5.0  # parity: httpServer.go:32 ReadHeaderTimeout 5s
+READ_BODY_TIMEOUT = 60.0  # slow-body (slowloris) guard
+
+
+class _BodyError(Exception):
+    def __init__(self, status: int, body: bytes):
+        super().__init__(body.decode())
+        self.status = status
+        self.body = body
+
+_STATUS_TEXT = {
+    200: "OK", 201: "Created", 202: "Accepted", 204: "No Content",
+    301: "Moved Permanently", 302: "Found", 304: "Not Modified",
+    400: "Bad Request", 401: "Unauthorized", 403: "Forbidden",
+    404: "Not Found", 405: "Method Not Allowed", 408: "Request Timeout",
+    413: "Payload Too Large", 429: "Too Many Requests",
+    500: "Internal Server Error", 501: "Not Implemented",
+    502: "Bad Gateway", 503: "Service Unavailable",
+    504: "Gateway Timeout",
+}
+
+
+class HTTPServer:
+    """Serves a Router on a port. ``run()`` blocks; ``run_in_thread()``
+    starts a daemon thread and returns once the socket is listening (the
+    test-friendly shape the reference gets from httptest)."""
+
+    def __init__(self, router: Router, port: int, logger: Any = None, host: str = "0.0.0.0"):
+        self.router = router
+        self.port = port
+        self.host = host
+        self.logger = logger
+        self._loop: Optional[asyncio.AbstractEventLoop] = None
+        self._server: Optional[asyncio.AbstractServer] = None
+        self._ready = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    # -- lifecycle ----------------------------------------------------------
+    def run(self) -> None:
+        asyncio.run(self.serve())
+
+    async def serve(self) -> None:
+        self._loop = asyncio.get_running_loop()
+        self._server = await asyncio.start_server(
+            self._handle_connection, self.host, self.port,
+            reuse_address=True, backlog=1024,
+        )
+        self._ready.set()
+        if self.logger:
+            self.logger.infof("starting HTTP server on port %s", self.port)
+        async with self._server:
+            await self._server.serve_forever()
+
+    def run_in_thread(self) -> "HTTPServer":
+        self._thread = threading.Thread(target=self._run_quiet, daemon=True, name="gofr-http")
+        self._thread.start()
+        if not self._ready.wait(timeout=10):
+            raise RuntimeError(f"HTTP server failed to start on port {self.port}")
+        return self
+
+    def _run_quiet(self) -> None:
+        try:
+            self.run()
+        except asyncio.CancelledError:
+            pass
+
+    def shutdown(self) -> None:
+        loop = self._loop
+        if loop and loop.is_running():
+            loop.call_soon_threadsafe(self._shutdown_in_loop)
+        if self._thread:
+            self._thread.join(timeout=5)
+
+    def _shutdown_in_loop(self) -> None:
+        if self._server:
+            self._server.close()
+        for task in asyncio.all_tasks(self._loop):
+            task.cancel()
+
+    # -- connection handling ------------------------------------------------
+    async def _handle_connection(
+        self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter
+    ) -> None:
+        peer = writer.get_extra_info("peername")
+        remote = peer[0] if isinstance(peer, tuple) else ""
+        try:
+            sock = writer.get_extra_info("socket")
+            if sock is not None:
+                sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        except OSError:
+            pass
+        try:
+            while True:
+                keep_alive = await self._handle_one(reader, writer, remote)
+                if not keep_alive:
+                    break
+        except (asyncio.IncompleteReadError, ConnectionError, asyncio.TimeoutError):
+            pass  # routine client disconnects (reset, broken pipe, abort)
+        except asyncio.LimitOverrunError:
+            await self._write_simple(writer, 431, b'{"error":{"message":"headers too large"}}')
+        finally:
+            try:
+                writer.close()
+                await writer.wait_closed()
+            except (ConnectionResetError, BrokenPipeError):
+                pass
+
+    async def _handle_one(
+        self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter, remote: str
+    ) -> bool:
+        try:
+            header_block = await asyncio.wait_for(
+                reader.readuntil(b"\r\n\r\n"), timeout=READ_HEADER_TIMEOUT
+            )
+        except asyncio.TimeoutError:
+            return False
+        if len(header_block) > MAX_HEADER_BYTES:
+            await self._write_simple(writer, 431, b'{"error":{"message":"headers too large"}}')
+            return False
+
+        try:
+            method, target, version, headers = _parse_head(header_block)
+        except ValueError:
+            await self._write_simple(writer, 400, b'{"error":{"message":"malformed request"}}')
+            return False
+
+        body = b""
+        te = headers.get("transfer-encoding", "").lower()
+        if "chunked" in te:
+            try:
+                body = await asyncio.wait_for(_read_chunked(reader), timeout=READ_BODY_TIMEOUT)
+            except _BodyError as exc:
+                await self._write_simple(writer, exc.status, exc.body)
+                return False
+            except asyncio.TimeoutError:
+                await self._write_simple(
+                    writer, 408, b'{"error":{"message":"body read timed out"}}')
+                return False
+        else:
+            length = headers.get("content-length")
+            if length:
+                try:
+                    n = int(length)
+                except ValueError:
+                    await self._write_simple(
+                        writer, 400, b'{"error":{"message":"bad content-length"}}')
+                    return False
+                if n > MAX_BODY_BYTES:
+                    await self._write_simple(
+                        writer, 413, b'{"error":{"message":"payload too large"}}')
+                    return False
+                if n:
+                    try:
+                        body = await asyncio.wait_for(
+                            reader.readexactly(n), timeout=READ_BODY_TIMEOUT
+                        )
+                    except asyncio.TimeoutError:
+                        await self._write_simple(
+                            writer, 408, b'{"error":{"message":"body read timed out"}}'
+                        )
+                        return False
+
+        request = Request(method, target, headers, body, remote)
+        try:
+            response = await self.router.dispatcher()(request)
+        except Exception:  # last-resort guard; logging middleware recovers first
+            response = Response(
+                status=500,
+                headers={"Content-Type": "application/json"},
+                body=b'{"error":{"message":"some unexpected error has occurred"}}',
+            )
+
+        want_keep_alive = (
+            version != "HTTP/1.0"
+            and headers.get("connection", "").lower() != "close"
+        )
+        head_only = method == "HEAD"
+        await self._write_response(writer, response, want_keep_alive, head_only)
+        return want_keep_alive and response.stream is None
+
+    async def _write_response(
+        self,
+        writer: asyncio.StreamWriter,
+        response: Response,
+        keep_alive: bool,
+        head_only: bool,
+    ) -> None:
+        status = response.status
+        reason = _STATUS_TEXT.get(status, "Unknown")
+        lines = [f"HTTP/1.1 {status} {reason}"]
+        headers = dict(response.headers)
+        headers.setdefault("Server", "gofr-tpu-torch")
+        if response.stream is not None and not head_only:
+            headers["Transfer-Encoding"] = "chunked"
+            headers.pop("Content-Length", None)
+        else:
+            # HEAD advertises the length GET would return (RFC 9110 §9.3.2)
+            headers["Content-Length"] = str(len(response.body))
+        headers["Connection"] = "keep-alive" if keep_alive and response.stream is None else "close"
+        for k, v in headers.items():
+            lines.append(f"{k}: {v}")
+        head = ("\r\n".join(lines) + "\r\n\r\n").encode("latin-1")
+        writer.write(head)
+        if head_only:
+            await writer.drain()
+            return
+        if response.stream is not None:
+            try:
+                async for chunk in response.stream:
+                    if not chunk:
+                        continue
+                    writer.write(f"{len(chunk):x}\r\n".encode() + chunk + b"\r\n")
+                    await writer.drain()
+            except Exception as exc:
+                # Abort WITHOUT the terminal chunk so the client sees a
+                # truncated chunked body (distinguishable from completion).
+                if self.logger:
+                    self.logger.errorf("response stream aborted: %r", exc)
+                transport = writer.transport
+                if transport is not None:
+                    transport.abort()
+                # close the response stream NOW, not at GC: its finally
+                # (the responder's client-abort hook) trips the
+                # generation's stop event, so an abandoned stream frees
+                # its decode slot and paged-KV blocks within one chunk
+                # instead of decoding to max_tokens unread
+                aclose = getattr(response.stream, "aclose", None)
+                if aclose is not None:
+                    try:
+                        await aclose()
+                    except Exception:
+                        pass  # teardown best-effort; the abort already won
+                return
+            writer.write(b"0\r\n\r\n")
+            await writer.drain()
+        else:
+            writer.write(response.body)
+            await writer.drain()
+
+    async def _write_simple(self, writer: asyncio.StreamWriter, status: int, body: bytes) -> None:
+        try:
+            await self._write_response(
+                writer,
+                Response(status=status, headers={"Content-Type": "application/json"}, body=body),
+                keep_alive=False,
+                head_only=False,
+            )
+        except (ConnectionResetError, BrokenPipeError):
+            pass
+
+
+def _parse_head(block: bytes) -> tuple[str, str, str, dict[str, str]]:
+    text = block.decode("latin-1")
+    lines = text.split("\r\n")
+    parts = lines[0].split(" ")
+    if len(parts) != 3:
+        raise ValueError("bad request line")
+    method, target, version = parts
+    if not version.startswith("HTTP/"):
+        raise ValueError("bad version")
+    headers: dict[str, str] = {}
+    for line in lines[1:]:
+        if not line:
+            continue
+        if ":" not in line:
+            raise ValueError("bad header")
+        name, _, value = line.partition(":")
+        headers[name.strip().lower()] = value.strip()
+    return method.upper(), target, version, headers
+
+
+async def _read_chunked(reader: asyncio.StreamReader) -> bytes:
+    chunks: list[bytes] = []
+    total = 0
+    while True:
+        size_line = await reader.readuntil(b"\r\n")
+        try:
+            size = int(size_line.strip().split(b";")[0], 16)
+        except ValueError:
+            raise _BodyError(400, b'{"error":{"message":"bad chunk size"}}') from None
+        if size == 0:
+            await reader.readuntil(b"\r\n")  # trailing CRLF (no trailer support)
+            break
+        total += size
+        if total > MAX_BODY_BYTES:
+            raise _BodyError(413, b'{"error":{"message":"payload too large"}}')
+        chunks.append(await reader.readexactly(size))
+        await reader.readexactly(2)  # CRLF after each chunk
+    return b"".join(chunks)

@@ -1,0 +1,300 @@
+"""Llama-family decoder-only transformer: RMSNorm, RoPE, GQA attention,
+SwiGLU, with a KV-cached ragged-batch serving path.
+
+Port of ``gofr_tpu/models/transformer.py``. Weights keep the JAX
+package's [in, out] layout so ``x @ w`` reads the same; the layer stack
+is an ``nn.ModuleList`` (the JAX ``lax.scan`` over stacked weights becomes
+a Python loop). Attention goes through ``ops/attention.py``: the flash
+kernel on the card, its plain version on the CPU.
+
+The KV cache is ``{"k", "v": [n_layers, B, max_seq, n_kv_heads, head_dim],
+"lengths": [B] int32}``. Unlike the JAX package, ``prefill``/``decode_step``
+write the new keys and values into the cache tensors IN PLACE (a full
+cache copy per call would double decode's memory traffic) and return a
+dict holding the same tensors with advanced ``lengths``.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from gofr_tpu_torch.models.quant import mm
+from gofr_tpu_torch.ops.attention import attention
+from gofr_tpu_torch.ops.norms import rms_norm
+from gofr_tpu_torch.ops.rope import apply_rope, cached_freqs
+from gofr_tpu_torch.ops.sampling import sample_logits_rows
+
+
+@dataclass(frozen=True)
+class TransformerConfig:
+    vocab_size: int = 32000
+    dim: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 8
+    hidden_dim: int = 14336
+    max_seq: int = 8192
+    rope_theta: float = 500000.0
+    norm_eps: float = 1e-5
+    dtype: torch.dtype = torch.bfloat16
+    # KV-cache storage dtype (None -> dtype); attention upcasts at its boundary
+    kv_dtype: Optional[torch.dtype] = None
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.n_heads
+
+    @property
+    def cache_dtype(self) -> torch.dtype:
+        return self.kv_dtype or self.dtype
+
+
+_LAYER_SHAPES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+# Phi(-3) and Phi(3): the uniform range whose inverse-CDF image is the
+# normal truncated to [-3, 3]
+_TRUNC_LO = 0.5 * (1.0 + math.erf(-3.0 / math.sqrt(2.0)))
+_TRUNC_HI = 0.5 * (1.0 + math.erf(3.0 / math.sqrt(2.0)))
+
+
+def _fill_trunc_normal(param: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
+    """param <- truncated normal in [-3, 3] times fan_in**-0.5, drawn in
+    float32 on param's device (one weight's f32 copy at a time)."""
+    w = torch.empty(param.shape, dtype=torch.float32, device=param.device)
+    w.uniform_(2 * _TRUNC_LO - 1, 2 * _TRUNC_HI - 1, generator=gen)
+    w.erfinv_().mul_(math.sqrt(2.0)).clamp_(-3.0, 3.0).mul_(fan_in ** -0.5)
+    param.copy_(w)
+
+
+class Block(nn.Module):
+    """One decoder layer's weights ([in, out] layout, as in the JAX tree)."""
+
+    def __init__(self, cfg: TransformerConfig, device: torch.device):
+        super().__init__()
+        kv_dim = cfg.n_kv_heads * cfg.head_dim
+        shapes = {
+            "wq": (cfg.dim, cfg.dim),
+            "wk": (cfg.dim, kv_dim),
+            "wv": (cfg.dim, kv_dim),
+            "wo": (cfg.dim, cfg.dim),
+            "w_gate": (cfg.dim, cfg.hidden_dim),
+            "w_up": (cfg.dim, cfg.hidden_dim),
+            "w_down": (cfg.hidden_dim, cfg.dim),
+        }
+
+        def param(*shape: int) -> nn.Parameter:
+            return nn.Parameter(
+                torch.empty(shape, dtype=cfg.dtype, device=device), requires_grad=False
+            )
+
+        self.attn_norm = nn.Parameter(
+            torch.ones(cfg.dim, dtype=cfg.dtype, device=device), requires_grad=False
+        )
+        self.mlp_norm = nn.Parameter(
+            torch.ones(cfg.dim, dtype=cfg.dtype, device=device), requires_grad=False
+        )
+        for name in _LAYER_SHAPES:
+            setattr(self, name, param(*shapes[name]))
+
+
+class Transformer(nn.Module):
+    """The decoder. Construct with ``Transformer.random(cfg, device, seed)``
+    (seeded init on the device) or fill from the JAX tree with
+    ``models/convert.py``."""
+
+    def __init__(self, cfg: TransformerConfig, device: "torch.device | str" = "cpu"):
+        super().__init__()
+        device = torch.device(device)
+        self.cfg = cfg
+        self.embed = nn.Parameter(
+            torch.empty((cfg.vocab_size, cfg.dim), dtype=cfg.dtype, device=device),
+            requires_grad=False,
+        )
+        self.norm_f = nn.Parameter(
+            torch.ones(cfg.dim, dtype=cfg.dtype, device=device), requires_grad=False
+        )
+        self.lm_head = nn.Parameter(
+            torch.empty((cfg.dim, cfg.vocab_size), dtype=cfg.dtype, device=device),
+            requires_grad=False,
+        )
+        self.layers = nn.ModuleList(Block(cfg, device) for _ in range(cfg.n_layers))
+        freqs = cached_freqs(cfg.head_dim, cfg.max_seq, cfg.rope_theta)
+        self.register_buffer("freqs", torch.from_numpy(freqs).to(device), persistent=False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    @classmethod
+    @torch.no_grad()
+    def random(cls, cfg: TransformerConfig, device: "torch.device | str", seed: int = 0) -> "Transformer":
+        """Scaled truncated-normal init drawn on ``device`` from one seeded
+        generator, weight by weight, so an 8B model never sits on the host
+        or in float32 whole. Norm weights are ones."""
+        model = cls(cfg, device)
+        gen = torch.Generator(device=model.device)
+        gen.manual_seed(seed)
+        _fill_trunc_normal(model.embed, cfg.dim, gen)
+        _fill_trunc_normal(model.lm_head, cfg.dim, gen)
+        for layer in model.layers:
+            for name in _LAYER_SHAPES:
+                weight = getattr(layer, name)
+                _fill_trunc_normal(weight, weight.shape[0], gen)
+        return model
+
+    # -- one decoder block ---------------------------------------------------
+    def _block(
+        self,
+        layer: Block,
+        x: torch.Tensor,
+        positions: torch.Tensor,
+        kv_cache: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+        write_at: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+        starts: Optional[torch.Tensor] = None,
+        kv_lens: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Without a cache: causal attention over this call's keys. With one
+        (``kv_cache`` = this layer's [B, max_seq, Hkv, D] k and v): write
+        the new k/v at the (rows, cols) index ``write_at`` and attend the
+        cache from ``starts`` [B] up to ``kv_lens``."""
+        cfg = self.cfg
+        b, s, _ = x.shape
+        h = rms_norm(x, layer.attn_norm, cfg.norm_eps)
+        q = mm(h, layer.wq).view(b, s, cfg.n_heads, cfg.head_dim)
+        k = mm(h, layer.wk).view(b, s, cfg.n_kv_heads, cfg.head_dim)
+        v = mm(h, layer.wv).view(b, s, cfg.n_kv_heads, cfg.head_dim)
+        q = apply_rope(q, self.freqs, positions)
+        k = apply_rope(k, self.freqs, positions)
+        if kv_cache is None:
+            attn = attention(q, k, v, causal=True)
+        else:
+            k_cache, v_cache = kv_cache
+            k_cache[write_at] = k.to(k_cache.dtype)
+            v_cache[write_at] = v.to(v_cache.dtype)
+            attn = attention(
+                q, k_cache, v_cache, causal=True, q_offset=starts, kv_lens=kv_lens
+            )
+        x = x + mm(attn.reshape(b, s, cfg.dim), layer.wo)
+        h = rms_norm(x, layer.mlp_norm, cfg.norm_eps)
+        gated = F.silu(mm(h, layer.w_gate)) * mm(h, layer.w_up)
+        return x + mm(gated, layer.w_down)
+
+    # -- full-sequence forward -------------------------------------------------
+    @torch.no_grad()
+    def transformer_forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """[B, S] ids -> f32 logits [B, S, V] (no cache)."""
+        s = tokens.shape[1]
+        positions = torch.arange(s, device=tokens.device)
+        x = self.embed[tokens.long()]
+        for layer in self.layers:
+            x = self._block(layer, x, positions)
+        x = rms_norm(x, self.norm_f, self.cfg.norm_eps)
+        return mm(x, self.lm_head).float()
+
+    forward = transformer_forward
+
+    # -- KV-cached ragged-batch serving path ------------------------------------
+    def init_cache(self, batch: int, max_seq: Optional[int] = None) -> dict:
+        """Zeroed cache [n_layers, B, max_seq, n_kv_heads, head_dim] plus
+        per-request ``lengths`` [B]. ``max_seq`` may not exceed the
+        config's (the RoPE table bounds valid positions)."""
+        cfg = self.cfg
+        max_seq = max_seq or cfg.max_seq
+        if max_seq > cfg.max_seq:
+            raise ValueError(
+                f"cache max_seq {max_seq} exceeds config max_seq {cfg.max_seq} "
+                "(RoPE table bound)"
+            )
+        shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+        dev = self.device
+        return {
+            "k": torch.zeros(shape, dtype=cfg.cache_dtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.cache_dtype, device=dev),
+            "lengths": torch.zeros(batch, dtype=torch.int32, device=dev),
+        }
+
+    def _run_cached(self, tokens: torch.Tensor, cache: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        """Shared cached forward: ``tokens`` [B, S] starting at each row's
+        ``cache['lengths']``. Returns final-norm hidden states [B, S, D] and
+        the starts [B]. Query j of row b sees cache positions <= start_b + j
+        that were written (kv_lens = start + S)."""
+        b, s = tokens.shape
+        dev = tokens.device
+        starts = cache["lengths"]
+        steps = torch.arange(s, device=dev)[None, :]
+        positions = torch.clamp(starts[:, None].long() + steps, max=self.cfg.max_seq - 1)
+        written = starts + s
+        # the cache write index, shared by every layer; the write start
+        # clamps so the update fits, as XLA's dynamic_update_slice does
+        first = torch.clamp(starts, max=cache["k"].shape[2] - s).long()
+        write_at = (torch.arange(b, device=dev)[:, None], first[:, None] + steps)
+        x = self.embed[tokens.long()]
+        for i, layer in enumerate(self.layers):
+            x = self._block(
+                layer, x, positions, kv_cache=(cache["k"][i], cache["v"][i]),
+                write_at=write_at, starts=starts, kv_lens=written,
+            )
+        return rms_norm(x, self.norm_f, self.cfg.norm_eps), starts
+
+    def _forward_with_cache(
+        self, tokens: torch.Tensor, cache: dict, lengths: Optional[torch.Tensor]
+    ) -> tuple[torch.Tensor, dict]:
+        b, s = tokens.shape
+        if lengths is None:
+            lengths = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
+        x, starts = self._run_cached(tokens, cache)
+        # each row's last REAL position (pad-aware bucketed prefill)
+        last = torch.clamp(lengths.long() - 1, 0, s - 1)
+        x_last = x[torch.arange(b, device=x.device), last]
+        logits = mm(x_last, self.lm_head).float()
+        return logits, {"k": cache["k"], "v": cache["v"], "lengths": starts + lengths}
+
+    @torch.no_grad()
+    def prefill(
+        self, tokens: torch.Tensor, cache: dict, lengths: Optional[torch.Tensor] = None
+    ) -> tuple[torch.Tensor, dict]:
+        """A (possibly padded) prompt bucket [B, S] with true ``lengths``
+        [B] -> next-token logits [B, V] and the advanced cache.
+
+        Chunk-resume contract: the call starts at ``cache['lengths']`` and
+        attends the whole written window, so feeding a prompt in slices
+        gives the same cache contents and final logits as one call."""
+        return self._forward_with_cache(tokens, cache, lengths)
+
+    @torch.no_grad()
+    def decode_step(self, token: torch.Tensor, cache: dict) -> tuple[torch.Tensor, dict]:
+        """One step: ``token`` [B, 1] -> logits [B, V] and the cache."""
+        return self._forward_with_cache(token, cache, None)
+
+    @torch.no_grad()
+    def decode_chunk(
+        self,
+        token: torch.Tensor,
+        cache: dict,
+        n_steps: int,
+        generator: Optional[torch.Generator] = None,
+        temperature: Any = 0.0,
+        top_k: Any = 0,
+        top_p: Any = 1.0,
+        min_p: Any = 0.0,
+    ) -> tuple[torch.Tensor, dict]:
+        """``n_steps`` autoregressive steps with on-device sampling and no
+        host sync between steps. ``token`` [B, 1] is the last known token;
+        returns sampled ids [B, n_steps] (int32) and the advanced cache.
+        A scalar ``temperature`` of 0 is greedy."""
+        greedy = isinstance(temperature, (int, float)) and temperature <= 0.0
+        toks = []
+        for _ in range(n_steps):
+            logits, cache = self.decode_step(token, cache)
+            if greedy:
+                nxt = torch.argmax(logits, dim=-1)
+            else:
+                nxt = sample_logits_rows(logits, generator, temperature, top_k, top_p, min_p)
+            token = nxt.to(torch.int32)[:, None]
+            toks.append(token)
+        return torch.cat(toks, dim=1), cache

@@ -1,0 +1,189 @@
+"""Deadline-based dynamic batcher in front of prefill.
+
+Trimmed copy of ``gofr_tpu/tpu/batcher.py::DynamicBatcher``: requests
+enqueue (payload, Future) on a bounded queue (overflow is a 429); a worker
+thread takes the first request and drains more until ``max_batch`` or
+``timeout_ms`` past the FIRST request's arrival; with a ``bucket_fn`` the
+drained batch splits into per-bucket cohorts and the fullest dispatches
+(the rest wait for the next round); dispatches run on a small pool so one
+batch's host work overlaps the next. Metrics, tracing, deadlines and the
+prefill/decode scheduler of the JAX package are not ported yet.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from collections import deque
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Any, Callable, Optional, Sequence
+
+import numpy as np
+
+from gofr_tpu_torch.errors import TooManyRequestsError
+
+
+def next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def pack_token_rows(
+    rows: Sequence[np.ndarray], n_rows: int, width: int, pad_id: int = 0
+) -> tuple[np.ndarray, np.ndarray]:
+    """Pack variable-length id rows into [n_rows, width] plus per-row kept
+    lengths. Overlong rows keep their LAST tokens."""
+    out = np.full((n_rows, width), pad_id, np.int32)
+    out_lens = np.zeros(n_rows, np.int32)
+    for i, row in enumerate(rows):
+        ids = np.asarray(row, np.int32).reshape(-1)[-width:]
+        out[i, : ids.size] = ids
+        out_lens[i] = ids.size
+    return out, out_lens
+
+
+class _Item:
+    __slots__ = ("payload", "future", "arrival")
+
+    def __init__(self, payload: Any):
+        self.payload = payload
+        self.future: Future = Future()
+        self.arrival = time.perf_counter()
+
+
+class DynamicBatcher:
+    """Batches ``run_batch(list_of_payloads) -> list_of_results`` calls;
+    ``run_batch`` pads internally and returns one result per payload."""
+
+    def __init__(
+        self,
+        run_batch: Callable[[list[Any]], Sequence[Any]],
+        max_batch: int = 8,
+        timeout_ms: float = 5.0,
+        max_queue: int = 256,
+        name: str = "default",
+        pipeline_depth: int = 2,
+        bucket_fn: Optional[Callable[[Any], int]] = None,
+    ):
+        self.run_batch = run_batch
+        self.max_batch = max_batch
+        self.timeout_s = timeout_ms / 1000.0
+        self.bucket_fn = bucket_fn
+        self.dispatches = 0  # batches handed to run_batch
+        self._count_lock = threading.Lock()
+        self._dispatch_pool = ThreadPoolExecutor(
+            max_workers=max(1, pipeline_depth), thread_name_prefix=f"gofr-dispatch-{name}"
+        )
+        self._queue: "queue.Queue[Optional[_Item]]" = queue.Queue(maxsize=max_queue)
+        self._pending: "deque[_Item]" = deque()
+        self._closed = False
+        self._thread = threading.Thread(
+            target=self._run, daemon=True, name=f"gofr-batcher-{name}"
+        )
+        self._thread.start()
+
+    def submit(self, payload: Any) -> Future:
+        if self._closed:
+            raise RuntimeError("batcher is closed")
+        item = _Item(payload)
+        try:
+            self._queue.put_nowait(item)
+        except queue.Full:
+            raise TooManyRequestsError("inference queue is full") from None
+        return item.future
+
+    def infer(self, payload: Any, timeout: float = 600.0) -> Any:
+        """Blocking call for sync handlers."""
+        return self.submit(payload).result(timeout=timeout)
+
+    def _run(self) -> None:
+        pending = self._pending
+        while True:
+            if pending:
+                first = pending.popleft()
+            else:
+                try:
+                    first = self._queue.get(timeout=0.5)
+                except queue.Empty:
+                    if self._closed:
+                        return
+                    continue
+                if first is None:
+                    return
+            batch = [first]
+            deadline = first.arrival + self.timeout_s
+            closing = False
+            while len(batch) < self.max_batch:
+                if pending:
+                    batch.append(pending.popleft())
+                    continue
+                remaining = deadline - time.perf_counter()
+                if remaining <= 0:
+                    break
+                try:
+                    item = self._queue.get(timeout=remaining)
+                except queue.Empty:
+                    break
+                if item is None:
+                    closing = True
+                    break
+                batch.append(item)
+            batch = [item for item in batch if not item.future.cancelled()]
+            if batch:
+                cohort, rest = self._form_cohort(batch)
+                pending.extend(rest)
+                self._dispatch_pool.submit(self._dispatch, cohort)
+            if closing:
+                while pending:
+                    cohort, rest = self._form_cohort(list(pending))
+                    pending.clear()
+                    pending.extend(rest)
+                    self._dispatch_pool.submit(self._dispatch, cohort)
+                return
+
+    def _form_cohort(self, batch: list[_Item]) -> tuple[list[_Item], list[_Item]]:
+        """Split a drained batch by bucket and pick the fullest cohort (ties
+        go to the one holding the oldest item). Returns (cohort, displaced)."""
+        if self.bucket_fn is None or len(batch) <= 1:
+            return batch, []
+        groups: dict[int, list[_Item]] = {}
+        for item in batch:
+            groups.setdefault(self.bucket_fn(item.payload), []).append(item)
+        if len(groups) <= 1:
+            return batch, []
+        chosen = max(groups.values(), key=lambda g: (len(g), -min(i.arrival for i in g)))
+        keep = set(map(id, chosen))
+        return chosen, [i for i in batch if id(i) not in keep]
+
+    def _dispatch(self, batch: list[_Item]) -> None:
+        with self._count_lock:
+            self.dispatches += 1
+        try:
+            results = self.run_batch([item.payload for item in batch])
+        except Exception as exc:
+            for item in batch:
+                if not item.future.cancelled():
+                    item.future.set_exception(exc)
+            return
+        for item, result in zip(batch, results):
+            if not item.future.cancelled():
+                item.future.set_result(result)
+
+    def close(self) -> None:
+        self._closed = True
+        try:
+            self._queue.put_nowait(None)
+        except queue.Full:
+            pass
+        self._thread.join(timeout=2.0)
+        while True:
+            try:
+                item = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if item is not None and not item.future.done():
+                item.future.set_exception(RuntimeError("batcher closed"))
+        self._dispatch_pool.shutdown(wait=False)
