@@ -5,7 +5,8 @@
 
 Phases, each fatal on failure (no phase is skipped or caught):
 
-1. build: compile ``gofr_tpu_torch/csrc/flash_fwd.cu`` with nvcc for sm_90a;
+1. build: compile every ``gofr_tpu_torch/csrc/*.cu`` (the flash forward and
+   the backward's dQ and dK/dV kernels) with nvcc for sm_90a, in parallel;
 2. kernel vs plain: the flash kernel against ``flash_attention_ref`` at
    llama3-8b head shapes (bf16, Hq=32, Hkv=8, D=128: ragged causal prefill
    with a poisoned cache tail, decode over a 2048-slot cache, a kv_lens=0
@@ -22,7 +23,28 @@ Phases, each fatal on failure (no phase is skipped or caught):
 5. serve: ``new()`` with MODEL_NAME=llama3-8b (full width and depth, bf16,
    random weights from MODEL_SEED), four /v1/completions requests (two
    concurrent prompts in two buckets, one streamed, one sampled), the
-   launch count of the kernel over that run, TTFT and decode tokens/s.
+   launch count of the kernel over that run, TTFT and decode tokens/s;
+6. backward kernels vs plain: the dQ and dK/dV kernels against
+   ``flash_attention_bwd_ref`` at the training shape (B=1, S=2048, Hq=32,
+   Hkv=8, D=128, bf16, causal), a ragged GQA case with a poisoned cache
+   tail whose dK/dV rows must be exactly 0, a kv_lens=0 row (all grads
+   exactly 0), a non-causal case and f32 D=16 at the tiny model's shapes
+   (bf16 2e-2 + 2e-2*|ref|, f32 1e-4 + 2e-5*|ref|, as tests/test_flash.py's
+   gradient tests);
+7. backward kernel times at the training shape: each kernel, its bound,
+   the plain backward, and the backward of scaled_dot_product_attention
+   (forward + backward minus forward) as a yardstick; the forward kernel at
+   the same shape;
+8. f32 training parity: the tiny f32 model, built on the card from a seed,
+   takes 3 ``make_train_step`` steps through the kernels; a CPU copy with
+   the same weights takes them through the plain versions; the losses
+   agree and every layer of every step launched all three kernels;
+9. train llama3-8b: full width and depth, bf16, random weights from a
+   seed, AdamW, remat, batch 1 of 2049-token crops (the model sees 2048)
+   from a TokenDataset over a uint32 corpus made with numpy, 4 steps on one
+   batch through ``prefetch_to_device``: finite and falling loss, every
+   layer's attention through the kernels in every step, step time,
+   tokens/s, MFU and peak memory.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA
@@ -31,6 +53,7 @@ device or without the gofr_tpu_torch package beside it.
 
 from __future__ import annotations
 
+import gc
 import http.client
 import json
 import os
@@ -44,6 +67,8 @@ import time
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+# backward: (atol, rtol), tests/test_flash.py's gradient tolerance for f32
+BWD_TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-4, 2e-5)}
 
 
 class SmokeFailure(Exception):
@@ -341,6 +366,212 @@ def serve(torch, flash, card: str):
         app.shutdown()
 
 
+# -- phase 6/7: the backward kernels ----------------------------------------------
+
+def bwd_case(torch, flash, gen, b, sq, skv, hq, hkv, d, dtype, offsets, kv_lens, causal=True):
+    """Inputs of one backward call: q, k, v (poisoned past kv_len), dO, and
+    the forward kernel's out and lse."""
+    q, k, v, offs, lens = make_case(torch, gen, b, sq, skv, hq, hkv, d, dtype, offsets, kv_lens,
+                                    poison=True)
+    do = torch.randn(b, sq, hq, d, device="cuda", generator=gen).to(dtype)
+    out, lse = flash.flash_attention_fwd(q, k, v, causal, offs, lens)
+    return {"q": q, "k": k, "v": v, "offs": offs, "lens": lens, "out": out, "lse": lse,
+            "do": do, "causal": causal}
+
+
+def compare_bwd(torch, flash, name, c):
+    """Both backward kernels against their plain version. -> (max |dq err|,
+    max |dk, dv err|, (dq, dk, dv))."""
+    scale = c["q"].shape[-1] ** -0.5
+    args = (c["q"], c["k"], c["v"], c["offs"], c["lens"], c["out"], c["lse"], c["do"],
+            c["causal"], scale)
+    got = flash._launch_bwd(*args)
+    torch.cuda.synchronize()
+    want = flash.flash_attention_bwd_ref(*args)
+    atol, rtol = BWD_TOL[str(c["q"].dtype).split(".")[-1]]
+    errs, ok = [], True
+    for a, w in zip(got, want):
+        a, w = a.float(), w.float()
+        err = (a - w).abs()
+        ok = ok and bool(torch.isfinite(a).all()) and bool((err <= atol + rtol * w.abs()).all())
+        errs.append(float(err.max()))
+    tail = (torch.arange(c["k"].shape[1], device="cuda")[None, :] >= c["lens"][:, None])
+    tail_zero = all(bool((g[tail] == 0).all()) for g in got[1:])
+    print(f"bwd-kernel-vs-plain {name}: max|err| dq {errs[0]:.3e} dk {errs[1]:.3e} "
+          f"dv {errs[2]:.3e} tol {atol} + {rtol}*|ref|, dK/dV past kv_len exactly 0: "
+          f"{tail_zero} -> {'ok' if ok and tail_zero else 'FAIL'}", flush=True)
+    check(ok, f"{name}: backward kernels disagree with their plain version")
+    check(tail_zero, f"{name}: dK/dV rows past kv_len are not exactly 0")
+    return errs[0], max(errs[1:]), got
+
+
+def visible_pairs(c) -> int:
+    b, sq = c["q"].shape[:2]
+    lens = [int(x) for x in c["lens"].tolist()]
+    offs = [int(x) for x in c["offs"].tolist()]
+    pairs = 0
+    for bi in range(b):
+        for r in range(sq):
+            vis = min(lens[bi], offs[bi] + r + 1) if c["causal"] else lens[bi]
+            pairs += max(vis, 0)
+    return pairs
+
+
+def bwd_bound(c, which: str):
+    """Least time of one backward kernel on the card: each input read once
+    (K/V up to kv_len), each output written once, over HBM rate; 6 (dQ) or
+    8 (dK/dV) x D x Hq operations per visible (query, key) pair over the
+    peak of the inputs' type."""
+    q, k = c["q"], c["k"]
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    es = q.element_size()
+    kv = sum(int(x) for x in c["lens"].tolist()) * hkv * d * es
+    reads = 2 * q.numel() * es + 2 * kv + 2 * b * hq * sq * 4 + 2 * b * 4
+    writes = q.numel() * es if which == "dq" else 2 * kv
+    flops = (6 if which == "dq" else 8) * d * hq * visible_pairs(c)
+    t_bytes = (reads + writes) / PEAK_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[str(q.dtype).split(".")[-1]]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sdpa_backward_ms(torch, c, iters):
+    """scaled_dot_product_attention's backward at the same shape (causal,
+    GQA), timed as forward + backward minus forward."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (c[n].transpose(1, 2).detach().requires_grad_() for n in ("q", "k", "v"))
+    g = c["do"].transpose(1, 2)
+
+    def fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        torch.autograd.grad(out, (qt, kt, vt), g)
+
+    return time_ms(torch, fwd_bwd, iters) - time_ms(torch, fwd, iters)
+
+
+def time_bwd(torch, flash, c, iters):
+    """Phase 7 at the training shape: per kernel ms, bound, plain ms (the
+    whole plain backward) and SDPA's backward; the forward kernel too."""
+    scale = c["q"].shape[-1] ** -0.5
+    do = c["do"].contiguous()
+    dvec = (do.float() * c["out"].float()).sum(-1).transpose(1, 2).contiguous()
+    kargs = (c["q"], c["k"], c["v"], do, c["lse"], dvec, c["offs"], c["lens"], c["causal"], scale)
+    dq_ms = time_ms(torch, lambda: flash.launch_dq(*kargs), iters)
+    dkv_ms = time_ms(torch, lambda: flash.launch_dkv(*kargs), iters)
+    plain_ms = time_ms(torch, lambda: flash.flash_attention_bwd_ref(
+        c["q"], c["k"], c["v"], c["offs"], c["lens"], c["out"], c["lse"], c["do"], c["causal"],
+        scale), 3)
+    library_ms = sdpa_backward_ms(torch, c, iters)
+    rows = {}
+    for name, ms in (("dq", dq_ms), ("dkv", dkv_ms)):
+        bound_ms, bound_by = bwd_bound(c, name)
+        rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": library_ms}
+        print(f"bwd-kernel-time {name} training shape {tuple(c['q'].shape)}: "
+              f"{json.dumps(rows[name])}", flush=True)
+    fwd = time_shape(torch, flash, "training forward", (c["q"], c["k"], c["v"], c["offs"],
+                                                         c["lens"]), iters)
+    return rows, fwd
+
+
+# -- phase 8: f32 training parity ----------------------------------------------------
+
+def f32_training(torch, flash):
+    import numpy as np
+
+    from gofr_tpu_torch.models.llama import TINY
+    from gofr_tpu_torch.models.transformer import Transformer
+    from gofr_tpu_torch.training import trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    opt_card, opt_cpu = trainer.default_optimizer(1e-3), trainer.default_optimizer(1e-3)
+    card = trainer.init_train_state(TINY, opt_card, device="cuda", seed=11)
+    plain = Transformer(TINY, "cpu")
+    plain.load_state_dict(card["model"].state_dict())
+    cpu = trainer.init_train_state_from(plain, opt_cpu)
+    step_card = trainer.make_train_step(TINY, opt_card)
+    step_cpu = trainer.make_train_step(TINY, opt_cpu)
+    rng = np.random.default_rng(11)
+    tol = 1e-4  # relative: f32 sums in other orders, three Adam steps
+    for i in range(3):
+        tokens = rng.integers(0, TINY.vocab_size, (2, 33)).astype("int32")
+        for c in (flash.launches, flash.launches_dq, flash.launches_dkv):
+            c.reset()
+        card, m_card = step_card(card, tokens)
+        loss_card = float(m_card["loss"])
+        counts = [c.value for c in (flash.launches, flash.launches_dq, flash.launches_dkv)]
+        cpu, m_cpu = step_cpu(cpu, tokens)
+        loss_cpu = float(m_cpu["loss"])
+        rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+        print(f"f32-train step {i + 1}: loss card {loss_card:.7f} cpu {loss_cpu:.7f} "
+              f"(rel {rel:.2e}, tol {tol}); grad_norm card {float(m_card['grad_norm']):.6f} "
+              f"cpu {float(m_cpu['grad_norm']):.6f}; launches fwd/dq/dkv {counts}", flush=True)
+        check(rel <= tol, "f32 training: card and CPU losses differ")
+        n = TINY.n_layers
+        check(counts[0] >= 2 * n and counts[1] >= n and counts[2] >= n,
+              "f32 training: a layer's attention missed a kernel")
+
+
+# -- phase 9: train llama3-8b ---------------------------------------------------------
+
+def train_llama(torch, flash, card: str):
+    import numpy as np
+
+    from gofr_tpu_torch.models.llama import LLAMA3_8B
+    from gofr_tpu_torch.training import trainer
+    from gofr_tpu_torch.training.data import TokenDataset, prefetch_to_device
+
+    cfg, seq, steps = LLAMA3_8B, 2049, 4
+    t0 = time.perf_counter()
+    opt = trainer.default_optimizer(3e-4)
+    state = trainer.init_train_state(cfg, opt, device="cuda", seed=0)
+    n_params = sum(p.numel() for p in state["model"].parameters())
+    step_fn = trainer.make_train_step(cfg, opt, remat=True)
+    corpus = np.random.default_rng(0).integers(0, cfg.vocab_size, 1 << 20, dtype=np.uint32)
+    batch = TokenDataset(corpus, seq_len=seq, batch_size=1, seed=0).batch(0)
+    torch.cuda.synchronize()
+    print(f"train: llama3-8b {n_params / 1e9:.3f} B parameters, optimizer state built in "
+          f"{time.perf_counter() - t0:.1f}s, memory "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, times, totals = [], [], [], [0, 0, 0]
+    for i, tokens in enumerate(prefetch_to_device(iter([batch] * steps), size=2, device="cuda")):
+        counters = (flash.launches, flash.launches_dq, flash.launches_dkv)
+        for c in counters:
+            c.reset()
+        t = time.perf_counter()
+        state, m = step_fn(state, tokens)
+        loss, norm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        counts = [c.value for c in counters]
+        totals = [a + b for a, b in zip(totals, counts)]
+        losses.append(loss)
+        norms.append(norm)
+        print(f"train step {i + 1}: loss {loss:.4f} grad_norm {norm:.4f} "
+              f"{times[-1] * 1e3:.1f} ms, launches fwd/dq/dkv {counts}", flush=True)
+        check(counts[1] >= cfg.n_layers and counts[2] >= cfg.n_layers and
+              counts[0] >= 2 * cfg.n_layers, "train: a layer's attention missed a kernel")
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)), "train: non-finite loss or norm")
+    check(losses[-1] < losses[0], "train: the loss did not fall")
+    step_s = sorted(times[1:])[len(times[1:]) // 2]
+    tokens_per_step = seq - 1
+    pairs = tokens_per_step * (tokens_per_step + 1) // 2
+    attn_flops = 12 * cfg.head_dim * cfg.n_heads * pairs * cfg.n_layers  # fwd + bwd, no recompute
+    mfu = (6 * n_params * tokens_per_step + attn_flops) / step_s / PEAK_FLOPS["bfloat16"]
+    metrics = {"step_ms": step_s * 1e3, "tokens_per_s": tokens_per_step / step_s, "mfu": mfu,
+               "peak_memory_gib": peak / 2**30, "losses": losses, "launches": totals}
+    print(f"train-metrics [{card}]: {json.dumps(metrics)}", flush=True)
+    return metrics
+
+
 def main() -> int:
     import torch
 
@@ -402,6 +633,34 @@ def main() -> int:
     torch.cuda.empty_cache()
     f32_path(torch, flash)
     launches = serve(torch, flash, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"serve: shut down, memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+    train_case = bwd_case(torch, flash, gen, 1, 2048, 2048, 32, 8, 128, bf16, [0], [2048])
+    bwd_cases = {
+        "training shape bf16 B=1 S=2048 causal": train_case,
+        "ragged GQA bf16 B=2 Sq=300 Skv=1024 poisoned": bwd_case(
+            torch, flash, gen, 2, 300, 1024, 32, 8, 128, bf16, [0, 500], [300, 800]),
+        "bf16 kv_lens=0 row": bwd_case(torch, flash, gen, 2, 64, 128, 32, 8, 128, bf16,
+                                       [0, 64], [0, 128]),
+        "non-causal bf16 B=1 S=512": bwd_case(torch, flash, gen, 1, 512, 512, 32, 8, 128, bf16,
+                                              [0], [512], causal=False),
+        "f32 D=16 tiny shapes": bwd_case(torch, flash, gen, 2, 40, 128, 4, 2, 16, f32,
+                                         [0, 20], [40, 60]),
+    }
+    dq_errs, dkv_errs = [], []
+    for name, c in bwd_cases.items():
+        e_dq, e_dkv, grads = compare_bwd(torch, flash, name, c)
+        dq_errs.append(e_dq)
+        dkv_errs.append(e_dkv)
+        if "kv_lens=0" in name:
+            check(all(bool((g[0] == 0).all()) for g in grads), "kv_lens=0 row: grads not exactly 0")
+    bwd_rows, shapes["training_forward"] = time_bwd(torch, flash, train_case, 20)
+    del bwd_cases, train_case
+    torch.cuda.empty_cache()
+    f32_training(torch, flash)
+    train = train_llama(torch, flash, card)
 
     kernels = {"kernels": [{
         "name": "flash_fwd",
@@ -409,10 +668,23 @@ def main() -> int:
         "source": "gofr_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "gofr_tpu/ops/flash.py:224",
         "launches": launches,
+        "training_launches": train["launches"][0],
         "max_abs_err": max(errs),
         **shapes["served_prefill_1024"],
         "by_shape": shapes,
-    }]}
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "gofr_tpu_torch/csrc/flash_bwd.cu",
+        "replaces": replaces,
+        "launches": train["launches"][i],
+        "max_abs_err": max(e),
+        "shape": "B=1 S=2048 Hq=32 Hkv=8 D=128 bf16 causal",
+        **bwd_rows[key],
+    } for name, replaces, i, e, key in (
+        ("flash_bwd_dq", "gofr_tpu/ops/flash.py:477", 1, dq_errs, "dq"),
+        ("flash_bwd_dkv", "gofr_tpu/ops/flash.py:521", 2, dkv_errs, "dkv"),
+    )]}
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)  # name, power limit as nvidia-smi gives them
     print(json.dumps({"ok": True, "device": {

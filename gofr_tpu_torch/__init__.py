@@ -1,11 +1,13 @@
 """PyTorch/CUDA port of gofr_tpu for one NVIDIA H100.
 
-This slice serves Llama-family decoders over ``POST /v1/completions``:
-``new()`` builds the app, ``register_openai_routes(app)`` adds the
-endpoint, and every attention call on a CUDA tensor runs the hand-written
-flash-attention forward kernel (``csrc/flash_fwd.cu``). Entry points run
-on ``cuda`` unless ``TORCH_DEVICE=cpu`` asks for the CPU (where the
-kernel's plain PyTorch version runs instead).
+It serves Llama-family decoders over ``POST /v1/completions``: ``new()``
+builds the app, ``register_openai_routes(app)`` adds the endpoint, and
+every attention call on a CUDA tensor runs the hand-written
+flash-attention forward kernel (``csrc/flash_fwd.cu``). It trains them
+(``training/``), with attention's backward in the hand-written dQ and
+dK/dV kernels (``csrc/flash_bwd.cu``). Entry points run on ``cuda``
+unless the caller asks for the CPU (``TORCH_DEVICE=cpu``, or
+``device="cpu"``), where the kernels' plain PyTorch versions run instead.
 """
 
 from __future__ import annotations

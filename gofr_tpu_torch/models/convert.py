@@ -1,4 +1,4 @@
-"""Carry weights from the JAX package's parameter tree into the port.
+"""Carry weights between the JAX package's parameter tree and the port.
 
 The tree is nested dicts of arrays (numpy, or anything ``np.asarray``
 accepts): ``embed`` [V, D], ``norm_f`` [D], ``lm_head`` [D, V] and
@@ -6,6 +6,8 @@ accepts): ``embed`` [V, D], ``norm_f`` [D], ``lm_head`` [D, V] and
 arrives as an ``ml_dtypes`` dtype; it is viewed as uint16 and then as
 ``torch.bfloat16`` (bit-exact) without importing ``ml_dtypes``.
 Quantized packs (dicts) are not ported yet and raise.
+``tree_from_transformer`` goes the other way, for comparing a trained
+model with the JAX state.
 """
 
 from __future__ import annotations
@@ -55,3 +57,23 @@ def transformer_from_tree(
         for i, block in enumerate(model.layers):
             put(getattr(block, name), stacked[i])
     return model
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    # numpy has no bfloat16 without ml_dtypes: bf16 widens to f32 exactly
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+
+def tree_from_transformer(model: Transformer) -> dict:
+    """The model's weights as the JAX parameter tree: numpy arrays, the
+    per-layer weights stacked ``[n_layers, ...]`` under ``layers``."""
+    return {
+        "embed": _to_numpy(model.embed),
+        "norm_f": _to_numpy(model.norm_f),
+        "lm_head": _to_numpy(model.lm_head),
+        "layers": {
+            name: np.stack([_to_numpy(getattr(block, name)) for block in model.layers])
+            for name in ("attn_norm", "mlp_norm", *_LAYER_SHAPES)
+        },
+    }

@@ -5,7 +5,9 @@ Port of ``gofr_tpu/models/transformer.py``. Weights keep the JAX
 package's [in, out] layout so ``x @ w`` reads the same; the layer stack
 is an ``nn.ModuleList`` (the JAX ``lax.scan`` over stacked weights becomes
 a Python loop). Attention goes through ``ops/attention.py``: the flash
-kernel on the card, its plain version on the CPU.
+kernels on the card (forward, and backward when training), their plain
+versions on the CPU. Parameters are built with ``requires_grad=False``, so
+serving builds no graph; the trainer turns it on.
 
 The KV cache is ``{"k", "v": [n_layers, B, max_seq, n_kv_heads, head_dim],
 "lengths": [B] int32}``. Unlike the JAX package, ``prefill``/``decode_step``
@@ -23,6 +25,7 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from gofr_tpu_torch.models.quant import mm
 from gofr_tpu_torch.ops.attention import attention
@@ -185,14 +188,20 @@ class Transformer(nn.Module):
         return x + mm(gated, layer.w_down)
 
     # -- full-sequence forward -------------------------------------------------
-    @torch.no_grad()
-    def transformer_forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """[B, S] ids -> f32 logits [B, S, V] (no cache)."""
+    def transformer_forward(self, tokens: torch.Tensor, remat: bool = False) -> torch.Tensor:
+        """[B, S] ids -> f32 logits [B, S, V] (no cache; training and
+        scoring). Differentiable when the parameters require grad.
+        ``remat`` recomputes each block in the backward instead of keeping
+        its activations (``torch.utils.checkpoint``), the counterpart of
+        the JAX trainer's ``jax.checkpoint``: only the block inputs stay."""
         s = tokens.shape[1]
         positions = torch.arange(s, device=tokens.device)
         x = self.embed[tokens.long()]
         for layer in self.layers:
-            x = self._block(layer, x, positions)
+            if remat:
+                x = checkpoint(self._block, layer, x, positions, use_reentrant=False)
+            else:
+                x = self._block(layer, x, positions)
         x = rms_norm(x, self.norm_f, self.cfg.norm_eps)
         return mm(x, self.lm_head).float()
 

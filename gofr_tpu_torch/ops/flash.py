@@ -1,21 +1,27 @@
-"""Flash-attention forward: a hand-written CUDA kernel for Hopper and its
-plain PyTorch version.
+"""Flash attention: hand-written CUDA kernels for Hopper, forward and
+backward, their plain PyTorch versions, and the ``autograd.Function``
+that joins them.
 
-Port of ``gofr_tpu/ops/flash.py::_flash_fwd_impl`` (the Pallas ``_kernel``).
-The kernel (``csrc/flash_fwd.cu``) computes, per (batch, q-head, q-tile),
-an online softmax over K/V tiles in float32, maps q-head ``h`` to kv-head
+Port of ``gofr_tpu/ops/flash.py``: the forward ``_flash_fwd_impl`` (the
+Pallas ``_kernel``) and the backward ``_flash_bwd_impl`` (``_dq_kernel``
+and ``_dkv_kernel``) with its ``custom_vjp``. The forward kernel
+(``csrc/flash_fwd.cu``) computes, per (batch, q-head, q-tile), an online
+softmax over K/V tiles in float32, maps q-head ``h`` to kv-head
 ``h // groups`` (GQA without repeated KV), bounds its KV loop by
 ``kv_lens`` and the causal diagonal, and emits the output in q's dtype
 plus a per-row log-sum-exp in float32 (out 0 and LSE +inf on a row with
-no visible key).
+no visible key). The backward kernels (``csrc/flash_bwd.cu``) recompute
+the probabilities from that log-sum-exp: one gives dQ, the other dK and
+dV, summed over the GQA group inside the block.
 
 Layouts: q [B, Sq, Hq, D]; k, v [B, Skv, Hkv, D]; Hq % Hkv == 0.
 ``q_offset`` (scalar or [B]) is the absolute position of q row 0;
 ``kv_lens`` ([B], optional) bounds the valid cache prefix.
 
-Dispatch is by the tensor's device: a CPU tensor runs
-``flash_attention_ref``; a CUDA tensor launches the kernel or raises.
-The kernel is compiled with ``nvcc`` for ``sm_90a`` at first use into
+Dispatch is by the tensor's device: a CPU tensor runs the plain version
+(``flash_attention_ref``, ``flash_attention_bwd_ref``); a CUDA tensor
+launches the kernel or raises. Every ``csrc/*.cu`` is compiled with
+``nvcc`` for ``sm_90a`` at first use into one library under
 ``gofr_tpu_torch/_build/`` and loaded with ``ctypes``; a failed build
 raises.
 """
@@ -36,16 +42,17 @@ import torch
 
 _NEG_INF = -1e30
 
-# must match csrc/flash_fwd.cu
+# must match csrc/flash_fwd.cu and csrc/flash_bwd.cu
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
-SOURCE = _PKG_DIR / "csrc" / "flash_fwd.cu"
+CSRC = _PKG_DIR / "csrc"
+SOURCE = CSRC / "flash_fwd.cu"
 BUILD_DIR = _PKG_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 )
 
 
@@ -70,7 +77,9 @@ class LaunchCounter:
             self._n = 0
 
 
-launches = LaunchCounter()
+launches = LaunchCounter()  # the forward kernel
+launches_dq = LaunchCounter()  # the backward's dQ kernel
+launches_dkv = LaunchCounter()  # the backward's dK/dV kernel
 
 
 class _Built:
@@ -97,35 +106,70 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (put it on PATH or set CUDA_HOME)")
 
 
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
 def build() -> _Built:
-    """Compile ``csrc/flash_fwd.cu`` (once per process and source hash) and
-    load it. Raises RuntimeError with nvcc's output if the build fails."""
+    """Compile every ``csrc/*.cu`` (one nvcc per source, all at once) and
+    link them into one library, once per process and per hash of the
+    sources, headers and flags; then load it. Raises RuntimeError with
+    nvcc's output if a step fails."""
     global _built
     with _build_lock:
         if _built is not None:
             return _built
-        src = SOURCE.read_bytes()
-        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        sources = _sources()
+        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for src in sources + sorted(CSRC.glob("*.cuh")):
+            digest.update(src.name.encode() + src.read_bytes())
+        tag = digest.hexdigest()[:16]
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        path = BUILD_DIR / f"libflash_fwd_{tag}.so"
+        path = BUILD_DIR / f"libflash_{tag}.so"
         start = time.perf_counter()
         log = ""
         if not path.exists():
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}) building {SOURCE.name}:\n{log}"
+            nvcc = _nvcc()
+            tmp = BUILD_DIR / f"{tag}.{os.getpid()}"
+            tmp.mkdir(exist_ok=True)
+            objs = [tmp / f"{src.stem}.o" for src in sources]
+            procs = [
+                subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                 )
-            os.replace(tmp, path)
+                for src, obj in zip(sources, objs)
+            ]
+            for src, proc in zip(sources, procs):
+                log += f"== {src.name}\n{proc.communicate()[0]}"
+            failed = [src.name for src, proc in zip(sources, procs) if proc.returncode != 0]
+            if not failed:
+                link = subprocess.run(
+                    [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp / "lib.so"), *map(str, objs)],
+                    capture_output=True, text=True,
+                )
+                log += link.stdout + link.stderr
+                if link.returncode != 0:
+                    failed = ["link"]
+            if failed:
+                raise RuntimeError(f"nvcc failed building {', '.join(failed)}:\n{log}")
+            os.replace(tmp / "lib.so", path)
+            shutil.rmtree(tmp, ignore_errors=True)
         lib = ctypes.CDLL(str(path))
-        fn = lib.gofr_flash_fwd
-        fn.restype = ctypes.c_int
-        fn.argtypes = (
+        fwd = lib.gofr_flash_fwd
+        fwd.restype = ctypes.c_int
+        fwd.argtypes = (
             [ctypes.c_int, ctypes.c_int]
             + [ctypes.c_void_p] * 7
+            + [ctypes.c_int] * 5
+            + [ctypes.c_int64] * 9
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        )
+        bwd = lib.gofr_flash_bwd
+        bwd.restype = ctypes.c_int
+        bwd.argtypes = (
+            [ctypes.c_int] * 3
+            + [ctypes.c_void_p] * 11
             + [ctypes.c_int] * 5
             + [ctypes.c_int64] * 9
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -152,6 +196,22 @@ def _normalize_scalars(
     return offsets.contiguous(), lens.contiguous()
 
 
+def _visible(
+    q: torch.Tensor, k: torch.Tensor, q_offset, kv_lens: Optional[torch.Tensor], causal: bool
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(live [B, Skv]: keys before kv_len, mask [B, 1, 1, Sq, Skv]: the
+    (query, key) pairs that attend)."""
+    b, sq, skv = q.shape[0], q.shape[1], k.shape[1]
+    offsets, lens = _normalize_scalars(q, k, q_offset, kv_lens)
+    k_pos = torch.arange(skv, device=q.device)
+    live = k_pos[None, :] < lens[:, None]
+    valid = live[:, None, :].expand(b, sq, skv)
+    if causal:
+        q_pos = offsets[:, None] + torch.arange(sq, device=q.device)[None, :]
+        valid = valid & (k_pos[None, None, :] <= q_pos[:, :, None])
+    return live, valid[:, None, None]
+
+
 def flash_attention_ref(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -170,14 +230,7 @@ def flash_attention_ref(
     groups = hq // hkv
     if scale is None:
         scale = d ** -0.5
-    offsets, lens = _normalize_scalars(q, k, q_offset, kv_lens)
-    k_pos = torch.arange(skv, device=q.device)
-    live = k_pos[None, :] < lens[:, None]  # [B, Skv]
-    valid = live[:, None, :].expand(b, sq, skv)
-    if causal:
-        q_pos = offsets[:, None] + torch.arange(sq, device=q.device)[None, :]
-        valid = valid & (k_pos[None, None, :] <= q_pos[:, :, None])
-    mask = valid[:, None, None]  # [B, 1, 1, Sq, Skv]
+    live, mask = _visible(q, k, q_offset, kv_lens, causal)
     qg = q.reshape(b, sq, hkv, groups, d).float()
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
     logits = logits.masked_fill(~mask, _NEG_INF)
@@ -266,6 +319,159 @@ def flash_attention_fwd(
     return _launch(q, k, v, offsets, lens, causal, scale)
 
 
+def flash_attention_bwd_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_offset,
+    kv_lens: Optional[torch.Tensor],
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    causal: bool,
+    scale: float,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward kernels, written out as the
+    TPU kernels compute it (not autograd through the forward): P = exp(S -
+    LSE) in float32 (0 where the key is masked or LSE is +inf), dP = dO·Vᵀ
+    and D = rowsum(dO ⊙ O) in float32, dS = P ⊙ (dP − D) rounded to k's
+    dtype for dS·K and to q's dtype for dSᵀ·Q, P kept float32 for Pᵀ·dO;
+    sums in float32, cast to the inputs' dtypes. -> (dq, dk, dv)."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    groups = hq // hkv
+    live, mask = _visible(q, k, q_offset, kv_lens, causal)
+    # unwritten cache slots never reach a product (0 * NaN would survive)
+    tail = ~live[:, :, None, None]
+    k_live = k.masked_fill(tail, 0).float()
+    v_live = v.masked_fill(tail, 0).float()
+    qg = q.reshape(b, sq, hkv, groups, d).float()
+    dog = do.reshape(b, sq, hkv, groups, d).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_live) * scale
+    s = s.masked_fill(~mask, _NEG_INF)
+    p = torch.exp(s - lse.reshape(b, hkv, groups, sq, 1))  # masked or LSE +inf -> 0
+    dvec = (dog * out.reshape(b, sq, hkv, groups, d).float()).sum(-1)  # [B, Sq, Hkv, G]
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v_live)
+    ds = p * (dp - dvec.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds.to(k.dtype).float(), k_live) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds.to(q.dtype).float(), qg) * scale
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+    return dq.reshape(b, sq, hq, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+               lse: torch.Tensor, dvec: torch.Tensor) -> None:
+    _check(q, k, v)
+    if do.shape != q.shape:
+        raise ValueError(f"dO {tuple(do.shape)} must be q's shape {tuple(q.shape)}")
+    if do.dtype != q.dtype or do.device != q.device:
+        raise TypeError(f"dO must be q's dtype and device, got {do.dtype} on {do.device}")
+    if not do.is_contiguous():
+        raise ValueError("dO must be contiguous")
+    rows = (q.shape[0], q.shape[2], q.shape[1])
+    for name, t in (("lse", lse), ("D", dvec)):
+        if t.shape != rows or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be [B, Hq, Sq] contiguous float32, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+    if q.dtype == torch.bfloat16:
+        # the bf16 dK/dV kernel loads Q and dO tiles 16 bytes a thread too
+        if any(t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]) for t in (q, do)):
+            raise ValueError("bf16 q and dO need 16-byte aligned rows (pointer and strides)")
+
+
+def _launch_bwd_kernel(
+    which: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, dvec: torch.Tensor, offsets: torch.Tensor, lens: torch.Tensor,
+    causal: bool, scale: float, outputs: tuple[Optional[torch.Tensor], ...],
+) -> None:
+    """``which`` 0 launches the dQ kernel into ``outputs`` = (dq, None,
+    None), 1 the dK/dV kernel into (None, dk, dv)."""
+    _check_bwd(q, k, v, do, lse, dvec)
+    built = build()
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    ptrs = [None if t is None else t.data_ptr() for t in outputs]
+    rc = built.lib.gofr_flash_bwd(
+        which, _DTYPE_CODES[q.dtype], d,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        dvec.data_ptr(), offsets.data_ptr(), lens.data_ptr(), *ptrs,
+        b, sq, skv, hq, hkv,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        float(scale), int(causal), q.device.index or 0,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        msg = built.lib.gofr_cuda_error_string(rc).decode()
+        name = ("flash_bwd_dq", "flash_bwd_dkv")[which]
+        raise RuntimeError(f"{name} launch failed: {msg} (cuda error {rc})")
+    (launches_dq, launches_dkv)[which].add()
+
+
+def launch_dq(q, k, v, do, lse, dvec, offsets, lens, causal, scale) -> torch.Tensor:
+    """The dQ kernel alone: dq [B, Sq, Hq, D] in q's dtype. ``do`` is
+    contiguous; ``dvec`` is D = rowsum(dO ⊙ O) as [B, Hq, Sq] float32."""
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if q.numel():
+        _launch_bwd_kernel(0, q, k, v, do, lse, dvec, offsets, lens, causal, scale,
+                           (dq, None, None))
+    return dq
+
+
+def launch_dkv(
+    q, k, v, do, lse, dvec, offsets, lens, causal, scale
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The dK/dV kernel alone: (dk, dv) [B, Skv, Hkv, D] in k's dtype,
+    every element written (zeros past kv_len, and everywhere when Sq = 0)."""
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    if k.numel():
+        _launch_bwd_kernel(1, q, k, v, do, lse, dvec, offsets, lens, causal, scale,
+                           (None, dk, dv))
+    return dk, dv
+
+
+def _launch_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, offsets: torch.Tensor,
+    lens: torch.Tensor, out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+    causal: bool, scale: float,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Both backward kernels on the current stream. dO arrives from
+    autograd and may be a non-contiguous view (the gradient of a reshape,
+    an expand or a transpose of the output); the kernels read it as
+    [B, Sq, Hq, D] rows, so it is made contiguous here."""
+    do = do.contiguous()
+    # D = rowsum(dO ⊙ O), one plain reduction shared by both kernels (the
+    # JAX package computes it outside Pallas too)
+    dvec = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()  # [B, Hq, Sq]
+    dq = launch_dq(q, k, v, do, lse, dvec, offsets, lens, causal, scale)
+    dk, dv = launch_dkv(q, k, v, do, lse, dvec, offsets, lens, causal, scale)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with the fused backward: the counterpart of the JAX
+    package's ``custom_vjp`` (``_flash_fwd`` / ``_flash_bwd``). Gradients
+    flow to q, k and v; the position tensors get none (JAX's float0)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, offsets, lens, causal: bool, scale: float):
+        out, lse = flash_attention_fwd(q, k, v, causal, offsets, lens, scale)
+        ctx.save_for_backward(q, k, v, offsets, lens, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, offsets, lens, out, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            grads = flash_attention_bwd_ref(
+                q, k, v, offsets, lens, out, lse, do, ctx.causal, ctx.scale
+            )
+        else:
+            grads = _launch_bwd(q, k, v, offsets, lens, out, lse, do, ctx.causal, ctx.scale)
+        return (*grads, None, None, None, None)
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -275,5 +481,9 @@ def flash_attention(
     kv_lens: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Flash attention output only (see ``flash_attention_fwd``)."""
-    return flash_attention_fwd(q, k, v, causal, q_offset, kv_lens, scale)[0]
+    """Flash attention output, differentiable through the backward kernels
+    (see ``flash_attention_fwd`` for the forward's contract)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    offsets, lens = _normalize_scalars(q, k, q_offset, kv_lens)
+    return FlashAttention.apply(q, k, v, offsets, lens, causal, float(scale))

@@ -250,6 +250,6 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for path in files:
         for mod in _imported_roots(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "flax", "optax", "gofr_tpu", "ml_dtypes"), (
+            assert top not in ("jax", "jaxlib", "flax", "optax", "orbax", "gofr_tpu", "ml_dtypes"), (
                 f"{path.relative_to(REPO)} imports {mod}"
             )
