@@ -6,35 +6,46 @@
 Phases, each fatal on failure (no phase is skipped or caught):
 
 1. build: compile every ``gofr_tpu_torch/csrc/*.cu`` (the flash forward and
-   the backward's dQ and dK/dV kernels) with nvcc for sm_90a, in parallel;
-2. kernel vs plain: the flash kernel against ``flash_attention_ref`` at
-   llama3-8b head shapes (bf16, Hq=32, Hkv=8, D=128: ragged causal prefill
-   with a poisoned cache tail, decode over a 2048-slot cache, a kv_lens=0
-   row; and the serving run's own calls: batch-4 prefill at buckets 128 and
-   1024 and batch-1 decode, K/V one layer of a [L, B, 2048, 8, 128] cache
-   poisoned past kv_len) and at the tiny model's f32 D=16, tolerances as in
-   tests/test_flash.py (bf16 2e-2, f32 2e-5, atol + rtol*|ref|);
-3. kernel times at the prefill and decode shapes: the kernel, its bound on
-   the card, the plain version, and scaled_dot_product_attention as a
-   yardstick (never called by the port);
+   the backward's dQ and dK/dV kernels) with nvcc for sm_90a, in parallel,
+   and print each sm90 kernel's registers, spills and shared memory;
+2. kernel vs plain: the flash forward (both variants: sm90 for bf16 D=128
+   Sq >= 64, mma for the rest) against ``flash_attention_ref`` at llama3-8b
+   head shapes (bf16, Hq=32, Hkv=8, D=128: the training shape, ragged
+   causal prefill with a poisoned cache tail, tiles cut at 130/200 and
+   300/1024, GQA groups 1, 2 and 8, decode over a 2048-slot cache,
+   kv_lens=0 rows; and the serving run's own calls: batch-4 prefill at
+   buckets 128 and 1024 and batch-1 decode, K/V one layer of a [L, B,
+   2048, 8, 128] cache poisoned past kv_len with +-300 and with NaN) and at
+   the tiny model's f32 D=16, tolerances as in tests/test_flash.py (bf16
+   2e-2, f32 2e-5, atol + rtol*|ref|);
+3. kernel times at the prefill and decode shapes: the kernel, the mma
+   kernel it replaced at the sm90 variant's shapes, its bound on the card, the plain
+   version, and scaled_dot_product_attention as a yardstick (never called
+   by the port; at the training shape both with a boolean mask and with
+   is_causal=True);
 4. f32 path: the tiny f32 model, built on the card from a seed, greedy-
    decodes 16 tokens through the kernel; the same weights on the CPU
    (plain path) must give the same ids;
 5. serve: ``new()`` with MODEL_NAME=llama3-8b (full width and depth, bf16,
    random weights from MODEL_SEED), four /v1/completions requests (two
    concurrent prompts in two buckets, one streamed, one sampled), the
-   launch count of the kernel over that run, TTFT and decode tokens/s;
-6. backward kernels vs plain: the dQ and dK/dV kernels against
+   launch counts of the forward over that run (sm90 for every prefill
+   dispatch's layers, mma for every decode step's), TTFT and decode
+   tokens/s;
+6. backward kernels vs plain: the dQ and dK/dV kernels (dK/dV's sm90
+   variant for bf16 D=128, its mma variant for f32) against
    ``flash_attention_bwd_ref`` at the training shape (B=1, S=2048, Hq=32,
-   Hkv=8, D=128, bf16, causal), a ragged GQA case with a poisoned cache
-   tail whose dK/dV rows must be exactly 0, a kv_lens=0 row (all grads
-   exactly 0), a non-causal case and f32 D=16 at the tiny model's shapes
-   (bf16 2e-2 + 2e-2*|ref|, f32 1e-4 + 2e-5*|ref|, as tests/test_flash.py's
-   gradient tests);
-7. backward kernel times at the training shape: each kernel, its bound,
-   the plain backward, and the backward of scaled_dot_product_attention
-   (forward + backward minus forward) as a yardstick; the forward kernel at
-   the same shape;
+   Hkv=8, D=128, bf16, causal), ragged GQA cases with a poisoned cache tail
+   (+-300, and NaN in K/V as a strided slice of a [L, B, 2048, 8, 128]
+   cache) whose dK/dV rows must be exactly 0, tiles cut at 130/200, GQA
+   groups 1, 2 and 8, a kv_lens=0 row (all grads exactly 0), a non-causal
+   case and f32 D=16 at the tiny model's shapes (bf16 2e-2 + 2e-2*|ref|,
+   f32 1e-4 + 2e-5*|ref|, as tests/test_flash.py's gradient tests); dK/dV
+   bit-identical across two launches;
+7. backward kernel times at the training shape: each kernel, the mma
+   dK/dV kernel beside the sm90 one, its bound, the plain backward, and the
+   backward of scaled_dot_product_attention (forward + backward minus
+   forward) as a yardstick; the forward kernel at the same shape;
 8. f32 training parity: the tiny f32 model, built on the card from a seed,
    takes 3 ``make_train_step`` steps through the kernels; a CPU copy with
    the same weights takes them through the plain versions; the losses
@@ -47,8 +58,9 @@ Phases, each fatal on failure (no phase is skipped or caught):
    tokens/s, MFU and peak memory.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
-last ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA
-device or without the gofr_tpu_torch package beside it.
+last ``{"ok": true, "device": {...}}``. Exits non-zero, with a line on
+stderr and no result, without a CUDA device (2) or without the
+gofr_tpu_torch package beside it (3).
 """
 
 from __future__ import annotations
@@ -106,32 +118,36 @@ def time_ms(torch, fn, iters: int) -> float:
 # -- phase 2/3: the kernel against its plain version ------------------------
 
 def make_case(torch, gen, b, sq, skv, hq, hkv, d, dtype, offsets, kv_lens, poison=False):
+    """q, k, v, offsets, lens; ``poison`` True puts finite garbage (K 300,
+    V -300) in the tail past kv_len, a float puts that value in both."""
     dev = "cuda"
     q = torch.randn(b, sq, hq, d, device=dev, generator=gen).to(dtype)
     k = torch.randn(b, skv, hkv, d, device=dev, generator=gen).to(dtype)
     v = torch.randn(b, skv, hkv, d, device=dev, generator=gen).to(dtype)
     lens = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
-    if poison:
-        # finite garbage in the unwritten tail: must not move the output
+    if poison is not False:
+        # garbage in the unwritten tail: must not move the output
+        kp, vp = (300.0, -300.0) if poison is True else (poison, poison)
         tail = torch.arange(skv, device=dev)[None, :] >= lens[:, None]
-        k = k.masked_fill(tail[:, :, None, None], 300.0)
-        v = v.masked_fill(tail[:, :, None, None], -300.0)
+        k = k.masked_fill(tail[:, :, None, None], kp)
+        v = v.masked_fill(tail[:, :, None, None], vp)
     offs = torch.tensor(offsets, dtype=torch.int32, device=dev)
     return q, k, v, offs, lens
 
 
-def served_case(torch, gen, b, sq, offset, kv_len, max_seq=2048, layers=2):
+def served_case(torch, gen, b, sq, offset, kv_len, max_seq=2048, layers=2,
+                poison=(300.0, -300.0)):
     """A call as the serving path makes it: q [B, Sq, 32, 128] bf16, K/V
     the last layer of a [layers, B, max_seq, 8, 128] cache (the runner's
     layout, so the slice starts mid-allocation), every row at the same
-    offset and kv_len, finite garbage past kv_len."""
+    offset and kv_len, garbage (``poison`` for K and V) past kv_len."""
     dev, bf16 = "cuda", torch.bfloat16
     q = torch.randn(b, sq, 32, 128, device=dev, generator=gen).to(bf16)
     shape = (layers, b, max_seq, 8, 128)
     k_cache = torch.randn(shape, device=dev, generator=gen).to(bf16)
     v_cache = torch.randn(shape, device=dev, generator=gen).to(bf16)
-    k_cache[:, :, kv_len:] = 300.0
-    v_cache[:, :, kv_len:] = -300.0
+    k_cache[:, :, kv_len:] = poison[0]
+    v_cache[:, :, kv_len:] = poison[1]
     offs = torch.full((b,), offset, dtype=torch.int32, device=dev)
     lens = torch.full((b,), kv_len, dtype=torch.int32, device=dev)
     return q, k_cache[-1], v_cache[-1], offs, lens
@@ -140,15 +156,21 @@ def served_case(torch, gen, b, sq, offset, kv_len, max_seq=2048, layers=2):
 def check_tail_invisible(torch, flash, name, case, out):
     """The kernel's output is bit-identical with the tail past kv_len zeroed."""
     q, k, v, offs, lens = case
-    clean = (torch.arange(k.shape[1], device="cuda")[None, :] < lens[:, None])[:, :, None, None]
-    out2, _ = flash.flash_attention_fwd(q, k * clean, v * clean, True, offs, lens)
+    tail = (torch.arange(k.shape[1], device="cuda")[None, :] >= lens[:, None])[:, :, None, None]
+    out2, _ = flash.flash_attention_fwd(q, k.masked_fill(tail, 0), v.masked_fill(tail, 0), True,
+                                        offs, lens)
     check(torch.equal(out, out2), f"{name}: the poisoned tail moved the kernel's output")
 
 
-def compare(torch, flash, name, case, causal=True):
+def compare(torch, flash, name, case, causal=True, errs=None):
+    """The forward against its plain version; the max error goes into
+    ``errs[variant]``, the variant read from the sm90 counter."""
     q, k, v, offs, lens = case
+    before = flash.launches_fwd_sm90.value
     out, lse = flash.flash_attention_fwd(q, k, v, causal, offs, lens)
     torch.cuda.synchronize()
+    variant = "sm90" if flash.launches_fwd_sm90.value > before else "mma"
+    check(variant == flash.fwd_variant(q), f"{name}: ran the {variant} variant")
     ref_out, ref_lse = flash.flash_attention_ref(q, k, v, causal, offs, lens)
     tol = TOL[str(q.dtype).split(".")[-1]]
     err_out = (out.float() - ref_out.float()).abs()
@@ -159,9 +181,13 @@ def compare(torch, flash, name, case, causal=True):
     ok_lse = bool((err_lse <= tol + tol * ref_lse[finite].abs()).all()) if finite.any() else True
     e_out = float(err_out.max())
     e_lse = float(err_lse.max()) if finite.any() else 0.0
-    print(f"kernel-vs-plain {name}: max|out err| {e_out:.3e} max|lse err| {e_lse:.3e} "
-          f"tol {tol} (atol + rtol*|ref|) -> {'ok' if ok_out and ok_lse else 'FAIL'}", flush=True)
+    print(f"kernel-vs-plain {name} [{variant}]: max|out err| {e_out:.3e} max|lse err| "
+          f"{e_lse:.3e} tol {tol} (atol + rtol*|ref|) -> {'ok' if ok_out and ok_lse else 'FAIL'}",
+          flush=True)
     check(ok_out and ok_lse, f"{name}: kernel disagrees with its plain version")
+    check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
+    if errs is not None:
+        errs[variant].append(max(e_out, e_lse))
     return out, lse, max(e_out, e_lse)
 
 
@@ -188,28 +214,51 @@ def bound(q, k, offsets, kv_lens, causal):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def library_call(torch, q, k, v, offsets, kv_lens):
-    """scaled_dot_product_attention over the same inputs and masking."""
+def library_call(torch, q, k, v, offsets, kv_lens, is_causal=False):
+    """scaled_dot_product_attention over the same inputs and masking: a
+    boolean mask, or (for a plain causal call: offsets 0, every key live,
+    Sq = Skv) its is_causal route."""
     import torch.nn.functional as F
 
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if is_causal:
+        check(sq == skv and not offsets.any() and bool((kv_lens == skv).all()),
+              "is_causal SDPA only for a plain causal call")
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
     k_pos = torch.arange(skv, device=q.device)
     q_pos = offsets[:, None] + torch.arange(sq, device=q.device)[None, :]
-    mask = (k_pos[None, None, :] < kv_lens[:, None, None]) & (k_pos[None, None, :] <= q_pos[:, :, None])
+    mask = ((k_pos[None, None, :] < kv_lens[:, None, None])
+            & (k_pos[None, None, :] <= q_pos[:, :, None]))
     mask = mask[:, None]  # [B, 1, Sq, Skv]
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
 
-def time_shape(torch, flash, name, case, iters):
+def time_shape(torch, flash, name, case, iters, is_causal=False):
+    """One forward shape: the kernel its shape picks, the mma kernel
+    beside the sm90 variant, the bound, the plain version, and SDPA (the
+    boolean mask; with ``is_causal`` also its causal route, and
+    ``library_ms`` the faster of the two)."""
     q, k, v, offs, lens = case
+    scale = q.shape[-1] ** -0.5
+    variant = flash.fwd_variant(q)
     ms = time_ms(torch, lambda: flash.flash_attention_fwd(q, k, v, True, offs, lens), iters)
-    plain_ms = time_ms(torch, lambda: flash.flash_attention_ref(q, k, v, True, offs, lens), iters)
-    library_ms = time_ms(torch, library_call(torch, q, k, v, offs, lens), iters)
-    bound_ms, bound_by = bound(q, k, offs, lens, True)
-    row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-           "library_ms": library_ms}
+    row = {"variant": variant, "ms": ms}
+    if variant == "sm90":
+        row["mma_ms"] = time_ms(
+            torch, lambda: flash._launch(q, k, v, offs, lens, True, scale, variant="mma"), iters)
+    row["plain_ms"] = time_ms(torch, lambda: flash.flash_attention_ref(q, k, v, True, offs, lens),
+                              iters)
+    row["library_mask_ms"] = time_ms(torch, library_call(torch, q, k, v, offs, lens), iters)
+    row["library_ms"] = row["library_mask_ms"]
+    if is_causal:
+        row["library_causal_ms"] = time_ms(
+            torch, library_call(torch, q, k, v, offs, lens, is_causal=True), iters)
+        row["library_ms"] = min(row["library_mask_ms"], row["library_causal_ms"])
+    row["bound_ms"], row["bound_by"] = bound(q, k, offs, lens, True)
+    row["shape"] = (f"B={q.shape[0]} Sq={q.shape[1]} Skv={k.shape[1]} Hq={q.shape[2]} "
+                    f"Hkv={k.shape[2]} D={q.shape[3]} {str(q.dtype).split('.')[-1]} causal")
     print(f"kernel-time {name} {tuple(q.shape)} kv {tuple(k.shape)}: {json.dumps(row)}", flush=True)
     return row
 
@@ -314,6 +363,7 @@ def serve(torch, flash, card: str):
         dev.generate = recording_generate
         # every count to 0 just before the main path runs
         flash.launches.reset()
+        flash.launches_fwd_sm90.reset()
         dispatches0 = dev.batcher.dispatches
         results: dict = {}
 
@@ -331,6 +381,7 @@ def serve(torch, flash, card: str):
         run("stream", {"prompt": short, "stream": True, **greedy}, stream=True)
         run("sampled", {"prompt": long, "max_tokens": 16, "temperature": 0.8, "seed": 1})
         launches = flash.launches.value
+        sm90 = flash.launches_fwd_sm90.value
         dispatches = dev.batcher.dispatches - dispatches0
 
         for key in ("short", "long", "sampled"):
@@ -351,28 +402,34 @@ def serve(torch, flash, card: str):
         print(f"serve greedy ids (short prompt, twice): {short_ids}", flush=True)
         check(len(short_ids) == 2 and short_ids[0] == short_ids[1],
               "serve: the repeated greedy prompt gave different tokens")
-        # every prefill dispatch and every decode step runs each layer's
-        # attention through the kernel
+        # every prefill dispatch runs each layer's attention through the
+        # sm90 variant (buckets >= 64 rows), every decode step through mma
         steps = sum(len(ids) - 1 for _, ids in generations)
-        need = n_layers * (dispatches + steps)
-        print(f"serve: kernel launches {launches} >= n_layers x (prefill dispatches "
-              f"{dispatches} + decode steps {steps}) = {need}", flush=True)
-        check(launches >= need, "serve: the kernel was not launched on every layer")
+        mma = launches - sm90
+        print(f"serve: forward launches {launches}: sm90 {sm90} >= n_layers x prefill "
+              f"dispatches {dispatches} = {n_layers * dispatches}; mma {mma} >= n_layers x "
+              f"decode steps {steps} = {n_layers * steps}", flush=True)
+        check(sm90 >= n_layers * dispatches, "serve: a prefill layer missed the sm90 kernel")
+        check(mma >= n_layers * steps, "serve: a decode layer missed the mma kernel")
         decode_tps = (n_stream - 1) / (times[n_stream - 1] - ttft) if n_stream > 1 else 0.0
         print(f"serve-metrics [{card}]: stream TTFT {ttft * 1e3:.1f} ms, decode "
               f"{decode_tps:.1f} tokens/s (batch 1), concurrent pair {pair_s:.3f}s", flush=True)
-        return launches
+        return {"sm90": sm90, "mma": mma}
     finally:
         app.shutdown()
 
 
 # -- phase 6/7: the backward kernels ----------------------------------------------
 
-def bwd_case(torch, flash, gen, b, sq, skv, hq, hkv, d, dtype, offsets, kv_lens, causal=True):
-    """Inputs of one backward call: q, k, v (poisoned past kv_len), dO, and
-    the forward kernel's out and lse."""
+def bwd_case(torch, flash, gen, b, sq, skv, hq, hkv, d, dtype, offsets, kv_lens, causal=True,
+             poison=True, kv=None):
+    """Inputs of one backward call: q, k, v (poisoned past kv_len, see
+    ``make_case``; ``kv`` = (k, v) given instead, e.g. a cache slice), dO,
+    and the forward kernel's out and lse."""
     q, k, v, offs, lens = make_case(torch, gen, b, sq, skv, hq, hkv, d, dtype, offsets, kv_lens,
-                                    poison=True)
+                                    poison=poison)
+    if kv is not None:
+        k, v = kv
     do = torch.randn(b, sq, hq, d, device="cuda", generator=gen).to(dtype)
     out, lse = flash.flash_attention_fwd(q, k, v, causal, offs, lens)
     return {"q": q, "k": k, "v": v, "offs": offs, "lens": lens, "out": out, "lse": lse,
@@ -380,13 +437,19 @@ def bwd_case(torch, flash, gen, b, sq, skv, hq, hkv, d, dtype, offsets, kv_lens,
 
 
 def compare_bwd(torch, flash, name, c):
-    """Both backward kernels against their plain version. -> (max |dq err|,
-    max |dk, dv err|, (dq, dk, dv))."""
+    """Both backward kernels against their plain version, and dK/dV
+    bit-identical across two launches. -> (max |dq err|, max |dk, dv err|,
+    (dq, dk, dv), dK/dV variant)."""
     scale = c["q"].shape[-1] ** -0.5
     args = (c["q"], c["k"], c["v"], c["offs"], c["lens"], c["out"], c["lse"], c["do"],
             c["causal"], scale)
+    before = flash.launches_dkv_sm90.value
     got = flash._launch_bwd(*args)
     torch.cuda.synchronize()
+    variant = "sm90" if flash.launches_dkv_sm90.value > before else "mma"
+    check(variant == flash.dkv_variant(c["q"]), f"{name}: dK/dV ran the {variant} variant")
+    again = flash._launch_bwd(*args)
+    same = torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])
     want = flash.flash_attention_bwd_ref(*args)
     atol, rtol = BWD_TOL[str(c["q"].dtype).split(".")[-1]]
     errs, ok = [], True
@@ -397,12 +460,14 @@ def compare_bwd(torch, flash, name, c):
         errs.append(float(err.max()))
     tail = (torch.arange(c["k"].shape[1], device="cuda")[None, :] >= c["lens"][:, None])
     tail_zero = all(bool((g[tail] == 0).all()) for g in got[1:])
-    print(f"bwd-kernel-vs-plain {name}: max|err| dq {errs[0]:.3e} dk {errs[1]:.3e} "
-          f"dv {errs[2]:.3e} tol {atol} + {rtol}*|ref|, dK/dV past kv_len exactly 0: "
-          f"{tail_zero} -> {'ok' if ok and tail_zero else 'FAIL'}", flush=True)
+    print(f"bwd-kernel-vs-plain {name} [dK/dV {variant}]: max|err| dq {errs[0]:.3e} dk "
+          f"{errs[1]:.3e} dv {errs[2]:.3e} tol {atol} + {rtol}*|ref|, dK/dV past kv_len "
+          f"exactly 0: {tail_zero}, bit-identical twice: {same} -> "
+          f"{'ok' if ok and tail_zero and same else 'FAIL'}", flush=True)
     check(ok, f"{name}: backward kernels disagree with their plain version")
     check(tail_zero, f"{name}: dK/dV rows past kv_len are not exactly 0")
-    return errs[0], max(errs[1:]), got
+    check(same, f"{name}: dK/dV differ between two launches")
+    return errs[0], max(errs[1:]), got, variant
 
 
 def visible_pairs(c) -> int:
@@ -463,6 +528,7 @@ def time_bwd(torch, flash, c, iters):
     kargs = (c["q"], c["k"], c["v"], do, c["lse"], dvec, c["offs"], c["lens"], c["causal"], scale)
     dq_ms = time_ms(torch, lambda: flash.launch_dq(*kargs), iters)
     dkv_ms = time_ms(torch, lambda: flash.launch_dkv(*kargs), iters)
+    dkv_mma_ms = time_ms(torch, lambda: flash.launch_dkv(*kargs, variant="mma"), iters)
     plain_ms = time_ms(torch, lambda: flash.flash_attention_bwd_ref(
         c["q"], c["k"], c["v"], c["offs"], c["lens"], c["out"], c["lse"], c["do"], c["causal"],
         scale), 3)
@@ -472,10 +538,13 @@ def time_bwd(torch, flash, c, iters):
         bound_ms, bound_by = bwd_bound(c, name)
         rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                       "library_ms": library_ms}
+        if name == "dkv":
+            rows[name] = {"variant": flash.dkv_variant(c["q"]), **rows[name],
+                          "mma_ms": dkv_mma_ms}
         print(f"bwd-kernel-time {name} training shape {tuple(c['q'].shape)}: "
               f"{json.dumps(rows[name])}", flush=True)
     fwd = time_shape(torch, flash, "training forward", (c["q"], c["k"], c["v"], c["offs"],
-                                                         c["lens"]), iters)
+                                                         c["lens"]), iters, is_causal=True)
     return rows, fwd
 
 
@@ -540,9 +609,10 @@ def train_llama(torch, flash, card: str):
           f"{time.perf_counter() - t0:.1f}s, memory "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB", flush=True)
     torch.cuda.reset_peak_memory_stats()
-    losses, norms, times, totals = [], [], [], [0, 0, 0]
+    losses, norms, times, totals = [], [], [], [0, 0, 0, 0, 0]
     for i, tokens in enumerate(prefetch_to_device(iter([batch] * steps), size=2, device="cuda")):
-        counters = (flash.launches, flash.launches_dq, flash.launches_dkv)
+        counters = (flash.launches, flash.launches_dq, flash.launches_dkv,
+                    flash.launches_fwd_sm90, flash.launches_dkv_sm90)
         for c in counters:
             c.reset()
         t = time.perf_counter()
@@ -555,9 +625,13 @@ def train_llama(torch, flash, card: str):
         losses.append(loss)
         norms.append(norm)
         print(f"train step {i + 1}: loss {loss:.4f} grad_norm {norm:.4f} "
-              f"{times[-1] * 1e3:.1f} ms, launches fwd/dq/dkv {counts}", flush=True)
+              f"{times[-1] * 1e3:.1f} ms, launches fwd/dq/dkv/fwd sm90/dkv sm90 {counts}",
+              flush=True)
         check(counts[1] >= cfg.n_layers and counts[2] >= cfg.n_layers and
               counts[0] >= 2 * cfg.n_layers, "train: a layer's attention missed a kernel")
+        # S = 2048, bf16, D = 128: every forward and dK/dV call is sm90
+        check(counts[3] == counts[0] and counts[4] == counts[2],
+              "train: a forward or dK/dV call missed its sm90 variant")
     peak = torch.cuda.max_memory_allocated()
     check(all(np.isfinite(losses)) and all(np.isfinite(norms)), "train: non-finite loss or norm")
     check(losses[-1] < losses[0], "train: the loss did not fall")
@@ -572,13 +646,158 @@ def train_llama(torch, flash, card: str):
     return metrics
 
 
+def print_sm90_build(flash, built) -> None:
+    """Each sm90 kernel's registers, spills and shared memory, from ptxas
+    (-v) and the library (dynamic shared memory is set at launch)."""
+    smem = {"flash_fwd_sm90_kernel": built.lib.gofr_flash_fwd_sm90_smem(),
+            "flash_bwd_dkv_sm90_kernel": built.lib.gofr_flash_bwd_dkv_sm90_smem()}
+    lines = built.log.splitlines()
+    for i, line in enumerate(lines):
+        name = next((n for n in smem if n in line and "Compiling entry" in line), None)
+        if name is None:
+            continue
+        props = [x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
+                 if "spill" in x or "registers" in x]
+        print(f"  ptxas {name}: {'; '.join(props)}; dynamic shared memory {smem[name]} bytes",
+              flush=True)
+
+
+def forward_phases(torch, flash, gen):
+    """Phases 2 and 3. -> (max errors by variant, timing rows by shape)."""
+    bf16, f32, nan = torch.bfloat16, torch.float32, float("nan")
+    errs = {"sm90": [], "mma": []}
+    prefill = make_case(torch, gen, 2, 512, 1024, 32, 8, 128, bf16, [0, 300], [512, 812],
+                        poison=True)
+    decode = make_case(torch, gen, 4, 1, 2048, 32, 8, 128, bf16, [0, 699, 1499, 2047],
+                       [1, 700, 1500, 2048])
+    # run_batch pads the batch to 4 rows and runs the whole bucket against
+    # the fresh 2048-slot cache; solo decode runs one row
+    served = {
+        "served prefill bf16 B=4 bucket 1024": served_case(torch, gen, 4, 1024, 0, 1024),
+        "served prefill bf16 B=4 bucket 128": served_case(torch, gen, 4, 128, 0, 128),
+        "served decode bf16 B=1 kv_len 616": served_case(torch, gen, 1, 1, 615, 616),
+        "cache slice bf16 B=2 Sq=256 NaN tail": served_case(torch, gen, 2, 256, 44, 300,
+                                                            poison=(nan, nan)),
+    }
+    poisoned = {"prefill bf16 B=2 Sq=512 ragged poisoned": prefill,
+                "ragged 300/1024 NaN tail": make_case(torch, gen, 2, 300, 1024, 32, 8, 128, bf16,
+                                                      [0, 500], [300, 800], poison=nan),
+                **served}
+    for name, case in poisoned.items():
+        out, _, _ = compare(torch, flash, name, case, errs=errs)
+        check_tail_invisible(torch, flash, name, case, out)
+    plain = {
+        "training shape bf16 B=1 S=2048": make_case(torch, gen, 1, 2048, 2048, 32, 8, 128, bf16,
+                                                     [0], [2048]),
+        "tiles cut bf16 130/200": make_case(torch, gen, 2, 130, 200, 32, 8, 128, bf16, [0, 70],
+                                            [130, 200]),
+        "GQA groups 1": make_case(torch, gen, 1, 256, 256, 8, 8, 128, bf16, [0], [256]),
+        "GQA groups 2": make_case(torch, gen, 1, 256, 256, 16, 8, 128, bf16, [0], [256]),
+        "GQA groups 8": make_case(torch, gen, 1, 256, 256, 32, 4, 128, bf16, [0], [256]),
+        "decode bf16 B=4 cache 2048": decode,
+        "prefill f32 D=16": make_case(torch, gen, 2, 40, 128, 4, 2, 16, f32, [0, 20], [40, 60]),
+    }
+    for name, case in plain.items():
+        compare(torch, flash, name, case, errs=errs)
+    for name, sq in (("decode bf16 kv_lens=0 row", 1), ("prefill bf16 kv_lens=0 row", 64)):
+        case = make_case(torch, gen, 2, sq, 2048, 32, 8, 128, bf16, [0, 899], [0, 900])
+        out, lse, _ = compare(torch, flash, name, case, errs=errs)
+        check(bool((out[0] == 0).all()) and bool(torch.isinf(lse[0]).all()),
+              f"{name}: not zero/+inf")
+
+    shapes = {
+        "served_prefill_1024": time_shape(torch, flash, "served prefill bucket 1024",
+                                          served["served prefill bf16 B=4 bucket 1024"], 20),
+        "served_prefill_128": time_shape(torch, flash, "served prefill bucket 128",
+                                         served["served prefill bf16 B=4 bucket 128"], 50),
+        "served_decode": time_shape(torch, flash, "served decode",
+                                    served["served decode bf16 B=1 kv_len 616"], 50),
+        "prefill": time_shape(torch, flash, "prefill", prefill, 20),
+        "decode": time_shape(torch, flash, "decode", decode, 50),
+    }
+    return errs, shapes
+
+
+def backward_phases(torch, flash, gen):
+    """Phases 6 and 7. -> (dQ errors, dK/dV errors by variant, dQ and dK/dV
+    timing rows, the forward's timing row at the training shape)."""
+    bf16, f32, nan = torch.bfloat16, torch.float32, float("nan")
+    # K/V one layer of a [2, 2, 2048, 8, 128] cache, NaN past kv_len
+    lens_ = [300, 800]
+    caches = [torch.randn(2, 2, 2048, 8, 128, device="cuda", generator=gen).to(bf16)
+              for _ in "kv"]
+    for cache in caches:
+        for i, n in enumerate(lens_):
+            cache[:, i, n:] = nan
+    train_case = bwd_case(torch, flash, gen, 1, 2048, 2048, 32, 8, 128, bf16, [0], [2048])
+    bwd_cases = {
+        "training shape bf16 B=1 S=2048 causal": train_case,
+        "ragged GQA bf16 B=2 Sq=300 Skv=1024 poisoned": bwd_case(
+            torch, flash, gen, 2, 300, 1024, 32, 8, 128, bf16, [0, 500], [300, 800]),
+        "ragged GQA bf16 Sq=300, K/V a cache slice with a NaN tail": bwd_case(
+            torch, flash, gen, 2, 300, 2048, 32, 8, 128, bf16, [0, 500], lens_, poison=False,
+            kv=(caches[0][-1], caches[1][-1])),
+        "tiles cut bf16 130/200": bwd_case(torch, flash, gen, 2, 130, 200, 32, 8, 128, bf16,
+                                           [0, 70], [130, 200]),
+        "GQA groups 1": bwd_case(torch, flash, gen, 1, 256, 256, 8, 8, 128, bf16, [0], [256]),
+        "GQA groups 2": bwd_case(torch, flash, gen, 1, 256, 256, 16, 8, 128, bf16, [0], [256]),
+        "GQA groups 8": bwd_case(torch, flash, gen, 1, 256, 256, 32, 4, 128, bf16, [0], [256]),
+        "bf16 kv_lens=0 row": bwd_case(torch, flash, gen, 2, 64, 128, 32, 8, 128, bf16,
+                                       [0, 64], [0, 128]),
+        "non-causal bf16 B=1 S=512": bwd_case(torch, flash, gen, 1, 512, 512, 32, 8, 128, bf16,
+                                              [0], [512], causal=False),
+        "f32 D=16 tiny shapes": bwd_case(torch, flash, gen, 2, 40, 128, 4, 2, 16, f32,
+                                         [0, 20], [40, 60]),
+    }
+    dq_errs, dkv_errs = [], {"sm90": [], "mma": []}
+    for name, c in bwd_cases.items():
+        e_dq, e_dkv, grads, variant = compare_bwd(torch, flash, name, c)
+        dq_errs.append(e_dq)
+        dkv_errs[variant].append(e_dkv)
+        if "kv_lens=0" in name:
+            check(all(bool((g[0] == 0).all()) for g in grads), "kv_lens=0 row: grads not exactly 0")
+    bwd_rows, fwd_row = time_bwd(torch, flash, train_case, 20)
+    return dq_errs, dkv_errs, bwd_rows, fwd_row
+
+
+def kernels_line(errs, shapes, served, train, dq_errs, dkv_errs, bwd_rows) -> dict:
+    """The kernels of the main path (serving, training) with their counts
+    from its runs and the numbers phases 3 and 7 measured."""
+    fwd = {"route": "cuda", "source": "gofr_tpu_torch/csrc/flash_fwd.cu",
+           "replaces": "gofr_tpu/ops/flash.py:224"}
+    bwd = {"route": "cuda", "source": "gofr_tpu_torch/csrc/flash_bwd.cu"}
+    sm90_train, mma_train = train["launches"][3], train["launches"][0] - train["launches"][3]
+    return {"kernels": [
+        {"name": "flash_fwd_sm90", **fwd, "launches": served["sm90"] + sm90_train,
+         "serve_launches": served["sm90"], "training_launches": sm90_train,
+         "max_abs_err": max(errs["sm90"]), **shapes["training_forward"],
+         "by_shape": {k: v for k, v in shapes.items() if v["variant"] == "sm90"}},
+        {"name": "flash_fwd_mma", **fwd, "launches": served["mma"] + mma_train,
+         "serve_launches": served["mma"], "training_launches": mma_train,
+         "max_abs_err": max(errs["mma"]), **shapes["served_decode"],
+         "by_shape": {k: v for k, v in shapes.items() if v["variant"] == "mma"}},
+        {"name": "flash_bwd_dq", **bwd, "replaces": "gofr_tpu/ops/flash.py:477",
+         "launches": train["launches"][1], "max_abs_err": max(dq_errs),
+         "shape": "B=1 S=2048 Hq=32 Hkv=8 D=128 bf16 causal", **bwd_rows["dq"]},
+        {"name": "flash_bwd_dkv", **bwd, "replaces": "gofr_tpu/ops/flash.py:521",
+         "launches": train["launches"][4], "max_abs_err": max(dkv_errs["sm90"]),
+         "mma_max_abs_err": max(dkv_errs["mma"]),
+         "shape": "B=1 S=2048 Hq=32 Hkv=8 D=128 bf16 causal", **bwd_rows["dkv"]},
+    ]}
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
-    from gofr_tpu_torch.ops import flash  # fails outside a checkout
+    try:
+        from gofr_tpu_torch.ops import flash
+    except ImportError as e:
+        print(f"chip_smoke: {e}: run it from a checkout of the repository, where "
+              "gofr_tpu_torch/ lies beside it", file=sys.stderr)
+        return 3
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -590,101 +809,24 @@ def main() -> int:
     for line in built.log.splitlines():
         if "Used" in line and "registers" in line:
             print(f"  ptxas: {line.split(':', 1)[-1].strip()}", flush=True)
+    print_sm90_build(flash, built)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    bf16, f32 = torch.bfloat16, torch.float32
-    prefill = make_case(torch, gen, 2, 512, 1024, 32, 8, 128, bf16, [0, 300], [512, 812], poison=True)
-    decode = make_case(torch, gen, 4, 1, 2048, 32, 8, 128, bf16, [0, 699, 1499, 2047], [1, 700, 1500, 2048])
-    empty = make_case(torch, gen, 2, 1, 2048, 32, 8, 128, bf16, [0, 899], [0, 900])
-    tiny = make_case(torch, gen, 2, 40, 128, 4, 2, 16, f32, [0, 20], [40, 60])
-    # run_batch pads the batch to 4 rows and runs the whole bucket against
-    # the fresh 2048-slot cache; solo decode runs one row
-    served = {
-        "served prefill bf16 B=4 bucket 1024": served_case(torch, gen, 4, 1024, 0, 1024),
-        "served prefill bf16 B=4 bucket 128": served_case(torch, gen, 4, 128, 0, 128),
-        "served decode bf16 B=1 kv_len 616": served_case(torch, gen, 1, 1, 615, 616),
-    }
-    errs = []
-    out, _, e = compare(torch, flash, "prefill bf16 B=2 Sq=512 ragged poisoned", prefill)
-    errs.append(e)
-    check_tail_invisible(torch, flash, "prefill", prefill, out)
-    for name, case in served.items():
-        out, _, e = compare(torch, flash, name, case)
-        errs.append(e)
-        check_tail_invisible(torch, flash, name, case, out)
-    errs.append(compare(torch, flash, "decode bf16 B=4 cache 2048", decode)[2])
-    out, lse, e = compare(torch, flash, "decode bf16 kv_lens=0 row", empty)
-    check(bool((out[0] == 0).all()) and bool(torch.isinf(lse[0]).all()), "kv_lens=0 row not zero/+inf")
-    errs.append(e)
-    errs.append(compare(torch, flash, "prefill f32 D=16", tiny)[2])
-
-    shapes = {
-        "served_prefill_1024": time_shape(
-            torch, flash, "served prefill bucket 1024", served["served prefill bf16 B=4 bucket 1024"], 20),
-        "served_prefill_128": time_shape(
-            torch, flash, "served prefill bucket 128", served["served prefill bf16 B=4 bucket 128"], 50),
-        "served_decode": time_shape(
-            torch, flash, "served decode", served["served decode bf16 B=1 kv_len 616"], 50),
-        "prefill": time_shape(torch, flash, "prefill", prefill, 20),
-        "decode": time_shape(torch, flash, "decode", decode, 50),
-    }
-    del served, prefill, decode, empty, tiny
+    errs, shapes = forward_phases(torch, flash, gen)
     torch.cuda.empty_cache()
     f32_path(torch, flash)
-    launches = serve(torch, flash, card)
+    served = serve(torch, flash, card)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"serve: shut down, memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
 
-    train_case = bwd_case(torch, flash, gen, 1, 2048, 2048, 32, 8, 128, bf16, [0], [2048])
-    bwd_cases = {
-        "training shape bf16 B=1 S=2048 causal": train_case,
-        "ragged GQA bf16 B=2 Sq=300 Skv=1024 poisoned": bwd_case(
-            torch, flash, gen, 2, 300, 1024, 32, 8, 128, bf16, [0, 500], [300, 800]),
-        "bf16 kv_lens=0 row": bwd_case(torch, flash, gen, 2, 64, 128, 32, 8, 128, bf16,
-                                       [0, 64], [0, 128]),
-        "non-causal bf16 B=1 S=512": bwd_case(torch, flash, gen, 1, 512, 512, 32, 8, 128, bf16,
-                                              [0], [512], causal=False),
-        "f32 D=16 tiny shapes": bwd_case(torch, flash, gen, 2, 40, 128, 4, 2, 16, f32,
-                                         [0, 20], [40, 60]),
-    }
-    dq_errs, dkv_errs = [], []
-    for name, c in bwd_cases.items():
-        e_dq, e_dkv, grads = compare_bwd(torch, flash, name, c)
-        dq_errs.append(e_dq)
-        dkv_errs.append(e_dkv)
-        if "kv_lens=0" in name:
-            check(all(bool((g[0] == 0).all()) for g in grads), "kv_lens=0 row: grads not exactly 0")
-    bwd_rows, shapes["training_forward"] = time_bwd(torch, flash, train_case, 20)
-    del bwd_cases, train_case
+    dq_errs, dkv_errs, bwd_rows, shapes["training_forward"] = backward_phases(torch, flash, gen)
     torch.cuda.empty_cache()
     f32_training(torch, flash)
     train = train_llama(torch, flash, card)
 
-    kernels = {"kernels": [{
-        "name": "flash_fwd",
-        "route": "cuda",
-        "source": "gofr_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "gofr_tpu/ops/flash.py:224",
-        "launches": launches,
-        "training_launches": train["launches"][0],
-        "max_abs_err": max(errs),
-        **shapes["served_prefill_1024"],
-        "by_shape": shapes,
-    }] + [{
-        "name": name,
-        "route": "cuda",
-        "source": "gofr_tpu_torch/csrc/flash_bwd.cu",
-        "replaces": replaces,
-        "launches": train["launches"][i],
-        "max_abs_err": max(e),
-        "shape": "B=1 S=2048 Hq=32 Hkv=8 D=128 bf16 causal",
-        **bwd_rows[key],
-    } for name, replaces, i, e, key in (
-        ("flash_bwd_dq", "gofr_tpu/ops/flash.py:477", 1, dq_errs, "dq"),
-        ("flash_bwd_dkv", "gofr_tpu/ops/flash.py:521", 2, dkv_errs, "dkv"),
-    )]}
+    kernels = kernels_line(errs, shapes, served, train, dq_errs, dkv_errs, bwd_rows)
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)  # name, power limit as nvidia-smi gives them
     print(json.dumps({"ok": True, "device": {

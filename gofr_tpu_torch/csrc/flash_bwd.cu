@@ -30,12 +30,19 @@
 // scalar prefetch):
 // - dQ: one block of 4 warps per (q tile, q head, batch row), looping over
 //   K/V tiles up to min(cdiv(kv_len), causal diagonal), the forward's bound.
-// - dK/dV: one block of 4 warps per (K/V tile, kv head, batch row), looping
-//   over the GQA group's q heads and, for each, the q tiles from the causal
-//   lower bound lo = max(0, (k0 - offset) / block_q) to the end. The group
-//   sum the TPU made by revisiting its output block happens in the block's
-//   f32 registers: deterministic, no atomics.
-// - bf16 (the training path, D = 128): tensor cores through mma.sync
+// - dK/dV, sm90 variant (bf16, D = 128: the training path; ops/flash.py::
+//   dkv_variant picks it): one block per (128-key tile, q head, batch row),
+//   the blocks of a GQA group one thread block cluster that sums their f32
+//   partials through distributed shared memory in a fixed order; wgmma, a
+//   TMA/mbarrier Q/dO ring, key tiles launched longest first
+//   (flash_bwd_dkv_sm90_kernel below, with its note).
+// - dK/dV, mma variant (f32, D != 128): one block of 4 warps per (K/V
+//   tile, kv head, batch row), looping over the GQA group's q heads and,
+//   for each, the q tiles from the causal lower bound lo = max(0, (k0 -
+//   offset) / block_q) to the end. The group sum the TPU made by
+//   revisiting its output block happens in the block's f32 registers:
+//   deterministic, no atomics.
+// - bf16 mma (dQ at any D; dK/dV at D != 128): tensor cores through mma.sync
 //   m16n8k16. dQ: a 64-row q tile, 16 rows per warp, Q and dO fragments in
 //   registers, 32-key K/V tiles in shared memory; dS goes from the C
 //   registers straight into the A operand of dS.K. dK/dV: a 64-key tile,
@@ -52,11 +59,12 @@
 // What bounds them on the H100 (989 TFLOP/s bf16 dense, 3.35 TB/s HBM): at
 // the training shape (S = 2048, D = 128) operations, 6*D*Hq*(visible pairs)
 // for dQ (three products) and 8*D*Hq*(visible pairs) for dK/dV (four; the
-// hi/lo split adds a fifth that the bound does not count). What this simple
-// design leaves on the table: mma.sync instead of wgmma, synchronous tile
-// loads (no cp.async or TMA pipeline), each K/V (dQ) or Q/dO (dK/dV) tile
-// read again by every block that needs it, and S and dP recomputed in both
-// kernels (a fused kernel with atomic dQ would compute them once).
+// hi/lo split adds a fifth that the bound does not count). What the dQ
+// kernel leaves on the table: mma.sync instead of wgmma, synchronous tile
+// loads, each K/V tile read again by every block that needs it. What both
+// leave: S and dP recomputed in both kernels (a fused kernel with atomic dQ
+// would compute them once); the sm90 dK/dV variant does not overlap one
+// warpgroup's elementwise phase with its own next products.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,6 +72,7 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -412,6 +421,290 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_bf16_kernel(Args a) {
   }
 }
 
+// ------------------------------------------- bf16 dK/dV, D = 128: sm90
+
+// One block of 384 threads per (128-key tile, q head, batch row); the
+// `cluster` blocks of one KV head's GQA group form a thread block cluster
+// along x (grid x = Hkv * cluster), key tiles along z in ascending order:
+// under the causal mask the first key tiles have the most q tiles to
+// visit, so they start first. Where groups > 8 (past the portable cluster
+// size) a block walks `hpb` heads of its group in turn.
+// - Warp 8, the producer (its warpgroup gives its registers to the two
+//   consumer warpgroups: 240 + 240 + 24), loads the block's K and V tiles
+//   once and streams 64-row Q/dO tiles through a four-stage ring by TMA;
+//   its 32 lanes put
+//   the rows' LSE (+inf past Sq, times log2 e) and D (0 past Sq) beside
+//   them in shared memory before the stage's one arrival.
+// - Warpgroups 0 and 1 own 64 keys each. Per Q/dO tile: S^T = K.Q^T and
+//   dP^T = V.dO^T by wgmma (both operands in shared memory), P^T, dS^T and
+//   the bf16 hi + lo split of P^T in registers, then dV += P^T_hi.dO +
+//   P^T_lo.dO and dK += bf16(dS^T).Q by wgmma with the A operand in
+//   registers and dO, Q read transposed from shared memory. dK and dV stay
+//   f32 in registers, 64 x 128 each per warpgroup.
+// - The group sum: each block writes its f32 dK/dV tile to its own shared
+//   memory; after a cluster barrier, block r reads rows [r, r + 1) *
+//   128 / cluster from every block of the cluster through distributed
+//   shared memory, adds them in rank order 0, 1, ... and writes the bf16
+//   result once. No atomics, the same order every launch.
+// Keys past kv_len may hold anything (a NaN cache tail): P^T and dS^T are
+// selected to 0 there, never multiplied, and their output rows are zeros.
+constexpr int kD90BlockN = 128;  // keys per block
+constexpr int kD90BlockM = 64;   // q rows per Q/dO tile
+constexpr int kD90Stages = 4;
+constexpr int kD90Threads = 384;  // warpgroup 2 holds the producer warp
+constexpr int kD90Consumers = 256;
+constexpr int kMaxCluster = 8;  // the portable cluster size
+constexpr int kD90KvHalf = kD90BlockN * 128;  // bytes: 128 rows x 64 bf16 columns
+constexpr int kD90QHalf = kD90BlockM * 128;   // 64 rows x 64 bf16 columns
+constexpr int kD90Stage = 4 * kD90QHalf;      // Q and dO, two halves each
+constexpr int kD90RedLd = 136;                // f32 row pitch of the reduction tile
+constexpr int kD90Red = 2 * kD90BlockN * kD90RedLd * 4;
+constexpr int kD90Ring = 4 * kD90KvHalf + kD90Stages * kD90Stage;
+constexpr int kD90Head = 4096;  // barriers, then LSE and D of every stage
+constexpr int kD90Smem = kD90Head + (kD90Ring > kD90Red ? kD90Ring : kD90Red) + 1024;
+static_assert(kD90Smem <= 232448, "more shared memory than a block may have");
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct D90Args {
+  const float *lse, *dvec;
+  const int32_t *offsets, *kv_lens;
+  bf16 *dk, *dv;
+  int sq, skv, hq, hkv, groups, cluster, hpb;
+  float scale, scale_log2;
+  int causal;
+};
+
+// Block `rank` of the cluster sums its share of the key rows over every
+// block's f32 partials (distributed shared memory, rank order 0, 1, ...)
+// and writes them once as bf16; rows past kv_len as exact zeros.
+__device__ __forceinline__ void dkv_group_sum(const D90Args& a, const float* red, uint32_t crank,
+                                              int hk, int b, int k0, int kv_len, int tid) {
+  const int r_lo = (int)crank * kD90BlockN / a.cluster;
+  const int r_hi = ((int)crank + 1) * kD90BlockN / a.cluster;
+  const int per = (r_hi - r_lo) * 32;  // float4 units of one tensor's share
+  for (int idx = tid; idx < 2 * per; idx += kD90Consumers) {
+    const int which = idx / per, r = r_lo + (idx % per) / 32, c = (idx % 32) * 4;
+    const int krow = k0 + r;
+    if (krow >= a.skv) continue;
+    const float* src = red + which * kD90BlockN * kD90RedLd + r * kD90RedLd + c;
+    float4 part[kMaxCluster];  // all loads in flight at once, then the sum
+#pragma unroll
+    for (int rank = 0; rank < kMaxCluster; ++rank) {
+      if (rank < a.cluster) part[rank] = ld_dsmem_f4(src, (uint32_t)rank);
+    }
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int rank = 0; rank < kMaxCluster; ++rank) {  // a fixed order: deterministic
+      if (rank < a.cluster) {
+        sum.x += part[rank].x;
+        sum.y += part[rank].y;
+        sum.z += part[rank].z;
+        sum.w += part[rank].w;
+      }
+    }
+    const float mul = which == 0 ? a.scale : 1.f;
+    bf16* dst = (which == 0 ? a.dk : a.dv) + (((int64_t)b * a.skv + krow) * a.hkv + hk) * 128 + c;
+    uint2 packed = make_uint2(0u, 0u);  // exact zeros past kv_len
+    if (krow < kv_len) {
+      packed.x = pack_bf16(sum.x * mul, sum.y * mul);
+      packed.y = pack_bf16(sum.z * mul, sum.w * mul);
+    }
+    *reinterpret_cast<uint2*>(dst) = packed;
+  }
+}
+
+__global__ void __launch_bounds__(kD90Threads, 1) flash_bwd_dkv_sm90_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
+    D90Args a) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                             ~uintptr_t(1023));
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kD90Stages;
+  float* lse_s = reinterpret_cast<float*>(smem + 64);  // [stage][64], times log2 e
+  float* d_s = lse_s + kD90Stages * kD90BlockM;        // [stage][64]
+  uint8_t* tiles = smem + kD90Head;
+  uint8_t* ks = tiles;
+  uint8_t* vs = tiles + 2 * kD90KvHalf;
+  uint8_t* ring = tiles + 4 * kD90KvHalf;  // stage s: Q at ring + s * kD90Stage, dO after
+
+  const uint32_t crank = cluster_rank();
+  const int hk = blockIdx.x / a.cluster, b = blockIdx.y;
+  const int h_first = hk * a.groups + (int)crank * a.hpb;
+  const int k0 = blockIdx.z * kD90BlockN;
+  const int offset = a.offsets[b];
+  const int kv_len = min(max(a.kv_lens[b], 0), a.skv);
+  const int n_qt = (a.sq + kD90BlockM - 1) / kD90BlockM;
+  // q tiles before lo end before this key tile's first key
+  const int lo = a.causal ? max(0, k0 - offset) / kD90BlockM : 0;
+  const int per_head = k0 < kv_len ? max(0, n_qt - lo) : 0;
+  const int n_it = per_head * a.hpb;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kD90Stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kD90Consumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= kD90Consumers / 32) {  // the producer warpgroup; warp 8 loads
+    regs_dealloc<24>();
+    if (warp == kD90Consumers / 32 && lane == 0 && n_it > 0) {
+      mbar_arrive_expect_tx(kv_full, 4 * kD90KvHalf);
+      tma_load_4d(ks, &kmap, kv_full, 0, hk, k0, b);
+      tma_load_4d(ks + kD90KvHalf, &kmap, kv_full, 64, hk, k0, b);
+      tma_load_4d(vs, &vmap, kv_full, 0, hk, k0, b);
+      tma_load_4d(vs + kD90KvHalf, &vmap, kv_full, 64, hk, k0, b);
+    }
+    for (int it = 0; warp == kD90Consumers / 32 && it < n_it; ++it) {
+      const int s = it % kD90Stages;
+      const int h = h_first + it / per_head, q0 = (lo + it % per_head) * kD90BlockM;
+      // the rows' LSE and D are read before the wait, so their latency
+      // overlaps it; lanes own rows lane and lane + 32
+      const int64_t lrow = ((int64_t)b * a.hq + h) * a.sq;
+      float lse_r[2], d_r[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = q0 + lane + 32 * i;
+        lse_r[i] = row < a.sq ? a.lse[lrow + row] * kLog2e : INFINITY;
+        d_r[i] = row < a.sq ? a.dvec[lrow + row] : 0.f;
+      }
+      mbar_wait(&empty[s], ((it / kD90Stages) & 1) ^ 1);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        lse_s[s * kD90BlockM + lane + 32 * i] = lse_r[i];
+        d_s[s * kD90BlockM + lane + 32 * i] = d_r[i];
+      }
+      __syncwarp();
+      if (lane == 0) {
+        uint8_t* qs = ring + s * kD90Stage;
+        uint8_t* dos = qs + 2 * kD90QHalf;
+        mbar_arrive_expect_tx(&full[s], kD90Stage);
+        tma_load_4d(qs, &qmap, &full[s], 0, h, q0, b);
+        tma_load_4d(qs + kD90QHalf, &qmap, &full[s], 64, h, q0, b);
+        tma_load_4d(dos, &domap, &full[s], 0, h, q0, b);
+        tma_load_4d(dos + kD90QHalf, &domap, &full[s], 64, h, q0, b);
+      }
+    }
+    cluster_sync();  // the partials are in shared memory
+    cluster_sync();  // and read
+  } else {
+    regs_alloc<240>();
+    float dk[64], dv[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+    const int wg = warp / 4, g = lane / 4, t = lane % 4;
+    const int key_in = wg * 64 + (warp % 4) * 16 + g;  // this thread's keys: key_in, key_in + 8
+    const int kpos0 = k0 + key_in;
+    const uint32_t k_addr = smem_u32(ks) + wg * 64 * 128, v_addr = smem_u32(vs) + wg * 64 * 128;
+    float st[32], dpt[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+    if (n_it > 0) mbar_wait(kv_full, 0);
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % kD90Stages;
+      const int q0 = (lo + it % per_head) * kD90BlockM;
+      mbar_wait(&full[s], (it / kD90Stages) & 1);
+      const uint32_t q_addr = smem_u32(ring + s * kD90Stage), do_addr = q_addr + 2 * kD90QHalf;
+
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const uint32_t kv_off = (kk / 4) * kD90KvHalf + (kk % 4) * 32;
+        const uint32_t q_off = (kk / 4) * kD90QHalf + (kk % 4) * 32;
+        wgmma_m64n64k16_ss(st, smem_desc(k_addr + kv_off, 16, 1024),
+                           smem_desc(q_addr + q_off, 16, 1024), kk > 0);
+        wgmma_m64n64k16_ss(dpt, smem_desc(v_addr + kv_off, 16, 1024),
+                           smem_desc(do_addr + q_off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      // P^T (hi and lo) and dS^T in the A layout of the next products:
+      // score n-tiles 2j and 2j + 1 (q columns) are k-step j
+      const float* ls = lse_s + s * kD90BlockM;
+      const float* dd = d_s + s * kD90BlockM;
+      uint32_t p_hi[4][4], p_lo[4][4], dsf[4][4];
+      // the warpgroup's 64 keys x 64 q rows need no mask when every key is
+      // live, every row is < Sq and (causal) sees every key
+      const int wg_last_key = k0 + wg * 64 + 63;
+      const bool need_mask = wg_last_key >= kv_len || q0 + kD90BlockM > a.sq ||
+                             (a.causal && wg_last_key > offset + q0);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        // this thread's q columns 8i + 2t and + 1, for keys kpos0 and + 8
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * i + 2 * t);
+        const float2 d2 = *reinterpret_cast<const float2*>(dd + 8 * i + 2 * t);
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = 8 * i + 2 * t + (e & 1);
+          const int kpos = kpos0 + (e >> 1) * 8;
+          const int row = q0 + qi;
+          const bool valid = !need_mask || (kpos < kv_len && row < a.sq &&
+                                            (!a.causal || kpos <= offset + row));
+          // LSE +inf (a row with no key) gives exp2(-inf) = 0
+          p[e] = valid ? exp2_fast(st[4 * i + e] * a.scale_log2 - ((e & 1) ? l2.y : l2.x)) : 0.f;
+          ds[e] = valid ? p[e] * (dpt[4 * i + e] - ((e & 1) ? d2.y : d2.x)) : 0.f;
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          // hi = bf16(p), lo = bf16(p - hi): about 16 bits of p in all
+          const uint32_t hi = pack_bf16(p[2 * r], p[2 * r + 1]);
+          const float rest0 = p[2 * r] - __uint_as_float(hi << 16);
+          const float rest1 = p[2 * r + 1] - __uint_as_float(hi & 0xffff0000u);
+          p_hi[i / 2][(i & 1) * 2 + r] = hi;
+          p_lo[i / 2][(i & 1) * 2 + r] = pack_bf16(rest0, rest1);
+          dsf[i / 2][(i & 1) * 2 + r] = pack_bf16(ds[2 * r], ds[2 * r + 1]);
+        }
+      }
+
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint64_t dod = smem_desc(do_addr + j * 16 * 128, kD90QHalf, 1024);
+        wgmma_m64n128k16_rs_tb(dv, p_hi[j], dod);
+        wgmma_m64n128k16_rs_tb(dv, p_lo[j], dod);
+        wgmma_m64n128k16_rs_tb(dk, dsf[j], smem_desc(q_addr + j * 16 * 128, kD90QHalf, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dk);
+      fence_regs(dv);
+      fence_regs(p_hi);
+      fence_regs(p_lo);
+      fence_regs(dsf);
+      mbar_arrive(&empty[s]);
+    }
+
+    // the group sum across the cluster: both warpgroups are done with the
+    // ring (and so is every TMA load), so its memory takes the partials
+    named_bar_sync(1, kD90Consumers);
+    float* red = reinterpret_cast<float*>(tiles);  // dK then dV, [128][kD90RedLd] f32 each
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int o = (key_in + 8 * r) * kD90RedLd + 8 * n + 2 * t;
+        *reinterpret_cast<float2*>(red + o) = make_float2(dk[4 * n + 2 * r], dk[4 * n + 2 * r + 1]);
+        *reinterpret_cast<float2*>(red + kD90BlockN * kD90RedLd + o) =
+            make_float2(dv[4 * n + 2 * r], dv[4 * n + 2 * r + 1]);
+      }
+    }
+    cluster_sync();
+    dkv_group_sum(a, red, crank, hk, b, k0, kv_len, tid);
+    cluster_sync();  // no block leaves while another reads its shared memory
+  }
+}
+
 // ----------------------------------------------------------------- f32 path
 
 constexpr int kBlockQ = 16;
@@ -714,5 +1007,74 @@ int gofr_flash_bwd(int which, int dtype, int head_dim, const void* q, const void
   a.stream = static_cast<cudaStream_t>(stream);
   return dispatch(dtype, head_dim, which, a);
 }
+
+// The sm90 dK/dV kernel (bf16, D = 128; the caller picks it). q, k, v and
+// dout rows must be 16-byte aligned (pointers and strides: TMA reads them);
+// dout, dk, dv, lse and dvec are contiguous. The grid is (Hkv * cluster, B,
+// cdiv(Skv, 128)) in clusters of `cluster` blocks along x, each block
+// walking `hpb` q heads, with cluster * hpb = Hq / Hkv and cluster <= 8;
+// ops/flash.py::dkv_sm90_geometry computes them. Returns a cudaError_t
+// value (0 on success).
+int gofr_flash_bwd_dkv_sm90(const void* q, const void* k, const void* v, const void* dout,
+                            const void* lse, const void* dvec, const void* offsets,
+                            const void* kv_lens, void* dk, void* dv,
+                            int b, int sq, int skv, int hq, int hkv,
+                            int64_t qsb, int64_t qss, int64_t qsh,
+                            int64_t ksb, int64_t kss, int64_t ksh,
+                            int64_t vsb, int64_t vss, int64_t vsh,
+                            float scale, int causal, int grid_x, int grid_y, int grid_z,
+                            int cluster, int hpb, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (hkv < 1 || hq % hkv || cluster < 1 || cluster > kMaxCluster || cluster * hpb != hq / hkv ||
+      grid_x != hkv * cluster || grid_y != b || grid_z != (skv + kD90BlockN - 1) / kD90BlockN) {
+    return (int)cudaErrorInvalidValue;
+  }
+  CUtensorMap qm, km, vm, dom;
+  const int64_t o_ss = (int64_t)hq * 128;  // dout is [B, Sq, Hq, D] contiguous
+  int rc = make_bf16_map(&qm, q, b, sq, hq, 128, qsb, qss, qsh, kD90BlockM);
+  if (rc == 0) rc = make_bf16_map(&dom, dout, b, sq, hq, 128, sq * o_ss, o_ss, 128, kD90BlockM);
+  if (rc == 0) rc = make_bf16_map(&km, k, b, skv, hkv, 128, ksb, kss, ksh, kD90BlockN);
+  if (rc == 0) rc = make_bf16_map(&vm, v, b, skv, hkv, 128, vsb, vss, vsh, kD90BlockN);
+  if (rc != 0) return rc;
+  err = cudaFuncSetAttribute(flash_bwd_dkv_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kD90Smem);
+  if (err != cudaSuccess) return (int)err;
+  D90Args a;
+  a.lse = static_cast<const float*>(lse);
+  a.dvec = static_cast<const float*>(dvec);
+  a.offsets = static_cast<const int32_t*>(offsets);
+  a.kv_lens = static_cast<const int32_t*>(kv_lens);
+  a.dk = static_cast<bf16*>(dk);
+  a.dv = static_cast<bf16*>(dv);
+  a.sq = sq;
+  a.skv = skv;
+  a.hq = hq;
+  a.hkv = hkv;
+  a.groups = hq / hkv;
+  a.cluster = cluster;
+  a.hpb = hpb;
+  a.scale = scale;
+  a.scale_log2 = scale * kLog2e;
+  a.causal = causal;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid_x, grid_y, grid_z);
+  cfg.blockDim = dim3(kD90Threads);
+  cfg.dynamicSmemBytes = kD90Smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attrs[1];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = cluster;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, flash_bwd_dkv_sm90_kernel, qm, km, vm, dom, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of a block of the sm90 variant, in bytes.
+int gofr_flash_bwd_dkv_sm90_smem() { return kD90Smem; }
 
 }  // extern "C"

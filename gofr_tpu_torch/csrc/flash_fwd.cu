@@ -13,28 +13,37 @@
 // to [B, H, S, D] was a TPU tiling need and is not carried over. out is
 // [B, Sq, Hq, D] contiguous, lse [B, Hq, Sq] contiguous.
 //
-// Work split: one block of 128 threads (4 warps) per (q tile, q head,
-// batch row). Each block reads its own q_offset and kv_len (the TPU's
-// scalar prefetch) and loops over K/V tiles staged in shared memory.
-// Scores, the running (m, l, acc) and P.V accumulate in f32; P is rounded
-// to the value dtype before P.V, as the TPU kernel does. Keys at or past
-// kv_len are never read (their tile rows are zero-filled) and get p = 0.
-// - bf16 (the serving path): tensor cores through mma.sync m16n8k16. A
+// Each block reads its own q_offset and kv_len (the TPU's scalar
+// prefetch) and loops over K/V tiles staged in shared memory. Scores, the
+// running (m, l, acc) and P.V accumulate in f32; P is rounded to the value
+// dtype before P.V, as the TPU kernel does; masked keys get p = 0.
+// Two variants; ops/flash.py::fwd_variant picks one by shape:
+// - sm90 (bf16, D = 128, Sq >= 64: training and serving prefill): wgmma
+//   and a TMA/mbarrier K/V ring, warp-specialised, 128-row q tiles
+//   launched longest first (flash_fwd_sm90_kernel below, with its note).
+//   TMA loads whole tiles, so V rows at or past kv_len reach shared memory
+//   and are zeroed there before P.V.
+// - mma (everything else: decode, short tails, f32, D != 128): one block
+//   of 128 threads (4 warps) per (q tile, q head, batch row); keys at or
+//   past kv_len are never read (their tile rows are zero-filled).
+// - mma, bf16 (the serving path's decode): tensor cores through mma.sync m16n8k16. A
 //   64-row q tile, 16 rows per warp; each warp keeps its Q fragments, its
 //   64-key score tile and its 16 x D output accumulator in registers, and
 //   feeds P to P.V straight from the score registers (FlashAttention-2).
 //   K/V tiles of 64 keys are bf16 in shared memory, rows padded by 16 bytes
 //   so every fragment load hits 32 distinct banks.
-// - f32 (the tiny model's check): CUDA-core FMAs. A 16-row q tile, 32-key
+// - mma, f32 (the tiny model's check): CUDA-core FMAs. A 16-row q tile, 32-key
 //   K/V tiles as f32 in shared memory (rows padded by one word), one key
 //   per lane for the scores, one output column per thread for P.V.
 //
 // What bounds it on the H100 (989 TFLOP/s bf16 dense, 3.35 TB/s HBM):
 // - decode (Sq = 1): bytes, K+V of kv_len tokens per (batch, kv head);
 // - long prefill: operations, 4*B*Hq*Sq*Skv*D, about half that when causal.
-// What this simple design leaves on the table: mma.sync instead of wgmma
-// (about half the tensor-core rate at best); synchronous tile loads (no
-// cp.async or TMA pipeline, so a block waits on every tile); decode pads
+// What the sm90 variant still leaves on the table: its two warpgroups do
+// not overlap one tile's softmax with the other's products (no ping-pong),
+// and the output leaves from registers rather than through TMA. What the
+// mma variant leaves: mma.sync (about half the wgmma rate), synchronous
+// tile loads; decode pads
 // its one query row to a 64-row tile (three warps idle), reads each KV head
 // once per query head of its group instead of packing the group into the
 // tile, and has no split-KV, so a batch-1 decode runs on Hq of 132 SMs.
@@ -45,6 +54,7 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -227,6 +237,219 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16_kernel(
     if (t == 0) {
       lse[((int64_t)b * hq + h) * sq + row] =
           l_run[r] > 0.f ? m_run[r] + logf(l_run[r]) : INFINITY;
+    }
+  }
+}
+
+// ------------------------------------------- bf16, D = 128, Sq >= 64: sm90
+
+// One block of 384 threads per (128-row q tile, q head, batch row): warps
+// 0-7 are two consumer warpgroups of 64 q rows each, warp 8 the producer
+// (its warpgroup gives its registers to the consumers: 240 + 240 + 24 a
+// thread, the SM's 512 a sub-partition lane).
+// The producer loads the Q tile once and streams 128-key K/V tiles through
+// a three-stage ring by TMA (full/empty mbarriers). Each consumer warpgroup
+// computes S = Q.K^T with wgmma (Q and K from shared memory), the online
+// softmax on the score registers, and O += P.V with wgmma (P in registers
+// as the A operand, V read transposed from shared memory).
+constexpr int kF90BlockM = 128;
+constexpr int kF90BlockN = 128;
+constexpr int kF90Stages = 3;
+constexpr int kF90Threads = 384;  // warpgroup 2 holds the producer warp
+constexpr int kF90Consumers = 256;
+constexpr int kF90Half = 128 * 128;               // bytes: 128 rows x 64 bf16 columns
+constexpr int kF90Tile = 2 * kF90Half;            // a 128 x 128 bf16 tile, two halves
+constexpr int kF90Smem = 1024 + kF90Tile * (1 + 2 * kF90Stages) + 1024;  // + alignment slack
+static_assert(kF90Smem <= 232448, "more shared memory than a block may have");
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+struct F90Args {
+  const int32_t *offsets, *kv_lens;
+  __nv_bfloat16* out;
+  float* lse;
+  int sq, skv, hq, groups, n_qt;
+  float scale_log2;  // scale * log2(e): the softmax runs in base 2
+  int causal;
+};
+
+__global__ void __launch_bounds__(kF90Threads, 1) flash_fwd_sm90_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, F90Args a) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                             ~uintptr_t(1023));
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kF90Stages;
+  uint8_t* qs = smem + 1024;
+  uint8_t* kvs = qs + kF90Tile;  // stage s: K at kvs + 2s tiles, V right after
+
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / a.groups;
+  // longest first: under the causal mask the last q tiles see the most keys
+  const int qt = a.causal ? a.n_qt - 1 - (int)blockIdx.z : (int)blockIdx.z;
+  const int q0 = qt * kF90BlockM;
+  const int offset = a.offsets[b];
+  const int kv_len = min(max(a.kv_lens[b], 0), a.skv);
+  int hi = (kv_len + kF90BlockN - 1) / kF90BlockN;
+  if (a.causal) hi = min(hi, max(0, (offset + q0 + kF90BlockM + kF90BlockN - 1) / kF90BlockN));
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kF90Stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kF90Consumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= kF90Consumers / 32) {  // the producer warpgroup; warp 8 loads
+    regs_dealloc<24>();
+    if (warp == kF90Consumers / 32 && lane == 0 && hi > 0) {
+      mbar_arrive_expect_tx(q_full, kF90Tile);
+      tma_load_4d(qs, &qmap, q_full, 0, h, q0, b);
+      tma_load_4d(qs + kF90Half, &qmap, q_full, 64, h, q0, b);
+      for (int j = 0; j < hi; ++j) {
+        const int s = j % kF90Stages;
+        mbar_wait(&empty[s], ((j / kF90Stages) & 1) ^ 1);
+        uint8_t* ks = kvs + 2 * s * kF90Tile;
+        uint8_t* vs = ks + kF90Tile;
+        mbar_arrive_expect_tx(&full[s], 2 * kF90Tile);
+        tma_load_4d(ks, &kmap, &full[s], 0, hk, j * kF90BlockN, b);
+        tma_load_4d(ks + kF90Half, &kmap, &full[s], 64, hk, j * kF90BlockN, b);
+        tma_load_4d(vs, &vmap, &full[s], 0, hk, j * kF90BlockN, b);
+        tma_load_4d(vs + kF90Half, &vmap, &full[s], 64, hk, j * kF90BlockN, b);
+      }
+    }
+    return;
+  }
+
+  regs_alloc<240>();
+  const int wg = warp / 4, g = lane / 4, t = lane % 4;
+  const int row_in = wg * 64 + (warp % 4) * 16 + g;  // this thread's rows: row_in, row_in + 8
+  const int qpos0 = offset + q0 + row_in;
+  const int wg_first = offset + q0 + wg * 64;  // the warpgroup's first q position
+  const uint32_t q_addr = smem_u32(qs) + wg * 64 * 128;
+
+  float o[64], sc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = sc[i] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf};
+  float l_run[2] = {0.f, 0.f};  // this thread's share; the quad's sum at the end
+  if (hi > 0) mbar_wait(q_full, 0);
+
+  for (int j = 0; j < hi; ++j) {
+    const int s = j % kF90Stages;
+    const int k0 = j * kF90BlockN;
+    mbar_wait(&full[s], (j / kF90Stages) & 1);
+    uint8_t* vs = kvs + (2 * s + 1) * kF90Tile;
+    const uint32_t k_addr = smem_u32(kvs + 2 * s * kF90Tile), v_addr = smem_u32(vs);
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint32_t off = (kk / 4) * kF90Half + (kk % 4) * 32;
+      wgmma_m64n128k16_ss(sc, smem_desc(q_addr + off, 16, 1024), smem_desc(k_addr + off, 16, 1024),
+                          kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    if (k0 + kF90BlockN > kv_len) {
+      // the tile holds keys at or past kv_len: TMA loaded whatever the cache
+      // holds there, and 0 * NaN is NaN, so zero those V rows before P.V
+      const int first = kv_len - k0;
+      for (int c = tid; c < (kF90BlockN - first) * 16; c += kF90Consumers) {
+        const int r = first + c / 16, half = (c / 8) % 2, chunk = c % 8;
+        *reinterpret_cast<uint4*>(vs + half * kF90Half + r * 128 + chunk * 16) =
+            make_uint4(0, 0, 0, 0);
+      }
+      fence_proxy_async();
+      named_bar_sync(1, kF90Consumers);
+    }
+
+    const bool need_mask = k0 + kF90BlockN > kv_len || (a.causal && k0 + kF90BlockN - 1 > wg_first);
+    float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[4 * i + e] * a.scale_log2;
+        if (need_mask) {
+          const int kpos = k0 + 8 * i + 2 * t + (e & 1);
+          const bool valid = kpos < kv_len && (!a.causal || kpos <= qpos0 + (e >> 1) * 8);
+          x = valid ? x : kNegInf;
+        }
+        sc[4 * i + e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = exp2_fast(m_run[r] - mx[r]);
+      m_run[r] = mx[r];
+      l_run[r] *= alpha[r];
+    }
+    // P in the A layout of P.V: score n-tiles 2i and 2i + 1 are k-step i
+    uint32_t pf[8][4];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // masked keys contribute exactly 0, never exp(-1e30 - m)
+        const float x = sc[4 * i + e];
+        p[e] = x > 0.5f * kNegInf ? exp2_fast(x - m_run[e >> 1]) : 0.f;
+        l_run[e >> 1] += p[e];
+      }
+      pf[i / 2][(i & 1) * 2 + 0] = pack_bf16(p[0], p[1]);
+      pf[i / 2][(i & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+    }
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      o[4 * n + 0] *= alpha[0];
+      o[4 * n + 1] *= alpha[0];
+      o[4 * n + 2] *= alpha[1];
+      o[4 * n + 3] *= alpha[1];
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      wgmma_m64n128k16_rs_tb(o, pf[kk], smem_desc(v_addr + kk * 16 * 128, kF90Half, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+    fence_regs(pf);
+    mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+  }
+  const int64_t out_ss = (int64_t)a.hq * 128;  // out is [B, Sq, Hq, D] contiguous
+  __nv_bfloat16* ob = a.out + (int64_t)b * a.sq * out_ss + (int64_t)h * 128;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + row_in + r * 8;
+    if (row >= a.sq) continue;
+    const float inv = 1.f / (l_run[r] == 0.f ? 1.f : l_run[r]);
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      *reinterpret_cast<uint32_t*>(ob + row * out_ss + n * 8 + 2 * t) =
+          pack_bf16(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
+    }
+    if (t == 0) {
+      a.lse[((int64_t)b * a.hq + h) * a.sq + row] =
+          l_run[r] > 0.f ? (m_run[r] + log2f(l_run[r])) * kLn2 : INFINITY;
     }
   }
 }
@@ -472,8 +695,55 @@ int gofr_flash_fwd(int dtype, int head_dim, const void* q, const void* k, const 
   return dispatch(dtype, head_dim, a);
 }
 
+// The sm90 variant (bf16, D = 128, Sq >= 64; the caller picks it). q, k and
+// v rows must be 16-byte aligned (pointers and strides: TMA reads them).
+// grid is (Hq, B, cdiv(Sq, 128)), the q tiles launched longest first when
+// causal; ops/flash.py::fwd_sm90_grid computes it. Returns a cudaError_t
+// value (0 on success).
+int gofr_flash_fwd_sm90(const void* q, const void* k, const void* v, const void* offsets,
+                        const void* kv_lens, void* out, void* lse,
+                        int b, int sq, int skv, int hq, int hkv,
+                        int64_t qsb, int64_t qss, int64_t qsh,
+                        int64_t ksb, int64_t kss, int64_t ksh,
+                        int64_t vsb, int64_t vss, int64_t vsh,
+                        float scale, int causal, int grid_x, int grid_y, int grid_z,
+                        int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (grid_x != hq || grid_y != b || grid_z != (sq + kF90BlockM - 1) / kF90BlockM || sq < 1 ||
+      hkv < 1 || hq % hkv) {
+    return (int)cudaErrorInvalidValue;
+  }
+  CUtensorMap qm, km, vm;
+  int rc = make_bf16_map(&qm, q, b, sq, hq, 128, qsb, qss, qsh, kF90BlockM);
+  if (rc == 0) rc = make_bf16_map(&km, k, b, skv, hkv, 128, ksb, kss, ksh, kF90BlockN);
+  if (rc == 0) rc = make_bf16_map(&vm, v, b, skv, hkv, 128, vsb, vss, vsh, kF90BlockN);
+  if (rc != 0) return rc;
+  err = cudaFuncSetAttribute(flash_fwd_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kF90Smem);
+  if (err != cudaSuccess) return (int)err;
+  F90Args a;
+  a.offsets = static_cast<const int32_t*>(offsets);
+  a.kv_lens = static_cast<const int32_t*>(kv_lens);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.lse = static_cast<float*>(lse);
+  a.sq = sq;
+  a.skv = skv;
+  a.hq = hq;
+  a.groups = hq / hkv;
+  a.n_qt = grid_z;
+  a.scale_log2 = scale * kLog2e;
+  a.causal = causal;
+  flash_fwd_sm90_kernel<<<dim3(grid_x, grid_y, grid_z), kF90Threads, kF90Smem,
+                          static_cast<cudaStream_t>(stream)>>>(qm, km, vm, a);
+  return (int)cudaGetLastError();
+}
+
 const char* gofr_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+// Dynamic shared memory of a block of the sm90 variant, in bytes.
+int gofr_flash_fwd_sm90_smem() { return kF90Smem; }
 
 }  // extern "C"

@@ -110,7 +110,7 @@ class Transformer(nn.Module):
     (seeded init on the device) or fill from the JAX tree with
     ``models/convert.py``."""
 
-    def __init__(self, cfg: TransformerConfig, device: "torch.device | str" = "cpu"):
+    def __init__(self, cfg: TransformerConfig, device: "torch.device | str" = "cuda"):
         super().__init__()
         device = torch.device(device)
         self.cfg = cfg

@@ -12,7 +12,18 @@ softmax over K/V tiles in float32, maps q-head ``h`` to kv-head
 plus a per-row log-sum-exp in float32 (out 0 and LSE +inf on a row with
 no visible key). The backward kernels (``csrc/flash_bwd.cu``) recompute
 the probabilities from that log-sum-exp: one gives dQ, the other dK and
-dV, summed over the GQA group inside the block.
+dV, summed over the GQA group deterministically (no atomics).
+
+Two kernels have two variants each, picked by shape in pure Python here
+(``fwd_variant``, ``dkv_variant``) and launched with the geometry computed
+here (``fwd_sm90_grid``, ``dkv_sm90_geometry``): "sm90", redesigned for
+Hopper (``wgmma``, TMA tile rings on ``mbarrier``s, warp specialisation,
+longest-first launch order; dK/dV sums the GQA group across a thread
+block cluster), takes bf16 at D = 128 (the forward: Sq >= 64, so training
+and serving prefill); "mma", the ``mma.sync`` kernels, takes
+the rest (decode, short tails, f32, other head dims). ``launches`` and
+``launches_dkv`` count both variants; ``launches_fwd_sm90`` and
+``launches_dkv_sm90`` the sm90 ones alone.
 
 Layouts: q [B, Sq, Hq, D]; k, v [B, Skv, Hkv, D]; Hq % Hkv == 0.
 ``q_offset`` (scalar or [B]) is the absolute position of q row 0;
@@ -77,9 +88,59 @@ class LaunchCounter:
             self._n = 0
 
 
-launches = LaunchCounter()  # the forward kernel
+launches = LaunchCounter()  # the forward, both variants
+launches_fwd_sm90 = LaunchCounter()  # the forward's sm90 variant alone
 launches_dq = LaunchCounter()  # the backward's dQ kernel
-launches_dkv = LaunchCounter()  # the backward's dK/dV kernel
+launches_dkv = LaunchCounter()  # the backward's dK/dV kernel, both variants
+launches_dkv_sm90 = LaunchCounter()  # the dK/dV kernel's sm90 variant alone
+
+# The redesigned (sm90: wgmma, TMA, mbarriers) kernels' tiles, as in
+# csrc/flash_fwd.cu and csrc/flash_bwd.cu
+FWD_SM90_BLOCK_Q = 128
+FWD_SM90_MIN_SQ = 64
+DKV_SM90_BLOCK_KV = 128
+MAX_CLUSTER = 8  # the portable thread block cluster size
+
+
+def _tma_ok(t: torch.Tensor) -> bool:
+    """TMA reads rows whose pointer and strides are multiples of 16 bytes."""
+    es = t.element_size()
+    return t.data_ptr() % 16 == 0 and all((s * es) % 16 == 0 for s in t.stride()[:3])
+
+
+def fwd_variant(q: torch.Tensor) -> str:
+    """Which forward kernel takes a call: "sm90" for bf16, D = 128, Sq >= 64
+    with 16-byte aligned q rows (training and serving prefill); "mma",
+    the mma kernel, for the rest (decode, short tails, f32, other D)."""
+    sq, d = q.shape[1], q.shape[3]
+    if q.dtype == torch.bfloat16 and d == 128 and sq >= FWD_SM90_MIN_SQ and _tma_ok(q):
+        return "sm90"
+    return "mma"
+
+
+def fwd_sm90_grid(b: int, sq: int, hq: int) -> tuple[int, int, int]:
+    """(q heads, batch rows, q tiles): the kernel maps blockIdx.z to the q
+    tiles in reverse under the causal mask, longest first."""
+    return hq, b, -(-sq // FWD_SM90_BLOCK_Q)
+
+
+def dkv_variant(q: torch.Tensor) -> str:
+    """Which dK/dV kernel takes a call: "sm90" for bf16, D = 128 and Sq >= 1
+    (the wrapper checks the 16-byte rows TMA needs), "mma" for the rest."""
+    if q.dtype == torch.bfloat16 and q.shape[-1] == 128 and q.shape[1] >= 1:
+        return "sm90"
+    return "mma"
+
+
+def dkv_sm90_geometry(b: int, skv: int, hq: int, hkv: int) -> dict:
+    """Launch geometry of the sm90 dK/dV kernel: clusters of ``cluster``
+    blocks (one per q head of a GQA group, the largest divisor of the group
+    size up to 8) along x, each block walking ``heads_per_block`` heads;
+    key tiles along z in ascending order, the causal mask's longest first."""
+    groups = hq // hkv
+    cluster = max(c for c in range(1, MAX_CLUSTER + 1) if groups % c == 0)
+    return {"grid": (hkv * cluster, b, -(-skv // DKV_SM90_BLOCK_KV)), "cluster": cluster,
+            "heads_per_block": groups // cluster}
 
 
 class _Built:
@@ -174,6 +235,25 @@ def build() -> _Built:
             + [ctypes.c_int64] * 9
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         )
+        fwd90 = lib.gofr_flash_fwd_sm90
+        fwd90.restype = ctypes.c_int
+        fwd90.argtypes = (
+            [ctypes.c_void_p] * 7
+            + [ctypes.c_int] * 5
+            + [ctypes.c_int64] * 9
+            + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        )
+        dkv90 = lib.gofr_flash_bwd_dkv_sm90
+        dkv90.restype = ctypes.c_int
+        dkv90.argtypes = (
+            [ctypes.c_void_p] * 10
+            + [ctypes.c_int] * 5
+            + [ctypes.c_int64] * 9
+            + [ctypes.c_float] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        )
+        for name in ("gofr_flash_fwd_sm90_smem", "gofr_flash_bwd_dkv_sm90_smem"):
+            getattr(lib, name).restype = ctypes.c_int
+            getattr(lib, name).argtypes = []
         lib.gofr_cuda_error_string.restype = ctypes.c_char_p
         lib.gofr_cuda_error_string.argtypes = [ctypes.c_int]
         _built = _Built(lib, path, time.perf_counter() - start, log)
@@ -270,10 +350,20 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("batch and q heads must each be < 65536")
 
 
+def _pick(name: str, chosen: str, asked: Optional[str]) -> str:
+    """The variant a call takes: the one its shape picks, or ``asked``
+    ("mma" always fits; "sm90" only where the shape picks it)."""
+    if asked is None or asked == chosen or asked == "mma":
+        return asked or chosen
+    raise ValueError(f"{name}: the {asked} variant does not take this call")
+
+
 def _launch(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, offsets: torch.Tensor,
-    lens: torch.Tensor, causal: bool, scale: float,
+    lens: torch.Tensor, causal: bool, scale: float, variant: Optional[str] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel; ``variant`` overrides the shape's pick (to time
+    the mma kernel beside the sm90 variant)."""
     _check(q, k, v)
     built = build()
     b, sq, hq, d = q.shape
@@ -283,18 +373,26 @@ def _launch(
     if sq == 0 or b == 0:
         return out, lse
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = built.lib.gofr_flash_fwd(
-        _DTYPE_CODES[q.dtype], d,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        offsets.data_ptr(), lens.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        b, sq, skv, hq, hkv,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        float(scale), int(causal), q.device.index or 0, stream,
-    )
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), offsets.data_ptr(), lens.data_ptr(),
+            out.data_ptr(), lse.data_ptr())
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    variant = _pick("flash_fwd", fwd_variant(q), variant)
+    if variant == "sm90":
+        rc = built.lib.gofr_flash_fwd_sm90(
+            *ptrs, b, sq, skv, hq, hkv, *strides, float(scale), int(causal),
+            *fwd_sm90_grid(b, sq, hq), q.device.index or 0, stream,
+        )
+    else:
+        rc = built.lib.gofr_flash_fwd(
+            _DTYPE_CODES[q.dtype], d, *ptrs, b, sq, skv, hq, hkv, *strides,
+            float(scale), int(causal), q.device.index or 0, stream,
+        )
     if rc != 0:
         msg = built.lib.gofr_cuda_error_string(rc).decode()
-        raise RuntimeError(f"flash_fwd launch failed: {msg} (cuda error {rc})")
+        raise RuntimeError(f"flash_fwd ({variant}) launch failed: {msg} (cuda error {rc})")
     launches.add()
+    if variant == "sm90":
+        launches_fwd_sm90.add()
     return out, lse
 
 
@@ -383,14 +481,32 @@ def _launch_bwd_kernel(
     which: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
     lse: torch.Tensor, dvec: torch.Tensor, offsets: torch.Tensor, lens: torch.Tensor,
     causal: bool, scale: float, outputs: tuple[Optional[torch.Tensor], ...],
+    variant: Optional[str] = None,
 ) -> None:
     """``which`` 0 launches the dQ kernel into ``outputs`` = (dq, None,
-    None), 1 the dK/dV kernel into (None, dk, dv)."""
+    None), 1 the dK/dV kernel into (None, dk, dv), its sm90 variant where
+    ``dkv_variant`` picks it (or ``variant`` says)."""
     _check_bwd(q, k, v, do, lse, dvec)
     built = build()
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     ptrs = [None if t is None else t.data_ptr() for t in outputs]
+    if which == 1 and _pick("flash_bwd_dkv", dkv_variant(q), variant) == "sm90":
+        geo = dkv_sm90_geometry(b, skv, hq, hkv)
+        rc = built.lib.gofr_flash_bwd_dkv_sm90(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            dvec.data_ptr(), offsets.data_ptr(), lens.data_ptr(), *ptrs[1:],
+            b, sq, skv, hq, hkv,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            float(scale), int(causal), *geo["grid"], geo["cluster"], geo["heads_per_block"],
+            q.device.index or 0, torch.cuda.current_stream(q.device).cuda_stream,
+        )
+        if rc != 0:
+            msg = built.lib.gofr_cuda_error_string(rc).decode()
+            raise RuntimeError(f"flash_bwd_dkv (sm90) launch failed: {msg} (cuda error {rc})")
+        launches_dkv.add()
+        launches_dkv_sm90.add()
+        return
     rc = built.lib.gofr_flash_bwd(
         which, _DTYPE_CODES[q.dtype], d,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
@@ -418,15 +534,16 @@ def launch_dq(q, k, v, do, lse, dvec, offsets, lens, causal, scale) -> torch.Ten
 
 
 def launch_dkv(
-    q, k, v, do, lse, dvec, offsets, lens, causal, scale
+    q, k, v, do, lse, dvec, offsets, lens, causal, scale, variant: Optional[str] = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The dK/dV kernel alone: (dk, dv) [B, Skv, Hkv, D] in k's dtype,
-    every element written (zeros past kv_len, and everywhere when Sq = 0)."""
+    every element written (zeros past kv_len, and everywhere when Sq = 0).
+    ``variant`` overrides the shape's pick (to time the mma kernel)."""
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     if k.numel():
         _launch_bwd_kernel(1, q, k, v, do, lse, dvec, offsets, lens, causal, scale,
-                           (None, dk, dv))
+                           (None, dk, dv), variant)
     return dk, dv
 
 

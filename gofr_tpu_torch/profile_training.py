@@ -16,6 +16,7 @@ non-zero without one.
 from __future__ import annotations
 
 import json
+import subprocess
 import sys
 import time
 from collections import defaultdict
@@ -82,7 +83,9 @@ def main() -> int:
     step = trainer.make_train_step(cfg, opt, remat=True)
     corpus = np.random.default_rng(SEED).integers(0, cfg.vocab_size, 1 << 20, dtype=np.uint32)
     data = TokenDataset(corpus, seq_len=SEQ, batch_size=1, seed=SEED)
-    print(f"profile_training: {torch.cuda.get_device_name(0)}, llama3-8b bf16, "
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    print(f"profile_training: {card or torch.cuda.get_device_name(0)}, llama3-8b bf16, "
           f"B=1 S={SEQ - 1}, remat", flush=True)
 
     state, _ = step(state, data.batch(0))  # warm-up: cuBLAS heuristics, allocator, build

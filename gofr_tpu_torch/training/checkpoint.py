@@ -38,7 +38,7 @@ def save_params(path: str, params: dict) -> None:
     _save(params, os.path.join(os.path.abspath(path), "params"))
 
 
-def restore_params(path: str, device: "torch.device | str" = "cpu") -> dict:
+def restore_params(path: str, device: "torch.device | str" = "cuda") -> dict:
     return _load(os.path.join(os.path.abspath(path), "params"), device)
 
 
@@ -64,7 +64,7 @@ def latest_step(path: str) -> Optional[int]:
 
 
 def restore_train_state(
-    path: str, step: Optional[int] = None, device: "torch.device | str" = "cpu"
+    path: str, step: Optional[int] = None, device: "torch.device | str" = "cuda"
 ) -> dict:
     """{"params", "opt_state", "step"} of ``state_<step>`` (default: the
     latest), tensors on ``device``. Resume with ``resume_train_state``."""

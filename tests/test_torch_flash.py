@@ -186,6 +186,56 @@ def test_source_and_wrapper_agree():
         assert f"case {d}: launch_bf16<{d}>(a)" in src
     assert "0 = float32, 1 = bfloat16" in src
     assert flash._DTYPE_CODES == {torch.float32: 0, torch.bfloat16: 1}
+    # the sm90 variant: its tile, the grid the wrapper computes, its entry
+    assert f"constexpr int kF90BlockM = {flash.FWD_SM90_BLOCK_Q};" in src
+    assert "grid_z != (sq + kF90BlockM - 1) / kF90BlockM" in src
+    assert "int gofr_flash_fwd_sm90(" in src and "int gofr_flash_fwd_sm90_smem()" in src
+    assert "a.causal ? a.n_qt - 1 - (int)blockIdx.z" in src  # longest first
+
+
+def _q(dtype, sq, d, hq=4, b=1):
+    return torch.zeros(b, sq, hq, d, dtype=dtype)
+
+
+# (q, expected variant)
+_VARIANTS = [
+    ("training bf16 S=2048 D=128", _q(torch.bfloat16, 2048, 128, 32), "sm90"),
+    ("prefill bucket 64", _q(torch.bfloat16, 64, 128), "sm90"),
+    ("ragged tail Sq=130", _q(torch.bfloat16, 130, 128), "sm90"),
+    ("short tail Sq=63", _q(torch.bfloat16, 63, 128), "mma"),
+    ("decode Sq=1", _q(torch.bfloat16, 1, 128, 32, 4), "mma"),
+    ("f32 D=128", _q(torch.float32, 2048, 128), "mma"),
+    ("bf16 D=64", _q(torch.bfloat16, 256, 64), "mma"),
+    ("bf16 D=16 tiny model", _q(torch.bfloat16, 128, 16), "mma"),
+    # a q whose rows are not 16-byte aligned: TMA cannot read it
+    ("misaligned rows", torch.zeros(1, 128, 4, 132, dtype=torch.bfloat16)[..., :128], "mma"),
+    # q as a view of the fused QKV projection: aligned strides, TMA reads it
+    ("fused qkv view", torch.zeros(1, 128, 48, 128, dtype=torch.bfloat16)[:, :, :32], "sm90"),
+]
+
+
+@pytest.mark.parametrize("case", _VARIANTS, ids=[c[0] for c in _VARIANTS])
+def test_forward_variant_by_shape(case):
+    _, q, want = case
+    assert flash.fwd_variant(q) == want
+
+
+@pytest.mark.parametrize("b, sq, hq, want", [
+    (1, 2048, 32, (32, 1, 16)),
+    (4, 1024, 32, (32, 4, 8)),
+    (2, 130, 8, (8, 2, 2)),
+    (4, 64, 32, (32, 4, 1)),
+])
+def test_forward_sm90_grid(b, sq, hq, want):
+    assert flash.fwd_sm90_grid(b, sq, hq) == want
+
+
+def test_variant_override_only_where_it_fits():
+    assert flash._pick("flash_fwd", "sm90", None) == "sm90"
+    assert flash._pick("flash_fwd", "sm90", "mma") == "mma"  # the mma kernel takes any call
+    assert flash._pick("flash_fwd", "mma", None) == "mma"
+    with pytest.raises(ValueError, match="does not take this call"):
+        flash._pick("flash_fwd", "mma", "sm90")
 
 
 # -- on the card only ---------------------------------------------------------
@@ -210,6 +260,102 @@ _KERNEL_CASES = [
     (3, 1, 100, 4, 2, 16, torch.bfloat16, True, [9, 0, 98], [10, 1, 99]),
     (2, 40, 128, 4, 2, 16, torch.bfloat16, True, [0, 20], [40, 60]),
 ]
+
+
+def _kernel_inputs(cuda, b, sq, skv, hq, hkv, d, dtype, offs, lens, seed=0):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    q = torch.randn(b, sq, hq, d, device=cuda, generator=gen).to(dtype)
+    k = torch.randn(b, skv, hkv, d, device=cuda, generator=gen).to(dtype)
+    v = torch.randn(b, skv, hkv, d, device=cuda, generator=gen).to(dtype)
+    offs = torch.tensor(offs, dtype=torch.int32, device=cuda)
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    return q, k, v, offs, lens
+
+
+def _matches_plain(q, k, v, causal, offs, lens, out, lse):
+    ref_out, ref_lse = flash.flash_attention_ref(q, k, v, causal, offs, lens)
+    tol = BF16_TOL if q.dtype == torch.bfloat16 else F32_TOL
+    _assert_match(
+        (out.float().cpu().numpy(), lse.cpu().numpy()),
+        (ref_out.float().cpu().numpy(), ref_lse.cpu().numpy()),
+        tol,
+    )
+
+
+# the sm90 variant: b, sq, skv, hq, hkv, causal, offsets, kv_lens
+_SM90_CASES = [
+    ("training shape", (1, 2048, 2048, 32, 8, True, [0], [2048])),
+    ("tiles cut 130/200", (2, 130, 200, 8, 2, True, [0, 70], [130, 200])),
+    ("ragged 300/1024", (2, 300, 1024, 8, 2, True, [0, 500], [300, 800])),
+    ("kv_lens=0 row", (2, 64, 128, 4, 2, True, [0, 64], [0, 128])),
+    ("non-causal ragged", (2, 200, 333, 8, 2, False, [0, 0], [333, 100])),
+    ("groups 1", (1, 256, 256, 4, 4, True, [0], [256])),
+    ("groups 2", (1, 256, 256, 4, 2, True, [0], [256])),
+    ("groups 4", (1, 256, 256, 8, 2, True, [0], [256])),
+    ("groups 8", (1, 256, 256, 16, 2, True, [0], [256])),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _SM90_CASES, ids=[c[0] for c in _SM90_CASES])
+def test_sm90_forward_matches_plain_version(cuda, case):
+    b, sq, skv, hq, hkv, causal, offs, lens = case[1]
+    q, k, v, offs, lens = _kernel_inputs(cuda, b, sq, skv, hq, hkv, 128, torch.bfloat16,
+                                         offs, lens)
+    assert flash.fwd_variant(q) == "sm90"
+    before = (flash.launches.value, flash.launches_fwd_sm90.value)
+    out, lse = flash.flash_attention_fwd(q, k, v, causal, offs, lens)
+    torch.cuda.synchronize()
+    assert (flash.launches.value, flash.launches_fwd_sm90.value) == (before[0] + 1, before[1] + 1)
+    _matches_plain(q, k, v, causal, offs, lens, out, lse)
+    if 0 in lens.tolist():
+        row = lens.tolist().index(0)
+        assert bool((out[row] == 0).all()) and bool(torch.isposinf(lse[row]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("poison", [float("nan"), 300.0])
+def test_sm90_forward_reads_a_poisoned_cache_slice(cuda, poison):
+    # K/V one layer of a [L, B, 2048, 8, 128] cache (strided, starting
+    # mid-allocation), the tail past kv_len poisoned: TMA loads whole tiles,
+    # so the kernel must keep the tail out of P.V itself
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    b, sq, lens_ = 4, 256, [256, 300, 700, 1024]
+    shape = (2, b, 2048, 8, 128)
+    k_cache = torch.randn(shape, device=cuda, generator=gen).to(torch.bfloat16)
+    v_cache = torch.randn(shape, device=cuda, generator=gen).to(torch.bfloat16)
+    for i, n in enumerate(lens_):
+        k_cache[:, i, n:] = poison
+        v_cache[:, i, n:] = poison
+    q = torch.randn(b, sq, 32, 128, device=cuda, generator=gen).to(torch.bfloat16)
+    k, v = k_cache[-1], v_cache[-1]
+    lens = torch.tensor(lens_, dtype=torch.int32, device=cuda)
+    offs = lens - sq
+    before = flash.launches_fwd_sm90.value
+    out, lse = flash.flash_attention_fwd(q, k, v, True, offs, lens)
+    torch.cuda.synchronize()
+    assert flash.launches_fwd_sm90.value == before + 1
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    clean = (torch.arange(2048, device=cuda)[None, :] < lens[:, None])[:, :, None, None]
+    out2, lse2 = flash.flash_attention_fwd(q, k.masked_fill(~clean, 0), v.masked_fill(~clean, 0),
+                                           True, offs, lens)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    _matches_plain(q, k, v, True, offs, lens, out, lse)
+
+
+@pytest.mark.cuda
+def test_short_calls_keep_the_mma_kernel(cuda):
+    # decode and tails under 64 rows: the mma kernel, counted in the total only
+    q, k, v, offs, lens = _kernel_inputs(cuda, 2, 63, 256, 8, 2, 128, torch.bfloat16,
+                                         [0, 100], [63, 163])
+    assert flash.fwd_variant(q) == "mma"
+    before = (flash.launches.value, flash.launches_fwd_sm90.value)
+    out, lse = flash.flash_attention_fwd(q, k, v, True, offs, lens)
+    torch.cuda.synchronize()
+    assert (flash.launches.value, flash.launches_fwd_sm90.value) == (before[0] + 1, before[1])
+    _matches_plain(q, k, v, True, offs, lens, out, lse)
 
 
 @pytest.mark.cuda

@@ -238,6 +238,46 @@ def test_bwd_source_and_wrapper_agree():
     assert "dtype: 0 = float32, 1 = bfloat16" in src
     assert "which: 0 = the dQ kernel" in src
     assert bwd in flash._sources() and flash.SOURCE in flash._sources()
+    # the sm90 dK/dV variant: its tile, cluster bound and the geometry check
+    assert f"constexpr int kD90BlockN = {flash.DKV_SM90_BLOCK_KV};" in src
+    assert f"constexpr int kMaxCluster = {flash.MAX_CLUSTER};" in src
+    assert "grid_x != hkv * cluster || grid_y != b" in src
+    assert "int gofr_flash_bwd_dkv_sm90(" in src and "int gofr_flash_bwd_dkv_sm90_smem()" in src
+    # every kernel of the dK/dV family carries the name profile_training counts
+    assert "flash_bwd_dkv_sm90_kernel(" in src
+    # the group sum is deterministic: no atomic adds anywhere in the source
+    assert "atomicAdd" not in src and "red.global" not in src
+
+
+# (groups, expected cluster, heads per block)
+_GEOMETRY = [(1, 1, 1), (2, 2, 1), (4, 4, 1), (8, 8, 1), (16, 8, 2), (6, 6, 1), (12, 6, 2),
+             (32, 8, 4)]
+
+
+@pytest.mark.parametrize("groups, cluster, hpb", _GEOMETRY)
+def test_dkv_sm90_geometry(groups, cluster, hpb):
+    hkv = 8 if groups <= 4 else 2
+    geo = flash.dkv_sm90_geometry(2, 2048, hkv * groups, hkv)
+    assert geo["cluster"] == cluster and geo["heads_per_block"] == hpb
+    assert cluster * hpb == groups and cluster <= flash.MAX_CLUSTER
+    # clusters of heads along x, batch along y, key tiles along z
+    assert geo["grid"] == (hkv * cluster, 2, 16)
+
+
+def test_dkv_sm90_geometry_cuts_the_last_key_tile():
+    assert flash.dkv_sm90_geometry(1, 200, 32, 8)["grid"] == (32, 1, 2)
+    assert flash.dkv_sm90_geometry(3, 128, 8, 8)["grid"] == (8, 3, 1)
+
+
+@pytest.mark.parametrize("dtype, sq, d, want", [
+    (torch.bfloat16, 2048, 128, "sm90"),
+    (torch.bfloat16, 1, 128, "sm90"),
+    (torch.bfloat16, 0, 128, "mma"),
+    (torch.bfloat16, 256, 64, "mma"),
+    (torch.float32, 2048, 128, "mma"),
+])
+def test_dkv_variant_by_shape(dtype, sq, d, want):
+    assert flash.dkv_variant(torch.zeros(1, sq, 4, d, dtype=dtype)) == want
 
 
 # -- on the card only ---------------------------------------------------------
@@ -291,6 +331,100 @@ def test_kernels_match_plain_version(cuda, case):
             np.testing.assert_allclose(a, w, rtol=F32_RTOL, atol=F32_ATOL, err_msg=name)
     dk, dv = got[1], got[2]
     assert bool((dk.masked_select(tail) == 0).all()) and bool((dv.masked_select(tail) == 0).all())
+
+
+def _bwd_inputs(cuda, b, sq, skv, hq, hkv, offs, lens, poison=None, seed=0):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    q, k, v, g = (torch.randn(b, s, h, 128, device=cuda, generator=gen).to(torch.bfloat16)
+                  for s, h in ((sq, hq), (skv, hkv), (skv, hkv), (sq, hq)))
+    offs = torch.tensor(offs, dtype=torch.int32, device=cuda)
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    if poison is not None:
+        tail = (torch.arange(skv, device=cuda)[None, :] >= lens[:, None])[:, :, None, None]
+        k, v = k.masked_fill(tail, poison), v.masked_fill(tail, poison)
+    return q, k, v, g, offs, lens
+
+
+def _dkv_matches_plain(q, k, v, g, offs, lens, causal):
+    """The sm90 dK/dV kernel against the plain backward; -> (dk, dv)."""
+    scale = 128 ** -0.5
+    out, lse = flash.flash_attention_fwd(q, k, v, causal, offs, lens)
+    do = g.contiguous()
+    dvec = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    before = (flash.launches_dkv.value, flash.launches_dkv_sm90.value)
+    dk, dv = flash.launch_dkv(q, k, v, do, lse, dvec, offs, lens, causal, scale)
+    torch.cuda.synchronize()
+    assert (flash.launches_dkv.value, flash.launches_dkv_sm90.value) == (before[0] + 1,
+                                                                        before[1] + 1)
+    _, want_k, want_v = flash.flash_attention_bwd_ref(q, k, v, offs, lens, out, lse, g, causal,
+                                                     scale)
+    for name, a, w in (("dk", dk, want_k), ("dv", dv, want_v)):
+        a, w = a.float().cpu().numpy(), w.float().cpu().numpy()
+        assert np.isfinite(a).all(), name
+        np.testing.assert_allclose(a, w, rtol=BF16_TOL, atol=BF16_TOL, err_msg=name)
+    tail = (torch.arange(k.shape[1], device=k.device)[None, :] >= lens[:, None])
+    assert bool((dk[tail] == 0).all()) and bool((dv[tail] == 0).all())
+    return dk, dv
+
+
+# b, sq, skv, hq, hkv, causal, offsets, kv_lens
+_DKV_SM90_CASES = [
+    ("training shape", (1, 2048, 2048, 32, 8, True, [0], [2048])),
+    ("tiles cut 130/200", (2, 130, 200, 8, 2, True, [0, 70], [130, 200])),
+    ("ragged 300/1024", (2, 300, 1024, 8, 2, True, [0, 500], [300, 800])),
+    ("kv_lens=0 row", (2, 64, 128, 4, 2, True, [0, 64], [0, 128])),
+    ("non-causal", (2, 100, 333, 8, 2, False, [0, 0], [333, 37])),
+    ("groups 1", (1, 256, 256, 4, 4, True, [0], [256])),
+    ("groups 2", (1, 256, 256, 4, 2, True, [0], [256])),
+    ("groups 4", (1, 256, 256, 8, 2, True, [0], [256])),
+    ("groups 8", (1, 256, 256, 16, 2, True, [0], [256])),
+    ("groups 16, two heads a block", (1, 192, 256, 16, 1, True, [64], [256])),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _DKV_SM90_CASES, ids=[c[0] for c in _DKV_SM90_CASES])
+def test_sm90_dkv_matches_plain_version(cuda, case):
+    b, sq, skv, hq, hkv, causal, offs, lens = case[1]
+    q, k, v, g, offs, lens = _bwd_inputs(cuda, b, sq, skv, hq, hkv, offs, lens)
+    assert flash.dkv_variant(q) == "sm90"
+    dk, dv = _dkv_matches_plain(q, k, v, g, offs, lens, causal)
+    if 0 in lens.tolist():
+        row = lens.tolist().index(0)
+        assert bool((dk[row] == 0).all()) and bool((dv[row] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("poison", [float("nan"), 300.0])
+def test_sm90_dkv_poisoned_cache_slice_gives_exact_zeros(cuda, poison):
+    # K/V one layer of a [L, B, 2048, 8, 128] cache, poisoned past kv_len:
+    # TMA loads those rows, the kernel keeps them out of every product
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(4)
+    b, sq, lens_ = 2, 256, [300, 1000]
+    shape = (2, b, 2048, 8, 128)
+    caches = [torch.randn(shape, device=cuda, generator=gen).to(torch.bfloat16) for _ in "kv"]
+    for cache in caches:
+        for i, n in enumerate(lens_):
+            cache[:, i, n:] = poison
+    q, g = (torch.randn(b, sq, 32, 128, device=cuda, generator=gen).to(torch.bfloat16)
+            for _ in "qg")
+    lens = torch.tensor(lens_, dtype=torch.int32, device=cuda)
+    _dkv_matches_plain(q, caches[0][-1], caches[1][-1], g, lens - sq, lens, True)
+
+
+@pytest.mark.cuda
+def test_sm90_dkv_is_bit_identical_across_launches(cuda):
+    # the GQA sum runs in a fixed order through the cluster: no atomics
+    q, k, v, g, offs, lens = _bwd_inputs(cuda, 1, 2048, 2048, 32, 8, [0], [2048], seed=5)
+    out, lse = flash.flash_attention_fwd(q, k, v, True, offs, lens)
+    dvec = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, g, lse, dvec, offs, lens, True, 128 ** -0.5)
+    first = flash.launch_dkv(*args)
+    for _ in range(2):
+        again = flash.launch_dkv(*args)
+        assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
 
 
 @pytest.mark.cuda

@@ -313,7 +313,7 @@ def test_resume_matches_uninterrupted_run(tree, tmp_path):
     (tmp_path / "state_3.gofr-tmp-12345").mkdir()  # a save cut short
     (tmp_path / "state_x").mkdir()
     assert checkpoint.latest_step(str(tmp_path)) == 2
-    restored = checkpoint.restore_train_state(str(tmp_path))
+    restored = checkpoint.restore_train_state(str(tmp_path), device="cpu")
     assert restored["step"] == 2
 
     s3 = trainer.init_train_state(TINY, opt, device="cpu", seed=9)  # other weights
@@ -330,10 +330,10 @@ def test_params_round_trip(tree, tmp_path):
     model = _model(tree)
     checkpoint.save_params(str(tmp_path), model.state_dict())
     checkpoint.save_params(str(tmp_path), model.state_dict())  # a save replaces
-    restored = checkpoint.restore_params(str(tmp_path))
+    restored = checkpoint.restore_params(str(tmp_path), device="cpu")
     for name, t in model.state_dict().items():
         assert torch.equal(restored[name], t), name
     assert checkpoint.latest_step(str(tmp_path)) is None
     assert checkpoint.latest_step(str(tmp_path / "missing")) is None
     with pytest.raises(FileNotFoundError):
-        checkpoint.restore_train_state(str(tmp_path))
+        checkpoint.restore_train_state(str(tmp_path), device="cpu")
