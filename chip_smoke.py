@@ -7,43 +7,53 @@ Phases, each fatal on failure (no phase is skipped or caught):
 
 1. build: compile every ``gofr_tpu_torch/csrc/*.cu`` (the flash forward and
    the backward's dQ and dK/dV kernels) with nvcc for sm_90a, in parallel,
-   and print each sm90 kernel's registers, spills and shared memory;
-2. kernel vs plain: the flash forward (both variants: sm90 for bf16 D=128
-   Sq >= 64, mma for the rest) against ``flash_attention_ref`` at llama3-8b
-   head shapes (bf16, Hq=32, Hkv=8, D=128: the training shape, ragged
-   causal prefill with a poisoned cache tail, tiles cut at 130/200 and
-   300/1024, GQA groups 1, 2 and 8, decode over a 2048-slot cache,
-   kv_lens=0 rows; and the serving run's own calls: batch-4 prefill at
-   buckets 128 and 1024 and batch-1 decode, K/V one layer of a [L, B,
+   and print each redesigned kernel's registers, spills (there must be
+   none) and shared memory;
+2. kernel vs plain: the flash forward (three variants: sm90 for bf16 D=128
+   Sq >= 64, decode for bf16 D=128 Sq x groups <= 16, mma for the rest)
+   against ``flash_attention_ref`` at llama3-8b head shapes (bf16, Hq=32,
+   Hkv=8, D=128: the training shape, ragged causal prefill with a poisoned
+   cache tail, tiles cut at 130/200 and 300/1024, GQA groups 1, 2 and 8 in
+   prefill and in decode, decode over a 2048-slot cache, kv_lens=0 rows;
+   and the serving run's own calls: batch-4 prefill at buckets 128 and
+   1024, batch-1 decode at kv_len 616 and 1800, K/V one layer of a [L, B,
    2048, 8, 128] cache poisoned past kv_len with +-300 and with NaN) and at
    the tiny model's f32 D=16, tolerances as in tests/test_flash.py (bf16
-   2e-2, f32 2e-5, atol + rtol*|ref|);
+   2e-2, f32 2e-5, atol + rtol*|ref|); each case must run the variant its
+   shape picks (the launch counters say which ran), and the decode variant
+   must give the same bits twice;
 3. kernel times at the prefill and decode shapes: the kernel, the mma
-   kernel it replaced at the sm90 variant's shapes, its bound on the card, the plain
-   version, and scaled_dot_product_attention as a yardstick (never called
-   by the port; at the training shape both with a boolean mask and with
-   is_causal=True);
+   kernel it replaced, its bound on the card, the plain version, and
+   scaled_dot_product_attention as a yardstick (never called by the port;
+   at the training shape both with a boolean mask and with
+   is_causal=True); at the decode shapes each of the kernel, the mma
+   kernel and SDPA also by device time (``gofr_tpu_torch.timing.
+   graph_ms``: 20 launches in one CUDA graph, replayed), since there the
+   CUDA-event time is the host's issue rate; and the decode and dQ
+   wrappers run once under ``torch.cuda.set_sync_debug_mode("error")``:
+   neither reads a device value on the host;
 4. f32 path: the tiny f32 model, built on the card from a seed, greedy-
-   decodes 16 tokens through the kernel; the same weights on the CPU
-   (plain path) must give the same ids;
+   decodes 16 tokens through the kernel (its mma variant); the same weights
+   on the CPU (plain path) must give the same ids;
 5. serve: ``new()`` with MODEL_NAME=llama3-8b (full width and depth, bf16,
    random weights from MODEL_SEED), four /v1/completions requests (two
    concurrent prompts in two buckets, one streamed, one sampled), the
    launch counts of the forward over that run (sm90 for every prefill
-   dispatch's layers, mma for every decode step's), TTFT and decode
-   tokens/s;
-6. backward kernels vs plain: the dQ and dK/dV kernels (dK/dV's sm90
-   variant for bf16 D=128, its mma variant for f32) against
+   dispatch's layers, decode for every decode step's, none on mma), TTFT
+   and decode tokens/s; then the runner's ``decode_chunk`` under
+   ``set_sync_debug_mode("error")``: no host sync between steps;
+6. backward kernels vs plain: the dQ and dK/dV kernels (their sm90 variants
+   for bf16 D=128, their mma variants for f32) against
    ``flash_attention_bwd_ref`` at the training shape (B=1, S=2048, Hq=32,
    Hkv=8, D=128, bf16, causal), ragged GQA cases with a poisoned cache tail
    (+-300, and NaN in K/V as a strided slice of a [L, B, 2048, 8, 128]
-   cache) whose dK/dV rows must be exactly 0, tiles cut at 130/200, GQA
-   groups 1, 2 and 8, a kv_lens=0 row (all grads exactly 0), a non-causal
-   case and f32 D=16 at the tiny model's shapes (bf16 2e-2 + 2e-2*|ref|,
-   f32 1e-4 + 2e-5*|ref|, as tests/test_flash.py's gradient tests); dK/dV
-   bit-identical across two launches;
+   cache) whose dK/dV rows must be exactly 0 and whose dQ must be finite,
+   tiles cut at 130/200, GQA groups 1, 2 and 8, a kv_lens=0 row (all grads
+   exactly 0), a non-causal case and f32 D=16 at the tiny model's shapes
+   (bf16 2e-2 + 2e-2*|ref|, f32 1e-4 + 2e-5*|ref|, as tests/test_flash.py's
+   gradient tests); dQ and dK/dV bit-identical across two launches;
 7. backward kernel times at the training shape: each kernel, the mma
-   dK/dV kernel beside the sm90 one, its bound, the plain backward, and the
+   kernel beside each sm90 one, its bound, the plain backward, and the
    backward of scaled_dot_product_attention (forward + backward minus
    forward) as a yardstick; the forward kernel at the same shape;
 8. f32 training parity: the tiny f32 model, built on the card from a seed,
@@ -54,8 +64,9 @@ Phases, each fatal on failure (no phase is skipped or caught):
    seed, AdamW, remat, batch 1 of 2049-token crops (the model sees 2048)
    from a TokenDataset over a uint32 corpus made with numpy, 4 steps on one
    batch through ``prefetch_to_device``: finite and falling loss, every
-   layer's attention through the kernels in every step, step time,
-   tokens/s, MFU and peak memory.
+   layer's attention through the kernels (every forward, dQ and dK/dV call
+   on its sm90 variant) in every step, step time, tokens/s, MFU and peak
+   memory.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. Exits non-zero, with a line on
@@ -99,20 +110,6 @@ def card_line() -> str:
     )
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(torch, fn, iters: int) -> float:
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 # -- phase 2/3: the kernel against its plain version ------------------------
@@ -162,15 +159,34 @@ def check_tail_invisible(torch, flash, name, case, out):
     check(torch.equal(out, out2), f"{name}: the poisoned tail moved the kernel's output")
 
 
+def no_host_sync(torch, name, fn) -> None:
+    """``fn`` (one wrapper call) under ``set_sync_debug_mode("error")``:
+    PyTorch raises if it synchronizes with the device, as reading a device
+    value on the host would."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f"no-host-sync {name}: the wrapper ran under set_sync_debug_mode('error') -> ok",
+          flush=True)
+
+
 def compare(torch, flash, name, case, causal=True, errs=None):
     """The forward against its plain version; the max error goes into
     ``errs[variant]``, the variant read from the sm90 counter."""
     q, k, v, offs, lens = case
-    before = flash.launches_fwd_sm90.value
+    counters = {"sm90": flash.launches_fwd_sm90, "decode": flash.launches_fwd_decode}
+    before = {n: c.value for n, c in counters.items()}
     out, lse = flash.flash_attention_fwd(q, k, v, causal, offs, lens)
     torch.cuda.synchronize()
-    variant = "sm90" if flash.launches_fwd_sm90.value > before else "mma"
-    check(variant == flash.fwd_variant(q), f"{name}: ran the {variant} variant")
+    variant = next((n for n, c in counters.items() if c.value > before[n]), "mma")
+    check(variant == flash.fwd_variant(q, k), f"{name}: ran the {variant} variant")
+    if variant == "decode":
+        again, _ = flash.flash_attention_fwd(q, k, v, causal, offs, lens)
+        check(torch.equal(again, out), f"{name}: the decode variant differs between two launches")
     ref_out, ref_lse = flash.flash_attention_ref(q, k, v, causal, offs, lens)
     tol = TOL[str(q.dtype).split(".")[-1]]
     err_out = (out.float() - ref_out.float()).abs()
@@ -237,24 +253,34 @@ def library_call(torch, q, k, v, offsets, kv_lens, is_causal=False):
 
 def time_shape(torch, flash, name, case, iters, is_causal=False):
     """One forward shape: the kernel its shape picks, the mma kernel
-    beside the sm90 variant, the bound, the plain version, and SDPA (the
-    boolean mask; with ``is_causal`` also its causal route, and
-    ``library_ms`` the faster of the two)."""
+    beside the sm90 and decode variants, the bound, the plain version, and
+    SDPA (the boolean mask; with ``is_causal`` also its causal route, and
+    ``library_ms`` the faster of the two). At a decode shape the kernel,
+    the mma kernel and SDPA also by device time (a CUDA graph of 20
+    launches, replayed): ``device_ms``, ``mma_device_ms``,
+    ``library_device_ms``."""
+    from gofr_tpu_torch.timing import event_ms, graph_ms
+
     q, k, v, offs, lens = case
     scale = q.shape[-1] ** -0.5
-    variant = flash.fwd_variant(q)
-    ms = time_ms(torch, lambda: flash.flash_attention_fwd(q, k, v, True, offs, lens), iters)
-    row = {"variant": variant, "ms": ms}
-    if variant == "sm90":
-        row["mma_ms"] = time_ms(
-            torch, lambda: flash._launch(q, k, v, offs, lens, True, scale, variant="mma"), iters)
-    row["plain_ms"] = time_ms(torch, lambda: flash.flash_attention_ref(q, k, v, True, offs, lens),
-                              iters)
-    row["library_mask_ms"] = time_ms(torch, library_call(torch, q, k, v, offs, lens), iters)
+    variant = flash.fwd_variant(q, k)
+    kernel = lambda: flash.flash_attention_fwd(q, k, v, True, offs, lens)  # noqa: E731
+    mma = lambda: flash._launch(q, k, v, offs, lens, True, scale, variant="mma")  # noqa: E731
+    library = library_call(torch, q, k, v, offs, lens)
+    row = {"variant": variant, "ms": event_ms(kernel, iters)}
+    if variant != "mma":
+        row["mma_ms"] = event_ms(mma, iters)
+    if variant == "decode":
+        row["device_ms"] = graph_ms(kernel)
+        row["mma_device_ms"] = graph_ms(mma)
+        row["library_device_ms"] = graph_ms(library)
+    row["plain_ms"] = event_ms(lambda: flash.flash_attention_ref(q, k, v, True, offs, lens),
+                               iters)
+    row["library_mask_ms"] = event_ms(library, iters)
     row["library_ms"] = row["library_mask_ms"]
     if is_causal:
-        row["library_causal_ms"] = time_ms(
-            torch, library_call(torch, q, k, v, offs, lens, is_causal=True), iters)
+        row["library_causal_ms"] = event_ms(
+            library_call(torch, q, k, v, offs, lens, is_causal=True), iters)
         row["library_ms"] = min(row["library_mask_ms"], row["library_causal_ms"])
     row["bound_ms"], row["bound_by"] = bound(q, k, offs, lens, True)
     row["shape"] = (f"B={q.shape[0]} Sq={q.shape[1]} Skv={k.shape[1]} Hq={q.shape[2]} "
@@ -292,6 +318,7 @@ def f32_path(torch, flash):
     print(f"f32-path tiny greedy: card {on_card} cpu {on_cpu} kernel launches {launched}", flush=True)
     check(on_card == on_cpu, "f32 path: kernel greedy ids differ from the plain path")
     check(launched >= TINY.n_layers * 16, f"f32 path: only {launched} kernel launches")
+    return launched
 
 
 # -- phase 5: serve llama3-8b --------------------------------------------------
@@ -328,6 +355,8 @@ def post(port: int, body: dict, stream: bool = False):
 
 
 def serve(torch, flash, card: str):
+    import numpy as np
+
     os.environ.update({
         "MODEL_NAME": "llama3-8b", "MODEL_MAX_SEQ": "2048", "BATCH_MAX_SIZE": "4",
         "BATCH_TIMEOUT_MS": "50", "TOKENIZER": "byte", "MODEL_SEED": "0",
@@ -362,8 +391,8 @@ def serve(torch, flash, card: str):
 
         dev.generate = recording_generate
         # every count to 0 just before the main path runs
-        flash.launches.reset()
-        flash.launches_fwd_sm90.reset()
+        for c in (flash.launches, flash.launches_fwd_sm90, flash.launches_fwd_decode):
+            c.reset()
         dispatches0 = dev.batcher.dispatches
         results: dict = {}
 
@@ -382,6 +411,7 @@ def serve(torch, flash, card: str):
         run("sampled", {"prompt": long, "max_tokens": 16, "temperature": 0.8, "seed": 1})
         launches = flash.launches.value
         sm90 = flash.launches_fwd_sm90.value
+        decode = flash.launches_fwd_decode.value
         dispatches = dev.batcher.dispatches - dispatches0
 
         for key in ("short", "long", "sampled"):
@@ -403,18 +433,32 @@ def serve(torch, flash, card: str):
         check(len(short_ids) == 2 and short_ids[0] == short_ids[1],
               "serve: the repeated greedy prompt gave different tokens")
         # every prefill dispatch runs each layer's attention through the
-        # sm90 variant (buckets >= 64 rows), every decode step through mma
+        # sm90 variant (buckets >= 64 rows), every decode step through the
+        # decode variant, and nothing through mma
         steps = sum(len(ids) - 1 for _, ids in generations)
-        mma = launches - sm90
+        mma = launches - sm90 - decode
         print(f"serve: forward launches {launches}: sm90 {sm90} >= n_layers x prefill "
-              f"dispatches {dispatches} = {n_layers * dispatches}; mma {mma} >= n_layers x "
-              f"decode steps {steps} = {n_layers * steps}", flush=True)
+              f"dispatches {dispatches} = {n_layers * dispatches}; decode {decode} >= n_layers x "
+              f"decode steps {steps} = {n_layers * steps}; mma {mma}", flush=True)
         check(sm90 >= n_layers * dispatches, "serve: a prefill layer missed the sm90 kernel")
-        check(mma >= n_layers * steps, "serve: a decode layer missed the mma kernel")
+        check(decode >= n_layers * steps, "serve: a decode layer missed the decode kernel")
+        check(mma == 0, "serve: a call took the mma kernel")
         decode_tps = (n_stream - 1) / (times[n_stream - 1] - ttft) if n_stream > 1 else 0.0
         print(f"serve-metrics [{card}]: stream TTFT {ttft * 1e3:.1f} ms, decode "
               f"{decode_tps:.1f} tokens/s (batch 1), concurrent pair {pair_s:.3f}s", flush=True)
-        return {"sm90": sm90, "mma": mma}
+
+        # the runner's decode loop reads no device value between steps
+        runner = dev.runner
+        prompt = np.frombuffer(short.encode(), dtype=np.uint8).astype(np.int32)
+        state = runner.run_batch([prompt])[0]
+        token = torch.tensor([[state["next_token"]]], device="cuda")
+        cache = state["cache"]
+        before = flash.launches_fwd_decode.value
+        no_host_sync(torch, "decode_chunk (4 steps of llama3-8b)",
+                     lambda: runner.model.decode_chunk(token, cache, 4))
+        check(flash.launches_fwd_decode.value - before == 4 * n_layers,
+              "serve: decode_chunk missed the decode kernel")
+        return {"sm90": sm90, "decode": decode}
     finally:
         app.shutdown()
 
@@ -437,19 +481,23 @@ def bwd_case(torch, flash, gen, b, sq, skv, hq, hkv, d, dtype, offsets, kv_lens,
 
 
 def compare_bwd(torch, flash, name, c):
-    """Both backward kernels against their plain version, and dK/dV
-    bit-identical across two launches. -> (max |dq err|, max |dk, dv err|,
-    (dq, dk, dv), dK/dV variant)."""
+    """Both backward kernels against their plain version, each on the
+    variant its shape picks, and bit-identical across two launches. ->
+    (max |dq err|, max |dk, dv err|, (dq, dk, dv), variant)."""
     scale = c["q"].shape[-1] ** -0.5
     args = (c["q"], c["k"], c["v"], c["offs"], c["lens"], c["out"], c["lse"], c["do"],
             c["causal"], scale)
-    before = flash.launches_dkv_sm90.value
+    before = (flash.launches_dq_sm90.value, flash.launches_dkv_sm90.value)
     got = flash._launch_bwd(*args)
     torch.cuda.synchronize()
-    variant = "sm90" if flash.launches_dkv_sm90.value > before else "mma"
-    check(variant == flash.dkv_variant(c["q"]), f"{name}: dK/dV ran the {variant} variant")
+    ran = ["sm90" if c_.value > b_ else "mma"
+           for c_, b_ in zip((flash.launches_dq_sm90, flash.launches_dkv_sm90), before)]
+    check(ran[0] == flash.dq_variant(c["q"]), f"{name}: dQ ran the {ran[0]} variant")
+    check(ran[1] == flash.dkv_variant(c["q"]), f"{name}: dK/dV ran the {ran[1]} variant")
+    check(ran[0] == ran[1], f"{name}: dQ ran {ran[0]}, dK/dV {ran[1]}")
+    variant = ran[0]
     again = flash._launch_bwd(*args)
-    same = torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])
+    same = all(torch.equal(a, g) for a, g in zip(again, got))
     want = flash.flash_attention_bwd_ref(*args)
     atol, rtol = BWD_TOL[str(c["q"].dtype).split(".")[-1]]
     errs, ok = [], True
@@ -460,13 +508,13 @@ def compare_bwd(torch, flash, name, c):
         errs.append(float(err.max()))
     tail = (torch.arange(c["k"].shape[1], device="cuda")[None, :] >= c["lens"][:, None])
     tail_zero = all(bool((g[tail] == 0).all()) for g in got[1:])
-    print(f"bwd-kernel-vs-plain {name} [dK/dV {variant}]: max|err| dq {errs[0]:.3e} dk "
+    print(f"bwd-kernel-vs-plain {name} [dQ, dK/dV {variant}]: max|err| dq {errs[0]:.3e} dk "
           f"{errs[1]:.3e} dv {errs[2]:.3e} tol {atol} + {rtol}*|ref|, dK/dV past kv_len "
           f"exactly 0: {tail_zero}, bit-identical twice: {same} -> "
           f"{'ok' if ok and tail_zero and same else 'FAIL'}", flush=True)
     check(ok, f"{name}: backward kernels disagree with their plain version")
     check(tail_zero, f"{name}: dK/dV rows past kv_len are not exactly 0")
-    check(same, f"{name}: dK/dV differ between two launches")
+    check(same, f"{name}: dQ or dK/dV differ between two launches")
     return errs[0], max(errs[1:]), got, variant
 
 
@@ -505,6 +553,8 @@ def sdpa_backward_ms(torch, c, iters):
     GQA), timed as forward + backward minus forward."""
     import torch.nn.functional as F
 
+    from gofr_tpu_torch.timing import event_ms
+
     qt, kt, vt = (c[n].transpose(1, 2).detach().requires_grad_() for n in ("q", "k", "v"))
     g = c["do"].transpose(1, 2)
 
@@ -516,35 +566,37 @@ def sdpa_backward_ms(torch, c, iters):
         out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
         torch.autograd.grad(out, (qt, kt, vt), g)
 
-    return time_ms(torch, fwd_bwd, iters) - time_ms(torch, fwd, iters)
+    return event_ms(fwd_bwd, iters) - event_ms(fwd, iters)
 
 
 def time_bwd(torch, flash, c, iters):
     """Phase 7 at the training shape: per kernel ms, bound, plain ms (the
     whole plain backward) and SDPA's backward; the forward kernel too."""
+    from gofr_tpu_torch.timing import event_ms
+
     scale = c["q"].shape[-1] ** -0.5
     do = c["do"].contiguous()
     dvec = (do.float() * c["out"].float()).sum(-1).transpose(1, 2).contiguous()
     kargs = (c["q"], c["k"], c["v"], do, c["lse"], dvec, c["offs"], c["lens"], c["causal"], scale)
-    dq_ms = time_ms(torch, lambda: flash.launch_dq(*kargs), iters)
-    dkv_ms = time_ms(torch, lambda: flash.launch_dkv(*kargs), iters)
-    dkv_mma_ms = time_ms(torch, lambda: flash.launch_dkv(*kargs, variant="mma"), iters)
-    plain_ms = time_ms(torch, lambda: flash.flash_attention_bwd_ref(
+    dq_ms = event_ms(lambda: flash.launch_dq(*kargs), iters)
+    dq_mma_ms = event_ms(lambda: flash.launch_dq(*kargs, variant="mma"), iters)
+    dkv_ms = event_ms(lambda: flash.launch_dkv(*kargs), iters)
+    dkv_mma_ms = event_ms(lambda: flash.launch_dkv(*kargs, variant="mma"), iters)
+    plain_ms = event_ms(lambda: flash.flash_attention_bwd_ref(
         c["q"], c["k"], c["v"], c["offs"], c["lens"], c["out"], c["lse"], c["do"], c["causal"],
         scale), 3)
     library_ms = sdpa_backward_ms(torch, c, iters)
     rows = {}
-    for name, ms in (("dq", dq_ms), ("dkv", dkv_ms)):
+    for name, ms, mma_ms, variant in (("dq", dq_ms, dq_mma_ms, flash.dq_variant(c["q"])),
+                                      ("dkv", dkv_ms, dkv_mma_ms, flash.dkv_variant(c["q"]))):
         bound_ms, bound_by = bwd_bound(c, name)
-        rows[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                      "library_ms": library_ms}
-        if name == "dkv":
-            rows[name] = {"variant": flash.dkv_variant(c["q"]), **rows[name],
-                          "mma_ms": dkv_mma_ms}
+        rows[name] = {"variant": variant, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": library_ms, "mma_ms": mma_ms}
         print(f"bwd-kernel-time {name} training shape {tuple(c['q'].shape)}: "
               f"{json.dumps(rows[name])}", flush=True)
     fwd = time_shape(torch, flash, "training forward", (c["q"], c["k"], c["v"], c["offs"],
                                                          c["lens"]), iters, is_causal=True)
+    no_host_sync(torch, "dQ", lambda: flash.launch_dq(*kargs))
     return rows, fwd
 
 
@@ -568,6 +620,7 @@ def f32_training(torch, flash):
     step_cpu = trainer.make_train_step(TINY, opt_cpu)
     rng = np.random.default_rng(11)
     tol = 1e-4  # relative: f32 sums in other orders, three Adam steps
+    totals = [0, 0, 0]
     for i in range(3):
         tokens = rng.integers(0, TINY.vocab_size, (2, 33)).astype("int32")
         for c in (flash.launches, flash.launches_dq, flash.launches_dkv):
@@ -575,6 +628,7 @@ def f32_training(torch, flash):
         card, m_card = step_card(card, tokens)
         loss_card = float(m_card["loss"])
         counts = [c.value for c in (flash.launches, flash.launches_dq, flash.launches_dkv)]
+        totals = [a + b for a, b in zip(totals, counts)]
         cpu, m_cpu = step_cpu(cpu, tokens)
         loss_cpu = float(m_cpu["loss"])
         rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
@@ -585,6 +639,7 @@ def f32_training(torch, flash):
         n = TINY.n_layers
         check(counts[0] >= 2 * n and counts[1] >= n and counts[2] >= n,
               "f32 training: a layer's attention missed a kernel")
+    return totals
 
 
 # -- phase 9: train llama3-8b ---------------------------------------------------------
@@ -609,10 +664,10 @@ def train_llama(torch, flash, card: str):
           f"{time.perf_counter() - t0:.1f}s, memory "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB", flush=True)
     torch.cuda.reset_peak_memory_stats()
-    losses, norms, times, totals = [], [], [], [0, 0, 0, 0, 0]
+    losses, norms, times, totals = [], [], [], [0] * 6
     for i, tokens in enumerate(prefetch_to_device(iter([batch] * steps), size=2, device="cuda")):
         counters = (flash.launches, flash.launches_dq, flash.launches_dkv,
-                    flash.launches_fwd_sm90, flash.launches_dkv_sm90)
+                    flash.launches_fwd_sm90, flash.launches_dq_sm90, flash.launches_dkv_sm90)
         for c in counters:
             c.reset()
         t = time.perf_counter()
@@ -625,13 +680,13 @@ def train_llama(torch, flash, card: str):
         losses.append(loss)
         norms.append(norm)
         print(f"train step {i + 1}: loss {loss:.4f} grad_norm {norm:.4f} "
-              f"{times[-1] * 1e3:.1f} ms, launches fwd/dq/dkv/fwd sm90/dkv sm90 {counts}",
+              f"{times[-1] * 1e3:.1f} ms, launches fwd/dq/dkv/fwd sm90/dq sm90/dkv sm90 {counts}",
               flush=True)
         check(counts[1] >= cfg.n_layers and counts[2] >= cfg.n_layers and
               counts[0] >= 2 * cfg.n_layers, "train: a layer's attention missed a kernel")
-        # S = 2048, bf16, D = 128: every forward and dK/dV call is sm90
-        check(counts[3] == counts[0] and counts[4] == counts[2],
-              "train: a forward or dK/dV call missed its sm90 variant")
+        # S = 2048, bf16, D = 128: every forward, dQ and dK/dV call is sm90
+        check(counts[3] == counts[0] and counts[4] == counts[1] and counts[5] == counts[2],
+              "train: a forward, dQ or dK/dV call missed its sm90 variant")
     peak = torch.cuda.max_memory_allocated()
     check(all(np.isfinite(losses)) and all(np.isfinite(norms)), "train: non-finite loss or norm")
     check(losses[-1] < losses[0], "train: the loss did not fall")
@@ -646,26 +701,21 @@ def train_llama(torch, flash, card: str):
     return metrics
 
 
-def print_sm90_build(flash, built) -> None:
-    """Each sm90 kernel's registers, spills and shared memory, from ptxas
-    (-v) and the library (dynamic shared memory is set at launch)."""
-    smem = {"flash_fwd_sm90_kernel": built.lib.gofr_flash_fwd_sm90_smem(),
-            "flash_bwd_dkv_sm90_kernel": built.lib.gofr_flash_bwd_dkv_sm90_smem()}
-    lines = built.log.splitlines()
-    for i, line in enumerate(lines):
-        name = next((n for n in smem if n in line and "Compiling entry" in line), None)
-        if name is None:
-            continue
-        props = [x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
-                 if "spill" in x or "registers" in x]
-        print(f"  ptxas {name}: {'; '.join(props)}; dynamic shared memory {smem[name]} bytes",
-              flush=True)
+def print_build(flash, built) -> None:
+    """Each redesigned kernel's registers, spills and shared memory, from
+    ptxas (-v) and the library (dynamic shared memory is set at launch);
+    a kernel that spills fails the run."""
+    report = flash.build_report(built)
+    check(set(report) == set(flash.SMEM_QUERIES), f"ptxas reported {sorted(report)}")
+    for name, r in report.items():
+        print(f"  ptxas {name}: {r['ptxas']}; dynamic shared memory {r['smem']} bytes", flush=True)
+        check(not r["spills"], f"{name} spills registers")
 
 
 def forward_phases(torch, flash, gen):
     """Phases 2 and 3. -> (max errors by variant, timing rows by shape)."""
     bf16, f32, nan = torch.bfloat16, torch.float32, float("nan")
-    errs = {"sm90": [], "mma": []}
+    errs = {"sm90": [], "decode": [], "mma": []}
     prefill = make_case(torch, gen, 2, 512, 1024, 32, 8, 128, bf16, [0, 300], [512, 812],
                         poison=True)
     decode = make_case(torch, gen, 4, 1, 2048, 32, 8, 128, bf16, [0, 699, 1499, 2047],
@@ -676,6 +726,9 @@ def forward_phases(torch, flash, gen):
         "served prefill bf16 B=4 bucket 1024": served_case(torch, gen, 4, 1024, 0, 1024),
         "served prefill bf16 B=4 bucket 128": served_case(torch, gen, 4, 128, 0, 128),
         "served decode bf16 B=1 kv_len 616": served_case(torch, gen, 1, 1, 615, 616),
+        "served decode bf16 B=1 kv_len 1800": served_case(torch, gen, 1, 1, 1799, 1800),
+        "served decode bf16 B=1 kv_len 1000 NaN tail": served_case(torch, gen, 1, 1, 999, 1000,
+                                                                   poison=(nan, nan)),
         "cache slice bf16 B=2 Sq=256 NaN tail": served_case(torch, gen, 2, 256, 44, 300,
                                                             poison=(nan, nan)),
     }
@@ -695,6 +748,14 @@ def forward_phases(torch, flash, gen):
         "GQA groups 2": make_case(torch, gen, 1, 256, 256, 16, 8, 128, bf16, [0], [256]),
         "GQA groups 8": make_case(torch, gen, 1, 256, 256, 32, 4, 128, bf16, [0], [256]),
         "decode bf16 B=4 cache 2048": decode,
+        "decode GQA groups 1": make_case(torch, gen, 2, 1, 512, 8, 8, 128, bf16, [99, 400],
+                                         [100, 401]),
+        "decode GQA groups 2": make_case(torch, gen, 2, 1, 512, 16, 8, 128, bf16, [99, 400],
+                                         [100, 401]),
+        "decode GQA groups 8": make_case(torch, gen, 2, 1, 512, 32, 4, 128, bf16, [99, 400],
+                                         [100, 401]),
+        "decode Sq=4 (the largest the variant packs at groups 4)": make_case(
+            torch, gen, 2, 4, 512, 32, 8, 128, bf16, [96, 290], [100, 294]),
         "prefill f32 D=16": make_case(torch, gen, 2, 40, 128, 4, 2, 16, f32, [0, 20], [40, 60]),
     }
     for name, case in plain.items():
@@ -712,9 +773,14 @@ def forward_phases(torch, flash, gen):
                                          served["served prefill bf16 B=4 bucket 128"], 50),
         "served_decode": time_shape(torch, flash, "served decode",
                                     served["served decode bf16 B=1 kv_len 616"], 50),
+        "served_decode_long": time_shape(torch, flash, "served decode long cache",
+                                         served["served decode bf16 B=1 kv_len 1800"], 50),
         "prefill": time_shape(torch, flash, "prefill", prefill, 20),
         "decode": time_shape(torch, flash, "decode", decode, 50),
+        "prefill_f32": time_shape(torch, flash, "tiny model prefill f32", plain["prefill f32 D=16"],
+                                  50),
     }
+    no_host_sync(torch, "decode", lambda: flash.flash_attention_fwd(*decode[:3], True, *decode[3:]))
     return errs, shapes
 
 
@@ -749,10 +815,10 @@ def backward_phases(torch, flash, gen):
         "f32 D=16 tiny shapes": bwd_case(torch, flash, gen, 2, 40, 128, 4, 2, 16, f32,
                                          [0, 20], [40, 60]),
     }
-    dq_errs, dkv_errs = [], {"sm90": [], "mma": []}
+    dq_errs, dkv_errs = {"sm90": [], "mma": []}, {"sm90": [], "mma": []}
     for name, c in bwd_cases.items():
         e_dq, e_dkv, grads, variant = compare_bwd(torch, flash, name, c)
-        dq_errs.append(e_dq)
+        dq_errs[variant].append(e_dq)
         dkv_errs[variant].append(e_dkv)
         if "kv_lens=0" in name:
             check(all(bool((g[0] == 0).all()) for g in grads), "kv_lens=0 row: grads not exactly 0")
@@ -760,27 +826,35 @@ def backward_phases(torch, flash, gen):
     return dq_errs, dkv_errs, bwd_rows, fwd_row
 
 
-def kernels_line(errs, shapes, served, train, dq_errs, dkv_errs, bwd_rows) -> dict:
+def kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows) -> dict:
     """The kernels of the main path (serving, training) with their counts
-    from its runs and the numbers phases 3 and 7 measured."""
+    from its runs and the numbers phases 3 and 7 measured. The mma forward
+    is on the tiny f32 model's path (phases 4 and 8) alone; its count is
+    from those runs. At decode the kernel's ``ms`` and ``library_ms`` are
+    device times (CUDA graph), the CUDA-event times beside them."""
     fwd = {"route": "cuda", "source": "gofr_tpu_torch/csrc/flash_fwd.cu",
            "replaces": "gofr_tpu/ops/flash.py:224"}
     bwd = {"route": "cuda", "source": "gofr_tpu_torch/csrc/flash_bwd.cu"}
-    sm90_train, mma_train = train["launches"][3], train["launches"][0] - train["launches"][3]
+    sm90_train = train["launches"][3]
+    long = shapes["served_decode_long"]
+    decode_row = {**long, "ms": long["device_ms"], "event_ms": long["ms"],
+                  "library_ms": long["library_device_ms"], "library_event_ms": long["library_ms"]}
     return {"kernels": [
         {"name": "flash_fwd_sm90", **fwd, "launches": served["sm90"] + sm90_train,
          "serve_launches": served["sm90"], "training_launches": sm90_train,
          "max_abs_err": max(errs["sm90"]), **shapes["training_forward"],
          "by_shape": {k: v for k, v in shapes.items() if v["variant"] == "sm90"}},
-        {"name": "flash_fwd_mma", **fwd, "launches": served["mma"] + mma_train,
-         "serve_launches": served["mma"], "training_launches": mma_train,
-         "max_abs_err": max(errs["mma"]), **shapes["served_decode"],
-         "by_shape": {k: v for k, v in shapes.items() if v["variant"] == "mma"}},
+        {"name": "flash_fwd_decode", **fwd, "launches": served["decode"],
+         "max_abs_err": max(errs["decode"]), **decode_row,
+         "by_shape": {k: v for k, v in shapes.items() if v["variant"] == "decode"}},
+        {"name": "flash_fwd_mma", **fwd, "launches": tiny, "path": "tiny f32 model (phases 4, 8)",
+         "max_abs_err": max(errs["mma"]), **shapes["prefill_f32"]},
         {"name": "flash_bwd_dq", **bwd, "replaces": "gofr_tpu/ops/flash.py:477",
-         "launches": train["launches"][1], "max_abs_err": max(dq_errs),
+         "launches": train["launches"][4], "max_abs_err": max(dq_errs["sm90"]),
+         "mma_max_abs_err": max(dq_errs["mma"]),
          "shape": "B=1 S=2048 Hq=32 Hkv=8 D=128 bf16 causal", **bwd_rows["dq"]},
         {"name": "flash_bwd_dkv", **bwd, "replaces": "gofr_tpu/ops/flash.py:521",
-         "launches": train["launches"][4], "max_abs_err": max(dkv_errs["sm90"]),
+         "launches": train["launches"][5], "max_abs_err": max(dkv_errs["sm90"]),
          "mma_max_abs_err": max(dkv_errs["mma"]),
          "shape": "B=1 S=2048 Hq=32 Hkv=8 D=128 bf16 causal", **bwd_rows["dkv"]},
     ]}
@@ -806,16 +880,13 @@ def main() -> int:
     t0 = time.perf_counter()
     built = flash.build()
     print(f"build: {built.path.name} in {time.perf_counter() - t0:.1f}s", flush=True)
-    for line in built.log.splitlines():
-        if "Used" in line and "registers" in line:
-            print(f"  ptxas: {line.split(':', 1)[-1].strip()}", flush=True)
-    print_sm90_build(flash, built)
+    print_build(flash, built)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     errs, shapes = forward_phases(torch, flash, gen)
     torch.cuda.empty_cache()
-    f32_path(torch, flash)
+    tiny = f32_path(torch, flash)
     served = serve(torch, flash, card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -823,10 +894,10 @@ def main() -> int:
 
     dq_errs, dkv_errs, bwd_rows, shapes["training_forward"] = backward_phases(torch, flash, gen)
     torch.cuda.empty_cache()
-    f32_training(torch, flash)
+    tiny += f32_training(torch, flash)[0]
     train = train_llama(torch, flash, card)
 
-    kernels = kernels_line(errs, shapes, served, train, dq_errs, dkv_errs, bwd_rows)
+    kernels = kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows)
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)  # name, power limit as nvidia-smi gives them
     print(json.dumps({"ok": True, "device": {

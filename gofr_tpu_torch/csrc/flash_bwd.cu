@@ -28,8 +28,13 @@
 //
 // Work split, each block reading its own q_offset and kv_len (the TPU's
 // scalar prefetch):
-// - dQ: one block of 4 warps per (q tile, q head, batch row), looping over
-//   K/V tiles up to min(cdiv(kv_len), causal diagonal), the forward's bound.
+// - dQ, sm90 variant (bf16, D = 128: the training path; ops/flash.py::
+//   dq_variant picks it): one block per (128-row q tile, q head, batch
+//   row), wgmma, a TMA/mbarrier K/V ring, q tiles launched longest first
+//   (flash_bwd_dq_sm90_kernel below, with its note).
+// - dQ, mma variant (f32, D != 128): one block of 4 warps per (q tile, q
+//   head, batch row), looping over K/V tiles up to min(cdiv(kv_len), causal
+//   diagonal), the forward's bound.
 // - dK/dV, sm90 variant (bf16, D = 128: the training path; ops/flash.py::
 //   dkv_variant picks it): one block per (128-key tile, q head, batch row),
 //   the blocks of a GQA group one thread block cluster that sums their f32
@@ -42,7 +47,7 @@
 //   offset) / block_q) to the end. The group sum the TPU made by
 //   revisiting its output block happens in the block's f32 registers:
 //   deterministic, no atomics.
-// - bf16 mma (dQ at any D; dK/dV at D != 128): tensor cores through mma.sync
+// - bf16 mma (dQ and dK/dV at D != 128): tensor cores through mma.sync
 //   m16n8k16. dQ: a 64-row q tile, 16 rows per warp, Q and dO fragments in
 //   registers, 32-key K/V tiles in shared memory; dS goes from the C
 //   registers straight into the A operand of dS.K. dK/dV: a 64-key tile,
@@ -59,12 +64,10 @@
 // What bounds them on the H100 (989 TFLOP/s bf16 dense, 3.35 TB/s HBM): at
 // the training shape (S = 2048, D = 128) operations, 6*D*Hq*(visible pairs)
 // for dQ (three products) and 8*D*Hq*(visible pairs) for dK/dV (four; the
-// hi/lo split adds a fifth that the bound does not count). What the dQ
-// kernel leaves on the table: mma.sync instead of wgmma, synchronous tile
-// loads, each K/V tile read again by every block that needs it. What both
-// leave: S and dP recomputed in both kernels (a fused kernel with atomic dQ
-// would compute them once); the sm90 dK/dV variant does not overlap one
-// warpgroup's elementwise phase with its own next products.
+// hi/lo split adds a fifth that the bound does not count). What both
+// leave on the table: S and dP recomputed in both kernels (a fused kernel
+// with atomic dQ would compute them once); neither sm90 variant overlaps
+// one warpgroup's elementwise phase with its own next products.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -705,6 +708,231 @@ __global__ void __launch_bounds__(kD90Threads, 1) flash_bwd_dkv_sm90_kernel(
   }
 }
 
+// ---------------------------------------------- bf16 dQ, D = 128: sm90
+
+// One block of 384 threads per (128-row q tile, q head, batch row), the q
+// tiles launched longest first under the causal mask (grid z reversed),
+// as the sm90 forward.
+// - Warp 8, the producer (its warpgroup gives its registers to the two
+//   consumer warpgroups: 240 + 240 + 24), loads the block's Q and dO tiles
+//   once and streams 64-key K/V tiles through a five-stage ring by TMA.
+// - Warpgroups 0 and 1 own 64 q rows each, with their rows' LSE (times
+//   log2 e; +inf past Sq) and D (0 past Sq) in registers. Per K/V tile: S =
+//   Q.K^T and dP = dO.V^T by wgmma (both operands in shared memory,
+//   K-major; two commit groups, so P is computed while dP runs: 0.159 ->
+//   0.149 ms at the training shape), P and dS in registers, then dQ +=
+//   bf16(dS).K by wgmma with dS as the register A operand and K read
+//   transposed (MN-major), as the forward reads V for P.V. dQ stays f32 in
+//   registers, 64 x 128 a warpgroup, and is written once: every block owns
+//   its rows, no atomics.
+// - 64-key tiles: dQ (64 f32 registers a thread) plus S and dP (32 each)
+//   fit the consumers' 240; 128-key tiles would need 64 more.
+// - Keys at or past kv_len inside Skv are loaded by TMA with whatever the
+//   cache holds: those K rows are zeroed in shared memory before any
+//   product reads them (dS is 0 there, but 0 * NaN is NaN), and P and dS
+//   are selected to 0 for every masked (row, key). A warpgroup whose rows
+//   see no key of a tile skips its products.
+constexpr int kQ90BlockM = 128;  // q rows per block
+constexpr int kQ90BlockN = 64;   // keys per K/V tile
+constexpr int kQ90Stages = 5;
+constexpr int kQ90Threads = 384;  // warpgroup 2 holds the producer warp
+constexpr int kQ90Consumers = 256;
+constexpr int kQ90QHalf = kQ90BlockM * 128;   // bytes: 128 rows x 64 bf16 columns
+constexpr int kQ90KvHalf = kQ90BlockN * 128;  // 64 rows x 64 bf16 columns
+constexpr int kQ90Stage = 4 * kQ90KvHalf;     // K and V, two halves each
+constexpr int kQ90Smem = 1024 + 4 * kQ90QHalf + kQ90Stages * kQ90Stage + 1024;  // + alignment slack
+static_assert(kQ90Smem <= 232448, "more shared memory than a block may have");
+
+struct Q90Args {
+  const float *lse, *dvec;
+  const int32_t *offsets, *kv_lens;
+  bf16* dq;
+  int sq, skv, hq, groups, n_qt;
+  float scale, scale_log2;
+  int causal;
+};
+
+__global__ void __launch_bounds__(kQ90Threads, 1) flash_bwd_dq_sm90_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap domap,
+    Q90Args a) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                             ~uintptr_t(1023));
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kQ90Stages;
+  uint8_t* qs = smem + 1024;
+  uint8_t* dos = qs + 2 * kQ90QHalf;
+  uint8_t* ring = dos + 2 * kQ90QHalf;  // stage s: K at ring + s * kQ90Stage, V after
+
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / a.groups;
+  // longest first: under the causal mask the last q tiles see the most keys
+  const int qt = a.causal ? a.n_qt - 1 - (int)blockIdx.z : (int)blockIdx.z;
+  const int q0 = qt * kQ90BlockM;
+  const int offset = a.offsets[b];
+  const int kv_len = min(max(a.kv_lens[b], 0), a.skv);
+  int hi = (kv_len + kQ90BlockN - 1) / kQ90BlockN;
+  if (a.causal) {
+    const int last = offset + min(q0 + kQ90BlockM, a.sq);  // exclusive
+    hi = min(hi, max(0, (last + kQ90BlockN - 1) / kQ90BlockN));
+  }
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kQ90Stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kQ90Consumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= kQ90Consumers / 32) {  // the producer warpgroup; warp 8 loads
+    regs_dealloc<24>();
+    if (warp == kQ90Consumers / 32 && lane == 0 && hi > 0) {
+      mbar_arrive_expect_tx(q_full, 4 * kQ90QHalf);
+      tma_load_4d(qs, &qmap, q_full, 0, h, q0, b);
+      tma_load_4d(qs + kQ90QHalf, &qmap, q_full, 64, h, q0, b);
+      tma_load_4d(dos, &domap, q_full, 0, h, q0, b);
+      tma_load_4d(dos + kQ90QHalf, &domap, q_full, 64, h, q0, b);
+      for (int j = 0; j < hi; ++j) {
+        const int s = j % kQ90Stages;
+        mbar_wait(&empty[s], ((j / kQ90Stages) & 1) ^ 1);
+        uint8_t* ks = ring + s * kQ90Stage;
+        uint8_t* vs = ks + 2 * kQ90KvHalf;
+        mbar_arrive_expect_tx(&full[s], kQ90Stage);
+        tma_load_4d(ks, &kmap, &full[s], 0, hk, j * kQ90BlockN, b);
+        tma_load_4d(ks + kQ90KvHalf, &kmap, &full[s], 64, hk, j * kQ90BlockN, b);
+        tma_load_4d(vs, &vmap, &full[s], 0, hk, j * kQ90BlockN, b);
+        tma_load_4d(vs + kQ90KvHalf, &vmap, &full[s], 64, hk, j * kQ90BlockN, b);
+      }
+    }
+    return;
+  }
+
+  regs_alloc<240>();
+  const int wg = warp / 4, g = lane / 4, t = lane % 4;
+  const int row_in = wg * 64 + (warp % 4) * 16 + g;  // this thread's rows: row_in, row_in + 8
+  const int wg_row0 = q0 + wg * 64;                   // the warpgroup's first q row
+  const uint32_t q_addr = smem_u32(qs) + wg * 64 * 128, do_addr = smem_u32(dos) + wg * 64 * 128;
+  // rows past Sq get LSE +inf, so P = 0 there
+  float lse_r[2], d_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + row_in + 8 * r;
+    const int64_t i = ((int64_t)b * a.hq + h) * a.sq + row;
+    lse_r[r] = row < a.sq ? a.lse[i] * kLog2e : INFINITY;
+    d_r[r] = row < a.sq ? a.dvec[i] : 0.f;
+  }
+
+  float acc[64], sc[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+  if (hi > 0) mbar_wait(q_full, 0);
+
+  for (int j = 0; j < hi; ++j) {
+    const int s = j % kQ90Stages;
+    const int k0 = j * kQ90BlockN;
+    mbar_wait(&full[s], (j / kQ90Stages) & 1);
+    uint8_t* ks = ring + s * kQ90Stage;
+    const uint32_t k_addr = smem_u32(ks), v_addr = k_addr + 2 * kQ90KvHalf;
+    if (k0 + kQ90BlockN > kv_len) {
+      // the tile holds keys at or past kv_len: zero those K rows before
+      // any product reads them (both warpgroups write the same zeros)
+      const int first = kv_len - k0;
+      for (int c = tid; c < (kQ90BlockN - first) * 16; c += kQ90Consumers) {
+        const int r = first + c / 16, half = (c / 8) % 2, chunk = c % 8;
+        *reinterpret_cast<uint4*>(ks + half * kQ90KvHalf + r * 128 + chunk * 16) =
+            make_uint4(0, 0, 0, 0);
+      }
+      fence_proxy_async();
+      named_bar_sync(1, kQ90Consumers);
+    }
+    // under the causal mask the warpgroup's rows may see no key of the tile
+    if (!a.causal || k0 <= offset + wg_row0 + 63) {
+      // S and dP in two commit groups: P is computed while dP still runs
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        wgmma_m64n64k16_ss(sc, smem_desc(q_addr + (kk / 4) * kQ90QHalf + (kk % 4) * 32, 16, 1024),
+                           smem_desc(k_addr + (kk / 4) * kQ90KvHalf + (kk % 4) * 32, 16, 1024),
+                           kk > 0);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        wgmma_m64n64k16_ss(dp, smem_desc(do_addr + (kk / 4) * kQ90QHalf + (kk % 4) * 32, 16, 1024),
+                           smem_desc(v_addr + (kk / 4) * kQ90KvHalf + (kk % 4) * 32, 16, 1024),
+                           kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(sc);
+
+      // the warpgroup's 64 rows x 64 keys need no mask when every key is
+      // live, every row is < Sq and (causal) sees every key
+      const bool need_mask = k0 + kQ90BlockN > kv_len || wg_row0 + 64 > a.sq ||
+                             (a.causal && k0 + kQ90BlockN - 1 > offset + wg_row0);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = k0 + 8 * i + 2 * t + (e & 1);
+          const int row = q0 + row_in + 8 * (e >> 1);
+          const bool valid = !need_mask || (kpos < kv_len && row < a.sq &&
+                                            (!a.causal || kpos <= offset + row));
+          // P in place of S; LSE +inf (a row with no key) gives exp2(-inf) = 0
+          sc[4 * i + e] = valid ? exp2_fast(sc[4 * i + e] * a.scale_log2 - lse_r[e >> 1]) : 0.f;
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(dp);
+      // dS in the A layout of dS.K: score n-tiles 2i and 2i + 1 are k-step i.
+      // P = 0 (masked, or underflowed) gives dS = 0 by select: dP may be
+      // NaN there, from V rows past kv_len
+      uint32_t dsf[4][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = sc[4 * i + e];
+          ds[e] = p > 0.f ? p * (dp[4 * i + e] - d_r[e >> 1]) : 0.f;
+        }
+        dsf[i / 2][(i & 1) * 2 + 0] = pack_bf16(ds[0], ds[1]);
+        dsf[i / 2][(i & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_m64n128k16_rs_tb(acc, dsf[kk], smem_desc(k_addr + kk * 16 * 128, kQ90KvHalf, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      fence_regs(dsf);
+    }
+    mbar_arrive(&empty[s]);
+  }
+
+  const int64_t o_ss = (int64_t)a.hq * 128;  // dQ is [B, Sq, Hq, D] contiguous
+  bf16* dqb = a.dq + (int64_t)b * a.sq * o_ss + (int64_t)h * 128;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + row_in + 8 * r;
+    if (row >= a.sq) continue;
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      *reinterpret_cast<uint32_t*>(dqb + row * o_ss + n * 8 + 2 * t) =
+          pack_bf16(acc[4 * n + 2 * r] * a.scale, acc[4 * n + 2 * r + 1] * a.scale);
+    }
+  }
+}
+
 // ----------------------------------------------------------------- f32 path
 
 constexpr int kBlockQ = 16;
@@ -1074,7 +1302,57 @@ int gofr_flash_bwd_dkv_sm90(const void* q, const void* k, const void* v, const v
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory of a block of the sm90 variant, in bytes.
+// The sm90 dQ kernel (bf16, D = 128; the caller picks it). q, k, v and dout
+// rows must be 16-byte aligned (pointers and strides: TMA reads them);
+// dout, dq, lse and dvec are contiguous. The grid is (Hq, B, cdiv(Sq,
+// 128)), the q tiles launched longest first when causal; ops/flash.py::
+// dq_sm90_grid computes it. Returns a cudaError_t value (0 on success).
+int gofr_flash_bwd_dq_sm90(const void* q, const void* k, const void* v, const void* dout,
+                           const void* lse, const void* dvec, const void* offsets,
+                           const void* kv_lens, void* dq,
+                           int b, int sq, int skv, int hq, int hkv,
+                           int64_t qsb, int64_t qss, int64_t qsh,
+                           int64_t ksb, int64_t kss, int64_t ksh,
+                           int64_t vsb, int64_t vss, int64_t vsh,
+                           float scale, int causal, int grid_x, int grid_y, int grid_z,
+                           int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (hkv < 1 || hq % hkv || sq < 1 || grid_x != hq || grid_y != b ||
+      grid_z != (sq + kQ90BlockM - 1) / kQ90BlockM) {
+    return (int)cudaErrorInvalidValue;
+  }
+  CUtensorMap qm, km, vm, dom;
+  const int64_t o_ss = (int64_t)hq * 128;  // dout is [B, Sq, Hq, D] contiguous
+  int rc = make_bf16_map(&qm, q, b, sq, hq, 128, qsb, qss, qsh, kQ90BlockM);
+  if (rc == 0) rc = make_bf16_map(&dom, dout, b, sq, hq, 128, sq * o_ss, o_ss, 128, kQ90BlockM);
+  if (rc == 0) rc = make_bf16_map(&km, k, b, skv, hkv, 128, ksb, kss, ksh, kQ90BlockN);
+  if (rc == 0) rc = make_bf16_map(&vm, v, b, skv, hkv, 128, vsb, vss, vsh, kQ90BlockN);
+  if (rc != 0) return rc;
+  err = cudaFuncSetAttribute(flash_bwd_dq_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kQ90Smem);
+  if (err != cudaSuccess) return (int)err;
+  Q90Args a;
+  a.lse = static_cast<const float*>(lse);
+  a.dvec = static_cast<const float*>(dvec);
+  a.offsets = static_cast<const int32_t*>(offsets);
+  a.kv_lens = static_cast<const int32_t*>(kv_lens);
+  a.dq = static_cast<bf16*>(dq);
+  a.sq = sq;
+  a.skv = skv;
+  a.hq = hq;
+  a.groups = hq / hkv;
+  a.n_qt = grid_z;
+  a.scale = scale;
+  a.scale_log2 = scale * kLog2e;
+  a.causal = causal;
+  flash_bwd_dq_sm90_kernel<<<dim3(grid_x, grid_y, grid_z), kQ90Threads, kQ90Smem,
+                             static_cast<cudaStream_t>(stream)>>>(qm, km, vm, dom, a);
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of a block of the sm90 variants, in bytes.
 int gofr_flash_bwd_dkv_sm90_smem() { return kD90Smem; }
+int gofr_flash_bwd_dq_sm90_smem() { return kQ90Smem; }
 
 }  // extern "C"

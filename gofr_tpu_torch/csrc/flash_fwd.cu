@@ -17,16 +17,20 @@
 // prefetch) and loops over K/V tiles staged in shared memory. Scores, the
 // running (m, l, acc) and P.V accumulate in f32; P is rounded to the value
 // dtype before P.V, as the TPU kernel does; masked keys get p = 0.
-// Two variants; ops/flash.py::fwd_variant picks one by shape:
+// Three variants; ops/flash.py::fwd_variant picks one by shape:
 // - sm90 (bf16, D = 128, Sq >= 64: training and serving prefill): wgmma
 //   and a TMA/mbarrier K/V ring, warp-specialised, 128-row q tiles
 //   launched longest first (flash_fwd_sm90_kernel below, with its note).
 //   TMA loads whole tiles, so V rows at or past kv_len reach shared memory
 //   and are zeroed there before P.V.
-// - mma (everything else: decode, short tails, f32, D != 128): one block
+// - decode (bf16, D = 128, Sq x groups <= 16: the serving path's decode):
+//   the GQA group's query rows packed into one m16 tile, split-KV across a
+//   thread block cluster, a cp.async K/V ring and one deterministic merge
+//   through distributed shared memory (flash_fwd_decode_kernel below).
+// - mma (everything else: short tails, f32, D != 128): one block
 //   of 128 threads (4 warps) per (q tile, q head, batch row); keys at or
 //   past kv_len are never read (their tile rows are zero-filled).
-// - mma, bf16 (the serving path's decode): tensor cores through mma.sync m16n8k16. A
+// - mma, bf16: tensor cores through mma.sync m16n8k16. A
 //   64-row q tile, 16 rows per warp; each warp keeps its Q fragments, its
 //   64-key score tile and its 16 x D output accumulator in registers, and
 //   feeds P to P.V straight from the score registers (FlashAttention-2).
@@ -43,13 +47,15 @@
 // not overlap one tile's softmax with the other's products (no ping-pong),
 // and the output leaves from registers rather than through TMA. What the
 // mma variant leaves: mma.sync (about half the wgmma rate), synchronous
-// tile loads; decode pads
-// its one query row to a 64-row tile (three warps idle), reads each KV head
-// once per query head of its group instead of packing the group into the
-// tile, and has no split-KV, so a batch-1 decode runs on Hq of 132 SMs.
+// tile loads. What the decode variant leaves: each block streams its
+// tiles far below its share of HBM's rate (latency-bound: a tile's wait,
+// products and softmax run in series in four warps), and the launch,
+// cluster barriers and merge cost a few microseconds; the serving step
+// around it is host-bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -454,6 +460,292 @@ __global__ void __launch_bounds__(kF90Threads, 1) flash_fwd_sm90_kernel(
   }
 }
 
+// ---------------------------------- bf16, D = 128, Sq x groups <= 16: decode
+
+// One block of 128 threads per (split, KV head, batch row); the `splits`
+// blocks of one (KV head, batch row) are one thread block cluster along x.
+// - The Sq x groups query rows of the KV head (the q heads of its GQA
+//   group at each q position, row r = s * groups + gi) are packed into one
+//   m16 tile: K and V are read once per KV head, not once per q head.
+// - The keys any row may see, [0, min(kv_len, causal: q_offset + Sq)),
+//   are cut into 64-key tiles, and split s takes tiles [s * per, (s + 1) *
+//   per) with per = cdiv(tiles, splits): every block finds its own range
+//   from its row's kv_len on the device, so the host reads no device value.
+//   Keys past the range are never read (cp.async writes zeros there).
+// - A two-stage cp.async ring of K/V tiles keeps bytes in flight; each
+//   of the four warps takes 16 keys of a tile, S = Q.K^T and O += P.V by
+//   mma.sync m16n8k16, and its own online softmax (m, l, O) in base 2.
+//   Two stages (68 KB) let three blocks share an SM, which on the H100 was
+//   faster at batch 4 than three or four stages and about even at batch 1.
+//   (One 256-byte bulk copy a row through the TMA unit was slower than
+//   cp.async here: a tile is 128 such copies.)
+// - The merge: each block first merges its four warps' (m, l, O) in shared
+//   memory; after a cluster barrier each block reads its share of the
+//   (row, column) outputs from every block of the cluster through
+//   distributed shared memory and sums them in split order: deterministic,
+//   no atomics. A partial with l = 0 (no visible key) weighs exactly 0, and
+//   a row with no key at all gets out 0 and LSE +inf.
+constexpr int kDecRows = 16;  // packed query rows: one m16 tile
+constexpr int kDecThreads = 128;
+constexpr int kDecWarps = kDecThreads / 32;
+constexpr int kDecBlockN = 16 * kDecWarps;  // keys per tile, 16 per warp
+constexpr int kDecStages = 2;      // 68 KB a block: three blocks an SM
+constexpr int kDecMaxSplits = 8;  // the portable thread block cluster size
+constexpr int kDecLd = 136;       // bf16 row pitch of a K/V tile (+16 bytes: no bank conflicts)
+constexpr int kDecTile = kDecBlockN * kDecLd;  // elements of one K or V tile
+constexpr int kDecOLd = 136;                   // f32 row pitch of a warp's partial O
+// the partials: each warp's (m, l, O), then the block's
+constexpr int kDecParts = (kDecWarps + 1) * kDecRows * (kDecOLd + 2);  // floats
+constexpr int kDecRing = kDecStages * 2 * kDecTile * 2;                      // bytes
+constexpr int kDecSmem = kDecRing > kDecParts * 4 ? kDecRing : kDecParts * 4;
+
+struct DecArgs {
+  const __nv_bfloat16 *q, *k, *v;
+  const int32_t *offsets, *kv_lens;
+  __nv_bfloat16* out;
+  float* lse;
+  int sq, skv, hq, groups, splits;
+  Strides st;
+  float scale_log2;  // scale * log2(e): the softmax runs in base 2
+  int causal;
+};
+
+__global__ void __launch_bounds__(kDecThreads) flash_fwd_decode_kernel(DecArgs a) {
+  extern __shared__ __align__(16) uint8_t dec_smem[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(dec_smem);  // stage s: K, then V
+
+  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int rows = a.sq * a.groups;
+  const int offset = a.offsets[b];
+  const int kv_len = min(max(a.kv_lens[b], 0), a.skv);
+  // this split's keys: [t_lo * 64, k_hi)
+  const int kv_end = a.causal ? min(kv_len, max(0, offset + a.sq)) : kv_len;
+  const int n_tiles = (kv_end + kDecBlockN - 1) / kDecBlockN;
+  const int per = (n_tiles + a.splits - 1) / a.splits;
+  const int t_lo = split * per;
+  const int nt = max(0, min(t_lo + per, n_tiles) - t_lo);
+  const int k_hi = min((t_lo + nt) * kDecBlockN, kv_end);
+  const Strides& st = a.st;
+  const __nv_bfloat16* kb = a.k + b * st.kb + hk * st.kh;
+  const __nv_bfloat16* vb = a.v + b * st.vb + hk * st.vh;
+
+  // 16 bytes a thread; rows at or past k_hi are zero-filled, never read
+  auto load_tile = [&](int j, int stage) {
+    const int k0 = (t_lo + j) * kDecBlockN;
+    __nv_bfloat16* ks = ring + stage * 2 * kDecTile;
+    for (int c = tid; c < 2 * kDecBlockN * 16; c += kDecThreads) {
+      const int which = c / (kDecBlockN * 16), r = (c / 16) % kDecBlockN, chunk = c % 16;
+      const int pos = k0 + r;
+      const bool live = pos < k_hi;
+      const __nv_bfloat16* src = which ? vb + (int64_t)(live ? pos : 0) * st.vs
+                                       : kb + (int64_t)(live ? pos : 0) * st.ks;
+      cp_async_16(ks + which * kDecTile + r * kDecLd + chunk * 8, src + chunk * 8, live ? 16 : 0);
+    }
+  };
+
+  // the ring's first tiles are in flight before anything else is read
+#pragma unroll
+  for (int s = 0; s < kDecStages - 1; ++s) {
+    if (s < nt) load_tile(s, s);
+    cp_async_commit();
+  }
+
+  // Q fragments of the packed rows g and g + 8 (zeros past the last row);
+  // every warp holds the same 16 rows
+  uint32_t qf[8][4];
+  int lim[2];  // the last key position each of this thread's rows may see
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = g + rr * 8;
+    const int s = row / a.groups, h = hk * a.groups + row % a.groups;
+    lim[rr] = a.causal ? offset + s : INT_MAX;
+    const __nv_bfloat16* qrow = a.q + b * st.qb + s * st.qs + h * st.qh;
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int col = kk * 16 + half * 8 + 2 * t;
+        qf[kk][half * 2 + rr] = row < rows ? pack_raw(qrow[col], qrow[col + 1]) : 0u;
+      }
+    }
+  }
+
+  float o[16][4];
+#pragma unroll
+  for (int n = 0; n < 16; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf};
+  float l_run[2] = {0.f, 0.f};
+  for (int j = 0; j < nt; ++j) {
+    cp_async_wait<kDecStages - 2>();
+    __syncthreads();  // tile j is in for every thread; tile j - 1's stage is free
+    if (j + kDecStages - 1 < nt) load_tile(j + kDecStages - 1, (j + kDecStages - 1) % kDecStages);
+    cp_async_commit();
+
+    const __nv_bfloat16* ks = ring + (j % kDecStages) * 2 * kDecTile + warp * 16 * kDecLd;
+    const __nv_bfloat16* vs = ks + kDecTile;
+    const int k0 = (t_lo + j) * kDecBlockN + warp * 16;  // this warp's 16 keys
+    float sc[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+      const __nv_bfloat16* krow = ks + (n * 8 + g) * kDecLd + 2 * t;
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        mma_16816(sc[n], qf[kk], *reinterpret_cast<const uint32_t*>(krow + kk * 16),
+                  *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8));
+      }
+    }
+    float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = k0 + n * 8 + 2 * t + (e & 1);
+        const bool valid = kpos < k_hi && kpos <= lim[e >> 1];
+        sc[n][e] = valid ? sc[n][e] * a.scale_log2 : kNegInf;
+        mx[e >> 1] = fmaxf(mx[e >> 1], sc[n][e]);
+      }
+    }
+    float alpha[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = exp2_fast(m_run[r] - mx[r]);
+      m_run[r] = mx[r];
+    }
+    // P in the A layout of P.V: score n-tiles 0 and 1 are the one k-step
+    uint32_t pf[4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // masked keys contribute exactly 0, never exp(-1e30 - m)
+        p[e] = sc[n][e] > 0.5f * kNegInf ? exp2_fast(sc[n][e] - m_run[e >> 1]) : 0.f;
+        rsum[e >> 1] += p[e];
+      }
+      pf[n * 2 + 0] = pack_bf16(p[0], p[1]);
+      pf[n * 2 + 1] = pack_bf16(p[2], p[3]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 1);
+      rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 2);
+      l_run[r] = alpha[r] * l_run[r] + rsum[r];
+    }
+    const __nv_bfloat16* v0 = vs + (2 * t) * kDecLd + g;
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+      const __nv_bfloat16* vc = v0 + n * 8;
+      mma_16816(o[n], pf, pack_raw(vc[0], vc[kDecLd]), pack_raw(vc[8 * kDecLd], vc[9 * kDecLd]));
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every tile consumed: the ring's memory takes the partials
+
+  float* part_o = reinterpret_cast<float*>(dec_smem);  // [warp][row][kDecOLd]
+  float* part_m = part_o + kDecWarps * kDecRows * kDecOLd;  // [warp][row]
+  float* part_l = part_m + kDecWarps * kDecRows;
+  float* blk_o = part_l + kDecWarps * kDecRows;  // the block's: [row][kDecOLd]
+  float* blk_m = blk_o + kDecRows * kDecOLd;  // [row]
+  float* blk_l = blk_m + kDecRows;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = warp * kDecRows + g + 8 * r;
+#pragma unroll
+    for (int n = 0; n < 16; ++n) {
+      *reinterpret_cast<float2*>(part_o + row * kDecOLd + n * 8 + 2 * t) =
+          make_float2(o[n][2 * r], o[n][2 * r + 1]);
+    }
+    if (t == 0) {
+      part_m[row] = m_run[r];
+      part_l[row] = l_run[r];
+    }
+  }
+  __syncthreads();
+  // the block's partial from its four warps': (m, l, O) with O relative to
+  // m. A partial with l = 0 (no visible key) weighs exactly 0.
+  for (int u = tid; u < rows * 64; u += kDecThreads) {
+    const int row = u / 64, c = (u % 64) * 2;
+    float m_b = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) {
+      if (part_l[w * kDecRows + row] > 0.f) m_b = fmaxf(m_b, part_m[w * kDecRows + row]);
+    }
+    float l_b = 0.f, ox = 0.f, oy = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) {  // a fixed order: deterministic
+      const float l_w = part_l[w * kDecRows + row];
+      if (l_w > 0.f) {
+        const float x = exp2_fast(part_m[w * kDecRows + row] - m_b);
+        const float2 o_w =
+            *reinterpret_cast<const float2*>(part_o + (w * kDecRows + row) * kDecOLd + c);
+        l_b += l_w * x;
+        ox += o_w.x * x;
+        oy += o_w.y * x;
+      }
+    }
+    *reinterpret_cast<float2*>(blk_o + row * kDecOLd + c) = make_float2(ox, oy);
+    if (c == 0) {
+      blk_m[row] = m_b;
+      blk_l[row] = l_b;
+    }
+  }
+  __syncwarp();
+  cluster_sync();
+
+  // this block's share of the (row, column pair) outputs, summed over the
+  // cluster's blocks through distributed shared memory in split order
+  const int units = rows * 64;
+  const int u_per = (units + a.splits - 1) / a.splits;
+  const int u_end = min((split + 1) * u_per, units);
+  for (int u = split * u_per + tid; u < u_end; u += kDecThreads) {
+    const int row = u / 64, c = (u % 64) * 2;
+    float2 po[kDecMaxSplits];  // all loads in flight at once, then the sum
+    float pm[kDecMaxSplits], pl[kDecMaxSplits];
+#pragma unroll
+    for (int i = 0; i < kDecMaxSplits; ++i) {
+      if (i < a.splits) {
+        po[i] = ld_dsmem_f2(blk_o + row * kDecOLd + c, i);
+        pm[i] = ld_dsmem_f32(blk_m + row, i);
+        pl[i] = ld_dsmem_f32(blk_l + row, i);
+      }
+    }
+    float m_all = kNegInf;
+#pragma unroll
+    for (int i = 0; i < kDecMaxSplits; ++i) {
+      if (i < a.splits && pl[i] > 0.f) m_all = fmaxf(m_all, pm[i]);
+    }
+    float l_all = 0.f, ox = 0.f, oy = 0.f;
+#pragma unroll
+    for (int i = 0; i < kDecMaxSplits; ++i) {  // a fixed order: deterministic
+      if (i < a.splits && pl[i] > 0.f) {
+        const float x = exp2_fast(pm[i] - m_all);
+        l_all += pl[i] * x;
+        ox += po[i].x * x;
+        oy += po[i].y * x;
+      }
+    }
+    const float inv = l_all > 0.f ? 1.f / l_all : 0.f;
+    const int s = row / a.groups, h = hk * a.groups + row % a.groups;
+    const int64_t q_row = (int64_t)b * a.sq + s;  // out is [B, Sq, Hq, D] contiguous
+    *reinterpret_cast<uint32_t*>(a.out + (q_row * a.hq + h) * 128 + c) =
+        pack_bf16(ox * inv, oy * inv);
+    if (c == 0) {
+      a.lse[((int64_t)b * a.hq + h) * a.sq + s] =
+          l_all > 0.f ? (m_all + log2f(l_all)) * kLn2 : INFINITY;
+    }
+  }
+  __syncwarp();
+  cluster_sync();  // no block leaves while another reads its shared memory
+}
+
 // ----------------------------------------------------------------- f32 path
 
 constexpr int kBlockQ = 16;
@@ -739,11 +1031,67 @@ int gofr_flash_fwd_sm90(const void* q, const void* k, const void* v, const void*
   return (int)cudaGetLastError();
 }
 
+// The decode variant (bf16, D = 128, Sq x (Hq / Hkv) <= 16; the caller
+// picks it). k and v rows must be 16-byte aligned (pointers and strides:
+// cp.async reads them 16 bytes at a time). The grid is (splits, Hkv, B) in
+// clusters of `splits` <= 8 blocks along x; ops/flash.py::
+// fwd_decode_splits computes `splits` from B, Hkv and Skv. Returns a
+// cudaError_t value (0 on success).
+int gofr_flash_fwd_decode(const void* q, const void* k, const void* v, const void* offsets,
+                          const void* kv_lens, void* out, void* lse,
+                          int b, int sq, int skv, int hq, int hkv,
+                          int64_t qsb, int64_t qss, int64_t qsh,
+                          int64_t ksb, int64_t kss, int64_t ksh,
+                          int64_t vsb, int64_t vss, int64_t vsh,
+                          float scale, int causal, int splits, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (hkv < 1 || hq % hkv || sq < 1 || skv < 1 || sq * (hq / hkv) > kDecRows || splits < 1 ||
+      splits > kDecMaxSplits) {
+    return (int)cudaErrorInvalidValue;
+  }
+  err = cudaFuncSetAttribute(flash_fwd_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kDecSmem);
+  if (err != cudaSuccess) return (int)err;
+  DecArgs a;
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.k = static_cast<const __nv_bfloat16*>(k);
+  a.v = static_cast<const __nv_bfloat16*>(v);
+  a.offsets = static_cast<const int32_t*>(offsets);
+  a.kv_lens = static_cast<const int32_t*>(kv_lens);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.lse = static_cast<float*>(lse);
+  a.sq = sq;
+  a.skv = skv;
+  a.hq = hq;
+  a.groups = hq / hkv;
+  a.splits = splits;
+  a.st = Strides{qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
+  a.scale_log2 = scale * kLog2e;
+  a.causal = causal;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, hkv, b);
+  cfg.blockDim = dim3(kDecThreads);
+  cfg.dynamicSmemBytes = kDecSmem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attrs[1];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = splits;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, flash_fwd_decode_kernel, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 const char* gofr_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Dynamic shared memory of a block of the sm90 variant, in bytes.
+// Dynamic shared memory of a block of the sm90 and decode variants, in bytes.
 int gofr_flash_fwd_sm90_smem() { return kF90Smem; }
+int gofr_flash_fwd_decode_smem() { return kDecSmem; }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the redesigned flash kernels:
-// mbarriers, TMA tile loads through a tensor map, wgmma with operands in
+// mbarriers, TMA tile loads through a tensor map, cp.async copies (the
+// decode kernel's ring), wgmma with operands in
 // shared memory (128-byte swizzle) or A in registers, thread block cluster
 // barriers and distributed shared memory, and the host side that encodes a
 // tensor map. Raw PTX, no library. Internal to each translation unit.
@@ -73,6 +74,26 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// ------------------------------------------------------------- cp.async
+
+// 16 bytes from global to shared memory, asynchronously; `src_bytes` 0
+// writes 16 zero bytes and reads nothing
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// waits until at most N of this thread's committed groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // generic-proxy writes to shared memory made visible to wgmma and TMA
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -124,6 +145,13 @@ __device__ __forceinline__ void wgmma_commit() {
 
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// waits until at most N of the warpgroup's committed wgmma groups are
+// pending (groups complete in commit order)
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Keeps the compiler from touching accumulators while a wgmma is in flight:
@@ -240,17 +268,39 @@ __device__ __forceinline__ void cluster_sync() {
                    : "memory");
 }
 
-// 16 bytes of block `rank`'s shared memory at the address this block's
-// `p` has in its own
-__device__ __forceinline__ float4 ld_dsmem_f4(const void* p, uint32_t rank) {
+// the address in block `rank`'s shared memory that `p` has in this block's
+__device__ __forceinline__ uint32_t dsmem_addr(const void* p, uint32_t rank) {
   uint32_t remote;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
                : "=r"(remote)
                : "r"(smem_u32(p)), "r"(rank));
+  return remote;
+}
+
+// 16, 8 or 4 bytes of block `rank`'s shared memory at `p`'s address
+__device__ __forceinline__ float4 ld_dsmem_f4(const void* p, uint32_t rank) {
   float4 v;
   asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
                : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(remote)
+               : "r"(dsmem_addr(p, rank))
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float2 ld_dsmem_f2(const void* p, uint32_t rank) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(dsmem_addr(p, rank))
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float ld_dsmem_f32(const void* p, uint32_t rank) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(dsmem_addr(p, rank))
                : "memory");
   return v;
 }

@@ -34,10 +34,10 @@ def to_torch(arr: Any) -> torch.Tensor:
 
 @torch.no_grad()
 def transformer_from_tree(
-    tree: dict, cfg: TransformerConfig, device: "torch.device | str" = "cpu"
+    tree: dict, cfg: TransformerConfig, device: "torch.device | str" = "cuda"
 ) -> Transformer:
-    """Build the port's model on ``device`` from the JAX parameter tree,
-    one tensor at a time."""
+    """Build the port's model on ``device`` (the card unless the caller
+    asks for the CPU) from the JAX parameter tree, one tensor at a time."""
     model = Transformer(cfg, device)
 
     def put(dst: torch.Tensor, src: Any) -> None:

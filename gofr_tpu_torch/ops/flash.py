@@ -14,16 +14,23 @@ no visible key). The backward kernels (``csrc/flash_bwd.cu``) recompute
 the probabilities from that log-sum-exp: one gives dQ, the other dK and
 dV, summed over the GQA group deterministically (no atomics).
 
-Two kernels have two variants each, picked by shape in pure Python here
-(``fwd_variant``, ``dkv_variant``) and launched with the geometry computed
-here (``fwd_sm90_grid``, ``dkv_sm90_geometry``): "sm90", redesigned for
-Hopper (``wgmma``, TMA tile rings on ``mbarrier``s, warp specialisation,
-longest-first launch order; dK/dV sums the GQA group across a thread
-block cluster), takes bf16 at D = 128 (the forward: Sq >= 64, so training
-and serving prefill); "mma", the ``mma.sync`` kernels, takes
-the rest (decode, short tails, f32, other head dims). ``launches`` and
-``launches_dkv`` count both variants; ``launches_fwd_sm90`` and
-``launches_dkv_sm90`` the sm90 ones alone.
+Each kernel has variants, picked by shape in pure Python here
+(``fwd_variant``, ``dq_variant``, ``dkv_variant``) and launched with the
+geometry computed here (``fwd_sm90_grid``, ``fwd_decode_splits``,
+``dq_sm90_grid``, ``dkv_sm90_geometry``):
+- "sm90", redesigned for Hopper (``wgmma``, TMA tile rings on
+  ``mbarrier``s, warp specialisation, longest-first launch order; dK/dV
+  sums the GQA group across a thread block cluster), takes bf16 at D = 128
+  (the forward: Sq >= 64, so training and serving prefill; dQ and dK/dV:
+  every such call, so the training path);
+- "decode", the forward's decode route (bf16, D = 128, Sq x groups <= 16):
+  the GQA group's query rows packed into one tile, split-KV across a
+  thread block cluster, one deterministic merge;
+- "mma", the ``mma.sync`` kernels, takes the rest (short tails, f32,
+  other head dims) and stays forcible with ``variant="mma"`` for timing.
+``launches``, ``launches_dq`` and ``launches_dkv`` count every variant;
+``launches_fwd_sm90``, ``launches_fwd_decode``, ``launches_dq_sm90`` and
+``launches_dkv_sm90`` one variant each.
 
 Layouts: q [B, Sq, Hq, D]; k, v [B, Skv, Hkv, D]; Hq % Hkv == 0.
 ``q_offset`` (scalar or [B]) is the absolute position of q row 0;
@@ -88,18 +95,32 @@ class LaunchCounter:
             self._n = 0
 
 
-launches = LaunchCounter()  # the forward, both variants
+launches = LaunchCounter()  # the forward, every variant
 launches_fwd_sm90 = LaunchCounter()  # the forward's sm90 variant alone
-launches_dq = LaunchCounter()  # the backward's dQ kernel
+launches_fwd_decode = LaunchCounter()  # the forward's decode variant alone
+launches_dq = LaunchCounter()  # the backward's dQ kernel, both variants
+launches_dq_sm90 = LaunchCounter()  # the dQ kernel's sm90 variant alone
 launches_dkv = LaunchCounter()  # the backward's dK/dV kernel, both variants
 launches_dkv_sm90 = LaunchCounter()  # the dK/dV kernel's sm90 variant alone
 
-# The redesigned (sm90: wgmma, TMA, mbarriers) kernels' tiles, as in
-# csrc/flash_fwd.cu and csrc/flash_bwd.cu
+# The redesigned kernels' tiles, as in csrc/flash_fwd.cu and csrc/flash_bwd.cu
 FWD_SM90_BLOCK_Q = 128
 FWD_SM90_MIN_SQ = 64
+FWD_DECODE_ROWS = 16  # packed query rows (Sq x groups): one m16 tile
+FWD_DECODE_BLOCK_KV = 64  # keys per tile; a split takes whole tiles
+DQ_SM90_BLOCK_Q = 128
 DKV_SM90_BLOCK_KV = 128
 MAX_CLUSTER = 8  # the portable thread block cluster size
+# decode blocks to aim for: two per SM of the H100's 132
+DECODE_TARGET_BLOCKS = 264
+# each redesigned kernel (its name in ptxas's report) and the library call
+# that gives its dynamic shared memory
+SMEM_QUERIES = {
+    "flash_fwd_sm90_kernel": "gofr_flash_fwd_sm90_smem",
+    "flash_fwd_decode_kernel": "gofr_flash_fwd_decode_smem",
+    "flash_bwd_dq_sm90_kernel": "gofr_flash_bwd_dq_sm90_smem",
+    "flash_bwd_dkv_sm90_kernel": "gofr_flash_bwd_dkv_sm90_smem",
+}
 
 
 def _tma_ok(t: torch.Tensor) -> bool:
@@ -108,20 +129,48 @@ def _tma_ok(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0 and all((s * es) % 16 == 0 for s in t.stride()[:3])
 
 
-def fwd_variant(q: torch.Tensor) -> str:
-    """Which forward kernel takes a call: "sm90" for bf16, D = 128, Sq >= 64
-    with 16-byte aligned q rows (training and serving prefill); "mma",
-    the mma kernel, for the rest (decode, short tails, f32, other D)."""
+def fwd_variant(q: torch.Tensor, k: torch.Tensor) -> str:
+    """Which forward kernel takes a call: "decode" for bf16, D = 128 and
+    Sq x groups <= 16 (the query rows of one KV head fit one m16 tile:
+    Sq <= 4 at llama3-8b's groups of 4, Sq = 1 up to groups of 16; the
+    serving path's decode); "sm90" for bf16, D = 128, Sq >= 64 with 16-byte
+    aligned q rows (training and serving prefill); "mma", the mma kernel,
+    for the rest (short tails, f32, other D)."""
     sq, d = q.shape[1], q.shape[3]
-    if q.dtype == torch.bfloat16 and d == 128 and sq >= FWD_SM90_MIN_SQ and _tma_ok(q):
-        return "sm90"
-    return "mma"
+    if q.dtype != torch.bfloat16 or d != 128:
+        return "mma"
+    if sq * (q.shape[2] // k.shape[2]) <= FWD_DECODE_ROWS:
+        return "decode"
+    return "sm90" if sq >= FWD_SM90_MIN_SQ and _tma_ok(q) else "mma"
 
 
 def fwd_sm90_grid(b: int, sq: int, hq: int) -> tuple[int, int, int]:
     """(q heads, batch rows, q tiles): the kernel maps blockIdx.z to the q
     tiles in reverse under the causal mask, longest first."""
     return hq, b, -(-sq // FWD_SM90_BLOCK_Q)
+
+
+def fwd_decode_splits(b: int, hkv: int, skv: int) -> int:
+    """Split-KV blocks per (batch row, KV head): enough for about two
+    blocks an SM, at most one per 64-key tile of the cache and at most a
+    portable cluster. From shapes alone (no device value): each block
+    finds its own key range from its row's kv_len."""
+    tiles = -(-skv // FWD_DECODE_BLOCK_KV)
+    return max(1, min(MAX_CLUSTER, tiles, -(-DECODE_TARGET_BLOCKS // max(1, b * hkv))))
+
+
+def dq_variant(q: torch.Tensor) -> str:
+    """Which dQ kernel takes a call: "sm90" for bf16, D = 128, Sq >= 1 with
+    16-byte aligned q rows (TMA reads them); "mma" for the rest."""
+    if q.dtype == torch.bfloat16 and q.shape[-1] == 128 and q.shape[1] >= 1 and _tma_ok(q):
+        return "sm90"
+    return "mma"
+
+
+def dq_sm90_grid(b: int, sq: int, hq: int) -> tuple[int, int, int]:
+    """(q heads, batch rows, q tiles of 128 rows), the q tiles launched in
+    reverse under the causal mask: longest first."""
+    return hq, b, -(-sq // DQ_SM90_BLOCK_Q)
 
 
 def dkv_variant(q: torch.Tensor) -> str:
@@ -214,8 +263,11 @@ def build() -> _Built:
                     failed = ["link"]
             if failed:
                 raise RuntimeError(f"nvcc failed building {', '.join(failed)}:\n{log}")
+            path.with_suffix(".log").write_text(log)
             os.replace(tmp / "lib.so", path)
             shutil.rmtree(tmp, ignore_errors=True)
+        elif path.with_suffix(".log").exists():
+            log = path.with_suffix(".log").read_text()  # what that build reported
         lib = ctypes.CDLL(str(path))
         fwd = lib.gofr_flash_fwd
         fwd.restype = ctypes.c_int
@@ -243,6 +295,22 @@ def build() -> _Built:
             + [ctypes.c_int64] * 9
             + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         )
+        dec = lib.gofr_flash_fwd_decode
+        dec.restype = ctypes.c_int
+        dec.argtypes = (
+            [ctypes.c_void_p] * 7
+            + [ctypes.c_int] * 5
+            + [ctypes.c_int64] * 9
+            + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        )
+        dq90 = lib.gofr_flash_bwd_dq_sm90
+        dq90.restype = ctypes.c_int
+        dq90.argtypes = (
+            [ctypes.c_void_p] * 9
+            + [ctypes.c_int] * 5
+            + [ctypes.c_int64] * 9
+            + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        )
         dkv90 = lib.gofr_flash_bwd_dkv_sm90
         dkv90.restype = ctypes.c_int
         dkv90.argtypes = (
@@ -251,13 +319,34 @@ def build() -> _Built:
             + [ctypes.c_int64] * 9
             + [ctypes.c_float] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         )
-        for name in ("gofr_flash_fwd_sm90_smem", "gofr_flash_bwd_dkv_sm90_smem"):
+        for name in SMEM_QUERIES.values():
             getattr(lib, name).restype = ctypes.c_int
             getattr(lib, name).argtypes = []
         lib.gofr_cuda_error_string.restype = ctypes.c_char_p
         lib.gofr_cuda_error_string.argtypes = [ctypes.c_int]
         _built = _Built(lib, path, time.perf_counter() - start, log)
         return _built
+
+
+def build_report(built: _Built) -> dict:
+    """Each redesigned kernel (``SMEM_QUERIES``) that ptxas reported in
+    this build: {"ptxas": its registers and spills, "smem": its dynamic
+    shared memory in bytes, "spills": True unless ptxas said 0 bytes of
+    spill stores and loads}, from the log of the build that made the
+    library."""
+    lines = built.log.splitlines()
+    report = {}
+    for i, line in enumerate(lines):
+        name = next((n for n in SMEM_QUERIES if n in line and "Compiling entry" in line), None)
+        if name is None:
+            continue
+        props = [x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
+                 if "spill" in x or "registers" in x]
+        text = "; ".join(props)
+        report[name] = {"ptxas": text, "smem": getattr(built.lib, SMEM_QUERIES[name])(),
+                        "spills": not ("0 bytes spill stores" in text
+                                       and "0 bytes spill loads" in text)}
+    return report
 
 
 def _normalize_scalars(
@@ -352,10 +441,18 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def _pick(name: str, chosen: str, asked: Optional[str]) -> str:
     """The variant a call takes: the one its shape picks, or ``asked``
-    ("mma" always fits; "sm90" only where the shape picks it)."""
+    ("mma" always fits; "sm90" and "decode" only where the shape picks
+    them)."""
     if asked is None or asked == chosen or asked == "mma":
         return asked or chosen
     raise ValueError(f"{name}: the {asked} variant does not take this call")
+
+
+def _raise_on(built: _Built, rc: int, name: str) -> None:
+    """A launch that CUDA refused raises with CUDA's error string."""
+    if rc != 0:
+        msg = built.lib.gofr_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} (cuda error {rc})")
 
 
 def _launch(
@@ -363,7 +460,7 @@ def _launch(
     lens: torch.Tensor, causal: bool, scale: float, variant: Optional[str] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel; ``variant`` overrides the shape's pick (to time
-    the mma kernel beside the sm90 variant)."""
+    the mma kernel beside the sm90 and decode variants)."""
     _check(q, k, v)
     built = build()
     b, sq, hq, d = q.shape
@@ -376,23 +473,28 @@ def _launch(
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), offsets.data_ptr(), lens.data_ptr(),
             out.data_ptr(), lse.data_ptr())
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
-    variant = _pick("flash_fwd", fwd_variant(q), variant)
+    variant = _pick("flash_fwd", fwd_variant(q, k), variant)
     if variant == "sm90":
         rc = built.lib.gofr_flash_fwd_sm90(
             *ptrs, b, sq, skv, hq, hkv, *strides, float(scale), int(causal),
             *fwd_sm90_grid(b, sq, hq), q.device.index or 0, stream,
+        )
+    elif variant == "decode":
+        rc = built.lib.gofr_flash_fwd_decode(
+            *ptrs, b, sq, skv, hq, hkv, *strides, float(scale), int(causal),
+            fwd_decode_splits(b, hkv, skv), q.device.index or 0, stream,
         )
     else:
         rc = built.lib.gofr_flash_fwd(
             _DTYPE_CODES[q.dtype], d, *ptrs, b, sq, skv, hq, hkv, *strides,
             float(scale), int(causal), q.device.index or 0, stream,
         )
-    if rc != 0:
-        msg = built.lib.gofr_cuda_error_string(rc).decode()
-        raise RuntimeError(f"flash_fwd ({variant}) launch failed: {msg} (cuda error {rc})")
+    _raise_on(built, rc, f"flash_fwd ({variant})")
     launches.add()
     if variant == "sm90":
         launches_fwd_sm90.add()
+    elif variant == "decode":
+        launches_fwd_decode.add()
     return out, lse
 
 
@@ -484,52 +586,52 @@ def _launch_bwd_kernel(
     variant: Optional[str] = None,
 ) -> None:
     """``which`` 0 launches the dQ kernel into ``outputs`` = (dq, None,
-    None), 1 the dK/dV kernel into (None, dk, dv), its sm90 variant where
-    ``dkv_variant`` picks it (or ``variant`` says)."""
+    None), 1 the dK/dV kernel into (None, dk, dv); each its sm90 variant
+    where ``dq_variant`` / ``dkv_variant`` picks it (or ``variant`` says)."""
     _check_bwd(q, k, v, do, lse, dvec)
     built = build()
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
+    name = ("flash_bwd_dq", "flash_bwd_dkv")[which]
+    chosen = (dq_variant, dkv_variant)[which](q)
     ptrs = [None if t is None else t.data_ptr() for t in outputs]
-    if which == 1 and _pick("flash_bwd_dkv", dkv_variant(q), variant) == "sm90":
+    inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+              dvec.data_ptr(), offsets.data_ptr(), lens.data_ptr())
+    shape = (b, sq, skv, hq, hkv, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    sm90 = _pick(name, chosen, variant) == "sm90"
+    if sm90 and which == 0:
+        rc = built.lib.gofr_flash_bwd_dq_sm90(
+            *inputs, ptrs[0], *shape, float(scale), int(causal), *dq_sm90_grid(b, sq, hq),
+            q.device.index or 0, stream,
+        )
+    elif sm90:
         geo = dkv_sm90_geometry(b, skv, hq, hkv)
         rc = built.lib.gofr_flash_bwd_dkv_sm90(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            dvec.data_ptr(), offsets.data_ptr(), lens.data_ptr(), *ptrs[1:],
-            b, sq, skv, hq, hkv,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            float(scale), int(causal), *geo["grid"], geo["cluster"], geo["heads_per_block"],
-            q.device.index or 0, torch.cuda.current_stream(q.device).cuda_stream,
+            *inputs, *ptrs[1:], *shape, float(scale), int(causal), *geo["grid"],
+            geo["cluster"], geo["heads_per_block"], q.device.index or 0, stream,
         )
-        if rc != 0:
-            msg = built.lib.gofr_cuda_error_string(rc).decode()
-            raise RuntimeError(f"flash_bwd_dkv (sm90) launch failed: {msg} (cuda error {rc})")
-        launches_dkv.add()
-        launches_dkv_sm90.add()
-        return
-    rc = built.lib.gofr_flash_bwd(
-        which, _DTYPE_CODES[q.dtype], d,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        dvec.data_ptr(), offsets.data_ptr(), lens.data_ptr(), *ptrs,
-        b, sq, skv, hq, hkv,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        float(scale), int(causal), q.device.index or 0,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    if rc != 0:
-        msg = built.lib.gofr_cuda_error_string(rc).decode()
-        name = ("flash_bwd_dq", "flash_bwd_dkv")[which]
-        raise RuntimeError(f"{name} launch failed: {msg} (cuda error {rc})")
+    else:
+        rc = built.lib.gofr_flash_bwd(
+            which, _DTYPE_CODES[q.dtype], d, *inputs, *ptrs, *shape, float(scale), int(causal),
+            q.device.index or 0, stream,
+        )
+    _raise_on(built, rc, f"{name} ({'sm90' if sm90 else 'mma'})")
     (launches_dq, launches_dkv)[which].add()
+    if sm90:
+        (launches_dq_sm90, launches_dkv_sm90)[which].add()
 
 
-def launch_dq(q, k, v, do, lse, dvec, offsets, lens, causal, scale) -> torch.Tensor:
+def launch_dq(
+    q, k, v, do, lse, dvec, offsets, lens, causal, scale, variant: Optional[str] = None
+) -> torch.Tensor:
     """The dQ kernel alone: dq [B, Sq, Hq, D] in q's dtype. ``do`` is
-    contiguous; ``dvec`` is D = rowsum(dO ⊙ O) as [B, Hq, Sq] float32."""
+    contiguous; ``dvec`` is D = rowsum(dO ⊙ O) as [B, Hq, Sq] float32.
+    ``variant`` overrides the shape's pick (to time the mma kernel)."""
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if q.numel():
         _launch_bwd_kernel(0, q, k, v, do, lse, dvec, offsets, lens, causal, scale,
-                           (dq, None, None))
+                           (dq, None, None), variant)
     return dq
 
 

@@ -15,6 +15,7 @@ from seed 0. Needs one CUDA card; exits non-zero without one.
 from __future__ import annotations
 
 import json
+import subprocess
 import sys
 import time
 from collections import defaultdict
@@ -84,7 +85,9 @@ def main() -> int:
     short = rng.integers(0, 256, 100).astype(np.int32)
     long = rng.integers(0, 256, 600).astype(np.int32)
     longest = rng.integers(0, 256, 1800).astype(np.int32)
-    print(f"profile_serving: {torch.cuda.get_device_name(0)}, llama3-8b bf16, "
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    print(f"profile_serving: {card or torch.cuda.get_device_name(0)}, llama3-8b bf16, "
           f"buckets {runner.buckets}", flush=True)
 
     # warm every shape once (cuBLAS heuristics, allocator, kernel build)

@@ -2,7 +2,8 @@
 JAX package's Pallas forward kernel (``_flash_fwd_impl`` in interpret
 mode), out AND log-sum-exp, over every forward case of tests/test_flash.py;
 the wrapper's device dispatch and build failure; and, on a CUDA card only,
-the hand-written kernel against its plain version.
+the hand-written kernel against its plain version (its sm90, decode and
+mma variants).
 
 Tolerances are the reference tests': f32 2e-5, bf16 2e-2 (atol and rtol).
 On the card: ``python3 -m pytest --noconftest tests/test_torch_flash.py -m cuda``.
@@ -191,33 +192,72 @@ def test_source_and_wrapper_agree():
     assert "grid_z != (sq + kF90BlockM - 1) / kF90BlockM" in src
     assert "int gofr_flash_fwd_sm90(" in src and "int gofr_flash_fwd_sm90_smem()" in src
     assert "a.causal ? a.n_qt - 1 - (int)blockIdx.z" in src  # longest first
+    # the decode variant: its packed rows, key tile, split bound, entry and
+    # the split arithmetic the CPU tests copy (_decode_split_keys)
+    assert f"constexpr int kDecRows = {flash.FWD_DECODE_ROWS};" in src
+    assert "constexpr int kDecThreads = 128;" in src and flash.FWD_DECODE_BLOCK_KV == 16 * 128 // 32
+    assert "constexpr int kDecBlockN = 16 * kDecWarps;" in src
+    assert f"constexpr int kDecMaxSplits = {flash.MAX_CLUSTER};" in src
+    assert "sq * (hq / hkv) > kDecRows" in src
+    assert "int gofr_flash_fwd_decode(" in src and "int gofr_flash_fwd_decode_smem()" in src
+    for line in ("const int kv_end = a.causal ? min(kv_len, max(0, offset + a.sq)) : kv_len;",
+                 "const int per = (n_tiles + a.splits - 1) / a.splits;",
+                 "const int t_lo = split * per;",
+                 "const int nt = max(0, min(t_lo + per, n_tiles) - t_lo);",
+                 "const int k_hi = min((t_lo + nt) * kDecBlockN, kv_end);"):
+        assert line in src, line
+    # the merge is deterministic: no atomic adds anywhere in the source
+    assert "atomicAdd" not in src and "red.global" not in src
+    # every redesigned kernel reports its shared memory under its own name
+    for name, query in flash.SMEM_QUERIES.items():
+        kernel_src = src if "fwd" in name else (flash.CSRC / "flash_bwd.cu").read_text()
+        assert f"{name}(" in kernel_src and f"int {query}()" in kernel_src
 
 
 def _q(dtype, sq, d, hq=4, b=1):
     return torch.zeros(b, sq, hq, d, dtype=dtype)
 
 
-# (q, expected variant)
+def _kv(dtype, d, hkv=4, skv=64):
+    return torch.zeros(1, skv, hkv, d, dtype=dtype)
+
+
+_BF16 = torch.bfloat16
+# (q, k, expected variant)
 _VARIANTS = [
-    ("training bf16 S=2048 D=128", _q(torch.bfloat16, 2048, 128, 32), "sm90"),
-    ("prefill bucket 64", _q(torch.bfloat16, 64, 128), "sm90"),
-    ("ragged tail Sq=130", _q(torch.bfloat16, 130, 128), "sm90"),
-    ("short tail Sq=63", _q(torch.bfloat16, 63, 128), "mma"),
-    ("decode Sq=1", _q(torch.bfloat16, 1, 128, 32, 4), "mma"),
-    ("f32 D=128", _q(torch.float32, 2048, 128), "mma"),
-    ("bf16 D=64", _q(torch.bfloat16, 256, 64), "mma"),
-    ("bf16 D=16 tiny model", _q(torch.bfloat16, 128, 16), "mma"),
+    ("training bf16 S=2048 D=128", _q(_BF16, 2048, 128, 32), _kv(_BF16, 128, 8), "sm90"),
+    ("prefill bucket 64", _q(_BF16, 64, 128), _kv(_BF16, 128), "sm90"),
+    ("ragged tail Sq=130", _q(_BF16, 130, 128), _kv(_BF16, 128), "sm90"),
+    ("short tail Sq=63", _q(_BF16, 63, 128), _kv(_BF16, 128), "mma"),
+    ("decode Sq=1", _q(_BF16, 1, 128, 32, 4), _kv(_BF16, 128, 8, 2048), "decode"),
+    ("decode groups 1", _q(_BF16, 1, 128, 8), _kv(_BF16, 128, 8), "decode"),
+    ("decode groups 2", _q(_BF16, 1, 128, 16), _kv(_BF16, 128, 8), "decode"),
+    ("decode groups 8", _q(_BF16, 1, 128, 32), _kv(_BF16, 128, 4), "decode"),
+    # the largest Sq the decode variant packs (Sq x groups <= 16), and one more
+    ("groups 4 Sq=4", _q(_BF16, 4, 128, 32), _kv(_BF16, 128, 8), "decode"),
+    ("groups 4 Sq=5", _q(_BF16, 5, 128, 32), _kv(_BF16, 128, 8), "mma"),
+    ("groups 1 Sq=16", _q(_BF16, 16, 128, 8), _kv(_BF16, 128, 8), "decode"),
+    ("groups 1 Sq=17", _q(_BF16, 17, 128, 8), _kv(_BF16, 128, 8), "mma"),
+    ("groups 8 Sq=2", _q(_BF16, 2, 128, 32), _kv(_BF16, 128, 4), "decode"),
+    ("groups 8 Sq=3", _q(_BF16, 3, 128, 32), _kv(_BF16, 128, 4), "mma"),
+    ("decode f32 D=128", _q(torch.float32, 1, 128, 32), _kv(torch.float32, 128, 8), "mma"),
+    ("decode bf16 D=64", _q(_BF16, 1, 64, 32), _kv(_BF16, 64, 8), "mma"),
+    ("f32 D=128", _q(torch.float32, 2048, 128), _kv(torch.float32, 128), "mma"),
+    ("bf16 D=64", _q(_BF16, 256, 64), _kv(_BF16, 64), "mma"),
+    ("bf16 D=16 tiny model", _q(_BF16, 128, 16), _kv(_BF16, 16), "mma"),
     # a q whose rows are not 16-byte aligned: TMA cannot read it
-    ("misaligned rows", torch.zeros(1, 128, 4, 132, dtype=torch.bfloat16)[..., :128], "mma"),
+    ("misaligned rows", torch.zeros(1, 128, 4, 132, dtype=_BF16)[..., :128], _kv(_BF16, 128),
+     "mma"),
     # q as a view of the fused QKV projection: aligned strides, TMA reads it
-    ("fused qkv view", torch.zeros(1, 128, 48, 128, dtype=torch.bfloat16)[:, :, :32], "sm90"),
+    ("fused qkv view", torch.zeros(1, 128, 48, 128, dtype=_BF16)[:, :, :32], _kv(_BF16, 128, 8),
+     "sm90"),
 ]
 
 
 @pytest.mark.parametrize("case", _VARIANTS, ids=[c[0] for c in _VARIANTS])
 def test_forward_variant_by_shape(case):
-    _, q, want = case
-    assert flash.fwd_variant(q) == want
+    _, q, k, want = case
+    assert flash.fwd_variant(q, k) == want
 
 
 @pytest.mark.parametrize("b, sq, hq, want", [
@@ -230,12 +270,100 @@ def test_forward_sm90_grid(b, sq, hq, want):
     assert flash.fwd_sm90_grid(b, sq, hq) == want
 
 
+@pytest.mark.parametrize("b, hkv, skv, want", [
+    (1, 8, 128, 2),  # one split per 64-key tile of a short cache
+    (1, 8, 2048, 8),  # the served batch-1 decode: a full cluster
+    (4, 8, 128, 2),
+    (4, 8, 2048, 8),
+    (16, 8, 2048, 3),  # 128 (row, head) pairs: about two blocks an SM
+    (64, 8, 2048, 1),
+    (1, 8, 1, 1),
+])
+def test_forward_decode_splits(b, hkv, skv, want):
+    splits = flash.fwd_decode_splits(b, hkv, skv)
+    assert splits == want and 1 <= splits <= flash.MAX_CLUSTER
+
+
+def _decode_split_keys(kv_end, splits, s):
+    """csrc/flash_fwd.cu's split arithmetic, copied: the keys [lo, hi) that
+    split ``s`` of ``splits`` takes of the visible keys [0, kv_end)."""
+    block = flash.FWD_DECODE_BLOCK_KV
+    n_tiles = -(-kv_end // block)
+    per = -(-n_tiles // splits)
+    t_lo = s * per
+    nt = max(0, min(t_lo + per, n_tiles) - t_lo)
+    return t_lo * block, min((t_lo + nt) * block, kv_end)
+
+
+@pytest.mark.parametrize("kv_len", [0, 1, 63, 64, 616, 2047, 2048])
+def test_decode_splits_cover_every_key_once(kv_len):
+    for splits in range(1, flash.MAX_CLUSTER + 1):
+        seen = np.zeros(max(kv_len, 1), dtype=int)
+        for s in range(splits):
+            lo, hi = _decode_split_keys(kv_len, splits, s)
+            assert lo % flash.FWD_DECODE_BLOCK_KV == 0  # whole tiles, 16-byte aligned rows
+            seen[lo:max(lo, hi)] += 1
+        assert (seen[:kv_len] == 1).all(), (kv_len, splits)
+
+
+def _ref_split_and_merge(q, k, v, offs, lens, splits):
+    """The decode variant's rule in plain torch: ``flash_attention_ref`` on
+    each split's keys, merged by log-sum-exp; a split that sees no key
+    (LSE +inf) weighs 0, a row with no key at all gives out 0 and LSE +inf."""
+    b, sq = q.shape[:2]
+    outs, lses = [], []
+    for bi in range(b):
+        kv_end = min(int(lens[bi]), int(offs[bi]) + sq, k.shape[1])
+        part_out, part_lse = [], []
+        for s in range(splits):
+            lo, hi = _decode_split_keys(kv_end, splits, s)
+            hi = max(lo, hi)
+            o, lse = flash.flash_attention_ref(
+                q[bi:bi + 1], k[bi:bi + 1, lo:hi], v[bi:bi + 1, lo:hi], True,
+                torch.tensor([int(offs[bi]) - lo]), torch.tensor([hi - lo]))
+            part_out.append(o.float())
+            part_lse.append(lse)
+        lse = torch.stack(part_lse)  # [splits, 1, Hq, Sq]
+        live = torch.isfinite(lse)
+        total = torch.logsumexp(torch.where(live, lse, -torch.inf), dim=0)
+        w = torch.where(live, torch.exp(lse - total), 0.0)  # [splits, 1, Hq, Sq]
+        merged = sum(w_s.transpose(1, 2)[..., None] * o_s for w_s, o_s in zip(w, part_out))
+        none = ~live.any(dim=0)
+        outs.append(torch.where(none.transpose(1, 2)[..., None], 0.0, merged))
+        lses.append(torch.where(none, torch.inf, total))
+    return torch.cat(outs).to(q.dtype), torch.cat(lses)
+
+
+@pytest.mark.parametrize("splits", [2, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_split_and_merge_matches_whole_range_and_pallas(dtype, splits):
+    # ragged kv_lens: a 0-length row, a row whose keys end inside the first
+    # split, and (at 8 splits over 4 tiles) splits wholly past kv_len
+    tdt, tol = (torch.float32, F32_TOL) if dtype == "float32" else (torch.bfloat16, BF16_TOL)
+    q, k, v = _inputs(40 + splits, 4, 1, 256, 8, 2, 32)
+    lens = [0, 37, 130, 256]
+    offs = [max(n - 1, 0) for n in lens]
+    qt, kt, vt = (torch.from_numpy(x).to(tdt) for x in (q, k, v))
+    got = _ref_split_and_merge(qt, kt, vt, offs, lens, splits)
+    whole = flash.flash_attention_ref(qt, kt, vt, True, torch.tensor(offs), torch.tensor(lens))
+    got = (got[0].float().numpy(), got[1].numpy())
+    _assert_match(got, (whole[0].float().numpy(), whole[1].numpy()), tol)
+    want = _jax_fwd(q, k, v, True, offs, lens, dtype=dtype, block_q=16, block_kv=16)
+    _assert_match(got, want, tol)
+    assert np.all(got[0][0] == 0) and np.all(np.isposinf(got[1][0]))
+
+
 def test_variant_override_only_where_it_fits():
     assert flash._pick("flash_fwd", "sm90", None) == "sm90"
     assert flash._pick("flash_fwd", "sm90", "mma") == "mma"  # the mma kernel takes any call
     assert flash._pick("flash_fwd", "mma", None) == "mma"
-    with pytest.raises(ValueError, match="does not take this call"):
-        flash._pick("flash_fwd", "mma", "sm90")
+    assert flash._pick("flash_fwd", "decode", None) == "decode"
+    assert flash._pick("flash_fwd", "decode", "decode") == "decode"
+    assert flash._pick("flash_fwd", "decode", "mma") == "mma"
+    for chosen, asked in (("mma", "sm90"), ("mma", "decode"), ("sm90", "decode"),
+                          ("decode", "sm90")):
+        with pytest.raises(ValueError, match="does not take this call"):
+            flash._pick("flash_fwd", chosen, asked)
 
 
 # -- on the card only ---------------------------------------------------------
@@ -303,7 +431,7 @@ def test_sm90_forward_matches_plain_version(cuda, case):
     b, sq, skv, hq, hkv, causal, offs, lens = case[1]
     q, k, v, offs, lens = _kernel_inputs(cuda, b, sq, skv, hq, hkv, 128, torch.bfloat16,
                                          offs, lens)
-    assert flash.fwd_variant(q) == "sm90"
+    assert flash.fwd_variant(q, k) == "sm90"
     before = (flash.launches.value, flash.launches_fwd_sm90.value)
     out, lse = flash.flash_attention_fwd(q, k, v, causal, offs, lens)
     torch.cuda.synchronize()
@@ -347,10 +475,11 @@ def test_sm90_forward_reads_a_poisoned_cache_slice(cuda, poison):
 
 @pytest.mark.cuda
 def test_short_calls_keep_the_mma_kernel(cuda):
-    # decode and tails under 64 rows: the mma kernel, counted in the total only
+    # tails under 64 rows past the decode variant's 16: the mma kernel,
+    # counted in the total only
     q, k, v, offs, lens = _kernel_inputs(cuda, 2, 63, 256, 8, 2, 128, torch.bfloat16,
                                          [0, 100], [63, 163])
-    assert flash.fwd_variant(q) == "mma"
+    assert flash.fwd_variant(q, k) == "mma"
     before = (flash.launches.value, flash.launches_fwd_sm90.value)
     out, lse = flash.flash_attention_fwd(q, k, v, True, offs, lens)
     torch.cuda.synchronize()
@@ -380,3 +509,62 @@ def test_kernel_matches_plain_version(cuda, case):
         (ref_out.float().cpu().numpy(), ref_lse.cpu().numpy()),
         tol,
     )
+
+
+# the decode variant: b, sq, hq, hkv, offsets, kv_lens, poison of the tail
+_DECODE_CASES = [
+    ("served B=1 kv 616", (1, 1, 32, 8, [615], [616], 300.0)),
+    ("served B=1 kv 1800 NaN tail", (1, 1, 32, 8, [1799], [1800], float("nan"))),
+    ("B=4 cache 2048", (4, 1, 32, 8, [0, 699, 1499, 2047], [1, 700, 1500, 2048], None)),
+    ("groups 1", (2, 1, 8, 8, [99, 400], [100, 401], None)),
+    ("groups 2", (2, 1, 16, 8, [99, 400], [100, 401], None)),
+    ("groups 8", (2, 1, 32, 4, [99, 400], [100, 401], None)),
+    ("kv_lens=0 row", (2, 1, 32, 8, [0, 899], [0, 900], float("nan"))),
+    ("Sq=4 groups 4", (2, 4, 32, 8, [96, 290], [100, 294], 300.0)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _DECODE_CASES, ids=[c[0] for c in _DECODE_CASES])
+def test_decode_forward_matches_plain_version(cuda, case):
+    # K/V one layer of a [2, B, 2048, Hkv, 128] cache, poisoned past kv_len
+    b, sq, hq, hkv, offs, lens, poison = case[1]
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    caches = [torch.randn(2, b, 2048, hkv, 128, device=cuda, generator=gen).to(torch.bfloat16)
+              for _ in "kv"]
+    if poison is not None:
+        for cache in caches:
+            for i, n in enumerate(lens):
+                cache[:, i, n:] = poison
+    q = torch.randn(b, sq, hq, 128, device=cuda, generator=gen).to(torch.bfloat16)
+    k, v = caches[0][-1], caches[1][-1]
+    offs = torch.tensor(offs, dtype=torch.int32, device=cuda)
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    assert flash.fwd_variant(q, k) == "decode"
+    before = (flash.launches.value, flash.launches_fwd_decode.value)
+    out, lse = flash.flash_attention_fwd(q, k, v, True, offs, lens)
+    torch.cuda.synchronize()
+    assert (flash.launches.value, flash.launches_fwd_decode.value) == (before[0] + 1,
+                                                                      before[1] + 1)
+    assert torch.isfinite(out).all()
+    _matches_plain(q, k, v, True, offs, lens, out, lse)
+    again = flash.flash_attention_fwd(q, k, v, True, offs, lens)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)  # a fixed merge order
+    if 0 in lens.tolist():
+        row = lens.tolist().index(0)
+        assert bool((out[row] == 0).all()) and bool(torch.isposinf(lse[row]).all())
+
+
+@pytest.mark.cuda
+def test_decode_wrapper_reads_no_device_value(cuda):
+    # the split count comes from shapes: no host sync in the wrapper
+    q, k, v, offs, lens = _kernel_inputs(cuda, 4, 1, 2048, 32, 8, 128, torch.bfloat16,
+                                         [0, 699, 1499, 2047], [1, 700, 1500, 2048])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        flash.flash_attention_fwd(q, k, v, True, offs, lens)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()

@@ -5,7 +5,8 @@ lse and dO; gradients through the port's ``flash_attention`` (its
 ``autograd.Function``) against ``jax.grad`` of the JAX package's
 ``flash_attention`` (Pallas forward and fused backward, interpret mode,
 block_q = block_kv = 8); the wrapper's dispatch and build failure; and, on
-a CUDA card only, the dQ and dK/dV kernels against their plain version.
+a CUDA card only, the dQ and dK/dV kernels (their sm90 and mma variants)
+against their plain version.
 
 Tolerances: f32 atol 1e-4 with rtol 2e-5 (tests/test_flash.py's gradient
 tests), bf16 2e-2 (atol and rtol). On the card:
@@ -243,8 +244,13 @@ def test_bwd_source_and_wrapper_agree():
     assert f"constexpr int kMaxCluster = {flash.MAX_CLUSTER};" in src
     assert "grid_x != hkv * cluster || grid_y != b" in src
     assert "int gofr_flash_bwd_dkv_sm90(" in src and "int gofr_flash_bwd_dkv_sm90_smem()" in src
-    # every kernel of the dK/dV family carries the name profile_training counts
-    assert "flash_bwd_dkv_sm90_kernel(" in src
+    # the sm90 dQ variant: its q tile, the grid the wrapper computes, its entry
+    assert f"constexpr int kQ90BlockM = {flash.DQ_SM90_BLOCK_Q};" in src
+    assert "grid_z != (sq + kQ90BlockM - 1) / kQ90BlockM" in src
+    assert "int gofr_flash_bwd_dq_sm90(" in src and "int gofr_flash_bwd_dq_sm90_smem()" in src
+    assert "a.causal ? a.n_qt - 1 - (int)blockIdx.z" in src  # longest first
+    # every kernel of each family carries the name profile_training counts
+    assert "flash_bwd_dkv_sm90_kernel(" in src and "flash_bwd_dq_sm90_kernel(" in src
     # the group sum is deterministic: no atomic adds anywhere in the source
     assert "atomicAdd" not in src and "red.global" not in src
 
@@ -278,6 +284,44 @@ def test_dkv_sm90_geometry_cuts_the_last_key_tile():
 ])
 def test_dkv_variant_by_shape(dtype, sq, d, want):
     assert flash.dkv_variant(torch.zeros(1, sq, 4, d, dtype=dtype)) == want
+
+
+# (q, expected dQ variant), as the forward's _VARIANTS
+_DQ_VARIANTS = [
+    ("training bf16 S=2048 D=128", torch.zeros(1, 2048, 32, 128, dtype=torch.bfloat16), "sm90"),
+    ("ragged tail Sq=130", torch.zeros(2, 130, 8, 128, dtype=torch.bfloat16), "sm90"),
+    ("one row", torch.zeros(1, 1, 4, 128, dtype=torch.bfloat16), "sm90"),
+    ("no rows", torch.zeros(1, 0, 4, 128, dtype=torch.bfloat16), "mma"),
+    ("f32 D=128", torch.zeros(1, 256, 4, 128), "mma"),
+    ("bf16 D=64", torch.zeros(1, 256, 4, 64, dtype=torch.bfloat16), "mma"),
+    ("bf16 D=16 tiny model", torch.zeros(1, 128, 4, 16, dtype=torch.bfloat16), "mma"),
+    # q rows that are not 16-byte aligned: TMA cannot read them
+    ("misaligned rows", torch.zeros(1, 128, 4, 132, dtype=torch.bfloat16)[..., :128], "mma"),
+    # q as a view of the fused QKV projection: aligned strides, TMA reads it
+    ("fused qkv view", torch.zeros(1, 128, 48, 128, dtype=torch.bfloat16)[:, :, :32], "sm90"),
+]
+
+
+@pytest.mark.parametrize("case", _DQ_VARIANTS, ids=[c[0] for c in _DQ_VARIANTS])
+def test_dq_variant_by_shape(case):
+    _, q, want = case
+    assert flash.dq_variant(q) == want
+
+
+@pytest.mark.parametrize("b, sq, hq, want", [
+    (1, 2048, 32, (32, 1, 16)),
+    (2, 300, 8, (8, 2, 3)),
+    (2, 64, 4, (4, 2, 1)),
+    (1, 129, 16, (16, 1, 2)),
+])
+def test_dq_sm90_grid(b, sq, hq, want):
+    assert flash.dq_sm90_grid(b, sq, hq) == want
+
+
+def test_bwd_variant_override_only_where_it_fits():
+    assert flash._pick("flash_bwd_dq", "sm90", "mma") == "mma"
+    with pytest.raises(ValueError, match="does not take this call"):
+        flash._pick("flash_bwd_dq", "mma", "sm90")
 
 
 # -- on the card only ---------------------------------------------------------
@@ -470,3 +514,69 @@ def test_kernels_read_strided_inputs(cuda, dtype):
     for a, w in zip(got, want):
         np.testing.assert_allclose(a.float().cpu().numpy(), w.float().cpu().numpy(),
                                    rtol=tol[0], atol=tol[1])
+
+
+def _dq_matches_plain(q, k, v, g, offs, lens, causal):
+    """The sm90 dQ kernel against the plain backward; -> dq."""
+    scale = 128 ** -0.5
+    out, lse = flash.flash_attention_fwd(q, k, v, causal, offs, lens)
+    do = g.contiguous()
+    dvec = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    before = (flash.launches_dq.value, flash.launches_dq_sm90.value)
+    dq = flash.launch_dq(q, k, v, do, lse, dvec, offs, lens, causal, scale)
+    torch.cuda.synchronize()
+    assert (flash.launches_dq.value, flash.launches_dq_sm90.value) == (before[0] + 1,
+                                                                      before[1] + 1)
+    want = flash.flash_attention_bwd_ref(q, k, v, offs, lens, out, lse, g, causal, scale)[0]
+    a, w = dq.float().cpu().numpy(), want.float().cpu().numpy()
+    assert np.isfinite(a).all()
+    np.testing.assert_allclose(a, w, rtol=BF16_TOL, atol=BF16_TOL)
+    return dq
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _DKV_SM90_CASES, ids=[c[0] for c in _DKV_SM90_CASES])
+def test_sm90_dq_matches_plain_version(cuda, case):
+    b, sq, skv, hq, hkv, causal, offs, lens = case[1]
+    q, k, v, g, offs, lens = _bwd_inputs(cuda, b, sq, skv, hq, hkv, offs, lens)
+    assert flash.dq_variant(q) == "sm90"
+    dq = _dq_matches_plain(q, k, v, g, offs, lens, causal)
+    if 0 in lens.tolist():
+        assert bool((dq[lens.tolist().index(0)] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("poison", [float("nan"), 300.0])
+def test_sm90_dq_reads_a_poisoned_cache_slice(cuda, poison):
+    # TMA loads the K/V rows past kv_len; the kernel zeroes those K rows and
+    # selects dS to 0 there, so dQ stays finite and right
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(6)
+    b, sq, lens_ = 2, 256, [300, 1000]
+    caches = [torch.randn(2, b, 2048, 8, 128, device=cuda, generator=gen).to(torch.bfloat16)
+              for _ in "kv"]
+    for cache in caches:
+        for i, n in enumerate(lens_):
+            cache[:, i, n:] = poison
+    q, g = (torch.randn(b, sq, 32, 128, device=cuda, generator=gen).to(torch.bfloat16)
+            for _ in "qg")
+    lens = torch.tensor(lens_, dtype=torch.int32, device=cuda)
+    _dq_matches_plain(q, caches[0][-1], caches[1][-1], g, lens - sq, lens, True)
+
+
+@pytest.mark.cuda
+def test_sm90_dq_is_bit_identical_and_reads_no_device_value(cuda):
+    # each block owns its dQ rows: no atomics, the same bits every launch;
+    # the wrapper syncs nothing with the host
+    q, k, v, g, offs, lens = _bwd_inputs(cuda, 1, 2048, 2048, 32, 8, [0], [2048], seed=7)
+    out, lse = flash.flash_attention_fwd(q, k, v, True, offs, lens)
+    dvec = (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, g, lse, dvec, offs, lens, True, 128 ** -0.5)
+    first = flash.launch_dq(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = flash.launch_dq(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(first, again)

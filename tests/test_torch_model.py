@@ -9,6 +9,7 @@ The chunk-resume contract must hold bit-exactly inside torch.
 """
 
 import dataclasses
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +22,7 @@ from gofr_tpu.models.llama import TINY as JAX_TINY
 from gofr_tpu_torch.models.convert import to_torch, transformer_from_tree
 from gofr_tpu_torch.models.llama import CONFIGS, TINY
 from gofr_tpu_torch.models.transformer import Transformer
+from gofr_tpu_torch.training import checkpoint
 
 LOGIT_TOL = 1e-4
 IMPLS = ["xla", "pallas"]
@@ -33,7 +35,7 @@ def jax_params():
 
 @pytest.fixture(scope="module")
 def model(jax_params):
-    return transformer_from_tree(jax.tree.map(np.asarray, jax_params), TINY)
+    return transformer_from_tree(jax.tree.map(np.asarray, jax_params), TINY, device="cpu")
 
 
 def _jcfg(impl):
@@ -137,7 +139,8 @@ def test_bf16_bits_cross_unchanged():
 def test_bf16_tree_converts_to_a_bf16_model():
     cfg = dataclasses.replace(JAX_TINY, dtype=jnp.bfloat16)
     params = jax.tree.map(np.asarray, jt.init_transformer(jax.random.PRNGKey(1), cfg))
-    model = transformer_from_tree(params, dataclasses.replace(TINY, dtype=torch.bfloat16))
+    model = transformer_from_tree(params, dataclasses.replace(TINY, dtype=torch.bfloat16),
+                                  device="cpu")
     assert model.layers[1].wq.dtype == torch.bfloat16
     np.testing.assert_array_equal(
         model.layers[1].wq.view(torch.int16).numpy(), params["layers"]["wq"][1].view(np.int16)
@@ -151,7 +154,17 @@ def test_quantized_tree_is_not_ported_yet():
         np.asarray, quantize_params(jt.init_transformer(jax.random.PRNGKey(0), JAX_TINY), "int8")
     )
     with pytest.raises(NotImplementedError, match="not ported"):
-        transformer_from_tree(params, TINY)
+        transformer_from_tree(params, TINY, device="cpu")
+
+
+@pytest.mark.parametrize("fn", [transformer_from_tree, Transformer.__init__,
+                                checkpoint.restore_params, checkpoint.restore_train_state],
+                         ids=["transformer_from_tree", "Transformer", "restore_params",
+                              "restore_train_state"])
+def test_entry_points_default_to_the_card(fn):
+    # the port's entry points run on the card unless the caller asks for
+    # the CPU, as the tests here do
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
 def test_random_init_is_seeded_and_truncated():

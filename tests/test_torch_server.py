@@ -201,7 +201,7 @@ def test_served_tokens_equal_jax_greedy(serve):
     from gofr_tpu_torch.models.llama import TINY
 
     params = jt.init_transformer(jax.random.PRNGKey(0), JAX_TINY)
-    model = transformer_from_tree(jax.tree.map(np.asarray, params), TINY)
+    model = transformer_from_tree(jax.tree.map(np.asarray, params), TINY, device="cpu")
     app, port = serve(model=model, TOKENIZER=None)
     prompt = [7, 1, 200, 45, 99, 3, 18]
     data = json.loads(_post(port, {"prompt": prompt, "max_tokens": 9, "temperature": 0})[1])

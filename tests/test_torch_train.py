@@ -48,7 +48,7 @@ def _jax_params(tree):
 
 
 def _model(tree):
-    return transformer_from_tree(tree, TINY)
+    return transformer_from_tree(tree, TINY, device="cpu")
 
 
 def _tokens(seed, shape=(2, 17)):
