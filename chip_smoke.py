@@ -16,7 +16,9 @@ Phases, each fatal on failure (no phase is skipped or caught):
    cache tail, tiles cut at 130/200 and 300/1024, GQA groups 1, 2 and 8 in
    prefill and in decode, decode over a 2048-slot cache, kv_lens=0 rows;
    and the serving run's own calls: batch-4 prefill at buckets 128 and
-   1024, batch-1 decode at kv_len 616 and 1800, K/V one layer of a [L, B,
+   1024, batch-1 decode at kv_len 616 and 1800, phase 10's chunk slices
+   (B=1, Sq=512 at offsets 512 and 1024, the second ragged at kv_len 1500)
+   and prefix tail (B=1, Sq=64 at offset 256), K/V one layer of a [L, B,
    2048, 8, 128] cache poisoned past kv_len with +-300 and with NaN) and at
    the tiny model's f32 D=16, tolerances as in tests/test_flash.py (bf16
    2e-2, f32 2e-5, atol + rtol*|ref|); each case must run the variant its
@@ -36,12 +38,34 @@ Phases, each fatal on failure (no phase is skipped or caught):
    decodes 16 tokens through the kernel (its mma variant); the same weights
    on the CPU (plain path) must give the same ids;
 5. serve: ``new()`` with MODEL_NAME=llama3-8b (full width and depth, bf16,
-   random weights from MODEL_SEED), four /v1/completions requests (two
-   concurrent prompts in two buckets, one streamed, one sampled), the
-   launch counts of the forward over that run (sm90 for every prefill
-   dispatch's layers, decode for every decode step's, none on mma), TTFT
-   and decode tokens/s; then the runner's ``decode_chunk`` under
-   ``set_sync_debug_mode("error")``: no host sync between steps;
+   random weights from MODEL_SEED) on the solo path (DECODE_POOL=off
+   KV_PAGED=off, as seeded requests and pool-off deployments take it), four
+   /v1/completions requests (two concurrent prompts in two buckets, one
+   streamed, one sampled), the launch counts of the forward over that run
+   (sm90 for every prefill dispatch's layers, decode for every decode
+   step's, none on mma), TTFT and decode tokens/s; then the runner's
+   ``decode_chunk`` under ``set_sync_debug_mode("error")``: no host sync
+   between steps;
+10. serve the default configuration (run right after phase 5, on its
+   model): the decode pool and paged KV at their defaults, DECODE_SLOTS=8,
+   DECODE_CHUNK=8, MODEL_BUCKETS=64,128,256,512, PREFILL_CHUNK_TOKENS=512,
+   PREFIX_CACHE=4, PREFIX_LCP_MIN=64. Streams of 32 greedy tokens, 1, 4
+   and 8 at once (the 8 with prompts of 100-600 bytes): aggregate decode
+   tokens/s and TPOT at each; a 1,500-byte prompt prefilled in 3 slices
+   (its TTFT); its exact repeat (a prefix-cache hit, equal ids); a
+   shared-prefix request (a partial hit); a stream dropped by its client
+   (its slot frees); two of the 8 prompts again alone (ids equal to those
+   among 8 co-tenants); the launch counts (decode for every layer of every
+   pool step, exactly n_layers x DECODE_CHUNK inside each pool dispatch,
+   sm90 for every prefill dispatch and slice, none on mma); the 1,500-byte
+   prompt's 3 slices against one pass of 2048 (the one pass's top-5
+   logprobs at the last position) and the pool's delivered logprobs
+   against a teacher-forced batch-1 decode of the same ids (both atol 5e-2
+   + rtol 2e-2); one pool dispatch under ``set_sync_debug_mode("error")``;
+   the pool's worker joined by ``app.shutdown()``; then the decode kernel at
+   the pool's shape (8 slots of a 2048-slot cache, ragged kv_lens, two idle
+   slots past the end, 5 splits) against its plain version, with its
+   times, and 20 launches with a synchronize after each;
 6. backward kernels vs plain: the dQ and dK/dV kernels (their sm90 variants
    for bf16 D=128, their mma variants for f32) against
    ``flash_attention_bwd_ref`` at the training shape (B=1, S=2048, Hq=32,
@@ -215,7 +239,7 @@ def bound(q, k, offsets, kv_lens, causal):
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
     es = q.element_size()
-    lens = [int(x) for x in kv_lens.tolist()]
+    lens = [min(int(x), k.shape[1]) for x in kv_lens.tolist()]  # the kernel stops at Skv
     offs = [int(x) for x in offsets.tolist()]
     kv_bytes = sum(lens) * hkv * d * es * 2
     nbytes = 2 * q.numel() * es + kv_bytes + b * hq * sq * 4 + 2 * b * 4
@@ -355,12 +379,15 @@ def post(port: int, body: dict, stream: bool = False):
 
 
 def serve(torch, flash, card: str):
+    """Phase 5. -> (the forward's launch counts, the served model)."""
     import numpy as np
 
+    # the solo path, as seeded requests and pool-off deployments take it
     os.environ.update({
         "MODEL_NAME": "llama3-8b", "MODEL_MAX_SEQ": "2048", "BATCH_MAX_SIZE": "4",
         "BATCH_TIMEOUT_MS": "50", "TOKENIZER": "byte", "MODEL_SEED": "0",
         "DECODE_CHUNK": "8", "TORCH_DEVICE": "cuda", "HTTP_PORT": str(free_port()),
+        "DECODE_POOL": "off", "KV_PAGED": "off",
     })
     import gofr_tpu_torch
 
@@ -458,9 +485,309 @@ def serve(torch, flash, card: str):
                      lambda: runner.model.decode_chunk(token, cache, 4))
         check(flash.launches_fwd_decode.value - before == 4 * n_layers,
               "serve: decode_chunk missed the decode kernel")
-        return {"sm90": sm90, "decode": decode}
+        return {"sm90": sm90, "decode": decode}, runner.model
     finally:
         app.shutdown()
+
+
+# -- phase 10: serve the default configuration ------------------------------------
+
+# pooled (B = 8) against teacher-forced solo (B = 1) logprobs: other cuBLAS
+# tilings and split counts, bf16 activations through 32 layers
+POOL_LP_TOL = (5e-2, 2e-2)  # (atol, rtol)
+# the defaults (pool, paged KV) plus the slice's serving shape
+PHASE10_ENV = {
+    "MODEL_NAME": "llama3-8b", "MODEL_MAX_SEQ": "2048", "MODEL_BUCKETS": "64,128,256,512",
+    "PREFILL_CHUNK_TOKENS": "512", "DECODE_SLOTS": "8", "DECODE_CHUNK": "8",
+    "BATCH_MAX_SIZE": "8", "BATCH_TIMEOUT_MS": "20", "PREFIX_CACHE": "4",
+    "PREFIX_LCP_MIN": "64", "TOKENIZER": "byte", "TORCH_DEVICE": "cuda",
+}
+WORDS = ("attention", "kernel", "tile", "softmax", "cache", "block", "stream", "token",
+         "prefill", "decode", "slot", "warp", "cluster", "shared", "memory", "copy")
+
+
+def text(seed: int, n: int) -> str:
+    """``n`` bytes of seeded words (the byte tokenizer: one token a byte)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = ""
+    while len(out) < n:
+        out += WORDS[rng.integers(len(WORDS))] + " "
+    return out[:n]
+
+
+def stream_then_close(port: int, body: dict, frames: int) -> int:
+    """Read ``frames`` SSE frames of a stream, then drop the connection."""
+    data = json.dumps({**body, "stream": True}).encode()
+    sock = socket.create_connection(("127.0.0.1", port), timeout=600)
+    sock.sendall(b"POST /v1/completions HTTP/1.1\r\nHost: 127.0.0.1\r\n"
+                 b"Content-Type: application/json\r\nContent-Length: "
+                 + str(len(data)).encode() + b"\r\n\r\n" + data)
+    buf = b""
+    while buf.count(b"data: ") < frames:
+        chunk = sock.recv(65536)
+        if not chunk:
+            break
+        buf += chunk
+    sock.close()
+    return buf.count(b"data: ")
+
+
+def stream_rate(starts: list, results: list) -> tuple:
+    """Concurrent streams' send times and (status, frames, ttft, times) ->
+    (aggregate decode tokens/s = every stream's tokens after its first over
+    the wall time from the earliest first token to the latest last token,
+    mean TPOT ms, the tokens of each). Streams decoded one after another
+    would read as batch 1, and a stall between them counts."""
+    tpots, counts, firsts, lasts = [], [], [], []
+    for t0, (status, frames, _, times) in zip(starts, results):
+        check(status == 200 and frames and frames[-1] == "[DONE]", f"stream: {status}")
+        n = len(frames) - 2  # one frame a token, the finish frame, [DONE]
+        counts.append(n)
+        check(n >= 2, "stream: fewer than 2 tokens")
+        firsts.append(t0 + times[0])
+        lasts.append(t0 + times[n - 1])
+        tpots.append((times[n - 1] - times[0]) / (n - 1) * 1e3)
+    tokens = sum(n - 1 for n in counts)
+    return tokens / (max(lasts) - min(firsts)), sum(tpots) / len(tpots), counts
+
+
+def serve_default(torch, flash, card: str, model) -> dict:
+    """Phase 10: the JAX package's default serving configuration (decode
+    pool, paged KV, prefix cache, chunked prefill, scheduler) on phase 5's
+    llama3-8b weights."""
+    import numpy as np
+
+    import gofr_tpu_torch
+    from gofr_tpu_torch.models.transformer import _chosen_logprobs
+    from gofr_tpu_torch.ops.sampling import Sampler
+    from gofr_tpu_torch.tpu.decode_pool import DONE, PoolFailure
+
+    env = {**PHASE10_ENV, "HTTP_PORT": str(free_port())}
+    for key in ("DECODE_POOL", "KV_PAGED", "KV_BLOCKS", "KV_BLOCK_TOKENS", "DECODE_PIPELINE",
+                "SCHED_POLICY", "SCHED_MAX_DEFER_MS"):
+        os.environ.pop(key, None)  # the JAX package's defaults
+    os.environ.update(env)
+    t0 = time.perf_counter()
+    app = gofr_tpu_torch.new(model=model)
+    gofr_tpu_torch.register_openai_routes(app)
+    app.start()
+    try:
+        dev = app.container.tpu
+        pool, runner = dev.decode_pool, dev.runner
+        n_layers, chunk = runner.cfg.n_layers, pool.chunk
+        check(pool is not None and pool.n_slots == 8, "default: no 8-slot decode pool")
+        check(runner.prefill_chunk_bucket == 512, "default: the chunk budget is not bucket 512")
+        check(dev.kv_pool is not None, "default: paged KV is off")
+        print(f"default: booted in {time.perf_counter() - t0:.1f}s ({dev.describe()}), memory "
+              f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB", flush=True)
+        port = app.http_port
+        generations: list = []
+        inner = dev.generate
+
+        def recording_generate(tokens, *args, **kwargs):
+            out = inner(tokens, *args, **kwargs)
+            generations.append((tokens, out))
+            return out
+
+        dev.generate = recording_generate
+
+        def ids_of(prompt: str):
+            want = list(dev.tokenizer.encode(prompt))
+            return [out for tokens, out in generations if list(tokens) == want]
+
+        greedy = {"max_tokens": 32, "temperature": 0}
+        # every count to 0 just before the main path runs
+        for c in (flash.launches, flash.launches_fwd_sm90, flash.launches_fwd_decode):
+            c.reset()
+        d0, p0 = pool.dispatches, runner.prefills
+        rates, tpots, chunk_ms = {}, {}, {}
+        # the worker's chunk cadence while the HTTP, stream and batcher
+        # threads run beside it (the host issues every launch of a chunk),
+        # and the decode kernel's launches inside the pool's dispatches
+        stamps: list = []
+        in_pool = {"decode": 0, "dispatches": 0}
+        dispatch = pool._dispatch_chunk
+
+        def counted_dispatch(*args, **kwargs):
+            stamps.append(time.perf_counter())
+            before = flash.launches_fwd_decode.value
+            out = dispatch(*args, **kwargs)
+            in_pool["decode"] += flash.launches_fwd_decode.value - before
+            in_pool["dispatches"] += 1
+            return out
+
+        pool._dispatch_chunk = counted_dispatch
+        prompts8 = [text(100 + i, n) for i, n in enumerate((100, 170, 240, 310, 380, 450, 500, 600))]
+        for k, seed in ((1, 10), (4, 20), (8, None)):
+            prompts = prompts8 if k == 8 else [text(seed + i, 100 + 70 * i) for i in range(k)]
+            results, starts = [None] * k, [None] * k
+            stamps.clear()
+
+            def run(i, prompts=prompts, results=results, starts=starts):
+                starts[i] = time.perf_counter()
+                results[i] = post(port, {"prompt": prompts[i], "stream": True, **greedy},
+                                  stream=True)
+
+            threads = [threading.Thread(target=run, args=(i,)) for i in range(k)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            rates[k], tpots[k], counts = stream_rate(starts, results)
+            gaps = sorted(b - a for a, b in zip(stamps, stamps[1:]))
+            chunk_ms[k] = gaps[len(gaps) // 2] * 1e3 if gaps else None
+            print(f"default: {k} concurrent greedy streams of up to 32 tokens ({counts}): "
+                  f"aggregate {rates[k]:.1f} tokens/s (all streams' tokens after their first "
+                  f"over the earliest first to the latest last token), TPOT {tpots[k]:.2f} ms, "
+                  f"pool chunk cadence (median) {chunk_ms[k]} ms over {len(stamps)} chunks",
+                  flush=True)
+        long = text(7, 1500)
+        p1 = runner.prefills
+        status, frames, chunked_ttft, _ = post(port, {"prompt": long, "stream": True, **greedy},
+                                               stream=True)
+        check(status == 200 and frames[-1] == "[DONE]", f"default: chunked prompt {status}")
+        slices = runner.prefills - p1
+        check(slices == 3, f"default: the 1,500-byte prompt took {slices} prefill dispatches")
+        hits = runner.prefix_stats["hits"]
+        status, _, repeat_s, _ = post(port, {"prompt": long, **greedy})
+        check(status == 200 and runner.prefix_stats["hits"] == hits + 1,
+              "default: the exact repeat missed the prefix cache")
+        long_ids = ids_of(long)
+        check(len(long_ids) == 2 and long_ids[0] == long_ids[1],
+              "default: the exact repeat gave other ids than the miss")
+        system = text(8, 300)
+        post(port, {"prompt": system + "first question?", **greedy})
+        partial = runner.prefix_stats["partial_hits"]
+        status, _, lcp_s, _ = post(port, {"prompt": system + "a second one", **greedy})
+        check(status == 200 and runner.prefix_stats["partial_hits"] == partial + 1,
+              "default: the shared-prefix request missed its partial hit")
+        stream_then_close(port, {"prompt": text(9, 200), "max_tokens": 1500, "temperature": 0}, 4)
+        for _ in range(200):
+            if pool.occupancy()["active"] == 0:
+                break
+            time.sleep(0.05)
+        check(pool.occupancy()["active"] == 0, "default: the cancelled stream kept its slot")
+        for i in (3, 7):
+            among = ids_of(prompts8[i])[0]
+            status, _, _, _ = post(port, {"prompt": prompts8[i], **greedy})
+            alone = ids_of(prompts8[i])[-1]
+            check(alone == among, f"default: prompt {i} alone gave other ids than among 8")
+        launches = flash.launches.value
+        sm90 = flash.launches_fwd_sm90.value
+        decode = flash.launches_fwd_decode.value
+        pool._dispatch_chunk = dispatch
+        steps = (pool.dispatches - d0) * chunk
+        prefills = runner.prefills - p0
+        mma = launches - sm90 - decode
+        check(in_pool["dispatches"] == pool.dispatches - d0,
+              "default: a pool dispatch went around the count")
+        per_chunk = in_pool["decode"] / in_pool["dispatches"]
+        print(f"default: forward launches {launches}: decode {decode} >= n_layers x pool steps "
+              f"{steps} = {n_layers * steps}; sm90 {sm90} >= n_layers x prefill dispatches "
+              f"{prefills} = {n_layers * prefills}; mma {mma}; decode launches inside the "
+              f"{in_pool['dispatches']} pool dispatches {in_pool['decode']}, {per_chunk} a chunk "
+              f"(n_layers x DECODE_CHUNK = {n_layers * chunk})", flush=True)
+        check(decode >= n_layers * steps, "default: a pool decode layer missed the decode kernel")
+        check(per_chunk == n_layers * chunk,
+              f"default: {per_chunk} decode launches a pool chunk, want {n_layers * chunk}")
+        check(sm90 >= n_layers * prefills, "default: a prefill layer missed the sm90 kernel")
+        check(mma == 0, "default: a call took the mma kernel")
+        print(f"default: all 8 prompts and the repeats took ids alone equal to those among 8 "
+              f"co-tenants; prefix cache {runner.prefix_stats}, kv {dev.kv_pool.stats()}",
+              flush=True)
+
+        # the chunked prompt's 3 slices against one pass over the whole
+        # prompt: a slice at a wrong offset moves the last position's logits
+        ids = np.asarray(dev.tokenizer.encode(long), np.int32)
+        with torch.no_grad():
+            chunked = torch.log_softmax(runner._chunked_prefill(ids, 512)["logits"].float(), -1)
+            tokens = np.zeros((1, 2048), np.int32)
+            tokens[0, : ids.size] = ids
+            logits, _ = runner._prefill(tokens, runner.model.init_cache(1, 2048),
+                                        np.asarray([ids.size], np.int32))
+            whole = torch.log_softmax(logits[0].float(), -1)
+            top = torch.topk(whole, 5).indices
+            lp_c, lp_w = chunked[top].cpu().numpy(), whole[top].cpu().numpy()
+        atol, rtol = POOL_LP_TOL
+        slice_diff = np.abs(lp_c - lp_w)
+        ok = bool((slice_diff <= atol + rtol * np.abs(lp_w)).all())
+        print(f"default: 3 slices of 512 vs one pass of 2048 over the {ids.size}-token prompt: "
+              f"the one pass's top-5 logprobs max |diff| {slice_diff.max():.3e} (tol {atol} + "
+              f"{rtol}*|lp|), argmax {int(chunked.argmax())} vs {int(whole.argmax())} -> "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, "default: the chunked prefill disagrees with one pass")
+
+        # pooled (B = 8) against solo (B = 1), teacher-forced on the pooled
+        # ids: the pool's own delivered logprobs
+        ids = np.asarray(dev.tokenizer.encode(prompts8[3]), np.int32)
+        with torch.no_grad():
+            state = runner.run_batch([ids])[0]
+            first = state["next_token"]
+            slot_q = pool.submit(state.row(), state["length"], first, 31, Sampler(),
+                                 stop_tokens=dev.default_stop_ids, want_logprobs=True)
+            burst = []
+            while (item := slot_q.get(timeout=600)) is not DONE:
+                check(not isinstance(item, PoolFailure), f"default: pool failed: {item}")
+                burst.extend(item)
+            cache = state["cache"]
+            tok = torch.tensor([[first]], dtype=torch.int32, device=runner.device)
+            solo_lps = []
+            for t, _, _ in burst:
+                logits, cache = runner.model.decode_step(tok, cache)
+                tok.fill_(t)
+                solo_lps.append(float(_chosen_logprobs(logits, tok[0])))
+        pooled_lps = [lp for _, lp, _ in burst]
+        diff = np.abs(np.asarray(pooled_lps) - np.asarray(solo_lps))
+        ok = len(burst) >= 2 and bool((diff <= atol + rtol * np.abs(solo_lps)).all())
+        print(f"default: pooled vs solo logprobs of {len(diff)} tokens: max |diff| "
+              f"{diff.max():.3e} (tol {atol} + {rtol}*|lp|) -> {'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, "default: pooled and solo logprobs differ")
+
+        # the pool's dispatch reads no device value on the host
+        from collections import deque
+
+        in_flight: deque = deque()
+        with pool._work:
+            no_host_sync(torch, "decode pool dispatch (8 slots x 8 steps)",
+                         lambda: pool._dispatch_chunk(in_flight))
+        in_flight.popleft()[1].wait()
+
+        metrics = {
+            "phase_s": time.perf_counter() - t0,
+            "aggregate_tokens_per_s": rates, "tpot_ms": tpots, "chunk_ms": chunk_ms,
+            "chunked_ttft_ms": chunked_ttft * 1e3, "exact_hit_s": repeat_s,
+            "partial_hit_s": lcp_s, "pool_steps": steps, "prefill_dispatches": prefills,
+            "pool_lp_max_diff": float(diff.max()), "chunk_slices_lp_max_diff": float(slice_diff.max()),
+        }
+        print(f"default-metrics [{card}]: {json.dumps(metrics)}", flush=True)
+    finally:
+        app.shutdown()
+    # the pool's worker is joined: nothing of the pool runs beside training
+    check(not pool._thread.is_alive(), "default: the pool's worker outlived app.shutdown()")
+    return {"decode": decode, "per_chunk": per_chunk, "metrics": metrics}
+
+
+def pool_decode_kernel(torch, flash, gen) -> dict:
+    """The pool's decode shape against its plain version, and its times:
+    B = 8 slots of a 2048-slot cache, ragged kv_lens, two idle slots past
+    the cache end (the kernel stops at Skv). Then 20 launches, each
+    followed by a synchronize: a fault of this shape surfaces here, at its
+    own launch, not in a later phase."""
+    lens = [137, 410, 655, 900, 1530, 2047, 2300, 4096]
+    case = make_case(torch, gen, 8, 1, 2048, 32, 8, 128, torch.bfloat16,
+                     [n - 1 for n in lens], lens)
+    check(flash.fwd_decode_splits(8, 8, 2048) == 5, "pool decode: not 5 splits")
+    _, _, err = compare(torch, flash, "pool decode bf16 B=8 cache 2048 ragged, idle past the end",
+                        case)
+    row = time_shape(torch, flash, "pool decode B=8", case, 50)
+    q, k, v, offs, lens_ = case
+    for _ in range(20):
+        flash.flash_attention_fwd(q, k, v, True, offs, lens_)
+        torch.cuda.synchronize()
+    print("pool decode B=8: 20 launches, a synchronize after each -> ok", flush=True)
+    return {**row, "max_abs_err": err}
 
 
 # -- phase 6/7: the backward kernels ----------------------------------------------
@@ -731,6 +1058,15 @@ def forward_phases(torch, flash, gen):
                                                                    poison=(nan, nan)),
         "cache slice bf16 B=2 Sq=256 NaN tail": served_case(torch, gen, 2, 256, 44, 300,
                                                             poison=(nan, nan)),
+        # phase 10's chunked prefill (slices of 512 at offsets 512 and
+        # 1024, the last one ragged) and a prefix-cache tail (bucket 64
+        # after 256 shared tokens), each one row of a 2048-slot cache
+        "chunk slice bf16 B=1 Sq=512 offset 512": served_case(torch, gen, 1, 512, 512, 1024,
+                                                              poison=(nan, nan)),
+        "chunk slice bf16 B=1 Sq=512 offset 1024 kv_len 1500": served_case(
+            torch, gen, 1, 512, 1024, 1500, poison=(nan, nan)),
+        "prefix tail bf16 B=1 Sq=64 offset 256 kv_len 312": served_case(
+            torch, gen, 1, 64, 256, 312, poison=(nan, nan)),
     }
     poisoned = {"prefill bf16 B=2 Sq=512 ragged poisoned": prefill,
                 "ragged 300/1024 NaN tail": make_case(torch, gen, 2, 300, 1024, 32, 8, 128, bf16,
@@ -826,12 +1162,15 @@ def backward_phases(torch, flash, gen):
     return dq_errs, dkv_errs, bwd_rows, fwd_row
 
 
-def kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows) -> dict:
+def kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows, default,
+                 pool_row) -> dict:
     """The kernels of the main path (serving, training) with their counts
-    from its runs and the numbers phases 3 and 7 measured. The mma forward
-    is on the tiny f32 model's path (phases 4 and 8) alone; its count is
-    from those runs. At decode the kernel's ``ms`` and ``library_ms`` are
-    device times (CUDA graph), the CUDA-event times beside them."""
+    from its runs and the numbers phases 3, 7 and 10 measured. The mma
+    forward is on the tiny f32 model's path (phases 4 and 8) alone; its
+    count is from those runs. At decode the kernel's ``ms`` and
+    ``library_ms`` are device times (CUDA graph), the CUDA-event times
+    beside them. The decode variant at the pool's shape (phase 10) has its
+    own entry, with its launches from phase 10's run."""
     fwd = {"route": "cuda", "source": "gofr_tpu_torch/csrc/flash_fwd.cu",
            "replaces": "gofr_tpu/ops/flash.py:224"}
     bwd = {"route": "cuda", "source": "gofr_tpu_torch/csrc/flash_bwd.cu"}
@@ -847,6 +1186,10 @@ def kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows)
         {"name": "flash_fwd_decode", **fwd, "launches": served["decode"],
          "max_abs_err": max(errs["decode"]), **decode_row,
          "by_shape": {k: v for k, v in shapes.items() if v["variant"] == "decode"}},
+        {"name": "flash_fwd_decode (pool, 8 slots)", **fwd, "launches": default["decode"],
+         "launches_per_chunk": default["per_chunk"], "max_abs_err": pool_row["max_abs_err"],
+         **pool_row, "ms": pool_row["device_ms"], "event_ms": pool_row["ms"],
+         "library_ms": pool_row["library_device_ms"], "library_event_ms": pool_row["library_ms"]},
         {"name": "flash_fwd_mma", **fwd, "launches": tiny, "path": "tiny f32 model (phases 4, 8)",
          "max_abs_err": max(errs["mma"]), **shapes["prefill_f32"]},
         {"name": "flash_bwd_dq", **bwd, "replaces": "gofr_tpu/ops/flash.py:477",
@@ -887,17 +1230,23 @@ def main() -> int:
     errs, shapes = forward_phases(torch, flash, gen)
     torch.cuda.empty_cache()
     tiny = f32_path(torch, flash)
-    served = serve(torch, flash, card)
+    served, model = serve(torch, flash, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    default = serve_default(torch, flash, card, model)
+    del model
     gc.collect()
     torch.cuda.empty_cache()
     print(f"serve: shut down, memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    pool_row = pool_decode_kernel(torch, flash, gen)
 
     dq_errs, dkv_errs, bwd_rows, shapes["training_forward"] = backward_phases(torch, flash, gen)
     torch.cuda.empty_cache()
     tiny += f32_training(torch, flash)[0]
     train = train_llama(torch, flash, card)
 
-    kernels = kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows)
+    kernels = kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows,
+                           default, pool_row)
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)  # name, power limit as nvidia-smi gives them
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,17 @@ DECLARED_KEYS: dict[str, str] = {
     "BATCH_MAX_SIZE": "prefill batch rows",
     "BATCH_TIMEOUT_MS": "prefill batch fill deadline",
     "DECODE_CHUNK": "decode steps per host fetch",
+    "DECODE_POOL": "'on' (default): continuous-batching decode pool; 'off': solo decode",
+    "DECODE_SLOTS": "decode pool slots (default BATCH_MAX_SIZE)",
+    "DECODE_PIPELINE": "decode pool chunks in flight (default 3)",
+    "KV_PAGED": "'on' (default): block-table prefix cache and KV admission ledger",
+    "KV_BLOCK_TOKENS": "tokens per KV block (default 64; must divide max_seq)",
+    "KV_BLOCKS": "KV admission ledger in blocks (0 = auto: slots + prefix entries)",
+    "PREFIX_CACHE": "prompts whose KV the prefix cache keeps (0 = off)",
+    "PREFIX_LCP_MIN": "shared tokens for a partial hit (0 = smallest bucket, -1 = exact only)",
+    "PREFILL_CHUNK_TOKENS": "prefill compute budget: longer prompts prefill in slices (0 = off)",
+    "SCHED_POLICY": "prefill/decode interleave: fair | decode-first | prefill-first",
+    "SCHED_MAX_DEFER_MS": "longest a prefill dispatch waits for its decode turn",
     "TOKENIZER": "'byte' for the byte-level tokenizer",
     "HTTP_PORT": "HTTP listen port",
     "TORCH_DEVICE": "'cuda' (default) or 'cpu'",

@@ -307,3 +307,61 @@ class Transformer(nn.Module):
             token = nxt.to(torch.int32)[:, None]
             toks.append(token)
         return torch.cat(toks, dim=1), cache
+
+    @torch.no_grad()
+    def decode_chunk_pool(
+        self,
+        token: torch.Tensor,
+        cache: dict,
+        n_steps: int,
+        generator: Optional[torch.Generator],
+        temperature: Any,
+        top_k: Any,
+        top_p: Any,
+        min_p: Any = 0.0,
+        all_greedy: Optional[bool] = None,
+    ) -> tuple:
+        """The decode pool's chunk: ``n_steps`` steps over every slot with
+        PER-ROW sampling knobs ([B] tensors or scalars) from one device
+        ``generator``, no host sync between steps. ``all_greedy`` (known on
+        the host) skips the sampling sort. The chosen tokens' RAW logprobs
+        and the top-``TOP_LOGPROBS`` alternatives ride every step. Returns
+        (tokens [B, n_steps] int32, logprobs [B, n_steps] f32, top values
+        [B, n_steps, TOP_LOGPROBS] f32, top ids [B, n_steps, TOP_LOGPROBS]
+        int32, the feed-forward token [B, 1] int32, the cache)."""
+        toks, lps, tvals, tids = [], [], [], []
+        for _ in range(n_steps):
+            logits, cache = self.decode_step(token, cache)
+            nxt = sample_logits_rows(
+                logits, generator, temperature, top_k, top_p, min_p, all_greedy=all_greedy
+            )
+            lp, tv, ti = _lp_outputs(logits, nxt)
+            token = nxt.to(torch.int32)[:, None]
+            toks.append(token[:, 0])
+            lps.append(lp)
+            tvals.append(tv)
+            tids.append(ti)
+        return (torch.stack(toks, 1), torch.stack(lps, 1), torch.stack(tvals, 1),
+                torch.stack(tids, 1), token, cache)
+
+
+TOP_LOGPROBS = 5  # OpenAI's completions cap; computed in every pool chunk
+
+
+def _chosen_logprobs(logits: torch.Tensor, nxt: torch.Tensor) -> torch.Tensor:
+    """[B] f32 RAW log-probabilities of the chosen tokens: log-softmax of
+    the unpenalized logits, the one logprob convention of every decode
+    path."""
+    lps = torch.log_softmax(logits.float(), dim=-1)
+    return torch.gather(lps, 1, nxt.long()[:, None])[:, 0]
+
+
+def _lp_outputs(
+    logits: torch.Tensor, nxt: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(chosen lp [B], top-k values [B, TOP_LOGPROBS] f32, top-k ids
+    [B, TOP_LOGPROBS] int32) from one shared log-softmax."""
+    lps = torch.log_softmax(logits.float(), dim=-1)
+    chosen = torch.gather(lps, 1, nxt.long()[:, None])[:, 0]
+    tvals, tids = torch.topk(lps, TOP_LOGPROBS, dim=-1)
+    return chosen, tvals, tids.to(torch.int32)

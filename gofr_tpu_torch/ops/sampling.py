@@ -87,17 +87,21 @@ def sample_logits_rows(
     top_k=0,
     top_p=1.0,
     min_p=0.0,
+    all_greedy: Optional[bool] = None,
 ) -> torch.Tensor:
     """Per-row sampling: logits [B, V] and knobs (scalars or [B]) -> [B]
     int64 ids. Rows with temperature 0 take their argmax; an all-greedy
-    batch skips the sort entirely."""
+    batch skips the sort entirely. ``all_greedy`` states that from the
+    host (the decode pool keeps its knobs' host copies): without it, a
+    device ``temperature`` is read back, a host sync."""
     logits = logits.float()
     b, dev = logits.shape[0], logits.device
     greedy = torch.argmax(logits, dim=-1)
-    if isinstance(temperature, (int, float)):
-        all_greedy = temperature <= 0.0  # decided on the host: no sync
-    else:
-        all_greedy = bool(torch.all(torch.as_tensor(temperature) <= 0.0))
+    if all_greedy is None:
+        if isinstance(temperature, (int, float)):
+            all_greedy = temperature <= 0.0  # decided on the host: no sync
+        else:
+            all_greedy = bool(torch.all(torch.as_tensor(temperature) <= 0.0))
     if all_greedy:
         return greedy
     temp = _rows(temperature, b, torch.float32, dev)

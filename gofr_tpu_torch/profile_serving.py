@@ -1,15 +1,19 @@
 """Where the serving time goes on the card: llama3-8b (full width and
 depth, bf16, random weights from a seed) prefill and decode through the
-port's runner, under ``torch.profiler``.
+port's runner, and pooled decode through the ``DecodePool`` (8 slots,
+chunks of 8 steps) with 1, 4 and 8 active slots, under ``torch.profiler``.
 
     python3 -m gofr_tpu_torch.profile_serving
 
 For each phase it prints one JSON line: the host wall time (ending in a
 device synchronize), the device busy time (the sum of CUDA kernel
 durations; one stream, so kernels do not overlap), the device's idle
-share of the wall time, kernel launches, and the kernels that took the
-most device time. Decode phases run 16 steps; weights and prompts come
-from seed 0. Needs one CUDA card; exits non-zero without one.
+share of the wall time, kernel launches, the flash forward's device time
+and the kernels that took the most device time; a pooled phase also
+gives its chunks, launches a chunk, the flash forward's share of busy
+time and the decoded tokens a second of wall time. Solo decode phases run
+16 steps, pooled ones 64 tokens a slot; weights and prompts come from
+seed 0. Needs one CUDA card; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ import torch
 
 STEPS = 16
 SEED = 0
+POOL_SLOTS = 8
+POOL_TOKENS = 64
 
 
 def _kernel_table(prof) -> tuple[float, int, float, list]:
@@ -117,7 +123,50 @@ def main() -> int:
         lambda: model.decode_chunk(token, cache, STEPS),
     )
     print(f"decode long cache: {row['wall_ms'] / STEPS:.2f} ms/step wall", flush=True)
+    pooled(runner, rng)
     return 0
+
+
+def pooled(runner, rng) -> None:
+    """Pooled decode with 1, 4 and 8 of 8 slots active, each request
+    decoding POOL_TOKENS tokens; prefill runs before the window."""
+    from gofr_tpu_torch.ops.sampling import Sampler
+    from gofr_tpu_torch.tpu.decode_pool import DONE, DecodePool
+    from gofr_tpu_torch.tpu.device import _row_of
+
+    pool = DecodePool(runner.model, n_slots=POOL_SLOTS, chunk=8)
+    prompts = [rng.integers(0, 256, n).astype(np.int32) for n in
+               (100, 300, 500, 150, 450, 250, 400, 200)]
+
+    def decode(states, tokens):
+        queues = [pool.submit(_row_of(s), s["length"], s["next_token"], tokens, Sampler())
+                  for s in states]
+        n = 0
+        for q in queues:
+            while (item := q.get()) is not DONE:
+                n += len(item)
+        return n
+
+    try:
+        decode([runner.run_batch([p])[0] for p in prompts], 16)  # warm every slot
+        for active in (1, 4, 8):
+            states = [runner.run_batch([p])[0] for p in prompts[:active]]
+            chunks0 = pool.dispatches
+            delivered = []
+            row = _profiled(f"pooled decode, {active} of {POOL_SLOTS} slots active, "
+                            f"{POOL_TOKENS} tokens each",
+                            lambda: delivered.append(decode(states, POOL_TOKENS - 1)))
+            chunks = pool.dispatches - chunks0
+            summary = {
+                "active": active, "chunks": chunks,
+                "launches_per_chunk": row["kernel_launches"] / chunks,
+                "flash_fwd_share": row["flash_fwd_ms"] / row["device_busy_ms"],
+                "tokens": delivered[0], "tokens_per_s": delivered[0] / row["wall_ms"] * 1e3,
+                "wall_ms_per_chunk": row["wall_ms"] / chunks,
+            }
+            print(f"pooled: {json.dumps(summary)}", flush=True)
+    finally:
+        pool.close()
 
 
 if __name__ == "__main__":

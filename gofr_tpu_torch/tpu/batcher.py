@@ -6,8 +6,10 @@ thread takes the first request and drains more until ``max_batch`` or
 ``timeout_ms`` past the FIRST request's arrival; with a ``bucket_fn`` the
 drained batch splits into per-bucket cohorts and the fullest dispatches
 (the rest wait for the next round); dispatches run on a small pool so one
-batch's host work overlaps the next. Metrics, tracing, deadlines and the
-prefill/decode scheduler of the JAX package are not ported yet.
+batch's host work overlaps the next. With a ``scheduler``
+(``tpu/scheduler.py``) each dispatch first waits for its turn between
+pooled decode chunks. Metrics, tracing and deadlines of the JAX package
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -67,11 +69,13 @@ class DynamicBatcher:
         name: str = "default",
         pipeline_depth: int = 2,
         bucket_fn: Optional[Callable[[Any], int]] = None,
+        scheduler: Any = None,
     ):
         self.run_batch = run_batch
         self.max_batch = max_batch
         self.timeout_s = timeout_ms / 1000.0
         self.bucket_fn = bucket_fn
+        self.scheduler = scheduler
         self.dispatches = 0  # batches handed to run_batch
         self._count_lock = threading.Lock()
         self._dispatch_pool = ThreadPoolExecutor(
@@ -162,6 +166,11 @@ class DynamicBatcher:
         with self._count_lock:
             self.dispatches += 1
         try:
+            if self.bucket_fn is not None and self.scheduler is not None:
+                # one batched prefill is one bounded-compute chunk: wait
+                # for its turn between pooled decode chunks
+                bucket = max(self.bucket_fn(item.payload) for item in batch)
+                self.scheduler.admit_prefill(bucket * len(batch))
             results = self.run_batch([item.payload for item in batch])
         except Exception as exc:
             for item in batch:

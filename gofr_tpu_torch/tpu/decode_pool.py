@@ -1,0 +1,492 @@
+"""Continuous batching for decode: a slot-based KV-cache pool with a
+pipelined dispatch loop.
+
+Port of ``gofr_tpu/tpu/decode_pool.py``'s core ``DecodePool``. Prefill is
+batched by the ``DynamicBatcher``; without the pool each generation then
+decodes alone, so N concurrent streams pay N times a step's host cost. The
+pool keeps ONE cache of ``n_slots`` rows and a worker that decodes every
+slot in one fixed-shape chunk (``Transformer.decode_chunk_pool``) per
+dispatch: N streams share one step's launches.
+
+Mechanics:
+- a finished prefill's first ``length`` positions are copied into a free
+  slot row (only those: no kernel reads a row past its ``kv_len``) and its
+  first token into the device-resident token row; nothing else of the row
+  is touched;
+- the last sampled token of every slot stays on the card, fed forward from
+  chunk to chunk, so the worker keeps up to ``pipeline_depth`` chunks in
+  flight; each dispatch snapshots (slot -> request), so a slot freed and
+  reused mid-pipeline never leaks a chunk's tokens to the next request;
+- each chunk's tokens and logprobs start their copy to pinned host memory
+  right after the dispatch, with an event recorded behind the copy
+  (:class:`HostFetch`); the worker waits on that event alone, so the copy
+  is never queued behind a younger chunk. Top-k alternatives are copied
+  only when an active request asked for them;
+- idle slots decode in lockstep (fixed shapes) and are overwritten on reuse;
+  their ``lengths`` run on past ``max_seq``, where positions, the cache
+  write and every attention kernel clamp;
+- requests with a sampling seed bypass the pool (``device.py`` routes them
+  solo: their generator sequence must reproduce).
+
+Stream order stands in for JAX's data dependencies. Every CUDA operation
+the pool makes runs on the device's default stream, where the prefill that
+produces a slot's row (batcher and request threads) ran too, and ONE
+thread, the worker, issues them all: ``submit`` only queues an admission
+(slot, row, length, first token, knobs) under the pool lock, and the worker
+issues its writes before its next dispatch, so they land after every chunk
+dispatched before them and before every chunk after. The same thread
+issues the chunk dispatches, the copies to the host and the finish-time
+row read. A chunk's launches take the host hundreds of milliseconds at
+llama3-8b, so the worker dispatches outside the lock: a submit or a
+delivery never waits for them.
+
+Later slices take the rest of the JAX pool: penalties, LoRA, pooled
+speculation, deadlines, metrics, the dispatch timeline and the watchdog.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from collections import deque
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+DONE = object()  # end-of-stream marker on a slot's token queue
+
+# chunks in flight (DECODE_PIPELINE): the fetch of chunk N overlaps the
+# younger chunks' execution
+PIPELINE_DEPTH = 3
+# how long close() waits for the worker: one chunk's launches take the host
+# well under a second at llama3-8b
+CLOSE_TIMEOUT_S = 60
+
+
+class PoolFailure:
+    """Pushed to every waiter when the worker dies; carries the cause so
+    request threads re-raise instead of silently truncating output."""
+
+    def __init__(self, exc: BaseException):
+        self.exc = exc
+
+
+class HostFetch:
+    """Copies of a dispatch's outputs to the host, started right after the
+    dispatch. On a card: into pinned buffers with ``non_blocking``, and an
+    event recorded right behind the copies; ``wait`` waits on that event
+    alone, so work enqueued after it (the next chunk) does not hold it up.
+    On the CPU the values are already there."""
+
+    def __init__(self, *tensors: torch.Tensor):
+        self._event = None
+        if tensors and tensors[0].device.type == "cuda":
+            self._host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+            for host, t in zip(self._host, tensors):
+                host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = list(tensors)
+
+    def wait(self) -> list[np.ndarray]:
+        if self._event is not None:
+            self._event.synchronize()
+        return [t.numpy() for t in self._host]
+
+
+class _Request:
+    """Host-side bookkeeping for one pooled generation. Lives in dispatch
+    snapshots; a slot's ``request`` moves on to the next request while old
+    snapshots still reference this one (``finished`` gates delivery)."""
+
+    __slots__ = (
+        "out_queue", "remaining", "cache_len", "stop", "stop_tokens", "finished",
+        "want_lp", "want_top", "want_kv", "kv_reserved",
+    )
+
+    def __init__(self, out_queue: "queue.Queue", remaining: int, cache_len: int,
+                 stop: Optional[threading.Event], stop_tokens: frozenset,
+                 want_lp: bool = False, want_top: bool = False, want_kv: bool = False,
+                 kv_reserved: int = 0):
+        self.out_queue: Optional[queue.Queue] = out_queue
+        self.remaining = remaining
+        self.cache_len = cache_len
+        self.stop = stop
+        self.stop_tokens = stop_tokens
+        self.finished = False
+        # bursts become (token, logprob, tops | None) triples; the logprobs
+        # ride every chunk, these flags pick the delivery shape and gate
+        # the top-k copy
+        self.want_lp = want_lp
+        self.want_top = want_top
+        # hand the slot's KV row back at finish (("kv", row) precedes DONE)
+        # for the prefix cache's conversation store
+        self.want_kv = want_kv
+        # paged-KV ledger reservation (blocks), released the moment the
+        # request finishes
+        self.kv_reserved = kv_reserved
+
+
+class _Slot:
+    __slots__ = ("index", "request")
+
+    def __init__(self, index: int):
+        self.index = index
+        self.request: Optional[_Request] = None
+
+
+class DecodePool:
+    """``n_slots`` rows of KV cache decoded together, ``chunk`` steps per
+    dispatch. ``scheduler`` (``tpu/scheduler.py``) is told of every chunk;
+    ``kv`` (a ``BlockPool``) gates admission on its ledger."""
+
+    def __init__(
+        self,
+        model: Any,
+        n_slots: int,
+        chunk: int,
+        pipeline_depth: int = PIPELINE_DEPTH,
+        scheduler: Any = None,
+        kv: Any = None,
+    ):
+        if pipeline_depth < 1:
+            raise ValueError(f"pipeline_depth must be >= 1, got {pipeline_depth}")
+        self.model = model
+        self.cfg = model.cfg
+        self.n_slots = n_slots
+        self.chunk = chunk
+        self.pipeline_depth = pipeline_depth
+        self.max_len = model.cfg.max_seq
+        self._sched = scheduler
+        self._kv = kv
+        dev = model.device
+        self.cache = model.init_cache(n_slots, self.max_len)
+        self._last_tokens = torch.zeros((n_slots, 1), dtype=torch.int32, device=dev)
+        # per-slot sampling knobs: host copies (the all-greedy test and
+        # change detection) and device vectors, written per slot in place
+        self._temps = np.zeros(n_slots, np.float32)
+        self._top_ks = np.zeros(n_slots, np.int32)
+        self._top_ps = np.ones(n_slots, np.float32)
+        self._min_ps = np.zeros(n_slots, np.float32)
+        self._temps_dev = torch.zeros(n_slots, dtype=torch.float32, device=dev)
+        self._top_ks_dev = torch.zeros(n_slots, dtype=torch.int32, device=dev)
+        self._top_ps_dev = torch.ones(n_slots, dtype=torch.float32, device=dev)
+        self._min_ps_dev = torch.zeros(n_slots, dtype=torch.float32, device=dev)
+        # the JAX pool's key split: one device generator the worker owns
+        self._generator = torch.Generator(device=dev)
+        self._generator.manual_seed(int(np.random.SeedSequence().entropy % (1 << 63)))
+        self._slots = [_Slot(i) for i in range(n_slots)]
+        self._free = list(reversed(self._slots))
+        self._active: dict[int, _Slot] = {}
+        self._admissions: list = []  # (slot, row, length, first token, knobs)
+        self._lock = threading.Lock()
+        self._work = threading.Condition(self._lock)
+        self._closed = False
+        self.dispatches = 0  # chunks dispatched
+        self.rejects: dict[str, int] = {}  # submit rejections by reason
+        # one chunk now (kernel build, cuBLAS's first products), then back
+        # to empty slots: the first request must not pay it under the lock
+        with torch.no_grad():
+            HostFetch(self._run_executable()[0]).wait()
+        self.cache["lengths"].zero_()
+        self._last_tokens.zero_()
+        self.dispatches = 0
+        self._thread = threading.Thread(target=self._run, daemon=True, name="gofr-decode-pool")
+        self._thread.start()
+
+    # -- request side --------------------------------------------------------
+    def submit(
+        self,
+        row_cache: dict,
+        start_len: int,
+        first_token: int,
+        max_new: int,
+        sampler: Any,
+        stop: Optional[threading.Event] = None,
+        stop_tokens: frozenset = frozenset(),
+        want_logprobs: bool = False,
+        want_top_logprobs: bool = False,
+        want_kv: bool = False,
+    ) -> "queue.Queue":
+        """Claim a slot for a prefilled request (``row_cache``: its
+        ``[L, 1, S, Hkv, D]`` k/v, valid up to ``start_len``, produced on
+        the default stream); returns the queue its decoded bursts (then
+        DONE) arrive on. Raises queue.Full when no slot or no KV budget is
+        free (the caller decodes solo) and RuntimeError once the pool is
+        closed. The row must stay unchanged until the worker has issued its
+        copy (the next dispatch)."""
+        out: "queue.Queue" = queue.Queue()
+        with self._work:
+            if self._closed:
+                self._reject("closed", count_only=True)
+                raise RuntimeError("decode pool closed")
+            if not self._free:
+                self._reject("no_free_slots", "no free decode slots")
+            kv_reserved = self._reserve_kv(start_len, max_new)
+            slot = self._free.pop()
+            slot.request = _Request(
+                out, max_new, start_len, stop, frozenset(stop_tokens or ()),
+                want_lp=want_logprobs, want_top=want_top_logprobs, want_kv=want_kv,
+                kv_reserved=kv_reserved,
+            )
+            knobs = (sampler.temperature, sampler.top_k, sampler.top_p, sampler.min_p)
+            # the worker issues the slot's writes before its next dispatch
+            self._admissions.append((slot.index, row_cache, start_len, first_token, knobs))
+            self._active[slot.index] = slot
+            self._work.notify()
+        return out
+
+    def _write_slot(self, index: int, row: dict, length: int) -> None:
+        """Copy a row's first ``length`` positions into slot ``index``."""
+        n = int(length)
+        with torch.no_grad():
+            for name in ("k", "v"):
+                self.cache[name][:, index, :n].copy_(row[name][:, 0, :n])
+            self.cache["lengths"][index].fill_(n)
+
+    def _read_slot(self, index: int) -> dict:
+        """A private copy of slot ``index``'s row (the finish-time hand-back
+        to the prefix cache)."""
+        return {
+            "k": self.cache["k"][:, index : index + 1].clone(),
+            "v": self.cache["v"][:, index : index + 1].clone(),
+            "lengths": self.cache["lengths"][index : index + 1].clone(),
+        }
+
+    def _reserve_kv(self, start_len: int, max_new: int) -> int:
+        """Reserve the request's whole KV block budget on the shared ledger
+        (pool lock held): prompt + first token + every step it may take,
+        capped at the cache bound. Exhaustion rejects with ``kv_exhausted``."""
+        if self._kv is None:
+            return 0
+        from gofr_tpu_torch.tpu.kv_blocks import KVExhausted
+
+        try:
+            return self._kv.reserve_ledger(min(start_len + 1 + max_new, self.max_len))
+        except KVExhausted as exc:
+            self._reject("kv_exhausted", f"KV block budget exhausted: {exc}")
+
+    def _admit_pending(self) -> None:
+        """Issue the queued admissions' writes (worker thread, pool lock
+        held): the slot's KV rows and length, its first token and its
+        sampling knobs. Issued by the thread that dispatches, so each lands
+        after every chunk dispatched before it and before the next."""
+        for index, row, length, first_token, knobs in self._admissions:
+            self._write_slot(index, row, length)
+            self._last_tokens[index].fill_(int(first_token))
+            self._set_knobs(index, knobs)
+        self._admissions.clear()
+
+    def _set_knobs(self, index: int, knobs: tuple) -> None:
+        """A slot's sampling knobs, written on the card only where they
+        changed (worker thread)."""
+        pairs = zip((self._temps, self._top_ks, self._top_ps, self._min_ps),
+                    (self._temps_dev, self._top_ks_dev, self._top_ps_dev, self._min_ps_dev),
+                    knobs)
+        for host, dev, value in pairs:
+            if host[index] != value:
+                host[index] = value
+                dev[index].fill_(value)
+
+    def _reject(self, reason: str, msg: str = "", count_only: bool = False) -> None:
+        """Count a submit rejection and raise ``queue.Full`` unless
+        ``count_only``: the device then decodes the request solo."""
+        self.rejects[reason] = self.rejects.get(reason, 0) + 1
+        if not count_only:
+            raise queue.Full(msg)
+
+    # -- worker --------------------------------------------------------------
+    def _run(self) -> None:
+        try:
+            with torch.no_grad():
+                self._loop()
+        except BaseException as exc:  # device errors must not hang waiters
+            with self._work:
+                self._closed = True
+                self._fail_active(exc)
+
+    def _fail_active(self, exc: BaseException) -> None:
+        for slot in self._active.values():
+            req = slot.request
+            if req is not None and not req.finished and req.out_queue is not None:
+                req.out_queue.put(PoolFailure(exc))
+                req.out_queue.put(DONE)
+                req.finished = True
+            if req is not None and req.kv_reserved:
+                # a dead pool must not pin KV budget against the prefix cache
+                self._kv.release_ledger(req.kv_reserved)
+                req.kv_reserved = 0
+            slot.request = None
+        self._active.clear()
+        self._admissions.clear()
+        self._free = list(reversed(self._slots))
+        if self._sched is not None:
+            self._sched.note_decode_idle()  # a dead pool must not gate prefill
+
+    def _loop(self) -> None:
+        in_flight: deque = deque()  # (records, fetch, want_top)
+        while True:
+            with self._work:
+                while not self._active and not in_flight and not self._closed:
+                    self._work.wait()
+                if self._closed:
+                    # closing mid-stream is an ERROR for waiters, never a
+                    # silently truncated "ok"
+                    self._fail_active(RuntimeError("decode pool closed mid-generation"))
+                    return
+                self._admit_pending()
+                records = None
+                if self._active and len(in_flight) < self.pipeline_depth:
+                    records = [(slot.index, slot.request) for slot in self._active.values()]
+            if records is not None:
+                # outside the lock: a chunk's launches take the host far
+                # longer than a submit or a delivery, which must not wait;
+                # the pipeline fills before the oldest chunk is fetched
+                self._dispatch_chunk(in_flight, records)
+            elif in_flight:
+                self._fetch_and_deliver(in_flight)
+
+    def _dispatch_chunk(self, in_flight: deque, records: Optional[list] = None) -> None:
+        """Dispatch ONE pipelined chunk for ``records`` (the active slots
+        by default) and start its copy to the host. Only the worker calls
+        it while the pool serves: it alone issues the pool's CUDA work."""
+        if records is None:
+            records = [(slot.index, slot.request) for slot in self._active.values()]
+        toks, lps, tvals, tids = self._run_executable()
+        want_top = any(req is not None and req.want_top for _, req in records)
+        fetch = HostFetch(toks, lps, *((tvals, tids) if want_top else ()))
+        in_flight.append((records, fetch, want_top))
+        self.dispatches += 1
+        if self._sched is not None:
+            # decode keeps its cadence; prefill takes the gaps between notes
+            self._sched.note_decode_chunk(len(records))
+
+    def _run_executable(self) -> tuple:
+        """ONE chunk over every slot (pool lock held); the feed-forward
+        token and the cache stay on the card."""
+        (toks, lps, tvals, tids, self._last_tokens, self.cache) = self.model.decode_chunk_pool(
+            self._last_tokens, self.cache, self.chunk, self._generator,
+            self._temps_dev, self._top_ks_dev, self._top_ps_dev, self._min_ps_dev,
+            all_greedy=bool((self._temps <= 0.0).all()),
+        )
+        return toks, lps, tvals, tids
+
+    def _fetch_and_deliver(self, in_flight: deque) -> None:
+        """Wait for the OLDEST chunk's copy outside the lock (the card runs
+        the younger chunks meanwhile, and submits can take the lock to join
+        the next dispatch), then deliver its tokens."""
+        records, fetch, want_top = in_flight.popleft()
+        arrays = fetch.wait()
+        tvals, tids = (arrays[2], arrays[3]) if want_top else (None, None)
+        with self._work:
+            self._deliver(records, arrays[0], arrays[1], tvals, tids)
+
+    def _deliver(self, records: list, toks: np.ndarray, lps: np.ndarray,
+                 tvals: Any, tids: Any) -> None:
+        for index, req in records:
+            if req is None or req.finished:
+                continue  # freed mid-pipeline; this chunk's row is garbage
+            self._deliver_one(index, req, toks, lps, tvals, tids)
+        if self._sched is not None and not self._active:
+            self._sched.note_decode_idle()  # release any waiting prefill
+
+    def _deliver_one(self, index: int, req: _Request, toks: np.ndarray, lps: np.ndarray,
+                     tvals: Any, tids: Any) -> None:
+        """One request's share of a fetched chunk (pool lock held): one
+        burst put, bookkeeping, and the finish when it was cancelled, hit a
+        stop token, or ran out of budget or cache."""
+        room = self.max_len - req.cache_len  # valid steps this chunk
+        req.cache_len += self.chunk
+        take = min(self.chunk, req.remaining, max(room, 0))
+        cancelled = req.stop is not None and req.stop.is_set()
+        hit_stop_token = False
+        if not cancelled and req.out_queue is not None:
+            burst, hit_stop_token = self._build_burst(
+                req, index, toks[index], lps[index], tvals, tids, take
+            )
+            if burst:
+                req.out_queue.put(burst)
+        req.remaining -= take
+        if (cancelled or hit_stop_token or req.remaining <= 0
+                or req.cache_len >= self.max_len):
+            self._finish_request(index, req, cancelled)
+
+    def _build_burst(self, req: _Request, index: int, emitted: Any, emitted_lps: Any,
+                     tvals: Any, tids: Any, take: int) -> tuple:
+        """ONE queue put per chunk (a burst list), not one per token.
+        Returns (burst, hit_stop_token); a stop token ends the stream and is
+        not emitted."""
+        burst: list = []
+        for j, t in enumerate(emitted[:take]):
+            if int(t) in req.stop_tokens:
+                return burst, True
+            if req.want_lp:
+                tops = None
+                if req.want_top:
+                    tops = [(int(tids[index, j, m]), float(tvals[index, j, m]))
+                            for m in range(tids.shape[-1])]
+                burst.append((int(t), float(emitted_lps[j]), tops))
+            else:
+                burst.append(int(t))
+        return burst, False
+
+    def _finish_request(self, index: int, req: _Request, cancelled: bool) -> None:
+        """Terminal delivery (pool lock held): the optional KV hand-back,
+        DONE, the ledger release, and (unless the slot was already reused)
+        freeing the slot with its knobs reset."""
+        req.finished = True
+        if (req.want_kv and not cancelled and req.out_queue is not None
+                and self._slots[index].request is req):
+            # issued under the lock: the copy is ordered before any later
+            # dispatch or slot write reuses the row (lockstep decode only
+            # appends past the request's length; the device rolls it back)
+            req.out_queue.put(("kv", self._read_slot(index)))
+        if req.out_queue is not None:
+            req.out_queue.put(DONE)
+        req.out_queue = None
+        req.stop = None
+        if req.kv_reserved:
+            # the budget is back on the ledger before this delivery returns
+            self._kv.release_ledger(req.kv_reserved)
+            req.kv_reserved = 0
+        slot = self._slots[index]
+        if slot.request is req:  # not already reused
+            slot.request = None
+            del self._active[index]
+            self._free.append(slot)
+            self._reset_slot(index)
+
+    def _reset_slot(self, index: int) -> None:
+        """Greedy knobs on a freed slot: a past sampled request must not
+        keep the all-greedy fast path (no sort) off for every later chunk."""
+        self._set_knobs(index, (0.0, 0, 1.0, 0.0))
+
+    def occupancy(self) -> dict:
+        """Point-in-time slot occupancy."""
+        with self._work:
+            return {
+                "slots": self.n_slots,
+                "active": len(self._active),
+                "free": len(self._free),
+                "chunk": self.chunk,
+                "pipeline_depth": self.pipeline_depth,
+                "dispatches": self.dispatches,
+                "closed": self._closed,
+                "rejects": dict(self.rejects),
+                "kv": self._kv.stats() if self._kv is not None else None,
+            }
+
+    def close(self) -> None:
+        """Stop the worker and wait for it: once this returns, the pool
+        issues no more work on the card. Raises if the worker outlives the
+        join (a dispatch wedged on the host)."""
+        with self._work:
+            self._closed = True
+            self._work.notify_all()
+        self._thread.join(timeout=CLOSE_TIMEOUT_S)
+        if self._thread.is_alive():
+            raise RuntimeError(
+                f"decode pool worker still running {CLOSE_TIMEOUT_S}s after close"
+            )

@@ -1,7 +1,7 @@
-"""The inference device: model init, batched bucketed prefill and solo
-chunked decode. The module keeps the JAX package's path
-(``gofr_tpu/tpu/device.py``) so a reader finds the counterpart, though it
-drives a GPU.
+"""The inference device: model init, batched bucketed prefill, chunked
+prefill, the prefix cache, and decode through the continuous-batching pool
+or solo. The module keeps the JAX package's path (``gofr_tpu/tpu/device.py``)
+so a reader finds the counterpart, though it drives a GPU.
 
 Config keys: ``MODEL_NAME`` (tiny | small | llama3-8b | llama3-70b),
 ``MODEL_MAX_SEQ`` (KV cache length per request), ``MODEL_BUCKETS``
@@ -9,20 +9,30 @@ Config keys: ``MODEL_NAME`` (tiny | small | llama3-8b | llama3-70b),
 ``MODEL_SEED`` (random weight init seed), ``BATCH_MAX_SIZE`` /
 ``BATCH_TIMEOUT_MS`` (prefill batcher), ``DECODE_CHUNK`` (decode steps
 per host fetch), ``TOKENIZER=byte`` and ``TORCH_DEVICE`` (``cuda`` by
-default; ``cpu`` runs the plain versions of the kernels).
+default; ``cpu`` runs the plain versions of the kernels); and the JAX
+package's serving defaults (``serving_options``): ``DECODE_POOL`` (on),
+``DECODE_SLOTS`` (= ``BATCH_MAX_SIZE``), ``DECODE_PIPELINE`` (3),
+``KV_PAGED`` (on), ``KV_BLOCK_TOKENS`` (64), ``KV_BLOCKS`` (0 = auto),
+``PREFIX_CACHE`` (0), ``PREFIX_LCP_MIN`` (0 = smallest bucket, -1 = exact
+only), ``PREFILL_CHUNK_TOKENS`` (0 = off), ``SCHED_POLICY`` (fair) and
+``SCHED_MAX_DEFER_MS`` (1000).
 
-Served configuration: bf16 (or the config's dtype) dense weights, no
-continuous-batching decode pool, no paged KV, no prefix cache, no draft
-model, no LoRA: each request prefills through the dynamic batcher and then
-decodes solo in chunks of ``DECODE_CHUNK`` steps.
+A request goes: prefix lookup (exact hit, or the longest common prefix
+with a tail prefill), else chunked prefill (prompts longer than the largest
+bucket or over ``PREFILL_CHUNK_TOKENS``) or the dynamic batcher; then the
+prefix store; then a decode-pool slot, or solo chunked decode when the
+pool is off, full or closed, or the request carries a seed. Served
+weights: bf16 (or the config's dtype) dense; no draft model, no LoRA, no
+penalties.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import queue
 import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from typing import Any, Optional
 
 import numpy as np
@@ -34,6 +44,23 @@ from gofr_tpu_torch.models.transformer import Transformer
 from gofr_tpu_torch.ops.sampling import Sampler
 from gofr_tpu_torch.tokenizer import load_tokenizer
 from gofr_tpu_torch.tpu.batcher import DynamicBatcher, next_pow2, pack_token_rows
+from gofr_tpu_torch.tpu.decode_pool import (
+    DONE,
+    PIPELINE_DEPTH,
+    DecodePool,
+    HostFetch,
+    PoolFailure,
+)
+from gofr_tpu_torch.tpu.kv_blocks import (
+    BlockPool,
+    BlockTable,
+    KVExhausted,
+    TorchKVArena,
+    blocks_for,
+    lcp_scan,
+    to_device,
+)
+from gofr_tpu_torch.tpu.scheduler import POLICIES, InterferenceScheduler
 
 
 def resolve_device(name: str) -> torch.device:
@@ -44,6 +71,43 @@ def resolve_device(name: str) -> torch.device:
     if name == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("TORCH_DEVICE=cuda but no CUDA device is visible")
     return torch.device(name)
+
+
+def serving_options(config: Any, max_batch: int) -> dict:
+    """The pool, paged-KV, prefix-cache, chunked-prefill and scheduler keys
+    with the JAX package's defaults and validation errors
+    (``gofr_tpu/tpu/device.py::_parse_serving_config``)."""
+    opts: dict = {}
+    opts["prefix_cache"] = int(config.get_or_default("PREFIX_CACHE", "0"))
+    if opts["prefix_cache"] < 0:
+        raise ValueError("PREFIX_CACHE must be >= 0")
+    opts["prefix_lcp_min"] = int(config.get_or_default("PREFIX_LCP_MIN", "0"))
+    if opts["prefix_lcp_min"] < -1:
+        raise ValueError("PREFIX_LCP_MIN must be >= -1")
+    opts["prefill_chunk_tokens"] = int(config.get_or_default("PREFILL_CHUNK_TOKENS", "0"))
+    if opts["prefill_chunk_tokens"] < 0:
+        raise ValueError("PREFILL_CHUNK_TOKENS must be >= 0 (0 = off)")
+    opts["sched_policy"] = config.get_or_default("SCHED_POLICY", "fair").strip().lower()
+    if opts["sched_policy"] not in POLICIES:
+        raise ValueError(
+            f"SCHED_POLICY '{opts['sched_policy']}' not supported — use one of {POLICIES}"
+        )
+    opts["sched_max_defer_ms"] = float(config.get_or_default("SCHED_MAX_DEFER_MS", "1000"))
+    if opts["sched_max_defer_ms"] <= 0:
+        raise ValueError("SCHED_MAX_DEFER_MS must be > 0")
+    opts["kv_paged"] = config.get_or_default("KV_PAGED", "on") != "off"
+    opts["kv_block_tokens"] = int(config.get_or_default("KV_BLOCK_TOKENS", "64"))
+    if opts["kv_block_tokens"] < 1:
+        raise ValueError("KV_BLOCK_TOKENS must be >= 1")
+    opts["kv_blocks"] = int(config.get_or_default("KV_BLOCKS", "0"))
+    if opts["kv_blocks"] < 0:
+        raise ValueError("KV_BLOCKS must be >= 0 (0 = auto-size)")
+    opts["pool_enabled"] = config.get_or_default("DECODE_POOL", "on") != "off"
+    opts["pool_slots"] = int(config.get_or_default("DECODE_SLOTS", str(max_batch)))
+    opts["pool_depth"] = int(config.get_or_default("DECODE_PIPELINE", str(PIPELINE_DEPTH)))
+    if opts["pool_depth"] < 1:
+        raise ValueError("DECODE_PIPELINE must be >= 1")
+    return opts
 
 
 class TPUDevice:
@@ -67,6 +131,8 @@ class TPUDevice:
         )
         if buckets and buckets[0] <= 0:
             raise ValueError(f"MODEL_BUCKETS entries must be positive, got {raw_buckets!r}")
+        self.options = serving_options(config, self.max_batch)
+        opts = self.options
         self.tokenizer = load_tokenizer(config)
         # the tokenizer's EOS always ends generation (the JAX package's
         # default stop); request stops compose with it
@@ -77,6 +143,12 @@ class TPUDevice:
             # bf16 products accumulate in f32 (models/quant.py::mm)
             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         start = time.perf_counter()
+        # ONE scheduler shared by both dispatchers: the pool notes its chunk
+        # cadence, prefill dispatches (batcher cohorts and chunked slices)
+        # wait for their turn
+        self.scheduler = InterferenceScheduler(
+            policy=opts["sched_policy"], max_defer_ms=opts["sched_max_defer_ms"]
+        )
         self.runner = _TransformerRunner(
             self.model_name,
             self.device,
@@ -86,7 +158,28 @@ class TPUDevice:
             buckets=buckets,
             seed=int(config.get_or_default("MODEL_SEED", "0")),
             model=model,
+            prefix_cache=opts["prefix_cache"],
+            prefix_lcp_min=opts["prefix_lcp_min"],
+            prefill_chunk_tokens=opts["prefill_chunk_tokens"],
+            kv_paged=opts["kv_paged"],
+            kv_block_tokens=opts["kv_block_tokens"],
+            kv_blocks=opts["kv_blocks"],
+            kv_reserve_seqs=opts["pool_slots"],
         )
+        if self.runner.kv_paged_disabled:
+            logger.warnf("paged KV disabled: %s", self.runner.kv_paged_disabled)
+        self.kv_pool = self.runner.kv_pool
+        # continuous batching: concurrent decodes share one dispatch per
+        # chunk; seeded requests bypass it (generate routes them solo). The
+        # pool's admission reserves each request's KV blocks on the SAME
+        # BlockPool the prefix cache stores into
+        self.decode_pool: Optional[DecodePool] = None
+        if opts["pool_enabled"]:
+            self.decode_pool = DecodePool(
+                self.runner.model, n_slots=opts["pool_slots"],
+                chunk=self.runner.decode_chunk_size, pipeline_depth=opts["pool_depth"],
+                scheduler=self.scheduler, kv=self.kv_pool,
+            )
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)  # boot time includes the init
         self.batcher = DynamicBatcher(
@@ -95,6 +188,7 @@ class TPUDevice:
             timeout_ms=self.timeout_ms,
             name=self.model_name,
             bucket_fn=self.runner.bucket_for_payload,
+            scheduler=self.scheduler,
         )
         self.boot_seconds = time.perf_counter() - start
         self._closed = False
@@ -105,9 +199,13 @@ class TPUDevice:
             torch.cuda.get_device_name(self.device)
             if self.device.type == "cuda" else "cpu"
         )
+        pool = self.decode_pool
         return (
             f"model={self.model_name} device={kind} max_seq={self.runner.cfg.max_seq} "
-            f"buckets={self.runner.buckets} boot={self.boot_seconds:.1f}s"
+            f"buckets={self.runner.buckets} decode_pool="
+            f"{f'{pool.n_slots} slots' if pool else 'off'} "
+            f"kv_paged={'off' if self.kv_pool is None else 'on'} "
+            f"prefix_cache={self.options['prefix_cache']} boot={self.boot_seconds:.1f}s"
         )
 
     def wait_ready(self, timeout: Optional[float] = None) -> None:
@@ -140,17 +238,18 @@ class TPUDevice:
         sampler: Optional[Sampler] = None,
         stop_tokens: Optional[Any] = None,
     ) -> list[int]:
-        """Autoregressive generation: prefill through the dynamic batcher,
-        then solo chunked decode. ``on_token`` receives each id as it
-        decodes; ``stop`` (a threading.Event) aborts between chunks;
-        ``tokens`` may be a str when a tokenizer is configured; ``sampler``
-        sets temperature/top-k/top-p (default greedy); ``stop_tokens`` end
-        generation without being emitted."""
+        """Autoregressive generation (see the module docstring for the
+        route). ``on_token`` receives each id as it decodes; ``stop`` (a
+        threading.Event) aborts between chunks; ``tokens`` may be a str when
+        a tokenizer is configured; ``sampler`` sets temperature/top-k/top-p
+        (default greedy); ``stop_tokens`` end generation without being
+        emitted. Returns the ids."""
         self.wait_ready()
         stop_tokens = frozenset(stop_tokens or ()) | self.default_stop_ids
         return self.runner.generate(
             self._encode(tokens), max_new_tokens, on_token=on_token, stop=stop,
-            sampler=sampler, stop_tokens=stop_tokens, prefill_batcher=self.batcher,
+            sampler=sampler, stop_tokens=stop_tokens, decode_pool=self.decode_pool,
+            prefill_batcher=self.batcher, scheduler=self.scheduler,
         )
 
     def generate_stream(
@@ -163,9 +262,7 @@ class TPUDevice:
     ) -> Any:
         """Iterator of token ids as they decode (the SSE bridge). Closing it,
         or setting ``cancel``, stops the background decode within a chunk."""
-        import queue as queue_mod
-
-        out: "queue_mod.Queue" = queue_mod.Queue()
+        out: "queue.Queue" = queue.Queue()
         done = object()
         failure: list[BaseException] = []
         stop = cancel if cancel is not None else threading.Event()
@@ -197,20 +294,33 @@ class TPUDevice:
         return iterate()
 
     def close(self) -> None:
+        """Stop the pool (its worker joined; a stream still decoding gets
+        an error, never a truncated result) and the batcher."""
         self._closed = True
-        self.batcher.close()
+        try:
+            if self.decode_pool is not None:
+                self.decode_pool.close()
+        finally:
+            self.batcher.close()
 
 
 class _PrefillState(dict):
-    """Per-request prefill result. ``cache`` (this row's copy of the batch
-    cache) and ``logits`` materialize on first read, which drops the
-    reference to the whole padded batch."""
+    """Per-request prefill result. ``cache`` (this row's private copy of
+    the batch cache) and ``logits`` materialize on first read; ``row()``
+    gives views of the row without a copy (the pool slot and the prefix
+    store copy what they need from it)."""
 
     def __init__(self, full_cache: dict, full_logits: torch.Tensor, index: int, **kw: Any):
         super().__init__(**kw)
         self._full_cache = full_cache
         self._full_logits = full_logits
         self._index = index
+
+    def row(self) -> dict:
+        if dict.__contains__(self, "cache"):
+            return dict.__getitem__(self, "cache")
+        i, full = self._index, self._full_cache
+        return {name: full[name][:, i : i + 1] for name in ("k", "v")}
 
     def __getitem__(self, key: str) -> Any:
         if not dict.__contains__(self, key):
@@ -229,9 +339,37 @@ class _PrefillState(dict):
         return dict.__getitem__(self, key)
 
 
+def _row_of(state: Any) -> dict:
+    """The KV row of a prefill state, without a copy where there is one to
+    skip (a batched prefill's row of the batch cache)."""
+    return state.row() if isinstance(state, _PrefillState) else state["cache"]
+
+
+def _copy_row(row: dict) -> dict:
+    return {name: t.clone() for name, t in row.items()}
+
+
+def _cache_with_len(cache: dict, n: int) -> dict:
+    """The cache with its write head set to ``n`` (the KV past ``n`` is
+    masked by attention and overwritten by later steps)."""
+    lengths = torch.full_like(cache["lengths"], int(n))
+    return {"k": cache["k"], "v": cache["v"], "lengths": lengths}
+
+
+def _prompt_chunks(ids: np.ndarray, bucket: int):
+    """Slice a prompt into [1, bucket] zero-padded token rows with their
+    true lengths: the one chunking of chunked prefill and tail prefill."""
+    for start in range(0, max(int(ids.size), 1), bucket):
+        chunk = ids[start : start + bucket]
+        tokens = np.zeros((1, bucket), np.int32)
+        tokens[0, : chunk.size] = chunk
+        yield tokens, np.asarray([max(int(chunk.size), 1)], np.int32), int(chunk.size)
+
+
 class _TransformerRunner:
-    """Decoder serving: batched bucketed prefill + per-request chunked
-    decode, on one device."""
+    """Decoder serving on one device: batched bucketed prefill, chunked
+    prefill, the prefix cache, and solo chunked decode (the pool decodes
+    the rest)."""
 
     # the ladder reaches the model's full context; MODEL_BUCKETS restricts it
     SEQ_BUCKETS = (64, 128, 256, 512, 1024, 2048, 4096, 8192)
@@ -246,6 +384,13 @@ class _TransformerRunner:
         buckets: Optional[tuple[int, ...]] = None,
         seed: int = 0,
         model: Optional[Transformer] = None,
+        prefix_cache: int = 0,
+        prefix_lcp_min: int = 0,
+        prefill_chunk_tokens: int = 0,
+        kv_paged: bool = True,
+        kv_block_tokens: int = 64,
+        kv_blocks: int = 0,
+        kv_reserve_seqs: int = 0,
     ):
         cfg = CONFIGS[name]
         if max_seq is not None and max_seq < cfg.max_seq:
@@ -257,11 +402,75 @@ class _TransformerRunner:
         self.decode_chunk_size = decode_chunk
         if model is None:
             model = Transformer.random(cfg, device, seed)
-        elif model.cfg != cfg or model.device != device:
+        elif model.cfg != cfg or model.device.type != device.type:
             raise ValueError("the given model does not match MODEL_NAME/MODEL_MAX_SEQ/device")
         self.model = model
         source = buckets if buckets else self.SEQ_BUCKETS
         self.buckets = [b for b in source if b <= cfg.max_seq] or [cfg.max_seq]
+        # PREFILL_CHUNK_TOKENS resolves to the largest bucket inside the
+        # budget (the smallest bucket when none fits: one bucket's compute
+        # is the floor)
+        self.prefill_chunk_bucket: Optional[int] = None
+        if prefill_chunk_tokens:
+            fitting = [b for b in self.buckets if b <= prefill_chunk_tokens]
+            self.prefill_chunk_bucket = fitting[-1] if fitting else self.buckets[0]
+        self.prefills = 0  # prefill forward calls (batches, slices, tails)
+        self._count_lock = threading.Lock()
+        # the row prefix cache: prompt bytes -> (row, length, next_token,
+        # logits); the paged store replaces it under KV_PAGED
+        self._prefix_cache: Any = OrderedDict() if prefix_cache > 0 else None
+        self._prefix_cache_size = prefix_cache
+        # -1: exact hits only; 0: one smallest bucket's worth of tokens
+        self._prefix_lcp_min = prefix_lcp_min if prefix_lcp_min != 0 else self.buckets[0]
+        self._prefix_lock = threading.Lock()
+        self.prefix_stats = {"hits": 0, "partial_hits": 0, "misses": 0}
+        self._init_paged_kv(kv_paged, kv_block_tokens, kv_blocks, kv_reserve_seqs, prefix_cache)
+
+    def _init_paged_kv(self, kv_paged: bool, block_tokens: int, kv_blocks: int,
+                       reserve_seqs: int, prefix_cache: int) -> None:
+        """One shared ``BlockPool`` backs the prefix cache (block-aliased
+        entries, LRU-evicted under the budget) and the decode pool's
+        admission ledger. With neither a prefix cache nor an explicit
+        budget there is nothing to page."""
+        self.kv_pool: Optional[BlockPool] = None
+        self._paged_prefix: Optional[_PagedPrefixStore] = None
+        self.kv_paged_disabled = ""
+        if not kv_paged or not (prefix_cache > 0 or kv_blocks):
+            return
+        cfg = self.cfg
+        if cfg.max_seq % block_tokens:
+            self.kv_paged_disabled = (
+                f"KV_BLOCK_TOKENS={block_tokens} does not divide max_seq={cfg.max_seq}"
+            )
+            return
+        blocks_per_seq = cfg.max_seq // block_tokens
+        itemsize = torch.empty((), dtype=cfg.cache_dtype).element_size()
+        block_bytes = 2 * cfg.n_layers * block_tokens * cfg.n_kv_heads * cfg.head_dim * itemsize
+        # the arena backs the prefix cache's blocks (+1 sequence for the
+        # store's transient table); in-flight decode KV lives in the pool's
+        # slot cache and claims the LEDGER only
+        data_blocks = (max(prefix_cache, 0) + 1) * blocks_per_seq
+        # auto: every decode slot plus the whole arena (non-binding)
+        ledger = kv_blocks if kv_blocks else data_blocks + reserve_seqs * blocks_per_seq
+        if ledger < blocks_per_seq:
+            self.kv_paged_disabled = (
+                f"KV budget of {ledger} blocks cannot hold one "
+                f"{cfg.max_seq}-token sequence ({blocks_per_seq} blocks)"
+            )
+            return
+        data_blocks = min(data_blocks, ledger)
+        self.kv_pool = BlockPool(
+            data_blocks + 1, block_tokens,  # +1 scratch
+            block_bytes=block_bytes, hbm_budget_bytes=ledger * block_bytes,
+            cache_entries=prefix_cache, scratch=True, ledger_blocks=ledger,
+        )
+        if prefix_cache > 0:
+            # the arena exists only for the prefix cache's blocks; a
+            # ledger-only pool (PREFIX_CACHE=0, KV_BLOCKS set) holds none
+            arena = TorchKVArena(cfg, data_blocks + 1, block_tokens, device=self.device)
+            self._paged_prefix = _PagedPrefixStore(self.kv_pool, arena, self._prefix_lcp_min)
+            self.prefix_stats = self._paged_prefix.stats
+            self._prefix_cache = self._paged_prefix
 
     def _bucket_for(self, length: int) -> int:
         for b in self.buckets:
@@ -283,23 +492,29 @@ class _TransformerRunner:
             )
         return ids.astype(np.int32)[-self.cfg.max_seq:]
 
+    def _prefill(self, tokens: np.ndarray, cache: dict, lengths: np.ndarray) -> tuple:
+        """One prefill forward: host token rows [B, S] and true lengths [B]
+        into ``cache`` (in place) -> (logits [B, V], the cache)."""
+        with self._count_lock:
+            self.prefills += 1
+        return self.model.prefill(
+            to_device(tokens, self.device), cache, to_device(lengths, self.device)
+        )
+
     @torch.no_grad()
     def run_batch(self, payloads: list[np.ndarray]) -> list[_PrefillState]:
         """Batched prefill over one bucket -> per-request states. The batch
         dim pads to a power of two >= max_batch; prompts longer than the
-        largest bucket keep their LAST tokens. Each batch gets a fresh zero
-        cache (the model writes it in place)."""
+        largest bucket keep their LAST tokens (``generate`` routes those to
+        chunked prefill; this clip serves direct batch callers). Each batch
+        gets a fresh zero cache (the model writes it in place)."""
         n = len(payloads)
         bucket = self._bucket_for(max(int(p.size) for p in payloads))
         bsz = next_pow2(max(n, self.max_batch))
         tokens, lengths = pack_token_rows(payloads, bsz, bucket)
         full_lengths = np.maximum(lengths, 1)  # padded rows need length >= 1
         cache = self.model.init_cache(bsz, self.cfg.max_seq)
-        logits, cache = self.model.prefill(
-            torch.from_numpy(tokens).to(self.device),
-            cache,
-            torch.from_numpy(full_lengths).to(self.device),
-        )
+        logits, cache = self._prefill(tokens, cache, full_lengths)
         next_ids = torch.argmax(logits, dim=-1).tolist()  # the batch's one sync
         return [
             _PrefillState(
@@ -316,21 +531,36 @@ class _TransformerRunner:
         stop: Any = None,
         sampler: Optional[Sampler] = None,
         stop_tokens: Any = None,
+        decode_pool: Optional[DecodePool] = None,
         prefill_batcher: Optional[DynamicBatcher] = None,
+        scheduler: Any = None,
     ) -> list[int]:
         sampler = sampler or Sampler()
         stop_tokens = frozenset(stop_tokens or ())
         ids = self.prepare(tokens)
         state = (
-            prefill_batcher.infer(ids) if prefill_batcher is not None
-            else self.run_batch([ids])[0]
+            self._prefix_lookup(ids, need_logits=not sampler.greedy)
+            if self._prefix_cache is not None else None
         )
+        if state is None:
+            chunk_b = self.prefill_chunk_bucket
+            if ids.size > self.buckets[-1] or (chunk_b is not None and ids.size > chunk_b):
+                # longer than the largest bucket (sliced through it, not
+                # clipped) or past the PREFILL_CHUNK_TOKENS budget
+                width = self.buckets[-1] if chunk_b is None else min(self.buckets[-1], chunk_b)
+                state = self._chunked_prefill(ids, bucket=width, scheduler=scheduler)
+            elif prefill_batcher is not None:
+                state = prefill_batcher.infer(ids)
+            else:
+                state = self.run_batch([ids])[0]
+            if self._prefix_cache is not None:
+                self._prefix_store(ids, state)
+        out: list[int] = []
         if sampler.greedy:
             token = state["next_token"]
         else:
             with torch.no_grad():
                 token = sampler.pick(state["logits"])
-        out: list[int] = []
         if token in stop_tokens:
             return out
         out.append(token)
@@ -338,31 +568,76 @@ class _TransformerRunner:
             on_token(token)
         if max_new_tokens <= 1:
             return out
+        # seed the prefix cache with the finish-time conversation KV: a
+        # follow-up turn then reuses the whole conversation
+        seed_kv = self._prefix_cache is not None
+        if decode_pool is not None and not sampler.seeded:
+            try:
+                slot_q = decode_pool.submit(
+                    _row_of(state), state["length"], token, max_new_tokens - 1, sampler, stop,
+                    stop_tokens=stop_tokens, want_kv=seed_kv,
+                )
+            except (queue.Full, RuntimeError):
+                slot_q = None  # pool saturated/closed -> solo decode below
+            if slot_q is not None:
+                state = None  # release the batch's prefill buffers
+                kv_row = self._consume_pool(slot_q, out, on_token, stop)
+                if kv_row is not None:
+                    self._prefix_store_generation(ids, out, kv_row, sampler)
+                return out
         cache, cache_len = state["cache"], state["length"]
         state = None  # release the batch's prefill buffers
-        self._solo_decode(
-            cache, cache_len, token, out, max_new_tokens, sampler, stop, stop_tokens, on_token
+        cache = self._solo_decode(
+            cache, cache_len, token, out, max_new_tokens, sampler, stop, stop_tokens, on_token,
         )
+        if seed_kv:
+            self._prefix_store_generation(ids, out, cache, sampler)
         return out
+
+    def _consume_pool(self, slot_q: Any, out: list, on_token: Any,
+                      stop: Any) -> Optional[dict]:
+        """Drain a pool slot's queue into ``out``, re-raising a worker
+        failure and honoring cancellation (emission stops at once; the pool
+        frees the slot at its next delivery). Returns the finish-time KV
+        row when one was asked for, else None."""
+        kv_row = None
+        while True:
+            item = slot_q.get()
+            if item is DONE:
+                return kv_row
+            if isinstance(item, PoolFailure):
+                raise item.exc
+            if isinstance(item, tuple) and item and item[0] == "kv":
+                kv_row = item[1]
+                continue
+            for t in item:  # one burst list per decoded chunk
+                out.append(t)
+                if on_token:
+                    on_token(t)
+                if stop is not None and stop.is_set():
+                    return None  # cancelled: the row may still be mid-write
 
     @torch.no_grad()
     def _solo_decode(
         self, cache: dict, cache_len: int, token: int, out: list, max_new_tokens: int,
         sampler: Sampler, stop: Any, stop_tokens: frozenset, on_token: Any,
-    ) -> None:
+    ) -> dict:
         """Chunked decode: ``decode_chunk_size`` steps per dispatch with
-        on-device sampling and one [1, N] fetch per chunk. Pipelined: chunk
-        N+1 is enqueued before chunk N's ids are fetched (its input token
-        stays on the device), so the fetch overlaps the next chunk's work;
-        stop conditions lag by at most one chunk, whose ids are dropped.
-        Every dispatch runs the full chunk unless the cache end forces a
-        short one; surplus ids past max_new_tokens are discarded."""
+        on-device sampling. Pipelined: each chunk's ids start their copy to
+        pinned host memory right after its dispatch (``HostFetch``), then
+        chunk N+1 is enqueued (its input token stays on the card), then
+        chunk N's copy is waited for: the wait covers chunk N and its copy,
+        not chunk N+1, which runs meanwhile. Stop conditions lag by at most
+        one chunk, whose ids are dropped. Every dispatch runs the full chunk
+        unless the cache end forces a short one. Returns the final cache
+        (every dispatched chunk's writes landed)."""
         max_len = int(cache["k"].shape[2])
         greedy = sampler.greedy
         gen = None if greedy else sampler.generator(self.device)
         temp = 0.0 if greedy else sampler.temperature
+        knobs = (temp, sampler.top_k, sampler.top_p, sampler.min_p)
         pending: deque = deque()
-        token_dev = torch.tensor([[token]], dtype=torch.int64, device=self.device)
+        token_dev = to_device(np.asarray([[token]], np.int32), self.device)
         in_flight = 0
         stopped = False
         while not stopped:
@@ -373,19 +648,17 @@ class _TransformerRunner:
                 and cache_len + in_flight < max_len
             ):
                 n = min(self.decode_chunk_size, max_len - cache_len - in_flight)
-                toks_dev, cache = self.model.decode_chunk(
-                    token_dev, cache, n, gen, temp, sampler.top_k, sampler.top_p, sampler.min_p
-                )
-                token_dev = toks_dev[:, -1:].long()
-                pending.append((toks_dev, n))
+                toks_dev, cache = self.model.decode_chunk(token_dev, cache, n, gen, *knobs)
+                token_dev = toks_dev[:, -1:]
+                pending.append((HostFetch(toks_dev), n))
                 in_flight += n
             if not pending:
                 break
-            toks_dev, n = pending.popleft()
-            chunk = toks_dev[0].tolist()
+            fetch, n = pending.popleft()
+            toks = fetch.wait()[0]
             in_flight -= n
             cache_len += n
-            for t in chunk[: min(n, max_new_tokens - len(out))]:
+            for t in toks[0, : min(n, max_new_tokens - len(out))].tolist():
                 if t in stop_tokens:
                     stopped = True
                     break
@@ -397,3 +670,259 @@ class _TransformerRunner:
                     break
             if len(out) >= max_new_tokens:
                 stopped = True
+        return cache
+
+    @torch.no_grad()
+    def _chunked_prefill(self, ids: np.ndarray, bucket: Optional[int] = None,
+                         scheduler: Any = None) -> dict:
+        """Prefill a prompt longer than the largest bucket (or the
+        PREFILL_CHUNK_TOKENS budget) in [1, bucket] slices, each written
+        into the same fresh [1]-row cache at its offset (the model's
+        chunk-resume contract). ``scheduler`` interleaves each slice with
+        pooled decode turns. One host sync at the end (the last slice's
+        argmax)."""
+        bucket = bucket or self.buckets[-1]
+        cache = self.model.init_cache(1, self.cfg.max_seq)
+        logits = None
+        total = 0
+        for tokens, lengths, size in _prompt_chunks(ids, bucket):
+            if scheduler is not None:
+                scheduler.admit_prefill(bucket)
+            logits, cache = self._prefill(tokens, cache, lengths)
+            total += size
+        return {
+            "cache": cache,
+            "length": total,
+            "next_token": int(torch.argmax(logits[0])),
+            "logits": logits[0],
+        }
+
+    # -- the prefix cache ----------------------------------------------------
+    def _prefix_lookup(self, ids: np.ndarray, need_logits: bool = False) -> Optional[dict]:
+        """Prompt lookup -> a private state or None. An exact match skips
+        prefill; otherwise the entry sharing the longest common token
+        prefix (of at least ``_prefix_lcp_min``) seeds a tail-only prefill.
+        ``need_logits``: the caller samples or scores from the final
+        logits, which stored GENERATION entries lack, so those divert to
+        the tail prefill instead of hitting exactly."""
+        if self._paged_prefix is not None:
+            return self._paged_lookup(ids, need_logits)
+        key = ids.tobytes()
+        with self._prefix_lock:
+            entry = self._prefix_cache.get(key)
+            if entry is not None and ((entry[3] is None and need_logits) or entry[2] is None):
+                entry = None
+            if entry is not None:
+                self._prefix_cache.move_to_end(key)
+                self.prefix_stats["hits"] += 1
+            else:
+                shared, row = self._lcp_scan(ids) if self._prefix_lcp_min >= 0 else (0, None)
+                if row is None:
+                    self.prefix_stats["misses"] += 1
+                    return None
+                self.prefix_stats["partial_hits"] += 1
+        if entry is not None:  # device work outside the lock
+            row, length, next_token, logits = entry
+            return {"cache": _copy_row(row), "length": length, "next_token": next_token,
+                    "logits": logits}
+        return self._tail_prefill(ids, _cache_with_len(_copy_row(row), shared), shared)
+
+    def _paged_lookup(self, ids: np.ndarray, need_logits: bool) -> Optional[dict]:
+        """Block-table lookup: exact hits gather the entry's blocks into a
+        fresh row; LCP hits gather the shared prefix and prefill the tail."""
+        hit = self._paged_prefix.lookup(ids, need_logits)
+        if hit is None:
+            return None
+        kind, payload, shared = hit
+        if kind == "hit":
+            return payload
+        return self._tail_prefill(ids, payload, shared)
+
+    def _lcp_scan(self, ids: np.ndarray) -> tuple:
+        """Under ``_prefix_lock``: the row-store entry with the longest
+        common token prefix, capped at ``ids.size - 1`` so the tail keeps
+        at least one token (the logits come from prefilling it)."""
+        shared, key, entry = lcp_scan(
+            list(self._prefix_cache.items()), ids, int(ids.size) - 1, self._prefix_lcp_min
+        )
+        if entry is None:
+            return 0, None
+        self._prefix_cache.move_to_end(key)
+        return shared, entry[0]
+
+    @torch.no_grad()
+    def _tail_prefill(self, ids: np.ndarray, cache: dict, shared: int) -> dict:
+        """Resume prefill from a shared-prefix cache: ``cache`` is a private
+        [1]-row cache whose write head sits at ``shared``; only the tail
+        runs, through its bucket at that offset. The full prompt's state is
+        stored for later exact hits."""
+        tail = ids[shared:]
+        bucket = self._bucket_for(int(tail.size))
+        logits = None
+        total = shared
+        for tokens, lengths, size in _prompt_chunks(tail, bucket):
+            logits, cache = self._prefill(tokens, cache, lengths)
+            total += size
+        state = {
+            "cache": cache,
+            "length": total,
+            "next_token": int(torch.argmax(logits[0])),
+            "logits": logits[0],
+        }
+        self._prefix_store(ids, state)
+        return state
+
+    def _prefix_store_generation(self, ids: np.ndarray, out: list, row: dict,
+                                 sampler: Sampler) -> None:
+        """Seed the prefix cache with the whole conversation (prompt +
+        reply) so a follow-up turn hits everything already computed. The
+        entry covers prompt + out[:-1] (the last token's KV may not be
+        written) with out[-1] as its next token, but only when out[-1] is
+        the greedy continuation; otherwise exact hits divert to the tail
+        prefill. ``row`` must be private (the pool's hand-back copy or the
+        solo final cache)."""
+        if len(out) < 2 or self._prefix_cache is None:
+            return
+        full = np.concatenate([ids, np.asarray(out[:-1], np.int32)])
+        if full.size > self.cfg.max_seq:
+            return
+        exactable = sampler.greedy
+        if self._paged_prefix is not None:
+            self._paged_prefix.store_generation(full, row, exactable, out)
+            return
+        entry = (_cache_with_len(row, full.size), int(full.size),
+                 int(out[-1]) if exactable else None, None)
+        with self._prefix_lock:
+            self._prefix_cache[full.tobytes()] = entry
+            while len(self._prefix_cache) > self._prefix_cache_size:
+                self._prefix_cache.popitem(last=False)
+
+    def _prefix_store(self, ids: np.ndarray, state: Any) -> None:
+        """Store this prompt's prefill result; the row store keeps a copied
+        row (the live one continues into decode) and evicts LRU beyond its
+        size; the paged store scatters only the prompt's blocks."""
+        if self._paged_prefix is not None:
+            self._paged_prefix.store(ids, state)
+            return
+        row = _row_of(state)
+        lengths = torch.full((1,), int(state["length"]), dtype=torch.int32, device=self.device)
+        entry = (
+            _copy_row({"k": row["k"], "v": row["v"], "lengths": lengths}),
+            state["length"], state["next_token"], state["logits"],
+        )
+        with self._prefix_lock:
+            self._prefix_cache[ids.tobytes()] = entry
+            while len(self._prefix_cache) > self._prefix_cache_size:
+                self._prefix_cache.popitem(last=False)
+
+
+class _PagedPrefixStore:
+    """Block-table prefix cache (KV_PAGED): entries are refcounted block
+    tables in a shared ``BlockPool`` arena. A stored conversation aliases
+    the whole blocks of the prefix entry it extends, and the LRU yields
+    blocks to decode-pool admission. Lookups hand the model the contiguous
+    row it computes on (``TorchKVArena.gather_row``). Entry meta:
+    ``length``, ``next_token`` (None: divert to the tail prefill),
+    ``logits`` (None for generation entries). ``_lock`` serializes arena
+    copies; the pool's own lock nests inside it."""
+
+    def __init__(self, pool: BlockPool, arena: TorchKVArena, lcp_min: int):
+        self.pool = pool
+        self.arena = arena
+        self.lcp_min = lcp_min  # resolved by the runner; -1 = exact only
+        self.stats = {"hits": 0, "partial_hits": 0, "misses": 0}
+        self._lock = threading.Lock()
+
+    def __len__(self) -> int:
+        return len(self.pool)
+
+    def lookup(self, ids: np.ndarray, need_logits: bool) -> Optional[tuple]:
+        """-> ("hit", state, 0) | ("partial", gathered_cache, shared) |
+        None. Blocks are pinned (increfed) across the gather so an eviction
+        cannot free them mid-copy."""
+        key = ids.tobytes()
+        with self._lock:
+            with self.pool.lock:
+                entry = self.pool.cache_lookup(key)
+                if entry is not None and (
+                    (entry.meta["logits"] is None and need_logits)
+                    or entry.meta["next_token"] is None
+                ):
+                    entry = None  # the row store's divert rules
+                if entry is not None:
+                    meta = dict(entry.meta)
+                    pinned = list(entry.table.blocks)
+                    self.pool.incref(pinned)
+                    self.stats["hits"] += 1
+                    shared = 0
+                else:
+                    shared, donor = (
+                        self._lcp_scan(ids, int(ids.size) - 1, self.lcp_min)
+                        if self.lcp_min >= 0 else (0, None)
+                    )
+                    if donor is None:
+                        self.stats["misses"] += 1
+                        return None
+                    pinned = list(donor.table.blocks[: blocks_for(shared, self.pool.block_tokens)])
+                    self.pool.incref(pinned)
+                    self.stats["partial_hits"] += 1
+            try:
+                if shared:
+                    return ("partial", self.arena.gather_row(BlockTable(pinned, shared), shared),
+                            shared)
+                cache = self.arena.gather_row(BlockTable(pinned, meta["length"]), meta["length"])
+            finally:
+                self.pool.release_blocks(pinned)
+        return ("hit", {"cache": cache, "length": meta["length"],
+                        "next_token": meta["next_token"], "logits": meta["logits"]}, 0)
+
+    def _lcp_scan(self, ids: np.ndarray, limit: int, min_shared: int) -> tuple:
+        """Longest-common-token-prefix donor entry (pool lock held)."""
+        shared, key, entry = lcp_scan(self.pool.cache_items(), ids, limit, min_shared)
+        if entry is None:
+            return 0, None
+        self.pool.cache_touch(key)
+        return shared, entry
+
+    def store(self, ids: np.ndarray, state: Any) -> None:
+        """Prompt prefill result -> blocks: only ``ceil(length /
+        block_tokens)`` blocks are copied. Exhaustion skips the store (the
+        cache never fails a request)."""
+        length = int(state["length"])
+        with self._lock:
+            try:
+                table = self.pool.reserve(length)
+            except KVExhausted:
+                return
+            table.length = length
+            self.pool.note_copied(self.arena.scatter_row(_row_of(state), table))
+            self.pool.cache_put(ids.tobytes(), table, {
+                "length": length, "next_token": state["next_token"], "logits": state["logits"],
+            })
+
+    def store_generation(self, full: np.ndarray, row: dict, exactable: bool, out: list) -> None:
+        """Conversation store (prompt + reply): alias the whole blocks of
+        the longest cached prefix it extends and copy only the rest. The
+        boundary block stays the donor's."""
+        bt = self.pool.block_tokens
+        with self._lock:
+            with self.pool.lock:
+                shared, donor = self._lcp_scan(full, int(full.size), bt)
+                if donor is not None:
+                    table, shared_tokens = self.pool.alias_full_blocks(donor.table, shared)
+                else:
+                    table, shared_tokens = BlockTable(), 0
+                try:
+                    self.pool.ensure(table, int(full.size))
+                except KVExhausted:
+                    self.pool.release(table)
+                    return
+                table.length = int(full.size)
+            self.pool.note_copied(
+                self.arena.scatter_row(row, table, skip_blocks=shared_tokens // bt)
+            )
+            self.pool.cache_put(full.tobytes(), table, {
+                "length": int(full.size),
+                "next_token": int(out[-1]) if exactable else None,
+                "logits": None,
+            })
