@@ -2,6 +2,7 @@
 """Drive gofr_tpu_torch on one NVIDIA GPU end to end.
 
     python3 chip_smoke.py        # from the repository root, one card
+    python3 chip_smoke.py --repeat-serve-train N   # hunting a device fault (below)
 
 Phases, each fatal on failure (no phase is skipped or caught):
 
@@ -17,8 +18,11 @@ Phases, each fatal on failure (no phase is skipped or caught):
    prefill and in decode, decode over a 2048-slot cache, kv_lens=0 rows;
    and the serving run's own calls: batch-4 prefill at buckets 128 and
    1024, batch-1 decode at kv_len 616 and 1800, phase 10's chunk slices
-   (B=1, Sq=512 at offsets 512 and 1024, the second ragged at kv_len 1500)
-   and prefix tail (B=1, Sq=64 at offset 256), K/V one layer of a [L, B,
+   (B=1, Sq=512 at offsets 512 and 1024, the second ragged at kv_len 1500),
+   prefix tail (B=1, Sq=64 at offset 256) and phase 11's teacher-forced
+   scoring (B=1, Sq=Skv=512, no cache: the full bucket, and 300 real tokens
+   with other keys and values in the pad, the real rows bit-identical), K/V
+   one layer of a [L, B,
    2048, 8, 128] cache poisoned past kv_len with +-300 and with NaN) and at
    the tiny model's f32 D=16, tolerances as in tests/test_flash.py (bf16
    2e-2, f32 2e-5, atol + rtol*|ref|); each case must run the variant its
@@ -28,7 +32,8 @@ Phases, each fatal on failure (no phase is skipped or caught):
    kernel it replaced, its bound on the card, the plain version, and
    scaled_dot_product_attention as a yardstick (never called by the port;
    at the training shape both with a boolean mask and with
-   is_causal=True); at the decode shapes each of the kernel, the mma
+   is_causal=True, as at the scoring shape); at the decode shapes each of
+   the kernel, the mma
    kernel and SDPA also by device time (``gofr_tpu_torch.timing.
    graph_ms``: 20 launches in one CUDA graph, replayed), since there the
    CUDA-event time is the host's issue rate; and the decode and dQ
@@ -43,9 +48,9 @@ Phases, each fatal on failure (no phase is skipped or caught):
    /v1/completions requests (two concurrent prompts in two buckets, one
    streamed, one sampled), the launch counts of the forward over that run
    (sm90 for every prefill dispatch's layers, decode for every decode
-   step's, none on mma), TTFT and decode tokens/s; then the runner's
-   ``decode_chunk`` under ``set_sync_debug_mode("error")``: no host sync
-   between steps;
+   step's, none on mma), TTFT and decode tokens/s; then the solo path's
+   chunk (``decode_chunk_pool`` at B=1) under
+   ``set_sync_debug_mode("error")``: no host sync between steps;
 10. serve the default configuration (run right after phase 5, on its
    model): the decode pool and paged KV at their defaults, DECODE_SLOTS=8,
    DECODE_CHUNK=8, MODEL_BUCKETS=64,128,256,512, PREFILL_CHUNK_TOKENS=512,
@@ -66,6 +71,24 @@ Phases, each fatal on failure (no phase is skipped or caught):
    the pool's shape (8 slots of a 2048-slot cache, ragged kv_lens, two idle
    slots past the end, 5 splits) against its plain version, with its
    times, and 20 launches with a synchronize after each;
+11. the OpenAI surface (run right after phase 10, on its model, in a fresh
+   app in the same configuration), with a BPE merges file trained here
+   with ``train_bpe`` from seeded text and an inline Llama-3-style
+   ``CHAT_TEMPLATE_JINJA``: ``GET /v1/models``; a greedy chat of 32 tokens
+   whose content is its stream's deltas joined and whose ids are
+   /v1/completions' on the rendered prompt's ids (chat TTFT); ``logprobs:
+   5`` over 16 pooled tokens, every chosen id its top-1 alternative with
+   the same logprob, and ``echo`` + ``logprobs`` at ``max_tokens: 0`` on
+   prompt + generated ids against the decode's logprobs (phase 10's
+   tolerance, 5e-2 + 2e-2*|logprob|: the logits are bf16); scoring at
+   bucket 512 (512 and 300 tokens; its time, n_layers sm90 launches a
+   request); a seeded request's logprobs twice the same, on the solo path;
+   ``n: 4`` at temperature 0.8 with 4 pool slots active at once;
+   ``best_of: 4, n: 2`` keeping the two best by mean logprob and billing
+   all four; a streamed ``n: 2`` with ``include_usage`` (both indices
+   finish, one usage frame before [DONE]); then a second app with
+   ``GEN_STOP_TOKENS`` set to the id a greedy request emitted at position
+   3, which stops that request there;
 6. backward kernels vs plain: the dQ and dK/dV kernels (their sm90 variants
    for bf16 D=128, their mma variants for f32) against
    ``flash_attention_bwd_ref`` at the training shape (B=1, S=2048, Hq=32,
@@ -93,8 +116,16 @@ Phases, each fatal on failure (no phase is skipped or caught):
    memory.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
-last ``{"ok": true, "device": {...}}``. Exits non-zero, with a line on
-stderr and no result, without a CUDA device (2) or without the
+last ``{"ok": true, "device": {...}}``.
+
+``--repeat-serve-train N`` runs instead phase 10, the pool's decode kernel
+and phase 9 N times in one process, on a fresh llama3-8b each time, under
+``CUDA_LAUNCH_BLOCKING=1`` and the debug build of the kernels
+(``FLASH_DEBUG_BUILD=1``: their device-side index checks compiled in), so
+a device fault stops at the launch that made it; it prints a
+``{"repeat_serve_train": ...}`` summary and the card's line. Exits
+non-zero, with a line on stderr and no result, without a CUDA device (2)
+or without the
 gofr_tpu_torch package beside it (3).
 """
 
@@ -275,14 +306,16 @@ def library_call(torch, q, k, v, offsets, kv_lens, is_causal=False):
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
 
-def time_shape(torch, flash, name, case, iters, is_causal=False):
+def time_shape(torch, flash, name, case, iters, is_causal=False, device=False):
     """One forward shape: the kernel its shape picks, the mma kernel
     beside the sm90 and decode variants, the bound, the plain version, and
     SDPA (the boolean mask; with ``is_causal`` also its causal route, and
     ``library_ms`` the faster of the two). At a decode shape the kernel,
     the mma kernel and SDPA also by device time (a CUDA graph of 20
     launches, replayed): ``device_ms``, ``mma_device_ms``,
-    ``library_device_ms``."""
+    ``library_device_ms``; with ``device`` at any shape (and with
+    ``is_causal`` the causal route's ``library_causal_device_ms`` too,
+    ``library_device_ms`` then the faster)."""
     from gofr_tpu_torch.timing import event_ms, graph_ms
 
     q, k, v, offs, lens = case
@@ -294,10 +327,15 @@ def time_shape(torch, flash, name, case, iters, is_causal=False):
     row = {"variant": variant, "ms": event_ms(kernel, iters)}
     if variant != "mma":
         row["mma_ms"] = event_ms(mma, iters)
-    if variant == "decode":
+    if variant == "decode" or device:
         row["device_ms"] = graph_ms(kernel)
         row["mma_device_ms"] = graph_ms(mma)
         row["library_device_ms"] = graph_ms(library)
+        if is_causal:
+            row["library_causal_device_ms"] = graph_ms(
+                library_call(torch, q, k, v, offs, lens, is_causal=True))
+            row["library_device_ms"] = min(row["library_device_ms"],
+                                           row["library_causal_device_ms"])
     row["plain_ms"] = event_ms(lambda: flash.flash_attention_ref(q, k, v, True, offs, lens),
                                iters)
     row["library_mask_ms"] = event_ms(library, iters)
@@ -332,7 +370,7 @@ def f32_path(torch, flash):
         toks = torch.tensor([prompt], device=dev)
         logits, cache = m.prefill(toks, cache)
         first = torch.argmax(logits, dim=-1).to(torch.int64)[:, None]
-        rest, _ = m.decode_chunk(first, cache, 15)
+        rest = m.decode_chunk_pool(first, cache, 15)[0]
         return [int(first[0, 0])] + [int(t) for t in rest[0].tolist()]
 
     before = flash.launches.value
@@ -353,11 +391,11 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def post(port: int, body: dict, stream: bool = False):
+def post(port: int, body: dict, stream: bool = False, path: str = "/v1/completions"):
     """-> (status, response json or SSE frames, seconds to first frame, [frame times])."""
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
     t0 = time.perf_counter()
-    conn.request("POST", "/v1/completions", json.dumps(body), {"Content-Type": "application/json"})
+    conn.request("POST", path, json.dumps(body), {"Content-Type": "application/json"})
     resp = conn.getresponse()
     if not stream:
         data = json.loads(resp.read())
@@ -481,10 +519,11 @@ def serve(torch, flash, card: str):
         token = torch.tensor([[state["next_token"]]], device="cuda")
         cache = state["cache"]
         before = flash.launches_fwd_decode.value
-        no_host_sync(torch, "decode_chunk (4 steps of llama3-8b)",
-                     lambda: runner.model.decode_chunk(token, cache, 4))
+        no_host_sync(torch, "solo decode's chunk (decode_chunk_pool at B=1, 4 steps of llama3-8b)",
+                     lambda: runner.model.decode_chunk_pool(token, cache, 4, None, 0.0, 0, 1.0,
+                                                            0.0, all_greedy=True))
         check(flash.launches_fwd_decode.value - before == 4 * n_layers,
-              "serve: decode_chunk missed the decode kernel")
+              "serve: the solo decode chunk missed the decode kernel")
         return {"sm90": sm90, "decode": decode}, runner.model
     finally:
         app.shutdown()
@@ -767,6 +806,287 @@ def serve_default(torch, flash, card: str, model) -> dict:
     # the pool's worker is joined: nothing of the pool runs beside training
     check(not pool._thread.is_alive(), "default: the pool's worker outlived app.shutdown()")
     return {"decode": decode, "per_chunk": per_chunk, "metrics": metrics}
+
+
+# -- phase 11: the OpenAI surface on llama3-8b ------------------------------------
+
+# the decode's own logprobs against teacher-forced scoring of the same ids:
+# pooled B = 8 against one cache-free forward, bf16 through 32 layers; the
+# logits are bf16 (as in the JAX package), and a greedy pick's logit near 4.5
+# has a bf16 spacing of 0.03125, so two computation orders differ by a spacing
+# or two: phase 10's tolerance, (atol, rtol) on |logprob|
+SCORE_LP_TOL = POOL_LP_TOL
+LLAMA3_CHAT_TEMPLATE = (
+    "{{ bos_token }}{% for m in messages %}<|start_header_id|>{{ m.role }}<|end_header_id|>"
+    "\n\n{{ m.content }}<|eot_id|>{% endfor %}{% if add_generation_prompt %}"
+    "<|start_header_id|>assistant<|end_header_id|>\n\n{% endif %}"
+)
+
+
+def get_json(port: int, path: str):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request("GET", path)
+    resp = conn.getresponse()
+    data = json.loads(resp.read())
+    conn.close()
+    return resp.status, data
+
+
+def boot_openai(model, env: dict):
+    """A fresh app in the default configuration (phase 10's) on ``model``,
+    with ``env`` on top."""
+    import gofr_tpu_torch
+
+    for key in ("DECODE_POOL", "KV_PAGED", "KV_BLOCKS", "KV_BLOCK_TOKENS", "DECODE_PIPELINE",
+                "SCHED_POLICY", "SCHED_MAX_DEFER_MS", "TOKENIZER", "GEN_STOP_TOKENS",
+                "GEN_STOP_EOS"):
+        os.environ.pop(key, None)
+    os.environ.update({**PHASE10_ENV, "HTTP_PORT": str(free_port()), **env})
+    os.environ.pop("TOKENIZER", None)  # TOKENIZER_PATH names the tokenizer
+    app = gofr_tpu_torch.new(model=model)
+    gofr_tpu_torch.register_openai_routes(app)
+    app.start()
+    return app
+
+
+def serve_openai(torch, flash, card: str, model) -> dict:
+    """Phase 11: /v1/models, chat (stream and non-stream), logprobs and
+    top-logprobs through the pool, echo + logprobs scoring, a seeded
+    request's logprobs on the solo path, n and best_of, the streaming
+    fan-out with its usage frame, and GEN_STOP_TOKENS, on phase 5's
+    llama3-8b in the default configuration, with a BPE merges file trained
+    here from seeded text and an inline Llama-3-style jinja template."""
+    import shutil
+    import tempfile
+
+    from gofr_tpu_torch.tokenizer import train_bpe
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="gofr_smoke_")
+    try:
+        corpus = " ".join(text(200 + i, 400) for i in range(16))
+        bpe = train_bpe(corpus, vocab_size=256 + 3 + 160)
+        merges = os.path.join(tmp, "merges.txt")
+        bpe.save(merges)
+        env = {"TOKENIZER_PATH": merges, "CHAT_TEMPLATE_JINJA": LLAMA3_CHAT_TEMPLATE}
+        app = boot_openai(model, env)
+        try:
+            metrics = openai_checks(torch, flash, card, app)
+        finally:
+            app.shutdown()
+        # GEN_STOP_TOKENS: the id a greedy request emitted at position 3
+        full = metrics.pop("greedy_ids")
+        stop = full[3]
+        app = boot_openai(model, {**env, "GEN_STOP_TOKENS": str(stop)})
+        try:
+            dev = app.container.tpu
+            check(dev.default_stop_ids == frozenset({stop}), "openai: GEN_STOP_TOKENS not read")
+            status, data, _, _ = post(app.http_port, {"prompt": metrics.pop("greedy_prompt"),
+                                                      "max_tokens": 16, "temperature": 0})
+            check(status == 200, f"openai: {status} {data}")
+            got = data["usage"]["completion_tokens"]
+            print(f"openai: GEN_STOP_TOKENS={stop} (the id at position 3 of {full[:6]}...) -> "
+                  f"{got} tokens, want {full.index(stop)} (its first position)", flush=True)
+            check(got == full.index(stop), "openai: GEN_STOP_TOKENS did not stop the request")
+        finally:
+            app.shutdown()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    metrics["phase_s"] = time.perf_counter() - t0
+    print(f"openai-metrics [{card}]: {json.dumps(metrics)}", flush=True)
+    return metrics
+
+
+def openai_checks(torch, flash, card: str, app) -> dict:
+    """Phase 11's requests on one app (see ``serve_openai``)."""
+    import numpy as np
+
+    dev = app.container.tpu
+    pool, port, tok = dev.decode_pool, app.http_port, dev.tokenizer
+    n_layers = dev.runner.cfg.n_layers
+    check(pool is not None and dev.kv_pool is not None, "openai: not the default configuration")
+    check(tok is not None and tok.merges, "openai: the BPE tokenizer did not load")
+    generations: list = []
+    inner = dev.generate
+
+    def recording_generate(tokens, *args, **kwargs):
+        out = inner(tokens, *args, **kwargs)
+        generations.append((list(tokens), out, kwargs.get("sampler")))
+        return out
+
+    dev.generate = recording_generate
+    for c in (flash.launches, flash.launches_fwd_sm90, flash.launches_fwd_decode):
+        c.reset()  # every count to 0 just before the path runs
+
+    status, models = get_json(port, "/v1/models")
+    check(status == 200 and [m["id"] for m in models["data"]] == ["llama3-8b"],
+          f"openai: /v1/models {status} {models}")
+    print(f"openai: GET /v1/models -> {models}", flush=True)
+
+    # chat: the non-stream content is the stream's deltas joined, and its
+    # ids are /v1/completions' on the rendered prompt's ids
+    messages = [{"role": "system", "content": text(31, 120)},
+                {"role": "user", "content": text(32, 200)}]
+    chat = {"messages": messages, "max_tokens": 32, "temperature": 0}
+    # another chat first (the template's first render and compile), then the
+    # stream on a cold prefix cache: its TTFT is a prefill's
+    status, _, _, _ = post(port, {"messages": [{"role": "user", "content": text(30, 50)}],
+                                  "max_tokens": 2, "temperature": 0},
+                           path="/v1/chat/completions")
+    check(status == 200, f"openai: warm-up chat {status}")
+    status, frames, _, times = post(port, {**chat, "stream": True, "logprobs": True},
+                                    stream=True, path="/v1/chat/completions")
+    check(status == 200 and frames[-1] == "[DONE]", f"openai: chat stream {status} {frames[-2:]}")
+    status, whole, chat_s, _ = post(port, chat, path="/v1/chat/completions")
+    check(status == 200, f"openai: chat {status} {whole}")
+    chat_prompt, chat_ids, _ = generations[-1]
+    deltas = [json.loads(f)["choices"][0]["delta"] for f in frames[:-1]]
+    check(deltas[0] == {"role": "assistant"}, "openai: the chat stream did not open with the role")
+    joined = "".join(d.get("content", "") for d in deltas)
+    content = whole["choices"][0]["message"]["content"]
+    chat_ttft = times[1]  # the first frame after the role carries the first token
+    status, data, _, _ = post(port, {"prompt": chat_prompt, "max_tokens": 32, "temperature": 0})
+    check(status == 200, f"openai: completions {status} {data}")
+    print(f"openai: chat {len(chat_ids)} tokens in {chat_s:.3f}s, content {content!r:.80}; stream "
+          f"deltas joined equal: {joined == content}; /v1/completions on the rendered prompt's "
+          f"{len(chat_prompt)} ids gave the same ids: {generations[-1][1] == chat_ids}; chat "
+          f"stream TTFT {chat_ttft * 1e3:.1f} ms", flush=True)
+    check(joined == content, "openai: the chat stream's deltas differ from the content")
+    check(generations[-1][1] == chat_ids, "openai: chat ids differ from /v1/completions'")
+
+    # logprobs through the pool: the chosen id is its own best alternative
+    prompt = text(33, 300)
+    d0 = pool.dispatches
+    status, data, _, _ = post(port, {"prompt": prompt, "max_tokens": 16, "temperature": 0,
+                                     "logprobs": 5})
+    check(status == 200, f"openai: logprobs {status} {data}")
+    prompt_ids, (ids, lps, tops), _ = generations[-1]
+    check(pool.dispatches > d0, "openai: the logprobs request did not decode in the pool")
+    check(data["choices"][0]["logprobs"]["token_logprobs"] == lps,
+          "openai: the response's logprobs are not the decode's")
+    top1 = all(t == alts[0][0] and lp == alts[0][1] for t, lp, alts in zip(ids, lps, tops))
+    check(len(ids) == len(tops) == 16 and top1,
+          "openai: a chosen id is not its top-1 alternative, or its logprob differs")
+    # echo + logprobs at max_tokens 0 on prompt + generated ids: teacher-forced
+    status, scored, _, _ = post(port, {"prompt": prompt_ids + ids, "max_tokens": 0, "echo": True,
+                                       "logprobs": 1})
+    check(status == 200, f"openai: echo scoring {status} {scored}")
+    score_lps = scored["choices"][0]["logprobs"]["token_logprobs"]
+    check(score_lps[0] is None and len(score_lps) == len(prompt_ids) + len(ids),
+          "openai: the echo scores have the wrong length")
+    diff = np.abs(np.asarray(score_lps[len(prompt_ids):]) - np.asarray(lps))
+    atol, rtol = SCORE_LP_TOL
+    ok = bool((diff <= atol + rtol * np.abs(lps)).all())
+    print(f"openai: logprobs 5 over 16 pooled tokens: every chosen id its top-1 alternative "
+          f"with the same logprob: {top1}; teacher-forced scores of prompt + generated ids "
+          f"against the decode's logprobs: max |diff| {diff.max():.4e} at position "
+          f"{int(diff.argmax())}, |diff| by position {np.round(diff, 4).tolist()} (tol {atol} + "
+          f"{rtol}*|lp|, |lp| ~{float(np.mean(np.abs(lps))):.2f}) -> {'ok' if ok else 'FAIL'}",
+          flush=True)
+    check(ok, "openai: scores differ from the decode's logprobs")
+
+    # scoring at the largest bucket (512): the full bucket and 300 tokens in it
+    ids512 = (tok.encode(" ".join(text(40 + i, 400) for i in range(6))) * 2)[:512]
+    check(len(ids512) == 512, "openai: not 512 prompt ids")
+    sm90_0, dec_0 = flash.launches_fwd_sm90.value, flash.launches_fwd_decode.value
+    score_s = []
+    for n in (512, 300):
+        t = time.perf_counter()
+        status, scored, _, _ = post(port, {"prompt": ids512[:n], "max_tokens": 0, "echo": True,
+                                           "logprobs": 1})
+        score_s.append(time.perf_counter() - t)
+        lp = scored["choices"][0]["logprobs"]["token_logprobs"] if status == 200 else []
+        check(status == 200 and len(lp) == n and all(np.isfinite(lp[1:])),
+              f"openai: scoring {n} tokens: {status}")
+    score_launches = flash.launches_fwd_sm90.value - sm90_0
+    print(f"openai: scoring at bucket 512 (512 and 300 real tokens): {score_s[0] * 1e3:.1f} / "
+          f"{score_s[1] * 1e3:.1f} ms a request, sm90 launches {score_launches} (2 x n_layers = "
+          f"{2 * n_layers}), decode launches {flash.launches_fwd_decode.value - dec_0}", flush=True)
+    check(score_launches == 2 * n_layers, "openai: a scoring layer missed the sm90 kernel")
+
+    # a seeded request decodes solo: the same ids and logprobs twice
+    seeded = {"prompt": prompt, "max_tokens": 16, "temperature": 0.8, "seed": 7, "logprobs": 2}
+    d0, dec0 = pool.dispatches, flash.launches_fwd_decode.value
+    runs = []
+    for _ in range(2):
+        status, data, _, _ = post(port, seeded)
+        check(status == 200, f"openai: seeded {status} {data}")
+        runs.append((generations[-1][1][0], generations[-1][1][1]))
+    solo = pool.dispatches == d0 and flash.launches_fwd_decode.value > dec0
+    print(f"openai: seeded logprobs twice: same ids {runs[0][0] == runs[1][0]}, same logprobs "
+          f"{runs[0][1] == runs[1][1]}, solo (no pool dispatch) {solo}", flush=True)
+    check(runs[0] == runs[1] and len(runs[0][0]) >= 1, "openai: the seeded request did not repeat")
+    check(solo, "openai: the seeded request did not decode solo")
+
+    # n = 4 unseeded: the candidates decode together in the pool
+    peak = {"active": 0}
+    watching = threading.Event()
+
+    def watch():
+        while not watching.is_set():
+            peak["active"] = max(peak["active"], pool.occupancy()["active"])
+            time.sleep(0.002)
+
+    watcher = threading.Thread(target=watch)
+    watcher.start()
+    try:
+        status, data, fan_s, _ = post(port, {"prompt": prompt, "max_tokens": 32,
+                                             "temperature": 0.8, "n": 4})
+    finally:
+        watching.set()
+        watcher.join()
+    check(status == 200 and len(data["choices"]) == 4, f"openai: n=4 {status}")
+    print(f"openai: n=4 at temperature 0.8: 4 choices in {fan_s:.3f}s, "
+          f"{data['usage']['completion_tokens']} tokens billed, pool peak active slots "
+          f"{peak['active']}", flush=True)
+    check(peak["active"] >= 4, "openai: the 4 candidates did not decode at once")
+
+    # best_of 4, n 2: the two best of four by mean logprob, all four billed
+    before = len(generations)
+    status, data, _, _ = post(port, {"prompt": prompt, "max_tokens": 16, "temperature": 0.8,
+                                     "n": 2, "best_of": 4, "logprobs": 1})
+    check(status == 200 and len(data["choices"]) == 2, f"openai: best_of {status}")
+    cands = [out for _, out, _ in generations[before:]]
+    check(len(cands) == 4, f"openai: best_of made {len(cands)} candidates")
+    means = sorted((float(np.mean(lp)) for _, lp in cands), reverse=True)
+    got = [float(np.mean(c["logprobs"]["token_logprobs"])) for c in data["choices"]]
+    billed = data["usage"]["completion_tokens"]
+    print(f"openai: best_of 4 n 2: mean logprobs kept {got} of {means}; billed {billed} of "
+          f"{sum(len(ids) for ids, _ in cands)} candidate tokens", flush=True)
+    check(np.allclose(got, means[:2], atol=1e-6), "openai: best_of kept the wrong candidates")
+    check(billed == sum(len(ids) for ids, _ in cands),
+          "openai: best_of did not bill every candidate")
+
+    # streaming fan-out: both indices finish, then one usage frame, then [DONE]
+    status, frames, _, _ = post(port, {"prompt": prompt, "max_tokens": 12, "temperature": 0.8,
+                                       "n": 2, "stream": True,
+                                       "stream_options": {"include_usage": True}}, stream=True)
+    check(status == 200 and frames[-1] == "[DONE]", f"openai: stream n=2 {status}")
+    parsed = [json.loads(f) for f in frames[:-1]]
+    finish = {f["choices"][0]["index"]: f["choices"][0]["finish_reason"]
+              for f in parsed[:-1] if f["choices"][0]["finish_reason"] is not None}
+    usage = [f for f in parsed if not f["choices"]]
+    print(f"openai: stream n=2 include_usage: {len(frames)} frames, finish {finish}, usage frames "
+          f"{[u['usage'] for u in usage]}", flush=True)
+    check(sorted(finish) == [0, 1], "openai: a streamed index did not finish")
+    check(len(usage) == 1 and parsed[-1] is usage[0], "openai: not one usage frame before [DONE]")
+    check(all(f["usage"] is None for f in parsed[:-1]), "openai: a frame carries usage")
+
+    launches = flash.launches.value
+    sm90, decode = flash.launches_fwd_sm90.value, flash.launches_fwd_decode.value
+    print(f"openai: forward launches {launches}: sm90 {sm90}, decode {decode}, mma "
+          f"{launches - sm90 - decode}", flush=True)
+    check(launches - sm90 - decode == 0, "openai: a call took the mma kernel")
+    greedy = [(p, out) for p, out, s in generations if s is not None and s.greedy
+              and isinstance(out, list) and len(out) >= 4]
+    check(bool(greedy), "openai: no greedy request of 4 or more tokens")
+    # one whose id at position 3 is not also earlier, where there is one
+    greedy.sort(key=lambda g: g[1][3] not in g[1][:3])
+    return {"chat_ttft_ms": chat_ttft * 1e3, "chat_s": chat_s, "score_512_ms": score_s[0] * 1e3,
+            "score_300_in_512_ms": score_s[1] * 1e3, "score_launches": score_launches,
+            "score_lp_max_diff": float(diff.max()), "fanout_n4_s": fan_s,
+            "pool_peak_active": peak["active"], "sm90": sm90, "decode": decode,
+            "greedy_prompt": greedy[-1][0], "greedy_ids": greedy[-1][1]}
 
 
 def pool_decode_kernel(torch, flash, gen) -> dict:
@@ -1096,6 +1416,21 @@ def forward_phases(torch, flash, gen):
     }
     for name, case in plain.items():
         compare(torch, flash, name, case, errs=errs)
+    # teacher-forced scoring's call (phase 11): B=1, Sq=Skv=512 (the largest
+    # bucket), no cache, causal; the full bucket, and 300 real tokens in it
+    # with other keys and values in the pad past them, which no real row may see
+    scoring = make_case(torch, gen, 1, 512, 512, 32, 8, 128, bf16, [0], [512])
+    _, _, e_full = compare(torch, flash, "scoring bucket 512 bf16 B=1 Sq=Skv=512", scoring,
+                           errs=errs)
+    q, k, v, offs, lens = scoring
+    pad_k, pad_v = k.clone(), v.clone()
+    for t in (pad_k, pad_v):
+        t[:, 300:] = torch.randn(t[:, 300:].shape, device="cuda", generator=gen).to(bf16)
+    out, _, e_pad = compare(torch, flash, "scoring 300 real tokens in bucket 512, other pad",
+                            (q, pad_k, pad_v, offs, lens), errs=errs)
+    clean, _ = flash.flash_attention_fwd(q, k, v, True, offs, lens)
+    check(torch.equal(out[:, :300], clean[:, :300]), "scoring: the pad moved a real row's output")
+    print("scoring: the 300 real rows bit-identical whatever the pad holds -> ok", flush=True)
     for name, sq in (("decode bf16 kv_lens=0 row", 1), ("prefill bf16 kv_lens=0 row", 64)):
         case = make_case(torch, gen, 2, sq, 2048, 32, 8, 128, bf16, [0, 899], [0, 900])
         out, lse, _ = compare(torch, flash, name, case, errs=errs)
@@ -1115,6 +1450,9 @@ def forward_phases(torch, flash, gen):
         "decode": time_shape(torch, flash, "decode", decode, 50),
         "prefill_f32": time_shape(torch, flash, "tiny model prefill f32", plain["prefill f32 D=16"],
                                   50),
+        "scoring_512": {**time_shape(torch, flash, "scoring bucket 512", scoring, 50,
+                                     is_causal=True, device=True),
+                        "max_abs_err": max(e_full, e_pad)},
     }
     no_host_sync(torch, "decode", lambda: flash.flash_attention_fwd(*decode[:3], True, *decode[3:]))
     return errs, shapes
@@ -1163,14 +1501,17 @@ def backward_phases(torch, flash, gen):
 
 
 def kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows, default,
-                 pool_row) -> dict:
+                 pool_row, openai) -> dict:
     """The kernels of the main path (serving, training) with their counts
     from its runs and the numbers phases 3, 7 and 10 measured. The mma
     forward is on the tiny f32 model's path (phases 4 and 8) alone; its
     count is from those runs. At decode the kernel's ``ms`` and
     ``library_ms`` are device times (CUDA graph), the CUDA-event times
     beside them. The decode variant at the pool's shape (phase 10) has its
-    own entry, with its launches from phase 10's run."""
+    own entry, with its launches from phase 10's run, and the sm90 variant
+    at teacher-forced scoring's shape (bucket 512) its own, with its
+    launches from phase 11's scoring requests (a short kernel: its ``ms``
+    and ``library_ms`` are device times too)."""
     fwd = {"route": "cuda", "source": "gofr_tpu_torch/csrc/flash_fwd.cu",
            "replaces": "gofr_tpu/ops/flash.py:224"}
     bwd = {"route": "cuda", "source": "gofr_tpu_torch/csrc/flash_bwd.cu"}
@@ -1178,6 +1519,7 @@ def kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows,
     long = shapes["served_decode_long"]
     decode_row = {**long, "ms": long["device_ms"], "event_ms": long["ms"],
                   "library_ms": long["library_device_ms"], "library_event_ms": long["library_ms"]}
+    score = shapes["scoring_512"]
     return {"kernels": [
         {"name": "flash_fwd_sm90", **fwd, "launches": served["sm90"] + sm90_train,
          "serve_launches": served["sm90"], "training_launches": sm90_train,
@@ -1190,6 +1532,10 @@ def kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows,
          "launches_per_chunk": default["per_chunk"], "max_abs_err": pool_row["max_abs_err"],
          **pool_row, "ms": pool_row["device_ms"], "event_ms": pool_row["ms"],
          "library_ms": pool_row["library_device_ms"], "library_event_ms": pool_row["library_ms"]},
+        {"name": "flash_fwd_sm90 (scoring, bucket 512)", **fwd,
+         "launches": openai["score_launches"], **score,
+         "ms": score["device_ms"], "event_ms": score["ms"],
+         "library_ms": score["library_device_ms"], "library_event_ms": score["library_ms"]},
         {"name": "flash_fwd_mma", **fwd, "launches": tiny, "path": "tiny f32 model (phases 4, 8)",
          "max_abs_err": max(errs["mma"]), **shapes["prefill_f32"]},
         {"name": "flash_bwd_dq", **bwd, "replaces": "gofr_tpu/ops/flash.py:477",
@@ -1203,7 +1549,53 @@ def kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows,
     ]}
 
 
-def main() -> int:
+def repeat_serve_train(torch, flash, card: str, n: int) -> dict:
+    """``--repeat-serve-train N``: phase 10, the pool's decode kernel and
+    phase 9, N times in one process, on a fresh llama3-8b each time (phase
+    5's shape: MODEL_MAX_SEQ 2048, seed 0), under CUDA_LAUNCH_BLOCKING=1 and
+    the debug build (every launch waits for its kernel, and the kernels'
+    device-side index checks are compiled in), so a device fault stops the
+    launch that made it, with the check that failed. -> a summary."""
+    import dataclasses
+
+    from gofr_tpu_torch.models.llama import LLAMA3_8B
+    from gofr_tpu_torch.models.transformer import Transformer
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    cfg = dataclasses.replace(LLAMA3_8B, max_seq=2048)
+    seconds = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        model = Transformer.random(cfg, "cuda", seed=0)
+        serve_default(torch, flash, card, model)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        pool_decode_kernel(torch, flash, gen)
+        train_llama(torch, flash, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        seconds.append(time.perf_counter() - t0)
+        print(f"repeat {i + 1}/{n}: phase 10, the pool decode kernel and phase 9 clean in "
+              f"{seconds[-1]:.1f}s, memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+    return {"clean_repeats": n, "seconds": seconds, "launch_blocking": True,
+            "debug_build": flash.debug_build()}
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--repeat-serve-train", type=int, default=0, metavar="N",
+                        help="repeat phase 10 -> the pool decode kernel -> phase 9 N times "
+                             "under CUDA_LAUNCH_BLOCKING=1 and the debug build, nothing else")
+    args = parser.parse_args(argv)
+    if args.repeat_serve_train:
+        # read when CUDA starts and when the kernels build: set before either
+        os.environ["CUDA_LAUNCH_BLOCKING"] = "1"
+        os.environ["FLASH_DEBUG_BUILD"] = "1"
     import torch
 
     if not torch.cuda.is_available():
@@ -1223,6 +1615,14 @@ def main() -> int:
     t0 = time.perf_counter()
     built = flash.build()
     print(f"build: {built.path.name} in {time.perf_counter() - t0:.1f}s", flush=True)
+    if args.repeat_serve_train:
+        # the debug build's checks may cost registers: its spills are reported, not fatal
+        for name, r in flash.build_report(built).items():
+            print(f"  ptxas (debug build) {name}: {r['ptxas']}", flush=True)
+        summary = repeat_serve_train(torch, flash, card, args.repeat_serve_train)
+        print(json.dumps({"repeat_serve_train": summary}), flush=True)
+        print(card, flush=True)
+        return 0
     print_build(flash, built)
 
     gen = torch.Generator(device="cuda")
@@ -1234,6 +1634,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     default = serve_default(torch, flash, card, model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    openai = serve_openai(torch, flash, card, model)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -1246,7 +1649,7 @@ def main() -> int:
     train = train_llama(torch, flash, card)
 
     kernels = kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows,
-                           default, pool_row)
+                           default, pool_row, openai)
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)  # name, power limit as nvidia-smi gives them
     print(json.dumps({"ok": True, "device": {

@@ -30,6 +30,13 @@ DECLARED_KEYS: dict[str, str] = {
     "SCHED_POLICY": "prefill/decode interleave: fair | decode-first | prefill-first",
     "SCHED_MAX_DEFER_MS": "longest a prefill dispatch waits for its decode turn",
     "TOKENIZER": "'byte' for the byte-level tokenizer",
+    "TOKENIZER_PATH": "BPE merges file, or an HF tokenizer.json (wins over TOKENIZER)",
+    "CHAT_TEMPLATE": "per-message chat template with {role} and {content}",
+    "CHAT_TEMPLATE_OPENER": "assistant-turn opener (default: the template before {content})",
+    "CHAT_TEMPLATE_JINJA": "jinja chat template: a file path or the template itself",
+    "GEN_STOP_TOKENS": "comma-separated default stop ids (instead of the tokenizer's EOS)",
+    "GEN_STOP_EOS": "'off': no default stop ids",
+    "OPENAI_FANOUT_WORKERS": "n/best_of candidates decoded at once (default 3/4 of the pool)",
     "HTTP_PORT": "HTTP listen port",
     "TORCH_DEVICE": "'cuda' (default) or 'cpu'",
 }

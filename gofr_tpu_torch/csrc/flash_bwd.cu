@@ -121,6 +121,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_bf16_kernel(Args a) {
   const int offset = a.offsets[b];
   const int kv_len = min(max(a.kv_lens[b], 0), a.skv);
   const bool active = q0 + warp * 16 < a.sq;  // a warp past Sq only helps load
+  GOFR_DCHECK(q0 < a.sq && h < a.hq && kv_len <= a.skv);
   const Strides& st = a.st;
   const int64_t o_ss = (int64_t)a.hq * D;  // dO and dQ: [B, Sq, Hq, D] contiguous
 
@@ -277,6 +278,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_bf16_kernel(Args a) {
   const int kpos0 = k0 + wrow + g;      // this thread's keys: kpos0, kpos0 + 8
   const int offset = a.offsets[b];
   const int kv_len = min(max(a.kv_lens[b], 0), a.skv);
+  GOFR_DCHECK(k0 < a.skv && hk < a.hkv && kv_len <= a.skv);
   const Strides& st = a.st;
   const int64_t o_ss = (int64_t)a.hq * D;
 
@@ -487,6 +489,7 @@ __device__ __forceinline__ void dkv_group_sum(const D90Args& a, const float* red
   const int per = (r_hi - r_lo) * 32;  // float4 units of one tensor's share
   for (int idx = tid; idx < 2 * per; idx += kD90Consumers) {
     const int which = idx / per, r = r_lo + (idx % per) / 32, c = (idx % 32) * 4;
+    GOFR_DCHECK(r >= r_lo && r < r_hi && r < kD90BlockN && which < 2);
     const int krow = k0 + r;
     if (krow >= a.skv) continue;
     const float* src = red + which * kD90BlockN * kD90RedLd + r * kD90RedLd + c;
@@ -545,6 +548,8 @@ __global__ void __launch_bounds__(kD90Threads, 1) flash_bwd_dkv_sm90_kernel(
   const int per_head = k0 < kv_len ? max(0, n_qt - lo) : 0;
   const int n_it = per_head * a.hpb;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  GOFR_DCHECK(crank < (uint32_t)a.cluster && h_first + a.hpb <= a.hq && hk < a.hkv);
+  GOFR_DCHECK(k0 < a.skv && kv_len <= a.skv && (per_head == 0 || lo < n_qt));
 
   if (tid == 0) {
     mbar_init(kv_full, 1);
@@ -568,6 +573,7 @@ __global__ void __launch_bounds__(kD90Threads, 1) flash_bwd_dkv_sm90_kernel(
     for (int it = 0; warp == kD90Consumers / 32 && it < n_it; ++it) {
       const int s = it % kD90Stages;
       const int h = h_first + it / per_head, q0 = (lo + it % per_head) * kD90BlockM;
+      GOFR_DCHECK(h < h_first + a.hpb && q0 < a.sq);
       // the rows' LSE and D are read before the wait, so their latency
       // overlaps it; lanes own rows lane and lane + 32
       const int64_t lrow = ((int64_t)b * a.hq + h) * a.sq;
@@ -613,6 +619,7 @@ __global__ void __launch_bounds__(kD90Threads, 1) flash_bwd_dkv_sm90_kernel(
     for (int it = 0; it < n_it; ++it) {
       const int s = it % kD90Stages;
       const int q0 = (lo + it % per_head) * kD90BlockM;
+      GOFR_DCHECK(q0 < a.sq);
       mbar_wait(&full[s], (it / kD90Stages) & 1);
       const uint32_t q_addr = smem_u32(ring + s * kD90Stage), do_addr = q_addr + 2 * kD90QHalf;
 
@@ -778,6 +785,9 @@ __global__ void __launch_bounds__(kQ90Threads, 1) flash_bwd_dq_sm90_kernel(
     hi = min(hi, max(0, (last + kQ90BlockN - 1) / kQ90BlockN));
   }
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  GOFR_DCHECK((int)gridDim.x == a.hq && (int)gridDim.z == a.n_qt);
+  GOFR_DCHECK(qt >= 0 && qt < a.n_qt && q0 < a.sq);
+  GOFR_DCHECK(hk * a.groups <= h && kv_len <= a.skv && hi <= (a.skv + kQ90BlockN - 1) / kQ90BlockN);
 
   if (tid == 0) {
     mbar_init(q_full, 1);
@@ -837,6 +847,7 @@ __global__ void __launch_bounds__(kQ90Threads, 1) flash_bwd_dq_sm90_kernel(
   for (int j = 0; j < hi; ++j) {
     const int s = j % kQ90Stages;
     const int k0 = j * kQ90BlockN;
+    GOFR_DCHECK(k0 < kv_len);
     mbar_wait(&full[s], (j / kQ90Stages) & 1);
     uint8_t* ks = ring + s * kQ90Stage;
     const uint32_t k_addr = smem_u32(ks), v_addr = k_addr + 2 * kQ90KvHalf;
@@ -844,8 +855,10 @@ __global__ void __launch_bounds__(kQ90Threads, 1) flash_bwd_dq_sm90_kernel(
       // the tile holds keys at or past kv_len: zero those K rows before
       // any product reads them (both warpgroups write the same zeros)
       const int first = kv_len - k0;
+      GOFR_DCHECK(first > 0 && first < kQ90BlockN);
       for (int c = tid; c < (kQ90BlockN - first) * 16; c += kQ90Consumers) {
         const int r = first + c / 16, half = (c / 8) % 2, chunk = c % 8;
+        GOFR_DCHECK(r < kQ90BlockN);
         *reinterpret_cast<uint4*>(ks + half * kQ90KvHalf + r * 128 + chunk * 16) =
             make_uint4(0, 0, 0, 0);
       }
@@ -1030,6 +1043,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32_kernel(Args a) {
   const int q0 = blockIdx.x * kBlockQ;
   const int offset = a.offsets[b];
   const int kv_len = min(max(a.kv_lens[b], 0), a.skv);
+  GOFR_DCHECK(q0 < a.sq && h < a.hq && kv_len <= a.skv);
   const int64_t o_ss = (int64_t)a.hq * D;
 
   const float* qb = static_cast<const float*>(a.q) + b * a.st.qb + h * a.st.qh;
@@ -1096,6 +1110,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_f32_kernel(Args a) {
   const int k0 = blockIdx.x * kBlockKV;
   const int offset = a.offsets[b];
   const int kv_len = min(max(a.kv_lens[b], 0), a.skv);
+  GOFR_DCHECK(k0 < a.skv && hk < a.hkv && kv_len <= a.skv);
   const int64_t o_ss = (int64_t)a.hq * D;
   const int dcol = tid % D, kgroup = tid / D;
 

@@ -98,6 +98,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16_kernel(
   const int offset = offsets[b];
   const int kv_len = min(max(kv_lens[b], 0), skv);
   const bool active = q0 + warp * 16 < sq;  // a warp past Sq only helps load
+  GOFR_DCHECK(q0 < sq && h < hq && hk * groups <= h && kv_len <= skv);
 
   const __nv_bfloat16* qb = q + b * st.qb + h * st.qh;
   const __nv_bfloat16* kb = k + b * st.kb + hk * st.kh;
@@ -300,6 +301,9 @@ __global__ void __launch_bounds__(kF90Threads, 1) flash_fwd_sm90_kernel(
   int hi = (kv_len + kF90BlockN - 1) / kF90BlockN;
   if (a.causal) hi = min(hi, max(0, (offset + q0 + kF90BlockM + kF90BlockN - 1) / kF90BlockN));
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  GOFR_DCHECK((int)gridDim.x == a.hq && (int)gridDim.z == a.n_qt);
+  GOFR_DCHECK(qt >= 0 && qt < a.n_qt && q0 < a.sq);
+  GOFR_DCHECK(hk * a.groups <= h && kv_len <= a.skv && hi <= (a.skv + kF90BlockN - 1) / kF90BlockN);
 
   if (tid == 0) {
     mbar_init(q_full, 1);
@@ -349,6 +353,7 @@ __global__ void __launch_bounds__(kF90Threads, 1) flash_fwd_sm90_kernel(
   for (int j = 0; j < hi; ++j) {
     const int s = j % kF90Stages;
     const int k0 = j * kF90BlockN;
+    GOFR_DCHECK(k0 < kv_len);
     mbar_wait(&full[s], (j / kF90Stages) & 1);
     uint8_t* vs = kvs + (2 * s + 1) * kF90Tile;
     const uint32_t k_addr = smem_u32(kvs + 2 * s * kF90Tile), v_addr = smem_u32(vs);
@@ -368,8 +373,10 @@ __global__ void __launch_bounds__(kF90Threads, 1) flash_fwd_sm90_kernel(
       // the tile holds keys at or past kv_len: TMA loaded whatever the cache
       // holds there, and 0 * NaN is NaN, so zero those V rows before P.V
       const int first = kv_len - k0;
+      GOFR_DCHECK(first > 0 && first < kF90BlockN);
       for (int c = tid; c < (kF90BlockN - first) * 16; c += kF90Consumers) {
         const int r = first + c / 16, half = (c / 8) % 2, chunk = c % 8;
+        GOFR_DCHECK(r < kF90BlockN);
         *reinterpret_cast<uint4*>(vs + half * kF90Half + r * 128 + chunk * 16) =
             make_uint4(0, 0, 0, 0);
       }
@@ -526,6 +533,8 @@ __global__ void __launch_bounds__(kDecThreads) flash_fwd_decode_kernel(DecArgs a
   const int t_lo = split * per;
   const int nt = max(0, min(t_lo + per, n_tiles) - t_lo);
   const int k_hi = min((t_lo + nt) * kDecBlockN, kv_end);
+  GOFR_DCHECK((int)gridDim.x == a.splits && split < a.splits && rows <= kDecRows);
+  GOFR_DCHECK(kv_end <= kv_len && kv_len <= a.skv && k_hi <= kv_end && (nt == 0 || t_lo < n_tiles));
   const Strides& st = a.st;
   const __nv_bfloat16* kb = a.k + b * st.kb + hk * st.kh;
   const __nv_bfloat16* vb = a.v + b * st.vb + hk * st.vh;
@@ -538,6 +547,7 @@ __global__ void __launch_bounds__(kDecThreads) flash_fwd_decode_kernel(DecArgs a
       const int which = c / (kDecBlockN * 16), r = (c / 16) % kDecBlockN, chunk = c % 16;
       const int pos = k0 + r;
       const bool live = pos < k_hi;
+      GOFR_DCHECK(!live || (pos >= t_lo * kDecBlockN && pos < a.skv));
       const __nv_bfloat16* src = which ? vb + (int64_t)(live ? pos : 0) * st.vs
                                        : kb + (int64_t)(live ? pos : 0) * st.ks;
       cp_async_16(ks + which * kDecTile + r * kDecLd + chunk * 8, src + chunk * 8, live ? 16 : 0);
@@ -734,6 +744,7 @@ __global__ void __launch_bounds__(kDecThreads) flash_fwd_decode_kernel(DecArgs a
     }
     const float inv = l_all > 0.f ? 1.f / l_all : 0.f;
     const int s = row / a.groups, h = hk * a.groups + row % a.groups;
+    GOFR_DCHECK(row < rows && s < a.sq && h < a.hq);
     const int64_t q_row = (int64_t)b * a.sq + s;  // out is [B, Sq, Hq, D] contiguous
     *reinterpret_cast<uint32_t*>(a.out + (q_row * a.hq + h) * 128 + c) =
         pack_bf16(ox * inv, oy * inv);
@@ -789,6 +800,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(
   const int q0 = blockIdx.x * kBlockQ;
   const int offset = offsets[b];
   const int kv_len = min(max(kv_lens[b], 0), skv);
+  GOFR_DCHECK(q0 < sq && h < hq && kv_len <= skv);
 
   const float* qb = q + b * st.qb + h * st.qh;
   const float* kb = k + b * st.kb + hk * st.kh;

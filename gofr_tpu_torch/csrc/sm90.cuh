@@ -17,6 +17,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// Device-side index checks. The opt-in debug build (ops/flash.py,
+// FLASH_DEBUG_BUILD=1) defines GOFR_FLASH_DEBUG: a failed check stops the
+// kernel with cudaErrorAssert and prints its file, line, block and thread.
+// The default build compiles them to nothing.
+#ifdef GOFR_FLASH_DEBUG
+#include <assert.h>
+#define GOFR_DCHECK(cond) assert(cond)
+#else
+#define GOFR_DCHECK(cond) ((void)0)
+#endif
+
 namespace {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {

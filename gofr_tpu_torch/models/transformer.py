@@ -207,6 +207,16 @@ class Transformer(nn.Module):
 
     forward = transformer_forward
 
+    @torch.no_grad()
+    def score_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Teacher-forced scoring: [B, S] ids -> [B, S-1] f32 where
+        ``out[:, i-1] = log p(t_i | t_<i)`` (completions echo + logprobs).
+        One cache-free causal forward, so every layer's attention is the
+        flash forward at Sq = Skv = S; causal attention keeps a bucket's
+        zero padding invisible to the real positions before it."""
+        lps = torch.log_softmax(self.transformer_forward(tokens), dim=-1)
+        return torch.gather(lps[:, :-1], 2, tokens[:, 1:, None].long())[..., 0]
+
     # -- KV-cached ragged-batch serving path ------------------------------------
     def init_cache(self, batch: int, max_seq: Optional[int] = None) -> dict:
         """Zeroed cache [n_layers, B, max_seq, n_kv_heads, head_dim] plus
@@ -281,7 +291,7 @@ class Transformer(nn.Module):
         return self._forward_with_cache(token, cache, None)
 
     @torch.no_grad()
-    def decode_chunk(
+    def decode_chunk_pool(
         self,
         token: torch.Tensor,
         cache: dict,
@@ -291,41 +301,15 @@ class Transformer(nn.Module):
         top_k: Any = 0,
         top_p: Any = 1.0,
         min_p: Any = 0.0,
-    ) -> tuple[torch.Tensor, dict]:
-        """``n_steps`` autoregressive steps with on-device sampling and no
-        host sync between steps. ``token`` [B, 1] is the last known token;
-        returns sampled ids [B, n_steps] (int32) and the advanced cache.
-        A scalar ``temperature`` of 0 is greedy."""
-        greedy = isinstance(temperature, (int, float)) and temperature <= 0.0
-        toks = []
-        for _ in range(n_steps):
-            logits, cache = self.decode_step(token, cache)
-            if greedy:
-                nxt = torch.argmax(logits, dim=-1)
-            else:
-                nxt = sample_logits_rows(logits, generator, temperature, top_k, top_p, min_p)
-            token = nxt.to(torch.int32)[:, None]
-            toks.append(token)
-        return torch.cat(toks, dim=1), cache
-
-    @torch.no_grad()
-    def decode_chunk_pool(
-        self,
-        token: torch.Tensor,
-        cache: dict,
-        n_steps: int,
-        generator: Optional[torch.Generator],
-        temperature: Any,
-        top_k: Any,
-        top_p: Any,
-        min_p: Any = 0.0,
         all_greedy: Optional[bool] = None,
     ) -> tuple:
-        """The decode pool's chunk: ``n_steps`` steps over every slot with
-        PER-ROW sampling knobs ([B] tensors or scalars) from one device
-        ``generator``, no host sync between steps. ``all_greedy`` (known on
-        the host) skips the sampling sort. The chosen tokens' RAW logprobs
-        and the top-``TOP_LOGPROBS`` alternatives ride every step. Returns
+        """The decode chunk of the pool and of solo decode (B = 1):
+        ``n_steps`` autoregressive steps with PER-ROW sampling knobs ([B]
+        tensors or scalars; a scalar temperature of 0 is greedy) from one
+        device ``generator``, no host sync between steps. ``token`` [B, 1]
+        is the last known token. ``all_greedy`` (known on the host) skips
+        the sampling sort. The chosen tokens' RAW logprobs and the
+        top-``TOP_LOGPROBS`` alternatives ride every step. Returns
         (tokens [B, n_steps] int32, logprobs [B, n_steps] f32, top values
         [B, n_steps, TOP_LOGPROBS] f32, top ids [B, n_steps, TOP_LOGPROBS]
         int32, the feed-forward token [B, 1] int32, the cache)."""

@@ -1,15 +1,37 @@
-"""OpenAI-compatible ``POST /v1/completions`` over the inference device
-(port of ``gofr_tpu/openai/``; chat, embeddings and models wait for a
-later slice)."""
+"""OpenAI-compatible routes over the inference device (port of
+``gofr_tpu/openai/``). ``register_openai_routes(app)`` adds:
+
+- ``POST /v1/completions``: prompt in, text out; ``"stream": true``
+  switches to SSE frames ending in ``data: [DONE]``; logprobs and
+  top-logprobs, echo (with teacher-forced prompt scoring), n/best_of;
+- ``POST /v1/chat/completions``: messages in, assistant message out,
+  through the chat template (``openai/template.py``);
+- ``GET /v1/models``: the served model.
+
+Modules: ``parse`` (request knobs, stops, fan-out constraints),
+``template`` (chat prompts), ``logprobs`` (response logprob objects),
+``fanout`` (candidate generation and the multi-index SSE driver),
+``completions``, ``chat`` and ``embeddings`` (the endpoints). The port
+does not yet serve ``/v1/embeddings``, penalties, ``logit_bias`` or
+adapters.
+"""
 
 from __future__ import annotations
 
 from typing import Any
 
+from gofr_tpu_torch.openai.chat import chat_completions
 from gofr_tpu_torch.openai.completions import completions
+from gofr_tpu_torch.openai.embeddings import list_models
+from gofr_tpu_torch.openai.template import render_chat_prompt
 
-__all__ = ["register_openai_routes", "completions"]
+__all__ = [
+    "register_openai_routes", "completions", "chat_completions", "list_models",
+    "render_chat_prompt",
+]
 
 
 def register_openai_routes(app: Any) -> None:
     app.post("/v1/completions", completions)
+    app.post("/v1/chat/completions", chat_completions)
+    app.get("/v1/models", list_models)

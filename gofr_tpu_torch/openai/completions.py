@@ -1,7 +1,10 @@
-"""POST /v1/completions: prompt in, text out; SSE chunks when streaming.
+"""POST /v1/completions: prompt in, text out; SSE frames when streaming;
+echo, and echo + logprobs teacher-forced scoring; logprobs objects; the
+n/best_of fan-out and its interleaved multi-index SSE; the
+``stream_options.include_usage`` frame.
 
-Port of ``gofr_tpu/openai/completions.py`` for one candidate (n = 1)
-without echo or logprobs. The response bodies have the JAX package's
+Port of ``gofr_tpu/openai/completions.py`` without flight records,
+``X-Resume-From`` or adapters. The response bodies have the JAX package's
 shape: a top-level ``text_completion`` object (no ``{"data": ...}``
 envelope) with ``choices`` and ``usage``; without a tokenizer each choice
 also carries its ``tokens``. Streaming frames are ``data: {...}`` chunks
@@ -18,62 +21,78 @@ from typing import Any
 
 from gofr_tpu_torch.errors import HTTPError
 from gofr_tpu_torch.http.response import Raw, Stream
-from gofr_tpu_torch.openai.parse import StopScanner, parse_request, prompt_tokens
-
-
-def _generate_with_stops(
-    ctx: Any, prompt_ids: list, max_tokens: int, sampler: Any, stop_ids: Any,
-    stop_strs: list,
-) -> tuple[list, str, str]:
-    """Generate through the stream bridge, matching stop strings host-side
-    and cancelling the decode at the first match. Returns (tokens, text
-    cut before the stop, finish_reason)."""
-    dec = ctx.tpu.tokenizer.stream_decoder()
-    scan = StopScanner(stop_strs)
-    it = ctx.tpu.generate_stream(prompt_ids, max_tokens, sampler=sampler, stop_tokens=stop_ids)
-    toks: list = []
-    parts: list = []
-    finish = None
-    try:
-        for t in it:
-            toks.append(t)
-            emit, done = scan.feed(dec.feed(t))
-            parts.append(emit)
-            if done:
-                finish = "stop"
-                break
-        if finish is None:
-            emit, done = scan.feed(dec.flush())
-            parts.append(emit)
-            if done:
-                finish = "stop"
-            else:
-                parts.append(scan.flush())
-                finish = "length" if len(toks) >= max_tokens else "stop"
-    finally:
-        it.close()
-    return toks, "".join(parts), finish
+from gofr_tpu_torch.openai.fanout import (
+    drive_stream_fanout,
+    error_frame,
+    fanout_generate,
+    index_feed_text,
+    index_tail_text,
+    stream_candidates,
+    usage_chunk,
+)
+from gofr_tpu_torch.openai.logprobs import logprobs_obj
+from gofr_tpu_torch.openai.parse import (
+    StopScanner,
+    parse_fanout,
+    parse_request,
+    prompt_tokens,
+    stream_usage_opt,
+)
 
 
 def _stream_completion(
-    ctx: Any, prompt_ids: list, max_tokens: int, sampler: Any, stop_ids: Any,
-    stop_strs: list, cmpl_id: str, created: int, model: str,
+    ctx: Any, body: dict, prompt_ids: list, max_tokens: int, sampler: Any, stop_ids: Any,
+    stop_strs: list, want_logprobs: bool, top_n: int, n: int, best_of: int, echo: bool,
+    cmpl_id: str, created: int, model: str, include_usage: bool,
 ) -> Stream:
+    """The SSE branch: per-token text frames with host-side stop matching,
+    ending in ``data: [DONE]``. ``n`` > 1 streams the candidates at once as
+    interleaved frames carrying their ``index``; greedy requests replicate
+    one stream across every index (as the non-stream fan-out does)."""
+    if best_of > n:
+        raise HTTPError(
+            400, '"best_of" > "n" is not supported when streaming (candidates cannot be '
+            "ranked and discarded mid-stream)"
+        )
+    if max_tokens == 0:
+        raise HTTPError(
+            400, 'streaming needs "max_tokens" >= 1 (use the non-stream form for pure echo '
+            "scoring)"
+        )
+    if top_n:
+        raise HTTPError(
+            400, "top-logprob alternatives are not supported when streaming; drop "
+            '"stream" or request chosen-token logprobs only'
+        )
     tok = ctx.tpu.tokenizer
 
-    def chunk(text: str, finish: Any = None, token: Any = None) -> str:
-        choice: dict[str, Any] = {"text": text, "index": 0, "finish_reason": finish}
+    def chunk(text: str, lp: Any = None, finish: Any = None, token: Any = None,
+              index: int = 0) -> str:
+        choice: dict[str, Any] = {"text": text, "index": index, "finish_reason": finish}
         if token is not None:
             choice["tokens"] = [token]  # id-only deployments
-        return json.dumps({
-            "id": cmpl_id, "object": "text_completion", "created": created,
-            "model": model, "choices": [choice],
-        })
+        if want_logprobs:
+            choice["logprobs"] = {"token_logprobs": [lp]} if lp is not None else None
+        frame = {"id": cmpl_id, "object": "text_completion", "created": created,
+                 "model": model, "choices": [choice]}
+        if include_usage:
+            frame["usage"] = None
+        return json.dumps(frame)
 
-    # built outside events(): a bad parameter 400s before the SSE 200
+    def usage_frame(completion_tokens: int) -> str:
+        return usage_chunk("text_completion", cmpl_id, created, model, len(prompt_ids),
+                           completion_tokens)
+
+    # built outside the generator: a bad parameter 400s before the SSE 200
     cancel = threading.Event()
+    if n > 1:
+        return _stream_completion_fanout(
+            ctx, body, prompt_ids, max_tokens, sampler, stop_ids, stop_strs, want_logprobs,
+            n, echo, chunk, usage_frame if include_usage else None, cancel,
+        )
     stream_iter = ctx.tpu.generate_stream(
-        prompt_ids, max_tokens, sampler=sampler, stop_tokens=stop_ids, cancel=cancel
+        prompt_ids, max_tokens, sampler=sampler, stop_tokens=stop_ids, cancel=cancel,
+        logprobs=want_logprobs,
     )
 
     def events():
@@ -82,19 +101,27 @@ def _stream_completion(
         dec = tok.stream_decoder() if tok is not None else None
         scan = StopScanner(stop_strs) if stop_strs else None
         try:
-            for token in stream_iter:
+            if echo:  # the prompt first, as the non-stream shape has it
+                if dec is not None:
+                    yield chunk(tok.decode(prompt_ids))
+                else:
+                    for t in prompt_ids:
+                        yield chunk("", token=t)
+            for item in stream_iter:
+                token, lp = item if want_logprobs else (item, None)
                 emitted += 1
                 if dec is None:
-                    yield chunk("", token=token)
+                    yield chunk("", lp, token=token)
                     continue
                 text = dec.feed(token)
                 if scan is not None:
                     text, done = scan.feed(text)
                     if done:
+                        # the matched token's text is cut, and its lp with it
                         yield chunk(text)
                         finish = "stop"
                         break
-                yield chunk(text)
+                yield chunk(text, lp)
             tail = dec.flush() if dec is not None else ""
             if finish is None:
                 if scan is not None:
@@ -107,18 +134,77 @@ def _stream_completion(
                     finish = "length" if emitted >= max_tokens else "stop"
             else:
                 tail = ""
-            yield chunk(tail, finish)
+            yield chunk(tail, None, finish)
+            if include_usage:
+                yield usage_frame(emitted)
             yield "[DONE]"
         except Exception as exc:
-            yield json.dumps({"error": {"message": str(exc)}})
+            yield error_frame(exc)
         finally:
             stream_iter.close()
 
     return Stream(events(), on_abort=cancel.set)
 
 
+def _stream_completion_fanout(
+    ctx: Any, body: dict, prompt_ids: list, max_tokens: int, sampler: Any, stop_ids: Any,
+    stop_strs: list, want_logprobs: bool, n: int, echo: bool, chunk: Any, usage_frame: Any,
+    cancel: threading.Event,
+) -> Stream:
+    """Interleaved multi-index SSE: the shared driver
+    (``drive_stream_fanout``) owns the replicate/multiplex loops, the
+    stop cancellation and the cleanup; this supplies the frame shapes."""
+    tok = ctx.tpu.tokenizer
+    replicate = sampler.greedy
+    iters = stream_candidates(ctx, body, prompt_ids, max_tokens, sampler, stop_ids,
+                              want_logprobs, 1 if replicate else n, cancel=cancel)
+    decs = [tok.stream_decoder() if tok is not None else None for _ in range(n)]
+    scans = [StopScanner(stop_strs) if stop_strs else None for _ in range(n)]
+    emitted = [0] * n
+    finish: list = [None] * n
+
+    def open_frames():
+        if not echo:
+            return
+        for i in range(n):
+            if tok is not None:
+                yield chunk(tok.decode(prompt_ids), index=i)
+            else:
+                for t in prompt_ids:
+                    yield chunk("", token=t, index=i)
+
+    def feed(i, token, lp):
+        text, stopped = index_feed_text(decs[i], scans[i], finish, i, emitted, token)
+        if text is None:  # id-only deployment: the tokens extension
+            return [chunk("", lp, token=token, index=i)]
+        if stopped:  # the matched token's lp is cut with its text
+            return [chunk(text, None, index=i)]
+        return [chunk(text, lp, index=i)]
+
+    def tail(i):
+        t = index_tail_text(decs[i], scans[i], finish, i, emitted, max_tokens)
+        return [chunk(t, None, finish[i], index=i)]
+
+    usage_frames = (lambda: [usage_frame(sum(emitted))]) if usage_frame is not None else None
+    return Stream(
+        drive_stream_fanout(iters, replicate, n, finish, want_logprobs, open_frames, feed,
+                            tail, usage_frames),
+        on_abort=cancel.set,
+    )
+
+
 def completions(ctx: Any) -> Any:
-    body, max_tokens, sampler, stop_ids, stop_strs = parse_request(ctx, default_max=16)
+    body, max_tokens, sampler, stop_ids, stop_strs, want_logprobs, top_n = parse_request(
+        ctx, default_max=16
+    )
+    n, best_of, echo = parse_fanout(body, allow_best_of=True)
+    if echo and want_logprobs and body.get("stream"):
+        raise HTTPError(400, '"echo" with "logprobs" is not supported when streaming')
+    if top_n and stop_strs:
+        raise HTTPError(
+            400, "top-logprob alternatives with multi-token stop sequences are not "
+            'supported; use "stop_token_ids"'
+        )
     if "prompt" not in body:
         # almost always a misspelled key: a default prompt would 200 on garbage
         raise HTTPError(400, 'missing "prompt"')
@@ -127,31 +213,60 @@ def completions(ctx: Any) -> Any:
     created = int(time.time())  # OpenAI `created` is epoch seconds
     cmpl_id = f"cmpl-{uuid.uuid4().hex[:24]}"
     tok = ctx.tpu.tokenizer
+    include_usage = stream_usage_opt(body)  # validated even without stream
     if body.get("stream"):
         return _stream_completion(
-            ctx, prompt_ids, max_tokens, sampler, stop_ids, stop_strs, cmpl_id, created, model
+            ctx, body, prompt_ids, max_tokens, sampler, stop_ids, stop_strs, want_logprobs,
+            top_n, n, best_of, echo, cmpl_id, created, model, include_usage,
         )
-    if stop_strs:
-        out, text, finish = _generate_with_stops(
-            ctx, prompt_ids, max_tokens, sampler, stop_ids, stop_strs
-        )
+    prompt_lps = None
+    if echo and want_logprobs:
+        # teacher-forced prompt scoring, null for the first token (no
+        # conditional): the OpenAI convention and the eval-harness
+        # loglikelihood pattern
+        prompt_lps = [None] + ctx.tpu.score(prompt_ids)
+    if max_tokens == 0:  # pure scoring (echo only, enforced at parse)
+        results = [([], [] if want_logprobs else None, [] if top_n else None, None,
+                    "length")] * n
+        generated = 0
     else:
-        out = ctx.tpu.generate(prompt_ids, max_tokens, sampler=sampler, stop_tokens=stop_ids)
-        text = tok.decode(out) if tok is not None else ""
-        finish = "length" if len(out) >= max_tokens else "stop"
-    choice: dict[str, Any] = {"text": text, "index": 0, "finish_reason": finish, "logprobs": None}
-    if tok is None:
-        choice["tokens"] = out
+        results, generated = fanout_generate(
+            ctx, body, prompt_ids, max_tokens, sampler, stop_ids, stop_strs, want_logprobs,
+            top_n, n, best_of,
+        )
+    choices = []
+    for i, (out, logprobs, tops, text, finish) in enumerate(results):
+        if text is None:
+            text_ids = (prompt_ids + out) if echo else out
+            text_val = tok.decode(text_ids) if tok is not None else ""
+            finish = "length" if len(out) >= max_tokens else "stop"
+        else:
+            # the stop scanner's text IS the completion; echo prepends the prompt
+            text_val = (tok.decode(prompt_ids) + text) if echo else text
+        lp_list, lp_ids = logprobs, out
+        if prompt_lps is not None:
+            lp_list = prompt_lps + (logprobs or [])
+            lp_ids = prompt_ids + out
+        lp_obj = None
+        if lp_list is not None:
+            lp_obj = logprobs_obj(
+                tok, lp_list, lp_ids, tops, top_n,
+                prompt_positions=len(prompt_ids) if prompt_lps is not None else 0,
+            )
+        choice: dict[str, Any] = {"text": text_val, "index": i, "finish_reason": finish,
+                                  "logprobs": lp_obj}
+        if tok is None:
+            choice["tokens"] = (prompt_ids + out) if echo else out
+        choices.append(choice)
     return Raw({
         "id": cmpl_id,
         "object": "text_completion",
         "created": created,
         "model": model,
-        "choices": [choice],
+        "choices": choices,
         "usage": {
             "prompt_tokens": len(prompt_ids),
-            "completion_tokens": len(out),
-            "total_tokens": len(prompt_ids) + len(out),
+            "completion_tokens": generated,
+            "total_tokens": len(prompt_ids) + generated,
         },
     })
-

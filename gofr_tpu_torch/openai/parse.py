@@ -1,7 +1,8 @@
-"""Request parsing for ``/v1/completions`` (trimmed from
+"""Request parsing shared by the OpenAI endpoints (trimmed from
 ``gofr_tpu/openai/parse.py``): prompts, stops (device ids plus host-matched
-strings) and sampling knobs. Knobs this port cannot honor yet are a clear
-400, never a silent ignore."""
+strings), sampling knobs, logprobs and top-logprobs, ``stream_options`` and
+the n/best_of/echo fan-out constraints. Knobs this port cannot honor yet
+are a clear 400, never a silent ignore."""
 
 from __future__ import annotations
 
@@ -11,10 +12,14 @@ from gofr_tpu_torch.errors import HTTPError
 
 # OpenAI knobs the JAX package serves that this port does not yet
 _NOT_PORTED = (
-    "suffix", "logprobs", "top_logprobs", "echo", "presence_penalty",
-    "frequency_penalty", "repetition_penalty", "logit_bias", "stream_options",
-    "adapter", "tools", "tool_choice", "functions", "function_call",
+    "presence_penalty", "frequency_penalty", "repetition_penalty", "logit_bias", "adapter",
 )
+# knobs that would change what the model is ASKED to do: silently ignoring
+# them serves wrong output to a client that believes its tools were offered
+_REFUSED = ("tools", "tool_choice", "functions", "function_call", "modalities", "audio",
+            "prediction")
+
+FANOUT_CAP = 16  # pool-slot-scale bound on n/best_of; beyond it is a 400
 
 
 def prompt_tokens(ctx: Any, prompt: Any) -> list[int]:
@@ -22,8 +27,8 @@ def prompt_tokens(ctx: Any, prompt: Any) -> list[int]:
         tok = ctx.tpu.tokenizer
         if tok is None:
             raise HTTPError(
-                400, "string prompt needs a tokenizer (set TOKENIZER=byte); "
-                "token-id lists work without one",
+                400, "string prompt needs a tokenizer (set TOKENIZER_PATH or "
+                "TOKENIZER=byte); token-id lists work without one",
             )
         ids = tok.encode(prompt)
         if not ids:
@@ -38,7 +43,9 @@ def prompt_tokens(ctx: Any, prompt: Any) -> list[int]:
 
 def parse_stops(ctx: Any, body: dict) -> tuple[frozenset, list]:
     """(device stop ids, host-matched stop strings). A stop string that
-    encodes to one token also stops on the device."""
+    encodes to one token stops on the device too; every string is also
+    matched on the host, since the same text can arrive through another
+    tokenization."""
     ids = set()
     raw_ids = body.get("stop_token_ids")
     if raw_ids is not None:
@@ -67,17 +74,23 @@ def parse_stops(ctx: Any, body: dict) -> tuple[frozenset, list]:
 class StopScanner:
     """Incremental multi-token stop matching with hold-back: ``feed``
     returns (emit, done) where ``emit`` never holds a stop string nor a
-    tail that could still grow into one."""
+    tail that could still grow into one. ``match_pos`` is the absolute
+    character offset of the matched stop."""
 
     def __init__(self, stops: list):
         self.stops = stops
         self.buf = ""
+        self.consumed = 0  # characters fed in all
+        self.match_pos = None
 
     def feed(self, text: str) -> tuple[str, bool]:
         self.buf += text
+        self.consumed += len(text)
         hits = [p for p in (self.buf.find(s) for s in self.stops) if p >= 0]
         if hits:
-            return self.buf[: min(hits)], True
+            idx = min(hits)
+            self.match_pos = self.consumed - len(self.buf) + idx
+            return self.buf[:idx], True
         hold = 0
         for s in self.stops:
             for k in range(min(len(s) - 1, len(self.buf)), 0, -1):
@@ -89,44 +102,138 @@ class StopScanner:
         return emit, False
 
     def flush(self) -> str:
+        """End of stream: held-back text can no longer become a stop."""
         emit, self.buf = self.buf, ""
         return emit
 
 
-def parse_request(ctx: Any, default_max: int) -> tuple:
-    """(body, max_tokens, sampler, stop_ids, stop_strs)."""
+def sampler_from_body(body: dict) -> Any:
+    """The request's Sampler with OpenAI's defaults (temperature 1.0);
+    explicit JSON nulls mean the default."""
     from gofr_tpu_torch.ops.sampling import Sampler
+
+    try:
+        return Sampler.from_body({
+            "temperature": 1.0, "top_p": 1.0,
+            **{k: v for k, v in body.items() if v is not None},
+        })
+    except (TypeError, ValueError) as exc:
+        raise HTTPError(400, f"invalid sampling params: {exc}") from None
+
+
+def parse_request(ctx: Any, default_max: int) -> tuple:
+    """The parse both endpoints share: (body, max_tokens, sampler,
+    stop_ids, stop_strs, want_logprobs, top_n)."""
+    from gofr_tpu_torch.models.transformer import TOP_LOGPROBS
 
     if ctx.tpu is None:
         raise HTTPError(503, "no model configured (set MODEL_NAME)")
     body = ctx.bind() if ctx.request.body else {}
     if not isinstance(body, dict):
         raise HTTPError(400, "request body must be a JSON object")
-    for key in _NOT_PORTED:
+    if body.get("suffix") is not None:
+        raise HTTPError(400, '"suffix" is not supported by this server')
+    for key in _REFUSED:
         value = body.get(key)
-        if value in (None, False) or (key == "tool_choice" and value == "none"):
-            continue
-        raise HTTPError(400, f'"{key}" is not supported by this server yet')
-    for key in ("n", "best_of"):
-        if body.get(key) not in (None, 1):
-            raise HTTPError(400, f'"{key}" other than 1 is not supported by this server yet')
+        if value is None or (key == "tool_choice" and value == "none"):
+            continue  # "none" is the documented no-tools default
+        raise HTTPError(400, f'"{key}" is not supported by this server')
+    for key in _NOT_PORTED:
+        if body.get(key) not in (None, False):
+            raise HTTPError(400, f'"{key}" is not supported by this server yet')
+    rf = body.get("response_format")
+    if rf is not None and not (isinstance(rf, dict) and rf.get("type") == "text"):
+        # {"type": "text"} is the default; constrained JSON output is not
+        # implemented, and a client trusting it would parse free text
+        raise HTTPError(
+            400, '"response_format" types other than "text" are not supported by this '
+            "server (no constrained decoding)"
+        )
     requested = body.get("model")
     if isinstance(requested, str) and requested != ctx.tpu.model_name:
         raise HTTPError(404, f"model '{requested}' not found (serving: {ctx.tpu.model_name})")
+    # max_tokens=0 is legal only with echo: pure prompt scoring
     max_tokens = body.get("max_tokens")
     if max_tokens is None:
         max_tokens = default_max
-    if not isinstance(max_tokens, int) or isinstance(max_tokens, bool) or max_tokens < 1:
-        raise HTTPError(400, '"max_tokens" must be a positive integer')
-    try:
-        # OpenAI semantics default to temperature 1.0; explicit nulls mean
-        # the default
-        sampler = Sampler.from_body({
-            "temperature": 1.0, "top_p": 1.0,
-            **{k: v for k, v in body.items() if v is not None},
-        })
-    except (TypeError, ValueError) as exc:
-        raise HTTPError(400, f"invalid sampling params: {exc}") from None
+    floor = 0 if body.get("echo") is True else 1
+    if not isinstance(max_tokens, int) or isinstance(max_tokens, bool) or max_tokens < floor:
+        raise HTTPError(
+            400, '"max_tokens" must be a positive integer'
+            + (" (0 allowed with echo)" if floor == 0 else ""),
+        )
+    sampler = sampler_from_body(body)
     stop_ids, stop_strs = parse_stops(ctx, body)
-    return body, max_tokens, sampler, stop_ids, stop_strs
+    # alternatives: an integer logprobs >= 2 (the completions form) or the
+    # chat-style "top_logprobs" key, which wins when both are present;
+    # logprobs 1/true stays chosen-token-only
+    lp_req = body.get("logprobs")
+    want_logprobs = lp_req not in (None, False, 0)
+    top_n = 0
+    if isinstance(lp_req, int) and not isinstance(lp_req, bool) and lp_req >= 2:
+        top_n = lp_req
+    tl = body.get("top_logprobs")
+    if tl is not None:
+        if not isinstance(tl, int) or isinstance(tl, bool) or tl < 0:
+            raise HTTPError(400, '"top_logprobs" must be an integer >= 0')
+        top_n = tl
+        if tl > 0:
+            want_logprobs = True
+    if top_n > TOP_LOGPROBS:
+        raise HTTPError(
+            400, f'the maximum value for "logprobs"/"top_logprobs" is {TOP_LOGPROBS}'
+        )
+    return body, max_tokens, sampler, stop_ids, stop_strs, want_logprobs, top_n
 
+
+def stream_usage_opt(body: dict) -> bool:
+    """OpenAI ``stream_options``: {"include_usage": true} asks for ONE
+    final pre-[DONE] frame with empty choices and the usage object (and
+    "usage": null on every other frame). Only legal with stream."""
+    so = body.get("stream_options")
+    if so is None:
+        return False
+    if not isinstance(so, dict):
+        raise HTTPError(400, '"stream_options" must be an object')
+    if not body.get("stream"):
+        raise HTTPError(400, '"stream_options" is only allowed with "stream": true')
+    unknown = set(so) - {"include_usage"}
+    if unknown:
+        # a misspelled include_usage must not stream without its usage frame
+        raise HTTPError(400, f'unknown "stream_options" keys: {sorted(unknown)}')
+    inc = so.get("include_usage", False)
+    if not isinstance(inc, bool):
+        raise HTTPError(400, '"stream_options.include_usage" must be a boolean')
+    return inc
+
+
+def parse_fanout(body: dict, allow_best_of: bool) -> tuple[int, int, bool]:
+    """(n, best_of, echo) with OpenAI's constraints: best_of >= n, both
+    capped at ``FANOUT_CAP``, best_of and echo completions-only."""
+
+    def positive(key: str, default: int) -> int:
+        value = body.get(key)
+        if value is None:
+            return default
+        if not isinstance(value, int) or isinstance(value, bool) or value < 1:
+            raise HTTPError(400, f'"{key}" must be a positive integer')
+        if value > FANOUT_CAP:
+            raise HTTPError(400, f'"{key}" is capped at {FANOUT_CAP} on this server')
+        return value
+
+    n = positive("n", 1)
+    best_of = positive("best_of", 1)  # type- and range-checked on both endpoints
+    if not allow_best_of and best_of != 1:
+        raise HTTPError(400, '"best_of" is a completions-only parameter')
+    if body.get("best_of") is not None and best_of < n:
+        raise HTTPError(400, '"best_of" must be >= "n"')
+    best_of = max(n, best_of)
+    echo = body.get("echo")
+    if echo is None:
+        echo = False
+    elif not isinstance(echo, bool):
+        # bool("false") is True: a loud 400 beats echoing against the ask
+        raise HTTPError(400, '"echo" must be a boolean')
+    if not allow_best_of and echo:
+        raise HTTPError(400, '"echo" is a completions-only parameter')
+    return n, best_of, echo

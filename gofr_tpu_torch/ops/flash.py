@@ -41,7 +41,10 @@ Dispatch is by the tensor's device: a CPU tensor runs the plain version
 launches the kernel or raises. Every ``csrc/*.cu`` is compiled with
 ``nvcc`` for ``sm_90a`` at first use into one library under
 ``gofr_tpu_torch/_build/`` and loaded with ``ctypes``; a failed build
-raises.
+raises. ``FLASH_DEBUG_BUILD=1`` in the environment builds instead the debug
+library (``DEBUG_FLAGS``: the device-side index checks of
+``csrc/sm90.cuh::GOFR_DCHECK`` compiled in) into ``_build/debug/``, for
+hunting a device fault; the default build is unchanged by it.
 """
 
 from __future__ import annotations
@@ -72,6 +75,13 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 )
+# the debug build: NVCC_FLAGS plus the device-side index checks
+DEBUG_FLAGS = ("-DGOFR_FLASH_DEBUG",)
+
+
+def debug_build() -> bool:
+    """Whether this process builds (and launches) the debug library."""
+    return os.environ.get("FLASH_DEBUG_BUILD", "") == "1"
 
 
 class LaunchCounter:
@@ -224,28 +234,31 @@ def build() -> _Built:
     """Compile every ``csrc/*.cu`` (one nvcc per source, all at once) and
     link them into one library, once per process and per hash of the
     sources, headers and flags; then load it. Raises RuntimeError with
-    nvcc's output if a step fails."""
+    nvcc's output if a step fails. Under ``FLASH_DEBUG_BUILD=1`` the
+    library is the debug build (``DEBUG_FLAGS``, in ``_build/debug/``)."""
     global _built
     with _build_lock:
         if _built is not None:
             return _built
+        flags = NVCC_FLAGS + (DEBUG_FLAGS if debug_build() else ())
+        build_dir = BUILD_DIR / "debug" if debug_build() else BUILD_DIR
         sources = _sources()
-        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(" ".join(flags).encode())
         for src in sources + sorted(CSRC.glob("*.cuh")):
             digest.update(src.name.encode() + src.read_bytes())
         tag = digest.hexdigest()[:16]
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        path = BUILD_DIR / f"libflash_{tag}.so"
+        build_dir.mkdir(parents=True, exist_ok=True)
+        path = build_dir / f"libflash_{tag}.so"
         start = time.perf_counter()
         log = ""
         if not path.exists():
             nvcc = _nvcc()
-            tmp = BUILD_DIR / f"{tag}.{os.getpid()}"
+            tmp = build_dir / f"{tag}.{os.getpid()}"
             tmp.mkdir(exist_ok=True)
             objs = [tmp / f"{src.stem}.o" for src in sources]
             procs = [
                 subprocess.Popen(
-                    [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                    [nvcc, *flags, "-c", "-o", str(obj), str(src)],
                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
                 )
                 for src, obj in zip(sources, objs)
@@ -255,7 +268,7 @@ def build() -> _Built:
             failed = [src.name for src, proc in zip(sources, procs) if proc.returncode != 0]
             if not failed:
                 link = subprocess.run(
-                    [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp / "lib.so"), *map(str, objs)],
+                    [nvcc, *flags, "-shared", "-o", str(tmp / "lib.so"), *map(str, objs)],
                     capture_output=True, text=True,
                 )
                 log += link.stdout + link.stderr

@@ -101,7 +101,7 @@ def main() -> int:
     runner.run_batch([long])
     cache = state["cache"]
     token = torch.tensor([[state["next_token"]]], device=dev)
-    model.decode_chunk(token, cache, 2)
+    model.decode_chunk_pool(token, cache, 2)
 
     _profiled("prefill bucket 128, batch 4 (1 real row)", lambda: runner.run_batch([short]))
     _profiled("prefill bucket 1024, batch 4 (1 real row)", lambda: runner.run_batch([long]))
@@ -110,17 +110,17 @@ def main() -> int:
     token = torch.tensor([[state["next_token"]]], device=dev)
     row = _profiled(
         f"decode {STEPS} steps, batch 1, cache ~{len(short)} tokens",
-        lambda: model.decode_chunk(token, cache, STEPS),
+        lambda: model.decode_chunk_pool(token, cache, STEPS),
     )
     print(f"decode: {row['wall_ms'] / STEPS:.2f} ms/step wall, "
           f"{row['kernel_launches'] / STEPS:.0f} kernel launches/step", flush=True)
     state = runner.run_batch([longest])[0]
     cache = state["cache"]
     token = torch.tensor([[state["next_token"]]], device=dev)
-    model.decode_chunk(token, cache, 1)  # warm the longer attention shape
+    model.decode_chunk_pool(token, cache, 1)  # warm the longer attention shape
     row = _profiled(
         f"decode {STEPS} steps, batch 1, cache ~{len(longest)} tokens",
-        lambda: model.decode_chunk(token, cache, STEPS),
+        lambda: model.decode_chunk_pool(token, cache, STEPS),
     )
     print(f"decode long cache: {row['wall_ms'] / STEPS:.2f} ms/step wall", flush=True)
     pooled(runner, rng)

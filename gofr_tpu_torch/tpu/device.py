@@ -15,13 +15,17 @@ package's serving defaults (``serving_options``): ``DECODE_POOL`` (on),
 ``KV_PAGED`` (on), ``KV_BLOCK_TOKENS`` (64), ``KV_BLOCKS`` (0 = auto),
 ``PREFIX_CACHE`` (0), ``PREFIX_LCP_MIN`` (0 = smallest bucket, -1 = exact
 only), ``PREFILL_CHUNK_TOKENS`` (0 = off), ``SCHED_POLICY`` (fair) and
-``SCHED_MAX_DEFER_MS`` (1000).
+``SCHED_MAX_DEFER_MS`` (1000). Default stops: ``GEN_STOP_EOS=off`` (none),
+else ``GEN_STOP_TOKENS`` (ids), else the tokenizer's EOS.
 
 A request goes: prefix lookup (exact hit, or the longest common prefix
 with a tail prefill), else chunked prefill (prompts longer than the largest
 bucket or over ``PREFILL_CHUNK_TOKENS``) or the dynamic batcher; then the
 prefix store; then a decode-pool slot, or solo chunked decode when the
-pool is off, full or closed, or the request carries a seed. Served
+pool is off, full or closed, or the request carries a seed. Logprobs (and
+the top-``TOP_LOGPROBS`` alternatives) ride every decode chunk, pooled or
+solo; the first token's come from the prefill logits. ``score`` runs one
+cache-free forward over a prompt bucket (teacher-forced scoring). Served
 weights: bf16 (or the config's dtype) dense; no draft model, no LoRA, no
 penalties.
 """
@@ -40,7 +44,7 @@ import torch
 
 from gofr_tpu_torch.errors import InvalidParamError
 from gofr_tpu_torch.models.llama import CONFIGS
-from gofr_tpu_torch.models.transformer import Transformer
+from gofr_tpu_torch.models.transformer import TOP_LOGPROBS, Transformer
 from gofr_tpu_torch.ops.sampling import Sampler
 from gofr_tpu_torch.tokenizer import load_tokenizer
 from gofr_tpu_torch.tpu.batcher import DynamicBatcher, next_pow2, pack_token_rows
@@ -71,6 +75,28 @@ def resolve_device(name: str) -> torch.device:
     if name == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("TORCH_DEVICE=cuda but no CUDA device is visible")
     return torch.device(name)
+
+
+def resolve_default_stop_ids(config: Any, tokenizer: Any) -> frozenset:
+    """Default stop ids, which end EVERY generation (OpenAI semantics):
+    none under ``GEN_STOP_EOS=off``; else ``GEN_STOP_TOKENS`` (comma-separated
+    ids); else the tokenizer's EOS (none without a tokenizer). The JAX
+    package's ``generation_config.json`` source needs ``MODEL_PATH``, which
+    the port does not read yet."""
+    if config.get_or_default("GEN_STOP_EOS", "on") == "off":
+        return frozenset()
+    explicit = config.get("GEN_STOP_TOKENS")
+    if explicit:
+        try:
+            return frozenset(int(t) for t in str(explicit).split(",") if t.strip())
+        except ValueError:
+            raise ValueError("GEN_STOP_TOKENS must be comma-separated token ids") from None
+    if tokenizer is not None:
+        try:
+            return frozenset({tokenizer.special_id("eos")})
+        except ValueError:
+            pass
+    return frozenset()
 
 
 def serving_options(config: Any, max_batch: int) -> dict:
@@ -134,11 +160,8 @@ class TPUDevice:
         self.options = serving_options(config, self.max_batch)
         opts = self.options
         self.tokenizer = load_tokenizer(config)
-        # the tokenizer's EOS always ends generation (the JAX package's
-        # default stop); request stops compose with it
-        self.default_stop_ids = (
-            frozenset({self.tokenizer.special_id("eos")}) if self.tokenizer else frozenset()
-        )
+        # default stops end every generation; request stops compose with them
+        self.default_stop_ids = resolve_default_stop_ids(config, self.tokenizer)
         if self.device.type == "cuda":
             # bf16 products accumulate in f32 (models/quant.py::mm)
             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -237,19 +260,26 @@ class TPUDevice:
         stop: Optional[Any] = None,
         sampler: Optional[Sampler] = None,
         stop_tokens: Optional[Any] = None,
-    ) -> list[int]:
+        logprobs: bool = False,
+        top_logprobs: bool = False,
+    ) -> "list[int] | tuple":
         """Autoregressive generation (see the module docstring for the
         route). ``on_token`` receives each id as it decodes; ``stop`` (a
         threading.Event) aborts between chunks; ``tokens`` may be a str when
         a tokenizer is configured; ``sampler`` sets temperature/top-k/top-p
         (default greedy); ``stop_tokens`` end generation without being
-        emitted. Returns the ids."""
+        emitted. Returns the ids; with ``logprobs`` (ids, the chosen
+        tokens' raw log-softmax values), and ``on_token`` then receives
+        (id, logprob) pairs; with ``top_logprobs`` (ids, logprobs, tops),
+        tops[i] the ``TOP_LOGPROBS`` [(alt id, alt logprob), ...] at
+        position i, best first."""
         self.wait_ready()
         stop_tokens = frozenset(stop_tokens or ()) | self.default_stop_ids
         return self.runner.generate(
             self._encode(tokens), max_new_tokens, on_token=on_token, stop=stop,
             sampler=sampler, stop_tokens=stop_tokens, decode_pool=self.decode_pool,
             prefill_batcher=self.batcher, scheduler=self.scheduler,
+            logprobs=logprobs, top_logprobs=top_logprobs,
         )
 
     def generate_stream(
@@ -258,10 +288,13 @@ class TPUDevice:
         max_new_tokens: int = 32,
         sampler: Optional[Sampler] = None,
         stop_tokens: Optional[Any] = None,
-        cancel: Optional[threading.Event] = None,
+        cancel: Optional[Any] = None,
+        logprobs: bool = False,
     ) -> Any:
-        """Iterator of token ids as they decode (the SSE bridge). Closing it,
-        or setting ``cancel``, stops the background decode within a chunk."""
+        """Iterator of token ids as they decode (the SSE bridge), or of
+        (id, logprob) pairs with ``logprobs``. Closing it, or setting
+        ``cancel`` (anything with ``set``/``is_set``), stops the background
+        decode within a chunk."""
         out: "queue.Queue" = queue.Queue()
         done = object()
         failure: list[BaseException] = []
@@ -271,7 +304,7 @@ class TPUDevice:
             try:
                 self.generate(
                     tokens, max_new_tokens, on_token=out.put, stop=stop,
-                    sampler=sampler, stop_tokens=stop_tokens,
+                    sampler=sampler, stop_tokens=stop_tokens, logprobs=logprobs,
                 )
             except BaseException as exc:  # re-raised on the consumer side
                 failure.append(exc)
@@ -292,6 +325,12 @@ class TPUDevice:
                 stop.set()
 
         return iterate()
+
+    def score(self, tokens: Any) -> list[float]:
+        """Teacher-forced prompt scoring: log p(t_i | t_<i) for i >= 1
+        (see the runner's ``score``)."""
+        self.wait_ready()
+        return self.runner.score(self._encode(tokens))
 
     def close(self) -> None:
         """Stop the pool (its worker joined; a stream still decoding gets
@@ -534,12 +573,16 @@ class _TransformerRunner:
         decode_pool: Optional[DecodePool] = None,
         prefill_batcher: Optional[DynamicBatcher] = None,
         scheduler: Any = None,
-    ) -> list[int]:
+        logprobs: bool = False,
+        top_logprobs: bool = False,
+    ) -> "list[int] | tuple":
+        if top_logprobs:
+            logprobs = True  # alternatives imply the chosen tokens' values
         sampler = sampler or Sampler()
         stop_tokens = frozenset(stop_tokens or ())
         ids = self.prepare(tokens)
         state = (
-            self._prefix_lookup(ids, need_logits=not sampler.greedy)
+            self._prefix_lookup(ids, need_logits=logprobs or not sampler.greedy)
             if self._prefix_cache is not None else None
         )
         if state is None:
@@ -556,18 +599,28 @@ class _TransformerRunner:
             if self._prefix_cache is not None:
                 self._prefix_store(ids, state)
         out: list[int] = []
+        lps: list[float] = []
+        tops: list = []  # per token: [(alt id, alt logprob)] * TOP_LOGPROBS
+
+        def done() -> Any:
+            if top_logprobs:
+                return out, lps, tops
+            return (out, lps) if logprobs else out
+
         if sampler.greedy:
             token = state["next_token"]
         else:
             with torch.no_grad():
                 token = sampler.pick(state["logits"])
         if token in stop_tokens:
-            return out
+            return done()
         out.append(token)
+        if logprobs:
+            _first_logprobs(state["logits"], token, top_logprobs, lps, tops)
         if on_token:
-            on_token(token)
+            on_token((token, lps[-1]) if logprobs else token)
         if max_new_tokens <= 1:
-            return out
+            return done()
         # seed the prefix cache with the finish-time conversation KV: a
         # follow-up turn then reuses the whole conversation
         seed_kv = self._prefix_cache is not None
@@ -575,31 +628,36 @@ class _TransformerRunner:
             try:
                 slot_q = decode_pool.submit(
                     _row_of(state), state["length"], token, max_new_tokens - 1, sampler, stop,
-                    stop_tokens=stop_tokens, want_kv=seed_kv,
+                    stop_tokens=stop_tokens, want_logprobs=logprobs,
+                    want_top_logprobs=top_logprobs, want_kv=seed_kv,
                 )
             except (queue.Full, RuntimeError):
                 slot_q = None  # pool saturated/closed -> solo decode below
             if slot_q is not None:
                 state = None  # release the batch's prefill buffers
-                kv_row = self._consume_pool(slot_q, out, on_token, stop)
+                kv_row = self._consume_pool(
+                    slot_q, out, lps, tops, logprobs, top_logprobs, on_token, stop
+                )
                 if kv_row is not None:
                     self._prefix_store_generation(ids, out, kv_row, sampler)
-                return out
+                return done()
         cache, cache_len = state["cache"], state["length"]
         state = None  # release the batch's prefill buffers
         cache = self._solo_decode(
-            cache, cache_len, token, out, max_new_tokens, sampler, stop, stop_tokens, on_token,
+            cache, cache_len, token, out, lps, tops, max_new_tokens, sampler, stop,
+            stop_tokens, on_token, logprobs, top_logprobs,
         )
         if seed_kv:
             self._prefix_store_generation(ids, out, cache, sampler)
-        return out
+        return done()
 
-    def _consume_pool(self, slot_q: Any, out: list, on_token: Any,
-                      stop: Any) -> Optional[dict]:
-        """Drain a pool slot's queue into ``out``, re-raising a worker
-        failure and honoring cancellation (emission stops at once; the pool
-        frees the slot at its next delivery). Returns the finish-time KV
-        row when one was asked for, else None."""
+    def _consume_pool(self, slot_q: Any, out: list, lps: list, tops: list, logprobs: bool,
+                      top_logprobs: bool, on_token: Any, stop: Any) -> Optional[dict]:
+        """Drain a pool slot's queue into ``out`` (and ``lps``/``tops``:
+        its bursts are then (id, logprob, alternatives | None) triples),
+        re-raising a worker failure and honoring cancellation (emission
+        stops at once; the pool frees the slot at its next delivery).
+        Returns the finish-time KV row when one was asked for, else None."""
         kv_row = None
         while True:
             item = slot_q.get()
@@ -611,26 +669,35 @@ class _TransformerRunner:
                 kv_row = item[1]
                 continue
             for t in item:  # one burst list per decoded chunk
+                if logprobs:
+                    t, lp, t_tops = t
+                    lps.append(lp)
+                    if top_logprobs:
+                        tops.append(t_tops)
                 out.append(t)
                 if on_token:
-                    on_token(t)
+                    on_token((t, lps[-1]) if logprobs else t)
                 if stop is not None and stop.is_set():
                     return None  # cancelled: the row may still be mid-write
 
     @torch.no_grad()
     def _solo_decode(
-        self, cache: dict, cache_len: int, token: int, out: list, max_new_tokens: int,
-        sampler: Sampler, stop: Any, stop_tokens: frozenset, on_token: Any,
+        self, cache: dict, cache_len: int, token: int, out: list, lps: list, tops: list,
+        max_new_tokens: int, sampler: Sampler, stop: Any, stop_tokens: frozenset,
+        on_token: Any, logprobs: bool, top_logprobs: bool,
     ) -> dict:
-        """Chunked decode: ``decode_chunk_size`` steps per dispatch with
-        on-device sampling. Pipelined: each chunk's ids start their copy to
-        pinned host memory right after its dispatch (``HostFetch``), then
-        chunk N+1 is enqueued (its input token stays on the card), then
-        chunk N's copy is waited for: the wait covers chunk N and its copy,
-        not chunk N+1, which runs meanwhile. Stop conditions lag by at most
-        one chunk, whose ids are dropped. Every dispatch runs the full chunk
-        unless the cache end forces a short one. Returns the final cache
-        (every dispatched chunk's writes landed)."""
+        """Chunked decode through the pool's chunk function at B = 1
+        (``decode_chunk_pool``: on-device sampling, the chosen logprobs and
+        the top-k alternatives in every step), ``decode_chunk_size`` steps
+        per dispatch. Pipelined: each chunk's outputs start their copy to
+        pinned host memory right after its dispatch (``HostFetch``; the
+        logprobs only when asked for), then chunk N+1 is enqueued (its input
+        token stays on the card), then chunk N's copy is waited for: the
+        wait covers chunk N and its copy, not chunk N+1, which runs
+        meanwhile. Stop conditions lag by at most one chunk, whose ids are
+        dropped. Every dispatch runs the full chunk unless the cache end
+        forces a short one. Returns the final cache (every dispatched
+        chunk's writes landed)."""
         max_len = int(cache["k"].shape[2])
         greedy = sampler.greedy
         gen = None if greedy else sampler.generator(self.device)
@@ -648,29 +715,57 @@ class _TransformerRunner:
                 and cache_len + in_flight < max_len
             ):
                 n = min(self.decode_chunk_size, max_len - cache_len - in_flight)
-                toks_dev, cache = self.model.decode_chunk(token_dev, cache, n, gen, *knobs)
-                token_dev = toks_dev[:, -1:]
-                pending.append((HostFetch(toks_dev), n))
+                toks_dev, lps_dev, tvals, tids, token_dev, cache = self.model.decode_chunk_pool(
+                    token_dev, cache, n, gen, *knobs, all_greedy=greedy
+                )
+                outputs = (toks_dev, lps_dev) if logprobs else (toks_dev,)
+                pending.append((HostFetch(*outputs, *((tvals, tids) if top_logprobs else ())), n))
                 in_flight += n
             if not pending:
                 break
             fetch, n = pending.popleft()
-            toks = fetch.wait()[0]
+            arrays = fetch.wait()
             in_flight -= n
             cache_len += n
-            for t in toks[0, : min(n, max_new_tokens - len(out))].tolist():
+            for j, t in enumerate(arrays[0][0, : min(n, max_new_tokens - len(out))].tolist()):
                 if t in stop_tokens:
                     stopped = True
                     break
                 out.append(t)
+                if logprobs:
+                    lps.append(float(arrays[1][0, j]))
+                if top_logprobs:
+                    alts = zip(arrays[3][0, j].tolist(), arrays[2][0, j].tolist())
+                    tops.append([(int(i), float(v)) for i, v in alts])
                 if on_token:
-                    on_token(t)
+                    on_token((t, lps[-1]) if logprobs else t)
                 if stop is not None and stop.is_set():
                     stopped = True
                     break
             if len(out) >= max_new_tokens:
                 stopped = True
         return cache
+
+    @torch.no_grad()
+    def score(self, tokens: Any) -> list[float]:
+        """log p(t_i | t_<i) for every prompt position i >= 1 (completions
+        echo + logprobs): the prompt zero-padded to its bucket, one
+        ``score_tokens`` forward, the first n - 1 values. The length is
+        checked before ``prepare``, whose clip to the last max_seq tokens
+        would misalign the scores with the caller's prompt."""
+        if len(tokens) > self.buckets[-1]:
+            raise InvalidParamError(
+                f"prompt of {len(tokens)} tokens exceeds the largest bucket "
+                f"({self.buckets[-1]}): scoring needs one full-sequence forward"
+            )
+        ids = self.prepare(tokens)
+        n = int(ids.size)
+        if n < 2:
+            return []  # position 0 has no conditional
+        row = np.zeros((1, self._bucket_for(n)), np.int32)
+        row[0, :n] = ids
+        out = self.model.score_tokens(to_device(row, self.device))[0, : n - 1]
+        return [float(x) for x in out.tolist()]
 
     @torch.no_grad()
     def _chunked_prefill(self, ids: np.ndarray, bucket: Optional[int] = None,
@@ -814,6 +909,19 @@ class _TransformerRunner:
             self._prefix_cache[ids.tobytes()] = entry
             while len(self._prefix_cache) > self._prefix_cache_size:
                 self._prefix_cache.popitem(last=False)
+
+
+def _first_logprobs(logits: torch.Tensor, token: int, top_logprobs: bool, lps: list,
+                    tops: list) -> None:
+    """Append the first token's raw logprob from the prefill logits [V]
+    (and, asked for, its ``TOP_LOGPROBS`` alternatives, best first). The
+    top-k runs on the card: only its 5 pairs cross to the host."""
+    with torch.no_grad():
+        row = torch.log_softmax(logits.float().reshape(-1), dim=-1)
+        lps.append(float(row[token]))
+        if top_logprobs:
+            vals, idx = torch.topk(row, TOP_LOGPROBS)
+            tops.append([(int(i), float(v)) for i, v in zip(idx.tolist(), vals.tolist())])
 
 
 class _PagedPrefixStore:

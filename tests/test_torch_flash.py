@@ -142,6 +142,42 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         flash.build()
 
 
+@pytest.mark.parametrize("debug", [False, True])
+def test_debug_build_is_opt_in(monkeypatch, tmp_path, debug):
+    """FLASH_DEBUG_BUILD=1 compiles the device-side index checks in, into
+    _build/debug/; without it the flags and the directory are the default
+    build's."""
+    calls = []
+
+    class FailedNvcc:
+        returncode = 1
+
+        def __init__(self, cmd, **kwargs):
+            calls.append(cmd)
+
+        def communicate(self):
+            return ("",)
+
+    if debug:
+        monkeypatch.setenv("FLASH_DEBUG_BUILD", "1")
+    else:
+        monkeypatch.delenv("FLASH_DEBUG_BUILD", raising=False)
+    monkeypatch.setattr(flash, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(flash, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(flash.subprocess, "Popen", FailedNvcc)
+    monkeypatch.setattr(flash, "_built", None)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        flash.build()
+    assert flash.debug_build() == debug
+    assert {c.name for c in flash.CSRC.glob("*.cu")} == {c[-1].split("/")[-1] for c in calls}
+    for cmd in calls:
+        assert tuple(cmd[1:1 + len(flash.NVCC_FLAGS)]) == flash.NVCC_FLAGS
+        assert ("-DGOFR_FLASH_DEBUG" in cmd) == debug
+        assert cmd[cmd.index("-o") + 1].startswith(str(tmp_path / "debug" if debug else tmp_path))
+    header = (flash.CSRC / "sm90.cuh").read_text()
+    assert "#ifdef GOFR_FLASH_DEBUG" in header and "#define GOFR_DCHECK(cond) ((void)0)" in header
+
+
 def test_kernel_checks_reject_bad_inputs():
     q = torch.zeros(1, 4, 2, 24)
     with pytest.raises(ValueError, match="head dim"):

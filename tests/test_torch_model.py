@@ -1,7 +1,7 @@
 """gofr_tpu_torch.models against the JAX package: weights from
 ``init_transformer(jax.random.PRNGKey(0), TINY)`` cross through
 ``models/convert.py``, then the full forward, ragged bucketed prefill,
-decode_step and greedy decode_chunk are compared with the JAX functions,
+decode_step and greedy decode_chunk_pool are compared with the JAX functions,
 whose attention runs both the XLA path and the Pallas kernel (interpret
 mode). Greedy ids must match exactly; f32 logits within 1e-4 (two
 frameworks sum the same f32 products in different orders over two layers).
@@ -92,7 +92,8 @@ def test_ragged_prefill_decode_step_and_chunk_match_jax(jax_params, model, impl)
     np.testing.assert_allclose(step.numpy(), np.asarray(jstep), rtol=LOGIT_TOL, atol=LOGIT_TOL)
     # 8-step greedy chunk: ids exactly
     jids, _ = jt.decode_chunk(jax_params, jnp.asarray(first), jcache, cfg, 8, jax.random.key(0))
-    ids, cache = model.decode_chunk(torch.from_numpy(first), cache, 8)
+    out = model.decode_chunk_pool(torch.from_numpy(first), cache, 8)
+    ids, cache = out[0], out[-1]
     np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
     np.testing.assert_array_equal(cache["lengths"].numpy(), lengths + 8)
 
@@ -118,7 +119,7 @@ def test_sampled_decode_chunk_is_seeded(model):
         cache = model.init_cache(2, 64)
         _, cache = model.prefill(prompt, cache)
         gen = torch.Generator().manual_seed(seed)
-        return model.decode_chunk(first, cache, 6, gen, 0.9, 20, 0.95)[0]
+        return model.decode_chunk_pool(first, cache, 6, gen, 0.9, 20, 0.95)[0]
 
     a, b = run(1), run(1)
     assert torch.equal(a, b)

@@ -403,7 +403,7 @@ def test_close_raises_while_the_worker_runs(monkeypatch):
 def test_solo_fetch_starts_before_the_next_chunk(solo, monkeypatch):
     events = []
     model = solo.runner.model
-    real_chunk, real_init, real_wait = model.decode_chunk, HostFetch.__init__, HostFetch.wait
+    real_chunk, real_init, real_wait = model.decode_chunk_pool, HostFetch.__init__, HostFetch.wait
 
     def chunk(*a, **k):
         events.append("dispatch")
@@ -417,7 +417,7 @@ def test_solo_fetch_starts_before_the_next_chunk(solo, monkeypatch):
         events.append("wait")
         return real_wait(self)
 
-    monkeypatch.setattr(model, "decode_chunk", chunk)
+    monkeypatch.setattr(model, "decode_chunk_pool", chunk)  # solo decode's chunk at B = 1
     monkeypatch.setattr(HostFetch, "__init__", init)
     monkeypatch.setattr(HostFetch, "wait", wait)
     assert len(solo.generate([2, 7, 1], 17)) == 17

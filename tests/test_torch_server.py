@@ -152,8 +152,8 @@ def test_stops_end_generation(serve):
     "body,status",
     [
         ({"max_tokens": 4}, 400),
-        ({"prompt": "x", "n": 2}, 400),
-        ({"prompt": "x", "logprobs": 2}, 400),
+        ({"prompt": "x", "n": 17}, 400),  # past the fan-out cap
+        ({"prompt": "x", "logprobs": 6}, 400),  # past TOP_LOGPROBS
         ({"prompt": "x", "presence_penalty": 0.5}, 400),
         ({"prompt": "x", "max_tokens": 0}, 400),
         ({"prompt": "x", "temperature": -1}, 400),
