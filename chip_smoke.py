@@ -89,6 +89,33 @@ Phases, each fatal on failure (no phase is skipped or caught):
    finish, one usage frame before [DONE]); then a second app with
    ``GEN_STOP_TOKENS`` set to the id a greedy request emitted at position
    3, which stops that request there;
+12. a deployment (run right after phase 11, on its model): for each of
+   ``MODEL_QUANT`` int8, int4 and w8a8 the packs built from the bf16 weights
+   with ``quantize_params`` (the previous mode freed first), their weight
+   bytes against the shapes' reckoning (bf16 16.1 GB, int8 and w8a8 8.6 GB,
+   int4 5.0 GB), the first-token logits against the dequantized twin (the
+   packs' values in a dense bf16 model: int4 within atol 1e-2, int8 within
+   a twentieth and w8a8 within a tenth of the largest |logit|), each
+   weight-only product on the card within one bf16 rounding of the CPU's,
+   phase 10's configuration serving
+   4 concurrent greedy streams of 32 tokens (aggregate tokens/s and TPOT,
+   beside the bf16 model's) and the first prompt alone equal to its ids
+   among 3 co-tenants; int8 weights with ``MODEL_KV_DTYPE=f8`` (the pool's
+   e4m3 cache at half the bf16 bytes, 8 streams, n_layers decode launches
+   a step, the upcast's device time a step under torch.profiler);
+   penalties on the bf16 model with ``DECODE_POOL_PENALTIES=eager``
+   (logit_bias +100 forces its id at every step, -100 bans the plain
+   run's first id, repetition 1.3 + frequency 1.0 pooled equal to solo, a
+   plain co-tenant's ids unchanged, an out-of-vocab id a 400 before the
+   stream, kernels a step of the penalized chunk against the plain one);
+   then phase 5's weights written as an HF safetensors checkpoint (bf16,
+   4 shards with an index and a generation_config.json listing two EOS
+   ids) by a writer in this script, a device booted through ``MODEL_PATH``
+   with ``MODEL_QUANT=int8`` (load seconds and GB/s): every tensor equal
+   to the int8 packs, the same greedy ids, both EOS ids default stops; the
+   directory deleted. The phase's launch counts are those of its served
+   requests alone (the deltas around each), each pool dispatch checked at
+   n_layers x DECODE_CHUNK decode launches;
 6. backward kernels vs plain: the dQ and dK/dV kernels (their sm90 variants
    for bf16 D=128, their mma variants for f32) against
    ``flash_attention_bwd_ref`` at the training shape (B=1, S=2048, Hq=32,
@@ -131,6 +158,7 @@ gofr_tpu_torch package beside it (3).
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import http.client
 import json
@@ -1089,6 +1117,655 @@ def openai_checks(torch, flash, card: str, app) -> dict:
             "greedy_prompt": greedy[-1][0], "greedy_ids": greedy[-1][1]}
 
 
+# -- phase 12: a deployment (MODEL_QUANT, MODEL_KV_DTYPE, penalties, MODEL_PATH) ----
+
+QUANT_MODES = ("int8", "int4", "w8a8")
+# first-token logits of a quantized model against the same model with its
+# packs dequantized (dequantize, then the bf16 forward). An int4 pack
+# dequantizes into the very bf16 weights the dense forward reads, so the two
+# agree up to the products' reduction order (atol). int8 sums the exact int8
+# values and scales the f32 result, where the twin reads q x scale rounded
+# to bf16 (2^-9 of each weight), through 32 layers; w8a8 also rounds each
+# token's activations to int8 before every product (a share of the largest
+# |logit| each)
+QUANT_LOGIT_TOL = {"int8": ("share", 0.05), "int4": ("atol", 1e-2), "w8a8": ("share", 0.1)}
+# a weight-only product on the card against the CPU's on the same operands:
+# f32 sums in another order (their error, near |y| = 0: atol), one rounding
+# to bf16 apart (2^-7 of |y|)
+WEIGHT_ONLY_MM_TOL = (1e-3, 2.0 ** -7)  # atol, rtol
+EOS_IDS = (128001, 128009)  # Llama-3 instruct's generation_config.json lists both
+F8 = "float8_e4m3fn"
+
+
+def boot_deployment(model, env: dict):
+    """A fresh app in phase 10's configuration on ``model`` (or on
+    MODEL_PATH when ``model`` is None), ``env`` on top; every other key of
+    the port unset."""
+    import gofr_tpu_torch
+    from gofr_tpu_torch.config import DECLARED_KEYS
+
+    for key in DECLARED_KEYS:
+        os.environ.pop(key, None)
+    os.environ.update({**PHASE10_ENV, "HTTP_PORT": str(free_port()), **env})
+    app = gofr_tpu_torch.new(model=model)
+    gofr_tpu_torch.register_openai_routes(app)
+    app.start()
+    return app
+
+
+def recorded(dev) -> list:
+    """Record each generation's (prompt ids, output) on ``dev``."""
+    generations: list = []
+    inner = dev.generate
+
+    def recording_generate(tokens, *args, **kwargs):
+        out = inner(tokens, *args, **kwargs)
+        generations.append((list(dev._encode(tokens)), out))
+        return out
+
+    dev.generate = recording_generate
+    return generations
+
+
+def concurrent_streams(port: int, prompts: list, body: dict) -> tuple:
+    """``prompts`` streamed at once -> stream_rate's (tokens/s, TPOT ms, counts)."""
+    results, starts = [None] * len(prompts), [None] * len(prompts)
+
+    def run(i):
+        starts[i] = time.perf_counter()
+        results[i] = post(port, {"prompt": prompts[i], "stream": True, **body}, stream=True)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return stream_rate(starts, results)
+
+
+def ids_for(dev, generations: list, prompt) -> list:
+    want = list(dev._encode(prompt))
+    return [out for ids, out in generations if ids == want]
+
+
+def expected_weight_bytes(cfg, mode) -> int:
+    """The served weight bytes reckoned from the model's shapes: bf16
+    embeddings and norms; per matmul weight bf16, or int8 values and an f32
+    scale a column (int8, w8a8), or two int4 values a byte and an f32 scale a
+    column per 128 rows (int4); w8a8 keeps lm_head int8."""
+    d, f, kv = cfg.dim, cfg.hidden_dim, cfg.n_kv_heads * cfg.head_dim
+    mats = [(d, d), (d, kv), (d, kv), (d, d), (d, f), (d, f), (f, d)]
+
+    def weight(i, o, kind):
+        if kind is None:
+            return i * o * 2
+        if kind == "int4":
+            return i * o // 2 + (i // min(128, i)) * o * 4
+        return i * o + o * 4
+
+    head = weight(d, cfg.vocab_size, "int8" if mode == "w8a8" else mode)
+    return (cfg.vocab_size * d * 2 + d * 2 + head
+            + cfg.n_layers * (2 * d * 2 + sum(weight(i, o, mode) for i, o in mats)))
+
+
+@contextlib.contextmanager
+def served(flash, dev, tally: dict, label: str):
+    """Counts the forward kernels' launches of the served requests inside
+    the block, and only those, into ``tally`` (phase 12's sums: the
+    profiling and parity helpers between the requests launch too, and stay
+    out), and holds them to the deployment's work: every pool dispatch
+    launched the decode variant n_layers x DECODE_CHUNK times, every
+    prefill dispatch n_layers forward launches at least outside the pool
+    (sm90, or the decode variant for a tail of a few tokens), no call the
+    mma kernel. Yields the block's counts, filled when it ends."""
+    pool, runner = dev.decode_pool, dev.runner
+    n_layers = runner.cfg.n_layers
+    pool_idle(pool, label)
+    counters = {"all": flash.launches, "sm90": flash.launches_fwd_sm90,
+                "decode": flash.launches_fwd_decode}
+    before = {k: c.value for k, c in counters.items()}
+    d0, p0 = pool.dispatches, runner.prefills
+    per_dispatch: list = []
+    dispatch = pool._dispatch_chunk
+
+    def counted(*args, **kwargs):
+        start = flash.launches_fwd_decode.value
+        result = dispatch(*args, **kwargs)
+        per_dispatch.append(flash.launches_fwd_decode.value - start)
+        return result
+
+    pool._dispatch_chunk = counted
+    block: dict = {}
+    try:
+        yield block
+        # a request answered before its slot's last chunk (a cancel) has
+        # that chunk dispatched after the answer: it is counted here
+        pool_idle(pool, label)
+    finally:
+        pool._dispatch_chunk = dispatch
+    block.update({k: c.value - before[k] for k, c in counters.items()})
+    block["mma"] = block.pop("all") - block["sm90"] - block["decode"]
+    block["dispatches"], block["prefills"] = pool.dispatches - d0, runner.prefills - p0
+    block["in_pool"] = sum(per_dispatch)
+    for k in ("sm90", "decode", "mma"):
+        tally[k] += block[k]
+    check(len(per_dispatch) == block["dispatches"],
+          f"{label}: a pool dispatch went around the count")
+    check(set(per_dispatch) <= {n_layers * pool.chunk},
+          f"{label}: decode launches a pool dispatch {sorted(set(per_dispatch))}, want "
+          f"n_layers x DECODE_CHUNK = {n_layers * pool.chunk}")
+    outside = block["sm90"] + block["decode"] - block["in_pool"]
+    check(outside >= n_layers * block["prefills"],
+          f"{label}: a prefill layer missed the forward kernels")
+    check(block["mma"] == 0, f"{label}: a served call took the mma kernel")
+
+
+def pool_idle(pool, label: str) -> None:
+    """Wait until no slot of ``pool`` is active: only the worker frees a
+    slot, after its last dispatch, so none is in flight from then on."""
+    for _ in range(1200):
+        if pool.occupancy()["active"] == 0:
+            return
+        time.sleep(0.05)
+    check(False, f"{label}: the pool kept a slot active for 60 s")
+
+
+def kernel_profile(torch, fn) -> dict:
+    """Kernels ``fn`` runs on the card under torch.profiler: name -> (count,
+    device ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    table: dict = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            n, ms = table.get(evt.name, (0, 0.0))
+            table[evt.name] = (n + 1, ms + (evt.time_range.end - evt.time_range.start) / 1e3)
+    return table
+
+
+def deployment(torch, flash, card: str, model) -> dict:
+    """Phase 12: phase 5's llama3-8b as deployments run it: quantized
+    (int8, int4, w8a8) with the pool, an f8 KV cache, penalties and
+    logit_bias, and booted from an HF safetensors checkpoint on disk."""
+    from gofr_tpu_torch.models.quant import quantize_params
+
+    t0 = time.perf_counter()
+    for c in (flash.launches, flash.launches_fwd_sm90, flash.launches_fwd_decode):
+        c.reset()  # every count to 0 just before the path runs
+    tally = {"sm90": 0, "decode": 0, "mma": 0}  # the served requests' launches
+    cfg = model.cfg
+    prompts4 = [text(300 + i, 120 + 90 * i) for i in range(4)]
+    greedy = {"max_tokens": 32, "temperature": 0}
+    bf16_bytes = model.weight_bytes()
+    check(bf16_bytes == expected_weight_bytes(cfg, None), "deployment: bf16 weight bytes")
+    out: dict = {"weight_gb": {"bf16": bf16_bytes / 1e9}, "serve": {}}
+    pack_parity(torch, model)
+    out["serve"]["bf16"] = serve_streams(torch, flash, card, model, "", prompts4, greedy, tally)
+    int8_ids = None
+    for mode in QUANT_MODES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        tq = time.perf_counter()
+        qmodel = quantize_params(model, mode)
+        torch.cuda.synchronize()
+        quant_s = time.perf_counter() - tq
+        nbytes = qmodel.weight_bytes()
+        out["weight_gb"][mode] = nbytes / 1e9
+        print(f"deployment {mode}: packs built from the bf16 weights in {quant_s:.1f}s, weight "
+              f"bytes {nbytes / 1e9:.3f} GB (bf16 {bf16_bytes / 1e9:.3f} GB), memory "
+              f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB", flush=True)
+        check(nbytes == expected_weight_bytes(cfg, mode),
+              f"deployment {mode}: weight bytes differ from the shapes' reckoning")
+        quant_logits(torch, mode, qmodel, out)
+        out["serve"][mode] = serve_streams(torch, flash, card, qmodel, mode, prompts4, greedy,
+                                           tally)
+        if mode == "int8":
+            int8_ids = out["serve"][mode].pop("ids")
+            out["f8"] = serve_f8(torch, flash, card, qmodel, tally)
+        out["serve"][mode].pop("ids", None)
+        del qmodel
+    out["serve"]["bf16"].pop("ids", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["penalties"] = penalties(torch, flash, card, model, tally)
+    out["model_path"] = from_checkpoint(torch, flash, card, model, prompts4, int8_ids, tally)
+    out["sm90"], out["decode"] = tally["sm90"], tally["decode"]
+    print(f"deployment: forward launches of the served requests: sm90 {tally['sm90']}, decode "
+          f"{tally['decode']}, mma {tally['mma']} (every count since phase 12 began: sm90 "
+          f"{flash.launches_fwd_sm90.value}, decode {flash.launches_fwd_decode.value})",
+          flush=True)
+    check(tally["mma"] == 0 and tally["sm90"] > 0 and tally["decode"] > 0,
+          "deployment: the served requests missed the sm90 or decode kernel")
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"deployment-metrics [{card}]: {json.dumps(out)}", flush=True)
+    return out
+
+
+def pack_parity(torch, model) -> None:
+    """The packs built on the card equal the CPU's, which the tests hold bit
+    for bit to the JAX package's (layer 0's w_gate, every mode), and w8a8's
+    product on the card equals the CPU's at decode's 8 rows (padded to 17
+    for ``_int_mm``) and at 64 (unpadded)."""
+    from gofr_tpu_torch.models import quant
+
+    w = model.layers[0].w_gate
+    packs = {}
+    for mode in QUANT_MODES:
+        card, host = quant.quantizer_for(mode)(w), quant.quantizer_for(mode)(w.cpu())
+        unequal = [k for k in card if not torch.equal(card[k].cpu(), host[k])]
+        check(not unequal, f"pack parity {mode}: {unequal} differ between the card and the CPU")
+        packs[mode] = card
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    worst = {}
+    for rows in (8, 64):
+        x = torch.randn(rows, w.shape[0], device="cuda", generator=gen).to(w.dtype)
+        for mode in QUANT_MODES:
+            got = quant.mm(x, packs[mode]).cpu().float()
+            want = quant.mm(x.cpu(), {k: t.cpu() for k, t in packs[mode].items()}).float()
+            if mode == "w8a8":
+                check(torch.equal(got, want), f"pack parity: w8a8 mm at {rows} rows differs")
+                continue
+            atol, rtol = WEIGHT_ONLY_MM_TOL
+            diff = (got - want).abs()
+            worst[mode] = max(worst.get(mode, 0.0), float(diff.max()))
+            check(bool((diff <= atol + rtol * want.abs()).all()),
+                  f"pack parity: {mode} mm at {rows} rows differs from the CPU's beyond "
+                  f"{atol} + 2^-7 |y|")
+    print(f"deployment: int8/int4/w8a8 packs of a {tuple(w.shape)} weight built on the card "
+          "equal the CPU's; w8a8 mm at 8 and 64 rows equal the CPU's bit for bit; int8/int4 mm "
+          f"max |diff| {worst} (bound {WEIGHT_ONLY_MM_TOL[0]} + 2^-7 |y|)", flush=True)
+
+
+def quant_logits(torch, mode: str, qmodel, out: dict) -> None:
+    """First-token logits of the quantized model against its dequantized
+    twin (a dense bf16 model of the packs' values) on one prompt."""
+    import numpy as np
+
+    ids = np.frombuffer(text(299, 100).encode(), np.uint8).astype(np.int64)
+    tokens = torch.zeros((1, 128), dtype=torch.int64, device=qmodel.device)
+    tokens[0, : ids.size] = torch.from_numpy(ids)
+    lengths = torch.tensor([ids.size], dtype=torch.int32, device=qmodel.device)
+    got, _ = qmodel.prefill(tokens, qmodel.init_cache(1, 128), lengths)
+    deq = qmodel.dequantized()
+    want, _ = deq.prefill(tokens, deq.init_cache(1, 128), lengths)
+    del deq
+    diff = float((got - want).abs().max())
+    peak = float(want.abs().max())
+    kind, tol = QUANT_LOGIT_TOL[mode]
+    bound = tol if kind == "atol" else tol * peak
+    same_top = int(got.argmax()) == int(want.argmax())
+    print(f"deployment {mode}: first-token logits against the dequantized bf16 model: max |diff| "
+          f"{diff:.4e} (bound {bound:.4e}: {kind} {tol}; max |logit| {peak:.3f}), argmax equal "
+          f"{same_top} -> {'ok' if diff <= bound else 'FAIL'}", flush=True)
+    out.setdefault("logit_max_diff", {})[mode] = diff
+    check(diff <= bound, f"deployment {mode}: logits differ from the dequantized model's")
+
+
+def serve_streams(torch, flash, card: str, model, mode: str, prompts: list, greedy: dict,
+                  tally: dict) -> dict:
+    """Phase 10's configuration on ``model`` under MODEL_QUANT=``mode``: the
+    first prompt alone, then (the prefix cache emptied, so that every
+    prompt prefills as it did alone: a prompt whose entry the 4-entry LRU
+    dropped would take a partial hit, another computation order) the
+    prompts streamed at once (aggregate tokens/s, TPOT); the first
+    prompt's ids among the others must equal its ids alone. Both runs
+    decode in the pool through the decode variant (``served``)."""
+    label = mode or "bf16"
+    app = boot_deployment(model, {"MODEL_QUANT": mode})
+    try:
+        dev = app.container.tpu
+        check(dev.runner.model.quant == (mode or None), f"deployment {label}: not {label}")
+        generations = recorded(dev)
+        with served(flash, dev, tally, f"deployment {label} alone") as one:
+            post(app.http_port, {"prompt": prompts[0], **greedy})
+        alone = ids_for(dev, generations, prompts[0])[0]
+        dev.kv_pool.cache_clear()
+        stats = dict(dev.runner.prefix_stats)
+        with served(flash, dev, tally, f"deployment {label} streams") as many:
+            rate, tpot, counts = concurrent_streams(app.http_port, prompts, greedy)
+        check(dev.runner.prefix_stats["misses"] == stats["misses"] + len(prompts),
+              f"deployment {label}: a concurrent prompt hit the prefix cache")
+        among = ids_for(dev, generations, prompts[0])[-1]
+        print(f"deployment {label}: {len(prompts)} concurrent greedy streams ({counts} tokens): "
+              f"aggregate {rate:.1f} tokens/s, TPOT {tpot:.2f} ms; served launches alone "
+              f"{one}, streams {many}; prompt 0 alone equal to among {len(prompts) - 1} "
+              f"co-tenants: {alone == among}", flush=True)
+        check(one["dispatches"] > 0 and many["dispatches"] > 0,
+              f"deployment {label}: a served request did not decode in the pool")
+        check(alone == among, f"deployment {label}: prompt 0 alone gave other ids")
+        ids = [ids_for(dev, generations, p)[-1] for p in prompts]
+        step = step_profile(torch, model)  # off the served path: not in ``tally``
+        print(f"deployment {label}: one decode step of 8 slots (kv_len 300) under "
+              f"torch.profiler: {step['launches_a_step']} kernels, "
+              f"{step['device_ms_a_step']:.3f} ms of device time", flush=True)
+    finally:
+        app.shutdown()
+    return {"tokens_per_s": rate, "tpot_ms": tpot, "ids": ids, **step}
+
+
+def step_profile(torch, model) -> dict:
+    """Kernels and device time of one decode step over 8 slots of a
+    2048-slot bf16 cache at kv_len 300 (the pool's step shape)."""
+    tok = torch.randint(0, 200, (8, 1), dtype=torch.int32, device=model.device)
+    cache = model.init_cache(8, model.cfg.max_seq)
+    cache["lengths"].fill_(min(300, model.cfg.max_seq // 2))
+    model.decode_step(tok, cache)  # warm
+    table = kernel_profile(torch, lambda: model.decode_step(tok, cache))
+    return {"launches_a_step": sum(n for n, _ in table.values()),
+            "device_ms_a_step": sum(ms for _, ms in table.values())}
+
+
+def serve_f8(torch, flash, card: str, qmodel, tally: dict) -> dict:
+    """(b): int8 weights with MODEL_KV_DTYPE=f8: the pool's e4m3 cache at
+    half the bf16 bytes, 8 streams, n_layers decode launches a step, and
+    the upcast's device time a step."""
+    app = boot_deployment(qmodel, {"MODEL_QUANT": "int8", "MODEL_KV_DTYPE": "f8"})
+    try:
+        dev = app.container.tpu
+        pool = dev.decode_pool
+        k = pool.cache["k"]
+        f8_bytes = 2 * k.numel() * k.element_size()
+        bf16_bytes = 2 * k.numel() * 2
+        print(f"deployment f8: pool cache {k.dtype} {tuple(k.shape)}: {f8_bytes / 1e9:.3f} GB "
+              f"(bf16 {bf16_bytes / 1e9:.3f} GB)", flush=True)
+        check(str(k.dtype) == f"torch.{F8}" and str(pool.cache["v"].dtype) == f"torch.{F8}",
+              "deployment f8: the pool's cache is not e4m3")
+        check(2 * f8_bytes == bf16_bytes, "deployment f8: not half the bf16 bytes")
+        prompts8 = [text(100 + i, n) for i, n in
+                    enumerate((100, 170, 240, 310, 380, 450, 500, 600))]
+        with served(flash, dev, tally, "deployment f8") as block:
+            rate, tpot, counts = concurrent_streams(app.http_port, prompts8,
+                                                    {"max_tokens": 32, "temperature": 0})
+        n_layers = dev.runner.cfg.n_layers
+        check(block["dispatches"] > 0, "deployment f8: the streams did not decode in the pool")
+        a_step = block["in_pool"] / (block["dispatches"] * pool.chunk)
+        print(f"deployment f8: 8 concurrent greedy streams ({counts} tokens): aggregate "
+              f"{rate:.1f} tokens/s, TPOT {tpot:.2f} ms; decode launches {a_step} a step "
+              f"(n_layers {n_layers})", flush=True)
+        check(a_step == n_layers, "deployment f8: not n_layers decode launches a step")
+        upcast = upcast_ms(torch, dev.runner.model)  # off the served path
+    finally:
+        app.shutdown()
+    return {"tokens_per_s": rate, "tpot_ms": tpot, "cache_gb": f8_bytes / 1e9,
+            "cache_gb_bf16": bf16_bytes / 1e9, "decode_launches_a_step": a_step, **upcast}
+
+
+def upcast_ms(torch, model) -> dict:
+    """The f8 cache's upcast to bf16 at the attention boundary, device time
+    a decode step (torch.profiler): the conversion kernels of one step over
+    8 slots of a 2048-slot e4m3 cache, against the same step on a bf16 cache."""
+    import numpy as np
+
+    tok = torch.randint(0, 200, (8, 1), dtype=torch.int32, device=model.device)
+    rows = {}
+    for dtype in (torch.float8_e4m3fn, torch.bfloat16):
+        cache = model.init_cache(8, model.cfg.max_seq, dtype)
+        cache["lengths"].copy_(torch.tensor([137, 410, 655, 900, 1530, 2000, 1200, 800],
+                                            dtype=torch.int32) % model.cfg.max_seq)
+        model.decode_step(tok, cache)  # warm
+        table = kernel_profile(torch, lambda c=cache: model.decode_step(tok, c))
+        convert = {n: v for n, v in table.items() if "copy" in n.lower()}
+        rows[str(dtype).replace("torch.", "")] = {
+            "step_device_ms": sum(ms for _, ms in table.values()),
+            "copy_kernels": sum(n for n, _ in convert.values()),
+            "copy_ms": sum(ms for _, ms in convert.values()),
+        }
+        del cache
+    f8, bf = rows["float8_e4m3fn"], rows["bfloat16"]
+    upcast = f8["copy_ms"] - bf["copy_ms"]
+    print(f"deployment f8: one decode step (8 slots, kv_lens 137..2000) device time "
+          f"{f8['step_device_ms']:.3f} ms on e4m3 against {bf['step_device_ms']:.3f} ms on bf16; "
+          f"copy/convert kernels {f8['copy_kernels']} ({f8['copy_ms']:.3f} ms) against "
+          f"{bf['copy_kernels']} ({bf['copy_ms']:.3f} ms): the upcast {upcast:.3f} ms a step",
+          flush=True)
+    check(np.isfinite(upcast) and f8["copy_kernels"] > bf["copy_kernels"],
+          "deployment f8: no upcast kernels in the e4m3 step")
+    return {"upcast_ms_a_step": upcast, "step_device_ms_f8": f8["step_device_ms"],
+            "step_device_ms_bf16": bf["step_device_ms"]}
+
+
+def penalties(torch, flash, card: str, model, tally: dict) -> dict:
+    """(c): penalties and logit_bias on the bf16 model, the pool eager.
+    The HTTP requests are the served path (``served``); the solo run they
+    are held against and the launch profile are not."""
+    from gofr_tpu_torch.ops.sampling import Sampler
+
+    app = boot_deployment(model, {"DECODE_POOL_PENALTIES": "eager"})
+    try:
+        dev = app.container.tpu
+        pool, port = dev.decode_pool, app.http_port
+        check(pool._pen_ready, "penalties: the eager pool has no penalty state")
+        generations = recorded(dev)
+        prompt = text(400, 200)
+        body = {"prompt": prompt, "max_tokens": 16, "temperature": 0}
+
+        def ids(extra: dict) -> list:
+            with served(flash, dev, tally, f"penalties {sorted(extra)}"):
+                status, data, _, _ = post(port, {**body, **extra})
+            check(status == 200, f"penalties: {status} {data}")
+            return generations[-1][1]
+
+        plain = ids({})
+        forced_id = 4242 % dev.runner.cfg.vocab_size
+        forced = ids({"logit_bias": {str(forced_id): 100}})
+        banned = ids({"logit_bias": {str(plain[0]): -100}})
+        print(f"penalties: plain {plain[:8]}...; logit_bias +100 on {forced_id} -> {forced[:8]}...;"
+              f" -100 on {plain[0]} -> {banned[:8]}...", flush=True)
+        check(forced == [forced_id] * len(forced) and len(forced) == 16,
+              "penalties: +100 did not force its id at every step")
+        check(plain[0] not in banned, "penalties: -100 did not ban the id")
+        knobs = {"repetition_penalty": 1.3, "frequency_penalty": 1.0}
+        rejects0 = dict(pool.rejects)
+        d0 = pool.dispatches
+        pooled = ids(knobs)
+        check(pool.dispatches > d0 and pool.rejects == rejects0,
+              "penalties: the penalized request did not pool")
+        state_ids = dev.tokenizer.encode(prompt)
+        solo = dev.runner.generate(state_ids, 16, sampler=Sampler(**knobs),
+                                   stop_tokens=dev.default_stop_ids, decode_pool=None,
+                                   prefill_batcher=dev.batcher)
+        print(f"penalties: repetition 1.3 + frequency 1.0 pooled {pooled[:8]}... solo "
+              f"{solo[:8]}... equal {pooled == solo}; differs from plain {pooled != plain}",
+              flush=True)
+        check(pooled == solo, "penalties: pooled and solo penalized ids differ")
+        # a plain co-tenant beside a penalized one keeps its ids
+        results: dict = {}
+
+        def run(key, extra):
+            status, _, _, _ = post(port, {**body, "prompt": prompt, **extra})
+            results[key] = status
+
+        threads = [threading.Thread(target=run, args=("plain", {})),
+                   threading.Thread(target=run, args=("pen", knobs))]
+        n0 = len(generations)
+        with served(flash, dev, tally, "penalties co-tenants"):
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+        outs = [o for _, o in generations[n0:]]
+        check(len(outs) == 2 and plain in outs and pooled in outs,
+              f"penalties: co-tenants gave other ids ({outs})")
+        print("penalties: a plain co-tenant beside a penalized one kept its ids; so did the "
+              "penalized one", flush=True)
+        # an out-of-vocab logit_bias is a 400 before the stream commits
+        with served(flash, dev, tally, "penalties out-of-vocab") as refused:
+            status, data, _, _ = post(port, {**body, "stream": True,
+                                             "logit_bias": {str(dev.runner.cfg.vocab_size): 1}},
+                                      stream=True)
+        check(refused["prefills"] == 0 and refused["decode"] == 0,
+              "penalties: the out-of-vocab request ran the model")
+        check(status == 400, f"penalties: out-of-vocab logit_bias streamed {status}")
+        print(f"penalties: an out-of-vocab logit_bias id on a stream -> {status} before the "
+              "stream", flush=True)
+        # launches a step of the penalized chunk against the plain chunk
+        launches = penalized_launches(torch, dev.runner.model)
+    finally:
+        app.shutdown()
+    return launches
+
+
+def penalized_launches(torch, model) -> dict:
+    """Kernels a decode step launches in the pool's chunk (8 slots, 8
+    steps), plain and penalized (identity knobs on half the rows)."""
+    dev = model.device
+    tok = torch.randint(0, 200, (8, 1), dtype=torch.int32, device=dev)
+    v = model.cfg.vocab_size
+    rows = {}
+    for kind in ("plain", "penalized"):
+        cache = model.init_cache(8, model.cfg.max_seq)
+        cache["lengths"].fill_(min(300, model.cfg.max_seq // 2))
+        if kind == "plain":
+            def fn(c=cache):
+                model.decode_chunk_pool(tok, c, 8, None, 0.0, 0, 1.0, 0.0, all_greedy=True)
+        else:
+            pres = torch.zeros((8, v), dtype=torch.bool, device=dev)
+            cnts = torch.zeros((8, v), device=dev)
+            bias = torch.zeros((8, v), device=dev)
+            rep = torch.tensor([1.3, 1.0] * 4, device=dev)
+            pp = torch.zeros(8, device=dev)
+            fp = torch.tensor([1.0, 0.0] * 4, device=dev)
+
+            def fn(c=cache):
+                model.decode_chunk_pool_penalized(tok, c, 8, None, 0.0, 0, 1.0, 0.0, pres, rep,
+                                                  cnts, pp, fp, bias, all_greedy=True)
+        fn()
+        table = kernel_profile(torch, fn)
+        rows[kind] = {"launches_a_step": sum(n for n, _ in table.values()) / 8,
+                      "device_ms_a_step": sum(ms for _, ms in table.values()) / 8}
+        del cache
+    print(f"penalties: pool chunk (8 slots x 8 steps) kernels a step plain "
+          f"{rows['plain']['launches_a_step']:.1f} ({rows['plain']['device_ms_a_step']:.3f} ms "
+          f"device), penalized {rows['penalized']['launches_a_step']:.1f} "
+          f"({rows['penalized']['device_ms_a_step']:.3f} ms device)", flush=True)
+    return rows
+
+
+def write_checkpoint(torch, model, path: str, layers_per_shard: int = 8) -> int:
+    """An HF-layout safetensors checkpoint of ``model`` (bf16, [out, in]
+    matmul weights) in shards of ``layers_per_shard`` layers with
+    ``model.safetensors.index.json`` and a ``generation_config.json``
+    listing EOS_IDS. The format: a little-endian u64 header length, the
+    JSON header (names sorted, offsets into the data), the raw bytes.
+    Returns the bytes written."""
+    from gofr_tpu_torch.models.ingest import _LAYER_MAP
+
+    def shard_tensors(lo: int, hi: int) -> dict:
+        out = {}
+        if lo == 0:
+            out["model.embed_tokens.weight"] = model.embed
+            out["model.norm.weight"] = model.norm_f
+            out["lm_head.weight"] = model.lm_head.T
+        for i in range(lo, hi):
+            block = model.layers[i]
+            for ours, (suffix, transpose) in _LAYER_MAP.items():
+                t = getattr(block, ours)
+                out[f"model.layers.{i}.{suffix}"] = t.T if transpose else t
+        return out
+
+    n, total, weight_map = model.cfg.n_layers, 0, {}
+    bounds = list(range(0, n, layers_per_shard))
+    for k, lo in enumerate(bounds):
+        name = f"model-{k + 1:05d}-of-{len(bounds):05d}.safetensors"
+        tensors = shard_tensors(lo, min(lo + layers_per_shard, n))
+        header, offset = {}, 0
+        for key in sorted(tensors):
+            t = tensors[key]
+            nbytes = t.numel() * t.element_size()
+            header[key] = {"dtype": "BF16", "shape": list(t.shape),
+                           "data_offsets": [offset, offset + nbytes]}
+            offset += nbytes
+            weight_map[key] = name
+        raw = json.dumps(header, separators=(",", ":")).encode()
+        raw += b" " * (-len(raw) % 8)
+        with open(os.path.join(path, name), "wb") as f:
+            f.write(len(raw).to_bytes(8, "little"))
+            f.write(raw)
+            for key in sorted(tensors):
+                host = tensors[key].contiguous().cpu()
+                f.write(host.view(torch.uint8).numpy().data)
+        total += 8 + len(raw) + offset
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f)
+    with open(os.path.join(path, "generation_config.json"), "w") as f:
+        json.dump({"bos_token_id": 128000, "eos_token_id": list(EOS_IDS)}, f)
+    return total
+
+
+def from_checkpoint(torch, flash, card: str, model, prompts: list, int8_ids: list,
+                    tally: dict) -> dict:
+    """(d): phase 5's weights written as a sharded HF checkpoint, a device
+    booted through MODEL_PATH with MODEL_QUANT=int8: every tensor equal to
+    (a)'s int8 packs, the same greedy ids, both EOS ids default stops."""
+    import shutil
+    import tempfile
+
+    from gofr_tpu_torch.tpu import device as device_mod
+
+    path = tempfile.mkdtemp(prefix="gofr_ckpt_")
+    try:
+        free = shutil.disk_usage(path).free
+        t = time.perf_counter()
+        nbytes = write_checkpoint(torch, model, path)
+        write_s = time.perf_counter() - t
+        print(f"model_path: wrote {nbytes / 1e9:.2f} GB in {len(os.listdir(path)) - 2} shards "
+              f"under {path} in {write_s:.1f}s ({free / 1e9:.1f} GB were free there)", flush=True)
+        loads: list = []
+        load_model = device_mod.load_model
+
+        def timed_load(*args, **kwargs):
+            t = time.perf_counter()
+            loaded = load_model(*args, **kwargs)
+            torch.cuda.synchronize()
+            loads.append(time.perf_counter() - t)
+            return loaded
+
+        device_mod.load_model = timed_load
+        try:
+            app = boot_deployment(None, {"MODEL_PATH": path, "MODEL_QUANT": "int8"})
+        finally:
+            device_mod.load_model = load_model
+        try:
+            dev = app.container.tpu
+            load_s = loads[0]
+            print(f"model_path: booted through MODEL_PATH with MODEL_QUANT=int8: load "
+                  f"{load_s:.2f}s, {nbytes / 1e9 / load_s:.2f} GB/s ({dev.describe()})", flush=True)
+            check(dev.default_stop_ids == frozenset(EOS_IDS),
+                  f"model_path: default stops {dev.default_stop_ids}, want {EOS_IDS}")
+            want = model.quantized("int8").state_dict()
+            got = dev.runner.model.state_dict()
+            check(got.keys() == want.keys(), "model_path: the loaded model's tensors differ")
+            unequal = [k for k in want if not torch.equal(got[k], want[k])]
+            print(f"model_path: {len(want)} tensors, bit-equal to (a)'s int8 packs: "
+                  f"{not unequal} {unequal[:3]}", flush=True)
+            check(not unequal, "model_path: a loaded tensor differs from (a)'s int8 pack")
+            del want, got
+            generations = recorded(dev)
+            for prompt, ids in zip(prompts, int8_ids):
+                with served(flash, dev, tally, "model_path"):
+                    status, _, _, _ = post(app.http_port, {"prompt": prompt, "max_tokens": 32,
+                                                           "temperature": 0})
+                check(status == 200, f"model_path: {status}")
+                cut = next((i for i, t in enumerate(ids) if t in EOS_IDS), len(ids))
+                check(generations[-1][1] == ids[:cut],
+                      "model_path: greedy ids differ from (a)'s int8 model")
+            print(f"model_path: greedy ids of {len(prompts)} prompts equal (a)'s int8 model's; "
+                  f"default stops {sorted(dev.default_stop_ids)}", flush=True)
+        finally:
+            app.shutdown()
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    check(not os.path.exists(path), "model_path: the checkpoint directory is still there")
+    return {"checkpoint_gb": nbytes / 1e9, "write_s": write_s, "load_s": load_s,
+            "load_gb_per_s": nbytes / 1e9 / load_s, "free_gb": free / 1e9}
+
+
 def pool_decode_kernel(torch, flash, gen) -> dict:
     """The pool's decode shape against its plain version, and its times:
     B = 8 slots of a 2048-slot cache, ragged kv_lens, two idle slots past
@@ -1501,7 +2178,7 @@ def backward_phases(torch, flash, gen):
 
 
 def kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows, default,
-                 pool_row, openai) -> dict:
+                 pool_row, openai, deploy) -> dict:
     """The kernels of the main path (serving, training) with their counts
     from its runs and the numbers phases 3, 7 and 10 measured. The mma
     forward is on the tiny f32 model's path (phases 4 and 8) alone; its
@@ -1511,7 +2188,12 @@ def kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows,
     own entry, with its launches from phase 10's run, and the sm90 variant
     at teacher-forced scoring's shape (bucket 512) its own, with its
     launches from phase 11's scoring requests (a short kernel: its ``ms``
-    and ``library_ms`` are device times too)."""
+    and ``library_ms`` are device times too). Phase 12's deployment (the
+    quantized models, the f8 cache, penalties, MODEL_PATH) runs both
+    variants at phase 10's shapes: its served requests' decode launches
+    stand on an entry with the pool shape's numbers, their prefill
+    launches on one with the ragged B=2 Sq=512 prefill's. With an f8 cache the kernel reads the
+    bf16 upcast, so its shapes and times are the same."""
     fwd = {"route": "cuda", "source": "gofr_tpu_torch/csrc/flash_fwd.cu",
            "replaces": "gofr_tpu/ops/flash.py:224"}
     bwd = {"route": "cuda", "source": "gofr_tpu_torch/csrc/flash_bwd.cu"}
@@ -1536,6 +2218,12 @@ def kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows,
          "launches": openai["score_launches"], **score,
          "ms": score["device_ms"], "event_ms": score["ms"],
          "library_ms": score["library_device_ms"], "library_event_ms": score["library_ms"]},
+        {"name": "flash_fwd_decode (deployment, phase 12)", **fwd, "launches": deploy["decode"],
+         "max_abs_err": pool_row["max_abs_err"], **pool_row, "ms": pool_row["device_ms"],
+         "event_ms": pool_row["ms"], "library_ms": pool_row["library_device_ms"],
+         "library_event_ms": pool_row["library_ms"]},
+        {"name": "flash_fwd_sm90 (deployment prefill, phase 12)", **fwd,
+         "launches": deploy["sm90"], "max_abs_err": max(errs["sm90"]), **shapes["prefill"]},
         {"name": "flash_fwd_mma", **fwd, "launches": tiny, "path": "tiny f32 model (phases 4, 8)",
          "max_abs_err": max(errs["mma"]), **shapes["prefill_f32"]},
         {"name": "flash_bwd_dq", **bwd, "replaces": "gofr_tpu/ops/flash.py:477",
@@ -1637,6 +2325,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     openai = serve_openai(torch, flash, card, model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    deploy = deployment(torch, flash, card, model)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -1649,7 +2340,7 @@ def main(argv=None) -> int:
     train = train_llama(torch, flash, card)
 
     kernels = kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows,
-                           default, pool_row, openai)
+                           default, pool_row, openai, deploy)
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)  # name, power limit as nvidia-smi gives them
     print(json.dumps({"ok": True, "device": {

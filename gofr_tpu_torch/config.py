@@ -14,13 +14,17 @@ DECLARED_KEYS: dict[str, str] = {
     "MODEL_NAME": "model config name (tiny | small | llama3-8b | llama3-70b)",
     "MODEL_MAX_SEQ": "KV cache length per request (<= the model's max_seq)",
     "MODEL_BUCKETS": "comma-separated prefill sequence buckets",
-    "MODEL_SEED": "seed of the random weight init",
+    "MODEL_SEED": "seed of the random weight init (without MODEL_PATH)",
+    "MODEL_PATH": "weights: an HF safetensors file or directory, or a torch checkpoint dir",
+    "MODEL_QUANT": "weight quantization: int8 | int4 | w8a8 (default: off)",
+    "MODEL_KV_DTYPE": "KV cache storage: bf16 (default) | f8 (float8 e4m3)",
     "BATCH_MAX_SIZE": "prefill batch rows",
     "BATCH_TIMEOUT_MS": "prefill batch fill deadline",
     "DECODE_CHUNK": "decode steps per host fetch",
     "DECODE_POOL": "'on' (default): continuous-batching decode pool; 'off': solo decode",
     "DECODE_SLOTS": "decode pool slots (default BATCH_MAX_SIZE)",
     "DECODE_PIPELINE": "decode pool chunks in flight (default 3)",
+    "DECODE_POOL_PENALTIES": "penalized requests in the pool: lazy (default) | eager | off",
     "KV_PAGED": "'on' (default): block-table prefix cache and KV admission ledger",
     "KV_BLOCK_TOKENS": "tokens per KV block (default 64; must divide max_seq)",
     "KV_BLOCKS": "KV admission ledger in blocks (0 = auto: slots + prefix entries)",

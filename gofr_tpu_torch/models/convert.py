@@ -4,10 +4,13 @@ The tree is nested dicts of arrays (numpy, or anything ``np.asarray``
 accepts): ``embed`` [V, D], ``norm_f`` [D], ``lm_head`` [D, V] and
 ``layers`` holding each weight stacked ``[n_layers, ...]``. bfloat16
 arrives as an ``ml_dtypes`` dtype; it is viewed as uint16 and then as
-``torch.bfloat16`` (bit-exact) without importing ``ml_dtypes``.
-Quantized packs (dicts) are not ported yet and raise.
-``tree_from_transformer`` goes the other way, for comparing a trained
-model with the JAX state.
+``torch.bfloat16`` (bit-exact) without importing ``ml_dtypes``. A quantized
+weight is the JAX package's pack: ``{"q", "scale"}`` (int8),
+``{"q8", "scale"}`` (w8a8) or ``{"q4", "scale"}`` (int4, whose ``q4``
+arrives as an ``ml_dtypes`` int4 array and is read with
+``np.asarray(x).astype(np.int8)``, then packed two a byte).
+``tree_from_transformer`` goes the other way, for comparing a model with
+the JAX state; its ``q4`` is int8 values, one a byte.
 """
 
 from __future__ import annotations
@@ -17,19 +20,39 @@ from typing import Any
 import numpy as np
 import torch
 
+from gofr_tpu_torch.models.quant import Pack, pack_int4, unpack_int4
 from gofr_tpu_torch.models.transformer import _LAYER_SHAPES, Transformer, TransformerConfig
 
 
 def to_torch(arr: Any) -> torch.Tensor:
     """Array -> CPU tensor with the same bits (bfloat16 included)."""
-    if isinstance(arr, dict):
-        raise NotImplementedError(
-            f"quantized weight pack with keys {sorted(arr)} is not ported yet"
-        )
     a = np.ascontiguousarray(np.asarray(arr))
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    if a.dtype.name == "int4":
+        return torch.from_numpy(a.astype(np.int8))
     return torch.from_numpy(a.copy())
+
+
+def tree_quant_mode(tree: dict) -> Any:
+    """The MODEL_QUANT mode a JAX tree was quantized with (None: dense),
+    read from its layers' ``wq``."""
+    wq = tree["layers"]["wq"]
+    if not isinstance(wq, dict):
+        return None
+    for key, mode in (("q8", "w8a8"), ("q4", "int4"), ("q", "int8")):
+        if key in wq:
+            return mode
+    raise ValueError(f"unknown weight pack with keys {sorted(wq)}")
+
+
+def _pack_from_tree(leaf: dict, i: Any = None) -> dict:
+    """A JAX pack (layer ``i`` of a stacked one) as the port's pack."""
+    out = {}
+    for name, arr in leaf.items():
+        t = to_torch(arr if i is None else np.asarray(arr)[i])
+        out[name] = pack_int4(t) if name == "q4" else t
+    return out
 
 
 @torch.no_grad()
@@ -37,25 +60,32 @@ def transformer_from_tree(
     tree: dict, cfg: TransformerConfig, device: "torch.device | str" = "cuda"
 ) -> Transformer:
     """Build the port's model on ``device`` (the card unless the caller
-    asks for the CPU) from the JAX parameter tree, one tensor at a time."""
-    model = Transformer(cfg, device)
+    asks for the CPU) from the JAX parameter tree, one tensor at a time. A
+    quantized tree gives a model holding the same packs, bit for bit."""
+    model = Transformer(cfg, device, tree_quant_mode(tree))
 
-    def put(dst: torch.Tensor, src: Any) -> None:
-        t = to_torch(src)
+    def put(owner: Any, name: str, src: Any, i: Any = None) -> None:
+        dst = getattr(owner, name)
+        if isinstance(dst, Pack):
+            if not isinstance(src, dict):
+                raise ValueError(f"{name}: a dense array where the model holds a pack")
+            dst.load(_pack_from_tree(src, i))
+            return
+        if isinstance(src, dict):
+            raise ValueError(f"{name}: a pack where the model holds a dense weight")
+        t = to_torch(src if i is None else np.asarray(src)[i])
         if tuple(t.shape) != tuple(dst.shape):
             raise ValueError(f"shape {tuple(t.shape)} does not fit {tuple(dst.shape)}")
         dst.copy_(t.to(dst.dtype))
 
-    put(model.embed, tree["embed"])
-    put(model.norm_f, tree["norm_f"])
-    put(model.lm_head, tree["lm_head"])
+    for name in ("embed", "norm_f", "lm_head"):
+        put(model, name, tree[name])
     for name in ("attn_norm", "mlp_norm", *_LAYER_SHAPES):
         stacked = tree["layers"][name]
-        if isinstance(stacked, dict):
-            to_torch(stacked)  # raises for quantized packs
-        stacked = np.asarray(stacked)
+        if not isinstance(stacked, dict):
+            stacked = np.asarray(stacked)
         for i, block in enumerate(model.layers):
-            put(getattr(block, name), stacked[i])
+            put(block, name, stacked, i)
     return model
 
 
@@ -65,15 +95,29 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
 
 
+def _leaf(w: Any) -> Any:
+    if isinstance(w, Pack):
+        return {name: _to_numpy(unpack_int4(t) if name == "q4" else t)
+                for name, t in w.pack.items()}
+    return _to_numpy(w)
+
+
+def _stack(leaves: list) -> Any:
+    if isinstance(leaves[0], dict):
+        return {name: np.stack([leaf[name] for leaf in leaves]) for name in leaves[0]}
+    return np.stack(leaves)
+
+
 def tree_from_transformer(model: Transformer) -> dict:
-    """The model's weights as the JAX parameter tree: numpy arrays, the
-    per-layer weights stacked ``[n_layers, ...]`` under ``layers``."""
+    """The model's weights as the JAX parameter tree: numpy arrays (packs
+    as dicts), the per-layer weights stacked ``[n_layers, ...]`` under
+    ``layers``."""
     return {
-        "embed": _to_numpy(model.embed),
-        "norm_f": _to_numpy(model.norm_f),
-        "lm_head": _to_numpy(model.lm_head),
+        "embed": _leaf(model.embed),
+        "norm_f": _leaf(model.norm_f),
+        "lm_head": _leaf(model.lm_head),
         "layers": {
-            name: np.stack([_to_numpy(getattr(block, name)) for block in model.layers])
+            name: _stack([_leaf(getattr(block, name)) for block in model.layers])
             for name in ("attn_norm", "mlp_norm", *_LAYER_SHAPES)
         },
     }

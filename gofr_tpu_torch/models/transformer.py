@@ -10,14 +10,24 @@ versions on the CPU. Parameters are built with ``requires_grad=False``, so
 serving builds no graph; the trainer turns it on.
 
 The KV cache is ``{"k", "v": [n_layers, B, max_seq, n_kv_heads, head_dim],
-"lengths": [B] int32}``. Unlike the JAX package, ``prefill``/``decode_step``
-write the new keys and values into the cache tensors IN PLACE (a full
-cache copy per call would double decode's memory traffic) and return a
-dict holding the same tensors with advanced ``lengths``.
+"lengths": [B] int32}`` in the dtype ``init_cache`` is given (float8 e4m3
+under a deployment's ``MODEL_KV_DTYPE=f8``: written through its uint8
+bits, upcast to the compute dtype at the attention boundary). Unlike the
+JAX package, ``prefill``/``decode_step`` write the new keys and values
+into the cache tensors IN PLACE (a full cache copy per call would double
+decode's memory traffic) and return a dict holding the same tensors with
+advanced ``lengths``.
+
+A model built with ``quant`` (``MODEL_QUANT``: int8, int4, w8a8) holds a
+:class:`~gofr_tpu_torch.models.quant.Pack` (buffers, not parameters) in
+place of each matmul weight; ``random(..., quant=)`` quantizes each weight
+as it is drawn, so the init never holds the dense model and its packs
+together. Such a model serves; the trainer refuses it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Any, Optional
@@ -27,11 +37,23 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from gofr_tpu_torch.models.quant import mm
-from gofr_tpu_torch.ops.attention import attention
+from gofr_tpu_torch.models.quant import (
+    Pack,
+    dequantize_pack,
+    empty_pack,
+    mm,
+    quantizer_for,
+    quantizer_for_key,
+)
+from gofr_tpu_torch.ops.attention import attention, kv_bits, zeros_kv
 from gofr_tpu_torch.ops.norms import rms_norm
 from gofr_tpu_torch.ops.rope import apply_rope, cached_freqs
-from gofr_tpu_torch.ops.sampling import sample_logits_rows
+from gofr_tpu_torch.ops.sampling import (
+    apply_penalties,
+    sample_logits_rows,
+    update_counts,
+    update_presence,
+)
 
 
 @dataclass(frozen=True)
@@ -46,16 +68,10 @@ class TransformerConfig:
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
-    # KV-cache storage dtype (None -> dtype); attention upcasts at its boundary
-    kv_dtype: Optional[torch.dtype] = None
 
     @property
     def head_dim(self) -> int:
         return self.dim // self.n_heads
-
-    @property
-    def cache_dtype(self) -> torch.dtype:
-        return self.kv_dtype or self.dtype
 
 
 _LAYER_SHAPES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
@@ -74,35 +90,42 @@ def _fill_trunc_normal(param: torch.Tensor, fan_in: int, gen: torch.Generator) -
     param.copy_(w)
 
 
+def layer_shapes(cfg: TransformerConfig) -> dict:
+    """Each decoder layer's matmul weight shapes, [in, out]."""
+    kv_dim = cfg.n_kv_heads * cfg.head_dim
+    return {
+        "wq": (cfg.dim, cfg.dim),
+        "wk": (cfg.dim, kv_dim),
+        "wv": (cfg.dim, kv_dim),
+        "wo": (cfg.dim, cfg.dim),
+        "w_gate": (cfg.dim, cfg.hidden_dim),
+        "w_up": (cfg.dim, cfg.hidden_dim),
+        "w_down": (cfg.hidden_dim, cfg.dim),
+    }
+
+
+def _weight(cfg: TransformerConfig, device: torch.device, quant: Any, key: str,
+            shape: tuple) -> nn.Module:
+    """A matmul weight: a dense parameter, or an empty pack under ``quant``."""
+    if quantizer_for_key(quant, key) is not None:
+        return Pack(empty_pack(quant, key, shape, device))
+    return nn.Parameter(torch.empty(shape, dtype=cfg.dtype, device=device), requires_grad=False)
+
+
 class Block(nn.Module):
-    """One decoder layer's weights ([in, out] layout, as in the JAX tree)."""
+    """One decoder layer's weights ([in, out] layout, as in the JAX tree),
+    each matmul weight dense or a pack."""
 
-    def __init__(self, cfg: TransformerConfig, device: torch.device):
+    def __init__(self, cfg: TransformerConfig, device: torch.device, quant: Any = None):
         super().__init__()
-        kv_dim = cfg.n_kv_heads * cfg.head_dim
-        shapes = {
-            "wq": (cfg.dim, cfg.dim),
-            "wk": (cfg.dim, kv_dim),
-            "wv": (cfg.dim, kv_dim),
-            "wo": (cfg.dim, cfg.dim),
-            "w_gate": (cfg.dim, cfg.hidden_dim),
-            "w_up": (cfg.dim, cfg.hidden_dim),
-            "w_down": (cfg.hidden_dim, cfg.dim),
-        }
-
-        def param(*shape: int) -> nn.Parameter:
-            return nn.Parameter(
-                torch.empty(shape, dtype=cfg.dtype, device=device), requires_grad=False
-            )
-
         self.attn_norm = nn.Parameter(
             torch.ones(cfg.dim, dtype=cfg.dtype, device=device), requires_grad=False
         )
         self.mlp_norm = nn.Parameter(
             torch.ones(cfg.dim, dtype=cfg.dtype, device=device), requires_grad=False
         )
-        for name in _LAYER_SHAPES:
-            setattr(self, name, param(*shapes[name]))
+        for name, shape in layer_shapes(cfg).items():
+            setattr(self, name, _weight(cfg, device, quant, name, shape))
 
 
 class Transformer(nn.Module):
@@ -110,10 +133,13 @@ class Transformer(nn.Module):
     (seeded init on the device) or fill from the JAX tree with
     ``models/convert.py``."""
 
-    def __init__(self, cfg: TransformerConfig, device: "torch.device | str" = "cuda"):
+    def __init__(self, cfg: TransformerConfig, device: "torch.device | str" = "cuda",
+                 quant: Any = None):
         super().__init__()
         device = torch.device(device)
+        quantizer_for(quant)  # an unknown mode raises here
         self.cfg = cfg
+        self.quant = quant or None
         self.embed = nn.Parameter(
             torch.empty((cfg.vocab_size, cfg.dim), dtype=cfg.dtype, device=device),
             requires_grad=False,
@@ -121,11 +147,8 @@ class Transformer(nn.Module):
         self.norm_f = nn.Parameter(
             torch.ones(cfg.dim, dtype=cfg.dtype, device=device), requires_grad=False
         )
-        self.lm_head = nn.Parameter(
-            torch.empty((cfg.dim, cfg.vocab_size), dtype=cfg.dtype, device=device),
-            requires_grad=False,
-        )
-        self.layers = nn.ModuleList(Block(cfg, device) for _ in range(cfg.n_layers))
+        self.lm_head = _weight(cfg, device, self.quant, "lm_head", (cfg.dim, cfg.vocab_size))
+        self.layers = nn.ModuleList(Block(cfg, device, self.quant) for _ in range(cfg.n_layers))
         freqs = cached_freqs(cfg.head_dim, cfg.max_seq, cfg.rope_theta)
         self.register_buffer("freqs", torch.from_numpy(freqs).to(device), persistent=False)
 
@@ -133,22 +156,81 @@ class Transformer(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def named_weights(self):
+        """(name, owner module) of every weight the JAX tree names, in the
+        init's draw order: ``embed``, ``norm_f``, ``lm_head``, then each
+        layer's norms and matmul weights."""
+        for name in ("embed", "norm_f", "lm_head"):
+            yield name, self
+        for layer in self.layers:
+            for name in ("attn_norm", "mlp_norm", *_LAYER_SHAPES):
+                yield name, layer
+
+    def weight_bytes(self) -> int:
+        """Bytes of every weight the model serves with (packs included)."""
+        return sum(t.numel() * t.element_size()
+                   for t in (*self.parameters(), *self.buffers()) if t is not self.freqs)
+
+    @torch.no_grad()
+    def set_weight(self, owner: nn.Module, name: str, dense: torch.Tensor) -> None:
+        """Fill weight ``name`` of ``owner`` from a dense [in, out] tensor:
+        a copy, or the pack of ``quantizer_for_key(self.quant, name)``."""
+        target = getattr(owner, name)
+        if isinstance(target, Pack):
+            target.load(quantizer_for_key(self.quant, name)(dense.to(self.cfg.dtype)))
+            return
+        if tuple(dense.shape) != tuple(target.shape):
+            raise ValueError(f"shape {tuple(dense.shape)} does not fit {tuple(target.shape)}")
+        target.copy_(dense)
+
     @classmethod
     @torch.no_grad()
-    def random(cls, cfg: TransformerConfig, device: "torch.device | str", seed: int = 0) -> "Transformer":
+    def random(cls, cfg: TransformerConfig, device: "torch.device | str", seed: int = 0,
+               quant: Any = None) -> "Transformer":
         """Scaled truncated-normal init drawn on ``device`` from one seeded
         generator, weight by weight, so an 8B model never sits on the host
-        or in float32 whole. Norm weights are ones."""
-        model = cls(cfg, device)
+        or in float32 whole. Norm weights are ones. Under ``quant`` each
+        weight is drawn in ``cfg.dtype`` and quantized at once: the values
+        equal ``Transformer.random(cfg, device, seed).quantized(quant)``,
+        and the init holds the packs plus one dense weight."""
+        model = cls(cfg, device, quant)
         gen = torch.Generator(device=model.device)
         gen.manual_seed(seed)
-        _fill_trunc_normal(model.embed, cfg.dim, gen)
-        _fill_trunc_normal(model.lm_head, cfg.dim, gen)
-        for layer in model.layers:
-            for name in _LAYER_SHAPES:
-                weight = getattr(layer, name)
-                _fill_trunc_normal(weight, weight.shape[0], gen)
+        for name, owner in model.named_weights():
+            if name in ("norm_f", "attn_norm", "mlp_norm"):
+                continue
+            target = getattr(owner, name)
+            if isinstance(target, Pack):
+                dense = torch.empty(target.dense_shape, dtype=cfg.dtype, device=model.device)
+                _fill_trunc_normal(dense, cfg.dim if name == "embed" else dense.shape[0], gen)
+                model.set_weight(owner, name, dense)
+                del dense
+            else:
+                _fill_trunc_normal(target, cfg.dim if name == "embed" else target.shape[0], gen)
         return model
+
+    @torch.no_grad()
+    def quantized(self, mode: Any) -> "Transformer":
+        """A new model holding ``mode``'s packs of this dense model's
+        weights (embeddings and norms copied), built one weight at a time."""
+        if self.quant is not None:
+            raise ValueError(f"the model is already quantized ({self.quant})")
+        out = Transformer(self.cfg, self.device, mode)
+        for (name, owner), (_, src) in zip(out.named_weights(), self.named_weights()):
+            out.set_weight(owner, name, getattr(src, name))
+        return out
+
+    @torch.no_grad()
+    def dequantized(self, dtype: Optional[torch.dtype] = None) -> "Transformer":
+        """A new dense model (``dtype``, default the config's) with this
+        model's packs dequantized, one weight at a time."""
+        cfg = self.cfg if dtype is None else dataclasses.replace(self.cfg, dtype=dtype)
+        out = Transformer(cfg, self.device)
+        for (name, owner), (_, src) in zip(out.named_weights(), self.named_weights()):
+            w = getattr(src, name)
+            dense = dequantize_pack(w.pack, cfg.dtype) if isinstance(w, Pack) else w
+            out.set_weight(owner, name, dense.to(cfg.dtype))
+        return out
 
     # -- one decoder block ---------------------------------------------------
     def _block(
@@ -177,8 +259,8 @@ class Transformer(nn.Module):
             attn = attention(q, k, v, causal=True)
         else:
             k_cache, v_cache = kv_cache
-            k_cache[write_at] = k.to(k_cache.dtype)
-            v_cache[write_at] = v.to(v_cache.dtype)
+            kv_bits(k_cache)[write_at] = kv_bits(k.to(k_cache.dtype))
+            kv_bits(v_cache)[write_at] = kv_bits(v.to(v_cache.dtype))
             attn = attention(
                 q, k_cache, v_cache, causal=True, q_offset=starts, kv_lens=kv_lens
             )
@@ -218,10 +300,12 @@ class Transformer(nn.Module):
         return torch.gather(lps[:, :-1], 2, tokens[:, 1:, None].long())[..., 0]
 
     # -- KV-cached ragged-batch serving path ------------------------------------
-    def init_cache(self, batch: int, max_seq: Optional[int] = None) -> dict:
-        """Zeroed cache [n_layers, B, max_seq, n_kv_heads, head_dim] plus
-        per-request ``lengths`` [B]. ``max_seq`` may not exceed the
-        config's (the RoPE table bounds valid positions)."""
+    def init_cache(self, batch: int, max_seq: Optional[int] = None,
+                   dtype: Optional[torch.dtype] = None) -> dict:
+        """Zeroed cache [n_layers, B, max_seq, n_kv_heads, head_dim] in
+        ``dtype`` (default ``cfg.dtype``; a serving deployment passes its
+        MODEL_KV_DTYPE) plus per-request ``lengths`` [B]. ``max_seq`` may
+        not exceed the config's (the RoPE table bounds valid positions)."""
         cfg = self.cfg
         max_seq = max_seq or cfg.max_seq
         if max_seq > cfg.max_seq:
@@ -231,9 +315,10 @@ class Transformer(nn.Module):
             )
         shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
         dev = self.device
+        dtype = dtype or cfg.dtype
         return {
-            "k": torch.zeros(shape, dtype=cfg.cache_dtype, device=dev),
-            "v": torch.zeros(shape, dtype=cfg.cache_dtype, device=dev),
+            "k": zeros_kv(shape, dtype, dev),
+            "v": zeros_kv(shape, dtype, dev),
             "lengths": torch.zeros(batch, dtype=torch.int32, device=dev),
         }
 
@@ -313,13 +398,62 @@ class Transformer(nn.Module):
         (tokens [B, n_steps] int32, logprobs [B, n_steps] f32, top values
         [B, n_steps, TOP_LOGPROBS] f32, top ids [B, n_steps, TOP_LOGPROBS]
         int32, the feed-forward token [B, 1] int32, the cache)."""
+        return self._decode_chunk(
+            token, cache, n_steps, generator, (temperature, top_k, top_p, min_p), all_greedy
+        )
+
+    @torch.no_grad()
+    def decode_chunk_pool_penalized(
+        self,
+        token: torch.Tensor,
+        cache: dict,
+        n_steps: int,
+        generator: Optional[torch.Generator],
+        temperature: Any,
+        top_k: Any,
+        top_p: Any,
+        min_p: Any,
+        presence: torch.Tensor,
+        rep: Any,
+        counts: torch.Tensor,
+        presence_penalty: Any,
+        frequency_penalty: Any,
+        bias: torch.Tensor,
+        all_greedy: Optional[bool] = None,
+    ) -> tuple:
+        """``decode_chunk_pool`` with PER-ROW penalty state: ``presence``
+        [B, V] bool (prompt and generated ids), ``counts`` [B, V] f32
+        (generated ids), ``bias`` [B, V] f32, and the knobs ``rep``,
+        ``presence_penalty``, ``frequency_penalty`` ([B] tensors or
+        scalars). Rows without penalties carry identity knobs (rep 1,
+        penalties 0, a zero bias row) and sample exactly as the plain chunk
+        does. The logprobs stay the RAW model's (log-softmax of the
+        unpenalized logits). ``presence`` and ``counts`` advance in place
+        with every sampled id. Returns ``decode_chunk_pool``'s tuple plus
+        (presence, counts)."""
+        penalty = (presence, _col(rep), counts, _col(presence_penalty),
+                   _col(frequency_penalty), bias)
+        out = self._decode_chunk(
+            token, cache, n_steps, generator, (temperature, top_k, top_p, min_p), all_greedy,
+            penalty,
+        )
+        return (*out, presence, counts)
+
+    def _decode_chunk(self, token: torch.Tensor, cache: dict, n_steps: int,
+                      generator: Optional[torch.Generator], knobs: tuple,
+                      all_greedy: Optional[bool], penalty: Optional[tuple] = None) -> tuple:
         toks, lps, tvals, tids = [], [], [], []
         for _ in range(n_steps):
             logits, cache = self.decode_step(token, cache)
-            nxt = sample_logits_rows(
-                logits, generator, temperature, top_k, top_p, min_p, all_greedy=all_greedy
-            )
+            scored = logits
+            if penalty is not None:
+                presence, rep, counts, pp, fp, bias = penalty
+                scored = apply_penalties(logits, presence, rep, counts, pp, fp, bias)
+            nxt = sample_logits_rows(scored, generator, *knobs, all_greedy=all_greedy)
             lp, tv, ti = _lp_outputs(logits, nxt)
+            if penalty is not None:
+                update_presence(presence, nxt)
+                update_counts(counts, nxt)
             token = nxt.to(torch.int32)[:, None]
             toks.append(token[:, 0])
             lps.append(lp)
@@ -327,6 +461,11 @@ class Transformer(nn.Module):
             tids.append(ti)
         return (torch.stack(toks, 1), torch.stack(lps, 1), torch.stack(tvals, 1),
                 torch.stack(tids, 1), token, cache)
+
+
+def _col(knob: Any) -> Any:
+    """A per-row knob as a [B, 1] column; a scalar stays one."""
+    return knob.reshape(-1, 1) if isinstance(knob, torch.Tensor) else knob
 
 
 TOP_LOGPROBS = 5  # OpenAI's completions cap; computed in every pool chunk

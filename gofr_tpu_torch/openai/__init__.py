@@ -11,8 +11,9 @@
 Modules: ``parse`` (request knobs, stops, fan-out constraints),
 ``template`` (chat prompts), ``logprobs`` (response logprob objects),
 ``fanout`` (candidate generation and the multi-index SSE driver),
-``completions``, ``chat`` and ``embeddings`` (the endpoints). The port
-does not yet serve ``/v1/embeddings``, penalties, ``logit_bias`` or
+``completions``, ``chat`` and ``embeddings`` (the endpoints). Both
+endpoints take the repetition/presence/frequency penalties and
+``logit_bias``. The port does not yet serve ``/v1/embeddings`` or
 adapters.
 """
 

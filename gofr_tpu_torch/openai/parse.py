@@ -11,9 +11,7 @@ from typing import Any
 from gofr_tpu_torch.errors import HTTPError
 
 # OpenAI knobs the JAX package serves that this port does not yet
-_NOT_PORTED = (
-    "presence_penalty", "frequency_penalty", "repetition_penalty", "logit_bias", "adapter",
-)
+_NOT_PORTED = ("adapter",)
 # knobs that would change what the model is ASKED to do: silently ignoring
 # them serves wrong output to a client that believes its tools were offered
 _REFUSED = ("tools", "tool_choice", "functions", "function_call", "modalities", "audio",
@@ -108,8 +106,9 @@ class StopScanner:
 
 
 def sampler_from_body(body: dict) -> Any:
-    """The request's Sampler with OpenAI's defaults (temperature 1.0);
-    explicit JSON nulls mean the default."""
+    """The request's Sampler with OpenAI's defaults (temperature 1.0):
+    the sampling knobs, the repetition/presence/frequency penalties and
+    ``logit_bias``; explicit JSON nulls mean the default."""
     from gofr_tpu_torch.ops.sampling import Sampler
 
     try:

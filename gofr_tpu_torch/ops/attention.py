@@ -22,6 +22,23 @@ import torch
 
 from gofr_tpu_torch.ops.flash import flash_attention
 
+FLOAT8_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
+
+
+def kv_bits(t: torch.Tensor) -> torch.Tensor:
+    """A float8 cache tensor as its uint8 bits (the same storage): indexed
+    writes, gathers and copies of the cache move bytes through this view,
+    so they need no float8 kernel; other dtypes pass through."""
+    return t.view(torch.uint8) if t.dtype in FLOAT8_DTYPES else t
+
+
+def zeros_kv(shape: tuple, dtype: torch.dtype, device: "torch.device | str") -> torch.Tensor:
+    """A zeroed cache tensor; a float8 one is zeroed through its bits
+    (0x00 is +0.0 in both float8 formats)."""
+    if dtype in FLOAT8_DTYPES:
+        return torch.zeros(shape, dtype=torch.uint8, device=device).view(dtype)
+    return torch.zeros(shape, dtype=dtype, device=device)
+
 
 def attention(
     q: torch.Tensor,

@@ -26,7 +26,17 @@ Mechanics:
   their ``lengths`` run on past ``max_seq``, where positions, the cache
   write and every attention kernel clamp;
 - requests with a sampling seed bypass the pool (``device.py`` routes them
-  solo: their generator sequence must reproduce).
+  solo: their generator sequence must reproduce);
+- penalized requests (repetition/presence/frequency penalties, logit
+  bias) join the pool on per-slot state: [slots, V] presence (bool),
+  counts (f32) and bias (f32) rows and per-slot knob vectors, written at
+  admission; the chunk runs ``decode_chunk_pool_penalized`` only while a
+  penalized slot is active (a plain slot carries identity knobs and
+  samples as the plain chunk does). ``penalties`` (DECODE_POOL_PENALTIES)
+  says when the state exists: ``eager`` at boot, ``lazy`` (the default)
+  from the first penalized submit (that request solos, rejected
+  ``penalties_warming``, while the worker allocates it), ``off`` never
+  (penalized requests solo, rejected ``penalties_off``).
 
 Stream order stands in for JAX's data dependencies. Every CUDA operation
 the pool makes runs on the device's default stream, where the prefill that
@@ -40,8 +50,10 @@ row read. A chunk's launches take the host hundreds of milliseconds at
 llama3-8b, so the worker dispatches outside the lock: a submit or a
 delivery never waits for them.
 
-Later slices take the rest of the JAX pool: penalties, LoRA, pooled
-speculation, deadlines, metrics, the dispatch timeline and the watchdog.
+Later slices take the rest of the JAX pool: LoRA (and with it the
+``penalized_mix`` reject, which keeps adapter and penalized slots out of
+one chunk), pooled speculation, deadlines, metrics, the dispatch timeline
+and the watchdog.
 """
 
 from __future__ import annotations
@@ -54,6 +66,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from gofr_tpu_torch.ops.attention import kv_bits
+
 DONE = object()  # end-of-stream marker on a slot's token queue
 
 # chunks in flight (DECODE_PIPELINE): the fetch of chunk N overlaps the
@@ -62,6 +76,7 @@ PIPELINE_DEPTH = 3
 # how long close() waits for the worker: one chunk's launches take the host
 # well under a second at llama3-8b
 CLOSE_TIMEOUT_S = 60
+PENALTY_MODES = ("lazy", "eager", "off")  # DECODE_POOL_PENALTIES
 
 
 class PoolFailure:
@@ -138,9 +153,11 @@ class _Slot:
 
 
 class DecodePool:
-    """``n_slots`` rows of KV cache decoded together, ``chunk`` steps per
-    dispatch. ``scheduler`` (``tpu/scheduler.py``) is told of every chunk;
-    ``kv`` (a ``BlockPool``) gates admission on its ledger."""
+    """``n_slots`` rows of KV cache (in ``cache_dtype``, default the
+    model's) decoded together, ``chunk`` steps per dispatch. ``scheduler``
+    (``tpu/scheduler.py``) is told of every chunk; ``kv`` (a
+    ``BlockPool``) gates admission on its ledger; ``penalties`` is
+    DECODE_POOL_PENALTIES."""
 
     def __init__(
         self,
@@ -150,9 +167,13 @@ class DecodePool:
         pipeline_depth: int = PIPELINE_DEPTH,
         scheduler: Any = None,
         kv: Any = None,
+        penalties: str = "lazy",
+        cache_dtype: Optional[torch.dtype] = None,
     ):
         if pipeline_depth < 1:
             raise ValueError(f"pipeline_depth must be >= 1, got {pipeline_depth}")
+        if penalties not in PENALTY_MODES:
+            raise ValueError(f"penalties must be lazy|eager|off, got {penalties!r}")
         self.model = model
         self.cfg = model.cfg
         self.n_slots = n_slots
@@ -162,7 +183,7 @@ class DecodePool:
         self._sched = scheduler
         self._kv = kv
         dev = model.device
-        self.cache = model.init_cache(n_slots, self.max_len)
+        self.cache = model.init_cache(n_slots, self.max_len, cache_dtype)
         self._last_tokens = torch.zeros((n_slots, 1), dtype=torch.int32, device=dev)
         # per-slot sampling knobs: host copies (the all-greedy test and
         # change detection) and device vectors, written per slot in place
@@ -177,6 +198,11 @@ class DecodePool:
         # the JAX pool's key split: one device generator the worker owns
         self._generator = torch.Generator(device=dev)
         self._generator.manual_seed(int(np.random.SeedSequence().entropy % (1 << 63)))
+        # per-slot penalty state (allocated by _enable_penalties)
+        self._pen_mode = penalties
+        self._pen_ready = False
+        self._pen_wanted = False  # lazy: the worker allocates at its next turn
+        self._pen_slots: set[int] = set()
         self._slots = [_Slot(i) for i in range(n_slots)]
         self._free = list(reversed(self._slots))
         self._active: dict[int, _Slot] = {}
@@ -193,6 +219,8 @@ class DecodePool:
         self.cache["lengths"].zero_()
         self._last_tokens.zero_()
         self.dispatches = 0
+        if penalties == "eager":
+            self._enable_penalties()
         self._thread = threading.Thread(target=self._run, daemon=True, name="gofr-decode-pool")
         self._thread.start()
 
@@ -209,19 +237,28 @@ class DecodePool:
         want_logprobs: bool = False,
         want_top_logprobs: bool = False,
         want_kv: bool = False,
+        penalty: Optional[tuple] = None,
     ) -> "queue.Queue":
         """Claim a slot for a prefilled request (``row_cache``: its
         ``[L, 1, S, Hkv, D]`` k/v, valid up to ``start_len``, produced on
         the default stream); returns the queue its decoded bursts (then
         DONE) arrive on. Raises queue.Full when no slot or no KV budget is
-        free (the caller decodes solo) and RuntimeError once the pool is
-        closed. The row must stay unchanged until the worker has issued its
-        copy (the next dispatch)."""
+        free, or the penalty state is off or not there yet (the caller
+        decodes solo), and RuntimeError once the pool is closed. The row
+        must stay unchanged until the worker has issued its copy (the next
+        dispatch).
+
+        ``penalty`` pools a penalized request: (presence row [1, V] bool,
+        counts row [1, V] f32, bias row [1, V] f32, repetition_penalty,
+        presence_penalty, frequency_penalty), the rows on the device and
+        already counting ``first_token``."""
         out: "queue.Queue" = queue.Queue()
         with self._work:
             if self._closed:
                 self._reject("closed", count_only=True)
                 raise RuntimeError("decode pool closed")
+            if penalty is not None:
+                self._admit_penalty()
             if not self._free:
                 self._reject("no_free_slots", "no free decode slots")
             kv_reserved = self._reserve_kv(start_len, max_new)
@@ -232,8 +269,12 @@ class DecodePool:
                 kv_reserved=kv_reserved,
             )
             knobs = (sampler.temperature, sampler.top_k, sampler.top_p, sampler.min_p)
+            if penalty is not None:
+                self._pen_slots.add(slot.index)
             # the worker issues the slot's writes before its next dispatch
-            self._admissions.append((slot.index, row_cache, start_len, first_token, knobs))
+            self._admissions.append(
+                (slot.index, row_cache, start_len, first_token, knobs, penalty)
+            )
             self._active[slot.index] = slot
             self._work.notify()
         return out
@@ -243,7 +284,7 @@ class DecodePool:
         n = int(length)
         with torch.no_grad():
             for name in ("k", "v"):
-                self.cache[name][:, index, :n].copy_(row[name][:, 0, :n])
+                kv_bits(self.cache[name])[:, index, :n].copy_(kv_bits(row[name])[:, 0, :n])
             self.cache["lengths"][index].fill_(n)
 
     def _read_slot(self, index: int) -> dict:
@@ -270,14 +311,67 @@ class DecodePool:
 
     def _admit_pending(self) -> None:
         """Issue the queued admissions' writes (worker thread, pool lock
-        held): the slot's KV rows and length, its first token and its
-        sampling knobs. Issued by the thread that dispatches, so each lands
-        after every chunk dispatched before it and before the next."""
-        for index, row, length, first_token, knobs in self._admissions:
+        held): the slot's KV rows and length, its first token, its
+        sampling knobs and its penalty rows and knobs. Issued by the thread
+        that dispatches, so each lands after every chunk dispatched before
+        it and before the next."""
+        if self._pen_wanted and not self._pen_ready:
+            self._enable_penalties()
+        for index, row, length, first_token, knobs, penalty in self._admissions:
             self._write_slot(index, row, length)
             self._last_tokens[index].fill_(int(first_token))
             self._set_knobs(index, knobs)
+            if penalty is not None:
+                self._apply_penalty(index, penalty)
         self._admissions.clear()
+
+    # -- per-slot penalties ----------------------------------------------------
+    def _enable_penalties(self) -> None:
+        """Allocate the penalty state: [slots, V] presence, counts and bias
+        rows (all zero: identity for every slot) and the knob vectors."""
+        n, v, dev = self.n_slots, self.cfg.vocab_size, self._last_tokens.device
+        with torch.no_grad():
+            self._pres = torch.zeros((n, v), dtype=torch.bool, device=dev)
+            self._cnts = torch.zeros((n, v), dtype=torch.float32, device=dev)
+            self._bias = torch.zeros((n, v), dtype=torch.float32, device=dev)
+            self._reps = np.ones(n, np.float32)
+            self._pps = np.zeros(n, np.float32)
+            self._fps = np.zeros(n, np.float32)
+            self._reps_dev = torch.ones(n, dtype=torch.float32, device=dev)
+            self._pps_dev = torch.zeros(n, dtype=torch.float32, device=dev)
+            self._fps_dev = torch.zeros(n, dtype=torch.float32, device=dev)
+        self._pen_ready = True
+
+    def _admit_penalty(self) -> None:
+        """The penalized submit's gate (pool lock held): raises queue.Full
+        while the state is off or not allocated yet; a lazy pool's first
+        penalized submit asks the worker to allocate it."""
+        if self._pen_ready:
+            return
+        if self._pen_mode == "lazy":
+            self._pen_wanted = True
+            self._work.notify()
+        off = self._pen_mode == "off"
+        self._reject("penalties_off" if off else "penalties_warming",
+                     "penalized pool path " + ("disabled" if off else "warming"))
+
+    def _apply_penalty(self, index: int, penalty: tuple) -> None:
+        """Write a penalized request's rows and knobs into its slot (worker
+        thread, pool lock held)."""
+        pres_row, cnt_row, bias_row, rep, pp, fp = penalty
+        with torch.no_grad():
+            self._pres[index].copy_(pres_row[0])
+            self._cnts[index].copy_(cnt_row[0])
+            self._bias[index].copy_(bias_row[0])
+        self._set_pen_knobs(index, (rep, pp, fp))
+
+    def _set_pen_knobs(self, index: int, knobs: tuple) -> None:
+        pairs = zip((self._reps, self._pps, self._fps),
+                    (self._reps_dev, self._pps_dev, self._fps_dev), knobs)
+        for host, dev, value in pairs:
+            if host[index] != value:
+                host[index] = value
+                dev[index].fill_(value)
 
     def _set_knobs(self, index: int, knobs: tuple) -> None:
         """A slot's sampling knobs, written on the card only where they
@@ -321,6 +415,7 @@ class DecodePool:
             slot.request = None
         self._active.clear()
         self._admissions.clear()
+        self._pen_slots.clear()
         self._free = list(reversed(self._slots))
         if self._sched is not None:
             self._sched.note_decode_idle()  # a dead pool must not gate prefill
@@ -329,7 +424,8 @@ class DecodePool:
         in_flight: deque = deque()  # (records, fetch, want_top)
         while True:
             with self._work:
-                while not self._active and not in_flight and not self._closed:
+                while (not self._active and not in_flight and not self._closed
+                       and not (self._pen_wanted and not self._pen_ready)):
                     self._work.wait()
                 if self._closed:
                     # closing mid-stream is an ERROR for waiters, never a
@@ -364,13 +460,26 @@ class DecodePool:
             self._sched.note_decode_chunk(len(records))
 
     def _run_executable(self) -> tuple:
-        """ONE chunk over every slot (pool lock held); the feed-forward
-        token and the cache stay on the card."""
-        (toks, lps, tvals, tids, self._last_tokens, self.cache) = self.model.decode_chunk_pool(
-            self._last_tokens, self.cache, self.chunk, self._generator,
-            self._temps_dev, self._top_ks_dev, self._top_ps_dev, self._min_ps_dev,
-            all_greedy=bool((self._temps <= 0.0).all()),
-        )
+        """ONE chunk over every slot; the feed-forward token and the cache
+        stay on the card. The penalized chunk runs only while a penalized
+        slot is active: penalty-free traffic keeps the plain one. (Only the
+        worker empties ``_pen_slots``; a submit adding to it between the
+        snapshot and here is harmless: its slot is not in this chunk's
+        records, and a plain slot samples alike under either chunk.)"""
+        knobs = (self._temps_dev, self._top_ks_dev, self._top_ps_dev, self._min_ps_dev)
+        all_greedy = bool((self._temps <= 0.0).all())
+        if self._pen_slots:
+            (toks, lps, tvals, tids, self._last_tokens, self.cache, self._pres,
+             self._cnts) = self.model.decode_chunk_pool_penalized(
+                self._last_tokens, self.cache, self.chunk, self._generator, *knobs,
+                self._pres, self._reps_dev, self._cnts, self._pps_dev, self._fps_dev,
+                self._bias, all_greedy=all_greedy,
+            )
+        else:
+            (toks, lps, tvals, tids, self._last_tokens, self.cache) = self.model.decode_chunk_pool(
+                self._last_tokens, self.cache, self.chunk, self._generator, *knobs,
+                all_greedy=all_greedy,
+            )
         return toks, lps, tvals, tids
 
     def _fetch_and_deliver(self, in_flight: deque) -> None:
@@ -460,8 +569,17 @@ class DecodePool:
 
     def _reset_slot(self, index: int) -> None:
         """Greedy knobs on a freed slot: a past sampled request must not
-        keep the all-greedy fast path (no sort) off for every later chunk."""
+        keep the all-greedy fast path (no sort) off for every later chunk.
+        A penalized slot gets identity penalty knobs and a zero bias row:
+        a plain request reusing it under the penalized chunk samples as
+        under the plain one (presence and counts need no reset: identity
+        knobs ignore them; the bias is added unconditionally)."""
         self._set_knobs(index, (0.0, 0, 1.0, 0.0))
+        if index in self._pen_slots:
+            self._pen_slots.discard(index)
+            self._set_pen_knobs(index, (1.0, 0.0, 0.0))
+            with torch.no_grad():
+                self._bias[index].zero_()
 
     def occupancy(self) -> dict:
         """Point-in-time slot occupancy."""
@@ -473,6 +591,8 @@ class DecodePool:
                 "chunk": self.chunk,
                 "pipeline_depth": self.pipeline_depth,
                 "dispatches": self.dispatches,
+                "penalties": self._pen_mode,
+                "penalized_slots": len(self._pen_slots),
                 "closed": self._closed,
                 "rejects": dict(self.rejects),
                 "kv": self._kv.stats() if self._kv is not None else None,

@@ -15,8 +15,14 @@ package's serving defaults (``serving_options``): ``DECODE_POOL`` (on),
 ``KV_PAGED`` (on), ``KV_BLOCK_TOKENS`` (64), ``KV_BLOCKS`` (0 = auto),
 ``PREFIX_CACHE`` (0), ``PREFIX_LCP_MIN`` (0 = smallest bucket, -1 = exact
 only), ``PREFILL_CHUNK_TOKENS`` (0 = off), ``SCHED_POLICY`` (fair) and
-``SCHED_MAX_DEFER_MS`` (1000). Default stops: ``GEN_STOP_EOS=off`` (none),
-else ``GEN_STOP_TOKENS`` (ids), else the tokenizer's EOS.
+``SCHED_MAX_DEFER_MS`` (1000) and ``DECODE_POOL_PENALTIES`` (lazy). The
+weights: ``MODEL_PATH`` (an HF safetensors file or directory, loaded one
+tensor at a time; any other path is a ``training/checkpoint.py``
+checkpoint), else a seeded random init; ``MODEL_QUANT`` (int8, int4,
+w8a8: quantized as they load, or as they are drawn); ``MODEL_KV_DTYPE``
+(bf16, or f8 for a float8 e4m3 KV cache). Default stops:
+``GEN_STOP_EOS=off`` (none), else ``GEN_STOP_TOKENS`` (ids), else the
+checkpoint's ``generation_config.json`` EOS ids, else the tokenizer's EOS.
 
 A request goes: prefix lookup (exact hit, or the longest common prefix
 with a tail prefill), else chunked prefill (prompts longer than the largest
@@ -24,15 +30,18 @@ bucket or over ``PREFILL_CHUNK_TOKENS``) or the dynamic batcher; then the
 prefix store; then a decode-pool slot, or solo chunked decode when the
 pool is off, full or closed, or the request carries a seed. Logprobs (and
 the top-``TOP_LOGPROBS`` alternatives) ride every decode chunk, pooled or
-solo; the first token's come from the prefill logits. ``score`` runs one
-cache-free forward over a prompt bucket (teacher-forced scoring). Served
-weights: bf16 (or the config's dtype) dense; no draft model, no LoRA, no
-penalties.
+solo; the first token's come from the prefill logits. Penalties and
+``logit_bias`` apply from the first token (``_penalized_first``) and ride
+the pool's per-slot state, or the penalized chunk at B = 1 solo; the
+logprobs stay the raw model's. ``score`` runs one cache-free forward over
+a prompt bucket (teacher-forced scoring). No draft model, no LoRA.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import queue
 import threading
 import time
@@ -43,13 +52,24 @@ import numpy as np
 import torch
 
 from gofr_tpu_torch.errors import InvalidParamError
+from gofr_tpu_torch.models.ingest import is_safetensors_path, load_llama_params
 from gofr_tpu_torch.models.llama import CONFIGS
+from gofr_tpu_torch.models.quant import quantizer_for
 from gofr_tpu_torch.models.transformer import TOP_LOGPROBS, Transformer
-from gofr_tpu_torch.ops.sampling import Sampler
+from gofr_tpu_torch.ops.sampling import (
+    Sampler,
+    apply_penalties,
+    bias_row_from_map,
+    check_bias_ids,
+    presence_from_tokens,
+    update_counts,
+    update_presence,
+)
 from gofr_tpu_torch.tokenizer import load_tokenizer
 from gofr_tpu_torch.tpu.batcher import DynamicBatcher, next_pow2, pack_token_rows
 from gofr_tpu_torch.tpu.decode_pool import (
     DONE,
+    PENALTY_MODES,
     PIPELINE_DEPTH,
     DecodePool,
     HostFetch,
@@ -65,6 +85,7 @@ from gofr_tpu_torch.tpu.kv_blocks import (
     to_device,
 )
 from gofr_tpu_torch.tpu.scheduler import POLICIES, InterferenceScheduler
+from gofr_tpu_torch.training.checkpoint import restore_params
 
 
 def resolve_device(name: str) -> torch.device:
@@ -77,12 +98,44 @@ def resolve_device(name: str) -> torch.device:
     return torch.device(name)
 
 
+def checkpoint_eos_ids(model_path: Optional[str], tokenizer: Any) -> set:
+    """EOS ids for default stopping: the checkpoint's
+    ``generation_config.json`` beside ``MODEL_PATH`` (``eos_token_id``, an
+    int or a list: Llama-3 instruct lists both <|end_of_text|> and
+    <|eot_id|>), else the tokenizer's EOS; empty when neither exists. A
+    ``generation_config.json`` that cannot be read fails the boot."""
+    if model_path:
+        base = model_path if os.path.isdir(model_path) else os.path.dirname(model_path)
+        gc_path = os.path.join(base, "generation_config.json")
+        if os.path.isfile(gc_path):
+            try:
+                with open(gc_path, encoding="utf-8") as fh:
+                    eos = json.load(fh).get("eos_token_id")
+            except (OSError, ValueError) as exc:
+                # dropping the checkpoint's extra EOS ids would run every
+                # chat past the turn boundary: fail loudly instead
+                raise ValueError(
+                    f"cannot read {gc_path}: {exc} — fix the checkpoint "
+                    "or set GEN_STOP_TOKENS / GEN_STOP_EOS=off"
+                ) from None
+            if isinstance(eos, int):
+                return {eos}
+            if isinstance(eos, list) and all(isinstance(t, int) for t in eos):
+                return set(eos)
+    if tokenizer is not None:
+        try:
+            return {tokenizer.special_id("eos")}
+        except ValueError:
+            pass
+    return set()
+
+
 def resolve_default_stop_ids(config: Any, tokenizer: Any) -> frozenset:
-    """Default stop ids, which end EVERY generation (OpenAI semantics):
-    none under ``GEN_STOP_EOS=off``; else ``GEN_STOP_TOKENS`` (comma-separated
-    ids); else the tokenizer's EOS (none without a tokenizer). The JAX
-    package's ``generation_config.json`` source needs ``MODEL_PATH``, which
-    the port does not read yet."""
+    """Default stop ids, which end EVERY generation (OpenAI semantics), in
+    the JAX package's order: none under ``GEN_STOP_EOS=off``; else
+    ``GEN_STOP_TOKENS`` (comma-separated ids); else the checkpoint's
+    ``generation_config.json`` EOS ids beside ``MODEL_PATH``; else the
+    tokenizer's EOS (none without a tokenizer)."""
     if config.get_or_default("GEN_STOP_EOS", "on") == "off":
         return frozenset()
     explicit = config.get("GEN_STOP_TOKENS")
@@ -91,12 +144,37 @@ def resolve_default_stop_ids(config: Any, tokenizer: Any) -> frozenset:
             return frozenset(int(t) for t in str(explicit).split(",") if t.strip())
         except ValueError:
             raise ValueError("GEN_STOP_TOKENS must be comma-separated token ids") from None
-    if tokenizer is not None:
-        try:
-            return frozenset({tokenizer.special_id("eos")})
-        except ValueError:
-            pass
-    return frozenset()
+    return frozenset(checkpoint_eos_ids(config.get("MODEL_PATH"), tokenizer))
+
+
+def parse_kv_dtype(raw: str) -> Optional[torch.dtype]:
+    """MODEL_KV_DTYPE: bf16 (the default: the compute dtype) or f8 (float8
+    e4m3); anything else raises."""
+    raw = raw.strip().lower()
+    if raw in ("", "bf16", "bfloat16"):
+        return None
+    if raw in ("f8", "fp8", "float8", "float8_e4m3fn"):
+        return torch.float8_e4m3fn
+    raise ValueError(f"MODEL_KV_DTYPE '{raw}' not supported — use bf16 or f8")
+
+
+def load_model(cfg: Any, device: torch.device, model_path: Optional[str], quant: Any,
+               seed: int) -> Transformer:
+    """The serving weights (the JAX package's ``_load_params`` routes): a
+    safetensors ``MODEL_PATH`` loads one tensor at a time, quantized as it
+    lands; any other path is a ``training/checkpoint.py`` checkpoint,
+    quantized after the load; no path draws a seeded random model,
+    quantized as each weight is drawn. A path that cannot be read raises:
+    no route falls back to random weights."""
+    if model_path and is_safetensors_path(model_path):
+        return load_llama_params(model_path, cfg, quantize=quant, device=device)
+    if model_path:
+        model = Transformer(cfg, device)
+        state = restore_params(model_path, device)
+        model.load_state_dict(state)
+        del state
+        return model.quantized(quant) if quant else model
+    return Transformer.random(cfg, device, seed, quant=quant)
 
 
 def serving_options(config: Any, max_batch: int) -> dict:
@@ -133,6 +211,13 @@ def serving_options(config: Any, max_batch: int) -> dict:
     opts["pool_depth"] = int(config.get_or_default("DECODE_PIPELINE", str(PIPELINE_DEPTH)))
     if opts["pool_depth"] < 1:
         raise ValueError("DECODE_PIPELINE must be >= 1")
+    # lazy: the pool's penalty state is allocated on the first penalized
+    # request (which solos); eager: at boot; off: penalized requests solo
+    opts["pool_penalties"] = (
+        config.get_or_default("DECODE_POOL_PENALTIES", "lazy").strip().lower()
+    )
+    if opts["pool_penalties"] not in PENALTY_MODES:
+        raise ValueError("DECODE_POOL_PENALTIES must be lazy, eager, or off")
     return opts
 
 
@@ -159,6 +244,11 @@ class TPUDevice:
             raise ValueError(f"MODEL_BUCKETS entries must be positive, got {raw_buckets!r}")
         self.options = serving_options(config, self.max_batch)
         opts = self.options
+        # validated here, so a typo fails at startup
+        self.quant = config.get_or_default("MODEL_QUANT", "").strip() or None
+        quantizer_for(self.quant)
+        kv_dtype = parse_kv_dtype(config.get_or_default("MODEL_KV_DTYPE", ""))
+        self.model_path = config.get("MODEL_PATH") or None
         self.tokenizer = load_tokenizer(config)
         # default stops end every generation; request stops compose with them
         self.default_stop_ids = resolve_default_stop_ids(config, self.tokenizer)
@@ -181,6 +271,9 @@ class TPUDevice:
             buckets=buckets,
             seed=int(config.get_or_default("MODEL_SEED", "0")),
             model=model,
+            model_path=self.model_path,
+            quant=self.quant,
+            kv_dtype=kv_dtype,
             prefix_cache=opts["prefix_cache"],
             prefix_lcp_min=opts["prefix_lcp_min"],
             prefill_chunk_tokens=opts["prefill_chunk_tokens"],
@@ -201,7 +294,8 @@ class TPUDevice:
             self.decode_pool = DecodePool(
                 self.runner.model, n_slots=opts["pool_slots"],
                 chunk=self.runner.decode_chunk_size, pipeline_depth=opts["pool_depth"],
-                scheduler=self.scheduler, kv=self.kv_pool,
+                scheduler=self.scheduler, kv=self.kv_pool, penalties=opts["pool_penalties"],
+                cache_dtype=self.runner.cache_dtype,
             )
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)  # boot time includes the init
@@ -228,7 +322,9 @@ class TPUDevice:
             f"buckets={self.runner.buckets} decode_pool="
             f"{f'{pool.n_slots} slots' if pool else 'off'} "
             f"kv_paged={'off' if self.kv_pool is None else 'on'} "
-            f"prefix_cache={self.options['prefix_cache']} boot={self.boot_seconds:.1f}s"
+            f"prefix_cache={self.options['prefix_cache']} quant={self.quant or 'off'} "
+            f"kv_dtype={str(self.runner.cache_dtype).replace('torch.', '')} "
+            f"boot={self.boot_seconds:.1f}s"
         )
 
     def wait_ready(self, timeout: Optional[float] = None) -> None:
@@ -274,6 +370,7 @@ class TPUDevice:
         tops[i] the ``TOP_LOGPROBS`` [(alt id, alt logprob), ...] at
         position i, best first."""
         self.wait_ready()
+        self._check_bias(sampler)
         stop_tokens = frozenset(stop_tokens or ()) | self.default_stop_ids
         return self.runner.generate(
             self._encode(tokens), max_new_tokens, on_token=on_token, stop=stop,
@@ -295,6 +392,9 @@ class TPUDevice:
         (id, logprob) pairs with ``logprobs``. Closing it, or setting
         ``cancel`` (anything with ``set``/``is_set``), stops the background
         decode within a chunk."""
+        # eager, before the transport commits its 200: an out-of-vocab
+        # logit_bias id is a 400, not an error frame after the status
+        self._check_bias(sampler)
         out: "queue.Queue" = queue.Queue()
         done = object()
         failure: list[BaseException] = []
@@ -325,6 +425,14 @@ class TPUDevice:
                 stop.set()
 
         return iterate()
+
+    def _check_bias(self, sampler: Optional[Sampler]) -> None:
+        """An out-of-vocab ``logit_bias`` id -> InvalidParamError (400)."""
+        if sampler is not None and sampler.logit_bias:
+            try:
+                check_bias_ids(sampler.logit_bias, self.runner.cfg.vocab_size)
+            except ValueError as exc:
+                raise InvalidParamError(str(exc)) from None
 
     def score(self, tokens: Any) -> list[float]:
         """Teacher-forced prompt scoring: log p(t_i | t_<i) for i >= 1
@@ -423,6 +531,9 @@ class _TransformerRunner:
         buckets: Optional[tuple[int, ...]] = None,
         seed: int = 0,
         model: Optional[Transformer] = None,
+        model_path: Optional[str] = None,
+        quant: Any = None,
+        kv_dtype: Optional[torch.dtype] = None,
         prefix_cache: int = 0,
         prefix_lcp_min: int = 0,
         prefill_chunk_tokens: int = 0,
@@ -436,13 +547,20 @@ class _TransformerRunner:
             cfg = dataclasses.replace(cfg, max_seq=max_seq)
         self.name = name
         self.cfg = cfg
+        # the KV caches' storage dtype: this runner owns it and passes it to
+        # every cache it makes (the model's, the pool's, the arena's)
+        self.cache_dtype = kv_dtype or cfg.dtype
         self.device = device
         self.max_batch = max_batch
         self.decode_chunk_size = decode_chunk
         if model is None:
-            model = Transformer.random(cfg, device, seed)
-        elif model.cfg != cfg or model.device.type != device.type:
-            raise ValueError("the given model does not match MODEL_NAME/MODEL_MAX_SEQ/device")
+            model = load_model(cfg, device, model_path, quant, seed)
+        elif model_path:
+            raise ValueError("a given model and MODEL_PATH exclude each other")
+        elif (model.cfg != cfg or model.device.type != device.type or model.quant != quant):
+            raise ValueError(
+                "the given model does not match MODEL_NAME/MODEL_MAX_SEQ/MODEL_QUANT/device"
+            )
         self.model = model
         source = buckets if buckets else self.SEQ_BUCKETS
         self.buckets = [b for b in source if b <= cfg.max_seq] or [cfg.max_seq]
@@ -483,7 +601,7 @@ class _TransformerRunner:
             )
             return
         blocks_per_seq = cfg.max_seq // block_tokens
-        itemsize = torch.empty((), dtype=cfg.cache_dtype).element_size()
+        itemsize = torch.empty((), dtype=self.cache_dtype).element_size()
         block_bytes = 2 * cfg.n_layers * block_tokens * cfg.n_kv_heads * cfg.head_dim * itemsize
         # the arena backs the prefix cache's blocks (+1 sequence for the
         # store's transient table); in-flight decode KV lives in the pool's
@@ -506,7 +624,8 @@ class _TransformerRunner:
         if prefix_cache > 0:
             # the arena exists only for the prefix cache's blocks; a
             # ledger-only pool (PREFIX_CACHE=0, KV_BLOCKS set) holds none
-            arena = TorchKVArena(cfg, data_blocks + 1, block_tokens, device=self.device)
+            arena = TorchKVArena(cfg, data_blocks + 1, block_tokens, device=self.device,
+                                 dtype=self.cache_dtype)
             self._paged_prefix = _PagedPrefixStore(self.kv_pool, arena, self._prefix_lcp_min)
             self.prefix_stats = self._paged_prefix.stats
             self._prefix_cache = self._paged_prefix
@@ -552,7 +671,7 @@ class _TransformerRunner:
         bsz = next_pow2(max(n, self.max_batch))
         tokens, lengths = pack_token_rows(payloads, bsz, bucket)
         full_lengths = np.maximum(lengths, 1)  # padded rows need length >= 1
-        cache = self.model.init_cache(bsz, self.cfg.max_seq)
+        cache = self.model.init_cache(bsz, self.cfg.max_seq, self.cache_dtype)
         logits, cache = self._prefill(tokens, cache, full_lengths)
         next_ids = torch.argmax(logits, dim=-1).tolist()  # the batch's one sync
         return [
@@ -582,7 +701,9 @@ class _TransformerRunner:
         stop_tokens = frozenset(stop_tokens or ())
         ids = self.prepare(tokens)
         state = (
-            self._prefix_lookup(ids, need_logits=logprobs or not sampler.greedy)
+            self._prefix_lookup(
+                ids, need_logits=logprobs or sampler.penalized or not sampler.greedy
+            )
             if self._prefix_cache is not None else None
         )
         if state is None:
@@ -607,7 +728,10 @@ class _TransformerRunner:
                 return out, lps, tops
             return (out, lps) if logprobs else out
 
-        if sampler.greedy:
+        penalty = None  # (presence, counts, bias) rows [1, V] on the device
+        if sampler.penalized:
+            token, penalty = self._penalized_first(sampler, ids, state)
+        elif sampler.greedy:
             token = state["next_token"]
         else:
             with torch.no_grad():
@@ -625,11 +749,15 @@ class _TransformerRunner:
         # follow-up turn then reuses the whole conversation
         seed_kv = self._prefix_cache is not None
         if decode_pool is not None and not sampler.seeded:
+            pool_penalty = None
+            if penalty is not None:
+                pool_penalty = (*penalty, sampler.repetition_penalty,
+                                sampler.presence_penalty, sampler.frequency_penalty)
             try:
                 slot_q = decode_pool.submit(
                     _row_of(state), state["length"], token, max_new_tokens - 1, sampler, stop,
                     stop_tokens=stop_tokens, want_logprobs=logprobs,
-                    want_top_logprobs=top_logprobs, want_kv=seed_kv,
+                    want_top_logprobs=top_logprobs, want_kv=seed_kv, penalty=pool_penalty,
                 )
             except (queue.Full, RuntimeError):
                 slot_q = None  # pool saturated/closed -> solo decode below
@@ -645,7 +773,7 @@ class _TransformerRunner:
         state = None  # release the batch's prefill buffers
         cache = self._solo_decode(
             cache, cache_len, token, out, lps, tops, max_new_tokens, sampler, stop,
-            stop_tokens, on_token, logprobs, top_logprobs,
+            stop_tokens, on_token, logprobs, top_logprobs, penalty,
         )
         if seed_kv:
             self._prefix_store_generation(ids, out, cache, sampler)
@@ -681,10 +809,36 @@ class _TransformerRunner:
                     return None  # cancelled: the row may still be mid-write
 
     @torch.no_grad()
+    def _penalized_first(self, sampler: Sampler, ids: np.ndarray, state: Any) -> tuple:
+        """First-token pick under penalties -> (token, (presence, counts,
+        bias) rows [1, V] on the device, counting the token). Context
+        presence penalizes the FIRST token too (greedy included), so the
+        device-argmaxed id cannot be used; the additive presence/frequency
+        penalties count GENERATED tokens only, so counts start at zero;
+        the bias applies to every step, this one included."""
+        v, dev = self.cfg.vocab_size, self.device
+        presence = presence_from_tokens(ids, v, dev)
+        counts = torch.zeros((1, v), dtype=torch.float32, device=dev)
+        if sampler.logit_bias:
+            try:
+                bias = bias_row_from_map(sampler.logit_bias, v, dev)
+            except ValueError as exc:
+                raise InvalidParamError(str(exc)) from None
+        else:
+            bias = torch.zeros((1, v), dtype=torch.float32, device=dev)
+        scored = apply_penalties(
+            state["logits"].reshape(1, -1), presence, sampler.repetition_penalty, counts,
+            sampler.presence_penalty, sampler.frequency_penalty, bias,
+        )
+        token = sampler.pick(scored)
+        first = torch.tensor([token], device=dev)
+        return token, (update_presence(presence, first), update_counts(counts, first), bias)
+
+    @torch.no_grad()
     def _solo_decode(
         self, cache: dict, cache_len: int, token: int, out: list, lps: list, tops: list,
         max_new_tokens: int, sampler: Sampler, stop: Any, stop_tokens: frozenset,
-        on_token: Any, logprobs: bool, top_logprobs: bool,
+        on_token: Any, logprobs: bool, top_logprobs: bool, penalty: Optional[tuple] = None,
     ) -> dict:
         """Chunked decode through the pool's chunk function at B = 1
         (``decode_chunk_pool``: on-device sampling, the chosen logprobs and
@@ -696,13 +850,20 @@ class _TransformerRunner:
         wait covers chunk N and its copy, not chunk N+1, which runs
         meanwhile. Stop conditions lag by at most one chunk, whose ids are
         dropped. Every dispatch runs the full chunk unless the cache end
-        forces a short one. Returns the final cache (every dispatched
-        chunk's writes landed)."""
+        forces a short one. ``penalty`` (presence, counts, bias rows of a
+        penalized request) runs ``decode_chunk_pool_penalized`` at B = 1
+        instead. Returns the final cache (every dispatched chunk's writes
+        landed)."""
         max_len = int(cache["k"].shape[2])
         greedy = sampler.greedy
         gen = None if greedy else sampler.generator(self.device)
         temp = 0.0 if greedy else sampler.temperature
         knobs = (temp, sampler.top_k, sampler.top_p, sampler.min_p)
+        pen_knobs = [
+            torch.full((1,), value, dtype=torch.float32, device=self.device)
+            for value in (sampler.repetition_penalty, sampler.presence_penalty,
+                          sampler.frequency_penalty)
+        ] if penalty is not None else None  # made once: the chunk reads tensors
         pending: deque = deque()
         token_dev = to_device(np.asarray([[token]], np.int32), self.device)
         in_flight = 0
@@ -715,9 +876,20 @@ class _TransformerRunner:
                 and cache_len + in_flight < max_len
             ):
                 n = min(self.decode_chunk_size, max_len - cache_len - in_flight)
-                toks_dev, lps_dev, tvals, tids, token_dev, cache = self.model.decode_chunk_pool(
-                    token_dev, cache, n, gen, *knobs, all_greedy=greedy
-                )
+                if penalty is None:
+                    toks_dev, lps_dev, tvals, tids, token_dev, cache = (
+                        self.model.decode_chunk_pool(
+                            token_dev, cache, n, gen, *knobs, all_greedy=greedy
+                        )
+                    )
+                else:
+                    presence, counts, bias = penalty
+                    toks_dev, lps_dev, tvals, tids, token_dev, cache, _, _ = (
+                        self.model.decode_chunk_pool_penalized(
+                            token_dev, cache, n, gen, *knobs, presence, pen_knobs[0], counts,
+                            pen_knobs[1], pen_knobs[2], bias, all_greedy=greedy,
+                        )
+                    )
                 outputs = (toks_dev, lps_dev) if logprobs else (toks_dev,)
                 pending.append((HostFetch(*outputs, *((tvals, tids) if top_logprobs else ())), n))
                 in_flight += n
@@ -777,7 +949,7 @@ class _TransformerRunner:
         pooled decode turns. One host sync at the end (the last slice's
         argmax)."""
         bucket = bucket or self.buckets[-1]
-        cache = self.model.init_cache(1, self.cfg.max_seq)
+        cache = self.model.init_cache(1, self.cfg.max_seq, self.cache_dtype)
         logits = None
         total = 0
         for tokens, lengths, size in _prompt_chunks(ids, bucket):
@@ -881,7 +1053,9 @@ class _TransformerRunner:
         full = np.concatenate([ids, np.asarray(out[:-1], np.int32)])
         if full.size > self.cfg.max_seq:
             return
-        exactable = sampler.greedy
+        # out[-1] is the cached entry's next token only when it is the
+        # unpenalized greedy continuation
+        exactable = sampler.greedy and not sampler.penalized
         if self._paged_prefix is not None:
             self._paged_prefix.store_generation(full, row, exactable, out)
             return

@@ -24,6 +24,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from gofr_tpu_torch.ops.attention import kv_bits, zeros_kv
+
 
 class KVExhausted(RuntimeError):
     """No free KV blocks (and nothing evictable): the caller's request
@@ -400,11 +402,13 @@ class TorchKVArena:
     ``gather_row`` pads every table with it, so positions past a table's
     end read garbage that attention masks, as the slot model's stale rows.
     Both directions are plain indexed copies (``index_copy_`` and
-    ``index_select``) on the current stream.
+    ``index_select``) on the current stream; a float8 cache moves as its
+    uint8 bits, so its blocks keep float8 end to end.
     """
 
     def __init__(self, cfg: Any, n_blocks: int, block_tokens: int,
-                 max_seq: Optional[int] = None, device: "torch.device | str" = "cuda"):
+                 max_seq: Optional[int] = None, device: "torch.device | str" = "cuda",
+                 dtype: Optional[torch.dtype] = None):
         max_seq = max_seq or cfg.max_seq
         if max_seq % block_tokens:
             raise ValueError(
@@ -416,8 +420,8 @@ class TorchKVArena:
         self.max_seq = max_seq
         self.blocks_per_seq = max_seq // block_tokens
         shape = (cfg.n_layers, n_blocks, block_tokens, cfg.n_kv_heads, cfg.head_dim)
-        self.k = torch.zeros(shape, dtype=cfg.cache_dtype, device=self.device)
-        self.v = torch.zeros(shape, dtype=cfg.cache_dtype, device=self.device)
+        self.k = zeros_kv(shape, dtype or cfg.dtype, self.device)
+        self.v = zeros_kv(shape, dtype or cfg.dtype, self.device)
         self.block_bytes = (
             2 * cfg.n_layers * block_tokens * cfg.n_kv_heads * cfg.head_dim
             * self.k.element_size()
@@ -442,6 +446,7 @@ class TorchKVArena:
         bt = self.block_tokens
         idx = to_device(ids[skip_blocks:nb], self.device)
         for arena, src in ((self.k, row["k"]), (self.v, row["v"])):
+            arena, src = kv_bits(arena), kv_bits(src)
             blocks = src[:, 0, skip_blocks * bt : nb * bt]
             arena.index_copy_(1, idx, blocks.reshape(arena.shape[0], n, *arena.shape[2:]))
         return n * self.block_bytes
@@ -454,6 +459,7 @@ class TorchKVArena:
         row = {}
         for name, arena in (("k", self.k), ("v", self.v)):
             l_, _, bt, h, d = arena.shape
-            row[name] = arena.index_select(1, idx).reshape(l_, 1, self.max_seq, h, d)
+            bits = kv_bits(arena).index_select(1, idx).reshape(l_, 1, self.max_seq, h, d)
+            row[name] = bits.view(arena.dtype)
         row["lengths"] = torch.full((1,), int(length), dtype=torch.int32, device=self.device)
         return row

@@ -38,7 +38,14 @@ def cross_entropy_loss(
 
 def init_train_state_from(model: Transformer, optimizer: Any) -> dict:
     """A training state around ``model``, whose parameters are turned
-    trainable (serving builds them with ``requires_grad=False``)."""
+    trainable (serving builds them with ``requires_grad=False``). A
+    quantized model is refused: its packs are buffers, not parameters
+    (training over a quantized base comes with LoRA)."""
+    if model.quant is not None:
+        raise ValueError(
+            f"cannot train a quantized model (MODEL_QUANT={model.quant}): its weight "
+            "packs are not trainable; train the dense model and quantize it for serving"
+        )
     params = list(model.parameters())
     for p in params:
         p.requires_grad_(True)

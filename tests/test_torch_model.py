@@ -154,8 +154,15 @@ def test_quantized_tree_is_not_ported_yet():
     params = jax.tree.map(
         np.asarray, quantize_params(jt.init_transformer(jax.random.PRNGKey(0), JAX_TINY), "int8")
     )
-    with pytest.raises(NotImplementedError, match="not ported"):
-        transformer_from_tree(params, TINY, device="cpu")
+    model = transformer_from_tree(params, TINY, device="cpu")
+    assert model.quant == "int8"
+    # every pack of the JAX tree lands in the model as it is
+    for i, block in enumerate(model.layers):
+        for key in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+            for name in ("q", "scale"):
+                np.testing.assert_array_equal(getattr(getattr(block, key), name).numpy(),
+                                              params["layers"][key][name][i], err_msg=key)
+    np.testing.assert_array_equal(model.lm_head.scale.numpy(), params["lm_head"]["scale"])
 
 
 @pytest.mark.parametrize("fn", [transformer_from_tree, Transformer.__init__,

@@ -226,9 +226,10 @@ def test_mm_dense_matches_jax_and_rejects_packs():
     x, w = _rand(30, (2, 3, 16)), _rand(31, (16, 8))
     want = np.asarray(jax_mm(jnp.asarray(x), jnp.asarray(w)))
     np.testing.assert_allclose(mm(_t(x), _t(w)).numpy(), want, rtol=TOL, atol=TOL)
-    for pack in ({"q": None, "scale": None}, {"q4": None, "scale": None},
-                 {"q8": None, "scale": None}):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    # the three packs are ported (tests/test_torch_quant.py); a pack of
+    # any other keys is refused
+    for pack in ({"q5": None, "scale": None}, {"q": None}, {"scale": None}):
+        with pytest.raises(ValueError, match="unknown weight pack"):
             mm(_t(x), pack)
 
 

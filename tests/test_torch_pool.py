@@ -457,7 +457,7 @@ _JAX_ATTRS = {
     "kv_paged": "_kv_paged", "kv_block_tokens": "_kv_block_tokens", "kv_blocks": "_kv_blocks_cfg",
     "prefix_cache": "_prefix_cache_size", "prefix_lcp_min": "_prefix_lcp_min",
     "prefill_chunk_tokens": "_prefill_chunk_cfg", "sched_policy": "_sched_policy",
-    "sched_max_defer_ms": "_sched_max_defer_ms",
+    "sched_max_defer_ms": "_sched_max_defer_ms", "pool_penalties": "_pool_penalties",
 }
 
 
@@ -502,6 +502,7 @@ def _port_options(env):
     {"PREFIX_CACHE": "-1"}, {"PREFIX_LCP_MIN": "-2"}, {"PREFILL_CHUNK_TOKENS": "-5"},
     {"SCHED_POLICY": "lifo"}, {"SCHED_MAX_DEFER_MS": "0"}, {"KV_BLOCK_TOKENS": "0"},
     {"KV_BLOCKS": "-1"}, {"DECODE_PIPELINE": "0"},
+    {"DECODE_POOL_PENALTIES": " Eager "}, {"DECODE_POOL_PENALTIES": "sometimes"},
 ])
 def test_config_defaults_and_errors_match_jax(env):
     """The new keys' defaults (DECODE_SLOTS follows BATCH_MAX_SIZE, here the
