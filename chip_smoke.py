@@ -113,9 +113,38 @@ Phases, each fatal on failure (no phase is skipped or caught):
    ids) by a writer in this script, a device booted through ``MODEL_PATH``
    with ``MODEL_QUANT=int8`` (load seconds and GB/s): every tensor equal
    to the int8 packs, the same greedy ids, both EOS ids default stops; the
-   directory deleted. The phase's launch counts are those of its served
-   requests alone (the deltas around each), each pool dispatch checked at
-   n_layers x DECODE_CHUNK decode launches;
+   directory kept for phase 13, then deleted. The phase's launch counts
+   are those of its served requests alone (the deltas around each), each
+   pool dispatch checked at n_layers x DECODE_CHUNK decode launches;
+13. speculation (run right after phase 12, on its model, phase 12's
+   checkpoint kept for it): the forward at the verify shapes against its
+   plain version (the pool's [8, w] verify at w = 2, 4, 5 over a 2048-slot
+   cache at offsets = lengths, ragged, one row ending at the cache end, two
+   idle; the solo verify B=1 Sq=5 at kv_len 1800; NaN past kv_len), with
+   route, device time, bound and SDPA's time (2 and 4 on the decode
+   variant, 5 on mma); the tiny f32 model's pooled and solo speculation
+   on the card against plain decode, ids exactly (8 streams; the solo
+   mode with the target as its own draft); the solo latency mode
+   (DECODE_POOL=off,
+   DRAFT_MODEL_NAME=llama3-8b, DRAFT_TOKENS=4) with the checkpoint as
+   DRAFT_MODEL_PATH (the target's own weights: acceptance above half) and
+   with the seeded draft, 4 prompts of 32 greedy tokens one at a time, ids
+   against plain solo decode's under the near-tie rule (a divergence only
+   where the plain path's top-2 logits there differ by less than 2e-2 x
+   |max logit|; every divergence printed with its gap), cycles, drafted,
+   accepted, tokens a verify and TPOT beside plain solo TPOT; unseeded
+   sampling at temperature 0.8 (valid ids, the acceptance rate); pooled
+   n-gram speculation (SPEC_POOLED=on, SPEC_K_MAX=4) at 1, 4 and 8
+   concurrent streams of 32 tokens of prompts that repeat a passage, then
+   8 whose draft contexts hold the plain pool's answer (4-token drafts: a
+   verify of width 5, the ladder's widest, must run), ids against the
+   plain pool's under the same rule, verify dispatches (> 0) and drafts
+   (> 0), accepted/drafted, tokens a row a verify, aggregate tokens/s and
+   TPOT beside the plain pool's. The phase's launch counts are those of
+   its served speculative requests alone, by what launched them: every
+   verify n_layers launches on its width's route (the decode variant at
+   2 and 4, mma at 5), every draft chunk n_layers x k decode launches,
+   every plain pool chunk n_layers x DECODE_CHUNK;
 6. backward kernels vs plain: the dQ and dK/dV kernels (their sm90 variants
    for bf16 D=128, their mma variants for f32) against
    ``flash_attention_bwd_ref`` at the training shape (B=1, S=2048, Hq=32,
@@ -163,9 +192,11 @@ import gc
 import http.client
 import json
 import os
+import shutil
 import socket
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -884,9 +915,6 @@ def serve_openai(torch, flash, card: str, model) -> dict:
     fan-out with its usage frame, and GEN_STOP_TOKENS, on phase 5's
     llama3-8b in the default configuration, with a BPE merges file trained
     here from seeded text and an inline Llama-3-style jinja template."""
-    import shutil
-    import tempfile
-
     from gofr_tpu_torch.tokenizer import train_bpe
 
     t0 = time.perf_counter()
@@ -1288,10 +1316,11 @@ def kernel_profile(torch, fn) -> dict:
     return table
 
 
-def deployment(torch, flash, card: str, model) -> dict:
+def deployment(torch, flash, card: str, model, ckpt: str) -> dict:
     """Phase 12: phase 5's llama3-8b as deployments run it: quantized
     (int8, int4, w8a8) with the pool, an f8 KV cache, penalties and
-    logit_bias, and booted from an HF safetensors checkpoint on disk."""
+    logit_bias, and booted from an HF safetensors checkpoint written into
+    the empty directory ``ckpt``."""
     from gofr_tpu_torch.models.quant import quantize_params
 
     t0 = time.perf_counter()
@@ -1333,7 +1362,8 @@ def deployment(torch, flash, card: str, model) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     out["penalties"] = penalties(torch, flash, card, model, tally)
-    out["model_path"] = from_checkpoint(torch, flash, card, model, prompts4, int8_ids, tally)
+    out["model_path"] = from_checkpoint(torch, flash, card, model, prompts4, int8_ids, tally,
+                                        ckpt)
     out["sm90"], out["decode"] = tally["sm90"], tally["decode"]
     print(f"deployment: forward launches of the served requests: sm90 {tally['sm90']}, decode "
           f"{tally['decode']}, mma {tally['mma']} (every count since phase 12 began: sm90 "
@@ -1699,69 +1729,63 @@ def write_checkpoint(torch, model, path: str, layers_per_shard: int = 8) -> int:
 
 
 def from_checkpoint(torch, flash, card: str, model, prompts: list, int8_ids: list,
-                    tally: dict) -> dict:
-    """(d): phase 5's weights written as a sharded HF checkpoint, a device
-    booted through MODEL_PATH with MODEL_QUANT=int8: every tensor equal to
-    (a)'s int8 packs, the same greedy ids, both EOS ids default stops."""
-    import shutil
-    import tempfile
-
+                    tally: dict, path: str) -> dict:
+    """(d): phase 5's weights written as a sharded HF checkpoint into the
+    empty directory ``path`` (kept for phase 13's draft; the caller deletes
+    it), a device booted through MODEL_PATH with MODEL_QUANT=int8: every
+    tensor equal to (a)'s int8 packs, the same greedy ids, both EOS ids
+    default stops."""
     from gofr_tpu_torch.tpu import device as device_mod
 
-    path = tempfile.mkdtemp(prefix="gofr_ckpt_")
-    try:
-        free = shutil.disk_usage(path).free
+    free = shutil.disk_usage(path).free
+    t = time.perf_counter()
+    nbytes = write_checkpoint(torch, model, path)
+    write_s = time.perf_counter() - t
+    print(f"model_path: wrote {nbytes / 1e9:.2f} GB in {len(os.listdir(path)) - 2} shards "
+          f"under {path} in {write_s:.1f}s ({free / 1e9:.1f} GB were free there)", flush=True)
+    loads: list = []
+    load_model = device_mod.load_model
+
+    def timed_load(*args, **kwargs):
         t = time.perf_counter()
-        nbytes = write_checkpoint(torch, model, path)
-        write_s = time.perf_counter() - t
-        print(f"model_path: wrote {nbytes / 1e9:.2f} GB in {len(os.listdir(path)) - 2} shards "
-              f"under {path} in {write_s:.1f}s ({free / 1e9:.1f} GB were free there)", flush=True)
-        loads: list = []
-        load_model = device_mod.load_model
+        loaded = load_model(*args, **kwargs)
+        torch.cuda.synchronize()
+        loads.append(time.perf_counter() - t)
+        return loaded
 
-        def timed_load(*args, **kwargs):
-            t = time.perf_counter()
-            loaded = load_model(*args, **kwargs)
-            torch.cuda.synchronize()
-            loads.append(time.perf_counter() - t)
-            return loaded
-
-        device_mod.load_model = timed_load
-        try:
-            app = boot_deployment(None, {"MODEL_PATH": path, "MODEL_QUANT": "int8"})
-        finally:
-            device_mod.load_model = load_model
-        try:
-            dev = app.container.tpu
-            load_s = loads[0]
-            print(f"model_path: booted through MODEL_PATH with MODEL_QUANT=int8: load "
-                  f"{load_s:.2f}s, {nbytes / 1e9 / load_s:.2f} GB/s ({dev.describe()})", flush=True)
-            check(dev.default_stop_ids == frozenset(EOS_IDS),
-                  f"model_path: default stops {dev.default_stop_ids}, want {EOS_IDS}")
-            want = model.quantized("int8").state_dict()
-            got = dev.runner.model.state_dict()
-            check(got.keys() == want.keys(), "model_path: the loaded model's tensors differ")
-            unequal = [k for k in want if not torch.equal(got[k], want[k])]
-            print(f"model_path: {len(want)} tensors, bit-equal to (a)'s int8 packs: "
-                  f"{not unequal} {unequal[:3]}", flush=True)
-            check(not unequal, "model_path: a loaded tensor differs from (a)'s int8 pack")
-            del want, got
-            generations = recorded(dev)
-            for prompt, ids in zip(prompts, int8_ids):
-                with served(flash, dev, tally, "model_path"):
-                    status, _, _, _ = post(app.http_port, {"prompt": prompt, "max_tokens": 32,
-                                                           "temperature": 0})
-                check(status == 200, f"model_path: {status}")
-                cut = next((i for i, t in enumerate(ids) if t in EOS_IDS), len(ids))
-                check(generations[-1][1] == ids[:cut],
-                      "model_path: greedy ids differ from (a)'s int8 model")
-            print(f"model_path: greedy ids of {len(prompts)} prompts equal (a)'s int8 model's; "
-                  f"default stops {sorted(dev.default_stop_ids)}", flush=True)
-        finally:
-            app.shutdown()
+    device_mod.load_model = timed_load
+    try:
+        app = boot_deployment(None, {"MODEL_PATH": path, "MODEL_QUANT": "int8"})
     finally:
-        shutil.rmtree(path, ignore_errors=True)
-    check(not os.path.exists(path), "model_path: the checkpoint directory is still there")
+        device_mod.load_model = load_model
+    try:
+        dev = app.container.tpu
+        load_s = loads[0]
+        print(f"model_path: booted through MODEL_PATH with MODEL_QUANT=int8: load "
+              f"{load_s:.2f}s, {nbytes / 1e9 / load_s:.2f} GB/s ({dev.describe()})", flush=True)
+        check(dev.default_stop_ids == frozenset(EOS_IDS),
+              f"model_path: default stops {dev.default_stop_ids}, want {EOS_IDS}")
+        want = model.quantized("int8").state_dict()
+        got = dev.runner.model.state_dict()
+        check(got.keys() == want.keys(), "model_path: the loaded model's tensors differ")
+        unequal = [k for k in want if not torch.equal(got[k], want[k])]
+        print(f"model_path: {len(want)} tensors, bit-equal to (a)'s int8 packs: "
+              f"{not unequal} {unequal[:3]}", flush=True)
+        check(not unequal, "model_path: a loaded tensor differs from (a)'s int8 pack")
+        del want, got
+        generations = recorded(dev)
+        for prompt, ids in zip(prompts, int8_ids):
+            with served(flash, dev, tally, "model_path"):
+                status, _, _, _ = post(app.http_port, {"prompt": prompt, "max_tokens": 32,
+                                                       "temperature": 0})
+            check(status == 200, f"model_path: {status}")
+            cut = next((i for i, t in enumerate(ids) if t in EOS_IDS), len(ids))
+            check(generations[-1][1] == ids[:cut],
+                  "model_path: greedy ids differ from (a)'s int8 model")
+        print(f"model_path: greedy ids of {len(prompts)} prompts equal (a)'s int8 model's; "
+              f"default stops {sorted(dev.default_stop_ids)}", flush=True)
+    finally:
+        app.shutdown()
     return {"checkpoint_gb": nbytes / 1e9, "write_s": write_s, "load_s": load_s,
             "load_gb_per_s": nbytes / 1e9 / load_s, "free_gb": free / 1e9}
 
@@ -1785,6 +1809,542 @@ def pool_decode_kernel(torch, flash, gen) -> dict:
         torch.cuda.synchronize()
     print("pool decode B=8: 20 launches, a synchronize after each -> ok", flush=True)
     return {**row, "max_abs_err": err}
+
+
+# -- phase 13: speculation ---------------------------------------------------------
+
+# a divergence from plain greedy is allowed only where the plain path's
+# top-2 f32 logits at that step are this close (a share of |max logit|):
+# the verify's products run at [B, width] shapes, plain decode's at [B, 1]
+NEAR_TIE = 2e-2
+# the pool's ragged lengths before a verify: live rows, one ending at the
+# cache end with width 5, two idle slots rolled back to 0 by a spec cycle
+VERIFY_LENGTHS = [137, 410, 655, 900, 1530, 2043, 0, 0]
+
+
+def verify_case(torch, gen, sq, lengths, max_seq=2048, layers=2):
+    """A target verify's attention call: q [B, Sq, 32, 128] bf16 at each
+    row's offset = its cache length, K/V the last layer of a [layers, B,
+    max_seq, 8, 128] cache written up to kv_len = length + Sq, NaN past it."""
+    dev, bf16, b = "cuda", torch.bfloat16, len(lengths)
+    q = torch.randn(b, sq, 32, 128, device=dev, generator=gen).to(bf16)
+    shape = (layers, b, max_seq, 8, 128)
+    caches = [torch.randn(shape, device=dev, generator=gen).to(bf16) for _ in "kv"]
+    for cache in caches:
+        for i, n in enumerate(lengths):
+            cache[:, i, n + sq:] = float("nan")
+    offs = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q, caches[0][-1], caches[1][-1], offs, offs + sq
+
+
+def verify_kernels(torch, flash, gen) -> tuple:
+    """The forward at the verify shapes against its plain version, with
+    its route, device time, bound and SDPA's time: the pool's [8, w] verify
+    over a 2048-slot cache at each width of SPEC_K_MAX=4's ladder, and the
+    solo verify of DRAFT_TOKENS=4 (k + 1 = 5) at kv_len 1800.
+    -> (max errors by variant, timing rows by name)."""
+    errs = {"decode": [], "mma": []}
+    cases = {f"verify B=8 Sq={w}": verify_case(torch, gen, w, VERIFY_LENGTHS) for w in (2, 4, 5)}
+    cases["verify B=1 Sq=5 kv_len 1800"] = verify_case(torch, gen, 5, [1795])
+    rows = {}
+    for name, case in cases.items():
+        out, _, _ = compare(torch, flash, name, case, errs=errs)
+        check_tail_invisible(torch, flash, name, case, out)
+        rows[name] = time_shape(torch, flash, name, case, 50, device=True)
+    check([rows[f"verify B=8 Sq={w}"]["variant"] for w in (2, 4, 5)] == ["decode", "decode", "mma"],
+          "verify: widths 2 and 4 must take the decode route, 5 the mma route")
+    return errs, rows
+
+
+def first_divergence(runner, prompt_ids: list, plain: list, other: list, label: str) -> dict:
+    """``other`` against ``plain`` under the near-tie rule: equal ids, or,
+    at the first position where they part, a plain path whose top-2 f32
+    logits there (teacher-forced: the prompt's prefill, then decode steps
+    on the plain ids) differ by less than NEAR_TIE x |max logit|. Prints
+    every divergence, its gap, and the plain path's logit of the id taken
+    here; a wider gap fails the run. Past the first divergence the contexts
+    differ, so nothing further is compared."""
+    import numpy as np
+    import torch
+
+    n = min(len(plain), len(other))
+    j = next((i for i in range(n) if plain[i] != other[i]), None)
+    if j is None and len(plain) == len(other):
+        return {"diverged": False}
+    if j is None:
+        j = n  # one stopped (a stop token, unemitted) where the other went on
+    with torch.no_grad():
+        state = prefill_like_generate(runner, np.asarray(prompt_ids, np.int32))
+        logits, cache = state["logits"].float()[None], state["cache"]
+        tok = torch.zeros((1, 1), dtype=torch.int32, device=runner.device)
+        for t in plain[:j]:
+            tok.fill_(t)
+            logits, cache = runner.model.decode_step(tok, cache)
+        row = logits[0].float()
+        top = torch.topk(row, 2).values.tolist()
+        taken = float(row[other[j]]) if j < len(other) else None
+    gap, limit = top[0] - top[1], NEAR_TIE * abs(top[0])
+    at = lambda ids: ids[j] if j < len(ids) else "a stop"  # noqa: E731
+    print(f"{label}: ids part at position {j} ({at(plain)} plain, {at(other)} here): the plain "
+          f"path's top-2 logits {top[0]:.4f} / {top[1]:.4f}, gap {gap:.4f} against "
+          f"{NEAR_TIE} x |max| = {limit:.4f}, its logit of the id taken here {taken} -> "
+          f"{'near tie' if gap < limit else 'FAIL'}", flush=True)
+    check(gap < limit, f"{label}: the ids part where the plain path has no near tie")
+    return {"diverged": True, "position": j, "gap": gap, "limit": limit, "taken_logit": taken}
+
+
+def prefill_like_generate(runner, ids):
+    """The prompt's prefill by the route ``generate`` takes it (no prefix
+    cache): sliced through the largest bucket, or the PREFILL_CHUNK_TOKENS
+    one, when longer; else a batched prefill at its bucket (``run_batch``
+    alone would keep only the last bucket's worth of a longer prompt)."""
+    chunk_b = runner.prefill_chunk_bucket
+    if ids.size > runner.buckets[-1] or (chunk_b is not None and ids.size > chunk_b):
+        width = runner.buckets[-1] if chunk_b is None else min(runner.buckets[-1], chunk_b)
+        return runner._chunked_prefill(ids, bucket=width)
+    return runner.run_batch([ids])[0]
+
+
+def solo_streams(port: int, prompts: list, body: dict) -> tuple:
+    """``prompts`` streamed one at a time -> (mean TPOT ms, ids counts)."""
+    tpots, counts = [], []
+    for prompt in prompts:
+        _, tpot, count = concurrent_streams(port, [prompt], body)
+        tpots.append(tpot)
+        counts += count
+    return sum(tpots) / len(tpots), counts
+
+
+def pooled_prompts() -> list:
+    """Prompts that repeat a passage (edits and summaries: the traffic
+    prompt-lookup drafting serves)."""
+    passages = [text(500 + i, 120 + 20 * i) for i in range(8)]
+    return [f"{p} | again: {p} | and again: {p[:60]}" for p in passages]
+
+
+def verify_route(flash, cfg, width: int) -> str:
+    """The forward's route for a bf16 verify of ``width`` tokens: the
+    decode variant while width x groups fits one m16 tile (up to 4 at
+    llama3-8b's groups of 4), else mma."""
+    return "decode" if width * (cfg.n_heads // cfg.n_kv_heads) <= flash.FWD_DECODE_ROWS else "mma"
+
+
+def verifies_of(flash, cfg, width: int, calls: int) -> dict:
+    """``served_spec``'s verifies for ``calls`` verifies of ``width``:
+    n_layers launches each, all on the width's route."""
+    row = {"calls": calls, "decode": 0, "mma": 0}
+    row[verify_route(flash, cfg, width)] = cfg.n_layers * calls
+    return {width: row}
+
+
+def spec_tally() -> dict:
+    """Phase 13's launch counts of served requests: verifies by width
+    (calls, decode-route and mma-route launches), draft-chunk, plain-chunk
+    and prefill launches."""
+    return {"verify": {}, "draft": 0, "plain": 0, "prefill_sm90": 0, "prefill_decode": 0}
+
+
+@contextlib.contextmanager
+def served_spec(flash, dev, tally: dict, label: str):
+    """Phase 13's ``served``: counts the forward's launches of the served
+    requests inside the block, and only those (the plain baselines, the
+    near-tie reference and the boot warm-ups stay out), into ``tally`` by
+    what launched them: the target's verifies by width, the draft's
+    chunks, the pool's plain chunks, and the rest (the prefills). Holds
+    each call to its work: a verify of width w launches the forward
+    n_layers times, all on w's route (``verify_route``); a draft chunk the
+    decode variant n_layers x k times; a plain pool chunk n_layers x
+    DECODE_CHUNK times; the rest is prefill, n_layers launches a prefill
+    at least (sm90, or the decode variant for a tail of a few tokens) and
+    no mma. A prefill on another thread during a pool call adds only sm90
+    launches (buckets >= 64): those stay the prefills'. Yields the block's
+    verifies by width, drafts, plain chunks and prefills, filled when it
+    ends."""
+    runner, pool = dev.runner, dev.decode_pool
+    cfg = runner.cfg
+    counters = {"all": flash.launches, "sm90": flash.launches_fwd_sm90,
+                "decode": flash.launches_fwd_decode}
+
+    def snap() -> dict:
+        n = {k: c.value for k, c in counters.items()}
+        n["mma"] = n.pop("all") - n["sm90"] - n["decode"]
+        return n
+
+    calls: list = []  # (kind, width, launches by route)
+    wrapped: list = []
+
+    def wrap(obj, name: str, kind: str) -> None:
+        fn = getattr(obj, name)
+
+        def counted(*args, **kwargs):
+            before = snap()
+            result = fn(*args, **kwargs)
+            after = snap()
+            width = args[0].shape[1] if kind == "verify" else None
+            calls.append((kind, width, {k: after[k] - before[k] for k in after}))
+            return result
+
+        wrapped.append((obj, name, fn if name in vars(obj) else None))
+        setattr(obj, name, counted)
+
+    if pool is not None:
+        pool_idle(pool, label)
+        wrap(pool, "_dispatch_chunk", "plain")
+    for name in ("verify_chunk", "verify_chunk_sampled"):
+        wrap(runner.model, name, "verify")
+    if runner.spec is not None:
+        for name in ("propose", "propose_sampled"):
+            wrap(runner.spec, name, "draft")
+    before, p0 = snap(), runner.prefills
+    block: dict = {}
+    try:
+        yield block
+        if pool is not None:
+            # a cancelled row's last chunk is dispatched after its answer
+            pool_idle(pool, label)
+    finally:
+        for obj, name, fn in wrapped:
+            if fn is None:
+                delattr(obj, name)
+            else:
+                setattr(obj, name, fn)
+    total = {k: v - before[k] for k, v in snap().items()}
+    verifies: dict = {}
+    for kind, w, n in calls:
+        if kind == "verify":
+            route = verify_route(flash, cfg, w)
+            other = "mma" if route == "decode" else "decode"
+            check(n[route] == cfg.n_layers and n[other] == 0,
+                  f"{label}: a verify of width {w} launched {n}, want n_layers = "
+                  f"{cfg.n_layers} on the {route} route")
+            row = verifies.setdefault(w, {"calls": 0, "decode": 0, "mma": 0})
+            row["calls"] += 1
+            row[route] += n[route]
+        elif kind == "draft":
+            want = runner.spec.cfg.n_layers * runner.spec.k
+            check(n["decode"] == want and n["mma"] == n["sm90"] == 0,
+                  f"{label}: a draft chunk launched {n}, want n_layers x k = {want} decode")
+        else:
+            check(n["decode"] == cfg.n_layers * pool.chunk and n["mma"] == 0,
+                  f"{label}: a plain pool chunk launched {n}, want n_layers x DECODE_CHUNK = "
+                  f"{cfg.n_layers * pool.chunk} decode")
+    by_kind = {kind: sum(n["decode"] for k, _, n in calls if k == kind)
+               for kind in ("draft", "plain")}
+    rest = {"sm90": total["sm90"],
+            "decode": total["decode"] - sum(n["decode"] for _, _, n in calls),
+            "mma": total["mma"] - sum(n["mma"] for _, _, n in calls)}
+    prefills = runner.prefills - p0
+    check(rest["mma"] == 0, f"{label}: a served prefill took the mma kernel")
+    check(prefills > 0 and rest["sm90"] + rest["decode"] >= cfg.n_layers * prefills,
+          f"{label}: a prefill layer missed the forward kernels")
+    for w, row in verifies.items():
+        t = tally["verify"].setdefault(w, {"calls": 0, "decode": 0, "mma": 0})
+        for k in t:
+            t[k] += row[k]
+    tally["draft"] += by_kind["draft"]
+    tally["plain"] += by_kind["plain"]
+    tally["prefill_sm90"] += rest["sm90"]
+    tally["prefill_decode"] += rest["decode"]
+    block.update(verifies=verifies, prefills=prefills, launches=total,
+                 drafts=sum(k == "draft" for k, _, _ in calls),
+                 plain=sum(k == "plain" for k, _, _ in calls))
+
+
+def spec_solo(torch, flash, card: str, model, ckpt: str, body: dict, out: dict,
+              tally: dict) -> None:
+    """The solo latency mode against plain solo decode on the same weights:
+    the checkpoint draft (then unseeded sampling) and the seeded draft.
+    Each served request's launches go into ``tally`` (``served_spec``):
+    every greedy cycle one draft chunk and one verify of k + 1 = 5 on the
+    mma route."""
+    solo_prompts = [text(400 + i, 150 + 60 * i) for i in range(4)]
+    app = boot_deployment(model, {"DECODE_POOL": "off"})
+    try:
+        dev = app.container.tpu
+        generations = recorded(dev)
+        plain_tpot, _ = solo_streams(app.http_port, solo_prompts, body)
+        plain_ids = [ids_for(dev, generations, p)[-1] for p in solo_prompts]
+    finally:
+        app.shutdown()
+    print(f"spec solo: plain solo decode TPOT {plain_tpot:.2f} ms over {len(solo_prompts)} "
+          f"requests of 32 tokens", flush=True)
+    out["solo"] = {"plain_tpot_ms": plain_tpot}
+    for label, env in (("checkpoint draft", {"DRAFT_MODEL_PATH": ckpt}), ("seeded draft", {})):
+        tb = time.perf_counter()
+        app = boot_deployment(model, {"DECODE_POOL": "off", "DRAFT_TOKENS": "4", **env,
+                                      "DRAFT_MODEL_NAME": PHASE10_ENV["MODEL_NAME"]})
+        try:
+            dev = app.container.tpu
+            runner = dev.runner
+            check(runner.spec is not None and runner.spec.k == 4, f"spec solo {label}: no draft")
+            print(f"spec solo {label}: booted in {time.perf_counter() - tb:.1f}s "
+                  f"({dev.describe()}), memory {torch.cuda.memory_allocated() / 2**30:.1f} GiB",
+                  flush=True)
+            generations = recorded(dev)
+            s0 = dict(runner.spec_stats)
+            with served_spec(flash, dev, tally, f"spec solo {label}") as block:
+                tpot, counts = solo_streams(app.http_port, solo_prompts, body)
+            stats = {k: runner.spec_stats[k] - s0[k] for k in s0}
+            check(stats["cycles"] > 0, f"spec solo {label}: no spec cycle ran")
+            check(block["drafts"] == stats["cycles"] and block["verifies"] == verifies_of(
+                      flash, runner.cfg, 5, stats["cycles"]),
+                  f"spec solo {label}: verifies {block['verifies']} and {block['drafts']} draft "
+                  f"chunks, want one each a cycle ({stats['cycles']}), of width 5")
+            divergences = [
+                first_divergence(runner, list(dev._encode(p)), want,
+                                 ids_for(dev, generations, p)[-1], f"spec solo {label}")
+                for p, want in zip(solo_prompts, plain_ids)
+            ]
+            tokens = sum(c - 1 for c in counts)
+            row = {**stats, "accept_rate": stats["accepted"] / stats["drafted"],
+                   "tokens_per_verify": tokens / stats["cycles"], "tpot_ms": tpot,
+                   "plain_tpot_ms": plain_tpot, "divergences": divergences,
+                   "launches": block["launches"]}
+            print(f"spec solo {label}: {stats['cycles']} cycles, {stats['drafted']} drafted, "
+                  f"{stats['accepted']} accepted ({row['accept_rate']:.3f}), "
+                  f"{row['tokens_per_verify']:.2f} tokens a verify; TPOT {tpot:.2f} ms beside "
+                  f"plain solo {plain_tpot:.2f} ms; ids equal to plain solo's or near ties; "
+                  f"served launches {block['launches']}", flush=True)
+            if label == "checkpoint draft":
+                check(row["accept_rate"] > 0.5, f"spec solo {label}: the target's own weights "
+                      f"accepted {row['accept_rate']:.3f} of their drafts")
+                out["sampled"] = spec_sampled(flash, app, dev, generations, solo_prompts[:2],
+                                              tally)
+            out["solo"][label] = row
+        finally:
+            app.shutdown()
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
+def spec_sampled(flash, app, dev, generations: list, prompts: list, tally: dict) -> dict:
+    """Unseeded speculative sampling at temperature 0.8: valid ids, the
+    acceptance rate; each cycle one draft chunk and one verify of k = 4
+    (k - 1 drafts tested) on the decode route."""
+    runner = dev.runner
+    s0 = dict(runner.spec_stats)
+    sampled = []
+    with served_spec(flash, dev, tally, "spec sampled") as block:
+        for p in prompts:
+            status, _, _, _ = post(app.http_port, {"prompt": p, "max_tokens": 32,
+                                                   "temperature": 0.8})
+            check(status == 200, f"spec sampled: {status}")
+            sampled.append(ids_for(dev, generations, p)[-1])
+    vocab = runner.cfg.vocab_size
+    check(all(ids and all(0 <= t < vocab for t in ids) for ids in sampled),
+          "spec sampled: invalid ids")
+    st = {k: runner.spec_stats[k] - s0[k] for k in s0}
+    check(st["cycles"] > 0, "spec sampled: no spec cycle ran")
+    check(block["drafts"] == st["cycles"]
+          and block["verifies"] == verifies_of(flash, runner.cfg, 4, st["cycles"]),
+          f"spec sampled: verifies {block['verifies']} and {block['drafts']} draft chunks, want "
+          f"one each a cycle ({st['cycles']}), of width 4")
+    row = {**st, "accept_rate": st["accepted"] / st["drafted"], "tokens": [len(x) for x in sampled]}
+    print(f"spec sampled (temperature 0.8, unseeded, checkpoint draft): {st['cycles']} cycles, "
+          f"acceptance {row['accept_rate']:.3f} ({st['accepted']} of {st['drafted']}), ids "
+          f"valid: {row['tokens']} tokens", flush=True)
+    return row
+
+
+@contextlib.contextmanager
+def answers_in_context(pool, answers: dict):
+    """Each pooled request's draft context starts with ``answers[its prompt
+    ids]`` (the prompt, then the plain pool's ids for it) ahead of the
+    prompt itself, as in an edit whose answer the prompt holds: the n-gram
+    drafter then proposes the plain continuation, 4 tokens a cycle, and
+    the pool verifies at width 5. Output never depends on the drafts."""
+    arm = pool._spec_arm
+
+    def seeded(spec_ctx, *args):
+        state = arm(spec_ctx, *args)
+        if state is not None:
+            state.draft.context[:0] = answers[tuple(int(t) for t in spec_ctx)]
+        return state
+
+    pool._spec_arm = seeded
+    try:
+        yield
+    finally:
+        pool._spec_arm = arm
+
+
+def spec_pooled(torch, flash, model, body: dict, out: dict, tally: dict) -> None:
+    """Pooled n-gram speculation against the plain pool on the same weights
+    (phase 10's configuration), 1, 4 and 8 concurrent streams: ids, verify
+    dispatches and drafts, acceptance, tokens a row a verify, tokens/s and
+    TPOT; each served request's launches go into ``tally``
+    (``served_spec``). Random weights' output repeats in short cycles, so
+    its own n-gram drafts stay under 4 tokens; then 8 streams whose draft
+    contexts hold the plain pool's answer (``answers_in_context``) verify
+    at width 5, the ladder's widest rung (the mma route), which must run."""
+    prompts = pooled_prompts()
+    plain: dict = {}
+    app = boot_deployment(model, {})
+    try:
+        dev = app.container.tpu
+        generations = recorded(dev)
+        for k in (1, 4, 8):
+            rate, tpot, _ = concurrent_streams(app.http_port, prompts[:k], body)
+            plain[k] = (rate, tpot, [ids_for(dev, generations, p)[-1] for p in prompts[:k]])
+        answers = {tuple(dev._encode(p)): list(dev._encode(p)) + ids
+                   for p, ids in zip(prompts, plain[8][2])}
+    finally:
+        app.shutdown()
+    app = boot_deployment(model, {"SPEC_POOLED": "on", "SPEC_K_MAX": "4"})
+    try:
+        dev = app.container.tpu
+        pool, runner = dev.decode_pool, dev.runner
+        check(pool.spec_cfg is not None and pool.spec_cfg.k_max == 4, "spec pool: not armed")
+        generations = recorded(dev)
+        pooled: dict = {}
+        runs = [(f"{k} streams", k, contextlib.nullcontext()) for k in (1, 4, 8)]
+        runs.append(("8 streams, answer in context", 8, answers_in_context(pool, answers)))
+        for name, k, drafts in runs:
+            label = f"spec pool {name}"
+            s0 = {**pool.spec_stats, "widths": dict(pool.spec_stats["widths"])}
+            d0 = pool.dispatches
+            with drafts, served_spec(flash, dev, tally, label) as block:
+                rate, tpot, _ = concurrent_streams(app.http_port, prompts[:k], body)
+            st = {key: pool.spec_stats[key] - s0[key]
+                  for key in ("cycles", "rows", "drafted", "accepted", "emitted")}
+            widths = {w: n - s0["widths"].get(w, 0) for w, n in pool.spec_stats["widths"].items()}
+            check({w: v["calls"] for w, v in block["verifies"].items()}
+                  == {w: n for w, n in widths.items() if n}
+                  and block["plain"] == pool.dispatches - d0,
+                  f"{label}: verifies {block['verifies']} and {block['plain']} plain chunks "
+                  f"counted, the pool ran {widths} and {pool.dispatches - d0}")
+            divergences = [
+                first_divergence(runner, list(dev._encode(p)), want,
+                                 ids_for(dev, generations, p)[-1], label)
+                for p, want in zip(prompts[:k], plain[k][2])
+            ]
+            pooled[name] = {**st, "plain_chunks": block["plain"], "verifies": block["verifies"],
+                            "accept_rate": st["accepted"] / max(st["drafted"], 1),
+                            "tokens_per_row_verify": st["emitted"] / max(st["rows"], 1),
+                            "tokens_per_s": rate, "tpot_ms": tpot,
+                            "plain_tokens_per_s": plain[k][0], "plain_tpot_ms": plain[k][1],
+                            "divergences": divergences, "launches": block["launches"]}
+            print(f"{label}: {st['cycles']} verify dispatches ({st['rows']} rows), "
+                  f"{block['plain']} plain chunks, accepted/drafted {st['accepted']}/"
+                  f"{st['drafted']} ({pooled[name]['accept_rate']:.3f}), "
+                  f"{pooled[name]['tokens_per_row_verify']:.2f} tokens a row a verify, verifies "
+                  f"by width {block['verifies']}; aggregate {rate:.1f} tokens/s, TPOT "
+                  f"{tpot:.2f} ms beside the plain pool's {plain[k][0]:.1f} tokens/s, "
+                  f"{plain[k][1]:.2f} ms; served launches {block['launches']}", flush=True)
+        ngram = [pooled[f"{k} streams"] for k in (1, 4, 8)]
+        check(sum(r["cycles"] for r in ngram) > 0 and sum(r["drafted"] for r in ngram) > 0,
+              "spec pool: no verify cycle or no draft")
+        widest = pooled["8 streams, answer in context"]["verifies"].get(5, {"calls": 0})
+        check(widest["calls"] > 0, "spec pool: no verify of width 5 ran with the answer in "
+              "context")
+        out["by_streams"] = pooled
+    finally:
+        app.shutdown()
+
+
+def spec_tiny_f32(torch, flash) -> dict:
+    """The tiny f32 model on the card, pooled speculation against the plain
+    pool and the solo draft mode (the target as its own draft) against
+    plain solo: at f32 the ids must be equal exactly, so what the bf16
+    near-tie rule lets pass cannot hide a fault of the pool's logic."""
+    from gofr_tpu_torch.models.llama import TINY
+    from gofr_tpu_torch.models.transformer import Transformer
+
+    from gofr_tpu_torch.training import checkpoint
+
+    tiny = Transformer.random(TINY, PHASE10_ENV["TORCH_DEVICE"], seed=0)
+    draft_dir = tempfile.mkdtemp(prefix="gofr_tiny_")
+    checkpoint.save_params(draft_dir, tiny.state_dict())  # the target as its own draft
+    env = {"MODEL_NAME": "tiny", "MODEL_MAX_SEQ": "128", "MODEL_BUCKETS": "64",
+           "PREFILL_CHUNK_TOKENS": "0", "PREFIX_CACHE": "0"}
+    body = {"max_tokens": 24, "temperature": 0}
+    prompts = [text(600 + i, 14 + 3 * i) for i in range(8)]
+    prompts = [f"{p}|{p}|{p[:8]}" for p in prompts]
+    ids: dict = {}
+    for label, extra in (("plain", {}), ("spec", {"SPEC_POOLED": "on", "SPEC_K_MAX": "4"}),
+                         ("solo", {"DECODE_POOL": "off"}),
+                         ("solo spec", {"DECODE_POOL": "off", "DRAFT_MODEL_NAME": "tiny",
+                                        "DRAFT_MODEL_PATH": draft_dir, "DRAFT_TOKENS": "4"})):
+        try:
+            app = boot_deployment(tiny, {**env, **extra})
+        finally:
+            if label == "solo spec":
+                shutil.rmtree(draft_dir, ignore_errors=True)
+        try:
+            dev = app.container.tpu
+            generations = recorded(dev)
+            if label.startswith("solo"):
+                solo_streams(app.http_port, prompts, body)
+            else:
+                concurrent_streams(app.http_port, prompts, body)
+            ids[label] = [ids_for(dev, generations, p)[-1] for p in prompts]
+            if label == "spec":
+                st = dev.decode_pool.spec_stats
+                check(st["cycles"] > 0 and st["accepted"] > 0, f"tiny f32 spec pool: {st}")
+            if label == "solo spec":
+                st = dev.runner.spec_stats
+                check(st["cycles"] > 0 and st["accepted"] == st["drafted"],
+                      f"tiny f32 solo spec: {st}")
+        finally:
+            app.shutdown()
+    check(ids["spec"] == ids["plain"], "tiny f32: pooled speculation's ids differ from the "
+          "plain pool's")
+    check(ids["solo spec"] == ids["solo"], "tiny f32: the solo draft mode's ids differ from "
+          "plain solo decode's")
+    print("spec tiny f32 on the card: 8 concurrent streams pooled with speculation and the "
+          "solo draft mode give the plain pool's and plain solo's ids exactly -> ok", flush=True)
+    return {"streams": len(prompts), "tokens": [len(x) for x in ids["spec"]]}
+
+
+def speculation(torch, flash, card: str, model, ckpt: str, gen) -> dict:
+    """Phase 13: speculative decoding on phase 5's llama3-8b in phase 10's
+    configuration: the forward at the verify shapes; the tiny f32 model's
+    pooled and solo speculation, ids exactly; the solo latency mode
+    (DECODE_POOL=off, DRAFT_MODEL_NAME=llama3-8b, DRAFT_TOKENS=4) with the
+    target's own weights from phase 12's checkpoint as DRAFT_MODEL_PATH
+    (acceptance near k-1 a cycle) and with the seeded draft (near 0),
+    greedy ids against plain solo's, then unseeded sampling; pooled n-gram
+    speculation (SPEC_POOLED=on, SPEC_K_MAX=4) at 1, 4 and 8 streams of
+    prompts that repeat a passage, then 8 with the answer in the draft
+    context (width 5), ids against the plain pool's. The launch counts are
+    those of the served speculative requests alone (``served_spec``)."""
+    t0 = time.perf_counter()
+    errs, rows = verify_kernels(torch, flash, gen)
+    out: dict = {"kernel_rows": rows, "tiny_f32": spec_tiny_f32(torch, flash)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    body = {"max_tokens": 32, "temperature": 0}
+    tallies = {"solo": spec_tally(), "pool": spec_tally()}
+    spec_solo(torch, flash, card, model, ckpt, body, out, tallies["solo"])
+    pooled: dict = {}
+    spec_pooled(torch, flash, model, body, pooled, tallies["pool"])
+    out["pooled"] = pooled
+    out["tallies"] = tallies
+    n_layers = model.cfg.n_layers
+    for mode, t in tallies.items():
+        for w, n in sorted(t["verify"].items()):
+            print(f"spec {mode}: width {w}: {n['calls']} verifies, {n['decode']} decode-route and "
+                  f"{n['mma']} mma-route launches ({verify_route(flash, model.cfg, w)} route, "
+                  f"{n_layers} a verify)", flush=True)
+    verify = [n for t in tallies.values() for n in t["verify"].values()]
+    out["launches"] = {
+        "verify_decode": sum(n["decode"] for n in verify),
+        "verify_mma": sum(n["mma"] for n in verify),
+        "pool_width_5": tallies["pool"]["verify"].get(5, {}).get("mma", 0),
+        "draft": tallies["solo"]["draft"],
+        "plain": tallies["pool"]["plain"],
+        "prefill_sm90": sum(t["prefill_sm90"] for t in tallies.values()),
+        "prefill_decode": sum(t["prefill_decode"] for t in tallies.values()),
+    }
+    out["max_abs_err"] = {k: max(v) for k, v in errs.items()}
+    print(f"spec: forward launches of the served speculative requests {out['launches']}",
+          flush=True)
+    check(all(out["launches"][k] > 0 for k in ("verify_decode", "verify_mma", "pool_width_5",
+                                               "draft", "prefill_sm90")),
+          "spec: a forward route of the phase never ran")
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"spec-metrics [{card}]: {json.dumps(out)}", flush=True)
+    return out
 
 
 # -- phase 6/7: the backward kernels ----------------------------------------------
@@ -2178,7 +2738,7 @@ def backward_phases(torch, flash, gen):
 
 
 def kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows, default,
-                 pool_row, openai, deploy) -> dict:
+                 pool_row, openai, deploy, spec) -> dict:
     """The kernels of the main path (serving, training) with their counts
     from its runs and the numbers phases 3, 7 and 10 measured. The mma
     forward is on the tiny f32 model's path (phases 4 and 8) alone; its
@@ -2193,7 +2753,15 @@ def kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows,
     variants at phase 10's shapes: its served requests' decode launches
     stand on an entry with the pool shape's numbers, their prefill
     launches on one with the ragged B=2 Sq=512 prefill's. With an f8 cache the kernel reads the
-    bf16 upcast, so its shapes and times are the same."""
+    bf16 upcast, so its shapes and times are the same. Phase 13's served
+    speculative requests have an entry per route of their verifies: the
+    decode variant at widths 2 and 4 (the pool's verifies and the solo
+    sampled ones of k = 4; the numbers of the pool's [8, 4] verify), the
+    mma kernel at width 5 (the solo verify of k + 1 = 5 and the pool's
+    widest; the numbers of the pool's [8, 5] verify, the solo B=1 row
+    beside them), device times as at decode; and one for the draft's
+    chunks, B=1 decode steps, with the served B=1 decode shape's numbers
+    (kv_len 616)."""
     fwd = {"route": "cuda", "source": "gofr_tpu_torch/csrc/flash_fwd.cu",
            "replaces": "gofr_tpu/ops/flash.py:224"}
     bwd = {"route": "cuda", "source": "gofr_tpu_torch/csrc/flash_bwd.cu"}
@@ -2224,6 +2792,20 @@ def kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows,
          "library_event_ms": pool_row["library_ms"]},
         {"name": "flash_fwd_sm90 (deployment prefill, phase 12)", **fwd,
          "launches": deploy["sm90"], "max_abs_err": max(errs["sm90"]), **shapes["prefill"]},
+        {"name": "flash_fwd_decode (verify, widths 2 and 4, phase 13)", **fwd,
+         "launches": spec["launches"]["verify_decode"],
+         "max_abs_err": spec["max_abs_err"]["decode"],
+         **device_row(spec["kernel_rows"]["verify B=8 Sq=4"]),
+         "width_2": device_row(spec["kernel_rows"]["verify B=8 Sq=2"])},
+        {"name": "flash_fwd_mma (verify, width 5, phase 13)", **fwd,
+         "launches": spec["launches"]["verify_mma"],
+         "pool_width_5_launches": spec["launches"]["pool_width_5"],
+         "max_abs_err": spec["max_abs_err"]["mma"],
+         **device_row(spec["kernel_rows"]["verify B=8 Sq=5"]),
+         "solo_B1": device_row(spec["kernel_rows"]["verify B=1 Sq=5 kv_len 1800"])},
+        {"name": "flash_fwd_decode (draft steps, phase 13)", **fwd,
+         "launches": spec["launches"]["draft"], "max_abs_err": max(errs["decode"]),
+         **device_row(shapes["served_decode"])},
         {"name": "flash_fwd_mma", **fwd, "launches": tiny, "path": "tiny f32 model (phases 4, 8)",
          "max_abs_err": max(errs["mma"]), **shapes["prefill_f32"]},
         {"name": "flash_bwd_dq", **bwd, "replaces": "gofr_tpu/ops/flash.py:477",
@@ -2235,6 +2817,13 @@ def kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows,
          "mma_max_abs_err": max(dkv_errs["mma"]),
          "shape": "B=1 S=2048 Hq=32 Hkv=8 D=128 bf16 causal", **bwd_rows["dkv"]},
     ]}
+
+
+def device_row(row: dict) -> dict:
+    """A timing row with the device times as ``ms`` and ``library_ms``
+    (the CUDA-event times beside them)."""
+    return {**row, "ms": row["device_ms"], "event_ms": row["ms"],
+            "library_ms": row["library_device_ms"], "library_event_ms": row["library_ms"]}
 
 
 def repeat_serve_train(torch, flash, card: str, n: int) -> dict:
@@ -2327,7 +2916,16 @@ def main(argv=None) -> int:
     openai = serve_openai(torch, flash, card, model)
     gc.collect()
     torch.cuda.empty_cache()
-    deploy = deployment(torch, flash, card, model)
+    # phase 12 writes phase 5's weights here; phase 13 drafts from them
+    ckpt = tempfile.mkdtemp(prefix="gofr_ckpt_")
+    try:
+        deploy = deployment(torch, flash, card, model, ckpt)
+        gc.collect()
+        torch.cuda.empty_cache()
+        spec = speculation(torch, flash, card, model, ckpt, gen)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    check(not os.path.exists(ckpt), "model_path: the checkpoint directory is still there")
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2340,7 +2938,7 @@ def main(argv=None) -> int:
     train = train_llama(torch, flash, card)
 
     kernels = kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows,
-                           default, pool_row, openai, deploy)
+                           default, pool_row, openai, deploy, spec)
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)  # name, power limit as nvidia-smi gives them
     print(json.dumps({"ok": True, "device": {

@@ -40,6 +40,12 @@ DECLARED_KEYS: dict[str, str] = {
     "CHAT_TEMPLATE_JINJA": "jinja chat template: a file path or the template itself",
     "GEN_STOP_TOKENS": "comma-separated default stop ids (instead of the tokenizer's EOS)",
     "GEN_STOP_EOS": "'off': no default stop ids",
+    "DRAFT_MODEL_NAME": "speculative decoding's draft model config (same vocab as the target)",
+    "DRAFT_TOKENS": "draft tokens proposed per speculative cycle (default 4, >= 2)",
+    "DRAFT_MODEL_PATH": "draft weights, as MODEL_PATH (default: a seeded init)",
+    "SPEC_POOLED": "'on': speculate through the decode pool (default off)",
+    "SPEC_NGRAM": "pooled speculation drafts by prompt lookup (default on)",
+    "SPEC_K_MAX": "pooled speculation's most draft tokens a cycle (default 4)",
     "OPENAI_FANOUT_WORKERS": "n/best_of candidates decoded at once (default 3/4 of the pool)",
     "HTTP_PORT": "HTTP listen port",
     "TORCH_DEVICE": "'cuda' (default) or 'cpu'",

@@ -53,6 +53,7 @@ from gofr_tpu_torch.ops.sampling import (
     sample_logits_rows,
     update_counts,
     update_presence,
+    warped_probs,
 )
 
 
@@ -376,6 +377,84 @@ class Transformer(nn.Module):
         return self._forward_with_cache(token, cache, None)
 
     @torch.no_grad()
+    def verify_chunk(self, tokens: torch.Tensor, cache: dict) -> tuple[torch.Tensor, dict]:
+        """Speculative decoding's target verify: ``tokens`` [B, S] (each
+        row's pending token, then its drafts) through the same cached
+        forward as prefill and decode -> the greedy next token at EVERY
+        position [B, S] int32 and the cache advanced by S. Position i's
+        argmax is the target's continuation after tokens[:i+1]: the caller
+        accepts the longest matching draft prefix and takes the next
+        position as the bonus token. Logits are f32, as decode's; the
+        products run at [B, S] shapes, so a near-tie bf16 argmax can differ
+        from the [B, 1] decode's."""
+        s = tokens.shape[1]
+        x, starts = self._run_cached(tokens, cache)
+        next_ids = torch.argmax(mm(x, self.lm_head).float(), dim=-1).to(torch.int32)
+        return next_ids, {"k": cache["k"], "v": cache["v"], "lengths": starts + s}
+
+    @torch.no_grad()
+    def verify_chunk_sampled(
+        self,
+        tokens: torch.Tensor,
+        cache: dict,
+        draft_toks: torch.Tensor,
+        q: torch.Tensor,
+        generator: Optional[torch.Generator],
+        temperature: Any,
+        top_k: Any = 0,
+        top_p: Any = 1.0,
+        min_p: Any = 0.0,
+    ) -> tuple[torch.Tensor, torch.Tensor, dict]:
+        """Speculative SAMPLING's verify: accept draft x with probability
+        min(1, p(x)/q(x)); at the first reject resample from the residual
+        normalize(max(p - q, 0)); after a full accept draw the bonus from
+        p. The emitted sequence is distributed exactly as sampling the
+        target's warped p, whatever the draft proposes.
+
+        ``tokens`` [B, k] is the pending token + k-1 drafts;
+        ``draft_toks`` [B, k-1] and ``q`` [B, k-1, V] are the draft's
+        choices and the warped distributions it drew them from (the same
+        knobs). The uniforms and the Gumbel noise come from ``generator``.
+        Returns (emitted [B, k] int32, n_acc [B] int32, the cache):
+        emitted[:, j] for j < n_acc are accepted drafts, emitted[:, n_acc]
+        the correction or bonus, zeros beyond."""
+        b, s = tokens.shape
+        x, starts = self._run_cached(tokens, cache)
+        logits = mm(x, self.lm_head).float()
+        v = logits.shape[-1]
+        p = warped_probs(logits.reshape(b * s, v), temperature, top_k, top_p, min_p)
+        u, noise = _spec_draws(generator, b, s - 1, v, logits.device)
+        emitted, n_acc = speculative_accept(p.reshape(b, s, v), q, draft_toks, u, noise)
+        return emitted, n_acc, {"k": cache["k"], "v": cache["v"], "lengths": starts + s}
+
+    @torch.no_grad()
+    def draft_chunk_sampled(
+        self,
+        token: torch.Tensor,
+        cache: dict,
+        n_steps: int,
+        generator: Optional[torch.Generator],
+        temperature: Any,
+        top_k: Any = 0,
+        top_p: Any = 1.0,
+        min_p: Any = 0.0,
+    ) -> tuple[torch.Tensor, torch.Tensor, dict]:
+        """The draft's proposal for speculative sampling: ``n_steps``
+        sampled steps from ``token`` [B, 1] that also return the warped
+        distribution of each step -> (tokens [B, n_steps] int32, q
+        [B, n_steps, V] f32, the cache). Each draw is a Gumbel-max sample
+        of q, as ``jax.random.categorical`` draws."""
+        toks, qs = [], []
+        for _ in range(n_steps):
+            logits, cache = self.decode_step(token, cache)
+            qrow = warped_probs(logits, temperature, top_k, top_p, min_p)
+            noise = _gumbel(generator, qrow.shape, qrow.device)
+            token = torch.argmax(torch.log(qrow + 1e-30) + noise, dim=-1).to(torch.int32)[:, None]
+            toks.append(token[:, 0])
+            qs.append(qrow)
+        return torch.stack(toks, 1), torch.stack(qs, 1), cache
+
+    @torch.no_grad()
     def decode_chunk_pool(
         self,
         token: torch.Tensor,
@@ -461,6 +540,56 @@ class Transformer(nn.Module):
             tids.append(ti)
         return (torch.stack(toks, 1), torch.stack(lps, 1), torch.stack(tvals, 1),
                 torch.stack(tids, 1), token, cache)
+
+
+def _gumbel(generator: Optional[torch.Generator], shape: tuple,
+            device: torch.device) -> torch.Tensor:
+    """Standard Gumbel noise -log(-log(U)), U uniform in [tiny, 1), f32."""
+    u = torch.rand(shape, generator=generator, device=device)
+    u.clamp_(min=torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def _spec_draws(generator: Optional[torch.Generator], b: int, n_drafts: int, v: int,
+                device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """A sampled verify's randomness: the accept tests' uniforms [B, k-1]
+    and the correction draw's Gumbel noise [B, V]."""
+    u = torch.rand((b, n_drafts), generator=generator, device=device)
+    return u, _gumbel(generator, (b, v), device)
+
+
+def speculative_accept(p: torch.Tensor, q: torch.Tensor, draft_toks: torch.Tensor,
+                       u: torch.Tensor, noise: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The accept test and the residual resample of speculative sampling,
+    as ``gofr_tpu/models/transformer.py::verify_chunk_sampled`` computes
+    them. ``p`` [B, k, V] is the target's warped distribution at each
+    verified position, ``q`` [B, k-1, V] the draft's, ``draft_toks``
+    [B, k-1], ``u`` [B, k-1] uniforms, ``noise`` [B, V] Gumbel noise ->
+    (emitted [B, k] int32, n_acc [B] int32). Draft j is accepted while
+    u_j q(x_j) < p(x_j); the correction is a Gumbel-max draw from the
+    residual at the first reject (q padded with a zero row, so after a
+    full accept the residual is p itself, the bonus distribution)."""
+    b, s, v = p.shape
+    k_drafts = s - 1
+    d = draft_toks.long()[..., None]
+    px = torch.gather(p[:, :k_drafts], 2, d)[..., 0]
+    qx = torch.gather(q, 2, d)[..., 0]
+    acc = (u * qx < px).to(torch.int32)
+    n_acc = torch.cumprod(acc, dim=1).sum(dim=1).to(torch.int32)  # [B], <= k-1
+    idx = n_acc.long()[:, None, None].expand(b, 1, v)
+    p_at = torch.gather(p, 1, idx)[:, 0]
+    q_at = torch.gather(F.pad(q, (0, 0, 0, 1)), 1, idx)[:, 0]
+    resid = torch.clamp(p_at - q_at, min=0.0)
+    mass = resid.sum(dim=-1, keepdim=True)
+    # p <= q pointwise means no rejection: only float dust reaches here
+    dist = torch.where(mass > 1e-9, resid / torch.clamp(mass, min=1e-9), p_at)
+    corr = torch.argmax(torch.log(dist + 1e-30) + noise, dim=-1).to(torch.int32)
+    pos = torch.arange(s, device=p.device)[None, :]
+    draft_pad = F.pad(draft_toks.to(torch.int32), (0, 1))
+    n = n_acc[:, None]
+    emitted = torch.where(pos < n, draft_pad,
+                          torch.where(pos == n, corr[:, None], torch.zeros_like(draft_pad)))
+    return emitted, n_acc
 
 
 def _col(knob: Any) -> Any:

@@ -9,7 +9,8 @@ drained batch splits into per-bucket cohorts and the fullest dispatches
 batch's host work overlaps the next. With a ``scheduler``
 (``tpu/scheduler.py``) each dispatch first waits for its turn between
 pooled decode chunks. Metrics, tracing and deadlines of the JAX package
-are not ported yet.
+are not ported yet. ``verify_width`` and its ladder cohort pooled
+speculation's verify widths.
 """
 
 from __future__ import annotations
@@ -31,6 +32,31 @@ def next_pow2(n: int) -> int:
     while p < n:
         p *= 2
     return p
+
+
+def verify_width(max_k: int, k_max: int) -> int:
+    """A pooled-spec verify's token width on the pow2 ladder: the dispatch
+    carries ``max_k`` drafts + 1 pending token per row; the width rounds up
+    to the next power of two (clamped at ``k_max + 1``, the widest a cycle
+    can need), so the pool runs a handful of shapes. Rows with shorter
+    drafts pad to it; their surplus positions verify as garbage, masked by
+    the per-row acceptance as bucket padding is masked by lengths."""
+    if max_k < 0:
+        raise ValueError(f"max_k must be >= 0, got {max_k}")
+    return min(next_pow2(max_k + 1), k_max + 1)
+
+
+def verify_width_ladder(k_max: int) -> tuple[int, ...]:
+    """Every width a dispatched spec cycle can need for ``k_max``, the
+    shapes the pool warms at construction. Starts at 2: the worker never
+    dispatches a zero-draft cycle (it falls back to the plain chunk)."""
+    widths = []
+    w = 2
+    while w < k_max + 1:
+        widths.append(w)
+        w *= 2
+    widths.append(k_max + 1)
+    return tuple(sorted(set(widths)))
 
 
 def pack_token_rows(

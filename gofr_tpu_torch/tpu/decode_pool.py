@@ -50,10 +50,26 @@ row read. A chunk's launches take the host hundreds of milliseconds at
 llama3-8b, so the worker dispatches outside the lock: a submit or a
 delivery never waits for them.
 
+Pooled speculation (``spec``, a ``PoolSpecConfig``: ``SPEC_POOLED``):
+a greedy request without penalties or logprobs is armed with an n-gram
+draft state (``tpu/spec_pool.py``). While EVERY active row is armed (and no
+penalized slot is active) and no chunk is in flight, the worker drafts each
+row's next tokens on the host, verifies every row's pending token and
+drafts in ONE ``[n_slots, width]`` target forward
+(``Transformer.verify_chunk``, width on ``verify_width``'s ladder), fetches
+the argmaxes, commits each row's longest matching draft prefix plus the
+bonus token, and rolls the rejected tail back by writing every row's
+committed length in one copy; the device token row is rebuilt from the
+host-tracked pending tokens, so a plain chunk can follow. Spec cycles run
+at depth 1 (the host reads a verify before the next dispatch); a cohort
+whose drafts keep missing gets its pipeline back after
+``SPEC_IDLE_ROUNDS`` dry rounds, and a new armed submit re-opens the
+window. Armed rows riding a plain chunk (a mixed cohort) keep their draft
+context through ``note_plain``.
+
 Later slices take the rest of the JAX pool: LoRA (and with it the
 ``penalized_mix`` reject, which keeps adapter and penalized slots out of
-one chunk), pooled speculation, deadlines, metrics, the dispatch timeline
-and the watchdog.
+one chunk), deadlines, metrics, the dispatch timeline and the watchdog.
 """
 
 from __future__ import annotations
@@ -66,7 +82,10 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from gofr_tpu_torch.deadline import clamp_spec_k
 from gofr_tpu_torch.ops.attention import kv_bits
+from gofr_tpu_torch.tpu.batcher import verify_width, verify_width_ladder
+from gofr_tpu_torch.tpu.kv_blocks import to_device
 
 DONE = object()  # end-of-stream marker on a slot's token queue
 
@@ -77,6 +96,9 @@ PIPELINE_DEPTH = 3
 # well under a second at llama3-8b
 CLOSE_TIMEOUT_S = 60
 PENALTY_MODES = ("lazy", "eager", "off")  # DECODE_POOL_PENALTIES
+# dry spec rounds (no row drafted) before an armed cohort gets its full
+# pipeline back
+SPEC_IDLE_ROUNDS = 4
 
 
 class PoolFailure:
@@ -118,13 +140,13 @@ class _Request:
 
     __slots__ = (
         "out_queue", "remaining", "cache_len", "stop", "stop_tokens", "finished",
-        "want_lp", "want_top", "want_kv", "kv_reserved",
+        "want_lp", "want_top", "want_kv", "kv_reserved", "spec", "pending",
     )
 
     def __init__(self, out_queue: "queue.Queue", remaining: int, cache_len: int,
                  stop: Optional[threading.Event], stop_tokens: frozenset,
                  want_lp: bool = False, want_top: bool = False, want_kv: bool = False,
-                 kv_reserved: int = 0):
+                 kv_reserved: int = 0, spec: Any = None, pending: int = 0):
         self.out_queue: Optional[queue.Queue] = out_queue
         self.remaining = remaining
         self.cache_len = cache_len
@@ -142,6 +164,13 @@ class _Request:
         # paged-KV ledger reservation (blocks), released the moment the
         # request finishes
         self.kv_reserved = kv_reserved
+        # pooled speculation: the request's SpecRequestState, None when it
+        # is not armed (sampled, penalized, logprobs, or SPEC_POOLED off)
+        self.spec = spec
+        # the feed-forward token, tracked on the host for armed requests
+        # (first_token, then the last delivered token): a spec cycle
+        # rebuilds the device token row from these
+        self.pending = int(pending)
 
 
 class _Slot:
@@ -155,9 +184,10 @@ class _Slot:
 class DecodePool:
     """``n_slots`` rows of KV cache (in ``cache_dtype``, default the
     model's) decoded together, ``chunk`` steps per dispatch. ``scheduler``
-    (``tpu/scheduler.py``) is told of every chunk; ``kv`` (a
+    (``tpu/scheduler.py``) is told of every chunk and verify; ``kv`` (a
     ``BlockPool``) gates admission on its ledger; ``penalties`` is
-    DECODE_POOL_PENALTIES."""
+    DECODE_POOL_PENALTIES; ``spec`` (a ``PoolSpecConfig``) turns pooled
+    speculation on."""
 
     def __init__(
         self,
@@ -169,6 +199,7 @@ class DecodePool:
         kv: Any = None,
         penalties: str = "lazy",
         cache_dtype: Optional[torch.dtype] = None,
+        spec: Any = None,
     ):
         if pipeline_depth < 1:
             raise ValueError(f"pipeline_depth must be >= 1, got {pipeline_depth}")
@@ -212,10 +243,18 @@ class DecodePool:
         self._closed = False
         self.dispatches = 0  # chunks dispatched
         self.rejects: dict[str, int] = {}  # submit rejections by reason
+        self.spec_cfg = spec
+        self._spec_idle = 0  # consecutive spec rounds in which no row drafted
+        # verify dispatches, the rows they carried, drafted / accepted /
+        # emitted tokens, and verify dispatches by width
+        self.spec_stats: dict = {"cycles": 0, "rows": 0, "drafted": 0, "accepted": 0,
+                                 "emitted": 0, "widths": {}}
         # one chunk now (kernel build, cuBLAS's first products), then back
         # to empty slots: the first request must not pay it under the lock
         with torch.no_grad():
             HostFetch(self._run_executable()[0]).wait()
+            if spec is not None:
+                self._warm_spec()
         self.cache["lengths"].zero_()
         self._last_tokens.zero_()
         self.dispatches = 0
@@ -238,6 +277,7 @@ class DecodePool:
         want_top_logprobs: bool = False,
         want_kv: bool = False,
         penalty: Optional[tuple] = None,
+        spec_ctx: Optional[Any] = None,
     ) -> "queue.Queue":
         """Claim a slot for a prefilled request (``row_cache``: its
         ``[L, 1, S, Hkv, D]`` k/v, valid up to ``start_len``, produced on
@@ -251,8 +291,15 @@ class DecodePool:
         ``penalty`` pools a penalized request: (presence row [1, V] bool,
         counts row [1, V] f32, bias row [1, V] f32, repetition_penalty,
         presence_penalty, frequency_penalty), the rows on the device and
-        already counting ``first_token``."""
+        already counting ``first_token``.
+
+        ``spec_ctx`` (the prompt's ids) arms pooled speculation for the
+        request when the pool has a spec config and the request is eligible
+        (greedy, unpenalized, no logprobs: the verify computes argmaxes,
+        not logprob rows); other requests pool plainly."""
         out: "queue.Queue" = queue.Queue()
+        spec_state = self._spec_arm(spec_ctx, first_token, sampler, penalty, want_logprobs,
+                                    want_top_logprobs)
         with self._work:
             if self._closed:
                 self._reject("closed", count_only=True)
@@ -266,8 +313,12 @@ class DecodePool:
             slot.request = _Request(
                 out, max_new, start_len, stop, frozenset(stop_tokens or ()),
                 want_lp=want_logprobs, want_top=want_top_logprobs, want_kv=want_kv,
-                kv_reserved=kv_reserved,
+                kv_reserved=kv_reserved, spec=spec_state, pending=first_token,
             )
+            if spec_state is not None:
+                # a fresh context may draft where the cohort's could not:
+                # re-open the spec window
+                self._spec_idle = 0
             knobs = (sampler.temperature, sampler.top_k, sampler.top_p, sampler.min_p)
             if penalty is not None:
                 self._pen_slots.add(slot.index)
@@ -433,13 +484,28 @@ class DecodePool:
                     self._fail_active(RuntimeError("decode pool closed mid-generation"))
                     return
                 self._admit_pending()
-                records = None
-                if self._active and len(in_flight) < self.pipeline_depth:
+                records = plan = None
+                # spec cycles run at depth 1 (the host reads a verify to
+                # roll back before the next dispatch), never beside chunks
+                # in flight
+                spec_armed = self._spec_ready()
+                if not in_flight and spec_armed:
+                    plan = self._spec_plan()
+                    self._spec_idle = 0 if plan is not None else self._spec_idle + 1
+                # an armed, productive cohort keeps the depth at 1 (a full
+                # pipeline never drains while rows stay active, so the spec
+                # window would never re-open); one whose drafts keep missing
+                # gets the pipeline back after a few dry rounds
+                depth = (1 if spec_armed and self._spec_idle < SPEC_IDLE_ROUNDS
+                         else self.pipeline_depth)
+                if plan is None and self._active and len(in_flight) < depth:
                     records = [(slot.index, slot.request) for slot in self._active.values()]
-            if records is not None:
-                # outside the lock: a chunk's launches take the host far
-                # longer than a submit or a delivery, which must not wait;
-                # the pipeline fills before the oldest chunk is fetched
+            # outside the lock: a dispatch's launches take the host far
+            # longer than a submit or a delivery, which must not wait; the
+            # pipeline fills before the oldest chunk is fetched
+            if plan is not None:
+                self._spec_cycle(plan)
+            elif records is not None:
                 self._dispatch_chunk(in_flight, records)
             elif in_flight:
                 self._fetch_and_deliver(in_flight)
@@ -517,6 +583,14 @@ class DecodePool:
             )
             if burst:
                 req.out_queue.put(burst)
+            if req.spec is not None:
+                # an armed row rode a plain chunk (a mixed cohort or a dry
+                # spec round): keep its draft context and pending token on
+                # the real stream. A continuing row took the whole chunk
+                # (shorter takes finish below), so its last token is the
+                # device's feed-forward token
+                req.spec.note_plain(burst)
+                req.pending = req.spec.pending
         req.remaining -= take
         if (cancelled or hit_stop_token or req.remaining <= 0
                 or req.cache_len >= self.max_len):
@@ -581,6 +655,149 @@ class DecodePool:
             with torch.no_grad():
                 self._bias[index].zero_()
 
+    # -- pooled speculation ------------------------------------------------------
+    def _warm_spec(self) -> None:
+        """One verify at every width of the ladder (constructor): a spec
+        cycle's first products must not wait for their set-up. The caller
+        zeroes the lengths after."""
+        for w in verify_width_ladder(self.spec_cfg.k_max):
+            tokens = torch.zeros((self.n_slots, w), dtype=torch.int32,
+                                 device=self._last_tokens.device)
+            ids, self.cache = self.model.verify_chunk(tokens, self.cache)
+            HostFetch(ids).wait()
+
+    def _spec_arm(self, spec_ctx: Any, first_token: int, sampler: Any, penalty: Any,
+                  want_logprobs: bool, want_top_logprobs: bool) -> Any:
+        """A request's draft state when pooled speculation is on and the
+        request is eligible, else None. Called outside the pool lock (it
+        copies the prompt into the draft context)."""
+        if (self.spec_cfg is None or spec_ctx is None or penalty is not None
+                or want_logprobs or want_top_logprobs
+                or not getattr(sampler, "greedy", False)):
+            return None
+        if not self._free:
+            # overload fast-out, read without the lock: the submit is about
+            # to reject, so skip the context copy. If a slot frees meanwhile
+            # the request pools unarmed (plain decode: the same ids)
+            return None
+        return self.spec_cfg.new_state([int(t) for t in spec_ctx], first_token)
+
+    def _spec_ready(self) -> bool:
+        """Spec cycles run only while EVERY active row is armed and no
+        penalized slot is active (pool lock held): a sampled or penalized
+        co-tenant needs the plain chunk, so a mixed cohort decodes plain."""
+        if self.spec_cfg is None or not self._active or self._pen_slots:
+            return False
+        return all(slot.request is not None and slot.request.spec is not None
+                   for slot in self._active.values())
+
+    def _spec_plan(self) -> Optional[tuple]:
+        """Draft every active row (pool lock held): up to its adaptive k
+        tokens under the serving clamps, and no more than its budget and
+        cache row leave room for with the bonus. -> (records, drafts by
+        slot, the [n_slots, width] host token rows, width), or None when no
+        row drafted (the plain chunk is better then: more steps a
+        dispatch, no rollback)."""
+        records = [(slot.index, slot.request) for slot in self._active.values()]
+        drafts: dict[int, list] = {}
+        max_k = 0
+        for index, req in records:
+            # brownout level 0 and no deadline: the port has neither yet
+            k = clamp_spec_k(req.spec.adaptive.current(), 0, None)
+            k = min(k, req.remaining - 1, self.max_len - req.cache_len - 1)
+            drafts[index] = req.spec.propose(k) if k > 0 else []
+            max_k = max(max_k, len(drafts[index]))
+        if max_k == 0:
+            return None
+        width = verify_width(max_k, self.spec_cfg.k_max)
+        tokens = np.zeros((self.n_slots, width), np.int32)
+        for index, req in records:
+            tokens[index, 0] = req.pending
+            row = drafts[index]
+            tokens[index, 1 : 1 + len(row)] = row
+        return records, drafts, tokens, width
+
+    def _spec_cycle(self, plan: tuple) -> None:
+        """Dispatch one batched verify (worker thread, outside the lock:
+        its launches are a chunk's), wait for its argmaxes, then deliver
+        and roll back under the lock."""
+        records, drafts, tokens, width = plan
+        next_ids, self.cache = self.model.verify_chunk(
+            to_device(tokens, self._last_tokens.device), self.cache
+        )
+        fetch = HostFetch(next_ids)
+        if self._sched is not None:
+            self._sched.note_decode_chunk(len(records))
+        ids = fetch.wait()[0]
+        with self._work:
+            self._spec_deliver(records, drafts, ids, width)
+
+    def _spec_deliver(self, records: list, drafts: dict, next_ids: np.ndarray,
+                      width: int) -> None:
+        """Acceptance and rollback of one fetched verify (pool lock held):
+        per row, the longest draft prefix matching the target's argmaxes
+        commits, plus the bonus token (the target's own continuation, so
+        output never depends on the drafts); then every row's committed
+        length goes back into the cache lengths in one copy (the rejected
+        tail's KV is masked by attention and overwritten by later steps)
+        and the device token row is rebuilt from the pending tokens, so the
+        next dispatch, spec or plain, feeds forward correctly."""
+        stats = self.spec_stats
+        stats["cycles"] += 1
+        stats["widths"][width] = stats["widths"].get(width, 0) + 1
+        for index, req in records:
+            if req is None or req.finished:
+                continue
+            d = drafts[index]
+            row = next_ids[index]
+            n_acc = 0
+            while n_acc < len(d) and d[n_acc] == int(row[n_acc]):
+                n_acc += 1
+            stats["rows"] += 1
+            stats["drafted"] += len(d)
+            stats["accepted"] += n_acc
+            stats["emitted"] += self._spec_deliver_one(
+                index, req, [int(row[j]) for j in range(n_acc + 1)], n_acc, len(d)
+            )
+        lengths = np.zeros(self.n_slots, np.int32)
+        pendings = np.zeros((self.n_slots, 1), np.int32)
+        for index, slot in self._active.items():
+            if slot.request is not None:
+                lengths[index] = slot.request.cache_len
+                pendings[index, 0] = slot.request.pending
+        dev = self._last_tokens.device
+        self.cache = {"k": self.cache["k"], "v": self.cache["v"],
+                      "lengths": to_device(lengths, dev)}
+        self._last_tokens = to_device(pendings, dev)
+        if self._sched is not None and not self._active:
+            self._sched.note_decode_idle()
+
+    def _spec_deliver_one(self, index: int, req: _Request, burst: list, n_acc: int,
+                          drafted: int) -> int:
+        """One row's share of a verify (pool lock held): the burst put,
+        truncated at a stop token (never emitted nor committed), the
+        budget and cache bookkeeping, the draft state's commit, and the
+        finish. Returns the tokens delivered."""
+        cancelled = req.stop is not None and req.stop.is_set()
+        hit_stop_token = False
+        emit: list = []
+        if not cancelled and req.out_queue is not None:
+            for t in burst:
+                if t in req.stop_tokens:
+                    hit_stop_token = True
+                    break
+                emit.append(t)
+            if emit:
+                req.out_queue.put(list(emit))
+        req.cache_len += len(emit)
+        req.remaining -= len(emit)
+        req.spec.commit(emit, drafted, n_acc)
+        req.pending = req.spec.pending
+        if (cancelled or hit_stop_token or req.remaining <= 0
+                or req.cache_len >= self.max_len):
+            self._finish_request(index, req, cancelled)
+        return len(emit)
+
     def occupancy(self) -> dict:
         """Point-in-time slot occupancy."""
         with self._work:
@@ -595,6 +812,9 @@ class DecodePool:
                 "penalized_slots": len(self._pen_slots),
                 "closed": self._closed,
                 "rejects": dict(self.rejects),
+                "spec": ({"k_max": self.spec_cfg.k_max, **self.spec_stats,
+                          "widths": dict(self.spec_stats["widths"])}
+                         if self.spec_cfg is not None else None),
                 "kv": self._kv.stats() if self._kv is not None else None,
             }
 

@@ -34,7 +34,17 @@ solo; the first token's come from the prefill logits. Penalties and
 ``logit_bias`` apply from the first token (``_penalized_first``) and ride
 the pool's per-slot state, or the penalized chunk at B = 1 solo; the
 logprobs stay the raw model's. ``score`` runs one cache-free forward over
-a prompt bucket (teacher-forced scoring). No draft model, no LoRA.
+a prompt bucket (teacher-forced scoring).
+
+Speculation (``spec_options``, the JAX package's keys and errors): with
+``DRAFT_MODEL_NAME`` (``DRAFT_TOKENS`` k, ``DRAFT_MODEL_PATH``) a request
+without penalties or logprobs takes the solo latency mode instead of the
+pool: a ``_SpecEngine`` draft proposes k tokens a cycle, the target
+verifies them in one forward (``Transformer.verify_chunk``), and greedy
+ids are the target's own; unseeded sampled requests take speculative
+sampling. ``SPEC_POOLED=on`` stands that mode down and arms the decode
+pool's n-gram speculation instead (``SPEC_NGRAM``, ``SPEC_K_MAX``). No
+LoRA.
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ import dataclasses
 import json
 import os
 import queue
+import secrets
 import threading
 import time
 from collections import OrderedDict, deque
@@ -85,6 +96,7 @@ from gofr_tpu_torch.tpu.kv_blocks import (
     to_device,
 )
 from gofr_tpu_torch.tpu.scheduler import POLICIES, InterferenceScheduler
+from gofr_tpu_torch.tpu.spec_pool import PoolSpecConfig
 from gofr_tpu_torch.training.checkpoint import restore_params
 
 
@@ -221,11 +233,39 @@ def serving_options(config: Any, max_batch: int) -> dict:
     return opts
 
 
+def spec_options(config: Any) -> dict:
+    """The speculation keys with the JAX package's defaults and validation
+    errors (``gofr_tpu/tpu/device.py``): the solo latency mode's draft
+    (``DRAFT_MODEL_NAME``, ``DRAFT_TOKENS``, ``DRAFT_MODEL_PATH``) and
+    pooled speculation (``SPEC_POOLED``, ``SPEC_NGRAM``, ``SPEC_K_MAX``)."""
+    opts: dict = {}
+    opts["draft_name"] = config.get_or_default("DRAFT_MODEL_NAME", "").strip()
+    opts["draft_tokens"] = int(config.get_or_default("DRAFT_TOKENS", "4"))
+    opts["draft_path"] = config.get("DRAFT_MODEL_PATH") or None
+    if opts["draft_name"] and opts["draft_tokens"] < 2:
+        # acceptance is capped at k-1 (the draft cache holds at most k
+        # committed positions a cycle), so k=1 could never accept a draft.
+        # A stale DRAFT_TOKENS without a draft model is ignored
+        raise ValueError("DRAFT_TOKENS must be >= 2")
+    opts["spec_pooled"] = config.get_or_default("SPEC_POOLED", "off").strip().lower() == "on"
+    opts["spec_ngram"] = config.get_or_default("SPEC_NGRAM", "on").strip().lower() != "off"
+    opts["spec_k_max"] = int(config.get_or_default("SPEC_K_MAX", "4"))
+    if opts["spec_k_max"] < 1:
+        raise ValueError("SPEC_K_MAX must be >= 1")
+    if opts["spec_pooled"] and not opts["spec_ngram"]:
+        raise ValueError(
+            "SPEC_POOLED=on needs a draft source: keep SPEC_NGRAM=on "
+            "(zero-weight prompt-lookup drafting)"
+        )
+    return opts
+
+
 class TPUDevice:
     """The ``ctx.tpu`` datasource of the port (the name is the JAX
     package's, so handlers written for it run unchanged)."""
 
-    def __init__(self, config: Any, logger: Any, model: Optional[Transformer] = None):
+    def __init__(self, config: Any, logger: Any, model: Optional[Transformer] = None,
+                 draft_model: Optional[Transformer] = None):
         self.logger = logger
         self.model_name = config.get_or_default("MODEL_NAME", "tiny")
         if self.model_name not in CONFIGS:
@@ -244,6 +284,8 @@ class TPUDevice:
             raise ValueError(f"MODEL_BUCKETS entries must be positive, got {raw_buckets!r}")
         self.options = serving_options(config, self.max_batch)
         opts = self.options
+        self.spec_options = spec_options(config)
+        spec = self.spec_options
         # validated here, so a typo fails at startup
         self.quant = config.get_or_default("MODEL_QUANT", "").strip() or None
         quantizer_for(self.quant)
@@ -281,6 +323,10 @@ class TPUDevice:
             kv_block_tokens=opts["kv_block_tokens"],
             kv_blocks=opts["kv_blocks"],
             kv_reserve_seqs=opts["pool_slots"],
+            draft_name=spec["draft_name"],
+            draft_tokens=spec["draft_tokens"],
+            draft_path=spec["draft_path"],
+            draft_model=draft_model,
         )
         if self.runner.kv_paged_disabled:
             logger.warnf("paged KV disabled: %s", self.runner.kv_paged_disabled)
@@ -296,6 +342,7 @@ class TPUDevice:
                 chunk=self.runner.decode_chunk_size, pipeline_depth=opts["pool_depth"],
                 scheduler=self.scheduler, kv=self.kv_pool, penalties=opts["pool_penalties"],
                 cache_dtype=self.runner.cache_dtype,
+                spec=(PoolSpecConfig(k_max=spec["spec_k_max"]) if spec["spec_pooled"] else None),
             )
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)  # boot time includes the init
@@ -324,6 +371,9 @@ class TPUDevice:
             f"kv_paged={'off' if self.kv_pool is None else 'on'} "
             f"prefix_cache={self.options['prefix_cache']} quant={self.quant or 'off'} "
             f"kv_dtype={str(self.runner.cache_dtype).replace('torch.', '')} "
+            f"draft={self.spec_options['draft_name'] or 'off'}"
+            f"{f' k={self.runner.spec.k}' if self.runner.spec else ''} "
+            f"spec_pooled={'on' if pool and pool.spec_cfg else 'off'} "
             f"boot={self.boot_seconds:.1f}s"
         )
 
@@ -513,6 +563,88 @@ def _prompt_chunks(ids: np.ndarray, bucket: int):
         yield tokens, np.asarray([max(int(chunk.size), 1)], np.int32), int(chunk.size)
 
 
+class _SpecEngine:
+    """The draft side of the solo speculative latency mode
+    (``DRAFT_MODEL_NAME``): the draft model, a bucketed prefill (the
+    draft's cache holds the same prompt as the target's), a k-step greedy
+    chunk (one dispatch proposes k tokens), the sampled chunk with its
+    warped distributions, and a cache-length reset (rolls back what a
+    rejected draft wrote). Output never depends on the draft: the target's
+    verify re-derives every emitted token; the draft only sets the
+    acceptance rate. Its cache is a [1]-row cache in the draft's dtype."""
+
+    def __init__(self, target_cfg: Any, quant: Any, draft_name: str, k: int,
+                 device: torch.device, draft_path: Optional[str] = None,
+                 model: Optional[Transformer] = None):
+        if draft_name not in CONFIGS:
+            raise ValueError(
+                f"DRAFT_MODEL_NAME '{draft_name}' unknown — expected one of {sorted(CONFIGS)}"
+            )
+        cfg = CONFIGS[draft_name]
+        if cfg.vocab_size != target_cfg.vocab_size:
+            raise ValueError(
+                f"draft '{draft_name}' vocab {cfg.vocab_size} != target vocab "
+                f"{target_cfg.vocab_size} — speculative decoding verifies draft token ids "
+                "against the target distribution"
+            )
+        if cfg.max_seq < target_cfg.max_seq:
+            raise ValueError(
+                f"draft '{draft_name}' max_seq {cfg.max_seq} < target serving max_seq "
+                f"{target_cfg.max_seq}"
+            )
+        if k + 2 > target_cfg.max_seq:
+            raise ValueError(
+                f"DRAFT_TOKENS {k} cannot fit a verify (k+1 tokens) in the serving cache "
+                f"(max_seq {target_cfg.max_seq}) — spec decoding would silently never engage"
+            )
+        self.cfg = dataclasses.replace(cfg, max_seq=target_cfg.max_seq)
+        self.k = k
+        self.device = device
+        if model is None:
+            # the seeded draft: seed 1 where the target's default is 0, so a
+            # same-config draft still exercises real accepts and rejects
+            model = load_model(self.cfg, device, draft_path, quant, seed=1)
+        elif draft_path:
+            raise ValueError("a given draft model and DRAFT_MODEL_PATH exclude each other")
+        elif model.cfg != self.cfg or model.device.type != device.type or model.quant != quant:
+            raise ValueError("the given draft model does not match DRAFT_MODEL_NAME/"
+                             "MODEL_MAX_SEQ/MODEL_QUANT/device")
+        self.model = model
+
+    def prefill_prompt(self, ids: np.ndarray, bucket: int, chunked: bool) -> dict:
+        """The prompt through the draft -> a fresh [1]-row draft cache
+        holding exactly the prompt. ``chunked`` mirrors the target's path
+        for over-long prompts (slices through the bucket); otherwise the
+        LAST ``bucket`` tokens, as the target's ``pack_token_rows`` keeps
+        them: the two caches hold the same prefix either way."""
+        if not chunked:
+            ids = ids[-bucket:]
+        cache = self.model.init_cache(1, self.cfg.max_seq)
+        for tokens, lengths, _ in _prompt_chunks(ids, bucket):
+            _, cache = self.model.prefill(to_device(tokens, self.device), cache,
+                                          to_device(lengths, self.device))
+        return cache
+
+    def propose(self, token_dev: torch.Tensor, cache: dict) -> tuple[torch.Tensor, dict]:
+        """k greedy draft tokens [1, k] from the pending token; writes the
+        pending token and k-1 drafts into the draft cache."""
+        toks, _, _, _, _, cache = self.model.decode_chunk_pool(
+            token_dev, cache, self.k, None, 0.0, all_greedy=True
+        )
+        return toks, cache
+
+    def propose_sampled(self, token_dev: torch.Tensor, cache: dict,
+                        generator: torch.Generator, temp: float, tk: int, tp: float,
+                        mp: float) -> tuple:
+        """k sampled draft tokens [1, k], their warped distributions
+        [1, k, V], and the cache."""
+        return self.model.draft_chunk_sampled(token_dev, cache, self.k, generator, temp, tk, tp,
+                                              mp)
+
+    def reset_len(self, cache: dict, n: int) -> dict:
+        return _cache_with_len(cache, n)
+
+
 class _TransformerRunner:
     """Decoder serving on one device: batched bucketed prefill, chunked
     prefill, the prefix cache, and solo chunked decode (the pool decodes
@@ -541,6 +673,10 @@ class _TransformerRunner:
         kv_block_tokens: int = 64,
         kv_blocks: int = 0,
         kv_reserve_seqs: int = 0,
+        draft_name: str = "",
+        draft_tokens: int = 4,
+        draft_path: Optional[str] = None,
+        draft_model: Optional[Transformer] = None,
     ):
         cfg = CONFIGS[name]
         if max_seq is not None and max_seq < cfg.max_seq:
@@ -562,6 +698,16 @@ class _TransformerRunner:
                 "the given model does not match MODEL_NAME/MODEL_MAX_SEQ/MODEL_QUANT/device"
             )
         self.model = model
+        if draft_model is not None and not draft_name:
+            raise ValueError("a given draft model needs DRAFT_MODEL_NAME")
+        # the solo speculative latency mode: the draft engine, and its
+        # counters (request threads add to them under the lock)
+        self.spec = (
+            _SpecEngine(cfg, quant, draft_name, draft_tokens, device, draft_path, draft_model)
+            if draft_name else None
+        )
+        self.spec_stats = {"cycles": 0, "drafted": 0, "accepted": 0}
+        self._spec_lock = threading.Lock()
         source = buckets if buckets else self.SEQ_BUCKETS
         self.buckets = [b for b in source if b <= cfg.max_seq] or [cfg.max_seq]
         # PREFILL_CHUNK_TOKENS resolves to the largest bucket inside the
@@ -582,6 +728,8 @@ class _TransformerRunner:
         self._prefix_lock = threading.Lock()
         self.prefix_stats = {"hits": 0, "partial_hits": 0, "misses": 0}
         self._init_paged_kv(kv_paged, kv_block_tokens, kv_blocks, kv_reserve_seqs, prefix_cache)
+        if self.spec is not None:
+            self._warmup_spec()
 
     def _init_paged_kv(self, kv_paged: bool, block_tokens: int, kv_blocks: int,
                        reserve_seqs: int, prefix_cache: int) -> None:
@@ -748,6 +896,28 @@ class _TransformerRunner:
         # seed the prefix cache with the finish-time conversation KV: a
         # follow-up turn then reuses the whole conversation
         seed_kv = self._prefix_cache is not None
+        # speculation: with a draft (DRAFT_MODEL_NAME, the latency mode) a
+        # request without penalties or logprobs takes the draft-and-verify
+        # path and bypasses the pool; greedy emits exactly the target's
+        # argmax, unseeded sampled requests take speculative sampling (the
+        # target's warped distribution exactly); seeded ones stay on the
+        # exact solo path. SPEC_POOLED stands the latency mode down: the
+        # pool speculates instead, from the n-gram state spec_ctx builds
+        pool_spec = decode_pool is not None and decode_pool.spec_cfg is not None
+        spec_ok = (self.spec is not None and penalty is None and not logprobs
+                   and not pool_spec)
+        if spec_ok and sampler.greedy:
+            cache = self._spec_generate(state, ids, out, token, max_new_tokens, on_token, stop,
+                                        stop_tokens)
+            if seed_kv:
+                self._prefix_store_generation(ids, out, cache, sampler)
+            return done()
+        if spec_ok and not sampler.seeded and self.spec.k >= 2:
+            cache = self._spec_generate_sampled(state, ids, out, token, max_new_tokens, on_token,
+                                                stop, stop_tokens, sampler)
+            if seed_kv:
+                self._prefix_store_generation(ids, out, cache, sampler)
+            return done()
         if decode_pool is not None and not sampler.seeded:
             pool_penalty = None
             if penalty is not None:
@@ -758,6 +928,7 @@ class _TransformerRunner:
                     _row_of(state), state["length"], token, max_new_tokens - 1, sampler, stop,
                     stop_tokens=stop_tokens, want_logprobs=logprobs,
                     want_top_logprobs=top_logprobs, want_kv=seed_kv, penalty=pool_penalty,
+                    spec_ctx=ids if pool_spec else None,
                 )
             except (queue.Full, RuntimeError):
                 slot_q = None  # pool saturated/closed -> solo decode below
@@ -916,6 +1087,190 @@ class _TransformerRunner:
                     break
             if len(out) >= max_new_tokens:
                 stopped = True
+        return cache
+
+    # -- the solo speculative latency mode (DRAFT_MODEL_NAME) ------------------
+    @torch.no_grad()
+    def _warmup_spec(self) -> None:
+        """Each speculative call once, on throwaway caches, before serving:
+        the draft prefill at the smallest bucket, the greedy and sampled
+        draft chunks, both verifies and the capacity tail's single step."""
+        spec, dev, k = self.spec, self.device, self.spec.k
+        zero = to_device(np.zeros((1, 1), np.int32), dev)
+        dcache = spec.prefill_prompt(np.ones((4,), np.int32), self.buckets[0], False)
+        dtoks, dcache = spec.propose(zero, dcache)
+        target = self.model.init_cache(1, self.cfg.max_seq, self.cache_dtype)
+        self.model.verify_chunk(torch.cat([zero, dtoks], dim=1), target)
+        self.model.decode_chunk_pool(zero, _cache_with_len(target, 1), 1, None, 0.0,
+                                     all_greedy=True)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        stoks, sq, _ = spec.propose_sampled(zero, spec.reset_len(dcache, 4), gen, 1.0, 0, 1.0, 0.0)
+        self.model.verify_chunk_sampled(
+            torch.cat([zero, stoks[:, : k - 1]], dim=1), _cache_with_len(target, 1),
+            stoks[:, : k - 1], sq[:, : k - 1], gen, 1.0,
+        )
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def _spec_emit_fn(self, out: list, on_token: Any, stop: Any, stop_tokens: frozenset,
+                      max_new_tokens: int) -> Any:
+        """The emit helper both spec paths share: append tokens, honoring
+        stop tokens, the budget and cancellation; True = keep going."""
+
+        def emit(tokens_host: list) -> bool:
+            for t in tokens_host:
+                if t in stop_tokens:
+                    return False
+                out.append(t)
+                if on_token:
+                    on_token(t)
+                if len(out) >= max_new_tokens:
+                    return False
+                if stop is not None and stop.is_set():
+                    return False
+            return True
+
+        return emit
+
+    def _spec_prefill_draft(self, ids: np.ndarray) -> dict:
+        """The draft's prefill under the target's chunk-or-clip policy."""
+        chunked = ids.size > self.buckets[-1]
+        bucket = self.buckets[-1] if chunked else self._bucket_for(int(ids.size))
+        return self.spec.prefill_prompt(ids, bucket, chunked)
+
+    def _spec_tail(self, cache: dict, cache_len: int, max_len: int, token: int, out: list,
+                   max_new_tokens: int, emit: Any, stop: Any, sampler: Sampler) -> dict:
+        """The capacity tail both spec paths share: the cache got too full
+        for a verify but budget remains, so finish with single steps of the
+        decode chunk under the request's knobs. Returns the final cache."""
+        if not (len(out) < max_new_tokens and not (stop is not None and stop.is_set())
+                and cache_len < max_len):
+            return cache
+        greedy = sampler.greedy
+        gen = None if greedy else sampler.generator(self.device)
+        knobs = (0.0 if greedy else sampler.temperature, sampler.top_k, sampler.top_p,
+                 sampler.min_p)
+        cache = _cache_with_len(cache, cache_len)
+        token_dev = to_device(np.asarray([[token]], np.int32), self.device)
+        while (len(out) < max_new_tokens and not (stop is not None and stop.is_set())
+               and cache_len < max_len):
+            toks, _, _, _, token_dev, cache = self.model.decode_chunk_pool(
+                token_dev, cache, 1, gen, *knobs, all_greedy=greedy
+            )
+            cache_len += 1
+            if not emit([int(HostFetch(toks).wait()[0][0, 0])]):
+                break
+        return cache
+
+    @torch.no_grad()
+    def _spec_generate(self, state: Any, ids: np.ndarray, out: list, token: int,
+                       max_new_tokens: int, on_token: Any, stop: Any,
+                       stop_tokens: frozenset) -> dict:
+        """Greedy speculative decode: each cycle ONE draft chunk proposes k
+        tokens, ONE target verify checks them all, ONE fetch brings back
+        the target's argmaxes and the accepted count (counted on the
+        card), so an accepted prefix of n tokens costs the target one
+        weight stream instead of n. Every emitted token is the target's own
+        argmax under the verify, so output never depends on the draft.
+        Acceptance is capped at k-1 so the draft cache always holds the
+        committed prefix (its chunk writes k positions). Returns the final
+        cache (prompt + every committed token)."""
+        spec, k = self.spec, self.spec.k
+        cache, cache_len = state["cache"], state["length"]
+        state = None
+        max_len = int(cache["k"].shape[2])
+        dcache = self._spec_prefill_draft(ids)
+        emit = self._spec_emit_fn(out, on_token, stop, stop_tokens, max_new_tokens)
+        while (len(out) < max_new_tokens and not (stop is not None and stop.is_set())
+               and cache_len + k + 1 <= max_len):
+            token_dev = to_device(np.asarray([[token]], np.int32), self.device)
+            draft_toks, dcache = spec.propose(token_dev, dcache)  # [1, k]
+            next_ids, cache = self.model.verify_chunk(
+                torch.cat([token_dev, draft_toks], dim=1), cache
+            )
+            # the leading drafts equal to the target's argmax, counted on
+            # the card and packed with the ids: one fetch a cycle
+            matches = (next_ids[:, :k] == draft_toks).to(torch.int32)
+            n_acc = torch.cumprod(matches, dim=1).sum(dim=1, dtype=torch.int32)
+            packed = HostFetch(torch.cat([next_ids, n_acc[:, None]], dim=1)).wait()[0]
+            a = packed[0, : k + 1]
+            # the unclamped count feeds the stats (the budget clamp below
+            # reflects emission room, not draft quality)
+            n_match = int(packed[0, k + 1])
+            n_use = max(min(n_match, k - 1, max_new_tokens - len(out) - 1), 0)
+            with self._spec_lock:
+                self.spec_stats["cycles"] += 1
+                self.spec_stats["drafted"] += k
+                self.spec_stats["accepted"] += n_match
+            # a[0..n_use]: n_use accepted drafts + the bonus
+            keep_going = emit([int(t) for t in a[: n_use + 1]])
+            cache_len += 1 + n_use  # the pending token and the accepted drafts
+            if not keep_going:
+                break
+            cache = _cache_with_len(cache, cache_len)
+            dcache = spec.reset_len(dcache, cache_len)
+            token = int(a[n_use])  # the bonus: emitted, not yet in the cache
+        else:
+            # natural exhaustion only (a break means a stop already fired)
+            cache = self._spec_tail(cache, cache_len, max_len, token, out, max_new_tokens, emit,
+                                    stop, Sampler())
+        return cache
+
+    @torch.no_grad()
+    def _spec_generate_sampled(self, state: Any, ids: np.ndarray, out: list, token: int,
+                               max_new_tokens: int, on_token: Any, stop: Any,
+                               stop_tokens: frozenset, sampler: Sampler) -> dict:
+        """Speculative SAMPLING (temperature > 0): each cycle the draft
+        proposes k sampled tokens with their warped distributions q, the
+        target verifies k-1 of them in one forward with the accept test
+        (u < p/q) and the residual resample, so every emitted token is
+        distributed as sampling the target's warped p. The cache
+        accounting is the greedy path's: the draft chunk writes k
+        positions, at most k-1 drafts commit a cycle, and the correction or
+        bonus becomes the next pending token. Draft and verify draw from
+        two generators seeded from ``secrets`` (unseeded requests carry no
+        reproducibility contract; seeded ones decode solo)."""
+        spec, kd = self.spec, self.spec.k - 1
+        cache, cache_len = state["cache"], state["length"]
+        state = None
+        max_len = int(cache["k"].shape[2])
+        dcache = self._spec_prefill_draft(ids)
+        knobs = (sampler.temperature, sampler.top_k, sampler.top_p, sampler.min_p)
+        dgen = torch.Generator(device=self.device)
+        dgen.manual_seed(secrets.randbits(63))
+        vgen = torch.Generator(device=self.device)
+        vgen.manual_seed(secrets.randbits(63))
+        emit = self._spec_emit_fn(out, on_token, stop, stop_tokens, max_new_tokens)
+        while (len(out) < max_new_tokens and not (stop is not None and stop.is_set())
+               and cache_len + kd + 1 <= max_len):
+            token_dev = to_device(np.asarray([[token]], np.int32), self.device)
+            draft_toks, qs, dcache = spec.propose_sampled(token_dev, dcache, dgen, *knobs)
+            emitted, n_acc_dev, cache = self.model.verify_chunk_sampled(
+                torch.cat([token_dev, draft_toks[:, :kd]], dim=1), cache, draft_toks[:, :kd],
+                qs[:, :kd], vgen, *knobs,
+            )
+            packed = HostFetch(torch.cat([emitted, n_acc_dev[:, None]], dim=1)).wait()[0]
+            row = packed[0, : kd + 1]
+            n_acc = int(packed[0, kd + 1])
+            n_use = max(min(n_acc, max_new_tokens - len(out) - 1), 0)
+            with self._spec_lock:
+                self.spec_stats["cycles"] += 1
+                self.spec_stats["drafted"] += kd
+                self.spec_stats["accepted"] += n_acc
+            # row[:n_use] accepted drafts + row[n_use] the correction or
+            # bonus (under the budget clamp an accepted draft, equally a
+            # sample of p); the last emitted token is pending, not cached
+            keep_going = emit([int(t) for t in row[: n_use + 1]])
+            cache_len += 1 + n_use
+            if not keep_going:
+                break
+            cache = _cache_with_len(cache, cache_len)
+            dcache = spec.reset_len(dcache, cache_len)
+            token = int(row[n_use])
+        else:
+            cache = self._spec_tail(cache, cache_len, max_len, token, out, max_new_tokens, emit,
+                                    stop, sampler)
         return cache
 
     @torch.no_grad()
