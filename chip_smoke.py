@@ -145,6 +145,35 @@ Phases, each fatal on failure (no phase is skipped or caught):
    verify n_layers launches on its width's route (the decode variant at
    2 and 4, mma at 5), every draft chunk n_layers x k decode launches,
    every plain pool chunk n_layers x DECODE_CHUNK;
+14. multi-LoRA (run right after phase 13, on its model, before the model
+   is freed): two rank-8 adapters (alpha 16) over all eight weight keys
+   (22,030,336 parameters) trained with ``make_lora_train_step`` at phase
+   9's shape (B=1, 2049-token crops of a seeded corpus, remat, 4 steps,
+   clipped AdamW at 1e-2): ``calm`` over the bf16 base, ``wild`` as QLoRA
+   over ``model.quantized("int8")``, each with its step time, tokens/s,
+   peak memory, losses (finite), launches (every forward, dQ and dK/dV
+   call on sm90), the base bit-identical after the steps (a host copy
+   compared tensor by tensor) and the optimizer's moments the adapters'
+   alone; both exported with ``save_params(dir, export_adapter(state))``.
+   Then phase 10's configuration with ``LORA_ADAPTERS=calm=...,wild=...``
+   and ``ADMIN_TOKEN``: greedy /v1/completions of 32 tokens for the base,
+   ``"model": "calm"`` and ``"adapter": "wild"`` (one adapter's ids must
+   differ from the base's); 8 concurrent streams mixing base, calm and
+   wild (adapter chunks > 0, one of them with base rows) beside 8 base-only
+   streams (aggregate tokens/s and TPOT); one pool step of 8 slots with an
+   adapter slot and without (launches under torch.profiler, device time by
+   ``graph_ms``); an adapter's own device memory against the 44.06 MB
+   reckoned; the admin routes (401 without the token; a third adapter
+   loaded during a live adapter stream, its bank swap deferred until the
+   slot finishes; listed; unloaded); a penalized request beside the live
+   adapter slot and a penalized adapter request, both solo (the pool's
+   ``adapter_mix`` and ``penalized_adapter`` rejects); /v1/models; an
+   unknown adapter's 400; echo + logprobs scoring under calm (not the
+   base's); the launch counts of the served requests (sm90 prefill, decode
+   pool steps, none on mma). Last, each adapter's pooled ids against a
+   plain solo ``generate`` on ``merge_lora`` weights under phase 13's
+   near-tie rule, and calm's scores against the merged weights' (phase 10's
+   tolerance);
 6. backward kernels vs plain: the dQ and dK/dV kernels (their sm90 variants
    for bf16 D=128, their mma variants for f32) against
    ``flash_attention_bwd_ref`` at the training shape (B=1, S=2048, Hq=32,
@@ -2347,6 +2376,405 @@ def speculation(torch, flash, card: str, model, ckpt: str, gen) -> dict:
     return out
 
 
+# -- phase 14: multi-LoRA --------------------------------------------------------
+
+# rank 8 over all eight keys of llama3-8b: (in + out) x 8 for each of 7 x 32
+# layer weights and the lm_head (4096 + 128256)
+LORA_RANK, LORA_ALPHA, LORA_LR = 8, 16.0, 1e-2
+LORA_PARAMS = 22_030_336
+LORA_STEPS = 4
+LORA_SEQ = 2049  # phase 9's crops: the model sees 2048
+MIXED_MODELS = (None, "calm", "wild", None, "calm", "wild", None, "calm")
+
+
+def host_snapshot(model) -> list:
+    """Every tensor of ``model`` (parameters and packs) copied to the host."""
+    return [t.detach().to("cpu") for t in (*model.parameters(), *model.buffers())]
+
+
+def unchanged(torch, model, snap: list) -> bool:
+    tensors = [*model.parameters(), *model.buffers()]
+    return len(tensors) == len(snap) and all(
+        torch.equal(t.detach().to("cpu"), s) for t, s in zip(tensors, snap))
+
+
+def lora_train(torch, flash, card: str, base, name: str, seed: int, path: str) -> dict:
+    """``make_lora_train_step`` over ``base`` (bf16, or int8 packs: QLoRA)
+    at phase 9's shape: rank 8, alpha 16, remat, batch 1 of 2049-token crops
+    of a seeded corpus, LORA_STEPS steps; the adapter exported to ``path``
+    with ``save_params(path, export_adapter(state))``. Every forward, dQ and
+    dK/dV call on sm90, finite losses, the base bit-identical, the
+    optimizer's state the adapters' alone."""
+    import numpy as np
+
+    from gofr_tpu_torch.models import lora
+    from gofr_tpu_torch.training import trainer
+    from gofr_tpu_torch.training.checkpoint import save_params
+    from gofr_tpu_torch.training.data import TokenDataset
+
+    cfg = base.cfg
+    snap = host_snapshot(base)
+    wrapped = lora.add_lora(base, seed=seed, rank=LORA_RANK, alpha=LORA_ALPHA)
+    opt = trainer.default_optimizer(LORA_LR)
+    state = lora.init_lora_train_state(wrapped, opt)
+    step = lora.make_lora_train_step(cfg, opt, remat=True)
+    adapters = state["adapters"]
+    mu = state["opt_state"][1]["mu"]
+    n_adapter = sum(p.numel() for p in adapters)
+    check(n_adapter == LORA_PARAMS, f"lora {name}: {n_adapter} adapter parameters")
+    check(len(mu) == len(adapters) == 2 * (7 * cfg.n_layers + 1)
+          and all(m.shape == p.shape for m, p in zip(mu, adapters)),
+          f"lora {name}: the optimizer holds more than the adapters")
+    corpus = np.random.default_rng(seed).integers(0, cfg.vocab_size, 1 << 20, dtype=np.uint32)
+    batch = torch.as_tensor(
+        TokenDataset(corpus, seq_len=LORA_SEQ, batch_size=1, seed=seed).batch(0),
+        device=base.device)
+    torch.cuda.synchronize()
+    before_gib = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    counters = (flash.launches, flash.launches_dq, flash.launches_dkv,
+                flash.launches_fwd_sm90, flash.launches_dq_sm90, flash.launches_dkv_sm90)
+    losses, times, totals = [], [], [0] * 6
+    for i in range(LORA_STEPS):
+        for c in counters:
+            c.reset()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        counts = [c.value for c in counters]
+        totals = [a + b for a, b in zip(totals, counts)]
+        losses.append(loss)
+        print(f"lora train {name} step {i + 1}: loss {loss:.4f} grad_norm "
+              f"{float(m['grad_norm']):.4f} {times[-1] * 1e3:.1f} ms, launches "
+              f"fwd/dq/dkv/fwd sm90/dq sm90/dkv sm90 {counts}", flush=True)
+        check(counts[1] >= cfg.n_layers and counts[2] >= cfg.n_layers
+              and counts[0] >= 2 * cfg.n_layers, f"lora {name}: a layer's attention missed a kernel")
+        check(counts[3] == counts[0] and counts[4] == counts[1] and counts[5] == counts[2],
+              f"lora {name}: a forward, dQ or dK/dV call missed its sm90 variant")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(np.isfinite(losses)), f"lora {name}: a non-finite loss")
+    moved = max(float(w.lora_b.detach().abs().max()) for _, _, w in lora.wrapped_weights(wrapped))
+    check(moved > 0, f"lora {name}: B never moved off zero")
+    check(unchanged(torch, base, snap), f"lora {name}: a base tensor changed")
+    save_params(path, lora.export_adapter(state))
+    # the adapter optimizer's update alone (clipped AdamW, one tensor at a
+    # time) on copies of the adapters: its kernels, device ms and wall ms
+    copies = [p.detach().clone() for p in adapters]
+    grads = [torch.full_like(p, 1e-3) for p in copies]
+    opt_copy = trainer.default_optimizer(LORA_LR)
+    opt_state = opt_copy.init(copies)
+    table = kernel_profile(torch, lambda: opt_copy.update(grads, opt_state, copies))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    opt_copy.update(grads, opt_state, copies)
+    torch.cuda.synchronize()
+    optimizer = {"kernels": sum(n for n, _ in table.values()),
+                 "device_ms": sum(ms for _, ms in table.values()),
+                 "wall_ms": (time.perf_counter() - t) * 1e3}
+    del copies, grads, opt_state
+    step_s = sorted(times[1:])[len(times[1:]) // 2]
+    out = {"base": base.quant or "bf16", "step_ms": step_s * 1e3, "step_ms_all":
+           [t * 1e3 for t in times], "tokens_per_s": (LORA_SEQ - 1) / step_s, "peak_memory_gib": peak,
+           "memory_before_gib": before_gib, "losses": losses, "adapter_params": n_adapter,
+           "adapter_tensors": len(adapters), "max_abs_b": moved, "optimizer": optimizer,
+           "launches": dict(zip(("fwd", "dq", "dkv", "fwd_sm90", "dq_sm90", "dkv_sm90"),
+                                totals))}
+    print(f"lora-train-metrics {name} [{card}]: {json.dumps(out)}", flush=True)
+    del state, wrapped, snap
+    return out
+
+
+def mixed_streams(port: int, prompts: list, models: tuple, body: dict) -> tuple:
+    """``prompts`` streamed at once, stream i under ``models[i]`` (None: the
+    base; the adapters by ``model``, or by ``adapter`` for odd i) ->
+    stream_rate's (tokens/s, TPOT ms, counts)."""
+    results, starts = [None] * len(prompts), [None] * len(prompts)
+
+    def run(i):
+        extra = {}
+        if models[i] is not None:
+            extra = {"model" if i % 2 == 0 else "adapter": models[i]}
+        starts[i] = time.perf_counter()
+        results[i] = post(port, {"prompt": prompts[i], "stream": True, **body, **extra},
+                          stream=True)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return stream_rate(starts, results)
+
+
+def pool_step_profile(torch, model, stack) -> dict:
+    """One decode step of 8 slots of a 2048-slot cache (phase 13's ragged
+    lengths): the plain model's, and the bank's with slot 0 on adapter 1
+    (its rows gathered once, as a chunk does): kernel launches under
+    torch.profiler and device time by ``graph_ms``."""
+    from gofr_tpu_torch.models.lora import attach_lora_ids
+    from gofr_tpu_torch.timing import graph_ms
+
+    dev = model.device
+    cache = model.init_cache(8, 2048)
+    cache["lengths"].copy_(torch.tensor([137, 410, 655, 900, 1530, 1800, 300, 50],
+                                        dtype=torch.int32, device=dev))
+    tok = torch.ones((8, 1), dtype=torch.int32, device=dev)
+    ids = torch.tensor([1, 0, 0, 0, 0, 0, 0, 0], device=dev)
+    rows = attach_lora_ids(stack, ids)
+    out = {}
+    with torch.no_grad():
+        for label, m in (("base", model), ("adapter_slot", rows)):
+            table = kernel_profile(torch, lambda m=m: m.decode_step(tok, cache))
+            out[label] = {"launches": sum(n for n, _ in table.values()),
+                          "graph_ms": graph_ms(lambda m=m: m.decode_step(tok, cache), launches=5)}
+        gather = kernel_profile(torch, lambda: attach_lora_ids(stack, ids))
+        out["gather_launches"] = sum(n for n, _ in gather.values())
+    return out
+
+
+def lora_serve(torch, flash, card: str, model, paths: dict) -> tuple:
+    """Phase 14's serving half: phase 10's configuration with
+    LORA_ADAPTERS=calm=...,wild=... on phase 5's weights. -> (metrics, what
+    the merged-weights check needs: the adapter models, ids, scores)."""
+    from gofr_tpu_torch.models import lora
+    from gofr_tpu_torch.training.checkpoint import restore_params
+
+    out: dict = {}
+    spec = ",".join(f"{n}={p}" for n, p in paths.items())
+    app = boot_deployment(model, {"LORA_ADAPTERS": spec, "ADMIN_TOKEN": "phase14"})
+    keep: dict = {}
+    try:
+        dev = app.container.tpu
+        pool, port, n_layers = dev.decode_pool, app.http_port, model.cfg.n_layers
+        check(sorted(dev.list_adapters()) == ["calm", "wild"] and pool._lora_ready,
+              "lora: the adapters or their bank did not load")
+        generations = recorded(dev)
+        prompts = [text(700 + i, 150 + 40 * i) for i in range(8)]
+        greedy = {"max_tokens": 32, "temperature": 0}
+        tally = {"sm90": 0, "decode": 0, "mma": 0}
+        # greedy requests: the base, "model": "calm", "adapter": "wild"
+        ids: dict = {}
+        with served(flash, dev, tally, "lora greedy"):
+            for label, extra in ((None, {}), ("calm", {"model": "calm"}),
+                                 ("wild", {"adapter": "wild"})):
+                status, data, _, _ = post(port, {"prompt": prompts[0], **greedy, **extra})
+                check(status == 200 and data["model"] == (label or "llama3-8b"),
+                      f"lora greedy {label}: {status} {data.get('model')}")
+                ids[label] = generations[-1][1]
+        check(ids["calm"] != ids[None] or ids["wild"] != ids[None],
+              "lora: neither adapter changed the base's ids")
+        out["differs_from_base"] = {n: ids[n] != ids[None] for n in ("calm", "wild")}
+        # 8 concurrent streams mixing base, calm and wild, then 8 base-only
+        mixed: list = []
+        dispatch = pool._dispatch_chunk
+
+        def seen(*args, **kwargs):
+            mixed.append((pool._chunk_lora is not None, len(pool._lora_slots), len(pool._active)))
+            return dispatch(*args, **kwargs)
+
+        pool._dispatch_chunk = seen
+        lora_before = pool.lora_chunks
+        try:
+            with served(flash, dev, tally, "lora mixed"):
+                rate, tpot, counts = mixed_streams(port, prompts, MIXED_MODELS, greedy)
+        finally:
+            pool._dispatch_chunk = dispatch
+        out["mixed"] = {"tokens_per_s": rate, "tpot_ms": tpot, "tokens": counts,
+                        "lora_chunks": pool.lora_chunks - lora_before,
+                        "mixed_chunks": sum(1 for lo, n, a in mixed if lo and 0 < n < a),
+                        "dispatches": len(mixed)}
+        check(out["mixed"]["lora_chunks"] > 0, "lora: no adapter chunk ran")
+        check(out["mixed"]["mixed_chunks"] > 0, "lora: adapter and base slots never shared a chunk")
+        with served(flash, dev, tally, "lora base-only"):
+            rate, tpot, counts = concurrent_streams(port, prompts, greedy)
+        out["base_only"] = {"tokens_per_s": rate, "tpot_ms": tpot, "tokens": counts}
+        print(f"lora: 8 mixed streams {out['mixed']['tokens_per_s']:.1f} tokens/s TPOT "
+              f"{out['mixed']['tpot_ms']:.2f} ms ({out['mixed']['lora_chunks']} adapter chunks, "
+              f"{out['mixed']['mixed_chunks']} with base rows), 8 base-only "
+              f"{rate:.1f} tokens/s TPOT {tpot:.2f} ms [{card}]", flush=True)
+        out["served"] = dict(tally)
+        check(tally["mma"] == 0 and tally["sm90"] > 0 and tally["decode"] > 0,
+              "lora: the served requests missed the sm90 or decode kernel")
+        out["step"] = pool_step_profile(torch, model, pool._lora_model)
+        print(f"lora: one pool step of 8 slots {json.dumps(out['step'])} [{card}]", flush=True)
+        # an adapter's own device memory against the shapes' reckoning
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        probe = lora.apply_adapter(model, restore_params(paths["calm"], model.device))
+        torch.cuda.synchronize()
+        added = torch.cuda.memory_allocated() - m0
+        del probe
+        reckoned = LORA_PARAMS * 2
+        out["adapter_bytes"] = {"added": added, "reckoned": reckoned,
+                                "bank_bytes": sum(t.numel() * t.element_size()
+                                                  for t in pool._lora_model.buffers()
+                                                  if t is not model.freqs)}
+        print(f"lora: loading an adapter added {added / 1e6:.2f} MB of device memory, "
+              f"reckoned {reckoned / 1e6:.2f} MB (rank {LORA_RANK}, eight keys); the bank "
+              f"{out['adapter_bytes']['bank_bytes'] / 1e6:.2f} MB", flush=True)
+        check(reckoned <= added <= reckoned + (1 << 20), "lora: an adapter is not its own bytes")
+        out.update(lora_admin(torch, dev, port, paths, prompts))
+        # echo + logprobs scoring under calm, and the base's, for the merged check
+        score_ids = list(dev.tokenizer.encode(prompts[1]))
+        scored = {}
+        for label, extra in (("calm", {"adapter": "calm"}), (None, {})):
+            status, data, _, _ = post(port, {"prompt": score_ids, "max_tokens": 0, "echo": True,
+                                             "logprobs": 1, **extra})
+            check(status == 200, f"lora scoring {label}: {status}")
+            scored[label] = data["choices"][0]["logprobs"]["token_logprobs"][1:]
+        check(scored["calm"] != scored[None], "lora: scoring under calm equals the base's")
+        keep = {"adapters": dict(dev.runner.adapters), "prompt_ids": list(
+            dev.tokenizer.encode(prompts[0])), "ids": ids, "score_ids": score_ids,
+            "scored": scored["calm"]}
+    finally:
+        app.shutdown()
+    return out, keep
+
+
+def lora_admin(torch, dev, port: int, paths: dict, prompts: list) -> dict:
+    """The admin surface under ADMIN_TOKEN during adapter traffic (the
+    bank's deferred swap), /v1/models, an unknown adapter's 400, and the
+    pool's rejects of a penalized adapter request and of a penalized
+    request beside a live adapter slot."""
+    pool = dev.decode_pool
+    auth = {"Authorization": "Bearer phase14"}
+
+    def admin(method: str, route: str, body=None, headers=auth):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        conn.request(method, route, json.dumps(body) if body is not None else None,
+                     {"Content-Type": "application/json", **headers})
+        resp = conn.getresponse()
+        data = json.loads(resp.read())
+        conn.close()
+        return resp.status, data
+
+    out: dict = {}
+    check(admin("GET", "/admin/adapters", headers={})[0] == 401, "lora admin: no 401")
+    # a long adapter stream holds a slot while the third adapter loads
+    result: list = []
+    long = threading.Thread(target=lambda: result.append(post(
+        port, {"prompt": prompts[2], "max_tokens": 256, "temperature": 0, "adapter": "calm",
+               "stream": True}, stream=True)))
+    long.start()
+    for _ in range(600):
+        if pool.occupancy()["lora_slots"]:
+            break
+        time.sleep(0.01)
+    check(pool.occupancy()["lora_slots"] > 0, "lora admin: the adapter stream never pooled")
+    t = time.perf_counter()
+    status, data = admin("POST", "/admin/adapters", {"name": "third", "path": paths["calm"]})
+    out["load_ms"] = (time.perf_counter() - t) * 1e3
+    deferred = pool._lora_pending is not None
+    check(status == 200 and data["data"]["adapters"] == ["calm", "third", "wild"],
+          f"lora admin: load {status} {data}")
+    check(deferred, "lora admin: the bank swapped under a live adapter slot")
+    # the penalized request beside the live adapter slot: adapter_mix, solo
+    rejects = dict(pool.occupancy()["rejects"])
+    status, _, _, _ = post(port, {"prompt": prompts[3], "max_tokens": 16, "temperature": 0,
+                                  "repetition_penalty": 1.3})
+    check(status == 200, f"lora: penalized request {status}")
+    long.join(timeout=600)
+    check(result and result[0][0] == 200, "lora admin: the adapter stream failed")
+    pool_idle(pool, "lora admin")
+    check(pool._lora_pending is None and "third" in pool._lora_index,
+          "lora admin: the deferred bank never installed")
+    status, data = admin("GET", "/admin/adapters")
+    check(data["data"]["adapters"] == ["calm", "third", "wild"], f"lora admin: list {data}")
+    status, data = admin("DELETE", "/admin/adapters/third")
+    check(status == 200 and data["data"]["adapters"] == ["calm", "wild"],
+          f"lora admin: unload {status} {data}")
+    status, data, _, _ = post(port, {"prompt": prompts[4], "max_tokens": 16, "temperature": 0,
+                                     "adapter": "calm", "repetition_penalty": 1.3})
+    check(status == 200, f"lora: penalized adapter request {status}")
+    after = pool.occupancy()["rejects"]
+    out["rejects"] = {k: after.get(k, 0) - rejects.get(k, 0)
+                      for k in ("adapter_mix", "penalized_adapter")}
+    check(out["rejects"]["adapter_mix"] >= 1 and out["rejects"]["penalized_adapter"] >= 1,
+          f"lora: the pool's rejects {out['rejects']}")
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("GET", "/v1/models")
+    models = [m["id"] for m in json.loads(conn.getresponse().read())["data"]]
+    conn.close()
+    check(models == ["llama3-8b", "calm", "wild"], f"lora: /v1/models {models}")
+    status, _, _, _ = post(port, {"prompt": prompts[0], "max_tokens": 4, "adapter": "ghost"})
+    check(status == 400, f"lora: an unknown adapter gave {status}")
+    out["deferred_swap"] = deferred
+    print(f"lora admin: third adapter loaded in {out['load_ms']:.0f} ms during a live adapter "
+          f"slot (deferred swap), listed, unloaded; /v1/models {models}; pool rejects "
+          f"{out['rejects']}", flush=True)
+    return out
+
+
+def lora_merged(torch, keep: dict) -> dict:
+    """Each adapter's pooled greedy ids against a plain ``generate`` (solo)
+    on ``merge_lora`` weights under the near-tie rule, and calm's echo
+    scoring against the merged weights' within phase 10's tolerance."""
+    import numpy as np
+
+    from gofr_tpu_torch.models import lora
+
+    out: dict = {}
+    for name in ("calm", "wild"):
+        merged = lora.merge_lora(keep["adapters"][name])
+        app = boot_deployment(merged, {"DECODE_POOL": "off", "KV_PAGED": "off",
+                                       "PREFIX_CACHE": "0"})
+        try:
+            dev = app.container.tpu
+            plain = dev.generate(keep["prompt_ids"], 32)
+            out[name] = first_divergence(dev.runner, keep["prompt_ids"], plain,
+                                         keep["ids"][name], f"lora {name} vs merged")
+            if name == "calm":
+                want = np.asarray(dev.score(keep["score_ids"]))
+                got = np.asarray(keep["scored"])
+                err = float(np.abs(got - want).max())
+                atol, rtol = POOL_LP_TOL
+                check(bool(np.all(np.abs(got - want) <= atol + rtol * np.abs(want))),
+                      f"lora: calm's scoring against the merged weights' (max err {err})")
+                out["score_max_abs_err"] = err
+        finally:
+            app.shutdown()
+        del merged, app
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"lora: pooled ids against the merged weights' {json.dumps(out)}", flush=True)
+    return out
+
+
+def multi_lora(torch, flash, card: str, model) -> dict:
+    """Phase 14: LoRA on phase 5's llama3-8b: two adapters trained on the
+    card (calm over the bf16 base, wild as QLoRA over its int8 packs),
+    exported, then served over the shared base in phase 10's configuration
+    with the admin surface."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="gofr_lora_")
+    out: dict = {}
+    try:
+        paths = {"calm": os.path.join(tmp, "calm"), "wild": os.path.join(tmp, "wild")}
+        out["train"] = {"calm": lora_train(torch, flash, card, model, "calm", 1, paths["calm"])}
+        gc.collect()
+        torch.cuda.empty_cache()
+        qmodel = model.quantized("int8")
+        out["train"]["wild"] = lora_train(torch, flash, card, qmodel, "wild", 2, paths["wild"])
+        del qmodel
+        gc.collect()
+        torch.cuda.empty_cache()
+        for c in (flash.launches, flash.launches_fwd_sm90, flash.launches_fwd_decode):
+            c.reset()  # every count to 0 just before the served path runs
+        served_out, keep = lora_serve(torch, flash, card, model, paths)
+        out.update(served_out)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["merged"] = lora_merged(torch, keep)
+        del keep
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"lora-metrics [{card}]: {json.dumps(out)}", flush=True)
+    return out
+
+
 # -- phase 6/7: the backward kernels ----------------------------------------------
 
 def bwd_case(torch, flash, gen, b, sq, skv, hq, hkv, d, dtype, offsets, kv_lens, causal=True,
@@ -2738,7 +3166,7 @@ def backward_phases(torch, flash, gen):
 
 
 def kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows, default,
-                 pool_row, openai, deploy, spec) -> dict:
+                 pool_row, openai, deploy, spec, loras) -> dict:
     """The kernels of the main path (serving, training) with their counts
     from its runs and the numbers phases 3, 7 and 10 measured. The mma
     forward is on the tiny f32 model's path (phases 4 and 8) alone; its
@@ -2761,21 +3189,30 @@ def kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows,
     widest; the numbers of the pool's [8, 5] verify, the solo B=1 row
     beside them), device times as at decode; and one for the draft's
     chunks, B=1 decode steps, with the served B=1 decode shape's numbers
-    (kv_len 616)."""
+    (kv_len 616). Phase 14's (LoRA) launches join the rows of the kernels
+    they ran on, each also under ``lora_launches``: the adapter training's
+    forward, dQ and dK/dV calls (LoRA and QLoRA, all sm90) and its served
+    requests' prefill (sm90) and pooled decode (the decode variant)."""
     fwd = {"route": "cuda", "source": "gofr_tpu_torch/csrc/flash_fwd.cu",
            "replaces": "gofr_tpu/ops/flash.py:224"}
     bwd = {"route": "cuda", "source": "gofr_tpu_torch/csrc/flash_bwd.cu"}
     sm90_train = train["launches"][3]
+    lora_train = {k: sum(t["launches"][k] for t in loras["train"].values())
+                  for k in ("fwd_sm90", "dq_sm90", "dkv_sm90")}
+    lora_served = loras["served"]
     long = shapes["served_decode_long"]
     decode_row = {**long, "ms": long["device_ms"], "event_ms": long["ms"],
                   "library_ms": long["library_device_ms"], "library_event_ms": long["library_ms"]}
     score = shapes["scoring_512"]
     return {"kernels": [
-        {"name": "flash_fwd_sm90", **fwd, "launches": served["sm90"] + sm90_train,
+        {"name": "flash_fwd_sm90", **fwd,
+         "launches": served["sm90"] + sm90_train + lora_train["fwd_sm90"] + lora_served["sm90"],
          "serve_launches": served["sm90"], "training_launches": sm90_train,
+         "lora_launches": {"train": lora_train["fwd_sm90"], "served": lora_served["sm90"]},
          "max_abs_err": max(errs["sm90"]), **shapes["training_forward"],
          "by_shape": {k: v for k, v in shapes.items() if v["variant"] == "sm90"}},
-        {"name": "flash_fwd_decode", **fwd, "launches": served["decode"],
+        {"name": "flash_fwd_decode", **fwd, "launches": served["decode"] + lora_served["decode"],
+         "lora_launches": {"served": lora_served["decode"]},
          "max_abs_err": max(errs["decode"]), **decode_row,
          "by_shape": {k: v for k, v in shapes.items() if v["variant"] == "decode"}},
         {"name": "flash_fwd_decode (pool, 8 slots)", **fwd, "launches": default["decode"],
@@ -2809,11 +3246,14 @@ def kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows,
         {"name": "flash_fwd_mma", **fwd, "launches": tiny, "path": "tiny f32 model (phases 4, 8)",
          "max_abs_err": max(errs["mma"]), **shapes["prefill_f32"]},
         {"name": "flash_bwd_dq", **bwd, "replaces": "gofr_tpu/ops/flash.py:477",
-         "launches": train["launches"][4], "max_abs_err": max(dq_errs["sm90"]),
+         "launches": train["launches"][4] + lora_train["dq_sm90"],
+         "lora_launches": {"train": lora_train["dq_sm90"]}, "max_abs_err": max(dq_errs["sm90"]),
          "mma_max_abs_err": max(dq_errs["mma"]),
          "shape": "B=1 S=2048 Hq=32 Hkv=8 D=128 bf16 causal", **bwd_rows["dq"]},
         {"name": "flash_bwd_dkv", **bwd, "replaces": "gofr_tpu/ops/flash.py:521",
-         "launches": train["launches"][5], "max_abs_err": max(dkv_errs["sm90"]),
+         "launches": train["launches"][5] + lora_train["dkv_sm90"],
+         "lora_launches": {"train": lora_train["dkv_sm90"]},
+         "max_abs_err": max(dkv_errs["sm90"]),
          "mma_max_abs_err": max(dkv_errs["mma"]),
          "shape": "B=1 S=2048 Hq=32 Hkv=8 D=128 bf16 causal", **bwd_rows["dkv"]},
     ]}
@@ -2926,6 +3366,9 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     check(not os.path.exists(ckpt), "model_path: the checkpoint directory is still there")
+    gc.collect()
+    torch.cuda.empty_cache()
+    loras = multi_lora(torch, flash, card, model)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2938,7 +3381,7 @@ def main(argv=None) -> int:
     train = train_llama(torch, flash, card)
 
     kernels = kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows,
-                           default, pool_row, openai, deploy, spec)
+                           default, pool_row, openai, deploy, spec, loras)
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)  # name, power limit as nvidia-smi gives them
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """App core (trimmed copy of ``gofr_tpu/app.py``): config, container,
-route registration and the HTTP server.
+route registration and the HTTP server (with ``/.well-known/health`` and
+the LoRA adapter admin routes).
 
     import gofr_tpu_torch
     app = gofr_tpu_torch.new()
@@ -14,7 +15,15 @@ from typing import Any, Optional
 
 from gofr_tpu_torch.config import EnvFileConfig
 from gofr_tpu_torch.container import Container
-from gofr_tpu_torch.handler import Handler, catch_all_handler, health_handler, make_endpoint
+from gofr_tpu_torch.handler import (
+    Handler,
+    adapter_load_handler,
+    adapter_unload_handler,
+    adapters_list_handler,
+    catch_all_handler,
+    health_handler,
+    make_endpoint,
+)
 from gofr_tpu_torch.http.router import Router
 from gofr_tpu_torch.http.server import HTTPServer
 
@@ -46,6 +55,13 @@ class App:
         self.router.add(
             "GET", "/.well-known/health", make_endpoint(health_handler, self.container)
         )
+        # LoRA adapter admin (ADMIN_TOKEN gates it when set)
+        for method, pattern, handler in (
+            ("GET", "/admin/adapters", adapters_list_handler),
+            ("POST", "/admin/adapters", adapter_load_handler),
+            ("DELETE", "/admin/adapters/{name}", adapter_unload_handler),
+        ):
+            self.router.add(method, pattern, make_endpoint(handler, self.container))
         self.router.set_not_found(make_endpoint(catch_all_handler, self.container))
         self.http_server = HTTPServer(self.router, self.http_port, self.logger)
         self.http_server.run_in_thread()

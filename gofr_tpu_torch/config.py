@@ -46,6 +46,8 @@ DECLARED_KEYS: dict[str, str] = {
     "SPEC_POOLED": "'on': speculate through the decode pool (default off)",
     "SPEC_NGRAM": "pooled speculation drafts by prompt lookup (default on)",
     "SPEC_K_MAX": "pooled speculation's most draft tokens a cycle (default 4)",
+    "LORA_ADAPTERS": "LoRA adapters served over the base: name=path[,name2=path2...]",
+    "ADMIN_TOKEN": "bearer token the /admin routes require (unset: open)",
     "OPENAI_FANOUT_WORKERS": "n/best_of candidates decoded at once (default 3/4 of the pool)",
     "HTTP_PORT": "HTTP listen port",
     "TORCH_DEVICE": "'cuda' (default) or 'cpu'",

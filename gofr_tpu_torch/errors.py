@@ -22,6 +22,12 @@ class InvalidParamError(GofrError):
     status_code = 400
 
 
+class UnauthenticatedError(GofrError):
+    """Missing or wrong credentials -> 401."""
+
+    status_code = 401
+
+
 class RouteNotFoundError(GofrError):
     status_code = 404
 

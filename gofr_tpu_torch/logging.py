@@ -20,5 +20,8 @@ class Logger:
     def infof(self, fmt: str, *args: Any) -> None:
         self._log("INFO", fmt, args)
 
+    def warnf(self, fmt: str, *args: Any) -> None:
+        self._log("WARN", fmt, args)
+
     def errorf(self, fmt: str, *args: Any) -> None:
         self._log("ERROR", fmt, args)

@@ -11,6 +11,14 @@ arrives as an ``ml_dtypes`` int4 array and is read with
 ``np.asarray(x).astype(np.int8)``, then packed two a byte).
 ``tree_from_transformer`` goes the other way, for comparing a model with
 the JAX state; its ``q4`` is int8 values, one a byte.
+
+LoRA (``models/lora.py``): a wrapped leaf ``{"w", "lora_a", "lora_b",
+"lora_scale"}`` (a dense or packed base ``w``; under ``layers`` the
+adapters stacked [n_layers, in, r] / [n_layers, r, out], the scale
+[n_layers, 1, 1]) crosses as the base model with the adapter attached
+(``apply_adapter``: each layer's slice of the stacks), and an
+``export_adapter`` artifact ``{"adapters", "scales"}`` crosses with
+``artifact_from_tree`` / ``tree_from_artifact``.
 """
 
 from __future__ import annotations
@@ -55,13 +63,63 @@ def _pack_from_tree(leaf: dict, i: Any = None) -> dict:
     return out
 
 
+def _is_lora_leaf(leaf: Any) -> bool:
+    return isinstance(leaf, dict) and set(leaf) == {"w", "lora_a", "lora_b", "lora_scale"}
+
+
+def split_lora_tree(tree: dict) -> tuple[dict, Any]:
+    """A (possibly LoRA-wrapped) JAX tree -> (the base tree, its adapters
+    as an artifact of the port's tensors, or None when nothing is
+    wrapped)."""
+    base = dict(tree)
+    base["layers"] = dict(tree["layers"])
+    adapters: dict = {}
+    scales: dict = {}
+    for owner, key, a_out, s_out in (
+        [(base, "lm_head", adapters, scales)]
+        + [(base["layers"], k, adapters.setdefault("layers", {}), scales.setdefault("layers", {}))
+           for k in list(base["layers"])]
+    ):
+        leaf = owner[key]
+        if _is_lora_leaf(leaf):
+            owner[key] = leaf["w"]
+            a_out[key] = {"lora_a": to_torch(leaf["lora_a"]), "lora_b": to_torch(leaf["lora_b"])}
+            s_out[key] = to_torch(leaf["lora_scale"])
+    for d in (adapters, scales):
+        if not d.get("layers", True):
+            del d["layers"]
+    return base, ({"adapters": adapters, "scales": scales} if adapters else None)
+
+
+def _map_tree(tree: Any, fn: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def artifact_from_tree(artifact: dict) -> dict:
+    """A JAX ``export_adapter`` artifact -> the port's (tensors, bits kept)."""
+    return _map_tree(artifact, to_torch)
+
+
+def tree_from_artifact(artifact: dict) -> dict:
+    """The port's artifact -> numpy (bf16 widened to f32 exactly)."""
+    return _map_tree(artifact, _to_numpy)
+
+
 @torch.no_grad()
 def transformer_from_tree(
     tree: dict, cfg: TransformerConfig, device: "torch.device | str" = "cuda"
 ) -> Transformer:
     """Build the port's model on ``device`` (the card unless the caller
     asks for the CPU) from the JAX parameter tree, one tensor at a time. A
-    quantized tree gives a model holding the same packs, bit for bit."""
+    quantized tree gives a model holding the same packs, bit for bit; a
+    LoRA-wrapped tree gives the base with its adapters attached."""
+    tree, artifact = split_lora_tree(tree)
+    if artifact is not None:
+        from gofr_tpu_torch.models.lora import apply_adapter
+
+        return apply_adapter(transformer_from_tree(tree, cfg, device), artifact)
     model = Transformer(cfg, device, tree_quant_mode(tree))
 
     def put(owner: Any, name: str, src: Any, i: Any = None) -> None:
@@ -96,6 +154,11 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def _leaf(w: Any) -> Any:
+    from gofr_tpu_torch.models.lora import LoraWeight
+
+    if isinstance(w, LoraWeight):
+        return {"w": _leaf(w.w), "lora_a": _to_numpy(w.lora_a), "lora_b": _to_numpy(w.lora_b),
+                "lora_scale": _to_numpy(w.lora_scale)}
     if isinstance(w, Pack):
         return {name: _to_numpy(unpack_int4(t) if name == "q4" else t)
                 for name, t in w.pack.items()}
@@ -104,14 +167,14 @@ def _leaf(w: Any) -> Any:
 
 def _stack(leaves: list) -> Any:
     if isinstance(leaves[0], dict):
-        return {name: np.stack([leaf[name] for leaf in leaves]) for name in leaves[0]}
+        return {name: _stack([leaf[name] for leaf in leaves]) for name in leaves[0]}
     return np.stack(leaves)
 
 
 def tree_from_transformer(model: Transformer) -> dict:
     """The model's weights as the JAX parameter tree: numpy arrays (packs
-    as dicts), the per-layer weights stacked ``[n_layers, ...]`` under
-    ``layers``."""
+    and LoRA-wrapped weights as dicts), the per-layer weights stacked
+    ``[n_layers, ...]`` under ``layers``."""
     return {
         "embed": _leaf(model.embed),
         "norm_f": _leaf(model.norm_f),

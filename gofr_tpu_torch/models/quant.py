@@ -220,19 +220,48 @@ class Pack(nn.Module):
 
 def mm(x: torch.Tensor, w: Any) -> torch.Tensor:
     """Quant-aware matmul: ``w`` is a plain [in, out] tensor, a pack dict,
-    or a :class:`Pack`. Dense and weight-only products accumulate in f32
-    and return ``x.dtype``; w8a8 accumulates int32."""
+    a :class:`Pack`, or a LoRA weight of ``models/lora.py`` (a wrapped
+    weight, a pooled bank, or a bank's rows gathered for one chunk), which
+    runs its base product through this function and adds its delta. Dense
+    and weight-only products accumulate in f32 and return ``x.dtype``;
+    w8a8 accumulates int32. Differentiable in ``x`` (a frozen pack never
+    gets a gradient: QLoRA trains adapters over it)."""
+    if isinstance(w, torch.Tensor):
+        return torch.matmul(x, w)
     if isinstance(w, Pack):
         w = w.pack
-    if not isinstance(w, dict):
-        return torch.matmul(x, w)
+    elif not isinstance(w, dict):
+        from gofr_tpu_torch.models.lora import lora_product
+
+        return lora_product(x, w)
     if is_quantized(w):
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _Int8Product.apply(x, w["q"], w["scale"])
         return _scaled(_matmul_f32(x, w["q"].to(x.dtype)), w["scale"], x.dtype)
     if is_quantized_int4(w):
         return torch.matmul(x, dequantize_array_int4(w, x.dtype))
     if is_quantized_w8a8(w):
         return _mm_w8a8(x, w)
     raise ValueError(f"unknown weight pack with keys {sorted(w)}")
+
+
+class _Int8Product(torch.autograd.Function):
+    """The int8 weight-only product with a gradient for ``x`` alone: the
+    forward is ``mm``'s (f32 sums, scaled, rounded to ``x.dtype``); the
+    backward scales the cotangent by the per-channel scale in f32 and
+    multiplies it by the transposed int8 values in ``x.dtype``. The pack
+    is a frozen buffer and gets none."""
+
+    @staticmethod
+    def forward(ctx: Any, x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(q, scale)
+        return _scaled(_matmul_f32(x, q.to(x.dtype)), scale, x.dtype)
+
+    @staticmethod
+    def backward(ctx: Any, grad: torch.Tensor) -> tuple:
+        q, scale = ctx.saved_tensors
+        g = (grad.float() * scale).to(grad.dtype)
+        return torch.matmul(g, q.to(grad.dtype).transpose(-1, -2)), None, None
 
 
 def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -22,7 +22,12 @@ A model built with ``quant`` (``MODEL_QUANT``: int8, int4, w8a8) holds a
 :class:`~gofr_tpu_torch.models.quant.Pack` (buffers, not parameters) in
 place of each matmul weight; ``random(..., quant=)`` quantizes each weight
 as it is drawn, so the init never holds the dense model and its packs
-together. Such a model serves; the trainer refuses it.
+together. Such a model serves, and trains LoRA adapters over its packs
+(QLoRA, ``models/lora.py``); the full-model trainer refuses it.
+
+A LoRA model (``models/lora.py``) is built by ``with_weights``: it shares
+the base's tensors and holds a wrapped weight in place of each targeted
+one, so every forward here serves it unchanged (``mm`` adds the delta).
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -209,6 +214,29 @@ class Transformer(nn.Module):
             else:
                 _fill_trunc_normal(target, cfg.dim if name == "embed" else target.shape[0], gen)
         return model
+
+    def with_weights(self, wrap: Callable[[str, Optional[int], Any], Any]) -> "Transformer":
+        """A model that shares every tensor of this one (the same Parameter
+        and Pack objects, no copy), each matmul weight replaced by
+        ``wrap(name, layer index or None for lm_head, weight)``: how
+        ``models/lora.py`` serves an adapter, a pooled bank or a chunk's
+        gathered rows over one base."""
+        out = Transformer.__new__(Transformer)
+        nn.Module.__init__(out)
+        out.cfg, out.quant = self.cfg, self.quant
+        out.embed, out.norm_f = self.embed, self.norm_f
+        out.lm_head = wrap("lm_head", None, self.lm_head)
+        blocks = []
+        for i, src in enumerate(self.layers):
+            block = Block.__new__(Block)
+            nn.Module.__init__(block)
+            block.attn_norm, block.mlp_norm = src.attn_norm, src.mlp_norm
+            for name in _LAYER_SHAPES:
+                setattr(block, name, wrap(name, i, getattr(src, name)))
+            blocks.append(block)
+        out.layers = nn.ModuleList(blocks)
+        out.register_buffer("freqs", self.freqs, persistent=False)
+        return out
 
     @torch.no_grad()
     def quantized(self, mode: Any) -> "Transformer":
@@ -517,6 +545,33 @@ class Transformer(nn.Module):
             penalty,
         )
         return (*out, presence, counts)
+
+    @torch.no_grad()
+    def decode_chunk_pool_lora(
+        self,
+        adapter_ids: torch.Tensor,
+        token: torch.Tensor,
+        cache: dict,
+        n_steps: int,
+        generator: Optional[torch.Generator] = None,
+        temperature: Any = 0.0,
+        top_k: Any = 0,
+        top_p: Any = 1.0,
+        min_p: Any = 0.0,
+        all_greedy: Optional[bool] = None,
+    ) -> tuple:
+        """``decode_chunk_pool`` with PER-SLOT LoRA adapter selection, on a
+        ``build_lora_stack`` model (the shared base with a stacked adapter
+        bank on every targeted weight): ``adapter_ids`` [B] int picks each
+        slot's adapter (0 = the zero adapter: a base row's delta is exactly
+        zero). The ids are fixed for the chunk, so each slot's A, B and
+        scale are gathered once (``attach_lora_ids``), not once a step.
+        Same outputs as ``decode_chunk_pool``."""
+        from gofr_tpu_torch.models.lora import attach_lora_ids
+
+        return attach_lora_ids(self, adapter_ids).decode_chunk_pool(
+            token, cache, n_steps, generator, temperature, top_k, top_p, min_p, all_greedy
+        )
 
     def _decode_chunk(self, token: torch.Tensor, cache: dict, n_steps: int,
                       generator: Optional[torch.Generator], knobs: tuple,

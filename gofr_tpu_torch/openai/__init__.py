@@ -6,15 +6,15 @@
   top-logprobs, echo (with teacher-forced prompt scoring), n/best_of;
 - ``POST /v1/chat/completions``: messages in, assistant message out,
   through the chat template (``openai/template.py``);
-- ``GET /v1/models``: the served model.
+- ``GET /v1/models``: the served model and its loaded LoRA adapters.
 
 Modules: ``parse`` (request knobs, stops, fan-out constraints),
 ``template`` (chat prompts), ``logprobs`` (response logprob objects),
 ``fanout`` (candidate generation and the multi-index SSE driver),
 ``completions``, ``chat`` and ``embeddings`` (the endpoints). Both
 endpoints take the repetition/presence/frequency penalties and
-``logit_bias``. The port does not yet serve ``/v1/embeddings`` or
-adapters.
+``logit_bias`` and a LoRA adapter (``adapter``, or ``model`` naming a
+loaded one). The port does not yet serve ``/v1/embeddings``.
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """POST /v1/chat/completions: messages in, assistant message out (port of
-``gofr_tpu/openai/chat.py`` without flight records or adapters). The same
-generation core as completions; only the prompt (the chat template) and
-the response shapes (``chat.completion``, and ``chat.completion.chunk``
-frames with deltas when streaming) differ."""
+``gofr_tpu/openai/chat.py`` without flight records). The same generation
+core as completions, LoRA adapters included (the response's ``model`` is
+the adapter's name); only the prompt (the chat template) and the response
+shapes (``chat.completion``, and ``chat.completion.chunk`` frames with
+deltas when streaming) differ."""
 
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ from gofr_tpu_torch.openai.template import render_chat_prompt
 def _stream_chat(
     ctx: Any, body: dict, prompt_ids: list, max_tokens: int, sampler: Any, stop_ids: Any,
     stop_strs: list, want_logprobs: bool, top_n: int, n: int, chat_id: str, created: int,
-    model: str, include_usage: bool,
+    model: str, include_usage: bool, adapter: Any = None,
 ) -> Stream:
     """The SSE branch: the role first, then content deltas with host-side
     stop matching, a finish frame, ``[DONE]``. ``n`` > 1 interleaves the
@@ -73,11 +74,11 @@ def _stream_chat(
     if n > 1:
         return _stream_chat_fanout(
             ctx, body, prompt_ids, max_tokens, sampler, stop_ids, stop_strs, want_logprobs,
-            n, chunk, usage_frame if include_usage else None, cancel,
+            n, chunk, usage_frame if include_usage else None, cancel, adapter,
         )
     stream_iter = ctx.tpu.generate_stream(
         prompt_ids, max_tokens, sampler=sampler, stop_tokens=stop_ids, cancel=cancel,
-        logprobs=want_logprobs,
+        logprobs=want_logprobs, adapter=adapter,
     )
 
     def events():
@@ -129,7 +130,7 @@ def _stream_chat(
 def _stream_chat_fanout(
     ctx: Any, body: dict, prompt_ids: list, max_tokens: int, sampler: Any, stop_ids: Any,
     stop_strs: list, want_logprobs: bool, n: int, chunk: Any, usage_frame: Any,
-    cancel: threading.Event,
+    cancel: threading.Event, adapter: Any = None,
 ) -> Stream:
     """Interleaved multi-index chat SSE: every index opens with its own
     role frame and closes with its own finish frame; the shared driver owns
@@ -137,7 +138,8 @@ def _stream_chat_fanout(
     tok = ctx.tpu.tokenizer
     replicate = sampler.greedy
     iters = stream_candidates(ctx, body, prompt_ids, max_tokens, sampler, stop_ids,
-                              want_logprobs, 1 if replicate else n, cancel=cancel)
+                              want_logprobs, 1 if replicate else n, cancel=cancel,
+                              adapter=adapter)
     decs = [tok.stream_decoder() for _ in range(n)]
     scans = [StopScanner(stop_strs) if stop_strs else None for _ in range(n)]
     emitted = [0] * n
@@ -170,9 +172,8 @@ def _stream_chat_fanout(
 
 
 def chat_completions(ctx: Any) -> Any:
-    body, max_tokens, sampler, stop_ids, stop_strs, want_logprobs, top_n = parse_request(
-        ctx, default_max=64
-    )
+    (body, max_tokens, sampler, stop_ids, stop_strs, want_logprobs, top_n,
+     adapter) = parse_request(ctx, default_max=64)
     tok = ctx.tpu.tokenizer
     if tok is None:
         raise HTTPError(
@@ -181,7 +182,7 @@ def chat_completions(ctx: Any) -> Any:
     prompt_ids = tok.encode(render_chat_prompt(ctx, body.get("messages")))
     if not prompt_ids:
         raise HTTPError(400, "messages encoded to zero tokens")
-    model = ctx.tpu.model_name
+    model = adapter or ctx.tpu.model_name  # an adapter serves under its name
     created = int(time.time())  # OpenAI `created` is epoch seconds
     chat_id = f"chatcmpl-{uuid.uuid4().hex[:24]}"
     n, _, _ = parse_fanout(body, allow_best_of=False)
@@ -194,11 +195,11 @@ def chat_completions(ctx: Any) -> Any:
     if body.get("stream"):
         return _stream_chat(
             ctx, body, prompt_ids, max_tokens, sampler, stop_ids, stop_strs, want_logprobs,
-            top_n, n, chat_id, created, model, include_usage,
+            top_n, n, chat_id, created, model, include_usage, adapter,
         )
     results, generated = fanout_generate(
         ctx, body, prompt_ids, max_tokens, sampler, stop_ids, stop_strs, want_logprobs,
-        top_n, n, n,
+        top_n, n, n, adapter,
     )
     choices = [
         {

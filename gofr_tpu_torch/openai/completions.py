@@ -3,8 +3,10 @@ echo, and echo + logprobs teacher-forced scoring; logprobs objects; the
 n/best_of fan-out and its interleaved multi-index SSE; the
 ``stream_options.include_usage`` frame.
 
-Port of ``gofr_tpu/openai/completions.py`` without flight records,
-``X-Resume-From`` or adapters. The response bodies have the JAX package's
+Port of ``gofr_tpu/openai/completions.py`` without flight records or
+``X-Resume-From``. A LoRA adapter (``adapter``, or ``model`` naming one)
+serves every path, echo scoring included, and names the response's
+``model``. The response bodies have the JAX package's
 shape: a top-level ``text_completion`` object (no ``{"data": ...}``
 envelope) with ``choices`` and ``usage``; without a tokenizer each choice
 also carries its ``tokens``. Streaming frames are ``data: {...}`` chunks
@@ -43,7 +45,7 @@ from gofr_tpu_torch.openai.parse import (
 def _stream_completion(
     ctx: Any, body: dict, prompt_ids: list, max_tokens: int, sampler: Any, stop_ids: Any,
     stop_strs: list, want_logprobs: bool, top_n: int, n: int, best_of: int, echo: bool,
-    cmpl_id: str, created: int, model: str, include_usage: bool,
+    cmpl_id: str, created: int, model: str, include_usage: bool, adapter: Any = None,
 ) -> Stream:
     """The SSE branch: per-token text frames with host-side stop matching,
     ending in ``data: [DONE]``. ``n`` > 1 streams the candidates at once as
@@ -88,11 +90,11 @@ def _stream_completion(
     if n > 1:
         return _stream_completion_fanout(
             ctx, body, prompt_ids, max_tokens, sampler, stop_ids, stop_strs, want_logprobs,
-            n, echo, chunk, usage_frame if include_usage else None, cancel,
+            n, echo, chunk, usage_frame if include_usage else None, cancel, adapter,
         )
     stream_iter = ctx.tpu.generate_stream(
         prompt_ids, max_tokens, sampler=sampler, stop_tokens=stop_ids, cancel=cancel,
-        logprobs=want_logprobs,
+        logprobs=want_logprobs, adapter=adapter,
     )
 
     def events():
@@ -149,7 +151,7 @@ def _stream_completion(
 def _stream_completion_fanout(
     ctx: Any, body: dict, prompt_ids: list, max_tokens: int, sampler: Any, stop_ids: Any,
     stop_strs: list, want_logprobs: bool, n: int, echo: bool, chunk: Any, usage_frame: Any,
-    cancel: threading.Event,
+    cancel: threading.Event, adapter: Any = None,
 ) -> Stream:
     """Interleaved multi-index SSE: the shared driver
     (``drive_stream_fanout``) owns the replicate/multiplex loops, the
@@ -157,7 +159,8 @@ def _stream_completion_fanout(
     tok = ctx.tpu.tokenizer
     replicate = sampler.greedy
     iters = stream_candidates(ctx, body, prompt_ids, max_tokens, sampler, stop_ids,
-                              want_logprobs, 1 if replicate else n, cancel=cancel)
+                              want_logprobs, 1 if replicate else n, cancel=cancel,
+                              adapter=adapter)
     decs = [tok.stream_decoder() if tok is not None else None for _ in range(n)]
     scans = [StopScanner(stop_strs) if stop_strs else None for _ in range(n)]
     emitted = [0] * n
@@ -194,9 +197,8 @@ def _stream_completion_fanout(
 
 
 def completions(ctx: Any) -> Any:
-    body, max_tokens, sampler, stop_ids, stop_strs, want_logprobs, top_n = parse_request(
-        ctx, default_max=16
-    )
+    (body, max_tokens, sampler, stop_ids, stop_strs, want_logprobs, top_n,
+     adapter) = parse_request(ctx, default_max=16)
     n, best_of, echo = parse_fanout(body, allow_best_of=True)
     if echo and want_logprobs and body.get("stream"):
         raise HTTPError(400, '"echo" with "logprobs" is not supported when streaming')
@@ -209,7 +211,7 @@ def completions(ctx: Any) -> Any:
         # almost always a misspelled key: a default prompt would 200 on garbage
         raise HTTPError(400, 'missing "prompt"')
     prompt_ids = prompt_tokens(ctx, body["prompt"])
-    model = ctx.tpu.model_name
+    model = adapter or ctx.tpu.model_name  # an adapter serves under its name
     created = int(time.time())  # OpenAI `created` is epoch seconds
     cmpl_id = f"cmpl-{uuid.uuid4().hex[:24]}"
     tok = ctx.tpu.tokenizer
@@ -217,14 +219,19 @@ def completions(ctx: Any) -> Any:
     if body.get("stream"):
         return _stream_completion(
             ctx, body, prompt_ids, max_tokens, sampler, stop_ids, stop_strs, want_logprobs,
-            top_n, n, best_of, echo, cmpl_id, created, model, include_usage,
+            top_n, n, best_of, echo, cmpl_id, created, model, include_usage, adapter,
         )
     prompt_lps = None
     if echo and want_logprobs:
         # teacher-forced prompt scoring, null for the first token (no
         # conditional): the OpenAI convention and the eval-harness
-        # loglikelihood pattern
-        prompt_lps = [None] + ctx.tpu.score(prompt_ids)
+        # loglikelihood pattern; an adapter's request scores under it (and
+        # an unknown adapter 400s)
+        prompt_lps = [None] + ctx.tpu.score(prompt_ids, adapter=adapter)
+    elif max_tokens == 0 and adapter is not None and adapter not in ctx.tpu.list_adapters():
+        # pure echo without logprobs runs no model, yet the adapter it
+        # names must still exist
+        raise HTTPError(400, f"adapter '{adapter}' (loaded: {ctx.tpu.list_adapters()})")
     if max_tokens == 0:  # pure scoring (echo only, enforced at parse)
         results = [([], [] if want_logprobs else None, [] if top_n else None, None,
                     "length")] * n
@@ -232,7 +239,7 @@ def completions(ctx: Any) -> Any:
     else:
         results, generated = fanout_generate(
             ctx, body, prompt_ids, max_tokens, sampler, stop_ids, stop_strs, want_logprobs,
-            top_n, n, best_of,
+            top_n, n, best_of, adapter,
         )
     choices = []
     for i, (out, logprobs, tops, text, finish) in enumerate(results):

@@ -1,7 +1,7 @@
 """``GET /v1/models`` (the ``list_models`` of ``gofr_tpu/openai/
-embeddings.py``): the served base model. ``/v1/embeddings`` waits for the
-encoder models; LoRA adapters, which the JAX package lists beside the base
-model, for the LoRA slice."""
+embeddings.py``): the served base model, then every loaded LoRA adapter
+(a request's ``model`` naming one selects it). ``/v1/embeddings`` waits
+for the encoder models."""
 
 from __future__ import annotations
 
@@ -14,6 +14,10 @@ from gofr_tpu_torch.http.response import Raw
 def list_models(ctx: Any) -> Any:
     if ctx.tpu is None:
         raise HTTPError(503, "no model configured (set MODEL_NAME)")
-    return Raw({"object": "list", "data": [
-        {"id": ctx.tpu.model_name, "object": "model", "owned_by": "gofr_tpu"},
-    ]})
+    entries = [{"id": ctx.tpu.model_name, "object": "model", "owned_by": "gofr_tpu"}]
+    # a snapshot read without waiting for the device: discovery answers at once
+    adapters = getattr(getattr(ctx.tpu, "runner", None), "adapters", None) or {}
+    for name in sorted(adapters):
+        entries.append({"id": name, "object": "model", "owned_by": "gofr_tpu",
+                        "root": ctx.tpu.model_name})  # the base it adapts
+    return Raw({"object": "list", "data": entries})

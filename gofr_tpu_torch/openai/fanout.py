@@ -1,7 +1,8 @@
 """Generation fan-out (port of ``gofr_tpu/openai/fanout.py``): the streaming
 consumer with host-side stop matching, n/best_of candidate generation with
 mean-logprob ranking, and the interleaved multi-index SSE driver both
-endpoints share."""
+endpoints share. Every path passes the request's LoRA ``adapter`` (None:
+the base model) to the device."""
 
 from __future__ import annotations
 
@@ -78,7 +79,7 @@ def fanout_workers(ctx: Any, default_slots: int = 4) -> int:
 
 def stream_candidates(
     ctx: Any, body: dict, prompt_ids: list, max_tokens: int, sampler: Any, stop_ids: Any,
-    want_logprobs: bool, n: int, cancel: Any = None,
+    want_logprobs: bool, n: int, cancel: Any = None, adapter: Any = None,
 ) -> list:
     """The n candidate stream iterators of an interleaved SSE response,
     built before the 200 commits (a parameter error must 400 first). Every
@@ -88,7 +89,7 @@ def stream_candidates(
     if n == 1:
         return [ctx.tpu.generate_stream(
             prompt_ids, max_tokens, sampler=sampler, stop_tokens=stop_ids,
-            cancel=cancel, logprobs=want_logprobs,
+            cancel=cancel, logprobs=want_logprobs, adapter=adapter,
         )]
     override = fanout_workers_override(ctx)
     bound = override if override is not None else (
@@ -107,7 +108,7 @@ def stream_candidates(
             # finishing first must not cancel the rest
             iters.append(ctx.tpu.generate_stream(
                 prompt_ids, max_tokens, sampler=s, stop_tokens=stop_ids,
-                cancel=LinkedCancel(cancel), logprobs=want_logprobs,
+                cancel=LinkedCancel(cancel), logprobs=want_logprobs, adapter=adapter,
             ))
     except BaseException:
         for it in iters:  # a late candidate failing frees the early ones
@@ -263,7 +264,7 @@ def multiplex(iters: list) -> tuple:
 
 def consume_stream(
     ctx: Any, prompt_ids: list, max_tokens: int, sampler: Any, stop_ids: Any,
-    stop_strs: list, need_lp: bool,
+    stop_strs: list, need_lp: bool, adapter: Any = None,
 ) -> tuple[list, Any, str, str]:
     """Generate through the streaming bridge, matching stop strings on the
     host and cancelling the decode at the first match (closing the
@@ -275,6 +276,7 @@ def consume_stream(
     scan = StopScanner(stop_strs)
     it = ctx.tpu.generate_stream(
         prompt_ids, max_tokens, sampler=sampler, stop_tokens=stop_ids, logprobs=need_lp,
+        adapter=adapter,
     )
     toks: list = []
     lps: list = []
@@ -314,6 +316,7 @@ def consume_stream(
 def fanout_generate(
     ctx: Any, body: dict, prompt_ids: list, max_tokens: int, sampler: Any, stop_ids: Any,
     stop_strs: list, want_logprobs: bool, top_n: int, n: int, best_of: int,
+    adapter: Any = None,
 ) -> tuple[list, int]:
     """Generate ``best_of`` candidates and keep the ``n`` best. Returns
     ([(tokens, logprobs or None, tops or None, text or None, finish or
@@ -334,16 +337,18 @@ def fanout_generate(
     def one(s: Any) -> tuple:
         if stop_strs:
             toks, lps, text, finish = consume_stream(
-                ctx, prompt_ids, max_tokens, s, stop_ids, stop_strs, need_lp,
+                ctx, prompt_ids, max_tokens, s, stop_ids, stop_strs, need_lp, adapter,
             )
             return toks, lps, None, text, finish
         if top_n:
             toks, lps, tops = ctx.tpu.generate(
                 prompt_ids, max_tokens, sampler=s, stop_tokens=stop_ids, top_logprobs=True,
+                adapter=adapter,
             )
             return toks, lps, tops, None, None
         out = ctx.tpu.generate(
             prompt_ids, max_tokens, sampler=s, stop_tokens=stop_ids, logprobs=need_lp,
+            adapter=adapter,
         )
         toks, lps = out if need_lp else (out, None)
         return toks, lps, None, None, None

@@ -1,8 +1,9 @@
 """Request parsing shared by the OpenAI endpoints (trimmed from
 ``gofr_tpu/openai/parse.py``): prompts, stops (device ids plus host-matched
 strings), sampling knobs, logprobs and top-logprobs, ``stream_options`` and
-the n/best_of/echo fan-out constraints. Knobs this port cannot honor yet
-are a clear 400, never a silent ignore."""
+the n/best_of/echo fan-out constraints, and the LoRA adapter a request
+selects (the ``adapter`` key, or a ``model`` naming a loaded adapter).
+Knobs this server cannot honor are a clear 400, never a silent ignore."""
 
 from __future__ import annotations
 
@@ -10,8 +11,6 @@ from typing import Any
 
 from gofr_tpu_torch.errors import HTTPError
 
-# OpenAI knobs the JAX package serves that this port does not yet
-_NOT_PORTED = ("adapter",)
 # knobs that would change what the model is ASKED to do: silently ignoring
 # them serves wrong output to a client that believes its tools were offered
 _REFUSED = ("tools", "tool_choice", "functions", "function_call", "modalities", "audio",
@@ -122,7 +121,7 @@ def sampler_from_body(body: dict) -> Any:
 
 def parse_request(ctx: Any, default_max: int) -> tuple:
     """The parse both endpoints share: (body, max_tokens, sampler,
-    stop_ids, stop_strs, want_logprobs, top_n)."""
+    stop_ids, stop_strs, want_logprobs, top_n, adapter)."""
     from gofr_tpu_torch.models.transformer import TOP_LOGPROBS
 
     if ctx.tpu is None:
@@ -137,9 +136,6 @@ def parse_request(ctx: Any, default_max: int) -> tuple:
         if value is None or (key == "tool_choice" and value == "none"):
             continue  # "none" is the documented no-tools default
         raise HTTPError(400, f'"{key}" is not supported by this server')
-    for key in _NOT_PORTED:
-        if body.get(key) not in (None, False):
-            raise HTTPError(400, f'"{key}" is not supported by this server yet')
     rf = body.get("response_format")
     if rf is not None and not (isinstance(rf, dict) and rf.get("type") == "text"):
         # {"type": "text"} is the default; constrained JSON output is not
@@ -148,9 +144,6 @@ def parse_request(ctx: Any, default_max: int) -> tuple:
             400, '"response_format" types other than "text" are not supported by this '
             "server (no constrained decoding)"
         )
-    requested = body.get("model")
-    if isinstance(requested, str) and requested != ctx.tpu.model_name:
-        raise HTTPError(404, f"model '{requested}' not found (serving: {ctx.tpu.model_name})")
     # max_tokens=0 is legal only with echo: pure prompt scoring
     max_tokens = body.get("max_tokens")
     if max_tokens is None:
@@ -182,7 +175,28 @@ def parse_request(ctx: Any, default_max: int) -> tuple:
         raise HTTPError(
             400, f'the maximum value for "logprobs"/"top_logprobs" is {TOP_LOGPROBS}'
         )
-    return body, max_tokens, sampler, stop_ids, stop_strs, want_logprobs, top_n
+    return (body, max_tokens, sampler, stop_ids, stop_strs, want_logprobs, top_n,
+            parse_adapter(ctx, body))
+
+
+def parse_adapter(ctx: Any, body: dict) -> Any:
+    """The LoRA adapter a request selects, or None for the base model: the
+    ``adapter`` extension key, else a ``model`` naming a loaded adapter
+    (stock OpenAI clients cannot send ``adapter``, but they set model). Any
+    other ``model`` is a 404, as in the OpenAI API: a client routed to an
+    adapter that is not loaded must never get the base model's output."""
+    adapter = body.get("adapter")
+    if adapter is not None and not isinstance(adapter, str):
+        raise HTTPError(400, '"adapter" must be a string')
+    requested = body.get("model")
+    if adapter is None and isinstance(requested, str) and requested != ctx.tpu.model_name:
+        loaded = ctx.tpu.list_adapters()
+        if requested not in loaded:
+            raise HTTPError(
+                404, f"model '{requested}' not found (serving: {[ctx.tpu.model_name, *loaded]})"
+            )
+        adapter = requested
+    return adapter
 
 
 def stream_usage_opt(body: dict) -> bool:

@@ -67,9 +67,20 @@ whose drafts keep missing gets its pipeline back after
 window. Armed rows riding a plain chunk (a mixed cohort) keep their draft
 context through ``note_plain``.
 
-Later slices take the rest of the JAX pool: LoRA (and with it the
-``penalized_mix`` reject, which keeps adapter and penalized slots out of
-one chunk), deadlines, metrics, the dispatch timeline and the watchdog.
+Pooled multi-LoRA (``enable_lora``, ``submit(adapter=...)``): adapter
+requests decode in the pool through a stacked adapter bank
+(``models/lora.py::build_lora_stack``); per-slot ids select each row's
+adapter (0 = the zero entry, for base rows), so two adapters and the base
+share one chunk (``Transformer.decode_chunk_pool_lora``), run only while an
+adapter slot is active. One chunk function a dispatch: adapter and
+penalized slots never share a chunk (the ``penalized_adapter``,
+``penalized_mix`` and ``adapter_mix`` rejects: those requests decode
+solo). A bank rebuilt while adapter slots are live waits for them to
+finish (new adapter submits solo meanwhile, ``bank_rebuilding``), so an id
+never indexes a bank swapped under it.
+
+Later slices take the rest of the JAX pool: deadlines, metrics, the
+dispatch timeline and the watchdog.
 """
 
 from __future__ import annotations
@@ -234,6 +245,19 @@ class DecodePool:
         self._pen_ready = False
         self._pen_wanted = False  # lazy: the worker allocates at its next turn
         self._pen_slots: set[int] = set()
+        # pooled multi-LoRA: the bank model, its name -> index map, per-slot
+        # ids (host copy, uploaded by the worker when they change), and a
+        # bank waiting for the live adapter slots to finish
+        self._lora_ready = False
+        self._lora_slots: set[int] = set()
+        self._lora_index: dict[str, int] = {}
+        self._lora_model: Any = None
+        self._lora_pending: Optional[tuple] = None
+        self._lora_ids = np.zeros(n_slots, np.int64)
+        self._lora_dirty = True
+        self._lora_ids_dev: Optional[torch.Tensor] = None
+        self.lora_chunks = 0  # dispatches through the adapter chunk
+        self._chunk_lora: Optional[tuple] = None  # the next chunk's (bank, ids)
         self._slots = [_Slot(i) for i in range(n_slots)]
         self._free = list(reversed(self._slots))
         self._active: dict[int, _Slot] = {}
@@ -278,6 +302,7 @@ class DecodePool:
         want_kv: bool = False,
         penalty: Optional[tuple] = None,
         spec_ctx: Optional[Any] = None,
+        adapter: Optional[str] = None,
     ) -> "queue.Queue":
         """Claim a slot for a prefilled request (``row_cache``: its
         ``[L, 1, S, Hkv, D]`` k/v, valid up to ``start_len``, produced on
@@ -295,17 +320,22 @@ class DecodePool:
 
         ``spec_ctx`` (the prompt's ids) arms pooled speculation for the
         request when the pool has a spec config and the request is eligible
-        (greedy, unpenalized, no logprobs: the verify computes argmaxes,
-        not logprob rows); other requests pool plainly."""
+        (greedy, unpenalized, base weights, no logprobs: the verify
+        computes argmaxes, not logprob rows); other requests pool plainly.
+
+        ``adapter`` pools a LoRA request: its slot decodes with that
+        adapter's bank entry while co-tenants keep theirs (or the base).
+        The name resolves against the CURRENT bank under the lock; the
+        request solos (queue.Full) while the bank is off or rebuilding, the
+        name is not in it, or a penalized slot is active."""
         out: "queue.Queue" = queue.Queue()
-        spec_state = self._spec_arm(spec_ctx, first_token, sampler, penalty, want_logprobs,
-                                    want_top_logprobs)
+        spec_state = self._spec_arm(spec_ctx, first_token, sampler, penalty, adapter,
+                                    want_logprobs, want_top_logprobs)
         with self._work:
             if self._closed:
                 self._reject("closed", count_only=True)
                 raise RuntimeError("decode pool closed")
-            if penalty is not None:
-                self._admit_penalty()
+            adapter_idx = self._admit(adapter, penalty)
             if not self._free:
                 self._reject("no_free_slots", "no free decode slots")
             kv_reserved = self._reserve_kv(start_len, max_new)
@@ -322,6 +352,10 @@ class DecodePool:
             knobs = (sampler.temperature, sampler.top_k, sampler.top_p, sampler.min_p)
             if penalty is not None:
                 self._pen_slots.add(slot.index)
+            if adapter_idx:
+                self._lora_ids[slot.index] = adapter_idx
+                self._lora_dirty = True
+                self._lora_slots.add(slot.index)
             # the worker issues the slot's writes before its next dispatch
             self._admissions.append(
                 (slot.index, row_cache, start_len, first_token, knobs, penalty)
@@ -363,9 +397,9 @@ class DecodePool:
     def _admit_pending(self) -> None:
         """Issue the queued admissions' writes (worker thread, pool lock
         held): the slot's KV rows and length, its first token, its
-        sampling knobs and its penalty rows and knobs. Issued by the thread
-        that dispatches, so each lands after every chunk dispatched before
-        it and before the next."""
+        sampling knobs and its penalty rows and knobs, then the adapter ids
+        when they changed. Issued by the thread that dispatches, so each
+        lands after every chunk dispatched before it and before the next."""
         if self._pen_wanted and not self._pen_ready:
             self._enable_penalties()
         for index, row, length, first_token, knobs, penalty in self._admissions:
@@ -375,6 +409,49 @@ class DecodePool:
             if penalty is not None:
                 self._apply_penalty(index, penalty)
         self._admissions.clear()
+        if self._lora_dirty and self._lora_slots:
+            self._lora_ids_dev = to_device(self._lora_ids.copy(), self._last_tokens.device)
+            self._lora_dirty = False
+
+    def _lora_chunk(self) -> Optional[tuple]:
+        """(bank model, device ids) for the next chunk while an adapter
+        slot is active, else None (pool lock held: the worker reads them
+        with the records it dispatches)."""
+        if not self._lora_slots:
+            return None
+        return self._lora_model, self._lora_ids_dev
+
+    # -- pooled multi-LoRA ------------------------------------------------------
+    def enable_lora(self, stacked: Any, index: "dict[str, int]") -> None:
+        """Install (or replace) the adapter bank: a ``build_lora_stack``
+        model and its name -> bank index map. While adapter slots are
+        live the swap waits for them (their ids index the OLD bank; new
+        adapter submits solo meanwhile), so an admin load never blocks
+        behind a long generation."""
+        with self._work:
+            if self._lora_slots:
+                self._lora_ready = False  # stop new submits on the old bank
+                self._lora_pending = (stacked, dict(index))
+            else:
+                self._install_lora(stacked, dict(index))
+
+    def _install_lora(self, stacked: Any, index: "dict[str, int]") -> None:
+        """Swap in a bank (pool lock held, no adapter slot active)."""
+        self._lora_model = stacked
+        self._lora_index = index
+        self._lora_ids[:] = 0
+        self._lora_dirty = True
+        self._lora_pending = None
+        self._lora_ready = True
+
+    def disable_lora(self) -> None:
+        """Stop pooling adapter requests (they solo). Live adapter slots
+        finish on the bank they hold, which stays until the next
+        ``enable_lora`` replaces it."""
+        with self._work:
+            self._lora_ready = False
+            self._lora_index = {}
+            self._lora_pending = None
 
     # -- per-slot penalties ----------------------------------------------------
     def _enable_penalties(self) -> None:
@@ -393,18 +470,35 @@ class DecodePool:
             self._fps_dev = torch.zeros(n, dtype=torch.float32, device=dev)
         self._pen_ready = True
 
-    def _admit_penalty(self) -> None:
-        """The penalized submit's gate (pool lock held): raises queue.Full
-        while the state is off or not allocated yet; a lazy pool's first
-        penalized submit asks the worker to allocate it."""
-        if self._pen_ready:
-            return
-        if self._pen_mode == "lazy":
-            self._pen_wanted = True
-            self._work.notify()
-        off = self._pen_mode == "off"
-        self._reject("penalties_off" if off else "penalties_warming",
-                     "penalized pool path " + ("disabled" if off else "warming"))
+    def _admit(self, adapter: Optional[str], penalty: Optional[tuple]) -> int:
+        """The submit's reject gates (pool lock held), each raising
+        queue.Full through ``_reject`` with its reason: one chunk function
+        a dispatch, so adapter and penalized slots never mix, and a
+        penalized request waits for the penalty state (a lazy pool's first
+        one asks the worker to allocate it). Returns the adapter's bank
+        index (0 = the base weights)."""
+        adapter_idx = 0
+        if adapter is not None:
+            if penalty is not None:
+                self._reject("penalized_adapter", "penalized adapter requests decode solo")
+            if not self._lora_ready:
+                self._reject("bank_rebuilding", "adapter bank off or rebuilding")
+            if self._pen_slots:
+                self._reject("penalized_mix", "penalized slots active (one chunk function)")
+            idx = self._lora_index.get(adapter)
+            if idx is None:
+                self._reject("unknown_adapter", f"adapter '{adapter}' not in the pool bank")
+            adapter_idx = idx
+        if penalty is not None and self._lora_slots:
+            self._reject("adapter_mix", "adapter slots active (one chunk function)")
+        if penalty is not None and not self._pen_ready:
+            if self._pen_mode == "lazy":
+                self._pen_wanted = True
+                self._work.notify()
+            off = self._pen_mode == "off"
+            self._reject("penalties_off" if off else "penalties_warming",
+                         "penalized pool path " + ("disabled" if off else "warming"))
+        return adapter_idx
 
     def _apply_penalty(self, index: int, penalty: tuple) -> None:
         """Write a penalized request's rows and knobs into its slot (worker
@@ -467,6 +561,11 @@ class DecodePool:
         self._active.clear()
         self._admissions.clear()
         self._pen_slots.clear()
+        self._lora_slots.clear()
+        self._lora_ids[:] = 0
+        self._lora_dirty = True
+        if self._lora_pending:
+            self._install_lora(*self._lora_pending)
         self._free = list(reversed(self._slots))
         if self._sched is not None:
             self._sched.note_decode_idle()  # a dead pool must not gate prefill
@@ -500,6 +599,7 @@ class DecodePool:
                          else self.pipeline_depth)
                 if plan is None and self._active and len(in_flight) < depth:
                     records = [(slot.index, slot.request) for slot in self._active.values()]
+                    self._chunk_lora = self._lora_chunk()
             # outside the lock: a dispatch's launches take the host far
             # longer than a submit or a delivery, which must not wait; the
             # pipeline fills before the oldest chunk is fetched
@@ -511,11 +611,13 @@ class DecodePool:
                 self._fetch_and_deliver(in_flight)
 
     def _dispatch_chunk(self, in_flight: deque, records: Optional[list] = None) -> None:
-        """Dispatch ONE pipelined chunk for ``records`` (the active slots
-        by default) and start its copy to the host. Only the worker calls
-        it while the pool serves: it alone issues the pool's CUDA work."""
+        """Dispatch ONE pipelined chunk for ``records`` (by default the
+        active slots, read with the pool lock held by the caller) and start
+        its copy to the host. Only the worker calls it while the pool
+        serves: it alone issues the pool's CUDA work."""
         if records is None:
             records = [(slot.index, slot.request) for slot in self._active.values()]
+            self._chunk_lora = self._lora_chunk()
         toks, lps, tvals, tids = self._run_executable()
         want_top = any(req is not None and req.want_top for _, req in records)
         fetch = HostFetch(toks, lps, *((tvals, tids) if want_top else ()))
@@ -527,14 +629,24 @@ class DecodePool:
 
     def _run_executable(self) -> tuple:
         """ONE chunk over every slot; the feed-forward token and the cache
-        stay on the card. The penalized chunk runs only while a penalized
-        slot is active: penalty-free traffic keeps the plain one. (Only the
-        worker empties ``_pen_slots``; a submit adding to it between the
-        snapshot and here is harmless: its slot is not in this chunk's
-        records, and a plain slot samples alike under either chunk.)"""
+        stay on the card. The adapter chunk runs while an adapter slot is
+        active (``_chunk_lora``: the bank model and the slots' ids, read
+        under the lock with the chunk's records), the penalized chunk while a
+        penalized slot is (never both: ``_admit`` keeps them apart);
+        plain traffic keeps the plain one. (Only the worker empties
+        ``_pen_slots``; a submit adding to it between the snapshot and here
+        is harmless: its slot is not in this chunk's records, and a plain
+        slot samples alike under either chunk.)"""
         knobs = (self._temps_dev, self._top_ks_dev, self._top_ps_dev, self._min_ps_dev)
         all_greedy = bool((self._temps <= 0.0).all())
-        if self._pen_slots:
+        if self._chunk_lora is not None:
+            bank, ids = self._chunk_lora
+            self.lora_chunks += 1
+            (toks, lps, tvals, tids, self._last_tokens, self.cache) = bank.decode_chunk_pool_lora(
+                ids, self._last_tokens, self.cache, self.chunk, self._generator, *knobs,
+                all_greedy=all_greedy,
+            )
+        elif self._pen_slots:
             (toks, lps, tvals, tids, self._last_tokens, self.cache, self._pres,
              self._cnts) = self.model.decode_chunk_pool_penalized(
                 self._last_tokens, self.cache, self.chunk, self._generator, *knobs,
@@ -649,6 +761,14 @@ class DecodePool:
         under the plain one (presence and counts need no reset: identity
         knobs ignore them; the bias is added unconditionally)."""
         self._set_knobs(index, (0.0, 0, 1.0, 0.0))
+        if index in self._lora_slots:
+            # the freed slot stops selecting the adapter: a plain request
+            # reusing it under the adapter chunk gathers entry 0 (zero delta)
+            self._lora_slots.discard(index)
+            self._lora_ids[index] = 0
+            self._lora_dirty = True
+            if self._lora_pending and not self._lora_slots:
+                self._install_lora(*self._lora_pending)  # a rebuild waited for these slots
         if index in self._pen_slots:
             self._pen_slots.discard(index)
             self._set_pen_knobs(index, (1.0, 0.0, 0.0))
@@ -667,12 +787,13 @@ class DecodePool:
             HostFetch(ids).wait()
 
     def _spec_arm(self, spec_ctx: Any, first_token: int, sampler: Any, penalty: Any,
-                  want_logprobs: bool, want_top_logprobs: bool) -> Any:
+                  adapter: Any, want_logprobs: bool, want_top_logprobs: bool) -> Any:
         """A request's draft state when pooled speculation is on and the
-        request is eligible, else None. Called outside the pool lock (it
-        copies the prompt into the draft context)."""
+        request is eligible (greedy, unpenalized, base weights, no
+        logprobs), else None. Called outside the pool lock (it copies the
+        prompt into the draft context)."""
         if (self.spec_cfg is None or spec_ctx is None or penalty is not None
-                or want_logprobs or want_top_logprobs
+                or adapter is not None or want_logprobs or want_top_logprobs
                 or not getattr(sampler, "greedy", False)):
             return None
         if not self._free:
@@ -684,9 +805,10 @@ class DecodePool:
 
     def _spec_ready(self) -> bool:
         """Spec cycles run only while EVERY active row is armed and no
-        penalized slot is active (pool lock held): a sampled or penalized
-        co-tenant needs the plain chunk, so a mixed cohort decodes plain."""
-        if self.spec_cfg is None or not self._active or self._pen_slots:
+        penalized or adapter slot is active (pool lock held): a sampled,
+        penalized or adapter co-tenant needs another chunk, so a mixed
+        cohort decodes plain."""
+        if self.spec_cfg is None or not self._active or self._pen_slots or self._lora_slots:
             return False
         return all(slot.request is not None and slot.request.spec is not None
                    for slot in self._active.values())
@@ -810,6 +932,8 @@ class DecodePool:
                 "dispatches": self.dispatches,
                 "penalties": self._pen_mode,
                 "penalized_slots": len(self._pen_slots),
+                "lora_slots": len(self._lora_slots),
+                "lora_chunks": self.lora_chunks,
                 "closed": self._closed,
                 "rejects": dict(self.rejects),
                 "spec": ({"k_max": self.spec_cfg.k_max, **self.spec_stats,

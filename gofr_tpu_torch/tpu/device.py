@@ -43,8 +43,17 @@ pool: a ``_SpecEngine`` draft proposes k tokens a cycle, the target
 verifies them in one forward (``Transformer.verify_chunk``), and greedy
 ids are the target's own; unseeded sampled requests take speculative
 sampling. ``SPEC_POOLED=on`` stands that mode down and arms the decode
-pool's n-gram speculation instead (``SPEC_NGRAM``, ``SPEC_K_MAX``). No
-LoRA.
+pool's n-gram speculation instead (``SPEC_NGRAM``, ``SPEC_K_MAX``).
+
+Multi-LoRA (``LORA_ADAPTERS`` = ``name=path,...``, artifacts written by
+``save_params(path, export_adapter(state))``; ``load_adapter`` /
+``unload_adapter`` at runtime): each adapter is a LoRA model over the
+shared base (``models/lora.py::apply_adapter``: n adapters cost n x
+adapter bytes). A request picks one with ``adapter=``: it prefills solo in
+slices of its bucket (never past the chunk budget), skips the prefix cache
+and both speculation modes, and decodes in the pool through its stacked
+adapter bank (``decode_chunk_pool_lora``), or solo when the pool rejects
+it; ``score(adapter=)`` scores under it.
 """
 
 from __future__ import annotations
@@ -65,6 +74,7 @@ import torch
 from gofr_tpu_torch.errors import InvalidParamError
 from gofr_tpu_torch.models.ingest import is_safetensors_path, load_llama_params
 from gofr_tpu_torch.models.llama import CONFIGS
+from gofr_tpu_torch.models.lora import apply_adapter, build_lora_stack
 from gofr_tpu_torch.models.quant import quantizer_for
 from gofr_tpu_torch.models.transformer import TOP_LOGPROBS, Transformer
 from gofr_tpu_torch.ops.sampling import (
@@ -260,6 +270,21 @@ def spec_options(config: Any) -> dict:
     return opts
 
 
+def parse_lora_adapters(raw: str) -> dict[str, str]:
+    """LORA_ADAPTERS "name=path,name2=path2" -> {name: path}; a malformed
+    entry fails the boot."""
+    adapters: dict[str, str] = {}
+    for part in raw.strip().split(",") if raw.strip() else ():
+        name, sep, path = part.strip().partition("=")
+        if not sep or not name or not path:
+            raise ValueError(
+                f"LORA_ADAPTERS entry '{part.strip()}' is malformed "
+                "— expected name=path[,name2=path2...]"
+            )
+        adapters[name] = path
+    return adapters
+
+
 class TPUDevice:
     """The ``ctx.tpu`` datasource of the port (the name is the JAX
     package's, so handlers written for it run unchanged)."""
@@ -291,6 +316,11 @@ class TPUDevice:
         quantizer_for(self.quant)
         kv_dtype = parse_kv_dtype(config.get_or_default("MODEL_KV_DTYPE", ""))
         self.model_path = config.get("MODEL_PATH") or None
+        # named adapter artifacts served over the one base (runtime loads
+        # and unloads keep this spec in step), and the lock that serializes
+        # adapter admin with the pool's bank rebuild
+        self._lora_adapters = parse_lora_adapters(config.get_or_default("LORA_ADAPTERS", ""))
+        self._adapter_lock = threading.Lock()
         self.tokenizer = load_tokenizer(config)
         # default stops end every generation; request stops compose with them
         self.default_stop_ids = resolve_default_stop_ids(config, self.tokenizer)
@@ -327,6 +357,7 @@ class TPUDevice:
             draft_tokens=spec["draft_tokens"],
             draft_path=spec["draft_path"],
             draft_model=draft_model,
+            lora_adapters=self._lora_adapters,
         )
         if self.runner.kv_paged_disabled:
             logger.warnf("paged KV disabled: %s", self.runner.kv_paged_disabled)
@@ -344,6 +375,8 @@ class TPUDevice:
                 cache_dtype=self.runner.cache_dtype,
                 spec=(PoolSpecConfig(k_max=spec["spec_k_max"]) if spec["spec_pooled"] else None),
             )
+            if self.runner.adapters:
+                self._refresh_pool_lora()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)  # boot time includes the init
         self.batcher = DynamicBatcher(
@@ -374,6 +407,7 @@ class TPUDevice:
             f"draft={self.spec_options['draft_name'] or 'off'}"
             f"{f' k={self.runner.spec.k}' if self.runner.spec else ''} "
             f"spec_pooled={'on' if pool and pool.spec_cfg else 'off'} "
+            f"adapters={len(self.runner.adapters)} "
             f"boot={self.boot_seconds:.1f}s"
         )
 
@@ -408,9 +442,14 @@ class TPUDevice:
         stop_tokens: Optional[Any] = None,
         logprobs: bool = False,
         top_logprobs: bool = False,
+        adapter: Optional[str] = None,
+        adapter_params: Optional[Transformer] = None,
     ) -> "list[int] | tuple":
         """Autoregressive generation (see the module docstring for the
-        route). ``on_token`` receives each id as it decodes; ``stop`` (a
+        route). ``adapter`` names a loaded LoRA adapter (an unknown one is
+        an InvalidParamError); ``adapter_params`` is the adapter model a
+        stream pinned at its eager check, which a concurrent unload must
+        not take from it. ``on_token`` receives each id as it decodes; ``stop`` (a
         threading.Event) aborts between chunks; ``tokens`` may be a str when
         a tokenizer is configured; ``sampler`` sets temperature/top-k/top-p
         (default greedy); ``stop_tokens`` end generation without being
@@ -426,7 +465,8 @@ class TPUDevice:
             self._encode(tokens), max_new_tokens, on_token=on_token, stop=stop,
             sampler=sampler, stop_tokens=stop_tokens, decode_pool=self.decode_pool,
             prefill_batcher=self.batcher, scheduler=self.scheduler,
-            logprobs=logprobs, top_logprobs=top_logprobs,
+            logprobs=logprobs, top_logprobs=top_logprobs, adapter=adapter,
+            adapter_params=adapter_params,
         )
 
     def generate_stream(
@@ -437,14 +477,24 @@ class TPUDevice:
         stop_tokens: Optional[Any] = None,
         cancel: Optional[Any] = None,
         logprobs: bool = False,
+        adapter: Optional[str] = None,
     ) -> Any:
         """Iterator of token ids as they decode (the SSE bridge), or of
         (id, logprob) pairs with ``logprobs``. Closing it, or setting
         ``cancel`` (anything with ``set``/``is_set``), stops the background
         decode within a chunk."""
         # eager, before the transport commits its 200: an out-of-vocab
-        # logit_bias id is a 400, not an error frame after the status
+        # logit_bias id or an unknown adapter is a 400, not an error frame
+        # after the status; the adapter model read here is pinned for the
+        # stream (ONE dict read: a concurrent unload must not fail it)
         self._check_bias(sampler)
+        adapter_params = None
+        if adapter is not None:
+            adapter_params = self.runner.adapters.get(adapter)
+            if adapter_params is None:
+                raise InvalidParamError(
+                    f"adapter '{adapter}' (loaded: {sorted(self.runner.adapters)})"
+                )
         out: "queue.Queue" = queue.Queue()
         done = object()
         failure: list[BaseException] = []
@@ -455,6 +505,7 @@ class TPUDevice:
                 self.generate(
                     tokens, max_new_tokens, on_token=out.put, stop=stop,
                     sampler=sampler, stop_tokens=stop_tokens, logprobs=logprobs,
+                    adapter=adapter, adapter_params=adapter_params,
                 )
             except BaseException as exc:  # re-raised on the consumer side
                 failure.append(exc)
@@ -484,11 +535,79 @@ class TPUDevice:
             except ValueError as exc:
                 raise InvalidParamError(str(exc)) from None
 
-    def score(self, tokens: Any) -> list[float]:
+    def score(self, tokens: Any, adapter: Optional[str] = None) -> list[float]:
         """Teacher-forced prompt scoring: log p(t_i | t_<i) for i >= 1
-        (see the runner's ``score``)."""
+        (see the runner's ``score``), under ``adapter`` when named."""
         self.wait_ready()
-        return self.runner.score(self._encode(tokens))
+        return self.runner.score(self._encode(tokens), adapter=adapter)
+
+    # -- runtime multi-LoRA (the admin surface) -----------------------------------
+    def _refresh_pool_lora(self) -> None:
+        """(Re)build the decode pool's stacked adapter bank from the
+        runner's adapters, so adapter traffic shares the pool. A set whose
+        adapters disagree on targets or rank disables the bank (logged):
+        its requests decode solo, which is always correct."""
+        pool = self.decode_pool
+        if pool is None:
+            return
+        adapters = self.runner.adapters
+        if not adapters:
+            pool.disable_lora()
+            return
+        try:
+            stack = build_lora_stack(self.runner.model, adapters)
+        except ValueError as exc:
+            self.logger.warnf("pooled multi-LoRA disabled: %s — adapter requests decode solo",
+                              exc)
+            pool.disable_lora()
+            return
+        pool.enable_lora(stack, {name: i + 1 for i, name in enumerate(adapters)})
+
+    def list_adapters(self) -> list[str]:
+        self.wait_ready()
+        return sorted(self.runner.adapters)
+
+    def load_adapter(self, name: str, path: str) -> list[str]:
+        """Load an adapter artifact (the ``LORA_ADAPTERS`` format) over the
+        serving base at runtime; in-flight requests keep the model they
+        resolved, new ones see the new adapter at once. Returns the loaded
+        names."""
+        self.wait_ready()
+        if not isinstance(name, str) or not name:
+            raise InvalidParamError('"name" must be a non-empty string')
+        if name == self.model_name:
+            # the OpenAI surface routes by model name: a collision would make
+            # the adapter unselectable and the listing ambiguous
+            raise InvalidParamError(f"adapter name '{name}' collides with the base model name")
+        if not isinstance(path, str) or not path:
+            raise InvalidParamError('"path" must be a non-empty string')
+        try:
+            wrapped = apply_adapter(self.runner.model, restore_params(path, self.device))
+        except Exception as exc:
+            # a bad path or artifact is the caller's error, not a server fault
+            raise InvalidParamError(f"cannot load adapter from {path!r}: {exc}") from exc
+        with self._adapter_lock:
+            self._lora_adapters[name] = path
+            self.runner.adapters[name] = wrapped
+            # the bank swap waits for live adapter slots (decode_pool.py)
+            self._refresh_pool_lora()
+            loaded = sorted(self.runner.adapters)
+        self.logger.infof("adapter '%s' loaded from %s", name, path)
+        return loaded
+
+    def unload_adapter(self, name: str) -> list[str]:
+        """Drop an adapter. Requests that already resolved it finish on the
+        model they hold; new ones get a 400."""
+        self.wait_ready()
+        with self._adapter_lock:
+            adapters = self.runner.adapters
+            if adapters.pop(name, None) is None:
+                raise InvalidParamError(f"adapter '{name}' (loaded: {sorted(adapters)})")
+            self._lora_adapters.pop(name, None)
+            self._refresh_pool_lora()  # shrink (or disable) the bank
+            remaining = sorted(adapters)
+        self.logger.infof("adapter '%s' unloaded", name)
+        return remaining
 
     def close(self) -> None:
         """Stop the pool (its worker joined; a stream still decoding gets
@@ -677,6 +796,7 @@ class _TransformerRunner:
         draft_tokens: int = 4,
         draft_path: Optional[str] = None,
         draft_model: Optional[Transformer] = None,
+        lora_adapters: Optional[dict] = None,
     ):
         cfg = CONFIGS[name]
         if max_seq is not None and max_seq < cfg.max_seq:
@@ -698,6 +818,12 @@ class _TransformerRunner:
                 "the given model does not match MODEL_NAME/MODEL_MAX_SEQ/MODEL_QUANT/device"
             )
         self.model = model
+        # multi-LoRA: named adapter models over the SHARED base tensors
+        # (n adapters cost n x adapter bytes, not n x model bytes)
+        self.adapters: dict[str, Transformer] = {
+            a_name: apply_adapter(model, restore_params(a_path, device))
+            for a_name, a_path in (lora_adapters or {}).items()
+        }
         if draft_model is not None and not draft_name:
             raise ValueError("a given draft model needs DRAFT_MODEL_NAME")
         # the solo speculative latency mode: the draft engine, and its
@@ -798,12 +924,14 @@ class _TransformerRunner:
             )
         return ids.astype(np.int32)[-self.cfg.max_seq:]
 
-    def _prefill(self, tokens: np.ndarray, cache: dict, lengths: np.ndarray) -> tuple:
-        """One prefill forward: host token rows [B, S] and true lengths [B]
-        into ``cache`` (in place) -> (logits [B, V], the cache)."""
+    def _prefill(self, tokens: np.ndarray, cache: dict, lengths: np.ndarray,
+                 model: Optional[Transformer] = None) -> tuple:
+        """One prefill forward of ``model`` (default the base): host token
+        rows [B, S] and true lengths [B] into ``cache`` (in place) ->
+        (logits [B, V], the cache)."""
         with self._count_lock:
             self.prefills += 1
-        return self.model.prefill(
+        return (model or self.model).prefill(
             to_device(tokens, self.device), cache, to_device(lengths, self.device)
         )
 
@@ -842,18 +970,34 @@ class _TransformerRunner:
         scheduler: Any = None,
         logprobs: bool = False,
         top_logprobs: bool = False,
+        adapter: Optional[str] = None,
+        adapter_params: Optional[Transformer] = None,
     ) -> "list[int] | tuple":
         if top_logprobs:
             logprobs = True  # alternatives imply the chosen tokens' values
         sampler = sampler or Sampler()
         stop_tokens = frozenset(stop_tokens or ())
         ids = self.prepare(tokens)
-        state = (
-            self._prefix_lookup(
+        model = self.model
+        state = None
+        if adapter is not None:
+            # ONE dict read (adapters unload at runtime); a stream passes the
+            # model it pinned at its eager check
+            model = adapter_params if adapter_params is not None else self.adapters.get(adapter)
+            if model is None:
+                raise InvalidParamError(f"adapter '{adapter}' (loaded: {sorted(self.adapters)})")
+            # the adapter's weights differ from a batch's: prefill solo in
+            # slices of the prompt's bucket, never past the chunk budget,
+            # and skip the prefix cache and speculation; decode joins the
+            # pool through its adapter bank
+            a_bucket = self._bucket_for(int(ids.size))
+            if self.prefill_chunk_bucket is not None:
+                a_bucket = min(a_bucket, self.prefill_chunk_bucket)
+            state = self._chunked_prefill(ids, bucket=a_bucket, scheduler=scheduler, model=model)
+        elif self._prefix_cache is not None:
+            state = self._prefix_lookup(
                 ids, need_logits=logprobs or sampler.penalized or not sampler.greedy
             )
-            if self._prefix_cache is not None else None
-        )
         if state is None:
             chunk_b = self.prefill_chunk_bucket
             if ids.size > self.buckets[-1] or (chunk_b is not None and ids.size > chunk_b):
@@ -893,9 +1037,9 @@ class _TransformerRunner:
             on_token((token, lps[-1]) if logprobs else token)
         if max_new_tokens <= 1:
             return done()
-        # seed the prefix cache with the finish-time conversation KV: a
-        # follow-up turn then reuses the whole conversation
-        seed_kv = self._prefix_cache is not None
+        # seed the prefix cache with the finish-time conversation KV (base
+        # requests): a follow-up turn then reuses the whole conversation
+        seed_kv = self._prefix_cache is not None and adapter is None
         # speculation: with a draft (DRAFT_MODEL_NAME, the latency mode) a
         # request without penalties or logprobs takes the draft-and-verify
         # path and bypasses the pool; greedy emits exactly the target's
@@ -905,7 +1049,7 @@ class _TransformerRunner:
         # pool speculates instead, from the n-gram state spec_ctx builds
         pool_spec = decode_pool is not None and decode_pool.spec_cfg is not None
         spec_ok = (self.spec is not None and penalty is None and not logprobs
-                   and not pool_spec)
+                   and adapter is None and not pool_spec)
         if spec_ok and sampler.greedy:
             cache = self._spec_generate(state, ids, out, token, max_new_tokens, on_token, stop,
                                         stop_tokens)
@@ -928,7 +1072,7 @@ class _TransformerRunner:
                     _row_of(state), state["length"], token, max_new_tokens - 1, sampler, stop,
                     stop_tokens=stop_tokens, want_logprobs=logprobs,
                     want_top_logprobs=top_logprobs, want_kv=seed_kv, penalty=pool_penalty,
-                    spec_ctx=ids if pool_spec else None,
+                    spec_ctx=ids if pool_spec else None, adapter=adapter,
                 )
             except (queue.Full, RuntimeError):
                 slot_q = None  # pool saturated/closed -> solo decode below
@@ -944,7 +1088,7 @@ class _TransformerRunner:
         state = None  # release the batch's prefill buffers
         cache = self._solo_decode(
             cache, cache_len, token, out, lps, tops, max_new_tokens, sampler, stop,
-            stop_tokens, on_token, logprobs, top_logprobs, penalty,
+            stop_tokens, on_token, logprobs, top_logprobs, penalty, model,
         )
         if seed_kv:
             self._prefix_store_generation(ids, out, cache, sampler)
@@ -1010,6 +1154,7 @@ class _TransformerRunner:
         self, cache: dict, cache_len: int, token: int, out: list, lps: list, tops: list,
         max_new_tokens: int, sampler: Sampler, stop: Any, stop_tokens: frozenset,
         on_token: Any, logprobs: bool, top_logprobs: bool, penalty: Optional[tuple] = None,
+        model: Optional[Transformer] = None,
     ) -> dict:
         """Chunked decode through the pool's chunk function at B = 1
         (``decode_chunk_pool``: on-device sampling, the chosen logprobs and
@@ -1023,8 +1168,9 @@ class _TransformerRunner:
         dropped. Every dispatch runs the full chunk unless the cache end
         forces a short one. ``penalty`` (presence, counts, bias rows of a
         penalized request) runs ``decode_chunk_pool_penalized`` at B = 1
-        instead. Returns the final cache (every dispatched chunk's writes
-        landed)."""
+        instead. ``model`` is an adapter's LoRA model (default the base).
+        Returns the final cache (every dispatched chunk's writes landed)."""
+        model = model or self.model
         max_len = int(cache["k"].shape[2])
         greedy = sampler.greedy
         gen = None if greedy else sampler.generator(self.device)
@@ -1049,14 +1195,14 @@ class _TransformerRunner:
                 n = min(self.decode_chunk_size, max_len - cache_len - in_flight)
                 if penalty is None:
                     toks_dev, lps_dev, tvals, tids, token_dev, cache = (
-                        self.model.decode_chunk_pool(
+                        model.decode_chunk_pool(
                             token_dev, cache, n, gen, *knobs, all_greedy=greedy
                         )
                     )
                 else:
                     presence, counts, bias = penalty
                     toks_dev, lps_dev, tvals, tids, token_dev, cache, _, _ = (
-                        self.model.decode_chunk_pool_penalized(
+                        model.decode_chunk_pool_penalized(
                             token_dev, cache, n, gen, *knobs, presence, pen_knobs[0], counts,
                             pen_knobs[1], pen_knobs[2], bias, all_greedy=greedy,
                         )
@@ -1274,12 +1420,19 @@ class _TransformerRunner:
         return cache
 
     @torch.no_grad()
-    def score(self, tokens: Any) -> list[float]:
+    def score(self, tokens: Any, adapter: Optional[str] = None) -> list[float]:
         """log p(t_i | t_<i) for every prompt position i >= 1 (completions
         echo + logprobs): the prompt zero-padded to its bucket, one
-        ``score_tokens`` forward, the first n - 1 values. The length is
-        checked before ``prepare``, whose clip to the last max_seq tokens
-        would misalign the scores with the caller's prompt."""
+        ``score_tokens`` forward, the first n - 1 values; under
+        ``adapter``'s model when named (an eval of an adapter must never
+        get the base's scores). The length is checked before ``prepare``,
+        whose clip to the last max_seq tokens would misalign the scores
+        with the caller's prompt."""
+        model = self.model
+        if adapter is not None:
+            model = self.adapters.get(adapter)
+            if model is None:
+                raise InvalidParamError(f"adapter '{adapter}' (loaded: {sorted(self.adapters)})")
         if len(tokens) > self.buckets[-1]:
             raise InvalidParamError(
                 f"prompt of {len(tokens)} tokens exceeds the largest bucket "
@@ -1291,18 +1444,18 @@ class _TransformerRunner:
             return []  # position 0 has no conditional
         row = np.zeros((1, self._bucket_for(n)), np.int32)
         row[0, :n] = ids
-        out = self.model.score_tokens(to_device(row, self.device))[0, : n - 1]
+        out = model.score_tokens(to_device(row, self.device))[0, : n - 1]
         return [float(x) for x in out.tolist()]
 
     @torch.no_grad()
     def _chunked_prefill(self, ids: np.ndarray, bucket: Optional[int] = None,
-                         scheduler: Any = None) -> dict:
+                         scheduler: Any = None, model: Optional[Transformer] = None) -> dict:
         """Prefill a prompt longer than the largest bucket (or the
         PREFILL_CHUNK_TOKENS budget) in [1, bucket] slices, each written
         into the same fresh [1]-row cache at its offset (the model's
         chunk-resume contract). ``scheduler`` interleaves each slice with
-        pooled decode turns. One host sync at the end (the last slice's
-        argmax)."""
+        pooled decode turns. ``model``: an adapter's (default the base).
+        One host sync at the end (the last slice's argmax)."""
         bucket = bucket or self.buckets[-1]
         cache = self.model.init_cache(1, self.cfg.max_seq, self.cache_dtype)
         logits = None
@@ -1310,7 +1463,7 @@ class _TransformerRunner:
         for tokens, lengths, size in _prompt_chunks(ids, bucket):
             if scheduler is not None:
                 scheduler.admit_prefill(bucket)
-            logits, cache = self._prefill(tokens, cache, lengths)
+            logits, cache = self._prefill(tokens, cache, lengths, model)
             total += size
         return {
             "cache": cache,

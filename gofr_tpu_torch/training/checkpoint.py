@@ -34,7 +34,9 @@ def _load(target: str, device: "torch.device | str") -> Any:
 
 
 def save_params(path: str, params: dict) -> None:
-    """``params``: a model's ``state_dict()``."""
+    """``params``: a model's ``state_dict()``, or a LoRA adapter artifact
+    (``models/lora.py::export_adapter``: nested dicts of tensors, which
+    ``restore_params`` reads back under ``weights_only``)."""
     _save(params, os.path.join(os.path.abspath(path), "params"))
 
 

@@ -3,8 +3,9 @@
 The JAX package builds its optimizer from the ``optax`` library
 (``gofr_tpu/training/trainer.py``); the port keeps its own copy here:
 ``clip_by_global_norm``, ``adamw`` (``scale_by_adam``, then decoupled
-weight decay on every parameter, then ``-lr``), their ``chain`` and
-``warmup_cosine_decay_schedule``. A schedule is read at the update count
+weight decay on every parameter, then ``-lr``), their ``chain``,
+``masked`` and ``set_to_zero`` (LoRA's frozen base,
+``models/lora.py::lora_optimizer``) and ``warmup_cosine_decay_schedule``. A schedule is read at the update count
 before the increment, so the first update of a warmup schedule from 0
 uses lr = 0, as in optax.
 
@@ -112,6 +113,42 @@ class chain:  # noqa: N801 - optax's name
                params: Sequence[torch.Tensor]) -> None:
         for t, s in zip(self.transforms, state):
             t.update(grads, s, params)
+
+
+class masked:  # noqa: N801 - optax's name
+    """optax.masked: ``inner`` sees only the tensors whose ``mask`` flag
+    is True (one flag per tensor of the list the optimizer is built over),
+    and holds state for those alone. The other tensors are left to the
+    rest of the chain, as optax passes their updates through."""
+
+    def __init__(self, inner, mask: Sequence[bool]):
+        self.inner = inner
+        self.mask = [bool(m) for m in mask]
+
+    def _pick(self, tensors: Sequence[torch.Tensor]) -> list:
+        if len(tensors) != len(self.mask):
+            raise ValueError(f"{len(tensors)} tensors for a mask of {len(self.mask)}")
+        return [t for t, m in zip(tensors, self.mask) if m]
+
+    def init(self, params: Sequence[torch.Tensor]):
+        return self.inner.init(self._pick(params))
+
+    def update(self, grads: Sequence[torch.Tensor], state, params: Sequence[torch.Tensor]) -> None:
+        self.inner.update(self._pick(grads), state, self._pick(params))
+
+
+class set_to_zero:  # noqa: N801 - optax's name
+    """optax.set_to_zero: a zero update, so the parameters stay as they
+    are; the gradients are zeroed in place for any later transform."""
+
+    def init(self, params: Sequence[torch.Tensor]) -> dict:
+        return {}
+
+    @torch.no_grad()
+    def update(self, grads: Sequence[torch.Tensor], state: dict,
+               params: Sequence[torch.Tensor]) -> None:
+        for g in grads:
+            g.zero_()
 
 
 def linear_schedule(init_value: float, end_value: float, transition_steps: int) -> Schedule:

@@ -6,7 +6,9 @@ device mesh waits for the port's parallel layer). The state is a dict
 updates the model's parameters and the moments in place, where the JAX
 step donates its state and returns a new one. Attention's backward runs
 through the hand-written dQ and dK/dV kernels on the card
-(``ops/flash.py``), through their plain versions on the CPU.
+(``ops/flash.py``), through their plain versions on the CPU. The
+adapter-only step (LoRA and QLoRA) is ``models/lora.py::
+make_lora_train_step``, over this module's ``cross_entropy_loss``.
 """
 
 from __future__ import annotations
@@ -39,12 +41,15 @@ def cross_entropy_loss(
 def init_train_state_from(model: Transformer, optimizer: Any) -> dict:
     """A training state around ``model``, whose parameters are turned
     trainable (serving builds them with ``requires_grad=False``). A
-    quantized model is refused: its packs are buffers, not parameters
-    (training over a quantized base comes with LoRA)."""
+    quantized model is refused: its packs are buffers, not parameters.
+    Over a quantized base, train adapters (QLoRA): ``models/lora.py``'s
+    ``add_lora`` and ``make_lora_train_step``."""
     if model.quant is not None:
         raise ValueError(
             f"cannot train a quantized model (MODEL_QUANT={model.quant}): its weight "
-            "packs are not trainable; train the dense model and quantize it for serving"
+            "packs are not trainable; train adapters over it (QLoRA: models/lora.py "
+            "add_lora, init_lora_train_state, make_lora_train_step), or train the dense "
+            "model and quantize it for serving"
         )
     params = list(model.parameters())
     for p in params:
