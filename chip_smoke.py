@@ -27,7 +27,11 @@ Phases, each fatal on failure (no phase is skipped or caught):
    the tiny model's f32 D=16, tolerances as in tests/test_flash.py (bf16
    2e-2, f32 2e-5, atol + rtol*|ref|); each case must run the variant its
    shape picks (the launch counters say which ran), and the decode variant
-   must give the same bits twice;
+   must give the same bits twice; and at the encoder's attention (phase
+   15): bert-base's 12 and bert-tiny's 2 heads of D=64, bf16, non-causal,
+   B=8, S=128, ragged kv_lens with 1 and 128, K/V poisoned past kv_len
+   (+-300, NaN), q/k/v strided views of one [B, S, 3, H, 64] product: each
+   one mma launch (the counters say so), the tail invisible bit for bit;
 3. kernel times at the prefill and decode shapes: the kernel, the mma
    kernel it replaced, its bound on the card, the plain version, and
    scaled_dot_product_attention as a yardstick (never called by the port;
@@ -36,7 +40,9 @@ Phases, each fatal on failure (no phase is skipped or caught):
    the kernel, the mma
    kernel and SDPA also by device time (``gofr_tpu_torch.timing.
    graph_ms``: 20 launches in one CUDA graph, replayed), since there the
-   CUDA-event time is the host's issue rate; and the decode and dQ
+   CUDA-event time is the host's issue rate; the encoder's attention at
+   B=1, 2, 8 (bert-base) and B=8 (bert-tiny), non-causal, SDPA with the
+   boolean key mask as the yardstick, by both clocks; and the decode and dQ
    wrappers run once under ``torch.cuda.set_sync_debug_mode("error")``:
    neither reads a device value on the host;
 4. f32 path: the tiny f32 model, built on the card from a seed, greedy-
@@ -198,7 +204,23 @@ Phases, each fatal on failure (no phase is skipped or caught):
    batch through ``prefetch_to_device``: finite and falling loss, every
    layer's attention through the kernels (every forward, dQ and dK/dV call
    on its sm90 variant) in every step, step time, tokens/s, MFU and peak
-   memory.
+   memory;
+15. the encoder and MLP families (run last, after phase 9): ``new()`` with
+   MODEL_NAME=bert-base (bf16, full width and depth, MODEL_SEED=0, the byte
+   tokenizer): its weight bytes on the card equal to ``bert_param_count``
+   x 2 (217,706,496); ``POST /v1/embeddings`` with an id list, a string,
+   8 items of 1-128 tokens in one request, 8 concurrent single-item
+   requests, and a 129-token item (its 400); the launch counts of those
+   requests (every dispatch exactly n_layers = 12 mma launches, no sm90 or
+   decode); latency at batch 1 and 8, embeddings/s under the 8 concurrent
+   requests; one dispatch of 8 under ``torch.profiler`` (its kernels and
+   device time); the 18 embeddings against the same weights' on the CPU
+   (plain path; bf16 2e-2, max |d| and the smallest cosine printed); other
+   ids in the padding give the same embeddings bit for bit. Then
+   MODEL_QUANT=int8 (within 0.05 of bf16, tests/test_models.py's bound),
+   and MODEL_NAME=mlp (f32, TF32 off) behind a copy of
+   ``examples/http-server/main.py``'s ``/infer``: 8 concurrent requests
+   equal to the CPU's within 2e-5, a 63-wide input's 400.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.
@@ -293,11 +315,11 @@ def served_case(torch, gen, b, sq, offset, kv_len, max_seq=2048, layers=2,
     return q, k_cache[-1], v_cache[-1], offs, lens
 
 
-def check_tail_invisible(torch, flash, name, case, out):
+def check_tail_invisible(torch, flash, name, case, out, causal=True):
     """The kernel's output is bit-identical with the tail past kv_len zeroed."""
     q, k, v, offs, lens = case
     tail = (torch.arange(k.shape[1], device="cuda")[None, :] >= lens[:, None])[:, :, None, None]
-    out2, _ = flash.flash_attention_fwd(q, k.masked_fill(tail, 0), v.masked_fill(tail, 0), True,
+    out2, _ = flash.flash_attention_fwd(q, k.masked_fill(tail, 0), v.masked_fill(tail, 0), causal,
                                         offs, lens)
     check(torch.equal(out, out2), f"{name}: the poisoned tail moved the kernel's output")
 
@@ -373,10 +395,11 @@ def bound(q, k, offsets, kv_lens, causal):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def library_call(torch, q, k, v, offsets, kv_lens, is_causal=False):
+def library_call(torch, q, k, v, offsets, kv_lens, is_causal=False, causal=True):
     """scaled_dot_product_attention over the same inputs and masking: a
-    boolean mask, or (for a plain causal call: offsets 0, every key live,
-    Sq = Skv) its is_causal route."""
+    boolean mask (the keys before kv_len, and with ``causal`` those at or
+    before each query's position), or (for a plain causal call: offsets 0,
+    every key live, Sq = Skv) its is_causal route."""
     import torch.nn.functional as F
 
     b, sq, hq, d = q.shape
@@ -388,13 +411,14 @@ def library_call(torch, q, k, v, offsets, kv_lens, is_causal=False):
         return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
     k_pos = torch.arange(skv, device=q.device)
     q_pos = offsets[:, None] + torch.arange(sq, device=q.device)[None, :]
-    mask = ((k_pos[None, None, :] < kv_lens[:, None, None])
-            & (k_pos[None, None, :] <= q_pos[:, :, None]))
+    mask = k_pos[None, None, :] < kv_lens[:, None, None]
+    if causal:
+        mask = mask & (k_pos[None, None, :] <= q_pos[:, :, None])
     mask = mask[:, None]  # [B, 1, Sq, Skv]
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
 
-def time_shape(torch, flash, name, case, iters, is_causal=False, device=False):
+def time_shape(torch, flash, name, case, iters, is_causal=False, device=False, causal=True):
     """One forward shape: the kernel its shape picks, the mma kernel
     beside the sm90 and decode variants, the bound, the plain version, and
     SDPA (the boolean mask; with ``is_causal`` also its causal route, and
@@ -403,15 +427,16 @@ def time_shape(torch, flash, name, case, iters, is_causal=False, device=False):
     launches, replayed): ``device_ms``, ``mma_device_ms``,
     ``library_device_ms``; with ``device`` at any shape (and with
     ``is_causal`` the causal route's ``library_causal_device_ms`` too,
-    ``library_device_ms`` then the faster)."""
+    ``library_device_ms`` then the faster). ``causal`` False times a
+    non-causal call (the encoder's) the same ways."""
     from gofr_tpu_torch.timing import event_ms, graph_ms
 
     q, k, v, offs, lens = case
     scale = q.shape[-1] ** -0.5
     variant = flash.fwd_variant(q, k)
-    kernel = lambda: flash.flash_attention_fwd(q, k, v, True, offs, lens)  # noqa: E731
-    mma = lambda: flash._launch(q, k, v, offs, lens, True, scale, variant="mma")  # noqa: E731
-    library = library_call(torch, q, k, v, offs, lens)
+    kernel = lambda: flash.flash_attention_fwd(q, k, v, causal, offs, lens)  # noqa: E731
+    mma = lambda: flash._launch(q, k, v, offs, lens, causal, scale, variant="mma")  # noqa: E731
+    library = library_call(torch, q, k, v, offs, lens, causal=causal)
     row = {"variant": variant, "ms": event_ms(kernel, iters)}
     if variant != "mma":
         row["mma_ms"] = event_ms(mma, iters)
@@ -424,7 +449,7 @@ def time_shape(torch, flash, name, case, iters, is_causal=False, device=False):
                 library_call(torch, q, k, v, offs, lens, is_causal=True))
             row["library_device_ms"] = min(row["library_device_ms"],
                                            row["library_causal_device_ms"])
-    row["plain_ms"] = event_ms(lambda: flash.flash_attention_ref(q, k, v, True, offs, lens),
+    row["plain_ms"] = event_ms(lambda: flash.flash_attention_ref(q, k, v, causal, offs, lens),
                                iters)
     row["library_mask_ms"] = event_ms(library, iters)
     row["library_ms"] = row["library_mask_ms"]
@@ -432,11 +457,75 @@ def time_shape(torch, flash, name, case, iters, is_causal=False, device=False):
         row["library_causal_ms"] = event_ms(
             library_call(torch, q, k, v, offs, lens, is_causal=True), iters)
         row["library_ms"] = min(row["library_mask_ms"], row["library_causal_ms"])
-    row["bound_ms"], row["bound_by"] = bound(q, k, offs, lens, True)
+    row["bound_ms"], row["bound_by"] = bound(q, k, offs, lens, causal)
     row["shape"] = (f"B={q.shape[0]} Sq={q.shape[1]} Skv={k.shape[1]} Hq={q.shape[2]} "
-                    f"Hkv={k.shape[2]} D={q.shape[3]} {str(q.dtype).split('.')[-1]} causal")
+                    f"Hkv={k.shape[2]} D={q.shape[3]} {str(q.dtype).split('.')[-1]} "
+                    f"{'causal' if causal else 'non-causal'}")
     print(f"kernel-time {name} {tuple(q.shape)} kv {tuple(k.shape)}: {json.dumps(row)}", flush=True)
     return row
+
+
+# -- phase 2/3 at the encoder's shapes (phase 15's attention) ------------------
+
+ENCODER_LENS = [1, 128, 77, 5, 64, 100, 128, 33]  # ragged, with 1 and 128
+
+
+def bert_case(torch, gen, b, heads, kv_lens, poison=False, s=128, d=64):
+    """q, k, v as ``bert_embed`` makes them: strided views of one
+    [B, S, 3, H, D] bf16 product (row stride 3 x H x D, k and v offset by
+    H x D and 2 x H x D elements); offsets 0; ``poison`` as ``make_case``,
+    written into the product past each row's kv_len."""
+    qkv = torch.randn(b, s, 3, heads, d, device="cuda", generator=gen).to(torch.bfloat16)
+    lens = torch.tensor(kv_lens, dtype=torch.int32, device="cuda")
+    if poison is not False:
+        kp, vp = (300.0, -300.0) if poison is True else (poison, poison)
+        tail = torch.arange(s, device="cuda")[None, :] >= lens[:, None]
+        qkv[:, :, 1][tail] = kp
+        qkv[:, :, 2][tail] = vp
+    offs = torch.zeros(b, dtype=torch.int32, device="cuda")
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], offs, lens
+
+
+def encoder_kernels(torch, flash, gen) -> tuple:
+    """Phase 2 and 3 at bert-base's (12 heads) and bert-tiny's (2 heads)
+    attention: bf16, D = 64, non-causal, S = 128, ragged kv_lens with 1
+    and 128, K/V poisoned past kv_len (+-300, NaN), q/k/v strided views of
+    one product. Each case runs the mma kernel (the counters say so) and
+    holds to the plain version at tests/test_flash.py's bf16 tolerance;
+    the poisoned tail must not move a bit of the output. Then the times at
+    B = 1, 2, 8 (bert-base) and B = 8 (bert-tiny), CUDA events and device
+    time. -> (max error, timing rows by name)."""
+    errs = {"sm90": [], "decode": [], "mma": []}
+    cases = {}
+    for label, heads in (("bert-base", 12), ("bert-tiny", 2)):
+        cases[f"{label} B=8 ragged"] = bert_case(torch, gen, 8, heads, ENCODER_LENS)
+        cases[f"{label} B=8 +-300 tail"] = bert_case(torch, gen, 8, heads, ENCODER_LENS,
+                                                     poison=True)
+        cases[f"{label} B=8 NaN tail"] = bert_case(torch, gen, 8, heads, ENCODER_LENS,
+                                                   poison=float("nan"))
+    for name, case in cases.items():
+        q, k = case[:2]
+        check(flash.fwd_variant(q, k) == "mma" and not q.is_contiguous(),
+              f"encoder {name}: not the mma variant on strided views")
+        before = (flash.launches.value, flash.launches_fwd_sm90.value,
+                  flash.launches_fwd_decode.value)
+        out, _, _ = compare(torch, flash, f"encoder {name}", case, causal=False, errs=errs)
+        after = (flash.launches.value, flash.launches_fwd_sm90.value,
+                 flash.launches_fwd_decode.value)
+        check(after[0] - before[0] == 1 and after[1:] == before[1:],
+              f"encoder {name}: the counters saw {after} after {before}, not one mma launch")
+        if "tail" in name:
+            check_tail_invisible(torch, flash, f"encoder {name}", case, out, causal=False)
+    rows = {
+        f"encoder_B{b}": time_shape(torch, flash, f"encoder bert-base B={b}",
+                                    bert_case(torch, gen, b, 12, ENCODER_LENS[:b]), 50,
+                                    device=True, causal=False)
+        for b in (1, 2, 8)
+    }
+    rows["encoder_tiny_B8"] = time_shape(torch, flash, "encoder bert-tiny B=8",
+                                         cases["bert-tiny B=8 ragged"], 50, device=True,
+                                         causal=False)
+    return max(errs["mma"]), rows
 
 
 # -- phase 4: f32 path -------------------------------------------------------
@@ -2775,6 +2864,241 @@ def multi_lora(torch, flash, card: str, model) -> dict:
     return out
 
 
+# -- phase 15: the encoder and MLP families ------------------------------------------
+
+ENCODER_ENV = {"TOKENIZER": "byte", "BATCH_MAX_SIZE": "8", "BATCH_TIMEOUT_MS": "5",
+               "MODEL_SEED": "0", "TORCH_DEVICE": "cuda"}
+EMBED_TOL = 2e-2  # bf16 (tests/test_flash.py's), card against the CPU's plain path
+QUANT_EMBED_TOL = 0.05  # tests/test_models.py's bound of a quantized BERT
+MLP_TOL = 2e-5  # f32 with TF32 off
+BATCH8_LENS = (1, 17, 33, 50, 64, 90, 127, 128)
+CONCURRENT_LENS = (3, 12, 25, 40, 60, 80, 100, 120)
+
+
+def make_infer_handler(http_error):
+    """``examples/http-server/main.py``'s ``/infer`` handler (a user's
+    route, not the package's), raising ``http_error``."""
+    import numpy as np
+
+    async def infer_handler(ctx):
+        if ctx.tpu is None:
+            raise http_error(503, "tpu not configured (set MODEL_NAME)")
+        payload = ctx.bind() if ctx.request.body else {"x": [0.0] * 64}
+        if not isinstance(payload, dict):
+            raise http_error(400, 'request body must be a JSON object like {"tokens": [...]}')
+        data = payload.get("x") or payload.get("tokens")
+        if not data:
+            raise http_error(400, 'missing "x" (features) or "tokens" (ids) in body')
+        result = await ctx.tpu.infer_async(data)
+        if isinstance(result, dict):  # transformer prefill state -> next token
+            return {"next_token": result["next_token"]}
+        return {"y": np.asarray(result).tolist()}
+
+    return infer_handler
+
+
+def boot_encoder(env: dict):
+    """A fresh app under ``env`` alone (every key the port reads cleared
+    first), with the OpenAI routes and the example's ``/infer``."""
+    import gofr_tpu_torch
+    from gofr_tpu_torch.config import DECLARED_KEYS
+    from gofr_tpu_torch.errors import HTTPError
+
+    for key in DECLARED_KEYS:
+        os.environ.pop(key, None)
+    os.environ.update({**env, "HTTP_PORT": str(free_port())})
+    app = gofr_tpu_torch.new()
+    gofr_tpu_torch.register_openai_routes(app)
+    app.post("/infer", make_infer_handler(HTTPError))
+    app.start()
+    return app
+
+
+def item_ids(n: int, salt: int) -> list:
+    """``n`` token ids of bert-base's vocabulary, spread by ``salt``."""
+    return [(j * 7919 + salt * 131 + 1) % 30522 for j in range(n)]
+
+
+def concurrently(port: int, bodies: list, path: str) -> tuple:
+    """POST each body at once from its own thread -> (results in order,
+    wall seconds from the first start to the last answer)."""
+    results: list = [None] * len(bodies)
+
+    def run(i):
+        results[i] = post(port, bodies[i], path=path)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(bodies))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return results, time.perf_counter() - t0
+
+
+def embed_rows(port: int, body: dict) -> tuple:
+    status, data, secs, _ = post(port, body, path="/v1/embeddings")
+    check(status == 200, f"encoder: /v1/embeddings {status} {data}")
+    return [r["embedding"] for r in data["data"]], data, secs
+
+
+def encoder_serving(torch, flash, card: str) -> dict:
+    """Phase 15: bert-base (bf16, full width and depth, seeded) over
+    ``POST /v1/embeddings``, then int8, then the MLP behind ``/infer``."""
+    import numpy as np
+
+    from gofr_tpu_torch.models.bert import BERT_BASE, Bert, bert_embed
+    from gofr_tpu_torch.models.mlp import MLP, mlp_forward
+    from gofr_tpu_torch.tpu.device import _BertRunner
+    from gofr_tpu_torch.tpu.flops import bert_param_count
+
+    out: dict = {}
+    t0 = time.perf_counter()
+    app = boot_encoder({**ENCODER_ENV, "MODEL_NAME": "bert-base"})
+    try:
+        dev = app.container.tpu
+        port, model, n_layers = app.http_port, dev.runner.model, BERT_BASE.n_layers
+        reckoned = bert_param_count(BERT_BASE) * 2
+        out["weight_bytes"] = model.weight_bytes()
+        print(f"encoder: bert-base booted in {time.perf_counter() - t0:.1f}s ({dev.describe()}); "
+              f"weights on the card {out['weight_bytes']:,} bytes, bert_param_count x 2 = "
+              f"{reckoned:,} [{card}]", flush=True)
+        check(out["weight_bytes"] == reckoned, "encoder: weight bytes differ from the count")
+        text = "Sentence embeddings from the card, pooled over the valid tokens."
+        single = item_ids(50, 0)
+        batch8 = [item_ids(n, i) for i, n in enumerate(BATCH8_LENS)]
+        conc = [item_ids(n, 10 + i) for i, n in enumerate(CONCURRENT_LENS)]
+
+        # the main path: every count to 0 just before, read just after
+        for c in (flash.launches, flash.launches_fwd_sm90, flash.launches_fwd_decode):
+            c.reset()
+        dispatches0 = dev.batcher.dispatches
+        served: dict = {}
+        served["single"], data, _ = embed_rows(port, {"input": single})
+        check(data["usage"] == {"prompt_tokens": 50, "total_tokens": 50}, f"usage {data['usage']}")
+        served["text"], data, _ = embed_rows(port, {"input": text})
+        check(data["usage"]["prompt_tokens"] == len(dev.tokenizer.encode(text)), "text usage")
+        b1 = [embed_rows(port, {"input": single})[2] for _ in range(5)]
+        served["batch8"], data, _ = embed_rows(port, {"input": batch8})
+        check([r["index"] for r in data["data"]] == list(range(8)), "batch of 8: indices")
+        b8 = [embed_rows(port, {"input": batch8})[2] for _ in range(3)]
+        walls, results = [], None
+        for _ in range(3):
+            results, wall = concurrently(port, [{"input": x} for x in conc], "/v1/embeddings")
+            walls.append(wall)
+        for status, data, _, _ in results:
+            check(status == 200, f"encoder: a concurrent request got {status} {data}")
+        served["concurrent"] = [data["data"][0]["embedding"] for _, data, _, _ in results]
+        status, data, _, _ = post(port, {"input": [item_ids(129, 99)]}, path="/v1/embeddings")
+        want_400 = "input item is 129 tokens; this encoder accepts at most 128"
+        check(status == 400 and data["error"]["message"] == want_400,
+              f"encoder: 129 tokens gave {status} {data}")
+        launches, sm90 = flash.launches.value, flash.launches_fwd_sm90.value
+        decode = flash.launches_fwd_decode.value
+        dispatches = dev.batcher.dispatches - dispatches0
+        mma = launches - sm90 - decode
+        print(f"encoder: forward launches {launches} over {dispatches} dispatches: mma {mma} "
+              f"(n_layers x dispatches = {n_layers * dispatches}), sm90 {sm90}, decode {decode}",
+              flush=True)
+        check(sm90 == 0 and decode == 0, "encoder: a call left the mma kernel")
+        check(mma == n_layers * dispatches, "encoder: a layer's attention missed the mma kernel")
+        out.update(launches=mma, dispatches=dispatches, per_dispatch=mma / dispatches)
+        out["latency_b1_ms"] = sorted(b1)[2] * 1e3
+        out["latency_b8_ms"] = sorted(b8)[1] * 1e3
+        out["embeddings_per_s"] = [len(conc) / w for w in walls]
+        print(f"encoder-metrics [{card}]: latency a request, batch 1 (50 tokens) "
+              f"{out['latency_b1_ms']:.2f} ms (of {[round(x * 1e3, 2) for x in b1]}), batch 8 "
+              f"{out['latency_b8_ms']:.2f} ms (of {[round(x * 1e3, 2) for x in b8]}); 8 "
+              f"concurrent single-item requests {[round(x, 1) for x in out['embeddings_per_s']]} "
+              f"embeddings/s", flush=True)
+
+        # one dispatch of 8 under the profiler: its kernels and device time
+        payloads = [dev.runner.prepare({"tokens": x}) for x in batch8]
+        table = kernel_profile(torch, lambda: dev.runner.run_batch(payloads))
+        out["kernels_per_dispatch"] = sum(n for n, _ in table.values())
+        out["device_ms_per_dispatch"] = sum(ms for _, ms in table.values())
+        t = time.perf_counter()
+        dev.runner.run_batch(payloads)
+        out["dispatch_wall_ms"] = (time.perf_counter() - t) * 1e3
+        top = sorted(table.items(), key=lambda kv: -kv[1][1])[:4]
+        print(f"encoder-profile [{card}]: a dispatch of 8 x 128 tokens runs "
+              f"{out['kernels_per_dispatch']} kernels, {out['device_ms_per_dispatch']:.3f} ms of "
+              f"device time in {out['dispatch_wall_ms']:.3f} ms of wall time; the longest: "
+              f"{[(name[:60], n, round(ms, 3)) for name, (n, ms) in top]}", flush=True)
+
+        # the card against the CPU's plain path, on the same weights
+        cpu_model = Bert(BERT_BASE, "cpu")
+        cpu_model.load_state_dict(model.state_dict())
+        ref = _BertRunner("bert-base", torch.device("cpu"), model=cpu_model)
+        items = [single, dev.tokenizer.encode(text), *batch8, *conc]
+        got = np.asarray([served["single"][0], served["text"][0], *served["batch8"],
+                          *served["concurrent"]])
+        want = np.concatenate([np.stack(ref.run_batch([ref.prepare(x) for x in items[i:i + 8]]))
+                               for i in range(0, len(items), 8)])
+        diff = float(np.abs(got - want).max())
+        cos = float((np.sum(got * want, axis=-1) / (np.linalg.norm(got, axis=-1)
+                                                    * np.linalg.norm(want, axis=-1))).min())
+        print(f"encoder: {len(items)} embeddings, card vs the CPU's plain path: max|d| "
+              f"{diff:.3e}, smallest cosine {cos:.6f}, tol {EMBED_TOL} -> "
+              f"{'ok' if diff <= EMBED_TOL else 'FAIL'}", flush=True)
+        check(diff <= EMBED_TOL, "encoder: the card's embeddings differ from the CPU's")
+        out.update(max_abs_err=diff, min_cos=cos)
+        del cpu_model, ref
+
+        # the padding's content moves no embedding, bit for bit
+        tokens = np.zeros((8, 128), np.int32)
+        mask = np.zeros((8, 128), np.int32)
+        for i, x in enumerate(batch8):
+            tokens[i, :len(x)], mask[i, :len(x)] = x, 1
+        noisy = np.where(mask == 1, tokens, np.random.default_rng(0).integers(0, 30522, (8, 128)))
+        on_card = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()  # noqa: E731
+        with torch.no_grad():
+            clean = bert_embed(model, on_card(tokens), on_card(mask))
+            dirty = bert_embed(model, on_card(noisy), on_card(mask))
+        check(torch.equal(clean, dirty), "encoder: the padding's content moved an embedding")
+        print("encoder: other ids in the padding -> the same embeddings, bit for bit", flush=True)
+        bf16_rows = np.asarray(served["batch8"])
+    finally:
+        app.shutdown()
+
+    app = boot_encoder({**ENCODER_ENV, "MODEL_NAME": "bert-base", "MODEL_QUANT": "int8"})
+    try:
+        dev = app.container.tpu
+        rows, _, _ = embed_rows(app.http_port, {"input": batch8})
+        out["int8_weight_bytes"] = dev.runner.model.weight_bytes()
+        out["int8_max_abs"] = float(np.abs(np.asarray(rows) - bf16_rows).max())
+        print(f"encoder int8: weights {out['int8_weight_bytes']:,} bytes; against bf16 max|d| "
+              f"{out['int8_max_abs']:.4f} (bound {QUANT_EMBED_TOL}) [{card}]", flush=True)
+        check(out["int8_max_abs"] < QUANT_EMBED_TOL, "encoder int8: too far from bf16")
+    finally:
+        app.shutdown()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    app = boot_encoder({**ENCODER_ENV, "MODEL_NAME": "mlp"})
+    try:
+        dev = app.container.tpu
+        x = np.random.default_rng(1).standard_normal((8, 64)).astype(np.float32)
+        results, wall = concurrently(app.http_port, [{"x": row.tolist()} for row in x], "/infer")
+        for status, data, _, _ in results:
+            check(status == 200, f"mlp: /infer {status} {data}")
+        got = np.asarray([data["data"]["y"] for _, data, _, _ in results])
+        cpu = MLP(dev.runner.cfg, "cpu")
+        cpu.load_state_dict(dev.runner.model.state_dict())
+        want = mlp_forward(cpu, torch.from_numpy(x)).numpy()
+        out["mlp_max_abs"] = float(np.abs(got - want).max())
+        status, data, _, _ = post(app.http_port, {"x": [0.0] * 63}, path="/infer")
+        want_400 = "'1' invalid parameter input must have 64 features"
+        check(status == 400 and data["error"]["message"] == want_400,
+              f"mlp: a 63-wide input gave {status} {data}")
+        print(f"mlp: 8 concurrent /infer in {wall * 1e3:.1f} ms, y vs the CPU max|d| "
+              f"{out['mlp_max_abs']:.3e} (tol {MLP_TOL}, TF32 off); 63 features -> 400 "
+              f"[{card}]", flush=True)
+        check(out["mlp_max_abs"] <= MLP_TOL, "mlp: the card's y differs from the CPU's")
+    finally:
+        app.shutdown()
+    return out
+
+
 # -- phase 6/7: the backward kernels ----------------------------------------------
 
 def bwd_case(torch, flash, gen, b, sq, skv, hq, hkv, d, dtype, offsets, kv_lens, causal=True,
@@ -3259,6 +3583,18 @@ def kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows,
     ]}
 
 
+def encoder_entry(err: float, rows: dict, served: dict) -> dict:
+    """The mma forward at bert-base's attention (phase 15's path): its
+    launches from phase 15's served requests, its numbers from phase 3's
+    B = 8 row (device times as ``ms`` and ``library_ms``), the other
+    encoder shapes beside them."""
+    return {"name": "flash_fwd_mma (encoder, bert-base, phase 15)", "route": "cuda",
+            "source": "gofr_tpu_torch/csrc/flash_fwd.cu", "replaces": "gofr_tpu/ops/flash.py:224",
+            "launches": served["launches"], "launches_per_dispatch": served["per_dispatch"],
+            "max_abs_err": err, **device_row(rows["encoder_B8"]),
+            "by_shape": {k: device_row(v) for k, v in rows.items() if k != "encoder_B8"}}
+
+
 def device_row(row: dict) -> dict:
     """A timing row with the device times as ``ms`` and ``library_ms``
     (the CUDA-event times beside them)."""
@@ -3345,6 +3681,7 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     errs, shapes = forward_phases(torch, flash, gen)
+    encoder_err, encoder_rows = encoder_kernels(torch, flash, gen)
     torch.cuda.empty_cache()
     tiny = f32_path(torch, flash)
     served, model = serve(torch, flash, card)
@@ -3379,9 +3716,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     tiny += f32_training(torch, flash)[0]
     train = train_llama(torch, flash, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    encoders = encoder_serving(torch, flash, card)
 
     kernels = kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows,
                            default, pool_row, openai, deploy, spec, loras)
+    kernels["kernels"].insert(-2, encoder_entry(encoder_err, encoder_rows, encoders))
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)  # name, power limit as nvidia-smi gives them
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,11 @@
 """PyTorch/CUDA port of gofr_tpu for one NVIDIA H100.
 
-It serves Llama-family decoders over ``POST /v1/completions``: ``new()``
-builds the app, ``register_openai_routes(app)`` adds the endpoint, and
-every attention call on a CUDA tensor runs the hand-written
-flash-attention forward kernel (``csrc/flash_fwd.cu``). It trains them
+It serves Llama-family decoders over ``POST /v1/completions``, BERT
+sentence embeddings over ``POST /v1/embeddings`` and an MLP through
+``TPUDevice.infer``: ``new()`` builds the app (``MODEL_NAME`` picks the
+model), ``register_openai_routes(app)`` adds the endpoints, and every
+attention call on a CUDA tensor runs the hand-written flash-attention
+forward kernel (``csrc/flash_fwd.cu``). It trains them
 (``training/``), with attention's backward in the hand-written dQ and
 dK/dV kernels (``csrc/flash_bwd.cu``). Entry points run on ``cuda``
 unless the caller asks for the CPU (``TORCH_DEVICE=cpu``, or

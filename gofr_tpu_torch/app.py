@@ -32,8 +32,9 @@ DEFAULT_HTTP_PORT = 8000
 
 class App:
     def __init__(self, configs_dir: Optional[str] = None, model: Any = None):
-        """``model``: an already-built ``Transformer`` to serve instead of
-        the seeded random init (tests carry weights over from JAX)."""
+        """``model``: an already-built model of ``MODEL_NAME``'s family (a
+        ``Transformer``, ``Bert`` or ``MLP``) to serve instead of the
+        seeded random init (tests carry weights over from JAX)."""
         self.config = EnvFileConfig(configs_dir or "./configs")
         self.container = Container(self.config, model=model)
         self.logger = self.container.logger

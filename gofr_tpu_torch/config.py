@@ -11,7 +11,7 @@ import os
 from typing import Optional
 
 DECLARED_KEYS: dict[str, str] = {
-    "MODEL_NAME": "model config name (tiny | small | llama3-8b | llama3-70b)",
+    "MODEL_NAME": "mlp (default) | bert-tiny | bert-base | tiny | small | llama3-8b | llama3-70b",
     "MODEL_MAX_SEQ": "KV cache length per request (<= the model's max_seq)",
     "MODEL_BUCKETS": "comma-separated prefill sequence buckets",
     "MODEL_SEED": "seed of the random weight init (without MODEL_PATH)",

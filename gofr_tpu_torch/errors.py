@@ -17,9 +17,15 @@ class GofrError(Exception):
 
 
 class InvalidParamError(GofrError):
-    """Bad request parameter -> 400."""
+    """Bad request parameter -> 400, in the JAX package's words:
+    ``'1' invalid parameter <what>``."""
 
     status_code = 400
+
+    def __init__(self, *params: str):
+        self.params = list(params)
+        noun = "parameter" if len(self.params) == 1 else "parameters"
+        super().__init__(f"'{len(self.params)}' invalid {noun} {', '.join(self.params)}")
 
 
 class UnauthenticatedError(GofrError):

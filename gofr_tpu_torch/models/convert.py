@@ -1,8 +1,12 @@
 """Carry weights between the JAX package's parameter tree and the port.
 
 The tree is nested dicts of arrays (numpy, or anything ``np.asarray``
-accepts): ``embed`` [V, D], ``norm_f`` [D], ``lm_head`` [D, V] and
-``layers`` holding each weight stacked ``[n_layers, ...]``. bfloat16
+accepts): for the decoder ``embed`` [V, D], ``norm_f`` [D], ``lm_head``
+[D, V] and ``layers`` holding each weight stacked ``[n_layers, ...]``;
+for BERT (``bert_from_tree`` / ``tree_from_bert``) ``tok_embed``,
+``pos_embed``, the final norm's ``norm_f_w`` / ``norm_f_b`` and its
+stacked ``layers``; for the MLP (``mlp_from_tree`` / ``tree_from_mlp``)
+``w1``, ``b1``, ``w2``, ``b2``. bfloat16
 arrives as an ``ml_dtypes`` dtype; it is viewed as uint16 and then as
 ``torch.bfloat16`` (bit-exact) without importing ``ml_dtypes``. A quantized
 weight is the JAX package's pack: ``{"q", "scale"}`` (int8),
@@ -28,6 +32,10 @@ from typing import Any
 import numpy as np
 import torch
 
+from gofr_tpu_torch.models.bert import LAYER_MATMULS as BERT_LAYER_MATMULS
+from gofr_tpu_torch.models.bert import LAYER_VECTORS as BERT_LAYER_VECTORS
+from gofr_tpu_torch.models.bert import Bert, BertConfig
+from gofr_tpu_torch.models.mlp import MLP, MLPConfig
 from gofr_tpu_torch.models.quant import Pack, pack_int4, unpack_int4
 from gofr_tpu_torch.models.transformer import _LAYER_SHAPES, Transformer, TransformerConfig
 
@@ -42,10 +50,10 @@ def to_torch(arr: Any) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
-def tree_quant_mode(tree: dict) -> Any:
+def tree_quant_mode(tree: dict, key: str = "wq") -> Any:
     """The MODEL_QUANT mode a JAX tree was quantized with (None: dense),
-    read from its layers' ``wq``."""
-    wq = tree["layers"]["wq"]
+    read from its layers' ``key`` (a decoder's ``wq``, BERT's ``wqkv``)."""
+    wq = tree["layers"][key]
     if not isinstance(wq, dict):
         return None
     for key, mode in (("q8", "w8a8"), ("q4", "int4"), ("q", "int8")):
@@ -121,30 +129,40 @@ def transformer_from_tree(
 
         return apply_adapter(transformer_from_tree(tree, cfg, device), artifact)
     model = Transformer(cfg, device, tree_quant_mode(tree))
+    _fill(model, tree, ("embed", "norm_f", "lm_head"), ("attn_norm", "mlp_norm", *_LAYER_SHAPES))
+    return model
 
-    def put(owner: Any, name: str, src: Any, i: Any = None) -> None:
-        dst = getattr(owner, name)
-        if isinstance(dst, Pack):
-            if not isinstance(src, dict):
-                raise ValueError(f"{name}: a dense array where the model holds a pack")
-            dst.load(_pack_from_tree(src, i))
-            return
-        if isinstance(src, dict):
-            raise ValueError(f"{name}: a pack where the model holds a dense weight")
-        t = to_torch(src if i is None else np.asarray(src)[i])
-        if tuple(t.shape) != tuple(dst.shape):
-            raise ValueError(f"shape {tuple(t.shape)} does not fit {tuple(dst.shape)}")
-        dst.copy_(t.to(dst.dtype))
 
-    for name in ("embed", "norm_f", "lm_head"):
-        put(model, name, tree[name])
-    for name in ("attn_norm", "mlp_norm", *_LAYER_SHAPES):
+def _put(owner: Any, name: str, src: Any, i: Any = None) -> None:
+    """Weight ``name`` of ``owner`` from a tree leaf (layer ``i`` of a
+    stacked one): a dense copy, or a pack loaded bit for bit."""
+    dst = getattr(owner, name)
+    if isinstance(dst, Pack):
+        if not isinstance(src, dict):
+            raise ValueError(f"{name}: a dense array where the model holds a pack")
+        dst.load(_pack_from_tree(src, i))
+        return
+    if isinstance(src, dict):
+        raise ValueError(f"{name}: a pack where the model holds a dense weight")
+    t = to_torch(src if i is None else np.asarray(src)[i])
+    if tuple(t.shape) != tuple(dst.shape):
+        raise ValueError(f"shape {tuple(t.shape)} does not fit {tuple(dst.shape)}")
+    dst.copy_(t.to(dst.dtype))
+
+
+@torch.no_grad()
+def _fill(model: Any, tree: dict, top: tuple, per_layer: tuple) -> None:
+    """The model's top-level weights ``top`` and each layer's ``per_layer``
+    weights from the tree, the stacked [n_layers, ...] leaves split per
+    layer."""
+    for name in top:
+        _put(model, name, tree[name])
+    for name in per_layer:
         stacked = tree["layers"][name]
         if not isinstance(stacked, dict):
             stacked = np.asarray(stacked)
         for i, block in enumerate(model.layers):
-            put(block, name, stacked, i)
-    return model
+            _put(block, name, stacked, i)
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -184,3 +202,39 @@ def tree_from_transformer(model: Transformer) -> dict:
             for name in ("attn_norm", "mlp_norm", *_LAYER_SHAPES)
         },
     }
+
+
+@torch.no_grad()
+def bert_from_tree(tree: dict, cfg: BertConfig, device: "torch.device | str" = "cuda") -> Bert:
+    """The port's BERT on ``device`` from the JAX ``init_bert`` tree (its
+    layers stacked [n_layers, ...]); a ``quantize_params`` tree gives a
+    model holding the same packs, bit for bit."""
+    model = Bert(cfg, device, tree_quant_mode(tree, "wqkv"))
+    _fill(model, tree, ("tok_embed", "pos_embed", "norm_f_w", "norm_f_b"),
+          (*BERT_LAYER_VECTORS, *BERT_LAYER_MATMULS))
+    return model
+
+
+def tree_from_bert(model: Bert) -> dict:
+    """The model's weights as the JAX ``init_bert`` tree: numpy arrays
+    (packs as dicts), each layer's weights stacked under ``layers``."""
+    tree = {name: _leaf(getattr(model, name))
+            for name in ("tok_embed", "pos_embed", "norm_f_w", "norm_f_b")}
+    tree["layers"] = {
+        name: _stack([_leaf(getattr(layer, name)) for layer in model.layers])
+        for name in (*BERT_LAYER_VECTORS, *BERT_LAYER_MATMULS)
+    }
+    return tree
+
+
+@torch.no_grad()
+def mlp_from_tree(tree: dict, cfg: MLPConfig, device: "torch.device | str" = "cuda") -> MLP:
+    """The port's MLP on ``device`` from the JAX ``init_mlp`` tree."""
+    model = MLP(cfg, device)
+    for name in ("w1", "b1", "w2", "b2"):
+        _put(model, name, tree[name])
+    return model
+
+
+def tree_from_mlp(model: MLP) -> dict:
+    return {name: _leaf(getattr(model, name)) for name in ("w1", "b1", "w2", "b2")}

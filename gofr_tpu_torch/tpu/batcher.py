@@ -1,4 +1,5 @@
-"""Deadline-based dynamic batcher in front of prefill.
+"""Deadline-based dynamic batcher in front of a runner's batched forward
+(a decoder's prefill, the encoder's embeddings, the MLP).
 
 Trimmed copy of ``gofr_tpu/tpu/batcher.py::DynamicBatcher``: requests
 enqueue (payload, Future) on a bounded queue (overflow is a 429); a worker
@@ -8,13 +9,15 @@ drained batch splits into per-bucket cohorts and the fullest dispatches
 (the rest wait for the next round); dispatches run on a small pool so one
 batch's host work overlaps the next. With a ``scheduler``
 (``tpu/scheduler.py``) each dispatch first waits for its turn between
-pooled decode chunks. Metrics, tracing and deadlines of the JAX package
-are not ported yet. ``verify_width`` and its ladder cohort pooled
+pooled decode chunks. ``infer`` blocks (60 s by default, as in the JAX
+package); ``infer_async`` awaits. Metrics, tracing and deadlines of the
+JAX package are not ported yet. ``verify_width`` and its ladder cohort pooled
 speculation's verify widths.
 """
 
 from __future__ import annotations
 
+import asyncio
 import queue
 import threading
 import time
@@ -57,6 +60,16 @@ def verify_width_ladder(k_max: int) -> tuple[int, ...]:
         w *= 2
     widths.append(k_max + 1)
     return tuple(sorted(set(widths)))
+
+
+def pad_rows(rows: list[np.ndarray], target: int) -> np.ndarray:
+    """Stack [n, ...] rows and pad the batch dim to ``target`` by repeating
+    the last row (a padded batch does the work of a real one of its size)."""
+    stacked = np.stack(rows)
+    if len(rows) < target:
+        pad = np.repeat(stacked[-1:], target - len(rows), axis=0)
+        stacked = np.concatenate([stacked, pad], axis=0)
+    return stacked
 
 
 def pack_token_rows(
@@ -125,9 +138,13 @@ class DynamicBatcher:
             raise TooManyRequestsError("inference queue is full") from None
         return item.future
 
-    def infer(self, payload: Any, timeout: float = 600.0) -> Any:
+    def infer(self, payload: Any, timeout: float = 60.0) -> Any:
         """Blocking call for sync handlers."""
         return self.submit(payload).result(timeout=timeout)
+
+    async def infer_async(self, payload: Any) -> Any:
+        """Awaitable call for async handlers."""
+        return await asyncio.wrap_future(self.submit(payload))
 
     def _run(self) -> None:
         pending = self._pending

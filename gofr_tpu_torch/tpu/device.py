@@ -3,7 +3,17 @@ prefill, the prefix cache, and decode through the continuous-batching pool
 or solo. The module keeps the JAX package's path (``gofr_tpu/tpu/device.py``)
 so a reader finds the counterpart, though it drives a GPU.
 
-Config keys: ``MODEL_NAME`` (tiny | small | llama3-8b | llama3-70b),
+``MODEL_NAME`` picks the runner as the JAX package does: ``mlp`` (the
+default; also ``tiny-mlp``) and ``bert-tiny`` / ``bert-base`` (any other
+``bert*`` name) answer ``infer`` / ``infer_async`` through the dynamic
+batcher alone (``_MLPRunner``, ``_BertRunner``: a seeded init or a
+``training/checkpoint.py`` ``MODEL_PATH``, BERT quantized by
+``MODEL_QUANT``; no pool, paged KV, speculation or adapters, and
+``generate`` raises NotImplementedError); a decoder (tiny | small |
+llama3-8b | llama3-70b) serves as below, and its ``infer`` answers with
+its prefill state (``next_token``).
+
+Decoder config keys: ``MODEL_NAME``,
 ``MODEL_MAX_SEQ`` (KV cache length per request), ``MODEL_BUCKETS``
 (prefill buckets, default the ``SEQ_BUCKETS`` ladder up to max_seq),
 ``MODEL_SEED`` (random weight init seed), ``BATCH_MAX_SIZE`` /
@@ -72,9 +82,11 @@ import numpy as np
 import torch
 
 from gofr_tpu_torch.errors import InvalidParamError
+from gofr_tpu_torch.models.bert import BERT_BASE, BERT_TINY, Bert, bert_embed
 from gofr_tpu_torch.models.ingest import is_safetensors_path, load_llama_params
 from gofr_tpu_torch.models.llama import CONFIGS
 from gofr_tpu_torch.models.lora import apply_adapter, build_lora_stack
+from gofr_tpu_torch.models.mlp import MLP, MLPConfig, init_mlp, mlp_forward
 from gofr_tpu_torch.models.quant import quantizer_for
 from gofr_tpu_torch.models.transformer import TOP_LOGPROBS, Transformer
 from gofr_tpu_torch.ops.sampling import (
@@ -87,7 +99,7 @@ from gofr_tpu_torch.ops.sampling import (
     update_presence,
 )
 from gofr_tpu_torch.tokenizer import load_tokenizer
-from gofr_tpu_torch.tpu.batcher import DynamicBatcher, next_pow2, pack_token_rows
+from gofr_tpu_torch.tpu.batcher import DynamicBatcher, next_pow2, pack_token_rows, pad_rows
 from gofr_tpu_torch.tpu.decode_pool import (
     DONE,
     PENALTY_MODES,
@@ -96,6 +108,7 @@ from gofr_tpu_torch.tpu.decode_pool import (
     HostFetch,
     PoolFailure,
 )
+from gofr_tpu_torch.tpu.flops import bert_param_count
 from gofr_tpu_torch.tpu.kv_blocks import (
     BlockPool,
     BlockTable,
@@ -287,16 +300,14 @@ def parse_lora_adapters(raw: str) -> dict[str, str]:
 
 class TPUDevice:
     """The ``ctx.tpu`` datasource of the port (the name is the JAX
-    package's, so handlers written for it run unchanged)."""
+    package's, so handlers written for it run unchanged). ``model``: an
+    already-built model of ``MODEL_NAME``'s family (``Transformer``,
+    ``Bert`` or ``MLP``) in place of the seeded init or ``MODEL_PATH``."""
 
-    def __init__(self, config: Any, logger: Any, model: Optional[Transformer] = None,
+    def __init__(self, config: Any, logger: Any, model: Any = None,
                  draft_model: Optional[Transformer] = None):
         self.logger = logger
-        self.model_name = config.get_or_default("MODEL_NAME", "tiny")
-        if self.model_name not in CONFIGS:
-            raise ValueError(
-                f"unknown MODEL_NAME '{self.model_name}' — expected one of {sorted(CONFIGS)}"
-            )
+        self.model_name = config.get_or_default("MODEL_NAME", "mlp")
         self.device = resolve_device(config.get_or_default("TORCH_DEVICE", "cuda"))
         self.max_batch = int(config.get_or_default("BATCH_MAX_SIZE", "8"))
         self.timeout_ms = float(config.get_or_default("BATCH_TIMEOUT_MS", "5"))
@@ -308,9 +319,7 @@ class TPUDevice:
         if buckets and buckets[0] <= 0:
             raise ValueError(f"MODEL_BUCKETS entries must be positive, got {raw_buckets!r}")
         self.options = serving_options(config, self.max_batch)
-        opts = self.options
         self.spec_options = spec_options(config)
-        spec = self.spec_options
         # validated here, so a typo fails at startup
         self.quant = config.get_or_default("MODEL_QUANT", "").strip() or None
         quantizer_for(self.quant)
@@ -328,6 +337,60 @@ class TPUDevice:
             # bf16 products accumulate in f32 (models/quant.py::mm)
             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         start = time.perf_counter()
+        name = self.model_name
+        seed = int(config.get_or_default("MODEL_SEED", "0"))
+        # the JAX package's runner selection (``_build_runner``), its
+        # checks in its order; mlp and bert deployments build no scheduler,
+        # pool, paged KV, speculation or adapter bank
+        if self._lora_adapters and name not in CONFIGS:
+            raise ValueError(f"LORA_ADAPTERS requires a transformer MODEL_NAME (got '{name}')")
+        self.scheduler: Optional[InterferenceScheduler] = None
+        self.kv_pool: Optional[BlockPool] = None
+        self.decode_pool: Optional[DecodePool] = None
+        if name in ("mlp", "tiny-mlp"):
+            self.runner: Any = _MLPRunner(self.device, self.max_batch, seed, model,
+                                          self.model_path)
+        elif name.startswith("bert"):
+            self.runner = _BertRunner(name, self.device, self.max_batch, seed, model,
+                                      self.model_path, self.quant)
+        elif name in CONFIGS:
+            self._init_decoder(config, model, draft_model, kv_dtype, raw_max_seq, buckets, seed)
+        elif name == "echo":
+            raise ValueError("MODEL_NAME 'echo' (the loopback runner) is not in the port yet")
+        else:
+            raise ValueError(
+                f"unknown MODEL_NAME '{name}' — expected echo, mlp, bert-tiny, "
+                f"bert-base, or one of {sorted(CONFIGS)}"
+            )
+        if not self.is_decoder:
+            # the kernels' build and first launches happen at boot, not at
+            # the first request
+            self.runner.warmup()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)  # boot time includes the init
+        self.batcher = DynamicBatcher(
+            self.runner.run_batch,
+            max_batch=self.max_batch,
+            timeout_ms=self.timeout_ms,
+            name=self.model_name,
+            bucket_fn=getattr(self.runner, "bucket_for_payload", None),
+            scheduler=self.scheduler,
+        )
+        self.boot_seconds = time.perf_counter() - start
+        self._closed = False
+        logger.infof("device ready: %s", self.describe())
+
+    @property
+    def is_decoder(self) -> bool:
+        """Whether the runner is a decoder (generate, score, adapters)."""
+        return isinstance(self.runner, _TransformerRunner)
+
+    def _init_decoder(self, config: Any, model: Optional[Transformer],
+                      draft_model: Optional[Transformer], kv_dtype: Optional[torch.dtype],
+                      raw_max_seq: Optional[str], buckets: Optional[tuple], seed: int) -> None:
+        """The decoder's runner and its serving machinery: the scheduler,
+        paged KV and the decode pool."""
+        opts, spec = self.options, self.spec_options
         # ONE scheduler shared by both dispatchers: the pool notes its chunk
         # cadence, prefill dispatches (batcher cohorts and chunked slices)
         # wait for their turn
@@ -341,7 +404,7 @@ class TPUDevice:
             decode_chunk=int(config.get_or_default("DECODE_CHUNK", "8")),
             max_seq=int(raw_max_seq) if raw_max_seq else None,
             buckets=buckets,
-            seed=int(config.get_or_default("MODEL_SEED", "0")),
+            seed=seed,
             model=model,
             model_path=self.model_path,
             quant=self.quant,
@@ -360,13 +423,12 @@ class TPUDevice:
             lora_adapters=self._lora_adapters,
         )
         if self.runner.kv_paged_disabled:
-            logger.warnf("paged KV disabled: %s", self.runner.kv_paged_disabled)
+            self.logger.warnf("paged KV disabled: %s", self.runner.kv_paged_disabled)
         self.kv_pool = self.runner.kv_pool
         # continuous batching: concurrent decodes share one dispatch per
         # chunk; seeded requests bypass it (generate routes them solo). The
         # pool's admission reserves each request's KV blocks on the SAME
         # BlockPool the prefix cache stores into
-        self.decode_pool: Optional[DecodePool] = None
         if opts["pool_enabled"]:
             self.decode_pool = DecodePool(
                 self.runner.model, n_slots=opts["pool_slots"],
@@ -377,25 +439,15 @@ class TPUDevice:
             )
             if self.runner.adapters:
                 self._refresh_pool_lora()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)  # boot time includes the init
-        self.batcher = DynamicBatcher(
-            self.runner.run_batch,
-            max_batch=self.max_batch,
-            timeout_ms=self.timeout_ms,
-            name=self.model_name,
-            bucket_fn=self.runner.bucket_for_payload,
-            scheduler=self.scheduler,
-        )
-        self.boot_seconds = time.perf_counter() - start
-        self._closed = False
-        logger.infof("device ready: %s", self.describe())
 
     def describe(self) -> str:
         kind = (
             torch.cuda.get_device_name(self.device)
             if self.device.type == "cuda" else "cpu"
         )
+        if not self.is_decoder:
+            return (f"model={self.model_name} device={kind} {self.runner.describe()} "
+                    f"boot={self.boot_seconds:.1f}s")
         pool = self.decode_pool
         return (
             f"model={self.model_name} device={kind} max_seq={self.runner.cfg.max_seq} "
@@ -422,6 +474,50 @@ class TPUDevice:
             "status": "DOWN" if self._closed else "UP",
             "details": {"model": self.model_name, "device": str(self.device)},
         }
+
+    # -- the batched forward of any runner (the JAX package's infer) -------------
+    def infer(self, payload: Any, timeout: float = 60.0) -> Any:
+        """Blocking single inference through the dynamic batcher (sync
+        handlers). The payload is the runner's: a feature vector for the
+        MLP, ids (or ``{"tokens": [...]}``) for BERT and the decoder, or
+        text (a str or ``{"text": ...}``) with a tokenizer. The MLP returns
+        its output row, BERT the embedding, the decoder its prefill state
+        (``next_token`` is the greedy next id)."""
+        self.wait_ready(timeout)
+        return self.batcher.infer(self._prepare(payload), timeout=timeout)
+
+    async def infer_async(self, payload: Any) -> Any:
+        """``infer`` for async handlers: a multi-item request awaits its
+        items together, so they pack into one dispatch."""
+        self.wait_ready()
+        return await self.batcher.infer_async(self._prepare(payload))
+
+    def _prepare(self, payload: Any) -> Any:
+        return self.runner.prepare(self._detokenize(payload))
+
+    def _detokenize(self, payload: Any) -> Any:
+        """A text payload (a str, or ``{"text": ...}``) becomes
+        ``{"tokens": ids}`` through the tokenizer."""
+        text = None
+        if isinstance(payload, str):
+            text = payload
+        elif isinstance(payload, dict) and isinstance(payload.get("text"), str):
+            text = payload["text"]
+        if text is None:
+            return payload
+        if self.tokenizer is None:
+            raise InvalidParamError(
+                "text (no tokenizer configured — set TOKENIZER=byte or "
+                "TOKENIZER_PATH, or send token ids)"
+            )
+        return {"tokens": self.tokenizer.encode(text)}
+
+    def _decoder(self) -> "_TransformerRunner":
+        """The decoder runner; the MLP and the encoder raise the JAX
+        runners' NotImplementedError (a 500 over HTTP)."""
+        if not self.is_decoder:
+            raise NotImplementedError("generate() requires a transformer model")
+        return self.runner
 
     def _encode(self, tokens: Any) -> list[int]:
         if not isinstance(tokens, str):
@@ -459,9 +555,10 @@ class TPUDevice:
         tops[i] the ``TOP_LOGPROBS`` [(alt id, alt logprob), ...] at
         position i, best first."""
         self.wait_ready()
+        runner = self._decoder()
         self._check_bias(sampler)
         stop_tokens = frozenset(stop_tokens or ()) | self.default_stop_ids
-        return self.runner.generate(
+        return runner.generate(
             self._encode(tokens), max_new_tokens, on_token=on_token, stop=stop,
             sampler=sampler, stop_tokens=stop_tokens, decode_pool=self.decode_pool,
             prefill_batcher=self.batcher, scheduler=self.scheduler,
@@ -486,7 +583,8 @@ class TPUDevice:
         # eager, before the transport commits its 200: an out-of-vocab
         # logit_bias id or an unknown adapter is a 400, not an error frame
         # after the status; the adapter model read here is pinned for the
-        # stream (ONE dict read: a concurrent unload must not fail it)
+        # stream (ONE dict read: a concurrent unload must not fail it); an
+        # encoder's NotImplementedError comes in the stream, as in JAX
         self._check_bias(sampler)
         adapter_params = None
         if adapter is not None:
@@ -529,7 +627,7 @@ class TPUDevice:
 
     def _check_bias(self, sampler: Optional[Sampler]) -> None:
         """An out-of-vocab ``logit_bias`` id -> InvalidParamError (400)."""
-        if sampler is not None and sampler.logit_bias:
+        if self.is_decoder and sampler is not None and sampler.logit_bias:
             try:
                 check_bias_ids(sampler.logit_bias, self.runner.cfg.vocab_size)
             except ValueError as exc:
@@ -539,7 +637,7 @@ class TPUDevice:
         """Teacher-forced prompt scoring: log p(t_i | t_<i) for i >= 1
         (see the runner's ``score``), under ``adapter`` when named."""
         self.wait_ready()
-        return self.runner.score(self._encode(tokens), adapter=adapter)
+        return self._decoder().score(self._encode(tokens), adapter=adapter)
 
     # -- runtime multi-LoRA (the admin surface) -----------------------------------
     def _refresh_pool_lora(self) -> None:
@@ -565,7 +663,7 @@ class TPUDevice:
 
     def list_adapters(self) -> list[str]:
         self.wait_ready()
-        return sorted(self.runner.adapters)
+        return sorted(getattr(self.runner, "adapters", None) or {})
 
     def load_adapter(self, name: str, path: str) -> list[str]:
         """Load an adapter artifact (the ``LORA_ADAPTERS`` format) over the
@@ -581,6 +679,8 @@ class TPUDevice:
             raise InvalidParamError(f"adapter name '{name}' collides with the base model name")
         if not isinstance(path, str) or not path:
             raise InvalidParamError('"path" must be a non-empty string')
+        if not self.is_decoder:
+            raise InvalidParamError("adapters need a transformer model (MODEL_NAME)")
         try:
             wrapped = apply_adapter(self.runner.model, restore_params(path, self.device))
         except Exception as exc:
@@ -600,7 +700,7 @@ class TPUDevice:
         model they hold; new ones get a 400."""
         self.wait_ready()
         with self._adapter_lock:
-            adapters = self.runner.adapters
+            adapters = getattr(self.runner, "adapters", None) or {}
             if adapters.pop(name, None) is None:
                 raise InvalidParamError(f"adapter '{name}' (loaded: {sorted(adapters)})")
             self._lora_adapters.pop(name, None)
@@ -764,6 +864,144 @@ class _SpecEngine:
         return _cache_with_len(cache, n)
 
 
+def _load_or_init(model_path: Optional[str], device: torch.device, empty: Any,
+                  init: Any) -> Any:
+    """The weights of an MLP or encoder runner: a ``training/checkpoint.py``
+    directory under ``MODEL_PATH`` (its state dict loaded into ``empty()``),
+    else ``init()``, a seeded random init."""
+    if not model_path:
+        return init()
+    model = empty()
+    model.load_state_dict(restore_params(model_path, device))
+    return model
+
+
+def _given(model: Any, kind: type, cfg: Any, device: torch.device, model_path: Optional[str],
+           quant: Any = None) -> Any:
+    """A model the caller built (tests carry JAX's weights over), checked
+    against the runner's configuration."""
+    if model_path:
+        raise ValueError("a given model and MODEL_PATH exclude each other")
+    if (not isinstance(model, kind) or model.cfg != cfg or model.device.type != device.type
+            or getattr(model, "quant", None) != quant):
+        raise ValueError("the given model does not match MODEL_NAME/MODEL_QUANT/device")
+    return model
+
+
+class _MLPRunner:
+    """The MLP behind ``/infer`` (the JAX package's ``_MLPRunner``): one
+    feature vector a request, the batch padded to a power of two by
+    repeating its last row. ``MODEL_QUANT`` does not apply (the JAX
+    runner's products are plain too)."""
+
+    name = "mlp"
+
+    def __init__(self, device: torch.device, max_batch: int = 8, seed: int = 0,
+                 model: Optional[MLP] = None, model_path: Optional[str] = None):
+        self.cfg = MLPConfig()
+        self.device = device
+        self.max_batch = max_batch
+        if model is not None:
+            self.model = _given(model, MLP, self.cfg, device, model_path)
+            return
+
+        def init() -> MLP:
+            gen = torch.Generator(device=device)
+            gen.manual_seed(seed)
+            return init_mlp(self.cfg, gen, device)
+
+        self.model = _load_or_init(model_path, device, lambda: MLP(self.cfg, device), init)
+
+    def describe(self) -> str:
+        return f"dims={self.cfg.in_dim}->{self.cfg.hidden_dim}->{self.cfg.out_dim}"
+
+    def prepare(self, payload: Any) -> np.ndarray:
+        x = np.asarray(payload, dtype=np.float32).reshape(-1)
+        if x.shape[0] != self.cfg.in_dim:
+            raise InvalidParamError(f"input must have {self.cfg.in_dim} features")
+        return x
+
+    @torch.no_grad()
+    def run_batch(self, payloads: list[np.ndarray]) -> list[np.ndarray]:
+        n = len(payloads)
+        batch = torch.from_numpy(pad_rows(payloads, next_pow2(n))).to(self.device)
+        out = mlp_forward(self.model, batch).cpu().numpy()
+        return [out[i] for i in range(n)]
+
+    def warmup(self) -> None:
+        b = 1
+        while b <= next_pow2(self.max_batch):
+            self.run_batch([np.zeros(self.cfg.in_dim, np.float32)] * b)
+            b *= 2
+
+
+class _BertRunner:
+    """Sentence embeddings (the JAX package's ``_BertRunner``): ``bert-tiny``
+    or, for any other ``bert*`` name, bert-base. Every request pads to one
+    bucket (128 tokens, or ``max_seq`` when shorter; longer inputs keep
+    their first tokens), the batch to a power of two; a padded row gets one
+    valid token so the pool never divides by zero. The mask is a prefix, so
+    each layer's attention is the flash forward, non-causal, at the rows'
+    lengths."""
+
+    def __init__(self, name: str, device: torch.device, max_batch: int = 8, seed: int = 0,
+                 model: Optional[Bert] = None, model_path: Optional[str] = None,
+                 quant: Any = None):
+        self.name = name
+        self.device = device
+        self.max_batch = max_batch
+        self.cfg = BERT_TINY if name == "bert-tiny" else BERT_BASE
+        self.bucket = 128 if self.cfg.max_seq >= 128 else self.cfg.max_seq
+        self.n_params = bert_param_count(self.cfg)
+        self.quant = quant
+        if model is not None:
+            self.model = _given(model, Bert, self.cfg, device, model_path, quant)
+            return
+        # a seeded init is quantized as each weight is drawn (it never holds
+        # both forms); a checkpoint after it loads
+        self.model = _load_or_init(model_path, device, lambda: Bert(self.cfg, device),
+                                   lambda: Bert.random(self.cfg, device, seed, quant=quant))
+        if model_path and quant:
+            self.model = self.model.quantized(quant)
+
+    def describe(self) -> str:
+        return (f"bucket={self.bucket} layers={self.cfg.n_layers} dim={self.cfg.dim} "
+                f"quant={self.quant or 'off'}")
+
+    def prepare(self, payload: Any) -> np.ndarray:
+        tokens = payload.get("tokens", []) if isinstance(payload, dict) else payload
+        ids = np.asarray(tokens, dtype=np.int64).reshape(-1)[: self.bucket]
+        if ids.size == 0:
+            raise InvalidParamError("tokens must be a non-empty list of ids")
+        if ids.min() < 0 or ids.max() >= self.cfg.vocab_size:
+            # the JAX gather clamps an out-of-range id; an index past the
+            # card's table is a device fault, so it is refused here
+            raise InvalidParamError(
+                f"token ids must be in [0, {self.cfg.vocab_size}) for model '{self.name}'"
+            )
+        return ids.astype(np.int32)
+
+    @torch.no_grad()
+    def run_batch(self, payloads: list[np.ndarray]) -> list[np.ndarray]:
+        n = len(payloads)
+        rows = next_pow2(n)
+        tokens = np.zeros((rows, self.bucket), np.int32)
+        mask = np.zeros((rows, self.bucket), np.int32)
+        for i, ids in enumerate(payloads):
+            tokens[i, : ids.size] = ids
+            mask[i, : ids.size] = 1
+        mask[n:, 0] = 1  # padded rows need >= 1 valid token for the pool
+        out = bert_embed(self.model, to_device(tokens, self.device),
+                         to_device(mask, self.device)).cpu().numpy()
+        return [out[i] for i in range(n)]
+
+    def warmup(self) -> None:
+        b = 1
+        while b <= next_pow2(self.max_batch):
+            self.run_batch([np.zeros(self.bucket, np.int32)] * b)
+            b *= 2
+
+
 class _TransformerRunner:
     """Decoder serving on one device: batched bucketed prefill, chunked
     prefill, the prefix cache, and solo chunked decode (the pool decodes
@@ -914,13 +1152,15 @@ class _TransformerRunner:
         """The bucket a prepared payload lands in (the batcher's cohort key)."""
         return self._bucket_for(max(int(getattr(ids, "size", 0) or 0), 1))
 
-    def prepare(self, tokens: Any) -> np.ndarray:
+    def prepare(self, payload: Any) -> np.ndarray:
+        tokens = payload.get("tokens", []) if isinstance(payload, dict) else payload
         ids = np.asarray(tokens, dtype=np.int64).reshape(-1)
         if ids.size == 0:
             raise InvalidParamError("tokens must be a non-empty list of ids")
         if ids.min() < 0 or ids.max() >= self.cfg.vocab_size:
             raise InvalidParamError(
-                f"token ids must be in [0, {self.cfg.vocab_size}) for model '{self.name}'"
+                f"token ids must be in [0, {self.cfg.vocab_size}) for model '{self.name}' "
+                "(tokenizer vocab larger than model?)"
             )
         return ids.astype(np.int32)[-self.cfg.max_seq:]
 
