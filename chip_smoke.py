@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root, one card
     python3 chip_smoke.py --repeat-serve-train N   # hunting a device fault (below)
+    python3 chip_smoke.py --serve-ab PARENT_TREE   # phases 5 and 10 against a parent tree
 
 Phases, each fatal on failure (no phase is skipped or caught):
 
@@ -76,7 +77,14 @@ Phases, each fatal on failure (no phase is skipped or caught):
    the pool's worker joined by ``app.shutdown()``; then the decode kernel at
    the pool's shape (8 slots of a 2048-slot cache, ragged kv_lens, two idle
    slots past the end, 5 splits) against its plain version, with its
-   times, and 20 launches with a synchronize after each;
+   times, and 20 launches with a synchronize after each. The phase runs
+   through the middleware chain: every response (of every phase) carries
+   an X-Correlation-ID; /metrics, scraped every 0.2 s while the 8 streams
+   decode, shows 8 active decode slots at most; before the
+   dropped stream, ``gofr_tpu_tokens_total{op="decode"}`` equals the tokens
+   the pool delivered (each generation's ids after its first); at its end
+   ``gofr_http_requests_total`` of /v1/completions and the
+   ``gofr_tpu_ttft_seconds`` count equal the phase's requests;
 11. the OpenAI surface (run right after phase 10, on its model, in a fresh
    app in the same configuration), with a BPE merges file trained here
    with ``train_bpe`` from seeded text and an inline Llama-3-style
@@ -205,6 +213,15 @@ Phases, each fatal on failure (no phase is skipped or caught):
    layer's attention through the kernels (every forward, dQ and dK/dV call
    on its sm90 variant) in every step, step time, tokens/s, MFU and peak
    memory;
+16. host services (run right after phase 14, on its model, under 60 s):
+   ``TPU_BOOT=background`` in phase 5's configuration with the kernels'
+   library unloaded first: readiness polled from the moment the server
+   listens answers 503 with the boot's stage, then 200, the boot loaded
+   the library once and the first request after 200 loads nothing; the
+   echo runner (no card) under ``SPEC_POOLED=on
+   SPEC_FAKE_ACCEPT=3,1,0,2``: 40 ids the prompt's cycle, drafts accepted
+   and rejected; ``/favicon.ico`` (1,150 bytes) and ``/.well-known/ready``;
+   ``TPU_MESH`` set stops the boot with its name;
 15. the encoder and MLP families (run last, after phase 9): ``new()`` with
    MODEL_NAME=bert-base (bf16, full width and depth, MODEL_SEED=0, the byte
    tokenizer): its weight bytes on the card equal to ``bert_param_count``
@@ -224,6 +241,17 @@ Phases, each fatal on failure (no phase is skipped or caught):
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.
+
+``--serve-ab PARENT_TREE`` runs instead phases 5 and 10 of PARENT_TREE's
+``chip_smoke.py`` and of this one, each in its own process, in three arms
+taken in turns (parent, this without /metrics scrapes, this with them,
+then back, three times): the parent has no /metrics, so the middleware's
+cost is read between the first two arms and the scrapes' between the
+last two. It prints each run's aggregate tokens/s, TPOT, mean TTFT at 1,
+4 and 8 streams and launch counts, each arm's median and range, and
+``host_cost``: the host time the chain adds to one request and the metric
+updates add to a request and a pool chunk, measured alone on the same
+host.
 
 ``--repeat-serve-train N`` runs instead phase 10, the pool's decode kernel
 and phase 9 N times in one process, on a fresh llama3-8b each time, under
@@ -568,12 +596,27 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+# completions requests sent through post() and stream_then_close(), by port
+POSTED: dict = {}
+
+
+def correlated(resp, what: str) -> None:
+    """Every response passed the middleware chain: it carries the trace id
+    as X-Correlation-ID (32 hex digits)."""
+    cid = resp.getheader("X-Correlation-ID") or ""
+    check(len(cid) == 32 and all(c in "0123456789abcdef" for c in cid),
+          f"{what}: response without an X-Correlation-ID ({cid!r})")
+
+
 def post(port: int, body: dict, stream: bool = False, path: str = "/v1/completions"):
     """-> (status, response json or SSE frames, seconds to first frame, [frame times])."""
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
     t0 = time.perf_counter()
     conn.request("POST", path, json.dumps(body), {"Content-Type": "application/json"})
     resp = conn.getresponse()
+    correlated(resp, f"POST {path}")
+    if path == "/v1/completions":
+        POSTED[port] = POSTED.get(port, 0) + 1
     if not stream:
         data = json.loads(resp.read())
         conn.close()
@@ -736,6 +779,7 @@ def text(seed: int, n: int) -> str:
 def stream_then_close(port: int, body: dict, frames: int) -> int:
     """Read ``frames`` SSE frames of a stream, then drop the connection."""
     data = json.dumps({**body, "stream": True}).encode()
+    POSTED[port] = POSTED.get(port, 0) + 1
     sock = socket.create_connection(("127.0.0.1", port), timeout=600)
     sock.sendall(b"POST /v1/completions HTTP/1.1\r\nHost: 127.0.0.1\r\n"
                  b"Content-Type: application/json\r\nContent-Length: "
@@ -748,6 +792,36 @@ def stream_then_close(port: int, body: dict, frames: int) -> int:
         buf += chunk
     sock.close()
     return buf.count(b"data: ")
+
+
+def get_raw(port: int, path: str, accept: str = "") -> tuple:
+    """GET -> (status, headers, body bytes)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request("GET", path, headers={"Accept": accept} if accept else {})
+    resp = conn.getresponse()
+    body = resp.read()
+    conn.close()
+    correlated(resp, f"GET {path}")
+    return resp.status, dict(resp.getheaders()), body
+
+
+def scrape(port: int) -> dict:
+    """/metrics (text 0.0.4) -> {sample name{labels}: value}."""
+    status, _, body = get_raw(port, "/metrics")
+    check(status == 200, f"/metrics: HTTP {status}")
+    out = {}
+    for line in body.decode().splitlines():
+        if line and not line.startswith("#"):
+            key, _, value = line.rpartition(" ")
+            out[key] = float(value)
+    return out
+
+
+def sample_sum(series: dict, prefix: str, must: str = "") -> float:
+    """The sum of the samples named ``prefix`` (with ``must`` in their
+    labels)."""
+    return sum(v for k, v in series.items()
+               if (k == prefix or k.startswith(prefix + "{")) and must in k)
 
 
 def stream_rate(starts: list, results: list) -> tuple:
@@ -767,6 +841,11 @@ def stream_rate(starts: list, results: list) -> tuple:
         tpots.append((times[n - 1] - times[0]) / (n - 1) * 1e3)
     tokens = sum(n - 1 for n in counts)
     return tokens / (max(lasts) - min(firsts)), sum(tpots) / len(tpots), counts
+
+
+# phase 10 scrapes /metrics during its 8 streams (``--serve-ab`` turns it
+# off in one arm, to read the scrapes' cost against the same tree)
+SCRAPE_8 = True
 
 
 def serve_default(torch, flash, card: str, model) -> dict:
@@ -835,6 +914,9 @@ def serve_default(torch, flash, card: str, model) -> dict:
             return out
 
         pool._dispatch_chunk = counted_dispatch
+        posted0 = POSTED.get(port, 0)
+        metrics0 = scrape(port)
+        ttfts: dict = {}
         prompts8 = [text(100 + i, n) for i, n in enumerate((100, 170, 240, 310, 380, 450, 500, 600))]
         for k, seed in ((1, 10), (4, 20), (8, None)):
             prompts = prompts8 if k == 8 else [text(seed + i, 100 + 70 * i) for i in range(k)]
@@ -847,18 +929,39 @@ def serve_default(torch, flash, card: str, model) -> dict:
                                   stream=True)
 
             threads = [threading.Thread(target=run, args=(i,)) for i in range(k)]
+            # /metrics scraped while the 8 streams decode (not the 1 and 4:
+            # a scrape's host work would weigh on their TPOT): the slot
+            # gauge moves once a chunk, from host counts
+            active_seen, scraping = [], threading.Event()
+
+            def scraper(active_seen=active_seen, scraping=scraping):
+                while not scraping.is_set():
+                    active_seen.append(scrape(port).get("gofr_tpu_decode_slots_active", 0.0))
+                    scraping.wait(0.2)
+
+            watcher = threading.Thread(target=scraper)
+            if k == 8 and SCRAPE_8:
+                watcher.start()
             for t in threads:
                 t.start()
             for t in threads:
                 t.join(timeout=600)
+            scraping.set()
+            if k == 8 and SCRAPE_8:
+                watcher.join(timeout=60)
             rates[k], tpots[k], counts = stream_rate(starts, results)
+            ttfts[k] = sum(r[2] for r in results) / k * 1e3
             gaps = sorted(b - a for a, b in zip(stamps, stamps[1:]))
             chunk_ms[k] = gaps[len(gaps) // 2] * 1e3 if gaps else None
             print(f"default: {k} concurrent greedy streams of up to 32 tokens ({counts}): "
                   f"aggregate {rates[k]:.1f} tokens/s (all streams' tokens after their first "
                   f"over the earliest first to the latest last token), TPOT {tpots[k]:.2f} ms, "
-                  f"pool chunk cadence (median) {chunk_ms[k]} ms over {len(stamps)} chunks",
-                  flush=True)
+                  f"mean TTFT {ttfts[k]:.1f} ms, pool chunk cadence (median) {chunk_ms[k]} ms "
+                  f"over {len(stamps)} chunks", flush=True)
+        print(f"default: /metrics scraped {len(active_seen)} times during the 8 streams, "
+              f"decode slots active at most {max(active_seen, default=0):g}", flush=True)
+        check(not SCRAPE_8 or max(active_seen, default=0) == 8,
+              "default: /metrics during the 8 streams never showed 8 active decode slots")
         long = text(7, 1500)
         p1 = runner.prefills
         status, frames, chunked_ttft, _ = post(port, {"prompt": long, "stream": True, **greedy},
@@ -879,6 +982,17 @@ def serve_default(torch, flash, card: str, model) -> dict:
         status, _, lcp_s, _ = post(port, {"prompt": system + "a second one", **greedy})
         check(status == 200 and runner.prefix_stats["partial_hits"] == partial + 1,
               "default: the shared-prefix request missed its partial hit")
+        # every request so far ran to its end in the pool: the decode token
+        # counter holds exactly what the pool delivered (each generation's
+        # ids after its first, which the prefill gives)
+        check(not pool.rejects, f"default: pool rejects {pool.rejects}")
+        delivered = sum(max(len(out) - 1, 0) for _, out in generations)
+        key = 'gofr_tpu_tokens_total{model="llama3-8b",op="decode"}'
+        counted = scrape(port).get(key, 0.0) - metrics0.get(key, 0.0)
+        print(f"default: gofr_tpu_tokens_total decode {counted:g}, the pool's delivered "
+              f"tokens {delivered} over {len(generations)} requests", flush=True)
+        check(counted == delivered, "default: the decode token counter disagrees with the "
+                                    "tokens delivered")
         stream_then_close(port, {"prompt": text(9, 200), "max_tokens": 1500, "temperature": 0}, 4)
         for _ in range(200):
             if pool.occupancy()["active"] == 0:
@@ -890,6 +1004,19 @@ def serve_default(torch, flash, card: str, model) -> dict:
             status, _, _, _ = post(port, {"prompt": prompts8[i], **greedy})
             alone = ids_of(prompts8[i])[-1]
             check(alone == among, f"default: prompt {i} alone gave other ids than among 8")
+        # every completions request of the phase counted once by the
+        # middleware, and each one's first token once by the device
+        requests = POSTED.get(port, 0) - posted0
+        series = scrape(port)
+        http_n = (sample_sum(series, "gofr_http_requests_total", 'path="/v1/completions"')
+                  - sample_sum(metrics0, "gofr_http_requests_total", 'path="/v1/completions"'))
+        ttft_n = (sample_sum(series, "gofr_tpu_ttft_seconds_count", 'op="generate"')
+                  - sample_sum(metrics0, "gofr_tpu_ttft_seconds_count", 'op="generate"'))
+        print(f"default: {requests} completions requests: gofr_http_requests_total "
+              f"{http_n:g}, gofr_tpu_ttft_seconds count {ttft_n:g}, generations "
+              f"{len(generations)}", flush=True)
+        check(http_n == ttft_n == requests == len(generations),
+              "default: the request counters disagree with the phase's requests")
         launches = flash.launches.value
         sm90 = flash.launches_fwd_sm90.value
         decode = flash.launches_fwd_decode.value
@@ -972,7 +1099,8 @@ def serve_default(torch, flash, card: str, model) -> dict:
 
         metrics = {
             "phase_s": time.perf_counter() - t0,
-            "aggregate_tokens_per_s": rates, "tpot_ms": tpots, "chunk_ms": chunk_ms,
+            "aggregate_tokens_per_s": rates, "tpot_ms": tpots, "ttft_ms": ttfts,
+            "chunk_ms": chunk_ms,
             "chunked_ttft_ms": chunked_ttft * 1e3, "exact_hit_s": repeat_s,
             "partial_hit_s": lcp_s, "pool_steps": steps, "prefill_dispatches": prefills,
             "pool_lp_max_diff": float(diff.max()), "chunk_slices_lp_max_diff": float(slice_diff.max()),
@@ -1004,6 +1132,7 @@ def get_json(port: int, path: str):
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
     conn.request("GET", path)
     resp = conn.getresponse()
+    correlated(resp, f"GET {path}")
     data = json.loads(resp.read())
     conn.close()
     return resp.status, data
@@ -2864,6 +2993,155 @@ def multi_lora(torch, flash, card: str, model) -> dict:
     return out
 
 
+# -- phase 16: host services ---------------------------------------------------------
+
+ECHO_PROMPT = "host services, echo"
+ECHO_SCHEDULE = "3,1,0,2"
+
+
+@contextlib.contextmanager
+def environment(env: dict):
+    """Exactly ``env`` of the port's settings for the block (the keys
+    earlier phases set are cleared), every key restored after: nothing
+    leaks in from an earlier phase or out to a later one."""
+    from gofr_tpu_torch.config import DECLARED_KEYS, UNHONORED_KEYS
+
+    keys = set(DECLARED_KEYS) | set(UNHONORED_KEYS) | set(env)
+    saved = {k: os.environ.get(k) for k in keys}
+    for k in keys:
+        os.environ.pop(k, None)
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def host_services(torch, flash, card: str, model) -> dict:
+    """Phase 16 (after phase 14, on phase 5's model): TPU_BOOT=background
+    readiness from the moment the server listens, with the kernels'
+    library unloaded first so the boot loads it; the echo runner under
+    SPEC_POOLED with a SPEC_FAKE_ACCEPT schedule; /favicon.ico and
+    /.well-known/ready; a refused key stopping the boot."""
+    import gofr_tpu_torch
+    from gofr_tpu_torch.tpu.device import TPUDevice
+
+    t0 = time.perf_counter()
+    out: dict = {}
+    stages: list = []
+    progress = TPUDevice._boot_progress
+
+    def recording_progress(self, detail):
+        stages.append(detail)
+        progress(self, detail)
+
+    builds = {"loads": 0}
+    build = flash.build
+
+    def counted_build():
+        if flash._built is None:
+            builds["loads"] += 1  # a real build or load, not the cached library
+        return build()
+
+    env = {"MODEL_NAME": "llama3-8b", "MODEL_MAX_SEQ": "2048", "BATCH_MAX_SIZE": "4",
+           "BATCH_TIMEOUT_MS": "50", "TOKENIZER": "byte", "DECODE_CHUNK": "8",
+           "TORCH_DEVICE": "cuda", "DECODE_POOL": "off", "KV_PAGED": "off",
+           "TPU_BOOT": "background", "HTTP_PORT": str(free_port())}
+    TPUDevice._boot_progress = recording_progress
+    flash.build = counted_build
+    flash._built = None  # the boot must load the library, as a fresh process does
+    try:
+        with environment(env):
+            app = gofr_tpu_torch.new(model=model)
+        gofr_tpu_torch.register_openai_routes(app)
+        app.start()
+        try:
+            port = app.http_port
+            seen = []
+            deadline = time.perf_counter() + 300
+            while True:
+                check(time.perf_counter() < deadline, "host: the background boot never ended")
+                status, _, body = get_raw(port, "/.well-known/ready")
+                seen.append((status, json.loads(body)))
+                if status == 200:
+                    break
+                check(status == 503 and seen[-1][1]["state"] in ("booting", "warming"),
+                      f"host: readiness {status} {seen[-1][1]} during the boot")
+                time.sleep(0.005)
+            warming = [b["detail"] for st, b in seen if st == 503 and b.get("detail")]
+            print(f"host: background boot, readiness polled {len(seen)} times: "
+                  f"{len(warming)} x 503 with a stage ({sorted(set(warming))[:4]}...), then "
+                  f"200 {seen[-1][1]}; stages {stages}; library loads in the boot "
+                  f"{builds['loads']}", flush=True)
+            check(warming, "host: no 503 with a stage before the 200")
+            check(any("CUDA kernels" in d for d in stages) and builds["loads"] == 1,
+                  "host: the boot did not build the kernels' library")
+            loads = builds["loads"]
+            status, data, first_s, _ = post(port, {"prompt": ECHO_PROMPT, "max_tokens": 8,
+                                                   "temperature": 0})
+            check(status == 200 and data["usage"]["completion_tokens"] >= 1,
+                  f"host: first request after ready: {status} {data}")
+            check(builds["loads"] == loads, "host: the first request after 200 built the kernels")
+            print(f"host: first request after ready in {first_s * 1e3:.1f} ms, no build",
+                  flush=True)
+            out["background_first_request_ms"] = first_s * 1e3
+            out["readiness_503s"] = len(warming)
+        finally:
+            app.shutdown()
+    finally:
+        TPUDevice._boot_progress = progress
+        flash.build = build
+
+    # the echo runner: pooled speculation on the scripted source; no card
+    echo_env = {"MODEL_NAME": "echo", "TOKENIZER": "byte", "SPEC_POOLED": "on",
+                "SPEC_FAKE_ACCEPT": ECHO_SCHEDULE, "HTTP_PORT": str(free_port())}
+    with environment(echo_env):
+        app = gofr_tpu_torch.new()
+    gofr_tpu_torch.register_openai_routes(app)
+    app.start()
+    try:
+        port, dev = app.http_port, app.container.tpu
+        check(dev.device is None, "host: the echo runner took a device")
+        n = 40
+        status, data, _, _ = post(port, {"prompt": ECHO_PROMPT, "max_tokens": n})
+        want = (ECHO_PROMPT * 3)[:n]
+        got = data["choices"][0]["text"] if status == 200 else None
+        stats = dict(dev.runner.spec_stats)
+        print(f"host: echo, SPEC_FAKE_ACCEPT={ECHO_SCHEDULE}: {n} ids the prompt's cycle: "
+              f"{got == want}; spec {stats}", flush=True)
+        check(got == want, f"host: echo gave {got!r}, want {want!r}")
+        check(stats["cycles"] > 0 and stats["accepted"] > 0 and stats["drafted"] > stats["accepted"],
+              "host: the scripted schedule accepted and rejected nothing")
+        status, headers, icon = get_raw(port, "/favicon.ico")
+        check(status == 200 and headers.get("Content-Type") == "image/x-icon"
+              and len(icon) == 1150 and icon[:4] == b"\x00\x00\x01\x00",
+              f"host: /favicon.ico {status} {len(icon)} bytes")
+        status, _, body = get_raw(port, "/.well-known/ready")
+        check(status == 200 and json.loads(body)["state"] == "ready",
+              f"host: echo readiness {status} {body}")
+        out["echo_spec"] = stats
+    finally:
+        app.shutdown()
+
+    # a key the port refuses stops the boot with its name
+    with environment({"MODEL_NAME": "echo", "TPU_MESH": "tp=2"}):
+        try:
+            gofr_tpu_torch.new()
+            refused = ""
+        except ValueError as exc:
+            refused = str(exc)
+    print(f"host: TPU_MESH=tp=2 refused: {refused}", flush=True)
+    check("TPU_MESH" in refused, "host: TPU_MESH did not stop the boot")
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"host-metrics [{card}]: {json.dumps(out)}", flush=True)
+    check(out["phase_s"] < 60, f"host: phase 16 took {out['phase_s']:.1f}s")
+    return out
+
+
 # -- phase 15: the encoder and MLP families ------------------------------------------
 
 ENCODER_ENV = {"TOKENIZER": "byte", "BATCH_MAX_SIZE": "8", "BATCH_TIMEOUT_MS": "5",
@@ -3637,6 +3915,163 @@ def repeat_serve_train(torch, flash, card: str, n: int) -> dict:
             "debug_build": flash.debug_build()}
 
 
+# one tree's phases 5 and 10 in a child process (``--serve-ab``): only
+# functions both the parent's chip_smoke.py and this one have
+AB_CHILD = """
+import gc, json, sys
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+cs.SCRAPE_8 = sys.argv[1] == "on"  # read by this tree's phase 10 only
+from gofr_tpu_torch.ops import flash
+flash.build()
+card = cs.card_line()
+ttfts = []
+post = cs.post
+def timed_post(port, body, stream=False, path="/v1/completions"):
+    out = post(port, body, stream, path)
+    if stream:
+        ttfts.append(out[2])
+    return out
+cs.post = timed_post
+served, model = cs.serve(torch, flash, card)
+gc.collect(); torch.cuda.empty_cache()
+ttfts.clear()  # phase 10's streams: 1, then 4, then 8 at once
+default = cs.serve_default(torch, flash, card, model)
+groups = {1: ttfts[0:1], 4: ttfts[1:5], 8: ttfts[5:13]}
+m = default["metrics"]
+print("AB " + json.dumps({"card": card, "decode_launches": default["decode"],
+      "per_chunk": default["per_chunk"], "phase5": served,
+      "aggregate_tokens_per_s": m["aggregate_tokens_per_s"], "tpot_ms": m["tpot_ms"],
+      "ttft_ms": {k: sum(v) / len(v) * 1e3 for k, v in groups.items()},
+      "chunk_ms": m["chunk_ms"]}), flush=True)
+"""
+
+
+def host_cost(n: int = 2000, blocks: int = 10) -> dict:
+    """The host time this tree adds to a request and to a pool chunk,
+    each measured alone on this host: the middleware chain (``chain_us``:
+    a trivial sync handler at /v1/completions dispatched in-process with
+    the App's chain and through a bare Router, in alternating blocks of
+    ``n``, the access lines written to a file), the device's per-request
+    metric updates (``request_metrics_us``: the request counter, a TTFT
+    observation, a token count) and a chunk's (``chunk_metrics_us``: the
+    slot gauge and the decode token count). Medians over the blocks."""
+    import asyncio
+    import statistics
+    import tempfile
+
+    import gofr_tpu_torch
+    from gofr_tpu_torch.handler import make_endpoint
+    from gofr_tpu_torch.http.request import Request
+    from gofr_tpu_torch.http.router import Router
+
+    for key in ("MODEL_NAME", "TPU_ENABLED", "TPU_BOOT"):
+        os.environ.pop(key, None)
+    os.environ["HTTP_PORT"] = str(free_port())
+    app = gofr_tpu_torch.new()
+
+    def handler(ctx):
+        return "x"
+
+    app.get("/v1/completions", handler)
+    bare = Router()
+    bare.add("GET", "/v1/completions", make_endpoint(handler, app.container))
+    arms = {"chain": app.router.dispatcher(), "bare": bare.dispatcher()}
+
+    async def per_request_us(dispatch) -> float:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            request = Request("GET", "/v1/completions", {"user-agent": "smoke"}, b"",
+                              "127.0.0.1")
+            response = await dispatch(request)
+        check(response.status == 200, f"host cost: HTTP {response.status}")
+        return (time.perf_counter() - t0) / n * 1e6
+
+    times: dict = {"chain": [], "bare": []}
+    try:
+        with tempfile.TemporaryFile("w") as sink, contextlib.redirect_stdout(sink):
+            for _ in range(blocks):
+                for arm, dispatch in arms.items():
+                    times[arm].append(asyncio.run(per_request_us(dispatch)))
+    finally:
+        app.shutdown()
+    # the App's registry: its exemplar provider as in serving
+    registry = app.container.metrics
+    requests = registry.counter("gofr_tpu_requests_total", "", labels=("model", "op", "status"))
+    ttft = registry.histogram("gofr_tpu_ttft_seconds", "", labels=("model", "op"))
+    tokens = registry.counter("gofr_tpu_tokens_total", "", labels=("model", "op"))
+    slots = registry.gauge("gofr_tpu_decode_slots_active", "")
+
+    def per_call_us(fn) -> float:
+        t0 = time.perf_counter()
+        for i in range(n):
+            fn(i)
+        return (time.perf_counter() - t0) / n * 1e6
+
+    def request_updates(i):
+        requests.inc(model="llama3-8b", op="generate", status="ok")
+        ttft.observe(0.08, model="llama3-8b", op="generate")
+        tokens.inc(100, model="llama3-8b", op="prefill")
+
+    def chunk_updates(i):
+        slots.set(8)
+        tokens.inc(256, model="llama3-8b", op="decode")
+
+    request_us = statistics.median(per_call_us(request_updates) for _ in range(blocks))
+    chunk_us = statistics.median(per_call_us(chunk_updates) for _ in range(blocks))
+    chain, bare_us = statistics.median(times["chain"]), statistics.median(times["bare"])
+    return {"requests_a_block": n, "blocks": blocks, "chain_dispatch_us": chain,
+            "bare_dispatch_us": bare_us, "chain_us": chain - bare_us,
+            "chain_blocks_us": times["chain"], "bare_blocks_us": times["bare"],
+            "request_metrics_us": request_us, "chunk_metrics_us": chunk_us}
+
+
+def serve_ab(parent: str) -> int:
+    """Phases 5 and 10 from the parent tree ``parent`` and from this one,
+    each run in its own process on the same card, in three arms taken in
+    turns (parent, this without phase 10's /metrics scrapes, this with
+    them, then back, three times); prints each run's ``AB`` line, each
+    arm's median and range, and ``host_cost``."""
+    import statistics
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    arms = (("parent", parent, "off"), ("this", here, "off"), ("this+scrape", here, "on"))
+    runs = []
+    for label, tree, scrape_8 in (arms + arms[::-1]) * 3:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", AB_CHILD, scrape_8], cwd=tree,
+                              capture_output=True, text=True)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("AB ")]
+        if proc.returncode != 0 or not lines:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            print(f"serve-ab: the {label} run failed ({proc.returncode})", file=sys.stderr)
+            return 1
+        run = {"tree": label, "seconds": time.perf_counter() - t0, **json.loads(lines[-1][3:])}
+        runs.append(run)
+        print(json.dumps(run), flush=True)
+    summary = {}
+    for label, _, _ in arms:
+        mine = [r for r in runs if r["tree"] == label]
+        summary[label] = {
+            metric: {k: {"median": statistics.median(r[metric][k] for r in mine),
+                         "min": min(r[metric][k] for r in mine),
+                         "max": max(r[metric][k] for r in mine)} for k in ("1", "4", "8")}
+            for metric in ("aggregate_tokens_per_s", "tpot_ms", "ttft_ms")}
+        summary[label]["decode_launches"] = sorted({r["decode_launches"] for r in mine})
+    print(json.dumps({"serve_ab": summary}), flush=True)
+    proc = subprocess.run([sys.executable, "-c", "import json, chip_smoke as cs; "
+                           "print('HC ' + json.dumps(cs.host_cost()))"],
+                          cwd=here, capture_output=True, text=True)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("HC ")]
+    if proc.returncode != 0 or not lines:
+        print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+        print(f"serve-ab: host_cost failed ({proc.returncode})", file=sys.stderr)
+        return 1
+    print(json.dumps({"host_cost": json.loads(lines[-1][3:]), "card": card_line()}), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3644,6 +4079,10 @@ def main(argv=None) -> int:
     parser.add_argument("--repeat-serve-train", type=int, default=0, metavar="N",
                         help="repeat phase 10 -> the pool decode kernel -> phase 9 N times "
                              "under CUDA_LAUNCH_BLOCKING=1 and the debug build, nothing else")
+    parser.add_argument("--serve-ab", metavar="PARENT_TREE", default="",
+                        help="phases 5 and 10 from PARENT_TREE and from this tree with and "
+                             "without phase 10's /metrics scrapes, in turns, each in its own "
+                             "process, and the chain's host cost alone; nothing else")
     args = parser.parse_args(argv)
     if args.repeat_serve_train:
         # read when CUDA starts and when the kernels build: set before either
@@ -3661,6 +4100,8 @@ def main(argv=None) -> int:
               "gofr_tpu_torch/ lies beside it", file=sys.stderr)
         return 3
 
+    if args.serve_ab:
+        return serve_ab(args.serve_ab)
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}", flush=True)
@@ -3706,6 +4147,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     loras = multi_lora(torch, flash, card, model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    host_services(torch, flash, card, model)
     del model
     gc.collect()
     torch.cuda.empty_cache()

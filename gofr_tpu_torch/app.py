@@ -1,6 +1,7 @@
 """App core (trimmed copy of ``gofr_tpu/app.py``): config, container,
-route registration and the HTTP server (with ``/.well-known/health`` and
-the LoRA adapter admin routes).
+tracer, the middleware chain, route registration and the HTTP server with
+the default routes (``/.well-known/health``, ``/.well-known/ready``,
+``/favicon.ico``, ``/metrics`` and the LoRA adapter admin routes).
 
     import gofr_tpu_torch
     app = gofr_tpu_torch.new()
@@ -21,11 +22,21 @@ from gofr_tpu_torch.handler import (
     adapter_unload_handler,
     adapters_list_handler,
     catch_all_handler,
+    favicon_handler,
     health_handler,
     make_endpoint,
+    metrics_handler,
+    ready_handler,
+)
+from gofr_tpu_torch.http.middleware import (
+    cors_middleware,
+    logging_middleware,
+    metrics_middleware,
+    tracer_middleware,
 )
 from gofr_tpu_torch.http.router import Router
 from gofr_tpu_torch.http.server import HTTPServer
+from gofr_tpu_torch.tracing import init_tracer
 
 DEFAULT_HTTP_PORT = 8000
 
@@ -38,8 +49,20 @@ class App:
         self.config = EnvFileConfig(configs_dir or "./configs")
         self.container = Container(self.config, model=model)
         self.logger = self.container.logger
+        self.tracer = init_tracer(self.config, self.logger)
+        # exporter drops become a counter an alert can watch
+        attach = getattr(self.tracer.exporter, "attach_metrics", None)
+        if attach is not None:
+            attach(self.container.metrics)
         self.http_port = int(self.config.get_or_default("HTTP_PORT", str(DEFAULT_HTTP_PORT)))
         self.router = Router()
+        # middleware chain, outermost first
+        self.router.use(
+            tracer_middleware,
+            logging_middleware(self.logger),
+            metrics_middleware(self.container.metrics),
+            cors_middleware,
+        )
         self.http_server: Optional[HTTPServer] = None
 
     def get(self, pattern: str, handler: Handler) -> None:
@@ -48,22 +71,35 @@ class App:
     def post(self, pattern: str, handler: Handler) -> None:
         self.add_route("POST", pattern, handler)
 
+    def put(self, pattern: str, handler: Handler) -> None:
+        self.add_route("PUT", pattern, handler)
+
+    def patch(self, pattern: str, handler: Handler) -> None:
+        self.add_route("PATCH", pattern, handler)
+
+    def delete(self, pattern: str, handler: Handler) -> None:
+        self.add_route("DELETE", pattern, handler)
+
     def add_route(self, method: str, pattern: str, handler: Handler) -> None:
         self.router.add(method, pattern, make_endpoint(handler, self.container))
 
-    def start(self) -> "App":
-        """Start the HTTP server in a background thread and return."""
-        self.router.add(
-            "GET", "/.well-known/health", make_endpoint(health_handler, self.container)
-        )
-        # LoRA adapter admin (ADMIN_TOKEN gates it when set)
+    def _install_default_routes(self) -> None:
         for method, pattern, handler in (
+            ("GET", "/.well-known/health", health_handler),
+            ("GET", "/.well-known/ready", ready_handler),
+            ("GET", "/favicon.ico", favicon_handler),
+            ("GET", "/metrics", metrics_handler),
+            # LoRA adapter admin (ADMIN_TOKEN gates it when set)
             ("GET", "/admin/adapters", adapters_list_handler),
             ("POST", "/admin/adapters", adapter_load_handler),
             ("DELETE", "/admin/adapters/{name}", adapter_unload_handler),
         ):
             self.router.add(method, pattern, make_endpoint(handler, self.container))
         self.router.set_not_found(make_endpoint(catch_all_handler, self.container))
+
+    def start(self) -> "App":
+        """Start the HTTP server in a background thread and return."""
+        self._install_default_routes()
         self.http_server = HTTPServer(self.router, self.http_port, self.logger)
         self.http_server.run_in_thread()
         return self
@@ -80,8 +116,9 @@ class App:
             pass  # not the main thread
         try:
             stop.wait()
+            self.logger.info("SIGTERM received, shutting down")
         except KeyboardInterrupt:
-            pass
+            self.logger.info("shutting down")
         finally:
             self.shutdown()
 
@@ -89,6 +126,7 @@ class App:
         if self.http_server:
             self.http_server.shutdown()
         self.container.close()
+        self.tracer.shutdown()
 
 
 def new(configs_dir: Optional[str] = None, model: Any = None) -> App:

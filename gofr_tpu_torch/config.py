@@ -3,12 +3,21 @@
 Trimmed copy of ``gofr_tpu/config.py``'s ``EnvFileConfig``. The port
 reads only the keys in ``DECLARED_KEYS``; asking for any other raises, so
 a key the port does not honor cannot be read by mistake.
+
+``UNHONORED_KEYS`` lists the reference's settings the port does not honor
+yet, each with why and the ROADMAP item that ports it; with
+``DECLARED_KEYS`` it covers every key the JAX package declares, and no key
+is in both. At boot, :func:`check_unhonored` reads each listed key from the
+environment and the ``.env`` file: a set key whose absence would change
+the answers, the topology, a durability guarantee or the memory the
+process takes stops the boot with its name; any other set key is logged
+once at WARN.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Any, Optional
 
 DECLARED_KEYS: dict[str, str] = {
     "MODEL_NAME": "mlp (default) | bert-tiny | bert-base | tiny | small | llama3-8b | llama3-70b",
@@ -51,6 +60,146 @@ DECLARED_KEYS: dict[str, str] = {
     "OPENAI_FANOUT_WORKERS": "n/best_of candidates decoded at once (default 3/4 of the pool)",
     "HTTP_PORT": "HTTP listen port",
     "TORCH_DEVICE": "'cuda' (default) or 'cpu'",
+    "APP_NAME": "service name stamped on traces",
+    "LOG_LEVEL": "DEBUG | INFO (default) | NOTICE | WARN | ERROR | FATAL",
+    "HANDLER_THREADS": "sync handler thread-pool size (default 64)",
+    "TPU_ENABLED": "true: build the device even without MODEL_NAME (it serves mlp)",
+    "TPU_BOOT": "'background': boot the device off-thread, readiness 503 until ready",
+    "ECHO_STEP_MS": "the echo runner's delay a decode step (and a prefill)",
+    "SPEC_FAKE_ACCEPT": "echo runner only: cyclic per-cycle accept counts, e.g. 3,1,0",
+    "METRICS_MAX_SERIES": "label-sets any one metric may mint (default 1000)",
+    "METRICS_EXEMPLARS": "'off': no trace_id exemplars in OpenMetrics",
+    "TRACER_HOST": "zipkin collector host (set: spans are exported)",
+    "TRACER_PORT": "zipkin collector port (default 9411)",
+}
+
+# The reference's keys the port does not honor yet: key -> (refuse, why,
+# with the ROADMAP item that ports it). ``refuse``: ignoring the key would
+# change the answers, the topology, a durability guarantee or the memory
+# the process takes, so a boot with it set fails; the others warn.
+_MESH = "§A7: the port serves on one device, unsharded"
+_MULTIHOST = "§A7: the port runs one process, no multi-host runtime"
+_JOURNAL = "§A4: the port keeps no generation journal"
+_DATASOURCE = "§A6: the port wires no sql or redis datasource"
+_DEADLINES = "§A4: the port sheds no request by deadline or brownout"
+_OBSERVE = "§A3: the port has no flight recorder, timebase or postmortem store"
+_COSTMODEL = "§A3: the port has no dispatch cost model"
+_SLO = "§A4: the port has no SLO engine or tenant ledger"
+_RECOVERY = "§A4: the port has no stall watchdog or recovery supervisor"
+_FLEET = "§A5: the port has no fleet router or replica role"
+_TRANSFER = "§A5: the port serves and pulls no KV across replicas"
+_TOOLING = "§A6: the port has no native tokenizer backend or lock sanitizer"
+UNHONORED_KEYS: dict[str, tuple[bool, str]] = {
+    "GRPC_PORT": (False, "§A6: the port runs no gRPC server"),
+    "DB_DIALECT": (False, _DATASOURCE),
+    "DB_HOST": (False, _DATASOURCE),
+    "DB_PORT": (False, _DATASOURCE),
+    "DB_NAME": (False, _DATASOURCE),
+    "DB_USER": (False, _DATASOURCE),
+    "DB_PASSWORD": (False, _DATASOURCE),
+    "REDIS_HOST": (False, _DATASOURCE),
+    "REDIS_PORT": (False, _DATASOURCE),
+    "TPU_MESH": (True, _MESH),
+    "TPU_TOPOLOGY": (True, _MESH),
+    "TPU_COORDINATOR": (True, _MULTIHOST),
+    "TPU_NUM_PROCESSES": (True, _MULTIHOST),
+    "TPU_PROCESS_ID": (True, _MULTIHOST),
+    "MODEL_ATTN_IMPL": (False, "§B: every attention call runs the port's own kernels"),
+    "BATCH_COHORT": (False, "§A6: the batcher always forms bucket cohorts"),
+    "KV_HBM_BUDGET_MB": (True, "§A5: the paged arena is sized by KV_BLOCKS, not a byte budget"),
+    "KV_TRANSFER": (False, _TRANSFER),
+    "KV_TRANSFER_TIMEOUT_S": (False, _TRANSFER),
+    "KV_TRANSFER_PIN_TTL_S": (False, _TRANSFER),
+    "KV_TRANSFER_TRUST_HINT": (False, _TRANSFER),
+    "REQUEST_DEADLINE_S": (False, _DEADLINES),
+    "PRIORITY_DEFAULT": (False, _DEADLINES),
+    "BROWNOUT_QUEUE_DEPTH": (False, _DEADLINES),
+    "BROWNOUT_KV_UTIL": (False, _DEADLINES),
+    "BROWNOUT_SHED_PRIORITY": (False, _DEADLINES),
+    "BROWNOUT_CLAMP_TOKENS": (False, _DEADLINES),
+    "TIMEBASE_ENABLED": (False, _OBSERVE),
+    "TIMEBASE_INTERVAL_S": (False, _OBSERVE),
+    "TIMEBASE_WINDOW_S": (False, _OBSERVE),
+    "POSTMORTEM_DIR": (False, _OBSERVE),
+    "POSTMORTEM_KEEP": (False, _OBSERVE),
+    "POSTMORTEM_MIN_INTERVAL_S": (False, _OBSERVE),
+    "POSTMORTEM_SNAPSHOTS": (False, _OBSERVE),
+    "FLIGHT_RECORDER_SIZE": (False, _OBSERVE),
+    "FLIGHT_RECORDER_KEEP": (False, _OBSERVE),
+    "FLIGHT_SLOW_MS": (False, _OBSERVE),
+    "PROFILE_DIR": (False, "§A3: the port has no /admin/profiler"),
+    "DISPATCH_TIMELINE_SIZE": (False, "§A3: the port has no dispatch timeline"),
+    "FLEET_TRACE_SCRAPE_TIMEOUT_S": (False, _FLEET),
+    "COSTMODEL": (False, _COSTMODEL),
+    "COSTMODEL_PROFILE": (False, _COSTMODEL),
+    "COSTMODEL_HLO": (False, _COSTMODEL),
+    "COSTMODEL_ANOMALY_FACTOR": (False, _COSTMODEL),
+    "COSTMODEL_MIN_ANOMALY_MS": (False, _COSTMODEL),
+    "COSTMODEL_EMA_ALPHA": (False, _COSTMODEL),
+    "COSTMODEL_EMA_BAND": (False, _COSTMODEL),
+    "ANOMALY_RING_SIZE": (False, _COSTMODEL),
+    "SLO": (False, _SLO),
+    "SLO_TARGETS": (False, _SLO),
+    "SLO_BURN_FAST_S": (False, _SLO),
+    "SLO_BURN_FAST_LONG_S": (False, _SLO),
+    "SLO_BURN_FAST_RATE": (False, _SLO),
+    "SLO_BURN_SLOW_S": (False, _SLO),
+    "SLO_BURN_SLOW_LONG_S": (False, _SLO),
+    "SLO_BURN_SLOW_RATE": (False, _SLO),
+    "SLO_EVAL_INTERVAL_S": (False, _SLO),
+    "TENANT_LEDGER_SIZE": (False, _SLO),
+    "RECOVERY_ENABLED": (False, _RECOVERY),
+    "RECOVERY_MAX_ATTEMPTS": (False, _RECOVERY),
+    "RECOVERY_BACKOFF_S": (False, _RECOVERY),
+    "RECOVERY_BACKOFF_MAX_S": (False, _RECOVERY),
+    "RECOVERY_ATTEMPT_TIMEOUT_S": (False, _RECOVERY),
+    "WATCHDOG_DISPATCH_TIMEOUT_S": (False, _RECOVERY),
+    "JOURNAL": (True, _JOURNAL),
+    "JOURNAL_CAPACITY": (False, _JOURNAL),
+    "JOURNAL_MAX_TOKENS": (False, _JOURNAL),
+    "JOURNAL_DIR": (True, _JOURNAL + ", on disk or in memory"),
+    "JOURNAL_FSYNC": (True, _JOURNAL + ", so nothing is flushed"),
+    "JOURNAL_SEGMENT_BYTES": (False, _JOURNAL),
+    "JOURNAL_SEGMENTS": (False, _JOURNAL),
+    "FLEET_REPLICAS": (True, _FLEET),
+    "FLEET_ROUTES": (False, _FLEET),
+    "FLEET_ROUTER_ID": (False, _FLEET),
+    "FLEET_RETRIES": (False, _FLEET),
+    "FLEET_DEADLINE_S": (False, _FLEET),
+    "FLEET_CONNECT_TIMEOUT_S": (False, _FLEET),
+    "FLEET_READ_TIMEOUT_S": (False, _FLEET),
+    "FLEET_AFFINITY": (False, _FLEET),
+    "FLEET_AFFINITY_MAX_SKEW": (False, _FLEET),
+    "FLEET_PROBE_INTERVAL_S": (False, _FLEET),
+    "FLEET_PROBE_TIMEOUT_S": (False, _FLEET),
+    "FLEET_PROBE_HEDGE_MS": (False, _FLEET),
+    "FLEET_PROBE_JITTER": (False, _FLEET),
+    "FLEET_OUT_AFTER": (False, _FLEET),
+    "FLEET_PROBATION_PROBES": (False, _FLEET),
+    "FLEET_BREAKER_THRESHOLD": (False, _FLEET),
+    "FLEET_BREAKER_COOLDOWN_S": (False, _FLEET),
+    "FLEET_QUOTA_RPS": (False, _FLEET),
+    "FLEET_QUOTA_BURST": (False, _FLEET),
+    "FLEET_QUOTA_CACHE_TTL_S": (False, _FLEET),
+    "FLEET_TRUST_TENANT_HEADER": (False, _FLEET),
+    "FLEET_MAX_INFLIGHT": (False, _FLEET),
+    "FLEET_SATURATION_QUEUE": (False, _FLEET),
+    "FLEET_RETRY_AFTER_S": (False, _FLEET),
+    "FLEET_DRAIN_TIMEOUT_S": (False, _FLEET),
+    "FLEET_RESUME": (False, _FLEET),
+    "FLEET_MAX_RESUMES": (False, _FLEET),
+    "FLEET_ROLE": (True, _FLEET),
+    "FLEET_ROLE_ROUTING": (False, _FLEET),
+    "OPENAI_ACCEPT_UNKNOWN_MODEL": (True, "§A6: an unknown model name is refused, not served"),
+    "GOFR_NATIVE_LIB": (False, _TOOLING),
+    "GOFR_NATIVE_CACHE": (False, _TOOLING),
+    "GOFR_NATIVE_DISABLE": (False, _TOOLING),
+    "GOFR_POOL_DEBUG": (False, _TOOLING),
+    "GOFR_SANITIZE": (False, _TOOLING),
+    "GOFR_SANITIZE_ALL": (False, _TOOLING),
+    "GOFR_SANITIZE_HOLD_MS": (False, _TOOLING),
+    "GOFR_SANITIZE_REPORT": (False, _TOOLING),
+    "GOFR_SANITIZE_GRAPH": (False, _TOOLING),
 }
 
 
@@ -101,3 +250,28 @@ class EnvFileConfig:
     def get_or_default(self, key: str, default: str) -> str:
         value = self.get(key)
         return value if value not in (None, "") else default
+
+    def unhonored(self) -> list[str]:
+        """The listed keys set (non-empty) in the environment or the file."""
+        return [
+            key for key in UNHONORED_KEYS
+            if os.environ.get(key) or self._file.get(key)
+        ]
+
+
+def check_unhonored(config: EnvFileConfig, logger: Any) -> None:
+    """Refuse a boot with a set key the port cannot ignore; warn once
+    about each other set key of the reference's the port does not honor."""
+    set_keys = config.unhonored()
+    refused = [key for key in set_keys if UNHONORED_KEYS[key][0]]
+    if refused:
+        raise ValueError(
+            "gofr_tpu_torch does not honor "
+            + "; ".join(f"{key} ({UNHONORED_KEYS[key][1]})" for key in refused)
+            + " — unset it to boot"
+        )
+    for key in set_keys:
+        logger.warnf(
+            "%s is set but gofr_tpu_torch does not honor it yet (ROADMAP %s)",
+            key, UNHONORED_KEYS[key][1],
+        )

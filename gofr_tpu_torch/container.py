@@ -1,9 +1,21 @@
-"""Dependency container: config, logger, handler thread pool and the
-inference device (trimmed copy of ``gofr_tpu/container.py``).
+"""Dependency container: config, logger, metrics registry, handler thread
+pool and the inference device (trimmed copy of ``gofr_tpu/container.py``).
+
+- ``LOG_LEVEL`` sets the logger's level (INFO by default);
+- the registry caps each metric's label-sets at ``METRICS_MAX_SERIES``
+  (1000) and, unless ``METRICS_EXEMPLARS=off``, gives histograms the
+  current trace id as their OpenMetrics exemplar;
+- ``HANDLER_THREADS`` (64) sizes the pool sync handlers run on;
+- the device is built when ``MODEL_NAME`` is set or ``TPU_ENABLED`` is
+  true (it then serves ``mlp``, the default ``MODEL_NAME``), and boots in
+  the foreground or, under ``TPU_BOOT=background``, on a thread while the
+  server already answers (readiness 503 until it is ready).
 
 Unlike the JAX package, a device that fails to start is NOT logged and
-dropped: the error propagates, so a missing GPU or a failed kernel build
-never turns into a server that answers 503s.
+dropped: a foreground boot's error propagates, and a background boot's
+failure stays on the device (readiness 503, health DOWN, every request
+fails with it), so a missing GPU or a failed kernel build never turns into
+a server that serves something else.
 """
 
 from __future__ import annotations
@@ -11,21 +23,38 @@ from __future__ import annotations
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Optional
 
-from gofr_tpu_torch.logging import Logger
-
-HANDLER_THREADS = 64
+from gofr_tpu_torch.config import check_unhonored
+from gofr_tpu_torch.logging import new_logger
+from gofr_tpu_torch.metrics import Registry
+from gofr_tpu_torch.tracing import trace_exemplar
 
 
 class Container:
     def __init__(self, config: Any, model: Any = None):
         self.config = config
-        self.logger = Logger()
+        self.logger = new_logger(config.get_or_default("LOG_LEVEL", "INFO"))
+        # the reference's settings the port does not honor: refuse or warn
+        # before anything boots
+        check_unhonored(config, self.logger)
+        self.metrics = Registry(
+            max_series=int(config.get_or_default("METRICS_MAX_SERIES", "1000")),
+            exemplar_provider=(
+                trace_exemplar
+                if config.get_or_default("METRICS_EXEMPLARS", "on") != "off" else None
+            ),
+        )
         self.tpu: Optional[Any] = None
         self._handler_pool: Optional[ThreadPoolExecutor] = None
-        if config.get("MODEL_NAME"):
+        enabled = config.get_or_default("TPU_ENABLED", "").lower()
+        if enabled in ("true", "1", "yes") or config.get("MODEL_NAME"):
             from gofr_tpu_torch.tpu.device import TPUDevice
 
-            self.tpu = TPUDevice(config, self.logger, model=model)
+            self.tpu = TPUDevice(config, self.logger, model=model, metrics=self.metrics)
+            if config.get_or_default("TPU_BOOT", "") == "background":
+                self.logger.infof(
+                    "device booting in background (model=%s); readiness at "
+                    "/.well-known/ready", self.tpu.model_name,
+                )
 
     def health(self) -> dict[str, Any]:
         if self.tpu is None:
@@ -35,10 +64,12 @@ class Container:
 
     @property
     def handler_executor(self) -> ThreadPoolExecutor:
-        """Thread pool for sync handlers, sized for blocking generations."""
+        """Thread pool for sync handlers, sized for blocking generations
+        (``HANDLER_THREADS``)."""
         if self._handler_pool is None:
             self._handler_pool = ThreadPoolExecutor(
-                max_workers=HANDLER_THREADS, thread_name_prefix="gofr-handler"
+                max_workers=int(self.config.get_or_default("HANDLER_THREADS", "64")),
+                thread_name_prefix="gofr-handler",
             )
         return self._handler_pool
 

@@ -1,5 +1,5 @@
-"""HTTP transport: asyncio HTTP/1.1 server, router, request, responder
-and response types (copied from ``gofr_tpu/http/``, middleware left out)."""
+"""HTTP transport: asyncio HTTP/1.1 server, router, request, responder,
+response types and the middleware chain (copied from ``gofr_tpu/http/``)."""
 
 from gofr_tpu_torch.http.request import Request
 from gofr_tpu_torch.http.response import File, Raw, Response, Stream

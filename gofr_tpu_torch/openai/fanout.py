@@ -342,8 +342,8 @@ def fanout_generate(
             return toks, lps, None, text, finish
         if top_n:
             toks, lps, tops = ctx.tpu.generate(
-                prompt_ids, max_tokens, sampler=s, stop_tokens=stop_ids, top_logprobs=True,
-                adapter=adapter,
+                prompt_ids, max_tokens, sampler=s, stop_tokens=stop_ids, logprobs=True,
+                top_logprobs=True, adapter=adapter,
             )
             return toks, lps, tops, None, None
         out = ctx.tpu.generate(

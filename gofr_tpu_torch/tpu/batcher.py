@@ -10,9 +10,14 @@ drained batch splits into per-bucket cohorts and the fullest dispatches
 batch's host work overlaps the next. With a ``scheduler``
 (``tpu/scheduler.py``) each dispatch first waits for its turn between
 pooled decode chunks. ``infer`` blocks (60 s by default, as in the JAX
-package); ``infer_async`` awaits. Metrics, tracing and deadlines of the
-JAX package are not ported yet. ``verify_width`` and its ladder cohort pooled
-speculation's verify widths.
+package); ``infer_async`` awaits. With ``metrics`` it keeps the JAX batcher's
+families, labelled ``model``: ``gofr_tpu_batch_size`` and
+``gofr_tpu_queue_wait_seconds`` (each dispatch), ``gofr_tpu_queue_depth``
+(each submit and dispatch), ``gofr_tpu_prefill_padded_tokens_total``
+(bucket width minus true length, with a ``bucket_fn``) and the
+``gofr_tpu_deadline_exceeded_total`` registration. Tracing spans and
+deadlines of the JAX package are not ported yet. ``verify_width`` and its
+ladder cohort pooled speculation's verify widths.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 
+from gofr_tpu_torch.deadline import deadline_exceeded_counter
 from gofr_tpu_torch.errors import TooManyRequestsError
 
 
@@ -109,6 +115,7 @@ class DynamicBatcher:
         pipeline_depth: int = 2,
         bucket_fn: Optional[Callable[[Any], int]] = None,
         scheduler: Any = None,
+        metrics: Any = None,
     ):
         self.run_batch = run_batch
         self.max_batch = max_batch
@@ -123,6 +130,29 @@ class DynamicBatcher:
         self._queue: "queue.Queue[Optional[_Item]]" = queue.Queue(maxsize=max_queue)
         self._pending: "deque[_Item]" = deque()
         self._closed = False
+        self.name = name
+        self._batch_hist = self._queue_gauge = self._wait_hist = None
+        self._padded_counter = None
+        if metrics is not None:
+            self._batch_hist = metrics.histogram(
+                "gofr_tpu_batch_size", "dispatched batch sizes",
+                labels=("model",), buckets=(1, 2, 4, 8, 16, 32, 64, 128),
+            )
+            self._queue_gauge = metrics.gauge(
+                "gofr_tpu_queue_depth", "requests waiting for a batch", labels=("model",)
+            )
+            self._wait_hist = metrics.histogram(
+                "gofr_tpu_queue_wait_seconds", "time from enqueue to dispatch",
+                labels=("model",),
+            )
+            if bucket_fn is not None:
+                self._padded_counter = metrics.counter(
+                    "gofr_tpu_prefill_padded_tokens_total",
+                    "pad tokens dispatched in prefill batches "
+                    "(bucket width minus true length, summed per cohort)",
+                    labels=("model",),
+                )
+            deadline_exceeded_counter(metrics)  # the family; deadlines come later
         self._thread = threading.Thread(
             target=self._run, daemon=True, name=f"gofr-batcher-{name}"
         )
@@ -136,6 +166,8 @@ class DynamicBatcher:
             self._queue.put_nowait(item)
         except queue.Full:
             raise TooManyRequestsError("inference queue is full") from None
+        if self._queue_gauge is not None:
+            self._queue_gauge.set(self._depth(), model=self.name)
         return item.future
 
     def infer(self, payload: Any, timeout: float = 60.0) -> Any:
@@ -205,14 +237,39 @@ class DynamicBatcher:
         keep = set(map(id, chosen))
         return chosen, [i for i in batch if id(i) not in keep]
 
+    def _depth(self) -> int:
+        """Requests waiting for a batch: the queue plus the items cohort
+        formation displaced into the worker's pending buffer."""
+        return self._queue.qsize() + len(self._pending)
+
+    def _note_dispatch(self, batch: list[_Item]) -> int:
+        """The dispatch's metrics (batch size, queue depth, each item's
+        wait, the pad tokens its bucket burns); returns the bucket (0
+        without a ``bucket_fn``)."""
+        now = time.perf_counter()
+        if self._batch_hist is not None:
+            self._batch_hist.observe(len(batch), model=self.name)
+            self._queue_gauge.set(self._depth(), model=self.name)
+            for item in batch:
+                self._wait_hist.observe(now - item.arrival, model=self.name)
+        if self.bucket_fn is None:
+            return 0
+        bucket = max(self.bucket_fn(item.payload) for item in batch)
+        padded = sum(
+            max(bucket - min(int(getattr(i.payload, "size", 0) or 0), bucket), 0) for i in batch
+        )
+        if padded and self._padded_counter is not None:
+            self._padded_counter.inc(padded, model=self.name)
+        return bucket
+
     def _dispatch(self, batch: list[_Item]) -> None:
         with self._count_lock:
             self.dispatches += 1
         try:
-            if self.bucket_fn is not None and self.scheduler is not None:
+            bucket = self._note_dispatch(batch)
+            if bucket and self.scheduler is not None:
                 # one batched prefill is one bounded-compute chunk: wait
                 # for its turn between pooled decode chunks
-                bucket = max(self.bucket_fn(item.payload) for item in batch)
                 self.scheduler.admit_prefill(bucket * len(batch))
             results = self.run_batch([item.payload for item in batch])
         except Exception as exc:

@@ -79,8 +79,15 @@ solo). A bank rebuilt while adapter slots are live waits for them to
 finish (new adapter submits solo meanwhile, ``bank_rebuilding``), so an id
 never indexes a bank swapped under it.
 
-Later slices take the rest of the JAX pool: deadlines, metrics, the
-dispatch timeline and the watchdog.
+Metrics (``metrics``, the app's registry): ``gofr_tpu_decode_slots_active``
+at each submit and each delivered chunk or verify,
+``gofr_tpu_tokens_total{op="decode"}`` by the tokens each chunk or verify
+delivered, ``gofr_tpu_pool_reject_total{reason}`` at each reject, and the
+spec gauges through ``PoolSpecConfig.note_cycle``: all from host values
+(ids already fetched, counts), never a device read.
+
+Later slices take the rest of the JAX pool: deadlines, the MFU and MBU
+gauges, the dispatch timeline and the watchdog.
 """
 
 from __future__ import annotations
@@ -93,7 +100,12 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from gofr_tpu_torch.deadline import clamp_spec_k
+from gofr_tpu_torch.deadline import (
+    cancellations_counter,
+    clamp_spec_k,
+    deadline_exceeded_counter,
+    pool_reject_counter,
+)
 from gofr_tpu_torch.ops.attention import kv_bits
 from gofr_tpu_torch.tpu.batcher import verify_width, verify_width_ladder
 from gofr_tpu_torch.tpu.kv_blocks import to_device
@@ -198,7 +210,8 @@ class DecodePool:
     (``tpu/scheduler.py``) is told of every chunk and verify; ``kv`` (a
     ``BlockPool``) gates admission on its ledger; ``penalties`` is
     DECODE_POOL_PENALTIES; ``spec`` (a ``PoolSpecConfig``) turns pooled
-    speculation on."""
+    speculation on; ``metrics`` (a ``Registry``) takes the pool's families,
+    labelled ``model``."""
 
     def __init__(
         self,
@@ -211,6 +224,8 @@ class DecodePool:
         penalties: str = "lazy",
         cache_dtype: Optional[torch.dtype] = None,
         spec: Any = None,
+        metrics: Any = None,
+        model_name: str = "",
     ):
         if pipeline_depth < 1:
             raise ValueError(f"pipeline_depth must be >= 1, got {pipeline_depth}")
@@ -273,6 +288,19 @@ class DecodePool:
         # emitted tokens, and verify dispatches by width
         self.spec_stats: dict = {"cycles": 0, "rows": 0, "drafted": 0, "accepted": 0,
                                  "emitted": 0, "widths": {}}
+        self._model_name = model_name
+        self._depth_gauge = self._reject_counter = self._tokens_counter = None
+        if metrics is not None:
+            self._depth_gauge = metrics.gauge("gofr_tpu_decode_slots_active",
+                                              "active decode slots")
+            self._reject_counter = pool_reject_counter(metrics)
+            # the families the JAX pool registers beside it (deadlines and
+            # cancellations come with a later slice)
+            deadline_exceeded_counter(metrics)
+            cancellations_counter(metrics)
+            # a lookup: the family's registration home is the device's
+            self._tokens_counter = metrics.counter("gofr_tpu_tokens_total",
+                                                   labels=("model", "op"))
         # one chunk now (kernel build, cuBLAS's first products), then back
         # to empty slots: the first request must not pay it under the lock
         with torch.no_grad():
@@ -361,6 +389,8 @@ class DecodePool:
                 (slot.index, row_cache, start_len, first_token, knobs, penalty)
             )
             self._active[slot.index] = slot
+            if self._depth_gauge is not None:
+                self._depth_gauge.set(len(self._active))
             self._work.notify()
         return out
 
@@ -533,6 +563,8 @@ class DecodePool:
         """Count a submit rejection and raise ``queue.Full`` unless
         ``count_only``: the device then decodes the request solo."""
         self.rejects[reason] = self.rejects.get(reason, 0) + 1
+        if self._reject_counter is not None:
+            self._reject_counter.inc(reason=reason)
         if not count_only:
             raise queue.Full(msg)
 
@@ -672,29 +704,42 @@ class DecodePool:
 
     def _deliver(self, records: list, toks: np.ndarray, lps: np.ndarray,
                  tvals: Any, tids: Any) -> None:
+        delivered = 0
         for index, req in records:
             if req is None or req.finished:
                 continue  # freed mid-pipeline; this chunk's row is garbage
-            self._deliver_one(index, req, toks, lps, tvals, tids)
+            delivered += self._deliver_one(index, req, toks, lps, tvals, tids)
         if self._sched is not None and not self._active:
             self._sched.note_decode_idle()  # release any waiting prefill
+        self._account_chunk(delivered)
+
+    def _account_chunk(self, delivered: int) -> None:
+        """One chunk's or verify's metrics (pool lock held): the active
+        slots and the tokens its requests received, host counts alone."""
+        if self._depth_gauge is not None:
+            self._depth_gauge.set(len(self._active))
+        if self._tokens_counter is not None and delivered:
+            self._tokens_counter.inc(delivered, model=self._model_name, op="decode")
 
     def _deliver_one(self, index: int, req: _Request, toks: np.ndarray, lps: np.ndarray,
-                     tvals: Any, tids: Any) -> None:
+                     tvals: Any, tids: Any) -> int:
         """One request's share of a fetched chunk (pool lock held): one
         burst put, bookkeeping, and the finish when it was cancelled, hit a
-        stop token, or ran out of budget or cache."""
+        stop token, or ran out of budget or cache. Returns the tokens the
+        request received."""
         room = self.max_len - req.cache_len  # valid steps this chunk
         req.cache_len += self.chunk
         take = min(self.chunk, req.remaining, max(room, 0))
         cancelled = req.stop is not None and req.stop.is_set()
         hit_stop_token = False
+        delivered = 0
         if not cancelled and req.out_queue is not None:
             burst, hit_stop_token = self._build_burst(
                 req, index, toks[index], lps[index], tvals, tids, take
             )
             if burst:
                 req.out_queue.put(burst)
+                delivered = len(burst)
             if req.spec is not None:
                 # an armed row rode a plain chunk (a mixed cohort or a dry
                 # spec round): keep its draft context and pending token on
@@ -707,6 +752,7 @@ class DecodePool:
         if (cancelled or hit_stop_token or req.remaining <= 0
                 or req.cache_len >= self.max_len):
             self._finish_request(index, req, cancelled)
+        return delivered
 
     def _build_burst(self, req: _Request, index: int, emitted: Any, emitted_lps: Any,
                      tvals: Any, tids: Any, take: int) -> tuple:
@@ -867,6 +913,7 @@ class DecodePool:
         stats = self.spec_stats
         stats["cycles"] += 1
         stats["widths"][width] = stats["widths"].get(width, 0) + 1
+        delivered = drafted = accepted = 0
         for index, req in records:
             if req is None or req.finished:
                 continue
@@ -876,11 +923,14 @@ class DecodePool:
             while n_acc < len(d) and d[n_acc] == int(row[n_acc]):
                 n_acc += 1
             stats["rows"] += 1
-            stats["drafted"] += len(d)
-            stats["accepted"] += n_acc
-            stats["emitted"] += self._spec_deliver_one(
+            drafted += len(d)
+            accepted += n_acc
+            delivered += self._spec_deliver_one(
                 index, req, [int(row[j]) for j in range(n_acc + 1)], n_acc, len(d)
             )
+        stats["drafted"] += drafted
+        stats["accepted"] += accepted
+        stats["emitted"] += delivered
         lengths = np.zeros(self.n_slots, np.int32)
         pendings = np.zeros((self.n_slots, 1), np.int32)
         for index, slot in self._active.items():
@@ -893,6 +943,9 @@ class DecodePool:
         self._last_tokens = to_device(pendings, dev)
         if self._sched is not None and not self._active:
             self._sched.note_decode_idle()
+        self._account_chunk(delivered)
+        # per-row semantics on the shared gauge (1.0 = plain decode)
+        self.spec_cfg.note_cycle(drafted, accepted, delivered, dispatches=len(records))
 
     def _spec_deliver_one(self, index: int, req: _Request, burst: list, n_acc: int,
                           drafted: int) -> int:

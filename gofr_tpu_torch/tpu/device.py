@@ -81,7 +81,14 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from gofr_tpu_torch.errors import InvalidParamError
+from gofr_tpu_torch.deadline import (
+    cancellations_counter,
+    clamp_spec_k,
+    deadline_exceeded_counter,
+    pool_reject_counter,
+)
+from gofr_tpu_torch.errors import HTTPError, InvalidParamError
+from gofr_tpu_torch.metrics import Registry
 from gofr_tpu_torch.models.bert import BERT_BASE, BERT_TINY, Bert, bert_embed
 from gofr_tpu_torch.models.ingest import is_safetensors_path, load_llama_params
 from gofr_tpu_torch.models.llama import CONFIGS
@@ -112,6 +119,8 @@ from gofr_tpu_torch.tpu.flops import bert_param_count
 from gofr_tpu_torch.tpu.kv_blocks import (
     BlockPool,
     BlockTable,
+    HostPagedKV,
+    HostTokenArena,
     KVExhausted,
     TorchKVArena,
     blocks_for,
@@ -119,7 +128,7 @@ from gofr_tpu_torch.tpu.kv_blocks import (
     to_device,
 )
 from gofr_tpu_torch.tpu.scheduler import POLICIES, InterferenceScheduler
-from gofr_tpu_torch.tpu.spec_pool import PoolSpecConfig
+from gofr_tpu_torch.tpu.spec_pool import PoolSpecConfig, parse_fake_accept
 from gofr_tpu_torch.training.checkpoint import restore_params
 
 
@@ -201,6 +210,8 @@ def load_model(cfg: Any, device: torch.device, model_path: Optional[str], quant:
     quantized after the load; no path draws a seeded random model,
     quantized as each weight is drawn. A path that cannot be read raises:
     no route falls back to random weights."""
+    if model_path and not os.path.exists(model_path):
+        raise FileNotFoundError(f"MODEL_PATH {model_path!r} does not exist")
     if model_path and is_safetensors_path(model_path):
         return load_llama_params(model_path, cfg, quantize=quant, device=device)
     if model_path:
@@ -260,7 +271,8 @@ def spec_options(config: Any) -> dict:
     """The speculation keys with the JAX package's defaults and validation
     errors (``gofr_tpu/tpu/device.py``): the solo latency mode's draft
     (``DRAFT_MODEL_NAME``, ``DRAFT_TOKENS``, ``DRAFT_MODEL_PATH``) and
-    pooled speculation (``SPEC_POOLED``, ``SPEC_NGRAM``, ``SPEC_K_MAX``)."""
+    pooled speculation (``SPEC_POOLED``, ``SPEC_NGRAM``, ``SPEC_K_MAX``,
+    and the echo runner's scripted ``SPEC_FAKE_ACCEPT``)."""
     opts: dict = {}
     opts["draft_name"] = config.get_or_default("DRAFT_MODEL_NAME", "").strip()
     opts["draft_tokens"] = int(config.get_or_default("DRAFT_TOKENS", "4"))
@@ -275,10 +287,13 @@ def spec_options(config: Any) -> dict:
     opts["spec_k_max"] = int(config.get_or_default("SPEC_K_MAX", "4"))
     if opts["spec_k_max"] < 1:
         raise ValueError("SPEC_K_MAX must be >= 1")
-    if opts["spec_pooled"] and not opts["spec_ngram"]:
+    raw_fake = config.get_or_default("SPEC_FAKE_ACCEPT", "").strip()
+    opts["spec_fake_accept"] = parse_fake_accept(raw_fake) if raw_fake else None
+    if opts["spec_pooled"] and not (opts["spec_ngram"] or opts["spec_fake_accept"]):
         raise ValueError(
             "SPEC_POOLED=on needs a draft source: keep SPEC_NGRAM=on "
-            "(zero-weight prompt-lookup drafting)"
+            "(zero-weight prompt-lookup drafting) or script "
+            "SPEC_FAKE_ACCEPT (echo runner)"
         )
     return opts
 
@@ -302,13 +317,27 @@ class TPUDevice:
     """The ``ctx.tpu`` datasource of the port (the name is the JAX
     package's, so handlers written for it run unchanged). ``model``: an
     already-built model of ``MODEL_NAME``'s family (``Transformer``,
-    ``Bert`` or ``MLP``) in place of the seeded init or ``MODEL_PATH``."""
+    ``Bert`` or ``MLP``) in place of the seeded init or ``MODEL_PATH``.
+    ``metrics``: the app's registry (a private one when omitted).
+
+    The constructor parses and validates the configuration (no device is
+    touched); the boot then probes the device, builds the runner, the
+    kernels (nvcc at first use), the pool and the batcher, and warms them,
+    each step a stage in ``boot_status``. ``TPU_BOOT=background`` runs the
+    boot on a thread: ``ready()`` is False and requests wait
+    (``wait_ready``) until it ends; a boot that fails leaves
+    ``boot_status["state"] == "failed"`` and every request fails with its
+    error. A foreground boot's failure raises from the constructor."""
 
     def __init__(self, config: Any, logger: Any, model: Any = None,
-                 draft_model: Optional[Transformer] = None):
+                 draft_model: Optional[Transformer] = None, metrics: Any = None):
         self.logger = logger
+        self.metrics = metrics if metrics is not None else Registry()
         self.model_name = config.get_or_default("MODEL_NAME", "mlp")
-        self.device = resolve_device(config.get_or_default("TORCH_DEVICE", "cuda"))
+        self._device_name = config.get_or_default("TORCH_DEVICE", "cuda")
+        if self._device_name not in ("cuda", "cpu"):
+            raise ValueError(f"TORCH_DEVICE {self._device_name!r} not supported — use cuda or cpu")
+        self.device: Optional[torch.device] = None  # probed by the boot
         self.max_batch = int(config.get_or_default("BATCH_MAX_SIZE", "8"))
         self.timeout_ms = float(config.get_or_default("BATCH_TIMEOUT_MS", "5"))
         raw_max_seq = config.get("MODEL_MAX_SEQ")
@@ -320,6 +349,9 @@ class TPUDevice:
             raise ValueError(f"MODEL_BUCKETS entries must be positive, got {raw_buckets!r}")
         self.options = serving_options(config, self.max_batch)
         self.spec_options = spec_options(config)
+        self.echo_step_ms = float(config.get_or_default("ECHO_STEP_MS", "0"))
+        if self.echo_step_ms < 0:
+            raise ValueError("ECHO_STEP_MS must be >= 0")
         # validated here, so a typo fails at startup
         self.quant = config.get_or_default("MODEL_QUANT", "").strip() or None
         quantizer_for(self.quant)
@@ -333,52 +365,221 @@ class TPUDevice:
         self.tokenizer = load_tokenizer(config)
         # default stops end every generation; request stops compose with them
         self.default_stop_ids = resolve_default_stop_ids(config, self.tokenizer)
-        if self.device.type == "cuda":
+        self._init_metrics(self.metrics)
+        self._build_args = (config, model, draft_model, kv_dtype, raw_max_seq, buckets,
+                            int(config.get_or_default("MODEL_SEED", "0")))
+        self.runner: Any = None
+        self.scheduler: Optional[InterferenceScheduler] = None
+        self.kv_pool: Optional[BlockPool] = None
+        self.decode_pool: Optional[DecodePool] = None
+        self.batcher: Optional[DynamicBatcher] = None
+        self.boot_seconds = 0.0
+        # surfaced by /.well-known/ready and health: a slow boot (the
+        # kernels' build, an 8B init) is observable, never a silent hang
+        self.boot_status: dict[str, Any] = {"state": "booting", "detail": ""}
+        self._ready = threading.Event()
+        self._boot_error: Optional[BaseException] = None
+        self._closed = False
+        if config.get_or_default("TPU_BOOT", "") == "background":
+            threading.Thread(target=self._boot, name="gofr-tpu-boot", daemon=True).start()
+        else:
+            self._boot()
+
+    def _init_metrics(self, metrics: Any) -> None:
+        """The device's families, as the JAX device registers them (its
+        compile, cache and mesh families come with later slices)."""
+        self._requests = metrics.counter(
+            "gofr_tpu_requests_total", "TPU inference requests", labels=("model", "op", "status")
+        )
+        self._ttft = metrics.histogram(
+            "gofr_tpu_ttft_seconds", "time to first token / result", labels=("model", "op")
+        )
+        self._mem_gauge = metrics.gauge(
+            "gofr_tpu_device_memory_bytes", "device memory", labels=("kind",)
+        )
+        self._tokens_counter = metrics.counter(
+            "gofr_tpu_tokens_total", "tokens processed", labels=("model", "op")
+        )
+        self._spec_gauge = metrics.gauge(
+            "gofr_tpu_spec_acceptance",
+            "speculative decoding: accepted draft tokens / drafted",
+            labels=("model",),
+        )
+        self._prefix_gauge = metrics.gauge(
+            "gofr_tpu_prefix_hit_ratio",
+            "prefix cache: exact prompt hits / lookups",
+            labels=("model",),
+        )
+        self._prefix_partial_gauge = metrics.gauge(
+            "gofr_tpu_prefix_partial_hit_ratio",
+            "prefix cache: shared-prefix (tail-only prefill) hits / lookups",
+            labels=("model",),
+        )
+        # each entry is one max_seq KV row (blocks, when paged)
+        self._prefix_entries_gauge = metrics.gauge(
+            "gofr_tpu_prefix_entries",
+            "prefix cache: live entries (each one max_seq KV row of HBM)",
+            labels=("model",),
+        )
+
+    # -- the boot ------------------------------------------------------------
+    def _boot(self) -> None:
+        start = time.perf_counter()
+        try:
+            if self.model_name != "echo":  # echo touches no device
+                self._boot_progress(f"probing the device (TORCH_DEVICE={self._device_name})")
+                self.device = resolve_device(self._device_name)
+            self._build_stack()
+        except BaseException as exc:
+            self._boot_error = exc
+            self.boot_status = {"state": "failed", "detail": repr(exc)}
+            self._ready.set()
+            if threading.current_thread().name == "gofr-tpu-boot":
+                self.logger.errorf("device boot failed: %r", exc)
+                return
+            raise
+        self.boot_seconds = time.perf_counter() - start
+        if self._closed:
+            # closed while the background boot built: tear the new stack
+            # down instead of leaking its threads and buffers
+            self._boot_error = RuntimeError("device closed during boot")
+            self.boot_status = {"state": "closed", "detail": ""}
+            self._teardown_stack()
+            self._ready.set()
+            return
+        self.boot_status = {"state": "ready", "detail": ""}
+        self._ready.set()
+        self.logger.infof("device ready: %s", self.describe())
+
+    def _boot_progress(self, detail: str) -> None:
+        """One boot stage: logged, and the readiness body's detail."""
+        self.boot_status = {"state": "warming", "detail": detail}
+        self.logger.infof("device boot [%s]: %s", self.model_name, detail)
+
+    def _build_stack(self) -> None:
+        """The runner, its serving machinery and the batcher, warmed."""
+        config, model, draft_model, kv_dtype, raw_max_seq, buckets, seed = self._build_args
+        self._build_args = None  # a given model is the runner's from here
+        name = self.model_name
+        if self.device is not None and self.device.type == "cuda":
             # bf16 products accumulate in f32 (models/quant.py::mm)
             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-        start = time.perf_counter()
-        name = self.model_name
-        seed = int(config.get_or_default("MODEL_SEED", "0"))
         # the JAX package's runner selection (``_build_runner``), its
         # checks in its order; mlp and bert deployments build no scheduler,
         # pool, paged KV, speculation or adapter bank
         if self._lora_adapters and name not in CONFIGS:
             raise ValueError(f"LORA_ADAPTERS requires a transformer MODEL_NAME (got '{name}')")
-        self.scheduler: Optional[InterferenceScheduler] = None
-        self.kv_pool: Optional[BlockPool] = None
-        self.decode_pool: Optional[DecodePool] = None
-        if name in ("mlp", "tiny-mlp"):
-            self.runner: Any = _MLPRunner(self.device, self.max_batch, seed, model,
-                                          self.model_path)
+        if name == "echo" or name in CONFIGS:
+            # ONE scheduler shared by both dispatchers: the pool notes its
+            # chunk cadence, prefill dispatches (batcher cohorts and chunked
+            # slices) wait for their turn
+            opts = self.options
+            self.scheduler = InterferenceScheduler(
+                policy=opts["sched_policy"], max_defer_ms=opts["sched_max_defer_ms"],
+                metrics=self.metrics, model=name,
+            )
+        self._boot_progress("building runner (model init / checkpoint load)")
+        if name == "echo":
+            self.runner = _EchoRunner(step_ms=self.echo_step_ms, metrics=self.metrics)
+            self._wire_echo()
+        elif name in ("mlp", "tiny-mlp"):
+            self.runner = _MLPRunner(self.device, self.max_batch, seed, model, self.model_path)
         elif name.startswith("bert"):
             self.runner = _BertRunner(name, self.device, self.max_batch, seed, model,
                                       self.model_path, self.quant)
         elif name in CONFIGS:
             self._init_decoder(config, model, draft_model, kv_dtype, raw_max_seq, buckets, seed)
-        elif name == "echo":
-            raise ValueError("MODEL_NAME 'echo' (the loopback runner) is not in the port yet")
         else:
             raise ValueError(
                 f"unknown MODEL_NAME '{name}' — expected echo, mlp, bert-tiny, "
                 f"bert-base, or one of {sorted(CONFIGS)}"
             )
         if not self.is_decoder:
-            # the kernels' build and first launches happen at boot, not at
-            # the first request
-            self.runner.warmup()
-        if self.device.type == "cuda":
+            # the kernels' build and first launches happen in the boot, not
+            # at the first request (the decoder warms in _init_decoder)
+            self.runner.warmup(self._boot_progress)
+        if self.device is not None and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)  # boot time includes the init
         self.batcher = DynamicBatcher(
-            self.runner.run_batch,
+            self._run_batch,
             max_batch=self.max_batch,
             timeout_ms=self.timeout_ms,
             name=self.model_name,
             bucket_fn=getattr(self.runner, "bucket_for_payload", None),
             scheduler=self.scheduler,
+            metrics=self.metrics,
         )
-        self.boot_seconds = time.perf_counter() - start
-        self._closed = False
-        logger.infof("device ready: %s", self.describe())
+
+    def _wire_echo(self) -> None:
+        """The echo runner's paged store (``KV_PAGED``, on by default: a
+        host arena, ``KV_BLOCKS`` of them or 1024) and its pooled
+        speculation (``SPEC_POOLED``, with the ``SPEC_FAKE_ACCEPT``
+        schedule), as the JAX device wires them."""
+        opts, spec = self.options, self.spec_options
+        if opts["kv_paged"]:
+            bt = opts["kv_block_tokens"]
+            n_blocks = opts["kv_blocks"] or 1024  # ~64k tokens of host "KV"
+            arena = HostTokenArena(n_blocks, bt)
+            pool = BlockPool(
+                n_blocks, bt, block_bytes=arena.block_bytes,
+                hbm_budget_bytes=n_blocks * arena.block_bytes,
+                # echo has no PREFIX_CACHE of its own: reuse it when set
+                cache_entries=opts["prefix_cache"] or 32, metrics=self.metrics,
+            )
+            lcp_min = opts["prefix_lcp_min"]
+            if lcp_min == 0:
+                lcp_min = 8  # echo has no buckets to anchor on
+            elif lcp_min < 0:
+                lcp_min = 1 << 30  # -1 = exact hits only
+            self.runner.enable_paged_kv(HostPagedKV(pool, arena, lcp_min=lcp_min),
+                                        reject_counter=pool_reject_counter(self.metrics))
+            self.kv_pool = pool
+        if spec["spec_pooled"]:
+            self.runner.enable_pooled_spec(self._spec_config(include_fake=True))
+
+    def _spec_config(self, include_fake: bool) -> PoolSpecConfig:
+        """Pooled speculation's settings and gauges; the scripted
+        ``SPEC_FAKE_ACCEPT`` source is the echo runner's alone."""
+        spec = self.spec_options
+        return PoolSpecConfig(
+            k_max=spec["spec_k_max"], ngram=spec["spec_ngram"],
+            fake_schedule=spec["spec_fake_accept"] if include_fake else None,
+            metrics=self.metrics, model=self.model_name,
+        )
+
+    def _teardown_stack(self) -> None:
+        """Close the pool, the batcher and the runner, each even if another
+        fails."""
+        runner_close = getattr(self.runner, "close", None)
+        try:
+            if self.decode_pool is not None:
+                self.decode_pool.close()
+        finally:
+            try:
+                if self.batcher is not None:
+                    self.batcher.close()
+            finally:
+                if runner_close is not None:
+                    runner_close()
+
+    # -- readiness (distinct from liveness) ----------------------------------
+    def ready(self) -> bool:
+        return self._ready.is_set() and self._boot_error is None
+
+    def wait_ready(self, timeout: Optional[float] = 600.0) -> None:
+        """Block until the boot ended; a failed or closed boot raises a 503
+        that names its error. Request paths call it, so a request that
+        arrives during a background boot waits."""
+        if not self._ready.wait(timeout):
+            raise HTTPError(
+                503, f"device boot still {self.boot_status['state']} "
+                     f"({self.boot_status['detail']}) after {timeout}s"
+            )
+        if self._boot_error is not None:
+            raise HTTPError(503, f"device boot failed: {self._boot_error!r}") \
+                from self._boot_error
+        if self._closed:
+            raise RuntimeError("device is closed")
 
     @property
     def is_decoder(self) -> bool:
@@ -388,15 +589,9 @@ class TPUDevice:
     def _init_decoder(self, config: Any, model: Optional[Transformer],
                       draft_model: Optional[Transformer], kv_dtype: Optional[torch.dtype],
                       raw_max_seq: Optional[str], buckets: Optional[tuple], seed: int) -> None:
-        """The decoder's runner and its serving machinery: the scheduler,
-        paged KV and the decode pool."""
+        """The decoder's runner and its serving machinery: paged KV and the
+        decode pool, warmed."""
         opts, spec = self.options, self.spec_options
-        # ONE scheduler shared by both dispatchers: the pool notes its chunk
-        # cadence, prefill dispatches (batcher cohorts and chunked slices)
-        # wait for their turn
-        self.scheduler = InterferenceScheduler(
-            policy=opts["sched_policy"], max_defer_ms=opts["sched_max_defer_ms"]
-        )
         self.runner = _TransformerRunner(
             self.model_name,
             self.device,
@@ -421,26 +616,35 @@ class TPUDevice:
             draft_path=spec["draft_path"],
             draft_model=draft_model,
             lora_adapters=self._lora_adapters,
+            metrics=self.metrics,
         )
         if self.runner.kv_paged_disabled:
             self.logger.warnf("paged KV disabled: %s", self.runner.kv_paged_disabled)
         self.kv_pool = self.runner.kv_pool
+        self.runner.warmup(self._boot_progress)
         # continuous batching: concurrent decodes share one dispatch per
         # chunk; seeded requests bypass it (generate routes them solo). The
         # pool's admission reserves each request's KV blocks on the SAME
         # BlockPool the prefix cache stores into
         if opts["pool_enabled"]:
+            self._boot_progress(f"warming decode pool ({opts['pool_slots']} slots)")
             self.decode_pool = DecodePool(
                 self.runner.model, n_slots=opts["pool_slots"],
                 chunk=self.runner.decode_chunk_size, pipeline_depth=opts["pool_depth"],
                 scheduler=self.scheduler, kv=self.kv_pool, penalties=opts["pool_penalties"],
                 cache_dtype=self.runner.cache_dtype,
-                spec=(PoolSpecConfig(k_max=spec["spec_k_max"]) if spec["spec_pooled"] else None),
+                spec=self._spec_config(include_fake=False) if spec["spec_pooled"] else None,
+                metrics=self.metrics, model_name=self.model_name,
             )
             if self.runner.adapters:
+                self._boot_progress("warming pooled multi-LoRA bank")
                 self._refresh_pool_lora()
 
     def describe(self) -> str:
+        if self.runner is None:
+            return f"model={self.model_name} boot={self.boot_status['state']}"
+        if self.device is None:
+            return f"model={self.model_name} device=none (loopback) boot={self.boot_seconds:.1f}s"
         kind = (
             torch.cuda.get_device_name(self.device)
             if self.device.type == "cuda" else "cpu"
@@ -463,17 +667,42 @@ class TPUDevice:
             f"boot={self.boot_seconds:.1f}s"
         )
 
-    def wait_ready(self, timeout: Optional[float] = None) -> None:
-        """The port boots synchronously in the constructor; a closed device
-        is not ready."""
-        if self._closed:
-            raise RuntimeError("device is closed")
-
     def health_check(self) -> dict:
-        return {
-            "status": "DOWN" if self._closed else "UP",
-            "details": {"model": self.model_name, "device": str(self.device)},
+        """UP while booting (alive, not yet ready: readiness is the gate),
+        DOWN after a failed boot or a close, else UP with the device's
+        allocator bytes (host bookkeeping, no device read)."""
+        details: dict[str, Any] = {
+            "model": self.model_name,
+            "device": str(self.device) if self.device is not None else None,
         }
+        if not self._ready.is_set():
+            return {"status": "UP", "details": {**details, "boot": dict(self.boot_status)}}
+        if self._boot_error is not None:
+            return {"status": "DOWN", "details": {**details, "boot": dict(self.boot_status)}}
+        if self.device is not None and self.device.type == "cuda":
+            used = torch.cuda.memory_stats(self.device).get("allocated_bytes.all.current", 0)
+            limit = torch.cuda.get_device_properties(self.device).total_memory
+            details["memory_bytes_in_use"] = used
+            details["memory_bytes_limit"] = limit
+            self._mem_gauge.set(used, kind="in_use")
+            self._mem_gauge.set(limit, kind="limit")
+        return {"status": "DOWN" if self._closed else "UP", "details": details}
+
+    def _run_batch(self, payloads: list) -> list:
+        """The batcher's dispatch: the runner's batched forward, and the
+        prefill's true tokens counted where the JAX device counts them
+        (runners with a parameter count: the decoder and the encoder)."""
+        results = self.runner.run_batch(payloads)
+        if isinstance(self.runner, (_TransformerRunner, _BertRunner)):
+            tokens = sum(int(getattr(p, "size", 0)) for p in payloads)
+            if tokens:
+                self._tokens_counter.inc(tokens, model=self.model_name, op="prefill")
+        return results
+
+    def _observe(self, op: str, status: str, start: float) -> None:
+        self._requests.inc(model=self.model_name, op=op, status=status)
+        if status == "ok":
+            self._ttft.observe(time.perf_counter() - start, model=self.model_name, op=op)
 
     # -- the batched forward of any runner (the JAX package's infer) -------------
     def infer(self, payload: Any, timeout: float = 60.0) -> Any:
@@ -483,14 +712,36 @@ class TPUDevice:
         text (a str or ``{"text": ...}``) with a tokenizer. The MLP returns
         its output row, BERT the embedding, the decoder its prefill state
         (``next_token`` is the greedy next id)."""
+        wait_start = time.perf_counter()
         self.wait_ready(timeout)
-        return self.batcher.infer(self._prepare(payload), timeout=timeout)
+        # the batcher gets what remains of the caller's budget
+        remaining = max(0.001, timeout - (time.perf_counter() - wait_start))
+        start = time.perf_counter()
+        try:
+            result = self.batcher.infer(self._prepare(payload), timeout=remaining)
+        except Exception:
+            self._observe("infer", "error", start)
+            raise
+        self._observe("infer", "ok", start)
+        return result
 
     async def infer_async(self, payload: Any) -> Any:
         """``infer`` for async handlers: a multi-item request awaits its
-        items together, so they pack into one dispatch."""
+        items together, so they pack into one dispatch. During a
+        background boot it waits off the event loop."""
+        if not self._ready.is_set():
+            import asyncio
+
+            await asyncio.get_running_loop().run_in_executor(None, self.wait_ready, 600.0)
         self.wait_ready()
-        return await self.batcher.infer_async(self._prepare(payload))
+        start = time.perf_counter()
+        try:
+            result = await self.batcher.infer_async(self._prepare(payload))
+        except Exception:
+            self._observe("infer", "error", start)
+            raise
+        self._observe("infer", "ok", start)
+        return result
 
     def _prepare(self, payload: Any) -> Any:
         return self.runner.prepare(self._detokenize(payload))
@@ -512,10 +763,11 @@ class TPUDevice:
             )
         return {"tokens": self.tokenizer.encode(text)}
 
-    def _decoder(self) -> "_TransformerRunner":
-        """The decoder runner; the MLP and the encoder raise the JAX
-        runners' NotImplementedError (a 500 over HTTP)."""
-        if not self.is_decoder:
+    def _generator(self) -> Any:
+        """The runner that generates (the decoder or echo); the MLP and the
+        encoder raise the JAX runners' NotImplementedError (a 500 over
+        HTTP)."""
+        if not (self.is_decoder or isinstance(self.runner, _EchoRunner)):
             raise NotImplementedError("generate() requires a transformer model")
         return self.runner
 
@@ -555,16 +807,49 @@ class TPUDevice:
         tops[i] the ``TOP_LOGPROBS`` [(alt id, alt logprob), ...] at
         position i, best first."""
         self.wait_ready()
-        runner = self._decoder()
+        runner = self._generator()
         self._check_bias(sampler)
         stop_tokens = frozenset(stop_tokens or ()) | self.default_stop_ids
-        return runner.generate(
-            self._encode(tokens), max_new_tokens, on_token=on_token, stop=stop,
-            sampler=sampler, stop_tokens=stop_tokens, decode_pool=self.decode_pool,
-            prefill_batcher=self.batcher, scheduler=self.scheduler,
-            logprobs=logprobs, top_logprobs=top_logprobs, adapter=adapter,
-            adapter_params=adapter_params,
-        )
+        start = time.perf_counter()
+
+        def ttft() -> None:
+            self._ttft.observe(time.perf_counter() - start, model=self.model_name,
+                               op="generate")
+
+        try:
+            out = runner.generate(
+                self._encode(tokens), max_new_tokens, on_token=on_token, stop=stop,
+                sampler=sampler, stop_tokens=stop_tokens, decode_pool=self.decode_pool,
+                prefill_batcher=self.batcher, scheduler=self.scheduler,
+                logprobs=logprobs, top_logprobs=top_logprobs, adapter=adapter,
+                adapter_params=adapter_params, ttft_cb=ttft,
+            )
+        except Exception:
+            self._requests.inc(model=self.model_name, op="generate", status="error")
+            raise
+        self._requests.inc(model=self.model_name, op="generate", status="ok")
+        self._note_generation()
+        return out
+
+    def _note_generation(self) -> None:
+        """The gauges a finished generation moves: the solo-speculation
+        acceptance and the prefix cache's hit ratios and entries (host
+        counters of the runner)."""
+        stats = getattr(self.runner, "spec_stats", None)
+        if stats and stats["drafted"]:
+            with self.runner._spec_lock:
+                ratio = stats["accepted"] / stats["drafted"]
+            self._spec_gauge.set(ratio, model=self.model_name)
+        pstats = getattr(self.runner, "prefix_stats", None)
+        if pstats:
+            partial = pstats.get("partial_hits", 0)
+            lookups = pstats["hits"] + partial + pstats["misses"]
+            if lookups:
+                self._prefix_gauge.set(pstats["hits"] / lookups, model=self.model_name)
+                self._prefix_partial_gauge.set(partial / lookups, model=self.model_name)
+            entries = self.runner.prefix_entries()
+            if entries is not None:
+                self._prefix_entries_gauge.set(entries, model=self.model_name)
 
     def generate_stream(
         self,
@@ -585,13 +870,16 @@ class TPUDevice:
         # after the status; the adapter model read here is pinned for the
         # stream (ONE dict read: a concurrent unload must not fail it); an
         # encoder's NotImplementedError comes in the stream, as in JAX
-        self._check_bias(sampler)
         adapter_params = None
+        if adapter is not None or (sampler is not None and sampler.logit_bias):
+            self.wait_ready()
+        self._check_bias(sampler)
         if adapter is not None:
-            adapter_params = self.runner.adapters.get(adapter)
+            adapter_params = getattr(self.runner, "adapters", {}).get(adapter)
             if adapter_params is None:
                 raise InvalidParamError(
-                    f"adapter '{adapter}' (loaded: {sorted(self.runner.adapters)})"
+                    f"adapter '{adapter}' (loaded: "
+                    f"{sorted(getattr(self.runner, 'adapters', {}))})"
                 )
         out: "queue.Queue" = queue.Queue()
         done = object()
@@ -637,7 +925,15 @@ class TPUDevice:
         """Teacher-forced prompt scoring: log p(t_i | t_<i) for i >= 1
         (see the runner's ``score``), under ``adapter`` when named."""
         self.wait_ready()
-        return self._decoder().score(self._encode(tokens), adapter=adapter)
+        if not self.is_decoder:
+            raise InvalidParamError("scoring needs an autoregressive transformer model")
+        try:
+            out = self.runner.score(self._encode(tokens), adapter=adapter)
+        except Exception:
+            self._requests.inc(model=self.model_name, op="score", status="error")
+            raise
+        self._requests.inc(model=self.model_name, op="score", status="ok")
+        return out
 
     # -- runtime multi-LoRA (the admin surface) -----------------------------------
     def _refresh_pool_lora(self) -> None:
@@ -711,13 +1007,11 @@ class TPUDevice:
 
     def close(self) -> None:
         """Stop the pool (its worker joined; a stream still decoding gets
-        an error, never a truncated result) and the batcher."""
+        an error, never a truncated result), the batcher and the runner. A
+        background boot still running tears its stack down when it ends."""
         self._closed = True
-        try:
-            if self.decode_pool is not None:
-                self.decode_pool.close()
-        finally:
-            self.batcher.close()
+        if self._ready.is_set():
+            self._teardown_stack()
 
 
 class _PrefillState(dict):
@@ -871,6 +1165,8 @@ def _load_or_init(model_path: Optional[str], device: torch.device, empty: Any,
     else ``init()``, a seeded random init."""
     if not model_path:
         return init()
+    if not os.path.exists(model_path):
+        raise FileNotFoundError(f"MODEL_PATH {model_path!r} does not exist")
     model = empty()
     model.load_state_dict(restore_params(model_path, device))
     return model
@@ -886,6 +1182,257 @@ def _given(model: Any, kind: type, cfg: Any, device: torch.device, model_path: O
             or getattr(model, "quant", None) != quant):
         raise ValueError("the given model does not match MODEL_NAME/MODEL_QUANT/device")
     return model
+
+
+class _EchoRunner:
+    """The loopback runner (``MODEL_NAME=echo``, the JAX package's
+    ``_EchoRunner``): it "generates" by cycling the prompt's ids, so the
+    whole serving stack (routing, middleware, the batcher, the scheduler,
+    SSE streaming, metrics) runs end to end in milliseconds with no model.
+    It allocates nothing on any device and touches no CUDA API: it boots
+    with or without a card. It is not a fallback: it computes nothing a
+    model would. ``ECHO_STEP_MS`` sleeps once a prefill and once a decode
+    step (once a verify under pooled speculation), a decode cadence.
+
+    With ``KV_PAGED`` (the device attaches a ``HostPagedKV``) a request's
+    prompt is admitted into block tables, decoded off them (the prompt read
+    back through the arena) and stored at finish, so exact and LCP hits,
+    COW and LRU eviction run as on the device; an exhausted arena decodes
+    the request block-free (``gofr_tpu_pool_reject_total{reason=
+    "kv_exhausted"}``). With ``SPEC_POOLED`` (``enable_pooled_spec``) it
+    decodes in verify cycles: k drafts (n-gram or the ``SPEC_FAKE_ACCEPT``
+    script) written speculatively into the paged KV, one sleep a cycle, the
+    longest matching prefix plus the bonus token emitted, the rest rolled
+    back; the ids are the plain loop's whatever was drafted.
+
+    Left for later slices: the stall hook (§A3), deadlines and journal
+    resume (§A4), the host-mesh arena (§A7)."""
+
+    # synthetic bucket ladder: echo pads nothing, but the batcher forms
+    # bucket cohorts and counts padded tokens on it
+    buckets = (64, 128, 256, 512, 1024, 2048, 4096, 8192)
+
+    def __init__(self, step_ms: float = 0.0, metrics: Any = None):
+        self.step_s = step_ms / 1000.0
+        if metrics is not None:
+            # the overload families the JAX runner registers (deadlines
+            # and cancellations come with a later slice)
+            deadline_exceeded_counter(metrics)
+            cancellations_counter(metrics)
+        self.paged: Optional[HostPagedKV] = None
+        self.kv_pool: Optional[BlockPool] = None
+        self._kv_reject: Any = None
+        # a closed runner breaks its in-flight generate loops
+        self._closed = False
+        self.spec_pooled: Optional[PoolSpecConfig] = None
+        # the transformer runner's shape: the device's gauges read both
+        self.spec_stats = {"cycles": 0, "drafted": 0, "accepted": 0}
+        self._spec_lock = threading.Lock()
+        self.prefix_stats: Optional[dict] = None
+
+    def enable_pooled_spec(self, cfg: PoolSpecConfig) -> None:
+        """Arm pooled speculative decoding: generate() decodes in verify
+        cycles."""
+        self.spec_pooled = cfg
+
+    def enable_paged_kv(self, engine: HostPagedKV, reject_counter: Any = None) -> None:
+        """Attach the host paged-KV engine: the runner then decodes off
+        block tables, and the device's prefix gauges read its stats."""
+        self.paged = engine
+        self.kv_pool = engine.pool
+        self._kv_reject = reject_counter
+        self.prefix_stats = engine.prefix_stats
+
+    def prefix_entries(self) -> Optional[int]:
+        return len(self.kv_pool) if self.kv_pool is not None else None
+
+    def close(self) -> None:
+        self._closed = True
+
+    def warmup(self, progress: Any) -> None:
+        progress("echo runner ready (nothing to compile)")
+
+    def bucket_for_payload(self, ids: np.ndarray) -> int:
+        n = int(getattr(ids, "size", 0) or 0)
+        for b in self.buckets:
+            if n <= b:
+                return b
+        return self.buckets[-1]
+
+    def prepare(self, payload: Any) -> np.ndarray:
+        if isinstance(payload, dict):
+            payload = payload.get("tokens", [])
+        ids = np.asarray(payload, dtype=np.int32).reshape(-1)
+        if ids.size == 0:
+            raise InvalidParamError("tokens must be a non-empty list of ids")
+        return ids
+
+    def run_batch(self, payloads: list[np.ndarray]) -> list[dict]:
+        if self._closed:
+            raise RuntimeError("echo runner closed")
+        if self.step_s:
+            time.sleep(self.step_s)
+        return [{"next_token": int(ids[0]), "length": int(ids.size)} for ids in payloads]
+
+    def generate(
+        self,
+        tokens: Any,
+        max_new_tokens: int,
+        on_token: Any = None,
+        stop: Any = None,
+        sampler: Any = None,
+        stop_tokens: Any = None,
+        decode_pool: Any = None,
+        prefill_batcher: Any = None,
+        scheduler: Any = None,
+        logprobs: bool = False,
+        top_logprobs: bool = False,
+        adapter: Optional[str] = None,
+        adapter_params: Any = None,
+        ttft_cb: Any = None,
+    ) -> Any:
+        if adapter is not None:
+            raise InvalidParamError(f"adapter '{adapter}' (the echo runner serves no adapters)")
+        ids = self.prepare(tokens)
+        stop_tokens = frozenset(stop_tokens or ())
+        # the prefill rides the real batcher: queue wait, cohorts and the
+        # scheduler behave as on a device
+        if prefill_batcher is not None:
+            prefill_batcher.infer(ids)
+        else:
+            self.run_batch([ids])
+        if ttft_cb:
+            ttft_cb()
+        # paged admission (the pool's submit timing): reserve the block
+        # budget, aliasing cached prefix blocks; exhaustion decodes
+        # block-free, counted as the pool counts it
+        seq = None
+        src = ids
+        if self.paged is not None:
+            try:
+                seq = self.paged.admit(ids, max_new_tokens)
+            except KVExhausted:
+                if self._kv_reject is not None:
+                    self._kv_reject.inc(reason="kv_exhausted")
+            if seq is not None:
+                # decode off the block tables, not the request's buffer
+                src = self.paged.prompt_tokens(seq)
+        out: list[int] = []
+        lps: list[float] = []
+        tops: list = []
+        decode = self._generate_spec if self.spec_pooled is not None else self._generate_plain
+        try:
+            decode(src, seq, out, lps, tops, max_new_tokens, stop, stop_tokens, on_token,
+                   logprobs)
+        except BaseException:
+            if seq is not None:
+                self.paged.abort(seq)
+            raise
+        if seq is not None:
+            if stop is not None and stop.is_set():
+                # cancelled: release everything; a partial generation
+                # never becomes a cache entry
+                self.paged.abort(seq)
+            else:
+                # trim the unused reservation and store the conversation
+                # copy-free (the request's table becomes the entry)
+                self.paged.finish(seq)
+        if top_logprobs:
+            return out, lps, tops
+        return (out, lps) if logprobs else out
+
+    def _emit(self, token: int, out: list, lps: list, tops: list, on_token: Any,
+              logprobs: bool) -> None:
+        out.append(token)
+        if logprobs:
+            lps.append(0.0)
+            tops.append([(token, 0.0)])
+        if on_token:
+            on_token((token, 0.0) if logprobs else token)
+
+    def _generate_plain(self, src: np.ndarray, seq: Any, out: list, lps: list, tops: list,
+                        max_new_tokens: int, stop: Any, stop_tokens: frozenset,
+                        on_token: Any, logprobs: bool) -> None:
+        """One token a step (one ``ECHO_STEP_MS`` sleep): token i is the
+        prompt's id at position i mod its length."""
+        for i in range(max_new_tokens):
+            if stop is not None and stop.is_set():
+                break
+            if self._closed:
+                raise RuntimeError("echo runner closed mid-generation")
+            token = int(src[i % src.size])
+            if token in stop_tokens:
+                break
+            if seq is not None:
+                self.paged.append(seq, token)  # COW first on a shared boundary
+            self._emit(token, out, lps, tops, on_token, logprobs)
+            if self.step_s:
+                time.sleep(self.step_s)
+
+    def _generate_spec(self, src: np.ndarray, seq: Any, out: list, lps: list, tops: list,
+                       max_new_tokens: int, stop: Any, stop_tokens: frozenset,
+                       on_token: Any, logprobs: bool) -> None:
+        """Pooled-spec cycles (the decode pool's spec mode, with no model):
+        per cycle the draft source proposes k tokens, they land
+        speculatively in the paged KV, ONE sleep stands for the verify, the
+        longest prefix matching the true continuation plus the bonus token
+        is emitted and the rejected tail rolls back. Emission is
+        position-indexed off ``src`` as in the plain loop, so the ids never
+        depend on the drafts; only tokens a dispatch do."""
+        cfg = self.spec_pooled
+        ctx = [int(t) for t in src]
+        state = cfg.new_state(ctx[:-1], ctx[-1])
+        i = 0
+        while i < max_new_tokens:
+            if stop is not None and stop.is_set():
+                break
+            if self._closed:
+                raise RuntimeError("echo runner closed mid-generation")
+            # brownout level 0 and no deadline, as in the pool
+            k = clamp_spec_k(state.adaptive.current(), 0, None, self.step_s)
+            # room for k drafts + the bonus within the request's budget
+            k = min(k, max_new_tokens - i - 1)
+            truth = [int(src[(i + j) % src.size]) for j in range(k + 1)]
+            drafts = state.propose(k, truth=truth[:k]) if k > 0 else []
+            k_eff = len(drafts)
+            base_len = seq.table.length if seq is not None else 0
+            if seq is not None:
+                for t in drafts:
+                    self.paged.append(seq, t)  # speculative writes before the verify
+            if self.step_s:
+                time.sleep(self.step_s)  # ONE verify for the whole burst
+            n_acc = 0
+            while n_acc < k_eff and drafts[n_acc] == truth[n_acc]:
+                n_acc += 1
+            # accepted drafts + the bonus, cut at a stop token (not emitted)
+            burst = truth[: n_acc + 1]
+            stopped = False
+            for j, t in enumerate(burst):
+                if t in stop_tokens:
+                    burst = burst[:j]
+                    stopped = True
+                    break
+            if seq is not None:
+                # keep the accepted prefix of the speculative writes, then
+                # land the bonus token
+                self.paged.rollback(seq, base_len + min(len(burst), n_acc))
+                if len(burst) > n_acc:
+                    self.paged.append(seq, burst[-1])
+            cancelled = False
+            for t in burst:
+                self._emit(t, out, lps, tops, on_token, logprobs)
+                if stop is not None and stop.is_set():
+                    cancelled = True
+                    break
+            state.commit(burst, k_eff, n_acc)
+            cfg.note_cycle(k_eff, n_acc, len(burst))
+            with self._spec_lock:
+                self.spec_stats["cycles"] += 1
+                self.spec_stats["drafted"] += k_eff
+                self.spec_stats["accepted"] += n_acc
+            i += len(burst)
+            if stopped or cancelled:
+                break
 
 
 class _MLPRunner:
@@ -928,7 +1475,8 @@ class _MLPRunner:
         out = mlp_forward(self.model, batch).cpu().numpy()
         return [out[i] for i in range(n)]
 
-    def warmup(self) -> None:
+    def warmup(self, progress: Any) -> None:
+        progress("warming the MLP at every padded batch")
         b = 1
         while b <= next_pow2(self.max_batch):
             self.run_batch([np.zeros(self.cfg.in_dim, np.float32)] * b)
@@ -995,7 +1543,13 @@ class _BertRunner:
                          to_device(mask, self.device)).cpu().numpy()
         return [out[i] for i in range(n)]
 
-    def warmup(self) -> None:
+    def warmup(self, progress: Any) -> None:
+        if self.device.type == "cuda":
+            from gofr_tpu_torch.ops import flash
+
+            progress("building the CUDA kernels (nvcc at first use)")
+            flash.build()
+        progress(f"warming the encoder at bucket {self.bucket}, every padded batch")
         b = 1
         while b <= next_pow2(self.max_batch):
             self.run_batch([np.zeros(self.bucket, np.int32)] * b)
@@ -1035,6 +1589,7 @@ class _TransformerRunner:
         draft_path: Optional[str] = None,
         draft_model: Optional[Transformer] = None,
         lora_adapters: Optional[dict] = None,
+        metrics: Any = None,
     ):
         cfg = CONFIGS[name]
         if max_seq is not None and max_seq < cfg.max_seq:
@@ -1091,12 +1646,11 @@ class _TransformerRunner:
         self._prefix_lcp_min = prefix_lcp_min if prefix_lcp_min != 0 else self.buckets[0]
         self._prefix_lock = threading.Lock()
         self.prefix_stats = {"hits": 0, "partial_hits": 0, "misses": 0}
-        self._init_paged_kv(kv_paged, kv_block_tokens, kv_blocks, kv_reserve_seqs, prefix_cache)
-        if self.spec is not None:
-            self._warmup_spec()
+        self._init_paged_kv(kv_paged, kv_block_tokens, kv_blocks, kv_reserve_seqs, prefix_cache,
+                            metrics)
 
     def _init_paged_kv(self, kv_paged: bool, block_tokens: int, kv_blocks: int,
-                       reserve_seqs: int, prefix_cache: int) -> None:
+                       reserve_seqs: int, prefix_cache: int, metrics: Any) -> None:
         """One shared ``BlockPool`` backs the prefix cache (block-aliased
         entries, LRU-evicted under the budget) and the decode pool's
         admission ledger. With neither a prefix cache nor an explicit
@@ -1131,7 +1685,7 @@ class _TransformerRunner:
         self.kv_pool = BlockPool(
             data_blocks + 1, block_tokens,  # +1 scratch
             block_bytes=block_bytes, hbm_budget_bytes=ledger * block_bytes,
-            cache_entries=prefix_cache, scratch=True, ledger_blocks=ledger,
+            cache_entries=prefix_cache, scratch=True, ledger_blocks=ledger, metrics=metrics,
         )
         if prefix_cache > 0:
             # the arena exists only for the prefix cache's blocks; a
@@ -1212,6 +1766,7 @@ class _TransformerRunner:
         top_logprobs: bool = False,
         adapter: Optional[str] = None,
         adapter_params: Optional[Transformer] = None,
+        ttft_cb: Any = None,
     ) -> "list[int] | tuple":
         if top_logprobs:
             logprobs = True  # alternatives imply the chosen tokens' values
@@ -1268,6 +1823,8 @@ class _TransformerRunner:
         else:
             with torch.no_grad():
                 token = sampler.pick(state["logits"])
+        if ttft_cb:
+            ttft_cb()
         if token in stop_tokens:
             return done()
         out.append(token)
@@ -1474,6 +2031,43 @@ class _TransformerRunner:
             if len(out) >= max_new_tokens:
                 stopped = True
         return cache
+
+    @torch.no_grad()
+    def warmup(self, progress: Any) -> None:
+        """The boot's warm stages: the kernels' build on the card (nvcc at
+        first use), one prefill forward at each shape serving dispatches
+        (fresh caches, uncounted), and the solo speculation's calls; the
+        decode pool warms its own chunk. The shapes: the batcher's padded
+        batch at every bucket it is sent, which under PREFILL_CHUNK_TOKENS
+        stops at the chunk bucket, and then the chunked prefill's slice at
+        batch 1."""
+        if self.device.type == "cuda":
+            from gofr_tpu_torch.ops import flash
+
+            progress("building the CUDA kernels (nvcc at first use)")
+            flash.build()
+        bsz = next_pow2(self.max_batch)
+        chunk_b = self.prefill_chunk_bucket
+        shapes = [(bsz, b) for b in self.buckets if chunk_b is None or b <= chunk_b]
+        if chunk_b is not None:
+            shapes.append((1, chunk_b))
+        for i, (batch, bucket) in enumerate(shapes):
+            progress(f"warming prefill bucket {bucket} (batch {batch}, {i + 1}/{len(shapes)})")
+            cache = self.model.init_cache(batch, self.cfg.max_seq, self.cache_dtype)
+            tokens = np.zeros((batch, bucket), np.int32)
+            lengths = np.ones(batch, np.int32)
+            logits, _ = self.model.prefill(to_device(tokens, self.device), cache,
+                                           to_device(lengths, self.device))
+            del logits, cache
+        if self.spec is not None:
+            progress(f"warming speculation (k={self.spec.k})")
+            self._warmup_spec()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def prefix_entries(self) -> Optional[int]:
+        """Live prefix-cache entries (None without a prefix cache)."""
+        return len(self._prefix_cache) if self._prefix_cache is not None else None
 
     # -- the solo speculative latency mode (DRAFT_MODEL_NAME) ------------------
     @torch.no_grad()

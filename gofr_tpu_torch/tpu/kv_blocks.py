@@ -9,10 +9,17 @@ blocks of the prefix it extends, cached entries are LRU-evicted under the
 budget when live traffic needs blocks, and the decode pool's admission
 reserves each request's block budget on the same ledger.
 
-Not ported here: the metrics gauges (the port has no registry yet) and the
-cross-replica transfer side (``ForeignKVRejected``, ``TransferPin``,
-``HostTokenArena``, ``HostPagedKV``, ``install_foreign_entry``, the wire
-codec).
+With ``metrics`` the pool publishes ``gofr_tpu_kv_blocks{state}``
+(total/free/active/cached/reserved) at every change and counts
+``gofr_tpu_kv_evictions_total``. The echo runner's paged store is the
+host side of the same machinery: :class:`HostTokenArena` (a block's "KV"
+is the token ids it covers) and :class:`HostPagedKV` (admission with exact
+and LCP aliasing, COW on extension, speculative rollback, the store at
+finish), compile-free.
+
+Not ported here: the tp-sharded host arena and the cross-replica transfer
+side (``ForeignKVRejected``, ``TransferPin``, ``install_foreign_entry``,
+the wire codec).
 """
 
 from __future__ import annotations
@@ -109,6 +116,7 @@ class BlockPool:
         cache_entries: int = 0,
         scratch: bool = False,
         ledger_blocks: Optional[int] = None,
+        metrics: Any = None,
     ):
         if n_blocks < 1:
             raise ValueError(f"n_blocks must be >= 1, got {n_blocks}")
@@ -138,11 +146,35 @@ class BlockPool:
         self.cow_copies = 0
         self.copied_kv_bytes = 0
         self.exhausted_rejects = 0
+        self._blocks_gauge = self._evict_counter = None
+        if metrics is not None:
+            self._blocks_gauge = metrics.gauge(
+                "gofr_tpu_kv_blocks",
+                "paged KV arena blocks by state "
+                "(total/free/active/cached/reserved)",
+                labels=("state",),
+            )
+            self._evict_counter = metrics.counter(
+                "gofr_tpu_kv_evictions_total",
+                "prefix-cache entries LRU-evicted to free KV blocks",
+            )
+            self._publish()
 
     @property
     def total_blocks(self) -> int:
         """Allocatable blocks (the scratch block is bookkeeping)."""
         return self.n_blocks - (1 if self._scratch else 0)
+
+    def _publish(self) -> None:
+        """The block-state gauge (lock held)."""
+        if self._blocks_gauge is None:
+            return
+        free = len(self._free)
+        self._blocks_gauge.set(self.total_blocks, state="total")
+        self._blocks_gauge.set(free, state="free")
+        self._blocks_gauge.set(self._cached_unique, state="cached")
+        self._blocks_gauge.set(self.total_blocks - free - self._cached_unique, state="active")
+        self._blocks_gauge.set(self.reserved, state="reserved")
 
     def note_copied(self, nbytes: int) -> None:
         """Bytes an engine physically copied moving KV between blocks and
@@ -184,6 +216,7 @@ class BlockPool:
             out = [self._free.pop() for _ in range(n)]
             for b in out:
                 self._ref[b] = 1
+            self._publish()
             return out
 
     def incref(self, blocks: list) -> None:
@@ -204,6 +237,7 @@ class BlockPool:
                 self._ref[b] = r
                 if r == 0:
                     self._free.append(b)
+            self._publish()
 
     # -- ledger reservations (decode-pool admission) -------------------------
     def reserve_ledger(self, n_tokens: int) -> int:
@@ -222,12 +256,14 @@ class BlockPool:
                     f"{self.reserved}, active={active})"
                 )
             self.reserved += n
+            self._publish()
             return n
 
     def release_ledger(self, n: int) -> None:
         """Return admission budget the moment a request finishes."""
         with self.lock:
             self.reserved = max(self.reserved - int(n), 0)
+            self._publish()
 
     # -- table ops -----------------------------------------------------------
     def reserve(self, n_tokens: int) -> BlockTable:
@@ -311,6 +347,7 @@ class BlockPool:
                 self._cache_ref[b] += 1
             while self.cache_entries and len(self._cache) > self.cache_entries:
                 self._evict_lru()
+            self._publish()
 
     def cache_lookup(self, key: bytes) -> Optional[_CacheEntry]:
         """Exact-key entry (LRU order refreshed) or None. Pin its blocks
@@ -337,6 +374,7 @@ class BlockPool:
             while self._cache:
                 _, entry = self._cache.popitem(last=False)
                 self._cache_release(entry)
+            self._publish()
 
     def _cache_release(self, entry: _CacheEntry) -> None:
         for b in entry.table.blocks:
@@ -352,6 +390,8 @@ class BlockPool:
         _, entry = self._cache.popitem(last=False)
         self._cache_release(entry)
         self.evictions += 1
+        if self._evict_counter is not None:
+            self._evict_counter.inc()
 
     def __len__(self) -> int:
         with self.lock:
@@ -463,3 +503,207 @@ class TorchKVArena:
             row[name] = bits.view(arena.dtype)
         row["lengths"] = torch.full((1,), int(length), dtype=torch.int32, device=self.device)
         return row
+
+
+class HostTokenArena:
+    """Host block storage for the echo runner: a block's "KV" is the token
+    ids it covers, so aliasing and COW fidelity is checkable directly (read
+    the sequence back, compare to the prompt), with no model. (The JAX
+    arena's tp shards wait for the mesh slice.)"""
+
+    TOKEN_BYTES = 4  # int32 ids
+
+    def __init__(self, n_blocks: int, block_tokens: int):
+        self.block_tokens = block_tokens
+        self.block_bytes = block_tokens * self.TOKEN_BYTES
+        self._data = np.zeros((n_blocks, block_tokens), np.int32)
+
+    def write(self, table: BlockTable, start: int, ids: np.ndarray) -> int:
+        """Write ``ids`` at token offset ``start`` of ``table``; capacity
+        must already exist. Returns bytes copied."""
+        ids = np.asarray(ids, np.int32).reshape(-1)
+        bt = self.block_tokens
+        pos = start
+        off = 0
+        while off < ids.size:
+            blk = table.blocks[pos // bt]
+            at = pos % bt
+            n = min(bt - at, ids.size - off)
+            self._data[blk, at : at + n] = ids[off : off + n]
+            pos += n
+            off += n
+        return ids.size * self.TOKEN_BYTES
+
+    def read(self, table: BlockTable) -> np.ndarray:
+        """The sequence's tokens (exactly ``length`` of them)."""
+        if not table.blocks or table.length == 0:
+            return np.zeros(0, np.int32)
+        nb = blocks_for(table.length, self.block_tokens)
+        return self._data[table.blocks[:nb]].reshape(-1)[: table.length].copy()
+
+    def copy_partial(self, dst_block: int, src_block: int, n_tokens: int) -> int:
+        """COW copy of the boundary block's first ``n_tokens`` (the suffix
+        belongs to whoever writes it next)."""
+        self._data[dst_block, :n_tokens] = self._data[src_block, :n_tokens]
+        return n_tokens * self.TOKEN_BYTES
+
+
+class PagedSequence:
+    """One live request's handle on the host engine: its table and the
+    prompt's length."""
+
+    __slots__ = ("table", "prompt_len")
+
+    def __init__(self, table: BlockTable, prompt_len: int):
+        self.table = table
+        self.prompt_len = prompt_len
+
+
+class HostPagedKV:
+    """The echo runner's paged KV engine (copy of the JAX package's, without
+    the bench's copy mode and the transfer side): block-table prompt
+    storage, copy-free prefix aliasing (exact and LCP), COW on extension,
+    reserve-at-admission, rollback of rejected speculative tokens, and the
+    finished conversation stored as a cache entry."""
+
+    def __init__(self, pool: BlockPool, arena: HostTokenArena, lcp_min: int = 8):
+        self.pool = pool
+        self.arena = arena
+        self.lcp_min = lcp_min
+        # the transformer runner's prefix_stats shape: the device's
+        # hit-ratio gauges read both
+        self.prefix_stats = {"hits": 0, "partial_hits": 0, "misses": 0}
+        self._stats_lock = threading.Lock()
+
+    # -- admission -----------------------------------------------------------
+    def admit(self, ids: np.ndarray, max_new: int) -> PagedSequence:
+        """Admit a prompt: alias cached blocks where possible, write the
+        rest, and reserve decode capacity up front. Raises
+        :class:`KVExhausted` (rolled back) when the arena cannot cover it
+        even after evicting the cache."""
+        ids = np.asarray(ids, np.int32).reshape(-1)
+        table = None
+        try:
+            with self.pool.lock:  # scan + alias must be atomic vs eviction
+                table, kind = self._admit_table(ids)
+                # capacity for the whole generation now: an admitted
+                # request never dies to block starvation mid-decode, and
+                # trim() hands the unused tail back at finish
+                self.pool.ensure(table, ids.size + max_new)
+                if kind != "hit":
+                    # the prompt entry, an alias of the live table: an
+                    # exact repeat of this prompt now hits, copy-free
+                    self.pool.cache_put(
+                        ids.tobytes(), self.pool.alias(table, ids.size),
+                        {"length": int(ids.size)},
+                    )
+                if max_new > 0:
+                    # pre-COW the (now shared) boundary block while
+                    # exhaustion still rolls back to a clean reject
+                    cow = self.pool.cow_boundary(table)
+                    if cow is not None:
+                        self._copy_boundary(table, cow)
+        except KVExhausted:
+            if table is not None:
+                self.pool.release(table)
+            raise
+        with self._stats_lock:
+            self.prefix_stats[
+                "hits" if kind == "hit"
+                else "partial_hits" if kind == "partial_hit" else "misses"
+            ] += 1
+        return PagedSequence(table, ids.size)
+
+    def _copy_boundary(self, table: BlockTable, cow: tuple) -> None:
+        old, new = cow
+        self.pool.note_copied(
+            self.arena.copy_partial(new, old, table.length % self.pool.block_tokens)
+        )
+
+    def _admit_table(self, ids: np.ndarray) -> tuple:
+        """Build the admitted table (pool lock held): exact alias, LCP
+        partial alias + tail write, or full write."""
+        entry = self.pool.cache_lookup(ids.tobytes())
+        if entry is not None:
+            return self.pool.alias(entry.table, ids.size), "hit"
+        shared, donor = self._lcp_scan(ids)
+        if donor is not None:
+            # share whole blocks copy-free; the boundary and the tail are
+            # this request's own writes
+            table, shared_tokens = self.pool.alias_full_blocks(donor.table, shared)
+            try:
+                self.pool.ensure(table, ids.size)
+            except KVExhausted:
+                self.pool.release(table)  # the alias holds refs the caller never sees
+                raise
+            self.pool.note_copied(self.arena.write(table, shared_tokens, ids[shared_tokens:]))
+            table.length = ids.size
+            return table, "partial_hit"
+        table = self.pool.reserve(ids.size)
+        self.pool.note_copied(self.arena.write(table, 0, ids))
+        table.length = ids.size
+        return table, "miss"
+
+    def _lcp_scan(self, ids: np.ndarray) -> tuple:
+        """Longest-common-prefix donor among cached sequences (pool lock
+        held), at this engine's threshold."""
+        shared, key, entry = lcp_scan(
+            self.pool.cache_items(), ids, int(ids.size) - 1, self.lcp_min
+        )
+        if entry is None:
+            return 0, None
+        self.pool.cache_touch(key)
+        return shared, entry
+
+    # -- decode-time ---------------------------------------------------------
+    def prompt_tokens(self, seq: PagedSequence) -> np.ndarray:
+        """The prompt read back THROUGH the block tables: the echo decode
+        loop cycles these, so aliasing fidelity shows in its output."""
+        return self.arena.read(seq.table)[: seq.prompt_len]
+
+    def append(self, seq: PagedSequence, token: int) -> None:
+        """One decoded token lands in the sequence's KV: COW if the
+        boundary block is shared, then write (capacity was reserved at
+        admission)."""
+        with self.pool.lock:
+            cow = self.pool.cow_boundary(seq.table)
+            if cow is not None:
+                self._copy_boundary(seq.table, cow)
+            self.pool.ensure(seq.table, seq.table.length + 1)
+            self.arena.write(seq.table, seq.table.length, np.asarray([token], np.int32))
+            seq.table.length += 1
+
+    def rollback(self, seq: PagedSequence, n_tokens: int) -> None:
+        """Speculative reject: the sequence's valid length goes back to
+        ``n_tokens`` (the committed prefix). Every reader honors
+        ``length``, so the content past it is dead at once; the blocks stay
+        in the table (the admission's reservation: releasing them would let
+        another admission take them and starve this one's next append) and
+        go back at :meth:`finish` through ``trim``."""
+        if n_tokens < seq.prompt_len:
+            raise ValueError(
+                f"rollback to {n_tokens} would cut into the {seq.prompt_len}-token prompt"
+            )
+        with self.pool.lock:
+            if n_tokens > seq.table.length:
+                raise ValueError(
+                    f"rollback to {n_tokens} past the sequence's "
+                    f"{seq.table.length}-token length"
+                )
+            seq.table.length = n_tokens
+
+    # -- completion ----------------------------------------------------------
+    def finish(self, seq: PagedSequence, store: bool = True) -> None:
+        """Request done: trim the unused reservation (those blocks admit
+        the next request at once), then either hand the table to the cache
+        (keyed by the whole conversation, copy-free) or release it."""
+        self.pool.trim(seq.table)
+        if store and seq.table.length > 0:
+            key = self.arena.read(seq.table).tobytes()
+            self.pool.cache_put(key, seq.table, {"length": seq.table.length})
+        else:
+            self.pool.release(seq.table)
+        seq.table = BlockTable()
+
+    def abort(self, seq: PagedSequence) -> None:
+        self.finish(seq, store=False)

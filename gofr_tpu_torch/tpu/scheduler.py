@@ -2,8 +2,7 @@
 dispatchers that share one card.
 
 Port of ``gofr_tpu/tpu/scheduler.py`` (``InterferenceScheduler``,
-``POLICIES``), without its metrics (the port has no registry yet; the plain
-``stats`` counters stay). Without it the prefill ``DynamicBatcher`` and the
+``POLICIES``). Without it the prefill ``DynamicBatcher`` and the
 ``DecodePool`` dispatch independently, and one long prompt's prefill stalls
 every pooled stream behind it. Prompts over ``PREFILL_CHUNK_TOKENS``
 prefill in bucket-sized slices (``device.py::_chunked_prefill``), and every
@@ -18,12 +17,17 @@ per decode-chunk interval while decode is busy; ``decode-first`` one per
 two intervals; ``prefill-first`` never defers. Every wait is bounded by
 ``SCHED_MAX_DEFER_MS`` and by a decode-idleness horizon, so a stalled or
 drained pool never starves prefill.
+
+Telemetry: ``gofr_tpu_prefill_chunks_total`` counts admitted prefill
+dispatches and ``gofr_tpu_sched_defer_seconds`` observes each one's wait
+(``metrics``, labelled ``model``); the plain ``stats`` keep the same counts.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+from typing import Any
 
 POLICIES = ("decode-first", "prefill-first", "fair")
 
@@ -43,6 +47,8 @@ class InterferenceScheduler:
         policy: str = "fair",
         max_defer_ms: float = 1000.0,
         idle_after_s: float = 0.5,
+        metrics: Any = None,
+        model: str = "",
     ):
         if policy not in POLICIES:
             raise ValueError(
@@ -60,6 +66,20 @@ class InterferenceScheduler:
         self._last_admit_seq = 0  # decode seq at the last admitted prefill
         self._interval_ema = 0.0  # smoothed decode chunk cadence
         self.stats = {"prefill_chunks": 0, "deferred_chunks": 0, "decode_chunks": 0}
+        self.model = model
+        self._chunks_counter = self._defer_hist = None
+        if metrics is not None:
+            self._chunks_counter = metrics.counter(
+                "gofr_tpu_prefill_chunks_total",
+                "bounded-compute prefill dispatches admitted by the "
+                "interference scheduler",
+                labels=("model",),
+            )
+            self._defer_hist = metrics.histogram(
+                "gofr_tpu_sched_defer_seconds",
+                "time a prefill chunk waited for its decode-interleave turn",
+                labels=("model",),
+            )
 
     def snapshot(self) -> dict:
         """Policy, bound, decode cadence and the plain counters."""
@@ -132,4 +152,7 @@ class InterferenceScheduler:
             self.stats["prefill_chunks"] += 1
             if deferred > 0.0005:
                 self.stats["deferred_chunks"] += 1
+        if self._chunks_counter is not None:
+            self._chunks_counter.inc(model=self.model)
+            self._defer_hist.observe(deferred, model=self.model)
         return deferred

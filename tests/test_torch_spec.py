@@ -470,6 +470,7 @@ def test_draft_model_path_loads_the_checkpoint(tmp_path, model):
 _JAX_ATTRS = {
     "draft_name": "_draft_name", "draft_tokens": "_draft_tokens", "draft_path": "_draft_path",
     "spec_pooled": "_spec_pooled", "spec_ngram": "_spec_ngram", "spec_k_max": "_spec_k_max",
+    "spec_fake_accept": "_spec_fake_accept",
 }
 
 
@@ -515,11 +516,12 @@ def _port_options(env):
     {"SPEC_K_MAX": "0"},
     {"SPEC_POOLED": "on", "SPEC_NGRAM": "off"},
     {"SPEC_POOLED": "off", "SPEC_NGRAM": "off"},
+    {"SPEC_POOLED": "on", "SPEC_NGRAM": "off", "SPEC_FAKE_ACCEPT": "3, 1,0"},
+    {"SPEC_FAKE_ACCEPT": "2,-1"},
 ])
 def test_config_defaults_and_errors_match_jax(env):
     """The speculation keys' defaults and validation errors are the JAX
-    device's; the port names no SPEC_FAKE_ACCEPT (the echo runner's
-    source), so its draft-source error stops before that clause."""
+    device's, the echo runner's SPEC_FAKE_ACCEPT schedule included."""
     jax_side, port_side = _jax_options(env), _port_options(env)
     assert port_side[0] == jax_side[0]
     if port_side[0] == "ok":
