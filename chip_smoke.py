@@ -222,6 +222,30 @@ Phases, each fatal on failure (no phase is skipped or caught):
    SPEC_FAKE_ACCEPT=3,1,0,2``: 40 ids the prompt's cycle, drafts accepted
    and rejected; ``/favicon.ico`` (1,150 bytes) and ``/.well-known/ready``;
    ``TPU_MESH`` set stops the boot with its name;
+17. observability (run right after phase 16, on its model, under 90 s), in
+   phase 10's configuration with the watchdog armed by itself (120 s on
+   cuda): 1 stream of 32 greedy tokens, then 8 streams in one bucket under
+   ``POST /admin/profiler/start`` / ``stop`` (a ``torch.profiler`` Chrome
+   trace; this phase wraps the pool's chunk on its instance with a
+   one-cycle ``torch.cuda._sleep`` marker, so each chunk's kernels, by the
+   pool thread's launches between two markers, are summed and held under
+   that chunk's dispatch record's duration; the idle share and the decode
+   MBU on device time printed), a 1,500-byte prompt (3 slices) and one
+   full prefill batch of 8 x 512 tokens (its record's MFU on the analytic
+   sheet, and 2·N·tokens). Every request is in ``/admin/requests``, every
+   dispatch id a record names resolves in ``/admin/dispatches``, the
+   timeline's prefill, chunk and slice counts equal the batcher's, the
+   pool's and the runner's, the launches are sm90 and decode only (n_layers
+   x DECODE_CHUNK a chunk), ``gofr_tpu_mfu`` and ``gofr_tpu_mbu`` print
+   beside PERF.md's predictions, the healthy traffic raises no anomaly on a
+   fitted cost-profile row, and the row this run's records fit
+   (``tpu/costcal.py``) prints with its residual ratios. Then a second app
+   with ``WATCHDOG_DISPATCH_TIMEOUT_S=0.5`` and one prefill slowed on the
+   card by ``torch.cuda._sleep`` (~1 s, in a wrapper this phase installs on
+   the runner): the engine walks serving -> degraded -> serving,
+   ``/.well-known/ready`` answers 503 with the watchdog's evidence
+   meanwhile, ``gofr_tpu_device_stalls_total`` counts 1 and
+   ``/admin/anomalies`` shows the ``slow_dispatch``;
 15. the encoder and MLP families (run last, after phase 9): ``new()`` with
    MODEL_NAME=bert-base (bf16, full width and depth, MODEL_SEED=0, the byte
    tokenizer): its weight bytes on the card equal to ``bert_param_count``
@@ -3035,9 +3059,9 @@ def host_services(torch, flash, card: str, model) -> dict:
     stages: list = []
     progress = TPUDevice._boot_progress
 
-    def recording_progress(self, detail):
+    def recording_progress(self, detail, **kw):
         stages.append(detail)
-        progress(self, detail)
+        progress(self, detail, **kw)
 
     builds = {"loads": 0}
     build = flash.build
@@ -3140,6 +3164,395 @@ def host_services(torch, flash, card: str, model) -> dict:
     print(f"host-metrics [{card}]: {json.dumps(out)}", flush=True)
     check(out["phase_s"] < 60, f"host: phase 16 took {out['phase_s']:.1f}s")
     return out
+
+
+# -- phase 17: observability -----------------------------------------------------------
+
+# PERF.md §6's predictions for PR 12 (H100 80GB HBM3, 700 W)
+PREDICTED = {"decode_mbu": (0.09, 0.11), "decode_mbu_device": 0.51, "prefill_mfu": 0.57}
+RUNTIME_CATS = ("cuda_runtime", "cuda_driver")
+# the traffic's sizes in bytes (one token a byte): the single stream's and
+# the 8 streams' prompts
+# (one bucket, one prefill cohort), the long prompt (3 slices of the chunk
+# bucket) and the full batch's prompts (the largest bucket)
+OBS_SIZES = {"one": 120, "streams": (300, 25), "long": 1500, "full": 512, "slices": 3}
+
+
+def admin(port: int, path: str):
+    status, data = get_json(port, path)
+    check(status == 200, f"obs: GET {path}: HTTP {status} {data}")
+    return data["data"]
+
+
+def marked_chunks(pool) -> tuple:
+    """Wrap the pool's chunk (on this instance, for the profiled window
+    only: the package has no such hook) so each dispatch first launches a
+    one-cycle ``torch.cuda._sleep`` marker on the pool's thread: in the
+    trace, the worker's launches between two markers are one chunk's.
+    -> (the dispatch ids in order, the restore)."""
+    import torch
+
+    ids: list = []
+    run = pool._run_executable
+
+    def marked():
+        drec = pool._pending_drec
+        ids.append(drec.dispatch_id if drec is not None else 0)
+        torch.cuda._sleep(1)
+        return run()
+
+    pool._run_executable = marked
+    return ids, lambda: vars(pool).pop("_run_executable", None)
+
+
+def chunk_kernel_us(trace_path: str, ids: list) -> tuple:
+    """A Chrome trace -> ({dispatch id: the chunk's kernel microseconds},
+    busy microseconds of every kernel, the window from the first kernel's
+    start to the last one's end). A chunk's kernels are those whose launch
+    (a runtime event, by correlation id) the pool's thread made between its
+    marker's launch and the next marker's."""
+    with open(trace_path, encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    check(kernels, "obs: the trace holds no kernel (CUDA activity not recorded)")
+    by_corr = {e.get("args", {}).get("correlation"): e for e in kernels}
+    marker_corrs = {c for c, e in by_corr.items() if "spin" in e["name"]}
+    if len(marker_corrs) != len(ids):
+        names: dict = {}
+        for e in kernels:
+            names[e["name"][:60]] = names.get(e["name"][:60], 0) + 1
+        print("obs: kernels in the trace " + json.dumps(sorted(names.items(),
+              key=lambda kv: -kv[1])[:12]), flush=True)
+    check(len(marker_corrs) == len(ids),
+          f"obs: {len(marker_corrs)} chunk markers in the trace, {len(ids)} chunks dispatched")
+    launches = sorted((e for e in events if e.get("cat") in RUNTIME_CATS
+                       and e.get("args", {}).get("correlation") in by_corr),
+                      key=lambda e: e["ts"])
+    worker = {e["tid"] for e in launches if e["args"]["correlation"] in marker_corrs}
+    check(len(worker) == 1, f"obs: the markers came from threads {worker}")
+    per_chunk: dict = {}
+    k = -1
+    for e in launches:
+        if e["tid"] not in worker:
+            continue
+        corr = e["args"]["correlation"]
+        if corr in marker_corrs:
+            k += 1
+            per_chunk[ids[k]] = 0.0
+        elif k >= 0:
+            per_chunk[ids[k]] += by_corr[corr]["dur"]
+    busy = sum(e["dur"] for e in kernels)
+    window = max(e["ts"] + e["dur"] for e in kernels) - min(e["ts"] for e in kernels)
+    return per_chunk, busy, window
+
+
+def timeline_idle(pool, timeline) -> None:
+    """Wait until no pool slot is active and no dispatch record is open:
+    the chunks the worker dispatched ahead are fetched and closed too."""
+    pool_idle(pool, "obs")
+    for _ in range(1200):
+        if timeline.stats()["in_flight"] == 0:
+            return
+        time.sleep(0.05)
+    check(False, "obs: a dispatch record stayed open for 60 s")
+
+
+def concurrent_posts(port: int, bodies: list) -> list:
+    results = [None] * len(bodies)
+
+    def run(i):
+        results[i] = post(port, bodies[i])
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    for status, data, _, _ in results:
+        check(status == 200, f"obs: {status} {data}")
+    return results
+
+
+def observability(torch, flash, card: str, model) -> dict:
+    """Phase 17 (after phase 16, on phase 5's model): the flight recorder,
+    the dispatch timeline, the engine state and watchdog, the cost model,
+    the profiler and the MFU / MBU gauges in phase 10's configuration."""
+    import numpy as np
+
+    import gofr_tpu_torch
+    from gofr_tpu_torch.tpu.costcal import fit, join_records
+
+    t0 = time.perf_counter()
+    out: dict = {}
+    profile_dir = tempfile.mkdtemp(prefix="gofr_profile_")
+    env = {**PHASE10_ENV, "HTTP_PORT": str(free_port()), "PROFILE_DIR": profile_dir}
+    try:
+        with environment(env):
+            app = gofr_tpu_torch.new(model=model)
+        gofr_tpu_torch.register_openai_routes(app)
+        app.start()
+        try:
+            out.update(healthy_window(torch, flash, card, app, fit, join_records, np))
+        finally:
+            app.shutdown()
+        out["stall"] = stalled_prefill(torch, model)
+    finally:
+        shutil.rmtree(profile_dir, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"obs-metrics [{card}]: {json.dumps(out)}", flush=True)
+    check(out["phase_s"] < 90, f"obs: phase 17 took {out['phase_s']:.1f}s")
+    return out
+
+
+def healthy_window(torch, flash, card: str, app, fit, join_records, np) -> dict:
+    """Phase 17's traffic on the auto-armed watchdog: 1 and 8 streams of 32
+    greedy tokens (the 8 under the profiler), a 1,500-byte prompt (3 slices)
+    and one full prefill batch (8 x 512 tokens); every request recorded,
+    every dispatch id resolving, the timeline's counts the batcher's and the
+    pool's, zero anomalies on a fitted row, the gauges beside the
+    predictions, and the row this run's records fit."""
+    out: dict = {}
+    port, dev = app.http_port, app.container.tpu
+    pool, runner, batcher = dev.decode_pool, dev.runner, dev.batcher
+    n_layers, chunk = runner.cfg.n_layers, pool.chunk
+    engine = admin(port, "/admin/engine")
+    wd = engine["watchdog"]
+    print(f"obs: engine {engine['engine']['state']}, watchdog enabled {wd['enabled']} at "
+          f"{wd['timeout_s']}s ({wd['on_stall']}); platform {engine['platform']} "
+          f"{engine['device_kind']}; compiles {engine['compiles']}", flush=True)
+    check(engine["engine"]["state"] == "serving" and wd["enabled"] and wd["timeout_s"] == 120.0,
+          "obs: the engine is not serving with the watchdog armed at 120 s")
+    calibration = admin(port, "/admin/costmodel")["calibration"]
+    fitted_row = str(calibration.get("row_source") or "").startswith("fit")
+    print(f"obs: cost model calibration {calibration['source']} matched "
+          f"{calibration['matched']} row {calibration['row_source']}: eff_flops "
+          f"{calibration['eff_flops']:.4g} eff_bw {calibration['eff_bw']:.4g} overhead "
+          f"{calibration['overhead_ms']:.4g} ms", flush=True)
+    ids0 = dev.timeline.records(limit=1)[0]["dispatch_id"]
+    by_kind0 = dict(dev.timeline.stats()["by_kind"])
+    b0, d0, p0 = batcher.dispatches, pool.dispatches, runner.prefills
+    posted0 = POSTED.get(port, 0)
+    greedy = {"max_tokens": 32, "temperature": 0}
+    # every count to 0 just before the main path runs
+    for c in (flash.launches, flash.launches_fwd_sm90, flash.launches_fwd_decode):
+        c.reset()
+    rate1, tpot1, _ = concurrent_streams(port, [text(170, OBS_SIZES["one"])], greedy)
+    timeline_idle(pool, dev.timeline)
+    mbu_1 = [r["mbu"] for r in dev.timeline.records(limit=100, kind="decode_chunk")
+             if r["dispatch_id"] > ids0 and r["mbu"] is not None]
+    check(mbu_1, "obs: no decode chunk carried an MBU")
+    # 8 streams in one bucket (one prefill cohort), under the profiler
+    ids, restore = marked_chunks(pool)
+    status, started, _, _ = post(port, {}, path="/admin/profiler/start")
+    check(status == 200 and started["data"]["state"] == "tracing", f"obs: start {started}")
+    try:
+        ids_before = dev.timeline.records(limit=1)[0]["dispatch_id"]
+        base, step = OBS_SIZES["streams"]
+        prompts = [text(180 + i, base + step * i) for i in range(8)]
+        rate8, tpot8, _ = concurrent_streams(port, prompts, greedy)
+        timeline_idle(pool, dev.timeline)
+    finally:
+        restore()
+        status, stopped, _, _ = post(port, {}, path="/admin/profiler/stop")
+    check(status == 200 and stopped["data"]["artifacts"] == ["trace.json"],
+          f"obs: stop {stopped}")
+    trace = os.path.join(stopped["data"]["dir"], "trace.json")
+    size_mb = os.path.getsize(trace) / 1e6
+    per_chunk, busy_us, window_us = chunk_kernel_us(trace, ids)
+    os.remove(trace)
+    records = {r["dispatch_id"]: r for r in admin(port, "/admin/dispatches?limit=512")
+               ["dispatches"]}
+    over = [(i, us, records[i]["duration_s"] * 1e6) for i, us in per_chunk.items()
+            if us > records[i]["duration_s"] * 1e6]
+    mbu_8 = [records[i]["mbu"] for i in per_chunk if records[i]["mbu"] is not None]
+    step_ms = [us / 1e3 / chunk for i, us in per_chunk.items()
+               if records[i]["batch_size"] == 8 and us > 0]
+    weights = float(runner.weight_bytes)
+    device_mbu = [weights / (ms / 1e3) / PEAK_BYTES_PER_S for ms in step_ms]
+    idle = 1.0 - busy_us / window_us
+    print(f"obs: profiler trace {size_mb:.1f} MB: {len(per_chunk)} pool chunks, kernel time a "
+          f"chunk {min(per_chunk.values()) / 1e3:.2f}-{max(per_chunk.values()) / 1e3:.2f} ms "
+          f"against record durations {min(records[i]['duration_s'] for i in per_chunk) * 1e3:.1f}"
+          f"-{max(records[i]['duration_s'] for i in per_chunk) * 1e3:.1f} ms; busy "
+          f"{busy_us / 1e3:.1f} of {window_us / 1e3:.1f} ms, idle share {idle:.3f}", flush=True)
+    check(not over, f"obs: a chunk's kernel time exceeds its record's duration: {over}")
+    check(all(i > ids_before for i in per_chunk), "obs: a profiled chunk predates the window")
+    # the 1,500-byte prompt: 3 slices of 512
+    status, data, ttft_long, _ = post(port, {"prompt": text(190, OBS_SIZES["long"]),
+                                             "max_tokens": 8, "temperature": 0})
+    check(status == 200, f"obs: long prompt {status} {data}")
+    # one full prefill batch: 8 x 512 tokens, one token each (no decode);
+    # sent again (other prompts) if the 20 ms window split the cohort
+    full_batch: list = []
+    for attempt in range(3):
+        width = OBS_SIZES["full"]
+        concurrent_posts(port, [{"prompt": text(200 + 10 * attempt + i, width),
+                                 "max_tokens": 1, "temperature": 0} for i in range(8)])
+        full_batch = [r for r in dev.timeline.records(limit=16, kind="prefill")
+                      if r["batch_size"] == 8 and r["bucket"] == width
+                      and r["dispatch_id"] > ids0 and r["tokens"] == 8 * width]
+        if full_batch:
+            break
+    check(full_batch, "obs: no full batch of 8 x 512 tokens in 3 tries (the cohort split)")
+    timeline_idle(pool, dev.timeline)
+    series = scrape(port)
+    prefill_gauge = sample_sum(series, "gofr_tpu_mfu", 'op="prefill"')
+    decode_mbu_gauge = sample_sum(series, "gofr_tpu_mbu", 'op="decode"')
+    dispatches = admin(port, "/admin/dispatches?limit=512")["dispatches"]
+    by_id = {r["dispatch_id"]: r for r in dispatches}
+    prefill_mfu = full_batch[0]["mfu"]
+    n_params = runner.n_params
+    gauge_mfu = 2.0 * n_params * full_batch[0]["tokens"] / full_batch[0]["duration_s"] / 989e12
+    print(f"obs: prefill of 8 x {OBS_SIZES['full']}: {full_batch[0]['duration_s'] * 1e3:.2f} ms, record MFU "
+          f"(analytic sheet) {prefill_mfu:.3f}, 2*N*tokens {gauge_mfu:.3f} (predicted "
+          f"~{PREDICTED['prefill_mfu']}); gauge gofr_tpu_mfu{{op=prefill}} {prefill_gauge:.3f}",
+          flush=True)
+    print(f"obs: decode MBU, 1 stream: records {np.median(mbu_1):.3f} (min {min(mbu_1):.3f}, "
+          f"max {max(mbu_1):.3f}); 8 streams under the profiler {np.median(mbu_8):.3f}; gauge "
+          f"{decode_mbu_gauge:.3f} (predicted {PREDICTED['decode_mbu'][0]}-"
+          f"{PREDICTED['decode_mbu'][1]}); on device time {np.median(device_mbu):.3f} from "
+          f"{np.median(step_ms):.3f} ms a step (predicted ~{PREDICTED['decode_mbu_device']})",
+          flush=True)
+    # every request recorded, its dispatch ids resolving
+    posted = POSTED.get(port, 0) - posted0
+    flights = admin(port, "/admin/requests?limit=100")["requests"]
+    mine = [r for r in flights if r["endpoint"] == "/v1/completions"]
+    check(len(mine) == posted, f"obs: {len(mine)} flight records for {posted} requests")
+    check(all(r["status"] == "ok" and r["dispatch_ids"] for r in mine),
+          "obs: a request failed or rode no dispatch")
+    missing = [d for r in mine for d in r["dispatch_ids"] if d not in by_id]
+    check(not missing, f"obs: dispatch ids that resolve to nothing: {missing[:8]}")
+    # the timeline's counts are the batcher's, the pool's and the slices'
+    by_kind = dev.timeline.stats()["by_kind"]
+    delta = {k: by_kind.get(k, 0) - by_kind0.get(k, 0) for k in by_kind}
+    slices = runner.prefills - p0 - (batcher.dispatches - b0)
+    print(f"obs: dispatches {delta}; batcher {batcher.dispatches - b0}, pool chunks "
+          f"{pool.dispatches - d0}, other prefill forwards {slices}", flush=True)
+    check(delta.get("prefill", 0) == batcher.dispatches - b0, "obs: prefill records != batcher")
+    check(delta.get("decode_chunk", 0) == pool.dispatches - d0, "obs: chunk records != pool")
+    # the long prompt's slices, and any prefix-cache tail prefill (a record
+    # with its detail), each a prefill forward outside the batcher
+    cut = [r for r in dispatches if r["kind"] == "prefill_chunk" and r["dispatch_id"] > ids0
+           and not r["detail"]]
+    check(delta.get("prefill_chunk", 0) == slices and len(cut) == OBS_SIZES["slices"],
+          f"obs: {len(cut)} slice records for the long prompt's {OBS_SIZES['slices']}")
+    # launches: sm90 for every prefill forward's layers, decode for every
+    # pool step's, none on mma
+    sm90, decode = flash.launches_fwd_sm90.value, flash.launches_fwd_decode.value
+    mma = flash.launches.value - sm90 - decode
+    chunks = pool.dispatches - d0
+    print(f"obs: launches sm90 {sm90}, decode {decode} = n_layers x DECODE_CHUNK x chunks "
+          f"{n_layers * chunk * chunks}, mma {mma}", flush=True)
+    check(mma == 0 and decode == n_layers * chunk * chunks
+          and sm90 >= n_layers * (runner.prefills - p0), "obs: a launch off its route")
+    # the cost model: zero anomalies on a fitted row; the fit of this run
+    anomalies = admin(port, "/admin/anomalies")
+    costmodel = admin(port, "/admin/costmodel")
+    residuals = {f: round(v["ema"], 4) for f, v in costmodel["residuals"].items()}
+    print(f"obs: anomalies {anomalies['count']} {anomalies['stats']['by']}; residual EMAs "
+          f"{residuals}", flush=True)
+    if fitted_row:
+        check(anomalies["count"] == 0, f"obs: healthy traffic raised {anomalies['anomalies']}")
+    samples = join_records([r for r in dispatches if r["dispatch_id"] > ids0],
+                           costmodel["sheets"])
+    row = fit(samples, dev.device_kind)
+    row["source"] = f"fit: chip_smoke.py phase 17, {card}"
+    ratios: dict = {}
+    for s in samples:
+        predicted = (max(s["flops"] / row["eff_flops"], s["bytes_accessed"] / row["eff_bw"]) * 1e3
+                     + row["overhead_ms"])
+        ratios.setdefault(f"{s['kind']}/{s['bucket']}", []).append(s["duration_s"] * 1e3 / predicted)
+    print("obs: fitted row " + json.dumps({k: row[k] for k in (
+        "eff_flops", "eff_bw", "overhead_ms", "eff_flops_source", "eff_bw_source",
+        "n_compute_bound", "n_bandwidth_bound", "source")}), flush=True)
+    print("obs: residual ratios on the fitted row, by family (min/median/max) "
+          + json.dumps({f: [round(min(v), 3), round(float(np.median(v)), 3), round(max(v), 3)]
+                        for f, v in sorted(ratios.items())}), flush=True)
+    out.update({
+        "tokens_per_s": {"1": rate1, "8": rate8}, "tpot_ms": {"1": tpot1, "8": tpot8},
+        "long_prompt_ttft_ms": ttft_long * 1e3,
+        "prefill_mfu_record": prefill_mfu, "prefill_mfu_2n": gauge_mfu,
+        "decode_mbu": float(np.median(mbu_1)), "decode_mbu_gauge": decode_mbu_gauge,
+        "decode_mbu_device": float(np.median(device_mbu)), "idle_share": idle,
+        "profiled_chunks": len(per_chunk), "anomalies": anomalies["count"],
+        "calibration": calibration["row_source"], "fitted_row": row,
+    })
+    return out
+
+
+def stalled_prefill(torch, model) -> dict:
+    """A prefill slowed on the card by ``torch.cuda._sleep`` (~1 s) inside
+    a wrapper this phase installs on the runner (the package has no such
+    hook), with WATCHDOG_DISPATCH_TIMEOUT_S=0.5: degraded, readiness 503
+    with the watchdog's evidence, back to serving when the wait returns,
+    one stall counted, one slow_dispatch."""
+    import gofr_tpu_torch
+
+    # cycles a second of the card's clock, measured
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(100_000_000)
+    end.record()
+    end.synchronize()
+    cycles_per_s = 100_000_000 / (start.elapsed_time(end) / 1e3)
+    env = {**PHASE10_ENV, "HTTP_PORT": str(free_port()), "WATCHDOG_DISPATCH_TIMEOUT_S": "0.5"}
+    with environment(env):
+        app = gofr_tpu_torch.new(model=model)
+    gofr_tpu_torch.register_openai_routes(app)
+    app.start()
+    try:
+        port, dev = app.http_port, app.container.tpu
+        run_batch = dev.runner.run_batch
+
+        def slowed(payloads):
+            vars(dev.runner).pop("run_batch")  # one prefill only
+            torch.cuda._sleep(int(cycles_per_s * 1.0))
+            return run_batch(payloads)
+
+        dev.runner.run_batch = slowed
+        before = len(dev.engine.snapshot()["history"])
+        result: list = []
+        worker = threading.Thread(target=lambda: result.append(
+            post(port, {"prompt": "slow prefill", "max_tokens": 4,
+                        "temperature": 0})))
+        t0 = time.perf_counter()
+        worker.start()
+        bodies = []
+        while worker.is_alive():
+            status, _, body = get_raw(port, "/.well-known/ready")
+            if status == 503:
+                bodies.append(json.loads(body))
+            time.sleep(0.05)
+        worker.join()
+        wall = time.perf_counter() - t0
+        deadline = time.perf_counter() + 5
+        while dev.engine.state != "serving" and time.perf_counter() < deadline:
+            time.sleep(0.02)
+        states = [h["state"] for h in dev.engine.snapshot()["history"][before:]]
+        check(result and result[0][0] == 200, f"obs stall: the request {result}")
+        series = scrape(port)
+        stalls = sample_sum(series, "gofr_tpu_device_stalls_total", 'kind="prefill"')
+        anomalies = admin(port, "/admin/anomalies?cause=slow_dispatch")["anomalies"]
+        status, _, body = get_raw(port, "/.well-known/ready")
+        print(f"obs stall: {wall:.2f}s request, engine {states}, {len(bodies)} readiness 503s "
+              f"(first {bodies[:1]}), then {status}; stalls {stalls}; slow_dispatch "
+              f"{[(a['kind'], a['observed_ms'], a['predicted_ms']) for a in anomalies]}",
+              flush=True)
+        check(states[:1] == ["degraded"] and states[-1:] == ["serving"],
+              f"obs stall: engine walked {states}")
+        check(bodies and all(b["state"] in ("degraded", "wedged") and b["watchdog"]["watching"]
+                             for b in bodies), "obs stall: readiness without the evidence")
+        check(status == 200, "obs stall: readiness did not come back")
+        check(stalls == 1, f"obs stall: {stalls} stalls counted")
+        slowed_ones = [a for a in anomalies if a["kind"] == "prefill"]
+        check(len(slowed_ones) == 1, f"obs stall: prefill anomalies {slowed_ones}")
+        row = admin(port, "/admin/costmodel")["calibration"]["row_source"] or ""
+        if row.startswith("fit"):
+            check(len(anomalies) == 1, f"obs stall: other anomalies {anomalies}")
+        return {"states": states, "ready_503s": len(bodies), "stalls": stalls,
+                "observed_ms": slowed_ones[0]["observed_ms"]}
+    finally:
+        app.shutdown()
 
 
 # -- phase 15: the encoder and MLP families ------------------------------------------
@@ -4150,6 +4563,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     host_services(torch, flash, card, model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    observability(torch, flash, card, model)
     del model
     gc.collect()
     torch.cuda.empty_cache()

@@ -1,7 +1,8 @@
 """App core (trimmed copy of ``gofr_tpu/app.py``): config, container,
 tracer, the middleware chain, route registration and the HTTP server with
 the default routes (``/.well-known/health``, ``/.well-known/ready``,
-``/favicon.ico``, ``/metrics`` and the LoRA adapter admin routes).
+``/favicon.ico``, ``/metrics``, the profiler, flight-recorder, engine,
+cost-model and LoRA adapter admin routes).
 
     import gofr_tpu_torch
     app = gofr_tpu_torch.new()
@@ -21,12 +22,22 @@ from gofr_tpu_torch.handler import (
     adapter_load_handler,
     adapter_unload_handler,
     adapters_list_handler,
+    anomalies_admin_handler,
     catch_all_handler,
+    costmodel_admin_handler,
+    dispatches_admin_handler,
+    engine_admin_handler,
     favicon_handler,
     health_handler,
     make_endpoint,
     metrics_handler,
+    profiler_start_handler,
+    profiler_status_handler,
+    profiler_stop_handler,
     ready_handler,
+    requests_admin_handler,
+    slo_admin_handler,
+    tenants_admin_handler,
 )
 from gofr_tpu_torch.http.middleware import (
     cors_middleware,
@@ -89,7 +100,19 @@ class App:
             ("GET", "/.well-known/ready", ready_handler),
             ("GET", "/favicon.ico", favicon_handler),
             ("GET", "/metrics", metrics_handler),
-            # LoRA adapter admin (ADMIN_TOKEN gates it when set)
+            # the admin surface (ADMIN_TOKEN gates it when set): the
+            # profiler, the flight recorder, engine introspection, the cost
+            # model and the LoRA adapters
+            ("GET", "/admin/profiler", profiler_status_handler),
+            ("POST", "/admin/profiler/start", profiler_start_handler),
+            ("POST", "/admin/profiler/stop", profiler_stop_handler),
+            ("GET", "/admin/requests", requests_admin_handler),
+            ("GET", "/admin/slo", slo_admin_handler),
+            ("GET", "/admin/tenants", tenants_admin_handler),
+            ("GET", "/admin/engine", engine_admin_handler),
+            ("GET", "/admin/dispatches", dispatches_admin_handler),
+            ("GET", "/admin/costmodel", costmodel_admin_handler),
+            ("GET", "/admin/anomalies", anomalies_admin_handler),
             ("GET", "/admin/adapters", adapters_list_handler),
             ("POST", "/admin/adapters", adapter_load_handler),
             ("DELETE", "/admin/adapters/{name}", adapter_unload_handler),

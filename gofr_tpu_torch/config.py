@@ -71,6 +71,20 @@ DECLARED_KEYS: dict[str, str] = {
     "METRICS_EXEMPLARS": "'off': no trace_id exemplars in OpenMetrics",
     "TRACER_HOST": "zipkin collector host (set: spans are exported)",
     "TRACER_PORT": "zipkin collector port (default 9411)",
+    "FLIGHT_RECORDER_SIZE": "finished flight records kept (default 512)",
+    "FLIGHT_RECORDER_KEEP": "slow or errored records kept past the ring (default 128)",
+    "FLIGHT_SLOW_MS": "a request this slow (duration or TTFT) is slow (default 2000)",
+    "TENANT_LEDGER_SIZE": "tenants the usage ledger tracks exactly (default 256)",
+    "PROFILE_DIR": "where /admin/profiler/start writes its trace (default a temp dir)",
+    "DISPATCH_TIMELINE_SIZE": "dispatch records /admin/dispatches keeps (default 512)",
+    "WATCHDOG_DISPATCH_TIMEOUT_S": "stall deadline of a watched wait (default 120 on cuda, off on cpu)",
+    "COSTMODEL": "'off': no dispatch cost model, /admin/costmodel or anomalies",
+    "COSTMODEL_PROFILE": "cost-profile JSON (default gofr_tpu_torch/tpu/cost_profile.json)",
+    "COSTMODEL_ANOMALY_FACTOR": "observed/predicted that flags a slow dispatch (default 4)",
+    "COSTMODEL_MIN_ANOMALY_MS": "least excess over the prediction an anomaly needs (default 50)",
+    "COSTMODEL_EMA_ALPHA": "residual EMA weight (default 0.2)",
+    "COSTMODEL_EMA_BAND": "residual EMA that flags a family's drift (default 2.5)",
+    "ANOMALY_RING_SIZE": "anomaly events /admin/anomalies keeps (default 256)",
 }
 
 # The reference's keys the port does not honor yet: key -> (refuse, why,
@@ -82,10 +96,9 @@ _MULTIHOST = "§A7: the port runs one process, no multi-host runtime"
 _JOURNAL = "§A4: the port keeps no generation journal"
 _DATASOURCE = "§A6: the port wires no sql or redis datasource"
 _DEADLINES = "§A4: the port sheds no request by deadline or brownout"
-_OBSERVE = "§A3: the port has no flight recorder, timebase or postmortem store"
-_COSTMODEL = "§A3: the port has no dispatch cost model"
-_SLO = "§A4: the port has no SLO engine or tenant ledger"
-_RECOVERY = "§A4: the port has no stall watchdog or recovery supervisor"
+_OBSERVE = "§A4: the port has no timebase or postmortem store"
+_SLO = "§A4: the port has no SLO engine"
+_RECOVERY = "§A4: the port has no recovery supervisor"
 _FLEET = "§A5: the port has no fleet router or replica role"
 _TRANSFER = "§A5: the port serves and pulls no KV across replicas"
 _TOOLING = "§A6: the port has no native tokenizer backend or lock sanitizer"
@@ -124,20 +137,8 @@ UNHONORED_KEYS: dict[str, tuple[bool, str]] = {
     "POSTMORTEM_KEEP": (False, _OBSERVE),
     "POSTMORTEM_MIN_INTERVAL_S": (False, _OBSERVE),
     "POSTMORTEM_SNAPSHOTS": (False, _OBSERVE),
-    "FLIGHT_RECORDER_SIZE": (False, _OBSERVE),
-    "FLIGHT_RECORDER_KEEP": (False, _OBSERVE),
-    "FLIGHT_SLOW_MS": (False, _OBSERVE),
-    "PROFILE_DIR": (False, "§A3: the port has no /admin/profiler"),
-    "DISPATCH_TIMELINE_SIZE": (False, "§A3: the port has no dispatch timeline"),
     "FLEET_TRACE_SCRAPE_TIMEOUT_S": (False, _FLEET),
-    "COSTMODEL": (False, _COSTMODEL),
-    "COSTMODEL_PROFILE": (False, _COSTMODEL),
-    "COSTMODEL_HLO": (False, _COSTMODEL),
-    "COSTMODEL_ANOMALY_FACTOR": (False, _COSTMODEL),
-    "COSTMODEL_MIN_ANOMALY_MS": (False, _COSTMODEL),
-    "COSTMODEL_EMA_ALPHA": (False, _COSTMODEL),
-    "COSTMODEL_EMA_BAND": (False, _COSTMODEL),
-    "ANOMALY_RING_SIZE": (False, _COSTMODEL),
+    "COSTMODEL_HLO": (False, "§C: the port compiles no HLO; its cost sheets are analytic"),
     "SLO": (False, _SLO),
     "SLO_TARGETS": (False, _SLO),
     "SLO_BURN_FAST_S": (False, _SLO),
@@ -147,13 +148,11 @@ UNHONORED_KEYS: dict[str, tuple[bool, str]] = {
     "SLO_BURN_SLOW_LONG_S": (False, _SLO),
     "SLO_BURN_SLOW_RATE": (False, _SLO),
     "SLO_EVAL_INTERVAL_S": (False, _SLO),
-    "TENANT_LEDGER_SIZE": (False, _SLO),
     "RECOVERY_ENABLED": (False, _RECOVERY),
     "RECOVERY_MAX_ATTEMPTS": (False, _RECOVERY),
     "RECOVERY_BACKOFF_S": (False, _RECOVERY),
     "RECOVERY_BACKOFF_MAX_S": (False, _RECOVERY),
     "RECOVERY_ATTEMPT_TIMEOUT_S": (False, _RECOVERY),
-    "WATCHDOG_DISPATCH_TIMEOUT_S": (False, _RECOVERY),
     "JOURNAL": (True, _JOURNAL),
     "JOURNAL_CAPACITY": (False, _JOURNAL),
     "JOURNAL_MAX_TOKENS": (False, _JOURNAL),

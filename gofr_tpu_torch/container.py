@@ -1,10 +1,16 @@
-"""Dependency container: config, logger, metrics registry, handler thread
-pool and the inference device (trimmed copy of ``gofr_tpu/container.py``).
+"""Dependency container: config, logger, metrics registry, the flight
+recorder and tenant ledger, handler thread pool and the inference device
+(trimmed copy of ``gofr_tpu/container.py``).
 
 - ``LOG_LEVEL`` sets the logger's level (INFO by default);
 - the registry caps each metric's label-sets at ``METRICS_MAX_SERIES``
   (1000) and, unless ``METRICS_EXEMPLARS=off``, gives histograms the
-  current trace id as their OpenMetrics exemplar;
+  current trace id and dispatch id as their OpenMetrics exemplar
+  (``telemetry.exemplar_provider``);
+- ``telemetry`` (a ``FlightRecorder``: ``FLIGHT_RECORDER_SIZE`` 512,
+  ``FLIGHT_RECORDER_KEEP`` 128, ``FLIGHT_SLOW_MS`` 2000) keeps the
+  requests' flight records, metered into ``tenants`` (a ``TenantLedger``
+  of ``TENANT_LEDGER_SIZE`` 256);
 - ``HANDLER_THREADS`` (64) sizes the pool sync handlers run on;
 - the device is built when ``MODEL_NAME`` is set or ``TPU_ENABLED`` is
   true (it then serves ``mlp``, the default ``MODEL_NAME``), and boots in
@@ -26,7 +32,7 @@ from typing import Any, Optional
 from gofr_tpu_torch.config import check_unhonored
 from gofr_tpu_torch.logging import new_logger
 from gofr_tpu_torch.metrics import Registry
-from gofr_tpu_torch.tracing import trace_exemplar
+from gofr_tpu_torch.telemetry import FlightRecorder, TenantLedger, exemplar_provider
 
 
 class Container:
@@ -39,9 +45,22 @@ class Container:
         self.metrics = Registry(
             max_series=int(config.get_or_default("METRICS_MAX_SERIES", "1000")),
             exemplar_provider=(
-                trace_exemplar
+                exemplar_provider
                 if config.get_or_default("METRICS_EXEMPLARS", "on") != "off" else None
             ),
+        )
+        # bounded per-tenant usage (/admin/tenants): exact for the top
+        # tenants, the rest in ~other; never a per-tenant series
+        self.tenants = TenantLedger(
+            size=int(config.get_or_default("TENANT_LEDGER_SIZE", "256")), metrics=self.metrics,
+        )
+        # the flight recorder behind /admin/requests and /admin/slo
+        self.telemetry = FlightRecorder(
+            capacity=int(config.get_or_default("FLIGHT_RECORDER_SIZE", "512")),
+            keep=int(config.get_or_default("FLIGHT_RECORDER_KEEP", "128")),
+            slow_threshold_s=float(config.get_or_default("FLIGHT_SLOW_MS", "2000")) / 1000.0,
+            logger=self.logger,
+            tenants=self.tenants,
         )
         self.tpu: Optional[Any] = None
         self._handler_pool: Optional[ThreadPoolExecutor] = None

@@ -34,6 +34,15 @@ class UnauthenticatedError(GofrError):
     status_code = 401
 
 
+class EntityNotFoundError(GofrError):
+    """Row/key not found -> 404."""
+
+    status_code = 404
+
+    def __init__(self, name: str = "entity", value: str = ""):
+        super().__init__(f"No '{name}' found for value '{value}'")
+
+
 class RouteNotFoundError(GofrError):
     status_code = 404
 

@@ -1,8 +1,12 @@
 """Handler adapter and built-in handlers (trimmed copy of
 ``gofr_tpu/handler.py``): health, readiness, ``/metrics``, the favicon,
-the catch-all, and the LoRA adapter admin surface (``GET``/``POST
-/admin/adapters``, ``DELETE /admin/adapters/{name}``) behind the optional
-``ADMIN_TOKEN``. The adapter opens a "gofr-handler" span around each
+the catch-all, and the admin surface behind the optional ``ADMIN_TOKEN``:
+LoRA adapters (``GET``/``POST /admin/adapters``, ``DELETE
+/admin/adapters/{name}``), the flight recorder (``/admin/requests``,
+``/admin/slo``, ``/admin/tenants``), engine introspection
+(``/admin/engine``, ``/admin/dispatches``), the cost model
+(``/admin/costmodel``, ``/admin/anomalies``) and the profiler
+(``GET /admin/profiler``, ``POST /admin/profiler/start|stop``). The adapter opens a "gofr-handler" span around each
 handler; sync handlers run on the container's pool inside a copy of the
 request's context, so the span (and its trace id) reaches their thread."""
 
@@ -13,12 +17,13 @@ import contextvars
 import hmac
 import inspect
 import json
-import uuid
 from typing import Any, Callable
 
 from gofr_tpu_torch import static
 from gofr_tpu_torch.context import Context
+from gofr_tpu_torch.anomaly import ANOMALY_CAUSES
 from gofr_tpu_torch.errors import (
+    EntityNotFoundError,
     HTTPError,
     InvalidParamError,
     RouteNotFoundError,
@@ -27,13 +32,12 @@ from gofr_tpu_torch.errors import (
 from gofr_tpu_torch.http.request import Request
 from gofr_tpu_torch.http.responder import respond
 from gofr_tpu_torch.http.response import File, Response
+from gofr_tpu_torch.profiling import profiler
+from gofr_tpu_torch.telemetry import BOOT_ID
+from gofr_tpu_torch.tpu.introspect import DISPATCH_KINDS
 from gofr_tpu_torch.tracing import get_tracer
 
 Handler = Callable[[Context], Any]
-
-# this process's identity on the readiness verdict: a restarted process
-# (same address) answers with another id
-BOOT_ID = uuid.uuid4().hex[:16]
 
 
 def make_endpoint(func: Handler, container: Any) -> Callable:
@@ -82,13 +86,30 @@ def catch_all_handler(_: Context) -> None:
 def ready_handler(ctx: Context) -> Response:
     """Readiness, distinct from health (liveness): 200 with no device, 503
     with the boot's state and stage while the device boots (or after its
-    boot failed), 200 once requests would be served without waiting. (The
-    JAX handler's watchdog and fleet branches come with those slices.)"""
+    boot failed), 503 with the engine state and the watchdog's evidence
+    (the kinds that stalled, what it still watches) while a stalled wait
+    holds the engine degraded or wedged, 200 once requests would be served
+    without waiting. (The JAX handler's fleet and recovery branches come
+    with those slices.)"""
     tpu = ctx.container.tpu
-    if tpu is None or tpu.ready():
+    if tpu is None:
         status, state = 200, {"state": "ready", "boot_id": BOOT_ID}
-    else:
+    elif not tpu.ready():
         status, state = 503, dict(tpu.boot_status)
+    elif tpu.engine.state in ("degraded", "wedged", "recovering"):
+        snap = tpu.engine.snapshot()
+        wsnap = tpu.watchdog.snapshot()
+        status = 503
+        state = {
+            "state": snap["state"], "detail": snap["detail"],
+            "watchdog": {
+                "stalls": wsnap.get("stalls"),
+                "watching": wsnap.get("watching"),
+                "timeout_s": wsnap.get("timeout_s"),
+            },
+        }
+    else:
+        status, state = 200, {"state": "ready", "boot_id": BOOT_ID}
     return Response(
         status=status,
         headers={"Content-Type": "application/json"},
@@ -152,3 +173,168 @@ def adapter_load_handler(ctx: Context) -> Any:
 
 def adapter_unload_handler(ctx: Context) -> Any:
     return {"adapters": _admin_device(ctx).unload_adapter(ctx.path_param("name"))}
+
+
+# -- the flight recorder, engine introspection and the cost model --------------
+
+def _query_flag(ctx: Context, name: str) -> Any:
+    """Tri-state query flag: absent -> None; present empty or truthy
+    (?slow=, ?slow=1, ?slow=true) -> True; false/0/no -> False."""
+    if name not in ctx.request.query:
+        return None
+    return ctx.param(name).strip().lower() not in ("false", "0", "no")
+
+
+def _limit(ctx: Context, default: str) -> int:
+    try:
+        limit = int(ctx.param("limit") or default)
+    except ValueError:
+        raise InvalidParamError('"limit" must be an integer') from None
+    if limit < 1:
+        raise InvalidParamError('"limit" must be >= 1')
+    return limit
+
+
+def requests_admin_handler(ctx: Context) -> Any:
+    """GET /admin/requests: recent flight records, newest first.
+    ``?slow=``/``?errored=`` filter (the side buffer keeps flagged requests
+    after ring eviction); ``?request_id=``/``?trace_id=``/``?tenant=``
+    match exactly; ``?limit=`` bounds the page (default 100)."""
+    _check_admin(ctx)
+    records = ctx.container.telemetry.records(
+        slow=_query_flag(ctx, "slow"),
+        errored=_query_flag(ctx, "errored"),
+        limit=_limit(ctx, "100"),
+        request_id=ctx.param("request_id") or None,
+        trace_id=ctx.param("trace_id") or None,
+        tenant=ctx.param("tenant") or None,
+    )
+    return {"requests": records, "count": len(records)}
+
+
+def slo_admin_handler(ctx: Context) -> Any:
+    """GET /admin/slo: rolling-window per-model p50/p95/p99 TTFT and TPOT
+    from the flight records (exact sample percentiles); ``?window=``
+    seconds (default 300)."""
+    _check_admin(ctx)
+    try:
+        window = float(ctx.param("window") or "300")
+    except ValueError:
+        raise InvalidParamError('"window" must be a number of seconds') from None
+    if window <= 0:
+        raise InvalidParamError('"window" must be > 0')
+    return ctx.container.telemetry.slo(window_s=window)
+
+
+def tenants_admin_handler(ctx: Context) -> Any:
+    """GET /admin/tenants: the tenant ledger's top tenants by tokens (exact
+    counts), the rest in ``~other``; ``?tenant=`` looks one up (404 when it
+    is not tracked), ``?limit=`` bounds the ranking (default 50). Tenant
+    ids are hashed (``key-<sha256 prefix>``), never raw keys."""
+    _check_admin(ctx)
+    ledger = ctx.container.tenants
+    tenant = ctx.param("tenant") or None
+    if tenant is not None:
+        entry = ledger.get(tenant)
+        if entry is None:
+            raise EntityNotFoundError(
+                f"tenant '{tenant}' is not tracked (unseen, or folded "
+                "into ~other by the top-K sketch)"
+            )
+        return {"tenant": entry, "stats": ledger.stats()}
+    return ledger.snapshot(k=_limit(ctx, "50"))
+
+
+def engine_admin_handler(ctx: Context) -> Any:
+    """GET /admin/engine: the engine's state and history, boot timeline,
+    watchdog, dispatch counts, queue depth, pool occupancy, scheduler,
+    caches and device memory, with the tenant headline. Host reads only:
+    it answers while the engine is wedged."""
+    dev = _admin_device(ctx)
+    snap = dev.engine_snapshot()
+    snap["tenants"] = ctx.container.tenants.overview()
+    return snap
+
+
+def dispatches_admin_handler(ctx: Context) -> Any:
+    """GET /admin/dispatches: recent dispatch records, newest first;
+    ``?kind=`` filters, ``?limit=`` bounds the page (default 100). A
+    dispatch in flight (or stuck) shows with status "running"."""
+    dev = _admin_device(ctx)
+    limit = _limit(ctx, "100")
+    kind = ctx.param("kind") or None
+    if kind is not None and kind not in DISPATCH_KINDS:
+        raise InvalidParamError(f'"kind" must be one of {", ".join(DISPATCH_KINDS)}')
+    records = dev.timeline.records(limit=limit, kind=kind)
+    return {"dispatches": records, "count": len(records)}
+
+
+def costmodel_admin_handler(ctx: Context) -> Any:
+    """GET /admin/costmodel: the calibration in force, every cost sheet
+    (analytic or synthetic), the families' residual EMAs, the thresholds
+    and the anomaly ring's stats."""
+    dev = _admin_device(ctx)
+    if dev.costmodel is None:
+        raise HTTPError(503, "cost model disabled (set COSTMODEL=on)")
+    return dev.costmodel.snapshot()
+
+
+def anomalies_admin_handler(ctx: Context) -> Any:
+    """GET /admin/anomalies: the cost model's anomaly events, newest first
+    (``slow_dispatch``, ``ema_drift``); ``?kind=``/``?cause=`` filter,
+    ``?limit=`` bounds the page (default 100). A healthy process serves an
+    empty list."""
+    _check_admin(ctx)
+    costmodel = getattr(ctx.tpu, "costmodel", None)
+    if costmodel is None:
+        raise HTTPError(503, "no anomaly ring on this process (set COSTMODEL=on)")
+    limit = _limit(ctx, "100")
+    cause = ctx.param("cause") or None
+    if cause is not None and cause not in ANOMALY_CAUSES:
+        raise InvalidParamError(f'"cause" must be one of {", ".join(ANOMALY_CAUSES)}')
+    events = costmodel.ring.events(limit=limit, kind=ctx.param("kind") or None, cause=cause)
+    return {"anomalies": events, "count": len(events), "stats": costmodel.ring.stats()}
+
+
+# -- the profiler ----------------------------------------------------------------
+
+def _profiler_gauge(ctx: Context) -> Any:
+    """1 while a trace captures: a trace left running slows serving and
+    fills the disk, so it must be alertable."""
+    return ctx.container.metrics.gauge(
+        "gofr_tpu_profiler_active",
+        "1 while a torch.profiler trace is capturing (0 otherwise)",
+    )
+
+
+def profiler_status_handler(ctx: Context) -> Any:
+    _check_admin(ctx)
+    status = profiler().status()
+    _profiler_gauge(ctx).set(1.0 if status["state"] == "tracing" else 0.0)
+    return status
+
+
+def profiler_start_handler(ctx: Context) -> Any:
+    """POST /admin/profiler/start [{"dir": ...}]: 409 while a trace runs."""
+    _check_admin(ctx)
+    body = ctx.bind() if ctx.request.body else {}
+    if not isinstance(body, dict):
+        raise InvalidParamError('body (expected {"dir": ...} or empty)')
+    try:
+        out = profiler().start(body.get("dir"), default_dir=ctx.config.get("PROFILE_DIR"))
+    except RuntimeError as exc:
+        raise HTTPError(409, str(exc)) from exc
+    _profiler_gauge(ctx).set(1.0)
+    return out
+
+
+def profiler_stop_handler(ctx: Context) -> Any:
+    """POST /admin/profiler/stop: the trace's directory and files; 409 when
+    none runs."""
+    _check_admin(ctx)
+    try:
+        out = profiler().stop()
+    except RuntimeError as exc:
+        raise HTTPError(409, str(exc)) from exc
+    _profiler_gauge(ctx).set(0.0)
+    return out

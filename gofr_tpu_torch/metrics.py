@@ -4,8 +4,9 @@ exposition (copy of ``gofr_tpu/metrics.py``), served at ``/metrics``.
 Besides classic Prometheus text 0.0.4, the registry speaks **OpenMetrics
 1.0** (``Registry.expose(openmetrics=True)``; the handler negotiates on
 ``Accept: application/openmetrics-text``): the same series, plus per-bucket
-**exemplars** on histograms, the ``trace_id`` of the last observation that
-landed in each bucket.
+**exemplars** on histograms, the ``trace_id`` (and, below a dispatch, the
+``dispatch_id``) of the last observation that landed in each bucket.
+``COMPILE_BUCKETS`` is the boot stages' ladder.
 
 The cardinality guard: ``Registry(max_series=N)`` (``METRICS_MAX_SERIES``,
 default 1000) caps the label-sets any one metric may mint; overflow
@@ -29,14 +30,21 @@ DEFAULT_BUCKETS = (
     0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
 )
 
+# boot "compiles" run seconds to minutes (the kernels' nvcc build, the
+# warm-up prefill per bucket): the latency ladder would put them all in +Inf
+COMPILE_BUCKETS = (
+    0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
+    60.0, 120.0, 300.0, 600.0,
+)
+
 # OpenMetrics caps an exemplar's label-set (every name + value) at 128
-# UTF-8 chars; a 32-hex trace_id fits comfortably,
+# UTF-8 chars; a 32-hex trace_id plus a dispatch_id fits comfortably,
 # but the cap is enforced so a creative provider can never emit an
 # exposition that strict parsers reject.
 EXEMPLAR_MAX_RUNES = 128
 
 # An exemplar provider returns the correlating labels of the CURRENT
-# observation ({"trace_id": ...}) or None. It runs
+# observation ({"trace_id": ..., "dispatch_id": ...}) or None. It runs
 # inside Histogram.observe on the hot path, so it must be O(1) —
 # contextvar reads, no locks, no I/O.
 ExemplarProvider = Callable[[], Optional[dict]]

@@ -1,5 +1,5 @@
 """POST /v1/chat/completions: messages in, assistant message out (port of
-``gofr_tpu/openai/chat.py`` without flight records). The same generation
+``gofr_tpu/openai/chat.py``; each request is a flight record). The same generation
 core as completions, LoRA adapters included (the response's ``model`` is
 the adapter's name); only the prompt (the chat template) and the response
 shapes (``chat.completion``, and ``chat.completion.chunk`` frames with
@@ -32,6 +32,7 @@ from gofr_tpu_torch.openai.parse import (
     stream_usage_opt,
 )
 from gofr_tpu_torch.openai.template import render_chat_prompt
+from gofr_tpu_torch.telemetry import flight
 
 
 def _stream_chat(
@@ -192,15 +193,21 @@ def chat_completions(ctx: Any) -> Any:
             'supported; use "stop_token_ids"'
         )
     include_usage = stream_usage_opt(body)  # validated even without stream
-    if body.get("stream"):
-        return _stream_chat(
+    # the flight record, as in completions
+    with flight(
+        ctx.container.telemetry, model=model, endpoint="/v1/chat/completions",
+        trace_id=ctx.trace_id or "", tokens_in=len(prompt_ids),
+        stream=bool(body.get("stream")),
+    ) as fl:
+        if body.get("stream"):
+            return fl.defer(_stream_chat(
+                ctx, body, prompt_ids, max_tokens, sampler, stop_ids, stop_strs,
+                want_logprobs, top_n, n, chat_id, created, model, include_usage, adapter,
+            ))
+        results, generated = fanout_generate(
             ctx, body, prompt_ids, max_tokens, sampler, stop_ids, stop_strs, want_logprobs,
-            top_n, n, chat_id, created, model, include_usage, adapter,
+            top_n, n, n, adapter,
         )
-    results, generated = fanout_generate(
-        ctx, body, prompt_ids, max_tokens, sampler, stop_ids, stop_strs, want_logprobs,
-        top_n, n, n, adapter,
-    )
     choices = [
         {
             "index": i,

@@ -3,8 +3,9 @@ echo, and echo + logprobs teacher-forced scoring; logprobs objects; the
 n/best_of fan-out and its interleaved multi-index SSE; the
 ``stream_options.include_usage`` frame.
 
-Port of ``gofr_tpu/openai/completions.py`` without flight records or
-``X-Resume-From``. A LoRA adapter (``adapter``, or ``model`` naming one)
+Port of ``gofr_tpu/openai/completions.py`` without ``X-Resume-From``. Each
+request is a flight record (``telemetry.flight``): a streamed one finishes
+when its stream ends. A LoRA adapter (``adapter``, or ``model`` naming one)
 serves every path, echo scoring included, and names the response's
 ``model``. The response bodies have the JAX package's
 shape: a top-level ``text_completion`` object (no ``{"data": ...}``
@@ -23,6 +24,7 @@ from typing import Any
 
 from gofr_tpu_torch.errors import HTTPError
 from gofr_tpu_torch.http.response import Raw, Stream
+from gofr_tpu_torch.telemetry import flight
 from gofr_tpu_torch.openai.fanout import (
     drive_stream_fanout,
     error_frame,
@@ -216,31 +218,41 @@ def completions(ctx: Any) -> Any:
     cmpl_id = f"cmpl-{uuid.uuid4().hex[:24]}"
     tok = ctx.tpu.tokenizer
     include_usage = stream_usage_opt(body)  # validated even without stream
-    if body.get("stream"):
-        return _stream_completion(
-            ctx, body, prompt_ids, max_tokens, sampler, stop_ids, stop_strs, want_logprobs,
-            top_n, n, best_of, echo, cmpl_id, created, model, include_usage, adapter,
-        )
-    prompt_lps = None
-    if echo and want_logprobs:
-        # teacher-forced prompt scoring, null for the first token (no
-        # conditional): the OpenAI convention and the eval-harness
-        # loglikelihood pattern; an adapter's request scores under it (and
-        # an unknown adapter 400s)
-        prompt_lps = [None] + ctx.tpu.score(prompt_ids, adapter=adapter)
-    elif max_tokens == 0 and adapter is not None and adapter not in ctx.tpu.list_adapters():
-        # pure echo without logprobs runs no model, yet the adapter it
-        # names must still exist
-        raise HTTPError(400, f"adapter '{adapter}' (loaded: {ctx.tpu.list_adapters()})")
-    if max_tokens == 0:  # pure scoring (echo only, enforced at parse)
-        results = [([], [] if want_logprobs else None, [] if top_n else None, None,
-                    "length")] * n
-        generated = 0
-    else:
-        results, generated = fanout_generate(
-            ctx, body, prompt_ids, max_tokens, sampler, stop_ids, stop_strs, want_logprobs,
-            top_n, n, best_of, adapter,
-        )
+    # the flight record rides a contextvar: the batcher, the pool and the
+    # device stamp it downstream; the guard owns ok/error/drop
+    with flight(
+        ctx.container.telemetry, model=model, endpoint="/v1/completions",
+        trace_id=ctx.trace_id or "", tokens_in=len(prompt_ids),
+        stream=bool(body.get("stream")),
+    ) as fl:
+        if body.get("stream"):
+            # the record completes when the stream ends
+            return fl.defer(_stream_completion(
+                ctx, body, prompt_ids, max_tokens, sampler, stop_ids, stop_strs,
+                want_logprobs, top_n, n, best_of, echo, cmpl_id, created, model,
+                include_usage, adapter,
+            ))
+        prompt_lps = None
+        if echo and want_logprobs:
+            # teacher-forced prompt scoring, null for the first token (no
+            # conditional): the OpenAI convention and the eval-harness
+            # loglikelihood pattern; an adapter's request scores under it
+            # (and an unknown adapter 400s)
+            prompt_lps = [None] + ctx.tpu.score(prompt_ids, adapter=adapter)
+        elif (max_tokens == 0 and adapter is not None
+              and adapter not in ctx.tpu.list_adapters()):
+            # pure echo without logprobs runs no model, yet the adapter it
+            # names must still exist
+            raise HTTPError(400, f"adapter '{adapter}' (loaded: {ctx.tpu.list_adapters()})")
+        if max_tokens == 0:  # pure scoring (echo only, enforced at parse)
+            results = [([], [] if want_logprobs else None, [] if top_n else None, None,
+                        "length")] * n
+            generated = 0
+        else:
+            results, generated = fanout_generate(
+                ctx, body, prompt_ids, max_tokens, sampler, stop_ids, stop_strs,
+                want_logprobs, top_n, n, best_of, adapter,
+            )
     choices = []
     for i, (out, logprobs, tops, text, finish) in enumerate(results):
         if text is None:

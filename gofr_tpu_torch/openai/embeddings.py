@@ -1,6 +1,9 @@
 """``POST /v1/embeddings`` over the encoder models and ``GET /v1/models``
 (the served base model, then every loaded LoRA adapter: a request's
-``model`` naming one selects it). Port of ``gofr_tpu/openai/embeddings.py``."""
+``model`` naming one selects it). Port of ``gofr_tpu/openai/embeddings.py``;
+unlike the JAX handler, an embeddings request is a flight record too
+(``/admin/requests`` endpoint ``/v1/embeddings``: its prefill dispatches and
+cohort, no tokens out)."""
 
 from __future__ import annotations
 
@@ -11,6 +14,8 @@ import numpy as np
 
 from gofr_tpu_torch.errors import HTTPError
 from gofr_tpu_torch.http.response import Raw
+from gofr_tpu_torch.openai.parse import admit_request
+from gofr_tpu_torch.telemetry import flight
 
 
 async def embeddings(ctx: Any) -> Any:
@@ -71,7 +76,10 @@ async def embeddings(ctx: Any) -> Any:
 
     loop = asyncio.get_running_loop()
     n_tokens, payloads = await loop.run_in_executor(None, tokenize_items)
-    results = await asyncio.gather(*(ctx.tpu.infer_async(p) for p in payloads))
+    admit_request(ctx)
+    with flight(ctx.container.telemetry, model=ctx.tpu.model_name, endpoint="/v1/embeddings",
+                trace_id=ctx.trace_id or "", tokens_in=n_tokens):
+        results = await asyncio.gather(*(ctx.tpu.infer_async(p) for p in payloads))
 
     def to_rows() -> list:
         return [{"object": "embedding", "index": i,

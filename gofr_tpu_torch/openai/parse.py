@@ -2,14 +2,17 @@
 ``gofr_tpu/openai/parse.py``): prompts, stops (device ids plus host-matched
 strings), sampling knobs, logprobs and top-logprobs, ``stream_options`` and
 the n/best_of/echo fan-out constraints, and the LoRA adapter a request
-selects (the ``adapter`` key, or a ``model`` naming a loaded adapter).
-Knobs this server cannot honor are a clear 400, never a silent ignore."""
+selects (the ``adapter`` key, or a ``model`` naming a loaded adapter), and
+the request's identity for its flight record: the fleet origin
+(``X-Gofr-Request-Id``, ``X-Gofr-Hop``) and the hashed tenant. Knobs this
+server cannot honor are a clear 400, never a silent ignore."""
 
 from __future__ import annotations
 
 from typing import Any
 
 from gofr_tpu_torch.errors import HTTPError
+from gofr_tpu_torch.telemetry import activate_origin, activate_tenant, origin_from_headers
 
 # knobs that would change what the model is ASKED to do: silently ignoring
 # them serves wrong output to a client that believes its tools were offered
@@ -119,6 +122,31 @@ def sampler_from_body(body: dict) -> Any:
         raise HTTPError(400, f"invalid sampling params: {exc}") from None
 
 
+def tenant_of(request: Any) -> str:
+    """A request's tenant, as the JAX admission gate derives it without a
+    trusted ``X-Tenant`` header (``FLEET_TRUST_TENANT_HEADER`` comes with
+    the fleet, ROADMAP §A5): ``key-`` and a sha256 prefix of the
+    ``Authorization`` value (raw key material never leaves this frame),
+    else ``anonymous``."""
+    auth = request.header("Authorization")
+    if auth:
+        import hashlib
+
+        return "key-" + hashlib.sha256(auth.encode("utf-8")).hexdigest()[:16]
+    return "anonymous"
+
+
+def admit_request(ctx: Any) -> None:
+    """Bind the request's identity for the flight record born downstream:
+    the router-stamped origin (garbage headers degrade to none, never a
+    4xx) and the hashed tenant the ledger meters. (The JAX gate's deadline,
+    priority and brownout come with ROADMAP §A4.)"""
+    activate_origin(origin_from_headers(
+        ctx.request.header("X-Gofr-Request-Id"), ctx.request.header("X-Gofr-Hop"),
+    ))
+    activate_tenant(tenant_of(ctx.request))
+
+
 def parse_request(ctx: Any, default_max: int) -> tuple:
     """The parse both endpoints share: (body, max_tokens, sampler,
     stop_ids, stop_strs, want_logprobs, top_n, adapter)."""
@@ -154,6 +182,7 @@ def parse_request(ctx: Any, default_max: int) -> tuple:
             400, '"max_tokens" must be a positive integer'
             + (" (0 allowed with echo)" if floor == 0 else ""),
         )
+    admit_request(ctx)
     sampler = sampler_from_body(body)
     stop_ids, stop_strs = parse_stops(ctx, body)
     # alternatives: an integer logprobs >= 2 (the completions form) or the

@@ -15,14 +15,23 @@ families, labelled ``model``: ``gofr_tpu_batch_size`` and
 ``gofr_tpu_queue_wait_seconds`` (each dispatch), ``gofr_tpu_queue_depth``
 (each submit and dispatch), ``gofr_tpu_prefill_padded_tokens_total``
 (bucket width minus true length, with a ``bucket_fn``) and the
-``gofr_tpu_deadline_exceeded_total`` registration. Tracing spans and
-deadlines of the JAX package are not ported yet. ``verify_width`` and its
-ladder cohort pooled speculation's verify widths.
+``gofr_tpu_deadline_exceeded_total`` registration. With a ``timeline``
+(``tpu/introspect.py``) each dispatch is a ``prefill`` record, queued at
+its oldest item's arrival, running from the scheduler's gate, done when
+``run_batch`` returns (a runner on the card ends it with its host sync,
+so the record covers the card's work), and active on the dispatch thread
+(``current_dispatch``) so the runner can stamp its MFU; each item's flight
+record (captured at submit) gets its enqueue and dispatch marks, the cohort,
+the dispatch id, the prefill chunk and the scheduler's defer. With a
+``watchdog`` the call runs under its deadline. Tracing spans and deadlines
+of the JAX package are not ported yet. ``verify_width`` and its ladder
+cohort pooled speculation's verify widths.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import queue
 import threading
 import time
@@ -34,6 +43,8 @@ import numpy as np
 
 from gofr_tpu_torch.deadline import deadline_exceeded_counter
 from gofr_tpu_torch.errors import TooManyRequestsError
+from gofr_tpu_torch.telemetry import current_record
+from gofr_tpu_torch.tpu.introspect import activate_dispatch
 
 
 def next_pow2(n: int) -> int:
@@ -93,12 +104,16 @@ def pack_token_rows(
 
 
 class _Item:
-    __slots__ = ("payload", "future", "arrival")
+    __slots__ = ("payload", "future", "arrival", "record")
 
     def __init__(self, payload: Any):
         self.payload = payload
         self.future: Future = Future()
         self.arrival = time.perf_counter()
+        # the caller's flight record rides the item to the dispatch thread
+        self.record = current_record()
+        if self.record is not None:
+            self.record.mark_enqueue()
 
 
 class DynamicBatcher:
@@ -116,12 +131,17 @@ class DynamicBatcher:
         bucket_fn: Optional[Callable[[Any], int]] = None,
         scheduler: Any = None,
         metrics: Any = None,
+        timeline: Any = None,
+        watchdog: Any = None,
     ):
         self.run_batch = run_batch
         self.max_batch = max_batch
+        self.pipeline_depth = max(1, pipeline_depth)
         self.timeout_s = timeout_ms / 1000.0
         self.bucket_fn = bucket_fn
         self.scheduler = scheduler
+        self.timeline = timeline
+        self.watchdog = watchdog
         self.dispatches = 0  # batches handed to run_batch
         self._count_lock = threading.Lock()
         self._dispatch_pool = ThreadPoolExecutor(
@@ -242,44 +262,96 @@ class DynamicBatcher:
         formation displaced into the worker's pending buffer."""
         return self._queue.qsize() + len(self._pending)
 
-    def _note_dispatch(self, batch: list[_Item]) -> int:
+    def _note_dispatch(self, batch: list[_Item]) -> tuple[int, Any]:
         """The dispatch's metrics (batch size, queue depth, each item's
-        wait, the pad tokens its bucket burns); returns the bucket (0
-        without a ``bucket_fn``)."""
+        wait, the pad tokens its bucket burns), its timeline record (queued
+        at the oldest item's arrival) and the items' dispatch marks; returns
+        (bucket, record): bucket 0 without a ``bucket_fn``, record None
+        without a timeline."""
         now = time.perf_counter()
         if self._batch_hist is not None:
             self._batch_hist.observe(len(batch), model=self.name)
             self._queue_gauge.set(self._depth(), model=self.name)
             for item in batch:
                 self._wait_hist.observe(now - item.arrival, model=self.name)
-        if self.bucket_fn is None:
-            return 0
-        bucket = max(self.bucket_fn(item.payload) for item in batch)
-        padded = sum(
-            max(bucket - min(int(getattr(i.payload, "size", 0) or 0), bucket), 0) for i in batch
-        )
-        if padded and self._padded_counter is not None:
-            self._padded_counter.inc(padded, model=self.name)
-        return bucket
+        bucket = padded = 0
+        if self.bucket_fn is not None:
+            bucket = max(self.bucket_fn(item.payload) for item in batch)
+            padded = sum(
+                max(bucket - min(int(getattr(i.payload, "size", 0) or 0), bucket), 0)
+                for i in batch
+            )
+            if padded and self._padded_counter is not None:
+                self._padded_counter.inc(padded, model=self.name)
+        drec = None
+        if self.timeline is not None:
+            drec = self.timeline.begin(
+                "prefill", bucket=bucket, batch_size=len(batch), padded_tokens=padded,
+                queued_at=min(item.arrival for item in batch),
+            )
+        for item in batch:
+            if item.record is not None:
+                item.record.mark_dispatch(len(batch))
+                if drec is not None:
+                    item.record.note_dispatch_id(drec.dispatch_id)
+        return bucket, drec
 
     def _dispatch(self, batch: list[_Item]) -> None:
         with self._count_lock:
             self.dispatches += 1
+        drec = None
         try:
-            bucket = self._note_dispatch(batch)
-            if bucket and self.scheduler is not None:
+            bucket, drec = self._note_dispatch(batch)
+            if self.bucket_fn is not None:
                 # one batched prefill is one bounded-compute chunk: wait
                 # for its turn between pooled decode chunks
-                self.scheduler.admit_prefill(bucket * len(batch))
-            results = self.run_batch([item.payload for item in batch])
+                defer = (
+                    self.scheduler.admit_prefill(bucket * len(batch))
+                    if bucket and self.scheduler is not None else 0.0
+                )
+                for item in batch:
+                    if item.record is not None:
+                        item.record.note_prefill_chunk(bucket=bucket)
+                        if defer:
+                            item.record.note_sched_defer(defer)
+            if drec is not None:
+                # running from the scheduler's gate; the runner stamps the
+                # record it finds active on this thread
+                drec.mark_running()
+                activate_dispatch(drec)
+            with self._watch(drec):
+                results = self.run_batch([item.payload for item in batch])
+            self._finish_record(drec)
         except Exception as exc:
+            self._finish_record(drec, status="error")
             for item in batch:
                 if not item.future.cancelled():
                     item.future.set_exception(exc)
             return
+        finally:
+            # a record left active on this reused pool thread would label
+            # later work; finish is idempotent, so this only closes a record
+            # a BaseException left running
+            if drec is not None:
+                activate_dispatch(None)
+                self._finish_record(drec, status="error")
         for item, result in zip(batch, results):
+            if drec is not None and drec.anomaly and item.record is not None:
+                # the cost model flagged this dispatch at finish
+                item.record.note_anomaly(drec.dispatch_id)
             if not item.future.cancelled():
                 item.future.set_result(result)
+
+    def _finish_record(self, drec: Any, status: str = "ok") -> None:
+        if drec is not None:
+            self.timeline.finish(drec, status=status)
+
+    def _watch(self, drec: Any) -> Any:
+        """The stall watchdog's deadline over one batched forward (a no-op
+        without a watchdog)."""
+        if self.watchdog is None:
+            return contextlib.nullcontext()
+        return self.watchdog.watch("prefill", drec.dispatch_id if drec is not None else 0)
 
     def close(self) -> None:
         self._closed = True

@@ -82,18 +82,39 @@ never indexes a bank swapped under it.
 Metrics (``metrics``, the app's registry): ``gofr_tpu_decode_slots_active``
 at each submit and each delivered chunk or verify,
 ``gofr_tpu_tokens_total{op="decode"}`` by the tokens each chunk or verify
-delivered, ``gofr_tpu_pool_reject_total{reason}`` at each reject, and the
-spec gauges through ``PoolSpecConfig.note_cycle``: all from host values
-(ids already fetched, counts), never a device read.
+delivered, ``gofr_tpu_pool_reject_total{reason}`` at each reject, the
+spec gauges through ``PoolSpecConfig.note_cycle``, and per delivery
+``gofr_tpu_mfu{op="decode"}`` (2·N·tokens delivered over the interval) and
+``gofr_tpu_mbu{op="decode"}`` (the weights a step plus the active rows' KV,
+over the interval): all from host values (ids already fetched, counts,
+lengths, clocks), never a device read.
 
-Later slices take the rest of the JAX pool: deadlines, the MFU and MBU
-gauges, the dispatch timeline and the watchdog.
+Observability (``timeline``, ``watchdog``: ``tpu/introspect.py``): every
+chunk and verify is a ``decode_chunk`` / ``spec_verify`` dispatch record,
+running from its dispatch and done after the host's wait on its copy, so
+its duration holds the card's work (a launch returns at once); the riding
+requests' flight records get its id, their pool cohort and KV reservation.
+The wait runs under the watchdog, since a kernel that never ends hangs
+there. The interval the gauges divide by is the pool's dispatch cadence:
+from this chunk's dispatch to the next one's, already made when a younger
+chunk is in flight (host-bound, the host's issue of a chunk; card-bound,
+the worker dispatches after each fetch, so the card's time a chunk), else
+the chunk's own dispatch-to-fetch span. (The JAX pool divides by the time
+between deliveries, floored at the span over the pipeline depth; the chunks
+left in flight when the last row finishes are fetched back to back, and
+read up to depth x the rate: on the card, MBU 0.49 against 0.13 at one
+stream.) A dying worker closes every record it had in flight as
+``error``.
+
+A later slice takes the rest of the JAX pool: deadlines.
 """
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
+import time
 from collections import deque
 from typing import Any, Optional
 
@@ -107,7 +128,9 @@ from gofr_tpu_torch.deadline import (
     pool_reject_counter,
 )
 from gofr_tpu_torch.ops.attention import kv_bits
+from gofr_tpu_torch.telemetry import current_record
 from gofr_tpu_torch.tpu.batcher import verify_width, verify_width_ladder
+from gofr_tpu_torch.tpu.flops import mbu, mfu, tree_bytes
 from gofr_tpu_torch.tpu.kv_blocks import to_device
 
 DONE = object()  # end-of-stream marker on a slot's token queue
@@ -163,13 +186,14 @@ class _Request:
 
     __slots__ = (
         "out_queue", "remaining", "cache_len", "stop", "stop_tokens", "finished",
-        "want_lp", "want_top", "want_kv", "kv_reserved", "spec", "pending",
+        "want_lp", "want_top", "want_kv", "kv_reserved", "spec", "pending", "record",
     )
 
     def __init__(self, out_queue: "queue.Queue", remaining: int, cache_len: int,
                  stop: Optional[threading.Event], stop_tokens: frozenset,
                  want_lp: bool = False, want_top: bool = False, want_kv: bool = False,
-                 kv_reserved: int = 0, spec: Any = None, pending: int = 0):
+                 kv_reserved: int = 0, spec: Any = None, pending: int = 0,
+                 record: Any = None):
         self.out_queue: Optional[queue.Queue] = out_queue
         self.remaining = remaining
         self.cache_len = cache_len
@@ -194,6 +218,8 @@ class _Request:
         # (first_token, then the last delivered token): a spec cycle
         # rebuilds the device token row from these
         self.pending = int(pending)
+        # the request's flight record: the chunks it rides note their ids
+        self.record = record
 
 
 class _Slot:
@@ -211,7 +237,9 @@ class DecodePool:
     ``BlockPool``) gates admission on its ledger; ``penalties`` is
     DECODE_POOL_PENALTIES; ``spec`` (a ``PoolSpecConfig``) turns pooled
     speculation on; ``metrics`` (a ``Registry``) takes the pool's families,
-    labelled ``model``."""
+    labelled ``model``; ``timeline`` and ``watchdog`` observe its dispatches;
+    ``n_params``, ``peak_flops`` and ``peak_hbm_bw`` feed the MFU and MBU
+    gauges (registered when given)."""
 
     def __init__(
         self,
@@ -226,6 +254,11 @@ class DecodePool:
         spec: Any = None,
         metrics: Any = None,
         model_name: str = "",
+        timeline: Any = None,
+        watchdog: Any = None,
+        n_params: int = 0,
+        peak_flops: float = 0.0,
+        peak_hbm_bw: float = 0.0,
     ):
         if pipeline_depth < 1:
             raise ValueError(f"pipeline_depth must be >= 1, got {pipeline_depth}")
@@ -301,6 +334,31 @@ class DecodePool:
             # a lookup: the family's registration home is the device's
             self._tokens_counter = metrics.counter("gofr_tpu_tokens_total",
                                                    labels=("model", "op"))
+        self._timeline = timeline
+        self._watchdog = watchdog
+        self._n_params = n_params
+        self._peak_flops = peak_flops
+        self._peak_bw = peak_hbm_bw
+        self._mfu_gauge = self._mbu_gauge = None
+        if metrics is not None and n_params and peak_flops:
+            self._mfu_gauge = metrics.gauge("gofr_tpu_mfu", labels=("model", "op"))
+        # decode streams every weight a step, plus each row's KV: MBU, not
+        # MFU, says how close it runs to the memory roofline
+        self._weight_bytes = tree_bytes(model)
+        itemsize = torch.empty((), dtype=cache_dtype or model.cfg.dtype).element_size()
+        self._kv_bytes_per_token = (
+            2 * self.cfg.n_layers * self.cfg.n_kv_heads * self.cfg.head_dim * itemsize
+        )
+        if metrics is not None and peak_hbm_bw:
+            self._mbu_gauge = metrics.gauge(
+                "gofr_tpu_mbu",
+                "HBM bandwidth utilization of the decode loop "
+                "(weights+KV bytes per step / time / peak bandwidth)",
+                labels=("model", "op"),
+            )
+        # the record of a dispatch that raised before reaching in_flight
+        self._pending_drec: Any = None
+        self._in_flight: Optional[deque] = None
         # one chunk now (kernel build, cuBLAS's first products), then back
         # to empty slots: the first request must not pay it under the lock
         with torch.no_grad():
@@ -368,11 +426,14 @@ class DecodePool:
                 self._reject("no_free_slots", "no free decode slots")
             kv_reserved = self._reserve_kv(start_len, max_new)
             slot = self._free.pop()
+            record = current_record()
             slot.request = _Request(
                 out, max_new, start_len, stop, frozenset(stop_tokens or ()),
                 want_lp=want_logprobs, want_top=want_top_logprobs, want_kv=want_kv,
-                kv_reserved=kv_reserved, spec=spec_state, pending=first_token,
+                kv_reserved=kv_reserved, spec=spec_state, pending=first_token, record=record,
             )
+            if record is not None and kv_reserved:
+                record.note_kv(kv_reserved)
             if spec_state is not None:
                 # a fresh context may draft where the cohort's could not:
                 # re-open the spec window
@@ -389,6 +450,9 @@ class DecodePool:
                 (slot.index, row_cache, start_len, first_token, knobs, penalty)
             )
             self._active[slot.index] = slot
+            if record is not None:
+                # decodes pooled beside len(_active) - 1 co-tenants
+                record.mark_pooled(len(self._active))
             if self._depth_gauge is not None:
                 self._depth_gauge.set(len(self._active))
             self._work.notify()
@@ -565,6 +629,9 @@ class DecodePool:
         self.rejects[reason] = self.rejects.get(reason, 0) + 1
         if self._reject_counter is not None:
             self._reject_counter.inc(reason=reason)
+        record = current_record()
+        if record is not None:
+            record.note_pool_reject(reason)
         if not count_only:
             raise queue.Full(msg)
 
@@ -574,9 +641,23 @@ class DecodePool:
             with torch.no_grad():
                 self._loop()
         except BaseException as exc:  # device errors must not hang waiters
+            self._abandon_in_flight()
             with self._work:
                 self._closed = True
                 self._fail_active(exc)
+
+    def _abandon_in_flight(self) -> None:
+        """The worker died: close every dispatch record it still had in
+        flight as ``error`` (a phantom "running" chunk would misdirect the
+        diagnosis the timeline exists for)."""
+        if self._timeline is None:
+            return
+        if self._pending_drec is not None:
+            self._timeline.finish(self._pending_drec, status="error")
+            self._pending_drec = None
+        for entry in list(self._in_flight or ()):
+            if entry[3] is not None:
+                self._timeline.finish(entry[3], status="error")
 
     def _fail_active(self, exc: BaseException) -> None:
         for slot in self._active.values():
@@ -603,7 +684,9 @@ class DecodePool:
             self._sched.note_decode_idle()  # a dead pool must not gate prefill
 
     def _loop(self) -> None:
-        in_flight: deque = deque()  # (records, fetch, want_top)
+        # (records, fetch, want_top, dispatch record, dispatch start, bytes)
+        in_flight: deque = deque()
+        self._in_flight = in_flight
         while True:
             with self._work:
                 while (not self._active and not in_flight and not self._closed
@@ -650,10 +733,20 @@ class DecodePool:
         if records is None:
             records = [(slot.index, slot.request) for slot in self._active.values()]
             self._chunk_lora = self._lora_chunk()
+        drec = self._begin_record("decode_chunk", records)
+        # what the chunk streams: the weights each step, and each active
+        # row's KV up to its length that step (host-tracked lengths)
+        kv_positions = sum(
+            self.chunk * min(req.cache_len, self.max_len) + self.chunk * (self.chunk - 1) // 2
+            for _, req in records if req is not None and not req.finished
+        )
+        nbytes = self.chunk * self._weight_bytes + kv_positions * self._kv_bytes_per_token
+        start = time.perf_counter()
         toks, lps, tvals, tids = self._run_executable()
         want_top = any(req is not None and req.want_top for _, req in records)
         fetch = HostFetch(toks, lps, *((tvals, tids) if want_top else ()))
-        in_flight.append((records, fetch, want_top))
+        in_flight.append((records, fetch, want_top, drec, start, nbytes))
+        self._pending_drec = None  # owned by in_flight now
         self.dispatches += 1
         if self._sched is not None:
             # decode keeps its cadence; prefill takes the gaps between notes
@@ -692,18 +785,58 @@ class DecodePool:
             )
         return toks, lps, tvals, tids
 
+    def _begin_record(self, kind: str, records: list, tokens: int = 0) -> Any:
+        """A dispatch's timeline record (None without a timeline), running
+        from now; every riding request's flight record learns its id."""
+        if self._timeline is None:
+            return None
+        drec = self._timeline.begin(kind, batch_size=len(records), tokens=tokens)
+        drec.mark_running()
+        for _, req in records:
+            if req is not None and req.record is not None:
+                req.record.note_dispatch_id(drec.dispatch_id)
+        # a raise before the dispatch is in flight must not leave it running
+        self._pending_drec = drec
+        return drec
+
+    def _watch(self, kind: str, drec: Any) -> Any:
+        if self._watchdog is None:
+            return contextlib.nullcontext()
+        return self._watchdog.watch(kind, drec.dispatch_id if drec is not None else 0)
+
+    def _finish_record(self, drec: Any, records: list, status: str = "ok") -> None:
+        if drec is None:
+            return
+        self._timeline.finish(drec, status=status)
+        if drec.anomaly:
+            # the cost model flagged it at finish: pin it on every rider
+            for _, req in records:
+                if req is not None and req.record is not None:
+                    req.record.note_anomaly(drec.dispatch_id)
+
     def _fetch_and_deliver(self, in_flight: deque) -> None:
         """Wait for the OLDEST chunk's copy outside the lock (the card runs
         the younger chunks meanwhile, and submits can take the lock to join
-        the next dispatch), then deliver its tokens."""
-        records, fetch, want_top = in_flight.popleft()
-        arrays = fetch.wait()
-        tvals, tids = (arrays[2], arrays[3]) if want_top else (None, None)
-        with self._work:
-            self._deliver(records, arrays[0], arrays[1], tvals, tids)
+        the next dispatch), under the watchdog, then deliver its tokens."""
+        records, fetch, want_top, drec, start, nbytes = in_flight.popleft()
+        try:
+            with self._watch("decode_chunk", drec):
+                arrays = fetch.wait()
+            # the dispatch cadence: to the younger chunk's dispatch, else
+            # this chunk's own span
+            elapsed = (in_flight[0][4] if in_flight else time.perf_counter()) - start
+            tvals, tids = (arrays[2], arrays[3]) if want_top else (None, None)
+            with self._work:
+                self._deliver(records, arrays[0], arrays[1], tvals, tids, elapsed, drec,
+                              nbytes)
+        except BaseException:
+            self._finish_record(drec, records, status="error")
+            raise
+        self._finish_record(drec, records)
 
     def _deliver(self, records: list, toks: np.ndarray, lps: np.ndarray,
-                 tvals: Any, tids: Any) -> None:
+                 tvals: Any, tids: Any, elapsed: float = 0.0, drec: Any = None,
+                 nbytes: float = 0.0) -> None:
         delivered = 0
         for index, req in records:
             if req is None or req.finished:
@@ -711,15 +844,30 @@ class DecodePool:
             delivered += self._deliver_one(index, req, toks, lps, tvals, tids)
         if self._sched is not None and not self._active:
             self._sched.note_decode_idle()  # release any waiting prefill
-        self._account_chunk(delivered)
+        self._account_chunk(delivered, elapsed, drec, nbytes)
 
-    def _account_chunk(self, delivered: int) -> None:
+    def _account_chunk(self, delivered: int, elapsed: float = 0.0, drec: Any = None,
+                       nbytes: float = 0.0) -> None:
         """One chunk's or verify's metrics (pool lock held): the active
-        slots and the tokens its requests received, host counts alone."""
+        slots, the tokens its requests received, and over ``elapsed`` the
+        MFU of the useful tokens and the MBU of the ``nbytes`` it streamed,
+        onto the gauges and the dispatch record: host values alone."""
         if self._depth_gauge is not None:
             self._depth_gauge.set(len(self._active))
         if self._tokens_counter is not None and delivered:
             self._tokens_counter.inc(delivered, model=self._model_name, op="decode")
+        if drec is not None:
+            drec.tokens = delivered
+        if self._mfu_gauge is not None and delivered and elapsed > 0:
+            value = mfu(self._n_params, delivered, elapsed, self._peak_flops)
+            self._mfu_gauge.set(value, model=self._model_name, op="decode")
+            if drec is not None:
+                drec.mfu = value
+        if self._mbu_gauge is not None and nbytes and elapsed > 0:
+            value = mbu(nbytes, elapsed, self._peak_bw)
+            self._mbu_gauge.set(value, model=self._model_name, op="decode")
+            if drec is not None:
+                drec.mbu = value
 
     def _deliver_one(self, index: int, req: _Request, toks: np.ndarray, lps: np.ndarray,
                      tvals: Any, tids: Any) -> int:
@@ -748,6 +896,10 @@ class DecodePool:
                 # device's feed-forward token
                 req.spec.note_plain(burst)
                 req.pending = req.spec.pending
+                if req.record is not None:
+                    # a plain chunk streams the weights once a step: its
+                    # tokens count at ~1 a stream in tokens_per_dispatch
+                    req.record.note_spec(0, 0, delivered, dispatches=self.chunk)
         req.remaining -= take
         if (cancelled or hit_stop_token or req.remaining <= 0
                 or req.cache_len >= self.max_len):
@@ -890,18 +1042,33 @@ class DecodePool:
         its launches are a chunk's), wait for its argmaxes, then deliver
         and roll back under the lock."""
         records, drafts, tokens, width = plan
-        next_ids, self.cache = self.model.verify_chunk(
-            to_device(tokens, self._last_tokens.device), self.cache
-        )
-        fetch = HostFetch(next_ids)
-        if self._sched is not None:
-            self._sched.note_decode_chunk(len(records))
-        ids = fetch.wait()[0]
-        with self._work:
-            self._spec_deliver(records, drafts, ids, width)
+        drec = self._begin_record("spec_verify", records, tokens=width)
+        kv_positions = sum(width * req.cache_len + width * (width - 1) // 2
+                           for _, req in records if req is not None)
+        nbytes = self._weight_bytes + kv_positions * self._kv_bytes_per_token
+        start = time.perf_counter()
+        try:
+            next_ids, self.cache = self.model.verify_chunk(
+                to_device(tokens, self._last_tokens.device), self.cache
+            )
+            fetch = HostFetch(next_ids)
+            self._pending_drec = None
+            if self._sched is not None:
+                self._sched.note_decode_chunk(len(records))
+            with self._watch("spec_verify", drec):
+                ids = fetch.wait()[0]
+            elapsed = time.perf_counter() - start  # depth 1: the cycle
+            with self._work:
+                self._spec_deliver(records, drafts, ids, width, elapsed, drec, nbytes)
+        except BaseException:
+            self._pending_drec = None
+            self._finish_record(drec, records, status="error")
+            raise
+        self._finish_record(drec, records)
 
     def _spec_deliver(self, records: list, drafts: dict, next_ids: np.ndarray,
-                      width: int) -> None:
+                      width: int, elapsed: float = 0.0, drec: Any = None,
+                      nbytes: float = 0.0) -> None:
         """Acceptance and rollback of one fetched verify (pool lock held):
         per row, the longest draft prefix matching the target's argmaxes
         commits, plus the bonus token (the target's own continuation, so
@@ -943,7 +1110,8 @@ class DecodePool:
         self._last_tokens = to_device(pendings, dev)
         if self._sched is not None and not self._active:
             self._sched.note_decode_idle()
-        self._account_chunk(delivered)
+        # a verify is ONE forward whatever its width: weights stream once
+        self._account_chunk(delivered, elapsed, drec, nbytes)
         # per-row semantics on the shared gauge (1.0 = plain decode)
         self.spec_cfg.note_cycle(drafted, accepted, delivered, dispatches=len(records))
 
@@ -968,6 +1136,8 @@ class DecodePool:
         req.remaining -= len(emit)
         req.spec.commit(emit, drafted, n_acc)
         req.pending = req.spec.pending
+        if req.record is not None:
+            req.record.note_spec(drafted, n_acc, len(emit))
         if (cancelled or hit_stop_token or req.remaining <= 0
                 or req.cache_len >= self.max_len):
             self._finish_request(index, req, cancelled)

@@ -68,6 +68,8 @@ it; ``score(adapter=)`` scores under it.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import json
 import os
@@ -88,7 +90,7 @@ from gofr_tpu_torch.deadline import (
     pool_reject_counter,
 )
 from gofr_tpu_torch.errors import HTTPError, InvalidParamError
-from gofr_tpu_torch.metrics import Registry
+from gofr_tpu_torch.metrics import COMPILE_BUCKETS, Registry
 from gofr_tpu_torch.models.bert import BERT_BASE, BERT_TINY, Bert, bert_embed
 from gofr_tpu_torch.models.ingest import is_safetensors_path, load_llama_params
 from gofr_tpu_torch.models.llama import CONFIGS
@@ -105,6 +107,7 @@ from gofr_tpu_torch.ops.sampling import (
     update_counts,
     update_presence,
 )
+from gofr_tpu_torch.telemetry import BOOT_ID, current_record
 from gofr_tpu_torch.tokenizer import load_tokenizer
 from gofr_tpu_torch.tpu.batcher import DynamicBatcher, next_pow2, pack_token_rows, pad_rows
 from gofr_tpu_torch.tpu.decode_pool import (
@@ -115,7 +118,21 @@ from gofr_tpu_torch.tpu.decode_pool import (
     HostFetch,
     PoolFailure,
 )
-from gofr_tpu_torch.tpu.flops import bert_param_count
+from gofr_tpu_torch.tpu.costmodel import CostModel, transformer_sheet
+from gofr_tpu_torch.tpu.flops import (
+    bert_param_count,
+    device_peak_flops,
+    device_peak_hbm_bw,
+    mfu,
+    mfu_from_flops,
+    transformer_param_count,
+)
+from gofr_tpu_torch.tpu.introspect import (
+    DispatchTimeline,
+    EngineState,
+    StallWatchdog,
+    current_dispatch,
+)
 from gofr_tpu_torch.tpu.kv_blocks import (
     BlockPool,
     BlockTable,
@@ -130,6 +147,11 @@ from gofr_tpu_torch.tpu.kv_blocks import (
 from gofr_tpu_torch.tpu.scheduler import POLICIES, InterferenceScheduler
 from gofr_tpu_torch.tpu.spec_pool import PoolSpecConfig, parse_fake_accept
 from gofr_tpu_torch.training.checkpoint import restore_params
+
+# the stall deadline the watchdog arms itself with on a cuda device when
+# WATCHDOG_DISPATCH_TIMEOUT_S is unset: the JAX package's, well above any
+# healthy wait (a pool chunk of llama3-8b takes well under a second)
+WATCHDOG_AUTO_TIMEOUT_S = 120.0
 
 
 def resolve_device(name: str) -> torch.device:
@@ -267,6 +289,41 @@ def serving_options(config: Any, max_batch: int) -> dict:
     return opts
 
 
+def observability_options(config: Any) -> dict:
+    """The dispatch timeline, watchdog and cost-model keys with the JAX
+    package's defaults and validation errors: ``DISPATCH_TIMELINE_SIZE``
+    (512); ``WATCHDOG_DISPATCH_TIMEOUT_S`` (unset: armed at
+    ``WATCHDOG_AUTO_TIMEOUT_S`` once the probe finds a cuda device; off or
+    0: disabled; seconds: armed from construction); ``COSTMODEL`` (on),
+    ``COSTMODEL_PROFILE``, ``COSTMODEL_ANOMALY_FACTOR`` (4),
+    ``COSTMODEL_MIN_ANOMALY_MS`` (50), ``COSTMODEL_EMA_ALPHA`` (0.2),
+    ``COSTMODEL_EMA_BAND`` (2.5) and ``ANOMALY_RING_SIZE`` (256)."""
+    opts: dict = {}
+    opts["timeline_size"] = int(config.get_or_default("DISPATCH_TIMELINE_SIZE", "512"))
+    raw_wd = (config.get_or_default("WATCHDOG_DISPATCH_TIMEOUT_S", "") or "").strip().lower()
+    opts["watchdog_auto"] = raw_wd == ""
+    opts["watchdog_timeout"] = 0.0 if raw_wd in ("", "off") else float(raw_wd)
+    if opts["watchdog_timeout"] < 0:
+        raise ValueError(
+            "WATCHDOG_DISPATCH_TIMEOUT_S must be >= 0 (0/off = disabled, "
+            "unset = auto-arm on cuda)"
+        )
+    opts["costmodel"] = config.get_or_default("COSTMODEL", "on").strip().lower() != "off"
+    opts["costmodel_profile"] = config.get_or_default("COSTMODEL_PROFILE", "").strip() or None
+    opts["anomaly_factor"] = float(config.get_or_default("COSTMODEL_ANOMALY_FACTOR", "4.0"))
+    if opts["anomaly_factor"] <= 1.0:
+        raise ValueError("COSTMODEL_ANOMALY_FACTOR must be > 1")
+    opts["min_anomaly_ms"] = float(config.get_or_default("COSTMODEL_MIN_ANOMALY_MS", "50"))
+    if opts["min_anomaly_ms"] < 0:
+        raise ValueError("COSTMODEL_MIN_ANOMALY_MS must be >= 0")
+    opts["ema_alpha"] = float(config.get_or_default("COSTMODEL_EMA_ALPHA", "0.2"))
+    opts["ema_band"] = float(config.get_or_default("COSTMODEL_EMA_BAND", "2.5"))
+    opts["ring_size"] = int(config.get_or_default("ANOMALY_RING_SIZE", "256"))
+    if opts["ring_size"] < 1:
+        raise ValueError("ANOMALY_RING_SIZE must be >= 1")
+    return opts
+
+
 def spec_options(config: Any) -> dict:
     """The speculation keys with the JAX package's defaults and validation
     errors (``gofr_tpu/tpu/device.py``): the solo latency mode's draft
@@ -349,6 +406,7 @@ class TPUDevice:
             raise ValueError(f"MODEL_BUCKETS entries must be positive, got {raw_buckets!r}")
         self.options = serving_options(config, self.max_batch)
         self.spec_options = spec_options(config)
+        obs = observability_options(config)
         self.echo_step_ms = float(config.get_or_default("ECHO_STEP_MS", "0"))
         if self.echo_step_ms < 0:
             raise ValueError("ECHO_STEP_MS must be >= 0")
@@ -366,6 +424,38 @@ class TPUDevice:
         # default stops end every generation; request stops compose with them
         self.default_stop_ids = resolve_default_stop_ids(config, self.tokenizer)
         self._init_metrics(self.metrics)
+        # engine introspection, built before any boot work so the probe is
+        # already observable: the state machine, the cost model (before the
+        # timeline: every record flows through its hooks; its coefficients
+        # resolve at the probe, when the card is known), the dispatch
+        # timeline and the stall watchdog
+        self.engine = EngineState(metrics=self.metrics, logger=logger)
+        self.costmodel: Optional[CostModel] = None
+        if obs["costmodel"]:
+            self.costmodel = CostModel(
+                metrics=self.metrics, logger=logger, profile_path=obs["costmodel_profile"],
+                anomaly_factor=obs["anomaly_factor"], min_anomaly_ms=obs["min_anomaly_ms"],
+                ema_alpha=obs["ema_alpha"], ema_band=obs["ema_band"], ring_size=obs["ring_size"],
+            )
+        self.timeline = DispatchTimeline(
+            capacity=obs["timeline_size"], metrics=self.metrics, costmodel=self.costmodel
+        )
+        self.watchdog = StallWatchdog(
+            self.engine, metrics=self.metrics, logger=logger, timeout_s=obs["watchdog_timeout"]
+        )
+        self._watchdog_auto = obs["watchdog_auto"]
+        self.platform = "pending"
+        self.device_kind = "pending"
+        self.peak_flops = 0.0
+        self.peak_hbm_bw = 0.0
+        # per-stage boot wall times ({stage, kind, bucket, seconds, status})
+        # for /admin/engine; stages with a kind feed the compile families
+        self.boot_timeline: list[dict[str, Any]] = []
+        self._open_stage: Optional[tuple] = None
+        # the prefill MFU gauge's steady window: completions arrive from the
+        # batcher's dispatch threads
+        self._last_batch_done = 0.0
+        self._mfu_window_lock = threading.Lock()
         self._build_args = (config, model, draft_model, kv_dtype, raw_max_seq, buckets,
                             int(config.get_or_default("MODEL_SEED", "0")))
         self.runner: Any = None
@@ -387,7 +477,10 @@ class TPUDevice:
 
     def _init_metrics(self, metrics: Any) -> None:
         """The device's families, as the JAX device registers them (its
-        compile, cache and mesh families come with later slices)."""
+        mesh families come with a later slice). The port compiles nothing
+        per shape: its "compiles" are the boot's once-only stages (the
+        kernels' nvcc build, the warm-up prefill per bucket, the pool's
+        warm chunk), and its one cache is the prefix cache."""
         self._requests = metrics.counter(
             "gofr_tpu_requests_total", "TPU inference requests", labels=("model", "op", "status")
         )
@@ -396,6 +489,11 @@ class TPUDevice:
         )
         self._mem_gauge = metrics.gauge(
             "gofr_tpu_device_memory_bytes", "device memory", labels=("kind",)
+        )
+        self._mfu_gauge = metrics.gauge(
+            "gofr_tpu_mfu",
+            "model FLOPs utilization of the last dispatch (2*N*tokens/time/peak)",
+            labels=("model", "op"),
         )
         self._tokens_counter = metrics.counter(
             "gofr_tpu_tokens_total", "tokens processed", labels=("model", "op")
@@ -421,40 +519,124 @@ class TPUDevice:
             "prefix cache: live entries (each one max_seq KV row of HBM)",
             labels=("model",),
         )
+        self._compile_hist = metrics.histogram(
+            "gofr_tpu_compile_seconds",
+            "XLA compile stage duration by kind and sequence bucket",
+            labels=("kind", "bucket"), buckets=COMPILE_BUCKETS,
+        )
+        self._compiles = metrics.counter(
+            "gofr_tpu_compiles_total",
+            "XLA compile stages run (warmup and lazy)",
+            labels=("kind",),
+        )
+        self._cache_events = metrics.counter(
+            "gofr_tpu_cache_events_total",
+            "framework cache lookups by result: cache=prefix (prompt KV "
+            "reuse) or executable (compiled-shape reuse on the decode/"
+            "prefill paths), event=hit|partial_hit|miss",
+            labels=("cache", "event"),
+        )
 
     # -- the boot ------------------------------------------------------------
     def _boot(self) -> None:
         start = time.perf_counter()
+        del self.boot_timeline[:]
         try:
-            if self.model_name != "echo":  # echo touches no device
-                self._boot_progress(f"probing the device (TORCH_DEVICE={self._device_name})")
-                self.device = resolve_device(self._device_name)
+            self._probe()
             self._build_stack()
         except BaseException as exc:
+            self._close_boot_stage(status="error")
             self._boot_error = exc
             self.boot_status = {"state": "failed", "detail": repr(exc)}
+            self.engine.transition("failed", repr(exc))
             self._ready.set()
             if threading.current_thread().name == "gofr-tpu-boot":
                 self.logger.errorf("device boot failed: %r", exc)
                 return
             raise
+        self._close_boot_stage()
         self.boot_seconds = time.perf_counter() - start
         if self._closed:
             # closed while the background boot built: tear the new stack
             # down instead of leaking its threads and buffers
             self._boot_error = RuntimeError("device closed during boot")
             self.boot_status = {"state": "closed", "detail": ""}
+            self.engine.transition("closed")
             self._teardown_stack()
             self._ready.set()
             return
         self.boot_status = {"state": "ready", "detail": ""}
+        self.engine.transition("serving")
         self._ready.set()
         self.logger.infof("device ready: %s", self.describe())
 
-    def _boot_progress(self, detail: str) -> None:
-        """One boot stage: logged, and the readiness body's detail."""
+    def _probe(self) -> None:
+        """The boot's first touch of the card, a ``device_probe`` dispatch
+        under the watchdog (echo touches no device: its probe is empty, as
+        its runner runs on the host). Then the peaks the MFU/MBU gauges
+        divide by, the cost model's coefficients for this card, and, on a
+        cuda device with no WATCHDOG_DISPATCH_TIMEOUT_S set, the watchdog
+        armed at ``WATCHDOG_AUTO_TIMEOUT_S``."""
+        echo = self.model_name == "echo"
+        self._boot_progress(
+            "echo: no device to probe" if echo
+            else f"probing the device (TORCH_DEVICE={self._device_name})"
+        )
+        rec = self.timeline.begin(
+            "device_probe", detail="none (echo)" if echo else f"torch {self._device_name}"
+        )
+        try:
+            with self.watchdog.watch("device_probe", rec.dispatch_id):
+                if not echo:
+                    self.device = resolve_device(self._device_name)
+        except BaseException:
+            self.timeline.finish(rec, status="error")
+            raise
+        self.timeline.finish(rec)
+        if self.device is not None and self.device.type == "cuda":
+            self.platform = "gpu"
+            self.device_kind = torch.cuda.get_device_name(self.device)
+            if self._watchdog_auto:
+                self.watchdog.arm(WATCHDOG_AUTO_TIMEOUT_S)
+        else:
+            self.platform = self.device_kind = "cpu"
+        self.peak_flops = device_peak_flops(self.device_kind, self.platform, quant=self.quant or "")
+        self.peak_hbm_bw = device_peak_hbm_bw(self.device_kind, self.platform)
+        if self.costmodel is not None:
+            self.costmodel.calibrate(self.device_kind, self.platform)
+
+    def _boot_progress(self, detail: str, kind: str = "", bucket: int = 0) -> None:
+        """One boot stage: logged, the readiness body's detail and the
+        engine's warming detail; it closes the previous stage into the boot
+        timeline. A stage with a ``kind`` is a compile stage: it is also a
+        ``warmup_compile`` dispatch and feeds
+        ``gofr_tpu_compile_seconds{kind,bucket}``."""
+        self._close_boot_stage()
         self.boot_status = {"state": "warming", "detail": detail}
+        self.engine.transition("warming", detail)
+        rec = (
+            self.timeline.begin("warmup_compile", bucket=bucket, detail=detail)
+            if kind else None
+        )
+        self._open_stage = (detail, kind, bucket, time.perf_counter(), rec)
         self.logger.infof("device boot [%s]: %s", self.model_name, detail)
+
+    def _close_boot_stage(self, status: str = "ok") -> None:
+        if self._open_stage is None:
+            return
+        detail, kind, bucket, start, rec = self._open_stage
+        self._open_stage = None
+        seconds = time.perf_counter() - start
+        self.boot_timeline.append({
+            "stage": detail, "kind": kind or None, "bucket": bucket or None,
+            "seconds": round(seconds, 3), "status": status,
+        })
+        if kind and status == "ok":
+            # a stage the boot died in keeps its truncated time out
+            self._compile_hist.observe(seconds, kind=kind, bucket=str(bucket))
+            self._compiles.inc(kind=kind)
+        if rec is not None:
+            self.timeline.finish(rec, status=status)
 
     def _build_stack(self) -> None:
         """The runner, its serving machinery and the batcher, warmed."""
@@ -482,6 +664,12 @@ class TPUDevice:
         if name == "echo":
             self.runner = _EchoRunner(step_ms=self.echo_step_ms, metrics=self.metrics)
             self._wire_echo()
+            if self.costmodel is not None:
+                # one echo prefill or decode step costs one ECHO_STEP_MS
+                # sleep whatever its shape: the synthetic sheets the JAX
+                # echo device installs
+                self.costmodel.install_synthetic("prefill", self.echo_step_ms)
+                self.costmodel.install_synthetic("decode_chunk", self.echo_step_ms)
         elif name in ("mlp", "tiny-mlp"):
             self.runner = _MLPRunner(self.device, self.max_batch, seed, model, self.model_path)
         elif name.startswith("bert"):
@@ -508,6 +696,8 @@ class TPUDevice:
             bucket_fn=getattr(self.runner, "bucket_for_payload", None),
             scheduler=self.scheduler,
             metrics=self.metrics,
+            timeline=self.timeline,
+            watchdog=self.watchdog,
         )
 
     def _wire_echo(self) -> None:
@@ -617,17 +807,23 @@ class TPUDevice:
             draft_model=draft_model,
             lora_adapters=self._lora_adapters,
             metrics=self.metrics,
+            timeline=self.timeline,
+            watchdog=self.watchdog,
+            cache_events=self._note_cache_event,
         )
         if self.runner.kv_paged_disabled:
             self.logger.warnf("paged KV disabled: %s", self.runner.kv_paged_disabled)
         self.kv_pool = self.runner.kv_pool
         self.runner.warmup(self._boot_progress)
+        if self.costmodel is not None:
+            self._install_sheets(opts)
         # continuous batching: concurrent decodes share one dispatch per
         # chunk; seeded requests bypass it (generate routes them solo). The
         # pool's admission reserves each request's KV blocks on the SAME
         # BlockPool the prefix cache stores into
         if opts["pool_enabled"]:
-            self._boot_progress(f"warming decode pool ({opts['pool_slots']} slots)")
+            self._boot_progress(f"warming decode pool ({opts['pool_slots']} slots)",
+                                kind="decode_pool")
             self.decode_pool = DecodePool(
                 self.runner.model, n_slots=opts["pool_slots"],
                 chunk=self.runner.decode_chunk_size, pipeline_depth=opts["pool_depth"],
@@ -635,10 +831,35 @@ class TPUDevice:
                 cache_dtype=self.runner.cache_dtype,
                 spec=self._spec_config(include_fake=False) if spec["spec_pooled"] else None,
                 metrics=self.metrics, model_name=self.model_name,
+                timeline=self.timeline, watchdog=self.watchdog,
+                n_params=self.runner.n_params, peak_flops=self.peak_flops,
+                peak_hbm_bw=self.peak_hbm_bw,
             )
             if self.runner.adapters:
-                self._boot_progress("warming pooled multi-LoRA bank")
+                self._boot_progress("warming pooled multi-LoRA bank", kind="lora_bank")
                 self._refresh_pool_lora()
+
+    def _install_sheets(self, opts: dict) -> None:
+        """The decoder's analytic cost sheets (``costmodel.transformer_sheet``):
+        a batched prefill per bucket at the batcher's padded batch (causal
+        from position 0), a chunked slice at batch 1, and the pool's decode
+        chunk over its slots, priced at half the cache window a step (the
+        rows' lengths vary; the record's own MBU reads their true lengths)."""
+        runner, cfg = self.runner, self.runner.cfg
+        weights = float(runner.weight_bytes)
+        kv_tok = float(runner.kv_bytes_per_token)
+        bsz = next_pow2(self.max_batch)
+        for bucket in runner.buckets:
+            pairs = bucket * (bucket + 1) / 2
+            flops, nbytes = transformer_sheet(cfg, weights, kv_tok, bsz, bucket, pairs, 0)
+            self.costmodel.install_analytic("prefill", bucket, bsz, flops, nbytes)
+            flops, nbytes = transformer_sheet(cfg, weights, kv_tok, 1, bucket, pairs, 0)
+            self.costmodel.install_analytic("prefill_chunk", bucket, 1, flops, nbytes)
+        if opts["pool_enabled"]:
+            slots, window = opts["pool_slots"], cfg.max_seq / 2
+            flops, nbytes = transformer_sheet(cfg, weights, kv_tok, slots, 1, window, window,
+                                              steps=runner.decode_chunk_size)
+            self.costmodel.install_analytic("decode_chunk", 0, slots, flops, nbytes)
 
     def describe(self) -> str:
         if self.runner is None:
@@ -689,15 +910,45 @@ class TPUDevice:
         return {"status": "DOWN" if self._closed else "UP", "details": details}
 
     def _run_batch(self, payloads: list) -> list:
-        """The batcher's dispatch: the runner's batched forward, and the
-        prefill's true tokens counted where the JAX device counts them
-        (runners with a parameter count: the decoder and the encoder)."""
+        """The batcher's dispatch: the runner's batched forward (it ends at
+        its host sync, so ``elapsed`` covers the card's work), then for
+        runners with a parameter count (the decoder and the encoder) the
+        prefill's true tokens, ``gofr_tpu_mfu{op="prefill"}`` over the
+        steady window and the dispatch record's own MFU (the analytic
+        sheet's flops where one exists, else 2·N·tokens)."""
+        start = time.perf_counter()
         results = self.runner.run_batch(payloads)
-        if isinstance(self.runner, (_TransformerRunner, _BertRunner)):
-            tokens = sum(int(getattr(p, "size", 0)) for p in payloads)
-            if tokens:
-                self._tokens_counter.inc(tokens, model=self.model_name, op="prefill")
+        elapsed = time.perf_counter() - start
+        tokens = sum(int(getattr(p, "size", 0)) for p in payloads)
+        drec = current_dispatch()  # the batcher activated this dispatch
+        if drec is not None:
+            drec.tokens = tokens
+        n_params = getattr(self.runner, "n_params", None)
+        if n_params and tokens:
+            # the interval between completions under load (the batcher
+            # pipelines dispatches), floored at elapsed / its depth so an
+            # idle-then-burst pair cannot spike the gauge
+            depth = getattr(self.batcher, "pipeline_depth", 2)
+            with self._mfu_window_lock:
+                done = time.perf_counter()
+                steady = max(done - max(done - elapsed, self._last_batch_done), elapsed / depth)
+                self._last_batch_done = done
+            self._tokens_counter.inc(tokens, model=self.model_name, op="prefill")
+            self._mfu_gauge.set(mfu(n_params, tokens, steady, self.peak_flops),
+                                model=self.model_name, op="prefill")
+            if drec is not None:
+                flops = (
+                    self.costmodel.sheet_flops("prefill", drec.bucket, drec.batch_size)
+                    if self.costmodel is not None else None
+                )
+                drec.mfu = (mfu_from_flops(flops, elapsed, self.peak_flops) if flops
+                            else mfu(n_params, tokens, elapsed, self.peak_flops))
         return results
+
+    def _note_cache_event(self, cache: str, event: str) -> None:
+        """Runner callback: one prefix-cache lookup resolved as ``event``
+        (hit | partial_hit | miss)."""
+        self._cache_events.inc(cache=cache, event=event)
 
     def _observe(self, op: str, status: str, start: float) -> None:
         self._requests.inc(model=self.model_name, op=op, status=status)
@@ -811,14 +1062,27 @@ class TPUDevice:
         self._check_bias(sampler)
         stop_tokens = frozenset(stop_tokens or ()) | self.default_stop_ids
         start = time.perf_counter()
+        record = current_record()
 
         def ttft() -> None:
-            self._ttft.observe(time.perf_counter() - start, model=self.model_name,
-                               op="generate")
+            # the callback may fire on a thread without the request's
+            # context: the captured record carries its trace id
+            exemplar = ({"trace_id": record.trace_id}
+                        if record is not None and record.trace_id else None)
+            self._ttft.observe(time.perf_counter() - start, exemplar=exemplar,
+                               model=self.model_name, op="generate")
+            if record is not None:
+                record.mark_first_token()
 
+        emit = on_token
+        if record is not None:
+            def emit(item: Any, _cb: Any = on_token) -> None:
+                record.note_tokens(1)
+                if _cb is not None:
+                    _cb(item)
         try:
             out = runner.generate(
-                self._encode(tokens), max_new_tokens, on_token=on_token, stop=stop,
+                self._encode(tokens), max_new_tokens, on_token=emit, stop=stop,
                 sampler=sampler, stop_tokens=stop_tokens, decode_pool=self.decode_pool,
                 prefill_batcher=self.batcher, scheduler=self.scheduler,
                 logprobs=logprobs, top_logprobs=top_logprobs, adapter=adapter,
@@ -885,6 +1149,9 @@ class TPUDevice:
         done = object()
         failure: list[BaseException] = []
         stop = cancel if cancel is not None else threading.Event()
+        # the producer thread decodes in the caller's context: its flight
+        # record (and span) reach the batcher and the pool from there
+        context = contextvars.copy_context()
 
         def run() -> None:
             try:
@@ -899,7 +1166,8 @@ class TPUDevice:
                 out.put(done)
 
         def iterate() -> Any:
-            threading.Thread(target=run, daemon=True, name="gofr-stream-producer").start()
+            threading.Thread(target=context.run, args=(run,), daemon=True,
+                             name="gofr-stream-producer").start()
             try:
                 while True:
                     item = out.get()
@@ -1005,13 +1273,71 @@ class TPUDevice:
         self.logger.infof("adapter '%s' unloaded", name)
         return remaining
 
+    def engine_snapshot(self) -> dict[str, Any]:
+        """``GET /admin/engine``: the state machine and its history, the
+        boot timeline, the watchdog (and what a stall on this device is),
+        dispatch counts, queue depth, pool occupancy, paged KV, scheduler,
+        cache and compile counts and device memory. Host reads only (the
+        allocator's counters, no device sync), so it answers while the
+        engine is wedged."""
+        watchdog = self.watchdog.snapshot()
+        # a stall's meaning on this device: the watchdog observes and
+        # reports; no recovery rebuild runs (ROADMAP §A4). On a card, a
+        # wait that returns late was slow work and the engine goes back to
+        # serving; a device fault (CUDA error 719 and the like) ends the
+        # process's CUDA context, so only a restart recovers from it
+        watchdog["on_stall"] = (
+            "observe-only: degraded, then wedged, back to serving when the wait "
+            "returns; a CUDA device fault ends the process's context (restart)"
+            if self.platform == "gpu" else
+            "observe-only: degraded, then wedged, back to serving when the wait returns"
+        )
+        snap: dict[str, Any] = {
+            "engine": self.engine.snapshot(),
+            "boot_id": BOOT_ID,
+            "model": self.model_name,
+            "platform": self.platform,
+            "device_kind": str(self.device_kind),
+            "versions": {"torch": torch.__version__, "cuda": torch.version.cuda},
+            "boot": dict(self.boot_status),
+            "boot_timeline": [dict(stage) for stage in self.boot_timeline],
+            "watchdog": watchdog,
+            "dispatches": self.timeline.stats(),
+            "costmodel": self.costmodel.overview() if self.costmodel is not None else None,
+            "queue_depth": self.batcher._depth() if self.batcher is not None else None,
+            "decode_pool": (self.decode_pool.occupancy()
+                            if self.decode_pool is not None else None),
+            "kv_blocks": self.kv_pool.stats() if self.kv_pool is not None else None,
+            "scheduler": self.scheduler.snapshot() if self.scheduler is not None else None,
+        }
+        caches: dict[str, Any] = {}
+        pstats = getattr(self.runner, "prefix_stats", None)
+        if pstats:
+            caches["prefix"] = dict(pstats)
+        snap["caches"] = caches
+        snap["compiles"] = {
+            kind: self._compiles.value(kind=kind)
+            for kind in sorted({s["kind"] for s in snap["boot_timeline"] if s["kind"]})
+        }
+        hbm = None
+        if self.device is not None and self.device.type == "cuda":
+            hbm = {
+                "bytes_in_use": torch.cuda.memory_allocated(self.device),
+                "bytes_limit": torch.cuda.get_device_properties(self.device).total_memory,
+            }
+        snap["hbm"] = hbm
+        return snap
+
     def close(self) -> None:
         """Stop the pool (its worker joined; a stream still decoding gets
-        an error, never a truncated result), the batcher and the runner. A
-        background boot still running tears its stack down when it ends."""
+        an error, never a truncated result), the batcher, the runner and
+        the watchdog. A background boot still running tears its stack down
+        when it ends."""
         self._closed = True
+        self.watchdog.close()
         if self._ready.is_set():
             self._teardown_stack()
+            self.engine.transition("closed")
 
 
 class _PrefillState(dict):
@@ -1205,8 +1531,12 @@ class _EchoRunner:
     longest matching prefix plus the bonus token emitted, the rest rolled
     back; the ids are the plain loop's whatever was drafted.
 
-    Left for later slices: the stall hook (§A3), deadlines and journal
-    resume (§A4), the host-mesh arena (§A7)."""
+    ``stall_hook`` (tests) is called at the top of every ``run_batch``, so
+    a test can wedge a "device" prefill on the card-free path and drive the
+    watchdog and the engine's state machine end to end.
+
+    Left for later slices: deadlines and journal resume (§A4), the
+    host-mesh arena (§A7)."""
 
     # synthetic bucket ladder: echo pads nothing, but the batcher forms
     # bucket cohorts and counts padded tokens on it
@@ -1229,6 +1559,7 @@ class _EchoRunner:
         self.spec_stats = {"cycles": 0, "drafted": 0, "accepted": 0}
         self._spec_lock = threading.Lock()
         self.prefix_stats: Optional[dict] = None
+        self.stall_hook: Optional[Any] = None
 
     def enable_pooled_spec(self, cfg: PoolSpecConfig) -> None:
         """Arm pooled speculative decoding: generate() decodes in verify
@@ -1268,6 +1599,8 @@ class _EchoRunner:
         return ids
 
     def run_batch(self, payloads: list[np.ndarray]) -> list[dict]:
+        if self.stall_hook is not None:
+            self.stall_hook()
         if self._closed:
             raise RuntimeError("echo runner closed")
         if self.step_s:
@@ -1303,6 +1636,7 @@ class _EchoRunner:
             self.run_batch([ids])
         if ttft_cb:
             ttft_cb()
+        record = current_record()
         # paged admission (the pool's submit timing): reserve the block
         # budget, aliasing cached prefix blocks; exhaustion decodes
         # block-free, counted as the pool counts it
@@ -1314,16 +1648,20 @@ class _EchoRunner:
             except KVExhausted:
                 if self._kv_reject is not None:
                     self._kv_reject.inc(reason="kv_exhausted")
+                if record is not None:
+                    record.note_pool_reject("kv_exhausted")
             if seq is not None:
                 # decode off the block tables, not the request's buffer
                 src = self.paged.prompt_tokens(seq)
+                if record is not None:
+                    record.note_kv(len(seq.table.blocks), seq.aliased_blocks)
         out: list[int] = []
         lps: list[float] = []
         tops: list = []
         decode = self._generate_spec if self.spec_pooled is not None else self._generate_plain
         try:
             decode(src, seq, out, lps, tops, max_new_tokens, stop, stop_tokens, on_token,
-                   logprobs)
+                   logprobs, record)
         except BaseException:
             if seq is not None:
                 self.paged.abort(seq)
@@ -1352,7 +1690,7 @@ class _EchoRunner:
 
     def _generate_plain(self, src: np.ndarray, seq: Any, out: list, lps: list, tops: list,
                         max_new_tokens: int, stop: Any, stop_tokens: frozenset,
-                        on_token: Any, logprobs: bool) -> None:
+                        on_token: Any, logprobs: bool, record: Any) -> None:
         """One token a step (one ``ECHO_STEP_MS`` sleep): token i is the
         prompt's id at position i mod its length."""
         for i in range(max_new_tokens):
@@ -1371,7 +1709,7 @@ class _EchoRunner:
 
     def _generate_spec(self, src: np.ndarray, seq: Any, out: list, lps: list, tops: list,
                        max_new_tokens: int, stop: Any, stop_tokens: frozenset,
-                       on_token: Any, logprobs: bool) -> None:
+                       on_token: Any, logprobs: bool, record: Any) -> None:
         """Pooled-spec cycles (the decode pool's spec mode, with no model):
         per cycle the draft source proposes k tokens, they land
         speculatively in the paged KV, ONE sleep stands for the verify, the
@@ -1430,6 +1768,8 @@ class _EchoRunner:
                 self.spec_stats["cycles"] += 1
                 self.spec_stats["drafted"] += k_eff
                 self.spec_stats["accepted"] += n_acc
+            if record is not None:
+                record.note_spec(k_eff, n_acc, len(burst))
             i += len(burst)
             if stopped or cancelled:
                 break
@@ -1476,7 +1816,7 @@ class _MLPRunner:
         return [out[i] for i in range(n)]
 
     def warmup(self, progress: Any) -> None:
-        progress("warming the MLP at every padded batch")
+        progress("warming the MLP at every padded batch", kind="forward")
         b = 1
         while b <= next_pow2(self.max_batch):
             self.run_batch([np.zeros(self.cfg.in_dim, np.float32)] * b)
@@ -1547,9 +1887,10 @@ class _BertRunner:
         if self.device.type == "cuda":
             from gofr_tpu_torch.ops import flash
 
-            progress("building the CUDA kernels (nvcc at first use)")
+            progress("building the CUDA kernels (nvcc at first use)", kind="kernel_build")
             flash.build()
-        progress(f"warming the encoder at bucket {self.bucket}, every padded batch")
+        progress(f"warming the encoder at bucket {self.bucket}, every padded batch",
+                 kind="embed", bucket=self.bucket)
         b = 1
         while b <= next_pow2(self.max_batch):
             self.run_batch([np.zeros(self.bucket, np.int32)] * b)
@@ -1590,6 +1931,9 @@ class _TransformerRunner:
         draft_model: Optional[Transformer] = None,
         lora_adapters: Optional[dict] = None,
         metrics: Any = None,
+        timeline: Any = None,
+        watchdog: Any = None,
+        cache_events: Any = None,
     ):
         cfg = CONFIGS[name]
         if max_seq is not None and max_seq < cfg.max_seq:
@@ -1611,6 +1955,17 @@ class _TransformerRunner:
                 "the given model does not match MODEL_NAME/MODEL_MAX_SEQ/MODEL_QUANT/device"
             )
         self.model = model
+        # the dispatch timeline and watchdog the chunked and tail prefills
+        # report to, and the prefix cache's hit/miss callback
+        self.timeline = timeline
+        self.watchdog = watchdog
+        self._cache_events = cache_events or (lambda cache, event: None)
+        # what the MFU/MBU gauges and the cost sheets count: the logical
+        # parameters, the bytes a step streams, the KV bytes of a position
+        self.n_params = transformer_param_count(cfg)
+        self.weight_bytes = model.weight_bytes()
+        itemsize = torch.empty((), dtype=self.cache_dtype).element_size()
+        self.kv_bytes_per_token = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * itemsize
         # multi-LoRA: named adapter models over the SHARED base tensors
         # (n adapters cost n x adapter bytes, not n x model bytes)
         self.adapters: dict[str, Transformer] = {
@@ -2010,7 +2365,8 @@ class _TransformerRunner:
             if not pending:
                 break
             fetch, n = pending.popleft()
-            arrays = fetch.wait()
+            with self._watch("decode_chunk"):
+                arrays = fetch.wait()
             in_flight -= n
             cache_len += n
             for j, t in enumerate(arrays[0][0, : min(n, max_new_tokens - len(out))].tolist()):
@@ -2044,23 +2400,28 @@ class _TransformerRunner:
         if self.device.type == "cuda":
             from gofr_tpu_torch.ops import flash
 
-            progress("building the CUDA kernels (nvcc at first use)")
+            progress("building the CUDA kernels (nvcc at first use)", kind="kernel_build")
             flash.build()
         bsz = next_pow2(self.max_batch)
         chunk_b = self.prefill_chunk_bucket
-        shapes = [(bsz, b) for b in self.buckets if chunk_b is None or b <= chunk_b]
+        shapes = [(bsz, b, "prefill") for b in self.buckets if chunk_b is None or b <= chunk_b]
         if chunk_b is not None:
-            shapes.append((1, chunk_b))
-        for i, (batch, bucket) in enumerate(shapes):
-            progress(f"warming prefill bucket {bucket} (batch {batch}, {i + 1}/{len(shapes)})")
+            shapes.append((1, chunk_b, "prefill_chunk"))
+        for i, (batch, bucket, kind) in enumerate(shapes):
+            progress(f"warming prefill bucket {bucket} (batch {batch}, {i + 1}/{len(shapes)})",
+                     kind=kind, bucket=bucket)
             cache = self.model.init_cache(batch, self.cfg.max_seq, self.cache_dtype)
             tokens = np.zeros((batch, bucket), np.int32)
             lengths = np.ones(batch, np.int32)
             logits, _ = self.model.prefill(to_device(tokens, self.device), cache,
                                            to_device(lengths, self.device))
+            if self.device.type == "cuda":
+                # each stage's time is its shape's work on the card, not
+                # the host's issue of it (boot only, never a serving path)
+                torch.cuda.synchronize(self.device)
             del logits, cache
         if self.spec is not None:
-            progress(f"warming speculation (k={self.spec.k})")
+            progress(f"warming speculation (k={self.spec.k})", kind="spec_verify")
             self._warmup_spec()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -2139,7 +2500,9 @@ class _TransformerRunner:
                 token_dev, cache, 1, gen, *knobs, all_greedy=greedy
             )
             cache_len += 1
-            if not emit([int(HostFetch(toks).wait()[0][0, 0])]):
+            with self._watch("decode_chunk"):
+                fetched = HostFetch(toks).wait()
+            if not emit([int(fetched[0][0, 0])]):
                 break
         return cache
 
@@ -2173,7 +2536,8 @@ class _TransformerRunner:
             # the card and packed with the ids: one fetch a cycle
             matches = (next_ids[:, :k] == draft_toks).to(torch.int32)
             n_acc = torch.cumprod(matches, dim=1).sum(dim=1, dtype=torch.int32)
-            packed = HostFetch(torch.cat([next_ids, n_acc[:, None]], dim=1)).wait()[0]
+            with self._watch("spec_verify"):
+                packed = HostFetch(torch.cat([next_ids, n_acc[:, None]], dim=1)).wait()[0]
             a = packed[0, : k + 1]
             # the unclamped count feeds the stats (the budget clamp below
             # reflects emission room, not draft quality)
@@ -2230,7 +2594,8 @@ class _TransformerRunner:
                 torch.cat([token_dev, draft_toks[:, :kd]], dim=1), cache, draft_toks[:, :kd],
                 qs[:, :kd], vgen, *knobs,
             )
-            packed = HostFetch(torch.cat([emitted, n_acc_dev[:, None]], dim=1)).wait()[0]
+            with self._watch("spec_verify"):
+                packed = HostFetch(torch.cat([emitted, n_acc_dev[:, None]], dim=1)).wait()[0]
             row = packed[0, : kd + 1]
             n_acc = int(packed[0, kd + 1])
             n_use = max(min(n_acc, max_new_tokens - len(out) - 1), 0)
@@ -2289,22 +2654,56 @@ class _TransformerRunner:
         into the same fresh [1]-row cache at its offset (the model's
         chunk-resume contract). ``scheduler`` interleaves each slice with
         pooled decode turns. ``model``: an adapter's (default the base).
-        One host sync at the end (the last slice's argmax)."""
+        One host sync at the end (the last slice's argmax), watched.
+
+        Each slice is a ``prefill_chunk`` dispatch record, and the
+        request's flight record gets its enqueue and dispatch marks (no
+        batcher queue: the wait is ~0), the slices, their ids and the
+        scheduler's defers. A slice's record closes when the next one is
+        issued; the last stays running through the sync, so a stuck card
+        shows as that slice on /admin/dispatches."""
         bucket = bucket or self.buckets[-1]
         cache = self.model.init_cache(1, self.cfg.max_seq, self.cache_dtype)
         logits = None
         total = 0
-        for tokens, lengths, size in _prompt_chunks(ids, bucket):
-            if scheduler is not None:
-                scheduler.admit_prefill(bucket)
-            logits, cache = self._prefill(tokens, cache, lengths, model)
-            total += size
-        return {
-            "cache": cache,
-            "length": total,
-            "next_token": int(torch.argmax(logits[0])),
-            "logits": logits[0],
-        }
+        record = current_record()
+        if record is not None:
+            record.mark_enqueue()
+            record.mark_dispatch(1)
+        drec = None
+        try:
+            for tokens, lengths, size in _prompt_chunks(ids, bucket):
+                if scheduler is not None:
+                    wait = scheduler.admit_prefill(bucket)
+                    if record is not None and wait:
+                        record.note_sched_defer(wait)
+                if self.timeline is not None:
+                    if drec is not None:
+                        self.timeline.finish(drec)
+                    drec = self.timeline.begin("prefill_chunk", bucket=bucket, batch_size=1,
+                                               tokens=size)
+                    if record is not None:
+                        record.note_dispatch_id(drec.dispatch_id)
+                logits, cache = self._prefill(tokens, cache, lengths, model)
+                if record is not None:
+                    record.note_prefill_chunk(bucket=bucket)
+                total += size
+            with self._watch("prefill_chunk", drec):
+                next_token = int(torch.argmax(logits[0]))
+        except BaseException:
+            if drec is not None:
+                self.timeline.finish(drec, status="error")
+            raise
+        if drec is not None:
+            self.timeline.finish(drec)
+        return {"cache": cache, "length": total, "next_token": next_token, "logits": logits[0]}
+
+    def _watch(self, kind: str, drec: Any = None) -> Any:
+        """The stall watchdog's deadline over one host wait on the card (a
+        no-op without a watchdog)."""
+        if self.watchdog is None:
+            return contextlib.nullcontext()
+        return self.watchdog.watch(kind, drec.dispatch_id if drec is not None else 0)
 
     # -- the prefix cache ----------------------------------------------------
     def _prefix_lookup(self, ids: np.ndarray, need_logits: bool = False) -> Optional[dict]:
@@ -2328,8 +2727,10 @@ class _TransformerRunner:
                 shared, row = self._lcp_scan(ids) if self._prefix_lcp_min >= 0 else (0, None)
                 if row is None:
                     self.prefix_stats["misses"] += 1
+                    self._cache_events("prefix", "miss")
                     return None
                 self.prefix_stats["partial_hits"] += 1
+        self._cache_events("prefix", "hit" if entry is not None else "partial_hit")
         if entry is not None:  # device work outside the lock
             row, length, next_token, logits = entry
             return {"cache": _copy_row(row), "length": length, "next_token": next_token,
@@ -2341,10 +2742,13 @@ class _TransformerRunner:
         fresh row; LCP hits gather the shared prefix and prefill the tail."""
         hit = self._paged_prefix.lookup(ids, need_logits)
         if hit is None:
+            self._cache_events("prefix", "miss")
             return None
         kind, payload, shared = hit
         if kind == "hit":
+            self._cache_events("prefix", "hit")
             return payload
+        self._cache_events("prefix", "partial_hit")
         return self._tail_prefill(ids, payload, shared)
 
     def _lcp_scan(self, ids: np.ndarray) -> tuple:
@@ -2369,15 +2773,28 @@ class _TransformerRunner:
         bucket = self._bucket_for(int(tail.size))
         logits = None
         total = shared
-        for tokens, lengths, size in _prompt_chunks(tail, bucket):
-            logits, cache = self._prefill(tokens, cache, lengths)
-            total += size
-        state = {
-            "cache": cache,
-            "length": total,
-            "next_token": int(torch.argmax(logits[0])),
-            "logits": logits[0],
-        }
+        # a dispatch too: one prefill_chunk record, the sync watched
+        drec = None
+        if self.timeline is not None:
+            drec = self.timeline.begin("prefill_chunk", bucket=bucket, batch_size=1,
+                                       tokens=int(tail.size),
+                                       detail=f"tail prefill after {shared} shared")
+            record = current_record()
+            if record is not None:
+                record.note_dispatch_id(drec.dispatch_id)
+        try:
+            for tokens, lengths, size in _prompt_chunks(tail, bucket):
+                logits, cache = self._prefill(tokens, cache, lengths)
+                total += size
+            with self._watch("prefill_chunk", drec):
+                next_token = int(torch.argmax(logits[0]))
+        except BaseException:
+            if drec is not None:
+                self.timeline.finish(drec, status="error")
+            raise
+        if drec is not None:
+            self.timeline.finish(drec)
+        state = {"cache": cache, "length": total, "next_token": next_token, "logits": logits[0]}
         self._prefix_store(ids, state)
         return state
 

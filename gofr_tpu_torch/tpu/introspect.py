@@ -1,0 +1,580 @@
+"""Engine introspection: the dispatch timeline, the engine state machine
+and the stall watchdog (port of ``gofr_tpu/tpu/introspect.py``), the
+device-level mirror of the request flight recorder (``telemetry.py``).
+
+- ``DispatchTimeline``: every dispatch (a batched prefill, a chunked
+  prefill slice, a pooled decode chunk or verify, a boot warm-up stage, the
+  device probe) gets a monotonic ``dispatch_id`` and a ``DispatchRecord``
+  (kind, bucket, batch size, padded tokens, queued/running/done marks,
+  MFU/MBU, the cost model's prediction and residual) in a bounded ring
+  behind ``GET /admin/dispatches``. Flight records carry the ids they rode.
+- ``EngineState``: booting -> warming -> serving, degraded and wedged
+  while a watched wait outlives its deadline, failed and closed; on
+  ``GET /admin/engine``, in the readiness body (503 while degraded or
+  wedged) and in the ``gofr_tpu_engine_state{state}`` gauge. The
+  ``recovering`` state stays in the vocabulary; the port has no recovery
+  supervisor yet (ROADMAP §A4), so the watchdog observes and reports only.
+- ``StallWatchdog``: a heartbeat thread over the watched waits
+  (``WATCHDOG_DISPATCH_TIMEOUT_S``; armed at 120 s on its own when the
+  device is ``cuda``). Past the deadline it counts
+  ``gofr_tpu_device_stalls_total{kind}``, logs the stuck thread's stack and
+  degrades the engine (wedged past ``timeout x wedge_factor``); the wait
+  returning brings it back.
+
+CUDA is asynchronous: a launch returns at once and the card's time shows
+where the host waits for it (``HostFetch.wait``, a prefill's first-token
+fetch). So the dispatchers watch, and close their records at, that wait:
+a record's duration is the launches plus the card's work, and a kernel
+that never ends hangs the watched wait, where the watchdog sees it.
+
+Everything here runs without a card under ``MODEL_NAME=echo`` (the echo
+runner's ``stall_hook`` wedges a prefill on purpose).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import itertools
+import sys
+import threading
+import time
+import traceback
+from collections import deque
+from typing import Any, Iterator, Optional
+
+DISPATCH_KINDS = (
+    "prefill",          # one batched prefill dispatch (DynamicBatcher)
+    "prefill_chunk",    # one bounded-compute chunked-prefill slice
+    "decode_chunk",     # one pooled decode chunk (DecodePool)
+    "warmup_compile",   # one boot-time warmup compile stage
+    "device_probe",     # the boot's first touch of the card
+)
+
+ENGINE_STATES = (
+    "booting",     # constructed; runtime not probed yet
+    "warming",     # probe done / warmup compiles running
+    "serving",     # ready; dispatches completing inside their deadline
+    "degraded",    # >=1 dispatch past WATCHDOG_DISPATCH_TIMEOUT_S
+    "wedged",      # a stalled dispatch outlived timeout x wedge_factor
+    "recovering",  # a recovery rebuild (no supervisor in the port yet)
+    "failed",      # boot/recovery failed terminally (reinit may still fix)
+    "closed",      # device closed
+)
+
+# the contextvar lets device code deep below a dispatcher (e.g. the
+# device's run_batch under the batcher's dispatch thread) decorate the
+# CURRENT dispatch record with values only it knows (per-dispatch MFU)
+_current_dispatch: contextvars.ContextVar[Optional["DispatchRecord"]] = (
+    contextvars.ContextVar("gofr_dispatch_record", default=None)
+)
+
+
+def current_dispatch() -> Optional["DispatchRecord"]:
+    """The dispatch record of the dispatch executing on this thread."""
+    return _current_dispatch.get()
+
+
+def activate_dispatch(record: Optional["DispatchRecord"]) -> Any:
+    """Bind ``record`` as the thread's current dispatch (None clears —
+    dispatch pool threads are reused, a leak would mislabel later work)."""
+    return _current_dispatch.set(record)
+
+
+class DispatchRecord:
+    """One device dispatch's flight data. Single-writer (the dispatching
+    thread); readers see monotonic set-once fields."""
+
+    __slots__ = (
+        "dispatch_id", "kind", "bucket", "batch_size", "padded_tokens",
+        "tokens", "detail", "status", "wall_start", "t_queued", "t_running",
+        "t_done", "mfu", "mbu", "predicted_ms", "residual_ratio",
+        "cost_source", "anomaly",
+    )
+
+    def __init__(
+        self,
+        dispatch_id: int,
+        kind: str,
+        bucket: int = 0,
+        batch_size: int = 0,
+        padded_tokens: int = 0,
+        tokens: int = 0,
+        detail: str = "",
+        queued_at: Optional[float] = None,
+    ):
+        self.dispatch_id = dispatch_id
+        self.kind = kind
+        self.bucket = bucket
+        self.batch_size = batch_size
+        self.padded_tokens = padded_tokens
+        self.tokens = tokens
+        self.detail = detail
+        self.status = "running"
+        self.wall_start = time.time()
+        now = time.perf_counter()
+        self.t_queued = queued_at if queued_at is not None else now
+        # no external queue mark -> execution starts now (dispatchers
+        # with a real queue phase pass queued_at and mark_running later)
+        self.t_running: Optional[float] = None if queued_at is not None else now
+        self.t_done: Optional[float] = None
+        self.mfu: Optional[float] = None
+        self.mbu: Optional[float] = None
+        # cost-model fields (tpu/costmodel.py): the roofline prediction
+        # stamped at begin, the observed/predicted residual stamped at
+        # finish, the sheet source behind them (analytic |
+        # synthetic), and
+        # the anomaly cause when this dispatch was flagged
+        self.predicted_ms: Optional[float] = None
+        self.residual_ratio: Optional[float] = None
+        self.cost_source: Optional[str] = None
+        self.anomaly: Optional[str] = None
+
+    def mark_running(self) -> None:
+        """Device execution begins (after any scheduler-interleave wait)."""
+        if self.t_running is None:
+            self.t_running = time.perf_counter()
+
+    @property
+    def queue_wait(self) -> Optional[float]:
+        if self.t_running is None:
+            return None
+        return self.t_running - self.t_queued
+
+    @property
+    def duration(self) -> Optional[float]:
+        if self.t_done is None:
+            return None
+        return self.t_done - (self.t_running or self.t_queued)
+
+    def to_dict(self) -> dict[str, Any]:
+        return {
+            "dispatch_id": self.dispatch_id,
+            "kind": self.kind,
+            "status": self.status,
+            "bucket": self.bucket or None,
+            "batch_size": self.batch_size or None,
+            "padded_tokens": self.padded_tokens,
+            "tokens": self.tokens,
+            "detail": self.detail or None,
+            "start_ts": self.wall_start,
+            "queue_wait_s": self.queue_wait,
+            "duration_s": self.duration,
+            "mfu": self.mfu,
+            "mbu": self.mbu,
+            "predicted_ms": self.predicted_ms,
+            "residual_ratio": self.residual_ratio,
+            "cost_source": self.cost_source,
+            "anomaly": self.anomaly,
+        }
+
+
+class DispatchTimeline:
+    """Bounded, thread-safe ring of DispatchRecords with monotonic ids.
+
+    Records land in the ring at ``begin`` (status "running"), so an
+    in-flight — including a WEDGED — dispatch is visible on
+    ``/admin/dispatches`` while it hangs; ``finish`` stamps the terminal
+    mark in place and is idempotent (error paths and success paths may
+    both reach it)."""
+
+    def __init__(
+        self, capacity: int = 512, metrics: Any = None, costmodel: Any = None
+    ):
+        # the dispatch cost model (tpu/costmodel.py), when wired: begin
+        # stamps each record's roofline prediction, finish runs residual
+        # and anomaly accounting — this timeline is the SINGLE
+        # predict→observe chokepoint every dispatcher already flows
+        # through (batcher, chunked prefill, decode pool, spec verify)
+        self.costmodel = costmodel
+        self._ids = itertools.count(1)
+        self._ring: "deque[DispatchRecord]" = deque(maxlen=max(1, capacity))
+        self._lock = threading.Lock()
+        self._by_kind: dict[str, int] = {}
+        self._in_flight: dict[int, DispatchRecord] = {}
+        if metrics is not None:
+            self._count = metrics.counter(
+                "gofr_tpu_dispatches_total",
+                "device dispatches by kind (prefill, prefill_chunk, "
+                "decode_chunk, warmup_compile, device_probe)",
+                labels=("kind",),
+            )
+            self._dur = metrics.histogram(
+                "gofr_tpu_dispatch_seconds",
+                "device dispatch duration (running -> done)",
+                labels=("kind",),
+            )
+        else:
+            self._count = self._dur = None
+
+    def begin(
+        self,
+        kind: str,
+        bucket: int = 0,
+        batch_size: int = 0,
+        padded_tokens: int = 0,
+        tokens: int = 0,
+        detail: str = "",
+        queued_at: Optional[float] = None,
+    ) -> DispatchRecord:
+        record = DispatchRecord(
+            next(self._ids), kind, bucket=bucket, batch_size=batch_size,
+            padded_tokens=padded_tokens, tokens=tokens, detail=detail,
+            queued_at=queued_at,
+        )
+        if self.costmodel is not None:
+            self.costmodel.annotate(record)
+        with self._lock:
+            self._ring.append(record)
+            self._by_kind[kind] = self._by_kind.get(kind, 0) + 1
+            self._in_flight[record.dispatch_id] = record
+        if self._count is not None:
+            self._count.inc(kind=kind)
+        return record
+
+    def finish(self, record: DispatchRecord, status: str = "ok") -> None:
+        if record.t_done is not None:
+            return  # idempotent: first finish wins
+        record.mark_running()  # a dispatch that never ran still closes
+        record.t_done = time.perf_counter()
+        record.status = status
+        with self._lock:
+            self._in_flight.pop(record.dispatch_id, None)
+        if self._dur is not None:
+            self._dur.observe(record.duration or 0.0, kind=record.kind)
+        if self.costmodel is not None:
+            self.costmodel.observe(record)
+
+    # -- read side (admin API) ------------------------------------------------
+    def records(
+        self, limit: int = 100, kind: Optional[str] = None
+    ) -> list[dict[str, Any]]:
+        """Most-recent-first record dicts, optionally filtered by kind."""
+        with self._lock:
+            snapshot = list(self._ring)
+        out: list[dict[str, Any]] = []
+        for record in reversed(snapshot):
+            if kind is not None and record.kind != kind:
+                continue
+            out.append(record.to_dict())
+            if len(out) >= limit:
+                break
+        return out
+
+    def stats(self) -> dict[str, Any]:
+        with self._lock:
+            return {
+                "total": sum(self._by_kind.values()),
+                "by_kind": dict(self._by_kind),
+                "in_flight": len(self._in_flight),
+            }
+
+
+class EngineState:
+    """Explicit engine state machine, mirrored into the
+    ``gofr_tpu_engine_state{state}`` gauge (1 for the current state) and
+    a bounded transition history for ``/admin/engine``."""
+
+    def __init__(self, metrics: Any = None, logger: Any = None):
+        self._lock = threading.Lock()
+        self.state = "booting"
+        self._detail = ""
+        self._since = time.time()
+        self._history: "deque[dict[str, Any]]" = deque(maxlen=64)
+        self._logger = logger
+        self._gauge = (
+            metrics.gauge(
+                "gofr_tpu_engine_state",
+                "engine state machine (1 for the current state): booting, "
+                "warming, serving, degraded, wedged, recovering, failed, "
+                "closed",
+                labels=("state",),
+            )
+            if metrics is not None else None
+        )
+        self._history.append(
+            {"state": "booting", "ts": self._since, "detail": ""}
+        )
+        self._set_gauge("booting")
+
+    def _set_gauge(self, state: str) -> None:
+        if self._gauge is None:
+            return
+        for s in ENGINE_STATES:
+            self._gauge.set(1.0 if s == state else 0.0, state=s)
+
+    def transition(self, state: str, detail: str = "") -> None:
+        if state not in ENGINE_STATES:
+            raise ValueError(
+                f"engine state '{state}' unknown — one of {ENGINE_STATES}"
+            )
+        with self._lock:
+            if state == self.state:
+                self._detail = detail or self._detail
+                return
+            self.state = state
+            self._detail = detail
+            self._since = time.time()
+            self._history.append(
+                {"state": state, "ts": self._since, "detail": detail}
+            )
+            # inside the lock: two racing transitions must not interleave
+            # their per-state gauge writes (the metric lock is a leaf)
+            self._set_gauge(state)
+        if self._logger is not None:
+            log = (
+                self._logger.warnf if state in ("degraded", "wedged", "failed")
+                else self._logger.infof
+            )
+            log("engine state -> %s%s", state, f" ({detail})" if detail else "")
+
+    def snapshot(self) -> dict[str, Any]:
+        with self._lock:
+            return {
+                "state": self.state,
+                "detail": self._detail or None,
+                "since": self._since,
+                "history": list(self._history),
+            }
+
+
+class _Watch:
+    __slots__ = ("kind", "dispatch_id", "thread_ident", "thread_name",
+                 "started", "flagged", "wedged")
+
+    def __init__(self, kind: str, dispatch_id: int):
+        self.kind = kind
+        self.dispatch_id = dispatch_id
+        thread = threading.current_thread()
+        self.thread_ident = thread.ident
+        self.thread_name = thread.name
+        self.started = time.perf_counter()
+        self.flagged = False
+        self.wedged = False
+
+
+class StallWatchdog:
+    """Deadline heartbeat over in-flight dispatches.
+
+    Dispatchers wrap device work in ``watch(kind, dispatch_id)``; a
+    daemon thread scans the registered entries every ``poll`` interval.
+    Past ``timeout_s`` a dispatch is a STALL: the stall counter
+    increments, the stuck thread's stack is dumped to the log (the data
+    that explains a wedged wait), and the engine flips to
+    ``degraded`` — then ``wedged`` once the stall outlives
+    ``timeout_s x wedge_factor``. The dispatch completing (however late)
+    flips the engine back to the state it held before the stall.
+
+    ``timeout_s <= 0`` disables: ``watch`` degrades to a no-op context
+    manager and no thread runs. ``arm`` enables later (the device arms
+    itself after probing a ``cuda`` device when the operator set no
+    ``WATCHDOG_DISPATCH_TIMEOUT_S``)."""
+
+    def __init__(
+        self,
+        engine: EngineState,
+        metrics: Any = None,
+        logger: Any = None,
+        timeout_s: float = 0.0,
+        wedge_factor: float = 3.0,
+    ):
+        if wedge_factor < 1.0:
+            raise ValueError("wedge_factor must be >= 1.0")
+        self.engine = engine
+        self.logger = logger
+        self.timeout_s = float(timeout_s)
+        self.wedge_factor = wedge_factor
+        self._entries: dict[int, _Watch] = {}
+        self._tokens = itertools.count(1)
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._pre_stall_state = "serving"
+        # plain counts next to the Prometheus counter so snapshots and
+        # tests read stall history without scraping the registry
+        self.stall_counts: dict[str, int] = {}
+        self._stalls = (
+            metrics.counter(
+                "gofr_tpu_device_stalls_total",
+                "dispatches that exceeded WATCHDOG_DISPATCH_TIMEOUT_S "
+                "(the engine degrades/wedges while one is in flight)",
+                labels=("kind",),
+            )
+            if metrics is not None else None
+        )
+        if self.timeout_s > 0:
+            self._start()
+
+    # -- lifecycle ------------------------------------------------------------
+    @property
+    def enabled(self) -> bool:
+        return self.timeout_s > 0 and not self._stop.is_set()
+
+    def _poll_interval(self) -> float:
+        return max(0.01, min(self.timeout_s / 4.0, 1.0))
+
+    def _start(self) -> None:
+        if self._thread is not None and self._thread.is_alive():
+            return
+        self._stop.clear()
+        self._thread = threading.Thread(
+            target=self._loop, name="gofr-watchdog", daemon=True
+        )
+        self._thread.start()
+
+    def arm(self, timeout_s: float) -> None:
+        """Enable (or retune) the deadline; idempotent."""
+        if timeout_s <= 0:
+            return
+        self.timeout_s = float(timeout_s)
+        self._start()
+
+    def close(self) -> None:
+        self._stop.set()
+
+    # -- dispatch side --------------------------------------------------------
+    @contextlib.contextmanager
+    def watch(self, kind: str, dispatch_id: int = 0) -> Iterator[None]:
+        """Register the calling thread's dispatch for deadline scanning
+        for the duration of the with-block."""
+        if not self.enabled:
+            yield
+            return
+        entry = _Watch(kind, dispatch_id)
+        token = next(self._tokens)
+        with self._lock:
+            self._entries[token] = entry
+        try:
+            yield
+        finally:
+            self._unwatch(token, entry)
+
+    def _unwatch(self, token: int, entry: _Watch) -> None:
+        # pop, flag-check, AND the recovery transition all under the
+        # watchdog lock: the scanner serializes on the same lock before
+        # flagging, so a completing dispatch either wins the pop (never
+        # flagged) or observes its flag here and recovers the engine —
+        # no interleaving can strand the engine in degraded. Lock order
+        # is watchdog -> engine; the engine lock is a leaf.
+        elapsed = time.perf_counter() - entry.started
+        recovered = False
+        with self._lock:
+            self._entries.pop(token, None)
+            if entry.flagged:
+                recovered = True
+                still_stalled = any(
+                    e.flagged for e in self._entries.values()
+                )
+                if not still_stalled and self.engine.state in (
+                    "degraded", "wedged"
+                ):
+                    self.engine.transition(
+                        self._pre_stall_state,
+                        f"{entry.kind} dispatch {entry.dispatch_id} "
+                        f"recovered after {elapsed:.1f}s",
+                    )
+        if recovered and self.logger is not None:
+            self.logger.warnf(
+                "watchdog: %s dispatch %d recovered after %.1fs",
+                entry.kind, entry.dispatch_id, elapsed,
+            )
+
+    # -- heartbeat ------------------------------------------------------------
+    def _loop(self) -> None:
+        while not self._stop.wait(self._poll_interval()):
+            self._scan()
+
+    def _scan(self) -> None:
+        now = time.perf_counter()
+        with self._lock:
+            entries = list(self._entries.items())
+            timeout = self.timeout_s
+        for token, entry in entries:
+            elapsed = now - entry.started
+            if not entry.flagged and elapsed > timeout:
+                if self._flag_stall(token, entry, elapsed):
+                    self._log_stall(entry, elapsed)
+            elif (
+                entry.flagged and not entry.wedged
+                and elapsed > timeout * self.wedge_factor
+            ):
+                self._flag_wedge(token, entry, elapsed, timeout)
+
+    def _flag_stall(self, token: int, entry: _Watch, elapsed: float) -> bool:
+        """Flag one overdue entry. The membership re-check and the
+        engine transition happen under the watchdog lock: a dispatch
+        that completed since the scan snapshot was popped by _unwatch
+        (membership fails, nothing flagged) — flagging a finished
+        dispatch would degrade the engine with nothing left to recover
+        it. Returns True when the stall was recorded."""
+        with self._lock:
+            if self._entries.get(token) is not entry:
+                return False  # completed between snapshot and flag
+            entry.flagged = True
+            self.stall_counts[entry.kind] = (
+                self.stall_counts.get(entry.kind, 0) + 1
+            )
+            if self.engine.state not in ("degraded", "wedged"):
+                self._pre_stall_state = self.engine.state
+            self.engine.transition(
+                "degraded",
+                f"{entry.kind} dispatch {entry.dispatch_id} stalled "
+                f"{elapsed:.1f}s (deadline {self.timeout_s:.1f}s)",
+            )
+        if self._stalls is not None:
+            self._stalls.inc(kind=entry.kind)
+        return True
+
+    def _flag_wedge(
+        self, token: int, entry: _Watch, elapsed: float, timeout: float
+    ) -> None:
+        with self._lock:
+            if self._entries.get(token) is not entry:
+                return  # completed: _unwatch already recovered the engine
+            entry.wedged = True
+            self.engine.transition(
+                "wedged",
+                f"{entry.kind} dispatch {entry.dispatch_id} stalled "
+                f"{elapsed:.1f}s (> {self.wedge_factor:.0f}x the "
+                f"{timeout:.1f}s deadline)",
+            )
+
+    def _log_stall(self, entry: _Watch, elapsed: float) -> None:
+        """The stuck thread's stack — outside the lock (formatting a
+        deep stack is not watchdog-critical-path work)."""
+        if self.logger is None:
+            return
+        self.logger.errorf(
+            "watchdog: %s dispatch %d stalled %.1fs on thread %s:\n%s",
+            entry.kind, entry.dispatch_id, elapsed, entry.thread_name,
+            self._stack_of(entry.thread_ident),
+        )
+
+    @staticmethod
+    def _stack_of(thread_ident: Optional[int]) -> str:
+        """The stuck thread's current stack — what turns 'it hangs' into
+        'it hangs inside THIS call'."""
+        frame = sys._current_frames().get(thread_ident or -1)
+        if frame is None:
+            return "<thread gone>"
+        return "".join(traceback.format_stack(frame))
+
+    def snapshot(self) -> dict[str, Any]:
+        with self._lock:
+            watching = [
+                {
+                    "kind": e.kind,
+                    "dispatch_id": e.dispatch_id,
+                    "elapsed_s": round(time.perf_counter() - e.started, 3),
+                    "stalled": e.flagged,
+                }
+                for e in self._entries.values()
+            ]
+            counts = dict(self.stall_counts)
+        return {
+            "enabled": self.enabled,
+            "timeout_s": self.timeout_s if self.enabled else None,
+            "wedge_factor": self.wedge_factor,
+            "stalls": counts,
+            "watching": watching,
+        }

@@ -549,14 +549,16 @@ class HostTokenArena:
 
 
 class PagedSequence:
-    """One live request's handle on the host engine: its table and the
-    prompt's length."""
+    """One live request's handle on the host engine: its table, the
+    prompt's length and the blocks it was admitted with copy-free (a prefix
+    shared with a cache entry)."""
 
-    __slots__ = ("table", "prompt_len")
+    __slots__ = ("table", "prompt_len", "aliased_blocks")
 
-    def __init__(self, table: BlockTable, prompt_len: int):
+    def __init__(self, table: BlockTable, prompt_len: int, aliased_blocks: int = 0):
         self.table = table
         self.prompt_len = prompt_len
+        self.aliased_blocks = aliased_blocks
 
 
 class HostPagedKV:
@@ -585,7 +587,7 @@ class HostPagedKV:
         table = None
         try:
             with self.pool.lock:  # scan + alias must be atomic vs eviction
-                table, kind = self._admit_table(ids)
+                table, aliased, kind = self._admit_table(ids)
                 # capacity for the whole generation now: an admitted
                 # request never dies to block starvation mid-decode, and
                 # trim() hands the unused tail back at finish
@@ -612,7 +614,7 @@ class HostPagedKV:
                 "hits" if kind == "hit"
                 else "partial_hits" if kind == "partial_hit" else "misses"
             ] += 1
-        return PagedSequence(table, ids.size)
+        return PagedSequence(table, ids.size, aliased)
 
     def _copy_boundary(self, table: BlockTable, cow: tuple) -> None:
         old, new = cow
@@ -622,15 +624,18 @@ class HostPagedKV:
 
     def _admit_table(self, ids: np.ndarray) -> tuple:
         """Build the admitted table (pool lock held): exact alias, LCP
-        partial alias + tail write, or full write."""
+        partial alias + tail write, or full write -> (table, blocks aliased
+        copy-free, hit | partial_hit | miss)."""
         entry = self.pool.cache_lookup(ids.tobytes())
         if entry is not None:
-            return self.pool.alias(entry.table, ids.size), "hit"
+            table = self.pool.alias(entry.table, ids.size)
+            return table, len(table.blocks), "hit"
         shared, donor = self._lcp_scan(ids)
         if donor is not None:
             # share whole blocks copy-free; the boundary and the tail are
             # this request's own writes
             table, shared_tokens = self.pool.alias_full_blocks(donor.table, shared)
+            n_aliased = len(table.blocks)
             try:
                 self.pool.ensure(table, ids.size)
             except KVExhausted:
@@ -638,11 +643,11 @@ class HostPagedKV:
                 raise
             self.pool.note_copied(self.arena.write(table, shared_tokens, ids[shared_tokens:]))
             table.length = ids.size
-            return table, "partial_hit"
+            return table, n_aliased, "partial_hit"
         table = self.pool.reserve(ids.size)
         self.pool.note_copied(self.arena.write(table, 0, ids))
         table.length = ids.size
-        return table, "miss"
+        return table, 0, "miss"
 
     def _lcp_scan(self, ids: np.ndarray) -> tuple:
         """Longest-common-prefix donor among cached sequences (pool lock

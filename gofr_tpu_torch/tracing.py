@@ -294,10 +294,3 @@ def init_tracer(config: Any, logger: Any = None, service_name: str = "gofr-app")
     set_global_tracer(tracer)
     return tracer
 
-
-def trace_exemplar() -> Optional[dict]:
-    """The metrics registry's exemplar provider (``METRICS_EXEMPLARS``,
-    on by default): the current span's trace id, or None outside any
-    request. A contextvar read: O(1), no lock."""
-    trace_id = current_trace_id()
-    return {"trace_id": trace_id} if trace_id else None

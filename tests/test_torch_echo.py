@@ -254,7 +254,9 @@ def _names(series):
 
 def _families(text, names):
     """{(sample name, labels): value} for the samples of ``names``; the
-    buckets and sums of duration histograms (``*_seconds``) masked."""
+    buckets and sums of duration histograms (``*_seconds``) and the cost
+    model's residual ratios (an observed duration over a prediction)
+    masked."""
     out = {}
     for line in text.splitlines():
         m = _SAMPLE.match(line)
@@ -265,6 +267,8 @@ def _families(text, names):
         if family not in names and sample not in names:
             continue
         if family.endswith("_seconds") and sample.endswith(("_bucket", "_sum")):
+            value = "masked"
+        if family == "gofr_tpu_dispatch_residual_ratio":
             value = "masked"
         out[(sample, labels)] = value
     return out
@@ -277,9 +281,18 @@ def _port_families(text):
         line.split()[2] for line in text.splitlines() if line.startswith("# TYPE")}
 
 
+ECHO_HTTP = {**BASE, "TOKENIZER": "byte", "LOG_LEVEL": "FATAL", "SPEC_POOLED": "on",
+             "SPEC_FAKE_ACCEPT": "2,0,1", "KV_BLOCK_TOKENS": "8"}
+
+
 def test_echo_over_http_matches_jax(env):
-    settings = {**BASE, "TOKENIZER": "byte", "LOG_LEVEL": "FATAL", "SPEC_POOLED": "on",
-                "SPEC_FAKE_ACCEPT": "2,0,1", "KV_BLOCK_TOKENS": "8"}
+    # the n = 2 request's candidates decode one after the other
+    # (OPENAI_FANOUT_WORKERS=1): with two at once, whether they share a
+    # prefill cohort depends on when the second thread reaches the batcher
+    # inside the 1 ms window, and the cohort moves the batch-size,
+    # prefill-chunk and scheduler families; the cohort of two is compared in
+    # test_echo_fanout_cohort_matches_jax
+    settings = {**ECHO_HTTP, "OPENAI_FANOUT_WORKERS": "1"}
     japp, tapp = _boot_apps(env, settings)
     try:
         bodies = [
@@ -314,6 +327,29 @@ def test_echo_over_http_matches_jax(env):
                        "gofr_tpu_kv_blocks", "gofr_tpu_spec_accept_ratio",
                        "gofr_http_requests_total", "gofr_tpu_prefill_padded_tokens_total"):
             assert any(sample == family for sample, _ in got), family
+    finally:
+        tapp.shutdown()
+        japp.shutdown()
+
+
+def test_echo_fanout_cohort_matches_jax(env):
+    """The n = 2 request's two candidates at once, in a cohort fixed by the
+    batch size: BATCH_MAX_SIZE=2 dispatches the moment the second arrives,
+    long before the 5 s window could close, so both packages dispatch one
+    prefill of two, whatever the threads' timing."""
+    settings = {**ECHO_HTTP, "BATCH_MAX_SIZE": "2", "BATCH_TIMEOUT_MS": "5000"}
+    japp, tapp = _boot_apps(env, settings)
+    try:
+        body = {"prompt": "hello echo, again", "max_tokens": 5, "n": 2}
+        want, got = _post(japp, "/v1/completions", body), _post(tapp, "/v1/completions", body)
+        assert got == want
+        port_text = _get(tapp, "/metrics")[1]
+        jax_text = _get(japp, "/metrics")[1]
+        names = _port_families(port_text)
+        got = _families(port_text, names)
+        assert got == _families(jax_text, names)
+        assert got[("gofr_tpu_batch_size_count", '{model="echo"}')] == "1"
+        assert got[("gofr_tpu_batch_size_sum", '{model="echo"}')] in ("2", "2.0")
     finally:
         tapp.shutdown()
         japp.shutdown()

@@ -199,6 +199,8 @@ def test_families_have_the_jax_kind_and_labels():
         "gofr_tpu_requests_total", "gofr_tpu_ttft_seconds", "gofr_tpu_device_memory_bytes",
         "gofr_tpu_tokens_total", "gofr_tpu_spec_acceptance", "gofr_tpu_prefix_hit_ratio",
         "gofr_tpu_prefix_partial_hit_ratio", "gofr_tpu_prefix_entries",
+        "gofr_tpu_mfu", "gofr_tpu_compile_seconds", "gofr_tpu_compiles_total",
+        "gofr_tpu_cache_events_total",
     }
     from gofr_tpu.tpu.device import TPUDevice as JaxDevice
 
