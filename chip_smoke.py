@@ -246,6 +246,37 @@ Phases, each fatal on failure (no phase is skipped or caught):
    ``/.well-known/ready`` answers 503 with the watchdog's evidence
    meanwhile, ``gofr_tpu_device_stalls_total`` counts 1 and
    ``/admin/anomalies`` shows the ``slow_dispatch``;
+18. overload and failure (run right after phase 17, on its model, ~90 s), in
+   phase 10's configuration with ``JOURNAL=on`` on a WAL (``JOURNAL_DIR``,
+   a temporary directory), ``RECOVERY_ENABLED=on``, ``SLO_TARGETS`` and
+   ``WATCHDOG_DISPATCH_TIMEOUT_S=1``; its forward launches (sm90 and the
+   decode variant only) counted from 0: (1) deadlines: a stream with 1.5 s
+   of budget and 256 tokens to go expires mid-decode (an error frame, stage
+   ``decode``; its ids a prefix of the same request's greedy ids; its ledger
+   reservation back), and while it decodes a 20 ms budget is refused at the
+   pool's admission (504, stage ``admission``) with no prefill launched;
+   (2) client aborts: 8 streams, 4 clients close after their first frames:
+   4 ``client_abort`` cancellations, the close-to-free time beside the chunk
+   cadence, the other 4 equal to their solo greedy ids; (4) a wedge: an
+   uninterrupted greedy stream of 64 tokens, then the same request twice at
+   once with the pool's fifth chunk slowed on the card past the wedge
+   (``torch.cuda._sleep`` 5 s in a wrapper this phase installs on the pool;
+   the streams stop at token 17):
+   serving -> degraded -> wedged -> recovering -> warming -> serving, a
+   postmortem bundle listed with torch, CUDA and the card in its versions,
+   the weights' storage unchanged, the MTTR and peak memory across the
+   rebuild; then ``X-Resume-From`` returns the rest (a teacher-forced
+   re-prefill on sm90), equal to the uninterrupted ids or parting at a near
+   tie; (6) ``/admin/slo/budget``, a token-rate series on
+   ``/admin/timeseries``, ``/admin/overview`` and ``/admin/costmodel``'s
+   ``anomalies_per_sec``; (5) a second app on the same weights and
+   ``JOURNAL_DIR`` rehydrates the other interrupted stream and resumes it,
+   equal to (4)'s resumed ids; (3) brownout (``BROWNOUT_QUEUE_DEPTH=1``,
+   ``BROWNOUT_KV_UTIL=0.5``): 8 long streams reserve the ledger past half,
+   then 16 requests at priorities 2 and 8: every priority 2 shed with 429
+   and ``Retry-After``, every priority 8 served, the level on the gauge and
+   ``/admin/engine``, back to 0 after; (7) TPOT at 8 streams with the
+   journal off, in memory and on disk, in turns on one app;
 15. the encoder and MLP families (run last, after phase 9): ``new()`` with
    MODEL_NAME=bert-base (bf16, full width and depth, MODEL_SEED=0, the byte
    tokenizer): its weight bytes on the card equal to ``bert_param_count``
@@ -632,11 +663,13 @@ def correlated(resp, what: str) -> None:
           f"{what}: response without an X-Correlation-ID ({cid!r})")
 
 
-def post(port: int, body: dict, stream: bool = False, path: str = "/v1/completions"):
+def post(port: int, body: dict, stream: bool = False, path: str = "/v1/completions",
+         headers: dict = None):
     """-> (status, response json or SSE frames, seconds to first frame, [frame times])."""
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
     t0 = time.perf_counter()
-    conn.request("POST", path, json.dumps(body), {"Content-Type": "application/json"})
+    conn.request("POST", path, json.dumps(body),
+                 {"Content-Type": "application/json", **(headers or {})})
     resp = conn.getresponse()
     correlated(resp, f"POST {path}")
     if path == "/v1/completions":
@@ -653,9 +686,12 @@ def post(port: int, body: dict, stream: bool = False, path: str = "/v1/completio
         buf += chunk
         while b"\n\n" in buf:
             frame, buf = buf.split(b"\n\n", 1)
-            if frame.startswith(b"data: "):
-                frames.append(frame[6:].decode())
-                times.append(time.perf_counter() - t0)
+            # a frame is its data line, after the SSE id: line a single
+            # stream numbers it with
+            for line in frame.split(b"\n"):
+                if line.startswith(b"data: "):
+                    frames.append(line[6:].decode())
+                    times.append(time.perf_counter() - t0)
     conn.close()
     return resp.status, frames, times[0] if times else None, times
 
@@ -3555,6 +3591,606 @@ def stalled_prefill(torch, model) -> dict:
         app.shutdown()
 
 
+# -- phase 18: overload and failure ------------------------------------------------------
+
+# phase 18's settings on top of phase 10's: the journal on a WAL, recovery,
+# SLO objectives, a timebase a second, and a watchdog whose wedge (3 x 1 s)
+# a healthy chunk or prefill never reaches; a rebuild may take two minutes
+OVERLOAD_ENV = {
+    "JOURNAL": "on", "RECOVERY_ENABLED": "on", "RECOVERY_ATTEMPT_TIMEOUT_S": "120",
+    "SLO_TARGETS": "availability=0.99;ttft_p95_ms=2000;tpot_p99_ms=1000;shed_rate=0.5",
+    "TIMEBASE_INTERVAL_S": "1", "WATCHDOG_DISPATCH_TIMEOUT_S": "1.0",
+}
+WEDGE_SLEEP_S = 5.0  # the slowed chunk: past the 3 s wedge, under the attempt timeout
+RESUME_TOKENS = 64
+
+
+def cycles_per_second(torch) -> float:
+    """The card's ``torch.cuda._sleep`` cycles a second, measured."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(100_000_000)
+    end.record()
+    end.synchronize()
+    return 100_000_000 / (start.elapsed_time(end) / 1e3)
+
+
+def id_recorder(dev) -> list:
+    """Every ``generate`` call on ``dev`` (the handlers', the stream
+    producers', the resume's): its prompt ids, journal arguments and the ids
+    it emitted, in order, kept even when it fails (a wrapper this phase
+    installs on the instance)."""
+    calls: list = []
+    inner = dev.generate
+
+    def generate(tokens, max_new_tokens=32, on_token=None, **kw):
+        rec = {"tokens": list(dev._encode(tokens)), "ids": [], "max": max_new_tokens,
+               "journal_key": kw.get("journal_key"), "error": None}
+        calls.append(rec)
+
+        def emit(item):
+            rec["ids"].append(item[0] if isinstance(item, tuple) else item)
+            if on_token is not None:
+                on_token(item)
+
+        try:
+            return inner(tokens, max_new_tokens, on_token=emit, **kw)
+        except Exception as exc:
+            rec["error"] = repr(exc)
+            raise
+
+    dev.generate = generate
+    return calls
+
+
+def token_frames(frames: list) -> tuple:
+    """A completions stream's frames -> (token frames before any error, the
+    error message or None, whether it ended with [DONE])."""
+    n, error = 0, None
+    for frame in frames:
+        if frame == "[DONE]":
+            continue
+        data = json.loads(frame)
+        if "error" in data:
+            error = data["error"]["message"]
+            break
+        if data["choices"] and data["choices"][0]["finish_reason"] is None:
+            n += 1
+    return n, error, bool(frames) and frames[-1] == "[DONE]"
+
+
+def counter_values(port: int, name: str) -> dict:
+    """A labelled counter's samples off /metrics: {labels: value}."""
+    return {k[len(name):]: v for k, v in scrape(port).items()
+            if k == name or k.startswith(name + "{")}
+
+
+def wait_free(dev, free, label: str) -> float:
+    """Seconds until no pool row is active and the block pool's ledger holds
+    no reservation (and, with ``free``, its free count is back to it)."""
+    t0 = time.perf_counter()
+    for _ in range(2000):
+        stats = dev.kv_pool.stats()
+        if (dev.decode_pool.occupancy()["active"] == 0 and stats["reserved"] == 0
+                and (free is None or stats["free"] == free)):
+            return time.perf_counter() - t0
+        time.sleep(0.005)
+    check(False, f"{label}: blocks not back ({dev.kv_pool.stats()}, {free} free before)")
+
+
+def overload(torch, flash, card: str, model) -> dict:
+    """Phase 18 (after phase 17, on phase 5's model): deadlines, client
+    aborts, brownout, a wedge with its recovery and resume, a restart from
+    the WAL, the SLO engine and timebase, and the journal's cost, in phase
+    10's configuration with the journal on a WAL, recovery and SLO targets."""
+    import gofr_tpu_torch
+
+    t0 = time.perf_counter()
+    out: dict = {"card": card}
+    journal_dir = tempfile.mkdtemp(prefix="gofr_journal_")
+    pm_dir = tempfile.mkdtemp(prefix="gofr_postmortem_")
+    cps = cycles_per_second(torch)
+    try:
+        env = {**PHASE10_ENV, **OVERLOAD_ENV, "HTTP_PORT": str(free_port()),
+               "JOURNAL_DIR": journal_dir}
+        with environment(env):
+            app = gofr_tpu_torch.new(model=model)
+        gofr_tpu_torch.register_openai_routes(app)
+        # a directory of this phase's own (POSTMORTEM_DIR would also arm the
+        # process-wide crash hooks for every later phase)
+        app.container.postmortem.directory = pm_dir
+        app.start()
+        for c in (flash.launches, flash.launches_fwd_sm90, flash.launches_fwd_decode):
+            c.reset()  # every count to 0 just before the path runs
+        try:
+            dev = app.container.tpu
+            calls = id_recorder(dev)
+            out["deadlines"] = overload_deadlines(flash, app, calls)
+            out["aborts"] = overload_aborts(app, calls)
+            out["wedge"], wedged = overload_wedge(torch, flash, app, calls, cps, model)
+            out["slo"] = overload_slo(app)
+        finally:
+            app.shutdown()
+        env.update({"BROWNOUT_QUEUE_DEPTH": "1", "BROWNOUT_KV_UTIL": "0.5"})
+        with environment(env):
+            app = gofr_tpu_torch.new(model=model)
+        gofr_tpu_torch.register_openai_routes(app)
+        app.container.postmortem.directory = pm_dir
+        app.start()
+        try:
+            calls = id_recorder(app.container.tpu)
+            out["restart"] = overload_restart(app, calls, wedged)
+            out["brownout"] = overload_brownout(app)
+            out["journal_cost"] = overload_journal_cost(app)
+        finally:
+            app.shutdown()
+    finally:
+        shutil.rmtree(journal_dir, ignore_errors=True)
+        shutil.rmtree(pm_dir, ignore_errors=True)
+    checked = out["wedge"]["check_launches"]
+    launches = {"all": flash.launches.value - checked["all"],
+                "sm90": flash.launches_fwd_sm90.value - checked["sm90"],
+                "decode": flash.launches_fwd_decode.value - checked["decode"]}
+    check(launches["sm90"] > 0 and launches["decode"] > 0,
+          f"overload: a forward route never ran {launches}")
+    check(launches["all"] == launches["sm90"] + launches["decode"],
+          f"overload: a forward took another route than sm90 or decode {launches}")
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"overload-metrics [{card}]: {json.dumps(out)}", flush=True)
+    check(out["phase_s"] < 180, f"overload: phase 18 took {out['phase_s']:.1f}s")
+    return out
+
+
+def overload_deadlines(flash, app, calls: list) -> dict:
+    """(1) A 1.5 s budget with max_tokens 256 expires mid-decode (a 504
+    error frame after the tokens it got, a prefix of the same request's
+    greedy ids; its blocks come back); meanwhile, rows decoding, a budget
+    under one chunk is refused at admission with no prefill."""
+    port, dev = app.http_port, app.container.tpu
+    prompt = text(181, 200)
+    ref_n = 48  # the greedy ids the cut one must prefix: more than 1.5 s decodes
+    status, _, _, _ = post(port, {"prompt": prompt, "max_tokens": ref_n, "temperature": 0})
+    check(status == 200, f"deadline: the reference {status}")
+    reference = calls[-1]["ids"]
+    pool_idle(dev.decode_pool, "deadline")
+    free = dev.kv_pool.stats()["free"]  # the prompt's prefix-cache entries are in it
+    result: list = []
+    first_frames = threading.Event()
+
+    def cut_stream():
+        result.append(post(port, {"prompt": prompt, "max_tokens": 256, "temperature": 0,
+                                  "stream": True}, stream=True,
+                           headers={"X-Request-Deadline-Ms": "1500"}))
+
+    worker = threading.Thread(target=cut_stream)
+    start = len(calls)
+    worker.start()
+    for _ in range(1000):  # the first pooled chunk delivered: a cadence measured
+        if len(calls) > start and len(calls[start]["ids"]) > 9:
+            first_frames.set()
+            break
+        time.sleep(0.005)
+    check(first_frames.is_set(), "deadline: the cut stream never decoded a chunk")
+    cadence = dev.decode_pool.occupancy()["chunk_cadence_s"]
+    sm90 = flash.launches_fwd_sm90.value
+    t_refuse = time.perf_counter()
+    status, body, _, _ = post(port, {"prompt": text(183, 120), "max_tokens": 16},
+                              headers={"X-Request-Deadline-Ms": "20"})
+    refuse_ms = (time.perf_counter() - t_refuse) * 1e3
+    check(status == 504, f"deadline: a 20 ms budget got {status} {body}")
+    check(flash.launches_fwd_sm90.value == sm90,
+          "deadline: the refused request ran a prefill")
+    worker.join(timeout=60)
+    status, frames, _, _ = result[0]
+    got, error, done = token_frames(frames)
+    cut = calls[start]["ids"]
+    check(status == 200 and error and "deadline" in error and not done,
+          f"deadline: the 1.5 s stream ended {status} {error} done={done}")
+    check(got == len(cut) and 0 < len(cut) < ref_n and cut == reference[:len(cut)],
+          f"deadline: the cut stream's {len(cut)} ids are not a prefix of the greedy ids")
+    back_s = wait_free(dev, free, "deadline")
+    stages = counter_values(port, "gofr_tpu_deadline_exceeded_total")
+    rejects = counter_values(port, "gofr_tpu_pool_reject_total")
+    check(stages == {'{stage="admission"}': 1.0, '{stage="decode"}': 1.0},
+          f"deadline: stages {stages}")
+    check(rejects.get('{reason="deadline"}') == 1.0, f"deadline: pool rejects {rejects}")
+    records = admin(port, "/admin/requests?limit=3")["requests"]
+    sheds = sorted((r["shed_stage"], r["deadline_s"], r["status"]) for r in records
+                   if r["shed_stage"])
+    check(sheds == [("admission", 0.02, "deadline_exceeded"),
+                    ("decode", 1.5, "deadline_exceeded")], f"deadline: records {sheds}")
+    out = {"cut_tokens": len(cut), "cadence_ms": cadence * 1e3, "refuse_ms": refuse_ms,
+           "blocks_back_ms": back_s * 1e3, "stages": stages}
+    print(f"overload deadlines: {json.dumps(out)}", flush=True)
+    return out
+
+
+def overload_aborts(app, calls: list) -> dict:
+    """(2) 8 streams; 4 clients close after their first tokens: 4 client
+    aborts counted, their rows and blocks freed (the close-to-free time
+    against the chunk cadence), the other 4 equal to their solo greedy
+    ids."""
+    port, dev = app.http_port, app.container.tpu
+    pool = dev.decode_pool
+    prompts = [text(190 + i, 160 + 9 * i) for i in range(8)]
+    body = {"max_tokens": 40, "temperature": 0}
+    solo = []
+    for i in range(4):  # the survivors' ids alone, each a fresh prefill
+        post(port, {**body, "prompt": prompts[i]})
+        solo.append(calls[-1]["ids"])
+    # emptied, so that every prompt prefills as it did alone (a cached
+    # prompt's hit, or an LRU-dropped one's partial hit, computes another way)
+    dev.kv_pool.cache_clear()
+    pool_idle(pool, "aborts")
+    aborts0 = counter_values(port, "gofr_tpu_cancellations_total").get(
+        '{cause="client_abort"}', 0.0)
+    results: list = [None] * 4
+    start = len(calls)
+
+    def survivor(i):
+        results[i] = post(port, {**body, "prompt": prompts[i], "stream": True}, stream=True)
+
+    threads = [threading.Thread(target=survivor, args=(i,)) for i in range(4)]
+    closers: list = [None] * 4
+
+    def closer(i):
+        closers[i] = stream_then_close(port, {**body, "prompt": prompts[4 + i]}, 3)
+
+    threads += [threading.Thread(target=closer, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads[4:]:
+        t.join(timeout=120)
+    t_close = time.perf_counter()
+    close_to_free = None
+    for _ in range(4000):
+        if pool.occupancy()["active"] <= 4 or all(r is not None for r in results):
+            close_to_free = time.perf_counter() - t_close
+            break
+        time.sleep(0.002)
+    cadence = pool.occupancy()["chunk_cadence_s"]
+    for t in threads[:4]:
+        t.join(timeout=120)
+    wait_free(dev, None, "aborts")  # the survivors' conversations entered the cache
+    aborts = counter_values(port, "gofr_tpu_cancellations_total").get(
+        '{cause="client_abort"}', 0.0) - aborts0
+    check(aborts == 4, f"aborts: {aborts} client aborts counted")
+    got = {}
+    for rec in calls[start:]:
+        for i in range(4):
+            if rec["tokens"] == list(dev._encode(prompts[i])):
+                got[i] = rec["ids"]
+    for i in range(4):
+        status, frames, _, _ = results[i]
+        n, error, done = token_frames(frames)
+        check(status == 200 and done and error is None and n == 40,
+              f"aborts: survivor {i} {status} {n} {error}")
+    check([got[i] for i in range(4)] == solo, "aborts: a survivor's ids are not its solo ids")
+    out = {"client_aborts": aborts, "closed_after_frames": closers,
+           "close_to_free_ms": None if close_to_free is None else close_to_free * 1e3,
+           "cadence_ms": cadence * 1e3}
+    print(f"overload aborts: {json.dumps(out)}", flush=True)
+    return out
+
+
+def overload_wedge(torch, flash, app, calls: list, cps: float, model) -> tuple:
+    """(4) The ids of an uninterrupted greedy stream of 64 tokens; then,
+    beside a long stream keeping the pool busy, the same request twice at
+    once (prefix-cache hits, so both rows join the same chunk), and the
+    pool's fifth chunk with both rows slowed on the card past the wedge
+    (``torch.cuda._sleep`` in a wrapper this phase installs on the pool;
+    behind it the chunk's launches fill the CUDA queue and block the
+    worker: the streams stop at token 17): serving -> degraded -> wedged -> recovering ->
+    warming -> serving, a postmortem bundle, the weights in place, the MTTR
+    and peak memory; then ``X-Resume-From`` for one stream returns the rest
+    under the resume rule. -> (numbers, the other stream's resume point and
+    the ids to hold it to)."""
+    port, dev = app.http_port, app.container.tpu
+    prompt = text(211, 40)
+    body = {"prompt": prompt, "max_tokens": RESUME_TOKENS, "temperature": 0, "stream": True}
+    status, frames, _, _ = post(port, body, stream=True)
+    check(status == 200 and token_frames(frames)[0] == RESUME_TOKENS,
+          f"wedge: the uninterrupted stream {status}")
+    reference = calls[-1]["ids"]
+    prompt_ids = list(dev._encode(prompt))
+    ptrs = [p.data_ptr() for p in model.parameters()]
+    pool = dev.decode_pool
+    pool_idle(pool, "wedge")
+    run = pool._run_executable
+    dispatches = {"n": 0}
+
+    def slowed():
+        if len(pool._active) >= 3:  # the busy row and both streams
+            dispatches["n"] += 1
+            # the fifth chunk of both streams: the worker dispatches 3 ahead
+            # and fetches the oldest between dispatches, so the streams hold
+            # 1 + 2 x 8 = 17 tokens when this dispatch's launches block
+            if dispatches["n"] == 5:
+                vars(pool).pop("_run_executable")
+                torch.cuda._sleep(int(cps * WEDGE_SLEEP_S))
+        return run()
+
+    busy: list = []
+    busy_thread = threading.Thread(target=lambda: busy.append(post(
+        port, {"prompt": text(212, 150), "max_tokens": 400, "temperature": 0, "stream": True},
+        stream=True)))
+    busy_thread.start()
+    for _ in range(2000):  # the busy row decoding: the worker issues chunk after chunk
+        if pool.occupancy()["active"] == 1 and pool.dispatches > 2:
+            break
+        time.sleep(0.005)
+    pool._run_executable = slowed
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    before = len(dev.engine.snapshot()["history"])
+    results: list = [None, None]
+    start = len(calls)
+
+    def stream(i):
+        results[i] = post(port, body, stream=True)
+
+    threads = [threading.Thread(target=stream, args=(i,)) for i in range(2)]
+    t_wedge = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    busy_thread.join(timeout=300)
+    for _ in range(6000):
+        if dev.engine.state == "serving" and dev.recovery.snapshot()["last_outcome"]:
+            break
+        time.sleep(0.02)
+    walk = [h["state"] for h in dev.engine.snapshot()["history"][before:]]
+    recovery = dev.recovery.snapshot()
+    peak = torch.cuda.max_memory_allocated()
+    check(walk == ["degraded", "wedged", "recovering", "warming", "serving"],
+          f"wedge: the engine walked {walk}")
+    check(recovery["recoveries"] == {"recovered": 1}, f"wedge: recovery {recovery}")
+    check(dev.runner.model is model and [p.data_ptr() for p in model.parameters()] == ptrs,
+          "wedge: the rebuild did not keep the weights")
+    got = [token_frames(results[i][1]) for i in range(2)]
+    check(all(r[0] == 200 for r in results) and all(g[1] and not g[2] for g in got),
+          f"wedge: the streams ended {[(r[0], g) for r, g in zip(results, got)]}")
+    wedged = [rec for rec in calls[start:] if rec["error"] and rec["tokens"] == prompt_ids]
+    check(len(wedged) == 2 and all(rec["ids"] == reference[:len(rec["ids"])]
+                                   for rec in wedged),
+          "wedge: the interrupted streams' ids are not a prefix of the reference")
+    k = got[0][0]
+    check(k == len(wedged[0]["ids"]) == got[1][0] == len(wedged[1]["ids"]),
+          f"wedge: tokens received {got}, journalled {[len(r['ids']) for r in wedged]}")
+    bundles = admin(port, "/admin/postmortem")["bundles"]
+    check(bundles, "wedge: no postmortem bundle")
+    with open(os.path.join(app.container.postmortem.directory, bundles[0]["file"])) as f:
+        bundle = json.load(f)
+    versions = bundle["versions"]
+    check(versions["torch"] and versions["cuda"] and versions["card"],
+          f"wedge: the bundle's versions {versions}")
+    # the resume: the client received k ids of each stream
+    sm90 = flash.launches_fwd_sm90.value
+    start = len(calls)
+    status, frames, _, _ = post(port, body, stream=True, headers={"X-Resume-From": str(k)})
+    n, error, done = token_frames(frames)
+    check(status == 200 and done and error is None and n == RESUME_TOKENS - k,
+          f"wedge: the resumed stream {status} {n} {error}")
+    continuation = calls[start]["ids"]
+    check(calls[start]["tokens"] == prompt_ids + wedged[0]["ids"],
+          "wedge: the resume did not re-prefill prompt + the journalled ids")
+    resumed = wedged[0]["ids"][k:] + continuation
+    check(len(resumed) == RESUME_TOKENS - k, "wedge: the resumed ids' count")
+    resume_sm90 = flash.launches_fwd_sm90.value - sm90
+    check(resume_sm90 > 0, "wedge: the teacher-forced re-prefill launched no sm90 kernel")
+    # the near-tie check's own forward (a teacher-forced prefill and decode
+    # steps) is no served work: its launches leave the phase's count
+    check0 = {"all": flash.launches.value, "sm90": flash.launches_fwd_sm90.value,
+              "decode": flash.launches_fwd_decode.value}
+    rule = first_divergence(dev.runner, prompt_ids, reference, wedged[0]["ids"][:k] + resumed,
+                            "wedge resume")
+    checked = {"all": flash.launches.value - check0["all"],
+               "sm90": flash.launches_fwd_sm90.value - check0["sm90"],
+               "decode": flash.launches_fwd_decode.value - check0["decode"]}
+    modes = counter_values(port, "gofr_tpu_journal_resumes_total")
+    check(modes == {'{mode="teacher_forced"}': 1.0}, f"wedge: resume modes {modes}")
+    out = {"tokens_received": k, "walk": walk, "mttr_s": recovery["last_mttr_s"],
+           "peak_gib": peak / 2**30, "before_gib": mem0 / 2**30,
+           "bundle": bundles[0]["file"],
+           "versions": {key: versions[key] for key in
+                        ("torch", "cuda", "driver", "card", "power_limit")},
+           "resume": rule, "resume_sm90": resume_sm90, "resumes": modes,
+           "wedge_to_serving_s": time.perf_counter() - t_wedge,
+           "busy_stream": token_frames(busy[0][1])[:2] if busy else None,
+           "check_launches": checked}
+    print(f"overload wedge: {json.dumps(out)}", flush=True)
+    return out, {"k": k, "body": body, "reference": reference, "prompt_ids": prompt_ids,
+                 "interrupted": wedged[1]["ids"], "resumed": resumed}
+
+
+def overload_slo(app) -> dict:
+    """(6) The SLO engine's per-objective burn over this phase's records,
+    a token-rate series from the timebase, the overview, and the cost
+    model's anomaly trend."""
+    port = app.http_port
+    app.container.timebase.sample_now()
+    budget = admin(port, "/admin/slo/budget")
+    rows = {r["objective"]: {w: (s["bad"], s["total"], s["burn"]) for w, s in
+                             r["windows"].items() if w in ("5m", "1h")}
+            for r in budget["objectives"]}
+    check({"availability", "ttft_p95_ms", "tpot_p99_ms", "shed_rate"} == set(rows),
+          f"slo: objectives {sorted(rows)}")
+    check(rows["availability"]["5m"][1] > 0, "slo: no record in the 5 m window")
+    series = admin(port, "/admin/timeseries?metric=gofr_tpu_tokens_total")["series"]
+    rates = [v for s in series for _, v in s["rate"]]
+    check(rates and max(rates) > 0, "slo: the token-rate series is empty")
+    overview = admin(port, "/admin/overview")
+    check(overview["engine"]["state"] == "serving", f"slo: overview {overview['engine']}")
+    cost = admin(port, "/admin/costmodel")
+    check("anomalies_per_sec" in cost, "slo: /admin/costmodel without anomalies_per_sec")
+    out = {"objectives": rows, "alerting": budget["objectives"] and
+           [r["objective"] for r in budget["objectives"] if any(r["alerting"].values())],
+           "alerts_total": budget["alerts_total"], "token_rate_points": len(rates),
+           "token_rate_max": max(rates), "anomalies_per_sec": cost["anomalies_per_sec"]["now"]}
+    print(f"overload slo: {json.dumps(out)}", flush=True)
+    return out
+
+
+def overload_restart(app, calls: list, wedged: dict) -> dict:
+    """(5) A new app over the same weights and JOURNAL_DIR rehydrates the
+    other interrupted stream and serves its X-Resume-From, equal to (4)'s
+    resumed ids."""
+    port, dev = app.http_port, app.container.tpu
+    stats = dev.journal.stats()
+    check(stats["rehydrated"] >= 1 and stats["wal"]["recovered_entries"] >= 1,
+          f"restart: nothing rehydrated {stats}")
+    k = wedged["k"]
+    start = len(calls)
+    status, frames, _, _ = post(port, wedged["body"], stream=True,
+                                headers={"X-Resume-From": str(k)})
+    n, error, done = token_frames(frames)
+    check(status == 200 and done and error is None and n == RESUME_TOKENS - k,
+          f"restart: the resumed stream {status} {n} {error}")
+    resumed = wedged["interrupted"][k:] + calls[start]["ids"]
+    modes = counter_values(port, "gofr_tpu_journal_resumes_total")
+    check(modes.get('{mode="teacher_forced"}') == 1.0, f"restart: resume modes {modes}")
+    check(resumed == wedged["resumed"], "restart: the resumed ids differ from (4)'s")
+    out = {"rehydrated": stats["rehydrated"], "wal": stats["wal"], "equal_to_4": True,
+           "resumed_tokens": n}
+    print(f"overload restart: {json.dumps(out)}", flush=True)
+    return out
+
+
+def post_raw(port: int, body: dict, headers: dict) -> tuple:
+    """POST -> (status, Retry-After, json body)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request("POST", "/v1/completions", json.dumps(body),
+                 {"Content-Type": "application/json", **headers})
+    resp = conn.getresponse()
+    data = json.loads(resp.read())
+    conn.close()
+    return resp.status, resp.getheader("Retry-After"), data
+
+
+def hold_stream(port: int, body: dict, opened: threading.Event,
+                release: threading.Event) -> None:
+    """A stream read until ``release``, then dropped (a client leaving)."""
+    data = json.dumps({**body, "stream": True}).encode()
+    sock = socket.create_connection(("127.0.0.1", port), timeout=600)
+    sock.sendall(b"POST /v1/completions HTTP/1.1\r\nHost: 127.0.0.1\r\n"
+                 b"Content-Type: application/json\r\nX-Priority: 9\r\nContent-Length: "
+                 + str(len(data)).encode() + b"\r\n\r\n" + data)
+    sock.settimeout(0.05)
+    while not release.is_set():
+        try:
+            if sock.recv(65536):
+                opened.set()
+        except socket.timeout:
+            pass
+    sock.close()
+
+
+def overload_brownout(app) -> dict:
+    """(3) BROWNOUT_QUEUE_DEPTH=1 and BROWNOUT_KV_UTIL=0.5: 8 long streams
+    (priority 9) reserve the paged-KV ledger past half, the level rises;
+    then 16 concurrent requests at priorities 2 and 8: priority 2 is shed
+    with 429 and Retry-After, priority 8 is served; the gauge and
+    /admin/engine show the level, and it falls back to 0 once the streams
+    leave and the burst drains. The queue-depth signal is read beside."""
+    port, dev = app.http_port, app.container.tpu
+    release = threading.Event()
+    opened = [threading.Event() for _ in range(8)]
+    holders = [threading.Thread(target=hold_stream, args=(
+        port, {"prompt": text(280 + i, 100), "max_tokens": 1900, "temperature": 0},
+        opened[i], release)) for i in range(8)]
+    for t in holders:
+        t.start()
+    levels, depths = [], []
+    try:
+        for e in opened:
+            check(e.wait(120), "brownout: a long stream never started")
+        for _ in range(250):
+            snap = admin(port, "/admin/engine")["brownout"]
+            levels.append(snap["level"])
+            if snap["level"] >= 1:
+                break
+            time.sleep(0.02)
+        check(levels[-1] >= 1, f"brownout: the level never rose {snap}")
+        gauge_peak = sample_sum(scrape(port), "gofr_tpu_brownout_level")
+        peak_signals = snap["signals"]
+        results: list = [None] * 16
+
+        def send(i):
+            priority = "2" if i % 2 else "8"
+            results[i] = (priority, *post_raw(port, {"prompt": text(300 + i, 60),
+                                                     "max_tokens": 4, "temperature": 0},
+                                              {"X-Priority": priority}))
+
+        senders = [threading.Thread(target=send, args=(i,)) for i in range(16)]
+        for t in senders:
+            t.start()
+        for t in senders:
+            t.join(timeout=300)
+        depths.append(admin(port, "/admin/engine")["brownout"]["signals"].get("queue_depth"))
+    finally:
+        release.set()
+        for t in holders:
+            t.join(timeout=60)
+    shed = [r for r in results if r[1] == 429]
+    check(len(shed) == 8 and all(r[0] == "2" and r[2] == "1"
+                                 and "brownout" in r[3]["error"]["message"] for r in shed),
+          f"brownout: the sheds {[(r[0], r[1], r[2]) for r in results]}")
+    check(all(r[1] == 200 for r in results if r[0] == "8"),
+          f"brownout: a priority-8 request was refused {results}")
+    for _ in range(1000):
+        snap = admin(port, "/admin/engine")["brownout"]
+        if snap["level"] == 0:
+            break
+        time.sleep(0.02)
+    gauge = sample_sum(scrape(port), "gofr_tpu_brownout_level")
+    check(snap["level"] == 0 and gauge == 0, f"brownout: the level stayed {snap} {gauge}")
+    out = {"peak_level": max(levels), "gauge_at_peak": gauge_peak, "signals_at_peak": peak_signals,
+           "queue_depth_after_burst": depths, "shed": len(shed), "sheds": snap["sheds"],
+           "level_after": snap["level"], "gauge_after": gauge}
+    print(f"overload brownout: {json.dumps(out)}", flush=True)
+    return out
+
+
+def overload_journal_cost(app) -> dict:
+    """(7) TPOT of 8 concurrent streams with the journal off, in memory, and
+    on disk (the WAL, JOURNAL_FSYNC=interrupt), each twice, in turns on one
+    app (the journal object swapped between runs)."""
+    from gofr_tpu_torch.telemetry import GenerationJournal
+
+    port, dev = app.http_port, app.container.tpu
+    disk = dev.journal
+    memory = GenerationJournal(capacity=disk.capacity, max_tokens=disk.max_tokens)
+    modes = {"off": None, "memory": memory, "disk": disk}
+    prompts = [text(260 + i, 300 + 25 * i) for i in range(8)]
+    body = {"max_tokens": 24, "temperature": 0, "stream": True}
+    tpots: dict = {m: [] for m in modes}
+    try:
+        for mode in ("off", "memory", "disk", "disk", "memory", "off"):
+            dev.journal = modes[mode]
+            starts, results = [None] * 8, [None] * 8
+
+            def run(i):
+                starts[i] = time.perf_counter()
+                results[i] = post(port, {**body, "prompt": prompts[i]}, stream=True,
+                                  headers={"X-Priority": "9"})
+
+            threads = [threading.Thread(target=run, args=(i,)) for i in range(8)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            _, tpot, _ = stream_rate(starts, results)
+            tpots[mode].append(tpot)
+            pool_idle(dev.decode_pool, "journal cost")
+    finally:
+        dev.journal = disk
+    out = {m: {"tpot_ms": v, "mean_ms": sum(v) / len(v)} for m, v in tpots.items()}
+    print(f"overload journal cost (TPOT at 8 streams): {json.dumps(out)}", flush=True)
+    return out
+
+
 # -- phase 15: the encoder and MLP families ------------------------------------------
 
 ENCODER_ENV = {"TOKENIZER": "byte", "BATCH_MAX_SIZE": "8", "BATCH_TIMEOUT_MS": "5",
@@ -4181,7 +4817,7 @@ def backward_phases(torch, flash, gen):
 
 
 def kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows, default,
-                 pool_row, openai, deploy, spec, loras) -> dict:
+                 pool_row, openai, deploy, spec, loras, overload_run) -> dict:
     """The kernels of the main path (serving, training) with their counts
     from its runs and the numbers phases 3, 7 and 10 measured. The mma
     forward is on the tiny f32 model's path (phases 4 and 8) alone; its
@@ -4207,7 +4843,11 @@ def kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows,
     (kv_len 616). Phase 14's (LoRA) launches join the rows of the kernels
     they ran on, each also under ``lora_launches``: the adapter training's
     forward, dQ and dK/dV calls (LoRA and QLoRA, all sm90) and its served
-    requests' prefill (sm90) and pooled decode (the decode variant)."""
+    requests' prefill (sm90) and pooled decode (the decode variant). Phase
+    18's (overload and failure) launches join the sm90 row (its prefills and
+    the resume's re-prefill) and the pool row (its pooled decode), each also
+    under ``overload_launches``."""
+    over = overload_run["launches"]
     fwd = {"route": "cuda", "source": "gofr_tpu_torch/csrc/flash_fwd.cu",
            "replaces": "gofr_tpu/ops/flash.py:224"}
     bwd = {"route": "cuda", "source": "gofr_tpu_torch/csrc/flash_bwd.cu"}
@@ -4221,8 +4861,10 @@ def kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows,
     score = shapes["scoring_512"]
     return {"kernels": [
         {"name": "flash_fwd_sm90", **fwd,
-         "launches": served["sm90"] + sm90_train + lora_train["fwd_sm90"] + lora_served["sm90"],
+         "launches": served["sm90"] + sm90_train + lora_train["fwd_sm90"] + lora_served["sm90"]
+         + over["sm90"],
          "serve_launches": served["sm90"], "training_launches": sm90_train,
+         "overload_launches": over["sm90"],
          "lora_launches": {"train": lora_train["fwd_sm90"], "served": lora_served["sm90"]},
          "max_abs_err": max(errs["sm90"]), **shapes["training_forward"],
          "by_shape": {k: v for k, v in shapes.items() if v["variant"] == "sm90"}},
@@ -4230,7 +4872,8 @@ def kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows,
          "lora_launches": {"served": lora_served["decode"]},
          "max_abs_err": max(errs["decode"]), **decode_row,
          "by_shape": {k: v for k, v in shapes.items() if v["variant"] == "decode"}},
-        {"name": "flash_fwd_decode (pool, 8 slots)", **fwd, "launches": default["decode"],
+        {"name": "flash_fwd_decode (pool, 8 slots)", **fwd,
+         "launches": default["decode"] + over["decode"], "overload_launches": over["decode"],
          "launches_per_chunk": default["per_chunk"], "max_abs_err": pool_row["max_abs_err"],
          **pool_row, "ms": pool_row["device_ms"], "event_ms": pool_row["ms"],
          "library_ms": pool_row["library_device_ms"], "library_event_ms": pool_row["library_ms"]},
@@ -4566,6 +5209,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     observability(torch, flash, card, model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    overload_run = overload(torch, flash, card, model)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -4581,7 +5227,7 @@ def main(argv=None) -> int:
     encoders = encoder_serving(torch, flash, card)
 
     kernels = kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows,
-                           default, pool_row, openai, deploy, spec, loras)
+                           default, pool_row, openai, deploy, spec, loras, overload_run)
     kernels["kernels"].insert(-2, encoder_entry(encoder_err, encoder_rows, encoders))
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)  # name, power limit as nvidia-smi gives them

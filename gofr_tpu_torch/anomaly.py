@@ -3,9 +3,8 @@
 Copy of ``gofr_tpu/anomaly.py``: ``ANOMALY_CAUSES`` and ``AnomalyRing``,
 the store behind ``GET /admin/anomalies``. The dispatch cost model
 (``tpu/costmodel.py``) records its ``slow_dispatch`` and ``ema_drift``
-verdicts here; the SLO engine's burn causes stay in the vocabulary so the
-two packages cannot drift, though the port has no SLO engine yet (ROADMAP
-§A4).
+verdicts here, and the SLO engine (``slo.py``) its burn alerts: one anomaly
+surface. Every postmortem bundle carries the ring.
 """
 
 from __future__ import annotations
@@ -68,6 +67,10 @@ class AnomalyRing:
             if len(out) >= limit:
                 break
         return out
+
+    @property
+    def capacity(self) -> int:
+        return self._ring.maxlen or 0
 
     def stats(self) -> dict[str, Any]:
         with self._lock:

@@ -1,8 +1,8 @@
 """App core (trimmed copy of ``gofr_tpu/app.py``): config, container,
 tracer, the middleware chain, route registration and the HTTP server with
 the default routes (``/.well-known/health``, ``/.well-known/ready``,
-``/favicon.ico``, ``/metrics``, the profiler, flight-recorder, engine,
-cost-model and LoRA adapter admin routes).
+``/favicon.ico``, ``/metrics``, the profiler, flight-recorder, SLO, engine,
+cost-model, timebase, postmortem and LoRA adapter admin routes).
 
     import gofr_tpu_torch
     app = gofr_tpu_torch.new()
@@ -31,13 +31,18 @@ from gofr_tpu_torch.handler import (
     health_handler,
     make_endpoint,
     metrics_handler,
+    overview_admin_handler,
+    postmortem_list_handler,
+    postmortem_trigger_handler,
     profiler_start_handler,
     profiler_status_handler,
     profiler_stop_handler,
     ready_handler,
     requests_admin_handler,
     slo_admin_handler,
+    slo_budget_handler,
     tenants_admin_handler,
+    timeseries_admin_handler,
 )
 from gofr_tpu_torch.http.middleware import (
     cors_middleware,
@@ -101,18 +106,24 @@ class App:
             ("GET", "/favicon.ico", favicon_handler),
             ("GET", "/metrics", metrics_handler),
             # the admin surface (ADMIN_TOKEN gates it when set): the
-            # profiler, the flight recorder, engine introspection, the cost
-            # model and the LoRA adapters
+            # profiler, the flight recorder and the SLO engine, engine
+            # introspection, the cost model, the timebase, the postmortem
+            # store and the LoRA adapters
             ("GET", "/admin/profiler", profiler_status_handler),
             ("POST", "/admin/profiler/start", profiler_start_handler),
             ("POST", "/admin/profiler/stop", profiler_stop_handler),
             ("GET", "/admin/requests", requests_admin_handler),
             ("GET", "/admin/slo", slo_admin_handler),
+            ("GET", "/admin/slo/budget", slo_budget_handler),
             ("GET", "/admin/tenants", tenants_admin_handler),
             ("GET", "/admin/engine", engine_admin_handler),
             ("GET", "/admin/dispatches", dispatches_admin_handler),
             ("GET", "/admin/costmodel", costmodel_admin_handler),
             ("GET", "/admin/anomalies", anomalies_admin_handler),
+            ("GET", "/admin/timeseries", timeseries_admin_handler),
+            ("GET", "/admin/overview", overview_admin_handler),
+            ("GET", "/admin/postmortem", postmortem_list_handler),
+            ("POST", "/admin/postmortem", postmortem_trigger_handler),
             ("GET", "/admin/adapters", adapters_list_handler),
             ("POST", "/admin/adapters", adapter_load_handler),
             ("DELETE", "/admin/adapters/{name}", adapter_unload_handler),
@@ -146,6 +157,8 @@ class App:
             self.shutdown()
 
     def shutdown(self) -> None:
+        # streams the shutdown closes are no client aborts
+        self.container.closing = True
         if self.http_server:
             self.http_server.shutdown()
         self.container.close()

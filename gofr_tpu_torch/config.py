@@ -85,6 +85,40 @@ DECLARED_KEYS: dict[str, str] = {
     "COSTMODEL_EMA_ALPHA": "residual EMA weight (default 0.2)",
     "COSTMODEL_EMA_BAND": "residual EMA that flags a family's drift (default 2.5)",
     "ANOMALY_RING_SIZE": "anomaly events /admin/anomalies keeps (default 256)",
+    "REQUEST_DEADLINE_S": "default end-to-end request deadline in seconds (0 = none)",
+    "PRIORITY_DEFAULT": "shed tier of a request without X-Priority (0-9, default 5)",
+    "BROWNOUT_QUEUE_DEPTH": "queue depth that arms brownout level 1 (2x: level 2; 0 = off)",
+    "BROWNOUT_KV_UTIL": "committed KV fraction that arms brownout level 1 (0 = off)",
+    "BROWNOUT_SHED_PRIORITY": "brownout tier boundary: level 1 sheds below, level 2 at or below",
+    "BROWNOUT_CLAMP_TOKENS": "max_tokens clamp at brownout level 2 (0 = off)",
+    "TIMEBASE_ENABLED": "'off': no metric history sampler",
+    "TIMEBASE_INTERVAL_S": "seconds between metric snapshots (default 5)",
+    "TIMEBASE_WINDOW_S": "seconds of metric history kept (default 900)",
+    "POSTMORTEM_DIR": "postmortem bundle directory (set: crash hooks armed too)",
+    "POSTMORTEM_KEEP": "postmortem bundles kept (default 20)",
+    "POSTMORTEM_MIN_INTERVAL_S": "least seconds between automatic bundles (default 30)",
+    "POSTMORTEM_SNAPSHOTS": "timebase snapshots a bundle carries (default 60)",
+    "SLO": "'off': no SLO engine",
+    "SLO_TARGETS": "objectives: [scope:]metric=target clauses joined by ';'",
+    "SLO_BURN_FAST_S": "fast burn window, short (default 300)",
+    "SLO_BURN_FAST_LONG_S": "fast burn window, long (default 3600)",
+    "SLO_BURN_FAST_RATE": "fast burn page threshold (default 14.4)",
+    "SLO_BURN_SLOW_S": "slow burn window, short (default 21600)",
+    "SLO_BURN_SLOW_LONG_S": "slow burn window, long, and the budget window (default 259200)",
+    "SLO_BURN_SLOW_RATE": "slow burn ticket threshold (default 6)",
+    "SLO_EVAL_INTERVAL_S": "seconds between SLO evaluations (default 15)",
+    "RECOVERY_ENABLED": "'off': a wedge is observed only, never rebuilt",
+    "RECOVERY_MAX_ATTEMPTS": "rebuilds an incident tries before failed (default 3)",
+    "RECOVERY_BACKOFF_S": "backoff after a failed rebuild, doubling (default 1)",
+    "RECOVERY_BACKOFF_MAX_S": "backoff cap (default 30)",
+    "RECOVERY_ATTEMPT_TIMEOUT_S": "a rebuild running longer is hung: failed (default 300)",
+    "JOURNAL": "'off': no generation journal (streams cannot resume)",
+    "JOURNAL_CAPACITY": "interrupted generations the journal keeps (default 256)",
+    "JOURNAL_MAX_TOKENS": "ids one journal entry records (default 8192)",
+    "JOURNAL_DIR": "write-ahead log directory of the journal (unset: in memory)",
+    "JOURNAL_FSYNC": "WAL durability: interrupt (default) | always | off",
+    "JOURNAL_SEGMENT_BYTES": "WAL segment size before rotation (default 1 MiB)",
+    "JOURNAL_SEGMENTS": "WAL segments kept (default 4)",
 }
 
 # The reference's keys the port does not honor yet: key -> (refuse, why,
@@ -93,12 +127,7 @@ DECLARED_KEYS: dict[str, str] = {
 # the process takes, so a boot with it set fails; the others warn.
 _MESH = "§A7: the port serves on one device, unsharded"
 _MULTIHOST = "§A7: the port runs one process, no multi-host runtime"
-_JOURNAL = "§A4: the port keeps no generation journal"
 _DATASOURCE = "§A6: the port wires no sql or redis datasource"
-_DEADLINES = "§A4: the port sheds no request by deadline or brownout"
-_OBSERVE = "§A4: the port has no timebase or postmortem store"
-_SLO = "§A4: the port has no SLO engine"
-_RECOVERY = "§A4: the port has no recovery supervisor"
 _FLEET = "§A5: the port has no fleet router or replica role"
 _TRANSFER = "§A5: the port serves and pulls no KV across replicas"
 _TOOLING = "§A6: the port has no native tokenizer backend or lock sanitizer"
@@ -124,42 +153,8 @@ UNHONORED_KEYS: dict[str, tuple[bool, str]] = {
     "KV_TRANSFER_TIMEOUT_S": (False, _TRANSFER),
     "KV_TRANSFER_PIN_TTL_S": (False, _TRANSFER),
     "KV_TRANSFER_TRUST_HINT": (False, _TRANSFER),
-    "REQUEST_DEADLINE_S": (False, _DEADLINES),
-    "PRIORITY_DEFAULT": (False, _DEADLINES),
-    "BROWNOUT_QUEUE_DEPTH": (False, _DEADLINES),
-    "BROWNOUT_KV_UTIL": (False, _DEADLINES),
-    "BROWNOUT_SHED_PRIORITY": (False, _DEADLINES),
-    "BROWNOUT_CLAMP_TOKENS": (False, _DEADLINES),
-    "TIMEBASE_ENABLED": (False, _OBSERVE),
-    "TIMEBASE_INTERVAL_S": (False, _OBSERVE),
-    "TIMEBASE_WINDOW_S": (False, _OBSERVE),
-    "POSTMORTEM_DIR": (False, _OBSERVE),
-    "POSTMORTEM_KEEP": (False, _OBSERVE),
-    "POSTMORTEM_MIN_INTERVAL_S": (False, _OBSERVE),
-    "POSTMORTEM_SNAPSHOTS": (False, _OBSERVE),
     "FLEET_TRACE_SCRAPE_TIMEOUT_S": (False, _FLEET),
     "COSTMODEL_HLO": (False, "§C: the port compiles no HLO; its cost sheets are analytic"),
-    "SLO": (False, _SLO),
-    "SLO_TARGETS": (False, _SLO),
-    "SLO_BURN_FAST_S": (False, _SLO),
-    "SLO_BURN_FAST_LONG_S": (False, _SLO),
-    "SLO_BURN_FAST_RATE": (False, _SLO),
-    "SLO_BURN_SLOW_S": (False, _SLO),
-    "SLO_BURN_SLOW_LONG_S": (False, _SLO),
-    "SLO_BURN_SLOW_RATE": (False, _SLO),
-    "SLO_EVAL_INTERVAL_S": (False, _SLO),
-    "RECOVERY_ENABLED": (False, _RECOVERY),
-    "RECOVERY_MAX_ATTEMPTS": (False, _RECOVERY),
-    "RECOVERY_BACKOFF_S": (False, _RECOVERY),
-    "RECOVERY_BACKOFF_MAX_S": (False, _RECOVERY),
-    "RECOVERY_ATTEMPT_TIMEOUT_S": (False, _RECOVERY),
-    "JOURNAL": (True, _JOURNAL),
-    "JOURNAL_CAPACITY": (False, _JOURNAL),
-    "JOURNAL_MAX_TOKENS": (False, _JOURNAL),
-    "JOURNAL_DIR": (True, _JOURNAL + ", on disk or in memory"),
-    "JOURNAL_FSYNC": (True, _JOURNAL + ", so nothing is flushed"),
-    "JOURNAL_SEGMENT_BYTES": (False, _JOURNAL),
-    "JOURNAL_SEGMENTS": (False, _JOURNAL),
     "FLEET_REPLICAS": (True, _FLEET),
     "FLEET_ROUTES": (False, _FLEET),
     "FLEET_ROUTER_ID": (False, _FLEET),

@@ -11,6 +11,18 @@ recorder and tenant ledger, handler thread pool and the inference device
   ``FLIGHT_RECORDER_KEEP`` 128, ``FLIGHT_SLOW_MS`` 2000) keeps the
   requests' flight records, metered into ``tenants`` (a ``TenantLedger``
   of ``TENANT_LEDGER_SIZE`` 256);
+- ``timebase`` (a ``TimebaseSampler``: ``TIMEBASE_ENABLED`` on,
+  ``TIMEBASE_INTERVAL_S`` 5, ``TIMEBASE_WINDOW_S`` 900) keeps the metric
+  history behind ``/admin/timeseries`` and ``/admin/overview``;
+- ``postmortem`` (a ``PostmortemStore``: ``POSTMORTEM_DIR``
+  ./postmortems, ``POSTMORTEM_KEEP`` 20, ``POSTMORTEM_MIN_INTERVAL_S`` 30,
+  ``POSTMORTEM_SNAPSHOTS`` 60) writes a bundle when the engine wedges or
+  fails, before the recovery supervisor quarantines, and on
+  ``POST /admin/postmortem``; with ``POSTMORTEM_DIR`` set it also hooks
+  crashes and fatal signals;
+- ``slo`` (an ``SloEngine`` unless ``SLO=off``: ``SLO_TARGETS`` and the
+  ``SLO_BURN_*`` windows and rates, ``SLO_EVAL_INTERVAL_S``) burns budgets
+  over the flight records into the device's anomaly ring;
 - ``HANDLER_THREADS`` (64) sizes the pool sync handlers run on;
 - the device is built when ``MODEL_NAME`` is set or ``TPU_ENABLED`` is
   true (it then serves ``mlp``, the default ``MODEL_NAME``), and boots in
@@ -32,7 +44,10 @@ from typing import Any, Optional
 from gofr_tpu_torch.config import check_unhonored
 from gofr_tpu_torch.logging import new_logger
 from gofr_tpu_torch.metrics import Registry
+from gofr_tpu_torch.postmortem import PostmortemStore
+from gofr_tpu_torch.slo import DEFAULT_TARGETS, SloEngine
 from gofr_tpu_torch.telemetry import FlightRecorder, TenantLedger, exemplar_provider
+from gofr_tpu_torch.timebase import TimebaseSampler
 
 
 class Container:
@@ -62,18 +77,71 @@ class Container:
             logger=self.logger,
             tenants=self.tenants,
         )
+        self.timebase = TimebaseSampler(
+            self.metrics,
+            interval_s=float(config.get_or_default("TIMEBASE_INTERVAL_S", "5")),
+            window_s=float(config.get_or_default("TIMEBASE_WINDOW_S", "900")),
+            logger=self.logger,
+            start=config.get_or_default("TIMEBASE_ENABLED", "on") != "off",
+        )
+        self.postmortem = PostmortemStore(
+            self,
+            directory=config.get_or_default("POSTMORTEM_DIR", "./postmortems"),
+            keep=int(config.get_or_default("POSTMORTEM_KEEP", "20")),
+            min_interval_s=float(config.get_or_default("POSTMORTEM_MIN_INTERVAL_S", "30")),
+            snapshots=int(config.get_or_default("POSTMORTEM_SNAPSHOTS", "60")),
+            logger=self.logger,
+        )
+        if config.get("POSTMORTEM_DIR"):
+            # process-global hooks: armed only on the operator's opt-in
+            self.postmortem.install_crash_hooks()
+        # set by App.shutdown: streams closed by the shutdown are no client
+        # aborts
+        self.closing = False
         self.tpu: Optional[Any] = None
         self._handler_pool: Optional[ThreadPoolExecutor] = None
         enabled = config.get_or_default("TPU_ENABLED", "").lower()
         if enabled in ("true", "1", "yes") or config.get("MODEL_NAME"):
             from gofr_tpu_torch.tpu.device import TPUDevice
 
-            self.tpu = TPUDevice(config, self.logger, model=model, metrics=self.metrics)
+            try:
+                self.tpu = TPUDevice(config, self.logger, model=model, metrics=self.metrics)
+            except BaseException:
+                self.timebase.close()  # a failed boot leaves no thread behind
+                self.postmortem.detach()
+                raise
+            # a wedged or failed engine writes its bundle; the recovery
+            # supervisor writes one synchronously before it quarantines
+            # (the store's rate limit dedupes the two)
+            self.postmortem.watch_engine(self.tpu.engine)
+            self.tpu.recovery.postmortem = (
+                lambda detail: self.postmortem.write(reason="wedged", detail=detail)
+            )
             if config.get_or_default("TPU_BOOT", "") == "background":
                 self.logger.infof(
                     "device booting in background (model=%s); readiness at "
                     "/.well-known/ready", self.tpu.model_name,
                 )
+
+        # after the device: the burn verdicts land in its cost model's
+        # anomaly ring (one /admin/anomalies surface); a malformed
+        # SLO_TARGETS fails the boot with the clause named
+        self.slo: Optional[SloEngine] = None
+        if config.get_or_default("SLO", "on") != "off":
+            self.slo = SloEngine(
+                self.telemetry, timebase=self.timebase, metrics=self.metrics,
+                logger=self.logger,
+                targets=config.get_or_default("SLO_TARGETS", DEFAULT_TARGETS),
+                ring=getattr(getattr(self.tpu, "costmodel", None), "ring", None),
+                fast_s=float(config.get_or_default("SLO_BURN_FAST_S", "300")),
+                fast_long_s=float(config.get_or_default("SLO_BURN_FAST_LONG_S", "3600")),
+                slow_s=float(config.get_or_default("SLO_BURN_SLOW_S", "21600")),
+                slow_long_s=float(config.get_or_default("SLO_BURN_SLOW_LONG_S", "259200")),
+                fast_rate=float(config.get_or_default("SLO_BURN_FAST_RATE", "14.4")),
+                slow_rate=float(config.get_or_default("SLO_BURN_SLOW_RATE", "6")),
+                interval_s=float(config.get_or_default("SLO_EVAL_INTERVAL_S", "15")),
+                start=True,
+            )
 
     def health(self) -> dict[str, Any]:
         if self.tpu is None:
@@ -93,7 +161,11 @@ class Container:
         return self._handler_pool
 
     def close(self) -> None:
+        if self.slo is not None:
+            self.slo.close()
         if self.tpu is not None:
             self.tpu.close()
+        self.timebase.close()
+        self.postmortem.detach()
         if self._handler_pool is not None:
             self._handler_pool.shutdown(wait=False)

@@ -59,6 +59,19 @@ class TooManyRequestsError(GofrError):
         super().__init__(message)
 
 
+class DeadlineExceeded(GofrError):
+    """The request's end-to-end deadline expired before or while it was
+    served -> 504. ``stage`` says where the budget ran out (queue |
+    admission | decode), the label of
+    ``gofr_tpu_deadline_exceeded_total{stage}``."""
+
+    status_code = 504
+
+    def __init__(self, message: str = "request deadline exceeded", stage: str = ""):
+        super().__init__(message)
+        self.stage = stage
+
+
 class HTTPError(GofrError):
     """Arbitrary status escape hatch."""
 

@@ -3,10 +3,13 @@
 the catch-all, and the admin surface behind the optional ``ADMIN_TOKEN``:
 LoRA adapters (``GET``/``POST /admin/adapters``, ``DELETE
 /admin/adapters/{name}``), the flight recorder (``/admin/requests``,
-``/admin/slo``, ``/admin/tenants``), engine introspection
-(``/admin/engine``, ``/admin/dispatches``), the cost model
-(``/admin/costmodel``, ``/admin/anomalies``) and the profiler
-(``GET /admin/profiler``, ``POST /admin/profiler/start|stop``). The adapter opens a "gofr-handler" span around each
+``/admin/slo``, ``/admin/tenants``), the SLO engine
+(``/admin/slo/budget``), engine introspection (``/admin/engine``,
+``/admin/dispatches``), the cost model (``/admin/costmodel``,
+``/admin/anomalies``), the timebase (``/admin/timeseries``,
+``/admin/overview``), the postmortem store (``GET``/``POST
+/admin/postmortem``) and the profiler (``GET /admin/profiler``, ``POST
+/admin/profiler/start|stop``). The adapter opens a "gofr-handler" span around each
 handler; sync handlers run on the container's pool inside a copy of the
 request's context, so the span (and its trace id) reaches their thread."""
 
@@ -17,6 +20,7 @@ import contextvars
 import hmac
 import inspect
 import json
+import time
 from typing import Any, Callable
 
 from gofr_tpu_torch import static
@@ -86,16 +90,18 @@ def catch_all_handler(_: Context) -> None:
 def ready_handler(ctx: Context) -> Response:
     """Readiness, distinct from health (liveness): 200 with no device, 503
     with the boot's state and stage while the device boots (or after its
-    boot failed), 503 with the engine state and the watchdog's evidence
-    (the kinds that stalled, what it still watches) while a stalled wait
-    holds the engine degraded or wedged, 200 once requests would be served
-    without waiting. (The JAX handler's fleet and recovery branches come
-    with those slices.)"""
+    boot failed, or while a recovery rebuilds it), 503 with the engine
+    state and the watchdog's evidence (the kinds that stalled, what it
+    still watches) while a stalled wait holds the engine degraded or
+    wedged, 200 once requests would be served without waiting. A 503 also
+    carries the recovery incident while one is live or has happened. (The
+    JAX handler's fleet branch comes with the fleet.)"""
     tpu = ctx.container.tpu
     if tpu is None:
         status, state = 200, {"state": "ready", "boot_id": BOOT_ID}
     elif not tpu.ready():
         status, state = 503, dict(tpu.boot_status)
+        _attach_recovery_evidence(tpu, state)
     elif tpu.engine.state in ("degraded", "wedged", "recovering"):
         snap = tpu.engine.snapshot()
         wsnap = tpu.watchdog.snapshot()
@@ -108,6 +114,7 @@ def ready_handler(ctx: Context) -> Response:
                 "timeout_s": wsnap.get("timeout_s"),
             },
         }
+        _attach_recovery_evidence(tpu, state)
     else:
         status, state = 200, {"state": "ready", "boot_id": BOOT_ID}
     return Response(
@@ -115,6 +122,22 @@ def ready_handler(ctx: Context) -> Response:
         headers={"Content-Type": "application/json"},
         body=json.dumps(state).encode("utf-8"),
     )
+
+
+def _attach_recovery_evidence(tpu: Any, state: dict) -> None:
+    """The recovery incident for a readiness 503 (the ``/admin/engine``
+    block's probe-sized part), while one is live or has history: a
+    never-wedged server's body stays as it was."""
+    snap = tpu.recovery.snapshot()
+    if snap["state"] == "idle" and not snap["incidents"]:
+        return
+    state["recovery"] = {
+        "state": snap["state"],
+        "attempts": snap["attempts"],
+        "max_attempts": snap["max_attempts"],
+        "backoff_in_s": snap["backoff_in_s"],
+        "last_outcome": snap["last_outcome"],
+    }
 
 
 def metrics_handler(ctx: Context) -> Response:
@@ -226,6 +249,16 @@ def slo_admin_handler(ctx: Context) -> Any:
     return ctx.container.telemetry.slo(window_s=window)
 
 
+def slo_budget_handler(ctx: Context) -> Any:
+    """GET /admin/slo/budget: every objective (``SLO_TARGETS``) with its
+    windowed burn rates, the budget left over the long window, its alert
+    states and the latest burn evidence from the anomaly ring."""
+    _check_admin(ctx)
+    if ctx.container.slo is None:
+        raise HTTPError(503, "slo engine disabled (set SLO=on)")
+    return ctx.container.slo.budget()
+
+
 def tenants_admin_handler(ctx: Context) -> Any:
     """GET /admin/tenants: the tenant ledger's top tenants by tokens (exact
     counts), the rest in ``~other``; ``?tenant=`` looks one up (404 when it
@@ -247,11 +280,14 @@ def tenants_admin_handler(ctx: Context) -> Any:
 
 def engine_admin_handler(ctx: Context) -> Any:
     """GET /admin/engine: the engine's state and history, boot timeline,
-    watchdog, dispatch counts, queue depth, pool occupancy, scheduler,
-    caches and device memory, with the tenant headline. Host reads only:
-    it answers while the engine is wedged."""
+    watchdog, recovery, journal, brownout, dispatch counts, queue depth,
+    pool occupancy, scheduler, caches and device memory, with the SLO and
+    tenant headlines. Host reads only: it answers while the engine is
+    wedged."""
     dev = _admin_device(ctx)
     snap = dev.engine_snapshot()
+    if ctx.container.slo is not None:
+        snap["slo"] = ctx.container.slo.headline()
     snap["tenants"] = ctx.container.tenants.overview()
     return snap
 
@@ -271,29 +307,155 @@ def dispatches_admin_handler(ctx: Context) -> Any:
 
 def costmodel_admin_handler(ctx: Context) -> Any:
     """GET /admin/costmodel: the calibration in force, every cost sheet
-    (analytic or synthetic), the families' residual EMAs, the thresholds
-    and the anomaly ring's stats."""
+    (analytic or synthetic), the families' residual EMAs, the thresholds,
+    the anomaly ring's stats and the anomaly-rate trend from the
+    timebase."""
     dev = _admin_device(ctx)
     if dev.costmodel is None:
         raise HTTPError(503, "cost model disabled (set COSTMODEL=on)")
-    return dev.costmodel.snapshot()
+    out = dev.costmodel.snapshot()
+    out["anomalies_per_sec"] = _trend(
+        ctx.container.timebase.rate_total("gofr_tpu_dispatch_anomalies_total")
+    )
+    return out
 
 
 def anomalies_admin_handler(ctx: Context) -> Any:
     """GET /admin/anomalies: the cost model's anomaly events, newest first
-    (``slow_dispatch``, ``ema_drift``); ``?kind=``/``?cause=`` filter,
-    ``?limit=`` bounds the page (default 100). A healthy process serves an
-    empty list."""
+    (``slow_dispatch``, ``ema_drift``) and the SLO engine's burn alerts
+    (``slo_fast_burn``, ``slo_slow_burn``) in one ring; ``?kind=``/
+    ``?cause=`` filter, ``?limit=`` bounds the page (default 100). A
+    healthy process serves an empty list. Without a cost model the ring is
+    the SLO engine's own."""
     _check_admin(ctx)
     costmodel = getattr(ctx.tpu, "costmodel", None)
-    if costmodel is None:
-        raise HTTPError(503, "no anomaly ring on this process (set COSTMODEL=on)")
+    slo = ctx.container.slo
+    ring = costmodel.ring if costmodel is not None else (slo.ring if slo is not None else None)
+    if ring is None:
+        raise HTTPError(503, "no anomaly ring on this process (set COSTMODEL=on or SLO=on)")
     limit = _limit(ctx, "100")
     cause = ctx.param("cause") or None
     if cause is not None and cause not in ANOMALY_CAUSES:
         raise InvalidParamError(f'"cause" must be one of {", ".join(ANOMALY_CAUSES)}')
-    events = costmodel.ring.events(limit=limit, kind=ctx.param("kind") or None, cause=cause)
-    return {"anomalies": events, "count": len(events), "stats": costmodel.ring.stats()}
+    events = ring.events(limit=limit, kind=ctx.param("kind") or None, cause=cause)
+    return {"anomalies": events, "count": len(events), "stats": ring.stats()}
+
+
+def timeseries_admin_handler(ctx: Context) -> Any:
+    """GET /admin/timeseries: a metric's history from the timebase ring.
+    ``?metric=`` (required) names a registered metric; ``?labels=k:v,...``
+    filters label-sets by subset; ``?window=`` bounds the lookback in
+    seconds (default the whole ring). Counters and histograms carry a
+    per-second ``rate`` series beside the raw points."""
+    _check_admin(ctx)
+    metric = ctx.param("metric")
+    if not metric:
+        raise InvalidParamError('"metric" is required (a registered metric name)')
+    labels: dict[str, str] = {}
+    for part in (ctx.param("labels") or "").split(","):
+        part = part.strip()
+        if not part:
+            continue
+        name, found, value = part.partition(":" if ":" in part else "=")
+        if not found or not name:
+            raise InvalidParamError('"labels" must be comma-separated name:value pairs')
+        labels[name.strip()] = value.strip()
+    window = None
+    raw_window = ctx.param("window")
+    if raw_window:
+        try:
+            window = float(raw_window)
+        except ValueError:
+            raise InvalidParamError('"window" must be a number of seconds') from None
+        if window <= 0:
+            raise InvalidParamError('"window" must be > 0')
+    timebase = ctx.container.timebase
+    result = timebase.series(metric, labels=labels or None, window=window)
+    if result is None:
+        raise InvalidParamError(
+            f'metric "{metric}" unknown to the timebase (not registered, or no snapshot '
+            "taken yet)"
+        )
+    result["timebase"] = timebase.stats()
+    return result
+
+
+def overview_admin_handler(ctx: Context) -> Any:
+    """GET /admin/overview: the one-page rollup: engine state, req/s and
+    TTFT p95 trends from the timebase, the SLO view and headline, requests
+    in flight, tenants, the watchdog, dispatches, the cost model and its
+    anomaly trend, queue depth, pool occupancy, compile and cache counts,
+    and the newest postmortems. Host reads only: it answers while wedged."""
+    _check_admin(ctx)
+    container = ctx.container
+    timebase = container.timebase
+    out: dict[str, Any] = {
+        "ts": time.time(),
+        "timebase": timebase.stats(),
+        "requests_in_flight": container.telemetry.active_count(),
+        "slo": container.telemetry.slo(window_s=300.0),
+        "req_per_sec": _trend(timebase.rate_total("gofr_http_requests_total")),
+        "ttft_p95_s": _trend(timebase.hist_quantile_trend("gofr_tpu_ttft_seconds", 0.95)),
+        "postmortems": container.postmortem.list()[-5:],
+        "slo_budget": container.slo.headline() if container.slo is not None else None,
+        "tenants": container.tenants.overview(),
+    }
+    tpu = container.tpu
+    if tpu is None:
+        out["engine"] = None
+        return out
+    engine = tpu.engine.snapshot()
+    out["engine"] = {"state": engine["state"], "detail": engine["detail"],
+                     "since": engine["since"]}
+    out["model"] = tpu.model_name
+    out["platform"] = tpu.platform
+    out["watchdog"] = tpu.watchdog.snapshot()
+    out["dispatches"] = tpu.timeline.stats()
+    out["costmodel"] = None
+    if tpu.costmodel is not None:
+        out["costmodel"] = tpu.costmodel.overview()
+        out["anomalies_per_sec"] = _trend(
+            timebase.rate_total("gofr_tpu_dispatch_anomalies_total")
+        )
+    out["queue_depth"] = tpu.batcher._depth() if tpu.batcher is not None else None
+    out["decode_pool"] = tpu.decode_pool.occupancy() if tpu.decode_pool is not None else None
+    registry = container.metrics
+    out["compiles_total"] = sum(
+        registry.counter("gofr_tpu_compiles_total", labels=("kind",)).data().values()
+    )
+    cache_counter = registry.counter("gofr_tpu_cache_events_total", labels=("cache", "event"))
+    out["cache_events"] = {"/".join(k): v for k, v in cache_counter.data().items()}
+    return out
+
+
+def _trend(points: list) -> dict[str, Any]:
+    """A trend series and its latest value (the rollup's headline)."""
+    return {"now": points[-1][1] if points else None, "trend": points}
+
+
+def postmortem_list_handler(ctx: Context) -> Any:
+    """GET /admin/postmortem: the bundles on disk."""
+    _check_admin(ctx)
+    store = ctx.container.postmortem
+    return {"dir": store.directory, "bundles": store.list()}
+
+
+def postmortem_trigger_handler(ctx: Context) -> Any:
+    """POST /admin/postmortem: write a bundle now (the operator's trigger,
+    past the automatic rate limit); an optional ``{"detail": "..."}``
+    annotates it."""
+    _check_admin(ctx)
+    detail = ""
+    try:
+        body = ctx.bind() if ctx.request.body else {}
+        if isinstance(body, dict):
+            detail = str(body.get("detail") or "")
+    except Exception:
+        pass  # a garbage body: an unannotated bundle still helps
+    path = ctx.container.postmortem.write(reason="manual", detail=detail, force=True)
+    if path is None:
+        raise HTTPError(500, "postmortem write failed (see server log)")
+    return {"path": path, "reason": "manual"}
 
 
 # -- the profiler ----------------------------------------------------------------

@@ -3,7 +3,9 @@
 core as completions, LoRA adapters included (the response's ``model`` is
 the adapter's name); only the prompt (the chat template) and the response
 shapes (``chat.completion``, and ``chat.completion.chunk`` frames with
-deltas when streaming) differ."""
+deltas when streaming) differ. A streamed chat is cancelled when its client
+hangs up (``parse.abortable``), and a single stream numbers its frames (SSE
+``id:``)."""
 
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from gofr_tpu_torch.openai.fanout import (
 from gofr_tpu_torch.openai.logprobs import chat_logprobs_obj, chat_lp_entry
 from gofr_tpu_torch.openai.parse import (
     StopScanner,
+    abortable,
     parse_fanout,
     parse_request,
     stream_usage_opt,
@@ -71,11 +74,11 @@ def _stream_chat(
         return usage_chunk("chat.completion.chunk", chat_id, created, model, len(prompt_ids),
                            completion_tokens)
 
-    cancel = threading.Event()
+    cancel, on_abort = abortable(ctx)
     if n > 1:
         return _stream_chat_fanout(
             ctx, body, prompt_ids, max_tokens, sampler, stop_ids, stop_strs, want_logprobs,
-            n, chunk, usage_frame if include_usage else None, cancel, adapter,
+            n, chunk, usage_frame if include_usage else None, cancel, on_abort, adapter,
         )
     stream_iter = ctx.tpu.generate_stream(
         prompt_ids, max_tokens, sampler=sampler, stop_tokens=stop_ids, cancel=cancel,
@@ -125,13 +128,13 @@ def _stream_chat(
         finally:
             stream_iter.close()
 
-    return Stream(events(), on_abort=cancel.set)
+    return Stream(events(), ids=True, on_abort=on_abort)
 
 
 def _stream_chat_fanout(
     ctx: Any, body: dict, prompt_ids: list, max_tokens: int, sampler: Any, stop_ids: Any,
     stop_strs: list, want_logprobs: bool, n: int, chunk: Any, usage_frame: Any,
-    cancel: threading.Event, adapter: Any = None,
+    cancel: threading.Event, on_abort: Any, adapter: Any = None,
 ) -> Stream:
     """Interleaved multi-index chat SSE: every index opens with its own
     role frame and closes with its own finish frame; the shared driver owns
@@ -168,7 +171,7 @@ def _stream_chat_fanout(
     return Stream(
         drive_stream_fanout(iters, replicate, n, finish, want_logprobs, open_frames, feed,
                             tail, usage_frames),
-        on_abort=cancel.set,
+        on_abort=on_abort,
     )
 
 

@@ -3,9 +3,13 @@ echo, and echo + logprobs teacher-forced scoring; logprobs objects; the
 n/best_of fan-out and its interleaved multi-index SSE; the
 ``stream_options.include_usage`` frame.
 
-Port of ``gofr_tpu/openai/completions.py`` without ``X-Resume-From``. Each
-request is a flight record (``telemetry.flight``): a streamed one finishes
-when its stream ends. A LoRA adapter (``adapter``, or ``model`` naming one)
+Port of ``gofr_tpu/openai/completions.py``. Each request is a flight record
+(``telemetry.flight``): a streamed one finishes when its stream ends, or is
+cancelled when its client hangs up (``parse.abortable``: the decode frees
+its slot within a chunk). A single stream numbers its frames (SSE ``id:``
+from the resume offset) and resumes: ``X-Resume-From: k`` continues an
+interrupted greedy or seeded stream at token k (``generate_stream``). An
+expired deadline answers 504. A LoRA adapter (``adapter``, or ``model`` naming one)
 serves every path, echo scoring included, and names the response's
 ``model``. The response bodies have the JAX package's
 shape: a top-level ``text_completion`` object (no ``{"data": ...}``
@@ -37,6 +41,7 @@ from gofr_tpu_torch.openai.fanout import (
 from gofr_tpu_torch.openai.logprobs import logprobs_obj
 from gofr_tpu_torch.openai.parse import (
     StopScanner,
+    abortable,
     parse_fanout,
     parse_request,
     prompt_tokens,
@@ -48,11 +53,15 @@ def _stream_completion(
     ctx: Any, body: dict, prompt_ids: list, max_tokens: int, sampler: Any, stop_ids: Any,
     stop_strs: list, want_logprobs: bool, top_n: int, n: int, best_of: int, echo: bool,
     cmpl_id: str, created: int, model: str, include_usage: bool, adapter: Any = None,
+    resume_from: int = 0,
 ) -> Stream:
     """The SSE branch: per-token text frames with host-side stop matching,
     ending in ``data: [DONE]``. ``n`` > 1 streams the candidates at once as
     interleaved frames carrying their ``index``; greedy requests replicate
-    one stream across every index (as the non-stream fan-out does)."""
+    one stream across every index (as the non-stream fan-out does). A
+    single stream's frames are numbered from ``resume_from``, the position
+    it resumes at (clamped to the budget: a client cut off between the last
+    token and ``[DONE]`` resumes into the tail)."""
     if best_of > n:
         raise HTTPError(
             400, '"best_of" > "n" is not supported when streaming (candidates cannot be '
@@ -88,19 +97,22 @@ def _stream_completion(
                            completion_tokens)
 
     # built outside the generator: a bad parameter 400s before the SSE 200
-    cancel = threading.Event()
+    cancel, on_abort = abortable(ctx)
     if n > 1:
         return _stream_completion_fanout(
             ctx, body, prompt_ids, max_tokens, sampler, stop_ids, stop_strs, want_logprobs,
-            n, echo, chunk, usage_frame if include_usage else None, cancel, adapter,
+            n, echo, chunk, usage_frame if include_usage else None, cancel, on_abort, adapter,
         )
+    resume_from = min(resume_from, max_tokens)
     stream_iter = ctx.tpu.generate_stream(
         prompt_ids, max_tokens, sampler=sampler, stop_tokens=stop_ids, cancel=cancel,
-        logprobs=want_logprobs, adapter=adapter,
+        logprobs=want_logprobs, adapter=adapter, resume_from=resume_from,
     )
 
     def events():
-        emitted = 0
+        # a resumed stream starts at the resume position: emitted counts
+        # absolute positions, so finish_reason matches the uninterrupted run
+        emitted = resume_from
         finish = None
         dec = tok.stream_decoder() if tok is not None else None
         scan = StopScanner(stop_strs) if stop_strs else None
@@ -147,13 +159,13 @@ def _stream_completion(
         finally:
             stream_iter.close()
 
-    return Stream(events(), on_abort=cancel.set)
+    return Stream(events(), ids=True, id_offset=resume_from, on_abort=on_abort)
 
 
 def _stream_completion_fanout(
     ctx: Any, body: dict, prompt_ids: list, max_tokens: int, sampler: Any, stop_ids: Any,
     stop_strs: list, want_logprobs: bool, n: int, echo: bool, chunk: Any, usage_frame: Any,
-    cancel: threading.Event, adapter: Any = None,
+    cancel: threading.Event, on_abort: Any, adapter: Any = None,
 ) -> Stream:
     """Interleaved multi-index SSE: the shared driver
     (``drive_stream_fanout``) owns the replicate/multiplex loops, the
@@ -194,7 +206,7 @@ def _stream_completion_fanout(
     return Stream(
         drive_stream_fanout(iters, replicate, n, finish, want_logprobs, open_frames, feed,
                             tail, usage_frames),
-        on_abort=cancel.set,
+        on_abort=on_abort,
     )
 
 
@@ -226,11 +238,23 @@ def completions(ctx: Any) -> Any:
         stream=bool(body.get("stream")),
     ) as fl:
         if body.get("stream"):
+            # X-Resume-From: a client (or the fleet router) holding frames
+            # 0..k-1 of an interrupted stream asks for the rest
+            resume_from = 0
+            raw_resume = ctx.request.header("X-Resume-From")
+            if raw_resume:
+                try:
+                    resume_from = int(raw_resume)
+                except ValueError:
+                    raise HTTPError(400, '"X-Resume-From" must be an integer frame offset') \
+                        from None
+                if resume_from < 0:
+                    raise HTTPError(400, '"X-Resume-From" must be >= 0')
             # the record completes when the stream ends
             return fl.defer(_stream_completion(
                 ctx, body, prompt_ids, max_tokens, sampler, stop_ids, stop_strs,
                 want_logprobs, top_n, n, best_of, echo, cmpl_id, created, model,
-                include_usage, adapter,
+                include_usage, adapter, resume_from,
             ))
         prompt_lps = None
         if echo and want_logprobs:

@@ -14,7 +14,7 @@ import numpy as np
 
 from gofr_tpu_torch.errors import HTTPError
 from gofr_tpu_torch.http.response import Raw
-from gofr_tpu_torch.openai.parse import admit_request
+from gofr_tpu_torch.openai.parse import bind_identity
 from gofr_tpu_torch.telemetry import flight
 
 
@@ -76,7 +76,7 @@ async def embeddings(ctx: Any) -> Any:
 
     loop = asyncio.get_running_loop()
     n_tokens, payloads = await loop.run_in_executor(None, tokenize_items)
-    admit_request(ctx)
+    bind_identity(ctx)
     with flight(ctx.container.telemetry, model=ctx.tpu.model_name, endpoint="/v1/embeddings",
                 trace_id=ctx.trace_id or "", tokens_in=n_tokens):
         results = await asyncio.gather(*(ctx.tpu.infer_async(p) for p in payloads))

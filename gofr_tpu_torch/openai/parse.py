@@ -3,16 +3,34 @@
 strings), sampling knobs, logprobs and top-logprobs, ``stream_options`` and
 the n/best_of/echo fan-out constraints, and the LoRA adapter a request
 selects (the ``adapter`` key, or a ``model`` naming a loaded adapter), and
-the request's identity for its flight record: the fleet origin
-(``X-Gofr-Request-Id``, ``X-Gofr-Hop``) and the hashed tenant. Knobs this
-server cannot honor are a clear 400, never a silent ignore."""
+the admission gate: the request's identity for its flight record (the
+fleet origin, ``X-Gofr-Request-Id`` and ``X-Gofr-Hop``, and the hashed
+tenant), its deadline (``X-Request-Deadline-Ms``, default
+``REQUEST_DEADLINE_S``) and priority (``X-Priority``, default
+``PRIORITY_DEFAULT``), and the brownout's verdict (a 429 with
+``Retry-After``); and ``abortable``, a stream's client-abort wiring. Knobs
+this server cannot honor are a clear 400, never a silent ignore."""
 
 from __future__ import annotations
 
+import threading
 from typing import Any
 
-from gofr_tpu_torch.errors import HTTPError
-from gofr_tpu_torch.telemetry import activate_origin, activate_tenant, origin_from_headers
+from gofr_tpu_torch.deadline import (
+    PRIORITY_DEFAULT,
+    activate_deadline,
+    activate_priority,
+    cancellations_counter,
+    parse_deadline,
+    parse_priority,
+)
+from gofr_tpu_torch.errors import HTTPError, TooManyRequestsError
+from gofr_tpu_torch.telemetry import (
+    activate_origin,
+    activate_tenant,
+    current_record,
+    origin_from_headers,
+)
 
 # knobs that would change what the model is ASKED to do: silently ignoring
 # them serves wrong output to a client that believes its tools were offered
@@ -136,15 +154,78 @@ def tenant_of(request: Any) -> str:
     return "anonymous"
 
 
-def admit_request(ctx: Any) -> None:
+def bind_identity(ctx: Any) -> str:
     """Bind the request's identity for the flight record born downstream:
     the router-stamped origin (garbage headers degrade to none, never a
-    4xx) and the hashed tenant the ledger meters. (The JAX gate's deadline,
-    priority and brownout come with ROADMAP §A4.)"""
+    4xx) and the hashed tenant the ledger meters. Returns the tenant."""
     activate_origin(origin_from_headers(
         ctx.request.header("X-Gofr-Request-Id"), ctx.request.header("X-Gofr-Hop"),
     ))
-    activate_tenant(tenant_of(ctx.request))
+    tenant = tenant_of(ctx.request)
+    activate_tenant(tenant)
+    return tenant
+
+
+def admit_request(ctx: Any, max_tokens: int) -> int:
+    """The admission gate both endpoints share (the JAX package's
+    ``_admit_request``). It binds, for the stages and the flight record
+    born downstream, the priority (``X-Priority``, a malformed one is a
+    400), the deadline (``X-Request-Deadline-Ms``, else
+    ``REQUEST_DEADLINE_S``; 0 = none) and the identity
+    (``bind_identity``); then asks the device's
+    brownout: a shed is a 429 with ``Retry-After`` (metered on the tenant
+    ledger, the body naming the hashed tenant), and level 2 may clamp
+    ``max_tokens``. Returns the (possibly clamped) ``max_tokens``."""
+    config = ctx.config
+    priority = parse_priority(
+        ctx.request.header("X-Priority"),
+        default=int(config.get_or_default("PRIORITY_DEFAULT", str(PRIORITY_DEFAULT))),
+    )
+    activate_priority(priority)
+    activate_deadline(parse_deadline(
+        ctx.request.header("X-Request-Deadline-Ms"),
+        float(config.get_or_default("REQUEST_DEADLINE_S", "0")), priority=priority,
+    ))
+    tenant = bind_identity(ctx)
+    brownout = getattr(ctx.tpu, "brownout", None)
+    if brownout is not None:
+        admitted, max_tokens, level = brownout.admit(priority, max_tokens)
+        if not admitted:
+            ctx.container.tenants.shed(tenant)
+            exc = TooManyRequestsError(
+                f"shed by overload brownout (level {level}, request priority {priority}); "
+                "retry later or raise X-Priority"
+            )
+            exc.retry_after_s = 1.0
+            exc.tenant = tenant
+            raise exc
+    return max_tokens
+
+
+def abortable(ctx: Any) -> tuple:
+    """One streaming generation's client-abort wiring: a fresh cancel event
+    (passed to ``generate_stream`` and every fan-out candidate) and the
+    ``Stream.on_abort`` callable. The responder calls it when a write fails
+    or the connection task is cancelled: it trips the event (the pool frees
+    the row's slot and blocks at its next chunk boundary), counts
+    ``gofr_tpu_cancellations_total{cause="client_abort"}`` and finishes the
+    flight record as cancelled. A server shutting down closes every stream
+    too: that still frees the work but counts no client abort. Returns
+    ``(cancel, on_abort)``."""
+    cancel = threading.Event()
+    container = ctx.container
+    counter = cancellations_counter(container.metrics)
+    record = current_record()
+
+    def on_abort() -> None:
+        cancel.set()
+        if getattr(container, "closing", False):
+            return
+        counter.inc(cause="client_abort")
+        if record is not None:
+            container.telemetry.finish(record, status="cancelled")
+
+    return cancel, on_abort
 
 
 def parse_request(ctx: Any, default_max: int) -> tuple:
@@ -182,7 +263,8 @@ def parse_request(ctx: Any, default_max: int) -> tuple:
             400, '"max_tokens" must be a positive integer'
             + (" (0 allowed with echo)" if floor == 0 else ""),
         )
-    admit_request(ctx)
+    # after max_tokens validates: a level-2 brownout may clamp it
+    max_tokens = admit_request(ctx, max_tokens)
     sampler = sampler_from_body(body)
     stop_ids, stop_strs = parse_stops(ctx, body)
     # alternatives: an integer logprobs >= 2 (the completions form) or the

@@ -1,0 +1,553 @@
+"""SLO engine: declarative objectives, windowed error budgets and
+multi-window burn-rate alerts (port of ``gofr_tpu/slo.py``).
+
+- **Objectives** (``SLO_TARGETS``): ``[scope:]metric=target`` clauses
+  joined by ``;``. Metrics: ``availability`` (good = neither error nor
+  deadline-exceeded), ``shed_rate`` (the allowed shed fraction, from the
+  brownout shed counter through the timebase) and the latency bounds
+  ``ttft_p95_ms`` / ``ttft_p99_ms`` / ``tpot_p95_ms`` / ``tpot_p99_ms``.
+  Scopes: ``model=<name>:``, ``tier=<n>:``, ``tier>=<n>:`` or none.
+- **Budgets**: 1 - the good fraction (``shed_rate``: the target). The bad
+  fraction of a window comes from the flight records (a cancelled request
+  is the client's verdict and is left out); the budget left is measured
+  over the long slow window.
+- **Burn alerts**: burn = bad fraction / budget. The fast page fires past
+  ``SLO_BURN_FAST_RATE`` (14.4) on both fast windows (5 m and 1 h), the slow
+  ticket past ``SLO_BURN_SLOW_RATE`` (6) on both slow ones (6 h, 3 d); one
+  latched anomaly event an excursion, in the cost model's anomaly ring
+  (``slo_fast_burn`` / ``slo_slow_burn``), and
+  ``gofr_tpu_slo_burn_alerts_total{objective,window}``.
+- **Surfaces**: ``gofr_tpu_slo_burn_rate{objective,window}``,
+  ``gofr_tpu_slo_budget_remaining{objective}``, ``GET /admin/slo/budget``,
+  and the headline on ``/admin/engine`` and ``/admin/overview``.
+
+``clock`` (the records' perf_counter timebase) and ``wall`` are injectable
+for tests. Host-side only: a ring scan and float arithmetic an objective,
+on a daemon thread every ``SLO_EVAL_INTERVAL_S`` and on each budget read.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Any, Callable, Optional
+
+from gofr_tpu_torch.anomaly import AnomalyRing
+
+DEFAULT_TARGETS = "availability=0.999;shed_rate=0.05;tier=9:availability=0.9995"
+
+LATENCY_METRICS = ("ttft_p95_ms", "ttft_p99_ms", "tpot_p95_ms", "tpot_p99_ms")
+METRICS = ("availability", "shed_rate") + LATENCY_METRICS
+
+# a record's terminal statuses that consume availability budget;
+# "cancelled" is the CLIENT's verdict (they hung up), not the server's
+BAD_STATUSES = ("error", "deadline_exceeded")
+
+# shed counters summed for shed_rate objectives (brownout 429s; the fleet
+# router's sheds come with the fleet) — counter deltas through
+# TimebaseSampler.counter_delta
+SHED_COUNTERS = ("gofr_tpu_brownout_shed_total", "gofr_tpu_router_shed_total")
+
+
+def _window_name(seconds: float) -> str:
+    """Human window label for the gauge's ``window`` dimension: "5m",
+    "1h", "6h", "3d" at the defaults; a generic seconds form otherwise
+    (label values must stay stable per config, not per call)."""
+    s = int(seconds)
+    if s % 86400 == 0:
+        return f"{s // 86400}d"
+    if s % 3600 == 0:
+        return f"{s // 3600}h"
+    if s % 60 == 0:
+        return f"{s // 60}m"
+    return f"{s}s"
+
+
+class Objective:
+    """One parsed SLO clause: metric + target + optional scope."""
+
+    __slots__ = (
+        "id", "metric", "target", "model", "tier", "tier_ge",
+        "budget", "threshold_s",
+    )
+
+    def __init__(
+        self,
+        metric: str,
+        target: float,
+        model: Optional[str] = None,
+        tier: Optional[int] = None,
+        tier_ge: Optional[int] = None,
+    ):
+        if metric not in METRICS:
+            raise ValueError(
+                f"SLO_TARGETS: unknown metric {metric!r} "
+                f"(expected one of {', '.join(METRICS)})"
+            )
+        self.metric = metric
+        self.target = float(target)
+        self.model = model
+        self.tier = tier
+        self.tier_ge = tier_ge
+        self.threshold_s: Optional[float] = None
+        if metric == "availability":
+            if not (0.0 < self.target < 1.0):
+                raise ValueError(
+                    "SLO_TARGETS: availability target must be in (0, 1)"
+                )
+            self.budget = 1.0 - self.target
+        elif metric == "shed_rate":
+            if not (0.0 < self.target <= 1.0):
+                raise ValueError(
+                    "SLO_TARGETS: shed_rate target must be in (0, 1]"
+                )
+            if model is not None or tier is not None or tier_ge is not None:
+                # the shed counters carry no model/tenant dimension
+                # (brownout sheds by priority, router sheds by reason) —
+                # a scoped clause would silently measure the global rate
+                raise ValueError(
+                    "SLO_TARGETS: shed_rate objectives are global "
+                    "(the shed counters carry no model/tier scope)"
+                )
+            self.budget = self.target
+        else:  # latency-percentile bound
+            if self.target <= 0:
+                raise ValueError(
+                    f"SLO_TARGETS: {metric} target must be > 0 (ms)"
+                )
+            self.threshold_s = self.target / 1000.0
+            # ttft_p95_ms -> 5% of requests may exceed the bound
+            percentile = float(metric.rsplit("_", 2)[1][1:]) / 100.0
+            self.budget = 1.0 - percentile
+        if model is not None:
+            prefix = f"{model}."
+        elif tier is not None:
+            prefix = f"tier{tier}."
+        elif tier_ge is not None:
+            prefix = f"tier_ge{tier_ge}."
+        else:
+            prefix = ""
+        self.id = prefix + metric
+
+    def matches(self, record: Any) -> bool:
+        """Does ``record`` (a FlightRecord) fall in this objective's
+        scope? Tier scopes need a priority on the record; records
+        admitted without one never consume a tier budget."""
+        if self.model is not None and record.model != self.model:
+            return False
+        if self.tier is not None or self.tier_ge is not None:
+            priority = record.priority
+            if not isinstance(priority, int):
+                return False
+            if self.tier is not None and priority != self.tier:
+                return False
+            if self.tier_ge is not None and priority < self.tier_ge:
+                return False
+        return True
+
+    def judge(self, record: Any) -> Optional[bool]:
+        """True = this record burned budget, False = it was good, None =
+        not eligible (out of scope, cancelled, or no measurement)."""
+        if not self.matches(record):
+            return None
+        if record.status == "cancelled":
+            return None
+        if self.metric == "availability":
+            return record.status in BAD_STATUSES
+        # latency bound: judge only records that produced the
+        # measurement — but a deadline-exceeded request with no first
+        # token IS a latency violation, not a missing sample
+        value = record.ttft if self.metric.startswith("ttft") else record.tpot
+        if value is None:
+            return True if record.status in BAD_STATUSES else None
+        return value > self.threshold_s
+
+    def to_dict(self) -> dict[str, Any]:
+        scope: Optional[dict[str, Any]] = None
+        if self.model is not None:
+            scope = {"model": self.model}
+        elif self.tier is not None:
+            scope = {"tier": self.tier}
+        elif self.tier_ge is not None:
+            scope = {"tier_ge": self.tier_ge}
+        return {
+            "objective": self.id,
+            "metric": self.metric,
+            "target": self.target,
+            "budget": round(self.budget, 6),
+            "scope": scope,
+        }
+
+
+def parse_targets(spec: str) -> list[Objective]:
+    """Parse ``SLO_TARGETS``: semicolon-separated ``[scope:]metric=target``
+    clauses (see module docstring). Malformed clauses raise ValueError —
+    a misconfigured objective silently not alerting is the one failure
+    mode this subsystem must not have."""
+    objectives: list[Objective] = []
+    seen: set[str] = set()
+    for clause in spec.split(";"):
+        clause = clause.strip()
+        if not clause:
+            continue
+        scope_part, sep, rest = clause.rpartition(":")
+        body = rest if sep else clause
+        model: Optional[str] = None
+        tier: Optional[int] = None
+        tier_ge: Optional[int] = None
+        if sep:
+            scope_part = scope_part.strip()
+            if scope_part.startswith("model="):
+                model = scope_part[len("model="):].strip()
+                if not model:
+                    raise ValueError(
+                        f"SLO_TARGETS: empty model scope in {clause!r}"
+                    )
+            elif scope_part.startswith("tier>="):
+                tier_ge = _parse_tier(scope_part[len("tier>="):], clause)
+            elif scope_part.startswith("tier="):
+                tier = _parse_tier(scope_part[len("tier="):], clause)
+            else:
+                raise ValueError(
+                    f"SLO_TARGETS: bad scope {scope_part!r} in {clause!r} "
+                    "(expected model=<name>, tier=<n>, or tier>=<n>)"
+                )
+        metric, sep, target_raw = body.partition("=")
+        if not sep:
+            raise ValueError(
+                f"SLO_TARGETS: clause {clause!r} is not metric=target"
+            )
+        try:
+            target = float(target_raw.strip())
+        except ValueError:
+            raise ValueError(
+                f"SLO_TARGETS: target {target_raw.strip()!r} in {clause!r} "
+                "is not a number"
+            )
+        objective = Objective(
+            metric.strip(), target, model=model, tier=tier, tier_ge=tier_ge
+        )
+        if objective.id in seen:
+            raise ValueError(
+                f"SLO_TARGETS: duplicate objective {objective.id!r}"
+            )
+        seen.add(objective.id)
+        objectives.append(objective)
+    return objectives
+
+
+def _parse_tier(raw: str, clause: str) -> int:
+    try:
+        tier = int(raw.strip())
+    except ValueError:
+        raise ValueError(f"SLO_TARGETS: bad tier {raw!r} in {clause!r}")
+    if not (0 <= tier <= 9):
+        raise ValueError(f"SLO_TARGETS: tier must be 0..9 in {clause!r}")
+    return tier
+
+
+class SloEngine:
+    """Windowed error-budget ledger + burn-rate alerting over the
+    FlightRecorder ring and the timebase's shed counters.
+
+    ``ring`` is the anomaly evidence store the burn verdicts land in.
+    The container points it at ``tpu.costmodel.ring`` when a device is
+    wired (one `/admin/anomalies` surface); router/bare processes keep
+    the engine's own host-side ring."""
+
+    WINDOW_PAIRS = ("fast", "slow")
+
+    def __init__(
+        self,
+        telemetry: Any,
+        timebase: Any = None,
+        metrics: Any = None,
+        logger: Any = None,
+        targets: str = DEFAULT_TARGETS,
+        fast_s: float = 300.0,
+        fast_long_s: float = 3600.0,
+        slow_s: float = 21600.0,
+        slow_long_s: float = 259200.0,
+        fast_rate: float = 14.4,
+        slow_rate: float = 6.0,
+        interval_s: float = 15.0,
+        ring: Optional[AnomalyRing] = None,
+        start: bool = False,
+        clock: Callable[[], float] = time.perf_counter,
+        wall: Callable[[], float] = time.time,
+    ):
+        if not (0 < fast_s <= fast_long_s <= slow_s <= slow_long_s):
+            raise ValueError(
+                "SLO burn windows must satisfy 0 < SLO_BURN_FAST_S <= "
+                "SLO_BURN_FAST_LONG_S <= SLO_BURN_SLOW_S <= "
+                "SLO_BURN_SLOW_LONG_S"
+            )
+        if fast_rate <= 0 or slow_rate <= 0:
+            raise ValueError("SLO burn-rate thresholds must be > 0")
+        if interval_s <= 0:
+            raise ValueError("SLO_EVAL_INTERVAL_S must be > 0")
+        self.telemetry = telemetry
+        self.timebase = timebase
+        self._clock = clock
+        self._wall = wall
+        self.logger = logger
+        self.targets_spec = targets
+        self.objectives = parse_targets(targets)
+        self.fast_s = float(fast_s)
+        self.fast_long_s = float(fast_long_s)
+        self.slow_s = float(slow_s)
+        self.slow_long_s = float(slow_long_s)
+        self.fast_rate = float(fast_rate)
+        self.slow_rate = float(slow_rate)
+        self.interval_s = float(interval_s)
+        self.ring = ring if ring is not None else AnomalyRing()
+        # one latch per (objective, pair): an excursion records ONE
+        # anomaly event, re-armed when the burn drops back under the
+        # threshold (mirrors the cost model's ema_drift latch)
+        self._latched: dict[tuple[str, str], bool] = {}
+        self._alerts_total = 0
+        self._evaluations = 0
+        self._last_report: Optional[dict[str, Any]] = None
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._burn_gauge = (
+            metrics.gauge(
+                "gofr_tpu_slo_burn_rate",
+                "error-budget burn rate per objective and window "
+                "(1.0 = burning exactly the budget; the fast page fires "
+                "past SLO_BURN_FAST_RATE on both fast windows)",
+                labels=("objective", "window"),
+            )
+            if metrics is not None else None
+        )
+        self._budget_gauge = (
+            metrics.gauge(
+                "gofr_tpu_slo_budget_remaining",
+                "fraction of the error budget left over the long slow "
+                "window (1.0 = untouched, <= 0 = exhausted)",
+                labels=("objective",),
+            )
+            if metrics is not None else None
+        )
+        self._alert_counter = (
+            metrics.counter(
+                "gofr_tpu_slo_burn_alerts_total",
+                "burn-rate alert excursions (latched: one per entry "
+                "into the burning state)",
+                labels=("objective", "window"),
+            )
+            if metrics is not None else None
+        )
+        if start:
+            self.start()
+
+    # -- lifecycle ------------------------------------------------------------
+    def start(self) -> None:
+        if self._thread is not None and self._thread.is_alive():
+            return
+        self._stop.clear()
+        self._thread = threading.Thread(
+            target=self._loop, name="gofr-slo", daemon=True
+        )
+        self._thread.start()
+
+    def close(self) -> None:
+        self._stop.set()
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            try:
+                self.evaluate()
+            except Exception as exc:  # evaluation must never kill the thread
+                if self.logger is not None:
+                    try:
+                        self.logger.errorf("slo evaluation failed: %r", exc)
+                    except Exception:
+                        pass  # the logger itself failed: nothing left to report to
+
+    # -- measurement ----------------------------------------------------------
+    def _shed_fraction(self, window_s: float, completed: int) -> tuple[float, int, int]:
+        """(bad_fraction, bad, total) for shed_rate over ``window_s``:
+        sheds from counter deltas (timebase snapshots — sheds never make
+        flight records), demand = sheds + completed requests in the
+        window."""
+        if self.timebase is None:
+            return 0.0, 0, completed
+        sheds = sum(
+            self.timebase.counter_delta(name, window=window_s)
+            for name in SHED_COUNTERS
+        )
+        total = int(sheds) + completed
+        if total <= 0:
+            return 0.0, 0, 0
+        return sheds / total, int(sheds), total
+
+    def _window_stats(
+        self, objective: Objective, records: list, now: float, window_s: float
+    ) -> dict[str, Any]:
+        horizon = now - window_s
+        recent = [r for r in records if r.t_done >= horizon]
+        if objective.metric == "shed_rate":
+            frac, bad, total = self._shed_fraction(window_s, len(recent))
+        else:
+            verdicts = [
+                v for v in (objective.judge(r) for r in recent)
+                if v is not None
+            ]
+            total = len(verdicts)
+            bad = sum(1 for v in verdicts if v)
+            frac = bad / total if total else 0.0
+        return {
+            "window_s": window_s,
+            "bad": bad,
+            "total": total,
+            "bad_fraction": round(frac, 6),
+            "burn": round(frac / objective.budget, 3),
+        }
+
+    def evaluate(self) -> dict[str, Any]:
+        """One full evaluation pass: windowed burn rates per objective,
+        budget ledger, latched alert transitions into the anomaly ring,
+        gauge updates. Returns the report ``/admin/slo/budget`` serves."""
+        now = self._clock()
+        with self._lock:
+            return self._evaluate_locked(now)
+
+    def _evaluate_locked(self, now: float) -> dict[str, Any]:
+        windows = (self.fast_s, self.fast_long_s, self.slow_s,
+                   self.slow_long_s)
+        records = self.telemetry.finished_since(now - max(windows))
+        pairs = {
+            "fast": (self.fast_s, self.fast_long_s, self.fast_rate),
+            "slow": (self.slow_s, self.slow_long_s, self.slow_rate),
+        }
+        rows: list[dict[str, Any]] = []
+        for objective in self.objectives:
+            by_window: dict[str, dict[str, Any]] = {}
+            for window_s in windows:
+                name = _window_name(window_s)
+                if name in by_window:
+                    continue  # degenerate config: two equal windows
+                stats = self._window_stats(objective, records, now, window_s)
+                by_window[name] = stats
+                if self._burn_gauge is not None:
+                    self._burn_gauge.set(
+                        stats["burn"], objective=objective.id, window=name
+                    )
+            # budget ledger over the long slow window: fraction of the
+            # allowed bad requests still unspent
+            ledger = by_window[_window_name(self.slow_long_s)]
+            if ledger["total"]:
+                consumed = ledger["bad_fraction"] / objective.budget
+            else:
+                consumed = 0.0
+            remaining = round(1.0 - consumed, 4)
+            if self._budget_gauge is not None:
+                self._budget_gauge.set(remaining, objective=objective.id)
+            alerts: dict[str, bool] = {}
+            for pair, (short_s, long_s, rate) in pairs.items():
+                short = by_window[_window_name(short_s)]
+                long = by_window[_window_name(long_s)]
+                burning = short["burn"] > rate and long["burn"] > rate
+                alerts[pair] = burning
+                key = (objective.id, pair)
+                if burning and not self._latched.get(key):
+                    self._latched[key] = True
+                    self._alerts_total += 1
+                    if self._alert_counter is not None:
+                        self._alert_counter.inc(
+                            objective=objective.id, window=pair
+                        )
+                    self.ring.record(
+                        kind="slo",
+                        cause=f"slo_{pair}_burn",
+                        objective=objective.id,
+                        metric=objective.metric,
+                        window=pair,
+                        burn_short=short["burn"],
+                        burn_long=long["burn"],
+                        window_short_s=short_s,
+                        window_long_s=long_s,
+                        threshold=rate,
+                        budget_remaining=remaining,
+                        detail=(
+                            f"{objective.id} burning "
+                            f"{short['burn']}x budget over "
+                            f"{_window_name(short_s)} "
+                            f"({long['burn']}x over {_window_name(long_s)}; "
+                            f"page threshold {rate}x)"
+                        ),
+                    )
+                elif not burning:
+                    self._latched[key] = False
+            rows.append(dict(
+                objective.to_dict(),
+                windows=by_window,
+                budget_remaining=remaining,
+                budget_consumed=round(consumed, 4),
+                alerting=alerts,
+            ))
+        self._evaluations += 1
+        report = {
+            "targets": self.targets_spec,
+            "burn": {
+                "fast": {
+                    "short_s": self.fast_s, "long_s": self.fast_long_s,
+                    "threshold": self.fast_rate,
+                },
+                "slow": {
+                    "short_s": self.slow_s, "long_s": self.slow_long_s,
+                    "threshold": self.slow_rate,
+                },
+            },
+            "budget_window_s": self.slow_long_s,
+            "objectives": rows,
+            "alerts_total": self._alerts_total,
+            "evaluations": self._evaluations,
+            "ts": self._wall(),
+        }
+        self._last_report = report
+        return report
+
+    # -- read side ------------------------------------------------------------
+    def budget(self) -> dict[str, Any]:
+        """The ``/admin/slo/budget`` payload: a fresh evaluation plus
+        the most recent burn-alert evidence from the anomaly ring."""
+        report = self.evaluate()
+        return dict(
+            report,
+            recent_alerts=self.ring.events(limit=20, kind="slo"),
+        )
+
+    def headline(self) -> dict[str, Any]:
+        """Compact rollup for /admin/overview and the /admin/engine
+        scrape: the worst fast burn, the thinnest budget, who is
+        alerting, lifetime alert count. Reuses the freshest evaluator
+        report (the thread keeps it warm) rather than re-scanning."""
+        with self._lock:
+            report = self._last_report
+        if report is None:
+            report = self.evaluate()
+        fast_name = _window_name(self.fast_s)
+        worst_burn = 0.0
+        worst_objective = None
+        remaining_min = None
+        alerting: list[str] = []
+        for row in report["objectives"]:
+            burn = row["windows"].get(fast_name, {}).get("burn", 0.0)
+            if worst_objective is None or burn > worst_burn:
+                worst_burn, worst_objective = burn, row["objective"]
+            remaining = row["budget_remaining"]
+            if remaining_min is None or remaining < remaining_min:
+                remaining_min = remaining
+            if row["alerting"]["fast"] or row["alerting"]["slow"]:
+                alerting.append(row["objective"])
+        return {
+            "objectives": len(report["objectives"]),
+            "worst_burn": worst_burn,
+            "worst_objective": worst_objective,
+            "budget_remaining_min": remaining_min,
+            "alerting": alerting,
+            "alerts_total": report["alerts_total"],
+        }

@@ -1,6 +1,5 @@
-"""Request flight recorder: per-request end-to-end inference telemetry
-(port of ``gofr_tpu/telemetry.py``, without the generation journal, which
-comes with ROADMAP §A4).
+"""Request flight recorder: per-request end-to-end inference telemetry,
+and the generation journal (port of ``gofr_tpu/telemetry.py``).
 
 The metrics registry says how the server is doing; the flight recorder
 says what happened to ONE request. It keeps one ``FlightRecord`` per
@@ -18,6 +17,18 @@ the queue item's captured record, the decode pool the pool cohort and its
 chunks' dispatch ids, the device the token timing. Thread boundaries
 (handler pool, batcher dispatch, stream producer) carry it with
 ``contextvars.copy_context()``.
+
+The generation journal answers what the recorder cannot: which tokens an
+interrupted generation already emitted. ``GenerationJournal`` keeps one
+``JournalEntry`` a generation (keyed by ``request_key``: the prompt's hash,
+the sampling knobs with the seed, the budget and the stop set), retires it
+at a clean finish and keeps it, bounded, when the generation dies mid-flight
+(a pool failure, a recovery teardown), so a resume (``X-Resume-From``)
+re-prefills the prompt plus those tokens instead of truncating the stream.
+With a ``journal_wal.JournalWAL`` every transition and token also goes to
+disk, and ``rehydrate`` reinstates a killed process's entries at boot. The
+entry rides its own contextvar (``current_journal_entry``) so the decode
+pool can stamp where the stream was interrupted.
 """
 
 from __future__ import annotations
@@ -26,9 +37,12 @@ import contextvars
 import threading
 import time
 import uuid
+import weakref
 from collections import deque
 from typing import Any, Optional
 
+from gofr_tpu_torch.deadline import current_deadline, current_priority
+from gofr_tpu_torch.errors import DeadlineExceeded
 from gofr_tpu_torch.http.response import Stream
 from gofr_tpu_torch.tpu.introspect import current_dispatch
 from gofr_tpu_torch.tracing import current_trace_id
@@ -47,6 +61,23 @@ _current_record: contextvars.ContextVar[Optional["FlightRecord"]] = (
 def current_record() -> Optional["FlightRecord"]:
     """The in-flight request's FlightRecord, if one is active."""
     return _current_record.get()
+
+
+_current_journal_entry: contextvars.ContextVar[Optional["JournalEntry"]] = (
+    contextvars.ContextVar("gofr_journal_entry", default=None)
+)
+
+
+def current_journal_entry() -> Optional["JournalEntry"]:
+    """The in-flight generation's journal entry, if journaling is on."""
+    return _current_journal_entry.get()
+
+
+def activate_journal_entry(entry: Optional["JournalEntry"]) -> Any:
+    """Bind ``entry`` as the current one (None clears); returns the reset
+    token. The device binds it around each generation, so the pool request
+    captures it at submit."""
+    return _current_journal_entry.set(entry)
 
 
 # -- fleet-wide request origin (cross-process hop correlation) ---------------
@@ -213,6 +244,7 @@ class FlightRecord:
         "tenant", "deadline_s", "priority", "shed_stage",
         "wall_start", "t_start", "t_enqueue", "t_dispatch",
         "t_first_token", "t_last_token", "t_done", "wall_done", "_lock",
+        "__weakref__",  # the recorder's in-flight map holds records weakly
     )
 
     # device dispatches linked per record: enough to cover a prefill, its
@@ -277,11 +309,16 @@ class FlightRecord:
         # same ride as the origin above); None on paths that never ran
         # admission (bare test containers, internal probes)
         self.tenant = current_tenant()
-        # deadline-aware serving: the request's budget, priority tier and
-        # shed stage; the port parses no deadline or priority yet
-        # (ROADMAP §A4), so they stay unset
-        self.deadline_s: Optional[float] = None
-        self.priority: Optional[int] = None
+        # deadline-aware serving: the request's total budget and priority
+        # tier, read off the admission gate's contextvars (the tier rides
+        # its own var, so a request with X-Priority and no deadline still
+        # records it), and where an exceeded deadline shed it (queue |
+        # admission | decode; "" = never)
+        deadline = current_deadline()
+        self.deadline_s: Optional[float] = deadline.budget_s if deadline is not None else None
+        self.priority: Optional[int] = (
+            deadline.priority if deadline is not None else current_priority()
+        )
         self.shed_stage = ""
         self.wall_start = time.time()
         self.t_start = time.perf_counter()
@@ -394,10 +431,22 @@ class FlightRecord:
             self.tokens_out += n
         self.t_last_token = time.perf_counter()
 
+    def note_shed(self, stage: str) -> None:
+        """The FIRST stage that gave up on the request's deadline wins."""
+        if not self.shed_stage:
+            self.shed_stage = stage
+
     def note_error(self, exc: BaseException) -> None:
         """Device-layer failure: remembered even if the transport still
-        manages a response (a stream that already committed its 200)."""
-        self.status = "error"
+        manages a response (a stream that already committed its 200). A
+        deadline shed keeps its own status: a spent budget and a broken
+        device stay apart on /admin/requests and in the SLO error rate."""
+        if isinstance(exc, DeadlineExceeded):
+            self.status = "deadline_exceeded"
+            if exc.stage:
+                self.note_shed(exc.stage)
+        else:
+            self.status = "error"
         self.error = f"{type(exc).__name__}: {exc}"
 
     # -- derived -------------------------------------------------------------
@@ -487,6 +536,308 @@ class FlightRecord:
             "duration_s": self.duration,
         }
 
+
+
+def request_key(model: str, prompt_ids: Any, max_new_tokens: int,
+                sampler: Any = None, stop_tokens: Any = None) -> str:
+    """Deterministic identity of one generation request: the journal
+    key interrupted entries are claimed back by at resume time. Hashes
+    the prompt (never stores it raw — prompts are user data, the
+    journal serves on no endpoint but its key could leak into logs),
+    the sampling knobs INCLUDING the seed, the budget, and the stop
+    set: two requests that could produce different streams must never
+    share a key."""
+    import hashlib
+
+    parts = [model, str(int(max_new_tokens))]
+    if sampler is not None:
+        parts.append(
+            f"t={getattr(sampler, 'temperature', 0)}"
+            f"|k={getattr(sampler, 'top_k', 0)}"
+            f"|p={getattr(sampler, 'top_p', 1.0)}"
+            f"|m={getattr(sampler, 'min_p', 0.0)}"
+            f"|r={getattr(sampler, 'repetition_penalty', 1.0)}"
+            f"|pp={getattr(sampler, 'presence_penalty', 0.0)}"
+            f"|fp={getattr(sampler, 'frequency_penalty', 0.0)}"
+            # an unseeded request draws a random seed of its own: the key
+            # must not carry it, or no resume would find its entry
+            f"|s={getattr(sampler, 'seed', None) if getattr(sampler, 'seeded', True) else None}"
+        )
+    if stop_tokens:
+        parts.append(",".join(str(t) for t in sorted(stop_tokens)))
+    digest = hashlib.sha256()
+    for part in parts:
+        digest.update(part.encode("utf-8"))
+        digest.update(b"\x00")
+    digest.update(
+        ",".join(str(int(t)) for t in (prompt_ids or ())).encode("ascii")
+    )
+    return digest.hexdigest()[:32]
+
+
+class JournalEntry:
+    """One generation's durable record. Single-writer append (the
+    emitting thread); ``tokens`` reads take a snapshot copy under the
+    GIL (list slicing is atomic). Status walks
+    active → done | interrupted → resumed."""
+
+    __slots__ = (
+        "key", "model", "max_new_tokens", "seeded", "deterministic",
+        "tokens", "status", "reason", "t_start", "t_interrupted",
+        "prior", "truncated", "max_tokens", "wal_id", "_wal",
+    )
+
+    def __init__(self, key: str, model: str, max_new_tokens: int,
+                 seeded: bool, deterministic: bool, max_tokens: int,
+                 prior: Optional[list] = None):
+        self.key = key
+        self.model = model
+        self.max_new_tokens = max_new_tokens
+        self.seeded = seeded
+        # greedy or seeded: replaying the request reproduces the stream
+        # bit-identically — the precondition for resume
+        self.deterministic = deterministic
+        self.max_tokens = max_tokens
+        # a RESUMED request's entry pre-seeds the tokens the interrupted
+        # incarnation already produced, so a second wedge resumes from
+        # the union, not from the resume point
+        self.tokens: list[int] = list(prior or ())
+        self.truncated = False
+        self.status = "active"
+        self.reason = ""
+        self.t_start = time.perf_counter()
+        self.t_interrupted: Optional[float] = None
+        # write-ahead log attachment (journal_wal.py): when the journal
+        # runs durable, every append streams through to disk so a
+        # SIGKILLed process rehydrates this entry at next boot
+        self.wal_id = 0
+        self._wal: Any = None
+
+    def append(self, token: int) -> None:
+        if len(self.tokens) >= self.max_tokens:
+            # a bounded record can no longer prove bit-identity past its
+            # cap — the entry stays for forensics but refuses resume
+            if not self.truncated and self._wal is not None:
+                # retire the on-disk record too: a rehydrated truncated
+                # entry could not prove the tokens past its cap either
+                self._wal.retire(self.wal_id)
+            self.truncated = True
+            return
+        self.tokens.append(int(token))
+        if self._wal is not None:
+            self._wal.append_tokens(self.wal_id, (token,))
+
+    def note_interrupted(self, reason: str) -> None:
+        """Stamp WHY (pool failure, batcher close, recovery teardown);
+        the first cause wins — later layers see consequences."""
+        if not self.reason:
+            self.reason = reason
+
+    def snapshot(self) -> dict[str, Any]:
+        return {
+            "key": self.key,
+            "model": self.model,
+            "status": self.status,
+            "tokens": len(self.tokens),
+            "max_new_tokens": self.max_new_tokens,
+            "deterministic": self.deterministic,
+            "reason": self.reason or None,
+        }
+
+
+class GenerationJournal:
+    """Bounded store of :class:`JournalEntry` records keyed by
+    :func:`request_key`.
+
+    Completed entries retire immediately (their tokens already reached
+    the client); INTERRUPTED entries are the valuable ones — they wait,
+    bounded by ``capacity`` (oldest evicted first), for a resume to
+    :meth:`claim` them. The journal never initiates anything: the
+    device consults it on a resume request (``X-Resume-From`` /
+    ``generate_stream(resume_from=...)``) and the fleet router decides
+    WHEN to resume."""
+
+    def __init__(self, capacity: int = 256, max_tokens: int = 8192,
+                 metrics: Any = None, wal: Any = None):
+        self.capacity = max(1, capacity)
+        self.max_tokens = max(1, max_tokens)
+        self._lock = threading.Lock()
+        # key -> list of entries (concurrent identical seeded requests
+        # are legal; each gets its own entry, claims pop one)
+        self._interrupted: "dict[str, list[JournalEntry]]" = {}
+        self._interrupted_order: "deque[JournalEntry]" = deque()
+        self._active = 0
+        self.interruptions = 0
+        self.completions = 0
+        # optional write-ahead log (journal_wal.JournalWAL): every
+        # lifecycle transition and emitted token streams to disk, and
+        # rehydrate() reinstates a SIGKILLed process's resumable entries
+        self.wal = wal
+        self.rehydrated = 0
+        self._resumes = (
+            metrics.counter(
+                "gofr_tpu_journal_resumes_total",
+                "interrupted generations resumed from the journal by "
+                "mode: teacher_forced (prefill over prompt+emitted, "
+                "paged-KV aliased) or replayed (full deterministic "
+                "regeneration, first tokens suppressed)",
+                labels=("mode",),
+            )
+            if metrics is not None else None
+        )
+
+    # -- lifecycle (device-side) ----------------------------------------------
+    def start(self, key: str, model: str, max_new_tokens: int,
+              seeded: bool, deterministic: bool,
+              prior: Optional[list] = None) -> JournalEntry:
+        entry = JournalEntry(
+            key, model, max_new_tokens, seeded, deterministic,
+            max_tokens=self.max_tokens, prior=prior,
+        )
+        if self.wal is not None:
+            entry._wal = self.wal
+            entry.wal_id = self.wal.open_entry(
+                key, model, max_new_tokens, seeded, deterministic,
+                prior=prior,
+            )
+        with self._lock:
+            self._active += 1
+        return entry
+
+    def rehydrate(self) -> int:
+        """Reinstate the WAL's recovered entries as interrupted,
+        resumable ones — called once at boot, before serving. Returns
+        the count (also on :attr:`rehydrated` and ``stats()``). The
+        restarted process then serves ``X-Resume-From`` for its own
+        pre-crash streams exactly as if the engine had merely wedged."""
+        if self.wal is None:
+            return 0
+        count = 0
+        for state in self.wal.recover():
+            entry = JournalEntry(
+                state["key"], state["model"], int(state["mnt"]),
+                seeded=bool(state["seeded"]),
+                deterministic=bool(state["det"]),
+                max_tokens=self.max_tokens,
+                prior=state.get("tokens") or (),
+            )
+            entry.wal_id = int(state["id"])
+            entry._wal = self.wal
+            self.wal.adopt(entry.wal_id, state)
+            self.interrupt(entry, state.get("reason") or "process death")
+            count += 1
+        # interrupt() counted these as live interruptions; recovery
+        # evidence must stay distinguishable from in-process failures
+        with self._lock:
+            self.interruptions -= count
+        self.rehydrated = count
+        return count
+
+    def finish(self, entry: JournalEntry) -> None:
+        """Clean completion: the entry retires (its stream reached the
+        client; nothing to resume)."""
+        if entry.status != "active":
+            return
+        entry.status = "done"
+        if entry._wal is not None and not entry.truncated:
+            entry._wal.finish(entry.wal_id)
+        with self._lock:
+            self._active = max(0, self._active - 1)
+            self.completions += 1
+
+    def interrupt(self, entry: JournalEntry, reason: str) -> None:
+        """The generation died mid-flight: retain the entry for resume
+        (idempotent — the first interruption wins)."""
+        if entry.status != "active":
+            return
+        entry.status = "interrupted"
+        entry.note_interrupted(reason)
+        entry.t_interrupted = time.perf_counter()
+        if entry._wal is not None and not entry.truncated:
+            entry._wal.interrupt(entry.wal_id, entry.reason)
+        evictions: list[JournalEntry] = []
+        with self._lock:
+            self._active = max(0, self._active - 1)
+            self.interruptions += 1
+            self._interrupted.setdefault(entry.key, []).append(entry)
+            self._interrupted_order.append(entry)
+            while len(self._interrupted_order) > self.capacity:
+                evicted = self._interrupted_order.popleft()
+                bucket = self._interrupted.get(evicted.key)
+                if bucket is not None:
+                    try:
+                        bucket.remove(evicted)
+                    except ValueError:
+                        pass  # already claimed
+                    if not bucket:
+                        self._interrupted.pop(evicted.key, None)
+                evictions.append(evicted)
+        for evicted in evictions:
+            if evicted._wal is not None and evicted.status == "interrupted":
+                # capacity eviction: the on-disk record retires too, or
+                # recovery would resurrect an entry the live journal
+                # already refused to keep. OUTSIDE the journal lock: a
+                # WAL write is disk I/O (fsync on rotation), and the
+                # lock sits on the per-token serving path
+                evicted._wal.retire(evicted.wal_id)
+
+    # -- resume (device-side, driven by the router/client) ---------------------
+    def claim(self, key: str, min_tokens: int = 0) -> Optional[JournalEntry]:
+        """Pop one interrupted entry for ``key`` holding at least
+        ``min_tokens`` journaled tokens (the client already received
+        that many — a shorter record cannot prove them). Returns None
+        when nothing matches; the caller then falls back to full
+        deterministic replay."""
+        claimed: Optional[JournalEntry] = None
+        with self._lock:
+            bucket = self._interrupted.get(key)
+            if not bucket:
+                return None
+            for i, entry in enumerate(bucket):
+                if entry.truncated or len(entry.tokens) < min_tokens:
+                    continue
+                del bucket[i]
+                if not bucket:
+                    self._interrupted.pop(key, None)
+                try:
+                    self._interrupted_order.remove(entry)
+                except ValueError:
+                    pass
+                entry.status = "resumed"
+                claimed = entry
+                break
+        if claimed is not None and claimed._wal is not None:
+            # the resumed CONTINUATION opens its own entry (the resume
+            # generate passes journal_key/journal_prior), so this record
+            # retires — a second crash resumes from the continuation's
+            # entry, which holds the union of tokens. OUTSIDE the
+            # journal lock: the WAL write is disk I/O
+            claimed._wal.claim(claimed.wal_id)
+        return claimed
+
+    def note_resume(self, mode: str) -> None:
+        """Count one resume by mode (teacher_forced | replayed)."""
+        if self._resumes is not None:
+            self._resumes.inc(mode=mode)
+
+    # -- read side -------------------------------------------------------------
+    def interrupted(self) -> list[dict[str, Any]]:
+        with self._lock:
+            return [e.snapshot() for e in self._interrupted_order]
+
+    def stats(self) -> dict[str, Any]:
+        with self._lock:
+            out = {
+                "active": self._active,
+                "interrupted": len(self._interrupted_order),
+                "capacity": self.capacity,
+                "max_tokens_per_entry": self.max_tokens,
+                "interruptions": self.interruptions,
+                "completions": self.completions,
+                "rehydrated": self.rehydrated,
+            }
+        out["wal"] = self.wal.stats() if self.wal is not None else None
+        return out
 
 
 def _percentiles(samples: list[float]) -> dict[str, float]:
@@ -670,6 +1021,11 @@ class TenantLedger:
         if self._tracked_gauge is not None:
             self._tracked_gauge.set(float(tracked))
 
+    def shed(self, tenant: str) -> None:
+        """Meter one shed (a brownout 429): sheds make no flight record, so
+        the shed site feeds the ledger directly."""
+        self.observe(tenant, sheds=1)
+
     # -- read side (admin API) -----------------------------------------------
     def get(self, tenant: str) -> Optional[dict[str, Any]]:
         """One tenant's exact counters (None = not currently tracked —
@@ -763,6 +1119,11 @@ class FlightRecorder:
         self.tenants = tenants
         self._ring: "deque[FlightRecord]" = deque(maxlen=max(1, capacity))
         self._notable: "deque[FlightRecord]" = deque(maxlen=max(1, keep))
+        # started, not finished: the requests in flight (a postmortem's
+        # most useful records: those riding a wedged dispatch never land)
+        self._active: "weakref.WeakValueDictionary[int, FlightRecord]" = (
+            weakref.WeakValueDictionary()
+        )
         self._lock = threading.Lock()
 
     # -- lifecycle -----------------------------------------------------------
@@ -779,6 +1140,8 @@ class FlightRecorder:
             model=model, endpoint=endpoint, trace_id=trace_id,
             tokens_in=tokens_in, stream=stream,
         )
+        with self._lock:
+            self._active[id(record)] = record
         if activate:
             activate_record(record)
         return record
@@ -801,6 +1164,7 @@ class FlightRecorder:
         elif record.status == "in_flight":
             record.status = status
         with self._lock:
+            self._active.pop(id(record), None)
             self._ring.append(record)
             if self.is_slow(record) or record.status != "ok":
                 self._notable.append(record)
@@ -855,7 +1219,24 @@ class FlightRecorder:
         result.events = guarded()
         return result
 
-    # -- read side (admin API) -----------------------------------------------
+    # -- read side (admin API, postmortem, SLO engine) -------------------------
+    def active_count(self) -> int:
+        """Requests in flight (the rollup's number)."""
+        with self._lock:
+            return len(self._active)
+
+    def active_records(self) -> list[dict[str, Any]]:
+        """The records started and not finished, oldest first."""
+        with self._lock:
+            active = sorted(self._active.values(), key=lambda r: r.t_start)
+        return [r.to_dict() for r in active]
+
+    def finished_since(self, horizon: float) -> list[FlightRecord]:
+        """Finished records with ``t_done >= horizon`` (a perf_counter
+        mark), the SLO engine's windowed scan: the live objects, read-only."""
+        with self._lock:
+            return [r for r in self._ring if r.t_done is not None and r.t_done >= horizon]
+
     def records(
         self,
         slow: Optional[bool] = None,

@@ -1,0 +1,352 @@
+"""Telemetry timebase: a bounded ring of timestamped metric snapshots
+(port of ``gofr_tpu/timebase.py``).
+
+``/metrics`` and ``/admin/engine`` say "now"; the timebase keeps the
+lead-up. ``TimebaseSampler`` scrapes the registry (``Registry.collect()``)
+every ``TIMEBASE_INTERVAL_S`` (5 s) on a daemon thread into a ring bounded
+by ``TIMEBASE_WINDOW_S`` (15 min), and derives from it:
+
+- ``series(metric, labels, window)``: the raw points per label-set, behind
+  ``GET /admin/timeseries``, with a per-second ``rate`` for counters and
+  histograms (a counter reset clamps to 0);
+- ``rate_total`` (a labeled counter's summed rate: req/s, anomalies/s) and
+  ``counter_delta`` (the SLO engine's shed counts);
+- ``hist_quantile_trend(metric, q)``: interval-local quantiles from the
+  buckets' deltas, for ``GET /admin/overview``.
+
+The last snapshots ride every postmortem bundle. ``clock`` (monotonic:
+windows and rates) and ``wall`` (display timestamps) are injectable, so a
+test drives the ring on a fake clock. Host reads only: it keeps working
+while the engine is wedged.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import Any, Callable, Optional
+
+# a tiny interval against a huge window would mint an absurd ring; cap
+# the snapshot count so misconfiguration costs memory errors nothing
+MAX_SNAPSHOTS = 4096
+
+
+class TimebaseSampler:
+    """Background registry sampler + bounded snapshot ring + query side."""
+
+    def __init__(
+        self,
+        registry: Any,
+        interval_s: float = 5.0,
+        window_s: float = 900.0,
+        logger: Any = None,
+        start: bool = True,
+        clock: Callable[[], float] = time.monotonic,
+        wall: Callable[[], float] = time.time,
+    ):
+        if interval_s <= 0:
+            raise ValueError("TIMEBASE_INTERVAL_S must be > 0")
+        if window_s < interval_s:
+            raise ValueError("TIMEBASE_WINDOW_S must be >= TIMEBASE_INTERVAL_S")
+        self.registry = registry
+        self.interval_s = float(interval_s)
+        self.window_s = float(window_s)
+        self.logger = logger
+        self._clock = clock
+        self._wall = wall
+        capacity = min(MAX_SNAPSHOTS, max(2, int(window_s / interval_s) + 1))
+        self._ring: "deque[dict[str, Any]]" = deque(maxlen=capacity)
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        if start:
+            self.start()
+
+    # -- lifecycle ------------------------------------------------------------
+    def start(self) -> None:
+        if self._thread is not None and self._thread.is_alive():
+            return
+        self._stop.clear()
+        self._thread = threading.Thread(
+            target=self._loop, name="gofr-timebase", daemon=True
+        )
+        self._thread.start()
+
+    def close(self) -> None:
+        self._stop.set()
+
+    def _loop(self) -> None:
+        # sample immediately: the first snapshot anchors every rate
+        # series, and a crash 3s after boot should still leave one
+        self.sample_now()
+        while not self._stop.wait(self.interval_s):
+            self.sample_now()
+
+    def sample_now(self) -> dict[str, Any]:
+        """Take one snapshot (and append it to the ring). Also the test
+        seam: drive the ring deterministically without the thread."""
+        try:
+            snapshot = {
+                # display timestamp for /admin/timeseries points and
+                # postmortem bundles; every duration/window/rate
+                # computation uses the monotonic mark next to it
+                "ts": self._wall(),
+                "mono": self._clock(),
+                "metrics": self.registry.collect(),
+            }
+        except Exception as exc:  # sampling must never kill the thread
+            if self.logger is not None:
+                try:
+                    self.logger.errorf("timebase sample failed: %r", exc)
+                except Exception:
+                    pass  # the logger itself failed: nothing left to report to
+            return {}
+        with self._lock:
+            self._ring.append(snapshot)
+        return snapshot
+
+    # -- raw read side --------------------------------------------------------
+    def snapshots(
+        self, last: Optional[int] = None, window: Optional[float] = None
+    ) -> list[dict[str, Any]]:
+        """Snapshots oldest-first; ``last`` bounds the count, ``window``
+        (seconds back from now) bounds the age."""
+        with self._lock:
+            snaps = list(self._ring)
+        if window is not None:
+            # monotonic horizon: a wall-clock step (NTP, suspend) must
+            # never silently widen or empty the window
+            horizon = self._clock() - window
+            snaps = [s for s in snaps if s["mono"] >= horizon]
+        if last is not None and last > 0:
+            snaps = snaps[-last:]
+        return snaps
+
+    def stats(self) -> dict[str, Any]:
+        with self._lock:
+            snaps = len(self._ring)
+            span = (
+                self._ring[-1]["mono"] - self._ring[0]["mono"]
+                if snaps >= 2 else 0.0
+            )
+        return {
+            "interval_s": self.interval_s,
+            "window_s": self.window_s,
+            "snapshots": snaps,
+            "span_s": round(span, 3),
+        }
+
+    # -- series queries -------------------------------------------------------
+    @staticmethod
+    def _match(
+        label_names: tuple, key: tuple, labels: Optional[dict]
+    ) -> bool:
+        if not labels:
+            return True
+        have = dict(zip(label_names, key))
+        return all(have.get(n) == v for n, v in labels.items())
+
+    @staticmethod
+    def _scalar(kind: str, value: Any) -> float:
+        """One comparable number per series point: counters/gauges are
+        themselves; histograms contribute their cumulative COUNT (the
+        rate of a histogram is its event rate)."""
+        if kind == "histogram":
+            return float(value["count"])
+        return float(value)
+
+    def series(
+        self,
+        metric: str,
+        labels: Optional[dict] = None,
+        window: Optional[float] = None,
+    ) -> Optional[dict[str, Any]]:
+        """Raw time series for ``metric``: one entry per label-set
+        (filtered by the ``labels`` subset), each with ``points``
+        ``[[ts, value], ...]`` oldest-first plus — for counters and
+        histograms — the derived ``rate`` series. Returns None when the
+        ring has never seen the metric."""
+        snaps = self.snapshots(window=window)
+        kind = None
+        label_names: tuple = ()
+        per_key: dict[tuple, list[tuple[float, float, float]]] = {}
+        for snap in snaps:
+            entry = snap["metrics"].get(metric)
+            if entry is None:
+                continue
+            kind = entry["kind"]
+            label_names = tuple(entry["label_names"])
+            for key, value in entry["series"].items():
+                if not self._match(label_names, key, labels):
+                    continue
+                per_key.setdefault(key, []).append(
+                    (snap["ts"], snap["mono"], self._scalar(kind, value))
+                )
+        if kind is None:
+            return None
+        cumulative = kind in ("counter", "histogram")
+        out = []
+        for key, triples in sorted(per_key.items()):
+            entry: dict[str, Any] = {
+                "labels": dict(zip(label_names, key)),
+                "points": [[ts, v] for ts, _, v in triples],
+            }
+            if cumulative:
+                entry["rate"] = _rate_of(triples)
+            out.append(entry)
+        return {
+            "metric": metric,
+            "kind": kind,
+            "interval_s": self.interval_s,
+            "series": out,
+        }
+
+    def rate_total(
+        self,
+        metric: str,
+        window: Optional[float] = None,
+        labels: Optional[dict] = None,
+    ) -> list[list[float]]:
+        """Counter rate summed across every label-set — the "req/s"
+        shape of a labeled counter. ``labels`` restricts the sum to
+        matching subsets (same semantics as ``series()``: the cost-model
+        rollup sums one anomaly ``cause`` across kinds). Empty list when
+        unknown."""
+        snaps = self.snapshots(window=window)
+        points: list[tuple[float, float, float]] = []
+        for snap in snaps:
+            entry = snap["metrics"].get(metric)
+            if entry is None:
+                continue
+            label_names = tuple(entry["label_names"])
+            total = sum(
+                self._scalar(entry["kind"], v)
+                for key, v in entry["series"].items()
+                if self._match(label_names, key, labels)
+            )
+            points.append((snap["ts"], snap["mono"], total))
+        return _rate_of(points)
+
+    def counter_delta(
+        self,
+        metric: str,
+        window: Optional[float] = None,
+        labels: Optional[dict] = None,
+    ) -> float:
+        """Total increase of a cumulative metric (counter, or histogram
+        event count) over the window, summed across matching label-sets:
+        consecutive-snapshot deltas with resets clamped to 0 (same
+        discipline as ``_rate_of``). This is the SLO engine's shed-rate
+        source — sheds never create flight records, so their counters
+        are the only window-scoped truth. Returns 0.0 when the ring has
+        never seen the metric (or holds < 2 snapshots in the window:
+        increments older than the ring's retention are invisible — the
+        caller's window silently clips to what the timebase retains)."""
+        snaps = self.snapshots(window=window)
+        points: list[float] = []
+        for snap in snaps:
+            entry = snap["metrics"].get(metric)
+            if entry is None:
+                continue
+            label_names = tuple(entry["label_names"])
+            points.append(sum(
+                self._scalar(entry["kind"], v)
+                for key, v in entry["series"].items()
+                if self._match(label_names, key, labels)
+            ))
+        return sum(max(0.0, b - a) for a, b in zip(points, points[1:]))
+
+    def hist_quantile_trend(
+        self,
+        metric: str,
+        q: float,
+        labels: Optional[dict] = None,
+        window: Optional[float] = None,
+    ) -> list[list[float]]:
+        """Interval-local quantile trend from histogram bucket deltas:
+        for each consecutive snapshot pair, the q-quantile (bucket
+        upper-bound semantics, like ``Histogram.percentile``) of ONLY
+        the observations that landed between them, bucket counts summed
+        across matching label-sets. Intervals with no observations are
+        skipped (no point beats a fabricated zero)."""
+        snaps = self.snapshots(window=window)
+        frames: list[tuple[float, tuple, list[int], int]] = []
+        for snap in snaps:
+            entry = snap["metrics"].get(metric)
+            if entry is None or entry["kind"] != "histogram":
+                continue
+            buckets = tuple(entry["buckets"] or ())
+            if not buckets:
+                continue
+            label_names = tuple(entry["label_names"])
+            summed = [0] * len(buckets)
+            total = 0
+            for key, value in entry["series"].items():
+                if not self._match(label_names, key, labels):
+                    continue
+                for i, c in enumerate(value["counts"]):
+                    summed[i] += c
+                total += value["count"]
+            frames.append((snap["ts"], buckets, summed, total))
+        out: list[list[float]] = []
+        for (t0, b0, c0, n0), (t1, b1, c1, n1) in zip(frames, frames[1:]):
+            if b0 != b1:
+                continue  # registry rebuilt with different buckets
+            delta = [max(0, a - b) for a, b in zip(c1, c0)]
+            # the interval's TOTAL comes from the count deltas, not the
+            # finite buckets: observations past buckets[-1] live only in
+            # the +Inf overflow, and an incident where every TTFT blows
+            # the top bucket is exactly when the trend must NOT go blank
+            total = max(0, n1 - n0)
+            if not total:
+                continue
+            rank = q * total
+            acc = 0
+            value = b1[-1]  # rank in the overflow clamps to the top bound
+            for i, c in enumerate(delta):
+                acc += c
+                if acc >= rank:
+                    value = b1[i]
+                    break
+            out.append([t1, value])
+        return out
+
+
+def jsonable_snapshots(snaps: list[dict[str, Any]]) -> list[dict[str, Any]]:
+    """Ring snapshots keyed by label-VALUE TUPLES (fast to sample and
+    query) converted to a JSON-serializable shape for postmortem
+    bundles: each metric's series becomes ``[[label_values...], value]``
+    pairs."""
+    out = []
+    for snap in snaps:
+        metrics = {}
+        for name, entry in snap["metrics"].items():
+            metrics[name] = {
+                "kind": entry["kind"],
+                "label_names": list(entry["label_names"]),
+                "buckets": (
+                    list(entry["buckets"]) if entry.get("buckets") else None
+                ),
+                "series": [
+                    [list(key), value] for key, value in entry["series"].items()
+                ],
+            }
+        out.append({"ts": snap["ts"], "metrics": metrics})
+    return out
+
+
+def _rate_of(points: list[tuple[float, float, float]]) -> list[list[float]]:
+    """Per-second rate between consecutive cumulative ``(ts, mono,
+    value)`` points: dt comes from the MONOTONIC marks (a wall-clock
+    step must never inflate or negate a rate), the emitted timestamp is
+    the wall-clock one (display). A value going DOWN means the process
+    (or a label-set) reset — clamp the delta to 0 rather than emitting
+    a giant negative spike."""
+    out: list[list[float]] = []
+    for (_, m0, v0), (t1, m1, v1) in zip(points, points[1:]):
+        dt = m1 - m0
+        if dt <= 0:
+            continue
+        out.append([t1, max(0.0, v1 - v0) / dt])
+    return out

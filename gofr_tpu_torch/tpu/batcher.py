@@ -14,8 +14,12 @@ package); ``infer_async`` awaits. With ``metrics`` it keeps the JAX batcher's
 families, labelled ``model``: ``gofr_tpu_batch_size`` and
 ``gofr_tpu_queue_wait_seconds`` (each dispatch), ``gofr_tpu_queue_depth``
 (each submit and dispatch), ``gofr_tpu_prefill_padded_tokens_total``
-(bucket width minus true length, with a ``bucket_fn``) and the
-``gofr_tpu_deadline_exceeded_total`` registration. With a ``timeline``
+(bucket width minus true length, with a ``bucket_fn``) and
+``gofr_tpu_deadline_exceeded_total{stage="queue"}``: an item carries the
+request's deadline (``deadline.current_deadline`` at submit), and one that
+expired while queued is shed at dequeue (and again just before its
+dispatch) with a 504 ``DeadlineExceeded``, never dispatched; an item whose
+future was cancelled is skipped there. With a ``timeline``
 (``tpu/introspect.py``) each dispatch is a ``prefill`` record, queued at
 its oldest item's arrival, running from the scheduler's gate, done when
 ``run_batch`` returns (a runner on the card ends it with its host sync,
@@ -23,8 +27,8 @@ so the record covers the card's work), and active on the dispatch thread
 (``current_dispatch``) so the runner can stamp its MFU; each item's flight
 record (captured at submit) gets its enqueue and dispatch marks, the cohort,
 the dispatch id, the prefill chunk and the scheduler's defer. With a
-``watchdog`` the call runs under its deadline. Tracing spans and deadlines
-of the JAX package are not ported yet. ``verify_width`` and its ladder
+``watchdog`` the call runs under its deadline. Tracing spans of the JAX
+package are not ported yet. ``verify_width`` and its ladder
 cohort pooled speculation's verify widths.
 """
 
@@ -36,13 +40,13 @@ import queue
 import threading
 import time
 from collections import deque
-from concurrent.futures import Future, ThreadPoolExecutor
+from concurrent.futures import Future, InvalidStateError, ThreadPoolExecutor
 from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 
-from gofr_tpu_torch.deadline import deadline_exceeded_counter
-from gofr_tpu_torch.errors import TooManyRequestsError
+from gofr_tpu_torch.deadline import current_deadline, deadline_exceeded_counter
+from gofr_tpu_torch.errors import DeadlineExceeded, TooManyRequestsError
 from gofr_tpu_torch.telemetry import current_record
 from gofr_tpu_torch.tpu.introspect import activate_dispatch
 
@@ -104,14 +108,16 @@ def pack_token_rows(
 
 
 class _Item:
-    __slots__ = ("payload", "future", "arrival", "record")
+    __slots__ = ("payload", "future", "arrival", "record", "deadline")
 
     def __init__(self, payload: Any):
         self.payload = payload
         self.future: Future = Future()
         self.arrival = time.perf_counter()
-        # the caller's flight record rides the item to the dispatch thread
+        # the caller's flight record and deadline ride the item to the
+        # worker and the dispatch thread
         self.record = current_record()
+        self.deadline = current_deadline()
         if self.record is not None:
             self.record.mark_enqueue()
 
@@ -152,7 +158,7 @@ class DynamicBatcher:
         self._closed = False
         self.name = name
         self._batch_hist = self._queue_gauge = self._wait_hist = None
-        self._padded_counter = None
+        self._padded_counter = self._deadline_counter = None
         if metrics is not None:
             self._batch_hist = metrics.histogram(
                 "gofr_tpu_batch_size", "dispatched batch sizes",
@@ -172,7 +178,7 @@ class DynamicBatcher:
                     "(bucket width minus true length, summed per cohort)",
                     labels=("model",),
                 )
-            deadline_exceeded_counter(metrics)  # the family; deadlines come later
+            self._deadline_counter = deadline_exceeded_counter(metrics)
         self._thread = threading.Thread(
             target=self._run, daemon=True, name=f"gofr-batcher-{name}"
         )
@@ -212,12 +218,16 @@ class DynamicBatcher:
                     continue
                 if first is None:
                     return
+            if not self._viable(first):
+                continue  # shed or skipped at dequeue: it holds no batch open
             batch = [first]
             deadline = first.arrival + self.timeout_s
             closing = False
             while len(batch) < self.max_batch:
                 if pending:
-                    batch.append(pending.popleft())
+                    item = pending.popleft()
+                    if self._viable(item):
+                        batch.append(item)
                     continue
                 remaining = deadline - time.perf_counter()
                 if remaining <= 0:
@@ -229,8 +239,11 @@ class DynamicBatcher:
                 if item is None:
                     closing = True
                     break
-                batch.append(item)
-            batch = [item for item in batch if not item.future.cancelled()]
+                if self._viable(item):
+                    batch.append(item)
+            # an item can expire (or be cancelled) during the drain wait:
+            # it must not take a cohort slot or pad tokens
+            batch = [item for item in batch if self._viable(item)]
             if batch:
                 cohort, rest = self._form_cohort(batch)
                 pending.extend(rest)
@@ -242,6 +255,31 @@ class DynamicBatcher:
                     pending.extend(rest)
                     self._dispatch_pool.submit(self._dispatch, cohort)
                 return
+
+    def _viable(self, item: _Item) -> bool:
+        """The dequeue gate: False for an item that must not dispatch. A
+        cancelled or resolved future is skipped; an item whose deadline
+        expired while queued is shed: its future fails with
+        ``DeadlineExceeded`` (stage ``queue``), the stage counter and its
+        flight record learn it, and the device never sees it."""
+        future = item.future
+        if future.cancelled() or future.done():
+            return False
+        if item.deadline is not None and item.deadline.expired():
+            if item.record is not None:
+                item.record.note_shed("queue")
+            if self._deadline_counter is not None:
+                self._deadline_counter.inc(stage="queue")
+            waited = time.perf_counter() - item.arrival
+            try:
+                future.set_exception(DeadlineExceeded(
+                    f"deadline expired after {waited * 1000:.0f} ms in the batch queue "
+                    f"(budget {item.deadline.budget_s * 1000:.0f} ms)", stage="queue",
+                ))
+            except InvalidStateError:
+                pass  # cancelled meanwhile: it must not dispatch either way
+            return False
+        return True
 
     def _form_cohort(self, batch: list[_Item]) -> tuple[list[_Item], list[_Item]]:
         """Split a drained batch by bucket and pick the fullest cohort (ties
@@ -297,6 +335,11 @@ class DynamicBatcher:
         return bucket, drec
 
     def _dispatch(self, batch: list[_Item]) -> None:
+        # the last shed before the card: a batch can wait for a dispatch
+        # thread long enough for a member to expire
+        batch = [item for item in batch if self._viable(item)]
+        if not batch:
+            return
         with self._count_lock:
             self.dispatches += 1
         drec = None

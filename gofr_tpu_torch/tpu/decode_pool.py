@@ -95,7 +95,9 @@ running from its dispatch and done after the host's wait on its copy, so
 its duration holds the card's work (a launch returns at once); the riding
 requests' flight records get its id, their pool cohort and KV reservation.
 The wait runs under the watchdog, since a kernel that never ends hangs
-there. The interval the gauges divide by is the pool's dispatch cadence:
+there, and so do the launches: a chunk's ~15,000 fill the CUDA launch queue
+behind a stuck kernel, and the host then blocks in the launch. The interval
+the gauges divide by is the pool's dispatch cadence:
 from this chunk's dispatch to the next one's, already made when a younger
 chunk is in flight (host-bound, the host's issue of a chunk; card-bound,
 the worker dispatches after each fetch, so the card's time a chunk), else
@@ -106,7 +108,19 @@ read up to depth x the rate: on the card, MBU 0.49 against 0.13 at one
 stream.) A dying worker closes every record it had in flight as
 ``error``.
 
-A later slice takes the rest of the JAX pool: deadlines.
+Deadlines and cancellation (``deadline.py``): a request carries the
+deadline and the journal entry current at submit. ``admit_deadline`` (at
+submit, and called by the runner before a pooled request's prefill)
+refuses a request whose remaining budget cannot cover one chunk at the
+observed cadence (an EMA of the dispatch cadence) while rows are decoding:
+a 504 ``DeadlineExceeded`` (stage ``admission``, reject reason
+``deadline``), never a solo fallback. At each chunk boundary a row past its
+deadline finishes (the ``DEADLINE`` marker before ``DONE``; stage
+``decode``, cause ``deadline``) and a cancelled row (its stop event set by
+the client's abort) finishes too, each freeing its slot and its KV
+reservation at once. A dying pool stamps the cause on every active row's
+journal entry. ``close(timeout, strict=False)`` bounds the join for a
+recovery teardown, whose worker may be parked on a wedged wait.
 """
 
 from __future__ import annotations
@@ -124,16 +138,21 @@ import torch
 from gofr_tpu_torch.deadline import (
     cancellations_counter,
     clamp_spec_k,
+    current_deadline,
     deadline_exceeded_counter,
     pool_reject_counter,
 )
+from gofr_tpu_torch.errors import DeadlineExceeded
 from gofr_tpu_torch.ops.attention import kv_bits
-from gofr_tpu_torch.telemetry import current_record
+from gofr_tpu_torch.telemetry import current_journal_entry, current_record
 from gofr_tpu_torch.tpu.batcher import verify_width, verify_width_ladder
 from gofr_tpu_torch.tpu.flops import mbu, mfu, tree_bytes
 from gofr_tpu_torch.tpu.kv_blocks import to_device
 
 DONE = object()  # end-of-stream marker on a slot's token queue
+# precedes DONE when the row's deadline expired mid-decode: the consumer
+# raises DeadlineExceeded instead of ending the stream cleanly
+DEADLINE = object()
 
 # chunks in flight (DECODE_PIPELINE): the fetch of chunk N overlaps the
 # younger chunks' execution
@@ -187,13 +206,14 @@ class _Request:
     __slots__ = (
         "out_queue", "remaining", "cache_len", "stop", "stop_tokens", "finished",
         "want_lp", "want_top", "want_kv", "kv_reserved", "spec", "pending", "record",
+        "journal", "deadline",
     )
 
     def __init__(self, out_queue: "queue.Queue", remaining: int, cache_len: int,
                  stop: Optional[threading.Event], stop_tokens: frozenset,
                  want_lp: bool = False, want_top: bool = False, want_kv: bool = False,
                  kv_reserved: int = 0, spec: Any = None, pending: int = 0,
-                 record: Any = None):
+                 record: Any = None, journal: Any = None, deadline: Any = None):
         self.out_queue: Optional[queue.Queue] = out_queue
         self.remaining = remaining
         self.cache_len = cache_len
@@ -220,6 +240,10 @@ class _Request:
         self.pending = int(pending)
         # the request's flight record: the chunks it rides note their ids
         self.record = record
+        # its journal entry (a dying pool stamps the interruption's cause)
+        # and its end-to-end deadline (checked at every chunk boundary)
+        self.journal = journal
+        self.deadline = deadline
 
 
 class _Slot:
@@ -323,17 +347,19 @@ class DecodePool:
                                  "emitted": 0, "widths": {}}
         self._model_name = model_name
         self._depth_gauge = self._reject_counter = self._tokens_counter = None
+        self._deadline_counter = self._cancel_counter = None
         if metrics is not None:
             self._depth_gauge = metrics.gauge("gofr_tpu_decode_slots_active",
                                               "active decode slots")
             self._reject_counter = pool_reject_counter(metrics)
-            # the families the JAX pool registers beside it (deadlines and
-            # cancellations come with a later slice)
-            deadline_exceeded_counter(metrics)
-            cancellations_counter(metrics)
+            self._deadline_counter = deadline_exceeded_counter(metrics)
+            self._cancel_counter = cancellations_counter(metrics)
             # a lookup: the family's registration home is the device's
             self._tokens_counter = metrics.counter("gofr_tpu_tokens_total",
                                                    labels=("model", "op"))
+        # the observed chunk cadence (EMA of the dispatch cadence): the unit
+        # of "can this request still get one chunk before its deadline"
+        self._chunk_ema_s = 0.0
         self._timeline = timeline
         self._watchdog = watchdog
         self._n_params = n_params
@@ -415,12 +441,14 @@ class DecodePool:
         request solos (queue.Full) while the bank is off or rebuilding, the
         name is not in it, or a penalized slot is active."""
         out: "queue.Queue" = queue.Queue()
+        deadline = current_deadline()
         spec_state = self._spec_arm(spec_ctx, first_token, sampler, penalty, adapter,
                                     want_logprobs, want_top_logprobs)
         with self._work:
             if self._closed:
                 self._reject("closed", count_only=True)
                 raise RuntimeError("decode pool closed")
+            self._admit_deadline(deadline)
             adapter_idx = self._admit(adapter, penalty)
             if not self._free:
                 self._reject("no_free_slots", "no free decode slots")
@@ -431,6 +459,7 @@ class DecodePool:
                 out, max_new, start_len, stop, frozenset(stop_tokens or ()),
                 want_lp=want_logprobs, want_top=want_top_logprobs, want_kv=want_kv,
                 kv_reserved=kv_reserved, spec=spec_state, pending=first_token, record=record,
+                journal=current_journal_entry(), deadline=deadline,
             )
             if record is not None and kv_reserved:
                 record.note_kv(kv_reserved)
@@ -457,6 +486,39 @@ class DecodePool:
                 self._depth_gauge.set(len(self._active))
             self._work.notify()
         return out
+
+    def admit_deadline(self, deadline: Any) -> None:
+        """The deadline gate ahead of a pooled request's prefill (the
+        runner calls it): the verdict ``submit`` would give, before the
+        prefill burns the card on a request that cannot be served."""
+        if deadline is None:
+            return
+        with self._work:
+            self._admit_deadline(deadline)
+
+    def _admit_deadline(self, deadline: Any) -> None:
+        """The deadline admission gate (pool lock held): a request whose
+        remaining budget cannot cover one chunk at the observed cadence
+        cannot finish in time, so it is refused with a 504 (never a solo
+        fallback: solo is slower). With no row decoding the cadence is
+        stale (one slow chunk would reject everything and nothing would
+        decay it), so only a spent budget is refused then."""
+        if deadline is None:
+            return
+        remaining = deadline.remaining()
+        if remaining > 0 and (remaining >= self._chunk_ema_s or not self._active):
+            return
+        self._reject("deadline", count_only=True)
+        if self._deadline_counter is not None:
+            self._deadline_counter.inc(stage="admission")
+        record = current_record()
+        if record is not None:
+            record.note_shed("admission")
+        raise DeadlineExceeded(
+            f"remaining deadline budget {max(remaining, 0) * 1000:.0f} ms cannot cover one "
+            f"decode chunk (observed cadence {self._chunk_ema_s * 1000:.0f} ms)",
+            stage="admission",
+        )
 
     def _write_slot(self, index: int, row: dict, length: int) -> None:
         """Copy a row's first ``length`` positions into slot ``index``."""
@@ -663,6 +725,12 @@ class DecodePool:
         for slot in self._active.values():
             req = slot.request
             if req is not None and not req.finished and req.out_queue is not None:
+                if req.journal is not None:
+                    # the cause, stamped before the waiter re-raises: the
+                    # entry is what a resume claims back
+                    req.journal.note_interrupted(
+                        f"decode pool failed: {type(exc).__name__}: {exc}"
+                    )
                 req.out_queue.put(PoolFailure(exc))
                 req.out_queue.put(DONE)
                 req.finished = True
@@ -742,9 +810,13 @@ class DecodePool:
         )
         nbytes = self.chunk * self._weight_bytes + kv_positions * self._kv_bytes_per_token
         start = time.perf_counter()
-        toks, lps, tvals, tids = self._run_executable()
-        want_top = any(req is not None and req.want_top for _, req in records)
-        fetch = HostFetch(toks, lps, *((tvals, tids) if want_top else ()))
+        # the launches run under the watchdog too: a card that stops
+        # draining its queue fills the CUDA launch queue, and the host then
+        # blocks here, in the launch, long before it waits on the copy
+        with self._watch("decode_chunk", drec):
+            toks, lps, tvals, tids = self._run_executable()
+            want_top = any(req is not None and req.want_top for _, req in records)
+            fetch = HostFetch(toks, lps, *((tvals, tids) if want_top else ()))
         in_flight.append((records, fetch, want_top, drec, start, nbytes))
         self._pending_drec = None  # owned by in_flight now
         self.dispatches += 1
@@ -837,6 +909,7 @@ class DecodePool:
     def _deliver(self, records: list, toks: np.ndarray, lps: np.ndarray,
                  tvals: Any, tids: Any, elapsed: float = 0.0, drec: Any = None,
                  nbytes: float = 0.0) -> None:
+        self._note_cadence(elapsed)
         delivered = 0
         for index, req in records:
             if req is None or req.finished:
@@ -845,6 +918,12 @@ class DecodePool:
         if self._sched is not None and not self._active:
             self._sched.note_decode_idle()  # release any waiting prefill
         self._account_chunk(delivered, elapsed, drec, nbytes)
+
+    def _note_cadence(self, elapsed: float) -> None:
+        """One chunk's or verify's cadence into the EMA (pool lock held)."""
+        if elapsed > 0:
+            self._chunk_ema_s = (elapsed if self._chunk_ema_s <= 0
+                                 else 0.8 * self._chunk_ema_s + 0.2 * elapsed)
 
     def _account_chunk(self, delivered: int, elapsed: float = 0.0, drec: Any = None,
                        nbytes: float = 0.0) -> None:
@@ -878,10 +957,10 @@ class DecodePool:
         room = self.max_len - req.cache_len  # valid steps this chunk
         req.cache_len += self.chunk
         take = min(self.chunk, req.remaining, max(room, 0))
-        cancelled = req.stop is not None and req.stop.is_set()
+        cancelled, expired = self._cut(req)
         hit_stop_token = False
         delivered = 0
-        if not cancelled and req.out_queue is not None:
+        if not cancelled and not expired and req.out_queue is not None:
             burst, hit_stop_token = self._build_burst(
                 req, index, toks[index], lps[index], tvals, tids, take
             )
@@ -901,10 +980,29 @@ class DecodePool:
                     # tokens count at ~1 a stream in tokens_per_dispatch
                     req.record.note_spec(0, 0, delivered, dispatches=self.chunk)
         req.remaining -= take
-        if (cancelled or hit_stop_token or req.remaining <= 0
+        if (cancelled or expired or hit_stop_token or req.remaining <= 0
                 or req.cache_len >= self.max_len):
-            self._finish_request(index, req, cancelled)
+            self._finish_request(index, req, cancelled, expired)
         return delivered
+
+    def _cut(self, req: _Request) -> tuple[bool, bool]:
+        """(cancelled, expired) for a row at a chunk boundary (pool lock
+        held): the client's stop event, else the row's deadline. An expired
+        row is counted here (stage ``decode``, cause ``deadline``) and its
+        journal entry and flight record learn why."""
+        if req.stop is not None and req.stop.is_set():
+            return True, False
+        if req.deadline is None or not req.deadline.expired():
+            return False, False
+        if self._deadline_counter is not None:
+            self._deadline_counter.inc(stage="decode")
+        if self._cancel_counter is not None:
+            self._cancel_counter.inc(cause="deadline")
+        if req.record is not None:
+            req.record.note_shed("decode")
+        if req.journal is not None:
+            req.journal.note_interrupted("deadline exceeded mid-decode")
+        return False, True
 
     def _build_burst(self, req: _Request, index: int, emitted: Any, emitted_lps: Any,
                      tvals: Any, tids: Any, take: int) -> tuple:
@@ -925,18 +1023,22 @@ class DecodePool:
                 burst.append(int(t))
         return burst, False
 
-    def _finish_request(self, index: int, req: _Request, cancelled: bool) -> None:
+    def _finish_request(self, index: int, req: _Request, cancelled: bool,
+                        expired: bool = False) -> None:
         """Terminal delivery (pool lock held): the optional KV hand-back,
-        DONE, the ledger release, and (unless the slot was already reused)
-        freeing the slot with its knobs reset."""
+        DONE (after ``DEADLINE`` for an expired row), the ledger release,
+        and (unless the slot was already reused) freeing the slot with its
+        knobs reset."""
         req.finished = True
-        if (req.want_kv and not cancelled and req.out_queue is not None
+        if (req.want_kv and not cancelled and not expired and req.out_queue is not None
                 and self._slots[index].request is req):
             # issued under the lock: the copy is ordered before any later
             # dispatch or slot write reuses the row (lockstep decode only
             # appends past the request's length; the device rolls it back)
             req.out_queue.put(("kv", self._read_slot(index)))
         if req.out_queue is not None:
+            if expired:
+                req.out_queue.put(DEADLINE)
             req.out_queue.put(DONE)
         req.out_queue = None
         req.stop = None
@@ -1021,9 +1123,10 @@ class DecodePool:
         records = [(slot.index, slot.request) for slot in self._active.values()]
         drafts: dict[int, list] = {}
         max_k = 0
+        level = self.spec_cfg.level()
         for index, req in records:
-            # brownout level 0 and no deadline: the port has neither yet
-            k = clamp_spec_k(req.spec.adaptive.current(), 0, None)
+            k = clamp_spec_k(req.spec.adaptive.current(), level, req.deadline,
+                             self._chunk_ema_s)
             k = min(k, req.remaining - 1, self.max_len - req.cache_len - 1)
             drafts[index] = req.spec.propose(k) if k > 0 else []
             max_k = max(max_k, len(drafts[index]))
@@ -1048,10 +1151,11 @@ class DecodePool:
         nbytes = self._weight_bytes + kv_positions * self._kv_bytes_per_token
         start = time.perf_counter()
         try:
-            next_ids, self.cache = self.model.verify_chunk(
-                to_device(tokens, self._last_tokens.device), self.cache
-            )
-            fetch = HostFetch(next_ids)
+            with self._watch("spec_verify", drec):  # a full launch queue blocks here
+                next_ids, self.cache = self.model.verify_chunk(
+                    to_device(tokens, self._last_tokens.device), self.cache
+                )
+                fetch = HostFetch(next_ids)
             self._pending_drec = None
             if self._sched is not None:
                 self._sched.note_decode_chunk(len(records))
@@ -1077,6 +1181,7 @@ class DecodePool:
         tail's KV is masked by attention and overwritten by later steps)
         and the device token row is rebuilt from the pending tokens, so the
         next dispatch, spec or plain, feeds forward correctly."""
+        self._note_cadence(elapsed)
         stats = self.spec_stats
         stats["cycles"] += 1
         stats["widths"][width] = stats["widths"].get(width, 0) + 1
@@ -1121,10 +1226,10 @@ class DecodePool:
         truncated at a stop token (never emitted nor committed), the
         budget and cache bookkeeping, the draft state's commit, and the
         finish. Returns the tokens delivered."""
-        cancelled = req.stop is not None and req.stop.is_set()
+        cancelled, expired = self._cut(req)
         hit_stop_token = False
         emit: list = []
-        if not cancelled and req.out_queue is not None:
+        if not cancelled and not expired and req.out_queue is not None:
             for t in burst:
                 if t in req.stop_tokens:
                     hit_stop_token = True
@@ -1138,9 +1243,9 @@ class DecodePool:
         req.pending = req.spec.pending
         if req.record is not None:
             req.record.note_spec(drafted, n_acc, len(emit))
-        if (cancelled or hit_stop_token or req.remaining <= 0
+        if (cancelled or expired or hit_stop_token or req.remaining <= 0
                 or req.cache_len >= self.max_len):
-            self._finish_request(index, req, cancelled)
+            self._finish_request(index, req, cancelled, expired)
         return len(emit)
 
     def occupancy(self) -> dict:
@@ -1159,21 +1264,25 @@ class DecodePool:
                 "lora_chunks": self.lora_chunks,
                 "closed": self._closed,
                 "rejects": dict(self.rejects),
+                # the deadline admission gate's unit
+                "chunk_cadence_s": self._chunk_ema_s,
                 "spec": ({"k_max": self.spec_cfg.k_max, **self.spec_stats,
                           "widths": dict(self.spec_stats["widths"])}
                          if self.spec_cfg is not None else None),
                 "kv": self._kv.stats() if self._kv is not None else None,
             }
 
-    def close(self) -> None:
-        """Stop the worker and wait for it: once this returns, the pool
-        issues no more work on the card. Raises if the worker outlives the
-        join (a dispatch wedged on the host)."""
+    def close(self, timeout: float = CLOSE_TIMEOUT_S, strict: bool = True) -> bool:
+        """Stop the worker and wait for it: once it has joined, the pool
+        issues no more work on the card. Returns whether it joined. With
+        ``strict`` a worker that outlives the join raises (a dispatch wedged
+        on the host); a recovery teardown passes ``strict=False`` and a
+        short ``timeout``: its worker may sit in a wedged wait, and leaves
+        when the wait returns, failing its rows then."""
         with self._work:
             self._closed = True
             self._work.notify_all()
-        self._thread.join(timeout=CLOSE_TIMEOUT_S)
-        if self._thread.is_alive():
-            raise RuntimeError(
-                f"decode pool worker still running {CLOSE_TIMEOUT_S}s after close"
-            )
+        self._thread.join(timeout=timeout)
+        if self._thread.is_alive() and strict:
+            raise RuntimeError(f"decode pool worker still running {timeout}s after close")
+        return not self._thread.is_alive()

@@ -84,12 +84,17 @@ import numpy as np
 import torch
 
 from gofr_tpu_torch.deadline import (
+    PRIORITY_MAX,
+    PRIORITY_MIN,
+    BrownoutController,
     cancellations_counter,
     clamp_spec_k,
+    current_deadline,
     deadline_exceeded_counter,
     pool_reject_counter,
 )
-from gofr_tpu_torch.errors import HTTPError, InvalidParamError
+from gofr_tpu_torch.errors import DeadlineExceeded, HTTPError, InvalidParamError
+from gofr_tpu_torch.journal_wal import JournalWAL
 from gofr_tpu_torch.metrics import COMPILE_BUCKETS, Registry
 from gofr_tpu_torch.models.bert import BERT_BASE, BERT_TINY, Bert, bert_embed
 from gofr_tpu_torch.models.ingest import is_safetensors_path, load_llama_params
@@ -107,10 +112,18 @@ from gofr_tpu_torch.ops.sampling import (
     update_counts,
     update_presence,
 )
-from gofr_tpu_torch.telemetry import BOOT_ID, current_record
+from gofr_tpu_torch.postmortem import runtime_versions
+from gofr_tpu_torch.telemetry import (
+    BOOT_ID,
+    GenerationJournal,
+    activate_journal_entry,
+    current_record,
+    request_key,
+)
 from gofr_tpu_torch.tokenizer import load_tokenizer
 from gofr_tpu_torch.tpu.batcher import DynamicBatcher, next_pow2, pack_token_rows, pad_rows
 from gofr_tpu_torch.tpu.decode_pool import (
+    DEADLINE,
     DONE,
     PENALTY_MODES,
     PIPELINE_DEPTH,
@@ -133,6 +146,7 @@ from gofr_tpu_torch.tpu.introspect import (
     StallWatchdog,
     current_dispatch,
 )
+from gofr_tpu_torch.tpu.recovery import RecoverySupervisor
 from gofr_tpu_torch.tpu.kv_blocks import (
     BlockPool,
     BlockTable,
@@ -152,6 +166,10 @@ from gofr_tpu_torch.training.checkpoint import restore_params
 # WATCHDOG_DISPATCH_TIMEOUT_S is unset: the JAX package's, well above any
 # healthy wait (a pool chunk of llama3-8b takes well under a second)
 WATCHDOG_AUTO_TIMEOUT_S = 120.0
+# how long a recovery teardown waits for the old pool's worker: it may be
+# parked on a wedged wait, which no join can cut short (a kernel cannot be
+# cancelled); it leaves, failing its rows, when the wait returns
+RECOVERY_POOL_JOIN_S = 2.0
 
 
 def resolve_device(name: str) -> torch.device:
@@ -355,6 +373,57 @@ def spec_options(config: Any) -> dict:
     return opts
 
 
+def failure_options(config: Any) -> dict:
+    """The overload and failure keys with the JAX package's defaults and
+    validation errors: the recovery supervisor (``RECOVERY_ENABLED`` on,
+    ``RECOVERY_MAX_ATTEMPTS`` 3, ``RECOVERY_BACKOFF_S`` 1,
+    ``RECOVERY_BACKOFF_MAX_S`` 30, ``RECOVERY_ATTEMPT_TIMEOUT_S`` 300), the
+    journal (``JOURNAL`` on, ``JOURNAL_CAPACITY`` 256,
+    ``JOURNAL_MAX_TOKENS`` 8192) and its WAL (``JOURNAL_DIR``, unset = in
+    memory; ``JOURNAL_FSYNC`` interrupt; ``JOURNAL_SEGMENT_BYTES`` 1 MiB;
+    ``JOURNAL_SEGMENTS`` 4), and the brownout (``BROWNOUT_QUEUE_DEPTH`` and
+    ``BROWNOUT_KV_UTIL``, 0 = off; ``BROWNOUT_SHED_PRIORITY`` 5;
+    ``BROWNOUT_CLAMP_TOKENS`` 0)."""
+    opts: dict = {}
+    opts["recovery_enabled"] = config.get_or_default("RECOVERY_ENABLED", "on") != "off"
+    opts["recovery_attempts"] = int(config.get_or_default("RECOVERY_MAX_ATTEMPTS", "3"))
+    opts["recovery_backoff"] = float(config.get_or_default("RECOVERY_BACKOFF_S", "1"))
+    opts["recovery_backoff_max"] = float(config.get_or_default("RECOVERY_BACKOFF_MAX_S", "30"))
+    opts["recovery_attempt_timeout"] = float(
+        config.get_or_default("RECOVERY_ATTEMPT_TIMEOUT_S", "300")
+    )
+    opts["journal"] = config.get_or_default("JOURNAL", "on") != "off"
+    opts["journal_capacity"] = int(config.get_or_default("JOURNAL_CAPACITY", "256"))
+    if opts["journal_capacity"] < 1:
+        raise ValueError("JOURNAL_CAPACITY must be >= 1")
+    opts["journal_max_tokens"] = int(config.get_or_default("JOURNAL_MAX_TOKENS", "8192"))
+    if opts["journal_max_tokens"] < 1:
+        raise ValueError("JOURNAL_MAX_TOKENS must be >= 1")
+    opts["journal_dir"] = config.get_or_default("JOURNAL_DIR", "")
+    opts["journal_fsync"] = config.get_or_default("JOURNAL_FSYNC", "interrupt")
+    opts["journal_segment_bytes"] = int(
+        config.get_or_default("JOURNAL_SEGMENT_BYTES", str(1 << 20))
+    )
+    if opts["journal_segment_bytes"] < 4096:
+        raise ValueError("JOURNAL_SEGMENT_BYTES must be >= 4096")
+    opts["journal_segments"] = int(config.get_or_default("JOURNAL_SEGMENTS", "4"))
+    if opts["journal_segments"] < 1:
+        raise ValueError("JOURNAL_SEGMENTS must be >= 1")
+    opts["brownout_queue_hi"] = int(config.get_or_default("BROWNOUT_QUEUE_DEPTH", "0"))
+    if opts["brownout_queue_hi"] < 0:
+        raise ValueError("BROWNOUT_QUEUE_DEPTH must be >= 0 (0 = off)")
+    opts["brownout_kv_hi"] = float(config.get_or_default("BROWNOUT_KV_UTIL", "0"))
+    if not 0.0 <= opts["brownout_kv_hi"] < 1.0:
+        raise ValueError("BROWNOUT_KV_UTIL must be a fraction in [0, 1) (0 = off)")
+    opts["brownout_shed_priority"] = int(config.get_or_default("BROWNOUT_SHED_PRIORITY", "5"))
+    if not PRIORITY_MIN <= opts["brownout_shed_priority"] <= PRIORITY_MAX:
+        raise ValueError(f"BROWNOUT_SHED_PRIORITY must be {PRIORITY_MIN}..{PRIORITY_MAX}")
+    opts["brownout_clamp"] = int(config.get_or_default("BROWNOUT_CLAMP_TOKENS", "0"))
+    if opts["brownout_clamp"] < 0:
+        raise ValueError("BROWNOUT_CLAMP_TOKENS must be >= 0 (0 = off)")
+    return opts
+
+
 def parse_lora_adapters(raw: str) -> dict[str, str]:
     """LORA_ADAPTERS "name=path,name2=path2" -> {name: path}; a malformed
     entry fails the boot."""
@@ -384,7 +453,15 @@ class TPUDevice:
     boot on a thread: ``ready()`` is False and requests wait
     (``wait_ready``) until it ends; a boot that fails leaves
     ``boot_status["state"] == "failed"`` and every request fails with its
-    error. A foreground boot's failure raises from the constructor."""
+    error. A foreground boot's failure raises from the constructor.
+
+    Overload and failure (``failure_options``): the generation journal
+    (``journal``, on a ``JournalWAL`` under ``JOURNAL_DIR``, rehydrated
+    here before serving), the ``brownout`` controller reading the batcher's
+    queue depth and the block pool's committed KV, and the ``recovery``
+    supervisor, whose ``recover`` tears the stack down and rebuilds it over
+    the SAME weights (taken from the old runner, never reloaded) through
+    warming back to serving."""
 
     def __init__(self, config: Any, logger: Any, model: Any = None,
                  draft_model: Optional[Transformer] = None, metrics: Any = None):
@@ -444,6 +521,40 @@ class TPUDevice:
             self.engine, metrics=self.metrics, logger=logger, timeout_s=obs["watchdog_timeout"]
         )
         self._watchdog_auto = obs["watchdog_auto"]
+        fail = failure_options(config)
+        # the generation journal, durable under JOURNAL_DIR: the WAL
+        # rehydrates a killed process's resumable entries before serving
+        self.journal_wal: Optional[JournalWAL] = None
+        self.journal: Optional[GenerationJournal] = None
+        if fail["journal"]:
+            if fail["journal_dir"]:
+                self.journal_wal = JournalWAL(
+                    fail["journal_dir"], segment_bytes=fail["journal_segment_bytes"],
+                    retain=fail["journal_segments"], fsync=fail["journal_fsync"], logger=logger,
+                )
+            self.journal = GenerationJournal(
+                capacity=fail["journal_capacity"], max_tokens=fail["journal_max_tokens"],
+                metrics=self.metrics, wal=self.journal_wal,
+            )
+            if self.journal_wal is not None and self.journal.rehydrate():
+                logger.infof("journal WAL: rehydrated %s resumable entries from %s",
+                             self.journal.rehydrated, fail["journal_dir"])
+        # the brownout's signals read the batcher and the block pool through
+        # the device: a recovery rebuilds both
+        self.brownout = BrownoutController(
+            metrics=self.metrics, queue_hi=fail["brownout_queue_hi"],
+            kv_hi=fail["brownout_kv_hi"], shed_priority=fail["brownout_shed_priority"],
+            clamp_tokens=fail["brownout_clamp"], queue_depth_fn=self._brownout_queue_depth,
+            kv_util_fn=self._brownout_kv_util,
+        )
+        self.recovery = RecoverySupervisor(
+            self, metrics=self.metrics, logger=logger,
+            max_attempts=fail["recovery_attempts"], backoff_s=fail["recovery_backoff"],
+            backoff_max_s=fail["recovery_backoff_max"],
+            attempt_timeout_s=fail["recovery_attempt_timeout"],
+            enabled=fail["recovery_enabled"],
+        )
+        self._reinit_lock = threading.Lock()
         self.platform = "pending"
         self.device_kind = "pending"
         self.peak_flops = 0.0
@@ -456,8 +567,11 @@ class TPUDevice:
         # batcher's dispatch threads
         self._last_batch_done = 0.0
         self._mfu_window_lock = threading.Lock()
-        self._build_args = (config, model, draft_model, kv_dtype, raw_max_seq, buckets,
+        self._build_args = (config, kv_dtype, raw_max_seq, buckets,
                             int(config.get_or_default("MODEL_SEED", "0")))
+        # a given model is the first stack's; a rebuild carries the old
+        # runner's over
+        self._given_models: Optional[tuple] = (model, draft_model)
         self.runner: Any = None
         self.scheduler: Optional[InterferenceScheduler] = None
         self.kv_pool: Optional[BlockPool] = None
@@ -543,7 +657,8 @@ class TPUDevice:
         del self.boot_timeline[:]
         try:
             self._probe()
-            self._build_stack()
+            given, self._given_models = self._given_models, None
+            self._build_stack(*given)
         except BaseException as exc:
             self._close_boot_stage(status="error")
             self._boot_error = exc
@@ -638,10 +753,13 @@ class TPUDevice:
         if rec is not None:
             self.timeline.finish(rec, status=status)
 
-    def _build_stack(self) -> None:
-        """The runner, its serving machinery and the batcher, warmed."""
-        config, model, draft_model, kv_dtype, raw_max_seq, buckets, seed = self._build_args
-        self._build_args = None  # a given model is the runner's from here
+    def _build_stack(self, model: Any = None, draft_model: Optional[Transformer] = None,
+                     carried: bool = False) -> None:
+        """The runner, its serving machinery and the batcher, warmed.
+        ``model`` / ``draft_model``: weights to build on, given at
+        construction or ``carried`` over from the runner a recovery tore
+        down (then MODEL_PATH and DRAFT_MODEL_PATH are not read again)."""
+        config, kv_dtype, raw_max_seq, buckets, seed = self._build_args
         name = self.model_name
         if self.device is not None and self.device.type == "cuda":
             # bf16 products accumulate in f32 (models/quant.py::mm)
@@ -671,12 +789,14 @@ class TPUDevice:
                 self.costmodel.install_synthetic("prefill", self.echo_step_ms)
                 self.costmodel.install_synthetic("decode_chunk", self.echo_step_ms)
         elif name in ("mlp", "tiny-mlp"):
-            self.runner = _MLPRunner(self.device, self.max_batch, seed, model, self.model_path)
+            self.runner = _MLPRunner(self.device, self.max_batch, seed, model,
+                                     None if carried else self.model_path)
         elif name.startswith("bert"):
             self.runner = _BertRunner(name, self.device, self.max_batch, seed, model,
-                                      self.model_path, self.quant)
+                                      None if carried else self.model_path, self.quant)
         elif name in CONFIGS:
-            self._init_decoder(config, model, draft_model, kv_dtype, raw_max_seq, buckets, seed)
+            self._init_decoder(config, model, draft_model, kv_dtype, raw_max_seq, buckets, seed,
+                               carried)
         else:
             raise ValueError(
                 f"unknown MODEL_NAME '{name}' — expected echo, mlp, bert-tiny, "
@@ -734,16 +854,20 @@ class TPUDevice:
         return PoolSpecConfig(
             k_max=spec["spec_k_max"], ngram=spec["spec_ngram"],
             fake_schedule=spec["spec_fake_accept"] if include_fake else None,
-            metrics=self.metrics, model=self.model_name,
+            brownout_level=self.brownout.level, metrics=self.metrics, model=self.model_name,
         )
 
-    def _teardown_stack(self) -> None:
+    def _teardown_stack(self, recovery: bool = False) -> None:
         """Close the pool, the batcher and the runner, each even if another
-        fails."""
+        fails. A ``recovery`` teardown bounds the pool's join and never
+        raises for it: the old worker may sit in a wedged wait."""
         runner_close = getattr(self.runner, "close", None)
         try:
             if self.decode_pool is not None:
-                self.decode_pool.close()
+                if recovery:
+                    self.decode_pool.close(timeout=RECOVERY_POOL_JOIN_S, strict=False)
+                else:
+                    self.decode_pool.close()
         finally:
             try:
                 if self.batcher is not None:
@@ -751,6 +875,97 @@ class TPUDevice:
             finally:
                 if runner_close is not None:
                     runner_close()
+
+    def _carried_models(self) -> tuple:
+        """The weights a rebuild keeps: the old runner's model and its solo
+        speculation's draft (None for echo)."""
+        runner = self.runner
+        spec = getattr(runner, "spec", None)
+        return getattr(runner, "model", None), spec.model if spec is not None else None
+
+    # -- wedge recovery --------------------------------------------------------
+    def recover(self, detail: str = "") -> None:
+        """The recovery supervisor's rebuild: teardown, a fresh probe and the
+        stack rebuilt over the same weights, walking the engine through
+        ``warming`` to ``serving``. Readiness clears meanwhile (a resume
+        arriving mid-rebuild waits in ``wait_ready``); a failed rebuild
+        leaves the boot error set and the event set, so waiters fail fast."""
+        with self._reinit_lock:
+            self._ready.clear()
+            self.boot_status = {"state": "recovering", "detail": detail or "recovery rebuild"}
+            try:
+                self._reinit_locked(detail or "recovered")
+            except BaseException as exc:
+                self._boot_error = exc
+                self.boot_status = {"state": "failed", "detail": repr(exc)}
+                self._ready.set()
+                raise
+
+    def _reinit_locked(self, detail: str) -> None:
+        self.logger.warnf("rebuilding the device stack (model=%s)", self.model_name)
+        models = self._carried_models()
+        # the old stack may be wedged: its requests fail (their journal
+        # entries stay interrupted), and a kernel still queued on the card
+        # keeps running; the rebuilt stack's first work queues behind it
+        self._teardown_stack(recovery=True)
+        self.runner = self.decode_pool = self.batcher = self.kv_pool = None
+        del self.boot_timeline[:]
+        try:
+            self._reprobe()
+            self.engine.transition("warming", "recovery rebuild")
+            self._build_stack(*models, carried=True)
+        except BaseException:
+            self._close_boot_stage(status="error")
+            raise
+        self._close_boot_stage()
+        if self._closed:
+            # closed while the rebuild ran: tear the new stack down
+            self._boot_error = RuntimeError("device closed during rebuild")
+            self.boot_status = {"state": "closed", "detail": ""}
+            self.engine.transition("closed")
+            self._teardown_stack(recovery=True)
+            self._ready.set()
+            return
+        self._boot_error = None
+        self.boot_status = {"state": "ready", "detail": ""}
+        self.engine.transition("serving", detail)
+        self._ready.set()
+
+    def _reprobe(self) -> None:
+        """The rebuild's probe. On a card it also synchronizes: a CUDA
+        device fault (error 719 and the like) is sticky, so it fails here,
+        and every attempt after it, with an error that names it and says a
+        process restart is needed."""
+        try:
+            self._probe()
+            if self.device is not None and self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        except Exception as exc:
+            if "CUDA" in str(exc) or "cuda" in type(exc).__name__.lower():
+                raise RuntimeError(
+                    f"{exc} — a CUDA device fault is sticky (every later CUDA call of this "
+                    "process fails): a process restart is needed"
+                ) from exc
+            raise
+
+    def _brownout_queue_depth(self) -> int:
+        """Brownout signal: requests waiting for a prefill batch (0 with no
+        batcher: a booting server sheds nothing)."""
+        batcher = self.batcher
+        return batcher._depth() if batcher is not None else 0
+
+    def _brownout_kv_util(self) -> float:
+        """Brownout signal: the committed share of the paged-KV ledger
+        (active rows and reservations; cached prefix blocks evict on
+        demand and are left out). 0 without a block pool."""
+        kv = self.kv_pool
+        if kv is None:
+            return 0.0
+        stats = kv.stats()
+        budget = stats.get("ledger") or stats.get("total") or 0
+        if not budget:
+            return 0.0
+        return min(1.0, (stats.get("active", 0) + stats.get("reserved", 0)) / budget)
 
     # -- readiness (distinct from liveness) ----------------------------------
     def ready(self) -> bool:
@@ -778,7 +993,8 @@ class TPUDevice:
 
     def _init_decoder(self, config: Any, model: Optional[Transformer],
                       draft_model: Optional[Transformer], kv_dtype: Optional[torch.dtype],
-                      raw_max_seq: Optional[str], buckets: Optional[tuple], seed: int) -> None:
+                      raw_max_seq: Optional[str], buckets: Optional[tuple], seed: int,
+                      carried: bool = False) -> None:
         """The decoder's runner and its serving machinery: paged KV and the
         decode pool, warmed."""
         opts, spec = self.options, self.spec_options
@@ -791,7 +1007,7 @@ class TPUDevice:
             buckets=buckets,
             seed=seed,
             model=model,
-            model_path=self.model_path,
+            model_path=None if carried else self.model_path,
             quant=self.quant,
             kv_dtype=kv_dtype,
             prefix_cache=opts["prefix_cache"],
@@ -803,7 +1019,7 @@ class TPUDevice:
             kv_reserve_seqs=opts["pool_slots"],
             draft_name=spec["draft_name"],
             draft_tokens=spec["draft_tokens"],
-            draft_path=spec["draft_path"],
+            draft_path=None if carried else spec["draft_path"],
             draft_model=draft_model,
             lora_adapters=self._lora_adapters,
             metrics=self.metrics,
@@ -1043,6 +1259,9 @@ class TPUDevice:
         top_logprobs: bool = False,
         adapter: Optional[str] = None,
         adapter_params: Optional[Transformer] = None,
+        journal_key: Optional[str] = None,
+        journal_prior: Optional[list] = None,
+        resume_from: int = 0,
     ) -> "list[int] | tuple":
         """Autoregressive generation (see the module docstring for the
         route). ``adapter`` names a loaded LoRA adapter (an unknown one is
@@ -1056,13 +1275,24 @@ class TPUDevice:
         tokens' raw log-softmax values), and ``on_token`` then receives
         (id, logprob) pairs; with ``top_logprobs`` (ids, logprobs, tops),
         tops[i] the ``TOP_LOGPROBS`` [(alt id, alt logprob), ...] at
-        position i, best first."""
+        position i, best first.
+
+        The journal (when on) records every emitted id under the request's
+        key; the entry retires at a clean finish and stays, interrupted,
+        when the generation fails. The resume path passes ``journal_key``
+        (the ORIGINAL request's key, for a continuation over prompt +
+        emitted), ``journal_prior`` (the ids already emitted) and, for the
+        echo runner, ``resume_from`` (its decode is position-indexed, so it
+        resumes natively)."""
         self.wait_ready()
         runner = self._generator()
         self._check_bias(sampler)
+        tokens = self._encode(tokens)
         stop_tokens = frozenset(stop_tokens or ()) | self.default_stop_ids
         start = time.perf_counter()
         record = current_record()
+        entry = self._journal_start(tokens, max_new_tokens, sampler, stop_tokens, adapter,
+                                    journal_key, journal_prior)
 
         def ttft() -> None:
             # the callback may fire on a thread without the request's
@@ -1075,25 +1305,69 @@ class TPUDevice:
                 record.mark_first_token()
 
         emit = on_token
-        if record is not None:
+        if record is not None or entry is not None:
             def emit(item: Any, _cb: Any = on_token) -> None:
-                record.note_tokens(1)
+                if record is not None:
+                    record.note_tokens(1)
+                if entry is not None:
+                    # the bare id: (id, logprob) pairs ride logprob runs
+                    entry.append(item[0] if isinstance(item, tuple) else item)
                 if _cb is not None:
                     _cb(item)
+        extra = {"resume_from": resume_from} if resume_from and self.supports_resume else {}
+        journal_token = activate_journal_entry(entry) if entry is not None else None
         try:
             out = runner.generate(
-                self._encode(tokens), max_new_tokens, on_token=emit, stop=stop,
+                tokens, max_new_tokens, on_token=emit, stop=stop,
                 sampler=sampler, stop_tokens=stop_tokens, decode_pool=self.decode_pool,
                 prefill_batcher=self.batcher, scheduler=self.scheduler,
                 logprobs=logprobs, top_logprobs=top_logprobs, adapter=adapter,
-                adapter_params=adapter_params, ttft_cb=ttft,
+                adapter_params=adapter_params, ttft_cb=ttft, **extra,
             )
-        except Exception:
+        except Exception as exc:
+            if record is not None:
+                record.note_error(exc)
+            if entry is not None:
+                # kept: an interrupted request resumes from this entry
+                self.journal.interrupt(entry, f"{type(exc).__name__}: {exc}")
             self._requests.inc(model=self.model_name, op="generate", status="error")
             raise
+        finally:
+            if journal_token is not None:
+                activate_journal_entry(None)
+        if entry is not None:
+            self.journal.finish(entry)
         self._requests.inc(model=self.model_name, op="generate", status="ok")
         self._note_generation()
         return out
+
+    @property
+    def supports_resume(self) -> bool:
+        """The echo runner resumes natively at a position; a decoder resumes
+        by re-prefilling the prompt plus the journalled ids."""
+        return isinstance(self.runner, _EchoRunner)
+
+    def _journal_key(self, ids: Any, max_new_tokens: int, sampler: Any, stop_tokens: Any,
+                     adapter: Optional[str]) -> str:
+        """The request's durable identity (``request_key`` over the composed
+        stop set: a resume and its original must agree)."""
+        model = f"{self.model_name}+{adapter}" if adapter else self.model_name
+        return request_key(model, ids, max_new_tokens, sampler, stop_tokens)
+
+    def _journal_start(self, ids: Any, max_new_tokens: int, sampler: Any, stop_tokens: Any,
+                       adapter: Optional[str], journal_key: Optional[str],
+                       journal_prior: Optional[list]) -> Any:
+        """This generation's journal entry (None with the journal off).
+        Deterministic = greedy or seeded: replaying it reproduces the
+        stream, which a resume relies on."""
+        if self.journal is None:
+            return None
+        greedy = sampler is None or sampler.greedy
+        seeded = sampler is not None and sampler.seeded
+        key = journal_key or self._journal_key(ids, max_new_tokens, sampler, stop_tokens,
+                                               adapter)
+        return self.journal.start(key, self.model_name, max_new_tokens, seeded=seeded,
+                                  deterministic=greedy or seeded, prior=journal_prior)
 
     def _note_generation(self) -> None:
         """The gauges a finished generation moves: the solo-speculation
@@ -1124,11 +1398,20 @@ class TPUDevice:
         cancel: Optional[Any] = None,
         logprobs: bool = False,
         adapter: Optional[str] = None,
+        resume_from: int = 0,
     ) -> Any:
         """Iterator of token ids as they decode (the SSE bridge), or of
         (id, logprob) pairs with ``logprobs``. Closing it, or setting
-        ``cancel`` (anything with ``set``/``is_set``), stops the background
-        decode within a chunk."""
+        ``cancel`` (anything with ``set``/``is_set``: the SSE abort hook
+        sets it), stops the background decode within a chunk.
+
+        ``resume_from=k`` resumes an interrupted deterministic stream at
+        position k (the client holds ids 0..k-1): the ids the journal kept
+        replay at once and the rest continue (``_resume_producer``); without
+        a journal entry the request regenerates and the first k ids are
+        suppressed. Greedy and seeded requests only (an unseeded sampled
+        stream cannot be reproduced), and not with logprobs (the journal
+        keeps ids alone): both are a 400."""
         # eager, before the transport commits its 200: an out-of-vocab
         # logit_bias id or an unknown adapter is a 400, not an error frame
         # after the status; the adapter model read here is pinned for the
@@ -1145,6 +1428,29 @@ class TPUDevice:
                     f"adapter '{adapter}' (loaded: "
                     f"{sorted(getattr(self.runner, 'adapters', {}))})"
                 )
+        if resume_from:
+            if resume_from < 0:
+                raise InvalidParamError("resume offset must be >= 0")
+            if logprobs:
+                raise InvalidParamError(
+                    "resume is not supported with logprobs (the journal records token ids only)"
+                )
+            if sampler is not None and not sampler.greedy and not sampler.seeded:
+                raise InvalidParamError(
+                    "resume requires a deterministic request (greedy or seeded) — an unseeded "
+                    "sampled stream cannot be reproduced"
+                )
+            self.wait_ready()
+            tokens = self._encode(tokens)
+            produce = self._resume_producer(tokens, max_new_tokens, sampler, stop_tokens,
+                                            adapter, adapter_params, resume_from)
+        else:
+            def produce(put: Any, stop_evt: Any) -> None:
+                self.generate(
+                    tokens, max_new_tokens, on_token=put, stop=stop_evt,
+                    sampler=sampler, stop_tokens=stop_tokens, logprobs=logprobs,
+                    adapter=adapter, adapter_params=adapter_params,
+                )
         out: "queue.Queue" = queue.Queue()
         done = object()
         failure: list[BaseException] = []
@@ -1155,11 +1461,7 @@ class TPUDevice:
 
         def run() -> None:
             try:
-                self.generate(
-                    tokens, max_new_tokens, on_token=out.put, stop=stop,
-                    sampler=sampler, stop_tokens=stop_tokens, logprobs=logprobs,
-                    adapter=adapter, adapter_params=adapter_params,
-                )
+                produce(out.put, stop)
             except BaseException as exc:  # re-raised on the consumer side
                 failure.append(exc)
             finally:
@@ -1180,6 +1482,72 @@ class TPUDevice:
                 stop.set()
 
         return iterate()
+
+    def _resume_producer(self, ids: list, max_new_tokens: int, sampler: Optional[Sampler],
+                         stop_tokens: Any, adapter: Optional[str], adapter_params: Any,
+                         resume_from: int) -> Any:
+        """The producer ``fn(put, stop)`` of a resumed stream, emitting the
+        positions from ``resume_from`` on, in one of three modes
+        (``gofr_tpu_journal_resumes_total{mode}``):
+
+        - ``teacher_forced``: a journal entry holds at least
+          ``resume_from`` ids. They replay, then a decoder continues with a
+          generation over prompt + those ids (one prefill re-reads them:
+          the paged prefix cache shares the prompt's blocks) for the
+          remaining budget, under the original key;
+        - native, the echo runner: it continues at the journalled length;
+        - ``replayed``: no usable entry (another process's stream, an
+          evicted entry, or a seeded sampled request, whose per-chunk draws
+          cannot restart mid-stream). The whole request regenerates and its
+          first ``resume_from`` ids are suppressed."""
+        composed = frozenset(stop_tokens or ()) | self.default_stop_ids
+        key = self._journal_key(ids, max_new_tokens, sampler, composed, adapter)
+        native = self.supports_resume
+        greedy = sampler is None or sampler.greedy
+        entry = None
+        if self.journal is not None and (native or greedy):
+            entry = self.journal.claim(key, resume_from)
+        if self.journal is not None:
+            self.journal.note_resume("teacher_forced" if entry is not None else "replayed")
+        if entry is not None:
+            emitted = list(entry.tokens)
+
+            def produce(put: Any, stop: Any) -> None:
+                for token in emitted[resume_from:]:
+                    if stop is not None and stop.is_set():
+                        return
+                    put(token)
+                remaining = max_new_tokens - len(emitted)
+                if remaining <= 0:
+                    return
+                if native:
+                    self.generate(ids, max_new_tokens, on_token=put, stop=stop, sampler=sampler,
+                                  stop_tokens=stop_tokens, adapter=adapter,
+                                  adapter_params=adapter_params, journal_key=key,
+                                  journal_prior=emitted, resume_from=len(emitted))
+                else:
+                    self.generate(list(ids) + emitted, remaining, on_token=put, stop=stop,
+                                  sampler=sampler, stop_tokens=stop_tokens, adapter=adapter,
+                                  adapter_params=adapter_params, journal_key=key,
+                                  journal_prior=emitted)
+
+            return produce
+
+        def produce(put: Any, stop: Any) -> None:
+            skip = resume_from
+
+            def emit(item: Any) -> None:
+                nonlocal skip
+                if skip > 0:
+                    skip -= 1
+                    return
+                put(item)
+
+            self.generate(ids, max_new_tokens, on_token=emit, stop=stop, sampler=sampler,
+                          stop_tokens=stop_tokens, adapter=adapter,
+                          adapter_params=adapter_params, journal_key=key)
+
+        return produce
 
     def _check_bias(self, sampler: Optional[Sampler]) -> None:
         """An out-of-vocab ``logit_bias`` id -> InvalidParamError (400)."""
@@ -1275,22 +1643,25 @@ class TPUDevice:
 
     def engine_snapshot(self) -> dict[str, Any]:
         """``GET /admin/engine``: the state machine and its history, the
-        boot timeline, the watchdog (and what a stall on this device is),
-        dispatch counts, queue depth, pool occupancy, paged KV, scheduler,
-        cache and compile counts and device memory. Host reads only (the
-        allocator's counters, no device sync), so it answers while the
-        engine is wedged."""
+        boot timeline, the watchdog (and what a stall on this device leads
+        to), the recovery incident, the journal, the brownout, dispatch
+        counts, queue depth, pool occupancy, paged KV, scheduler, cache and
+        compile counts and device memory. Host reads only (the allocator's
+        counters, no device sync), so it answers while the engine is
+        wedged."""
         watchdog = self.watchdog.snapshot()
-        # a stall's meaning on this device: the watchdog observes and
-        # reports; no recovery rebuild runs (ROADMAP §A4). On a card, a
-        # wait that returns late was slow work and the engine goes back to
-        # serving; a device fault (CUDA error 719 and the like) ends the
-        # process's CUDA context, so only a restart recovers from it
+        # what a stall leads to here: degraded, then wedged; with recovery
+        # on, a rebuild in process over the same weights. On a card a CUDA
+        # device fault (error 719 and the like) ends the process's context:
+        # every rebuild fails, then failed (a restart)
+        fault = ("; a CUDA device fault ends the process's context: bounded attempts fail, "
+                 "then failed (restart)" if self.platform == "gpu" else "")
         watchdog["on_stall"] = (
-            "observe-only: degraded, then wedged, back to serving when the wait "
-            "returns; a CUDA device fault ends the process's context (restart)"
-            if self.platform == "gpu" else
+            "recover: degraded, then wedged, then a rebuild in process (recovering, "
+            "warming, serving)" + fault
+            if self.recovery.enabled else
             "observe-only: degraded, then wedged, back to serving when the wait returns"
+            + fault
         )
         snap: dict[str, Any] = {
             "engine": self.engine.snapshot(),
@@ -1298,10 +1669,15 @@ class TPUDevice:
             "model": self.model_name,
             "platform": self.platform,
             "device_kind": str(self.device_kind),
-            "versions": {"torch": torch.__version__, "cuda": torch.version.cuda},
+            "versions": runtime_versions(),
             "boot": dict(self.boot_status),
             "boot_timeline": [dict(stage) for stage in self.boot_timeline],
             "watchdog": watchdog,
+            # the wedge-recovery incident (attempts, backoff, last outcome,
+            # MTTR), the journal's accounting and the live brownout level
+            "recovery": self.recovery.snapshot(),
+            "journal": self.journal.stats() if self.journal is not None else None,
+            "brownout": self.brownout.snapshot(),
             "dispatches": self.timeline.stats(),
             "costmodel": self.costmodel.overview() if self.costmodel is not None else None,
             "queue_depth": self.batcher._depth() if self.batcher is not None else None,
@@ -1329,15 +1705,19 @@ class TPUDevice:
         return snap
 
     def close(self) -> None:
-        """Stop the pool (its worker joined; a stream still decoding gets
-        an error, never a truncated result), the batcher, the runner and
-        the watchdog. A background boot still running tears its stack down
-        when it ends."""
+        """Stop the recovery supervisor, the watchdog, the pool (its worker
+        joined; a stream still decoding gets an error, never a truncated
+        result, and its journal entry stays interrupted), the batcher, the
+        runner and the journal's WAL. A background boot still running tears
+        its stack down when it ends."""
         self._closed = True
+        self.recovery.close()
         self.watchdog.close()
         if self._ready.is_set():
             self._teardown_stack()
             self.engine.transition("closed")
+        if self.journal_wal is not None:
+            self.journal_wal.close()
 
 
 class _PrefillState(dict):
@@ -1533,10 +1913,14 @@ class _EchoRunner:
 
     ``stall_hook`` (tests) is called at the top of every ``run_batch``, so
     a test can wedge a "device" prefill on the card-free path and drive the
-    watchdog and the engine's state machine end to end.
+    watchdog, the engine's state machine and a recovery end to end.
 
-    Left for later slices: deadlines and journal resume (§A4), the
-    host-mesh arena (§A7)."""
+    Deadlines, as the pool has them: after the prefill a request whose
+    budget cannot cover one decode step is refused (stage ``admission``,
+    reject reason ``deadline``), and each step checks it (stage
+    ``decode``). ``resume_from`` starts the emission at that position (the
+    decode is position-indexed): the journal's native resume. Left for a
+    later slice: the host-mesh arena (§A7)."""
 
     # synthetic bucket ladder: echo pads nothing, but the batcher forms
     # bucket cohorts and counts padded tokens on it
@@ -1544,11 +1928,11 @@ class _EchoRunner:
 
     def __init__(self, step_ms: float = 0.0, metrics: Any = None):
         self.step_s = step_ms / 1000.0
+        self._deadline_counter = self._cancel_counter = self._pool_reject = None
         if metrics is not None:
-            # the overload families the JAX runner registers (deadlines
-            # and cancellations come with a later slice)
-            deadline_exceeded_counter(metrics)
-            cancellations_counter(metrics)
+            self._deadline_counter = deadline_exceeded_counter(metrics)
+            self._cancel_counter = cancellations_counter(metrics)
+            self._pool_reject = pool_reject_counter(metrics)
         self.paged: Optional[HostPagedKV] = None
         self.kv_pool: Optional[BlockPool] = None
         self._kv_reject: Any = None
@@ -1602,7 +1986,7 @@ class _EchoRunner:
         if self.stall_hook is not None:
             self.stall_hook()
         if self._closed:
-            raise RuntimeError("echo runner closed")
+            raise RuntimeError("echo runner closed (engine recovering)")
         if self.step_s:
             time.sleep(self.step_s)
         return [{"next_token": int(ids[0]), "length": int(ids.size)} for ids in payloads]
@@ -1623,6 +2007,7 @@ class _EchoRunner:
         adapter: Optional[str] = None,
         adapter_params: Any = None,
         ttft_cb: Any = None,
+        resume_from: int = 0,
     ) -> Any:
         if adapter is not None:
             raise InvalidParamError(f"adapter '{adapter}' (the echo runner serves no adapters)")
@@ -1637,6 +2022,23 @@ class _EchoRunner:
         if ttft_cb:
             ttft_cb()
         record = current_record()
+        deadline = current_deadline()
+        if deadline is not None:
+            # the pool's admission gate: a budget that cannot cover one
+            # decode step is refused before it reserves a block
+            remaining = deadline.remaining()
+            if remaining <= 0 or remaining < self.step_s:
+                if self._pool_reject is not None:
+                    self._pool_reject.inc(reason="deadline")
+                if self._deadline_counter is not None:
+                    self._deadline_counter.inc(stage="admission")
+                if record is not None:
+                    record.note_pool_reject("deadline")
+                    record.note_shed("admission")
+                raise DeadlineExceeded(
+                    f"remaining deadline budget {max(remaining, 0) * 1000:.0f} ms cannot cover "
+                    f"one decode step (cadence {self.step_s * 1000:.0f} ms)", stage="admission",
+                )
         # paged admission (the pool's submit timing): reserve the block
         # budget, aliasing cached prefix blocks; exhaustion decodes
         # block-free, counted as the pool counts it
@@ -1660,8 +2062,8 @@ class _EchoRunner:
         tops: list = []
         decode = self._generate_spec if self.spec_pooled is not None else self._generate_plain
         try:
-            decode(src, seq, out, lps, tops, max_new_tokens, stop, stop_tokens, on_token,
-                   logprobs, record)
+            decode(src, seq, out, lps, tops, max_new_tokens, resume_from, stop, stop_tokens,
+                   on_token, logprobs, deadline, record)
         except BaseException:
             if seq is not None:
                 self.paged.abort(seq)
@@ -1688,16 +2090,32 @@ class _EchoRunner:
         if on_token:
             on_token((token, 0.0) if logprobs else token)
 
+    def _shed_decode(self, record: Any, emitted: int) -> None:
+        """A step past the deadline: the pool's per-chunk accounting, then
+        the 504 (the caller's abort path releases the blocks)."""
+        if self._deadline_counter is not None:
+            self._deadline_counter.inc(stage="decode")
+        if self._cancel_counter is not None:
+            self._cancel_counter.inc(cause="deadline")
+        if record is not None:
+            record.note_shed("decode")
+        raise DeadlineExceeded(
+            f"request deadline exceeded mid-decode (after {emitted} tokens)", stage="decode"
+        )
+
     def _generate_plain(self, src: np.ndarray, seq: Any, out: list, lps: list, tops: list,
-                        max_new_tokens: int, stop: Any, stop_tokens: frozenset,
-                        on_token: Any, logprobs: bool, record: Any) -> None:
+                        max_new_tokens: int, resume_from: int, stop: Any,
+                        stop_tokens: frozenset, on_token: Any, logprobs: bool, deadline: Any,
+                        record: Any) -> None:
         """One token a step (one ``ECHO_STEP_MS`` sleep): token i is the
-        prompt's id at position i mod its length."""
-        for i in range(max_new_tokens):
+        prompt's id at position i mod its length, from ``resume_from``."""
+        for i in range(resume_from, max_new_tokens):
             if stop is not None and stop.is_set():
                 break
             if self._closed:
-                raise RuntimeError("echo runner closed mid-generation")
+                raise RuntimeError("echo runner closed mid-generation (engine recovering)")
+            if deadline is not None and deadline.expired():
+                self._shed_decode(record, len(out))
             token = int(src[i % src.size])
             if token in stop_tokens:
                 break
@@ -1708,26 +2126,31 @@ class _EchoRunner:
                 time.sleep(self.step_s)
 
     def _generate_spec(self, src: np.ndarray, seq: Any, out: list, lps: list, tops: list,
-                       max_new_tokens: int, stop: Any, stop_tokens: frozenset,
-                       on_token: Any, logprobs: bool, record: Any) -> None:
+                       max_new_tokens: int, resume_from: int, stop: Any,
+                       stop_tokens: frozenset, on_token: Any, logprobs: bool, deadline: Any,
+                       record: Any) -> None:
         """Pooled-spec cycles (the decode pool's spec mode, with no model):
         per cycle the draft source proposes k tokens, they land
         speculatively in the paged KV, ONE sleep stands for the verify, the
         longest prefix matching the true continuation plus the bonus token
         is emitted and the rejected tail rolls back. Emission is
         position-indexed off ``src`` as in the plain loop, so the ids never
-        depend on the drafts; only tokens a dispatch do."""
+        depend on the drafts; only tokens a dispatch do. k is clamped by the
+        brownout level and the deadline's remaining steps."""
         cfg = self.spec_pooled
-        ctx = [int(t) for t in src]
+        # a resumed request drafts from the stream an uninterrupted run
+        # would have: the prompt and the ids already emitted
+        ctx = [int(t) for t in src] + [int(src[j % src.size]) for j in range(resume_from)]
         state = cfg.new_state(ctx[:-1], ctx[-1])
-        i = 0
+        i = resume_from
         while i < max_new_tokens:
             if stop is not None and stop.is_set():
                 break
             if self._closed:
-                raise RuntimeError("echo runner closed mid-generation")
-            # brownout level 0 and no deadline, as in the pool
-            k = clamp_spec_k(state.adaptive.current(), 0, None, self.step_s)
+                raise RuntimeError("echo runner closed mid-generation (engine recovering)")
+            if deadline is not None and deadline.expired():
+                self._shed_decode(record, len(out))
+            k = clamp_spec_k(state.adaptive.current(), cfg.level(), deadline, self.step_s)
             # room for k drafts + the bonus within the request's budget
             k = min(k, max_new_tokens - i - 1)
             truth = [int(src[(i + j) % src.size]) for j in range(k + 1)]
@@ -1955,6 +2378,7 @@ class _TransformerRunner:
                 "the given model does not match MODEL_NAME/MODEL_MAX_SEQ/MODEL_QUANT/device"
             )
         self.model = model
+        self.metrics = metrics  # the solo path's deadline counters
         # the dispatch timeline and watchdog the chunked and tail prefills
         # report to, and the prefix cache's hit/miss callback
         self.timeline = timeline
@@ -2128,6 +2552,11 @@ class _TransformerRunner:
         sampler = sampler or Sampler()
         stop_tokens = frozenset(stop_tokens or ())
         ids = self.prepare(tokens)
+        deadline = current_deadline()
+        if decode_pool is not None and not sampler.seeded:
+            # the pool's deadline verdict before the prefill: a request
+            # that cannot get one chunk in its budget must not burn one
+            decode_pool.admit_deadline(deadline)
         model = self.model
         state = None
         if adapter is not None:
@@ -2240,7 +2669,7 @@ class _TransformerRunner:
         state = None  # release the batch's prefill buffers
         cache = self._solo_decode(
             cache, cache_len, token, out, lps, tops, max_new_tokens, sampler, stop,
-            stop_tokens, on_token, logprobs, top_logprobs, penalty, model,
+            stop_tokens, on_token, logprobs, top_logprobs, penalty, model, deadline,
         )
         if seed_kv:
             self._prefix_store_generation(ids, out, cache, sampler)
@@ -2258,6 +2687,13 @@ class _TransformerRunner:
             item = slot_q.get()
             if item is DONE:
                 return kv_row
+            if item is DEADLINE:
+                # the pool expired the row (slot and blocks already freed):
+                # a 504, never a silently truncated stream
+                raise DeadlineExceeded(
+                    f"request deadline exceeded mid-decode (after {len(out)} tokens)",
+                    stage="decode",
+                )
             if isinstance(item, PoolFailure):
                 raise item.exc
             if isinstance(item, tuple) and item and item[0] == "kv":
@@ -2306,7 +2742,7 @@ class _TransformerRunner:
         self, cache: dict, cache_len: int, token: int, out: list, lps: list, tops: list,
         max_new_tokens: int, sampler: Sampler, stop: Any, stop_tokens: frozenset,
         on_token: Any, logprobs: bool, top_logprobs: bool, penalty: Optional[tuple] = None,
-        model: Optional[Transformer] = None,
+        model: Optional[Transformer] = None, deadline: Any = None,
     ) -> dict:
         """Chunked decode through the pool's chunk function at B = 1
         (``decode_chunk_pool``: on-device sampling, the chosen logprobs and
@@ -2321,7 +2757,9 @@ class _TransformerRunner:
         forces a short one. ``penalty`` (presence, counts, bias rows of a
         penalized request) runs ``decode_chunk_pool_penalized`` at B = 1
         instead. ``model`` is an adapter's LoRA model (default the base).
-        Returns the final cache (every dispatched chunk's writes landed)."""
+        ``deadline``: checked at each chunk boundary, as the pool checks a
+        row (stage ``decode``, a 504). Returns the final cache (every
+        dispatched chunk's writes landed)."""
         model = model or self.model
         max_len = int(cache["k"].shape[2])
         greedy = sampler.greedy
@@ -2338,30 +2776,34 @@ class _TransformerRunner:
         in_flight = 0
         stopped = False
         while not stopped:
-            while (
-                not (stop is not None and stop.is_set())
-                and len(pending) < 2
-                and in_flight < max_new_tokens - len(out)
-                and cache_len + in_flight < max_len
-            ):
-                n = min(self.decode_chunk_size, max_len - cache_len - in_flight)
-                if penalty is None:
-                    toks_dev, lps_dev, tvals, tids, token_dev, cache = (
-                        model.decode_chunk_pool(
-                            token_dev, cache, n, gen, *knobs, all_greedy=greedy
+            # the launches too run under the watchdog: behind a stuck kernel
+            # the CUDA launch queue fills and the host blocks in the launch
+            with self._watch("decode_chunk"):
+                while (
+                    not (stop is not None and stop.is_set())
+                    and len(pending) < 2
+                    and in_flight < max_new_tokens - len(out)
+                    and cache_len + in_flight < max_len
+                ):
+                    n = min(self.decode_chunk_size, max_len - cache_len - in_flight)
+                    if penalty is None:
+                        toks_dev, lps_dev, tvals, tids, token_dev, cache = (
+                            model.decode_chunk_pool(
+                                token_dev, cache, n, gen, *knobs, all_greedy=greedy
+                            )
                         )
-                    )
-                else:
-                    presence, counts, bias = penalty
-                    toks_dev, lps_dev, tvals, tids, token_dev, cache, _, _ = (
-                        model.decode_chunk_pool_penalized(
-                            token_dev, cache, n, gen, *knobs, presence, pen_knobs[0], counts,
-                            pen_knobs[1], pen_knobs[2], bias, all_greedy=greedy,
+                    else:
+                        presence, counts, bias = penalty
+                        toks_dev, lps_dev, tvals, tids, token_dev, cache, _, _ = (
+                            model.decode_chunk_pool_penalized(
+                                token_dev, cache, n, gen, *knobs, presence, pen_knobs[0], counts,
+                                pen_knobs[1], pen_knobs[2], bias, all_greedy=greedy,
+                            )
                         )
-                    )
-                outputs = (toks_dev, lps_dev) if logprobs else (toks_dev,)
-                pending.append((HostFetch(*outputs, *((tvals, tids) if top_logprobs else ())), n))
-                in_flight += n
+                    outputs = (toks_dev, lps_dev) if logprobs else (toks_dev,)
+                    tops_out = (tvals, tids) if top_logprobs else ()
+                    pending.append((HostFetch(*outputs, *tops_out), n))
+                    in_flight += n
             if not pending:
                 break
             fetch, n = pending.popleft()
@@ -2369,6 +2811,8 @@ class _TransformerRunner:
                 arrays = fetch.wait()
             in_flight -= n
             cache_len += n
+            if deadline is not None and deadline.expired():
+                self._shed_solo_decode(deadline, len(out))
             for j, t in enumerate(arrays[0][0, : min(n, max_new_tokens - len(out))].tolist()):
                 if t in stop_tokens:
                     stopped = True
@@ -2387,6 +2831,21 @@ class _TransformerRunner:
             if len(out) >= max_new_tokens:
                 stopped = True
         return cache
+
+    def _shed_solo_decode(self, deadline: Any, emitted: int) -> None:
+        """Mid-decode expiry on the solo path: the pool's accounting (stage
+        ``decode``, cause ``deadline``, the record's shed stage), then the
+        504; the chunks in flight are dropped with the request."""
+        if self.metrics is not None:
+            deadline_exceeded_counter(self.metrics).inc(stage="decode")
+            cancellations_counter(self.metrics).inc(cause="deadline")
+        record = current_record()
+        if record is not None:
+            record.note_shed("decode")
+        raise DeadlineExceeded(
+            f"deadline expired mid-decode after {emitted} tokens "
+            f"(budget {deadline.budget_s * 1000:.0f} ms, solo path)", stage="decode",
+        )
 
     @torch.no_grad()
     def warmup(self, progress: Any) -> None:

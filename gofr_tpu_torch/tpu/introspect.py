@@ -11,9 +11,10 @@ device-level mirror of the request flight recorder (``telemetry.py``).
 - ``EngineState``: booting -> warming -> serving, degraded and wedged
   while a watched wait outlives its deadline, failed and closed; on
   ``GET /admin/engine``, in the readiness body (503 while degraded or
-  wedged) and in the ``gofr_tpu_engine_state{state}`` gauge. The
-  ``recovering`` state stays in the vocabulary; the port has no recovery
-  supervisor yet (ROADMAP §A4), so the watchdog observes and reports only.
+  wedged) and in the ``gofr_tpu_engine_state{state}`` gauge; and
+  ``recovering`` while the recovery supervisor (``tpu/recovery.py``)
+  rebuilds the stack. Listeners (the postmortem store, the supervisor) hear
+  every transition.
 - ``StallWatchdog``: a heartbeat thread over the watched waits
   (``WATCHDOG_DISPATCH_TIMEOUT_S``; armed at 120 s on its own when the
   device is ``cuda``). Past the deadline it counts
@@ -57,7 +58,7 @@ ENGINE_STATES = (
     "serving",     # ready; dispatches completing inside their deadline
     "degraded",    # >=1 dispatch past WATCHDOG_DISPATCH_TIMEOUT_S
     "wedged",      # a stalled dispatch outlived timeout x wedge_factor
-    "recovering",  # a recovery rebuild (no supervisor in the port yet)
+    "recovering",  # the recovery supervisor quarantining and rebuilding the stack
     "failed",      # boot/recovery failed terminally (reinit may still fix)
     "closed",      # device closed
 )
@@ -282,6 +283,7 @@ class EngineState:
         self._since = time.time()
         self._history: "deque[dict[str, Any]]" = deque(maxlen=64)
         self._logger = logger
+        self._listeners: list[Any] = []
         self._gauge = (
             metrics.gauge(
                 "gofr_tpu_engine_state",
@@ -303,6 +305,14 @@ class EngineState:
         for s in ENGINE_STATES:
             self._gauge.set(1.0 if s == state else 0.0, state=s)
 
+    def add_listener(self, fn: Any) -> None:
+        """Register ``fn(state, detail)``, called after every completed
+        transition outside the engine lock. A listener must be quick (the
+        postmortem store hands its write to a thread); one that raises is
+        logged and skipped."""
+        with self._lock:
+            self._listeners.append(fn)
+
     def transition(self, state: str, detail: str = "") -> None:
         if state not in ENGINE_STATES:
             raise ValueError(
@@ -321,6 +331,13 @@ class EngineState:
             # inside the lock: two racing transitions must not interleave
             # their per-state gauge writes (the metric lock is a leaf)
             self._set_gauge(state)
+            listeners = list(self._listeners)
+        for fn in listeners:
+            try:
+                fn(state, detail)
+            except Exception as exc:
+                if self._logger is not None:
+                    self._logger.warnf("engine state listener failed on -> %s: %r", state, exc)
         if self._logger is not None:
             log = (
                 self._logger.warnf if state in ("degraded", "wedged", "failed")
@@ -385,6 +402,9 @@ class StallWatchdog:
         self.timeout_s = float(timeout_s)
         self.wedge_factor = wedge_factor
         self._entries: dict[int, _Watch] = {}
+        # the last recovery's quarantined entries: evidence that outlives
+        # the quarantine
+        self._quarantined: list[dict[str, Any]] = []
         self._tokens = itertools.count(1)
         self._lock = threading.Lock()
         self._stop = threading.Event()
@@ -479,6 +499,27 @@ class StallWatchdog:
                 entry.kind, entry.dispatch_id, elapsed,
             )
 
+    def quarantine(self) -> list[dict[str, Any]]:
+        """The recovery supervisor's step: forget every flagged (stalled)
+        entry and return their descriptions. The stuck thread may never
+        return, but its entry must not hold the rebuilt engine degraded;
+        when it does return, its ``_unwatch`` pops nothing and moves the
+        engine only if it still reads degraded or wedged."""
+        quarantined: list[dict[str, Any]] = []
+        with self._lock:
+            for token, entry in list(self._entries.items()):
+                if entry.flagged:
+                    quarantined.append({
+                        "kind": entry.kind,
+                        "dispatch_id": entry.dispatch_id,
+                        "thread": entry.thread_name,
+                        "elapsed_s": round(time.perf_counter() - entry.started, 3),
+                    })
+                    self._entries.pop(token, None)
+            if quarantined:
+                self._quarantined = quarantined
+        return quarantined
+
     # -- heartbeat ------------------------------------------------------------
     def _loop(self) -> None:
         while not self._stop.wait(self._poll_interval()):
@@ -571,10 +612,13 @@ class StallWatchdog:
                 for e in self._entries.values()
             ]
             counts = dict(self.stall_counts)
+            quarantined = list(self._quarantined)
         return {
             "enabled": self.enabled,
             "timeout_s": self.timeout_s if self.enabled else None,
             "wedge_factor": self.wedge_factor,
             "stalls": counts,
             "watching": watching,
+            # the last recovery's quarantined dispatches
+            "quarantined": quarantined,
         }

@@ -1,0 +1,293 @@
+"""Recovery supervisor: a ``wedged`` engine becomes a recoverable incident
+instead of a 503 until a restart (port of ``gofr_tpu/tpu/recovery.py``).
+
+On ``wedged`` (an ``EngineState`` listener), a named thread:
+
+1. moves the engine to ``recovering`` and writes a postmortem bundle
+   through the ``postmortem`` callback (the container wires
+   ``PostmortemStore.write``) before any evidence is disturbed;
+2. quarantines the stuck dispatch (``StallWatchdog.quarantine``), so a
+   thread that never returns cannot hold the rebuilt engine degraded;
+3. tears the stack down and rebuilds it through ``TPUDevice.recover``:
+   runner, pool, batcher and a fresh device probe, over the same weights.
+   Requests on the old stack fail (their journal entries stay, interrupted,
+   for resume);
+4. walks the engine through ``warming`` back to ``serving``.
+
+Attempts are bounded (``RECOVERY_MAX_ATTEMPTS``) with exponential backoff
+(``RECOVERY_BACKOFF_S`` doubling up to ``RECOVERY_BACKOFF_MAX_S``); running
+out, or a rebuild that hangs past ``RECOVERY_ATTEMPT_TIMEOUT_S``, is the
+terminal ``failed`` state with its reason. Every outcome counts on
+``gofr_tpu_engine_recoveries_total{outcome}``; ``snapshot`` serves the
+incident (attempts, backoff, last outcome and error, MTTR) on
+``/admin/engine`` and in the readiness body.
+
+On a card, a late wait (slow work, a host stall) rebuilds in process. A
+CUDA device fault (error 719 and the like) is sticky: every later CUDA call
+of the process fails, so each rebuild's re-probe fails, the attempts run
+out and the terminal detail names the CUDA error and says that a process
+restart is needed.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Any, Optional
+
+# terminal detail when a rebuild never returned: the stack is half built
+# and a hung thread holds the reinit lock, so only a restart can help
+HUNG_DETAIL = "recovery attempt hung — process restart required"
+
+
+class RecoverySupervisor:
+    """Watches the engine state machine and drives wedge recovery.
+
+    ``device`` needs: ``engine`` (EngineState), ``watchdog``
+    (StallWatchdog), ``recover(detail)`` (teardown + rebuild that ends
+    in a ``serving`` transition), and ``_closed``. ``postmortem`` is an
+    optional ``fn(detail) -> None`` invoked at quarantine time (the
+    container usually also has its own wedge listener — this one exists
+    for devices wired without a postmortem store)."""
+
+    def __init__(
+        self,
+        device: Any,
+        metrics: Any = None,
+        logger: Any = None,
+        max_attempts: int = 3,
+        backoff_s: float = 1.0,
+        backoff_max_s: float = 30.0,
+        attempt_timeout_s: float = 300.0,
+        enabled: bool = True,
+        postmortem: Optional[Any] = None,
+    ):
+        if max_attempts < 1:
+            raise ValueError("RECOVERY_MAX_ATTEMPTS must be >= 1")
+        if backoff_s < 0 or backoff_max_s < 0:
+            raise ValueError("RECOVERY_BACKOFF_S must be >= 0")
+        if attempt_timeout_s <= 0:
+            raise ValueError("RECOVERY_ATTEMPT_TIMEOUT_S must be > 0")
+        self.device = device
+        self.logger = logger
+        self.enabled = enabled
+        self.max_attempts = max_attempts
+        self.backoff_s = backoff_s
+        self.backoff_max_s = backoff_max_s
+        self.attempt_timeout_s = attempt_timeout_s
+        self.postmortem = postmortem
+        self._lock = threading.Lock()
+        self._thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+        # incident state (all under _lock; read by snapshot)
+        self._state = "idle"  # idle | recovering | waiting_backoff | exhausted | hung
+        self._attempts = 0
+        self._incidents = 0
+        self._last_outcome = ""
+        self._last_error = ""
+        self._last_mttr_s: Optional[float] = None
+        self._backoff_deadline: Optional[float] = None  # monotonic
+        self._wedged_at: Optional[float] = None  # monotonic mark of the wedge
+        self._counts: dict[str, int] = {}
+        self._counter = (
+            metrics.counter(
+                "gofr_tpu_engine_recoveries_total",
+                "wedge-recovery outcomes: recovered (back to serving), "
+                "failed_attempt (one rebuild failed, will back off/retry), "
+                "exhausted (attempts spent — engine failed), timeout (a "
+                "rebuild hung — engine failed, restart required)",
+                labels=("outcome",),
+            )
+            if metrics is not None else None
+        )
+        device.engine.add_listener(self._on_state)
+
+    # -- engine listener -------------------------------------------------------
+    def _on_state(self, state: str, detail: str) -> None:
+        """EngineState listener: must be quick and non-blocking — the
+        actual recovery runs on its own named thread."""
+        if state != "wedged" or not self.enabled:
+            return
+        with self._lock:
+            if self._thread is not None and self._thread.is_alive():
+                return  # one incident at a time (a rebuild may itself wedge)
+            if self._state in ("exhausted", "hung"):
+                return  # terminal: a restart is the only way back
+            self._incidents += 1
+            self._attempts = 0
+            self._wedged_at = time.monotonic()
+            self._state = "recovering"
+            self._thread = threading.Thread(
+                target=self._run, args=(detail,),
+                name="gofr-recovery", daemon=True,
+            )
+            self._thread.start()
+
+    # -- the incident loop -----------------------------------------------------
+    def _run(self, wedge_detail: str) -> None:
+        while not self._stop.is_set() and not getattr(self.device, "_closed", False):
+            with self._lock:
+                self._attempts += 1
+                attempt = self._attempts
+                self._state = "recovering"
+                self._backoff_deadline = None
+            detail = (
+                f"recovery attempt {attempt}/{self.max_attempts}"
+                + (f" after: {wedge_detail}" if wedge_detail else "")
+            )
+            self.device.engine.transition("recovering", detail)
+            # bundle BEFORE quarantine: the postmortem must still see the
+            # stalled watchdog entries (quarantine forgets them). The
+            # store's rate limit dedupes against its own wedge listener
+            if self.postmortem is not None:
+                try:
+                    self.postmortem(detail)
+                except Exception as exc:
+                    # a broken postmortem hook must not block recovery
+                    if self.logger is not None:
+                        self.logger.warnf(
+                            "recovery postmortem hook failed: %r", exc
+                        )
+            quarantined = self.device.watchdog.quarantine()
+            if quarantined and self.logger is not None:
+                self.logger.warnf(
+                    "recovery: quarantined %d stalled dispatch(es): %s",
+                    len(quarantined), quarantined,
+                )
+            if not self._attempt_rebuild(detail):
+                return  # hung: terminal, accounted inside
+            if self.device.engine.state == "serving":
+                self._finish_recovered(attempt)
+                return
+            # rebuild failed: back off, then retry (bounded)
+            if attempt >= self.max_attempts:
+                self._finish_exhausted(attempt)
+                return
+            backoff = min(
+                self.backoff_s * (2 ** (attempt - 1)), self.backoff_max_s
+            )
+            with self._lock:
+                self._state = "waiting_backoff"
+                self._backoff_deadline = time.monotonic() + backoff
+            self.device.engine.transition(
+                "wedged",
+                f"recovery attempt {attempt}/{self.max_attempts} failed; "
+                f"retrying in {backoff:.1f}s",
+            )
+            if self._stop.wait(backoff):
+                return
+
+    def _attempt_rebuild(self, detail: str) -> bool:
+        """One teardown+rebuild, time-bounded. The rebuild runs on a
+        helper thread so a re-probe hanging on a still-wedged device
+        cannot park the incident loop forever: past
+        ``attempt_timeout_s`` the incident is declared HUNG (terminal
+        ``failed`` — the hung thread holds the reinit lock, so further
+        attempts could only queue behind it). Returns False when hung."""
+        failure: list[BaseException] = []
+
+        def rebuild() -> None:
+            try:
+                self.device.recover(detail)
+            except BaseException as exc:
+                failure.append(exc)
+
+        worker = threading.Thread(
+            target=rebuild, name="gofr-recovery-rebuild", daemon=True
+        )
+        worker.start()
+        worker.join(timeout=self.attempt_timeout_s)
+        if worker.is_alive():
+            self._count("timeout")
+            with self._lock:
+                self._state = "hung"
+                self._last_outcome = "timeout"
+                self._last_error = HUNG_DETAIL
+            self.device.engine.transition("failed", HUNG_DETAIL)
+            if self.logger is not None:
+                self.logger.errorf("recovery: %s", HUNG_DETAIL)
+            return False
+        if failure:
+            self._count("failed_attempt")
+            with self._lock:
+                self._last_outcome = "failed_attempt"
+                self._last_error = repr(failure[0])
+            if self.logger is not None:
+                self.logger.errorf("recovery rebuild failed: %r", failure[0])
+        return True
+
+    def _finish_recovered(self, attempt: int) -> None:
+        self._count("recovered")
+        with self._lock:
+            mttr = (
+                time.monotonic() - self._wedged_at
+                if self._wedged_at is not None else None
+            )
+            self._last_mttr_s = round(mttr, 3) if mttr is not None else None
+            self._state = "idle"
+            self._last_outcome = "recovered"
+            self._last_error = ""
+            self._backoff_deadline = None
+        if self.logger is not None:
+            self.logger.warnf(
+                "recovery: engine back to serving after %d attempt(s)"
+                " (MTTR %.2fs)", attempt, self._last_mttr_s or -1.0,
+            )
+
+    def _finish_exhausted(self, attempt: int) -> None:
+        self._count("exhausted")
+        detail = (
+            f"recovery exhausted after {attempt} attempt(s): "
+            f"{self._last_error or 'rebuild kept failing'}"
+        )
+        with self._lock:
+            self._state = "exhausted"
+            self._last_outcome = "exhausted"
+            self._backoff_deadline = None
+        self.device.engine.transition("failed", detail)
+        if self.logger is not None:
+            self.logger.errorf("recovery: %s", detail)
+
+    def _count(self, outcome: str) -> None:
+        with self._lock:
+            self._counts[outcome] = self._counts.get(outcome, 0) + 1
+        if self._counter is not None:
+            self._counter.inc(outcome=outcome)
+
+    # -- lifecycle / read side -------------------------------------------------
+    def close(self) -> None:
+        self._stop.set()
+
+    def reset(self) -> None:
+        """Operator escape hatch (and test hook): clear a terminal
+        exhausted/hung verdict so the NEXT wedge starts a fresh
+        incident (e.g. after the operator fixed the device and
+        reinit()ed manually)."""
+        with self._lock:
+            if self._thread is not None and self._thread.is_alive():
+                return
+            self._state = "idle"
+            self._attempts = 0
+            self._backoff_deadline = None
+
+    def snapshot(self) -> dict[str, Any]:
+        """Incident evidence for ``/admin/engine`` and the readiness
+        503 body: attempt count, backoff deadline, last outcome/error,
+        MTTR of the last recovered incident, outcome counts."""
+        with self._lock:
+            backoff_in = (
+                round(max(0.0, self._backoff_deadline - time.monotonic()), 3)
+                if self._backoff_deadline is not None else None
+            )
+            return {
+                "enabled": self.enabled,
+                "state": self._state,
+                "attempts": self._attempts,
+                "max_attempts": self.max_attempts,
+                "incidents": self._incidents,
+                "backoff_in_s": backoff_in,
+                "last_outcome": self._last_outcome or None,
+                "last_error": self._last_error or None,
+                "last_mttr_s": self._last_mttr_s,
+                "recoveries": dict(self._counts),
+            }

@@ -26,7 +26,7 @@ publishes ``gofr_tpu_spec_accept_ratio`` and
 from __future__ import annotations
 
 import threading
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 # floor of the adaptive controller: below this EMA acceptance the
 # request stops speculating (k=0 = plain decode) except for probes
@@ -273,14 +273,13 @@ class SpecRequestState:
 class PoolSpecConfig:
     """Deployment-level pooled-spec settings, built once by the device
     and attached to the decode pool / echo runner: draft width bound,
-    draft source selection, and the two EMA gauges (shared registration
-    homes above). Callers clamp at brownout level 0: the port has no
-    brownout controller yet (ROADMAP §A4). ``ema`` state is guarded by
-    a lock: the echo runner sets gauges from concurrent request
-    threads."""
+    draft source selection, the brownout probe (``brownout_level``, the
+    device's ``BrownoutController.level``), and the two EMA gauges
+    (shared registration homes above). ``ema`` state is guarded by a
+    lock: the echo runner sets gauges from concurrent request threads."""
 
     __slots__ = (
-        "k_max", "ngram", "fake_schedule",
+        "k_max", "ngram", "fake_schedule", "brownout_level",
         "accept_gauge", "tpd_gauge", "model", "_ema_accept", "_ema_tpd",
         "_lock",
     )
@@ -290,6 +289,7 @@ class PoolSpecConfig:
         k_max: int = 4,
         ngram: bool = True,
         fake_schedule: Optional[tuple] = None,
+        brownout_level: Optional[Callable[[], int]] = None,
         metrics: Any = None,
         model: str = "",
     ):
@@ -298,6 +298,7 @@ class PoolSpecConfig:
         self.k_max = k_max
         self.ngram = ngram
         self.fake_schedule = fake_schedule
+        self.brownout_level = brownout_level
         self.model = model
         self.accept_gauge = (
             spec_accept_ratio_gauge(metrics) if metrics is not None else None
@@ -317,6 +318,12 @@ class PoolSpecConfig:
         )
         return SpecRequestState(context, pending, self.k_max, fake=fake,
                                 ngram=self.ngram)
+
+    def level(self) -> int:
+        """The live brownout level (0 when no controller is wired)."""
+        if self.brownout_level is None:
+            return 0
+        return self.brownout_level()
 
     def note_cycle(self, drafted: int, accepted: int, emitted: int,
                    dispatches: int = 1) -> None:

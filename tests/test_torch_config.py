@@ -1,9 +1,10 @@
 """gofr_tpu_torch's configuration against gofr_tpu's: the port's declared
 keys and its list of the reference's unhonored keys partition the JAX
 package's DECLARED_KEYS; each listed key, set in the environment or in
-``configs/.env``, refuses the boot (naming the key) or warns once; and
-LOG_LEVEL, HANDLER_THREADS and TPU_ENABLED are honored as the JAX
-container honors them."""
+``configs/.env``, refuses the boot (naming the key) or warns once; the
+keys of the overload and failure layer are declared, read, and neither
+refuse nor warn (the journal's keys boot); and LOG_LEVEL, HANDLER_THREADS
+and TPU_ENABLED are honored as the JAX container honors them."""
 
 import io
 import json
@@ -27,7 +28,22 @@ from gofr_tpu_torch.logging import Level, Logger
 # at least these refuse (ignoring them changes the topology, a durability
 # guarantee or the memory the process takes)
 MUST_REFUSE = {"TPU_MESH", "TPU_TOPOLOGY", "TPU_COORDINATOR", "TPU_NUM_PROCESSES",
-               "TPU_PROCESS_ID", "JOURNAL", "JOURNAL_DIR", "KV_HBM_BUDGET_MB", "FLEET_ROLE"}
+               "TPU_PROCESS_ID", "KV_HBM_BUDGET_MB", "FLEET_ROLE"}
+
+# the keys the overload and failure layer honors: deadlines, priorities and
+# brownout, the timebase and postmortems, the SLO engine, recovery, and the
+# journal with its WAL
+FAILURE_KEYS = (
+    "REQUEST_DEADLINE_S", "PRIORITY_DEFAULT", "BROWNOUT_QUEUE_DEPTH", "BROWNOUT_KV_UTIL",
+    "BROWNOUT_SHED_PRIORITY", "BROWNOUT_CLAMP_TOKENS", "TIMEBASE_ENABLED",
+    "TIMEBASE_INTERVAL_S", "TIMEBASE_WINDOW_S", "POSTMORTEM_DIR", "POSTMORTEM_KEEP",
+    "POSTMORTEM_MIN_INTERVAL_S", "POSTMORTEM_SNAPSHOTS", "SLO", "SLO_TARGETS",
+    "SLO_BURN_FAST_S", "SLO_BURN_FAST_LONG_S", "SLO_BURN_FAST_RATE", "SLO_BURN_SLOW_S",
+    "SLO_BURN_SLOW_LONG_S", "SLO_BURN_SLOW_RATE", "SLO_EVAL_INTERVAL_S", "RECOVERY_ENABLED",
+    "RECOVERY_MAX_ATTEMPTS", "RECOVERY_BACKOFF_S", "RECOVERY_BACKOFF_MAX_S",
+    "RECOVERY_ATTEMPT_TIMEOUT_S", "JOURNAL", "JOURNAL_CAPACITY", "JOURNAL_MAX_TOKENS",
+    "JOURNAL_DIR", "JOURNAL_FSYNC", "JOURNAL_SEGMENT_BYTES", "JOURNAL_SEGMENTS",
+)
 
 
 @pytest.fixture
@@ -50,6 +66,39 @@ def test_the_port_partitions_the_jax_keys():
     assert {"APP_NAME", "LOG_LEVEL", "HANDLER_THREADS", "TPU_ENABLED", "TPU_BOOT",
             "ECHO_STEP_MS", "SPEC_FAKE_ACCEPT", "METRICS_MAX_SERIES", "METRICS_EXEMPLARS",
             "TRACER_HOST", "TRACER_PORT"} <= port_declared
+
+
+@pytest.mark.parametrize("key", FAILURE_KEYS)
+def test_a_failure_layer_key_is_declared_and_silent(key, clean_env, tmp_path):
+    """Each key this layer honors is one of the JAX package's, declared,
+    read from the environment, and neither refuses nor warns at boot."""
+    assert key in JAX_KEYS and key in DECLARED_KEYS and key not in UNHONORED_KEYS
+    clean_env.setenv(key, "7")
+    config = EnvFileConfig(str(tmp_path))
+    assert config.get(key) == "7"
+    out = io.StringIO()
+    saved, sys.stdout = sys.stdout, out
+    try:
+        check_unhonored(config, Logger(Level.INFO, terminal=False))
+    finally:
+        sys.stdout = saved
+    assert _warnings(out.getvalue()) == []
+
+
+def test_the_journal_keys_boot(clean_env, tmp_path):
+    """JOURNAL, JOURNAL_DIR and JOURNAL_FSYNC no longer refuse the boot: an
+    echo app boots with its journal on a WAL in the directory."""
+    clean_env.setenv("MODEL_NAME", "echo")
+    clean_env.setenv("JOURNAL", "on")
+    clean_env.setenv("JOURNAL_DIR", str(tmp_path / "wal"))
+    clean_env.setenv("JOURNAL_FSYNC", "always")
+    clean_env.setenv("LOG_LEVEL", "FATAL")
+    c = Container(EnvFileConfig(str(tmp_path)))
+    try:
+        assert c.tpu.journal_wal is not None and c.tpu.journal_wal.fsync_policy == "always"
+        assert c.tpu.journal.stats()["wal"]["dir"] == str(tmp_path / "wal")
+    finally:
+        c.close()
 
 
 def _warnings(logger_out: str) -> list:
@@ -80,8 +129,8 @@ def test_a_set_unhonored_key_refuses_or_warns(key, clean_env, tmp_path):
 
 
 def test_the_env_file_counts_and_each_key_warns_once(clean_env, tmp_path):
-    (tmp_path / ".env").write_text("GRPC_PORT=9000\nSLO=off\n")
-    clean_env.setenv("SLO", "on")  # in both: one warning
+    (tmp_path / ".env").write_text("GRPC_PORT=9000\nFLEET_ROUTES=a\n")
+    clean_env.setenv("FLEET_ROUTES", "b")  # in both: one warning
     clean_env.setenv("FLEET_RETRIES", "")  # empty is unset
     out = io.StringIO()
     saved, sys.stdout = sys.stdout, out
@@ -89,9 +138,9 @@ def test_the_env_file_counts_and_each_key_warns_once(clean_env, tmp_path):
         check_unhonored(EnvFileConfig(str(tmp_path)), Logger(Level.INFO, terminal=False))
     finally:
         sys.stdout = saved
-    assert [w.split()[0] for w in _warnings(out.getvalue())] == ["GRPC_PORT", "SLO"]
-    (tmp_path / ".env").write_text("JOURNAL_DIR=/var/journal\n")
-    with pytest.raises(ValueError, match="JOURNAL_DIR"):
+    assert [w.split()[0] for w in _warnings(out.getvalue())] == ["GRPC_PORT", "FLEET_ROUTES"]
+    (tmp_path / ".env").write_text("KV_HBM_BUDGET_MB=512\n")
+    with pytest.raises(ValueError, match="KV_HBM_BUDGET_MB"):
         gofr_tpu_torch.new(str(tmp_path))
 
 

@@ -343,9 +343,16 @@ def test_costmodel_off_removes_the_surface(monkeypatch, tmp_path):
         assert _call(app, "/v1/completions", {"prompt": "hi", "max_tokens": 2})[0] == 200
         assert app.container.tpu.costmodel is None
         assert _call(app, "/admin/costmodel")[0] == 503
-        assert _call(app, "/admin/anomalies")[0] == 503
+        # the anomaly surface is the SLO engine's own ring then, as in JAX
+        status, body = _call(app, "/admin/anomalies")
+        assert status == 200 and body["data"]["anomalies"] == []
         rec = app.container.tpu.timeline.records(kind="prefill")[0]
         assert rec["predicted_ms"] is None and rec["residual_ratio"] is None
         assert _call(app, "/admin/engine")[1]["data"]["costmodel"] is None
+    finally:
+        app.shutdown()
+    app = _echo_app(monkeypatch, tmp_path, COSTMODEL="off", SLO="off")
+    try:
+        assert _call(app, "/admin/anomalies")[0] == 503
     finally:
         app.shutdown()

@@ -158,8 +158,8 @@ def _post(url, body, path):
             status, raw = resp.status, resp.read().decode()
     except urllib.error.HTTPError as exc:
         status, raw = exc.code, exc.read().decode()
-    if raw.startswith(("data: ", "id: ")):  # SSE: the frames (the JAX package numbers them)
-        return status, [line for line in raw.split("\n") if line.startswith("data: ")]
+    if raw.startswith(("data: ", "id: ")):  # SSE: whole frames, their id: lines included
+        return status, [frame for frame in raw.split("\n\n") if frame]
     return status, json.loads(raw)
 
 

@@ -282,7 +282,11 @@ def test_dispatches_match_jax_and_ids_resolve(echo_apps):
     assert snap["queue_depth"] == jsnap["queue_depth"] == 0
     assert snap["scheduler"]["policy"] == "fair"
     assert snap["tenants"] == jsnap["tenants"]
-    assert "observe-only" in snap["watchdog"]["on_stall"]
+    assert snap["watchdog"]["on_stall"].startswith("recover:")  # RECOVERY_ENABLED on
+    assert snap["recovery"].keys() == jsnap["recovery"].keys()
+    assert snap["recovery"]["state"] == jsnap["recovery"]["state"] == "idle"
+    assert snap["brownout"] == jsnap["brownout"]
+    assert snap["journal"].keys() == jsnap["journal"].keys()
     assert _call(tapp, "/admin/engine")[0] == 200
 
 

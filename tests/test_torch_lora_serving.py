@@ -430,8 +430,9 @@ def _call(url, method, route, payload=None, token="hunter2"):
             status = resp.status
     except urllib.error.HTTPError as exc:
         return exc.code, json.loads(exc.read().decode())
-    if raw.startswith("data: "):
-        return status, [f[len("data: "):] for f in raw.split("\n\n") if f.startswith("data: ")]
+    if raw.startswith(("data: ", "id: ")):  # SSE: each frame's data (after its id: line)
+        return status, [line[len("data: "):] for f in raw.split("\n\n")
+                        for line in f.split("\n") if line.startswith("data: ")]
     return status, json.loads(raw)
 
 

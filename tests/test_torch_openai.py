@@ -12,7 +12,8 @@ requests go to both:
   ``score_tokens`` within 2e-5 (f32), and the prompt part unchanged when a
   completion follows;
 - greedy ``n``, the streaming fan-out and ``include_usage`` frames: the
-  same frames (ids and times aside); sampled fan-outs: the same shape;
+  same frames (response ids and times aside) with the same SSE ``id:``
+  lines; sampled fan-outs: the same shape;
 - refused requests: the same status.
 Without a server: ``render_chat_prompt`` (simple form, opener override,
 inline and file jinja, ``tokenizer_config.json`` discovery, the errors),
@@ -122,16 +123,38 @@ def _post(url, body, path="/v1/completions"):
             status = resp.status
     except urllib.error.HTTPError as exc:
         return exc.code, json.loads(exc.read().decode())
-    if raw.startswith(("data: ", "id: ")):  # SSE; the JAX package numbers its frames
-        return status, [line[len("data: "):] for frame in raw.split("\n\n")
-                        for line in frame.split("\n") if line.startswith("data: ")]
+    if raw.startswith(("data: ", "id: ")):  # SSE: each frame's data, with its id: line
+        return status, [_Frame(frame) for frame in raw.split("\n\n") if frame]
     return status, json.loads(raw)
+
+
+class _Frame(str):
+    """One SSE frame's data, carrying the frame's ``id:`` (None without)."""
+
+    def __new__(cls, frame):
+        fields = dict(line.split(": ", 1) for line in frame.split("\n"))
+        self = super().__new__(cls, fields["data"])
+        self.sse_id = fields.get("id")
+        return self
 
 
 def _both(apps, body, path="/v1/completions"):
     (js, jb), (ts, tb) = _post(apps.jax, body, path), _post(apps.torch, body, path)
     assert js == ts == 200, (jb, tb)
+    if isinstance(jb, list):  # SSE: the frames number alike
+        assert _numbering(tb) == _numbering(jb)
     return jb, tb
+
+
+def _numbering(frames):
+    """None for unnumbered frames (a fan-out), else the first SSE id of a
+    run numbered one a frame."""
+    ids = [f.sse_id for f in frames]
+    if all(i is None for i in ids):
+        return None
+    first = int(ids[0])
+    assert ids == [str(first + k) for k in range(len(ids))]
+    return first
 
 
 def _strip(frame):

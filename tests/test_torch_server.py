@@ -67,7 +67,13 @@ def _post(port, body, path="/v1/completions"):
 
 
 def _frames(raw):
-    return [f[len("data: "):] for f in raw.split("\n\n") if f.startswith("data: ")]
+    """A stream's data frames; a single stream numbers them (SSE ``id:``
+    from 0, one a frame), which is held here too."""
+    frames = [f.split("\n") for f in raw.split("\n\n") if f]
+    ids = [lines[0][len("id: "):] for lines in frames if lines[0].startswith("id: ")]
+    assert ids in ([], [str(i) for i in range(len(frames))])
+    return [line[len("data: "):] for lines in frames for line in lines
+            if line.startswith("data: ")]
 
 
 def test_completion_matches_generate(serve):

@@ -10,9 +10,8 @@ against gofr_tpu's (``tests/test_telemetry.py``).
   speculation, paged KV) take the same requests (completions, chat,
   streamed, n = 2, a router-stamped origin, two tenants): ``/admin/requests``
   field for field with the times masked, ``/admin/slo`` and
-  ``/admin/tenants`` equal. One field differs on purpose: ``priority`` is
-  the JAX package's ``PRIORITY_DEFAULT`` (5) and None in the port, which
-  parses no priority yet (ROADMAP §A4).
+  ``/admin/tenants`` equal, ``priority`` (``PRIORITY_DEFAULT``, 5)
+  included.
 
 Every test resets both packages' record contextvars (a record a test
 activates in this thread must not leak into the next one).
@@ -267,7 +266,7 @@ def test_admin_requests_slo_and_tenants_match_jax(apps):
     got = _admin(tapp, "/admin/requests")
     assert got["count"] == want["count"] == len(TRAFFIC) - 1
     for w, g in zip(want["requests"], got["requests"]):
-        assert w.pop("priority") == 5 and g.pop("priority") is None
+        assert g["priority"] == w["priority"] == 5  # PRIORITY_DEFAULT in both
         assert _masked(g) == _masked(w)
     # the filters resolve the same records
     for query in ("?request_id=route-7", "?tenant=anonymous", "?errored=true", "?limit=2",
