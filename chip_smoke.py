@@ -293,6 +293,32 @@ Phases, each fatal on failure (no phase is skipped or caught):
    and MODEL_NAME=mlp (f32, TF32 off) behind a copy of
    ``examples/http-server/main.py``'s ``/infer``: 8 concurrent requests
    equal to the CPU's within 2e-5, a 63-wide input's 400.
+19. the fleet (last, after phase 15; phase 5's weights from phase 12's
+   checkpoint, kept until here): the parent's model is gone; a block's
+   parts at llama3-8b's geometry (the arena's export, ``zlib.crc32``, the
+   decoder's framing, the ingest); two replica processes (``python -m
+   gofr_tpu_torch.devtools.replica_proc`` under ``devtools/supervise``,
+   ``FLEET_ROLE=prefill`` and ``decode``) booted through ``MODEL_PATH`` in
+   phase 10's configuration with ``KV_HBM_BUDGET_MB=2048`` and the donor
+   hint trusted, behind a router in this process (``wire_fleet``,
+   ``FLEET_RESUME=on``); each process's peak memory from ``nvidia-smi``.
+   (1) the 1,024- and ~1,900-token prompts warmed on the prefill replica,
+   then streamed through the router to the decode replica, which pulls
+   them: outcome ``ok``, both ledgers on the request id, the fleet trace
+   whole, no sm90 launch on the receiver; the pull's blocks, bytes, ms and
+   GB/s, TTFT beside a local prefill of the same prompt, ids equal (or
+   parting at a near tie); (2) a bit flip, a slow donor, an evicted entry
+   and a donor cut mid-pull (through a chaos proxy before the donor) fall
+   back with the local ids, the outcome counters moved, the donor's
+   refcounts back; (3) ``kill -9`` of the decode replica mid-stream: the
+   router resumes the stream on the prefill replica, the client's gap, the
+   respawn to ready and back into rotation; (4) a sticky device fault in
+   the decode replica's process (its site hook: the card slept, then a
+   device-side assert): ``failed`` with a restart verdict, killed,
+   respawned, MTTR; the parent's own decode kernel after; (5) the router's
+   legs before stub replicas (the remaining deadline across retries, a
+   quota shed, a breaker opening and closing) and the drain (readiness 503,
+   the in-flight stream completing).
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.
@@ -321,6 +347,7 @@ gofr_tpu_torch package beside it (3).
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import gc
 import http.client
@@ -4816,8 +4843,814 @@ def backward_phases(torch, flash, gen):
     return dq_errs, dkv_errs, bwd_rows, fwd_row
 
 
+# -- phase 19: the fleet ------------------------------------------------------------------
+
+# phase 19's replica settings on top of phase 10's: the router's X-KV-Donor
+# hint trusted, the paged arena bounded to 2 GiB (two replicas share the
+# card), a pull budget of 10 s, the journal, and phase 18's watchdog (a
+# 3 x 1 s wedge) with recovery of 2 attempts (a sticky fault's rebuilds
+# fail fast into a restart verdict)
+FLEET_REPLICA_ENV = {
+    "KV_TRANSFER_TRUST_HINT": "on", "KV_HBM_BUDGET_MB": "2048", "KV_TRANSFER_TIMEOUT_S": "10",
+    "JOURNAL": "on", "RECOVERY_ENABLED": "on", "RECOVERY_MAX_ATTEMPTS": "2",
+    "RECOVERY_BACKOFF_S": "0.2", "WATCHDOG_DISPATCH_TIMEOUT_S": "1.0",
+    "TIMEBASE_ENABLED": "off", "LOG_LEVEL": "ERROR",
+}
+# the router before them: probes every 0.2 s, streams resumed on failover
+FLEET_ROUTER_ENV = {
+    "FLEET_RESUME": "on", "FLEET_PROBE_INTERVAL_S": "0.2", "FLEET_PROBE_TIMEOUT_S": "2",
+    "FLEET_READ_TIMEOUT_S": "120", "FLEET_DEADLINE_S": "300", "FLEET_CONNECT_TIMEOUT_S": "2",
+    "LOG_LEVEL": "FATAL", "TIMEBASE_ENABLED": "off",
+}
+# ids against ids of another process under the near-tie rule, from the
+# replica's own top-2 logprobs there (a logit gap): one bf16 spacing at
+# |logit| 16, where llama3-8b's top logits sit
+FLEET_NEAR_TIE = 0.125
+# the sticky fault's site hook: a child whose trigger file appears sleeps the
+# card FAULT_SLEEP_S (a pool chunk or prefill behind it wedges the watchdog)
+# and then writes out of bounds: a device-side assert, sticky for the context
+FAULT_HOOK = '''import os, threading, time
+
+_trigger = os.environ.get("CHIP_SMOKE_FAULT_FILE")
+
+
+def _fault():
+    while not os.path.exists(_trigger):
+        time.sleep(0.05)
+    import torch
+
+    torch.cuda._sleep(int(os.environ["CHIP_SMOKE_FAULT_CYCLES"]))
+    x = torch.zeros(4, device="cuda")
+    x[torch.tensor([1 << 20], device="cuda")] = 1.0
+
+
+if _trigger:
+    threading.Thread(target=_fault, name="chip-smoke-fault", daemon=True).start()
+'''
+FAULT_SLEEP_S = 5.0
+
+
+def get_body(address: str, path: str, timeout: float = 30.0) -> tuple:
+    """GET -> (status, parsed JSON body, its "data" when enveloped)."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(address + path, timeout=timeout) as resp:
+            status, raw = resp.status, resp.read()
+    except urllib.error.HTTPError as err:
+        status, raw = err.code, err.read()
+    body = json.loads(raw) if raw else None
+    data = body.get("data", body) if isinstance(body, dict) else body
+    return status, data
+
+
+def stream_ids(port: int, body: dict, headers: dict = None, kill_after: int = 0,
+               on_kill=None) -> dict:
+    """One streamed completion of token ids through ``port``: its ids in
+    order, the seconds to the first token, the widest gap between two token
+    frames and where it fell; ``kill_after`` frames in, ``on_kill()`` runs
+    (the stream goes on reading)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.perf_counter()
+    conn.request("POST", "/v1/completions", json.dumps({**body, "stream": True}),
+                 {"Content-Type": "application/json", **(headers or {})})
+    resp = conn.getresponse()
+    ids, times, buf, error, done = [], [], b"", None, False
+    while True:
+        chunk = resp.read1(65536)
+        if not chunk:
+            break
+        buf += chunk
+        while b"\n\n" in buf:
+            frame, buf = buf.split(b"\n\n", 1)
+            for line in frame.split(b"\n"):
+                if not line.startswith(b"data: "):
+                    continue
+                data = line[6:].decode()
+                if data == "[DONE]":
+                    done = True
+                    continue
+                doc = json.loads(data)
+                if "error" in doc:
+                    error = doc["error"]
+                    continue
+                choice = doc["choices"][0] if doc.get("choices") else None
+                if choice and choice.get("tokens"):
+                    ids.extend(choice["tokens"])
+                    times.append(time.perf_counter() - t0)
+                    if kill_after and len(times) == kill_after and on_kill is not None:
+                        on_kill()
+    conn.close()
+    gaps = [b - a for a, b in zip(times, times[1:])]
+    widest = max(range(len(gaps)), key=gaps.__getitem__) if gaps else None
+    return {"status": resp.status, "ids": ids, "ttft_s": times[0] if times else None,
+            "error": error, "done": done, "seconds": times[-1] if times else None,
+            "gap_s": gaps[widest] if gaps else None, "gap_after": widest,
+            "request_id": resp.getheader("X-Gofr-Request-Id")}
+
+
+def fleet_divergence(address: str, prompt: list, want: list, got: list, label: str) -> dict:
+    """``got`` against ``want`` (ids of another process) under the near-tie
+    rule: equal, or parting where the replica at ``address`` gives the
+    context ``prompt + want[:j]`` top-2 logprobs closer than FLEET_NEAR_TIE."""
+    n = min(len(want), len(got))
+    j = next((i for i in range(n) if want[i] != got[i]), None)
+    if j is None and len(want) == len(got):
+        return {"diverged": False}
+    j = n if j is None else j
+    status, doc, _, _ = post(int(address.rsplit(":", 1)[1]), {
+        "prompt": prompt + want[:j], "max_tokens": 1, "temperature": 0, "logprobs": 2})
+    check(status == 200, f"{label}: the near-tie check's request failed ({status})")
+    top = sorted(doc["choices"][0]["logprobs"]["top_logprobs"][0].values(), reverse=True)
+    gap = top[0] - top[1]
+    print(f"{label}: ids part at position {j} ({want[j] if j < len(want) else 'a stop'} / "
+          f"{got[j] if j < len(got) else 'a stop'}): top-2 logprobs {top[0]:.4f} / "
+          f"{top[1]:.4f}, gap {gap:.4f} against {FLEET_NEAR_TIE} -> "
+          f"{'near tie' if gap < FLEET_NEAR_TIE else 'FAIL'}", flush=True)
+    check(gap < FLEET_NEAR_TIE, f"{label}: the ids part where there is no near tie")
+    return {"diverged": True, "position": j, "gap": gap}
+
+
+class _Replica:
+    """One supervised replica process (``python -m
+    gofr_tpu_torch.devtools.replica_proc`` under ``devtools/supervise``)."""
+
+    def __init__(self, name: str, role: str, env: dict, workdir: str):
+        from gofr_tpu_torch.devtools.supervise import Supervisor
+
+        self.name, self.role, self.port = name, role, free_port()
+        self.address = f"http://127.0.0.1:{self.port}"
+        self.fault_file = os.path.join(workdir, f"fault-{name}")
+        child_env = {**env, "HTTP_PORT": str(self.port), "FLEET_ROLE": role,
+                     "CHIP_SMOKE_FAULT_FILE": self.fault_file}
+        self.log = open(os.path.join(workdir, f"{name}.log"), "ab")
+        self.supervisor = Supervisor(
+            [sys.executable, "-m", "gofr_tpu_torch.devtools.replica_proc"], env=child_env,
+            backoff_s=0.5, backoff_max_s=2.0, max_restarts_in_window=5,
+            stdout=self.log, stderr=self.log,
+        )
+
+    def wait_ready(self, timeout_s: float = 600.0) -> float:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < timeout_s:
+            try:
+                status, _ = get_body(self.address, "/.well-known/ready", timeout=5)
+                if status == 200:
+                    return time.perf_counter() - t0
+            except OSError:
+                pass
+            check(self.supervisor.verdict is None,
+                  f"fleet: {self.name} stopped ({self.supervisor.snapshot()})")
+            time.sleep(0.2)
+        check(False, f"fleet: {self.name} never became ready; its log: {self.tail()}")
+
+    def engine(self) -> dict:
+        status, data = get_body(self.address, "/admin/engine")
+        check(status == 200, f"fleet: {self.name} /admin/engine {status}")
+        return data
+
+    def tail(self) -> str:
+        self.log.flush()
+        with open(self.log.name, "rb") as f:
+            return f.read()[-3000:].decode("utf-8", "replace")
+
+
+class _MemorySampler:
+    """The card's used memory as ``nvidia-smi --query-gpu=memory.used``
+    reports it (every process's allocations and CUDA contexts together),
+    sampled every 0.25 s: its peak while two replicas and this script share
+    the card."""
+
+    def __init__(self):
+        self.peak_mib, self._stop = 0, threading.Event()
+        self._thread = threading.Thread(target=self._run, name="fleet-mem", daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.25):
+            try:
+                out = subprocess.run(
+                    ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits",
+                     "--id=0"], capture_output=True, text=True, timeout=10).stdout.strip()
+            except (OSError, subprocess.SubprocessError):
+                return
+            if out.isdigit():
+                self.peak_mib = max(self.peak_mib, int(out))
+
+    def stop(self) -> float:
+        self._stop.set()
+        self._thread.join(15)
+        return round(self.peak_mib / 1024, 2)
+
+
+def kv_chaos_proxy(donor: str):
+    """An HTTP server in this process that answers ``GET /admin/kv/{hash}``
+    by relaying the donor's stream, behind ``devtools/chaos.py``'s chaos
+    middleware: the donor's transfer with failures injected on the wire (a
+    flipped bit, a stall, a cut body). -> (server, its address, controller)."""
+    import asyncio
+
+    from gofr_tpu_torch.devtools.chaos import ChaosController, chaos_middleware
+    from gofr_tpu_torch.http.response import Response
+    from gofr_tpu_torch.http.router import Router
+    from gofr_tpu_torch.http.server import HTTPServer
+    from gofr_tpu_torch.logging import Level, Logger
+    from gofr_tpu_torch.service import HTTPService
+
+    controller = ChaosController(seed=19)
+    quiet = Logger(Level.FATAL)
+    router = Router()
+    router.use(chaos_middleware(controller))
+
+    async def relay(request):
+        headers = {k: request.header(k) for k in ("X-Request-Deadline-Ms", "X-Gofr-Request-Id")
+                   if request.header(k)}
+        loop = asyncio.get_running_loop()
+        upstream = await loop.run_in_executor(None, lambda: HTTPService(
+            donor, quiet, name="kv-chaos").stream("GET", request.path, headers=headers))
+        if upstream.status_code != 200:
+            body = await loop.run_in_executor(None, upstream.read)
+            upstream.close()
+            return Response(status=upstream.status_code, body=body,
+                            headers={"Content-Type": "application/json"})
+        it = upstream.iter_chunks(1 << 20)
+
+        async def chunks():
+            try:
+                while True:
+                    chunk = await loop.run_in_executor(None, next, it, None)
+                    if chunk is None:
+                        return
+                    yield chunk
+            finally:
+                upstream.close()
+
+        return Response(status=200, headers={"Content-Type": "application/x-gofr-kv"},
+                        stream=chunks())
+
+    router.add("GET", "/admin/kv/{hash}", relay)
+    server = HTTPServer(router, free_port()).run_in_thread()
+    return server, f"http://127.0.0.1:{server.port}", controller
+
+
+def transfer_costs(torch) -> dict:
+    """The pull's parts on the card and the host, per 8 MiB llama3-8b block:
+    the arena's export (device-to-host copy), ``zlib.crc32``, the wire
+    decoder's framing of one block, and the ingest (host-to-device copy),
+    over 16 blocks of a TorchKVArena of the served geometry."""
+    import statistics
+    import zlib
+
+    from gofr_tpu_torch.fleet import kvwire
+    from gofr_tpu_torch.models.llama import CONFIGS
+    from gofr_tpu_torch.tpu.kv_blocks import BlockTable, TorchKVArena
+
+    cfg = CONFIGS["llama3-8b"]
+    arena = TorchKVArena(cfg, 17, 64, max_seq=2048, device="cuda", dtype=torch.bfloat16)
+    arena.k.normal_()
+    arena.v.normal_()
+    table = BlockTable(list(range(1, 17)), 1024)
+    times = {"export_ms": [], "crc32_ms": [], "decode_ms": [], "ingest_ms": []}
+    for j in range(16):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        payload = arena.export_block_payload(table, j)
+        times["export_ms"].append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        zlib.crc32(payload)
+        times["crc32_ms"].append((time.perf_counter() - t) * 1e3)
+        frame = kvwire.encode_block(0, payload)
+        dec = kvwire.WireDecoder()
+        dec.feed(kvwire.encode_header({"n_blocks": 1}))
+        t = time.perf_counter()
+        for i in range(0, len(frame), 65536):
+            dec.feed(frame[i:i + 65536])
+        times["decode_ms"].append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        arena.ingest_block_payload(table, (j + 1) % 16, payload)
+        torch.cuda.synchronize()
+        times["ingest_ms"].append((time.perf_counter() - t) * 1e3)
+    check(arena.export_block_payload(table, 1) == payload, "fleet: an ingested block differs")
+    out = {k: statistics.median(v) for k, v in times.items()}
+    out["block_bytes"] = len(payload)
+    del arena
+    torch.cuda.empty_cache()
+    return out
+
+
+def fleet(torch, flash, card: str, ckpt: str, gen) -> dict:
+    """Phase 19 (last; phase 5's weights from phase 12's checkpoint): a
+    prefill and a decode replica process of llama3-8b in phase 10's
+    configuration, each under ``devtools/supervise``, behind a router in
+    this process: a KV pull against a local prefill, the pull's failures
+    falling back, a failover by ``kill -9`` with the stream resumed, a
+    sticky device fault restarted, and the router's own legs."""
+    import gofr_tpu_torch
+    from gofr_tpu_torch.config import DECLARED_KEYS, UNHONORED_KEYS
+    from gofr_tpu_torch.fleet import kvwire, wire_fleet
+
+    t0 = time.perf_counter()
+    out: dict = {"card": card}
+    out["transfer_costs"] = transfer_costs(torch)
+    print(f"fleet: a block's parts (ms, 8 MiB): {json.dumps(out['transfer_costs'])}", flush=True)
+    workdir = tempfile.mkdtemp(prefix="gofr_fleet_")
+    with open(os.path.join(workdir, "sitecustomize.py"), "w") as f:
+        f.write(FAULT_HOOK)
+    here = os.path.dirname(os.path.abspath(__file__))
+    base_env = {k: v for k, v in os.environ.items()
+                if k not in DECLARED_KEYS and k not in UNHONORED_KEYS}
+    # no tokenizer: the prompts are id lists, and every choice and stream
+    # frame then carries its token ids
+    base_env.update({
+        **{k: v for k, v in PHASE10_ENV.items() if k != "TOKENIZER"}, **FLEET_REPLICA_ENV,
+        "MODEL_PATH": ckpt,
+        "PYTHONPATH": os.pathsep.join([workdir, here, os.environ.get("PYTHONPATH", "")]),
+        "CHIP_SMOKE_FAULT_CYCLES": str(int(cycles_per_second(torch) * FAULT_SLEEP_S)),
+    })
+    pre = _Replica("pre", "prefill", base_env, workdir)
+    dec = _Replica("dec", "decode", base_env, workdir)
+    replicas = {"pre": pre, "dec": dec}
+    sampler = _MemorySampler()
+    torch.cuda.reset_peak_memory_stats()
+    app = proxy = None
+    try:
+        boot_t = time.perf_counter()
+        pre.supervisor.start()
+        dec.supervisor.start()
+        booted: dict = {}
+        for n, r in replicas.items():
+            threading.Thread(target=lambda n=n, r=r: booted.update({n: r.wait_ready()}),
+                             daemon=True).start()
+        while len(booted) < 2 and time.perf_counter() - boot_t < 600:
+            check(all(r.supervisor.verdict is None for r in replicas.values()),
+                  f"fleet: a replica stopped booting; logs: {pre.tail()} {dec.tail()}")
+            time.sleep(0.1)
+        check(len(booted) == 2, f"fleet: the replicas did not boot ({booted}); "
+              f"logs: {pre.tail()} {dec.tail()}")
+        out["boot_s"] = {**booted, "both": time.perf_counter() - boot_t}
+        engines = {n: r.engine() for n, r in replicas.items()}
+        for n, e in engines.items():
+            check(e["role"] == {"pre": "prefill", "dec": "decode"}[n], f"fleet: {n} role {e['role']}")
+            check(e["kv_blocks"]["ledger"] == 256 and e["kv_blocks"]["hbm_budget_bytes"] == 2 << 30,
+                  f"fleet: {n} arena {e['kv_blocks']}")
+        print(f"fleet: two replica processes ready in {out['boot_s']['both']:.1f}s "
+              f"(prefill {out['boot_s']['pre']:.1f}s, decode {out['boot_s']['dec']:.1f}s); "
+              f"arena ledger 256 blocks of {engines['dec']['kv_blocks']['block_bytes']} B, "
+              f"{engines['dec']['kv_blocks']['total']} data blocks", flush=True)
+        env = {**FLEET_ROUTER_ENV, "HTTP_PORT": str(free_port()),
+               "FLEET_REPLICAS": f"pre={pre.address},dec={dec.address}"}
+        with environment(env):  # wire_fleet reads the FLEET_* keys
+            app = gofr_tpu_torch.new()
+            router = wire_fleet(app)
+        check(app.container.tpu is None, "fleet: the router booted a device")
+        app.start()
+        rset = router.replica_set
+
+        def rotation(names, timeout_s=60.0) -> float:
+            t = time.perf_counter()
+            while time.perf_counter() - t < timeout_s:
+                snap = {r.name: r for r in rset.replicas}
+                if all(snap[n] in rset.in_rotation() and snap[n].role == replicas[n].role
+                       for n in names):
+                    return time.perf_counter() - t
+                time.sleep(0.05)
+            check(False, f"fleet: {names} not in rotation ({rset.snapshot()})")
+
+        rotation(("pre", "dec"))
+        out["pull"] = fleet_pull(app, pre, dec)
+        peaks = {n: r.engine()["hbm"] for n, r in replicas.items()}
+        proxy, proxy_addr, chaos = kv_chaos_proxy(pre.address)
+        out["fallbacks"] = fleet_fallbacks(pre, dec, proxy_addr, chaos)
+        out["failover"] = fleet_failover(app, pre, dec, out["pull"]["reference"], rotation)
+        peaks["dec (respawned)"] = dec.engine()["hbm"]
+        out["fault"] = fleet_fault(app, dec, rotation)
+        for n, r in replicas.items():
+            peaks[n if n == "pre" else "dec (second respawn)"] = r.engine()["hbm"]
+        out["replica_peak_gib"] = {
+            n: {"allocated": round(h["peak_bytes_in_use"] / 2**30, 2),
+                "reserved": round(h["peak_bytes_reserved"] / 2**30, 2)} for n, h in peaks.items()}
+        print(f"fleet: peak device memory a replica process (allocated / reserved, GiB): "
+              f"{json.dumps(out['replica_peak_gib'])}", flush=True)
+        out["router_legs"] = fleet_router_legs()
+        out["drain"] = fleet_drain(app, out["pull"]["reference"])
+        app = None
+    finally:
+        if proxy is not None:
+            proxy.shutdown()
+        if app is not None:
+            app.shutdown()
+        for r in replicas.values():
+            r.supervisor.stop()
+            r.log.close()
+        out["card_peak_used_gib"] = sampler.stop()
+        shutil.rmtree(workdir, ignore_errors=True)
+    out["script_peak_gib"] = round(torch.cuda.max_memory_reserved() / 2**30, 2)
+    print(f"fleet: the card's peak used memory {out['card_peak_used_gib']} GiB (nvidia-smi, "
+          f"every process), this script's reserve {out['script_peak_gib']} GiB", flush=True)
+    # the parent's own context after the children's faults and kills
+    out["parent_decode"] = pool_decode_kernel(torch, flash, gen)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"fleet-metrics [{card}]: {json.dumps(out)}", flush=True)
+    return out
+
+
+def _launch_delta(after: dict, before: dict) -> dict:
+    return {k: after["kernel_launches"][k] - before["kernel_launches"][k]
+            for k in ("flash_fwd", "flash_fwd_sm90", "flash_fwd_decode")}
+
+
+def fleet_pull(app, pre, dec) -> dict:
+    """Leg 1: three 1,024- and three 1,900-token id prompts, each warmed on the
+    prefill replica directly, then streamed through the router to the
+    decode replica, which pulls the donor's blocks (``X-KV-Donor``): outcome
+    ``ok``, the two ledgers joined on the request id, a whole fleet trace,
+    no prefill on the receiver. Then the same prompt prefilled locally on
+    the receiver (its entries evicted by four short prompts, no donor hint:
+    what ``KV_TRANSFER=off`` does): TTFT beside TTFT, ids against ids."""
+    import statistics
+
+    out: dict = {"prompts": {}}
+    start = {"pre": pre.engine(), "dec": dec.engine()}
+    rows: dict = {1024: [], 1900: []}
+    # three prompts a length; the first 1,024-token stream, 64 tokens long,
+    # is the later legs' uninterrupted reference
+    for n, seed, max_tokens in [(n, 1901 + 10 * k + (n == 1900), 64 if n + k == 1024 else 16)
+                                for k in range(3) for n in (1024, 1900)]:
+        prompt = list(text(seed, n).encode())
+        body = {"prompt": prompt, "max_tokens": max_tokens, "temperature": 0}
+        status, doc, _, _ = post(pre.port, body)
+        check(status == 200, f"fleet: warming the donor: {status}")
+        donor_ids = doc["choices"][0]["tokens"]
+        before = {"pre": pre.engine(), "dec": dec.engine()}
+        rid = f"pull-{n}-{seed}"
+        pulled = stream_ids(app.http_port, body, headers={"X-Request-ID": rid})
+        after = {"pre": pre.engine(), "dec": dec.engine()}
+        check(pulled["status"] == 200 and pulled["done"] and not pulled["error"],
+              f"fleet: the pulled stream {pulled['status']} {pulled['error']}")
+        x0, x1 = before["dec"]["kv_transfer"], after["dec"]["kv_transfer"]
+        check(x1["ok"] == x0["ok"] + 1 and x1["fallback"] == x0["fallback"],
+              f"fleet: the pull was not ok ({x1})")
+        pull, served = x1["pulls_recent"][-1], after["pre"]["kv_transfer"]["served_recent"][-1]
+        check(pull["outcome"] == "ok" and pull["request_id"] == rid == served["request_id"],
+              f"fleet: the ledgers do not join on {rid}: {pull} / {served}")
+        launches = _launch_delta(after["dec"], before["dec"])
+        check(launches["flash_fwd_sm90"] == 0 and launches["flash_fwd_decode"] > 0,
+              f"fleet: the receiver prefilled a pulled prompt ({launches})")
+        status, trace = get_body(f"http://127.0.0.1:{app.http_port}", f"/admin/fleet/trace/{rid}")
+        check(status == 200 and trace["partial"] is False,
+              f"fleet: the fleet trace of {rid}: {status} {trace}")
+        block_bytes = after["dec"]["kv_blocks"]["block_bytes"]
+        nbytes = served["n_blocks"] * block_bytes
+        # the local prefill of the same prompt on the receiver
+        for i in range(4):
+            status, _, _, _ = post(dec.port, {"prompt": list(text(seed * 10 + i, 64).encode()),
+                                              "max_tokens": 2, "temperature": 0})
+            check(status == 200, f"fleet: a filler request {status}")
+        b = dec.engine()
+        local = stream_ids(dec.port, body)
+        a = dec.engine()
+        check(local["status"] == 200 and local["done"], f"fleet: the local run {local['status']}")
+        local_launches = _launch_delta(a, b)
+        check(local_launches["flash_fwd_sm90"] >= 32 * -(-n // 512),
+              f"fleet: the local run did not prefill the whole prompt ({local_launches})")
+        check(a["kv_transfer"]["ok"] == b["kv_transfer"]["ok"], "fleet: the local run pulled")
+        row = {
+            "blocks": served["n_blocks"], "bytes": nbytes, "pull_ms": pull["elapsed_ms"],
+            "pull_gb_per_s": nbytes / 1e9 / (pull["elapsed_ms"] / 1e3),
+            "ttft_pull_ms": pulled["ttft_s"] * 1e3, "ttft_local_ms": local["ttft_s"] * 1e3,
+            "receiver_launches_pull": launches, "receiver_launches_local": local_launches,
+            "vs_local": fleet_divergence(dec.address, prompt, local["ids"], pulled["ids"],
+                                         f"fleet pull {n}"),
+            "vs_donor": fleet_divergence(pre.address, prompt, donor_ids, pulled["ids"],
+                                         f"fleet pull {n} vs donor"),
+        }
+        rows[n].append(row)
+        print(f"fleet pull {n} tokens (seed {seed}): {row['blocks']} blocks, {nbytes / 2**20:.0f} MiB in "
+              f"{row['pull_ms']:.1f} ms ({row['pull_gb_per_s']:.3f} GB/s); TTFT with the pull "
+              f"{row['ttft_pull_ms']:.1f} ms, local prefill {row['ttft_local_ms']:.1f} ms; "
+              f"receiver launches pulled {launches}, local {local_launches}", flush=True)
+        if n == 1024 and "reference" not in out:
+            out["reference"] = {"body": body, "ids": pulled["ids"], "prompt": prompt}
+    for n, runs in rows.items():
+        summary = {k: statistics.median(r[k] for r in runs)
+                   for k in ("pull_ms", "pull_gb_per_s", "ttft_pull_ms", "ttft_local_ms")}
+        out["prompts"][str(n)] = {"blocks": runs[0]["blocks"], "bytes": runs[0]["bytes"],
+                                  "median": summary, "runs": runs}
+        print(f"fleet pull {n} tokens, median of {len(runs)}: {json.dumps(summary)}", flush=True)
+    end = {"pre": pre.engine(), "dec": dec.engine()}
+    out["launches"] = {
+        "sm90": sum(_launch_delta(end[k], start[k])["flash_fwd_sm90"] for k in end),
+        "decode": sum(_launch_delta(end[k], start[k])["flash_fwd_decode"] for k in end),
+        "all": sum(_launch_delta(end[k], start[k])["flash_fwd"] for k in end),
+    }
+    check(out["launches"]["all"] == out["launches"]["sm90"] + out["launches"]["decode"],
+          f"fleet: a forward took another route than sm90 or decode {out['launches']}")
+    return out
+
+
+def _pins_back(pre, before: dict, label: str) -> float:
+    t = time.perf_counter()
+    while time.perf_counter() - t < 20:
+        kv = pre.engine()["kv_blocks"]
+        if kv["active"] == before["active"] and kv["reserved"] == before["reserved"]:
+            return time.perf_counter() - t
+        time.sleep(0.1)
+    check(False, f"{label}: the donor's blocks stay pinned ({kv}, before {before})")
+
+
+def fleet_fallbacks(pre, dec, proxy: str, chaos) -> dict:
+    """Leg 2: a pull that fails falls back to a local prefill with the same
+    ids: a bit flipped in a block (``corrupt``), a donor slowed past the
+    budget (``slow_loris``: ``timeout``), an entry the donor never held
+    (404: ``evicted``), and a donor stopped mid-pull (the body cut after
+    half its blocks, no trailer: ``corrupt``). The receiver names the chaos
+    proxy before the donor as its donor; the pull's budget is half an 8 s
+    deadline. After each, the donor's block refcounts are back."""
+    out = {}
+    half = 4 * pre.engine()["kv_blocks"]["block_bytes"]  # 4 of the prompt's 8 blocks
+    for k, (case, outcome) in enumerate((("bit flip", "corrupt"), ("slow donor", "timeout"),
+                                         ("evicted", "evicted"), ("donor stopped", "corrupt"))):
+        prompt = list(text(1910 + k, 512).encode())
+        body = {"prompt": prompt, "max_tokens": 16, "temperature": 0}
+        want = None
+        if case != "evicted":
+            status, doc, _, _ = post(pre.port, body)
+            check(status == 200, f"fleet fallback {case}: warming the donor {status}")
+            want = doc["choices"][0]["tokens"]
+        pins = pre.engine()["kv_blocks"]
+        if case == "bit flip":
+            chaos.corrupting_proxy("flip", n=1, after_bytes=1024)  # past the header
+        elif case == "slow donor":
+            chaos.slow_loris(0.5, paths=("/admin/kv/",))
+        elif case == "donor stopped":
+            chaos.corrupting_proxy("truncate", n=1, after_bytes=half)
+        x0 = dec.engine()["kv_transfer"]
+        t = time.perf_counter()
+        got = stream_ids(dec.port, body, headers={"X-KV-Donor": proxy,
+                                                  "X-Request-Deadline-Ms": "8000"})
+        seconds = time.perf_counter() - t
+        chaos.clear()
+        x1 = dec.engine()["kv_transfer"]
+        check(got["status"] == 200 and got["done"] and not got["error"],
+              f"fleet fallback {case}: {got['status']} {got['error']}")
+        moved = {o: x1[o] - x0[o] for o in ("ok", "timeout", "corrupt", "evicted", "fallback")}
+        check(moved == {**dict.fromkeys(moved, 0), outcome: 1, "fallback": 1},
+              f"fleet fallback {case}: counters moved {moved}")
+        if want is None:
+            status, doc, _, _ = post(pre.port, body)
+            want = doc["choices"][0]["tokens"]
+        div = fleet_divergence(pre.address, prompt, want, got["ids"], f"fleet fallback {case}")
+        back = _pins_back(pre, pins, f"fleet fallback {case}")
+        out[case] = {"outcome": outcome, "moved": moved, "seconds": seconds,
+                     "pull_ms": x1["pulls_recent"][-1]["elapsed_ms"], "ids": div,
+                     "pins_back_s": back}
+        print(f"fleet fallback {case}: {outcome} + fallback, completed in {seconds:.2f}s "
+              f"(pull {out[case]['pull_ms']} ms) with the local ids ({div}); donor refcounts "
+              f"back in {back:.2f}s", flush=True)
+    return out
+
+
+def fleet_failover(app, pre, dec, reference: dict, rotation) -> dict:
+    """Leg 3: ``kill -9`` of the decode replica 8 frames into a stream
+    through the router: the router resumes it on the prefill replica
+    (``X-Resume-From``); the spliced ids against the uninterrupted run's.
+    The supervisor respawns the decode replica, the prober walks its new
+    boot id back through probation into rotation."""
+    killed: list = []
+
+    def kill():
+        killed.append(time.perf_counter())
+        dec.supervisor.kill9()
+
+    restarts0 = {r.name: r.restarts for r in app.container.fleet.replica_set.replicas}["dec"]
+    got = stream_ids(app.http_port, reference["body"], headers={"X-Request-ID": "failover"},
+                     kill_after=8, on_kill=kill)
+    check(bool(killed), "fleet failover: the stream ended before the kill")
+    check(got["status"] == 200 and got["done"] and not got["error"],
+          f"fleet failover: {got['status']} {got['error']}")
+    record = app.container.fleet.records(request_id="failover", limit=1)[0]
+    check(record["resumes"] >= 1, f"fleet failover: no resume in the route record {record}")
+    div = fleet_divergence(pre.address, reference["prompt"], reference["ids"], got["ids"],
+                           "fleet failover")
+    ready_s = dec.wait_ready()
+    ready_at = time.perf_counter()
+    rotation_s = rotation(("dec",), timeout_s=120)
+    restarts = {r.name: r.restarts for r in app.container.fleet.replica_set.replicas}["dec"]
+    check(restarts == restarts0 + 1, f"fleet failover: restarts {restarts0} -> {restarts}")
+    out = {"gap_s": got["gap_s"], "gap_after_frame": got["gap_after"],
+           "resumes": record["resumes"], "ids": div,
+           "respawn_to_ready_s": ready_at - killed[0], "rotation_after_ready_s": rotation_s,
+           "restarts": restarts}
+    print(f"fleet failover: killed the decode replica 8 frames in; the client's widest gap "
+          f"{got['gap_s']:.3f}s after frame {got['gap_after']}, {record['resumes']} resume(s), "
+          f"ids {div}; respawn to ready {out['respawn_to_ready_s']:.1f}s, back in rotation "
+          f"{rotation_s:.2f}s later (restarts {restarts})", flush=True)
+    return out
+
+
+def fleet_fault(app, dec, rotation) -> dict:
+    """Leg 4: a sticky device fault in the decode replica's process alone
+    (its site hook: the card slept 5 s, then an out-of-bounds write's
+    device-side assert) while a request decodes: the watchdog wedges, both
+    rebuilds fail on the faulted context, the engine ends ``failed`` with a
+    restart verdict; this script, as the orchestrator that reads it, kills
+    the process, the supervisor respawns it and the router takes it back.
+    MTTR from the fault to the first 200."""
+    check(dec.engine()["engine"]["state"] == "serving", "fleet fault: not serving before")
+    replica = {r.name: r for r in app.container.fleet.replica_set.replicas}["dec"]
+    restarts0, left_rotation = replica.restarts, []
+    answered: list = []
+
+    def request():
+        try:
+            answered.append(post(dec.port, {"prompt": list(text(1920, 256).encode()),
+                                            "max_tokens": 32, "temperature": 0})[0])
+        except Exception as exc:  # the faulted process may drop the connection
+            answered.append(repr(exc))
+
+    t_fault = time.perf_counter()
+    open(dec.fault_file, "w").close()
+    time.sleep(0.2)
+    worker = threading.Thread(target=request)
+    worker.start()
+    state, detail = "serving", ""
+    while time.perf_counter() - t_fault < 120:
+        if replica not in app.container.fleet.replica_set.in_rotation():
+            left_rotation.append(time.perf_counter() - t_fault)
+        try:
+            snap = dec.engine()["engine"]
+            state, detail = snap["state"], snap["detail"]
+        except Exception:
+            pass
+        if state == "failed":
+            break
+        time.sleep(0.2)
+    t_failed = time.perf_counter()
+    check(state == "failed" and "restart" in detail,
+          f"fleet fault: the engine is {state} ({detail}); log: {dec.tail()}")
+    status, ready = get_body(dec.address, "/.well-known/ready")
+    check(status == 503, f"fleet fault: readiness {status} on a failed engine")
+    os.remove(dec.fault_file)
+    dec.supervisor.kill9()
+    worker.join(60)
+    dec.wait_ready()
+    t_ready = time.perf_counter()
+    status, _, _, _ = post(dec.port, {"prompt": list(text(1921, 64).encode()), "max_tokens": 4,
+                                      "temperature": 0})
+    t_200 = time.perf_counter()
+    check(status == 200, f"fleet fault: the respawned replica answered {status}")
+    rotation_s = rotation(("dec",), timeout_s=120)
+    check(replica.restarts == restarts0 + 1 and left_rotation,
+          f"fleet fault: the router saw restarts {restarts0} -> {replica.restarts}, out of "
+          f"rotation {bool(left_rotation)}")
+    out = {"failed_after_s": t_failed - t_fault, "left_rotation_after_s": left_rotation[0], "detail": detail, "ready_body": ready,
+           "faulted_request": answered, "respawn_ready_s": t_ready - t_failed,
+           "mttr_s": t_200 - t_fault, "rotation_after_200_s": rotation_s}
+    print(f"fleet fault: failed {out['failed_after_s']:.1f}s after the fault ({detail}); "
+          f"killed, ready again {out['respawn_ready_s']:.1f}s later; MTTR (fault to the first "
+          f"200) {out['mttr_s']:.1f}s; back in rotation {rotation_s:.2f}s after", flush=True)
+    return out
+
+
+def fleet_router_legs() -> dict:
+    """Leg 5a: the router's own legs, before two device-free stub replicas
+    in this process (each records the deadline header it receives and
+    answers its first request 503): the REMAINING budget forwarded across
+    retries, a tenant's quota shed with ``Retry-After``, and a breaker
+    opening on a refused connection and closing on its half-open probe."""
+    import gofr_tpu_torch
+    from gofr_tpu_torch.errors import HTTPError
+    from gofr_tpu_torch.fleet import wire_fleet
+    from gofr_tpu_torch.fleet.replica import affinity_order
+    from gofr_tpu_torch.http.response import Raw
+    from gofr_tpu_torch.http.server import HTTPServer
+
+    seen: list = []  # the deadline header of every attempt, in arrival order
+    fail_first = {"s0": True, "s1": True}
+
+    def handler_for(name):
+        def handler(ctx):
+            seen.append(ctx.request.header("X-Request-Deadline-Ms"))
+            if fail_first[name]:
+                fail_first[name] = False
+                time.sleep(0.2)  # spends visible budget before failing
+                raise HTTPError(503, "warming up")
+            return Raw({"served_by": name})
+        return handler
+
+    stubs, out = {}, {}
+    router = None
+    try:
+        for name in ("s0", "s1"):
+            port = free_port()
+            with environment({"HTTP_PORT": str(port), "LOG_LEVEL": "FATAL",
+                              "TIMEBASE_ENABLED": "off"}):
+                stub = gofr_tpu_torch.new()
+            stub.post("/v1/completions", handler_for(name))
+            stub.start()
+            stubs[name] = (stub, port)
+        env = {"HTTP_PORT": str(free_port()), "LOG_LEVEL": "FATAL", "TIMEBASE_ENABLED": "off",
+               "FLEET_REPLICAS": ",".join(f"{n}=http://127.0.0.1:{p}" for n, (_, p) in
+                                          stubs.items()),
+               "FLEET_RETRIES": "2", "FLEET_PROBE_INTERVAL_S": "5", "FLEET_QUOTA_RPS": "0.2",
+               "FLEET_QUOTA_BURST": "1", "FLEET_BREAKER_THRESHOLD": "2",
+               "FLEET_BREAKER_COOLDOWN_S": "1"}
+        with environment(env):  # wire_fleet reads the FLEET_* keys
+            router = gofr_tpu_torch.new()
+            fleet_router = wire_fleet(router)
+        router.start()
+        port = router.http_port
+        # deadline forwarding
+        status, _, _, _ = post(port, {"prompt": [1], "max_tokens": 1},
+                               headers={"X-Request-Deadline-Ms": "5000",
+                                        "Authorization": "t-deadline"})
+        budgets = [int(v) for v in seen if v]
+        check(status == 200 and len(budgets) >= 2, f"fleet router: deadline leg {status} {seen}")
+        check(budgets[0] <= 5000 and budgets[-1] <= budgets[0] - 150 and budgets[-1] >= 1,
+              f"fleet router: forwarded budgets {budgets}")
+        out["deadline_budgets_ms"] = budgets
+        # quota
+        first = post(port, {"prompt": [1], "max_tokens": 1}, headers={"Authorization": "t-q"})
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+        conn.request("POST", "/v1/completions", json.dumps({"prompt": [1], "max_tokens": 1}),
+                     {"Content-Type": "application/json", "Authorization": "t-q"})
+        resp = conn.getresponse()
+        shed_body, retry_after = json.loads(resp.read()), resp.getheader("Retry-After")
+        conn.close()
+        check(first[0] == 200 and resp.status == 429 and retry_after,
+              f"fleet router: quota {first[0]} then {resp.status} Retry-After {retry_after}")
+        out["quota"] = {"status": resp.status, "retry_after": retry_after,
+                        "reason": shed_body["error"].get("reason")}
+        # breaker: pinned to s1 by a session key, s1's listener gone
+        names = [r.name for r in fleet_router.replica_set.replicas]
+        key = next(f"sess-{i}" for i in range(1000) if affinity_order(f"sess-{i}", names)[0] == "s1")
+        stub1, port1 = stubs["s1"]
+        stub1.http_server.shutdown()
+        stub1.http_server = None
+        breaker = {r.name: r for r in fleet_router.replica_set.replicas}["s1"].breaker
+        states = [breaker.state]
+        for i in range(2):
+            status, _, _, _ = post(port, {"prompt": [1], "max_tokens": 1},
+                                   headers={"X-Session-ID": key, "Authorization": f"tb{i}"})
+            check(status == 200, f"fleet router: a request around the dead s1 {status}")
+        states.append(breaker.state)
+        stub1.http_server = HTTPServer(stub1.router, port1, stub1.logger).run_in_thread()
+        time.sleep(1.1)
+        status, doc, _, _ = post(port, {"prompt": [1], "max_tokens": 1},
+                                 headers={"X-Session-ID": key, "Authorization": "tb-probe"})
+        states.append(breaker.state)
+        check(status == 200 and states == ["closed", "open", "closed"],
+              f"fleet router: breaker states {states} ({status} {doc})")
+        out["breaker"] = {"states": states, "transitions": breaker.snapshot()["transitions"]}
+        print(f"fleet router legs: budgets forwarded {budgets} ms; quota shed {resp.status} "
+              f"Retry-After {retry_after}; breaker {states}", flush=True)
+    finally:
+        if router is not None:
+            router.shutdown()
+        for stub, _ in stubs.values():
+            stub.shutdown()
+    return out
+
+
+def fleet_drain(app, reference: dict) -> dict:
+    """Leg 5b: the router's drain at shutdown: with a stream in flight,
+    readiness answers 503 ``draining`` and the stream still completes."""
+    first = threading.Event()
+    result: dict = {}
+    streamer = threading.Thread(target=lambda: result.update(stream_ids(
+        app.http_port, reference["body"], kill_after=1, on_kill=first.set)))
+    streamer.start()
+    check(first.wait(120), "fleet drain: the stream never started")
+    stopper = threading.Thread(target=app.shutdown)
+    t = time.perf_counter()
+    stopper.start()
+    ready = None
+    while time.perf_counter() - t < 10 and ready is None:
+        try:
+            status, body = get_body(f"http://127.0.0.1:{app.http_port}", "/.well-known/ready",
+                                    timeout=2)
+            if status == 503:
+                ready = body
+        except OSError:
+            break
+        time.sleep(0.02)
+    streamer.join(120)
+    stopper.join(60)
+    check(ready is not None and ready.get("state") == "draining",
+          f"fleet drain: readiness during the drain {ready}")
+    check(result.get("status") == 200 and result.get("done") and not result.get("error"),
+          f"fleet drain: the in-flight stream {result.get('status')} {result.get('error')}")
+    check(result["ids"] == reference["ids"], "fleet drain: the drained stream's ids differ")
+    out = {"ready_body": ready, "stream_s": result["seconds"],
+           "shutdown_s": time.perf_counter() - t}
+    print(f"fleet drain: readiness {ready}; the in-flight stream completed ({len(result['ids'])} "
+          f"tokens, the reference ids), shutdown {out['shutdown_s']:.2f}s", flush=True)
+    return out
+
+
 def kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows, default,
-                 pool_row, openai, deploy, spec, loras, overload_run) -> dict:
+                 pool_row, openai, deploy, spec, loras, overload_run, fleet_run) -> dict:
     """The kernels of the main path (serving, training) with their counts
     from its runs and the numbers phases 3, 7 and 10 measured. The mma
     forward is on the tiny f32 model's path (phases 4 and 8) alone; its
@@ -4846,8 +5679,12 @@ def kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows,
     requests' prefill (sm90) and pooled decode (the decode variant). Phase
     18's (overload and failure) launches join the sm90 row (its prefills and
     the resume's re-prefill) and the pool row (its pooled decode), each also
-    under ``overload_launches``."""
+    under ``overload_launches``. Phase 19's (the fleet) launches, read off
+    the two replica processes' ``/admin/engine`` counters over its pull leg
+    (the donors' and the local runs' prefills, both replicas' pooled
+    decode), join the same rows under ``fleet_launches``."""
     over = overload_run["launches"]
+    fleet_l = fleet_run["pull"]["launches"]
     fwd = {"route": "cuda", "source": "gofr_tpu_torch/csrc/flash_fwd.cu",
            "replaces": "gofr_tpu/ops/flash.py:224"}
     bwd = {"route": "cuda", "source": "gofr_tpu_torch/csrc/flash_bwd.cu"}
@@ -4862,9 +5699,9 @@ def kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows,
     return {"kernels": [
         {"name": "flash_fwd_sm90", **fwd,
          "launches": served["sm90"] + sm90_train + lora_train["fwd_sm90"] + lora_served["sm90"]
-         + over["sm90"],
+         + over["sm90"] + fleet_l["sm90"],
          "serve_launches": served["sm90"], "training_launches": sm90_train,
-         "overload_launches": over["sm90"],
+         "overload_launches": over["sm90"], "fleet_launches": fleet_l["sm90"],
          "lora_launches": {"train": lora_train["fwd_sm90"], "served": lora_served["sm90"]},
          "max_abs_err": max(errs["sm90"]), **shapes["training_forward"],
          "by_shape": {k: v for k, v in shapes.items() if v["variant"] == "sm90"}},
@@ -4873,7 +5710,8 @@ def kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows,
          "max_abs_err": max(errs["decode"]), **decode_row,
          "by_shape": {k: v for k, v in shapes.items() if v["variant"] == "decode"}},
         {"name": "flash_fwd_decode (pool, 8 slots)", **fwd,
-         "launches": default["decode"] + over["decode"], "overload_launches": over["decode"],
+         "launches": default["decode"] + over["decode"] + fleet_l["decode"],
+         "overload_launches": over["decode"], "fleet_launches": fleet_l["decode"],
          "launches_per_chunk": default["per_chunk"], "max_abs_err": pool_row["max_abs_err"],
          **pool_row, "ms": pool_row["device_ms"], "event_ms": pool_row["ms"],
          "library_ms": pool_row["library_device_ms"], "library_event_ms": pool_row["library_ms"]},
@@ -5190,16 +6028,14 @@ def main(argv=None) -> int:
     openai = serve_openai(torch, flash, card, model)
     gc.collect()
     torch.cuda.empty_cache()
-    # phase 12 writes phase 5's weights here; phase 13 drafts from them
+    # phase 12 writes phase 5's weights here; phase 13 drafts from them and
+    # phase 19's replicas boot from them (deleted after phase 19, or at exit)
     ckpt = tempfile.mkdtemp(prefix="gofr_ckpt_")
-    try:
-        deploy = deployment(torch, flash, card, model, ckpt)
-        gc.collect()
-        torch.cuda.empty_cache()
-        spec = speculation(torch, flash, card, model, ckpt, gen)
-    finally:
-        shutil.rmtree(ckpt, ignore_errors=True)
-    check(not os.path.exists(ckpt), "model_path: the checkpoint directory is still there")
+    atexit.register(shutil.rmtree, ckpt, True)
+    deploy = deployment(torch, flash, card, model, ckpt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = speculation(torch, flash, card, model, ckpt, gen)
     gc.collect()
     torch.cuda.empty_cache()
     loras = multi_lora(torch, flash, card, model)
@@ -5225,9 +6061,17 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     encoders = encoder_serving(torch, flash, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        fleet_run = fleet(torch, flash, card, ckpt, gen)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    check(not os.path.exists(ckpt), "fleet: the checkpoint directory is still there")
 
     kernels = kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows,
-                           default, pool_row, openai, deploy, spec, loras, overload_run)
+                           default, pool_row, openai, deploy, spec, loras, overload_run,
+                           fleet_run)
     kernels["kernels"].insert(-2, encoder_entry(encoder_err, encoder_rows, encoders))
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)  # name, power limit as nvidia-smi gives them

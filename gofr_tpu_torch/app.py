@@ -2,7 +2,10 @@
 tracer, the middleware chain, route registration and the HTTP server with
 the default routes (``/.well-known/health``, ``/.well-known/ready``,
 ``/favicon.ico``, ``/metrics``, the profiler, flight-recorder, SLO, engine,
-cost-model, timebase, postmortem and LoRA adapter admin routes).
+cost-model, timebase, postmortem and LoRA adapter admin routes, and the
+donor side of a KV pull, ``GET /admin/kv/{hash}``). A router made by
+``gofr_tpu_torch.fleet.wire_fleet(app)`` drains at shutdown before the
+listener stops.
 
     import gofr_tpu_torch
     app = gofr_tpu_torch.new()
@@ -29,6 +32,7 @@ from gofr_tpu_torch.handler import (
     engine_admin_handler,
     favicon_handler,
     health_handler,
+    kv_export_handler,
     make_endpoint,
     metrics_handler,
     overview_admin_handler,
@@ -108,7 +112,7 @@ class App:
             # the admin surface (ADMIN_TOKEN gates it when set): the
             # profiler, the flight recorder and the SLO engine, engine
             # introspection, the cost model, the timebase, the postmortem
-            # store and the LoRA adapters
+            # store, the LoRA adapters and the KV export
             ("GET", "/admin/profiler", profiler_status_handler),
             ("POST", "/admin/profiler/start", profiler_start_handler),
             ("POST", "/admin/profiler/stop", profiler_stop_handler),
@@ -127,6 +131,9 @@ class App:
             ("GET", "/admin/adapters", adapters_list_handler),
             ("POST", "/admin/adapters", adapter_load_handler),
             ("DELETE", "/admin/adapters/{name}", adapter_unload_handler),
+            # cross-replica KV transfer: peers pull cached paged-KV block
+            # tables by prompt hash
+            ("GET", "/admin/kv/{hash}", kv_export_handler),
         ):
             self.router.add(method, pattern, make_endpoint(handler, self.container))
         self.router.set_not_found(make_endpoint(catch_all_handler, self.container))
@@ -159,6 +166,12 @@ class App:
     def shutdown(self) -> None:
         # streams the shutdown closes are no client aborts
         self.container.closing = True
+        fleet = getattr(self.container, "fleet", None)
+        if fleet is not None:
+            # graceful drain BEFORE the listener stops: admission closes
+            # (new requests shed 503, readiness flips) while in-flight
+            # requests finish through the still-running server
+            fleet.drain(timeout_s=float(self.config.get_or_default("FLEET_DRAIN_TIMEOUT_S", "10")))
         if self.http_server:
             self.http_server.shutdown()
         self.container.close()

@@ -119,6 +119,41 @@ DECLARED_KEYS: dict[str, str] = {
     "JOURNAL_FSYNC": "WAL durability: interrupt (default) | always | off",
     "JOURNAL_SEGMENT_BYTES": "WAL segment size before rotation (default 1 MiB)",
     "JOURNAL_SEGMENTS": "WAL segments kept (default 4)",
+    "KV_HBM_BUDGET_MB": "paged KV arena size in device MiB (0 = auto; KV_BLOCKS wins)",
+    "KV_TRANSFER": "'off': serve and pull no KV across replicas (default on)",
+    "KV_TRANSFER_TIMEOUT_S": "one KV pull's budget, and the export's default deadline (default 2)",
+    "KV_TRANSFER_PIN_TTL_S": "longest an export pins blocks if its thread dies (default 60)",
+    "KV_TRANSFER_TRUST_HINT": "'on': act on the router's X-KV-Donor hint (trusted front door only)",
+    "FLEET_TRACE_SCRAPE_TIMEOUT_S": "per-replica budget of /admin/fleet/trace's scrapes (default 1)",
+    "FLEET_REPLICAS": "router: replica base URLs, [name=]url comma-separated",
+    "FLEET_ROUTES": "router: forwarded 'METHOD /path' pairs (default the serving surface)",
+    "FLEET_ROUTER_ID": "router: this instance's id on /admin/fleet and X-Gofr-Hop",
+    "FLEET_RETRIES": "router: retries of a failed forward (default 2)",
+    "FLEET_DEADLINE_S": "router: a request's budget across attempts (default 30)",
+    "FLEET_CONNECT_TIMEOUT_S": "router: connect timeout to a replica (default 2)",
+    "FLEET_READ_TIMEOUT_S": "router: read timeout from a replica (default 30)",
+    "FLEET_AFFINITY": "router: 'off': least-outstanding routing only (default on)",
+    "FLEET_AFFINITY_MAX_SKEW": "router: outstanding skew affinity tolerates (default 4)",
+    "FLEET_PROBE_INTERVAL_S": "router: seconds between readiness probes (default 1)",
+    "FLEET_PROBE_TIMEOUT_S": "router: a probe's timeout (default 1)",
+    "FLEET_PROBE_HEDGE_MS": "router: hedge a probe slower than this (0 = off)",
+    "FLEET_PROBE_JITTER": "router: per-replica probe jitter, a fraction of the interval (default 0.2)",
+    "FLEET_OUT_AFTER": "router: failed probes that take a replica out (default 2)",
+    "FLEET_PROBATION_PROBES": "router: good probes a returning replica needs (default 3)",
+    "FLEET_BREAKER_THRESHOLD": "router: failures that open a replica's breaker (default 5)",
+    "FLEET_BREAKER_COOLDOWN_S": "router: an open breaker's cooldown (default 5)",
+    "FLEET_QUOTA_RPS": "router: per-tenant requests a second (0 = off)",
+    "FLEET_QUOTA_BURST": "router: per-tenant burst (default 2x rps)",
+    "FLEET_QUOTA_CACHE_TTL_S": "router: lease cache over a shared quota bucket (default 0.05)",
+    "FLEET_TRUST_TENANT_HEADER": "'on': X-Tenant names the tenant (behind an authenticating gateway)",
+    "FLEET_MAX_INFLIGHT": "router: requests in flight before sheds (default 256)",
+    "FLEET_SATURATION_QUEUE": "router: replica queue depth that saturates it (default 64)",
+    "FLEET_RETRY_AFTER_S": "router: Retry-After of a shed (default 1)",
+    "FLEET_DRAIN_TIMEOUT_S": "router: the shutdown drain's bound (default 10)",
+    "FLEET_RESUME": "router: 'off': a stream cut mid-body is not resumed (default on)",
+    "FLEET_MAX_RESUMES": "router: resumes of one stream (default 4)",
+    "FLEET_ROLE": "replica role advertised to the router: prefill | decode | mixed (default)",
+    "FLEET_ROLE_ROUTING": "router: 'off': ignore replica roles, stamp no X-KV-Donor (default on)",
 }
 
 # The reference's keys the port does not honor yet: key -> (refuse, why,
@@ -128,8 +163,6 @@ DECLARED_KEYS: dict[str, str] = {
 _MESH = "§A7: the port serves on one device, unsharded"
 _MULTIHOST = "§A7: the port runs one process, no multi-host runtime"
 _DATASOURCE = "§A6: the port wires no sql or redis datasource"
-_FLEET = "§A5: the port has no fleet router or replica role"
-_TRANSFER = "§A5: the port serves and pulls no KV across replicas"
 _TOOLING = "§A6: the port has no native tokenizer backend or lock sanitizer"
 UNHONORED_KEYS: dict[str, tuple[bool, str]] = {
     "GRPC_PORT": (False, "§A6: the port runs no gRPC server"),
@@ -148,42 +181,7 @@ UNHONORED_KEYS: dict[str, tuple[bool, str]] = {
     "TPU_PROCESS_ID": (True, _MULTIHOST),
     "MODEL_ATTN_IMPL": (False, "§B: every attention call runs the port's own kernels"),
     "BATCH_COHORT": (False, "§A6: the batcher always forms bucket cohorts"),
-    "KV_HBM_BUDGET_MB": (True, "§A5: the paged arena is sized by KV_BLOCKS, not a byte budget"),
-    "KV_TRANSFER": (False, _TRANSFER),
-    "KV_TRANSFER_TIMEOUT_S": (False, _TRANSFER),
-    "KV_TRANSFER_PIN_TTL_S": (False, _TRANSFER),
-    "KV_TRANSFER_TRUST_HINT": (False, _TRANSFER),
-    "FLEET_TRACE_SCRAPE_TIMEOUT_S": (False, _FLEET),
     "COSTMODEL_HLO": (False, "§C: the port compiles no HLO; its cost sheets are analytic"),
-    "FLEET_REPLICAS": (True, _FLEET),
-    "FLEET_ROUTES": (False, _FLEET),
-    "FLEET_ROUTER_ID": (False, _FLEET),
-    "FLEET_RETRIES": (False, _FLEET),
-    "FLEET_DEADLINE_S": (False, _FLEET),
-    "FLEET_CONNECT_TIMEOUT_S": (False, _FLEET),
-    "FLEET_READ_TIMEOUT_S": (False, _FLEET),
-    "FLEET_AFFINITY": (False, _FLEET),
-    "FLEET_AFFINITY_MAX_SKEW": (False, _FLEET),
-    "FLEET_PROBE_INTERVAL_S": (False, _FLEET),
-    "FLEET_PROBE_TIMEOUT_S": (False, _FLEET),
-    "FLEET_PROBE_HEDGE_MS": (False, _FLEET),
-    "FLEET_PROBE_JITTER": (False, _FLEET),
-    "FLEET_OUT_AFTER": (False, _FLEET),
-    "FLEET_PROBATION_PROBES": (False, _FLEET),
-    "FLEET_BREAKER_THRESHOLD": (False, _FLEET),
-    "FLEET_BREAKER_COOLDOWN_S": (False, _FLEET),
-    "FLEET_QUOTA_RPS": (False, _FLEET),
-    "FLEET_QUOTA_BURST": (False, _FLEET),
-    "FLEET_QUOTA_CACHE_TTL_S": (False, _FLEET),
-    "FLEET_TRUST_TENANT_HEADER": (False, _FLEET),
-    "FLEET_MAX_INFLIGHT": (False, _FLEET),
-    "FLEET_SATURATION_QUEUE": (False, _FLEET),
-    "FLEET_RETRY_AFTER_S": (False, _FLEET),
-    "FLEET_DRAIN_TIMEOUT_S": (False, _FLEET),
-    "FLEET_RESUME": (False, _FLEET),
-    "FLEET_MAX_RESUMES": (False, _FLEET),
-    "FLEET_ROLE": (True, _FLEET),
-    "FLEET_ROLE_ROUTING": (False, _FLEET),
     "OPENAI_ACCEPT_UNKNOWN_MODEL": (True, "§A6: an unknown model name is refused, not served"),
     "GOFR_NATIVE_LIB": (False, _TOOLING),
     "GOFR_NATIVE_CACHE": (False, _TOOLING),

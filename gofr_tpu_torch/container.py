@@ -24,6 +24,8 @@ recorder and tenant ledger, handler thread pool and the inference device
   ``SLO_BURN_*`` windows and rates, ``SLO_EVAL_INTERVAL_S``) burns budgets
   over the flight records into the device's anomaly ring;
 - ``HANDLER_THREADS`` (64) sizes the pool sync handlers run on;
+- ``fleet`` is the router ``fleet.wire_fleet`` hangs here (None on a
+  replica);
 - the device is built when ``MODEL_NAME`` is set or ``TPU_ENABLED`` is
   true (it then serves ``mlp``, the default ``MODEL_NAME``), and boots in
   the foreground or, under ``TPU_BOOT=background``, on a thread while the
@@ -98,6 +100,10 @@ class Container:
         # set by App.shutdown: streams closed by the shutdown are no client
         # aborts
         self.closing = False
+        # the fleet front door, when this process is a router
+        # (gofr_tpu_torch.fleet.wire_fleet sets it): readiness reads its
+        # drain, App.shutdown drains it, close() stops its prober
+        self.fleet: Optional[Any] = None
         self.tpu: Optional[Any] = None
         self._handler_pool: Optional[ThreadPoolExecutor] = None
         enabled = config.get_or_default("TPU_ENABLED", "").lower()
@@ -161,6 +167,8 @@ class Container:
         return self._handler_pool
 
     def close(self) -> None:
+        if self.fleet is not None:
+            self.fleet.close()  # stops the health prober's thread
         if self.slo is not None:
             self.slo.close()
         if self.tpu is not None:

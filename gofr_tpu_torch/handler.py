@@ -9,7 +9,9 @@ LoRA adapters (``GET``/``POST /admin/adapters``, ``DELETE
 ``/admin/anomalies``), the timebase (``/admin/timeseries``,
 ``/admin/overview``), the postmortem store (``GET``/``POST
 /admin/postmortem``) and the profiler (``GET /admin/profiler``, ``POST
-/admin/profiler/start|stop``). The adapter opens a "gofr-handler" span around each
+/admin/profiler/start|stop``), the donor side of a KV pull (``GET
+/admin/kv/{hash}``) and, on a router, the fleet pages (``/admin/fleet``,
+``/admin/fleet/trace/{id}``, ``/admin/fleet/overview``). The adapter opens a "gofr-handler" span around each
 handler; sync handlers run on the container's pool inside a copy of the
 request's context, so the span (and its trace id) reaches their thread."""
 
@@ -26,6 +28,7 @@ from typing import Any, Callable
 from gofr_tpu_torch import static
 from gofr_tpu_torch.context import Context
 from gofr_tpu_torch.anomaly import ANOMALY_CAUSES
+from gofr_tpu_torch.deadline import parse_deadline
 from gofr_tpu_torch.errors import (
     EntityNotFoundError,
     HTTPError,
@@ -35,9 +38,11 @@ from gofr_tpu_torch.errors import (
 )
 from gofr_tpu_torch.http.request import Request
 from gofr_tpu_torch.http.responder import respond
+from gofr_tpu_torch.fleet import trace as fleet_trace
+from gofr_tpu_torch.fleet.kvwire import CONTENT_TYPE, encode_block, encode_header, encode_trailer
 from gofr_tpu_torch.http.response import File, Response
 from gofr_tpu_torch.profiling import profiler
-from gofr_tpu_torch.telemetry import BOOT_ID
+from gofr_tpu_torch.telemetry import BOOT_ID, sanitize_request_id
 from gofr_tpu_torch.tpu.introspect import DISPATCH_KINDS
 from gofr_tpu_torch.tracing import get_tracer
 
@@ -95,7 +100,18 @@ def ready_handler(ctx: Context) -> Response:
     still watches) while a stalled wait holds the engine degraded or
     wedged, 200 once requests would be served without waiting. A 503 also
     carries the recovery incident while one is live or has happened. (The
-    JAX handler's fleet branch comes with the fleet.)"""
+    router's drain answers 503 first: new work must go to another front
+    door.)"""
+    fleet = getattr(ctx.container, "fleet", None)
+    if fleet is not None and fleet.draining:
+        return Response(
+            status=503,
+            headers={"Content-Type": "application/json"},
+            body=json.dumps({
+                "state": "draining",
+                "detail": f"router draining, {fleet.in_flight} in flight",
+            }).encode("utf-8"),
+        )
     tpu = ctx.container.tpu
     if tpu is None:
         status, state = 200, {"state": "ready", "boot_id": BOOT_ID}
@@ -431,6 +447,308 @@ def overview_admin_handler(ctx: Context) -> Any:
 def _trend(points: list) -> dict[str, Any]:
     """A trend series and its latest value (the rollup's headline)."""
     return {"now": points[-1][1] if points else None, "trend": points}
+
+
+def fleet_admin_handler(ctx: Context) -> Any:
+    """GET /admin/fleet: the fleet front door on one page — rotation
+    state + probe evidence per replica, breaker states, outstanding
+    depths, quota stats, drain status, and the recent route records
+    (which replica served each request, retries, shed verdicts).
+    Registered by ``gofr_tpu_torch.fleet.wire_fleet``; 503 on a process that
+    is not a router."""
+    _check_admin(ctx)
+    fleet = getattr(ctx.container, "fleet", None)
+    if fleet is None:
+        raise HTTPError(503, "fleet not configured (set FLEET_REPLICAS)")
+    snapshot = fleet.snapshot()
+    request_id = ctx.param("request_id") or ctx.param("trace_id") or None
+    try:
+        limit = int(ctx.param("limit") or "0")
+    except ValueError:
+        raise InvalidParamError('"limit" must be an integer') from None
+    if request_id:
+        snapshot["routes"] = fleet.records(
+            request_id=request_id, limit=limit or 50
+        )
+    elif limit > 0:
+        # trace capture pages deeper than the default view
+        snapshot["routes"] = fleet.records(limit=limit)
+    return snapshot
+
+
+def fleet_trace_handler(ctx: Context) -> Any:
+    """GET /admin/fleet/trace/{id}: ONE causal timeline for a request id
+    across every process it touched — the router's route record joined
+    with each attempt's replica-side flight record (matched on the
+    ``origin`` block the X-Gofr-Hop header stamped) and the KV-transfer
+    ledger entries from donor and receiver, plus a latency decomposition
+    (router overhead / replica queue / device TTFT / stream). A replica
+    that is down or mid-restart degrades the trace to
+    ``partial: true`` with the gap named — never a 500."""
+    _check_admin(ctx)
+    fleet = getattr(ctx.container, "fleet", None)
+    if fleet is None:
+        raise HTTPError(503, "fleet not configured (set FLEET_REPLICAS)")
+    request_id = sanitize_request_id(ctx.request.path_param("id"))
+    if request_id is None:
+        raise InvalidParamError(
+            '"id" must be a request id ([A-Za-z0-9._-], <= 64 chars)'
+        )
+    routes = fleet.records(limit=10, request_id=request_id)
+    if not routes:
+        raise HTTPError(
+            404,
+            f"no route record for request id '{request_id}' "
+            "(expired from the ring, or served by another router)",
+        )
+    route = routes[0]  # newest first: the latest routing of this id
+    timeout_s = float(
+        ctx.container.config.get_or_default("FLEET_TRACE_SCRAPE_TIMEOUT_S", "1")
+    )
+    evidence = fleet_trace.gather_evidence(
+        fleet, request_id, route, timeout_s=timeout_s
+    )
+    return fleet_trace.assemble(request_id, route, **evidence)
+
+
+def fleet_overview_handler(ctx: Context) -> Any:
+    """GET /admin/fleet/overview: the fleet-wide ops rollup — one page
+    built from evidence the router already holds (replica snapshots and
+    the prober's piggybacked engine scrapes) plus the router's own
+    timebase trends. No fan-out scrape on request: a replica that
+    stopped answering shows its last-scraped state, it does not stall
+    the overview. The per-process ``/admin/overview`` stays the
+    deep-dive; this is the incident headline across N replicas."""
+    _check_admin(ctx)
+    container = ctx.container
+    fleet = getattr(container, "fleet", None)
+    if fleet is None:
+        raise HTTPError(503, "fleet not configured (set FLEET_REPLICAS)")
+    states: dict[str, int] = {}
+    restarts = 0
+    kv_free = kv_total = 0
+    kv_seen = False
+    transfers: dict[str, int] = {}
+    brownout_max = 0
+    anomalies_total = 0
+    anomalies_seen = False
+    slo_alerting: list[dict[str, Any]] = []
+    slo_worst_burn = None
+    slo_worst_replica = None
+    slo_budget_min = None
+    slo_alerts_total = 0
+    slo_seen = False
+    tenant_totals: dict[str, dict[str, int]] = {}
+    tenants_tracked = 0
+    replicas = []
+    for replica in fleet.replica_set.replicas:
+        snap = replica.snapshot()
+        state = snap.get("state") or "unknown"
+        states[state] = states.get(state, 0) + 1
+        restarts += int(snap.get("restarts") or 0)
+        engine = snap.get("engine") or {}
+        if isinstance(engine.get("kv_free"), int) and isinstance(
+            engine.get("kv_total"), int
+        ):
+            kv_seen = True
+            kv_free += engine["kv_free"]
+            kv_total += engine["kv_total"]
+        ledger = engine.get("kv_transfer") or {}
+        for outcome, count in ledger.items():
+            # outcome counters only: skip the recents lists and the
+            # `enabled` bool (bool IS an int to isinstance)
+            if isinstance(count, int) and not isinstance(count, bool):
+                transfers[outcome] = transfers.get(outcome, 0) + count
+        level = engine.get("brownout_level")
+        if isinstance(level, int):
+            brownout_max = max(brownout_max, level)
+        anomalies = engine.get("anomalies")
+        if isinstance(anomalies, int) and not isinstance(anomalies, bool):
+            anomalies_seen = True
+            anomalies_total += anomalies
+        # SLO + tenant rollup off the same piggybacked engine scrape —
+        # router-side aggregation only, never a fan-out on request
+        slo = engine.get("slo") or {}
+        burn = slo.get("worst_burn")
+        if isinstance(burn, (int, float)) and not isinstance(burn, bool):
+            slo_seen = True
+            if slo_worst_burn is None or burn > slo_worst_burn:
+                slo_worst_burn = burn
+                slo_worst_replica = snap.get("name")
+        remaining = slo.get("budget_remaining_min")
+        if isinstance(remaining, (int, float)) and not isinstance(
+            remaining, bool
+        ):
+            if slo_budget_min is None or remaining < slo_budget_min:
+                slo_budget_min = remaining
+        for objective in slo.get("alerting") or []:
+            slo_alerting.append(
+                {"replica": snap.get("name"), "objective": objective}
+            )
+        slo_alerts_total += int(slo.get("alerts_total") or 0)
+        tenants = engine.get("tenants") or {}
+        tenants_tracked += int(tenants.get("tracked") or 0)
+        for row in tenants.get("top") or []:
+            name = row.get("tenant")
+            if not name:
+                continue
+            agg = tenant_totals.setdefault(
+                name, {"requests": 0, "tokens": 0, "sheds": 0}
+            )
+            for field in ("requests", "tokens", "sheds"):
+                agg[field] += int(row.get(field) or 0)
+        replicas.append({
+            "name": snap.get("name"),
+            "state": state,
+            "role": snap.get("role"),
+            "outstanding": snap.get("outstanding"),
+            "saturated": snap.get("saturated"),
+            "restarts": snap.get("restarts"),
+            "queue_depth": engine.get("queue_depth"),
+            "kv_free": engine.get("kv_free"),
+            "kv_total": engine.get("kv_total"),
+            "brownout_level": level,
+            # cost-model residual watchtower, per replica: which box is
+            # blowing its predictions (scraped off /admin/engine)
+            "anomalies": anomalies,
+            "worst_residual_ema": engine.get("worst_residual_ema"),
+            # SLO headline per replica: which box is burning its budget
+            "slo_worst_burn": slo.get("worst_burn"),
+            "slo_alerting": slo.get("alerting"),
+            "tenants_tracked": tenants.get("tracked"),
+        })
+    timebase = container.timebase
+    return {
+        "ts": time.time(),
+        "router_id": fleet.router_id,
+        "replicas": replicas,
+        "states": states,
+        "restarts_total": restarts,
+        "kv_utilization": (
+            round(1.0 - kv_free / kv_total, 4)
+            if kv_seen and kv_total else None
+        ),
+        "kv_free": kv_free if kv_seen else None,
+        "kv_total": kv_total if kv_seen else None,
+        "kv_transfers": transfers,
+        "brownout_level_max": brownout_max,
+        "anomalies_total": anomalies_total if anomalies_seen else None,
+        "slo": {
+            "worst_burn": slo_worst_burn,
+            "worst_replica": slo_worst_replica,
+            "budget_remaining_min": slo_budget_min,
+            "alerting": slo_alerting,
+            "alerts_total": slo_alerts_total,
+        } if slo_seen else None,
+        "tenants": {
+            "tracked": tenants_tracked,
+            # fleet-wide top talkers: per-replica top lists merged and
+            # re-ranked by token volume (exact within what each replica's
+            # sketch tracked)
+            "top": sorted(
+                (dict(v, tenant=k) for k, v in tenant_totals.items()),
+                key=lambda row: (row["tokens"], row["requests"]),
+                reverse=True,
+            )[:5],
+        },
+        "req_per_sec": _trend(
+            timebase.rate_total("gofr_tpu_router_requests_total")
+        ),
+        "upstream_p95_s": _trend(
+            timebase.hist_quantile_trend("gofr_tpu_router_upstream_seconds", 0.95)
+        ),
+        "in_flight": fleet.in_flight,
+        "draining": fleet.draining,
+    }
+
+
+def kv_export_handler(ctx: Context) -> Response:
+    """GET /admin/kv/{hash}: the donor side of a cross-replica paged-KV
+    transfer (disaggregated prefill/decode). Serves the cached block
+    table whose prompt hashes to ``{hash}`` in the kvwire format —
+    versioned header, per-block CRC frames, mandatory trailer — so the
+    pulling replica can detect truncation, corruption, and version
+    skew and fall back to local prefill.
+
+    Contract points the fleet depends on:
+
+    - the entry's blocks are PINNED (increfed) for the duration of the
+      stream and released when the response closes — an aborted pull
+      never leaks refcounts, and a dead serving thread is covered by
+      the pin's own bounded-lifetime timer (``KV_TRANSFER_PIN_TTL_S``);
+    - the request's deadline budget applies (``X-Request-Deadline-Ms``,
+      default ``KV_TRANSFER_TIMEOUT_S``): an expired budget stops the
+      stream mid-body — a deliberate truncation the receiver detects;
+    - 404 when the entry was evicted between advertise and pull (or
+      was never here, or transfer is off) — never a 500."""
+    _check_admin(ctx)
+    tpu = ctx.container.tpu
+    if tpu is None:
+        raise HTTPError(503, "tpu not configured (set MODEL_NAME)")
+    if not getattr(tpu, "kv_transfer_enabled", False):
+        raise HTTPError(404, "KV transfer disabled (KV_TRANSFER=off)")
+    prompt_hash = (ctx.request.path_param("hash") or "").strip().lower()
+    if not prompt_hash or len(prompt_hash) > 64 or any(
+        c not in "0123456789abcdef" for c in prompt_hash
+    ):
+        raise InvalidParamError('"hash" must be a hex prompt hash')
+    default_s = float(
+        ctx.container.config.get_or_default("KV_TRANSFER_TIMEOUT_S", "2")
+    )
+    deadline = parse_deadline(
+        ctx.request.header("X-Request-Deadline-Ms"), default_s
+    )
+    # the requesting id (the receiver forwards its own origin id):
+    # lands in the donor's served ledger so /admin/fleet/trace/<id>
+    # can show which donor streamed this request's warm blocks
+    export = tpu.kv_export(
+        prompt_hash,
+        request_id=sanitize_request_id(
+            ctx.request.header("X-Gofr-Request-Id")
+        ) or "",
+    )
+    if export is None:
+        raise HTTPError(
+            404,
+            f"no cached KV for {prompt_hash} (evicted between advertise "
+            "and pull, never seen here, or paged KV inactive)",
+        )
+    spec, table, arena, pin = export
+    n_blocks = int(spec["n_blocks"])
+
+    executor = ctx.container.handler_executor
+
+    async def frames() -> Any:
+        # runs on the event loop after the handler returns; the pin is
+        # released on EVERY exit — completion, client abort (the server
+        # acloses the stream), or an exception — and the TTL timer
+        # backstops a loop that never finalizes this generator
+        loop = asyncio.get_running_loop()
+        try:
+            yield encode_header(spec)
+            for j in range(n_blocks):
+                if pin.expired:
+                    return  # the TTL guard took the blocks back
+                if deadline is not None and deadline.expired():
+                    return  # budget spent: truncate; the receiver's
+                    # trailer check turns this into a clean fallback
+                # a device arena's per-block export is a synchronous
+                # device-to-host copy: off the serving loop, on the handler
+                # executor, or every concurrent stream on the donor stalls
+                # per block
+                payload = await loop.run_in_executor(
+                    executor, arena.export_block_payload, table, j
+                )
+                yield encode_block(j, payload)
+            yield encode_trailer(n_blocks)
+        finally:
+            pin.release()
+
+    return Response(
+        status=200,
+        headers={"Content-Type": CONTENT_TYPE},
+        stream=frames(),
+    )
 
 
 def postmortem_list_handler(ctx: Context) -> Any:

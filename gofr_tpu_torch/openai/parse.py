@@ -5,7 +5,7 @@ the n/best_of/echo fan-out constraints, and the LoRA adapter a request
 selects (the ``adapter`` key, or a ``model`` naming a loaded adapter), and
 the admission gate: the request's identity for its flight record (the
 fleet origin, ``X-Gofr-Request-Id`` and ``X-Gofr-Hop``, and the hashed
-tenant), its deadline (``X-Request-Deadline-Ms``, default
+tenant), the KV-donor hint (``X-KV-Donor``), its deadline (``X-Request-Deadline-Ms``, default
 ``REQUEST_DEADLINE_S``) and priority (``X-Priority``, default
 ``PRIORITY_DEFAULT``), and the brownout's verdict (a 429 with
 ``Retry-After``); and ``abortable``, a stream's client-abort wiring. Knobs
@@ -25,6 +25,8 @@ from gofr_tpu_torch.deadline import (
     parse_priority,
 )
 from gofr_tpu_torch.errors import HTTPError, TooManyRequestsError
+from gofr_tpu_torch.fleet.admission import tenant_of
+from gofr_tpu_torch.fleet.kvwire import activate_kv_hint, parse_kv_hint
 from gofr_tpu_torch.telemetry import (
     activate_origin,
     activate_tenant,
@@ -140,20 +142,6 @@ def sampler_from_body(body: dict) -> Any:
         raise HTTPError(400, f"invalid sampling params: {exc}") from None
 
 
-def tenant_of(request: Any) -> str:
-    """A request's tenant, as the JAX admission gate derives it without a
-    trusted ``X-Tenant`` header (``FLEET_TRUST_TENANT_HEADER`` comes with
-    the fleet, ROADMAP §A5): ``key-`` and a sha256 prefix of the
-    ``Authorization`` value (raw key material never leaves this frame),
-    else ``anonymous``."""
-    auth = request.header("Authorization")
-    if auth:
-        import hashlib
-
-        return "key-" + hashlib.sha256(auth.encode("utf-8")).hexdigest()[:16]
-    return "anonymous"
-
-
 def bind_identity(ctx: Any) -> str:
     """Bind the request's identity for the flight record born downstream:
     the router-stamped origin (garbage headers degrade to none, never a
@@ -161,7 +149,13 @@ def bind_identity(ctx: Any) -> str:
     activate_origin(origin_from_headers(
         ctx.request.header("X-Gofr-Request-Id"), ctx.request.header("X-Gofr-Hop"),
     ))
-    tenant = tenant_of(ctx.request)
+    # the router's derivation: X-Tenant only under FLEET_TRUST_TENANT_HEADER,
+    # else a sha256 of the Authorization credential
+    tenant = tenant_of(
+        ctx.request,
+        ctx.config.get_or_default("FLEET_TRUST_TENANT_HEADER", "").lower()
+        in ("on", "1", "true", "yes"),
+    )
     activate_tenant(tenant)
     return tenant
 
@@ -186,6 +180,11 @@ def admit_request(ctx: Any, max_tokens: int) -> int:
         ctx.request.header("X-Request-Deadline-Ms"),
         float(config.get_or_default("REQUEST_DEADLINE_S", "0")), priority=priority,
     ))
+    # the KV-donor hint the router stamps (disaggregated prefill/decode):
+    # read once by generate before admission; a malformed hint degrades to
+    # local prefill, and the device acts on it only under
+    # KV_TRANSFER_TRUST_HINT=on
+    activate_kv_hint(parse_kv_hint(ctx.request.header("X-KV-Donor")))
     tenant = bind_identity(ctx)
     brownout = getattr(ctx.tpu, "brownout", None)
     if brownout is not None:

@@ -119,6 +119,11 @@ def sanitize_request_id(raw: Any) -> Optional[str]:
     return value
 
 
+def format_hop(router_id: str, attempt: int, resume_from: int = 0) -> str:
+    """The ``X-Gofr-Hop`` wire value the router stamps per forward."""
+    return f"router={router_id};attempt={int(attempt)};resume={int(resume_from)}"
+
+
 def parse_hop(raw: Any) -> Optional[dict]:
     """Parse an ``X-Gofr-Hop`` header (``router=<id>;attempt=<n>;
     resume=<n>``) into ``{"router", "attempt", "resume_from"}``.
@@ -174,7 +179,7 @@ def origin_from_headers(request_id_raw: Any, hop_raw: Any) -> Optional[dict]:
 # -- tenant identity (bounded-cardinality usage metering) --------------------
 #
 # The admission gate resolves the request's HASHED tenant id
-# (openai/parse.py::tenant_of: sha256 of the Authorization value — never
+# (fleet/admission.py::tenant_of: sha256 of the Authorization value — never
 # raw key material) and binds it here, the same contextvar ride the
 # deadline, the KV-donor hint, and the fleet origin take. The
 # FlightRecord born downstream stamps it, the recorder's TenantLedger

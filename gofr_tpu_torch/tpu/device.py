@@ -64,6 +64,13 @@ slices of its bucket (never past the chunk budget), skips the prefix cache
 and both speculation modes, and decodes in the pool through its stacked
 adapter bank (``decode_chunk_pool_lora``), or solo when the pool rejects
 it; ``score(adapter=)`` scores under it.
+
+The fleet's replica side (``fleet_options``): ``KV_HBM_BUDGET_MB`` sizes
+the paged arena by bytes (two replicas share one card), ``FLEET_ROLE`` is
+advertised on ``/admin/engine``, ``kv_export`` pins a cached entry for
+``GET /admin/kv/{hash}``, and ``generate`` first pulls the warm prefix
+from an ``X-KV-Donor`` replica (``prefetch_kv``): every failure falls back
+to local prefill, counted on ``gofr_tpu_kv_transfer_total{outcome}``.
 """
 
 from __future__ import annotations
@@ -94,6 +101,8 @@ from gofr_tpu_torch.deadline import (
     pool_reject_counter,
 )
 from gofr_tpu_torch.errors import DeadlineExceeded, HTTPError, InvalidParamError
+from gofr_tpu_torch.fleet import kvwire
+from gofr_tpu_torch.fleet.kvwire import transfer_counter
 from gofr_tpu_torch.journal_wal import JournalWAL
 from gofr_tpu_torch.metrics import COMPILE_BUCKETS, Registry
 from gofr_tpu_torch.models.bert import BERT_BASE, BERT_TINY, Bert, bert_embed
@@ -117,6 +126,7 @@ from gofr_tpu_torch.telemetry import (
     BOOT_ID,
     GenerationJournal,
     activate_journal_entry,
+    current_origin,
     current_record,
     request_key,
 )
@@ -150,11 +160,14 @@ from gofr_tpu_torch.tpu.recovery import RecoverySupervisor
 from gofr_tpu_torch.tpu.kv_blocks import (
     BlockPool,
     BlockTable,
+    ForeignKVRejected,
     HostPagedKV,
     HostTokenArena,
     KVExhausted,
     TorchKVArena,
+    TransferPin,
     blocks_for,
+    install_foreign_entry,
     lcp_scan,
     to_device,
 )
@@ -292,6 +305,11 @@ def serving_options(config: Any, max_batch: int) -> dict:
     opts["kv_blocks"] = int(config.get_or_default("KV_BLOCKS", "0"))
     if opts["kv_blocks"] < 0:
         raise ValueError("KV_BLOCKS must be >= 0 (0 = auto-size)")
+    # KV_HBM_BUDGET_MB sizes the arena by device bytes instead (two
+    # replicas sharing one card each take a bounded share)
+    opts["kv_budget_mb"] = float(config.get_or_default("KV_HBM_BUDGET_MB", "0"))
+    if opts["kv_budget_mb"] < 0:
+        raise ValueError("KV_HBM_BUDGET_MB must be >= 0 (0 = auto)")
     opts["pool_enabled"] = config.get_or_default("DECODE_POOL", "on") != "off"
     opts["pool_slots"] = int(config.get_or_default("DECODE_SLOTS", str(max_batch)))
     opts["pool_depth"] = int(config.get_or_default("DECODE_PIPELINE", str(PIPELINE_DEPTH)))
@@ -304,6 +322,37 @@ def serving_options(config: Any, max_batch: int) -> dict:
     )
     if opts["pool_penalties"] not in PENALTY_MODES:
         raise ValueError("DECODE_POOL_PENALTIES must be lazy, eager, or off")
+    return opts
+
+
+def fleet_options(config: Any) -> dict:
+    """The replica side of the fleet, with the JAX package's defaults and
+    validation errors (``gofr_tpu/tpu/device.py:716-767``): cross-replica
+    KV transfer (``KV_TRANSFER`` on: this replica serves its cached block
+    tables on ``/admin/kv`` and pulls a warm prefix when a request names a
+    donor; ``KV_TRANSFER_TIMEOUT_S`` bounds one pull and is the export's
+    default deadline; ``KV_TRANSFER_PIN_TTL_S`` bounds how long an export
+    pins blocks if its serving thread dies mid-send), whether the
+    ``X-KV-Donor`` hint is acted on (``KV_TRANSFER_TRUST_HINT``: the hint
+    names a URL this replica fetches into its shared prefix cache, so only
+    behind a trusted front door), the ``ADMIN_TOKEN`` a pull forwards (the
+    fleet shares one), and the role advertised to the router
+    (``FLEET_ROLE``: prefill, decode or mixed)."""
+    opts: dict = {}
+    opts["kv_transfer"] = config.get_or_default("KV_TRANSFER", "on") != "off"
+    opts["kv_hint_trusted"] = config.get_or_default("KV_TRANSFER_TRUST_HINT", "off") == "on"
+    opts["kv_transfer_timeout"] = float(config.get_or_default("KV_TRANSFER_TIMEOUT_S", "2"))
+    if opts["kv_transfer_timeout"] <= 0:
+        raise ValueError("KV_TRANSFER_TIMEOUT_S must be > 0")
+    opts["kv_pin_ttl"] = float(config.get_or_default("KV_TRANSFER_PIN_TTL_S", "60"))
+    if opts["kv_pin_ttl"] <= 0:
+        raise ValueError("KV_TRANSFER_PIN_TTL_S must be > 0")
+    opts["kv_admin_token"] = config.get("ADMIN_TOKEN") or ""
+    opts["role"] = config.get_or_default("FLEET_ROLE", "mixed").strip().lower()
+    if opts["role"] not in ("prefill", "decode", "mixed"):
+        raise ValueError(
+            f"FLEET_ROLE '{opts['role']}' not supported — use prefill, decode, or mixed"
+        )
     return opts
 
 
@@ -483,6 +532,16 @@ class TPUDevice:
             raise ValueError(f"MODEL_BUCKETS entries must be positive, got {raw_buckets!r}")
         self.options = serving_options(config, self.max_batch)
         self.spec_options = spec_options(config)
+        fleet = fleet_options(config)
+        self.kv_transfer_enabled = fleet["kv_transfer"]
+        self.kv_hint_trusted = fleet["kv_hint_trusted"]
+        self._kv_transfer_timeout = fleet["kv_transfer_timeout"]
+        self._kv_pin_ttl = fleet["kv_pin_ttl"]
+        self._kv_admin_token = fleet["kv_admin_token"]
+        self.role = fleet["role"]
+        # cache key -> prompt hash memo of kv_export's donor-side scan,
+        # pruned against the live cache when it outgrows it
+        self._kv_hash_memo: dict[bytes, str] = {}
         obs = observability_options(config)
         self.echo_step_ms = float(config.get_or_default("ECHO_STEP_MS", "0"))
         if self.echo_step_ms < 0:
@@ -650,6 +709,17 @@ class TPUDevice:
             "prefill paths), event=hit|partial_hit|miss",
             labels=("cache", "event"),
         )
+        self._kv_transfer_counter = transfer_counter(metrics)
+        # host mirror of the counter for /admin/engine, plus the donor's
+        # ``served`` count (not a receiver outcome), and the recent serves
+        # and pulls, each with the fleet request id that caused it (the
+        # transfer leg /admin/fleet/trace/<id> joins)
+        self.kv_transfer_stats: dict[str, int] = {
+            "ok": 0, "timeout": 0, "corrupt": 0, "evicted": 0, "fallback": 0, "served": 0,
+        }
+        self._kv_transfer_lock = threading.Lock()
+        self._kv_served_ledger: deque = deque(maxlen=64)
+        self._kv_pull_ledger: deque = deque(maxlen=64)
 
     # -- the boot ------------------------------------------------------------
     def _boot(self) -> None:
@@ -822,13 +892,21 @@ class TPUDevice:
 
     def _wire_echo(self) -> None:
         """The echo runner's paged store (``KV_PAGED``, on by default: a
-        host arena, ``KV_BLOCKS`` of them or 1024) and its pooled
+        host arena, ``KV_BLOCKS`` of them, or ``KV_HBM_BUDGET_MB`` of int32
+        ids, or 1024) and its pooled
         speculation (``SPEC_POOLED``, with the ``SPEC_FAKE_ACCEPT``
         schedule), as the JAX device wires them."""
         opts, spec = self.options, self.spec_options
         if opts["kv_paged"]:
             bt = opts["kv_block_tokens"]
-            n_blocks = opts["kv_blocks"] or 1024  # ~64k tokens of host "KV"
+            if opts["kv_blocks"]:
+                n_blocks = opts["kv_blocks"]
+            elif opts["kv_budget_mb"]:
+                n_blocks = max(
+                    int(opts["kv_budget_mb"] * 1024 * 1024) // (bt * HostTokenArena.TOKEN_BYTES), 2
+                )
+            else:
+                n_blocks = 1024  # ~64k tokens of host "KV"
             arena = HostTokenArena(n_blocks, bt)
             pool = BlockPool(
                 n_blocks, bt, block_bytes=arena.block_bytes,
@@ -1016,6 +1094,7 @@ class TPUDevice:
             kv_paged=opts["kv_paged"],
             kv_block_tokens=opts["kv_block_tokens"],
             kv_blocks=opts["kv_blocks"],
+            kv_budget_bytes=int(opts["kv_budget_mb"] * 1024 * 1024),
             kv_reserve_seqs=opts["pool_slots"],
             draft_name=spec["draft_name"],
             draft_tokens=spec["draft_tokens"],
@@ -1289,6 +1368,11 @@ class TPUDevice:
         self._check_bias(sampler)
         tokens = self._encode(tokens)
         stop_tokens = frozenset(stop_tokens or ()) | self.default_stop_ids
+        # disaggregated prefill/decode: a router-stamped donor hint pulls
+        # the warm prefix into the local paged arena BEFORE admission
+        # (best-effort: any failure falls back to local prefill)
+        if self.kv_transfer_enabled:
+            self.prefetch_kv(tokens)
         start = time.perf_counter()
         record = current_record()
         entry = self._journal_start(tokens, max_new_tokens, sampler, stop_tokens, adapter,
@@ -1641,6 +1725,210 @@ class TPUDevice:
         self.logger.infof("adapter '%s' unloaded", name)
         return remaining
 
+    # -- cross-replica KV transfer (fleet/kvwire.py) -------------------------
+    def _kv_store(self) -> Any:
+        """The runner's paged store (echo: ``HostPagedKV``; a decoder:
+        ``_PagedPrefixStore``), which both transfer directions work
+        against; None when paged KV is off."""
+        store = getattr(self.runner, "paged", None)
+        if store is None:
+            store = getattr(self.runner, "_paged_prefix", None)
+        return store
+
+    def kv_transfer_snapshot(self) -> dict:
+        with self._kv_transfer_lock:
+            out: dict[str, Any] = dict(self.kv_transfer_stats)
+            out["served_recent"] = [dict(e) for e in self._kv_served_ledger]
+            out["pulls_recent"] = [dict(e) for e in self._kv_pull_ledger]
+        out["enabled"] = self.kv_transfer_enabled
+        return out
+
+    def _note_transfer(self, outcome: str) -> None:
+        self._kv_transfer_counter.inc(outcome=outcome)
+        with self._kv_transfer_lock:
+            self.kv_transfer_stats[outcome] = self.kv_transfer_stats.get(outcome, 0) + 1
+
+    def kv_export(self, prompt_hash: str, request_id: str = "") -> Optional[tuple]:
+        """Donor side of a KV pull: find the cached entry whose key hashes
+        to ``prompt_hash`` and PIN its blocks for the transfer (an admission
+        evicting the entry mid-send must not free blocks the wire still
+        reads). Returns ``(spec, table, arena, pin)`` or None (evicted,
+        never seen, transfer off: the endpoint's clean 404). The caller
+        releases the pin at stream close; its TTL covers a serving thread
+        that dies mid-send. The keys are hashed OUTSIDE ``pool.lock``
+        (sha256 over every key under the admission lock would serialize
+        pulls against admission), the pin taken under it."""
+        if not self.kv_transfer_enabled:
+            return None
+        store = self._kv_store()
+        if store is None:
+            return None
+        pool, arena = store.pool, store.arena
+        memo = self._kv_hash_memo
+        items = pool.cache_items()
+        key = None
+        for k, _ in items:
+            h = memo.get(k)
+            if h is None:
+                h = memo[k] = kvwire.hash_of_key(k)
+            if h == prompt_hash:
+                key = k
+                break
+        if len(memo) > 2 * len(items) + 16:
+            live = {k for k, _ in items}
+            self._kv_hash_memo = {k: v for k, v in memo.items() if k in live}
+        if key is None:
+            return None
+        with pool.lock:
+            entry = pool.cache_lookup(key)
+            if entry is None:
+                return None  # evicted between scan and pin
+            length = entry.table.length
+            nb = min(blocks_for(length, pool.block_tokens), len(entry.table.blocks))
+            blocks = list(entry.table.blocks[:nb])
+            pin = TransferPin(pool, blocks, ttl_s=self._kv_pin_ttl)
+        ids = np.frombuffer(key, np.int32)
+        spec = dict(arena.wire_spec())
+        spec.update({
+            "prompt_hash": prompt_hash,
+            "model": self.model_name,
+            # the sampling identity pins model + prompt: a donor serving
+            # other weights is refused before its KV is trusted
+            "identity": request_key(self.model_name, ids.tolist(), 0),
+            "length": int(length),
+            "n_blocks": nb,
+            "meta": {"length": int(length), "next_token": entry.meta.get("next_token")},
+        })
+        with self._kv_transfer_lock:
+            self.kv_transfer_stats["served"] += 1
+            self._kv_served_ledger.append({
+                "ts": time.time(), "prompt_hash": prompt_hash,
+                "request_id": request_id or None, "n_blocks": nb,
+            })
+        return spec, BlockTable(blocks, length), arena, pin
+
+    def prefetch_kv(self, tokens: Any) -> None:
+        """Receiving side: with a trusted ``X-KV-Donor`` hint, pull the warm
+        prefix from that replica BEFORE paged admission, so the admission
+        aliases it instead of prefilling. Best-effort: every failure (donor
+        gone, timeout, corruption, version skew, eviction, local
+        exhaustion) counts on ``gofr_tpu_kv_transfer_total{outcome}`` and
+        the request falls back to local prefill."""
+        hint = kvwire.current_kv_hint()
+        if hint is None or not self.kv_transfer_enabled or not self.kv_hint_trusted:
+            return
+        store = self._kv_store()
+        if store is None or not hasattr(store, "install_remote"):
+            return
+        if isinstance(tokens, str):
+            return  # hints ride token-id requests only (hash identity)
+        ids = np.asarray(tokens, np.int32).reshape(-1)
+        if ids.size == 0:
+            return
+        with store.pool.lock:
+            if store.pool.cache_lookup(ids.tobytes()) is not None:
+                return  # already warm locally: no pull, no fallback
+        pull_start = time.perf_counter()
+        outcome = self._pull_kv(hint, ids, store)
+        origin = current_origin()
+        with self._kv_transfer_lock:
+            self._kv_pull_ledger.append({
+                "ts": time.time(), "donor": hint, "prompt_hash": kvwire.prompt_hash(ids),
+                "outcome": outcome, "request_id": (origin or {}).get("request_id") or None,
+                "elapsed_ms": round((time.perf_counter() - pull_start) * 1000, 1),
+            })
+        if outcome == "ok":
+            self._note_transfer("ok")
+            return
+        if outcome != "local_exhausted":
+            self._note_transfer(outcome)  # a transfer-side failure: its cause
+        self._note_transfer("fallback")
+
+    def _pull_kv(self, donor: str, ids: np.ndarray, store: Any) -> str:
+        """One bounded pull, verify and install. Returns the outcome: ok |
+        timeout | corrupt | evicted | local_exhausted. The pull spends at
+        most half the request's remaining deadline, so a slow donor never
+        eats the time the local-prefill fallback still needs."""
+        from gofr_tpu_torch.service import HTTPService, ServiceCallError
+
+        budget = self._kv_transfer_timeout
+        deadline = current_deadline()
+        if deadline is not None:
+            budget = min(budget, deadline.remaining() * 0.5)
+        if budget <= 0.01:
+            return "timeout"
+        phash = kvwire.prompt_hash(ids)
+        streaming = None
+        start = time.perf_counter()
+        try:
+            client = HTTPService(donor, self.logger, name="kv-donor", connect_timeout=2.0,
+                                 read_timeout=self._kv_transfer_timeout)
+            headers = {"X-Request-Deadline-Ms": str(max(1, int(budget * 1000)))}
+            # the originating fleet request id lands in the DONOR's served
+            # ledger too: both halves of the transfer join on one id
+            origin = current_origin()
+            if origin and origin.get("request_id"):
+                headers["X-Gofr-Request-Id"] = origin["request_id"]
+            if self._kv_admin_token:
+                headers["Authorization"] = f"Bearer {self._kv_admin_token}"
+            streaming = client.stream(
+                "GET", f"/admin/kv/{phash}", headers=headers,
+                connect_timeout=min(budget, 2.0), read_timeout=budget,
+            )
+            if streaming.status_code == 404:
+                streaming.read(budget_s=min(budget, 1.0))
+                return "evicted"
+            if streaming.status_code != 200:
+                # a donor unhealthy or refusing: the verdict of unreachable
+                streaming.read(budget_s=min(budget, 1.0))
+                return "timeout"
+            header, payloads = kvwire.decode_stream(
+                self._budgeted_chunks(streaming, start, budget),
+                # an over-claiming donor is refused at its header
+                max_blocks=blocks_for(int(ids.size), store.pool.block_tokens),
+            )
+            kvwire.check_spec(header, store.arena.wire_spec())
+            if header.get("prompt_hash") != phash:
+                raise kvwire.VersionSkew(f"donor answered for hash {header.get('prompt_hash')!r}")
+            if int(header.get("length") or 0) != int(ids.size):
+                raise kvwire.VersionSkew(
+                    f"donor entry is {header.get('length')!r} tokens, prompt is {ids.size}"
+                )
+            if header.get("identity") != request_key(self.model_name, ids.tolist(), 0):
+                raise kvwire.VersionSkew(
+                    "sampling/model identity mismatch (donor serves different weights?)"
+                )
+            meta = header.get("meta") if isinstance(header.get("meta"), dict) else {}
+            installed = store.install_remote(ids, payloads, meta)
+        except kvwire.KVWireError as exc:
+            self.logger.warnf("KV pull from %s: %s", donor, exc)
+            return exc.outcome
+        except ForeignKVRejected as exc:
+            self.logger.warnf("KV pull from %s rejected: %s", donor, exc)
+            return "corrupt"
+        except TimeoutError:
+            return "timeout"  # the donor stalled past the read budget
+        except ServiceCallError:
+            return "timeout"  # never connected, or the request never went out
+        except Exception as exc:
+            # the stream broke mid-body (reset, protocol error): a partial
+            # read is corruption, not slowness
+            self.logger.warnf("KV pull from %s broke mid-body: %r", donor, exc)
+            return "corrupt"
+        finally:
+            if streaming is not None:
+                streaming.close()
+        return "ok" if installed else "local_exhausted"
+
+    @staticmethod
+    def _budgeted_chunks(streaming: Any, start: float, budget: float) -> Any:
+        """The pull's chunk source under an OVERALL budget: the socket
+        timeout bounds only the silence between chunks."""
+        for chunk in streaming.iter_chunks():
+            if time.perf_counter() - start > budget:
+                raise TimeoutError(f"KV pull exceeded its {budget * 1000:.0f} ms budget")
+            yield chunk
+
     def engine_snapshot(self) -> dict[str, Any]:
         """``GET /admin/engine``: the state machine and its history, the
         boot timeline, the watchdog (and what a stall on this device leads
@@ -1670,6 +1958,11 @@ class TPUDevice:
             "platform": self.platform,
             "device_kind": str(self.device_kind),
             "versions": runtime_versions(),
+            # the role this replica advertises (the router's tier routing
+            # keys on it) and the cross-replica KV-transfer ledger, both
+            # scraped by the fleet prober onto /admin/fleet
+            "role": self.role,
+            "kv_transfer": self.kv_transfer_snapshot(),
             "boot": dict(self.boot_status),
             "boot_timeline": [dict(stage) for stage in self.boot_timeline],
             "watchdog": watchdog,
@@ -1685,6 +1978,10 @@ class TPUDevice:
                             if self.decode_pool is not None else None),
             "kv_blocks": self.kv_pool.stats() if self.kv_pool is not None else None,
             "scheduler": self.scheduler.snapshot() if self.scheduler is not None else None,
+            # the flash forward's launch counters in this process (every
+            # variant, sm90, decode): another process (a fleet's script, an
+            # operator) reads which kernels a replica's traffic ran
+            "kernel_launches": _kernel_launches(),
         }
         caches: dict[str, Any] = {}
         pstats = getattr(self.runner, "prefix_stats", None)
@@ -1700,6 +1997,10 @@ class TPUDevice:
             hbm = {
                 "bytes_in_use": torch.cuda.memory_allocated(self.device),
                 "bytes_limit": torch.cuda.get_device_properties(self.device).total_memory,
+                # the allocator's high-water marks since the process began:
+                # what one process of a card shared by several has taken
+                "peak_bytes_in_use": torch.cuda.max_memory_allocated(self.device),
+                "peak_bytes_reserved": torch.cuda.max_memory_reserved(self.device),
             }
         snap["hbm"] = hbm
         return snap
@@ -1718,6 +2019,13 @@ class TPUDevice:
             self.engine.transition("closed")
         if self.journal_wal is not None:
             self.journal_wal.close()
+
+
+def _kernel_launches() -> dict:
+    from gofr_tpu_torch.ops import flash
+
+    return {"flash_fwd": flash.launches.value, "flash_fwd_sm90": flash.launches_fwd_sm90.value,
+            "flash_fwd_decode": flash.launches_fwd_decode.value}
 
 
 class _PrefillState(dict):
@@ -2347,6 +2655,7 @@ class _TransformerRunner:
         kv_paged: bool = True,
         kv_block_tokens: int = 64,
         kv_blocks: int = 0,
+        kv_budget_bytes: int = 0,
         kv_reserve_seqs: int = 0,
         draft_name: str = "",
         draft_tokens: int = 4,
@@ -2425,19 +2734,21 @@ class _TransformerRunner:
         self._prefix_lcp_min = prefix_lcp_min if prefix_lcp_min != 0 else self.buckets[0]
         self._prefix_lock = threading.Lock()
         self.prefix_stats = {"hits": 0, "partial_hits": 0, "misses": 0}
-        self._init_paged_kv(kv_paged, kv_block_tokens, kv_blocks, kv_reserve_seqs, prefix_cache,
-                            metrics)
+        self._init_paged_kv(kv_paged, kv_block_tokens, kv_blocks, kv_budget_bytes,
+                            kv_reserve_seqs, prefix_cache, metrics)
 
     def _init_paged_kv(self, kv_paged: bool, block_tokens: int, kv_blocks: int,
-                       reserve_seqs: int, prefix_cache: int, metrics: Any) -> None:
+                       kv_budget_bytes: int, reserve_seqs: int, prefix_cache: int,
+                       metrics: Any) -> None:
         """One shared ``BlockPool`` backs the prefix cache (block-aliased
         entries, LRU-evicted under the budget) and the decode pool's
-        admission ledger. With neither a prefix cache nor an explicit
-        budget there is nothing to page."""
+        admission ledger, of ``KV_BLOCKS`` blocks or of as many as
+        ``KV_HBM_BUDGET_MB`` holds. With neither a prefix cache nor an
+        explicit budget there is nothing to page."""
         self.kv_pool: Optional[BlockPool] = None
         self._paged_prefix: Optional[_PagedPrefixStore] = None
         self.kv_paged_disabled = ""
-        if not kv_paged or not (prefix_cache > 0 or kv_blocks):
+        if not kv_paged or not (prefix_cache > 0 or kv_blocks or kv_budget_bytes):
             return
         cfg = self.cfg
         if cfg.max_seq % block_tokens:
@@ -2452,8 +2763,13 @@ class _TransformerRunner:
         # store's transient table); in-flight decode KV lives in the pool's
         # slot cache and claims the LEDGER only
         data_blocks = (max(prefix_cache, 0) + 1) * blocks_per_seq
-        # auto: every decode slot plus the whole arena (non-binding)
-        ledger = kv_blocks if kv_blocks else data_blocks + reserve_seqs * blocks_per_seq
+        if kv_blocks:
+            ledger = kv_blocks
+        elif kv_budget_bytes:
+            ledger = int(kv_budget_bytes // block_bytes)
+        else:
+            # auto: every decode slot plus the whole arena (non-binding)
+            ledger = data_blocks + reserve_seqs * blocks_per_seq
         if ledger < blocks_per_seq:
             self.kv_paged_disabled = (
                 f"KV budget of {ledger} blocks cannot hold one "
@@ -2463,7 +2779,7 @@ class _TransformerRunner:
         data_blocks = min(data_blocks, ledger)
         self.kv_pool = BlockPool(
             data_blocks + 1, block_tokens,  # +1 scratch
-            block_bytes=block_bytes, hbm_budget_bytes=ledger * block_bytes,
+            block_bytes=block_bytes, hbm_budget_bytes=kv_budget_bytes or ledger * block_bytes,
             cache_entries=prefix_cache, scratch=True, ledger_blocks=ledger, metrics=metrics,
         )
         if prefix_cache > 0:
@@ -3399,6 +3715,21 @@ class _PagedPrefixStore:
             self.pool.cache_put(ids.tobytes(), table, {
                 "length": length, "next_token": state["next_token"], "logits": state["logits"],
             })
+
+    def install_remote(self, ids: np.ndarray, payloads: list, meta: dict) -> bool:
+        """Receiving end of a cross-replica KV transfer: install the
+        verified foreign blocks as a cache entry, so the imminent lookup of
+        the same prompt hits copy-free. The wire checksums and the spec and
+        identity checks already ran (device KV has no semantic read-back).
+        False on local exhaustion."""
+        next_token = meta.get("next_token")
+        with self._lock:
+            return install_foreign_entry(
+                self.pool, self.arena, ids, payloads,
+                {"next_token": int(next_token) if next_token is not None else None,
+                 "logits": None},
+                verify_readback=False, count_copied=True,
+            )
 
     def store_generation(self, full: np.ndarray, row: dict, exactable: bool, out: list) -> None:
         """Conversation store (prompt + reply): alias the whole blocks of

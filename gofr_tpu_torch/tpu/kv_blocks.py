@@ -17,9 +17,15 @@ is the token ids it covers) and :class:`HostPagedKV` (admission with exact
 and LCP aliasing, COW on extension, speculative rollback, the store at
 finish), compile-free.
 
-Not ported here: the tp-sharded host arena and the cross-replica transfer
-side (``ForeignKVRejected``, ``TransferPin``, ``install_foreign_entry``,
-the wire codec).
+The cross-replica transfer side (``fleet/kvwire.py``): ``ForeignKVRejected``,
+:class:`TransferPin` (a TTL-guarded incref for an export in flight),
+:func:`install_foreign_entry` and each arena's codec (``wire_spec``,
+``export_block_payload``, ``ingest_block_payload``). The device arena's
+payload is the JAX package's: the raw k bytes then the v bytes of one block,
+``[layers, block_tokens, heads, dim]``, and its spec names the dtype as
+JAX does (``bfloat16``, ``float32``, ``float8_e4m3fn``), so a port replica
+and a JAX replica exchange blocks. Not ported: the tp-sharded host arena
+(ROADMAP §A7).
 """
 
 from __future__ import annotations
@@ -37,6 +43,13 @@ from gofr_tpu_torch.ops.attention import kv_bits, zeros_kv
 class KVExhausted(RuntimeError):
     """No free KV blocks (and nothing evictable): the caller's request
     cannot be admitted, and decode falls back to the solo path."""
+
+
+class ForeignKVRejected(RuntimeError):
+    """A transferred (cross-replica) KV payload failed SEMANTIC
+    verification on ingest: the wire checksums passed but the content does
+    not describe the prompt being admitted. The receiver falls back to
+    local prefill; nothing was installed."""
 
 
 def blocks_for(tokens: int, block_tokens: int) -> int:
@@ -424,6 +437,100 @@ class BlockPool:
             }
 
 
+class TransferPin:
+    """A bounded-lifetime pin on the blocks of an in-flight cross-replica
+    KV transfer. The export increfs the entry's blocks so eviction cannot
+    free them mid-send, and releases them when the response stream closes;
+    a named daemon timer (``gofr-kv-transfer-pin``) releases them after
+    ``ttl_s`` if nobody did (a serving thread that died mid-send), and the
+    late releaser finds an idempotent no-op. ``expired`` records that the
+    guard fired (the export stops streaming a pin it no longer holds)."""
+
+    def __init__(self, pool: "BlockPool", blocks: list, ttl_s: float = 60.0):
+        self.pool = pool
+        self.blocks = list(blocks)
+        self._lock = threading.Lock()
+        self._released = False
+        self.expired = False
+        with pool.lock:
+            pool.incref(self.blocks)
+        self._timer = threading.Timer(max(ttl_s, 0.001), self._expire)
+        self._timer.name = "gofr-kv-transfer-pin"
+        self._timer.daemon = True
+        self._timer.start()
+
+    def _expire(self) -> None:
+        self.expired = True
+        self.release()
+
+    def release(self) -> None:
+        """Idempotent: the first caller (normal close, abort or the TTL
+        timer) drops the refs; everyone else no-ops."""
+        with self._lock:
+            if self._released:
+                return
+            self._released = True
+        self._timer.cancel()
+        self.pool.release_blocks(self.blocks)
+
+    @property
+    def released(self) -> bool:
+        with self._lock:
+            return self._released
+
+
+def install_foreign_entry(pool: "BlockPool", arena: Any, ids: np.ndarray, payloads: list,
+                          meta_extra: dict, *, verify_readback: bool,
+                          count_copied: bool) -> bool:
+    """The receiving end of a cross-replica KV transfer, shared by the host
+    engine and the device prefix store: reserve blocks, ingest the verified
+    payloads, and publish the result as a cache entry, so the imminent
+    admission of the same prompt aliases it copy-free.
+
+    Returns False when the local pool cannot host it (exhausted: a LOCAL
+    condition, not a transfer failure). Raises :class:`ForeignKVRejected`
+    on a count mismatch or, with ``verify_readback`` (the host token arena,
+    whose payload reads back as the prompt), when the installed blocks read
+    back as another token sequence; either way the reservation is rolled
+    back and the pool is as it was. ``count_copied`` feeds the ingested
+    bytes into the pool's copied-KV accounting."""
+    ids = np.asarray(ids, np.int32).reshape(-1)
+    key = ids.tobytes()
+    need = blocks_for(int(ids.size), pool.block_tokens)
+    if len(payloads) != need:
+        raise ForeignKVRejected(
+            f"{len(payloads)} block payloads for a {ids.size}-token prompt needing {need}"
+        )
+    with pool.lock:
+        if pool.cache_lookup(key) is not None:
+            return True  # already warm locally; nothing to install
+        try:
+            table = pool.reserve(int(ids.size))
+        except KVExhausted:
+            return False
+        table.length = int(ids.size)
+    # ingest OUTSIDE pool.lock: the reservation owns the blocks, and a
+    # device ingest is a real transfer admissions must not wait behind
+    copied = 0
+    try:
+        for j, payload in enumerate(payloads):
+            copied += arena.ingest_block_payload(table, j, payload) or 0
+        if verify_readback and not np.array_equal(arena.read(table), ids):
+            raise ForeignKVRejected(
+                "transferred KV read back as a different token sequence than "
+                "the prompt being admitted"
+            )
+    except Exception:
+        pool.release(table)
+        raise
+    if count_copied:
+        pool.note_copied(copied)
+    entry_meta = {"length": int(ids.size)}
+    entry_meta.update(meta_extra)
+    pool.cache_put(key, table, entry_meta)
+    return True
+
+
 def to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host array on ``device`` without a host sync: on a card the copy
     goes from pinned memory, asynchronously, in stream order."""
@@ -504,6 +611,58 @@ class TorchKVArena:
         row["lengths"] = torch.full((1,), int(length), dtype=torch.int32, device=self.device)
         return row
 
+    # -- cross-replica transfer codec (fleet/kvwire.py) ----------------------
+    @property
+    def _block_shape(self) -> tuple:
+        # one block's k (or v): [layers, block_tokens, heads, dim]
+        s = self.k.shape
+        return (s[0], s[2], s[3], s[4])
+
+    def wire_spec(self) -> dict:
+        """The compatibility fields a transfer peer must match: payload
+        kind, block geometry and dtype, spelled as the JAX arena spells
+        them (``str`` of a numpy dtype: ``bfloat16``, not
+        ``torch.bfloat16``), so port and JAX replicas agree."""
+        return {
+            "kind": "device-kv",
+            "block_tokens": self.block_tokens,
+            "dtype": str(self.k.dtype).removeprefix("torch."),
+            "block_shape": list(self._block_shape),
+        }
+
+    def export_block_payload(self, table: BlockTable, j: int) -> bytes:
+        """Block ``j``'s raw k bytes then v bytes. The device-to-host copy
+        runs on the current stream, so it reads the block after every write
+        queued before it (the prefill's scatter included); ``self.k[:, bid]``
+        is a strided view, made contiguous on the card first."""
+        bid = table.blocks[j]
+        parts = []
+        for arena in (self.k, self.v):
+            block = arena[:, bid].contiguous().view(torch.uint8)
+            parts.append(block.cpu().numpy().tobytes())
+        return parts[0] + parts[1]
+
+    def ingest_block_payload(self, table: BlockTable, j: int, payload: bytes) -> int:
+        """Install transferred k/v bytes into block ``j`` of a private
+        (freshly reserved) table, on the current stream: the pool's next
+        chunk, queued after it, reads the installed block."""
+        shape = self._block_shape
+        half = int(np.prod(shape)) * self.k.element_size()
+        if len(payload) != 2 * half:
+            raise ForeignKVRejected(f"block {j} payload is {len(payload)}B, expected {2 * half}")
+        bid = table.blocks[j]
+        host = torch.frombuffer(bytearray(payload), dtype=torch.uint8)
+        for i, arena in enumerate((self.k, self.v)):
+            dst = arena.view(torch.uint8)[:, bid]
+            dst.copy_(host[i * half:(i + 1) * half].view(dst.shape))
+        return len(payload)
+
+    def read(self, table: BlockTable) -> Any:
+        """Device KV has no semantic read-back (the content is model state,
+        not the prompt): install paths verify the transport's checksums and
+        the spec only."""
+        return None
+
 
 class HostTokenArena:
     """Host block storage for the echo runner: a block's "KV" is the token
@@ -547,6 +706,34 @@ class HostTokenArena:
         self._data[dst_block, :n_tokens] = self._data[src_block, :n_tokens]
         return n_tokens * self.TOKEN_BYTES
 
+    # -- cross-replica transfer codec (fleet/kvwire.py) ----------------------
+    def wire_spec(self) -> dict:
+        """The compatibility fields a transfer peer must match (the JAX
+        arena's, which leaves its local tp shard split out)."""
+        return {"kind": "host-tokens", "block_tokens": self.block_tokens}
+
+    def export_block_payload(self, table: BlockTable, j: int) -> bytes:
+        """Block ``j``'s valid tokens as int32 bytes (the boundary block
+        ships only up to ``table.length``)."""
+        lo = j * self.block_tokens
+        span = min(table.length, lo + self.block_tokens) - lo
+        return np.ascontiguousarray(self._data[table.blocks[j], :span], np.int32).tobytes()
+
+    def ingest_block_payload(self, table: BlockTable, j: int, payload: bytes) -> int:
+        """Install a transferred block payload into block ``j`` of a private
+        (freshly reserved) table. Returns the bytes written."""
+        if len(payload) % self.TOKEN_BYTES:
+            raise ForeignKVRejected(
+                f"block {j} payload is {len(payload)}B, not a whole number of int32 tokens"
+            )
+        ids = np.frombuffer(payload, np.int32)
+        if ids.size == 0 or ids.size > self.block_tokens:
+            raise ForeignKVRejected(
+                f"block {j} carries {ids.size} tokens (block size {self.block_tokens})"
+            )
+        self._data[table.blocks[j], : ids.size] = ids
+        return len(payload)
+
 
 class PagedSequence:
     """One live request's handle on the host engine: its table, the
@@ -563,7 +750,7 @@ class PagedSequence:
 
 class HostPagedKV:
     """The echo runner's paged KV engine (copy of the JAX package's, without
-    the bench's copy mode and the transfer side): block-table prompt
+    the bench's copy mode): block-table prompt
     storage, copy-free prefix aliasing (exact and LCP), COW on extension,
     reserve-at-admission, rollback of rejected speculative tokens, and the
     finished conversation stored as a cache entry."""
@@ -712,3 +899,21 @@ class HostPagedKV:
 
     def abort(self, seq: PagedSequence) -> None:
         self.finish(seq, store=False)
+
+    # -- cross-replica transfer (receiving end) ------------------------------
+    def install_remote(self, ids: np.ndarray, payloads: list, meta: dict) -> bool:
+        """Install a verified transferred entry so the imminent :meth:`admit`
+        of the same prompt aliases it copy-free. Host "KV" is token ids, so
+        the install also reads the blocks back and checks they ARE the
+        prompt: the wire checksums guard the transport, the readback the
+        content."""
+        return install_foreign_entry(
+            self.pool, self.arena, ids, payloads, {},
+            verify_readback=True, count_copied=False,
+        )
+
+    def stats(self) -> dict:
+        out = self.pool.stats()
+        with self._stats_lock:
+            out["prefix"] = dict(self.prefix_stats)
+        return out

@@ -2,8 +2,9 @@
 keys and its list of the reference's unhonored keys partition the JAX
 package's DECLARED_KEYS; each listed key, set in the environment or in
 ``configs/.env``, refuses the boot (naming the key) or warns once; the
-keys of the overload and failure layer are declared, read, and neither
-refuse nor warn (the journal's keys boot); and LOG_LEVEL, HANDLER_THREADS
+keys of the overload and failure layer and of the fleet are declared, read,
+and neither refuse nor warn (the journal's keys boot, and so do
+FLEET_ROLE and KV_HBM_BUDGET_MB); and LOG_LEVEL, HANDLER_THREADS
 and TPU_ENABLED are honored as the JAX container honors them."""
 
 import io
@@ -28,7 +29,7 @@ from gofr_tpu_torch.logging import Level, Logger
 # at least these refuse (ignoring them changes the topology, a durability
 # guarantee or the memory the process takes)
 MUST_REFUSE = {"TPU_MESH", "TPU_TOPOLOGY", "TPU_COORDINATOR", "TPU_NUM_PROCESSES",
-               "TPU_PROCESS_ID", "KV_HBM_BUDGET_MB", "FLEET_ROLE"}
+               "TPU_PROCESS_ID"}
 
 # the keys the overload and failure layer honors: deadlines, priorities and
 # brownout, the timebase and postmortems, the SLO engine, recovery, and the
@@ -44,6 +45,14 @@ FAILURE_KEYS = (
     "RECOVERY_ATTEMPT_TIMEOUT_S", "JOURNAL", "JOURNAL_CAPACITY", "JOURNAL_MAX_TOKENS",
     "JOURNAL_DIR", "JOURNAL_FSYNC", "JOURNAL_SEGMENT_BYTES", "JOURNAL_SEGMENTS",
 )
+
+
+# the keys the fleet honors: the router's, the replica's role, the KV
+# transfer's and the arena's byte budget
+FLEET_KEYS = tuple(sorted(
+    k for k in JAX_KEYS
+    if k.startswith(("FLEET_", "KV_TRANSFER")) or k == "KV_HBM_BUDGET_MB"
+))
 
 
 @pytest.fixture
@@ -68,10 +77,11 @@ def test_the_port_partitions_the_jax_keys():
             "TRACER_HOST", "TRACER_PORT"} <= port_declared
 
 
-@pytest.mark.parametrize("key", FAILURE_KEYS)
+@pytest.mark.parametrize("key", FAILURE_KEYS + FLEET_KEYS)
 def test_a_failure_layer_key_is_declared_and_silent(key, clean_env, tmp_path):
-    """Each key this layer honors is one of the JAX package's, declared,
-    read from the environment, and neither refuses nor warns at boot."""
+    """Each key the failure layer or the fleet honors is one of the JAX
+    package's, declared, read from the environment, and neither refuses nor
+    warns at boot."""
     assert key in JAX_KEYS and key in DECLARED_KEYS and key not in UNHONORED_KEYS
     clean_env.setenv(key, "7")
     config = EnvFileConfig(str(tmp_path))
@@ -129,18 +139,18 @@ def test_a_set_unhonored_key_refuses_or_warns(key, clean_env, tmp_path):
 
 
 def test_the_env_file_counts_and_each_key_warns_once(clean_env, tmp_path):
-    (tmp_path / ".env").write_text("GRPC_PORT=9000\nFLEET_ROUTES=a\n")
-    clean_env.setenv("FLEET_ROUTES", "b")  # in both: one warning
-    clean_env.setenv("FLEET_RETRIES", "")  # empty is unset
+    (tmp_path / ".env").write_text("GRPC_PORT=9000\nBATCH_COHORT=a\n")
+    clean_env.setenv("BATCH_COHORT", "b")  # in both: one warning
+    clean_env.setenv("GOFR_SANITIZE", "")  # empty is unset
     out = io.StringIO()
     saved, sys.stdout = sys.stdout, out
     try:
         check_unhonored(EnvFileConfig(str(tmp_path)), Logger(Level.INFO, terminal=False))
     finally:
         sys.stdout = saved
-    assert [w.split()[0] for w in _warnings(out.getvalue())] == ["GRPC_PORT", "FLEET_ROUTES"]
-    (tmp_path / ".env").write_text("KV_HBM_BUDGET_MB=512\n")
-    with pytest.raises(ValueError, match="KV_HBM_BUDGET_MB"):
+    assert [w.split()[0] for w in _warnings(out.getvalue())] == ["GRPC_PORT", "BATCH_COHORT"]
+    (tmp_path / ".env").write_text("TPU_TOPOLOGY=2x2\n")
+    with pytest.raises(ValueError, match="TPU_TOPOLOGY"):
         gofr_tpu_torch.new(str(tmp_path))
 
 
