@@ -319,6 +319,30 @@ Phases, each fatal on failure (no phase is skipped or caught):
    legs before stub replicas (the remaining deadline across retries, a
    quota shed, a breaker opening and closing) and the drain (readiness 503,
    the in-flight stream completing).
+20. GoFr's transports (last, after phase 19): the port's MiniRedis and
+   MiniMySQL in this process; ``python -m gofr_tpu_torch.examples.sample_cmd``
+   as a process (``hello --name=x`` and an unknown command's exit 1); the
+   ``lora_finetune`` example's ``finetune`` through ``new_cmd`` and
+   ``run_cmd`` in this process (llama3-8b, seeded init, the demo ramp
+   corpus at B=4 S=64, rank 8, 4 steps): each step's loss and ms, the
+   forward, dQ and dK/dV launches (sm90 only), the merge's and the write's
+   seconds, peak memory; the sm90 forward at that shape against its plain
+   version, its bound and SDPA. Then the merged checkpoint (``MODEL_PATH``)
+   behind two example processes in phase 10's configuration without a
+   tokenizer, booted one after the other: A, ``http_server`` with redis and
+   mysql wired; B, ``grpc_server`` with ``BATCH_COHORT=off``. Three prompts
+   at once: A's ``/generate``, A's ``/v1/completions`` and B's
+   ``LLMService/Generate`` stream give equal ids (or part at a near tie, as
+   in phase 19); ``hello.Hello/SayHello`` (stub) and ``HelloService/SayHello``
+   (JSON); A's ``/hello``, ``/redis``, ``/mysql`` (``SELECT 2+2``) and
+   ``/trace`` (through ``get_http_service``); health with redis, sql and the
+   device UP, then redis DOWN after the MiniRedis stops while ``/generate``
+   serves; each process's kernel launches (sm90 and decode, no mma) and
+   prefill dispatches; 1 and 8 concurrent streams of 32 tokens over B's
+   gRPC stream beside A's SSE ``/generate?stream=true`` (TPOT, tokens/s).
+   Without grpcio or protobuf on the machine B serves the ``http_server``
+   example and a line names the package and the legs that did not run.
+   Everything it started is stopped and the merged checkpoint deleted.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.
@@ -2904,21 +2928,13 @@ def lora_serve(torch, flash, card: str, model, paths: dict) -> tuple:
               "lora: the served requests missed the sm90 or decode kernel")
         out["step"] = pool_step_profile(torch, model, pool._lora_model)
         print(f"lora: one pool step of 8 slots {json.dumps(out['step'])} [{card}]", flush=True)
-        # an adapter's own device memory against the shapes' reckoning
-        torch.cuda.synchronize()
-        m0 = torch.cuda.memory_allocated()
-        probe = lora.apply_adapter(model, restore_params(paths["calm"], model.device))
-        torch.cuda.synchronize()
-        added = torch.cuda.memory_allocated() - m0
-        del probe
-        reckoned = LORA_PARAMS * 2
-        out["adapter_bytes"] = {"added": added, "reckoned": reckoned,
-                                "bank_bytes": sum(t.numel() * t.element_size()
-                                                  for t in pool._lora_model.buffers()
-                                                  if t is not model.freqs)}
-        print(f"lora: loading an adapter added {added / 1e6:.2f} MB of device memory, "
-              f"reckoned {reckoned / 1e6:.2f} MB (rank {LORA_RANK}, eight keys); the bank "
-              f"{out['adapter_bytes']['bank_bytes'] / 1e6:.2f} MB", flush=True)
+        # an adapter's own device memory against the shapes' reckoning, both
+        # allocator readings with the pool quiesced: no slot active (so no
+        # chunk in flight), the batcher's queue empty, the card drained
+        out["adapter_bytes"] = adapter_bytes(
+            torch, dev, pool, model, lora,
+            lambda: restore_params(paths["calm"], model.device))
+        added, reckoned = out["adapter_bytes"]["added"], out["adapter_bytes"]["reckoned"]
         check(reckoned <= added <= reckoned + (1 << 20), "lora: an adapter is not its own bytes")
         out.update(lora_admin(torch, dev, port, paths, prompts))
         # echo + logprobs scoring under calm, and the base's, for the merged check
@@ -2936,6 +2952,50 @@ def lora_serve(torch, flash, card: str, model, paths: dict) -> tuple:
     finally:
         app.shutdown()
     return out, keep
+
+
+def adapter_bytes(torch, dev, pool, model, lora, load) -> dict:
+    """An adapter's device bytes: the allocator's reading across its load
+    onto the card (``load()``) and ``apply_adapter``, taken with the pool
+    and the batcher idle, beside the adapter's own tensor bytes (the storages its A, B and
+    scale tensors hold: A and B are ``reckoned`` exactly) and the
+    allocation count's change, so a reading past them names another
+    allocation, not the adapter."""
+    pool_idle(pool, "lora adapter bytes")
+    for _ in range(200):
+        if dev.batcher._depth() == 0:
+            break
+        time.sleep(0.05)
+    check(dev.batcher._depth() == 0, "lora adapter bytes: the batcher never drained")
+    torch.cuda.synchronize()
+    stats0 = torch.cuda.memory_stats()
+    probe = lora.apply_adapter(model, load())
+    torch.cuda.synchronize()
+    stats1 = torch.cuda.memory_stats()
+    storages: dict = {}
+    for _, _, w in lora.wrapped_weights(probe):
+        for name, t in (("ab", w.lora_a), ("ab", w.lora_b), ("scale", w.lora_scale)):
+            st = t.untyped_storage()
+            storages[st.data_ptr()] = (name, st.nbytes())
+    del probe
+    own = {k: sum(n for kind, n in storages.values() if kind == k) for k in ("ab", "scale")}
+    out = {
+        "added": stats1["allocated_bytes.all.current"] - stats0["allocated_bytes.all.current"],
+        "reckoned": LORA_PARAMS * 2, "own_ab_bytes": own["ab"], "own_scale_bytes": own["scale"],
+        "storages": len(storages),
+        "allocations": stats1["allocation.all.current"] - stats0["allocation.all.current"],
+        "bank_bytes": sum(t.numel() * t.element_size() for t in pool._lora_model.buffers()
+                          if t is not model.freqs),
+    }
+    out["unexplained"] = out["added"] - own["ab"] - own["scale"]
+    print(f"lora: loading an adapter added {out['added'] / 1e6:.2f} MB of device memory "
+          f"(pool and batcher idle), reckoned {out['reckoned'] / 1e6:.2f} MB (rank {LORA_RANK}, "
+          f"eight keys); its own A and B {own['ab']} B, scales {own['scale']} B in "
+          f"{len(storages)} storages, {out['allocations']} allocations, {out['unexplained']} B "
+          f"besides; the bank {out['bank_bytes'] / 1e6:.2f} MB", flush=True)
+    check(own["ab"] == out["reckoned"], f"lora: the adapter's A and B hold {own['ab']} B, "
+          f"not the reckoned {out['reckoned']}")
+    return out
 
 
 def lora_admin(torch, dev, port: int, paths: dict, prompts: list) -> dict:
@@ -5649,8 +5709,460 @@ def fleet_drain(app, reference: dict) -> dict:
     return out
 
 
+# -- phase 20: GoFr's transports on the card ------------------------------------------
+
+# three prompts in three prefill buckets (64, 256, 512 of phase 10's ladder):
+# sent together, cohorts split them and FIFO pads them into one batch
+TRANSPORT_LENGTHS = (24, 150, 400)
+TRANSPORT_TOKENS = 32
+TRANSPORT_COST_LENGTH = 150  # the 1- and 8-stream legs' prompts, in bytes
+# the fine-tune: the lora_finetune example's CLI at llama3-8b, its demo
+# corpus (B=4 crops of 65 ids: the model sees S=64) and seeded init
+FINETUNE_ARGV = ("finetune", "--model=llama3-8b", "--steps=4", "--rank=8")
+
+
+def _counters(flash) -> dict:
+    """The kernel counters of this process: every variant of each kernel."""
+    return {"fwd": flash.launches.value, "fwd_sm90": flash.launches_fwd_sm90.value,
+            "fwd_decode": flash.launches_fwd_decode.value, "dq": flash.launches_dq.value,
+            "dq_sm90": flash.launches_dq_sm90.value, "dkv": flash.launches_dkv.value,
+            "dkv_sm90": flash.launches_dkv_sm90.value}
+
+
+def _example_process(name: str, module: str, env: dict, workdir: str) -> dict:
+    """``python -m gofr_tpu_torch.examples.<module>`` under ``env``, its
+    output in a log file."""
+    log = open(os.path.join(workdir, f"{name}.log"), "ab")
+    proc = subprocess.Popen([sys.executable, "-m", f"gofr_tpu_torch.examples.{module}"],
+                            env=env, cwd=workdir, stdout=log, stderr=log)
+    return {"name": name, "proc": proc, "log": log,
+            "address": f"http://127.0.0.1:{env['HTTP_PORT']}", "port": int(env["HTTP_PORT"])}
+
+
+def _example_ready(server: dict, timeout_s: float = 600.0) -> float:
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout_s:
+        check(server["proc"].poll() is None, f"transports: {server['name']} exited "
+              f"({server['proc'].returncode}): {_example_tail(server)}")
+        try:
+            status, _ = get_body(server["address"], "/.well-known/ready", timeout=5)
+            if status == 200:
+                return time.perf_counter() - t0
+        except OSError:
+            pass
+        time.sleep(0.2)
+    check(False, f"transports: {server['name']} never became ready: {_example_tail(server)}")
+
+
+def _example_tail(server: dict) -> str:
+    server["log"].flush()
+    with open(server["log"].name, "rb") as f:
+        return f.read()[-3000:].decode("utf-8", "replace")
+
+
+def _example_stop(server: dict) -> None:
+    proc = server["proc"]
+    if proc.poll() is None:
+        proc.terminate()  # SIGTERM: the app's own shutdown
+        try:
+            proc.wait(60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(30)
+    server["log"].close()
+
+
+def _sse_generate(port: int, prompt: list) -> dict:
+    """One ``POST /generate?stream=true`` of the http example: its ids and
+    each token frame's time from the send."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.perf_counter()
+    conn.request("POST", "/generate?stream=true",
+                 json.dumps({"tokens": prompt, "max_new_tokens": TRANSPORT_TOKENS}),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    ids, times, buf, error = [], [], b"", None
+    while True:
+        chunk = resp.read1(65536)
+        if not chunk:
+            break
+        buf += chunk
+        while b"\n\n" in buf:
+            frame, buf = buf.split(b"\n\n", 1)
+            for line in frame.split(b"\n"):
+                if not line.startswith(b"data: ") or line[6:] == b"[DONE]":
+                    continue
+                event = json.loads(line[6:])
+                if "token" in event:
+                    ids.append(event["token"])
+                    times.append(time.perf_counter() - t0)
+                error = event.get("error", error)
+    conn.close()
+    check(resp.status == 200 and error is None, f"transports SSE: {resp.status} {error}")
+    return {"ids": ids, "times": times, "start": t0}
+
+
+def _grpc_generate(grpc_port: int, prompt: list) -> dict:
+    """One ``LLMService/Generate`` server stream of the grpc example: its
+    ids and each message's time from the call."""
+    import grpc
+
+    with grpc.insecure_channel(f"127.0.0.1:{grpc_port}") as channel:
+        call = channel.unary_stream("/LLMService/Generate")
+        t0 = time.perf_counter()
+        ids, times = [], []
+        for message in call(json.dumps({"tokens": prompt, "max_new_tokens": TRANSPORT_TOKENS})
+                            .encode(), timeout=600):
+            event = json.loads(message)
+            if "token" in event:
+                ids.append(event["token"])
+                times.append(time.perf_counter() - t0)
+    return {"ids": ids, "times": times, "start": t0}
+
+
+def _streams(fn, target, prompts: list) -> tuple:
+    """``fn(target, prompt)`` for each prompt at once -> (the results in
+    order, aggregate decode tokens/s as ``stream_rate`` reckons it, mean
+    TPOT ms)."""
+    results: list = [None] * len(prompts)
+
+    def one(i: int) -> None:
+        results[i] = fn(target, prompts[i])
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    check(all(r is not None and len(r["times"]) >= 2 for r in results),
+          "transports: a stream gave fewer than 2 tokens")
+    firsts = [r["start"] + r["times"][0] for r in results]
+    lasts = [r["start"] + r["times"][-1] for r in results]
+    tpots = [(r["times"][-1] - r["times"][0]) / (len(r["times"]) - 1) * 1e3 for r in results]
+    tokens = sum(len(r["times"]) - 1 for r in results)
+    return results, tokens / (max(lasts) - min(firsts)), sum(tpots) / len(tpots)
+
+
+def _sample_cmd(base_env: dict, workdir: str) -> dict:
+    """The CLI example as its own process: a known command's stdout and
+    exit 0, an unknown one's exit 1 and message."""
+    def run(*args):
+        return subprocess.run([sys.executable, "-m", "gofr_tpu_torch.examples.sample_cmd", *args],
+                              env=base_env, cwd=workdir, capture_output=True, text=True,
+                              timeout=120)
+
+    ok, missing = run("hello", "--name=x"), run("nope")
+    check(ok.returncode == 0 and ok.stdout == "Hello x!\n",
+          f"transports CLI: {ok.returncode} {ok.stdout!r} {ok.stderr[-500:]}")
+    check(missing.returncode == 1 and "No Command Found!" in missing.stderr,
+          f"transports CLI: an unknown command gave {missing.returncode} {missing.stderr!r}")
+    print("transports: sample_cmd 'hello --name=x' -> 'Hello x!' exit 0; 'nope' -> "
+          "'No Command Found!' exit 1", flush=True)
+    return {"hello": ok.stdout.strip(), "unknown_exit": missing.returncode}
+
+
+def _finetune(torch, flash, card: str, merged: str) -> dict:
+    """The lora_finetune example's ``finetune`` through ``new_cmd`` and
+    ``run_cmd`` in this process (its counters readable here): the steps'
+    losses and ms, the kernels' launches, the merge and the write."""
+    from gofr_tpu_torch.cmd import run_cmd
+    from gofr_tpu_torch.examples import lora_finetune
+    from gofr_tpu_torch.testutil import stdout_output_for
+
+    out: dict = {}
+    with environment({"TORCH_DEVICE": "cuda", "LOG_LEVEL": "INFO", "TIMEBASE_ENABLED": "off",
+                      "SLO": "off"}):
+        app = lora_finetune.build()
+        check(app.container.tpu is None, "transports: the CLI app booted a device")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = _counters(flash)
+        t0 = time.perf_counter()
+        codes: list = []
+        text_out = stdout_output_for(
+            lambda: codes.append(run_cmd(app, [*FINETUNE_ARGV, f"--out={merged}"])))
+        out["cli_s"] = time.perf_counter() - t0
+        after = _counters(flash)
+        out["peak_gib"] = round(torch.cuda.max_memory_allocated() / 2**30, 2)
+        app.container.close()
+    check(codes == [0], f"transports fine-tune: exit {codes}: {text_out[-2000:]}")
+    steps = []
+    for line in text_out.splitlines():
+        if line.startswith("{"):
+            msg = json.loads(line)["message"]
+            if isinstance(msg, str) and msg.startswith("step "):
+                parts = msg.split()
+                steps.append({"loss": float(parts[3]), "ms": float(parts[4].strip("("))})
+    result = next(line for line in text_out.splitlines() if line.startswith("trained "))
+    check(len(steps) == 4 and all(s["loss"] == s["loss"] for s in steps),
+          f"transports fine-tune: steps {steps}")
+    out["steps"] = steps
+    out["merge_s"] = float(result.split("merged in ")[1].split(" s")[0])
+    out["write_s"] = float(result.split("written in ")[1].split(" s")[0])
+    d = {k: after[k] - before[k] for k in after}
+    out["launches"] = {"fwd_sm90": d["fwd_sm90"], "dq_sm90": d["dq_sm90"],
+                       "dkv_sm90": d["dkv_sm90"], "fwd_decode": d["fwd_decode"],
+                       "mma": (d["fwd"] - d["fwd_sm90"] - d["fwd_decode"]) + (d["dq"] - d["dq_sm90"])
+                       + (d["dkv"] - d["dkv_sm90"])}
+    check(out["launches"]["fwd_sm90"] > 0 and out["launches"]["dq_sm90"] > 0
+          and out["launches"]["dkv_sm90"] > 0 and out["launches"]["mma"] == 0
+          and out["launches"]["fwd_decode"] == 0,
+          f"transports fine-tune: launches {out['launches']}")
+    size = sum(os.path.getsize(os.path.join(dp, f)) for dp, _, fs in os.walk(merged) for f in fs)
+    out["checkpoint_gb"] = round(size / 1e9, 3)
+    print(f"transports: CLI fine-tune {' '.join(FINETUNE_ARGV[1:])} (B=4 S=64): loss "
+          f"{steps[0]['loss']:.4f} -> "
+          f"{steps[-1]['loss']:.4f}, step ms {[s['ms'] for s in steps]}, launches "
+          f"{json.dumps(out['launches'])}, merge {out['merge_s']:.2f}s, write "
+          f"{out['checkpoint_gb']} GB in {out['write_s']:.2f}s, peak {out['peak_gib']} GiB "
+          f"[{card}]", flush=True)
+    return out
+
+
+def _finetune_kernel(torch, flash, gen) -> dict:
+    """The three kernels at the fine-tune's attention (B=4 Sq=Skv=64 Hq=32
+    Hkv=8 D=128 bf16 causal) against their plain versions: the sm90
+    forward, timed beside its bound and SDPA (device times: a short
+    kernel), and the sm90 dQ and dK/dV."""
+    bf16 = torch.bfloat16
+    case = make_case(torch, gen, 4, 64, 64, 32, 8, 128, bf16, [0] * 4, [64] * 4)
+    check(flash.fwd_variant(case[0], case[1]) == "sm90", "transports: B=4 S=64 is not sm90")
+    _, _, err = compare(torch, flash, "fine-tune B=4 S=64", case)
+    row = time_shape(torch, flash, "fine-tune B=4 S=64", case, 200, is_causal=True, device=True)
+    e_dq, e_dkv, _, variant = compare_bwd(
+        torch, flash, "fine-tune B=4 S=64",
+        bwd_case(torch, flash, gen, 4, 64, 64, 32, 8, 128, bf16, [0] * 4, [64] * 4))
+    check(variant == "sm90", f"transports: the backward at B=4 S=64 ran {variant}, not sm90")
+    return {**row, "max_abs_err": err, "dq_max_abs_err": e_dq, "dkv_max_abs_err": e_dkv}
+
+
+def transports(torch, flash, card: str, gen) -> dict:
+    """Phase 20: GoFr's transports on the card. The port's MiniRedis and
+    MiniMySQL in this process; the sample_cmd example as a process; the
+    lora_finetune example's CLI fine-tune of llama3-8b in this process;
+    then its merged checkpoint behind the http_server example (A, redis and
+    mysql wired) and the grpc_server example (B, BATCH_COHORT=off), each
+    its own process on the card: equal greedy ids through A's /generate and
+    /v1/completions and B's LLMService/Generate, both Hello forms, the
+    example routes, health with redis UP then DOWN, each process's kernel
+    launches, and TPOT over gRPC beside SSE at 1 and 8 streams."""
+    from gofr_tpu_torch.config import DECLARED_KEYS, UNHONORED_KEYS
+    from gofr_tpu_torch.datasource.minimysql import MiniMySQL
+    from gofr_tpu_torch.datasource.miniredis import MiniRedis
+    from gofr_tpu_torch.datasource.redis import new_client
+    from gofr_tpu_torch.tokenizer import Tokenizer
+
+    t0 = time.perf_counter()
+    out: dict = {"card": card}
+    try:
+        import google.protobuf  # noqa: F401
+        import grpc  # noqa: F401
+
+        missing = None
+    except ImportError as exc:
+        missing = exc.name
+    out["grpc_missing"] = missing
+    workdir = tempfile.mkdtemp(prefix="gofr_transports_")
+    merged = os.path.join(workdir, "merged")
+    here = os.path.dirname(os.path.abspath(__file__))
+    base_env = {k: v for k, v in os.environ.items()
+                if k not in DECLARED_KEYS and k not in UNHONORED_KEYS}
+    base_env["PYTHONPATH"] = os.pathsep.join([here, os.environ.get("PYTHONPATH", "")])
+    redis = MiniRedis().run()
+    mysql = MiniMySQL(user="gofr", password="phase20")
+    seed = new_client("127.0.0.1", redis.port)
+    seed.set("test", "phase 20")
+    seed.close()
+    servers: dict = {}
+    try:
+        out["cli"] = _sample_cmd(base_env, workdir)
+        out["finetune"] = _finetune(torch, flash, card, merged)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["script_gib_after_finetune"] = round(torch.cuda.memory_allocated() / 2**30, 3)
+        check(out["script_gib_after_finetune"] < 1.0,
+              f"transports: the trained model still holds {out['script_gib_after_finetune']} GiB")
+        out["finetune_kernel"] = _finetune_kernel(torch, flash, gen)
+        # no tokenizer: the prompts are id lists, and /v1/completions then
+        # answers with its ids (phase 19's id-only deployment)
+        serve_env = {**base_env, **{k: v for k, v in PHASE10_ENV.items() if k != "TOKENIZER"},
+                     "MODEL_PATH": merged, "LOG_LEVEL": "ERROR", "TIMEBASE_ENABLED": "off"}
+        a_env = {**serve_env, "HTTP_PORT": str(free_port()), "REDIS_HOST": "127.0.0.1",
+                 "REDIS_PORT": str(redis.port), "DB_DIALECT": "mysql", "DB_HOST": "127.0.0.1",
+                 "DB_PORT": str(mysql.port), "DB_USER": "gofr", "DB_PASSWORD": "phase20",
+                 "DB_NAME": "phase20"}
+        grpc_port = free_port()
+        b_env = {**serve_env, "HTTP_PORT": str(free_port()), "GRPC_PORT": str(grpc_port),
+                 "BATCH_COHORT": "off"}
+        # one after the other: a boot holds an empty model and the restored
+        # state dict at once
+        servers["A"] = _example_process("A", "http_server", a_env, workdir)
+        out["boot_s"] = {"A": _example_ready(servers["A"])}
+        servers["B"] = _example_process("B", "grpc_server" if missing is None else "http_server",
+                                        b_env, workdir)
+        out["boot_s"]["B"] = _example_ready(servers["B"])
+        print(f"transports: A (http_server, cohorts) ready in {out['boot_s']['A']:.1f}s, B "
+              f"({'grpc_server' if missing is None else 'http_server'}, BATCH_COHORT=off) in "
+              f"{out['boot_s']['B']:.1f}s, from the merged checkpoint", flush=True)
+        if missing is not None:
+            print(f"transports: {missing} is not installed on this machine: B serves the "
+                  f"http_server example instead; the gRPC legs (LLMService/Generate, "
+                  f"HelloService both ways, TPOT over gRPC) did not run", flush=True)
+        a, b = servers["A"], servers["B"]
+        engines0 = {n: get_body(s["address"], "/admin/engine")[1] for n, s in servers.items()}
+        tok = Tokenizer.byte_level()
+        prompts = [list(tok.encode(text(2000 + i, n))) for i, n in enumerate(TRANSPORT_LENGTHS)]
+        # greedy ids: A's /generate, A's /v1/completions, B's gRPC stream
+        gen_a = [None] * 3
+        threads = [threading.Thread(target=lambda i=i: gen_a.__setitem__(i, post(
+            a["port"], {"tokens": prompts[i], "max_new_tokens": TRANSPORT_TOKENS},
+            path="/generate"))) for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        ids_a = []
+        for status, data, _, _ in gen_a:
+            check(status == 200, f"transports A /generate: {status} {data}")
+            ids_a.append(data["data"]["tokens"])
+        completions = []
+        for p in prompts:
+            status, data, _, _ = post(a["port"], {"prompt": p, "max_tokens": TRANSPORT_TOKENS,
+                                                  "temperature": 0})
+            check(status == 200, f"transports A /v1/completions: {status}")
+            completions.append(data["choices"][0]["tokens"])
+        check(completions == ids_a, "transports: A's /v1/completions ids are not its /generate's")
+        if missing is None:
+            ids_b = [r["ids"] for r in _streams(_grpc_generate, grpc_port, prompts)[0]]
+        else:
+            ids_b = [r["ids"] for r in _streams(_sse_generate, b["port"], prompts)[0]]
+        out["ids"] = {"A": ids_a, "B": ids_b, "parted": [
+            fleet_divergence(a["address"], p, wa, wb, f"transports ids {i}")
+            for i, (p, wa, wb) in enumerate(zip(prompts, ids_a, ids_b))]}
+        equal = sum(wa == wb for wa, wb in zip(ids_a, ids_b))
+        print(f"transports: greedy ids of 3 prompts ({', '.join(map(str, TRANSPORT_LENGTHS))} "
+              f"bytes, {TRANSPORT_TOKENS} tokens): A /generate = A /v1/completions; "
+              f"A = B {'(gRPC)' if missing is None else '(SSE)'}: {equal} of 3 equal", flush=True)
+        if missing is None:
+            out["hello"] = _hello_both_ways(grpc_port)
+        out["routes"] = _example_routes(a)
+        out["health"] = _health_walk(a, redis, prompts[0])
+        engines = {n: get_body(s["address"], "/admin/engine")[1] for n, s in servers.items()}
+        out["launches"], out["dispatches"] = {}, {}
+        for n in servers:
+            k1, k0 = engines[n]["kernel_launches"], engines0[n]["kernel_launches"]
+            launches = {"sm90": k1["flash_fwd_sm90"], "decode": k1["flash_fwd_decode"],
+                        "mma": k1["flash_fwd"] - k1["flash_fwd_sm90"] - k1["flash_fwd_decode"],
+                        "sm90_traffic": k1["flash_fwd_sm90"] - k0["flash_fwd_sm90"],
+                        "decode_traffic": k1["flash_fwd_decode"] - k0["flash_fwd_decode"]}
+            check(launches["sm90_traffic"] > 0 and launches["decode_traffic"] > 0
+                  and launches["mma"] == 0, f"transports {n}: launches {launches}")
+            out["launches"][n] = launches
+            out["dispatches"][n] = {
+                "prefill": engines[n]["dispatches"]["by_kind"].get("prefill", 0)
+                - engines0[n]["dispatches"]["by_kind"].get("prefill", 0),
+                "by_kind": engines[n]["dispatches"]["by_kind"]}
+        print(f"transports: launches a process (boot's warm-up included; the traffic's "
+              f"beside) {json.dumps(out['launches'])}; prefill dispatches of the traffic "
+              f"A (cohorts) {out['dispatches']['A']['prefill']}, B (FIFO) "
+              f"{out['dispatches']['B']['prefill']}", flush=True)
+        out["cost"] = _transport_cost(a, b, grpc_port, missing, card)
+    finally:
+        for s in servers.values():
+            _example_stop(s)
+        redis.close()
+        mysql.close()
+        shutil.rmtree(workdir, ignore_errors=True)
+    check(not os.path.exists(merged), "transports: the merged checkpoint is still there")
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"transports-metrics [{card}]: {json.dumps(out)}", flush=True)
+    return out
+
+
+def _hello_both_ways(grpc_port: int) -> dict:
+    import grpc
+
+    from gofr_tpu_torch.examples.pb import hello_pb2, hello_pb2_grpc
+
+    with grpc.insecure_channel(f"127.0.0.1:{grpc_port}") as channel:
+        stub = hello_pb2_grpc.HelloStub(channel).SayHello(hello_pb2.HelloRequest(name="H100"),
+                                                          timeout=30).message
+        as_json = json.loads(channel.unary_unary("/HelloService/SayHello")(
+            b'{"name": "H100"}', timeout=30))
+    check(stub == "Hello H100!" and as_json == {"data": "Hello H100!"},
+          f"transports Hello: {stub!r} {as_json}")
+    print(f"transports: hello.Hello/SayHello (stub) {stub!r}; HelloService/SayHello (JSON) "
+          f"{as_json}", flush=True)
+    return {"stub": stub, "json": as_json}
+
+
+def _example_routes(a: dict) -> dict:
+    """The http example's own routes: hello, redis, mysql (SELECT 2+2),
+    trace (through get_http_service("anotherService"), this same app)."""
+    got = {path: get_body(a["address"], path) for path in ("/hello", "/redis", "/mysql",
+                                                            "/trace")}
+    want = {"/hello": "Hello World!", "/redis": "phase 20", "/mysql": 4, "/trace": "ok"}
+    check(all(got[p] == (200, want[p]) for p in want), f"transports routes: {got}")
+    print(f"transports: A's routes {json.dumps({p: v[1] for p, v in got.items()})}", flush=True)
+    return {p: v[1] for p, v in got.items()}
+
+
+def _health_walk(a: dict, redis, prompt: list) -> dict:
+    """Health lists redis, sql and the device UP; after the MiniRedis
+    stops, redis is DOWN (and so is the whole) while /generate serves."""
+    status, body = get_body(a["address"], "/.well-known/health")
+    up = {k: v["status"] for k, v in body["details"].items()}
+    check(status == 200 and body["status"] == "UP"
+          and up == {"redis": "UP", "sql": "UP", "tpu": "UP"}, f"transports health: {body}")
+    redis.close()
+    t = time.perf_counter()
+    while True:
+        _, body = get_body(a["address"], "/.well-known/health")
+        if body["details"]["redis"]["status"] == "DOWN" or time.perf_counter() - t > 10:
+            break
+        time.sleep(0.05)
+    down_s = time.perf_counter() - t
+    after = {k: v["status"] for k, v in body["details"].items()}
+    check(body["status"] == "DOWN" and after == {"redis": "DOWN", "sql": "UP", "tpu": "UP"},
+          f"transports health after the redis stop: {body}")
+    status, data, _, _ = post(a["port"], {"tokens": prompt, "max_new_tokens": 8},
+                              path="/generate")
+    check(status == 200 and len(data["data"]["tokens"]) > 0,
+          f"transports: /generate after the redis stop: {status}")
+    print(f"transports: health {up} -> {after} {down_s * 1000:.1f} ms after MiniRedis stopped; "
+          f"/generate still 200", flush=True)
+    return {"up": up, "down": after, "down_after_ms": down_s * 1000}
+
+
+def _transport_cost(a: dict, b: dict, grpc_port: int, missing, card: str) -> dict:
+    """1 and 8 concurrent streams of TRANSPORT_TOKENS greedy tokens over
+    B's gRPC stream beside A's SSE /generate?stream=true, one after the
+    other: TPOT and aggregate tokens/s."""
+    from gofr_tpu_torch.tokenizer import Tokenizer
+
+    out: dict = {}
+    for n in (1, 8):
+        ps = [list(Tokenizer.byte_level().encode(text(3000 + 10 * n + i, TRANSPORT_COST_LENGTH)))
+              for i in range(n)]
+        row = {}
+        _, rate, tpot = _streams(_sse_generate, a["port"], ps)
+        row["sse"] = {"tokens_per_s": rate, "tpot_ms": tpot}
+        if missing is None:
+            _, rate, tpot = _streams(_grpc_generate, grpc_port, ps)
+            row["grpc"] = {"tokens_per_s": rate, "tpot_ms": tpot}
+        out[n] = row
+        grpc_part = (f"gRPC {row['grpc']['tokens_per_s']:.2f} tokens/s TPOT "
+                     f"{row['grpc']['tpot_ms']:.2f} ms" if missing is None
+                     else f"gRPC not run ({missing} missing)")
+        print(f"transports: {n} stream(s) of {TRANSPORT_TOKENS}: SSE "
+              f"{row['sse']['tokens_per_s']:.2f} tokens/s TPOT {row['sse']['tpot_ms']:.2f} ms; "
+              f"{grpc_part} [{card}]", flush=True)
+    return out
+
+
 def kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows, default,
-                 pool_row, openai, deploy, spec, loras, overload_run, fleet_run) -> dict:
+                 pool_row, openai, deploy, spec, loras, overload_run, fleet_run,
+                 transports_run) -> dict:
     """The kernels of the main path (serving, training) with their counts
     from its runs and the numbers phases 3, 7 and 10 measured. The mma
     forward is on the tiny f32 model's path (phases 4 and 8) alone; its
@@ -5682,9 +6194,20 @@ def kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows,
     under ``overload_launches``. Phase 19's (the fleet) launches, read off
     the two replica processes' ``/admin/engine`` counters over its pull leg
     (the donors' and the local runs' prefills, both replicas' pooled
-    decode), join the same rows under ``fleet_launches``."""
+    decode), join the same rows under ``fleet_launches``. Phase 20's (GoFr's
+    transports): the CLI fine-tune's dQ and dK/dV calls (read in this
+    process) and the two example servers' prefill and pooled decode (each
+    process's ``/admin/engine`` counters from its start, the boot's warm-up
+    included) join the rows under ``transports_launches``; the fine-tune's
+    forward calls stand on the entry of its own shape alone, and its dQ and
+    dK/dV errors at that shape join those rows' ``max_abs_err``."""
     over = overload_run["launches"]
     fleet_l = fleet_run["pull"]["launches"]
+    ft = transports_run["finetune"]["launches"]
+    served_l = transports_run["launches"]
+    tr_sm90 = {n: v["sm90"] for n, v in served_l.items()}
+    ft_errs = transports_run["finetune_kernel"]
+    tr_decode = {n: v["decode"] for n, v in served_l.items()}
     fwd = {"route": "cuda", "source": "gofr_tpu_torch/csrc/flash_fwd.cu",
            "replaces": "gofr_tpu/ops/flash.py:224"}
     bwd = {"route": "cuda", "source": "gofr_tpu_torch/csrc/flash_bwd.cu"}
@@ -5699,19 +6222,24 @@ def kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows,
     return {"kernels": [
         {"name": "flash_fwd_sm90", **fwd,
          "launches": served["sm90"] + sm90_train + lora_train["fwd_sm90"] + lora_served["sm90"]
-         + over["sm90"] + fleet_l["sm90"],
+         + over["sm90"] + fleet_l["sm90"] + sum(tr_sm90.values()),
          "serve_launches": served["sm90"], "training_launches": sm90_train,
          "overload_launches": over["sm90"], "fleet_launches": fleet_l["sm90"],
+         "transports_launches": tr_sm90,
          "lora_launches": {"train": lora_train["fwd_sm90"], "served": lora_served["sm90"]},
          "max_abs_err": max(errs["sm90"]), **shapes["training_forward"],
          "by_shape": {k: v for k, v in shapes.items() if v["variant"] == "sm90"}},
+        {"name": "flash_fwd_sm90 (fine-tune, B=4 S=64, phase 20)", **fwd,
+         "launches": ft["fwd_sm90"], **device_row(transports_run["finetune_kernel"])},
         {"name": "flash_fwd_decode", **fwd, "launches": served["decode"] + lora_served["decode"],
          "lora_launches": {"served": lora_served["decode"]},
          "max_abs_err": max(errs["decode"]), **decode_row,
          "by_shape": {k: v for k, v in shapes.items() if v["variant"] == "decode"}},
         {"name": "flash_fwd_decode (pool, 8 slots)", **fwd,
-         "launches": default["decode"] + over["decode"] + fleet_l["decode"],
+         "launches": default["decode"] + over["decode"] + fleet_l["decode"]
+         + sum(tr_decode.values()),
          "overload_launches": over["decode"], "fleet_launches": fleet_l["decode"],
+         "transports_launches": tr_decode,
          "launches_per_chunk": default["per_chunk"], "max_abs_err": pool_row["max_abs_err"],
          **pool_row, "ms": pool_row["device_ms"], "event_ms": pool_row["ms"],
          "library_ms": pool_row["library_device_ms"], "library_event_ms": pool_row["library_ms"]},
@@ -5742,14 +6270,19 @@ def kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows,
         {"name": "flash_fwd_mma", **fwd, "launches": tiny, "path": "tiny f32 model (phases 4, 8)",
          "max_abs_err": max(errs["mma"]), **shapes["prefill_f32"]},
         {"name": "flash_bwd_dq", **bwd, "replaces": "gofr_tpu/ops/flash.py:477",
-         "launches": train["launches"][4] + lora_train["dq_sm90"],
-         "lora_launches": {"train": lora_train["dq_sm90"]}, "max_abs_err": max(dq_errs["sm90"]),
+         "launches": train["launches"][4] + lora_train["dq_sm90"] + ft["dq_sm90"],
+         "lora_launches": {"train": lora_train["dq_sm90"]},
+         "transports_launches": {"finetune": ft["dq_sm90"]},
+         "max_abs_err": max(dq_errs["sm90"] + [ft_errs["dq_max_abs_err"]]),
+         "transports_max_abs_err": ft_errs["dq_max_abs_err"],
          "mma_max_abs_err": max(dq_errs["mma"]),
          "shape": "B=1 S=2048 Hq=32 Hkv=8 D=128 bf16 causal", **bwd_rows["dq"]},
         {"name": "flash_bwd_dkv", **bwd, "replaces": "gofr_tpu/ops/flash.py:521",
-         "launches": train["launches"][5] + lora_train["dkv_sm90"],
+         "launches": train["launches"][5] + lora_train["dkv_sm90"] + ft["dkv_sm90"],
          "lora_launches": {"train": lora_train["dkv_sm90"]},
-         "max_abs_err": max(dkv_errs["sm90"]),
+         "transports_launches": {"finetune": ft["dkv_sm90"]},
+         "max_abs_err": max(dkv_errs["sm90"] + [ft_errs["dkv_max_abs_err"]]),
+         "transports_max_abs_err": ft_errs["dkv_max_abs_err"],
          "mma_max_abs_err": max(dkv_errs["mma"]),
          "shape": "B=1 S=2048 Hq=32 Hkv=8 D=128 bf16 causal", **bwd_rows["dkv"]},
     ]}
@@ -6068,10 +6601,13 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     check(not os.path.exists(ckpt), "fleet: the checkpoint directory is still there")
+    gc.collect()
+    torch.cuda.empty_cache()
+    transports_run = transports(torch, flash, card, gen)
 
     kernels = kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows,
                            default, pool_row, openai, deploy, spec, loras, overload_run,
-                           fleet_run)
+                           fleet_run, transports_run)
     kernels["kernels"].insert(-2, encoder_entry(encoder_err, encoder_rows, encoders))
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)  # name, power limit as nvidia-smi gives them

@@ -10,18 +10,19 @@ forward kernel (``csrc/flash_fwd.cu``). It trains them
 dK/dV kernels (``csrc/flash_bwd.cu``). Entry points run on ``cuda``
 unless the caller asks for the CPU (``TORCH_DEVICE=cpu``, or
 ``device="cpu"``), where the kernels' plain PyTorch versions run instead.
+``new_cmd()`` builds a CLI app over the same container.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
-__all__ = ["new", "App", "register_openai_routes"]
+__all__ = ["new", "new_cmd", "App", "register_openai_routes"]
 
 
 def __getattr__(name: str) -> Any:
     # lazy exports: importing the package must not import the server stack
-    if name in ("new", "App"):
+    if name in ("new", "new_cmd", "App"):
         from gofr_tpu_torch import app
 
         return getattr(app, name)

@@ -59,6 +59,17 @@ DECLARED_KEYS: dict[str, str] = {
     "ADMIN_TOKEN": "bearer token the /admin routes require (unset: open)",
     "OPENAI_FANOUT_WORKERS": "n/best_of candidates decoded at once (default 3/4 of the pool)",
     "HTTP_PORT": "HTTP listen port",
+    "GRPC_PORT": "gRPC listen port (default 9000; the server starts when a service is registered)",
+    "DB_DIALECT": "sql datasource dialect: sqlite (default) | mysql",
+    "DB_HOST": "sql host (mysql), or with DB_NAME set, the sql datasource is wired",
+    "DB_PORT": "sql port (mysql default 3306)",
+    "DB_NAME": "sql database: a sqlite file (:memory: allowed) or a mysql schema",
+    "DB_USER": "sql user (mysql)",
+    "DB_PASSWORD": "sql password (mysql)",
+    "REDIS_HOST": "redis host (set: the redis datasource is wired)",
+    "REDIS_PORT": "redis port (default 6379)",
+    "BATCH_COHORT": "'off': FIFO mixed-length prefill batches (default: per-bucket cohorts)",
+    "OPENAI_ACCEPT_UNKNOWN_MODEL": "'on': an unknown \"model\" serves the base model, not a 404",
     "TORCH_DEVICE": "'cuda' (default) or 'cpu'",
     "APP_NAME": "service name stamped on traces",
     "LOG_LEVEL": "DEBUG | INFO (default) | NOTICE | WARN | ERROR | FATAL",
@@ -162,27 +173,15 @@ DECLARED_KEYS: dict[str, str] = {
 # the process takes, so a boot with it set fails; the others warn.
 _MESH = "§A7: the port serves on one device, unsharded"
 _MULTIHOST = "§A7: the port runs one process, no multi-host runtime"
-_DATASOURCE = "§A6: the port wires no sql or redis datasource"
 _TOOLING = "§A6: the port has no native tokenizer backend or lock sanitizer"
 UNHONORED_KEYS: dict[str, tuple[bool, str]] = {
-    "GRPC_PORT": (False, "§A6: the port runs no gRPC server"),
-    "DB_DIALECT": (False, _DATASOURCE),
-    "DB_HOST": (False, _DATASOURCE),
-    "DB_PORT": (False, _DATASOURCE),
-    "DB_NAME": (False, _DATASOURCE),
-    "DB_USER": (False, _DATASOURCE),
-    "DB_PASSWORD": (False, _DATASOURCE),
-    "REDIS_HOST": (False, _DATASOURCE),
-    "REDIS_PORT": (False, _DATASOURCE),
     "TPU_MESH": (True, _MESH),
     "TPU_TOPOLOGY": (True, _MESH),
     "TPU_COORDINATOR": (True, _MULTIHOST),
     "TPU_NUM_PROCESSES": (True, _MULTIHOST),
     "TPU_PROCESS_ID": (True, _MULTIHOST),
     "MODEL_ATTN_IMPL": (False, "§B: every attention call runs the port's own kernels"),
-    "BATCH_COHORT": (False, "§A6: the batcher always forms bucket cohorts"),
     "COSTMODEL_HLO": (False, "§C: the port compiles no HLO; its cost sheets are analytic"),
-    "OPENAI_ACCEPT_UNKNOWN_MODEL": (True, "§A6: an unknown model name is refused, not served"),
     "GOFR_NATIVE_LIB": (False, _TOOLING),
     "GOFR_NATIVE_CACHE": (False, _TOOLING),
     "GOFR_NATIVE_DISABLE": (False, _TOOLING),

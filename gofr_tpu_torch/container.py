@@ -1,6 +1,6 @@
 """Dependency container: config, logger, metrics registry, the flight
-recorder and tenant ledger, handler thread pool and the inference device
-(trimmed copy of ``gofr_tpu/container.py``).
+recorder and tenant ledger, the datasources and service clients, handler
+thread pool and the inference device (copy of ``gofr_tpu/container.py``).
 
 - ``LOG_LEVEL`` sets the logger's level (INFO by default);
 - the registry caps each metric's label-sets at ``METRICS_MAX_SERIES``
@@ -23,6 +23,15 @@ recorder and tenant ledger, handler thread pool and the inference device
 - ``slo`` (an ``SloEngine`` unless ``SLO=off``: ``SLO_TARGETS`` and the
   ``SLO_BURN_*`` windows and rates, ``SLO_EVAL_INTERVAL_S``) burns budgets
   over the flight records into the device's anomaly ring;
+- ``redis`` is wired when ``REDIS_HOST`` is set (``REDIS_PORT`` 6379) and
+  ``db`` when ``DB_NAME`` or ``DB_HOST`` is (``DB_DIALECT`` sqlite or
+  mysql, ``DB_PORT``, ``DB_USER``, ``DB_PASSWORD``): a datasource that
+  cannot connect is logged and left None, so the app boots degraded, as in
+  the JAX package;
+- ``services`` holds the named ``HTTPService`` clients
+  (``App.add_http_service``, ``get_http_service``);
+- ``health()`` aggregates redis, sql and the device: any one DOWN makes
+  the whole DOWN (registered services are not probed);
 - ``HANDLER_THREADS`` (64) sizes the pool sync handlers run on;
 - ``fleet`` is the router ``fleet.wire_fleet`` hangs here (None on a
   replica);
@@ -44,6 +53,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Optional
 
 from gofr_tpu_torch.config import check_unhonored
+from gofr_tpu_torch.datasource.health import DOWN, UP, Health
 from gofr_tpu_torch.logging import new_logger
 from gofr_tpu_torch.metrics import Registry
 from gofr_tpu_torch.postmortem import PostmortemStore
@@ -53,7 +63,9 @@ from gofr_tpu_torch.timebase import TimebaseSampler
 
 
 class Container:
-    def __init__(self, config: Any, model: Any = None):
+    def __init__(self, config: Any, model: Any = None, wire: bool = True):
+        """``wire=False``: no datasource and no device (tests that fill
+        the members themselves)."""
         self.config = config
         self.logger = new_logger(config.get_or_default("LOG_LEVEL", "INFO"))
         # the reference's settings the port does not honor: refuse or warn
@@ -104,10 +116,16 @@ class Container:
         # (gofr_tpu_torch.fleet.wire_fleet sets it): readiness reads its
         # drain, App.shutdown drains it, close() stops its prober
         self.fleet: Optional[Any] = None
+        self.services: dict[str, Any] = {}
+        self.redis: Optional[Any] = None
+        self.db: Optional[Any] = None
         self.tpu: Optional[Any] = None
         self._handler_pool: Optional[ThreadPoolExecutor] = None
+        if wire:
+            self._wire_redis()
+            self._wire_sql()
         enabled = config.get_or_default("TPU_ENABLED", "").lower()
-        if enabled in ("true", "1", "yes") or config.get("MODEL_NAME"):
+        if wire and (enabled in ("true", "1", "yes") or config.get("MODEL_NAME")):
             from gofr_tpu_torch.tpu.device import TPUDevice
 
             try:
@@ -115,6 +133,9 @@ class Container:
             except BaseException:
                 self.timebase.close()  # a failed boot leaves no thread behind
                 self.postmortem.detach()
+                for source in (self.redis, self.db):
+                    if source is not None:
+                        source.close()
                 raise
             # a wedged or failed engine writes its bundle; the recovery
             # supervisor writes one synchronously before it quarantines
@@ -149,11 +170,54 @@ class Container:
                 start=True,
             )
 
+    def _wire_redis(self) -> None:
+        host = self.config.get("REDIS_HOST")
+        if not host:
+            return
+        port = int(self.config.get_or_default("REDIS_PORT", "6379"))
+        try:
+            from gofr_tpu_torch.datasource.redis import new_client
+
+            self.redis = new_client(host, port, self.logger)
+            self.logger.infof("connected to redis at %s:%s", host, port)
+        except Exception as exc:  # a degraded boot, never a failed one
+            self.logger.errorf("could not connect to redis at %s:%s, error: %s", host, port, exc)
+            self.redis = None
+
+    def _wire_sql(self) -> None:
+        name = self.config.get("DB_NAME")
+        host = self.config.get("DB_HOST")
+        if not name and not host:
+            return
+        try:
+            from gofr_tpu_torch.datasource.sql import new_sql
+
+            self.db = new_sql(self.config, self.logger)
+            self.logger.infof("connected to database '%s'", name or host)
+        except Exception as exc:
+            self.logger.errorf("could not connect to database, error: %s", exc)
+            self.db = None
+
     def health(self) -> dict[str, Any]:
-        if self.tpu is None:
-            return {"status": "UP", "details": {}}
-        h = self.tpu.health_check()
-        return {"status": h["status"], "details": {"tpu": h}}
+        details: dict[str, Any] = {}
+        overall = UP
+        for name, source in (("redis", self.redis), ("sql", self.db), ("tpu", self.tpu)):
+            if source is None:
+                continue
+            try:
+                h = source.health_check()
+            except Exception as exc:
+                h = Health(DOWN, {"error": str(exc)})
+            # the device reports a dict; the datasources a Health
+            h = h.to_dict() if isinstance(h, Health) else h
+            details[name] = h
+            if h["status"] != UP:
+                overall = DOWN
+        return {"status": overall, "details": details}
+
+    def get_http_service(self, name: str) -> Any:
+        """The ``HTTPService`` registered under ``name``, or None."""
+        return self.services.get(name)
 
     @property
     def handler_executor(self) -> ThreadPoolExecutor:
@@ -171,9 +235,19 @@ class Container:
             self.fleet.close()  # stops the health prober's thread
         if self.slo is not None:
             self.slo.close()
+        for source in (self.redis, self.db):
+            if source is not None:
+                try:
+                    source.close()
+                except Exception:
+                    pass  # a dead connection has nothing left to close
         if self.tpu is not None:
             self.tpu.close()
         self.timebase.close()
         self.postmortem.detach()
         if self._handler_pool is not None:
             self._handler_pool.shutdown(wait=False)
+
+
+def new_container(config: Any) -> Container:
+    return Container(config)

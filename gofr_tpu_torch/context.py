@@ -1,7 +1,10 @@
-"""Per-request Context handed to every handler (trimmed copy of
-``gofr_tpu/context.py``): the request plus the container, with
-``ctx.tpu`` exposing the inference device, ``ctx.metrics`` the registry
-and ``ctx.trace(name)`` a child span of the request's."""
+"""Per-request Context handed to every handler (copy of
+``gofr_tpu/context.py``): the request plus the container, with ``ctx.tpu``
+exposing the inference device, ``ctx.redis`` and ``ctx.db`` the
+datasources, ``ctx.get_http_service(name)`` a registered service client,
+``ctx.metrics`` the registry, ``ctx.telemetry`` the flight recorder and
+``ctx.trace(name)`` a child span of the request's. The same Context serves
+the HTTP, gRPC and CLI transports."""
 
 from __future__ import annotations
 
@@ -18,6 +21,9 @@ class Context:
     def param(self, key: str) -> str:
         return self.request.param(key)
 
+    def params(self, key: str) -> list[str]:
+        return self.request.params(key)
+
     def path_param(self, key: str) -> str:
         return self.request.path_param(key)
 
@@ -25,7 +31,11 @@ class Context:
         return self.request.bind(into)
 
     def header(self, name: str) -> str:
-        return self.request.header(name)
+        header = getattr(self.request, "header", None)
+        return header(name) if header else ""
+
+    def host_name(self) -> str:
+        return self.request.host_name()
 
     @property
     def logger(self) -> Any:
@@ -36,6 +46,14 @@ class Context:
         return self.container.config
 
     @property
+    def redis(self) -> Any:
+        return self.container.redis
+
+    @property
+    def db(self) -> Any:
+        return self.container.db
+
+    @property
     def tpu(self) -> Any:
         """The inference device (the JAX package's attribute name)."""
         return self.container.tpu
@@ -43,6 +61,14 @@ class Context:
     @property
     def metrics(self) -> Any:
         return self.container.metrics
+
+    @property
+    def telemetry(self) -> Any:
+        """The request flight recorder."""
+        return self.container.telemetry
+
+    def get_http_service(self, name: str) -> Any:
+        return self.container.get_http_service(name)
 
     def trace(self, name: str) -> Span:
         """A user span, child of the request's: ``with ctx.trace("work"):``."""

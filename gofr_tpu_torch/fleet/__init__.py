@@ -158,9 +158,9 @@ def wire_fleet(app: Any) -> FleetRouter:
     quota = QuotaTable(
         rate_rps=_f("FLEET_QUOTA_RPS", "0"),
         burst=_f("FLEET_QUOTA_BURST", "0"),
-        # the port wires no redis datasource yet (ROADMAP §A6): a
-        # container that has one shares the buckets fleet-wide
-        redis=getattr(container, "redis", None),
+        # REDIS_HOST wires the container's redis: the buckets are then
+        # shared fleet-wide
+        redis=container.redis,
         logger=logger,
         metrics=container.metrics,
         cache_ttl_s=_f("FLEET_QUOTA_CACHE_TTL_S", "0.05"),

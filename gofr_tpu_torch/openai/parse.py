@@ -294,18 +294,24 @@ def parse_adapter(ctx: Any, body: dict) -> Any:
     ``adapter`` extension key, else a ``model`` naming a loaded adapter
     (stock OpenAI clients cannot send ``adapter``, but they set model). Any
     other ``model`` is a 404, as in the OpenAI API: a client routed to an
-    adapter that is not loaded must never get the base model's output."""
+    adapter that is not loaded must never get the base model's output.
+    ``OPENAI_ACCEPT_UNKNOWN_MODEL`` (1 | true | on) serves the base model
+    instead."""
     adapter = body.get("adapter")
     if adapter is not None and not isinstance(adapter, str):
         raise HTTPError(400, '"adapter" must be a string')
     requested = body.get("model")
     if adapter is None and isinstance(requested, str) and requested != ctx.tpu.model_name:
         loaded = ctx.tpu.list_adapters()
-        if requested not in loaded:
-            raise HTTPError(
-                404, f"model '{requested}' not found (serving: {[ctx.tpu.model_name, *loaded]})"
-            )
-        adapter = requested
+        if requested in loaded:
+            return requested
+        if ctx.config.get_or_default("OPENAI_ACCEPT_UNKNOWN_MODEL", "") in ("1", "true", "on"):
+            # clients with a hardcoded model string: serve the base model
+            # whatever "model" says
+            return None
+        raise HTTPError(
+            404, f"model '{requested}' not found (serving: {[ctx.tpu.model_name, *loaded]})"
+        )
     return adapter
 
 

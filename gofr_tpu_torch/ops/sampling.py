@@ -227,6 +227,20 @@ def sample_logits_rows(
     return torch.where(temp <= 0.0, greedy, sampled)
 
 
+def stop_tokens_from_body(body: dict) -> Optional[list[int]]:
+    """A request body's ``stop_tokens``: ids that end generation (the stop
+    id is not emitted), or None. Raises ValueError on a malformed value (a
+    400 at the handler)."""
+    stop_tokens = body.get("stop_tokens")
+    if stop_tokens is None:
+        return None
+    if not isinstance(stop_tokens, list) or not all(
+        isinstance(t, int) and not isinstance(t, bool) for t in stop_tokens
+    ):
+        raise ValueError('"stop_tokens" must be a list of token ids')
+    return stop_tokens
+
+
 class Sampler:
     """Per-request sampling state: the knobs plus a seeded generator
     (made on the logits' device at first draw)."""

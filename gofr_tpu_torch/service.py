@@ -1,9 +1,11 @@
-"""Inter-service HTTP client (trimmed copy of ``gofr_tpu/service.py``):
-what the fleet uses. ``HTTPService`` with ``get``/``post``, ``request`` and
-``stream``, ``ServiceResponse`` and ``StreamingServiceResponse``,
-``ServiceCallError``, ``backoff_delays`` and ``_encode_query``. The
-Context's ``get_http_service`` and the health check wait for the rest of
-GoFr (ROADMAP §A6).
+"""Inter-service HTTP client (copy of ``gofr_tpu/service.py``): named
+downstream services with uniform logging, tracing and correlation-ID
+propagation. ``HTTPService`` has the ten-method surface (``get``, ``post``,
+``put``, ``patch``, ``delete``, each also ``*_with_headers``), their
+``async_*`` forms for async handlers, ``request``, ``stream`` and
+``health_check``; ``new_http_service`` builds one and
+``App.add_http_service`` registers it for ``ctx.get_http_service``. The
+request bytes on the wire are the JAX client's.
 
 - **connect/read timeout split**: ``connect_timeout`` bounds TCP
   establishment (default 5 s), ``read_timeout`` each response read
@@ -31,6 +33,7 @@ import urllib.parse
 from dataclasses import dataclass
 from typing import Any, Iterator, Optional
 
+from gofr_tpu_torch.datasource.health import DOWN, UP, Health
 from gofr_tpu_torch.tracing import CLIENT, get_tracer
 
 DEFAULT_CONNECT_TIMEOUT_S = 5.0
@@ -253,9 +256,64 @@ class HTTPService:
     def get(self, path: str, params: Optional[dict] = None) -> ServiceResponse:
         return self.request("GET", path, params, None, None)
 
+    def get_with_headers(self, path: str, params: Optional[dict], headers: dict) -> ServiceResponse:
+        return self.request("GET", path, params, None, headers)
+
     def post(self, path: str, params: Optional[dict] = None, body: Any = None) -> ServiceResponse:
         return self.request("POST", path, params, body, None)
 
+    def post_with_headers(self, path, params, body, headers) -> ServiceResponse:
+        return self.request("POST", path, params, body, headers)
+
+    def put(self, path: str, params: Optional[dict] = None, body: Any = None) -> ServiceResponse:
+        return self.request("PUT", path, params, body, None)
+
+    def put_with_headers(self, path, params, body, headers) -> ServiceResponse:
+        return self.request("PUT", path, params, body, headers)
+
+    def patch(self, path: str, params: Optional[dict] = None, body: Any = None) -> ServiceResponse:
+        return self.request("PATCH", path, params, body, None)
+
+    def patch_with_headers(self, path, params, body, headers) -> ServiceResponse:
+        return self.request("PATCH", path, params, body, headers)
+
+    def delete(self, path: str, body: Any = None) -> ServiceResponse:
+        return self.request("DELETE", path, None, body, None)
+
+    def delete_with_headers(self, path, body, headers) -> ServiceResponse:
+        return self.request("DELETE", path, None, body, headers)
+
+    # -- async variants -------------------------------------------------------
+    # The sync methods block; calling them from an ``async def`` handler
+    # would stall the server's event loop. Async handlers must use these.
+    async def async_get(self, path: str, params: Optional[dict] = None) -> ServiceResponse:
+        return await self._offload(self.get, path, params)
+
+    async def async_post(self, path: str, params: Optional[dict] = None,
+                         body: Any = None) -> ServiceResponse:
+        return await self._offload(self.post, path, params, body)
+
+    async def async_put(self, path: str, params: Optional[dict] = None,
+                        body: Any = None) -> ServiceResponse:
+        return await self._offload(self.put, path, params, body)
+
+    async def async_patch(self, path: str, params: Optional[dict] = None,
+                          body: Any = None) -> ServiceResponse:
+        return await self._offload(self.patch, path, params, body)
+
+    async def async_delete(self, path: str, body: Any = None) -> ServiceResponse:
+        return await self._offload(self.delete, path, body)
+
+    @staticmethod
+    async def _offload(fn: Any, *args: Any) -> ServiceResponse:
+        import asyncio
+        import contextvars
+
+        loop = asyncio.get_running_loop()
+        call = contextvars.copy_context().run
+        return await loop.run_in_executor(None, call, fn, *args)
+
+    # -- internals (parity: createAndSendRequest, new.go:111-159) ------------
     def _resolve(self, path: str, params: Optional[dict]) -> tuple[str, str]:
         """Full display URI + the request target sent on the wire."""
         uri = self.address + "/" + path.lstrip("/")
@@ -559,6 +617,17 @@ class HTTPService:
             resp.status, dict(resp.getheaders()), resp, conn
         )
 
+    def health_check(self) -> Health:
+        """GET /.well-known/health on the downstream: UP on a 200. The
+        container's own health does not probe services (one that points
+        back at the same app would recurse)."""
+        try:
+            resp = self.get("/.well-known/health")
+            return Health(UP if resp.status_code == 200 else DOWN, {"host": self.address})
+        except Exception as exc:
+            return Health(DOWN, {"host": self.address, "error": str(exc)})
+
+
 def _encode_query(params: dict) -> str:
     """Parity: service/new.go:161-176 — list values repeat the key."""
     pairs: list[tuple[str, str]] = []
@@ -568,3 +637,8 @@ def _encode_query(params: dict) -> str:
         else:
             pairs.append((key, str(value)))
     return urllib.parse.urlencode(pairs)
+
+
+def new_http_service(address: str, logger: Any, name: str = "") -> HTTPService:
+    """Parity: service/new.go:56."""
+    return HTTPService(address, logger, name=name)

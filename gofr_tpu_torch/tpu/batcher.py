@@ -6,7 +6,8 @@ enqueue (payload, Future) on a bounded queue (overflow is a 429); a worker
 thread takes the first request and drains more until ``max_batch`` or
 ``timeout_ms`` past the FIRST request's arrival; with a ``bucket_fn`` the
 drained batch splits into per-bucket cohorts and the fullest dispatches
-(the rest wait for the next round); dispatches run on a small pool so one
+(the rest wait for the next round; ``cohort=False`` dispatches the drained
+batch whole, mixed lengths padded to its largest bucket); dispatches run on a small pool so one
 batch's host work overlaps the next. With a ``scheduler``
 (``tpu/scheduler.py``) each dispatch first waits for its turn between
 pooled decode chunks. ``infer`` blocks (60 s by default, as in the JAX
@@ -136,6 +137,7 @@ class DynamicBatcher:
         pipeline_depth: int = 2,
         bucket_fn: Optional[Callable[[Any], int]] = None,
         scheduler: Any = None,
+        cohort: bool = True,
         metrics: Any = None,
         timeline: Any = None,
         watchdog: Any = None,
@@ -146,6 +148,7 @@ class DynamicBatcher:
         self.timeout_s = timeout_ms / 1000.0
         self.bucket_fn = bucket_fn
         self.scheduler = scheduler
+        self.cohort = cohort
         self.timeline = timeline
         self.watchdog = watchdog
         self.dispatches = 0  # batches handed to run_batch
@@ -283,8 +286,9 @@ class DynamicBatcher:
 
     def _form_cohort(self, batch: list[_Item]) -> tuple[list[_Item], list[_Item]]:
         """Split a drained batch by bucket and pick the fullest cohort (ties
-        go to the one holding the oldest item). Returns (cohort, displaced)."""
-        if self.bucket_fn is None or len(batch) <= 1:
+        go to the one holding the oldest item). Returns (cohort, displaced);
+        with ``cohort`` off the whole batch dispatches in FIFO order."""
+        if self.bucket_fn is None or not self.cohort or len(batch) <= 1:
             return batch, []
         groups: dict[int, list[_Item]] = {}
         for item in batch:

@@ -25,7 +25,9 @@ package's serving defaults (``serving_options``): ``DECODE_POOL`` (on),
 ``KV_PAGED`` (on), ``KV_BLOCK_TOKENS`` (64), ``KV_BLOCKS`` (0 = auto),
 ``PREFIX_CACHE`` (0), ``PREFIX_LCP_MIN`` (0 = smallest bucket, -1 = exact
 only), ``PREFILL_CHUNK_TOKENS`` (0 = off), ``SCHED_POLICY`` (fair) and
-``SCHED_MAX_DEFER_MS`` (1000) and ``DECODE_POOL_PENALTIES`` (lazy). The
+``SCHED_MAX_DEFER_MS`` (1000), ``BATCH_COHORT`` (on: per-bucket prefill
+cohorts; off: FIFO mixed-length batches) and ``DECODE_POOL_PENALTIES``
+(lazy). The
 weights: ``MODEL_PATH`` (an HF safetensors file or directory, loaded one
 tensor at a time; any other path is a ``training/checkpoint.py``
 checkpoint), else a seeded random init; ``MODEL_QUANT`` (int8, int4,
@@ -298,6 +300,9 @@ def serving_options(config: Any, max_batch: int) -> dict:
     opts["sched_max_defer_ms"] = float(config.get_or_default("SCHED_MAX_DEFER_MS", "1000"))
     if opts["sched_max_defer_ms"] <= 0:
         raise ValueError("SCHED_MAX_DEFER_MS must be > 0")
+    # "off": FIFO mixed-length prefill batches, each row padded to the
+    # batch's largest bucket
+    opts["batch_cohort"] = config.get_or_default("BATCH_COHORT", "on") != "off"
     opts["kv_paged"] = config.get_or_default("KV_PAGED", "on") != "off"
     opts["kv_block_tokens"] = int(config.get_or_default("KV_BLOCK_TOKENS", "64"))
     if opts["kv_block_tokens"] < 1:
@@ -885,6 +890,7 @@ class TPUDevice:
             name=self.model_name,
             bucket_fn=getattr(self.runner, "bucket_for_payload", None),
             scheduler=self.scheduler,
+            cohort=self.options["batch_cohort"],
             metrics=self.metrics,
             timeline=self.timeline,
             watchdog=self.watchdog,

@@ -2,8 +2,10 @@
 keys and its list of the reference's unhonored keys partition the JAX
 package's DECLARED_KEYS; each listed key, set in the environment or in
 ``configs/.env``, refuses the boot (naming the key) or warns once; the
-keys of the overload and failure layer and of the fleet are declared, read,
-and neither refuse nor warn (the journal's keys boot, and so do
+keys of the overload and failure layer, of the fleet and of the rest of
+GoFr (gRPC, the datasources, ``BATCH_COHORT``,
+``OPENAI_ACCEPT_UNKNOWN_MODEL``) are declared, read, and neither refuse nor
+warn (the journal's keys boot, and so do
 FLEET_ROLE and KV_HBM_BUDGET_MB); and LOG_LEVEL, HANDLER_THREADS
 and TPU_ENABLED are honored as the JAX container honors them."""
 
@@ -47,6 +49,14 @@ FAILURE_KEYS = (
 )
 
 
+# the keys the rest of GoFr honors: gRPC, the sql and redis datasources,
+# the batcher's cohorts and the OpenAI model-name escape hatch
+GOFR_KEYS = (
+    "GRPC_PORT", "DB_DIALECT", "DB_HOST", "DB_PORT", "DB_NAME", "DB_USER", "DB_PASSWORD",
+    "REDIS_HOST", "REDIS_PORT", "BATCH_COHORT", "OPENAI_ACCEPT_UNKNOWN_MODEL",
+)
+
+
 # the keys the fleet honors: the router's, the replica's role, the KV
 # transfer's and the arena's byte budget
 FLEET_KEYS = tuple(sorted(
@@ -71,17 +81,20 @@ def test_the_port_partitions_the_jax_keys():
     assert MUST_REFUSE <= {k for k, (refuse, _) in UNHONORED_KEYS.items() if refuse}
     # every entry names the ROADMAP item that ports it
     assert all(why.startswith("§") for _, why in UNHONORED_KEYS.values())
-    # the 11 keys this slice honors
+    # the 11 keys the base layer honors
     assert {"APP_NAME", "LOG_LEVEL", "HANDLER_THREADS", "TPU_ENABLED", "TPU_BOOT",
             "ECHO_STEP_MS", "SPEC_FAKE_ACCEPT", "METRICS_MAX_SERIES", "METRICS_EXEMPLARS",
             "TRACER_HOST", "TRACER_PORT"} <= port_declared
+    # and the 11 the rest of GoFr honors: 143 of the JAX package's 159
+    assert set(GOFR_KEYS) <= port_declared
+    assert (len(port_declared), len(UNHONORED_KEYS), len(JAX_KEYS)) == (143, 16, 159)
 
 
-@pytest.mark.parametrize("key", FAILURE_KEYS + FLEET_KEYS)
+@pytest.mark.parametrize("key", FAILURE_KEYS + FLEET_KEYS + GOFR_KEYS)
 def test_a_failure_layer_key_is_declared_and_silent(key, clean_env, tmp_path):
-    """Each key the failure layer or the fleet honors is one of the JAX
-    package's, declared, read from the environment, and neither refuses nor
-    warns at boot."""
+    """Each key the failure layer, the fleet or the rest of GoFr honors is
+    one of the JAX package's, declared, read from the environment, and
+    neither refuses nor warns at boot."""
     assert key in JAX_KEYS and key in DECLARED_KEYS and key not in UNHONORED_KEYS
     clean_env.setenv(key, "7")
     config = EnvFileConfig(str(tmp_path))
@@ -139,8 +152,8 @@ def test_a_set_unhonored_key_refuses_or_warns(key, clean_env, tmp_path):
 
 
 def test_the_env_file_counts_and_each_key_warns_once(clean_env, tmp_path):
-    (tmp_path / ".env").write_text("GRPC_PORT=9000\nBATCH_COHORT=a\n")
-    clean_env.setenv("BATCH_COHORT", "b")  # in both: one warning
+    (tmp_path / ".env").write_text("MODEL_ATTN_IMPL=xla\nGOFR_POOL_DEBUG=a\n")
+    clean_env.setenv("GOFR_POOL_DEBUG", "b")  # in both: one warning
     clean_env.setenv("GOFR_SANITIZE", "")  # empty is unset
     out = io.StringIO()
     saved, sys.stdout = sys.stdout, out
@@ -148,7 +161,8 @@ def test_the_env_file_counts_and_each_key_warns_once(clean_env, tmp_path):
         check_unhonored(EnvFileConfig(str(tmp_path)), Logger(Level.INFO, terminal=False))
     finally:
         sys.stdout = saved
-    assert [w.split()[0] for w in _warnings(out.getvalue())] == ["GRPC_PORT", "BATCH_COHORT"]
+    assert [w.split()[0] for w in _warnings(out.getvalue())] == ["MODEL_ATTN_IMPL",
+                                                                "GOFR_POOL_DEBUG"]
     (tmp_path / ".env").write_text("TPU_TOPOLOGY=2x2\n")
     with pytest.raises(ValueError, match="TPU_TOPOLOGY"):
         gofr_tpu_torch.new(str(tmp_path))

@@ -262,9 +262,9 @@ def test_quota_table_redis_backend_and_fail_open():
     """The redis backing runs against the REAL client + miniredis —
     the pipelined HGET/HSET/EXPIRE path, fleet-wide bucket sharing
     across two QuotaTables (two router processes), and fail-open."""
-    from gofr_tpu.datasource.miniredis import MiniRedis
-    from gofr_tpu.datasource.redis import new_client
-    from gofr_tpu.testutil import MockLogger
+    from gofr_tpu_torch.datasource.miniredis import MiniRedis
+    from gofr_tpu_torch.datasource.redis import new_client
+    from gofr_tpu_torch.testutil import MockLogger
 
     mini = MiniRedis().run()
     client = new_client("127.0.0.1", mini.port, MockLogger())
@@ -1592,7 +1592,7 @@ def test_quota_lease_cache_serves_hot_tenant_locally():
     """The hot-key fix: with ``cache_ttl_s`` > 0 a hot tenant's takes
     are served from a local token lease, not one redis sync each —
     every take is either a cache hit or a sync, and syncs are rare."""
-    from gofr_tpu.devtools.fleetsim import SimRedis
+    from gofr_tpu_torch.devtools.fleetsim import SimRedis
 
     redis = SimRedis()
     table = QuotaTable(rate_rps=200.0, burst=400.0, redis=redis,
@@ -1611,7 +1611,7 @@ def test_quota_lease_leases_at_least_one_token_at_low_rates():
     lease can never admit, which silently disables the cache at
     realistic per-tenant rates (the first live fleetsim runs measured
     zero cache hits for exactly this reason)."""
-    from gofr_tpu.devtools.fleetsim import SimRedis
+    from gofr_tpu_torch.devtools.fleetsim import SimRedis
 
     redis = SimRedis()
     table = QuotaTable(rate_rps=2.0, burst=8.0, redis=redis,
@@ -1637,7 +1637,7 @@ def test_quota_lease_concurrent_sync_merges_instead_of_stranding():
     overwrite them — an overwritten lease's tokens were debited in
     redis, never admitted, never credited: gone. Conservation is the
     assertion: bucket + live lease + admitted == burst, exactly."""
-    from gofr_tpu.devtools.fleetsim import SimRedis
+    from gofr_tpu_torch.devtools.fleetsim import SimRedis
 
     redis = SimRedis()
     table = QuotaTable(rate_rps=100.0, burst=200.0, redis=redis,
@@ -1657,7 +1657,7 @@ def test_quota_lease_caches_denial_with_counted_down_hint():
     hammering tenant must not buy a redis trip per rejected request),
     and the cached Retry-After counts down as the window ages instead
     of re-serving the sync-time value."""
-    from gofr_tpu.devtools.fleetsim import SimRedis
+    from gofr_tpu_torch.devtools.fleetsim import SimRedis
 
     redis = SimRedis()
     table = QuotaTable(rate_rps=0.5, burst=1.0, redis=redis,
@@ -1679,7 +1679,7 @@ def test_quota_no_phantom_lease_when_redis_dies_mid_sync():
     fleet-wide, so a whole TTL window would admit from tokens every
     other router can also spend. The verdict must be fail-open (memory
     bucket), with no lease and the popped credit restored."""
-    from gofr_tpu.devtools.fleetsim import SimRedis
+    from gofr_tpu_torch.devtools.fleetsim import SimRedis
 
     class _DiesOnWrite(SimRedis):
         def __init__(self):
@@ -1712,7 +1712,7 @@ def test_quota_lease_expiry_credits_unused_tokens_back():
     """Leased-but-unused tokens return to the fleet-wide bucket on the
     tenant's next sync: the accounting error is bounded by one lease
     per router per TTL window, never cumulative."""
-    from gofr_tpu.devtools.fleetsim import SimRedis
+    from gofr_tpu_torch.devtools.fleetsim import SimRedis
 
     redis = SimRedis()
     table = QuotaTable(rate_rps=100.0, burst=200.0, redis=redis,
@@ -2038,7 +2038,8 @@ def test_quota_decisions_agree_with_jax(monkeypatch):
     """TokenBucket and QuotaTable (memory and redis-backed with its lease
     cache) admit and shed the same requests with the same Retry-After
     under one fake clock."""
-    from gofr_tpu.devtools.fleetsim import SimRedis
+    from gofr_tpu.devtools.fleetsim import SimRedis as JaxSimRedis
+    from gofr_tpu_torch.devtools.fleetsim import SimRedis
 
     ja, pa = _both("admission")
     clock = _FakeTime()
@@ -2049,7 +2050,8 @@ def test_quota_decisions_agree_with_jax(monkeypatch):
         clock.now = 1000.0
         bucket = mod.TokenBucket(rate=2.0, capacity=3.0)
         mem = mod.QuotaTable(rate_rps=1.0, burst=2.0)
-        shared = mod.QuotaTable(rate_rps=5.0, burst=4.0, redis=SimRedis(), cache_ttl_s=0.05)
+        redis = JaxSimRedis() if mod is ja else SimRedis()
+        shared = mod.QuotaTable(rate_rps=5.0, burst=4.0, redis=redis, cache_ttl_s=0.05)
         out = []
         for i in range(40):
             clock.now += 0.13 if i % 3 else 0.01

@@ -458,7 +458,7 @@ _JAX_ATTRS = {
     "prefix_cache": "_prefix_cache_size", "prefix_lcp_min": "_prefix_lcp_min",
     "prefill_chunk_tokens": "_prefill_chunk_cfg", "sched_policy": "_sched_policy",
     "sched_max_defer_ms": "_sched_max_defer_ms", "pool_penalties": "_pool_penalties",
-    "kv_budget_mb": "_kv_budget_mb",
+    "kv_budget_mb": "_kv_budget_mb", "batch_cohort": "_batch_cohort",
 }
 
 
@@ -504,7 +504,7 @@ def _port_options(env):
     {"SCHED_POLICY": "lifo"}, {"SCHED_MAX_DEFER_MS": "0"}, {"KV_BLOCK_TOKENS": "0"},
     {"KV_BLOCKS": "-1"}, {"DECODE_PIPELINE": "0"},
     {"DECODE_POOL_PENALTIES": " Eager "}, {"DECODE_POOL_PENALTIES": "sometimes"},
-    {"KV_HBM_BUDGET_MB": "512.5"}, {"KV_HBM_BUDGET_MB": "-1"},
+    {"KV_HBM_BUDGET_MB": "512.5"}, {"KV_HBM_BUDGET_MB": "-1"}, {"BATCH_COHORT": "off"},
 ])
 def test_config_defaults_and_errors_match_jax(env):
     """The new keys' defaults (DECODE_SLOTS follows BATCH_MAX_SIZE, here the

@@ -253,6 +253,60 @@ def test_config_reads_declared_keys_env_over_file(monkeypatch, tmp_path):
         cfg.get("TPU_MESH")  # a key of the JAX package not ported yet
 
 
+_LADDER = (16, 32, 64, 128)
+
+
+def _bucket_of(ids) -> int:
+    return next((b for b in _LADDER if int(ids.size) <= b), _LADDER[-1])
+
+
+@pytest.mark.parametrize("cohort", [True, False])
+def test_batcher_dispatches_equal_jax(cohort):
+    """``BATCH_COHORT``: for the same burst of mixed-length arrivals, the
+    port's batcher dispatches the JAX batcher's batches, in its order,
+    with its padded-token count: per-bucket cohorts, or one FIFO batch
+    padded to its largest bucket."""
+    from gofr_tpu.metrics import Registry as JaxRegistry
+    from gofr_tpu.tpu.batcher import DynamicBatcher as JaxBatcher
+    from gofr_tpu_torch.metrics import Registry
+
+    runs = []
+    for cls, registry in ((JaxBatcher, JaxRegistry()), (DynamicBatcher, Registry())):
+        batches = []
+
+        def run(payloads, batches=batches):
+            batches.append([int(p.size) for p in payloads])
+            return [int(p[0]) for p in payloads]
+
+        b = cls(run, max_batch=8, timeout_ms=60, metrics=registry, name="m",
+                bucket_fn=_bucket_of, cohort=cohort)
+        try:
+            lengths = [4, 120, 8, 100, 12, 90, 6, 110]
+            futures = [b.submit(np.arange(1, n + 1, dtype=np.int32)) for n in lengths]
+            assert [f.result(timeout=10) for f in futures] == [1] * 8
+        finally:
+            b.close()
+        padded = registry.counter("gofr_tpu_prefill_padded_tokens_total", labels=("model",))
+        runs.append((batches, padded.value(model="m")))
+    assert runs[1] == runs[0]
+    assert len(runs[0][0]) == (2 if cohort else 1)
+
+
+def test_batch_cohort_off_reaches_the_device_batcher(monkeypatch, tmp_path):
+    """``BATCH_COHORT=off`` builds the device's batcher without cohorts;
+    unset it forms them."""
+    from gofr_tpu_torch.testutil import serving_device
+
+    monkeypatch.chdir(tmp_path)
+    with serving_device(TORCH_DEVICE="cpu", BATCH_COHORT="off", LOG_LEVEL="FATAL") as dev:
+        dev.wait_ready()
+        assert dev.batcher.cohort is False
+    monkeypatch.delenv("BATCH_COHORT", raising=False)
+    with serving_device(TORCH_DEVICE="cpu", LOG_LEVEL="FATAL") as dev:
+        dev.wait_ready()
+        assert dev.batcher.cohort is True
+
+
 def test_batcher_splits_buckets_into_cohorts():
     seen = []
 
