@@ -14,9 +14,11 @@ last one JSON line of times in ms: at the training shape the forward's
 sm90 and mma variants, dQ's and dK/dV's (CUDA events, 20 launches after 3
 warm-up launches); at two decode shapes the decode variant, the mma
 kernel and SDPA, each by CUDA events and by device time (``graph_ms``: 20
-launches in one CUDA graph, replayed). Exits non-zero without a CUDA card,
-when a kernel spills, or when a case fails its tolerance (bf16 2e-2 +
-2e-2 * |ref|).
+launches in one CUDA graph, replayed), the same at the pool's decode and
+verify widths 1 / 4 / 5 / 8, the solo verify at B=1 Sq=5, bert-base's
+encoder at B = 1 / 2 / 8 (the sm90 D = 64 instance) and scoring's bucket
+512. Exits non-zero without a CUDA card, when a kernel spills, or when a
+case fails its tolerance (bf16 2e-2 + 2e-2 * |ref|).
 """
 
 from __future__ import annotations
@@ -32,19 +34,28 @@ from gofr_tpu_torch.timing import event_ms, graph_ms
 
 TOL = 2e-2
 NAN = float("nan")
+# the pool's verify lengths (chip_smoke.py's), and bert's ragged kv_lens
+VERIFY_LENGTHS = [137, 410, 655, 900, 1530, 2043, 0, 0]
+ENCODER_LENS = [1, 128, 77, 5, 64, 100, 128, 33]
 
 
-def _case(b, sq, skv, hq, hkv, offs, lens, poison=None, seed=0):
+def _case(b, sq, skv, hq, hkv, offs, lens, poison=None, seed=0, d=128, fused=False):
+    """q, k, v, dO, offsets, lens; ``fused``: q/k/v strided views of one
+    [B, S, 3, H, D] product (the encoder's wqkv), Sq = Skv and Hq = Hkv."""
     dev = "cuda"
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    q, k, v, do = (torch.randn(b, s, h, 128, device=dev, generator=gen).to(torch.bfloat16)
+    q, k, v, do = (torch.randn(b, s, h, d, device=dev, generator=gen).to(torch.bfloat16)
                    for s, h in ((sq, hq), (skv, hkv), (skv, hkv), (sq, hq)))
+    if fused:
+        qkv = torch.stack((q, k, v), dim=2)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     offs = torch.tensor(offs, dtype=torch.int32, device=dev)
     lens = torch.tensor(lens, dtype=torch.int32, device=dev)
     if poison is not None:
         tail = (torch.arange(skv, device=dev)[None] >= lens[:, None])[:, :, None, None]
-        k, v = k.masked_fill(tail, poison), v.masked_fill(tail, poison)
+        k.masked_fill_(tail, poison)  # in place: fused views keep their strides
+        v.masked_fill_(tail, poison)
     return q, k, v, do, offs, lens
 
 
@@ -56,8 +67,8 @@ def _close(got, want) -> tuple[float, bool]:
 
 def check_forward(name, c, causal=True) -> bool:
     q, k, v, _, offs, lens = c
-    want = flash.fwd_variant(q, k)
-    counter = {"sm90": flash.launches_fwd_sm90, "decode": flash.launches_fwd_decode}[want]
+    want = flash.fwd_instance(q, k)
+    counter = flash.launches_fwd_instance[want]
     before = counter.value
     out, lse = flash.flash_attention_fwd(q, k, v, causal, offs, lens)
     torch.cuda.synchronize()
@@ -97,30 +108,33 @@ def check_backward(name, c, causal=True, twice=False) -> bool:
     return ok
 
 
-def sdpa_masked(q, k, v, offs, lens):
+def sdpa_masked(q, k, v, offs, lens, causal=True):
     """scaled_dot_product_attention over the same visible keys (a boolean
     mask): the yardstick, never called by the port."""
     skv = k.shape[1]
     k_pos = torch.arange(skv, device=q.device)
     q_pos = offs[:, None] + torch.arange(q.shape[1], device=q.device)[None, :]
-    mask = ((k_pos[None, None, :] < lens[:, None, None])
-            & (k_pos[None, None, :] <= q_pos[:, :, None]))[:, None]
+    mask = (k_pos[None, None, :] < lens[:, None, None]).expand(-1, q.shape[1], -1)
+    if causal:
+        mask = mask & (k_pos[None, None, :] <= q_pos[:, :, None])
+    mask = mask[:, None]
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     return lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
 
-def decode_times(c) -> dict:
-    """The decode variant, the mma kernel and SDPA at one decode shape, by
-    CUDA events (20 launches) and by device time (a CUDA graph)."""
+def decode_times(c, causal=True) -> dict:
+    """The kernel a short call takes (the decode variant, or the encoder's
+    sm90), the mma kernel and SDPA at one shape, by CUDA events (20
+    launches) and by device time (a CUDA graph)."""
     q, k, v, _, offs, lens = c
-    scale = 128 ** -0.5
+    scale = q.shape[-1] ** -0.5
     fns = {
-        "decode": lambda: flash._launch(q, k, v, offs, lens, True, scale),
-        "mma": lambda: flash._launch(q, k, v, offs, lens, True, scale, "mma"),
-        "sdpa_mask": sdpa_masked(q, k, v, offs, lens),
+        "kernel": lambda: flash._launch(q, k, v, offs, lens, causal, scale),
+        "mma": lambda: flash._launch(q, k, v, offs, lens, causal, scale, "mma"),
+        "sdpa_mask": sdpa_masked(q, k, v, offs, lens, causal),
     }
-    row = {}
+    row = {"instance": flash.fwd_instance(q, k)}
     for name, fn in fns.items():
         row[f"{name}_ms"] = event_ms(fn, 20)
         row[f"{name}_device_ms"] = graph_ms(fn)
@@ -143,6 +157,14 @@ def times() -> dict:
         "decode_b4_cache2048": decode_times(
             _case(4, 1, 2048, 32, 8, [0, 699, 1499, 2047], [1, 700, 1500, 2048])),
         "decode_b1_kv1800": decode_times(_case(1, 1, 2048, 32, 8, [1799], [1800])),
+        **{f"pool_sq{w}": decode_times(_case(8, w, 2048, 32, 8, VERIFY_LENGTHS,
+                                             [n + w for n in VERIFY_LENGTHS]))
+           for w in (1, 4, 5, 8)},
+        "verify_b1_sq5_kv1800": decode_times(_case(1, 5, 2048, 32, 8, [1795], [1800])),
+        **{f"encoder_b{b}": decode_times(_case(b, 128, 128, 12, 12, [0] * b, ENCODER_LENS[:b],
+                                               d=64, fused=True), causal=False)
+           for b in (1, 2, 8)},
+        "scoring_512": decode_times(_case(1, 512, 512, 32, 8, [0], [512])),
     }
 
 
@@ -172,6 +194,20 @@ def main() -> int:
         check_forward("decode groups 8 kv_lens=0 row", _case(2, 1, 512, 32, 4, [0, 300], [0, 301],
                                                              poison=300.0)),
         check_forward("decode Sq=4 groups 4", _case(2, 4, 512, 32, 8, [96, 290], [100, 294])),
+        check_forward("verify Sq=5 groups 4 NaN tail", _case(2, 5, 512, 32, 8, [96, 290],
+                                                             [101, 295], poison=NAN)),
+        check_forward("verify Sq=8 groups 4 +300 tail", _case(2, 8, 512, 32, 8, [0, 290],
+                                                              [8, 298], poison=300.0)),
+        check_forward("pool verify [8, 5] NaN tail", _case(
+            8, 5, 2048, 32, 8, VERIFY_LENGTHS, [n + 5 for n in VERIFY_LENGTHS], poison=NAN)),
+        check_forward("verify B=1 Sq=5 kv 1800", _case(1, 5, 2048, 32, 8, [1795], [1800])),
+        check_forward("Sq=17 groups 1", _case(2, 17, 512, 8, 8, [83, 400], [100, 417])),
+        check_forward("encoder D=64 B=8 NaN tail", _case(
+            8, 128, 128, 12, 12, [0] * 8, ENCODER_LENS, poison=NAN, d=64, fused=True),
+            causal=False),
+        check_forward("D=64 causal 130/200", _case(2, 130, 200, 8, 2, [0, 70], [130, 200], d=64)),
+        check_forward("D=64 kv_lens=0 row, two tiles", _case(2, 64, 300, 4, 4, [0, 0], [0, 300],
+                                                             poison=300.0, d=64), causal=False),
         check_backward("1x128 non-causal", _case(1, 128, 128, 1, 1, [0], [128]), causal=False),
         check_backward("training shape", _case(1, 2048, 2048, 32, 8, [0], [2048]), twice=True),
         check_backward("300/1024 NaN tail", _case(2, 300, 1024, 8, 2, [0, 500], [300, 800],

@@ -18,18 +18,19 @@
 // running (m, l, acc) and P.V accumulate in f32; P is rounded to the value
 // dtype before P.V, as the TPU kernel does; masked keys get p = 0.
 // Three variants; ops/flash.py::fwd_variant picks one by shape:
-// - sm90 (bf16, D = 128, Sq >= 64: training and serving prefill): wgmma
-//   and a TMA/mbarrier K/V ring, warp-specialised, 128-row q tiles
-//   launched longest first (flash_fwd_sm90_kernel below, with its note).
-//   TMA loads whole tiles, so V rows at or past kv_len reach shared memory
-//   and are zeroed there before P.V.
-// - decode (bf16, D = 128, Sq x groups <= 16: the serving path's decode):
-//   the GQA group's query rows packed into one m16 tile, split-KV across a
-//   thread block cluster, a cp.async K/V ring and one deterministic merge
-//   through distributed shared memory (flash_fwd_decode_kernel below).
-// - mma (everything else: short tails, f32, D != 128): one block
-//   of 128 threads (4 warps) per (q tile, q head, batch row); keys at or
-//   past kv_len are never read (their tile rows are zero-filled).
+// - sm90 (bf16, D = 64 or 128, Sq >= 64: training, serving prefill and the
+//   encoder): wgmma and a TMA/mbarrier K/V ring, warp-specialised, 128-row
+//   q tiles launched longest first (sm90_fwd below, with its note; one
+//   instance per head dim). TMA loads whole tiles, so V rows at or past
+//   kv_len reach shared memory and are zeroed there before P.V.
+// - decode (bf16, D = 128, Sq x groups <= 32: the serving path's decode and
+//   speculation's verify): the GQA group's query rows packed into one m16
+//   row tile, or two past 16 rows; split-KV across a thread block cluster, a
+//   cp.async K/V ring and one deterministic merge through distributed
+//   shared memory (decode_fwd below; one instance per row-tile count).
+// - mma (everything else: short tails, f32, D = 64 decode, other D): one
+//   block of 128 threads (4 warps) per (q tile, q head, batch row); keys at
+//   or past kv_len are never read (their tile rows are zero-filled).
 // - mma, bf16: tensor cores through mma.sync m16n8k16. A
 //   64-row q tile, 16 rows per warp; each warp keeps its Q fragments, its
 //   64-key score tile and its 16 x D output accumulator in registers, and
@@ -41,17 +42,22 @@
 //   per lane for the scores, one output column per thread for P.V.
 //
 // What bounds it on the H100 (989 TFLOP/s bf16 dense, 3.35 TB/s HBM):
-// - decode (Sq = 1): bytes, K+V of kv_len tokens per (batch, kv head);
+// - decode and verify (Sq x groups <= 32): bytes, K+V of kv_len tokens per
+//   (batch, kv head);
+// - the encoder (S = 128, D = 64): bytes, but each call is a few
+//   microseconds, so launch and latency weigh as much;
 // - long prefill: operations, 4*B*Hq*Sq*Skv*D, about half that when causal.
 // What the sm90 variant still leaves on the table: its two warpgroups do
 // not overlap one tile's softmax with the other's products (no ping-pong),
-// and the output leaves from registers rather than through TMA. What the
-// mma variant leaves: mma.sync (about half the wgmma rate), synchronous
-// tile loads. What the decode variant leaves: each block streams its
-// tiles far below its share of HBM's rate (latency-bound: a tile's wait,
-// products and softmax run in series in four warps), and the launch,
-// cluster barriers and merge cost a few microseconds; the serving step
-// around it is host-bound.
+// and the output leaves from registers rather than through TMA; at the
+// encoder's S = 128 a block has one K/V tile, so nothing overlaps its loads.
+// What the mma variant leaves: mma.sync (about half the wgmma rate),
+// synchronous tile loads; no path of llama3-8b or bert runs it on the card.
+// What the decode variant leaves: each block streams its tiles far below
+// its share of HBM's rate (latency-bound: a tile's wait, products and
+// softmax run in series in four warps a row tile), and the launch, cluster
+// barriers and merge cost a few microseconds; the serving step around it is
+// host-bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -248,7 +254,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16_kernel(
   }
 }
 
-// ------------------------------------------- bf16, D = 128, Sq >= 64: sm90
+// ------------------------------------- bf16, D = 64 or 128, Sq >= 64: sm90
 
 // One block of 384 threads per (128-row q tile, q head, batch row): warps
 // 0-7 are two consumer warpgroups of 64 q rows each, warp 8 the producer
@@ -259,15 +265,29 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16_kernel(
 // computes S = Q.K^T with wgmma (Q and K from shared memory), the online
 // softmax on the score registers, and O += P.V with wgmma (P in registers
 // as the A operand, V read transposed from shared memory).
+// One body, two instances: D = 128 (llama's training and prefill), whose
+// tiles are two 64-column halves, and D = 64 (bert's encoder), one half a
+// tile: Q.K^T takes D / 16 k-steps and P.V a wgmma of N = D, so a D = 64
+// stage is half the bytes. The encoder's q/k/v are strided views of the
+// fused wqkv product: the tensor maps take the caller's strides, nothing is
+// copied.
 constexpr int kF90BlockM = 128;
 constexpr int kF90BlockN = 128;
 constexpr int kF90Stages = 3;
 constexpr int kF90Threads = 384;  // warpgroup 2 holds the producer warp
 constexpr int kF90Consumers = 256;
-constexpr int kF90Half = 128 * 128;               // bytes: 128 rows x 64 bf16 columns
-constexpr int kF90Tile = 2 * kF90Half;            // a 128 x 128 bf16 tile, two halves
-constexpr int kF90Smem = 1024 + kF90Tile * (1 + 2 * kF90Stages) + 1024;  // + alignment slack
-static_assert(kF90Smem <= 232448, "more shared memory than a block may have");
+constexpr int kF90Half = 128 * 128;  // bytes: 128 rows x 64 bf16 columns
+// a 128 x D bf16 tile (D / 64 halves), and a block's dynamic shared memory
+// (barriers, Q and the ring, + alignment slack)
+template <int D>
+__host__ __device__ constexpr int f90_tile() {
+  return D / 64 * kF90Half;
+}
+template <int D>
+__host__ __device__ constexpr int f90_smem() {
+  return 1024 + f90_tile<D>() * (1 + 2 * kF90Stages) + 1024;
+}
+static_assert(f90_smem<128>() <= 232448, "more shared memory than a block may have");
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -280,17 +300,20 @@ struct F90Args {
   int causal;
 };
 
-__global__ void __launch_bounds__(kF90Threads, 1) flash_fwd_sm90_kernel(
-    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
-    const __grid_constant__ CUtensorMap vmap, F90Args a) {
-  extern __shared__ uint8_t smem_raw[];
+template <int D>
+__device__ __forceinline__ void sm90_fwd(const CUtensorMap* qmap, const CUtensorMap* kmap,
+                                         const CUtensorMap* vmap, const F90Args& a,
+                                         uint8_t* smem_raw) {
+  static_assert(D == 64 || D == 128, "the sm90 forward takes D = 64 or 128");
+  constexpr int kHalves = D / 64;
+  constexpr int kTile = f90_tile<D>();
   uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
                                              ~uintptr_t(1023));
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + kF90Stages;
   uint8_t* qs = smem + 1024;
-  uint8_t* kvs = qs + kF90Tile;  // stage s: K at kvs + 2s tiles, V right after
+  uint8_t* kvs = qs + kTile;  // stage s: K at kvs + 2s tiles, V right after
 
   const int h = blockIdx.x, b = blockIdx.y, hk = h / a.groups;
   // longest first: under the causal mask the last q tiles see the most keys
@@ -318,19 +341,25 @@ __global__ void __launch_bounds__(kF90Threads, 1) flash_fwd_sm90_kernel(
   if (warp >= kF90Consumers / 32) {  // the producer warpgroup; warp 8 loads
     regs_dealloc<24>();
     if (warp == kF90Consumers / 32 && lane == 0 && hi > 0) {
-      mbar_arrive_expect_tx(q_full, kF90Tile);
-      tma_load_4d(qs, &qmap, q_full, 0, h, q0, b);
-      tma_load_4d(qs + kF90Half, &qmap, q_full, 64, h, q0, b);
+      mbar_arrive_expect_tx(q_full, kTile);
+#pragma unroll
+      for (int hf = 0; hf < kHalves; ++hf) {
+        tma_load_4d(qs + hf * kF90Half, qmap, q_full, hf * 64, h, q0, b);
+      }
       for (int j = 0; j < hi; ++j) {
         const int s = j % kF90Stages;
         mbar_wait(&empty[s], ((j / kF90Stages) & 1) ^ 1);
-        uint8_t* ks = kvs + 2 * s * kF90Tile;
-        uint8_t* vs = ks + kF90Tile;
-        mbar_arrive_expect_tx(&full[s], 2 * kF90Tile);
-        tma_load_4d(ks, &kmap, &full[s], 0, hk, j * kF90BlockN, b);
-        tma_load_4d(ks + kF90Half, &kmap, &full[s], 64, hk, j * kF90BlockN, b);
-        tma_load_4d(vs, &vmap, &full[s], 0, hk, j * kF90BlockN, b);
-        tma_load_4d(vs + kF90Half, &vmap, &full[s], 64, hk, j * kF90BlockN, b);
+        uint8_t* ks = kvs + 2 * s * kTile;
+        uint8_t* vs = ks + kTile;
+        mbar_arrive_expect_tx(&full[s], 2 * kTile);
+#pragma unroll
+        for (int hf = 0; hf < kHalves; ++hf) {
+          tma_load_4d(ks + hf * kF90Half, kmap, &full[s], hf * 64, hk, j * kF90BlockN, b);
+        }
+#pragma unroll
+        for (int hf = 0; hf < kHalves; ++hf) {
+          tma_load_4d(vs + hf * kF90Half, vmap, &full[s], hf * 64, hk, j * kF90BlockN, b);
+        }
       }
     }
     return;
@@ -343,9 +372,11 @@ __global__ void __launch_bounds__(kF90Threads, 1) flash_fwd_sm90_kernel(
   const int wg_first = offset + q0 + wg * 64;  // the warpgroup's first q position
   const uint32_t q_addr = smem_u32(qs) + wg * 64 * 128;
 
-  float o[64], sc[64];
+  float o[D / 2], sc[64];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] = sc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) sc[i] = 0.f;
   float m_run[2] = {kNegInf, kNegInf};
   float l_run[2] = {0.f, 0.f};  // this thread's share; the quad's sum at the end
   if (hi > 0) mbar_wait(q_full, 0);
@@ -355,12 +386,12 @@ __global__ void __launch_bounds__(kF90Threads, 1) flash_fwd_sm90_kernel(
     const int k0 = j * kF90BlockN;
     GOFR_DCHECK(k0 < kv_len);
     mbar_wait(&full[s], (j / kF90Stages) & 1);
-    uint8_t* vs = kvs + (2 * s + 1) * kF90Tile;
-    const uint32_t k_addr = smem_u32(kvs + 2 * s * kF90Tile), v_addr = smem_u32(vs);
+    uint8_t* vs = kvs + (2 * s + 1) * kTile;
+    const uint32_t k_addr = smem_u32(kvs + 2 * s * kTile), v_addr = smem_u32(vs);
 
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
+    for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t off = (kk / 4) * kF90Half + (kk % 4) * 32;
       wgmma_m64n128k16_ss(sc, smem_desc(q_addr + off, 16, 1024), smem_desc(k_addr + off, 16, 1024),
                           kk > 0);
@@ -374,8 +405,8 @@ __global__ void __launch_bounds__(kF90Threads, 1) flash_fwd_sm90_kernel(
       // holds there, and 0 * NaN is NaN, so zero those V rows before P.V
       const int first = kv_len - k0;
       GOFR_DCHECK(first > 0 && first < kF90BlockN);
-      for (int c = tid; c < (kF90BlockN - first) * 16; c += kF90Consumers) {
-        const int r = first + c / 16, half = (c / 8) % 2, chunk = c % 8;
+      for (int c = tid; c < (kF90BlockN - first) * (D / 8); c += kF90Consumers) {
+        const int r = first + c / (D / 8), half = (c / 8) % kHalves, chunk = c % 8;
         GOFR_DCHECK(r < kF90BlockN);
         *reinterpret_cast<uint4*>(vs + half * kF90Half + r * 128 + chunk * 16) =
             make_uint4(0, 0, 0, 0);
@@ -425,7 +456,7 @@ __global__ void __launch_bounds__(kF90Threads, 1) flash_fwd_sm90_kernel(
       pf[i / 2][(i & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
     }
 #pragma unroll
-    for (int n = 0; n < 16; ++n) {
+    for (int n = 0; n < D / 8; ++n) {
       o[4 * n + 0] *= alpha[0];
       o[4 * n + 1] *= alpha[0];
       o[4 * n + 2] *= alpha[1];
@@ -434,7 +465,12 @@ __global__ void __launch_bounds__(kF90Threads, 1) flash_fwd_sm90_kernel(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) {
-      wgmma_m64n128k16_rs_tb(o, pf[kk], smem_desc(v_addr + kk * 16 * 128, kF90Half, 1024));
+      const uint64_t v_desc = smem_desc(v_addr + kk * 16 * 128, kF90Half, 1024);
+      if constexpr (D == 128) {
+        wgmma_m64n128k16_rs_tb(o, pf[kk], v_desc);
+      } else {
+        wgmma_m64n64k16_rs_tb(o, pf[kk], v_desc);
+      }
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -448,15 +484,15 @@ __global__ void __launch_bounds__(kF90Threads, 1) flash_fwd_sm90_kernel(
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
   }
-  const int64_t out_ss = (int64_t)a.hq * 128;  // out is [B, Sq, Hq, D] contiguous
-  __nv_bfloat16* ob = a.out + (int64_t)b * a.sq * out_ss + (int64_t)h * 128;
+  const int64_t out_ss = (int64_t)a.hq * D;  // out is [B, Sq, Hq, D] contiguous
+  __nv_bfloat16* ob = a.out + (int64_t)b * a.sq * out_ss + (int64_t)h * D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + row_in + r * 8;
     if (row >= a.sq) continue;
     const float inv = 1.f / (l_run[r] == 0.f ? 1.f : l_run[r]);
 #pragma unroll
-    for (int n = 0; n < 16; ++n) {
+    for (int n = 0; n < D / 8; ++n) {
       *reinterpret_cast<uint32_t*>(ob + row * out_ss + n * 8 + 2 * t) =
           pack_bf16(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
     }
@@ -467,44 +503,78 @@ __global__ void __launch_bounds__(kF90Threads, 1) flash_fwd_sm90_kernel(
   }
 }
 
-// ---------------------------------- bf16, D = 128, Sq x groups <= 16: decode
+// the two instances, each under its own name in ptxas's report
+__global__ void __launch_bounds__(kF90Threads, 1) flash_fwd_sm90_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, F90Args a) {
+  extern __shared__ uint8_t f90_smem_raw[];
+  sm90_fwd<128>(&qmap, &kmap, &vmap, a, f90_smem_raw);
+}
 
-// One block of 128 threads per (split, KV head, batch row); the `splits`
-// blocks of one (KV head, batch row) are one thread block cluster along x.
+__global__ void __launch_bounds__(kF90Threads, 1) flash_fwd_sm90_d64_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, F90Args a) {
+  extern __shared__ uint8_t f90_smem_raw[];
+  sm90_fwd<64>(&qmap, &kmap, &vmap, a, f90_smem_raw);
+}
+
+// ---------------------------------- bf16, D = 128, Sq x groups <= 32: decode
+
+// One block per (split, KV head, batch row); the `splits` blocks of one
+// (KV head, batch row) are one thread block cluster along x.
 // - The Sq x groups query rows of the KV head (the q heads of its GQA
-//   group at each q position, row r = s * groups + gi) are packed into one
-//   m16 tile: K and V are read once per KV head, not once per q head.
+//   group at each q position, row r = s * groups + gi) are packed into R
+//   m16 row tiles: K and V are read once per KV head, not once per q head,
+//   whatever the width.
+// - R = 1 (up to 16 rows: decode, and verify widths up to 4 at llama3-8b's
+//   groups of 4) is a block of 128 threads; R = 2 (17-32 rows: speculation's
+//   verify at widths 5-8) gives each row tile its own four warps, a block of
+//   256. Warp w takes row tile w / 4 and keys 16 (w % 4) of each tile, with
+//   the registers of the R = 1 kernel (its Q fragments, a 16 x 128 partial
+//   O): both row tiles read the same K/V ring, so the bytes stay the bound's.
+//   Two m16 tiles of four warps each, not one m64 wgmma tile over the
+//   packed rows: the mma.sync loop is the R = 1 kernel's, already at 0
+//   spills, and a wgmma m64 tile would compute 64 rows for 20-32.
 // - The keys any row may see, [0, min(kv_len, causal: q_offset + Sq)),
 //   are cut into 64-key tiles, and split s takes tiles [s * per, (s + 1) *
 //   per) with per = cdiv(tiles, splits): every block finds its own range
 //   from its row's kv_len on the device, so the host reads no device value.
 //   Keys past the range are never read (cp.async writes zeros there).
 // - A two-stage cp.async ring of K/V tiles keeps bytes in flight; each
-//   of the four warps takes 16 keys of a tile, S = Q.K^T and O += P.V by
-//   mma.sync m16n8k16, and its own online softmax (m, l, O) in base 2.
-//   Two stages (68 KB) let three blocks share an SM, which on the H100 was
-//   faster at batch 4 than three or four stages and about even at batch 1.
-//   (One 256-byte bulk copy a row through the TMA unit was slower than
-//   cp.async here: a tile is 128 such copies.)
-// - The merge: each block first merges its four warps' (m, l, O) in shared
-//   memory; after a cluster barrier each block reads its share of the
-//   (row, column) outputs from every block of the cluster through
-//   distributed shared memory and sums them in split order: deterministic,
-//   no atomics. A partial with l = 0 (no visible key) weighs exactly 0, and
-//   a row with no key at all gets out 0 and LSE +inf.
-constexpr int kDecRows = 16;  // packed query rows: one m16 tile
-constexpr int kDecThreads = 128;
+//   warp computes S = Q.K^T and O += P.V on its 16 keys by mma.sync
+//   m16n8k16, and its own online softmax (m, l, O) in base 2.
+//   Two stages (68 KB) let three R = 1 blocks share an SM, which on the H100
+//   was faster at batch 4 than three or four stages and about even at
+//   batch 1. (One 256-byte bulk copy a row through the TMA unit was slower
+//   than cp.async here: a tile is 128 such copies.)
+// - The merge: each block first merges its four key slices' (m, l, O) per
+//   row in shared memory (the ring's memory, or more: R = 2's partials,
+//   86 KB, outgrow its 68 KB ring); after a cluster barrier each block reads
+//   its share of the (row, column) outputs from every block of the cluster
+//   through distributed shared memory and sums them in split order:
+//   deterministic, no atomics. A partial with l = 0 (no visible key) weighs
+//   exactly 0, and a row with no key at all gets out 0 and LSE +inf.
+constexpr int kDecTileRows = 16;  // one m16 row tile
+constexpr int kDecRows = 32;  // packed query rows: at most two m16 row tiles
+constexpr int kDecThreads = 128;  // a row tile's warps
 constexpr int kDecWarps = kDecThreads / 32;
 constexpr int kDecBlockN = 16 * kDecWarps;  // keys per tile, 16 per warp
-constexpr int kDecStages = 2;      // 68 KB a block: three blocks an SM
+constexpr int kDecStages = 2;      // 68 KB a block: three R = 1 blocks an SM
 constexpr int kDecMaxSplits = 8;  // the portable thread block cluster size
 constexpr int kDecLd = 136;       // bf16 row pitch of a K/V tile (+16 bytes: no bank conflicts)
 constexpr int kDecTile = kDecBlockN * kDecLd;  // elements of one K or V tile
-constexpr int kDecOLd = 136;                   // f32 row pitch of a warp's partial O
-// the partials: each warp's (m, l, O), then the block's
-constexpr int kDecParts = (kDecWarps + 1) * kDecRows * (kDecOLd + 2);  // floats
-constexpr int kDecRing = kDecStages * 2 * kDecTile * 2;                      // bytes
-constexpr int kDecSmem = kDecRing > kDecParts * 4 ? kDecRing : kDecParts * 4;
+constexpr int kDecOLd = 136;                   // f32 row pitch of a partial O
+constexpr int kDecRing = kDecStages * 2 * kDecTile * 2;  // bytes
+// the partials of R row tiles: each key slice's (m, l, O), then the
+// block's; and a block's dynamic shared memory
+template <int R>
+__host__ __device__ constexpr int dec_parts() {  // floats
+  return (kDecWarps + 1) * R * kDecTileRows * (kDecOLd + 2);
+}
+template <int R>
+__host__ __device__ constexpr int dec_smem() {
+  return kDecRing > dec_parts<R>() * 4 ? kDecRing : dec_parts<R>() * 4;
+}
 
 struct DecArgs {
   const __nv_bfloat16 *q, *k, *v;
@@ -517,12 +587,16 @@ struct DecArgs {
   int causal;
 };
 
-__global__ void __launch_bounds__(kDecThreads) flash_fwd_decode_kernel(DecArgs a) {
-  extern __shared__ __align__(16) uint8_t dec_smem[];
+template <int R>
+__device__ __forceinline__ void decode_fwd(const DecArgs& a, uint8_t* dec_smem) {
+  constexpr int kThreadsR = R * kDecThreads;
+  constexpr int kRowsR = R * kDecTileRows;
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(dec_smem);  // stage s: K, then V
 
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int kw = warp % kDecWarps;  // this warp's 16 keys of each tile
+  const int rt = warp / kDecWarps;  // this warp's row tile
   const int rows = a.sq * a.groups;
   const int offset = a.offsets[b];
   const int kv_len = min(max(a.kv_lens[b], 0), a.skv);
@@ -533,7 +607,7 @@ __global__ void __launch_bounds__(kDecThreads) flash_fwd_decode_kernel(DecArgs a
   const int t_lo = split * per;
   const int nt = max(0, min(t_lo + per, n_tiles) - t_lo);
   const int k_hi = min((t_lo + nt) * kDecBlockN, kv_end);
-  GOFR_DCHECK((int)gridDim.x == a.splits && split < a.splits && rows <= kDecRows);
+  GOFR_DCHECK((int)gridDim.x == a.splits && split < a.splits && rows <= kRowsR);
   GOFR_DCHECK(kv_end <= kv_len && kv_len <= a.skv && k_hi <= kv_end && (nt == 0 || t_lo < n_tiles));
   const Strides& st = a.st;
   const __nv_bfloat16* kb = a.k + b * st.kb + hk * st.kh;
@@ -543,7 +617,7 @@ __global__ void __launch_bounds__(kDecThreads) flash_fwd_decode_kernel(DecArgs a
   auto load_tile = [&](int j, int stage) {
     const int k0 = (t_lo + j) * kDecBlockN;
     __nv_bfloat16* ks = ring + stage * 2 * kDecTile;
-    for (int c = tid; c < 2 * kDecBlockN * 16; c += kDecThreads) {
+    for (int c = tid; c < 2 * kDecBlockN * 16; c += kThreadsR) {
       const int which = c / (kDecBlockN * 16), r = (c / 16) % kDecBlockN, chunk = c % 16;
       const int pos = k0 + r;
       const bool live = pos < k_hi;
@@ -561,13 +635,13 @@ __global__ void __launch_bounds__(kDecThreads) flash_fwd_decode_kernel(DecArgs a
     cp_async_commit();
   }
 
-  // Q fragments of the packed rows g and g + 8 (zeros past the last row);
-  // every warp holds the same 16 rows
+  // Q fragments of the packed rows rt * 16 + g and + 8 (zeros past the
+  // last row); the four warps of a row tile hold the same 16 rows
   uint32_t qf[8][4];
   int lim[2];  // the last key position each of this thread's rows may see
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
-    const int row = g + rr * 8;
+    const int row = rt * kDecTileRows + g + rr * 8;
     const int s = row / a.groups, h = hk * a.groups + row % a.groups;
     lim[rr] = a.causal ? offset + s : INT_MAX;
     const __nv_bfloat16* qrow = a.q + b * st.qb + s * st.qs + h * st.qh;
@@ -592,9 +666,9 @@ __global__ void __launch_bounds__(kDecThreads) flash_fwd_decode_kernel(DecArgs a
     if (j + kDecStages - 1 < nt) load_tile(j + kDecStages - 1, (j + kDecStages - 1) % kDecStages);
     cp_async_commit();
 
-    const __nv_bfloat16* ks = ring + (j % kDecStages) * 2 * kDecTile + warp * 16 * kDecLd;
+    const __nv_bfloat16* ks = ring + (j % kDecStages) * 2 * kDecTile + kw * 16 * kDecLd;
     const __nv_bfloat16* vs = ks + kDecTile;
-    const int k0 = (t_lo + j) * kDecBlockN + warp * 16;  // this warp's 16 keys
+    const int k0 = (t_lo + j) * kDecBlockN + kw * 16;  // this warp's 16 keys
     float sc[2][4];
 #pragma unroll
     for (int n = 0; n < 2; ++n) {
@@ -659,15 +733,15 @@ __global__ void __launch_bounds__(kDecThreads) flash_fwd_decode_kernel(DecArgs a
   cp_async_wait<0>();
   __syncthreads();  // every tile consumed: the ring's memory takes the partials
 
-  float* part_o = reinterpret_cast<float*>(dec_smem);  // [warp][row][kDecOLd]
-  float* part_m = part_o + kDecWarps * kDecRows * kDecOLd;  // [warp][row]
-  float* part_l = part_m + kDecWarps * kDecRows;
-  float* blk_o = part_l + kDecWarps * kDecRows;  // the block's: [row][kDecOLd]
-  float* blk_m = blk_o + kDecRows * kDecOLd;  // [row]
-  float* blk_l = blk_m + kDecRows;
+  float* part_o = reinterpret_cast<float*>(dec_smem);  // [key slice][row][kDecOLd]
+  float* part_m = part_o + kDecWarps * kRowsR * kDecOLd;  // [key slice][row]
+  float* part_l = part_m + kDecWarps * kRowsR;
+  float* blk_o = part_l + kDecWarps * kRowsR;  // the block's: [row][kDecOLd]
+  float* blk_m = blk_o + kRowsR * kDecOLd;  // [row]
+  float* blk_l = blk_m + kRowsR;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = warp * kDecRows + g + 8 * r;
+    const int row = kw * kRowsR + rt * kDecTileRows + g + 8 * r;
 #pragma unroll
     for (int n = 0; n < 16; ++n) {
       *reinterpret_cast<float2*>(part_o + row * kDecOLd + n * 8 + 2 * t) =
@@ -679,23 +753,23 @@ __global__ void __launch_bounds__(kDecThreads) flash_fwd_decode_kernel(DecArgs a
     }
   }
   __syncthreads();
-  // the block's partial from its four warps': (m, l, O) with O relative to
-  // m. A partial with l = 0 (no visible key) weighs exactly 0.
-  for (int u = tid; u < rows * 64; u += kDecThreads) {
+  // the block's partial from its four key slices': (m, l, O) with O
+  // relative to m. A partial with l = 0 (no visible key) weighs exactly 0.
+  for (int u = tid; u < rows * 64; u += kThreadsR) {
     const int row = u / 64, c = (u % 64) * 2;
     float m_b = kNegInf;
 #pragma unroll
     for (int w = 0; w < kDecWarps; ++w) {
-      if (part_l[w * kDecRows + row] > 0.f) m_b = fmaxf(m_b, part_m[w * kDecRows + row]);
+      if (part_l[w * kRowsR + row] > 0.f) m_b = fmaxf(m_b, part_m[w * kRowsR + row]);
     }
     float l_b = 0.f, ox = 0.f, oy = 0.f;
 #pragma unroll
     for (int w = 0; w < kDecWarps; ++w) {  // a fixed order: deterministic
-      const float l_w = part_l[w * kDecRows + row];
+      const float l_w = part_l[w * kRowsR + row];
       if (l_w > 0.f) {
-        const float x = exp2_fast(part_m[w * kDecRows + row] - m_b);
+        const float x = exp2_fast(part_m[w * kRowsR + row] - m_b);
         const float2 o_w =
-            *reinterpret_cast<const float2*>(part_o + (w * kDecRows + row) * kDecOLd + c);
+            *reinterpret_cast<const float2*>(part_o + (w * kRowsR + row) * kDecOLd + c);
         l_b += l_w * x;
         ox += o_w.x * x;
         oy += o_w.y * x;
@@ -715,7 +789,7 @@ __global__ void __launch_bounds__(kDecThreads) flash_fwd_decode_kernel(DecArgs a
   const int units = rows * 64;
   const int u_per = (units + a.splits - 1) / a.splits;
   const int u_end = min((split + 1) * u_per, units);
-  for (int u = split * u_per + tid; u < u_end; u += kDecThreads) {
+  for (int u = split * u_per + tid; u < u_end; u += kThreadsR) {
     const int row = u / 64, c = (u % 64) * 2;
     float2 po[kDecMaxSplits];  // all loads in flight at once, then the sum
     float pm[kDecMaxSplits], pl[kDecMaxSplits];
@@ -755,6 +829,17 @@ __global__ void __launch_bounds__(kDecThreads) flash_fwd_decode_kernel(DecArgs a
   }
   __syncwarp();
   cluster_sync();  // no block leaves while another reads its shared memory
+}
+
+// the two instances, each under its own name in ptxas's report
+__global__ void __launch_bounds__(kDecThreads) flash_fwd_decode_kernel(DecArgs a) {
+  extern __shared__ __align__(16) uint8_t dec_smem[];
+  decode_fwd<1>(a, dec_smem);
+}
+
+__global__ void __launch_bounds__(2 * kDecThreads) flash_fwd_decode_r2_kernel(DecArgs a) {
+  extern __shared__ __align__(16) uint8_t dec_smem[];
+  decode_fwd<2>(a, dec_smem);
 }
 
 // ----------------------------------------------------------------- f32 path
@@ -962,6 +1047,44 @@ int dispatch(int dtype, int d, const Args& a) {
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_sm90(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+                const F90Args& a, dim3 grid, cudaStream_t stream) {
+  auto kernel = D == 128 ? flash_fwd_sm90_kernel : flash_fwd_sm90_d64_kernel;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, f90_smem<D>());
+  if (err != cudaSuccess) return (int)err;
+  if constexpr (D == 128) {
+    flash_fwd_sm90_kernel<<<grid, kF90Threads, f90_smem<D>(), stream>>>(qm, km, vm, a);
+  } else {
+    flash_fwd_sm90_d64_kernel<<<grid, kF90Threads, f90_smem<D>(), stream>>>(qm, km, vm, a);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int R>
+int launch_decode(const DecArgs& a, int hkv, int b, cudaStream_t stream) {
+  auto kernel = R == 1 ? flash_fwd_decode_kernel : flash_fwd_decode_r2_kernel;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dec_smem<R>());
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.splits, hkv, b);
+  cfg.blockDim = dim3(R * kDecThreads);
+  cfg.dynamicSmemBytes = dec_smem<R>();
+  cfg.stream = stream;
+  cudaLaunchAttribute attrs[1];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = a.splits;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -999,13 +1122,13 @@ int gofr_flash_fwd(int dtype, int head_dim, const void* q, const void* k, const 
   return dispatch(dtype, head_dim, a);
 }
 
-// The sm90 variant (bf16, D = 128, Sq >= 64; the caller picks it). q, k and
-// v rows must be 16-byte aligned (pointers and strides: TMA reads them).
-// grid is (Hq, B, cdiv(Sq, 128)), the q tiles launched longest first when
-// causal; ops/flash.py::fwd_sm90_grid computes it. Returns a cudaError_t
-// value (0 on success).
-int gofr_flash_fwd_sm90(const void* q, const void* k, const void* v, const void* offsets,
-                        const void* kv_lens, void* out, void* lse,
+// The sm90 variant (bf16, D = 64 or 128, Sq >= 64; the caller picks it).
+// q, k and v rows must be 16-byte aligned (pointers and strides: TMA reads
+// them). grid is (Hq, B, cdiv(Sq, 128)), the q tiles launched longest first
+// when causal; ops/flash.py::fwd_sm90_grid computes it. Returns a
+// cudaError_t value (0 on success).
+int gofr_flash_fwd_sm90(int head_dim, const void* q, const void* k, const void* v,
+                        const void* offsets, const void* kv_lens, void* out, void* lse,
                         int b, int sq, int skv, int hq, int hkv,
                         int64_t qsb, int64_t qss, int64_t qsh,
                         int64_t ksb, int64_t kss, int64_t ksh,
@@ -1015,17 +1138,14 @@ int gofr_flash_fwd_sm90(const void* q, const void* k, const void* v, const void*
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (grid_x != hq || grid_y != b || grid_z != (sq + kF90BlockM - 1) / kF90BlockM || sq < 1 ||
-      hkv < 1 || hq % hkv) {
+      hkv < 1 || hq % hkv || (head_dim != 64 && head_dim != 128)) {
     return (int)cudaErrorInvalidValue;
   }
   CUtensorMap qm, km, vm;
-  int rc = make_bf16_map(&qm, q, b, sq, hq, 128, qsb, qss, qsh, kF90BlockM);
-  if (rc == 0) rc = make_bf16_map(&km, k, b, skv, hkv, 128, ksb, kss, ksh, kF90BlockN);
-  if (rc == 0) rc = make_bf16_map(&vm, v, b, skv, hkv, 128, vsb, vss, vsh, kF90BlockN);
+  int rc = make_bf16_map(&qm, q, b, sq, hq, head_dim, qsb, qss, qsh, kF90BlockM);
+  if (rc == 0) rc = make_bf16_map(&km, k, b, skv, hkv, head_dim, ksb, kss, ksh, kF90BlockN);
+  if (rc == 0) rc = make_bf16_map(&vm, v, b, skv, hkv, head_dim, vsb, vss, vsh, kF90BlockN);
   if (rc != 0) return rc;
-  err = cudaFuncSetAttribute(flash_fwd_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kF90Smem);
-  if (err != cudaSuccess) return (int)err;
   F90Args a;
   a.offsets = static_cast<const int32_t*>(offsets);
   a.kv_lens = static_cast<const int32_t*>(kv_lens);
@@ -1038,15 +1158,17 @@ int gofr_flash_fwd_sm90(const void* q, const void* k, const void* v, const void*
   a.n_qt = grid_z;
   a.scale_log2 = scale * kLog2e;
   a.causal = causal;
-  flash_fwd_sm90_kernel<<<dim3(grid_x, grid_y, grid_z), kF90Threads, kF90Smem,
-                          static_cast<cudaStream_t>(stream)>>>(qm, km, vm, a);
-  return (int)cudaGetLastError();
+  const dim3 grid(grid_x, grid_y, grid_z);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return head_dim == 128 ? launch_sm90<128>(qm, km, vm, a, grid, st)
+                         : launch_sm90<64>(qm, km, vm, a, grid, st);
 }
 
-// The decode variant (bf16, D = 128, Sq x (Hq / Hkv) <= 16; the caller
-// picks it). k and v rows must be 16-byte aligned (pointers and strides:
-// cp.async reads them 16 bytes at a time). The grid is (splits, Hkv, B) in
-// clusters of `splits` <= 8 blocks along x; ops/flash.py::
+// The decode variant (bf16, D = 128, Sq x (Hq / Hkv) <= 32; the caller
+// picks it): the one-row-tile instance up to 16 packed rows, the two-tile
+// instance past them. k and v rows must be 16-byte aligned (pointers and
+// strides: cp.async reads them 16 bytes at a time). The grid is (splits,
+// Hkv, B) in clusters of `splits` <= 8 blocks along x; ops/flash.py::
 // fwd_decode_splits computes `splits` from B, Hkv and Skv. Returns a
 // cudaError_t value (0 on success).
 int gofr_flash_fwd_decode(const void* q, const void* k, const void* v, const void* offsets,
@@ -1062,9 +1184,6 @@ int gofr_flash_fwd_decode(const void* q, const void* k, const void* v, const voi
       splits > kDecMaxSplits) {
     return (int)cudaErrorInvalidValue;
   }
-  err = cudaFuncSetAttribute(flash_fwd_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kDecSmem);
-  if (err != cudaSuccess) return (int)err;
   DecArgs a;
   a.q = static_cast<const __nv_bfloat16*>(q);
   a.k = static_cast<const __nv_bfloat16*>(k);
@@ -1081,29 +1200,20 @@ int gofr_flash_fwd_decode(const void* q, const void* k, const void* v, const voi
   a.st = Strides{qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   a.scale_log2 = scale * kLog2e;
   a.causal = causal;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits, hkv, b);
-  cfg.blockDim = dim3(kDecThreads);
-  cfg.dynamicSmemBytes = kDecSmem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attrs[1];
-  attrs[0].id = cudaLaunchAttributeClusterDimension;
-  attrs[0].val.clusterDim.x = splits;
-  attrs[0].val.clusterDim.y = 1;
-  attrs[0].val.clusterDim.z = 1;
-  cfg.attrs = attrs;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, flash_fwd_decode_kernel, a);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return sq * a.groups > kDecTileRows ? launch_decode<2>(a, hkv, b, st)
+                                      : launch_decode<1>(a, hkv, b, st);
 }
 
 const char* gofr_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Dynamic shared memory of a block of the sm90 and decode variants, in bytes.
-int gofr_flash_fwd_sm90_smem() { return kF90Smem; }
-int gofr_flash_fwd_decode_smem() { return kDecSmem; }
+// Dynamic shared memory of a block of each instance of the sm90 and decode
+// variants, in bytes.
+int gofr_flash_fwd_sm90_smem() { return f90_smem<128>(); }
+int gofr_flash_fwd_sm90_d64_smem() { return f90_smem<64>(); }
+int gofr_flash_fwd_decode_smem() { return dec_smem<1>(); }
+int gofr_flash_fwd_decode_r2_smem() { return dec_smem<2>(); }
 
 }  // extern "C"

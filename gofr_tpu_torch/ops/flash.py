@@ -22,15 +22,21 @@ geometry computed here (``fwd_sm90_grid``, ``fwd_decode_splits``,
   ``mbarrier``s, warp specialisation, longest-first launch order; dK/dV
   sums the GQA group across a thread block cluster), takes bf16 at D = 128
   (the forward: Sq >= 64, so training and serving prefill; dQ and dK/dV:
-  every such call, so the training path);
-- "decode", the forward's decode route (bf16, D = 128, Sq x groups <= 16):
-  the GQA group's query rows packed into one tile, split-KV across a
-  thread block cluster, one deterministic merge;
+  every such call, so the training path), and the forward also at D = 64
+  (the encoder);
+- "decode", the forward's decode route (bf16, D = 128, Sq x groups <= 32):
+  the GQA group's query rows packed into one m16 row tile (decode), or two
+  (speculation's verify past 16 rows), split-KV across a thread block
+  cluster, one deterministic merge;
 - "mma", the ``mma.sync`` kernels, takes the rest (short tails, f32,
-  other head dims) and stays forcible with ``variant="mma"`` for timing.
+  D = 64 decode, other head dims) and stays forcible with ``variant="mma"``
+  for timing.
+Each forward variant but mma has one instance per shape class
+(``fwd_instance``: "sm90" / "sm90_d64", "decode" / "decode_r2").
 ``launches``, ``launches_dq`` and ``launches_dkv`` count every variant;
 ``launches_fwd_sm90``, ``launches_fwd_decode``, ``launches_dq_sm90`` and
-``launches_dkv_sm90`` one variant each.
+``launches_dkv_sm90`` one variant each; ``launches_fwd_instance[name]`` one
+forward instance each, by its ``fwd_instance`` name.
 
 Layouts: q [B, Sq, Hq, D]; k, v [B, Skv, Hkv, D]; Hq % Hkv == 0.
 ``q_offset`` (scalar or [B]) is the absolute position of q row 0;
@@ -108,6 +114,10 @@ class LaunchCounter:
 launches = LaunchCounter()  # the forward, every variant
 launches_fwd_sm90 = LaunchCounter()  # the forward's sm90 variant alone
 launches_fwd_decode = LaunchCounter()  # the forward's decode variant alone
+# the forward's instances, one counter each, by their ``fwd_instance`` name
+launches_fwd_instance = {
+    name: LaunchCounter() for name in ("sm90", "sm90_d64", "decode", "decode_r2", "mma")
+}
 launches_dq = LaunchCounter()  # the backward's dQ kernel, both variants
 launches_dq_sm90 = LaunchCounter()  # the dQ kernel's sm90 variant alone
 launches_dkv = LaunchCounter()  # the backward's dK/dV kernel, both variants
@@ -116,7 +126,9 @@ launches_dkv_sm90 = LaunchCounter()  # the dK/dV kernel's sm90 variant alone
 # The redesigned kernels' tiles, as in csrc/flash_fwd.cu and csrc/flash_bwd.cu
 FWD_SM90_BLOCK_Q = 128
 FWD_SM90_MIN_SQ = 64
-FWD_DECODE_ROWS = 16  # packed query rows (Sq x groups): one m16 tile
+FWD_SM90_HEAD_DIMS = (64, 128)  # one instance each
+FWD_DECODE_TILE_ROWS = 16  # one m16 row tile
+FWD_DECODE_ROWS = 32  # packed query rows (Sq x groups): at most two m16 row tiles
 FWD_DECODE_BLOCK_KV = 64  # keys per tile; a split takes whole tiles
 DQ_SM90_BLOCK_Q = 128
 DKV_SM90_BLOCK_KV = 128
@@ -127,7 +139,9 @@ DECODE_TARGET_BLOCKS = 264
 # that gives its dynamic shared memory
 SMEM_QUERIES = {
     "flash_fwd_sm90_kernel": "gofr_flash_fwd_sm90_smem",
+    "flash_fwd_sm90_d64_kernel": "gofr_flash_fwd_sm90_d64_smem",
     "flash_fwd_decode_kernel": "gofr_flash_fwd_decode_smem",
+    "flash_fwd_decode_r2_kernel": "gofr_flash_fwd_decode_r2_smem",
     "flash_bwd_dq_sm90_kernel": "gofr_flash_bwd_dq_sm90_smem",
     "flash_bwd_dkv_sm90_kernel": "gofr_flash_bwd_dkv_sm90_smem",
 }
@@ -141,17 +155,36 @@ def _tma_ok(t: torch.Tensor) -> bool:
 
 def fwd_variant(q: torch.Tensor, k: torch.Tensor) -> str:
     """Which forward kernel takes a call: "decode" for bf16, D = 128 and
-    Sq x groups <= 16 (the query rows of one KV head fit one m16 tile:
-    Sq <= 4 at llama3-8b's groups of 4, Sq = 1 up to groups of 16; the
-    serving path's decode); "sm90" for bf16, D = 128, Sq >= 64 with 16-byte
-    aligned q rows (training and serving prefill); "mma", the mma kernel,
-    for the rest (short tails, f32, other D)."""
+    Sq x groups <= 32 (the query rows of one KV head fit two m16 tiles:
+    Sq <= 8 at llama3-8b's groups of 4, Sq = 1 up to groups of 32; the
+    serving path's decode and speculation's verify); "sm90" for bf16,
+    D = 64 or 128, Sq >= 64 with 16-byte aligned q rows (training, serving
+    prefill, and bert's encoder on its strided ``wqkv`` views); "mma", the
+    mma kernel, for the rest (short tails, f32, D = 64 decode, other D)."""
     sq, d = q.shape[1], q.shape[3]
-    if q.dtype != torch.bfloat16 or d != 128:
+    if q.dtype != torch.bfloat16 or d not in FWD_SM90_HEAD_DIMS:
         return "mma"
-    if sq * (q.shape[2] // k.shape[2]) <= FWD_DECODE_ROWS:
+    if d == 128 and sq * (q.shape[2] // k.shape[2]) <= FWD_DECODE_ROWS:
         return "decode"
     return "sm90" if sq >= FWD_SM90_MIN_SQ and _tma_ok(q) else "mma"
+
+
+def fwd_decode_row_tiles(sq: int, groups: int) -> int:
+    """m16 row tiles of the decode instance a call takes (Sq x groups
+    packed rows): 1 up to 16 rows, 2 up to 32."""
+    return -(-sq * groups // FWD_DECODE_TILE_ROWS)
+
+
+def fwd_instance(q: torch.Tensor, k: torch.Tensor, variant: Optional[str] = None) -> str:
+    """The kernel instance a forward call launches: "sm90" (D = 128) or
+    "sm90_d64", "decode" (one row tile) or "decode_r2" (two), or "mma".
+    ``variant`` as ``_launch`` takes it (the shape's pick when None)."""
+    variant = variant or fwd_variant(q, k)
+    if variant == "sm90" and q.shape[3] == 64:
+        return "sm90_d64"
+    if variant == "decode" and fwd_decode_row_tiles(q.shape[1], q.shape[2] // k.shape[2]) == 2:
+        return "decode_r2"
+    return variant
 
 
 def fwd_sm90_grid(b: int, sq: int, hq: int) -> tuple[int, int, int]:
@@ -160,13 +193,21 @@ def fwd_sm90_grid(b: int, sq: int, hq: int) -> tuple[int, int, int]:
     return hq, b, -(-sq // FWD_SM90_BLOCK_Q)
 
 
-def fwd_decode_splits(b: int, hkv: int, skv: int) -> int:
+def fwd_decode_splits(b: int, hkv: int, skv: int, row_tiles: int = 1) -> int:
     """Split-KV blocks per (batch row, KV head): enough for about two
     blocks an SM, at most one per 64-key tile of the cache and at most a
     portable cluster. From shapes alone (no device value): each block
-    finds its own key range from its row's kv_len."""
+    finds its own key range from its row's kv_len. The two-row-tile
+    instance (``row_tiles`` 2) holds one block an SM (168 registers x 256
+    threads), so its count rounds down, to at most two whole waves. That
+    rule is tuned for the verifies served: the pool's 8 slots and the solo
+    B = 1. On the H100 the pool's verify [8, 5] took 0.0305 ms at 4 splits,
+    0.0355 at 5; elsewhere it is not the best count (B = 4, Sq = 5: 0.0295
+    ms at its 8 splits, 0.0240 at 3)."""
     tiles = -(-skv // FWD_DECODE_BLOCK_KV)
-    return max(1, min(MAX_CLUSTER, tiles, -(-DECODE_TARGET_BLOCKS // max(1, b * hkv))))
+    pairs = max(1, b * hkv)
+    target = -(-DECODE_TARGET_BLOCKS // pairs) if row_tiles == 1 else DECODE_TARGET_BLOCKS // pairs
+    return max(1, min(MAX_CLUSTER, tiles, target))
 
 
 def dq_variant(q: torch.Tensor) -> str:
@@ -230,115 +271,138 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def _compile(sources: list[Path], flags: tuple, build_dir: Path, tag: str, path: Path) -> str:
+    """nvcc on every source at once, then the link, in a directory of this
+    process and thread; the library is renamed into ``path`` (its log
+    beside it first), so a reader of ``path`` never sees half a file. ->
+    what nvcc said. Raises RuntimeError with it if a step fails."""
+    nvcc = _nvcc()
+    tmp = build_dir / f"{tag}.{os.getpid()}.{threading.get_ident()}"
+    tmp.mkdir(exist_ok=True)
+    try:
+        objs = [tmp / f"{src.stem}.o" for src in sources]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *flags, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for src, obj in zip(sources, objs)
+        ]
+        log = ""
+        for src, proc in zip(sources, procs):
+            log += f"== {src.name}\n{proc.communicate()[0]}"
+        failed = [src.name for src, proc in zip(sources, procs) if proc.returncode != 0]
+        if not failed:
+            link = subprocess.run(
+                [nvcc, *flags, "-shared", "-o", str(tmp / "lib.so"), *map(str, objs)],
+                capture_output=True, text=True,
+            )
+            log += link.stdout + link.stderr
+            if link.returncode != 0:
+                failed = ["link"]
+        if failed:
+            raise RuntimeError(f"nvcc failed building {', '.join(failed)}:\n{log}")
+        (tmp / "lib.log").write_text(log)
+        os.replace(tmp / "lib.log", path.with_suffix(".log"))
+        os.replace(tmp / "lib.so", path)
+        return log
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def build() -> _Built:
     """Compile every ``csrc/*.cu`` (one nvcc per source, all at once) and
-    link them into one library, once per process and per hash of the
-    sources, headers and flags; then load it. Raises RuntimeError with
+    link them into one library, once per hash of the sources, headers and
+    flags; then load it, once per process. Raises RuntimeError with
     nvcc's output if a step fails. Under ``FLASH_DEBUG_BUILD=1`` the
-    library is the debug build (``DEBUG_FLAGS``, in ``_build/debug/``)."""
+    library is the debug build (``DEBUG_FLAGS``, in ``_build/debug/``).
+    nvcc runs outside ``_build_lock`` (``_compile`` renames its result into
+    place): threads that race here may each compile, and the first to take
+    the lock after loads the one library every caller gets."""
     global _built
     with _build_lock:
         if _built is not None:
             return _built
-        flags = NVCC_FLAGS + (DEBUG_FLAGS if debug_build() else ())
-        build_dir = BUILD_DIR / "debug" if debug_build() else BUILD_DIR
-        sources = _sources()
-        digest = hashlib.sha256(" ".join(flags).encode())
-        for src in sources + sorted(CSRC.glob("*.cuh")):
-            digest.update(src.name.encode() + src.read_bytes())
-        tag = digest.hexdigest()[:16]
-        build_dir.mkdir(parents=True, exist_ok=True)
-        path = build_dir / f"libflash_{tag}.so"
-        start = time.perf_counter()
+    flags = NVCC_FLAGS + (DEBUG_FLAGS if debug_build() else ())
+    build_dir = BUILD_DIR / "debug" if debug_build() else BUILD_DIR
+    sources = _sources()
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for src in sources + sorted(CSRC.glob("*.cuh")):
+        digest.update(src.name.encode() + src.read_bytes())
+    tag = digest.hexdigest()[:16]
+    build_dir.mkdir(parents=True, exist_ok=True)
+    path = build_dir / f"libflash_{tag}.so"
+    start = time.perf_counter()
+    if not path.exists():
+        log = _compile(sources, flags, build_dir, tag, path)
+    elif path.with_suffix(".log").exists():
+        log = path.with_suffix(".log").read_text()  # what that build reported
+    else:
         log = ""
-        if not path.exists():
-            nvcc = _nvcc()
-            tmp = build_dir / f"{tag}.{os.getpid()}"
-            tmp.mkdir(exist_ok=True)
-            objs = [tmp / f"{src.stem}.o" for src in sources]
-            procs = [
-                subprocess.Popen(
-                    [nvcc, *flags, "-c", "-o", str(obj), str(src)],
-                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                )
-                for src, obj in zip(sources, objs)
-            ]
-            for src, proc in zip(sources, procs):
-                log += f"== {src.name}\n{proc.communicate()[0]}"
-            failed = [src.name for src, proc in zip(sources, procs) if proc.returncode != 0]
-            if not failed:
-                link = subprocess.run(
-                    [nvcc, *flags, "-shared", "-o", str(tmp / "lib.so"), *map(str, objs)],
-                    capture_output=True, text=True,
-                )
-                log += link.stdout + link.stderr
-                if link.returncode != 0:
-                    failed = ["link"]
-            if failed:
-                raise RuntimeError(f"nvcc failed building {', '.join(failed)}:\n{log}")
-            path.with_suffix(".log").write_text(log)
-            os.replace(tmp / "lib.so", path)
-            shutil.rmtree(tmp, ignore_errors=True)
-        elif path.with_suffix(".log").exists():
-            log = path.with_suffix(".log").read_text()  # what that build reported
-        lib = ctypes.CDLL(str(path))
-        fwd = lib.gofr_flash_fwd
-        fwd.restype = ctypes.c_int
-        fwd.argtypes = (
-            [ctypes.c_int, ctypes.c_int]
-            + [ctypes.c_void_p] * 7
-            + [ctypes.c_int] * 5
-            + [ctypes.c_int64] * 9
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        )
-        bwd = lib.gofr_flash_bwd
-        bwd.restype = ctypes.c_int
-        bwd.argtypes = (
-            [ctypes.c_int] * 3
-            + [ctypes.c_void_p] * 11
-            + [ctypes.c_int] * 5
-            + [ctypes.c_int64] * 9
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        )
-        fwd90 = lib.gofr_flash_fwd_sm90
-        fwd90.restype = ctypes.c_int
-        fwd90.argtypes = (
-            [ctypes.c_void_p] * 7
-            + [ctypes.c_int] * 5
-            + [ctypes.c_int64] * 9
-            + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        )
-        dec = lib.gofr_flash_fwd_decode
-        dec.restype = ctypes.c_int
-        dec.argtypes = (
-            [ctypes.c_void_p] * 7
-            + [ctypes.c_int] * 5
-            + [ctypes.c_int64] * 9
-            + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        )
-        dq90 = lib.gofr_flash_bwd_dq_sm90
-        dq90.restype = ctypes.c_int
-        dq90.argtypes = (
-            [ctypes.c_void_p] * 9
-            + [ctypes.c_int] * 5
-            + [ctypes.c_int64] * 9
-            + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        )
-        dkv90 = lib.gofr_flash_bwd_dkv_sm90
-        dkv90.restype = ctypes.c_int
-        dkv90.argtypes = (
-            [ctypes.c_void_p] * 10
-            + [ctypes.c_int] * 5
-            + [ctypes.c_int64] * 9
-            + [ctypes.c_float] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        )
-        for name in SMEM_QUERIES.values():
-            getattr(lib, name).restype = ctypes.c_int
-            getattr(lib, name).argtypes = []
-        lib.gofr_cuda_error_string.restype = ctypes.c_char_p
-        lib.gofr_cuda_error_string.argtypes = [ctypes.c_int]
-        _built = _Built(lib, path, time.perf_counter() - start, log)
+    with _build_lock:
+        if _built is None:
+            _built = _Built(_bind(ctypes.CDLL(str(path))), path, time.perf_counter() - start, log)
         return _built
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The library's entries with their C signatures."""
+    fwd = lib.gofr_flash_fwd
+    fwd.restype = ctypes.c_int
+    fwd.argtypes = (
+        [ctypes.c_int, ctypes.c_int]
+        + [ctypes.c_void_p] * 7
+        + [ctypes.c_int] * 5
+        + [ctypes.c_int64] * 9
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    )
+    bwd = lib.gofr_flash_bwd
+    bwd.restype = ctypes.c_int
+    bwd.argtypes = (
+        [ctypes.c_int] * 3
+        + [ctypes.c_void_p] * 11
+        + [ctypes.c_int] * 5
+        + [ctypes.c_int64] * 9
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    )
+    fwd90 = lib.gofr_flash_fwd_sm90
+    fwd90.restype = ctypes.c_int
+    fwd90.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 7
+        + [ctypes.c_int] * 5
+        + [ctypes.c_int64] * 9
+        + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    )
+    dec = lib.gofr_flash_fwd_decode
+    dec.restype = ctypes.c_int
+    dec.argtypes = (
+        [ctypes.c_void_p] * 7
+        + [ctypes.c_int] * 5
+        + [ctypes.c_int64] * 9
+        + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    )
+    dq90 = lib.gofr_flash_bwd_dq_sm90
+    dq90.restype = ctypes.c_int
+    dq90.argtypes = (
+        [ctypes.c_void_p] * 9
+        + [ctypes.c_int] * 5
+        + [ctypes.c_int64] * 9
+        + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    )
+    dkv90 = lib.gofr_flash_bwd_dkv_sm90
+    dkv90.restype = ctypes.c_int
+    dkv90.argtypes = (
+        [ctypes.c_void_p] * 10
+        + [ctypes.c_int] * 5
+        + [ctypes.c_int64] * 9
+        + [ctypes.c_float] + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    )
+    for name in SMEM_QUERIES.values():
+        getattr(lib, name).restype = ctypes.c_int
+        getattr(lib, name).argtypes = []
+    lib.gofr_cuda_error_string.restype = ctypes.c_char_p
+    lib.gofr_cuda_error_string.argtypes = [ctypes.c_int]
+    return lib
 
 
 def build_report(built: _Built) -> dict:
@@ -473,7 +537,9 @@ def _launch(
     lens: torch.Tensor, causal: bool, scale: float, variant: Optional[str] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The forward kernel; ``variant`` overrides the shape's pick (to time
-    the mma kernel beside the sm90 and decode variants)."""
+    the mma kernel beside the sm90 and decode variants). The sm90 and
+    decode entries pick their instance from the head dim and the packed
+    rows, as ``fwd_instance`` does."""
     _check(q, k, v)
     built = build()
     b, sq, hq, d = q.shape
@@ -489,13 +555,14 @@ def _launch(
     variant = _pick("flash_fwd", fwd_variant(q, k), variant)
     if variant == "sm90":
         rc = built.lib.gofr_flash_fwd_sm90(
-            *ptrs, b, sq, skv, hq, hkv, *strides, float(scale), int(causal),
+            d, *ptrs, b, sq, skv, hq, hkv, *strides, float(scale), int(causal),
             *fwd_sm90_grid(b, sq, hq), q.device.index or 0, stream,
         )
     elif variant == "decode":
         rc = built.lib.gofr_flash_fwd_decode(
             *ptrs, b, sq, skv, hq, hkv, *strides, float(scale), int(causal),
-            fwd_decode_splits(b, hkv, skv), q.device.index or 0, stream,
+            fwd_decode_splits(b, hkv, skv, fwd_decode_row_tiles(sq, hq // hkv)),
+            q.device.index or 0, stream,
         )
     else:
         rc = built.lib.gofr_flash_fwd(
@@ -504,6 +571,7 @@ def _launch(
         )
     _raise_on(built, rc, f"flash_fwd ({variant})")
     launches.add()
+    launches_fwd_instance[fwd_instance(q, k, variant)].add()
     if variant == "sm90":
         launches_fwd_sm90.add()
     elif variant == "decode":

@@ -2,8 +2,9 @@
 JAX package's Pallas forward kernel (``_flash_fwd_impl`` in interpret
 mode), out AND log-sum-exp, over every forward case of tests/test_flash.py;
 the wrapper's device dispatch and build failure; and, on a CUDA card only,
-the hand-written kernel against its plain version (its sm90, decode and
-mma variants).
+the hand-written kernel against its plain version (its sm90 variant at
+D = 128 and 64, its decode variant at one and two m16 row tiles, and the
+mma variant).
 
 Tolerances are the reference tests': f32 2e-5, bf16 2e-2 (atol and rtol).
 On the card: ``python3 -m pytest --noconftest tests/test_torch_flash.py -m cuda``.
@@ -228,13 +229,28 @@ def test_source_and_wrapper_agree():
     assert "grid_z != (sq + kF90BlockM - 1) / kF90BlockM" in src
     assert "int gofr_flash_fwd_sm90(" in src and "int gofr_flash_fwd_sm90_smem()" in src
     assert "a.causal ? a.n_qt - 1 - (int)blockIdx.z" in src  # longest first
-    # the decode variant: its packed rows, key tile, split bound, entry and
+    # the sm90 variant's two instances, picked by the head dim on the host
+    assert flash.FWD_SM90_HEAD_DIMS == (64, 128)
+    assert "(head_dim != 64 && head_dim != 128)" in src
+    assert ("return head_dim == 128 ? launch_sm90<128>(qm, km, vm, a, grid, st)\n"
+            "                         : launch_sm90<64>(qm, km, vm, a, grid, st);") in src
+    # the decode variant: its packed rows (two m16 row tiles at most), key
+    # tile, split bound, entry, the host's row check and instance pick, and
     # the split arithmetic the CPU tests copy (_decode_split_keys)
+    assert flash.FWD_DECODE_ROWS == 2 * flash.FWD_DECODE_TILE_ROWS == 32
     assert f"constexpr int kDecRows = {flash.FWD_DECODE_ROWS};" in src
+    assert f"constexpr int kDecTileRows = {flash.FWD_DECODE_TILE_ROWS};" in src
     assert "constexpr int kDecThreads = 128;" in src and flash.FWD_DECODE_BLOCK_KV == 16 * 128 // 32
     assert "constexpr int kDecBlockN = 16 * kDecWarps;" in src
     assert f"constexpr int kDecMaxSplits = {flash.MAX_CLUSTER};" in src
     assert "sq * (hq / hkv) > kDecRows" in src
+    assert ("return sq * a.groups > kDecTileRows ? launch_decode<2>(a, hkv, b, st)\n"
+            "                                      : launch_decode<1>(a, hkv, b, st);") in src
+    assert "cfg.blockDim = dim3(R * kDecThreads);" in src  # four warps a row tile
+    for line in ("const int kw = warp % kDecWarps;", "const int rt = warp / kDecWarps;",
+                 "const int row = rt * kDecTileRows + g + rr * 8;",
+                 "lim[rr] = a.causal ? offset + s : INT_MAX;"):
+        assert line in src, line
     assert "int gofr_flash_fwd_decode(" in src and "int gofr_flash_fwd_decode_smem()" in src
     for line in ("const int kv_end = a.causal ? min(kv_len, max(0, offset + a.sq)) : kv_len;",
                  "const int per = (n_tiles + a.splits - 1) / a.splits;",
@@ -244,10 +260,15 @@ def test_source_and_wrapper_agree():
         assert line in src, line
     # the merge is deterministic: no atomic adds anywhere in the source
     assert "atomicAdd" not in src and "red.global" not in src
-    # every redesigned kernel reports its shared memory under its own name
+    # every redesigned kernel reports its shared memory under its own name,
+    # one entry per instance of the forward
+    assert [n for n in flash.SMEM_QUERIES if "fwd" in n] == [
+        "flash_fwd_sm90_kernel", "flash_fwd_sm90_d64_kernel", "flash_fwd_decode_kernel",
+        "flash_fwd_decode_r2_kernel"]
     for name, query in flash.SMEM_QUERIES.items():
         kernel_src = src if "fwd" in name else (flash.CSRC / "flash_bwd.cu").read_text()
         assert f"{name}(" in kernel_src and f"int {query}()" in kernel_src
+        assert sum(n in name for n in flash.SMEM_QUERIES) == 1  # ptxas's lines tell them apart
 
 
 def _q(dtype, sq, d, hq=4, b=1):
@@ -269,17 +290,33 @@ _VARIANTS = [
     ("decode groups 1", _q(_BF16, 1, 128, 8), _kv(_BF16, 128, 8), "decode"),
     ("decode groups 2", _q(_BF16, 1, 128, 16), _kv(_BF16, 128, 8), "decode"),
     ("decode groups 8", _q(_BF16, 1, 128, 32), _kv(_BF16, 128, 4), "decode"),
-    # the largest Sq the decode variant packs (Sq x groups <= 16), and one more
+    # one m16 row tile (Sq x groups <= 16), and past it two (<= 32)
     ("groups 4 Sq=4", _q(_BF16, 4, 128, 32), _kv(_BF16, 128, 8), "decode"),
-    ("groups 4 Sq=5", _q(_BF16, 5, 128, 32), _kv(_BF16, 128, 8), "mma"),
+    ("groups 4 Sq=5", _q(_BF16, 5, 128, 32), _kv(_BF16, 128, 8), "decode"),
     ("groups 1 Sq=16", _q(_BF16, 16, 128, 8), _kv(_BF16, 128, 8), "decode"),
-    ("groups 1 Sq=17", _q(_BF16, 17, 128, 8), _kv(_BF16, 128, 8), "mma"),
+    ("groups 1 Sq=17", _q(_BF16, 17, 128, 8), _kv(_BF16, 128, 8), "decode"),
     ("groups 8 Sq=2", _q(_BF16, 2, 128, 32), _kv(_BF16, 128, 4), "decode"),
-    ("groups 8 Sq=3", _q(_BF16, 3, 128, 32), _kv(_BF16, 128, 4), "mma"),
+    ("groups 8 Sq=3", _q(_BF16, 3, 128, 32), _kv(_BF16, 128, 4), "decode"),
+    # the largest Sq the decode variant packs in two row tiles, and one more
+    ("groups 4 Sq=8", _q(_BF16, 8, 128, 32), _kv(_BF16, 128, 8), "decode"),
+    ("groups 4 Sq=9", _q(_BF16, 9, 128, 32), _kv(_BF16, 128, 8), "mma"),
+    ("groups 8 Sq=4", _q(_BF16, 4, 128, 32), _kv(_BF16, 128, 4), "decode"),
+    ("groups 8 Sq=5", _q(_BF16, 5, 128, 32), _kv(_BF16, 128, 4), "mma"),
+    ("groups 1 Sq=32", _q(_BF16, 32, 128, 8), _kv(_BF16, 128, 8), "decode"),
+    ("groups 1 Sq=33", _q(_BF16, 33, 128, 8), _kv(_BF16, 128, 8), "mma"),
     ("decode f32 D=128", _q(torch.float32, 1, 128, 32), _kv(torch.float32, 128, 8), "mma"),
     ("decode bf16 D=64", _q(_BF16, 1, 64, 32), _kv(_BF16, 64, 8), "mma"),
     ("f32 D=128", _q(torch.float32, 2048, 128), _kv(torch.float32, 128), "mma"),
-    ("bf16 D=64", _q(_BF16, 256, 64), _kv(_BF16, 64), "mma"),
+    ("bf16 D=64", _q(_BF16, 256, 64), _kv(_BF16, 64), "sm90"),
+    ("bf16 D=64 Sq=64", _q(_BF16, 64, 64, 12), _kv(_BF16, 64, 12), "sm90"),
+    ("bf16 D=64 Sq=63", _q(_BF16, 63, 64, 12), _kv(_BF16, 64, 12), "mma"),
+    ("bf16 D=64 Sq=4 (no decode instance at D=64)", _q(_BF16, 4, 64, 32), _kv(_BF16, 64, 8),
+     "mma"),
+    # bert-base's q/k/v: strided views of the fused wqkv product [B, S, 3, 12, 64]
+    ("bert wqkv view D=64", torch.zeros(8, 128, 3, 12, 64, dtype=_BF16)[:, :, 0],
+     torch.zeros(8, 128, 3, 12, 64, dtype=_BF16)[:, :, 1], "sm90"),
+    ("misaligned rows D=64", torch.zeros(1, 128, 4, 68, dtype=_BF16)[..., :64], _kv(_BF16, 64),
+     "mma"),
     ("bf16 D=16 tiny model", _q(_BF16, 128, 16), _kv(_BF16, 16), "mma"),
     # a q whose rows are not 16-byte aligned: TMA cannot read it
     ("misaligned rows", torch.zeros(1, 128, 4, 132, dtype=_BF16)[..., :128], _kv(_BF16, 128),
@@ -294,6 +331,40 @@ _VARIANTS = [
 def test_forward_variant_by_shape(case):
     _, q, k, want = case
     assert flash.fwd_variant(q, k) == want
+
+
+# (q, k, the kernel instance a call launches)
+_INSTANCES = [
+    ("decode Sq=1 groups 4", _q(_BF16, 1, 128, 32), _kv(_BF16, 128, 8), "decode"),
+    ("verify Sq=4 groups 4: 16 rows", _q(_BF16, 4, 128, 32), _kv(_BF16, 128, 8), "decode"),
+    ("verify Sq=5 groups 4: 20 rows", _q(_BF16, 5, 128, 32), _kv(_BF16, 128, 8), "decode_r2"),
+    ("verify Sq=8 groups 4: 32 rows", _q(_BF16, 8, 128, 32), _kv(_BF16, 128, 8), "decode_r2"),
+    ("Sq=3 groups 8: 24 rows", _q(_BF16, 3, 128, 32), _kv(_BF16, 128, 4), "decode_r2"),
+    ("training D=128", _q(_BF16, 2048, 128, 32), _kv(_BF16, 128, 8), "sm90"),
+    ("bert D=64", _q(_BF16, 128, 64, 12), _kv(_BF16, 64, 12), "sm90_d64"),
+    ("f32 D=64", _q(torch.float32, 128, 64, 12), _kv(torch.float32, 64, 12), "mma"),
+]
+
+
+@pytest.mark.parametrize("case", _INSTANCES, ids=[c[0] for c in _INSTANCES])
+def test_forward_instance_by_shape(case):
+    _, q, k, want = case
+    assert flash.fwd_instance(q, k) == want
+    assert flash.fwd_instance(q, k, "mma") == "mma"  # the override reaches the mma kernel
+
+
+def test_every_instance_has_its_counter():
+    # _launch adds one to launches_fwd_instance[fwd_instance(...)]: every
+    # instance a shape picks has its counter, and every counter an instance
+    picked = {flash.fwd_instance(q, k) for _, q, k, _ in _VARIANTS + _INSTANCES}
+    assert picked == set(flash.launches_fwd_instance)
+
+
+@pytest.mark.parametrize("sq, groups, want", [
+    (1, 1, 1), (1, 16, 1), (4, 4, 1), (5, 4, 2), (8, 4, 2), (17, 1, 2), (32, 1, 2), (2, 16, 2),
+])
+def test_decode_row_tiles(sq, groups, want):
+    assert flash.fwd_decode_row_tiles(sq, groups) == want
 
 
 @pytest.mark.parametrize("b, sq, hq, want", [
@@ -318,6 +389,20 @@ def test_forward_sm90_grid(b, sq, hq, want):
 def test_forward_decode_splits(b, hkv, skv, want):
     splits = flash.fwd_decode_splits(b, hkv, skv)
     assert splits == want and 1 <= splits <= flash.MAX_CLUSTER
+
+
+@pytest.mark.parametrize("b, hkv, skv, want", [
+    (8, 8, 2048, 4),  # the pool's verify at widths 5-8: two whole waves, not 2.4
+    (1, 8, 2048, 8),  # the solo verify: a full cluster
+    (4, 8, 2048, 8),
+    (16, 8, 2048, 2),
+    (64, 8, 2048, 1),  # past two waves at one split: still one
+    (1, 8, 128, 2),  # one split per 64-key tile of a short cache
+])
+def test_forward_decode_splits_two_row_tiles(b, hkv, skv, want):
+    # the two-row-tile instance holds one block an SM: its splits round down
+    splits = flash.fwd_decode_splits(b, hkv, skv, row_tiles=2)
+    assert splits == want and b * hkv * splits <= max(flash.DECODE_TARGET_BLOCKS, b * hkv)
 
 
 def _decode_split_keys(kv_end, splits, s):
@@ -387,6 +472,214 @@ def test_decode_split_and_merge_matches_whole_range_and_pallas(dtype, splits):
     want = _jax_fwd(q, k, v, True, offs, lens, dtype=dtype, block_q=16, block_kv=16)
     _assert_match(got, want, tol)
     assert np.all(got[0][0] == 0) and np.all(np.isposinf(got[1][0]))
+
+
+# the verify widths past one m16 row tile (groups 4: Sq x 4 > 16), and the
+# encoder's non-causal ragged call at D = 64: the plain version against the
+# Pallas kernel
+_WIDE_CASES = [
+    # name, (b, sq, skv, hq, hkv, d), causal, lengths before the call
+    ("verify Sq=5 groups 4", (3, 5, 96, 8, 2, 128), True, [0, 37, 90]),
+    ("verify Sq=8 groups 4", (3, 8, 96, 8, 2, 128), True, [0, 41, 88]),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", _WIDE_CASES, ids=[c[0] for c in _WIDE_CASES])
+def test_ref_matches_pallas_at_the_wide_verify(case, dtype):
+    # offsets = the rows' lengths, kv_len = length + Sq (the verify writes
+    # its Sq tokens first); the plain version reads a cache that is NaN past
+    # kv_len, the Pallas kernel the same cache with zeros there (its P.V
+    # would carry 0 * NaN): the tail must not show
+    name, (b, sq, skv, hq, hkv, d), causal, lengths = case
+    tdt, tol = (torch.float32, F32_TOL) if dtype == "float32" else (torch.bfloat16, BF16_TOL)
+    q, k, v = _inputs(60 + sq, b, sq, skv, hq, hkv, d)
+    lens = [n + sq for n in lengths]
+    tail = np.arange(skv)[None, :] >= np.asarray(lens)[:, None]
+    k[tail], v[tail] = 0.0, 0.0
+    want = _jax_fwd(q, k, v, causal, lengths, lens, dtype=dtype, block_q=16, block_kv=16)
+    k[tail], v[tail] = np.nan, np.nan
+    got = _torch_fwd(q, k, v, causal, lengths, lens, dtype=tdt)
+    _assert_match(got, want, tol)
+    assert np.isfinite(got[0]).all() and np.isfinite(got[1]).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ref_matches_pallas_at_the_encoder_d64(dtype):
+    # bert's attention: non-causal, D = 64, ragged kv_lens with 1 and the
+    # full length, q/k/v strided views of one fused product
+    tdt, tol = (torch.float32, F32_TOL) if dtype == "float32" else (torch.bfloat16, BF16_TOL)
+    b, s, h, d = 4, 40, 2, 64
+    qkv = np.random.default_rng(77).standard_normal((b, s, 3, h, d), dtype=np.float32)
+    lens = [1, 40, 17, 5]
+    q, k, v = (qkv[:, :, i] for i in range(3))
+    want = _jax_fwd(np.ascontiguousarray(q), np.ascontiguousarray(k), np.ascontiguousarray(v),
+                    False, 0, lens, dtype=dtype, block_q=8, block_kv=8)
+    fused = torch.from_numpy(qkv).to(tdt)
+    out, lse = flash.flash_attention_ref(fused[:, :, 0], fused[:, :, 1], fused[:, :, 2], False, 0,
+                                         torch.tensor(lens))
+    _assert_match((out.float().numpy(), lse.numpy()), want, tol)
+
+
+def _ref_packed_decode(q, k, v, offs, lens, splits, causal=True):
+    """The decode kernel's arithmetic in plain torch, as csrc/flash_fwd.cu
+    lays it out: for each (batch row, KV head) the Sq x groups query rows
+    packed as row r = s * groups + gi into m16 row tiles; each packed row's
+    last visible key offset + s (causal); the visible keys [0, kv_end) cut
+    into the splits' 64-key tiles (``_decode_split_keys``), each split's
+    keys into the four warps' 16-key slices; each slice's (m, l, O) in f32
+    with P rounded to v's dtype, merged over the slices in order, then over
+    the splits in order; a partial with l = 0 weighs 0. -> (out, lse, the
+    packed map [(b, hk, row) -> (s, h, tile)])."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    groups = hq // hkv
+    rows = sq * groups
+    tiles = flash.fwd_decode_row_tiles(sq, groups)
+    assert rows <= flash.FWD_DECODE_ROWS and tiles <= 2
+    scale = d ** -0.5
+    out = torch.zeros(b, sq, hq, d)
+    lse = torch.full((b, hq, sq), float("inf"))
+    packed = {}
+    neg = -1e30
+
+    def partial(qr, keys, lim, lo, hi):
+        # one (row, key range) partial in base e: (m, l, O relative to m)
+        pos = torch.arange(lo, hi)
+        valid = (pos < hi) & (pos <= lim)
+        sc = torch.where(valid, (keys[0][lo:hi].float() @ qr.float()) * scale,
+                         torch.tensor(neg))
+        m = sc.max() if hi > lo else torch.tensor(neg)
+        p = torch.where(sc > 0.5 * neg, torch.exp(sc - m), torch.tensor(0.0))
+        o = p.to(v.dtype).float() @ keys[1][lo:hi].float() if hi > lo else torch.zeros(d)
+        return m, p.sum(), o
+
+    def merge(parts):
+        live = [(m, l_, o) for m, l_, o in parts if l_ > 0]
+        if not live:
+            return torch.tensor(neg), torch.tensor(0.0), torch.zeros(d)
+        m_all = max(m for m, _, _ in live)
+        w = [torch.exp(m - m_all) for m, _, _ in live]
+        return (m_all, sum(l_ * x for (_, l_, _), x in zip(live, w)),
+                sum(o * x for (_, _, o), x in zip(live, w)))
+
+    for bi in range(b):
+        kv_len = min(max(int(lens[bi]), 0), k.shape[1])
+        offset = int(offs[bi])
+        kv_end = min(kv_len, max(0, offset + sq)) if causal else kv_len
+        for hk in range(hkv):
+            keys = (k[bi, :, hk], v[bi, :, hk])
+            for row in range(tiles * flash.FWD_DECODE_TILE_ROWS):
+                if row >= rows:
+                    continue  # a padding row of the last tile: zeros, never written
+                s, h = row // groups, hk * groups + row % groups
+                packed[(bi, hk, row)] = (s, h, row // flash.FWD_DECODE_TILE_ROWS)
+                lim = offset + s if causal else 1 << 30
+                split_parts = []
+                for sp in range(splits):
+                    lo, hi = _decode_split_keys(kv_end, splits, sp)
+                    hi = max(lo, hi)
+                    slices = []
+                    for kw in range(4):  # each warp's 16 keys of every 64-key tile
+                        parts = [partial(q[bi, s, h], keys, lim, t0 + 16 * kw,
+                                         min(t0 + 16 * kw + 16, hi))
+                                 for t0 in range(lo, hi, flash.FWD_DECODE_BLOCK_KV)
+                                 if t0 + 16 * kw < hi]
+                        slices.append(merge(parts))
+                    split_parts.append(merge(slices))
+                m, l_, o = merge(split_parts)
+                if l_ > 0:
+                    out[bi, s, h] = o / l_
+                    lse[bi, h, s] = m + torch.log(l_)
+    return out.to(q.dtype), lse, packed
+
+
+@pytest.mark.parametrize("splits", [1, 3, 8])
+@pytest.mark.parametrize("sq", [5, 8])
+def test_packed_two_tile_decode_matches_pallas(sq, splits):
+    """The two-row-tile decode instance's map and split, emulated in plain
+    torch, against the Pallas kernel and the plain version: every (s, h)
+    packed once, rows 16 and up in the second tile, each row's own causal
+    limit, the splits' keys, the merge order."""
+    b, skv, hq, hkv, d = 3, 200, 8, 2, 128
+    q, k, v = _inputs(90 + sq + splits, b, sq, skv, hq, hkv, d)
+    lengths = [0, 61, 150]  # a row with no cache yet; one inside a tile; one across splits
+    lens = [n + sq for n in lengths]
+    qt, kt, vt = (torch.from_numpy(x) for x in (q, k, v))
+    got_out, got_lse, packed = _ref_packed_decode(qt, kt, vt, lengths, lens, splits)
+    groups = hq // hkv
+    assert sorted(packed.values()) == sorted(
+        (s, h, (s * groups + h % groups) // 16) for s in range(sq) for h in range(hq)
+        for _ in range(b))
+    assert {t for _, _, t in packed.values()} == {0, 1}  # rows past 16 take the second tile
+    got = (got_out.numpy(), got_lse.numpy())
+    want = _jax_fwd(q, k, v, True, lengths, lens, block_q=16, block_kv=16)
+    _assert_match(got, want, F32_TOL)
+    whole = flash.flash_attention_ref(qt, kt, vt, True, torch.tensor(lengths), torch.tensor(lens))
+    _assert_match(got, (whole[0].numpy(), whole[1].numpy()), F32_TOL)
+
+
+def test_build_runs_nvcc_outside_the_lock(monkeypatch, tmp_path):
+    """Two threads that call build() at once both reach nvcc (a fake, here)
+    while neither holds the lock, and load one library between them."""
+    import threading
+    import types
+
+    both_in_nvcc = threading.Barrier(2, timeout=10)
+    loads = []
+
+    class FakeNvcc:
+        returncode = 0
+
+        def __init__(self, cmd, **kwargs):
+            if cmd[-1].endswith("flash_fwd.cu"):
+                both_in_nvcc.wait()  # breaks if the other thread cannot get here
+
+        def communicate(self):
+            return ("ptxas info    : 0 bytes spill stores, 0 bytes spill loads\n",)
+
+    def fake_link(cmd, **kwargs):
+        Path(cmd[cmd.index("-o") + 1]).write_bytes(b"lib")
+        return types.SimpleNamespace(returncode=0, stdout="", stderr="")
+
+    class FakeLib:
+        def __getattr__(self, name):
+            entry = types.SimpleNamespace()
+            setattr(self, name, entry)
+            return entry
+
+    def fake_cdll(path):
+        loads.append(path)
+        return FakeLib()
+
+    from pathlib import Path
+
+    monkeypatch.delenv("FLASH_DEBUG_BUILD", raising=False)
+    monkeypatch.setattr(flash, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(flash, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(flash.subprocess, "Popen", FakeNvcc)
+    monkeypatch.setattr(flash.subprocess, "run", fake_link)
+    monkeypatch.setattr(flash.ctypes, "CDLL", fake_cdll)
+    monkeypatch.setattr(flash, "_built", None)
+    results, errors = [], []
+
+    def call():
+        try:
+            results.append(flash.build())
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=call, daemon=True) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(30)
+    assert not errors, errors
+    assert len(results) == 2 and results[0] is results[1]
+    assert len(loads) == 1 and Path(loads[0]).name.startswith("libflash_")
+    assert Path(loads[0]).exists() and Path(loads[0]).with_suffix(".log").exists()
+    assert [p.name for p in tmp_path.iterdir() if p.is_dir()] == []  # no temporary left
+    monkeypatch.setattr(flash, "_built", None)
 
 
 def test_variant_override_only_where_it_fits():
@@ -557,6 +850,14 @@ _DECODE_CASES = [
     ("groups 8", (2, 1, 32, 4, [99, 400], [100, 401], None)),
     ("kv_lens=0 row", (2, 1, 32, 8, [0, 899], [0, 900], float("nan"))),
     ("Sq=4 groups 4", (2, 4, 32, 8, [96, 290], [100, 294], 300.0)),
+    # two m16 row tiles: speculation's verify past 16 packed rows
+    ("Sq=5 groups 4", (2, 5, 32, 8, [96, 290], [101, 295], float("nan"))),
+    ("Sq=8 groups 4", (2, 8, 32, 8, [0, 290], [8, 298], 300.0)),
+    ("pool verify [8, 5]", (8, 5, 32, 8, [137, 410, 655, 900, 1530, 2043, 0, 0],
+                            [142, 415, 660, 905, 1535, 2048, 5, 5], float("nan"))),
+    ("solo verify B=1 Sq=5 kv 1800", (1, 5, 32, 8, [1795], [1800], float("nan"))),
+    ("Sq=17 groups 1", (2, 17, 8, 8, [83, 400], [100, 417], 300.0)),
+    ("Sq=3 groups 8 kv_lens=0 row", (2, 3, 32, 4, [0, 300], [0, 303], float("nan"))),
 ]
 
 
@@ -578,15 +879,69 @@ def test_decode_forward_matches_plain_version(cuda, case):
     offs = torch.tensor(offs, dtype=torch.int32, device=cuda)
     lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
     assert flash.fwd_variant(q, k) == "decode"
-    before = (flash.launches.value, flash.launches_fwd_decode.value)
+    two = sq * hq // hkv > flash.FWD_DECODE_TILE_ROWS
+    assert flash.fwd_instance(q, k) == ("decode_r2" if two else "decode")
+    counters = (flash.launches, flash.launches_fwd_decode,
+                flash.launches_fwd_instance["decode_r2"])
+    before = [c.value for c in counters]
     out, lse = flash.flash_attention_fwd(q, k, v, True, offs, lens)
     torch.cuda.synchronize()
-    assert (flash.launches.value, flash.launches_fwd_decode.value) == (before[0] + 1,
-                                                                      before[1] + 1)
+    assert [c.value for c in counters] == [before[0] + 1, before[1] + 1, before[2] + two]
     assert torch.isfinite(out).all()
     _matches_plain(q, k, v, True, offs, lens, out, lse)
     again = flash.flash_attention_fwd(q, k, v, True, offs, lens)
     assert torch.equal(again[0], out) and torch.equal(again[1], lse)  # a fixed merge order
+    if 0 in lens.tolist():
+        row = lens.tolist().index(0)
+        assert bool((out[row] == 0).all()) and bool(torch.isposinf(lse[row]).all())
+
+
+# the sm90 variant's D = 64 instance: b, sq, skv, heads q/kv, causal,
+# offsets, kv_lens, poison of the tail; strided: q/k/v views of one fused
+# [B, S, 3, H, 64] product (bert's wqkv), else separate tensors
+_SM90_D64_CASES = [
+    ("bert-base B=8 ragged NaN tail", (8, 128, 128, 12, 12, False, [0] * 8,
+                                      [1, 128, 77, 5, 64, 100, 128, 33], float("nan")), True),
+    ("bert-base B=8 +-300 tail", (8, 128, 128, 12, 12, False, [0] * 8,
+                                  [1, 128, 77, 5, 64, 100, 128, 33], 300.0), True),
+    ("bert-tiny B=2", (2, 128, 128, 2, 2, False, [0, 0], [128, 1], None), True),
+    ("causal tiles cut 130/200 GQA", (2, 130, 200, 8, 2, True, [0, 70], [130, 200], None), False),
+    ("kv_lens=0 row, two K/V tiles", (2, 64, 300, 4, 4, False, [0, 0], [0, 300], 300.0), False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _SM90_D64_CASES, ids=[c[0] for c in _SM90_D64_CASES])
+def test_sm90_d64_forward_matches_plain_version(cuda, case):
+    (b, sq, skv, hq, hkv, causal, offs, lens, poison), strided = case[1], case[2]
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(11)
+    if strided:
+        qkv = torch.randn(b, sq, 3, hq, 64, device=cuda, generator=gen).to(torch.bfloat16)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    else:
+        q, k, v = (torch.randn(b, n, h, 64, device=cuda, generator=gen).to(torch.bfloat16)
+                   for n, h in ((sq, hq), (skv, hkv), (skv, hkv)))
+    offs = torch.tensor(offs, dtype=torch.int32, device=cuda)
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    if poison is not None:
+        tail = (torch.arange(skv, device=cuda)[None] >= lens[:, None])[:, :, None, None]
+        k.masked_fill_(tail, poison)  # in place: the views keep their strides
+        v.masked_fill_(tail, poison)
+    assert flash.fwd_instance(q, k) == "sm90_d64" and q.is_contiguous() != strided
+    counters = (flash.launches, flash.launches_fwd_sm90,
+                flash.launches_fwd_instance["sm90_d64"])
+    before = [c.value for c in counters]
+    out, lse = flash.flash_attention_fwd(q, k, v, causal, offs, lens)
+    torch.cuda.synchronize()
+    assert [c.value for c in counters] == [n + 1 for n in before]
+    assert torch.isfinite(out).all()
+    _matches_plain(q, k, v, causal, offs, lens, out, lse)
+    if poison is not None:
+        live = (torch.arange(skv, device=cuda)[None] < lens[:, None])[:, :, None, None]
+        clean = flash.flash_attention_fwd(q, k.masked_fill(~live, 0), v.masked_fill(~live, 0),
+                                          causal, offs, lens)
+        assert torch.equal(clean[0], out) and torch.equal(clean[1], lse)
     if 0 in lens.tolist():
         row = lens.tolist().index(0)
         assert bool((out[row] == 0).all()) and bool(torch.isposinf(lse[row]).all())
