@@ -89,7 +89,18 @@ Phases, each fatal on failure (no phase is skipped or caught):
    dropped stream, ``gofr_tpu_tokens_total{op="decode"}`` equals the tokens
    the pool delivered (each generation's ids after its first); at its end
    ``gofr_http_requests_total`` of /v1/completions and the
-   ``gofr_tpu_ttft_seconds`` count equal the phase's requests;
+   ``gofr_tpu_ttft_seconds`` count equal the phase's requests; one
+   prefill batch's pack of 8 x 512 (``pack_token_rows``, numpy) timed
+   beside the native library's ``gofr_pack_rows`` (the JAX package's
+   pack), the arrays equal;
+10b. phase 10's server as a process (``python -m
+   gofr_tpu_torch.devtools.replica_proc``, llama3-8b from phase 5's seed on
+   the card) under ``GOFR_SANITIZE=1 GOFR_POOL_DEBUG=1``: phase 10's 8
+   prompts as 8 concurrent streams of 32 greedy tokens, their ids against
+   phase 10's (equal, or parting at a near tie); at the process's end the
+   sanitizer's report (no lock-order cycle, no leaked thread; its hold
+   warnings printed with their sites) and one ``[pool] chunk`` stderr line
+   a pool chunk, their medians, TPOT beside phase 10's;
 11. the OpenAI surface (run right after phase 10, on its model, in a fresh
    app in the same configuration), with a BPE merges file trained here
    with ``train_bpe`` from seeded text and an inline Llama-3-style
@@ -107,7 +118,9 @@ Phases, each fatal on failure (no phase is skipped or caught):
    all four; a streamed ``n: 2`` with ``include_usage`` (both indices
    finish, one usage frame before [DONE]); then a second app with
    ``GEN_STOP_TOKENS`` set to the id a greedy request emitted at position
-   3, which stops that request there;
+   3, which stops that request there. The served tokenizer's backend is the
+   native library's, and every text the phase encoded gives the same ids
+   native and in Python (each timed);
 12. a deployment (run right after phase 11, on its model): for each of
    ``MODEL_QUANT`` int8, int4 and w8a8 the packs built from the bf16 weights
    with ``quantize_params`` (the previous mode freed first), their weight
@@ -252,7 +265,10 @@ Phases, each fatal on failure (no phase is skipped or caught):
    the runner): the engine walks serving -> degraded -> serving,
    ``/.well-known/ready`` answers 503 with the watchdog's evidence
    meanwhile, ``gofr_tpu_device_stalls_total`` counts 1 and
-   ``/admin/anomalies`` shows the ``slow_dispatch``;
+   ``/admin/anomalies`` shows the ``slow_dispatch``. The profiler's stop
+   (its export) and the trace's reading (then one collection) run with no
+   request in flight, and ``host phase 17`` marks each long collection
+   inside or outside those windows;
 18. overload and failure (run right after phase 17, on its model, ~90 s), in
    phase 10's configuration with ``JOURNAL=on`` on a WAL (``JOURNAL_DIR``,
    a temporary directory), ``RECOVERY_ENABLED=on``, ``SLO_TARGETS`` and
@@ -317,10 +333,15 @@ Phases, each fatal on failure (no phase is skipped or caught):
    them: outcome ``ok``, both ledgers on the request id, the fleet trace
    whole, no sm90 launch on the receiver; the pull's blocks, bytes, ms and
    GB/s, TTFT beside a local prefill of the same prompt, ids equal (or
-   parting at a near tie); (2) a bit flip, a slow donor, an evicted entry
-   and a donor cut mid-pull (through a chaos proxy before the donor) fall
-   back with the local ids, the outcome counters moved, the donor's
-   refcounts back; (3) ``kill -9`` of the decode replica mid-stream: the
+   parting at a near tie), the donor's refcounts back after each pull; (2)
+   a bit flip, a slow donor, an evicted entry and a donor cut mid-pull
+   (through a chaos proxy before the donor) fall back with the local ids,
+   the outcome counters moved, the donor's refcounts back; before a fault
+   is armed, what the donor's cache holds prints (read from its
+   ``/admin/engine`` without touching the cache: whether an entry hashes
+   to the prompt, its LRU place, every entry's hash and length, the
+   evictions), again at a count that moved otherwise; (3) ``kill -9`` of
+   the decode replica mid-stream: the
    router resumes the stream on the prefill replica, the client's gap, the
    respawn to ready and back into rotation; (4) a sticky device fault in
    the decode replica's process (its site hook: the card slept, then a
@@ -387,6 +408,7 @@ import gc
 import http.client
 import json
 import os
+import re
 import shutil
 import socket
 import subprocess
@@ -427,13 +449,25 @@ def host_pauses(label: str):
     garbage collections inside it (count, wall time in all, the longest)
     and the process's peak resident memory, then each collection of 100 ms
     or more: its wall-clock start (to set beside the log's times), length,
-    generation and objects collected. A host stall in a phase's timed
+    generation, objects collected, and whether it fell in a window the
+    phase marked as having no request in flight (the block yields the
+    context manager that marks one). A host stall in a phase's timed
     checks can then be told from a collection."""
     import datetime
     import resource
 
     pauses: list = []
     started: list = []
+    quiet: list = []  # [start, end] wall times with no request in flight
+
+    @contextlib.contextmanager
+    def no_request_in_flight():
+        window = [time.time(), float("inf")]
+        quiet.append(window)
+        try:
+            yield
+        finally:
+            window[1] = time.time()
 
     def timed(phase: str, info: dict) -> None:
         if phase == "start":
@@ -445,18 +479,20 @@ def host_pauses(label: str):
 
     gc.callbacks.append(timed)
     try:
-        yield
+        yield no_request_in_flight
     finally:
         gc.callbacks.remove(timed)
         longest = max(pauses, default=(0.0, 0.0, None, 0))
         rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
         long = [{"at": datetime.datetime.fromtimestamp(w, datetime.timezone.utc).isoformat(),
-                 "ms": round(d * 1e3, 1), "generation": g, "collected": n}
+                 "ms": round(d * 1e3, 1), "generation": g, "collected": n,
+                 "no_request_in_flight": any(a <= w <= b for a, b in quiet)}
                 for d, w, g, n in pauses if d >= 0.1]
+        serving = sum(not c["no_request_in_flight"] for c in long)
         print(f"host {label}: {len(pauses)} GC collections, {sum(p[0] for p in pauses) * 1e3:.1f} "
               f"ms in all, the longest {longest[0] * 1e3:.1f} ms (generation {longest[2]}); "
-              f"peak RSS {rss:.2f} GiB; collections of 100 ms or more {json.dumps(long)}",
-              flush=True)
+              f"peak RSS {rss:.2f} GiB; collections of 100 ms or more {json.dumps(long)}; "
+              f"{serving} of them outside the windows with no request in flight", flush=True)
 
 
 # -- phase 2/3: the kernel against its plain version ------------------------
@@ -1045,6 +1081,7 @@ def serve_default(torch, flash, card: str, model) -> dict:
     import gofr_tpu_torch
     from gofr_tpu_torch.models.transformer import _chosen_logprobs
     from gofr_tpu_torch.ops.sampling import Sampler
+    from gofr_tpu_torch.tpu import batcher as tb
     from gofr_tpu_torch.tpu.decode_pool import DONE, PoolFailure
 
     env = {**PHASE10_ENV, "HTTP_PORT": str(free_port())}
@@ -1228,6 +1265,7 @@ def serve_default(torch, flash, card: str, model) -> dict:
         print(f"default: all 8 prompts and the repeats took ids alone equal to those among 8 "
               f"co-tenants; prefix cache {runner.prefix_stats}, kv {dev.kv_pool.stats()}",
               flush=True)
+        pack = pack_times(tb)
 
         # the chunked prompt's 3 slices against one pass over the whole
         # prompt: a slice at a wrong offset moves the last position's logits
@@ -1292,13 +1330,183 @@ def serve_default(torch, flash, card: str, model) -> dict:
             "chunked_ttft_ms": chunked_ttft * 1e3, "exact_hit_s": repeat_s,
             "partial_hit_s": lcp_s, "pool_steps": steps, "prefill_dispatches": prefills,
             "pool_lp_max_diff": float(diff.max()), "chunk_slices_lp_max_diff": float(slice_diff.max()),
+            "pack_us": pack,
         }
         print(f"default-metrics [{card}]: {json.dumps(metrics)}", flush=True)
+        # the 8 prompts' greedy ids, the sanitized leg's reference
+        reference = {"prompts": prompts8, "ids": [ids_of(p)[0] for p in prompts8],
+                     "stop_ids": sorted(dev.default_stop_ids)}
     finally:
         app.shutdown()
     # the pool's worker is joined: nothing of the pool runs beside training
     check(not pool._thread.is_alive(), "default: the pool's worker outlived app.shutdown()")
-    return {"decode": decode, "per_chunk": per_chunk, "metrics": metrics}
+    return {"decode": decode, "per_chunk": per_chunk, "metrics": metrics, "reference": reference}
+
+
+def pack_times(tb, reps: int = 200) -> dict:
+    """One prefill batch's pack at 8 x 512 (8 rows of 300-700 seeded ids,
+    the longer ones keeping their last 512): ``pack_token_rows`` (numpy,
+    the port's) beside the native library's ``gofr_pack_rows`` through its
+    C ABI (the JAX package's pack), mean us a call over ``reps``, the
+    arrays equal."""
+    import ctypes
+
+    import numpy as np
+
+    from gofr_tpu_torch import native
+
+    lib = native.load()
+    check(lib is not None, "pack: the native library did not load on this machine")
+    rng = np.random.default_rng(10)
+    rows = [rng.integers(0, 128256, int(n), dtype=np.int32) for n in rng.integers(300, 700, 8)]
+    i32, i64 = ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int64)
+
+    def library():
+        out, lens = np.zeros((8, 512), np.int32), np.zeros(8, np.int32)
+        flat = np.concatenate(rows)
+        sizes = np.asarray([r.size for r in rows], np.int64)
+        lib.gofr_pack_rows(flat.ctypes.data_as(i32), sizes.ctypes.data_as(i64), len(rows), 512,
+                           0, out.ctypes.data_as(i32), lens.ctypes.data_as(i32))
+        return out, lens
+
+    check(all(bool((a == b).all()) for a, b in zip(tb.pack_token_rows(rows, 8, 512), library())),
+          "pack: pack_token_rows and gofr_pack_rows differ at 8 x 512")
+    out = {}
+    for name, fn in (("numpy", lambda: tb.pack_token_rows(rows, 8, 512)), ("native", library)):
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out[name] = (time.perf_counter() - t) / reps * 1e6
+    print(f"default: one pack of 8 x 512 (rows of {[r.size for r in rows]} ids): "
+          f"pack_token_rows {out['numpy']:.2f} us, the native gofr_pack_rows "
+          f"{out['native']:.2f} us a call over {reps}, arrays equal", flush=True)
+    return out
+
+
+# -- phase 10b: phase 10's server as a process, on the lock sanitizer ----------------
+
+POOL_DEBUG_LINE = re.compile(
+    r"^\[pool\] chunk active=(\d+) dispatch->fetch (\d+)ms fetch-wait (\d+)ms deliver (\d+)ms$")
+
+
+def sanitized_server(torch, card: str, default: dict) -> dict:
+    """Phase 10b: a server process of llama3-8b in phase 10's configuration
+    (``python -m gofr_tpu_torch.devtools.replica_proc``, phase 5's seeded
+    init drawn again on the card) under ``GOFR_SANITIZE=1`` and
+    ``GOFR_POOL_DEBUG=1``: phase 10's 8 prompts as 8 concurrent streams of
+    32 greedy tokens. Their ids equal phase 10's; the sanitizer's report at
+    the process's end holds no lock-order cycle and no leaked thread (its
+    hold warnings print with their sites); one ``[pool] chunk`` stderr line
+    a pool chunk, their medians, and TPOT beside phase 10's."""
+    import statistics
+
+    from gofr_tpu_torch.config import DECLARED_KEYS, UNHONORED_KEYS
+
+    ref = default["reference"]
+    workdir = tempfile.mkdtemp(prefix="gofr_sanitized_")
+    report_path = os.path.join(workdir, "sanitizer-report.jsonl")
+    port = free_port()
+    env = {k: v for k, v in os.environ.items()
+           if k not in DECLARED_KEYS and k not in UNHONORED_KEYS}
+    env.update({k: v for k, v in PHASE10_ENV.items() if k != "TOKENIZER"})
+    # no tokenizer (frames carry ids) and phase 10's stop ids explicitly
+    env.update({"HTTP_PORT": str(port), "MODEL_SEED": "0", "LOG_LEVEL": "ERROR",
+                "GOFR_SANITIZE": "1", "GOFR_POOL_DEBUG": "1",
+                "GOFR_SANITIZE_REPORT": report_path,
+                "PYTHONPATH": os.pathsep.join([os.path.dirname(os.path.abspath(__file__)),
+                                               os.environ.get("PYTHONPATH", "")])})
+    if ref["stop_ids"]:
+        env["GEN_STOP_TOKENS"] = ",".join(map(str, ref["stop_ids"]))
+    else:
+        env["GEN_STOP_EOS"] = "off"
+    stderr = open(os.path.join(workdir, "stderr.log"), "w+b")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "gofr_tpu_torch.devtools.replica_proc"],
+                            env=env, cwd=workdir, stdout=subprocess.DEVNULL, stderr=stderr)
+    address = f"http://127.0.0.1:{port}"
+    try:
+        while True:
+            check(proc.poll() is None, f"sanitized: the server exited {proc.returncode}")
+            check(time.perf_counter() - t0 < 600, "sanitized: the server never became ready")
+            try:
+                if get_body(address, "/.well-known/ready", timeout=5)[0] == 200:
+                    break
+            except OSError:
+                pass
+            time.sleep(0.5)
+        boot_s = time.perf_counter() - t0
+        prompts = [list(p.encode()) for p in ref["prompts"]]
+        results = [None] * len(prompts)
+
+        def run(i):
+            results[i] = stream_ids(port, {"prompt": prompts[i], "max_tokens": 32,
+                                           "temperature": 0})
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        divergences = []
+        for i, r in enumerate(results):
+            check(r is not None and r["status"] == 200 and r["done"] and not r["error"],
+                  f"sanitized: stream {i} {r and (r['status'], r['error'])}")
+            # equal, or parting at a near tie (phase 19's rule across processes)
+            divergences.append(fleet_divergence(address, prompts[i], ref["ids"][i], r["ids"],
+                                                f"sanitized: prompt {i} against phase 10"))
+        tpots = [(r["seconds"] - r["ttft_s"]) / (len(r["ids"]) - 1) * 1e3 for r in results]
+        t_end = time.perf_counter()
+        while True:  # the last chunks' deliveries, after the streams' ends
+            status, engine = get_body(address, "/admin/engine")
+            if engine["decode_pool"]["active"] == 0 or time.perf_counter() - t_end > 30:
+                break
+            time.sleep(0.1)
+        chunks = engine["decode_pool"]["dispatches"]
+    finally:
+        proc.send_signal(15)
+        try:
+            proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    stderr.seek(0)
+    log = stderr.read().decode("utf-8", "replace").splitlines()
+    stderr.close()
+    lines = [m for m in map(POOL_DEBUG_LINE.match, log) if m]
+    try:
+        with open(report_path) as f:
+            report = json.loads(f.read().splitlines()[-1])
+    except (OSError, IndexError, ValueError) as exc:
+        check(False, f"sanitized: no sanitizer report ({exc}); stderr {log[-20:]}")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    check(proc.returncode == 0, f"sanitized: the server exited {proc.returncode}: {log[-20:]}")
+    medians = {k: statistics.median(int(m.group(j)) for m in lines) if lines else None
+               for j, k in ((2, "dispatch_fetch_ms"), (3, "fetch_wait_ms"), (4, "deliver_ms"))}
+    out = {"boot_s": boot_s, "tpot_ms": sum(tpots) / len(tpots),
+           "ids_equal": sum(not d["diverged"] for d in divergences),
+           "phase10_tpot_ms": default["metrics"]["tpot_ms"][8], "chunks": chunks,
+           "pool_debug_lines": len(lines), "pool_debug_medians": medians,
+           "cycles": len(report["violations"]), "leaked_threads": report["leaked_threads"],
+           "hold_warnings": len(report["hold_warnings"]), "edges": report["edges"]}
+    for w in report["hold_warnings"]:
+        print(f"sanitized: hold warning: {w['lock']} held {w['seconds'] * 1e3:.1f} ms on "
+              f"{w['thread']}, taken at {w['stack'][0] if w['stack'] else '?'}", flush=True)
+    for v in report["violations"]:
+        print(f"sanitized: SANITIZER: {v.get('summary')}", flush=True)
+    print(f"sanitized: a llama3-8b server process under GOFR_SANITIZE=1 GOFR_POOL_DEBUG=1, "
+          f"ready in {boot_s:.1f}s: 8 streams of 32 greedy tokens, {out['ids_equal']} of 8 with "
+          f"phase 10's ids (the rest part at a near tie); "
+          f"TPOT {out['tpot_ms']:.2f} ms (phase 10's 8 streams {out['phase10_tpot_ms']:.2f} ms); "
+          f"{len(lines)} [pool] chunk lines for {chunks} pool chunks, medians "
+          f"{json.dumps(medians)}; "
+          f"sanitizer: {out['cycles']} cycles, leaked threads {out['leaked_threads']}, "
+          f"{out['hold_warnings']} hold warnings, {out['edges']} lock-order edges [{card}]",
+          flush=True)
+    check(len(lines) == chunks, f"sanitized: {len(lines)} [pool] chunk lines, {chunks} chunks")
+    check(out["cycles"] == 0, "sanitized: the sanitizer found a lock-order cycle")
+    check(not out["leaked_threads"], f"sanitized: leaked threads {out['leaked_threads']}")
+    return out
 
 
 # -- phase 11: the OpenAI surface on llama3-8b ------------------------------------
@@ -1397,6 +1605,16 @@ def openai_checks(torch, flash, card: str, app) -> dict:
     n_layers = dev.runner.cfg.n_layers
     check(pool is not None and dev.kv_pool is not None, "openai: not the default configuration")
     check(tok is not None and tok.merges, "openai: the BPE tokenizer did not load")
+    check(tok.backend == "native", f"openai: the tokenizer's backend is {tok.backend}")
+    # every text the phase encodes, for the native-against-Python check
+    encoded: list = []
+    native_encode = tok.encode
+
+    def recording_encode(text_in):
+        encoded.append(text_in)
+        return native_encode(text_in)
+
+    tok.encode = recording_encode
     generations: list = []
     inner = dev.generate
 
@@ -1573,11 +1791,35 @@ def openai_checks(torch, flash, card: str, app) -> dict:
     check(bool(greedy), "openai: no greedy request of 4 or more tokens")
     # one whose id at position 3 is not also earlier, where there is one
     greedy.sort(key=lambda g: g[1][3] not in g[1][:3])
-    return {"chat_ttft_ms": chat_ttft * 1e3, "chat_s": chat_s, "score_512_ms": score_s[0] * 1e3,
+    del tok.encode
+    encode = native_python_encode(tok, encoded)
+    return {"encode_ms": encode, "chat_ttft_ms": chat_ttft * 1e3, "chat_s": chat_s,
+            "score_512_ms": score_s[0] * 1e3,
             "score_300_in_512_ms": score_s[1] * 1e3, "score_launches": score_launches,
             "score_lp_max_diff": float(diff.max()), "fanout_n4_s": fan_s,
             "pool_peak_active": peak["active"], "sm90": sm90, "decode": decode,
             "greedy_prompt": greedy[-1][0], "greedy_ids": greedy[-1][1]}
+
+
+def native_python_encode(tok, texts: list) -> dict:
+    """Phase 11's encoded texts through the served tokenizer's native
+    backend and through its Python twin (the same merges): equal ids, and
+    each backend's ms for all of them."""
+    from gofr_tpu_torch.tokenizer import Tokenizer
+
+    python = Tokenizer(tok.merges, tok.n_special)
+    python._native = None
+    out, ids = {}, {}
+    for name, t in (("native", tok), ("python", python)):
+        start = time.perf_counter()
+        ids[name] = [t.encode(x) for x in texts]
+        out[name] = (time.perf_counter() - start) * 1e3
+    check(bool(texts) and ids["native"] == ids["python"],
+          "openai: native and Python encodes of the phase's texts differ")
+    print(f"openai: the phase's {len(texts)} encoded texts ({sum(map(len, texts))} chars, "
+          f"{sum(map(len, ids['native']))} ids): native {out['native']:.3f} ms, Python "
+          f"{out['python']:.3f} ms, ids equal", flush=True)
+    return out
 
 
 # -- phase 12: a deployment (MODEL_QUANT, MODEL_KV_DTYPE, penalties, MODEL_PATH) ----
@@ -3514,10 +3756,13 @@ def concurrent_posts(port: int, bodies: list) -> list:
     return results
 
 
-def observability(torch, flash, card: str, model) -> dict:
+def observability(torch, flash, card: str, model, no_request_in_flight=contextlib.nullcontext
+                  ) -> dict:
     """Phase 17 (after phase 16, on phase 5's model): the flight recorder,
     the dispatch timeline, the engine state and watchdog, the cost model,
-    the profiler and the MFU / MBU gauges in phase 10's configuration."""
+    the profiler and the MFU / MBU gauges in phase 10's configuration.
+    ``no_request_in_flight`` marks the profiler's stop and the trace's
+    reading (``host_pauses``), which no served request overlaps."""
     import numpy as np
 
     import gofr_tpu_torch
@@ -3533,7 +3778,8 @@ def observability(torch, flash, card: str, model) -> dict:
         gofr_tpu_torch.register_openai_routes(app)
         app.start()
         try:
-            out.update(healthy_window(torch, flash, card, app, fit, join_records, np))
+            out.update(healthy_window(torch, flash, card, app, fit, join_records, np,
+                                      no_request_in_flight))
         finally:
             app.shutdown()
         out["stall"] = stalled_prefill(torch, model)
@@ -3545,13 +3791,15 @@ def observability(torch, flash, card: str, model) -> dict:
     return out
 
 
-def healthy_window(torch, flash, card: str, app, fit, join_records, np) -> dict:
+def healthy_window(torch, flash, card: str, app, fit, join_records, np,
+                   no_request_in_flight) -> dict:
     """Phase 17's traffic on the auto-armed watchdog: 1 and 8 streams of 32
     greedy tokens (the 8 under the profiler), a 1,500-byte prompt (3 slices)
     and one full prefill batch (8 x 512 tokens); every request recorded,
     every dispatch id resolving, the timeline's counts the batcher's and the
     pool's, zero anomalies on a fitted row, the gauges beside the
-    predictions, and the row this run's records fit."""
+    predictions, and the row this run's records fit. ``no_request_in_flight``
+    marks the profiler's stop and the trace's reading."""
     out: dict = {}
     port, dev = app.http_port, app.container.tpu
     pool, runner, batcher = dev.decode_pool, dev.runner, dev.batcher
@@ -3594,13 +3842,23 @@ def healthy_window(torch, flash, card: str, app, fit, join_records, np) -> dict:
         timeline_idle(pool, dev.timeline)
     finally:
         restore()
-        status, stopped, _, _ = post(port, {}, path="/admin/profiler/stop")
+        with no_request_in_flight():
+            status, stopped, stop_s, _ = post(port, {}, path="/admin/profiler/stop")
     check(status == 200 and stopped["data"]["artifacts"] == ["trace.json"],
           f"obs: stop {stopped}")
     trace = os.path.join(stopped["data"]["dir"], "trace.json")
     size_mb = os.path.getsize(trace) / 1e6
-    per_chunk, busy_us, window_us = chunk_kernel_us(trace, ids)
+    with no_request_in_flight():
+        t_parse = time.perf_counter()
+        per_chunk, busy_us, window_us = chunk_kernel_us(trace, ids)
+        # json.load builds the trace's millions of objects in one C call,
+        # and the collector walks them all at its next young collection;
+        # that and a full one run here, before the next request
+        gc.collect()
+        parse_s = time.perf_counter() - t_parse
     os.remove(trace)
+    print(f"obs: the profiler's stop took {stop_s:.2f}s (its export); "
+          f"reading its trace and a collection {parse_s:.2f}s, no request in flight", flush=True)
     records = {r["dispatch_id"]: r for r in admin(port, "/admin/dispatches?limit=512")
                ["dispatches"]}
     over = [(i, us, records[i]["duration_s"] * 1e6) for i, us in per_chunk.items()
@@ -5479,6 +5737,7 @@ def fleet_pull(app, pre, dec) -> dict:
                                 for k in range(3) for n in (1024, 1900)]:
         prompt = list(text(seed, n).encode())
         body = {"prompt": prompt, "max_tokens": max_tokens, "temperature": 0}
+        pins = pre.engine()["kv_blocks"]
         status, doc, _, _ = post(pre.port, body)
         check(status == 200, f"fleet: warming the donor: {status}")
         donor_ids = doc["choices"][0]["tokens"]
@@ -5532,6 +5791,8 @@ def fleet_pull(app, pre, dec) -> dict:
               f"receiver launches pulled {launches}, local {local_launches}", flush=True)
         if n == 1024 and "reference" not in out:
             out["reference"] = {"body": body, "ids": pulled["ids"], "prompt": prompt}
+        # the export's pin released: the donor's blocks as before this prompt
+        _pins_back(pre, pins, f"fleet pull {n}")
     for n, runs in rows.items():
         summary = {k: statistics.median(r[k] for r in runs)
                    for k in ("pull_ms", "pull_gb_per_s", "ttft_pull_ms", "ttft_local_ms")}
@@ -5547,6 +5808,25 @@ def fleet_pull(app, pre, dec) -> dict:
     check(out["launches"]["all"] == out["launches"]["sm90"] + out["launches"]["decode"],
           f"fleet: a forward took another route than sm90 or decode {out['launches']}")
     return out
+
+
+def donor_entry(pre, prompt: list) -> dict:
+    """What the donor holds for ``prompt``, read from its ``/admin/engine``
+    without touching its cache (a ``GET /admin/kv/<hash>`` would refresh
+    the entry's LRU place and hide an eviction): whether a cached entry
+    hashes to the prompt and its place, LRU first; every entry's hash
+    prefix and length; its block pool's counters and its engine state."""
+    from gofr_tpu_torch.fleet.kvwire import prompt_hash
+
+    engine = pre.engine()
+    want, kv = prompt_hash(prompt), engine["kv_blocks"]
+    cached = engine["kv_transfer"]["cached"]
+    places = [i for i, e in enumerate(cached) if e["prompt_hash"] == want]
+    return {"held": bool(places), "place": places[0] if places else None,
+            "entries": [f"{e['prompt_hash'][:8]}:{e['length']}" for e in cached],
+            **{k: kv.get(k) for k in ("free", "cached", "active", "reserved", "evictions")},
+            "prefix": engine["caches"].get("prefix"), "state": engine["engine"]["state"],
+            "recoveries": engine["recovery"]["incidents"], "boot_id": engine["boot_id"]}
 
 
 def _pins_back(pre, before: dict, label: str) -> float:
@@ -5574,10 +5854,15 @@ def fleet_fallbacks(pre, dec, proxy: str, chaos) -> dict:
         prompt = list(text(1910 + k, 512).encode())
         body = {"prompt": prompt, "max_tokens": 16, "temperature": 0}
         want = None
+        held = None
         if case != "evicted":
             status, doc, _, _ = post(pre.port, body)
             check(status == 200, f"fleet fallback {case}: warming the donor {status}")
             want = doc["choices"][0]["tokens"]
+            # what the donor holds before a fault is armed, its cache untouched
+            held = donor_entry(pre, prompt)
+            print(f"fleet fallback {case}: the donor before the pull: {json.dumps(held)}",
+                  flush=True)
         pins = pre.engine()["kv_blocks"]
         if case == "bit flip":
             chaos.corrupting_proxy("flip", n=1, after_bytes=1024)  # past the header
@@ -5595,6 +5880,10 @@ def fleet_fallbacks(pre, dec, proxy: str, chaos) -> dict:
         check(got["status"] == 200 and got["done"] and not got["error"],
               f"fleet fallback {case}: {got['status']} {got['error']}")
         moved = {o: x1[o] - x0[o] for o in ("ok", "timeout", "corrupt", "evicted", "fallback")}
+        if moved != {**dict.fromkeys(moved, 0), outcome: 1, "fallback": 1}:
+            print(f"fleet fallback {case}: the donor after the pull: "
+                  f"{json.dumps(donor_entry(pre, prompt))}, before it: {json.dumps(held)}; "
+                  f"the receiver's pull {json.dumps(x1['pulls_recent'][-1:])}", flush=True)
         check(moved == {**dict.fromkeys(moved, 0), outcome: 1, "fallback": 1},
               f"fleet fallback {case}: counters moved {moved}")
         if want is None:
@@ -6707,6 +6996,7 @@ def main(argv=None) -> int:
     default = serve_default(torch, flash, card, model)
     gc.collect()
     torch.cuda.empty_cache()
+    sanitized = sanitized_server(torch, card, default)
     openai = serve_openai(torch, flash, card, model)
     gc.collect()
     torch.cuda.empty_cache()
@@ -6726,8 +7016,8 @@ def main(argv=None) -> int:
     host_services(torch, flash, card, model)
     gc.collect()
     torch.cuda.empty_cache()
-    with host_pauses("phase 17"):
-        observability(torch, flash, card, model)
+    with host_pauses("phase 17") as no_request_in_flight:
+        observability(torch, flash, card, model, no_request_in_flight)
     gc.collect()
     torch.cuda.empty_cache()
     with host_pauses("phase 18"):

@@ -10,14 +10,18 @@ forward kernel (``csrc/flash_fwd.cu``). It trains them
 dK/dV kernels (``csrc/flash_bwd.cu``). Entry points run on ``cuda``
 unless the caller asks for the CPU (``TORCH_DEVICE=cpu``, or
 ``device="cpu"``), where the kernels' plain PyTorch versions run instead.
-``new_cmd()`` builds a CLI app over the same container.
+``new_cmd()`` builds a CLI app over the same container; ``Context`` is
+the handler's argument and ``__version__`` the package's version, as in the
+JAX package.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
-__all__ = ["new", "new_cmd", "App", "register_openai_routes"]
+from gofr_tpu_torch.version import __version__
+
+__all__ = ["new", "new_cmd", "App", "Context", "register_openai_routes", "__version__"]
 
 
 def __getattr__(name: str) -> Any:
@@ -26,6 +30,10 @@ def __getattr__(name: str) -> Any:
         from gofr_tpu_torch import app
 
         return getattr(app, name)
+    if name == "Context":
+        from gofr_tpu_torch.context import Context
+
+        return Context
     if name == "register_openai_routes":
         from gofr_tpu_torch.openai import register_openai_routes
 

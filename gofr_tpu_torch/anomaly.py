@@ -38,7 +38,7 @@ class AnomalyRing:
         self._last_ts: Optional[float] = None
 
     def record(self, **event: Any) -> dict[str, Any]:
-        ts = time.time()
+        ts = time.time()  # gofrlint: wall-clock — anomaly event display/correlation ts
         entry = {"seq": next(self._seq), "ts": ts, **event}
         key = (event.get("kind", ""), event.get("cause", ""))
         with self._lock:

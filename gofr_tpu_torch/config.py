@@ -165,15 +165,25 @@ DECLARED_KEYS: dict[str, str] = {
     "FLEET_MAX_RESUMES": "router: resumes of one stream (default 4)",
     "FLEET_ROLE": "replica role advertised to the router: prefill | decode | mixed (default)",
     "FLEET_ROLE_ROUTING": "router: 'off': ignore replica roles, stamp no X-KV-Donor (default on)",
+    # GoFr's tooling: the native host library, the pool's debug line and
+    # the lock sanitizer (read through get_env / env_flag below)
+    "GOFR_NATIVE_LIB": "prebuilt native library path (native/__init__.py builds nothing)",
+    "GOFR_NATIVE_CACHE": "native build directory (default gofr_tpu_torch/_build/native)",
+    "GOFR_NATIVE_DISABLE": "any value: the Python tokenizer and row packer",
+    "GOFR_POOL_DEBUG": "1: one stderr line a decode pool chunk (dispatch, fetch, deliver ms)",
+    "GOFR_SANITIZE": "1: the runtime lock sanitizer (devtools/sanitizer.py)",
+    "GOFR_SANITIZE_ALL": "1: the sanitizer tracks locks created outside the project too",
+    "GOFR_SANITIZE_HOLD_MS": "the sanitizer's lock hold-time warning threshold (default 150)",
+    "GOFR_SANITIZE_REPORT": "the sanitizer's findings file (default sanitizer-report.jsonl)",
+    "GOFR_SANITIZE_GRAPH": "the observed lock-order graph's JSON file",
 }
 
 # The reference's keys the port does not honor yet: key -> (refuse, why,
 # with the ROADMAP item that ports it). ``refuse``: ignoring the key would
 # change the answers, the topology, a durability guarantee or the memory
 # the process takes, so a boot with it set fails; the others warn.
-_MESH = "§A7: the port serves on one device, unsharded"
-_MULTIHOST = "§A7: the port runs one process, no multi-host runtime"
-_TOOLING = "§A6: the port has no native tokenizer backend or lock sanitizer"
+_MESH = "§A2: the port serves on one device, unsharded"
+_MULTIHOST = "§A2: the port runs one process, no multi-host runtime"
 UNHONORED_KEYS: dict[str, tuple[bool, str]] = {
     "TPU_MESH": (True, _MESH),
     "TPU_TOPOLOGY": (True, _MESH),
@@ -182,16 +192,21 @@ UNHONORED_KEYS: dict[str, tuple[bool, str]] = {
     "TPU_PROCESS_ID": (True, _MULTIHOST),
     "MODEL_ATTN_IMPL": (False, "§B: every attention call runs the port's own kernels"),
     "COSTMODEL_HLO": (False, "§C: the port compiles no HLO; its cost sheets are analytic"),
-    "GOFR_NATIVE_LIB": (False, _TOOLING),
-    "GOFR_NATIVE_CACHE": (False, _TOOLING),
-    "GOFR_NATIVE_DISABLE": (False, _TOOLING),
-    "GOFR_POOL_DEBUG": (False, _TOOLING),
-    "GOFR_SANITIZE": (False, _TOOLING),
-    "GOFR_SANITIZE_ALL": (False, _TOOLING),
-    "GOFR_SANITIZE_HOLD_MS": (False, _TOOLING),
-    "GOFR_SANITIZE_REPORT": (False, _TOOLING),
-    "GOFR_SANITIZE_GRAPH": (False, _TOOLING),
 }
+
+
+def get_env(key: str, default: Optional[str] = None) -> Optional[str]:
+    """A declared key straight from the process environment (no ``.env``
+    file): the tooling's switches, read where no container exists."""
+    if key not in DECLARED_KEYS:
+        raise KeyError(f"config key {key!r} is not read by gofr_tpu_torch")
+    return os.environ.get(key, default)
+
+
+def env_flag(key: str) -> bool:
+    """True when the declared ``key`` is set to ``1`` (the debug-switch
+    idiom: ``GOFR_POOL_DEBUG``, ``GOFR_SANITIZE``)."""
+    return get_env(key, "") == "1"
 
 
 def parse_env_file(path: str) -> dict[str, str]:

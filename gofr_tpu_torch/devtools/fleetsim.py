@@ -39,12 +39,17 @@ seeded streams), resume outcomes, breaker flap count, pool convergence
 ``fleetsim_baseline.json``.
 
 Run it as a module (the counterpart of the JAX package's
-``tools/fleetsim.py``; the lock sanitizer's ``--sanitize`` leg is not
-ported)::
+``tools/fleetsim.py``)::
 
     python -m gofr_tpu_torch.devtools.fleetsim [--replicas 16]
         [--seed 20260803] [--requests 240] [--out FLEETSIM.json]
         [--no-hardening] [--replay capture.json] [--capture-out capture.json]
+        [--emit-graph observed.json]
+
+Under ``GOFR_SANITIZE=1`` the run goes on the lock sanitizer
+(``devtools/sanitizer.py``): a lock-order cycle it observed prints and
+exits 1, and ``--emit-graph`` writes the observed graph for
+``tools/lockgraph_check.py`` beside gofrlint's static one.
 
 The artifact prints on stdout (and goes to ``--out``); gate it with
 ``python tools/fleetsim_gate.py FLEETSIM.json fleetsim_baseline.json``.
@@ -1403,7 +1408,19 @@ def main(argv: Optional[list[str]] = None) -> int:
                         help="TRACE_CAPTURE file to drive instead of a synthetic trace")
     parser.add_argument("--capture-out", default="",
                         help="write this run's served traffic as a TRACE_CAPTURE file")
+    parser.add_argument("--emit-graph", default="",
+                        help="write the sanitizer's OBSERVED lock-order graph as JSON (needs "
+                        "GOFR_SANITIZE=1; gofrlint --emit-lock-graph's schema: union the two "
+                        "with tools/lockgraph_check.py)")
     args = parser.parse_args(argv)
+
+    # GOFR_SANITIZE=1: the sanitizing lock factories before the fleet
+    # builds its locks, so a lock-order cycle anywhere in the router,
+    # replica or admission path under 16-replica load fails the run
+    from gofr_tpu_torch.devtools import sanitizer
+
+    if sanitizer.enabled():
+        sanitizer.install()
 
     replay = None
     if args.replay:
@@ -1423,7 +1440,7 @@ def main(argv: Optional[list[str]] = None) -> int:
     )
     artifact = sim.run()
     artifact["wall_s"] = round(time.monotonic() - t0, 1)
-    artifact["generated_at"] = time.time()
+    artifact["generated_at"] = time.time()  # gofrlint: wall-clock — artifact timestamp
     blob = json.dumps(artifact, indent=2, sort_keys=True)
     print(blob)
     if args.out:
@@ -1437,7 +1454,19 @@ def main(argv: Optional[list[str]] = None) -> int:
         f"pools_idle={slo['pools_idle']} wall={artifact['wall_s']}s",
         file=sys.stderr,
     )
-    return 0
+    if not sanitizer.enabled():
+        if args.emit_graph:
+            print("fleetsim: --emit-graph needs GOFR_SANITIZE=1 (no graph was recorded)",
+                  file=sys.stderr)
+        return 0
+    if args.emit_graph:
+        graph = sanitizer.export_graph(args.emit_graph)
+        print(f"fleetsim: observed lock graph: {len(graph['nodes'])} locks, "
+              f"{len(graph['edges'])} edges -> {args.emit_graph}", file=sys.stderr)
+    report = sanitizer.drain()
+    for finding in report["violations"]:
+        print(f"fleetsim: SANITIZER: {finding.get('summary')}", file=sys.stderr)
+    return 1 if report["violations"] else 0
 
 
 if __name__ == "__main__":

@@ -243,6 +243,7 @@ def main(argv: Optional[list] = None) -> int:
                   "capturing without its evidence", file=sys.stderr)
     artifact = capture_artifact(
         routes, flights, args.seed,
+        # gofrlint: wall-clock — capture timestamp (display)
         source={"router": args.router, "replicas": args.replica, "captured_at": time.time()},
     )
     blob = json.dumps(artifact, indent=2, sort_keys=True)

@@ -406,7 +406,7 @@ def overview_admin_handler(ctx: Context) -> Any:
     container = ctx.container
     timebase = container.timebase
     out: dict[str, Any] = {
-        "ts": time.time(),
+        "ts": time.time(),  # gofrlint: wall-clock — /admin/overview response timestamp (display)
         "timebase": timebase.stats(),
         "requests_in_flight": container.telemetry.active_count(),
         "slo": container.telemetry.slo(window_s=300.0),
@@ -619,7 +619,7 @@ def fleet_overview_handler(ctx: Context) -> Any:
         })
     timebase = container.timebase
     return {
-        "ts": time.time(),
+        "ts": time.time(),  # gofrlint: wall-clock — overview response timestamp (display)
         "router_id": fleet.router_id,
         "replicas": replicas,
         "states": states,

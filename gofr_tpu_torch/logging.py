@@ -160,6 +160,7 @@ class Logger:
     def _write(self, level: Level, message: Any) -> None:
         stream = self._stream(level)
         terminal = self._terminal if self._terminal is not None else _is_terminal(stream)
+        # gofrlint: wall-clock — rendered log-line timestamp (presentation)
         now = time.time()  # the rendered line's timestamp
         try:
             if terminal:

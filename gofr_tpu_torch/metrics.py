@@ -278,6 +278,7 @@ class Histogram(_Metric):
             clamped = _clamp_exemplar_labels(exemplar)
             if clamped:
                 # OpenMetrics exemplar timestamps are epoch seconds
+                # gofrlint: wall-clock — OpenMetrics exemplar timestamps are epoch seconds by spec
                 ex = Exemplar(clamped, float(value), time.time())
         with self._lock:
             if not self._admit(self._totals, key):

@@ -187,6 +187,7 @@ def chat_completions(ctx: Any) -> Any:
     if not prompt_ids:
         raise HTTPError(400, "messages encoded to zero tokens")
     model = adapter or ctx.tpu.model_name  # an adapter serves under its name
+    # gofrlint: wall-clock — OpenAI API `created` is epoch seconds by contract
     created = int(time.time())  # OpenAI `created` is epoch seconds
     chat_id = f"chatcmpl-{uuid.uuid4().hex[:24]}"
     n, _, _ = parse_fanout(body, allow_best_of=False)

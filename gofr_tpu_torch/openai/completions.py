@@ -226,6 +226,7 @@ def completions(ctx: Any) -> Any:
         raise HTTPError(400, 'missing "prompt"')
     prompt_ids = prompt_tokens(ctx, body["prompt"])
     model = adapter or ctx.tpu.model_name  # an adapter serves under its name
+    # gofrlint: wall-clock — OpenAI API `created` is epoch seconds by contract
     created = int(time.time())  # OpenAI `created` is epoch seconds
     cmpl_id = f"cmpl-{uuid.uuid4().hex[:24]}"
     tok = ctx.tpu.tokenizer

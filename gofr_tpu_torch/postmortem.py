@@ -226,7 +226,7 @@ class PostmortemStore:
             "schema": SCHEMA,
             "reason": reason,
             "detail": detail,
-            "ts": time.time(),
+            "ts": time.time(),  # gofrlint: wall-clock — bundle ts (filename + correlation)
             "iso": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
             "pid": os.getpid(),
             "versions": runtime_versions(),

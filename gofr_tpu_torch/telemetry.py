@@ -325,6 +325,7 @@ class FlightRecord:
             deadline.priority if deadline is not None else current_priority()
         )
         self.shed_stage = ""
+        # gofrlint: wall-clock — /admin/requests display ts (durations use t_*)
         self.wall_start = time.time()
         self.t_start = time.perf_counter()
         self.t_enqueue: Optional[float] = None
@@ -1163,7 +1164,7 @@ class FlightRecorder:
         if record is None or record.t_done is not None:
             return
         record.t_done = time.perf_counter()
-        record.wall_done = time.time()
+        record.wall_done = time.time()  # gofrlint: wall-clock — /admin/requests display timestamp
         if error is not None:
             record.note_error(error)
         elif record.status == "in_flight":

@@ -52,6 +52,7 @@ class MockLogger(Logger):
         self.lines: list[str] = []
 
     def _write(self, level: Level, message: Any) -> None:  # type: ignore[override]
+        # gofrlint: wall-clock — rendered log-line timestamp (presentation)
         self.lines.append(self._render_json(level, message, time.time()))
 
     @property

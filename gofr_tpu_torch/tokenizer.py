@@ -1,7 +1,14 @@
 """Byte-level BPE tokenizer and incremental stream decoder.
 
-Copy of ``gofr_tpu/tokenizer.py``'s pure-Python encoder: a greedy
-rank-based byte-level BPE (the GPT-2 family's merge loop) with
+Copy of ``gofr_tpu/tokenizer.py``: a greedy rank-based byte-level BPE (the
+GPT-2 family's merge loop), with two encoders that give the same ids: the
+native library's C++ encode (``native/__init__.py``, built from
+``csrc/tokenizer.cpp`` at first use; ``backend == "native"``) on every
+request's path, and the pure-Python encoder, which runs without a
+toolchain or under ``GOFR_NATIVE_DISABLE`` and is the native one's
+equivalence oracle in the tests. Decode joins the ids' byte pieces in
+Python on both backends; the JAX package decodes natively, but a native
+decode must size its buffer from those same pieces first. With
 
 - merge files (``left right`` id pairs, one a line) and HF
   ``tokenizer.json`` files (byte-level BPE: the merge list translates
@@ -11,13 +18,14 @@ rank-based byte-level BPE (the GPT-2 family's merge loop) with
 - ``TOKENIZER=byte``: the mergeless 256-id byte tokenizer.
 
 Special ids (pad/bos/eos) sit at the TOP of the id space, so byte ids stay
-stable. The JAX package's native (C++) encoder is not ported; this
-encoder is its equivalence oracle there and the only backend here.
+stable. An HF file's external ids are translated in Python on both
+backends (``_map_out``, ``_int_of``).
 """
 
 from __future__ import annotations
 
 import codecs
+import ctypes
 import heapq
 import json
 from collections import Counter
@@ -89,6 +97,16 @@ class Tokenizer:
         self._special_ids: dict[str, int] = {}  # "bos"/"eos"/"pad" -> ext id
         self._token_ids: dict[str, int] = {}  # special content -> ext id
         self._pretok = None  # compiled split regex (HF pre-tokenizer)
+        self._native = None
+        self._handle = None
+        from gofr_tpu_torch import native
+
+        lib = native.load()
+        if lib is not None:
+            blob = "\n".join(f"{left} {right}" for left, right in self.merges).encode()
+            handle = lib.gofr_tok_new(blob, len(blob), n_special)
+            if handle:
+                self._native, self._handle = lib, handle
 
     # -- constructors ----------------------------------------------------------
     @classmethod
@@ -195,6 +213,10 @@ class Tokenizer:
             return self._ext_vocab
         return 256 + len(self.merges) + self.n_special
 
+    @property
+    def backend(self) -> str:
+        return "native" if self._native is not None else "python"
+
     def special_id(self, name: str) -> int:
         """pad/bos/eos ids: the checkpoint's (HF tokenizer.json) or the top
         of the id space."""
@@ -225,15 +247,20 @@ class Tokenizer:
             pos = 0
             for m in self._pretok.finditer(text):
                 if m.start() > pos:
-                    ids.extend(self._encode_python(text[pos : m.start()].encode("utf-8")))
+                    ids.extend(self._encode_raw(text[pos : m.start()].encode("utf-8")))
                 if m.group(0):
-                    ids.extend(self._encode_python(m.group(0).encode("utf-8")))
+                    ids.extend(self._encode_raw(m.group(0).encode("utf-8")))
                 pos = m.end()
             if pos < len(text):
-                ids.extend(self._encode_python(text[pos:].encode("utf-8")))
+                ids.extend(self._encode_raw(text[pos:].encode("utf-8")))
             return self._map_out(ids)
         data = text.encode("utf-8") if isinstance(text, str) else bytes(text)
-        return self._map_out(self._encode_python(data))
+        return self._map_out(self._encode_raw(data))
+
+    def _encode_raw(self, data: bytes) -> list[int]:
+        if self._native is not None:
+            return self._encode_native(data)
+        return self._encode_python(data)
 
     def _map_out(self, ids: list[int]) -> list[int]:
         if self._ext_of is None:
@@ -252,6 +279,12 @@ class Tokenizer:
             ids = [self._int_of[i] for i in ids if i in self._int_of]
         top = 256 + len(self.merges)
         return b"".join(self._pieces[i] for i in ids if 0 <= i < top)
+
+    def _encode_native(self, data: bytes) -> list[int]:
+        cap = max(len(data), 1)
+        buf = (ctypes.c_int32 * cap)()
+        n = self._native.gofr_tok_encode(self._handle, data, len(data), buf, cap)
+        return list(buf[: min(n, cap)])  # n <= len(data): merges only shrink
 
     def _encode_python(self, data: bytes) -> list[int]:
         """O(n log n) greedy merge: a linked list and a lazy min-heap, the
@@ -297,6 +330,14 @@ class Tokenizer:
         """Incremental decoder for token streams: partial UTF-8 sequences
         stay buffered across token boundaries (SSE streaming)."""
         return StreamDecoder(self)
+
+    def __del__(self) -> None:
+        lib, handle = getattr(self, "_native", None), getattr(self, "_handle", None)
+        if lib is not None and handle:
+            try:
+                lib.gofr_tok_free(handle)
+            except Exception:
+                pass  # interpreter teardown: the library may be gone
 
 
 class StreamDecoder:

@@ -98,7 +98,10 @@ def pack_token_rows(
     rows: Sequence[np.ndarray], n_rows: int, width: int, pad_id: int = 0
 ) -> tuple[np.ndarray, np.ndarray]:
     """Pack variable-length id rows into [n_rows, width] plus per-row kept
-    lengths. Overlong rows keep their LAST tokens."""
+    lengths. Overlong rows keep their LAST tokens. The JAX package packs
+    through the native library's ``gofr_pack_rows``; numpy's row copies
+    stay here, as they took less host time than that call (with its flat
+    copy of the rows) at 8 x 512 (``chip_smoke.py`` phase 10)."""
     out = np.full((n_rows, width), pad_id, np.int32)
     out_lens = np.zeros(n_rows, np.int32)
     for i, row in enumerate(rows):

@@ -121,12 +121,19 @@ the client's abort) finishes too, each freeing its slot and its KV
 reservation at once. A dying pool stamps the cause on every active row's
 journal entry. ``close(timeout, strict=False)`` bounds the join for a
 recovery teardown, whose worker may be parked on a wedged wait.
+
+``GOFR_POOL_DEBUG=1`` (read at import, as in the JAX pool) prints one
+stderr line a fetched chunk, in the JAX pool's format: ``[pool] chunk
+active=<riders> dispatch->fetch <ms> fetch-wait <ms> deliver <ms>``:
+the chunk's dispatch to the end of its host copy, the worker's wait on
+that copy, and the delivery to the riders.
 """
 
 from __future__ import annotations
 
 import contextlib
 import queue
+import sys
 import threading
 import time
 from collections import deque
@@ -135,6 +142,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from gofr_tpu_torch.config import env_flag
 from gofr_tpu_torch.deadline import (
     cancellations_counter,
     clamp_spec_k,
@@ -157,6 +165,9 @@ DEADLINE = object()
 # chunks in flight (DECODE_PIPELINE): the fetch of chunk N overlaps the
 # younger chunks' execution
 PIPELINE_DEPTH = 3
+# GOFR_POOL_DEBUG=1: one stderr line a chunk (dispatch, fetch and deliver
+# ms): the first tool when pooled tok/s parts from the chunk's own rate
+_POOL_DEBUG = env_flag("GOFR_POOL_DEBUG")
 # how long close() waits for the worker: one chunk's launches take the host
 # well under a second at llama3-8b
 CLOSE_TIMEOUT_S = 60
@@ -891,9 +902,11 @@ class DecodePool:
         the younger chunks meanwhile, and submits can take the lock to join
         the next dispatch), under the watchdog, then deliver its tokens."""
         records, fetch, want_top, drec, start, nbytes = in_flight.popleft()
+        fetch_start = time.perf_counter()
         try:
             with self._watch("decode_chunk", drec):
                 arrays = fetch.wait()
+            fetch_done = time.perf_counter()
             # the dispatch cadence: to the younger chunk's dispatch, else
             # this chunk's own span
             elapsed = (in_flight[0][4] if in_flight else time.perf_counter()) - start
@@ -905,6 +918,12 @@ class DecodePool:
             self._finish_record(drec, records, status="error")
             raise
         self._finish_record(drec, records)
+        if _POOL_DEBUG:
+            print(f"[pool] chunk active={len(records)} "
+                  f"dispatch->fetch {(fetch_done - start) * 1e3:.0f}ms "
+                  f"fetch-wait {(fetch_done - fetch_start) * 1e3:.0f}ms "
+                  f"deliver {(time.perf_counter() - fetch_done) * 1e3:.0f}ms",
+                  file=sys.stderr, flush=True)
 
     def _deliver(self, records: list, toks: np.ndarray, lps: np.ndarray,
                  tvals: Any, tids: Any, elapsed: float = 0.0, drec: Any = None,

@@ -1747,6 +1747,30 @@ class TPUDevice:
             out["served_recent"] = [dict(e) for e in self._kv_served_ledger]
             out["pulls_recent"] = [dict(e) for e in self._kv_pull_ledger]
         out["enabled"] = self.kv_transfer_enabled
+        # what a pull could find here, LRU first, read without refreshing
+        # the LRU order as a pull's lookup does (a port-only key)
+        store = self._kv_store()
+        if store is not None:
+            items = store.pool.cache_items()
+            out["cached"] = [{"prompt_hash": h, "length": int(e.table.length)}
+                             for (_, e), h in zip(items, self._key_hashes(items))]
+        return out
+
+    def _key_hashes(self, items: list) -> list[str]:
+        """``kvwire.hash_of_key`` of each cached ``(key, entry)``, memoized
+        by key, OUTSIDE ``pool.lock`` (sha256 over every key under the
+        admission lock would serialize pulls against admission); the memo
+        keeps only the live keys once it outgrows them."""
+        memo = self._kv_hash_memo
+        out = []
+        for k, _ in items:
+            h = memo.get(k)
+            if h is None:
+                h = memo[k] = kvwire.hash_of_key(k)
+            out.append(h)
+        if len(memo) > 2 * len(items) + 16:
+            live = {k for k, _ in items}
+            self._kv_hash_memo = {k: v for k, v in memo.items() if k in live}
         return out
 
     def _note_transfer(self, outcome: str) -> None:
@@ -1761,28 +1785,17 @@ class TPUDevice:
         reads). Returns ``(spec, table, arena, pin)`` or None (evicted,
         never seen, transfer off: the endpoint's clean 404). The caller
         releases the pin at stream close; its TTL covers a serving thread
-        that dies mid-send. The keys are hashed OUTSIDE ``pool.lock``
-        (sha256 over every key under the admission lock would serialize
-        pulls against admission), the pin taken under it."""
+        that dies mid-send. The keys are hashed outside ``pool.lock``
+        (``_key_hashes``), the pin taken under it."""
         if not self.kv_transfer_enabled:
             return None
         store = self._kv_store()
         if store is None:
             return None
         pool, arena = store.pool, store.arena
-        memo = self._kv_hash_memo
         items = pool.cache_items()
-        key = None
-        for k, _ in items:
-            h = memo.get(k)
-            if h is None:
-                h = memo[k] = kvwire.hash_of_key(k)
-            if h == prompt_hash:
-                key = k
-                break
-        if len(memo) > 2 * len(items) + 16:
-            live = {k for k, _ in items}
-            self._kv_hash_memo = {k: v for k, v in memo.items() if k in live}
+        key = next((k for (k, _), h in zip(items, self._key_hashes(items)) if h == prompt_hash),
+                   None)
         if key is None:
             return None
         with pool.lock:
@@ -1808,6 +1821,7 @@ class TPUDevice:
         with self._kv_transfer_lock:
             self.kv_transfer_stats["served"] += 1
             self._kv_served_ledger.append({
+                # gofrlint: wall-clock — ledger display timestamp
                 "ts": time.time(), "prompt_hash": prompt_hash,
                 "request_id": request_id or None, "n_blocks": nb,
             })
@@ -1839,6 +1853,7 @@ class TPUDevice:
         origin = current_origin()
         with self._kv_transfer_lock:
             self._kv_pull_ledger.append({
+                # gofrlint: wall-clock — ledger display timestamp
                 "ts": time.time(), "donor": hint, "prompt_hash": kvwire.prompt_hash(ids),
                 "outcome": outcome, "request_id": (origin or {}).get("request_id") or None,
                 "elapsed_ms": round((time.perf_counter() - pull_start) * 1000, 1),

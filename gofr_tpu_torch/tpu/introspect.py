@@ -112,6 +112,7 @@ class DispatchRecord:
         self.tokens = tokens
         self.detail = detail
         self.status = "running"
+        # gofrlint: wall-clock — /admin/dispatches display ts (durations use t_*)
         self.wall_start = time.time()
         now = time.perf_counter()
         self.t_queued = queued_at if queued_at is not None else now
@@ -280,6 +281,7 @@ class EngineState:
         self._lock = threading.Lock()
         self.state = "booting"
         self._detail = ""
+        # gofrlint: wall-clock — /admin/engine "since"/history ts (display)
         self._since = time.time()
         self._history: "deque[dict[str, Any]]" = deque(maxlen=64)
         self._logger = logger
@@ -324,6 +326,7 @@ class EngineState:
                 return
             self.state = state
             self._detail = detail
+            # gofrlint: wall-clock — /admin/engine "since"/history ts (display)
             self._since = time.time()
             self._history.append(
                 {"state": state, "ts": self._since, "detail": detail}

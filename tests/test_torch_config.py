@@ -55,6 +55,13 @@ GOFR_KEYS = (
     "GRPC_PORT", "DB_DIALECT", "DB_HOST", "DB_PORT", "DB_NAME", "DB_USER", "DB_PASSWORD",
     "REDIS_HOST", "REDIS_PORT", "BATCH_COHORT", "OPENAI_ACCEPT_UNKNOWN_MODEL",
 )
+# and GoFr's tooling: the native library, the pool's debug line, the lock
+# sanitizer
+TOOLING_KEYS = (
+    "GOFR_NATIVE_LIB", "GOFR_NATIVE_CACHE", "GOFR_NATIVE_DISABLE", "GOFR_POOL_DEBUG",
+    "GOFR_SANITIZE", "GOFR_SANITIZE_ALL", "GOFR_SANITIZE_HOLD_MS", "GOFR_SANITIZE_REPORT",
+    "GOFR_SANITIZE_GRAPH",
+)
 
 
 # the keys the fleet honors: the router's, the replica's role, the KV
@@ -85,16 +92,19 @@ def test_the_port_partitions_the_jax_keys():
     assert {"APP_NAME", "LOG_LEVEL", "HANDLER_THREADS", "TPU_ENABLED", "TPU_BOOT",
             "ECHO_STEP_MS", "SPEC_FAKE_ACCEPT", "METRICS_MAX_SERIES", "METRICS_EXEMPLARS",
             "TRACER_HOST", "TRACER_PORT"} <= port_declared
-    # and the 11 the rest of GoFr honors: 143 of the JAX package's 159
-    assert set(GOFR_KEYS) <= port_declared
-    assert (len(port_declared), len(UNHONORED_KEYS), len(JAX_KEYS)) == (143, 16, 159)
+    # the 11 the rest of GoFr honors and the 9 of its tooling: 152 of the
+    # JAX package's 159
+    assert set(GOFR_KEYS) | set(TOOLING_KEYS) <= port_declared
+    assert (len(port_declared), len(UNHONORED_KEYS), len(JAX_KEYS)) == (152, 7, 159)
+    # what is left: the mesh and multihost keys, and two the port replaces
+    assert set(UNHONORED_KEYS) == MUST_REFUSE | {"MODEL_ATTN_IMPL", "COSTMODEL_HLO"}
 
 
-@pytest.mark.parametrize("key", FAILURE_KEYS + FLEET_KEYS + GOFR_KEYS)
+@pytest.mark.parametrize("key", FAILURE_KEYS + FLEET_KEYS + GOFR_KEYS + TOOLING_KEYS)
 def test_a_failure_layer_key_is_declared_and_silent(key, clean_env, tmp_path):
-    """Each key the failure layer, the fleet or the rest of GoFr honors is
-    one of the JAX package's, declared, read from the environment, and
-    neither refuses nor warns at boot."""
+    """Each key the failure layer, the fleet, the rest of GoFr or its
+    tooling honors is one of the JAX package's, declared, read from the
+    environment, and neither refuses nor warns at boot."""
     assert key in JAX_KEYS and key in DECLARED_KEYS and key not in UNHONORED_KEYS
     clean_env.setenv(key, "7")
     config = EnvFileConfig(str(tmp_path))
@@ -152,9 +162,9 @@ def test_a_set_unhonored_key_refuses_or_warns(key, clean_env, tmp_path):
 
 
 def test_the_env_file_counts_and_each_key_warns_once(clean_env, tmp_path):
-    (tmp_path / ".env").write_text("MODEL_ATTN_IMPL=xla\nGOFR_POOL_DEBUG=a\n")
-    clean_env.setenv("GOFR_POOL_DEBUG", "b")  # in both: one warning
-    clean_env.setenv("GOFR_SANITIZE", "")  # empty is unset
+    (tmp_path / ".env").write_text("MODEL_ATTN_IMPL=xla\nCOSTMODEL_HLO=a\n")
+    clean_env.setenv("COSTMODEL_HLO", "b")  # in both: one warning
+    clean_env.setenv("TPU_MESH", "")  # empty is unset
     out = io.StringIO()
     saved, sys.stdout = sys.stdout, out
     try:
@@ -162,7 +172,7 @@ def test_the_env_file_counts_and_each_key_warns_once(clean_env, tmp_path):
     finally:
         sys.stdout = saved
     assert [w.split()[0] for w in _warnings(out.getvalue())] == ["MODEL_ATTN_IMPL",
-                                                                "GOFR_POOL_DEBUG"]
+                                                                "COSTMODEL_HLO"]
     (tmp_path / ".env").write_text("TPU_TOPOLOGY=2x2\n")
     with pytest.raises(ValueError, match="TPU_TOPOLOGY"):
         gofr_tpu_torch.new(str(tmp_path))

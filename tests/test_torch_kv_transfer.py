@@ -616,3 +616,32 @@ def test_x_kv_donor_pull_between_jax_and_port_echo(donor_pkg, recv_pkg, tmp_path
     finally:
         recv.close()
         donor.close()
+
+
+def test_the_snapshot_lists_the_cache_without_refreshing_it(tiny_pair):
+    """``/admin/engine``'s ``kv_transfer.cached`` lists what a pull could
+    find here (prompt hash and length, LRU first), and reading it leaves
+    the LRU order as it was: the next inserts evict the entries it listed
+    first. A pull's own lookup (``kv_export``) refreshes the entry it
+    serves, so a probe through the export would hide an eviction."""
+    from gofr_tpu_torch.fleet.kvwire import prompt_hash
+
+    _, tdev = tiny_pair
+    pool = tdev._kv_store().pool
+    pool.cache_clear()
+    prompts = [[(11 * i + 3 * j) % 250 + 1 for i in range(20)] for j in range(3)]
+    outs = [tdev.generate(prompts[j], 3) for j in range(2)]
+
+    def cached():
+        return tdev.engine_snapshot()["kv_transfer"]["cached"]
+
+    held = cached()
+    want = []
+    for p, out in zip(prompts, outs):  # the prompt, then prompt + reply[:-1]
+        want += [(prompt_hash(p), len(p)), (prompt_hash(p + out[:-1]), len(p) + len(out) - 1)]
+    assert [(e["prompt_hash"], e["length"]) for e in held] == want
+    assert cached() == held  # reading it twice: the same order
+    tdev.generate(prompts[2], 3)  # two inserts: the two entries listed first go
+    assert [e["prompt_hash"] for e in cached()][:2] == [h for h, _ in want[2:]]
+    _export(tdev, prompts[1])  # the export refreshes the entry it served
+    assert cached()[-1]["prompt_hash"] == prompt_hash(prompts[1])
