@@ -4,6 +4,7 @@
     python3 chip_smoke.py        # from the repository root, one card
     python3 chip_smoke.py --repeat-serve-train N   # hunting a device fault (below)
     python3 chip_smoke.py --serve-ab PARENT_TREE   # phases 5 and 10 against a parent tree
+    python3 chip_smoke.py --mesh-cards   # phase 21 over distinct cards (two or more)
 
 Phases, each fatal on failure (no phase is skipped or caught):
 
@@ -375,8 +376,33 @@ Phases, each fatal on failure (no phase is skipped or caught):
    example and a line names the package and the legs that did not run.
    Everything it started is stopped and the merged checkpoint deleted.
 
-Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
-last ``{"ok": true, "device": {...}}``.
+21. the serving mesh (after phase 10b, on phase 5's weights, in phase
+   10's configuration; two tp shards on the one card): the forward at one
+   shard's shapes against its plain version (the ragged prefill B=2 at
+   bucket 512 and the pool's decode B=8, Hq=16 Hkv=4), with device time,
+   bound, plain time and SDPA's; (a) ``ShardedTransformer`` over
+   ``make_mesh(devices=[cuda:0, cuda:0])`` against the unsharded model: a
+   ragged prefill B=2 at bucket 512 (top-5 logprobs within phase 10's
+   pooled-vs-solo tolerance: each row-parallel product sums two f32
+   partials where the unsharded one accumulates once, bf16 through 32
+   layers) and 32 decode steps of the pool's chunk, ids under the near-tie
+   rule, exactly 2 x n_layers sm90 launches and 2 x n_layers decode
+   launches a step; (b) ``TPU_MESH=tp=2`` served through
+   ``/v1/completions`` over the harness's fake ``visible_devices`` ([cuda:0,
+   cuda:0], restored after): phase 10's 1 and 8 streams of 32 greedy
+   tokens, the 1,500-byte prompt (3 slices) and its exact repeat (a prefix
+   hit), 11 generations against phase 10's ids under the near-tie rule,
+   2 x n_layers x DECODE_CHUNK decode launches a pool chunk, no mma,
+   ``/admin/engine``'s ``mesh`` and the pool's ``mesh_axes``, the
+   ``gofr_tpu_mesh_axis_size`` gauge, no ``gofr_tpu_mesh_degrade_total``,
+   every flight record's ``mesh_axes``; TPOT and tokens/s beside phase
+   10's (two shards sharing one card's host-bound path, not a two-GPU
+   mesh's speed); (c) with the real enumeration the boot fails "needs 2
+   devices, have 1" and the device ends ``failed``. One ``mesh`` line.
+
+Prints a ``{"kernels": [...]}`` line (phase 21's launches under each
+entry's ``mesh_launches``, its two shard rows beside them), the card's
+name and power limit, and last ``{"ok": true, "device": {...}}``.
 
 ``--serve-ab PARENT_TREE`` runs instead phases 5 and 10 of PARENT_TREE's
 ``chip_smoke.py`` and of this one, each in its own process, in three arms
@@ -388,6 +414,12 @@ last two. It prints each run's aggregate tokens/s, TPOT, mean TTFT at 1,
 ``host_cost``: the host time the chain adds to one request and the metric
 updates add to a request and a pool chunk, measured alone on the same
 host.
+
+``--mesh-cards`` (a machine with two or more cards) runs instead phases 5
+and 10 on cuda:0, then phase 21's direct leg over [cuda:0, cuda:1] and
+over every card, and its served leg with ``TPU_MESH=tp=<cards>`` over the
+real enumeration: the serving mesh across distinct cards, each shard's
+weights and KV on its own card; it prints one ``mesh-cards`` line.
 
 ``--repeat-serve-train N`` runs instead phase 10, the pool's decode kernel
 and phase 9 N times in one process, on a fresh llama3-8b each time, under
@@ -1335,7 +1367,11 @@ def serve_default(torch, flash, card: str, model) -> dict:
         print(f"default-metrics [{card}]: {json.dumps(metrics)}", flush=True)
         # the 8 prompts' greedy ids, the sanitized leg's reference
         reference = {"prompts": prompts8, "ids": [ids_of(p)[0] for p in prompts8],
-                     "stop_ids": sorted(dev.default_stop_ids)}
+                     "stop_ids": sorted(dev.default_stop_ids),
+                     # every prompt's first generation (phase 21's reference)
+                     "by_tokens": {}}
+        for tokens, out in generations:
+            reference["by_tokens"].setdefault(tuple(int(t) for t in tokens), list(out))
     finally:
         app.shutdown()
     # the pool's worker is joined: nothing of the pool runs beside training
@@ -1507,6 +1543,428 @@ def sanitized_server(torch, card: str, default: dict) -> dict:
     check(out["cycles"] == 0, "sanitized: the sanitizer found a lock-order cycle")
     check(not out["leaked_threads"], f"sanitized: leaked threads {out['leaked_threads']}")
     return out
+
+
+# -- phase 21: the serving mesh (TPU_MESH=tp=2, two shards on the one card) ---------
+
+# the tp = 2 model against the unsharded one: each row-parallel product sums
+# two f32 partials and rounds to bf16 once, where the unsharded product
+# accumulates in one f32 and rounds once; a reduction order apart, bf16
+# activations through 32 layers: phase 10's pooled-vs-solo tolerance, on
+# the unsharded top-5 logprobs, (atol, rtol)
+MESH_LP_TOL = POOL_LP_TOL
+# the pool's ragged lengths for the shard-shape decode check
+MESH_POOL_LENGTHS = [137, 410, 655, 900, 1530, 2046, 33, 1024]
+
+
+def shard_case(torch, gen, b, sq, offsets, kv_lens, max_seq=2048, layers=2):
+    """One tp shard's attention call at llama3-8b's width: q [B, Sq, 16,
+    128] bf16, K/V the last layer of a [layers, B, max_seq, 4, 128] shard
+    cache (the ShardedKV shard's layout), +-300 past each row's kv_len."""
+    dev, bf16 = "cuda", torch.bfloat16
+    q = torch.randn(b, sq, 16, 128, device=dev, generator=gen).to(bf16)
+    shape = (layers, b, max_seq, 4, 128)
+    caches = [torch.randn(shape, device=dev, generator=gen).to(bf16) for _ in "kv"]
+    for cache, poison in zip(caches, (300.0, -300.0)):
+        for i, n in enumerate(kv_lens):
+            cache[:, i, n:] = poison
+    offs = torch.tensor(offsets, dtype=torch.int32, device=dev)
+    lens = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+    return q, caches[0][-1], caches[1][-1], offs, lens
+
+
+def mesh_kernels(torch, flash, gen) -> tuple:
+    """The forward at one tp = 2 shard's shapes against its plain version,
+    with its device time, bound, plain time and SDPA's: the ragged prefill
+    at bucket 512 (B = 2, 512 and 300 real tokens) on the sm90 variant and
+    the pool's decode (B = 8 over a 2048-slot cache) on the decode variant.
+    -> (max errors by variant, timing rows)."""
+    errs = {"sm90": [], "decode": []}
+    cases = {
+        "tp shard prefill B=2 Sq=512": shard_case(torch, gen, 2, 512, [0, 0], [512, 300]),
+        "tp shard pool decode B=8": shard_case(
+            torch, gen, 8, 1, MESH_POOL_LENGTHS, [n + 1 for n in MESH_POOL_LENGTHS]),
+    }
+    rows = {}
+    for name, case in cases.items():
+        out, _, _ = compare(torch, flash, name, case, errs=errs)
+        check_tail_invisible(torch, flash, name, case, out)
+        rows[name] = device_row(time_shape(torch, flash, name, case, 50, device=True))
+    check(rows["tp shard prefill B=2 Sq=512"]["instance"] == "sm90"
+          and rows["tp shard pool decode B=8"]["instance"] == "decode",
+          "mesh: the shard shapes must take the sm90 and the decode instances")
+    return errs, rows
+
+
+def mesh_tie(plain: list, other: list, top2: list, label: str) -> dict:
+    """``other`` against ``plain`` (one row's ids) under the near-tie rule:
+    equal, or parting first where the plain path's top-2 logits (``top2``,
+    one pair a position) differ by less than NEAR_TIE x |max logit|."""
+    j = next((i for i, (a, b) in enumerate(zip(plain, other)) if a != b), None)
+    if j is None:
+        return {"diverged": False}
+    hi, lo = top2[j]
+    gap, limit = hi - lo, NEAR_TIE * abs(hi)
+    print(f"{label}: ids part at position {j} ({plain[j]} unsharded, {other[j]} tp=2): the "
+          f"unsharded top-2 logits {hi:.4f} / {lo:.4f}, gap {gap:.4f} against {NEAR_TIE} x |max| "
+          f"= {limit:.4f} -> {'near tie' if gap < limit else 'FAIL'}", flush=True)
+    check(gap < limit, f"{label}: the ids part where the unsharded path has no near tie")
+    return {"diverged": True, "position": j, "gap": gap, "limit": limit}
+
+
+def mesh_direct(torch, flash, model, devices: list) -> dict:
+    """Phase 21 (a): the tp = len(devices) model built through
+    ``make_mesh(devices=)`` and ``ShardedTransformer.from_model`` on phase
+    5's weights (phase 21: [cuda:0, cuda:0]), a ragged prefill (B = 2 at
+    bucket 512) and 32 decode steps of the pool's chunk (4 x 8), against
+    the unsharded model on the same ids: logprobs within MESH_LP_TOL, ids
+    under the near-tie rule, and exactly tp x n_layers sm90 launches for
+    the prefill and tp x n_layers a decode step (each shard's attention,
+    each a launch)."""
+    from gofr_tpu_torch.parallel.mesh import make_mesh
+    from gofr_tpu_torch.parallel.serving import ShardedTransformer
+
+    cfg = model.cfg
+    tp = len(devices)
+    t0 = time.perf_counter()
+    mesh = make_mesh({"tp": tp}, devices=devices)
+    sharded = ShardedTransformer.from_model(model, mesh)
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    held = {str(d): torch.cuda.memory_allocated(d) / 2**30 for d in sorted(set(devices), key=str)}
+    g = torch.Generator(device="cuda")
+    g.manual_seed(21)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 512), generator=g, device="cuda",
+                           dtype=torch.int32)
+    lengths = torch.tensor([512, 300], dtype=torch.int32, device="cuda")
+    steps = 32
+    with torch.no_grad():
+        logits, cache = model.prefill(tokens, model.init_cache(2, 2048), lengths)
+        plain_first = logits.float()
+        top2, plain_ids = [], []
+        for _ in range(steps + 1):
+            top2.append(torch.topk(logits.float(), 2).values.tolist())
+            tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+            plain_ids.append(tok[:, 0].tolist())
+            if len(plain_ids) <= steps:
+                logits, cache = model.decode_step(tok, cache)
+        del cache
+        # every count to 0 just before the sharded path runs
+        for c in fwd_counters(flash):
+            c.reset()
+        logits, cache = sharded.prefill(tokens, sharded.init_cache(2, 2048), lengths)
+        for d in set(devices):
+            torch.cuda.synchronize(d)
+        prefill_sm90 = flash.launches_fwd_sm90.value
+        first = logits.float()
+        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        sh_ids = [tok[:, 0].tolist()]
+        t1 = time.perf_counter()
+        for _ in range(steps // 8):
+            out = sharded.decode_chunk_pool(tok, cache, 8)
+            tok, cache = out[4], out[5]
+            sh_ids += out[0].t().tolist()
+        for d in set(devices):
+            torch.cuda.synchronize(d)
+        decode_s = time.perf_counter() - t1
+        launches = {"sm90": flash.launches_fwd_sm90.value,
+                    "decode": flash.launches_fwd_decode.value,
+                    "all": flash.launches.value,
+                    "decode_r2": flash.launches_fwd_instance["decode_r2"].value}
+        top = torch.topk(plain_first, 5, dim=-1).indices
+        lp_p = torch.log_softmax(plain_first, -1).gather(1, top)
+        lp_s = torch.log_softmax(first, -1).gather(1, top)
+        lp_diff = (lp_s - lp_p).abs()
+        atol, rtol = MESH_LP_TOL
+        lp_ok = bool((lp_diff <= atol + rtol * lp_p.abs()).all())
+        logit_diff = float((first - plain_first).abs().max())
+    n = cfg.n_layers
+    print(f"mesh (a): tp={tp} over {[str(d) for d in devices]} placed in {place_s:.2f}s "
+          f"(GiB allocated after: {held}); prefill B=2 at "
+          f"bucket 512 (512 and 300 tokens): max |logit diff| {logit_diff:.4e}, the unsharded "
+          f"top-5 logprobs max |diff| {float(lp_diff.max()):.4e} (tol {atol} + {rtol}*|lp|) -> "
+          f"{'ok' if lp_ok else 'FAIL'}; {steps} decode steps (4 pool chunks of 8) in "
+          f"{decode_s * 1e3:.1f} ms; launches {launches} (want sm90 {tp * n}, decode "
+          f"{tp * n * steps})", flush=True)
+    check(lp_ok, f"mesh (a): the tp={tp} prefill's logprobs disagree with the unsharded model")
+    check(prefill_sm90 == tp * n and launches["sm90"] == tp * n,
+          f"mesh (a): {launches['sm90']} sm90 launches, want one a shard a layer ({tp * n})")
+    check(launches["decode"] == tp * n * steps and launches["all"] == tp * n * (steps + 1),
+          "mesh (a): the decode steps missed the decode kernel on a shard")
+    ties = []
+    for r in range(2):
+        plain_row = [ids[r] for ids in plain_ids]
+        sh_row = [ids[r] for ids in sh_ids]
+        ties.append(mesh_tie(plain_row, sh_row, [t[r] for t in top2], f"mesh (a) row {r}"))
+    same = sum(not t["diverged"] for t in ties)
+    print(f"mesh (a): greedy ids over {steps + 1} positions equal to the unsharded model's in "
+          f"{same} of 2 rows", flush=True)
+    del sharded, cache
+    return {"tp": tp, "devices": [str(d) for d in devices], "gib_allocated": held,
+            "place_s": place_s, "logit_max_diff": logit_diff,
+            "lp_max_diff": float(lp_diff.max()), "ties": ties, "launches": launches,
+            "decode_ms_per_step": decode_s * 1e3 / steps}
+
+
+@contextlib.contextmanager
+def two_shard_enumeration(torch):
+    """The harness's fake: ``visible_devices("cuda")`` gives [cuda:0,
+    cuda:0], the counterpart of the forced CPU device count the JAX tests
+    run on; the real enumeration is restored on exit."""
+    from gofr_tpu_torch.parallel import mesh as mesh_mod
+
+    real = mesh_mod.visible_devices
+
+    def two_shards(platform: str) -> list:
+        return [torch.device("cuda", 0)] * 2 if platform == "cuda" else real(platform)
+
+    mesh_mod.visible_devices = two_shards
+    print("mesh (b): the harness replaces parallel/mesh.py::visible_devices with [cuda:0, "
+          "cuda:0] (a fake of the harness: two tp shards on one card, not a two-GPU mesh)",
+          flush=True)
+    try:
+        yield
+    finally:
+        mesh_mod.visible_devices = real
+    check(len(mesh_mod.visible_devices("cuda")) == torch.cuda.device_count(),
+          "mesh: the real enumeration was not restored")
+
+
+def mesh_served(torch, flash, card: str, model, default: dict, tp: int = 2,
+                fake: bool = True) -> dict:
+    """Phase 21 (b): ``TPU_MESH=tp=2`` boots llama3-8b in phase 10's
+    configuration over the harness's two shards (``fake``; else ``tp`` of
+    the real cards) and serves phase 10's 1 and 8 streams of 32 greedy
+    tokens, one prompt past PREFILL_CHUNK_TOKENS and its exact repeat (a
+    prefix hit): ids equal phase 10's (or part at a near tie), the mesh on
+    every surface, no degrade counted."""
+    import gofr_tpu_torch
+    from gofr_tpu_torch.parallel.serving import ShardedTransformer
+
+    ref = default["reference"]["by_tokens"]
+    env = {**PHASE10_ENV, "TPU_MESH": f"tp={tp}", "HTTP_PORT": str(free_port())}
+    for key in ("DECODE_POOL", "KV_PAGED", "KV_BLOCKS", "KV_BLOCK_TOKENS", "DECODE_PIPELINE",
+                "SCHED_POLICY", "SCHED_MAX_DEFER_MS", "TPU_BOOT"):
+        os.environ.pop(key, None)
+    os.environ.update(env)
+    t0 = time.perf_counter()
+    app = None
+    try:
+        with two_shard_enumeration(torch) if fake else contextlib.nullcontext():
+            app = gofr_tpu_torch.new(model=model)
+            gofr_tpu_torch.register_openai_routes(app)
+            app.start()
+        boot_s = time.perf_counter() - t0
+        dev = app.container.tpu
+        pool, runner = dev.decode_pool, dev.runner
+        n_layers, chunk = runner.cfg.n_layers, pool.chunk
+        port = app.http_port
+        print(f"mesh (b): booted in {boot_s:.1f}s ({dev.describe()}), memory "
+              f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB", flush=True)
+        check(isinstance(runner.model, ShardedTransformer), "mesh (b): the runner is unsharded")
+        check(pool is not None and dev.kv_pool is not None and runner.prefill_chunk_bucket == 512,
+              f"mesh (b): the pool, paged KV or chunked prefill is off under tp={tp}")
+        held = {str(d): torch.cuda.memory_allocated(d) / 2**30
+                for d in sorted(set(runner.model.mesh.devices), key=str)}
+        print(f"mesh (b): GiB allocated by device {held}", flush=True)
+        generations: list = []
+        inner = dev.generate
+
+        def recording_generate(tokens, *args, **kwargs):
+            out = inner(tokens, *args, **kwargs)
+            generations.append(([int(t) for t in tokens], out))
+            return out
+
+        dev.generate = recording_generate
+        in_pool = {"decode": 0, "dispatches": 0}
+        dispatch = pool._dispatch_chunk
+
+        def counted_dispatch(*args, **kwargs):
+            before = flash.launches_fwd_decode.value
+            out = dispatch(*args, **kwargs)
+            in_pool["decode"] += flash.launches_fwd_decode.value - before
+            in_pool["dispatches"] += 1
+            return out
+
+        pool._dispatch_chunk = counted_dispatch
+        greedy = {"max_tokens": 32, "temperature": 0}
+        prompts8 = default["reference"]["prompts"]
+        # every count to 0 just before the served traffic
+        for c in fwd_counters(flash):
+            c.reset()
+        p0 = runner.prefills
+        rates, tpots = {}, {}
+        for k, prompts in ((1, [text(10, 100)]), (8, prompts8)):
+            results, starts = [None] * k, [None] * k
+
+            def run(i, prompts=prompts, results=results, starts=starts):
+                starts[i] = time.perf_counter()
+                results[i] = post(port, {"prompt": prompts[i], "stream": True, **greedy},
+                                  stream=True)
+
+            threads = [threading.Thread(target=run, args=(i,)) for i in range(k)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            rates[k], tpots[k], counts = stream_rate(starts, results)
+            print(f"mesh (b): {k} concurrent greedy streams ({counts}): aggregate "
+                  f"{rates[k]:.1f} tokens/s, TPOT {tpots[k]:.2f} ms (phase 10 unsharded: "
+                  f"{default['metrics']['aggregate_tokens_per_s'][k]:.1f} tokens/s, TPOT "
+                  f"{default['metrics']['tpot_ms'][k]:.2f} ms); two shards on one card double "
+                  "the launches of a host-bound path: not a two-GPU mesh's speed", flush=True)
+        p1 = runner.prefills
+        long = text(7, 1500)
+        status, frames, _, _ = post(port, {"prompt": long, "stream": True, **greedy}, stream=True)
+        check(status == 200 and frames[-1] == "[DONE]", f"mesh (b): chunked prompt {status}")
+        check(runner.prefills - p1 == 3, "mesh (b): the 1,500-byte prompt was not 3 slices")
+        hits = runner.prefix_stats["hits"]
+        status, _, _, _ = post(port, {"prompt": long, **greedy})
+        check(status == 200 and runner.prefix_stats["hits"] == hits + 1,
+              "mesh (b): the repeat missed the prefix cache")
+        launches = {"sm90": flash.launches_fwd_sm90.value,
+                    "decode": flash.launches_fwd_decode.value,
+                    "all": flash.launches.value,
+                    "prefill_dispatches": runner.prefills - p0,
+                    "pool_dispatches": in_pool["dispatches"]}
+        pool._dispatch_chunk = dispatch
+        per_chunk = in_pool["decode"] / max(in_pool["dispatches"], 1)
+        print(f"mesh (b): launches {launches}, decode {per_chunk} a pool chunk ({tp} shards x "
+              f"n_layers x DECODE_CHUNK = {tp * n_layers * chunk})", flush=True)
+        check(per_chunk == tp * n_layers * chunk, "mesh (b): a pool chunk missed a shard's kernel")
+        check(launches["sm90"] >= tp * n_layers * launches["prefill_dispatches"],
+              "mesh (b): a prefill shard missed the sm90 kernel")
+        check(launches["all"] == launches["sm90"] + launches["decode"],
+              "mesh (b): a call took the mma kernel")
+        ties, compared = [], 0
+        for tokens, out in generations:
+            want = ref.get(tuple(tokens))
+            if want is None:
+                continue
+            compared += 1
+            label = f"mesh (b) {len(tokens)}-token prompt"
+            tie = mesh_tie_served(runner, tokens, want, out, label)
+            ties.append(tie)
+        same = sum(not t["diverged"] for t in ties)
+        print(f"mesh (b): {compared} generations against phase 10's ids: {same} equal, "
+              f"{compared - same} parting at a near tie", flush=True)
+        check(compared == len(generations) == 11, f"mesh (b): {compared} of "
+              f"{len(generations)} generations had phase 10's reference")
+        engine = admin(port, "/admin/engine")
+        print(f"mesh (b): /admin/engine mesh {engine['mesh']}, decode_pool mesh_axes "
+              f"{engine['decode_pool']['mesh_axes']}, kv_blocks total "
+              f"{engine['kv_blocks']['total']}", flush=True)
+        check(engine["mesh"] == {"axes": {"tp": tp}, "devices": tp},
+              f"mesh (b): /admin/engine mesh {engine['mesh']}")
+        check(engine["decode_pool"]["mesh_axes"] == {"tp": tp} and engine["kv_blocks"]["total"] > 0,
+              "mesh (b): the pool's mesh_axes or kv_blocks")
+        series = scrape(port)
+        gauge = series.get('gofr_tpu_mesh_axis_size{axis="tp"}')
+        degrades = sample_sum(series, "gofr_tpu_mesh_degrade_total")
+        check(gauge == tp and series.get('gofr_tpu_mesh_axis_size{axis="dp"}') == 1.0,
+              f"mesh (b): gofr_tpu_mesh_axis_size tp {gauge}")
+        check(degrades == 0, f"mesh (b): gofr_tpu_mesh_degrade_total {degrades}")
+        flights = admin(port, "/admin/requests?limit=20")["requests"]
+        stamped = [f for f in flights if f.get("mesh_axes") == {"tp": tp}]
+        print(f"mesh (b): gofr_tpu_mesh_axis_size tp {gauge:g}, degrades {degrades:g}, "
+              f"{len(stamped)} of {len(flights)} flight records carry mesh_axes {{'tp': {tp}}}",
+              flush=True)
+        check(flights and len(stamped) == len(flights), "mesh (b): a flight record lacks mesh_axes")
+    finally:
+        if app is not None:
+            app.shutdown()
+        os.environ.pop("TPU_MESH", None)
+    check(not pool._thread.is_alive(), "mesh (b): the pool's worker outlived app.shutdown()")
+    return {"tp": tp, "gib_allocated": held, "boot_s": boot_s,
+            "aggregate_tokens_per_s": rates, "tpot_ms": tpots,
+            "launches": launches, "per_chunk": per_chunk, "ties": ties}
+
+
+def mesh_tie_served(runner, tokens: list, want: list, got: list, label: str) -> dict:
+    """A served generation against phase 10's ids for the same prompt under
+    the near-tie rule, the gap read off the tp = 2 runner teacher-forced on
+    phase 10's ids (``first_divergence``)."""
+    if got == want:
+        return {"diverged": False}
+    return first_divergence(runner, tokens, want, got, label)
+
+
+def mesh_refusal(torch, model) -> dict:
+    """Phase 21 (c): with the real enumeration (one card) ``TPU_MESH=tp=2``
+    fails its boot with the JAX package's message, and the device ends
+    ``failed``."""
+    import gofr_tpu_torch
+
+    env = {**PHASE10_ENV, "TPU_MESH": "tp=2", "HTTP_PORT": str(free_port()),
+           "TPU_BOOT": "background"}
+    os.environ.update(env)
+    try:
+        app = gofr_tpu_torch.new(model=model)
+        dev = app.container.tpu
+        try:
+            try:
+                dev.wait_ready(120)
+                refused = None
+            except Exception as exc:  # the boot's error, as a request sees it
+                refused = repr(exc.__cause__ or exc)
+            status = dict(dev.boot_status)
+        finally:
+            app.shutdown()
+    finally:
+        for key in ("TPU_MESH", "TPU_BOOT"):
+            os.environ.pop(key, None)
+    want = "needs 2 devices, have 1"
+    print(f"mesh (c): TPU_MESH=tp=2 with the real enumeration ({torch.cuda.device_count()} "
+          f"card): boot {status['state']}, {refused}", flush=True)
+    check(status["state"] == "failed" and refused is not None and want in refused,
+          f"mesh (c): the one-card boot did not fail with '{want}'")
+    return {"state": status["state"], "error": refused}
+
+
+def mesh_cards(torch, flash, card: str) -> int:
+    """``--mesh-cards``: phase 21's legs over distinct cards (a machine
+    with two or more): phases 5 and 10 on cuda:0 for the weights and the
+    reference ids, then (a) tp = 2 over [cuda:0, cuda:1] and tp = every
+    card, (b) ``TPU_MESH=tp=<cards>`` served over the real enumeration.
+    Prints one ``mesh-cards`` line."""
+    n = torch.cuda.device_count()
+    check(n >= 2, f"--mesh-cards needs two or more cards, have {n}")
+    cards = [torch.device("cuda", i) for i in range(n)]
+    _, model = serve(torch, flash, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    default = serve_default(torch, flash, card, model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    legs = {"direct_tp2": mesh_direct(torch, flash, model, cards[:2])}
+    if n > 2:
+        legs[f"direct_tp{n}"] = mesh_direct(torch, flash, model, cards)
+    gc.collect()
+    torch.cuda.empty_cache()
+    legs["served"] = mesh_served(torch, flash, card, model, default, tp=n, fake=False)
+    print(f"mesh-cards [{card}] x {n}: {json.dumps(legs)}", flush=True)
+    return 0
+
+
+def serving_mesh(torch, flash, card: str, model, default: dict, gen) -> dict:
+    """Phase 21: the serving mesh on phase 5's weights in phase 10's
+    configuration: the kernels at one tp shard's shapes, (a) the sharded
+    model direct, (b) served over the harness's two shards of the card,
+    (c) the one-card refusal. Prints one ``mesh`` line."""
+    t0 = time.perf_counter()
+    errs, rows = mesh_kernels(torch, flash, gen)
+    direct = mesh_direct(torch, flash, model, [torch.device("cuda", 0)] * 2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    served_run = mesh_served(torch, flash, card, model, default)
+    gc.collect()
+    torch.cuda.empty_cache()
+    refusal = mesh_refusal(torch, model)
+    line = {"phase_s": time.perf_counter() - t0, "direct": direct, "served": served_run,
+            "refusal": refusal, "kernel_rows": rows,
+            "max_abs_err": {k: max(v) for k, v in errs.items()}}
+    print(f"mesh [{card}]: {json.dumps(line)}", flush=True)
+    return line
 
 
 # -- phase 11: the OpenAI surface on llama3-8b ------------------------------------
@@ -6723,6 +7181,36 @@ def kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows,
     ]}
 
 
+def mesh_entries(entries: list, mesh: dict) -> None:
+    """Phase 21 in the kernels line: each entry's ``mesh_launches`` (the
+    phase's sm90 launches on the sm90 entry, its direct decode steps' on
+    the decode entry, its served pool decode on the pool's; 0 elsewhere),
+    and the two tp shard rows, whose ``launches`` are the phase's: the sm90 forward
+    at the shard's prefill (B = 2, bucket 512, Hq = 16, Hkv = 4) and the
+    decode variant at the shard's pool decode (B = 8), device times as
+    ``ms`` and ``library_ms``."""
+    direct, served_l = mesh["direct"]["launches"], mesh["served"]["launches"]
+    counts = {"flash_fwd_sm90": direct["sm90"] + served_l["sm90"],
+              "flash_fwd_decode": direct["decode"],
+              "flash_fwd_decode (pool, 8 slots)": served_l["decode"]}
+    for entry in entries:
+        entry["mesh_launches"] = counts.get(entry["name"], 0)
+    decode = direct["decode"] + served_l["decode"]
+    fwd = {"route": "cuda", "source": "gofr_tpu_torch/csrc/flash_fwd.cu",
+           "replaces": "gofr_tpu/ops/flash.py:224"}
+    rows = mesh["kernel_rows"]
+    entries.insert(-2, {
+        "name": "flash_fwd_sm90 (tp shard prefill, B=2 bucket 512 Hq=16 Hkv=4, phase 21)",
+        **fwd, "launches": counts["flash_fwd_sm90"], "mesh_launches": counts["flash_fwd_sm90"],
+        "direct_launches": direct["sm90"], "served_launches": served_l["sm90"],
+        "max_abs_err": mesh["max_abs_err"]["sm90"], **rows["tp shard prefill B=2 Sq=512"]})
+    entries.insert(-2, {
+        "name": "flash_fwd_decode (tp shard pool decode, B=8 Hq=16 Hkv=4, phase 21)",
+        **fwd, "launches": decode, "mesh_launches": decode,
+        "direct_launches": direct["decode"], "served_launches": served_l["decode"],
+        "max_abs_err": mesh["max_abs_err"]["decode"], **rows["tp shard pool decode B=8"]})
+
+
 def encoder_entry(errs: dict, rows: dict, served: dict) -> dict:
     """The sm90 forward's D = 64 instance at bert-base's attention (phase
     15's path): its launches from phase 15's served requests, its numbers
@@ -6943,6 +7431,10 @@ def main(argv=None) -> int:
     parser.add_argument("--repeat-serve-train", type=int, default=0, metavar="N",
                         help="repeat phase 10 -> the pool decode kernel -> phase 9 N times "
                              "under CUDA_LAUNCH_BLOCKING=1 and the debug build, nothing else")
+    parser.add_argument("--mesh-cards", action="store_true",
+                        help="phase 21's legs over distinct cards (two or more): phases 5 and "
+                             "10, tp=2 and tp=<cards> direct, TPU_MESH=tp=<cards> served; "
+                             "nothing else")
     parser.add_argument("--serve-ab", metavar="PARENT_TREE", default="",
                         help="phases 5 and 10 from PARENT_TREE and from this tree with and "
                              "without phase 10's /metrics scrapes, in turns, each in its own "
@@ -6973,6 +7465,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     built = flash.build()
     print(f"build: {built.path.name} in {time.perf_counter() - t0:.1f}s", flush=True)
+    if args.mesh_cards:
+        print_build(flash, built)
+        return mesh_cards(torch, flash, card)
     if args.repeat_serve_train:
         # the debug build's checks may cost registers: its spills are reported, not fatal
         for name, r in flash.build_report(built).items():
@@ -6997,6 +7492,9 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     sanitized = sanitized_server(torch, card, default)
+    mesh = serving_mesh(torch, flash, card, model, default, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
     openai = serve_openai(torch, flash, card, model)
     gc.collect()
     torch.cuda.empty_cache()
@@ -7050,6 +7548,7 @@ def main(argv=None) -> int:
                            default, pool_row, openai, deploy, spec, loras, overload_run,
                            fleet_run, transports_run)
     kernels["kernels"].insert(-2, encoder_entry(encoder_errs, encoder_rows, encoders))
+    mesh_entries(kernels["kernels"], mesh)
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)  # name, power limit as nvidia-smi gives them
     print(json.dumps({"ok": True, "device": {

@@ -71,6 +71,8 @@ DECLARED_KEYS: dict[str, str] = {
     "BATCH_COHORT": "'off': FIFO mixed-length prefill batches (default: per-bucket cohorts)",
     "OPENAI_ACCEPT_UNKNOWN_MODEL": "'on': an unknown \"model\" serves the base model, not a 404",
     "TORCH_DEVICE": "'cuda' (default) or 'cpu'",
+    "TPU_MESH": "serving mesh over dp, fsdp and tp, e.g. tp=2 or tp=4,dp=4 (one process)",
+    "TPU_TOPOLOGY": "TPU_MESH's alias in axis=N form (a physical grid such as 2x4 is none)",
     "APP_NAME": "service name stamped on traces",
     "LOG_LEVEL": "DEBUG | INFO (default) | NOTICE | WARN | ERROR | FATAL",
     "HANDLER_THREADS": "sync handler thread-pool size (default 64)",
@@ -182,11 +184,8 @@ DECLARED_KEYS: dict[str, str] = {
 # with the ROADMAP item that ports it). ``refuse``: ignoring the key would
 # change the answers, the topology, a durability guarantee or the memory
 # the process takes, so a boot with it set fails; the others warn.
-_MESH = "§A2: the port serves on one device, unsharded"
-_MULTIHOST = "§A2: the port runs one process, no multi-host runtime"
+_MULTIHOST = "§A2.3: the port runs one process, no multi-host runtime"
 UNHONORED_KEYS: dict[str, tuple[bool, str]] = {
-    "TPU_MESH": (True, _MESH),
-    "TPU_TOPOLOGY": (True, _MESH),
     "TPU_COORDINATOR": (True, _MULTIHOST),
     "TPU_NUM_PROCESSES": (True, _MULTIHOST),
     "TPU_PROCESS_ID": (True, _MULTIHOST),

@@ -51,7 +51,7 @@ from gofr_tpu_torch.models.quant import (
     mm,
     moe_skip_keys,
 )
-from gofr_tpu_torch.models.transformer import _LAYER_SHAPES, Transformer
+from gofr_tpu_torch.models.transformer import _LAYER_SHAPES, Transformer, layer_shapes
 
 # the weight names eligible for adapters: the quant keys, lm_head included
 _LORA_KEYS = frozenset(_QUANT_KEYS)
@@ -355,8 +355,9 @@ def apply_adapter(base: Transformer, artifact: dict) -> Transformer:
                        if "lm_head" in adapters else []) + [
             (f"layers/{k}", v, scales["layers"][k]) for k, v in adapters.get("layers", {}).items()]:
         name = path.rsplit("/", 1)[-1]
-        lead = () if path == "lm_head" else (len(base.layers),)
-        i, o = _weight_shape(getattr(base if path == "lm_head" else base.layers[0], name))
+        lead = () if path == "lm_head" else (base.cfg.n_layers,)
+        i, o = (base.cfg.dim, base.cfg.vocab_size) if path == "lm_head" else layer_shapes(
+            base.cfg)[name]
         rank = a["lora_a"].shape[-1]
         want_a, want_b = (*lead, i, rank), (*lead, rank, o)
         if tuple(a["lora_a"].shape) != want_a or tuple(a["lora_b"].shape) != want_b:
@@ -374,6 +375,8 @@ def apply_adapter(base: Transformer, artifact: dict) -> Transformer:
         a, b, s = leaf if i is None else (t[i] for t in leaf)
         return LoraWeight(w, a, b, s.reshape(1, 1))
 
+    if hasattr(base, "with_lora"):  # a sharded base slices the adapter per shard
+        return base.with_lora(leaves)
     return base.with_weights(wrap)
 
 

@@ -145,11 +145,15 @@ def _scaled(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.T
     return torch.mul(q, scale, out=out)
 
 
-def quantize_act_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_act_rows(x: torch.Tensor,
+                      peak: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Dynamic per-token symmetric int8: each row gets one absmax scale
-    over the feature axis. -> (q [..., d] int8, scale [..., 1] f32)."""
+    over the feature axis. -> (q [..., d] int8, scale [..., 1] f32).
+    ``peak`` [..., 1]: the rows' absmax over the WHOLE feature axis when
+    ``x`` holds one tp shard of it (a row-parallel product's input)."""
     xf = x.float()
-    peak = xf.abs().amax(dim=-1, keepdim=True)
+    if peak is None:
+        peak = xf.abs().amax(dim=-1, keepdim=True)
     scale = torch.clamp(peak / device_scalar(_CLIP, xf.device), min=_SCALE_FLOOR)
     q = torch.clamp(torch.round(xf / scale), -_CLIP, _CLIP).to(torch.int8)
     return q, scale
@@ -281,18 +285,72 @@ def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _mm_w8a8(x: torch.Tensor, w: dict) -> torch.Tensor:
     """Per-token int8 activations times the int8 weight through
     ``torch._int_mm`` (int32 sums), rescaled in the JAX order
-    ``y.float() * sx * scale``. The card's ``_int_mm`` needs more than 16
-    rows: decode's few rows are padded with zero rows, never sent to a
-    float path."""
-    q8, scale = w["q8"], w["scale"]
+    ``y.float() * sx * scale``."""
     qx, sx = quantize_act_rows(x)
-    lead, k = x.shape[:-1], x.shape[-1]
+    return _w8a8_epilogue(_int_product(qx, w["q8"]), sx, w["scale"], x.dtype)
+
+
+def _int_product(qx: torch.Tensor, q8: torch.Tensor) -> torch.Tensor:
+    """int8 [..., k] x int8 [k, n] -> int32 [..., n]. The card's ``_int_mm``
+    needs more than 16 rows: decode's few rows are padded with zero rows,
+    never sent to a float path."""
+    lead, k = qx.shape[:-1], qx.shape[-1]
     rows = qx.reshape(-1, k)
     m = rows.shape[0]
-    if x.device.type == "cuda" and m < _INT_MM_MIN_ROWS:
+    if qx.device.type == "cuda" and m < _INT_MM_MIN_ROWS:
         rows = torch.cat([rows, rows.new_zeros(_INT_MM_MIN_ROWS - m, k)])
-    y = torch._int_mm(rows, q8)[:m].reshape(*lead, q8.shape[-1])
-    return (y.float() * sx * scale.reshape(1, -1)).to(x.dtype)
+    return torch._int_mm(rows, q8)[:m].reshape(*lead, q8.shape[-1])
+
+
+def _w8a8_epilogue(y: torch.Tensor, sx: torch.Tensor, scale: torch.Tensor,
+                   dtype: torch.dtype) -> torch.Tensor:
+    return (y.float() * sx * scale.reshape(1, -1)).to(dtype)
+
+
+def row_parallel_mm(pairs: list, device: torch.device) -> torch.Tensor:
+    """A row-parallel product over tp shards: ``pairs`` holds each shard's
+    (x_t [..., in/tp], w_t [in/tp, out]) on its device, in shard order.
+    The reduce sums the shards' partials in shard order on ``device`` where
+    the unsharded product accumulates, before its epilogue: f32 partials
+    of a dense, int8 or int4 product, then the per-channel scale and the
+    rounding to ``x.dtype`` once; int32 partials of a w8a8 product, whose
+    per-token activation scale is the absmax over the WHOLE row, the
+    maximum across the shards (each shard quantizes its slice with it). A
+    LoRA weight's partial (base product plus its delta) is linear in x, so
+    its shards' outputs join the same sum. Each partial moves to
+    ``device`` (a no-op where the shards share it)."""
+    x0, w0 = pairs[0]
+    if len(pairs) == 1:
+        return mm(x0, w0).to(device)
+    dtype = x0.dtype
+    w0 = w0.pack if isinstance(w0, Pack) else w0
+    packs = [w.pack if isinstance(w, Pack) else w for _, w in pairs]
+    xs = [x for x, _ in pairs]
+
+    def total(parts: list) -> torch.Tensor:
+        out = parts[0].to(device)
+        for part in parts[1:]:
+            out = out + part.to(device)
+        return out
+
+    if isinstance(w0, torch.Tensor):
+        return total([_matmul_f32(x, w) for x, w in zip(xs, packs)]).to(dtype)
+    if isinstance(w0, dict) and is_quantized(w0):
+        acc = total([_matmul_f32(x, w["q"].to(dtype)) for x, w in zip(xs, packs)])
+        return _scaled(acc, w0["scale"].to(device), dtype)
+    if isinstance(w0, dict) and is_quantized_int4(w0):
+        acc = total([_matmul_f32(x, dequantize_array_int4(w, dtype)) for x, w in zip(xs, packs)])
+        return acc.to(dtype)
+    if isinstance(w0, dict) and is_quantized_w8a8(w0):
+        peak = x0.float().abs().amax(dim=-1, keepdim=True).to(device)
+        for x in xs[1:]:
+            peak = torch.maximum(peak, x.float().abs().amax(dim=-1, keepdim=True).to(device))
+        ys = []
+        for x, w in zip(xs, packs):
+            qx, sx = quantize_act_rows(x, peak.to(x.device))
+            ys.append(_int_product(qx, w["q8"]))
+        return _w8a8_epilogue(total(ys), sx.to(device), w0["scale"].to(device), dtype)
+    return total([mm(x, w) for x, w in pairs])
 
 
 def quantizer_for(mode: Any) -> Optional[Callable]:

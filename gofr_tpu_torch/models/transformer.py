@@ -262,6 +262,54 @@ class Transformer(nn.Module):
         return out
 
     # -- one decoder block ---------------------------------------------------
+    def _attn_half(
+        self,
+        layer: Block,
+        x: torch.Tensor,
+        positions: torch.Tensor,
+        n_heads: int,
+        n_kv_heads: int,
+        kv_cache: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+        write_at: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+        starts: Optional[torch.Tensor] = None,
+        kv_lens: Optional[torch.Tensor] = None,
+        out: Callable = mm,
+    ) -> Any:
+        """The attention half of a block over ``n_heads`` query and
+        ``n_kv_heads`` KV heads (the whole model's, or one tp shard's),
+        ending in ``out(attn, wo)``: the row-parallel product. Without a
+        cache: causal attention over this call's keys. With one
+        (``kv_cache`` = this layer's [B, max_seq, Hkv, D] k and v): write
+        the new k/v at the (rows, cols) index ``write_at`` and attend the
+        cache from ``starts`` [B] up to ``kv_lens``."""
+        b, s, _ = x.shape
+        hd = self.cfg.head_dim
+        h = rms_norm(x, layer.attn_norm, self.cfg.norm_eps)
+        q = mm(h, layer.wq).view(b, s, n_heads, hd)
+        k = mm(h, layer.wk).view(b, s, n_kv_heads, hd)
+        v = mm(h, layer.wv).view(b, s, n_kv_heads, hd)
+        freqs = self._freqs_on(x.device)
+        q = apply_rope(q, freqs, positions)
+        k = apply_rope(k, freqs, positions)
+        if kv_cache is None:
+            attn = attention(q, k, v, causal=True)
+        else:
+            k_cache, v_cache = kv_cache
+            kv_bits(k_cache)[write_at] = kv_bits(k.to(k_cache.dtype))
+            kv_bits(v_cache)[write_at] = kv_bits(v.to(v_cache.dtype))
+            attn = attention(
+                q, k_cache, v_cache, causal=True, q_offset=starts, kv_lens=kv_lens
+            )
+        return out(attn.reshape(b, s, n_heads * hd), layer.wo)
+
+    def _mlp_half(self, layer: Block, x: torch.Tensor, out: Callable = mm) -> Any:
+        """The SwiGLU half of a block (the whole hidden dimension, or one tp
+        shard's), ending in ``out(gated, w_down)``: the row-parallel
+        product."""
+        h = rms_norm(x, layer.mlp_norm, self.cfg.norm_eps)
+        gated = F.silu(mm(h, layer.w_gate)) * mm(h, layer.w_up)
+        return out(gated, layer.w_down)
+
     def _block(
         self,
         layer: Block,
@@ -272,31 +320,23 @@ class Transformer(nn.Module):
         starts: Optional[torch.Tensor] = None,
         kv_lens: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        """Without a cache: causal attention over this call's keys. With one
-        (``kv_cache`` = this layer's [B, max_seq, Hkv, D] k and v): write
-        the new k/v at the (rows, cols) index ``write_at`` and attend the
-        cache from ``starts`` [B] up to ``kv_lens``."""
+        """One decoder layer: each half with its residual add."""
         cfg = self.cfg
-        b, s, _ = x.shape
-        h = rms_norm(x, layer.attn_norm, cfg.norm_eps)
-        q = mm(h, layer.wq).view(b, s, cfg.n_heads, cfg.head_dim)
-        k = mm(h, layer.wk).view(b, s, cfg.n_kv_heads, cfg.head_dim)
-        v = mm(h, layer.wv).view(b, s, cfg.n_kv_heads, cfg.head_dim)
-        q = apply_rope(q, self.freqs, positions)
-        k = apply_rope(k, self.freqs, positions)
-        if kv_cache is None:
-            attn = attention(q, k, v, causal=True)
-        else:
-            k_cache, v_cache = kv_cache
-            kv_bits(k_cache)[write_at] = kv_bits(k.to(k_cache.dtype))
-            kv_bits(v_cache)[write_at] = kv_bits(v.to(v_cache.dtype))
-            attn = attention(
-                q, k_cache, v_cache, causal=True, q_offset=starts, kv_lens=kv_lens
-            )
-        x = x + mm(attn.reshape(b, s, cfg.dim), layer.wo)
-        h = rms_norm(x, layer.mlp_norm, cfg.norm_eps)
-        gated = F.silu(mm(h, layer.w_gate)) * mm(h, layer.w_up)
-        return x + mm(gated, layer.w_down)
+        x = x + self._attn_half(layer, x, positions, cfg.n_heads, cfg.n_kv_heads, kv_cache,
+                                write_at, starts, kv_lens)
+        return x + self._mlp_half(layer, x)
+
+    def _freqs_on(self, device: torch.device) -> torch.Tensor:
+        """The RoPE table on ``device`` (a sharded model keeps one a device)."""
+        return self.freqs
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """[B, S] ids -> [B, S, D] embeddings."""
+        return self.embed[tokens.long()]
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Final-norm hidden states [..., D] -> f32 logits [..., V]."""
+        return mm(x, self.lm_head).float()
 
     # -- full-sequence forward -------------------------------------------------
     def transformer_forward(self, tokens: torch.Tensor, remat: bool = False) -> torch.Tensor:
@@ -307,14 +347,13 @@ class Transformer(nn.Module):
         the JAX trainer's ``jax.checkpoint``: only the block inputs stay."""
         s = tokens.shape[1]
         positions = torch.arange(s, device=tokens.device)
-        x = self.embed[tokens.long()]
+        x = self._embed(tokens)
         for layer in self.layers:
             if remat:
                 x = checkpoint(self._block, layer, x, positions, use_reentrant=False)
             else:
                 x = self._block(layer, x, positions)
-        x = rms_norm(x, self.norm_f, self.cfg.norm_eps)
-        return mm(x, self.lm_head).float()
+        return self._logits(rms_norm(x, self.norm_f, self.cfg.norm_eps))
 
     forward = transformer_forward
 
@@ -366,7 +405,7 @@ class Transformer(nn.Module):
         # clamps so the update fits, as XLA's dynamic_update_slice does
         first = torch.clamp(starts, max=cache["k"].shape[2] - s).long()
         write_at = (torch.arange(b, device=dev)[:, None], first[:, None] + steps)
-        x = self.embed[tokens.long()]
+        x = self._embed(tokens)
         for i, layer in enumerate(self.layers):
             x = self._block(
                 layer, x, positions, kv_cache=(cache["k"][i], cache["v"][i]),
@@ -384,7 +423,7 @@ class Transformer(nn.Module):
         # each row's last REAL position (pad-aware bucketed prefill)
         last = torch.clamp(lengths.long() - 1, 0, s - 1)
         x_last = x[torch.arange(b, device=x.device), last]
-        logits = mm(x_last, self.lm_head).float()
+        logits = self._logits(x_last)
         return logits, {"k": cache["k"], "v": cache["v"], "lengths": starts + lengths}
 
     @torch.no_grad()
@@ -417,7 +456,7 @@ class Transformer(nn.Module):
         from the [B, 1] decode's."""
         s = tokens.shape[1]
         x, starts = self._run_cached(tokens, cache)
-        next_ids = torch.argmax(mm(x, self.lm_head).float(), dim=-1).to(torch.int32)
+        next_ids = torch.argmax(self._logits(x), dim=-1).to(torch.int32)
         return next_ids, {"k": cache["k"], "v": cache["v"], "lengths": starts + s}
 
     @torch.no_grad()
@@ -448,7 +487,7 @@ class Transformer(nn.Module):
         the correction or bonus, zeros beyond."""
         b, s = tokens.shape
         x, starts = self._run_cached(tokens, cache)
-        logits = mm(x, self.lm_head).float()
+        logits = self._logits(x)
         v = logits.shape[-1]
         p = warped_probs(logits.reshape(b * s, v), temperature, top_k, top_p, min_p)
         u, noise = _spec_draws(generator, b, s - 1, v, logits.device)

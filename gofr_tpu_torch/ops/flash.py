@@ -553,22 +553,25 @@ def _launch(
             out.data_ptr(), lse.data_ptr())
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     variant = _pick("flash_fwd", fwd_variant(q, k), variant)
-    if variant == "sm90":
-        rc = built.lib.gofr_flash_fwd_sm90(
-            d, *ptrs, b, sq, skv, hq, hkv, *strides, float(scale), int(causal),
-            *fwd_sm90_grid(b, sq, hq), q.device.index or 0, stream,
-        )
-    elif variant == "decode":
-        rc = built.lib.gofr_flash_fwd_decode(
-            *ptrs, b, sq, skv, hq, hkv, *strides, float(scale), int(causal),
-            fwd_decode_splits(b, hkv, skv, fwd_decode_row_tiles(sq, hq // hkv)),
-            q.device.index or 0, stream,
-        )
-    else:
-        rc = built.lib.gofr_flash_fwd(
-            _DTYPE_CODES[q.dtype], d, *ptrs, b, sq, skv, hq, hkv, *strides,
-            float(scale), int(causal), q.device.index or 0, stream,
-        )
+    # the launchers set the thread's CUDA device to the tensors'; the guard
+    # restores it (a serving mesh's shard on another card)
+    with torch.cuda.device(q.device):
+        if variant == "sm90":
+            rc = built.lib.gofr_flash_fwd_sm90(
+                d, *ptrs, b, sq, skv, hq, hkv, *strides, float(scale), int(causal),
+                *fwd_sm90_grid(b, sq, hq), q.device.index or 0, stream,
+            )
+        elif variant == "decode":
+            rc = built.lib.gofr_flash_fwd_decode(
+                *ptrs, b, sq, skv, hq, hkv, *strides, float(scale), int(causal),
+                fwd_decode_splits(b, hkv, skv, fwd_decode_row_tiles(sq, hq // hkv)),
+                q.device.index or 0, stream,
+            )
+        else:
+            rc = built.lib.gofr_flash_fwd(
+                _DTYPE_CODES[q.dtype], d, *ptrs, b, sq, skv, hq, hkv, *strides,
+                float(scale), int(causal), q.device.index or 0, stream,
+            )
     _raise_on(built, rc, f"flash_fwd ({variant})")
     launches.add()
     launches_fwd_instance[fwd_instance(q, k, variant)].add()
@@ -681,22 +684,23 @@ def _launch_bwd_kernel(
     shape = (b, sq, skv, hq, hkv, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     stream = torch.cuda.current_stream(q.device).cuda_stream
     sm90 = _pick(name, chosen, variant) == "sm90"
-    if sm90 and which == 0:
-        rc = built.lib.gofr_flash_bwd_dq_sm90(
-            *inputs, ptrs[0], *shape, float(scale), int(causal), *dq_sm90_grid(b, sq, hq),
-            q.device.index or 0, stream,
-        )
-    elif sm90:
-        geo = dkv_sm90_geometry(b, skv, hq, hkv)
-        rc = built.lib.gofr_flash_bwd_dkv_sm90(
-            *inputs, *ptrs[1:], *shape, float(scale), int(causal), *geo["grid"],
-            geo["cluster"], geo["heads_per_block"], q.device.index or 0, stream,
-        )
-    else:
-        rc = built.lib.gofr_flash_bwd(
-            which, _DTYPE_CODES[q.dtype], d, *inputs, *ptrs, *shape, float(scale), int(causal),
-            q.device.index or 0, stream,
-        )
+    with torch.cuda.device(q.device):  # restores the thread's device, as in _launch
+        if sm90 and which == 0:
+            rc = built.lib.gofr_flash_bwd_dq_sm90(
+                *inputs, ptrs[0], *shape, float(scale), int(causal), *dq_sm90_grid(b, sq, hq),
+                q.device.index or 0, stream,
+            )
+        elif sm90:
+            geo = dkv_sm90_geometry(b, skv, hq, hkv)
+            rc = built.lib.gofr_flash_bwd_dkv_sm90(
+                *inputs, *ptrs[1:], *shape, float(scale), int(causal), *geo["grid"],
+                geo["cluster"], geo["heads_per_block"], q.device.index or 0, stream,
+            )
+        else:
+            rc = built.lib.gofr_flash_bwd(
+                which, _DTYPE_CODES[q.dtype], d, *inputs, *ptrs, *shape, float(scale),
+                int(causal), q.device.index or 0, stream,
+            )
     _raise_on(built, rc, f"{name} ({'sm90' if sm90 else 'mma'})")
     (launches_dq, launches_dkv)[which].add()
     if sm90:

@@ -432,6 +432,12 @@ class FlightRecord:
             if aliased > self.kv_aliased_blocks:
                 self.kv_aliased_blocks = aliased
 
+    def note_mesh(self, axes: dict) -> None:
+        """Stamp the serving mesh's shape (set once: the device stamps it
+        when a request enters its generate path under TPU_MESH)."""
+        if self.mesh_axes is None:
+            self.mesh_axes = dict(axes)
+
     def note_tokens(self, n: int = 1) -> None:
         with self._lock:
             self.tokens_out += n

@@ -308,6 +308,11 @@ class DecodePool:
         self._sched = scheduler
         self._kv = kv
         dev = model.device
+        # under a serving mesh (a ShardedTransformer) the slot cache shards
+        # as the model's caches do: slots over the dp x fsdp row groups, KV
+        # heads over tp, each shard on its device; the per-slot sampling
+        # state stays on the mesh's first device, where the logits gather
+        self.mesh_axes = getattr(model, "mesh_axes", None)
         self.cache = model.init_cache(n_slots, self.max_len, cache_dtype)
         self._last_tokens = torch.zeros((n_slots, 1), dtype=torch.int32, device=dev)
         # per-slot sampling knobs: host copies (the all-greedy test and
@@ -1289,6 +1294,8 @@ class DecodePool:
                           "widths": dict(self.spec_stats["widths"])}
                          if self.spec_cfg is not None else None),
                 "kv": self._kv.stats() if self._kv is not None else None,
+                # the serving mesh the slot cache is sharded over (None: one device)
+                "mesh_axes": self.mesh_axes,
             }
 
     def close(self, timeout: float = CLOSE_TIMEOUT_S, strict: bool = True) -> bool:

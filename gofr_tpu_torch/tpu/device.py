@@ -114,6 +114,9 @@ from gofr_tpu_torch.models.lora import apply_adapter, build_lora_stack
 from gofr_tpu_torch.models.mlp import MLP, MLPConfig, init_mlp, mlp_forward
 from gofr_tpu_torch.models.quant import quantizer_for
 from gofr_tpu_torch.models.transformer import TOP_LOGPROBS, Transformer
+from gofr_tpu_torch.parallel import mesh as mesh_mod
+from gofr_tpu_torch.parallel.mesh import mesh_axes as axes_of
+from gofr_tpu_torch.parallel.serving import ShardedTransformer
 from gofr_tpu_torch.ops.sampling import (
     Sampler,
     apply_penalties,
@@ -185,6 +188,77 @@ WATCHDOG_AUTO_TIMEOUT_S = 120.0
 # parked on a wedged wait, which no join can cut short (a kernel cannot be
 # cancelled); it leaves, failing its rows, when the wait returns
 RECOVERY_POOL_JOIN_S = 2.0
+
+
+def _parse_mesh_request(topology: str) -> Optional[dict[str, int]]:
+    """Device-free parse of ``TPU_MESH`` ("tp=4", "tp=4,dp=4",
+    "fsdp=2,tp=2"): empty or unset -> None (one device). A value without
+    "=" (the "1x1" / "2x4" physical grids TPU VMs export as TPU_TOPOLOGY)
+    is no mesh request -> None. A malformed entry or an axis other than dp,
+    fsdp and tp raises, at construction."""
+    topology = topology.strip()
+    if not topology or "=" not in topology:
+        return None
+    kwargs: dict[str, int] = {}
+    for part in topology.split(","):
+        key, _, val = part.strip().partition("=")
+        if key not in ("dp", "fsdp", "tp"):
+            raise ValueError(
+                f"TPU_MESH axis '{key}' not supported for serving — use "
+                "dp, fsdp, tp (sp/pp/ep are training-side axes)"
+            )
+        try:
+            kwargs[key] = int(val)
+        except ValueError:
+            raise ValueError(
+                f"TPU_MESH entry '{part.strip()}' is malformed — expected "
+                "axis=int, e.g. 'tp=4,dp=2'"
+            ) from None
+    return kwargs
+
+
+def _mesh_from_topology(topology: str, devices: list) -> Optional[mesh_mod.Mesh]:
+    """The serving mesh of a ``TPU_MESH`` request over the first of
+    ``devices`` (the device count is checked here, at the probe)."""
+    kwargs = _parse_mesh_request(topology)
+    if kwargs is None:
+        return None
+    dp = kwargs.pop("dp", 1)
+    n = dp * kwargs.get("fsdp", 1) * kwargs.get("tp", 1)
+    if n > len(devices):
+        raise ValueError(
+            f"TPU_MESH '{topology.strip()}' needs {n} devices, have {len(devices)}"
+        )
+    return mesh_mod.make_mesh(mesh_mod.mesh_shape_for(n, **kwargs), devices=devices[:n])
+
+
+def _rows_sharded(mesh: Optional[mesh_mod.Mesh]) -> bool:
+    """Whether the mesh splits rows (dp x fsdp > 1): chunked prefill, paged
+    KV and adapters need one row's cache whole on one group."""
+    return mesh is not None and mesh.shape["dp"] * mesh.shape["fsdp"] > 1
+
+
+def _validate_mesh_fit(cfg: Any, mesh: Optional[mesh_mod.Mesh], max_batch: int) -> None:
+    """Model-shape/mesh divisibility, before the weights load: each failure
+    is a ValueError naming the axis, at boot, never a shape error at the
+    first dispatch."""
+    if mesh is None:
+        return
+    tp = mesh.shape["tp"]
+    if cfg.n_kv_heads % tp:
+        raise ValueError(
+            f"n_kv_heads={cfg.n_kv_heads} not divisible by "
+            f"tp={tp} — KV cache shards its head axis over tp"
+        )
+    rows = mesh.shape["dp"] * mesh.shape["fsdp"]
+    padded = next_pow2(max_batch)
+    if padded % rows:
+        raise ValueError(
+            f"padded batch {padded} (next_pow2 of BATCH_MAX_SIZE="
+            f"{max_batch}) not divisible by dp*fsdp={rows} — token "
+            "batches shard their row axis over (dp, fsdp); raise "
+            "BATCH_MAX_SIZE or shrink the dp/fsdp axes of TPU_MESH"
+        )
 
 
 def resolve_device(name: str) -> torch.device:
@@ -556,6 +630,14 @@ class TPUDevice:
         quantizer_for(self.quant)
         kv_dtype = parse_kv_dtype(config.get_or_default("MODEL_KV_DTYPE", ""))
         self.model_path = config.get("MODEL_PATH") or None
+        # TPU_MESH (TPU_TOPOLOGY its alias): the syntax and the axes fail
+        # here, at construction; the device count and the mesh wait for the
+        # probe
+        self._mesh_request = (config.get_or_default("TPU_MESH", "")
+                              or config.get_or_default("TPU_TOPOLOGY", ""))
+        _parse_mesh_request(self._mesh_request)
+        self.mesh: Optional[mesh_mod.Mesh] = None
+        self.mesh_axes: Optional[dict[str, int]] = None
         # named adapter artifacts served over the one base (runtime loads
         # and unloads keep this spec in step), and the lock that serializes
         # adapter admin with the pool's bank rebuild
@@ -654,11 +736,10 @@ class TPUDevice:
             self._boot()
 
     def _init_metrics(self, metrics: Any) -> None:
-        """The device's families, as the JAX device registers them (its
-        mesh families come with a later slice). The port compiles nothing
-        per shape: its "compiles" are the boot's once-only stages (the
-        kernels' nvcc build, the warm-up prefill per bucket, the pool's
-        warm chunk), and its one cache is the prefix cache."""
+        """The device's families, as the JAX device registers them. The port
+        compiles nothing per shape: its "compiles" are the boot's once-only
+        stages (the kernels' nvcc build, the warm-up prefill per bucket, the
+        pool's warm chunk), and its one cache is the prefix cache."""
         self._requests = metrics.counter(
             "gofr_tpu_requests_total", "TPU inference requests", labels=("model", "op", "status")
         )
@@ -715,6 +796,22 @@ class TPUDevice:
             labels=("cache", "event"),
         )
         self._kv_transfer_counter = transfer_counter(metrics)
+        # the serving mesh's shape (TPU_MESH), set by the probe: one sample
+        # per dp, fsdp and tp axis and any other axis above 1
+        self._mesh_axis_gauge = metrics.gauge(
+            "gofr_tpu_mesh_axis_size",
+            "serving mesh axis sizes (TPU_MESH; absent axes are 1)",
+            labels=("axis",),
+        )
+        # each feature a mesh shape disabled at boot (chunked prefill and
+        # paged KV under dp/fsdp, the pool on indivisible slots, the pooled
+        # adapter bank under any mesh): the alertable half of the warning
+        self._mesh_degrade = metrics.counter(
+            "gofr_tpu_mesh_degrade_total",
+            "serving features degraded/disabled by the TPU_MESH shape "
+            "(the feature still serves through its fallback path)",
+            labels=("feature",),
+        )
         # host mirror of the counter for /admin/engine, plus the donor's
         # ``served`` count (not a receiver outcome), and the recent serves
         # and pulls, each with the fleet request id that caused it (the
@@ -763,10 +860,13 @@ class TPUDevice:
     def _probe(self) -> None:
         """The boot's first touch of the card, a ``device_probe`` dispatch
         under the watchdog (echo touches no device: its probe is empty, as
-        its runner runs on the host). Then the peaks the MFU/MBU gauges
-        divide by, the cost model's coefficients for this card, and, on a
-        cuda device with no WATCHDOG_DISPATCH_TIMEOUT_S set, the watchdog
-        armed at ``WATCHDOG_AUTO_TIMEOUT_S``."""
+        its runner runs on the host). Then the serving mesh of ``TPU_MESH``
+        over ``parallel/mesh.py::visible_devices`` (a mesh larger than they
+        are fails the boot: "needs N devices, have M"), the peaks the
+        MFU/MBU gauges divide by (times the mesh's size), the cost model's
+        coefficients for this card, and, on a cuda device with no
+        WATCHDOG_DISPATCH_TIMEOUT_S set, the watchdog armed at
+        ``WATCHDOG_AUTO_TIMEOUT_S``."""
         echo = self.model_name == "echo"
         self._boot_progress(
             "echo: no device to probe" if echo
@@ -790,8 +890,22 @@ class TPUDevice:
                 self.watchdog.arm(WATCHDOG_AUTO_TIMEOUT_S)
         else:
             self.platform = self.device_kind = "cpu"
-        self.peak_flops = device_peak_flops(self.device_kind, self.platform, quant=self.quant or "")
-        self.peak_hbm_bw = device_peak_hbm_bw(self.device_kind, self.platform)
+        # the serving mesh over the devices the probe sees (echo: the host's
+        # fake devices, its host-mesh mode); its shape shows on the gauge,
+        # /admin/engine and every flight record
+        self.mesh = _mesh_from_topology(
+            self._mesh_request, mesh_mod.visible_devices("cpu" if echo else self._device_name)
+        )
+        self.mesh_axes = axes_of(self.mesh)
+        if self.mesh is not None:
+            for axis, size in self.mesh.shape.items():
+                if size > 1 or axis in ("dp", "fsdp", "tp"):
+                    self._mesh_axis_gauge.set(size, axis=axis)
+        # MFU/MBU denominators: the aggregate peak of the devices serving
+        n_devices = self.mesh.size if self.mesh is not None else 1
+        self.peak_flops = device_peak_flops(
+            self.device_kind, self.platform, quant=self.quant or "") * n_devices
+        self.peak_hbm_bw = device_peak_hbm_bw(self.device_kind, self.platform) * n_devices
         if self.costmodel is not None:
             self.costmodel.calibrate(self.device_kind, self.platform)
 
@@ -855,7 +969,8 @@ class TPUDevice:
             )
         self._boot_progress("building runner (model init / checkpoint load)")
         if name == "echo":
-            self.runner = _EchoRunner(step_ms=self.echo_step_ms, metrics=self.metrics)
+            self.runner = _EchoRunner(step_ms=self.echo_step_ms, metrics=self.metrics,
+                                      mesh_axes=self.mesh_axes)
             self._wire_echo()
             if self.costmodel is not None:
                 # one echo prefill or decode step costs one ECHO_STEP_MS
@@ -899,7 +1014,7 @@ class TPUDevice:
     def _wire_echo(self) -> None:
         """The echo runner's paged store (``KV_PAGED``, on by default: a
         host arena, ``KV_BLOCKS`` of them, or ``KV_HBM_BUDGET_MB`` of int32
-        ids, or 1024) and its pooled
+        ids, or 1024; its blocks split over a ``TPU_MESH`` tp axis) and its pooled
         speculation (``SPEC_POOLED``, with the ``SPEC_FAKE_ACCEPT``
         schedule), as the JAX device wires them."""
         opts, spec = self.options, self.spec_options
@@ -913,7 +1028,10 @@ class TPUDevice:
                 )
             else:
                 n_blocks = 1024  # ~64k tokens of host "KV"
-            arena = HostTokenArena(n_blocks, bt)
+            # host-mesh mode: a TPU_MESH tp axis splits every block's token
+            # span over tp fake devices; a tp that does not divide
+            # KV_BLOCK_TOKENS fails the boot, naming the axis
+            arena = HostTokenArena(n_blocks, bt, shards=(self.mesh_axes or {}).get("tp", 1))
             pool = BlockPool(
                 n_blocks, bt, block_bytes=arena.block_bytes,
                 hbm_budget_bytes=n_blocks * arena.block_bytes,
@@ -1085,6 +1203,7 @@ class TPUDevice:
         self.runner = _TransformerRunner(
             self.model_name,
             self.device,
+            mesh=self.mesh,
             max_batch=self.max_batch,
             decode_chunk=int(config.get_or_default("DECODE_CHUNK", "8")),
             max_seq=int(raw_max_seq) if raw_max_seq else None,
@@ -1113,7 +1232,18 @@ class TPUDevice:
             cache_events=self._note_cache_event,
         )
         if self.runner.kv_paged_disabled:
+            if self.runner.kv_paged_mesh_degraded:
+                # a mesh-shaped degrade (dp/fsdp rows), not a config typo
+                self._mesh_degrade.inc(feature="kv_paged")
             self.logger.warnf("paged KV disabled: %s", self.runner.kv_paged_disabled)
+        if opts["prefill_chunk_tokens"] and self.runner.prefill_chunk_bucket is None:
+            # an inert knob voids its bound: say so, and count it
+            self._mesh_degrade.inc(feature="chunked_prefill")
+            self.logger.warnf(
+                "PREFILL_CHUNK_TOKENS=%d is inert under a dp/fsdp serving mesh (chunked "
+                "prefill needs an unsharded cache batch axis) — over-budget prompts prefill "
+                "unbounded", opts["prefill_chunk_tokens"],
+            )
         self.kv_pool = self.runner.kv_pool
         self.runner.warmup(self._boot_progress)
         if self.costmodel is not None:
@@ -1122,7 +1252,17 @@ class TPUDevice:
         # chunk; seeded requests bypass it (generate routes them solo). The
         # pool's admission reserves each request's KV blocks on the SAME
         # BlockPool the prefix cache stores into
-        if opts["pool_enabled"]:
+        pool_ok = opts["pool_enabled"]
+        if pool_ok and self.mesh is not None:
+            rows = self.mesh.shape["dp"] * self.mesh.shape["fsdp"]
+            if opts["pool_slots"] % rows:
+                self._mesh_degrade.inc(feature="decode_pool")
+                self.logger.warnf(
+                    "decode pool disabled: DECODE_SLOTS=%d not divisible by dp*fsdp=%d (pool "
+                    "cache shards its slot axis)", opts["pool_slots"], rows,
+                )
+                pool_ok = False
+        if pool_ok:
             self._boot_progress(f"warming decode pool ({opts['pool_slots']} slots)",
                                 kind="decode_pool")
             self.decode_pool = DecodePool(
@@ -1163,6 +1303,12 @@ class TPUDevice:
             self.costmodel.install_analytic("decode_chunk", 0, slots, flops, nbytes)
 
     def describe(self) -> str:
+        """The boot log's line: the model, the device and, under TPU_MESH,
+        the mesh's shape (``mesh={...}``, every axis)."""
+        text = self._describe()
+        return text + (f" mesh={self.mesh.shape}" if self.mesh is not None else "")
+
+    def _describe(self) -> str:
         if self.runner is None:
             return f"model={self.model_name} boot={self.boot_status['state']}"
         if self.device is None:
@@ -1383,6 +1529,9 @@ class TPUDevice:
         record = current_record()
         entry = self._journal_start(tokens, max_new_tokens, sampler, stop_tokens, adapter,
                                     journal_key, journal_prior)
+        if record is not None and self.mesh_axes:
+            # a latency regression must be attributable to its topology
+            record.note_mesh(self.mesh_axes)
 
         def ttft() -> None:
             # the callback may fire on a thread without the request's
@@ -1674,6 +1823,15 @@ class TPUDevice:
         if not adapters:
             pool.disable_lora()
             return
+        if self.mesh is not None:
+            # a documented degrade, not an error: adapter requests decode
+            # solo, always correct; the counter makes the capacity loss visible
+            self._mesh_degrade.inc(feature="pooled_lora")
+            self.logger.warnf(
+                "pooled multi-LoRA unavailable under a serving mesh — adapter requests decode "
+                'solo (gofr_tpu_mesh_degrade_total{feature="pooled_lora"})'
+            )
+            return
         try:
             stack = build_lora_stack(self.runner.model, adapters)
         except ValueError as exc:
@@ -1703,6 +1861,11 @@ class TPUDevice:
             raise InvalidParamError('"path" must be a non-empty string')
         if not self.is_decoder:
             raise InvalidParamError("adapters need a transformer model (MODEL_NAME)")
+        if _rows_sharded(self.mesh):
+            # the gate the boot's LORA_ADAPTERS enforces
+            raise InvalidParamError(
+                "adapters serve single-row (solo) requests — use a tp-only TPU_MESH or no mesh"
+            )
         try:
             wrapped = apply_adapter(self.runner.model, restore_params(path, self.device))
         except Exception as exc:
@@ -1979,6 +2142,10 @@ class TPUDevice:
             "platform": self.platform,
             "device_kind": str(self.device_kind),
             "versions": runtime_versions(),
+            # the serving mesh (None = one device): its axes and the devices
+            # it spans
+            "mesh": ({"axes": self.mesh_axes, "devices": self.mesh.size}
+                     if self.mesh is not None else None),
             # the role this replica advertises (the router's tier routing
             # keys on it) and the cross-replica KV-transfer ledger, both
             # scraped by the fleet prober onto /admin/fleet
@@ -2248,15 +2415,19 @@ class _EchoRunner:
     budget cannot cover one decode step is refused (stage ``admission``,
     reject reason ``deadline``), and each step checks it (stage
     ``decode``). ``resume_from`` starts the emission at that position (the
-    decode is position-indexed): the journal's native resume. Left for a
-    later slice: the host-mesh arena (§A7)."""
+    decode is position-indexed): the journal's native resume.
+
+    ``mesh_axes``: the host-mesh mode's parsed ``TPU_MESH`` axes (the
+    device splits the paged host arena's blocks over tp fake devices)."""
 
     # synthetic bucket ladder: echo pads nothing, but the batcher forms
     # bucket cohorts and counts padded tokens on it
     buckets = (64, 128, 256, 512, 1024, 2048, 4096, 8192)
 
-    def __init__(self, step_ms: float = 0.0, metrics: Any = None):
+    def __init__(self, step_ms: float = 0.0, metrics: Any = None,
+                 mesh_axes: Optional[dict] = None):
         self.step_s = step_ms / 1000.0
+        self.mesh_axes = mesh_axes
         self._deadline_counter = self._cancel_counter = self._pool_reject = None
         if metrics is not None:
             self._deadline_counter = deadline_exceeded_counter(metrics)
@@ -2662,6 +2833,7 @@ class _TransformerRunner:
         name: str,
         device: torch.device,
         max_batch: int = 8,
+        mesh: Optional[mesh_mod.Mesh] = None,
         decode_chunk: int = 8,
         max_seq: Optional[int] = None,
         buckets: Optional[tuple[int, ...]] = None,
@@ -2693,6 +2865,17 @@ class _TransformerRunner:
             cfg = dataclasses.replace(cfg, max_seq=max_seq)
         self.name = name
         self.cfg = cfg
+        # the serving mesh: validated before the weights exist (a tp that
+        # cannot split the KV heads, a dp*fsdp the padded batch cannot split
+        # fail in milliseconds, naming the axis), then the model is placed
+        # over it and the runner's tensors live on its first device
+        _validate_mesh_fit(cfg, mesh, max_batch)
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh.devices[0]
+        if lora_adapters and _rows_sharded(mesh):
+            raise ValueError("LORA_ADAPTERS serve single-row (solo) requests — use a tp-only "
+                             "TPU_MESH or no mesh")
         # the KV caches' storage dtype: this runner owns it and passes it to
         # every cache it makes (the model's, the pool's, the arena's)
         self.cache_dtype = kv_dtype or cfg.dtype
@@ -2707,6 +2890,10 @@ class _TransformerRunner:
             raise ValueError(
                 "the given model does not match MODEL_NAME/MODEL_MAX_SEQ/MODEL_QUANT/device"
             )
+        if mesh is not None and getattr(model, "mesh", None) is not mesh:
+            # each shard's slice of the whole (quantized) weights, copied
+            # onto its device; the unsharded model is not kept
+            model = ShardedTransformer.from_model(model, mesh)
         self.model = model
         self.metrics = metrics  # the solo path's deadline counters
         # the dispatch timeline and watchdog the chunked and tail prefills
@@ -2742,7 +2929,7 @@ class _TransformerRunner:
         # budget (the smallest bucket when none fits: one bucket's compute
         # is the floor)
         self.prefill_chunk_bucket: Optional[int] = None
-        if prefill_chunk_tokens:
+        if prefill_chunk_tokens and self._can_chunk_prefill():
             fitting = [b for b in self.buckets if b <= prefill_chunk_tokens]
             self.prefill_chunk_bucket = fitting[-1] if fitting else self.buckets[0]
         self.prefills = 0  # prefill forward calls (batches, slices, tails)
@@ -2769,7 +2956,15 @@ class _TransformerRunner:
         self.kv_pool: Optional[BlockPool] = None
         self._paged_prefix: Optional[_PagedPrefixStore] = None
         self.kv_paged_disabled = ""
+        self.kv_paged_mesh_degraded = False
         if not kv_paged or not (prefix_cache > 0 or kv_blocks or kv_budget_bytes):
+            return
+        if not self._can_chunk_prefill():
+            self.kv_paged_disabled = (
+                "KV_PAGED degrades to the slot/row model under a dp/fsdp serving mesh (block "
+                "gather/scatter needs an unsharded cache batch axis; tp-only meshes compose)"
+            )
+            self.kv_paged_mesh_degraded = True
             return
         cfg = self.cfg
         if cfg.max_seq % block_tokens:
@@ -2807,10 +3002,15 @@ class _TransformerRunner:
             # the arena exists only for the prefix cache's blocks; a
             # ledger-only pool (PREFIX_CACHE=0, KV_BLOCKS set) holds none
             arena = TorchKVArena(cfg, data_blocks + 1, block_tokens, device=self.device,
-                                 dtype=self.cache_dtype)
+                                 dtype=self.cache_dtype, mesh=self.mesh)
             self._paged_prefix = _PagedPrefixStore(self.kv_pool, arena, self._prefix_lcp_min)
             self.prefix_stats = self._paged_prefix.stats
             self._prefix_cache = self._paged_prefix
+
+    def _can_chunk_prefill(self) -> bool:
+        """Chunked prefill (and paged KV) build one row's cache: under a
+        mesh only where rows do not split (tp-only meshes)."""
+        return not _rows_sharded(self.mesh)
 
     def _bucket_for(self, length: int) -> int:
         for b in self.buckets:

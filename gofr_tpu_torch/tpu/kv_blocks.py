@@ -24,8 +24,13 @@ The cross-replica transfer side (``fleet/kvwire.py``): ``ForeignKVRejected``,
 payload is the JAX package's: the raw k bytes then the v bytes of one block,
 ``[layers, block_tokens, heads, dim]``, and its spec names the dtype as
 JAX does (``bfloat16``, ``float32``, ``float8_e4m3fn``), so a port replica
-and a JAX replica exchange blocks. Not ported: the tp-sharded host arena
-(ROADMAP §A7).
+and a JAX replica exchange blocks.
+
+Under a serving mesh (``TPU_MESH``) the device arena splits its KV heads
+over tp, each shard's slice on its device, and exports a block with the
+shards' heads concatenated in head order: a tp = 2 donor's wire bytes equal
+an unsharded donor's. The echo runner's host arena splits each block's
+token span over tp fake devices (host-mesh mode).
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import numpy as np
 import torch
 
 from gofr_tpu_torch.ops.attention import kv_bits, zeros_kv
+from gofr_tpu_torch.parallel.sharding import ShardedKV, kv_pairs
 
 
 class KVExhausted(RuntimeError):
@@ -551,24 +557,43 @@ class TorchKVArena:
     Both directions are plain indexed copies (``index_copy_`` and
     ``index_select``) on the current stream; a float8 cache moves as its
     uint8 bits, so its blocks keep float8 end to end.
+
+    With a serving ``mesh`` (tp only: dp and fsdp degrade paged KV) k and v
+    are :class:`~gofr_tpu_torch.parallel.sharding.ShardedKV`: the head axis
+    splits over tp (``kv_arena_spec``), each shard on its tp device, so a
+    block moves between the arena and a sharded row shard by shard, on one
+    device; block ids and tables stay mesh-agnostic.
     """
 
     def __init__(self, cfg: Any, n_blocks: int, block_tokens: int,
                  max_seq: Optional[int] = None, device: "torch.device | str" = "cuda",
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, mesh: Any = None):
         max_seq = max_seq or cfg.max_seq
         if max_seq % block_tokens:
             raise ValueError(
                 f"KV_BLOCK_TOKENS={block_tokens} must divide max_seq="
                 f"{max_seq} (block boundaries must tile the row)"
             )
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = torch.device(device) if mesh is None else mesh.devices[0]
         self.block_tokens = block_tokens
         self.max_seq = max_seq
         self.blocks_per_seq = max_seq // block_tokens
-        shape = (cfg.n_layers, n_blocks, block_tokens, cfg.n_kv_heads, cfg.head_dim)
-        self.k = zeros_kv(shape, dtype or cfg.dtype, self.device)
-        self.v = zeros_kv(shape, dtype or cfg.dtype, self.device)
+        dtype = dtype or cfg.dtype
+        tp = 1 if mesh is None else mesh.shape["tp"]
+        if cfg.n_kv_heads % tp:
+            raise ValueError(
+                f"n_kv_heads={cfg.n_kv_heads} not divisible by tp={tp} — the paged-KV "
+                "arena shards its head axis over tp"
+            )
+        shape = (cfg.n_layers, n_blocks, block_tokens, cfg.n_kv_heads // tp, cfg.head_dim)
+        if mesh is None:
+            self.k = zeros_kv(shape, dtype, self.device)
+            self.v = zeros_kv(shape, dtype, self.device)
+        else:
+            devs = [mesh.device(tp=t) for t in range(tp)]
+            self.k = ShardedKV([(0, [zeros_kv(shape, dtype, d) for d in devs])])
+            self.v = ShardedKV([(0, [zeros_kv(shape, dtype, d) for d in devs])])
         self.block_bytes = (
             2 * cfg.n_layers * block_tokens * cfg.n_kv_heads * cfg.head_dim
             * self.k.element_size()
@@ -592,22 +617,28 @@ class TorchKVArena:
             return 0
         bt = self.block_tokens
         idx = to_device(ids[skip_blocks:nb], self.device)
-        for arena, src in ((self.k, row["k"]), (self.v, row["v"])):
+        for arena, src in (*kv_pairs(self.k, row["k"]), *kv_pairs(self.v, row["v"])):
             arena, src = kv_bits(arena), kv_bits(src)
             blocks = src[:, 0, skip_blocks * bt : nb * bt]
-            arena.index_copy_(1, idx, blocks.reshape(arena.shape[0], n, *arena.shape[2:]))
+            arena.index_copy_(1, idx.to(arena.device),
+                              blocks.reshape(arena.shape[0], n, *arena.shape[2:]))
         return n * self.block_bytes
 
     def gather_row(self, table: BlockTable, length: int) -> dict:
         """The contiguous compute row ``{"k", "v": [L, 1, max_seq, H, D],
-        "lengths": [1]}`` of a table: a fresh copy the caller owns."""
+        "lengths": [1]}`` of a table: a fresh copy the caller owns (under a
+        mesh, sharded as the model's caches)."""
         ids, _ = self._padded_ids(table)
         idx = to_device(ids, self.device)
+
+        def gather(arena: torch.Tensor) -> torch.Tensor:
+            l_, _, bt, h, d = arena.shape
+            bits = kv_bits(arena).index_select(1, idx.to(arena.device))
+            return bits.reshape(l_, 1, self.max_seq, h, d).view(arena.dtype)
+
         row = {}
         for name, arena in (("k", self.k), ("v", self.v)):
-            l_, _, bt, h, d = arena.shape
-            bits = kv_bits(arena).index_select(1, idx).reshape(l_, 1, self.max_seq, h, d)
-            row[name] = bits.view(arena.dtype)
+            row[name] = arena.map(gather) if isinstance(arena, ShardedKV) else gather(arena)
         row["lengths"] = torch.full((1,), int(length), dtype=torch.int32, device=self.device)
         return row
 
@@ -630,22 +661,29 @@ class TorchKVArena:
             "block_shape": list(self._block_shape),
         }
 
+    def _shards(self, arena: Any) -> list[torch.Tensor]:
+        return arena.groups[0][1] if isinstance(arena, ShardedKV) else [arena]
+
     def export_block_payload(self, table: BlockTable, j: int) -> bytes:
-        """Block ``j``'s raw k bytes then v bytes. The device-to-host copy
-        runs on the current stream, so it reads the block after every write
-        queued before it (the prefill's scatter included); ``self.k[:, bid]``
-        is a strided view, made contiguous on the card first."""
+        """Block ``j``'s raw k bytes then v bytes, the shards' heads
+        concatenated in head order (an unsharded arena's layout). The
+        device-to-host copy runs on the current stream, so it reads the
+        block after every write queued before it (the prefill's scatter
+        included); ``arena[:, bid]`` is a strided view, made contiguous on
+        the card first."""
         bid = table.blocks[j]
         parts = []
         for arena in (self.k, self.v):
-            block = arena[:, bid].contiguous().view(torch.uint8)
-            parts.append(block.cpu().numpy().tobytes())
+            blocks = [kv_bits(t)[:, bid].contiguous().cpu() for t in self._shards(arena)]
+            block = blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=2)
+            parts.append(block.view(torch.uint8).numpy().tobytes())
         return parts[0] + parts[1]
 
     def ingest_block_payload(self, table: BlockTable, j: int, payload: bytes) -> int:
         """Install transferred k/v bytes into block ``j`` of a private
-        (freshly reserved) table, on the current stream: the pool's next
-        chunk, queued after it, reads the installed block."""
+        (freshly reserved) table, on the current stream, split over the
+        shards' heads: the pool's next chunk, queued after it, reads the
+        installed block."""
         shape = self._block_shape
         half = int(np.prod(shape)) * self.k.element_size()
         if len(payload) != 2 * half:
@@ -653,8 +691,12 @@ class TorchKVArena:
         bid = table.blocks[j]
         host = torch.frombuffer(bytearray(payload), dtype=torch.uint8)
         for i, arena in enumerate((self.k, self.v)):
-            dst = arena.view(torch.uint8)[:, bid]
-            dst.copy_(host[i * half:(i + 1) * half].view(dst.shape))
+            block = host[i * half:(i + 1) * half].view(*shape[:3], -1)  # [L, bt, H, D bytes]
+            h0 = 0
+            for t in self._shards(arena):
+                dst = t.view(torch.uint8)[:, bid]
+                dst.copy_(block[:, :, h0:h0 + dst.shape[2]])
+                h0 += dst.shape[2]
         return len(payload)
 
     def read(self, table: BlockTable) -> Any:
@@ -667,15 +709,45 @@ class TorchKVArena:
 class HostTokenArena:
     """Host block storage for the echo runner: a block's "KV" is the token
     ids it covers, so aliasing and COW fidelity is checkable directly (read
-    the sequence back, compare to the prompt), with no model. (The JAX
-    arena's tp shards wait for the mesh slice.)"""
+    the sequence back, compare to the prompt), with no model.
+
+    ``shards`` is the host-mesh mode (echo's ``TPU_MESH``, the counterpart
+    of the device arena's tp head split): every block's tokens split
+    contiguously across ``shards`` fake devices, shard ``s`` owning
+    positions ``[s*w, (s+1)*w)`` of each block (``w = block_tokens /
+    shards``), so tables, aliasing, COW and admission run against
+    distributed storage, compile-free. ``shard_writes`` counts each fake
+    device's writes."""
 
     TOKEN_BYTES = 4  # int32 ids
 
-    def __init__(self, n_blocks: int, block_tokens: int):
+    def __init__(self, n_blocks: int, block_tokens: int, shards: int = 1):
+        if shards < 1:
+            raise ValueError(f"shards must be >= 1, got {shards}")
+        if block_tokens % shards:
+            raise ValueError(
+                f"tp={shards} does not divide KV_BLOCK_TOKENS={block_tokens} — host-mesh "
+                "blocks split their token axis evenly across the tp axis"
+            )
         self.block_tokens = block_tokens
         self.block_bytes = block_tokens * self.TOKEN_BYTES
-        self._data = np.zeros((n_blocks, block_tokens), np.int32)
+        self.shards = shards
+        self._width = block_tokens // shards
+        # [shards, n_blocks, width]: axis 0 is the fake-device axis; a
+        # shard-major reshape of a block reassembles its token order
+        self._data = np.zeros((shards, n_blocks, self._width), np.int32)
+        self.shard_writes = [0] * shards
+
+    def _write_span(self, blk: int, at: int, ids: np.ndarray) -> None:
+        """Write ``ids`` at block-local offset ``at`` of ``blk``: one slice
+        store per shard the span overlaps (a 1-token append touches one
+        element, never the whole block)."""
+        w = self._width
+        hi = at + ids.size
+        for s in range(at // w, (hi - 1) // w + 1):
+            s_lo, s_hi = max(at, s * w), min(hi, (s + 1) * w)
+            self._data[s, blk, s_lo - s * w : s_hi - s * w] = ids[s_lo - at : s_hi - at]
+            self.shard_writes[s] += 1
 
     def write(self, table: BlockTable, start: int, ids: np.ndarray) -> int:
         """Write ``ids`` at token offset ``start`` of ``table``; capacity
@@ -688,28 +760,38 @@ class HostTokenArena:
             blk = table.blocks[pos // bt]
             at = pos % bt
             n = min(bt - at, ids.size - off)
-            self._data[blk, at : at + n] = ids[off : off + n]
+            self._write_span(blk, at, ids[off : off + n])
             pos += n
             off += n
         return ids.size * self.TOKEN_BYTES
+
+    def _block_tokens(self, blocks: Any) -> np.ndarray:
+        """The blocks' tokens in order: [shards, n, width] -> [n, shards,
+        width] -> flat."""
+        return np.transpose(self._data[:, blocks, :], (1, 0, 2)).reshape(-1)
 
     def read(self, table: BlockTable) -> np.ndarray:
         """The sequence's tokens (exactly ``length`` of them)."""
         if not table.blocks or table.length == 0:
             return np.zeros(0, np.int32)
         nb = blocks_for(table.length, self.block_tokens)
-        return self._data[table.blocks[:nb]].reshape(-1)[: table.length].copy()
+        return self._block_tokens(table.blocks[:nb])[: table.length].copy()
 
     def copy_partial(self, dst_block: int, src_block: int, n_tokens: int) -> int:
-        """COW copy of the boundary block's first ``n_tokens`` (the suffix
-        belongs to whoever writes it next)."""
-        self._data[dst_block, :n_tokens] = self._data[src_block, :n_tokens]
+        """COW copy of the boundary block's first ``n_tokens``, shard by
+        shard (the suffix belongs to whoever writes it next)."""
+        w = self._width
+        for s in range((n_tokens - 1) // w + 1):
+            n_s = min(n_tokens - s * w, w)
+            self._data[s, dst_block, :n_s] = self._data[s, src_block, :n_s]
+            self.shard_writes[s] += 1
         return n_tokens * self.TOKEN_BYTES
 
     # -- cross-replica transfer codec (fleet/kvwire.py) ----------------------
     def wire_spec(self) -> dict:
-        """The compatibility fields a transfer peer must match (the JAX
-        arena's, which leaves its local tp shard split out)."""
+        """The compatibility fields a transfer peer must match. ``shards``
+        is absent: the split is local layout, so a tp = 2 host arena and an
+        unsharded one exchange the same payloads."""
         return {"kind": "host-tokens", "block_tokens": self.block_tokens}
 
     def export_block_payload(self, table: BlockTable, j: int) -> bytes:
@@ -717,7 +799,8 @@ class HostTokenArena:
         ships only up to ``table.length``)."""
         lo = j * self.block_tokens
         span = min(table.length, lo + self.block_tokens) - lo
-        return np.ascontiguousarray(self._data[table.blocks[j], :span], np.int32).tobytes()
+        tokens = self._block_tokens([table.blocks[j]])[:span]
+        return np.ascontiguousarray(tokens, np.int32).tobytes()
 
     def ingest_block_payload(self, table: BlockTable, j: int, payload: bytes) -> int:
         """Install a transferred block payload into block ``j`` of a private
@@ -731,7 +814,7 @@ class HostTokenArena:
             raise ForeignKVRejected(
                 f"block {j} carries {ids.size} tokens (block size {self.block_tokens})"
             )
-        self._data[table.blocks[j], : ids.size] = ids
+        self._write_span(table.blocks[j], 0, ids)
         return len(payload)
 
 

@@ -30,8 +30,7 @@ from gofr_tpu_torch.logging import Level, Logger
 
 # at least these refuse (ignoring them changes the topology, a durability
 # guarantee or the memory the process takes)
-MUST_REFUSE = {"TPU_MESH", "TPU_TOPOLOGY", "TPU_COORDINATOR", "TPU_NUM_PROCESSES",
-               "TPU_PROCESS_ID"}
+MUST_REFUSE = {"TPU_COORDINATOR", "TPU_NUM_PROCESSES", "TPU_PROCESS_ID"}
 
 # the keys the overload and failure layer honors: deadlines, priorities and
 # brownout, the timebase and postmortems, the SLO engine, recovery, and the
@@ -92,11 +91,11 @@ def test_the_port_partitions_the_jax_keys():
     assert {"APP_NAME", "LOG_LEVEL", "HANDLER_THREADS", "TPU_ENABLED", "TPU_BOOT",
             "ECHO_STEP_MS", "SPEC_FAKE_ACCEPT", "METRICS_MAX_SERIES", "METRICS_EXEMPLARS",
             "TRACER_HOST", "TRACER_PORT"} <= port_declared
-    # the 11 the rest of GoFr honors and the 9 of its tooling: 152 of the
-    # JAX package's 159
-    assert set(GOFR_KEYS) | set(TOOLING_KEYS) <= port_declared
-    assert (len(port_declared), len(UNHONORED_KEYS), len(JAX_KEYS)) == (152, 7, 159)
-    # what is left: the mesh and multihost keys, and two the port replaces
+    # the 11 the rest of GoFr honors, the 9 of its tooling and the serving
+    # mesh's 2: 154 of the JAX package's 159
+    assert set(GOFR_KEYS) | set(TOOLING_KEYS) | {"TPU_MESH", "TPU_TOPOLOGY"} <= port_declared
+    assert (len(port_declared), len(UNHONORED_KEYS), len(JAX_KEYS)) == (154, 5, 159)
+    # what is left: the multihost keys, and two the port replaces
     assert set(UNHONORED_KEYS) == MUST_REFUSE | {"MODEL_ATTN_IMPL", "COSTMODEL_HLO"}
 
 
@@ -164,7 +163,7 @@ def test_a_set_unhonored_key_refuses_or_warns(key, clean_env, tmp_path):
 def test_the_env_file_counts_and_each_key_warns_once(clean_env, tmp_path):
     (tmp_path / ".env").write_text("MODEL_ATTN_IMPL=xla\nCOSTMODEL_HLO=a\n")
     clean_env.setenv("COSTMODEL_HLO", "b")  # in both: one warning
-    clean_env.setenv("TPU_MESH", "")  # empty is unset
+    clean_env.setenv("TPU_COORDINATOR", "")  # empty is unset
     out = io.StringIO()
     saved, sys.stdout = sys.stdout, out
     try:
@@ -173,22 +172,22 @@ def test_the_env_file_counts_and_each_key_warns_once(clean_env, tmp_path):
         sys.stdout = saved
     assert [w.split()[0] for w in _warnings(out.getvalue())] == ["MODEL_ATTN_IMPL",
                                                                 "COSTMODEL_HLO"]
-    (tmp_path / ".env").write_text("TPU_TOPOLOGY=2x2\n")
-    with pytest.raises(ValueError, match="TPU_TOPOLOGY"):
+    (tmp_path / ".env").write_text("TPU_NUM_PROCESSES=2\n")
+    with pytest.raises(ValueError, match="TPU_NUM_PROCESSES"):
         gofr_tpu_torch.new(str(tmp_path))
 
 
 def test_a_refused_key_stops_the_app_before_the_device(clean_env, tmp_path):
     clean_env.setenv("MODEL_NAME", "tiny")
     clean_env.setenv("TORCH_DEVICE", "cpu")
-    clean_env.setenv("TPU_MESH", "tp=2")
-    with pytest.raises(ValueError, match="TPU_MESH"):
+    clean_env.setenv("TPU_COORDINATOR", "localhost:1234")
+    with pytest.raises(ValueError, match="TPU_COORDINATOR"):
         gofr_tpu_torch.new(str(tmp_path))
 
 
 def test_undeclared_keys_still_raise(tmp_path):
     with pytest.raises(KeyError):
-        EnvFileConfig(str(tmp_path)).get("TPU_MESH")
+        EnvFileConfig(str(tmp_path)).get("TPU_COORDINATOR")
 
 
 def test_parse_env_file_matches_jax(tmp_path):

@@ -1149,24 +1149,21 @@ def test_affinity_pins_conversation_to_one_replica(tmp_path, monkeypatch):
 
 
 def test_fleet_replicas_on_host_mesh(tmp_path, monkeypatch):
-    """The JAX package boots echo replicas on TPU_MESH=tp=2 (host-mesh
-    mode) behind the router. The port serves on one device (ROADMAP §A7):
-    a replica with TPU_MESH set refuses its boot, naming the key, and the
-    same fleet unsharded (the same paged-KV sizing) serves through the
-    router, each replica's /admin/engine showing its 64-block arena."""
-    from gofr_tpu_torch.devtools.chaos import build_replica, chaos_fleet, chaos_router
+    """Echo replicas booted on TPU_MESH=tp=2 (host-mesh mode: paged block
+    tables split over 2 fake devices) serve through the router exactly
+    like unsharded ones, and each replica's /admin/engine shows the mesh it
+    runs on, as the JAX package's case does."""
+    from gofr_tpu_torch.devtools.chaos import chaos_fleet, chaos_router
 
     monkeypatch.chdir(tmp_path)
-    kv_env = {"KV_BLOCKS": "64", "KV_BLOCK_TOKENS": "4"}
-    with pytest.raises(ValueError, match="TPU_MESH"):
-        build_replica("mesh", env=dict(kv_env, TPU_MESH="tp=2"))
-    with chaos_fleet(2, env=kv_env) as replicas, chaos_router(
+    mesh_env = {"TPU_MESH": "tp=2", "KV_BLOCKS": "64", "KV_BLOCK_TOKENS": "4"}
+    with chaos_fleet(2, env=mesh_env) as replicas, chaos_router(
         replicas, env={"FLEET_PROBE_INTERVAL_S": "0.1"},
     ) as app:
         base = f"http://127.0.0.1:{app.http_port}"
         fleet = app.container.fleet
         _wait(lambda: len(fleet.replica_set.in_rotation()) == 2,
-              message="2 replicas in rotation")
+              message="2 mesh replicas in rotation")
         status, body, _ = _completion(base, [5, 6, 7, 8])
         assert status == 200
         # id-prompt on the tokenizer-less echo runner: tokens came back
@@ -1178,7 +1175,9 @@ def test_fleet_replicas_on_host_mesh(tmp_path, monkeypatch):
             )
             assert rstatus == 200
             data = json.loads(engine)["data"]
+            assert data["mesh"] == {"axes": {"tp": 2}, "devices": 2}
             assert data["kv_blocks"]["total"] == 64
+            assert r.app.container.tpu.runner.paged.arena.shards == 2
 
 
 # -- unit: disaggregated role routing (unit) -------------------------------

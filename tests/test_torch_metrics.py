@@ -201,6 +201,7 @@ def test_families_have_the_jax_kind_and_labels():
         "gofr_tpu_prefix_partial_hit_ratio", "gofr_tpu_prefix_entries",
         "gofr_tpu_mfu", "gofr_tpu_compile_seconds", "gofr_tpu_compiles_total",
         "gofr_tpu_cache_events_total", "gofr_tpu_kv_transfer_total",
+        "gofr_tpu_mesh_axis_size", "gofr_tpu_mesh_degrade_total",
     }
     from gofr_tpu.tpu.device import TPUDevice as JaxDevice
 

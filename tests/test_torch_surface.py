@@ -9,8 +9,8 @@
   JAX package's.
 - The verify skill's echo recipe, through the shim, on both packages: the
   same completion.
-- ``comm -23`` of the two packages' modules leaves only MoE and
-  ``parallel/``.
+- ``comm -23`` of the two packages' modules leaves only MoE and the
+  training side of ``parallel/``.
 """
 
 import json
@@ -89,7 +89,7 @@ def test_only_moe_and_parallel_are_left_to_port():
 
     left = modules("gofr_tpu") - modules("gofr_tpu_torch")
     assert left == {"models/moe.py"} | {f"parallel/{m}.py" for m in (
-        "__init__", "expert", "mesh", "multihost", "pipeline", "ring", "sharding", "ulysses")}
+        "expert", "multihost", "pipeline", "ring", "ulysses")}
 
 
 def _free_port() -> int:
