@@ -4,7 +4,7 @@
     python3 chip_smoke.py        # from the repository root, one card
     python3 chip_smoke.py --repeat-serve-train N   # hunting a device fault (below)
     python3 chip_smoke.py --serve-ab PARENT_TREE   # phases 5 and 10 against a parent tree
-    python3 chip_smoke.py --mesh-cards   # phase 21 over distinct cards (two or more)
+    python3 chip_smoke.py --mesh-cards   # phases 21 and 22 over distinct cards (two or more)
 
 Phases, each fatal on failure (no phase is skipped or caught):
 
@@ -162,7 +162,8 @@ Phases, each fatal on failure (no phase is skipped or caught):
    (DECODE_POOL=off, DRAFT_MODEL_NAME=llama3-8b, DRAFT_TOKENS=4) with the
    checkpoint as DRAFT_MODEL_PATH (the target's own weights: acceptance
    above half) and
-   with the seeded draft, 4 prompts of 32 greedy tokens one at a time, ids
+   with the seeded draft, 4 prompts of 32 greedy tokens one at a time (the
+   seeded draft the first 2), ids
    against plain solo decode's under the near-tie rule (a divergence only
    where the plain path's top-2 logits there differ by less than 2e-2 x
    |max logit|; every divergence printed with its gap), cycles, drafted,
@@ -399,10 +400,38 @@ Phases, each fatal on failure (no phase is skipped or caught):
    10's (two shards sharing one card's host-bound path, not a two-GPU
    mesh's speed); (c) with the real enumeration the boot fails "needs 2
    devices, have 1" and the device ends ``failed``. One ``mesh`` line.
+22. training over a mesh (right after phase 9, whose step-1 numbers it
+   reads; two shards on the one card, ``make_mesh(devices=[cuda:0,
+   cuda:0])``): (a) llama3-8b at full width and depth, tp = 2, from phase
+   9's seed-0 state placed by ``place_train_state(release=True)`` (the
+   unsharded tensors freed as their shards land: the placed state holds no
+   more than the unsharded one did), two steps on phase 9's batch: step 1's
+   loss within 1e-2 and grad_norm within 5e-2 of phase 9's step 1
+   (relative; the split reorders bf16 sums), exactly tp x phase 9's
+   launches a step (128 forward, 64 dQ, 64 dK/dV, all sm90), peak memory;
+   (b) ring attention at sp = 2 and (c) Ulysses at sp = 2 on llama3-8b's
+   widths at 4 layers, B = 1, S = 4096, and (d) the GPipe pipeline at pp =
+   2, n_micro = 2, B = 2 crops of 2049: each a loss and its gradients
+   against the unsharded model's on the same card from the same weights
+   (loss within 1e-2 relative, each leaf's max |grad difference| within
+   2e-2 of its max |grad|; Ulysses' loss against the ring's too), with
+   exact launches: the ring sp(sp+1)/2 = 3 forward (x2: remat), 3 dQ and 3
+   dK/dV a layer, Ulysses sp a layer each, the pipeline n_micro x n_layers
+   each (no drain replays), and each one's wall ms beside the unsharded
+   4-layer loss and gradients; (e) the kernels at those shapes against
+   their plain versions with device time, bound, plain and SDPA: the tp
+   shard's training call (B=1 S=2048 Hq=16 Hkv=4: forward, dQ, dK/dV),
+   the ring's off-diagonal pair (B=1 Sq=Skv=2048 Hq=32 Hkv=8, non-causal;
+   its backward at the global out and LSE of two chunks) and Ulysses' head
+   group (B=1 S=4096 Hq=16 Hkv=4); (f) the JAX package's refusals word for
+   word: Ulysses at sp = 8 over 4 heads, a pipeline over a batch of 3 in 2
+   microbatches. One ``mesh-train`` line.
 
 Prints a ``{"kernels": [...]}`` line (phase 21's launches under each
-entry's ``mesh_launches``, its two shard rows beside them), the card's
-name and power limit, and last ``{"ok": true, "device": {...}}``.
+entry's ``mesh_launches``, its two shard rows beside them; phase 22's
+pipeline launches under ``mesh_train_launches`` and its nine rows at its
+legs' shapes), the card's name and power limit, and last ``{"ok": true,
+"device": {...}}``.
 
 ``--serve-ab PARENT_TREE`` runs instead phases 5 and 10 of PARENT_TREE's
 ``chip_smoke.py`` and of this one, each in its own process, in three arms
@@ -419,7 +448,8 @@ host.
 and 10 on cuda:0, then phase 21's direct leg over [cuda:0, cuda:1] and
 over every card, and its served leg with ``TPU_MESH=tp=<cards>`` over the
 real enumeration: the serving mesh across distinct cards, each shard's
-weights and KV on its own card; it prints one ``mesh-cards`` line.
+weights and KV on its own card; then phase 9 and phase 22's legs over
+[cuda:0, cuda:1]; it prints one ``mesh-cards`` line.
 
 ``--repeat-serve-train N`` runs instead phase 10, the pool's decode kernel
 and phase 9 N times in one process, on a fresh llama3-8b each time, under
@@ -1925,8 +1955,9 @@ def mesh_cards(torch, flash, card: str) -> int:
     """``--mesh-cards``: phase 21's legs over distinct cards (a machine
     with two or more): phases 5 and 10 on cuda:0 for the weights and the
     reference ids, then (a) tp = 2 over [cuda:0, cuda:1] and tp = every
-    card, (b) ``TPU_MESH=tp=<cards>`` served over the real enumeration.
-    Prints one ``mesh-cards`` line."""
+    card, (b) ``TPU_MESH=tp=<cards>`` served over the real enumeration;
+    then phase 9 and phase 22's legs over [cuda:0, cuda:1]. Prints one
+    ``mesh-cards`` line."""
     n = torch.cuda.device_count()
     check(n >= 2, f"--mesh-cards needs two or more cards, have {n}")
     cards = [torch.device("cuda", i) for i in range(n)]
@@ -1942,6 +1973,15 @@ def mesh_cards(torch, flash, card: str) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     legs["served"] = mesh_served(torch, flash, card, model, default, tp=n, fake=False)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    train = train_llama(torch, flash, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    legs["train"] = mesh_training(torch, flash, card, train, gen, cards[:2])
     print(f"mesh-cards [{card}] x {n}: {json.dumps(legs)}", flush=True)
     return 0
 
@@ -3227,7 +3267,10 @@ def spec_solo(torch, flash, card: str, model, ckpt: str, body: dict, out: dict,
     print(f"spec solo: plain solo decode TPOT {plain_tpot:.2f} ms over {len(solo_prompts)} "
           f"requests of 32 tokens", flush=True)
     out["solo"] = {"plain_tpot_ms": plain_tpot}
-    for label, env in (("checkpoint draft", {"DRAFT_MODEL_PATH": ckpt}), ("seeded draft", {})):
+    # the seeded draft accepts nearly nothing, so each token costs a verify
+    # and a full-size draft chunk (~5x plain solo's TPOT): two prompts
+    for label, env, prompts in (("checkpoint draft", {"DRAFT_MODEL_PATH": ckpt}, solo_prompts),
+                                ("seeded draft", {}, solo_prompts[:2])):
         tb = time.perf_counter()
         app = boot_deployment(model, {"DECODE_POOL": "off", "DRAFT_TOKENS": "4", **env,
                                       "DRAFT_MODEL_NAME": PHASE10_ENV["MODEL_NAME"]})
@@ -3241,7 +3284,7 @@ def spec_solo(torch, flash, card: str, model, ckpt: str, body: dict, out: dict,
             generations = recorded(dev)
             s0 = dict(runner.spec_stats)
             with served_spec(flash, dev, tally, f"spec solo {label}") as block:
-                tpot, counts = solo_streams(app.http_port, solo_prompts, body)
+                tpot, counts = solo_streams(app.http_port, prompts, body)
             stats = {k: runner.spec_stats[k] - s0[k] for k in s0}
             check(stats["cycles"] > 0, f"spec solo {label}: no spec cycle ran")
             check(block["drafts"] == stats["cycles"] and block["verifies"] == verifies_of(
@@ -3251,7 +3294,7 @@ def spec_solo(torch, flash, card: str, model, ckpt: str, body: dict, out: dict,
             divergences = [
                 first_divergence(runner, list(dev._encode(p)), want,
                                  ids_for(dev, generations, p)[-1], f"spec solo {label}")
-                for p, want in zip(solo_prompts, plain_ids)
+                for p, want in zip(prompts, plain_ids)
             ]
             tokens = sum(c - 1 for c in counts)
             row = {**stats, "accept_rate": stats["accepted"] / stats["drafted"],
@@ -4255,7 +4298,8 @@ def healthy_window(torch, flash, card: str, app, fit, join_records, np,
     greedy tokens (the 8 under the profiler), a 1,500-byte prompt (3 slices)
     and one full prefill batch (8 x 512 tokens); every request recorded,
     every dispatch id resolving, the timeline's counts the batcher's and the
-    pool's, zero anomalies on a fitted row, the gauges beside the
+    pool's, the dispatches under the profiler held out of the cost model and
+    every other judged, zero anomalies on a fitted row, the gauges beside the
     predictions, and the row this run's records fit. ``no_request_in_flight``
     marks the profiler's stop and the trace's reading."""
     out: dict = {}
@@ -4302,6 +4346,7 @@ def healthy_window(torch, flash, card: str, app, fit, join_records, np,
         restore()
         with no_request_in_flight():
             status, stopped, stop_s, _ = post(port, {}, path="/admin/profiler/stop")
+    ids_traced = dev.timeline.records(limit=1)[0]["dispatch_id"]
     check(status == 200 and stopped["data"]["artifacts"] == ["trace.json"],
           f"obs: stop {stopped}")
     trace = os.path.join(stopped["data"]["dir"], "trace.json")
@@ -4408,6 +4453,18 @@ def healthy_window(torch, flash, card: str, app, fit, join_records, np,
     residuals = {f: round(v["ema"], 4) for f, v in costmodel["residuals"].items()}
     print(f"obs: anomalies {anomalies['count']} {anomalies['stats']['by']}; residual EMAs "
           f"{residuals}", flush=True)
+    # the cost model judges every clean dispatch but those the profiler's
+    # trace slowed (its host cost is not in the model)
+    judged = [r for r in dispatches if r["dispatch_id"] > ids0 and r["status"] == "ok"
+              and r["predicted_ms"] is not None]
+    traced = [r for r in judged if ids_before < r["dispatch_id"] <= ids_traced]
+    untraced = [r for r in judged if not ids_before < r["dispatch_id"] <= ids_traced]
+    print(f"obs: {len(traced)} dispatches under the profiler held out of the cost model, "
+          f"{len(untraced)} judged", flush=True)
+    check(traced and all(r["residual_ratio"] is None for r in traced),
+          "obs: a dispatch under the profiler was judged by the cost model")
+    check(untraced and all(r["residual_ratio"] is not None for r in untraced),
+          "obs: a dispatch with no trace on went unjudged by the cost model")
     if fitted_row:
         check(anomalies["count"] == 0, f"obs: healthy traffic raised {anomalies['anomalies']}")
     samples = join_records([r for r in dispatches if r["dispatch_id"] > ids0],
@@ -5452,21 +5509,22 @@ def bwd_bound(c, which: str):
 
 
 def sdpa_backward_ms(torch, c, iters):
-    """scaled_dot_product_attention's backward at the same shape (causal,
-    GQA), timed as forward + backward minus forward."""
+    """scaled_dot_product_attention's backward at the same shape (GQA,
+    causal as ``c`` is), timed as forward + backward minus forward."""
     import torch.nn.functional as F
 
     from gofr_tpu_torch.timing import event_ms
 
     qt, kt, vt = (c[n].transpose(1, 2).detach().requires_grad_() for n in ("q", "k", "v"))
     g = c["do"].transpose(1, 2)
+    causal = c["causal"]
 
     def fwd():
         with torch.no_grad():
-            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
 
     def fwd_bwd():
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
         torch.autograd.grad(out, (qt, kt, vt), g)
 
     return event_ms(fwd_bwd, iters) - event_ms(fwd, iters)
@@ -5552,16 +5610,15 @@ def train_llama(torch, flash, card: str):
 
     from gofr_tpu_torch.models.llama import LLAMA3_8B
     from gofr_tpu_torch.training import trainer
-    from gofr_tpu_torch.training.data import TokenDataset, prefetch_to_device
+    from gofr_tpu_torch.training.data import prefetch_to_device
 
-    cfg, seq, steps = LLAMA3_8B, 2049, 4
+    cfg, seq, steps = LLAMA3_8B, TRAIN_SEQ, 4
     t0 = time.perf_counter()
     opt = trainer.default_optimizer(3e-4)
     state = trainer.init_train_state(cfg, opt, device="cuda", seed=0)
     n_params = sum(p.numel() for p in state["model"].parameters())
     step_fn = trainer.make_train_step(cfg, opt, remat=True)
-    corpus = np.random.default_rng(0).integers(0, cfg.vocab_size, 1 << 20, dtype=np.uint32)
-    batch = TokenDataset(corpus, seq_len=seq, batch_size=1, seed=0).batch(0)
+    batch = train_batch(cfg, seq, 1)
     torch.cuda.synchronize()
     print(f"train: llama3-8b {n_params / 1e9:.3f} B parameters, optimizer state built in "
           f"{time.perf_counter() - t0:.1f}s, memory "
@@ -5599,9 +5656,352 @@ def train_llama(torch, flash, card: str):
     attn_flops = 12 * cfg.head_dim * cfg.n_heads * pairs * cfg.n_layers  # fwd + bwd, no recompute
     mfu = (6 * n_params * tokens_per_step + attn_flops) / step_s / PEAK_FLOPS["bfloat16"]
     metrics = {"step_ms": step_s * 1e3, "tokens_per_s": tokens_per_step / step_s, "mfu": mfu,
-               "peak_memory_gib": peak / 2**30, "losses": losses, "launches": totals}
+               "peak_memory_gib": peak / 2**30, "losses": losses, "grad_norms": norms,
+               "launches": totals}
     print(f"train-metrics [{card}]: {json.dumps(metrics)}", flush=True)
     return metrics
+
+
+TRAIN_SEQ = 2049  # phase 9's crops: the model sees 2048
+
+
+def train_batch(cfg, seq: int, batch_size: int):
+    """Phase 9's data: crops of ``seq`` tokens from a TokenDataset over a
+    seeded uint32 corpus, batch 0."""
+    import numpy as np
+
+    from gofr_tpu_torch.training.data import TokenDataset
+
+    corpus = np.random.default_rng(0).integers(0, cfg.vocab_size, 1 << 20, dtype=np.uint32)
+    return TokenDataset(corpus, seq_len=seq, batch_size=batch_size, seed=0).batch(0)
+
+
+# -- phase 22: training over a mesh (two shards on the one card) ---------------------
+
+# (a) step 1 of tp = 2 against phase 9's step 1, relative: the split reorders
+# the bf16 sums (each row-parallel product sums two f32 partials and rounds
+# once; the norm weights' gradients sum two shards' parts)
+MESH_TRAIN_LOSS_RTOL = 1e-2
+MESH_TRAIN_NORM_RTOL = 5e-2
+# (b)-(d) against the unsharded model on the same card from the same
+# weights: the loss, relative; each leaf's max |grad difference| against
+# that leaf's max |grad| (the merge of the ring's chunks rounds the output
+# once more, in another order)
+SP_LOSS_RTOL = 1e-2
+SP_GRAD_RTOL = 2e-2
+SP_LAYERS = 4  # llama3-8b's widths at this depth
+SP_SEQ = 4096  # the ring's and Ulysses' sequence: 2 shards of 2048
+# the JAX package's refusals, word for word
+ULYSSES_HEADS_MSG = ("n_heads=4 not divisible by sp=8 — Ulysses shards the head axis; use "
+                     "ring attention for this shard count")
+PIPELINE_MICRO_MSG = "local batch 3 not divisible by n_micro=2"
+
+
+def train_counters(flash) -> tuple:
+    """forward, dQ, dK/dV launches, then each one's sm90 variant alone."""
+    return (flash.launches, flash.launches_dq, flash.launches_dkv,
+            flash.launches_fwd_sm90, flash.launches_dq_sm90, flash.launches_dkv_sm90)
+
+
+def counted(torch, flash, fn) -> tuple:
+    """``fn()`` with every training counter set to 0 just before it and read
+    just after: (its result, the counts, its wall ms to a synchronize)."""
+    counters = train_counters(flash)
+    for c in counters:
+        c.reset()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, [c.value for c in counters], (time.perf_counter() - t) * 1e3
+
+
+def mesh_train_tp(torch, flash, card: str, phase9: dict, devices: list) -> dict:
+    """(a) llama3-8b at full width and depth, tp = 2 over ``devices``: a
+    seed-0 state (phase 9's) placed with ``release`` (the unsharded tensors
+    freed as their shards land), two steps on phase 9's batch."""
+    import numpy as np
+
+    from gofr_tpu_torch.models.llama import LLAMA3_8B
+    from gofr_tpu_torch.parallel.mesh import make_mesh
+    from gofr_tpu_torch.training import trainer
+
+    cfg, steps = LLAMA3_8B, 2
+    opt = trainer.default_optimizer(3e-4)
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.init_train_state(cfg, opt, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    unsharded = torch.cuda.memory_allocated()
+    mesh = make_mesh({"tp": 2}, devices=devices)
+    t = time.perf_counter()
+    state = trainer.place_train_state(state, mesh, release=True)
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t
+    placed = torch.cuda.memory_allocated()
+    # the placed state holds what the unsharded one held, plus the norm
+    # weights' copies on the second shard (and their moments)
+    check(placed <= unsharded + 2**20 * 64, f"tp train: {placed / 2**30:.2f} GiB placed against "
+          f"{unsharded / 2**30:.2f} GiB unsharded: an unsharded tensor stayed")
+    step_fn = trainer.make_train_step(cfg, opt, mesh=mesh, remat=True)
+    batch = train_batch(cfg, TRAIN_SEQ, 1)
+    want = [2 * 2 * cfg.n_layers, 2 * cfg.n_layers, 2 * cfg.n_layers]  # tp x phase 9's
+    rows = []
+    for i in range(steps):
+        (state, m), counts, ms = counted(torch, flash, lambda: step_fn(state, batch))
+        rows.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "ms": ms,
+                     "launches": counts})
+        print(f"tp-train step {i + 1}: loss {rows[-1]['loss']:.4f} grad_norm "
+              f"{rows[-1]['grad_norm']:.4f} {ms:.1f} ms, launches fwd/dq/dkv/fwd sm90/dq sm90/"
+              f"dkv sm90 {counts}", flush=True)
+        check(counts == want + want, f"tp train: launches {counts}, want {want + want} "
+              "(tp x phase 9's, every call on sm90)")
+        check(state["step"] == i + 1, "tp train: the step count")
+    peak = torch.cuda.max_memory_allocated()
+    del state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    loss_gap = abs(rows[0]["loss"] - phase9["losses"][0]) / abs(phase9["losses"][0])
+    norm_gap = abs(rows[0]["grad_norm"] - phase9["grad_norms"][0]) / abs(phase9["grad_norms"][0])
+    print(f"tp-train step 1 against phase 9's: loss {rows[0]['loss']:.6f} / "
+          f"{phase9['losses'][0]:.6f} (gap {loss_gap:.3e}, tol {MESH_TRAIN_LOSS_RTOL}), "
+          f"grad_norm {rows[0]['grad_norm']:.6f} / {phase9['grad_norms'][0]:.6f} (gap "
+          f"{norm_gap:.3e}, tol {MESH_TRAIN_NORM_RTOL}); peak {peak / 2**30:.2f} GiB, placed "
+          f"in {place_s:.2f} s", flush=True)
+    check(all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in rows),
+          "tp train: a non-finite loss or norm")
+    check(loss_gap <= MESH_TRAIN_LOSS_RTOL, "tp train: step 1's loss parts from phase 9's")
+    check(norm_gap <= MESH_TRAIN_NORM_RTOL, "tp train: step 1's grad_norm parts from phase 9's")
+    return {"steps": rows, "loss_gap": loss_gap, "norm_gap": norm_gap, "place_s": place_s,
+            "unsharded_gib": unsharded / 2**30, "placed_gib": placed / 2**30,
+            "peak_memory_gib": peak / 2**30, "phase9_step_ms": phase9["step_ms"],
+            "launches": [sum(r["launches"][j] for r in rows) for j in range(6)]}
+
+
+def loss_and_grads(torch, flash, fn, params: list) -> dict:
+    """``fn()``'s loss and its gradients for ``params``, twice; the second
+    pass's counts and wall ms (the first warms the allocator)."""
+    def run():
+        loss = fn()
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    run()
+    (loss, grads), counts, ms = counted(torch, flash, run)
+    return {"loss": float(loss), "grads": grads, "launches": counts, "ms": ms}
+
+
+def grad_gaps(names: list, got, want) -> dict:
+    """Each leaf's max |difference| over its max |reference|."""
+    return {n: float((g.float() - w.float()).abs().max() / w.float().abs().max().clamp_min(1e-30))
+            for n, g, w in zip(names, got, want)}
+
+
+def mesh_train_sp_pp(torch, flash, devices: list) -> dict:
+    """(b) ring attention and (c) Ulysses at sp = 2, (d) the GPipe pipeline
+    at pp = 2, on llama3-8b's widths at SP_LAYERS layers, each a loss and
+    its gradients against the unsharded model's on the same card from the
+    same weights. Beside each gap, the gap of the leg and of the unsharded
+    bf16 model to an f32 copy of the same weights (the bf16 noise floor)."""
+    import dataclasses
+
+    from gofr_tpu_torch.models.llama import LLAMA3_8B
+    from gofr_tpu_torch.models.transformer import Transformer
+    from gofr_tpu_torch.parallel import (
+        make_mesh,
+        make_pipeline_loss,
+        make_ring_loss,
+        make_ulysses_loss,
+        place_pipeline_params,
+    )
+    from gofr_tpu_torch.training.trainer import cross_entropy_loss
+
+    cfg = dataclasses.replace(LLAMA3_8B, n_layers=SP_LAYERS)
+    layers = cfg.n_layers
+    model = Transformer.random(cfg, devices[0], seed=0)
+    truth_model = model.dequantized(torch.float32)
+    names = [n for n, _ in model.named_parameters()]
+    for m in (model, truth_model):
+        for p in m.parameters():
+            p.requires_grad_(True)
+    params, truth_params = list(model.parameters()), list(truth_model.parameters())
+    sp_mesh, pp_mesh = make_mesh({"sp": 2}, devices=devices), make_mesh({"pp": 2}, devices=devices)
+    staged = place_pipeline_params(model, pp_mesh)
+    tokens = torch.as_tensor(train_batch(cfg, SP_SEQ, 1), device=devices[0])
+    batch = torch.as_tensor(train_batch(cfg, TRAIN_SEQ, 2), device=devices[0])
+    legs = {
+        # the ring: sp(sp+1)/2 = 3 pairs a layer a pass (the diagonal causal,
+        # one non-causal), remat's recompute doubling the forward's
+        "ring": (lambda: make_ring_loss(cfg, sp_mesh, remat=True)(model, tokens), params,
+                 tokens, [2 * 3 * layers, 3 * layers, 3 * layers]),
+        # Ulysses: one full-sequence call a head group (sp) a layer
+        "ulysses": (lambda: make_ulysses_loss(cfg, sp_mesh)(model, tokens), params, tokens,
+                    [2 * layers, 2 * layers, 2 * layers]),
+        # two microbatches of one 2049-token crop through two stages:
+        # n_micro x n_layers a pass, no drain replays
+        "pipeline": (lambda: make_pipeline_loss(cfg, pp_mesh, n_micro=2)(staged, batch),
+                     list(staged.parameters()), batch, [2 * layers, 2 * layers, 2 * layers]),
+    }
+    out, refs = {}, {}
+    for name, (fn, leg_params, toks, want) in legs.items():
+        key = tuple(toks.shape)
+        if key not in refs:  # the unsharded bf16 model, and its f32 copy
+            plain = loss_and_grads(torch, flash, lambda: cross_entropy_loss(model, toks), params)
+            truth = loss_and_grads(torch, flash, lambda: cross_entropy_loss(truth_model, toks),
+                                   truth_params)
+            plain["truth_gaps"] = grad_gaps(names, plain["grads"], truth["grads"])
+            refs[key] = (plain, truth)
+        plain, truth = refs[key]
+        leg = loss_and_grads(torch, flash, fn, leg_params)
+        grads = leg.pop("grads")
+        leg.update(want=want + want, loss_gap=abs(leg["loss"] - plain["loss"]) / abs(plain["loss"]),
+                   grad_gaps=grad_gaps(names, grads, plain["grads"]),
+                   truth_gaps=grad_gaps(names, grads, truth["grads"]))
+        del grads
+        out[name] = leg
+    for key, (plain, truth) in refs.items():
+        worst = max(plain["truth_gaps"], key=plain["truth_gaps"].get)
+        print(f"sp/pp unsharded {key}: loss {plain['loss']:.6f} (f32 copy {truth['loss']:.6f}), "
+              f"{plain['ms']:.1f} ms a loss and its grads, its worst grad gap to the f32 copy "
+              f"{plain['truth_gaps'][worst]:.3e} at {worst}", flush=True)
+    out["plain"] = {str(k): {"loss": p["loss"], "ms": p["ms"], "f32_loss": t["loss"],
+                             "truth_gap": max(p["truth_gaps"].values())}
+                    for k, (p, t) in refs.items()}
+    out["ulysses_vs_ring"] = abs(out["ulysses"]["loss"] - out["ring"]["loss"]) / abs(
+        out["ring"]["loss"])
+    del refs, truth_model, staged
+    for name in ("ring", "ulysses", "pipeline"):
+        leg = out[name]
+        worst = max(leg["grad_gaps"], key=leg["grad_gaps"].get)
+        print(f"sp/pp {name}: loss {leg['loss']:.6f} (gap {leg['loss_gap']:.3e}, tol "
+              f"{SP_LOSS_RTOL}), worst grad gap {leg['grad_gaps'][worst]:.3e} at {worst} (tol "
+              f"{SP_GRAD_RTOL}; to the f32 copy {max(leg['truth_gaps'].values()):.3e}), "
+              f"{leg['ms']:.1f} ms a loss and its grads, launches {leg['launches']}", flush=True)
+    print(f"sp/pp ulysses against ring: {out['ulysses_vs_ring']:.3e}", flush=True)
+    for name in ("ring", "ulysses", "pipeline"):
+        leg = out[name]
+        check(leg["launches"] == leg["want"],
+              f"{name}: launches {leg['launches']}, want {leg['want']} (all sm90)")
+        check(leg["loss_gap"] <= SP_LOSS_RTOL, f"{name}: the loss parts from the unsharded one")
+        check(max(leg["grad_gaps"].values()) <= SP_GRAD_RTOL, f"{name}: a gradient parts")
+    check(out["ulysses_vs_ring"] <= SP_LOSS_RTOL, "ulysses: the loss parts from the ring's")
+    return out
+
+
+def mesh_train_refusals(torch, devices: list) -> dict:
+    """(f) the JAX package's refusals: Ulysses at sp = 8 over the tiny
+    model's 4 heads, and a pipeline over a batch its microbatches do not
+    divide."""
+    from gofr_tpu_torch.models.llama import TINY
+    from gofr_tpu_torch.models.transformer import Transformer
+    from gofr_tpu_torch.parallel import make_mesh, make_pipeline_loss, make_ulysses_forward
+
+    tiny = Transformer.random(TINY, devices[0], seed=0)
+    out = {}
+    for name, fn, want in (
+        ("ulysses", lambda: make_ulysses_forward(TINY, make_mesh({"sp": 8}, [devices[0]] * 8),
+                                                 batch_axes=())(tiny, [[1] * 64] * 2),
+         ULYSSES_HEADS_MSG),
+        ("pipeline", lambda: make_pipeline_loss(TINY, make_mesh({"pp": 2}, devices), n_micro=2)(
+            tiny, [[1] * 17] * 3), PIPELINE_MICRO_MSG),
+    ):
+        try:
+            with torch.no_grad():
+                fn()
+            got = None
+        except ValueError as exc:
+            got = str(exc)
+        print(f"refusal {name}: {got!r}", flush=True)
+        check(got == want, f"{name}: refused with {got!r}, not the JAX package's {want!r}")
+        out[name] = got
+    return out
+
+
+def bwd_device_rows(torch, flash, c, iters: int = 20) -> dict:
+    """The dQ and dK/dV kernels on ``c``: device time (a CUDA graph of
+    launches), the CUDA-event time, the bound, the whole plain backward and
+    SDPA's backward at the same masking."""
+    from gofr_tpu_torch.timing import event_ms, graph_ms
+
+    scale = c["q"].shape[-1] ** -0.5
+    do = c["do"].contiguous()
+    dvec = (do.float() * c["out"].float()).sum(-1).transpose(1, 2).contiguous()
+    kargs = (c["q"], c["k"], c["v"], do, c["lse"], dvec, c["offs"], c["lens"], c["causal"], scale)
+    plain_ms = event_ms(lambda: flash.flash_attention_bwd_ref(
+        c["q"], c["k"], c["v"], c["offs"], c["lens"], c["out"], c["lse"], c["do"], c["causal"],
+        scale), 3)
+    library_ms = sdpa_backward_ms(torch, c, iters)
+    rows = {}
+    for name, fn in (("dq", lambda: flash.launch_dq(*kargs)),
+                     ("dkv", lambda: flash.launch_dkv(*kargs))):
+        bound_ms, bound_by = bwd_bound(c, name)
+        rows[name] = {"variant": (flash.dq_variant if name == "dq" else flash.dkv_variant)(c["q"]),
+                      "ms": graph_ms(fn), "event_ms": event_ms(fn, iters), "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+    return rows
+
+
+def mesh_train_kernels(torch, flash, gen) -> dict:
+    """(e) the kernels at phase 22's new shapes, each against its plain
+    version (bf16 2e-2), with device time, bound, plain and SDPA: the tp
+    shard's training call (B=1 S=2048 Hq=16 Hkv=4 causal: forward, dQ,
+    dK/dV), the ring's off-diagonal pair (B=1 Sq=Skv=2048 Hq=32 Hkv=8,
+    non-causal, the backward with the GLOBAL out and LSE of a query chunk
+    over two K/V chunks), Ulysses' head group (B=1 S=4096 Hq=16 Hkv=4 causal:
+    forward, dQ, dK/dV). -> {row name: {"fwd", "dq", "dkv"} rows}."""
+    from gofr_tpu_torch.parallel.ring import merge_chunks
+
+    bf16 = torch.bfloat16
+    out = {}
+    for name, (b, s, hq, hkv) in (("tp shard", (1, 2048, 16, 4)),
+                                  ("ulysses", (1, SP_SEQ, 16, 4))):
+        c = bwd_case(torch, flash, gen, b, s, s, hq, hkv, 128, bf16, [0], [s], poison=False)
+        case = (c["q"], c["k"], c["v"], c["offs"], c["lens"])
+        _, _, e_fwd = compare(torch, flash, f"{name} training forward", case)
+        e_dq, e_dkv, _, variant = compare_bwd(torch, flash, f"{name} training backward", c)
+        check(variant == "sm90", f"{name}: the backward took {variant}")
+        row = device_row(time_shape(torch, flash, f"{name} training forward", case, 20,
+                                    is_causal=True, device=True))
+        out[name] = {"fwd": {**row, "max_abs_err": e_fwd}, **bwd_device_rows(torch, flash, c)}
+        out[name]["dq"]["max_abs_err"], out[name]["dkv"]["max_abs_err"] = e_dq, e_dkv
+    # the ring's off-diagonal pair: query chunk 1 against K/V chunk 0 (every
+    # key visible), its backward at the global softmax of chunks 0 and 1
+    c = bwd_case(torch, flash, gen, 1, 2048, 2048, 32, 8, 128, bf16, [0], [2048], causal=False,
+                 poison=False)
+    case = (c["q"], c["k"], c["v"], c["offs"], c["lens"])
+    _, _, e_fwd = compare(torch, flash, "ring off-diagonal forward", case, causal=False)
+    k_own = torch.randn(c["k"].shape, device="cuda", generator=gen).to(bf16)
+    v_own = torch.randn(c["v"].shape, device="cuda", generator=gen).to(bf16)
+    c["out"], c["lse"] = merge_chunks(
+        [flash.flash_attention_fwd(c["q"], c["k"], c["v"], causal=False),
+         flash.flash_attention_fwd(c["q"], k_own, v_own, causal=True)])
+    e_dq, e_dkv, _, variant = compare_bwd(torch, flash, "ring off-diagonal backward, global LSE", c)
+    check(variant == "sm90", f"ring: the backward took {variant}")
+    row = device_row(time_shape(torch, flash, "ring off-diagonal forward", case, 20, device=True,
+                                causal=False))
+    out["ring"] = {"fwd": {**row, "max_abs_err": e_fwd}, **bwd_device_rows(torch, flash, c)}
+    out["ring"]["dq"]["max_abs_err"], out["ring"]["dkv"]["max_abs_err"] = e_dq, e_dkv
+    for name, rows in out.items():
+        print(f"mesh-train-kernels {name}: {json.dumps(rows)}", flush=True)
+    return out
+
+
+def mesh_training(torch, flash, card: str, phase9: dict, gen, devices: list = None) -> dict:
+    """Phase 22: training over a mesh, its legs over ``devices`` (two
+    shards on the one card by default): (a) tp = 2 llama3-8b, (b)-(d) ring,
+    Ulysses and the pipeline, (f) the refusals; then (e) the kernels at the
+    legs' shapes. Prints one ``mesh-train`` line."""
+    t0 = time.perf_counter()
+    devices = devices or [torch.device("cuda", 0)] * 2
+    line = {"devices": [str(d) for d in devices],
+            "tp": mesh_train_tp(torch, flash, card, phase9, devices)}
+    line.update(mesh_train_sp_pp(torch, flash, devices))
+    gc.collect()
+    torch.cuda.empty_cache()
+    line["refusals"] = mesh_train_refusals(torch, devices)
+    line["kernel_rows"] = mesh_train_kernels(torch, flash, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    line["phase_s"] = time.perf_counter() - t0
+    print(f"mesh-train [{card}]: {json.dumps(line)}", flush=True)
+    return line
 
 
 def print_build(flash, built) -> None:
@@ -6177,7 +6577,7 @@ def _launch_delta(after: dict, before: dict) -> dict:
 
 
 def fleet_pull(app, pre, dec) -> dict:
-    """Leg 1: three 1,024- and three 1,900-token id prompts, each warmed on the
+    """Leg 1: two 1,024- and two 1,900-token id prompts, each warmed on the
     prefill replica directly, then streamed through the router to the
     decode replica, which pulls the donor's blocks (``X-KV-Donor``): outcome
     ``ok``, the two ledgers joined on the request id, a whole fleet trace,
@@ -6189,10 +6589,10 @@ def fleet_pull(app, pre, dec) -> dict:
     out: dict = {"prompts": {}}
     start = {"pre": pre.engine(), "dec": dec.engine()}
     rows: dict = {1024: [], 1900: []}
-    # three prompts a length; the first 1,024-token stream, 64 tokens long,
+    # two prompts a length; the first 1,024-token stream, 64 tokens long,
     # is the later legs' uninterrupted reference
     for n, seed, max_tokens in [(n, 1901 + 10 * k + (n == 1900), 64 if n + k == 1024 else 16)
-                                for k in range(3) for n in (1024, 1900)]:
+                                for k in range(2) for n in (1024, 1900)]:
         prompt = list(text(seed, n).encode())
         body = {"prompt": prompt, "max_tokens": max_tokens, "temperature": 0}
         pins = pre.engine()["kv_blocks"]
@@ -7211,6 +7611,36 @@ def mesh_entries(entries: list, mesh: dict) -> None:
         "max_abs_err": mesh["max_abs_err"]["decode"], **rows["tp shard pool decode B=8"]})
 
 
+def mesh_train_entries(entries: list, run: dict) -> None:
+    """Phase 22 in the kernels line: the pipeline's launches (two stages,
+    each microbatch at phase 9's training shape) join the sm90 forward, dQ
+    and dK/dV entries, each also under ``mesh_train_launches`` (0
+    elsewhere); then the forward, dQ and dK/dV at each leg's own shape with
+    that leg's launches: the tp shard's training call ((a), two steps), the
+    ring's pairs ((b), one counted loss and its gradients; the numbers of
+    its off-diagonal non-causal pair, the backward at the global LSE) and
+    Ulysses' head groups ((c), the same)."""
+    pipe = run["pipeline"]["launches"]
+    counts = {"flash_fwd_sm90": pipe[0], "flash_bwd_dq": pipe[1], "flash_bwd_dkv": pipe[2]}
+    for entry in entries:
+        entry["mesh_train_launches"] = counts.get(entry["name"], 0)
+        entry["launches"] += entry["mesh_train_launches"]
+    kinds = (("fwd", "flash_fwd_sm90", "gofr_tpu_torch/csrc/flash_fwd.cu", "flash.py:224", 0),
+             ("dq", "flash_bwd_dq", "gofr_tpu_torch/csrc/flash_bwd.cu", "flash.py:477", 1),
+             ("dkv", "flash_bwd_dkv", "gofr_tpu_torch/csrc/flash_bwd.cu", "flash.py:521", 2))
+    legs = (("tp shard", "tp shard training, B=1 S=2048 Hq=16 Hkv=4", run["tp"]["launches"]),
+            ("ring", "ring pairs, B=1 Sq=Skv=2048 Hq=32 Hkv=8; row: the off-diagonal "
+             "non-causal pair, its backward at the global LSE", run["ring"]["launches"]),
+            ("ulysses", f"Ulysses head groups, B=1 S={SP_SEQ} Hq=16 Hkv=4",
+             run["ulysses"]["launches"]))
+    for key, label, launches in legs:
+        for kind, name, source, replaces, j in kinds:
+            entries.append({"name": f"{name} ({label}, phase 22)", "route": "cuda",
+                            "source": source, "replaces": f"gofr_tpu/ops/{replaces}",
+                            "launches": launches[j], "mesh_train_launches": launches[j],
+                            **run["kernel_rows"][key][kind]})
+
+
 def encoder_entry(errs: dict, rows: dict, served: dict) -> dict:
     """The sm90 forward's D = 64 instance at bert-base's attention (phase
     15's path): its launches from phase 15's served requests, its numbers
@@ -7532,6 +7962,9 @@ def main(argv=None) -> int:
     train = train_llama(torch, flash, card)
     gc.collect()
     torch.cuda.empty_cache()
+    mesh_train = mesh_training(torch, flash, card, train, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
     encoders = encoder_serving(torch, flash, card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -7549,6 +7982,7 @@ def main(argv=None) -> int:
                            fleet_run, transports_run)
     kernels["kernels"].insert(-2, encoder_entry(encoder_errs, encoder_rows, encoders))
     mesh_entries(kernels["kernels"], mesh)
+    mesh_train_entries(kernels["kernels"], mesh_train)
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)  # name, power limit as nvidia-smi gives them
     print(json.dumps({"ok": True, "device": {

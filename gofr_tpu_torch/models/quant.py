@@ -277,9 +277,39 @@ def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return torch.matmul(x, w)
     if x.device.type == "cpu":
         return torch.matmul(x.float(), w.float())
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _MatmulF32.apply(x, w)
+    return _mm_f32(x, w)
+
+
+def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     rows = x.reshape(-1, x.shape[-1])
     y = torch.mm(rows, w, out_dtype=torch.float32)
     return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``_matmul_f32`` on the card with its gradient (``torch.mm``'s
+    ``out_dtype`` form has none): a tp shard's row-parallel partial in
+    training. The f32 cotangent is rounded to ``x.dtype`` (it comes from
+    the reduce's rounding to ``x.dtype``, so the rounding is exact) and
+    the two products are the unsharded ``x @ w``'s backward on the shard's
+    slices."""
+
+    @staticmethod
+    def forward(ctx: Any, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x, w)
+        return _mm_f32(x, w)
+
+    @staticmethod
+    def backward(ctx: Any, grad: torch.Tensor) -> tuple:
+        x, w = ctx.saved_tensors
+        g = grad.to(x.dtype)
+        dx = torch.matmul(g, w.t()) if ctx.needs_input_grad[0] else None
+        dw = None
+        if ctx.needs_input_grad[1]:
+            dw = torch.matmul(x.reshape(-1, x.shape[-1]).t(), g.reshape(-1, g.shape[-1]))
+        return dx, dw
 
 
 def _mm_w8a8(x: torch.Tensor, w: dict) -> torch.Tensor:

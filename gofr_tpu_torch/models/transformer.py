@@ -274,25 +274,19 @@ class Transformer(nn.Module):
         starts: Optional[torch.Tensor] = None,
         kv_lens: Optional[torch.Tensor] = None,
         out: Callable = mm,
+        attn_fn: Optional[Callable] = None,
     ) -> Any:
         """The attention half of a block over ``n_heads`` query and
         ``n_kv_heads`` KV heads (the whole model's, or one tp shard's),
         ending in ``out(attn, wo)``: the row-parallel product. Without a
-        cache: causal attention over this call's keys. With one
+        cache: causal attention over this call's keys, or ``attn_fn(q, k,
+        v)`` in its place (the JAX ``_block``'s hook). With one
         (``kv_cache`` = this layer's [B, max_seq, Hkv, D] k and v): write
         the new k/v at the (rows, cols) index ``write_at`` and attend the
         cache from ``starts`` [B] up to ``kv_lens``."""
-        b, s, _ = x.shape
-        hd = self.cfg.head_dim
-        h = rms_norm(x, layer.attn_norm, self.cfg.norm_eps)
-        q = mm(h, layer.wq).view(b, s, n_heads, hd)
-        k = mm(h, layer.wk).view(b, s, n_kv_heads, hd)
-        v = mm(h, layer.wv).view(b, s, n_kv_heads, hd)
-        freqs = self._freqs_on(x.device)
-        q = apply_rope(q, freqs, positions)
-        k = apply_rope(k, freqs, positions)
+        q, k, v = self._qkv(layer, x, positions, n_heads, n_kv_heads)
         if kv_cache is None:
-            attn = attention(q, k, v, causal=True)
+            attn = attention(q, k, v, causal=True) if attn_fn is None else attn_fn(q, k, v)
         else:
             k_cache, v_cache = kv_cache
             kv_bits(k_cache)[write_at] = kv_bits(k.to(k_cache.dtype))
@@ -300,7 +294,26 @@ class Transformer(nn.Module):
             attn = attention(
                 q, k_cache, v_cache, causal=True, q_offset=starts, kv_lens=kv_lens
             )
-        return out(attn.reshape(b, s, n_heads * hd), layer.wo)
+        return self._attn_out(layer, attn, out)
+
+    def _qkv(self, layer: Block, x: torch.Tensor, positions: torch.Tensor, n_heads: int,
+             n_kv_heads: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The attention half's projections, roped at ``positions``: q [B,
+        S, n_heads, D], k and v [B, S, n_kv_heads, D]."""
+        b, s, _ = x.shape
+        hd = self.cfg.head_dim
+        h = rms_norm(x, layer.attn_norm, self.cfg.norm_eps)
+        q = mm(h, layer.wq).view(b, s, n_heads, hd)
+        k = mm(h, layer.wk).view(b, s, n_kv_heads, hd)
+        v = mm(h, layer.wv).view(b, s, n_kv_heads, hd)
+        freqs = self._freqs_on(x.device)
+        return apply_rope(q, freqs, positions), apply_rope(k, freqs, positions), v
+
+    @staticmethod
+    def _attn_out(layer: Block, attn: torch.Tensor, out: Callable = mm) -> Any:
+        """The attention half's end: ``out(attn, wo)`` over the heads."""
+        b, s, h, hd = attn.shape
+        return out(attn.reshape(b, s, h * hd), layer.wo)
 
     def _mlp_half(self, layer: Block, x: torch.Tensor, out: Callable = mm) -> Any:
         """The SwiGLU half of a block (the whole hidden dimension, or one tp
@@ -319,16 +332,18 @@ class Transformer(nn.Module):
         write_at: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
         starts: Optional[torch.Tensor] = None,
         kv_lens: Optional[torch.Tensor] = None,
+        attn_fn: Optional[Callable] = None,
     ) -> torch.Tensor:
         """One decoder layer: each half with its residual add."""
         cfg = self.cfg
         x = x + self._attn_half(layer, x, positions, cfg.n_heads, cfg.n_kv_heads, kv_cache,
-                                write_at, starts, kv_lens)
+                                write_at, starts, kv_lens, attn_fn=attn_fn)
         return x + self._mlp_half(layer, x)
 
     def _freqs_on(self, device: torch.device) -> torch.Tensor:
-        """The RoPE table on ``device`` (a sharded model keeps one a device)."""
-        return self.freqs
+        """The RoPE table on ``device`` (a sharded model keeps one a device;
+        a sequence shard on another card reads a copy)."""
+        return self.freqs if device == self.freqs.device else self.freqs.to(device)
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         """[B, S] ids -> [B, S, D] embeddings."""
@@ -339,20 +354,26 @@ class Transformer(nn.Module):
         return mm(x, self.lm_head).float()
 
     # -- full-sequence forward -------------------------------------------------
-    def transformer_forward(self, tokens: torch.Tensor, remat: bool = False) -> torch.Tensor:
+    def transformer_forward(self, tokens: torch.Tensor, remat: bool = False,
+                            positions: Optional[torch.Tensor] = None,
+                            attn_fn: Optional[Callable] = None) -> torch.Tensor:
         """[B, S] ids -> f32 logits [B, S, V] (no cache; training and
         scoring). Differentiable when the parameters require grad.
         ``remat`` recomputes each block in the backward instead of keeping
         its activations (``torch.utils.checkpoint``), the counterpart of
-        the JAX trainer's ``jax.checkpoint``: only the block inputs stay."""
-        s = tokens.shape[1]
-        positions = torch.arange(s, device=tokens.device)
+        the JAX trainer's ``jax.checkpoint``: only the block inputs stay.
+        ``positions`` [S] are the tokens' absolute positions (default 0..S-1;
+        a sequence shard passes its own), ``attn_fn(q, k, v)`` replaces the
+        causal attention of every block."""
+        if positions is None:
+            positions = torch.arange(tokens.shape[1], device=tokens.device)
         x = self._embed(tokens)
         for layer in self.layers:
             if remat:
-                x = checkpoint(self._block, layer, x, positions, use_reentrant=False)
+                x = checkpoint(self._block, layer, x, positions, use_reentrant=False,
+                               attn_fn=attn_fn)
             else:
-                x = self._block(layer, x, positions)
+                x = self._block(layer, x, positions, attn_fn=attn_fn)
         return self._logits(rms_norm(x, self.norm_f, self.cfg.norm_eps))
 
     forward = transformer_forward

@@ -752,6 +752,34 @@ def _launch_bwd(
     return dq, dk, dv
 
 
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_offset,
+    kv_lens: Optional[torch.Tensor],
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    causal: bool,
+    scale: Optional[float] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of attention at ``out`` and ``lse`` (the forward's, or
+    any softmax's whose rows these keys share: a ring passes the GLOBAL
+    out and LSE of a query chunk with one K/V chunk, and the kernels'
+    P = exp(S - LSE) is then that chunk's share of the global softmax).
+    CUDA tensors launch the dQ and dK/dV kernels; CPU tensors run their
+    plain version; any other device raises."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, q_offset, kv_lens, out, lse, do, causal, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
+    offsets, lens = _normalize_scalars(q, k, q_offset, kv_lens)
+    return _launch_bwd(q, k, v, offsets, lens, out, lse.contiguous(), do, causal, scale)
+
+
 class FlashAttention(torch.autograd.Function):
     """Flash attention with the fused backward: the counterpart of the JAX
     package's ``custom_vjp`` (``_flash_fwd`` / ``_flash_bwd``). Gradients
@@ -767,12 +795,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, offsets, lens, out, lse = ctx.saved_tensors
-        if q.device.type == "cpu":
-            grads = flash_attention_bwd_ref(
-                q, k, v, offsets, lens, out, lse, do, ctx.causal, ctx.scale
-            )
-        else:
-            grads = _launch_bwd(q, k, v, offsets, lens, out, lse, do, ctx.causal, ctx.scale)
+        grads = flash_attention_bwd(q, k, v, offsets, lens, out, lse, do, ctx.causal, ctx.scale)
         return (*grads, None, None, None, None)
 
 

@@ -1,12 +1,15 @@
-"""Parallelism: serving meshes and the placement of the model over them.
+"""Parallelism: device meshes, the placement of the model over them, and
+the sequence- and pipeline-parallel forwards.
 
-Port of ``gofr_tpu/parallel/``'s serving half. The JAX package serves a
-mesh from one process (GSPMD inserts the collectives); the port keeps that
-single controller: one process holds the mesh's devices, shards the
-weights, the KV and the pool's slots over dp, fsdp and tp, and runs the
-reduces itself (``parallel/serving.py``). Ring, Ulysses, pipeline and
-expert parallelism and the multihost runtime are training-side and wait
-for their slices (ROADMAP §A2).
+Port of ``gofr_tpu/parallel/``. The JAX package drives a mesh from one
+process (GSPMD inserts the collectives); the port keeps that single
+controller for serving and training alike: one process holds the mesh's
+devices, shards the weights (and, serving, the KV and the pool's slots)
+over dp, fsdp and tp and runs the reduces itself (``parallel/serving.py``;
+training through ``training/trainer.py::place_train_state``, where autograd
+carries the gradients' collectives). ``ring.py`` and ``ulysses.py`` split
+the sequence over sp, ``pipeline.py`` the layers over pp. Expert
+parallelism and the multihost runtime wait for their slice (ROADMAP §A2).
 """
 
 from gofr_tpu_torch.parallel.mesh import (
@@ -18,6 +21,13 @@ from gofr_tpu_torch.parallel.mesh import (
     mesh_shape_for,
     visible_devices,
 )
+from gofr_tpu_torch.parallel.pipeline import (
+    make_pipeline_forward,
+    make_pipeline_loss,
+    pipeline_param_specs,
+    place_pipeline_params,
+)
+from gofr_tpu_torch.parallel.ring import make_ring_forward, make_ring_loss, ring_attention
 from gofr_tpu_torch.parallel.sharding import (
     ShardedKV,
     batch_spec,
@@ -26,8 +36,17 @@ from gofr_tpu_torch.parallel.sharding import (
     param_specs,
     shard_params,
 )
+from gofr_tpu_torch.parallel.ulysses import (
+    make_ulysses_forward,
+    make_ulysses_loss,
+    ulysses_attention,
+)
 
 __all__ = [
     "AXES", "Mesh", "make_mesh", "mesh_shape_for", "axis_size", "mesh_axes", "visible_devices",
     "param_specs", "batch_spec", "cache_specs", "kv_arena_spec", "shard_params", "ShardedKV",
+    "ring_attention", "make_ring_forward", "make_ring_loss",
+    "ulysses_attention", "make_ulysses_forward", "make_ulysses_loss",
+    "make_pipeline_forward", "make_pipeline_loss", "place_pipeline_params",
+    "pipeline_param_specs",
 ]

@@ -26,6 +26,18 @@ caches' ``lengths`` and the logits on the group's first device and the
 mesh's first (``device``), where the pool and the runner keep their
 per-row state. A device may repeat in the mesh (the CPU; two shards on one
 card): the moves between shards are then no-ops.
+
+The same placement trains (``training/trainer.py::place_train_state``):
+the weights turn trainable, :meth:`ShardedTransformer.train_logits` splits
+a batch over the row groups strictly (a batch they do not divide raises,
+as JAX's jit over ``batch_spec()`` does), and autograd carries the
+collectives: the gradient of an fsdp gather is each piece's share (the
+reduce-scatter), a row-parallel reduce's flows back to every shard, and
+the copies of a block (a dp replica's, a norm's on each tp shard) each get
+their own rows' part, which the trainer sums (the all-reduce).
+:meth:`ShardedTransformer.leaves` names each logical weight with its
+blocks, and :meth:`ShardedTransformer.unshard` gathers the unsharded
+model back.
 """
 
 from __future__ import annotations
@@ -34,6 +46,7 @@ from typing import Any, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from gofr_tpu_torch.models.lora import LoraWeight
 from gofr_tpu_torch.models.quant import Pack, mm, row_parallel_mm
@@ -43,10 +56,12 @@ from gofr_tpu_torch.ops.norms import rms_norm
 from gofr_tpu_torch.parallel.mesh import Mesh, mesh_axes
 from gofr_tpu_torch.parallel.sharding import (
     ShardedKV,
+    block_index,
     device_coords,
     param_specs,
     place,
     shard_tensor,
+    unshard_tensor,
 )
 
 _NORMS = ("attn_norm", "mlp_norm")
@@ -59,6 +74,20 @@ def _deferred(x: torch.Tensor, w: Any) -> tuple:
 
 def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
+
+
+def _leaf_names(n_layers: int) -> list[tuple[str, Optional[int]]]:
+    """(name, layer index or None) of every weight, in the order of
+    ``Transformer.parameters()``."""
+    return ([(name, None) for name in ("embed", "norm_f", "lm_head")]
+            + [(name, li) for li in range(n_layers) for name in (*_NORMS, *_LAYER_SHAPES)])
+
+
+def release_storage(w: Any) -> None:
+    """Free a placed weight's (or moment's) unsharded storage in place:
+    what holds it keeps an empty tensor."""
+    for t in (w.pack.values() if isinstance(w, Pack) else (w,)):
+        t.data = torch.empty(0, dtype=t.dtype, device=t.device)
 
 
 def _place_weight(name: str, w: Any, spec: Any, mesh: Mesh, coords: dict,
@@ -123,7 +152,12 @@ class ShardedTransformer(Transformer):
 
     @classmethod
     @torch.no_grad()
-    def from_model(cls, model: Transformer, mesh: Mesh) -> "ShardedTransformer":
+    def from_model(cls, model: Transformer, mesh: Mesh,
+                   release: bool = False) -> "ShardedTransformer":
+        """``model`` placed over ``mesh``, one weight at a time. With
+        ``release`` each unsharded weight's storage is freed once its blocks
+        are placed (``model`` is then spent), so the card never holds two
+        copies of the model."""
         cfg = model.cfg
         tp = mesh.shape["tp"]
         for what, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
@@ -135,22 +169,20 @@ class ShardedTransformer(Transformer):
                  for name in ("embed", "norm_f", "lm_head")}
         specs.update({name: param_specs(getattr(layer0, name), name)
                       for name in (*_NORMS, *_LAYER_SHAPES)})
-        stores = []
-        for coords, device in zip(device_coords(mesh), mesh.devices):
-            store = _Shard()
-            for name in ("embed", "norm_f", "lm_head"):
-                setattr(store, name, _place_weight(name, getattr(model, name), specs[name],
-                                                   mesh, coords, device))
-            blocks = []
-            for src in model.layers:
-                block = _empty_block()
-                for name in (*_NORMS, *_LAYER_SHAPES):
-                    setattr(block, name, _place_weight(name, getattr(src, name), specs[name],
-                                                       mesh, coords, device))
-                blocks.append(block)
-            store.layers = nn.ModuleList(blocks)
-            stores.append(store)
-        return cls(cfg, model.quant, mesh, stores, specs, model.freqs.to(mesh.devices[0]))
+        coords = device_coords(mesh)
+        stores = [_Shard() for _ in mesh.devices]
+        blocks = [[_empty_block() for _ in model.layers] for _ in mesh.devices]
+        freqs = model.freqs.to(mesh.devices[0])
+        for name, li in _leaf_names(cfg.n_layers):
+            w = getattr(model if li is None else model.layers[li], name)
+            for store, own, c, device in zip(stores, blocks, coords, mesh.devices):
+                setattr(store if li is None else own[li], name,
+                        _place_weight(name, w, specs[name], mesh, c, device))
+            if release:
+                release_storage(w)
+        for store, own in zip(stores, blocks):
+            store.layers = nn.ModuleList(own)
+        return cls(cfg, model.quant, mesh, stores, specs, freqs)
 
     @property
     def device(self) -> torch.device:
@@ -204,6 +236,56 @@ class ShardedTransformer(Transformer):
         pieces = [of(self._store(first + j, t)) for j in range(self.fsdp)]
         return _gather(pieces, self._specs[name], gid % self.fsdp, self._dev(gid, t))
 
+    # -- training ----------------------------------------------------------------
+    def leaves(self) -> list[tuple[str, Optional[int], Any, list]]:
+        """(name, layer index or None, spec, blocks) of every logical weight,
+        in ``Transformer.parameters()`` order; ``blocks`` holds one tensor a
+        device, in ``mesh.devices`` order."""
+        return [(name, li, self._specs[name],
+                 [getattr(store if li is None else store.layers[li], name)
+                  for store in self.stores])
+                for name, li in _leaf_names(self.cfg.n_layers)]
+
+    def copies(self, spec: Any) -> list[list[int]]:
+        """The devices (indices into ``mesh.devices``) holding each distinct
+        block of a weight under ``spec``, first copy first."""
+        groups: dict = {}
+        for i, coords in enumerate(device_coords(self.mesh)):
+            groups.setdefault(block_index(spec, self.mesh, coords), []).append(i)
+        return list(groups.values())
+
+    @torch.no_grad()
+    def unshard(self, device: "torch.device | str" = "cpu") -> Transformer:
+        """The unsharded model on ``device``: each weight reassembled from
+        its blocks (the first copy of each), bit for bit."""
+        if self.quant is not None:
+            raise NotImplementedError("unshard gathers dense weights; this model is quantized")
+        out = Transformer(self.cfg, device)
+        for name, li, spec, blocks in self.leaves():
+            target = getattr(out if li is None else out.layers[li], name)
+            target.copy_(unshard_tensor(blocks, spec, self.mesh, device))
+        return out
+
+    def train_logits(self, tokens: torch.Tensor,
+                     remat: bool = False) -> list[tuple[int, int, torch.Tensor]]:
+        """Training's cache-free forward: ``tokens`` [B, S] split over the row
+        groups (B must divide evenly: a batch they do not divide raises) ->
+        (first row, end row, f32 logits [rows, S, V] on the group's first
+        device) of each group. ``remat`` recomputes each layer, its fsdp
+        gathers included, in the backward."""
+        b, s = tokens.shape
+        if b % self.n_groups:
+            raise ValueError(f"batch {b} does not split over the {self.n_groups} dp x fsdp "
+                             "row groups")
+        out = []
+        for gid, r0, r1 in self._groups_for(b):
+            args = [(torch.arange(s, device=self._dev(gid, t)), None, None, None)
+                    for t in range(self.tp)]
+            x = self._embed_group(tokens[r0:r1], gid)
+            x = self._group_forward(gid, x, args, remat=remat)
+            out.append((r0, r1, self._logits_group(x, gid)))
+        return out
+
     def _layer(self, gid: int, t: int, li: int) -> Block:
         if self.fsdp == 1:
             return self._store(gid, t).layers[li]
@@ -235,28 +317,38 @@ class ShardedTransformer(Transformer):
         return outs[0] if len(outs) == 1 else torch.cat(outs)
 
     def _group_forward(self, gid: int, x: torch.Tensor, args: list,
-                       kv: Optional[tuple] = None) -> torch.Tensor:
+                       kv: Optional[tuple] = None, remat: bool = False) -> torch.Tensor:
         """The layer loop of one row group: ``x`` [B_g, S, D] on the group's
         first device, ``args`` each shard's (positions, write index, starts,
         kv_lens) on its device, ``kv`` the group's (k shards, v shards) or
         None (cache-free) -> the final-norm hidden states."""
+        for li in range(self.cfg.n_layers):
+            if remat:
+                x = checkpoint(self._group_layer, gid, li, x, args, kv, use_reentrant=False)
+            else:
+                x = self._group_layer(gid, li, x, args, kv)
+        return rms_norm(x, self._store(gid, 0).norm_f, self.cfg.norm_eps)
+
+    def _group_layer(self, gid: int, li: int, x: torch.Tensor, args: list,
+                     kv: Optional[tuple]) -> torch.Tensor:
+        """Layer ``li`` over every tp shard of row group ``gid``: each
+        shard's attention half, their reduce and the residual, then the same
+        for the MLP halves."""
         cfg = self.cfg
         nh, nkv = cfg.n_heads // self.tp, cfg.n_kv_heads // self.tp
         d0 = x.device
         devs = [self._dev(gid, t) for t in range(self.tp)]
-        for li in range(cfg.n_layers):
-            layers = [self._layer(gid, t, li) for t in range(self.tp)]
-            pairs = []
-            for t, (layer, d, (pos, write_at, starts, kv_lens)) in enumerate(
-                    zip(layers, devs, args)):
-                cache = None if kv is None else (kv[0][t][li], kv[1][t][li])
-                pairs.append(self._attn_half(layer, x.to(d), pos, nh, nkv, cache, write_at,
-                                             starts, kv_lens, out=_deferred))
-            x = x + row_parallel_mm(pairs, d0)
-            pairs = [self._mlp_half(layer, x.to(d), out=_deferred)
-                     for layer, d in zip(layers, devs)]
-            x = x + row_parallel_mm(pairs, d0)
-        return rms_norm(x, self._store(gid, 0).norm_f, cfg.norm_eps)
+        layers = [self._layer(gid, t, li) for t in range(self.tp)]
+        pairs = []
+        for t, (layer, d, (pos, write_at, starts, kv_lens)) in enumerate(
+                zip(layers, devs, args)):
+            cache = None if kv is None else (kv[0][t][li], kv[1][t][li])
+            pairs.append(self._attn_half(layer, x.to(d), pos, nh, nkv, cache, write_at,
+                                         starts, kv_lens, out=_deferred))
+        x = x + row_parallel_mm(pairs, d0)
+        pairs = [self._mlp_half(layer, x.to(d), out=_deferred)
+                 for layer, d in zip(layers, devs)]
+        return x + row_parallel_mm(pairs, d0)
 
     def transformer_forward(self, tokens: torch.Tensor, remat: bool = False) -> torch.Tensor:
         """[B, S] ids -> f32 logits [B, S, V], cache-free (scoring)."""

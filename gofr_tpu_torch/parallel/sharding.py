@@ -157,6 +157,36 @@ def shard_tensor(t: torch.Tensor, spec: tuple, mesh: Mesh, coords: dict) -> torc
     return out
 
 
+def block_index(spec: tuple, mesh: Mesh, coords: dict) -> tuple:
+    """Which block of a weight under ``spec`` the device at ``coords``
+    holds: its index along each tensor axis (0 where the axis is whole).
+    Devices with equal indices hold copies of one block."""
+    return tuple(_split(entry, mesh, coords)[1] for entry in spec)
+
+
+def unshard_tensor(blocks: list, spec: tuple, mesh: Mesh,
+                   device: "torch.device | str" = "cpu") -> torch.Tensor:
+    """The whole tensor on ``device`` from ``blocks``, one per device in
+    ``mesh.devices`` order (as ``shard_params`` gives them): each block
+    written once, from its first copy."""
+    first = blocks[0]
+    pieces = [_split(entry, mesh, {})[0] for entry in spec]
+    shape = [n * p for n, p in zip(first.shape, pieces)] + list(first.shape[len(spec):])
+    out = torch.empty(shape, dtype=first.dtype, device=device)
+    seen = set()
+    for block, coords in zip(blocks, device_coords(mesh)):
+        index = block_index(spec, mesh, coords)
+        if index in seen:
+            continue
+        seen.add(index)
+        view = out
+        for dim, i in enumerate(index):
+            width = block.shape[dim]
+            view = view.narrow(dim, i * width, width)
+        view.copy_(block)
+    return out
+
+
 def device_coords(mesh: Mesh) -> list[dict]:
     """Each device's coordinates, in ``mesh.devices`` order."""
     coords = [{}]

@@ -9,6 +9,12 @@ directory the start named: the request body's ``dir``, else
 ``PROFILE_DIR``, else a fresh ``mkdtemp``. ``GET /admin/profiler`` says
 whether a trace is running. A live serving process is traced without a
 redeploy; while no trace runs, the serving path pays nothing for it.
+
+A trace is not free while it runs: every thread's host ops are recorded, so
+a dispatch under it takes several times its untraced wall time.
+``Profiler.traced`` says whether a span of time fell inside a trace (from
+its start to the end of its export), and the cost model does not judge such
+dispatches.
 """
 
 from __future__ import annotations
@@ -32,6 +38,10 @@ class Profiler:
         self._dir: Optional[str] = None
         self._started_at: Optional[float] = None
         self._session: Any = None
+        # perf_counter spans for ``traced``: the running trace's start, and
+        # the last trace's (start, end of its export)
+        self._traced_since: Optional[float] = None
+        self._last_trace: Optional[tuple[float, float]] = None
 
     def start(self, log_dir: Optional[str] = None, default_dir: Optional[str] = None) -> dict[str, Any]:
         """Start tracing into ``log_dir`` (else ``default_dir``, the
@@ -52,7 +62,12 @@ class Profiler:
                 activities=activities,
                 experimental_config=torch.profiler._ExperimentalConfig(profile_all_threads=True),
             )
-            session.start()
+            self._traced_since = time.perf_counter()
+            try:
+                session.start()
+            except BaseException:
+                self._traced_since = None
+                raise
             self._session = session
             self._dir = log_dir
             self._started_at = time.monotonic()
@@ -69,8 +84,13 @@ class Profiler:
             session, self._session = self._session, None
             elapsed = time.monotonic() - (self._started_at or time.monotonic())
             self._started_at = None
-            session.stop()
-            session.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
+            try:
+                session.stop()
+                session.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
+            finally:
+                # the export holds the interpreter too: the span ends after it
+                self._last_trace = (self._traced_since or 0.0, time.perf_counter())
+                self._traced_since = None
         files = []
         for root, _, names in os.walk(log_dir):
             files.extend(os.path.relpath(os.path.join(root, n), log_dir) for n in names)
@@ -78,6 +98,16 @@ class Profiler:
             "state": "stopped", "dir": log_dir,
             "seconds": round(elapsed, 2), "artifacts": sorted(files),
         }
+
+    def traced(self, t0: float, t1: float) -> bool:
+        """Whether the ``time.perf_counter`` span [t0, t1] overlapped a
+        trace: the running one, or the last one up to the end of its
+        export. Lock-free: ``stop`` sets the last span before it clears the
+        running one."""
+        since, last = self._traced_since, self._last_trace
+        if since is not None and t1 >= since:
+            return True
+        return last is not None and t0 <= last[1] and t1 >= last[0]
 
     def status(self) -> dict[str, Any]:
         with self._lock:

@@ -20,7 +20,11 @@
   re-enters the band) lands in the ``ANOMALY_RING_SIZE`` ring behind
   ``GET /admin/anomalies`` and on ``gofr_tpu_dispatch_anomalies_total``.
   Every verdict also needs the absolute excess past
-  ``COSTMODEL_MIN_ANOMALY_MS``, so healthy traffic raises none.
+  ``COSTMODEL_MIN_ANOMALY_MS``, so healthy traffic raises none. A dispatch
+  that ran while ``profiling.py``'s trace was on is not judged (no
+  residual, no EMA update, no verdict): the trace records every thread's
+  host ops, and that cost is in its wall time, not in the model. This is
+  the port's own rule: the JAX package judges every dispatch.
 
 Host-side only: a dict lookup and a few float ops a dispatch.
 """
@@ -34,6 +38,7 @@ import time
 from typing import Any, Optional
 
 from gofr_tpu_torch.anomaly import AnomalyRing
+from gofr_tpu_torch.profiling import profiler
 from gofr_tpu_torch.tpu.flops import device_peaks
 
 __all__ = [
@@ -345,12 +350,15 @@ class CostModel:
         """``DispatchTimeline.finish`` hook: compute the residual, update
         the family EMA (and its gauge), and run both anomaly verdicts.
         Only clean dispatches count — an errored dispatch is a failure,
-        not a latency anomaly, and would poison the EMA."""
+        not a latency anomaly, and would poison the EMA — and only those
+        that ran with no profiler trace on."""
         predicted = getattr(record, "predicted_ms", None)
         duration = record.duration
         if predicted is None or predicted <= 0 or duration is None:
             return
         if record.status != "ok":
+            return
+        if profiler().traced(record.t_done - duration, record.t_done):
             return
         observed_ms = duration * 1e3
         ratio = observed_ms / predicted

@@ -725,8 +725,8 @@ class DecodePool:
                 self._fail_active(exc)
 
     def _abandon_in_flight(self) -> None:
-        """The worker died: close every dispatch record it still had in
-        flight as ``error`` (a phantom "running" chunk would misdirect the
+        """The worker died or the pool closed: close every dispatch record
+        it still had in flight as ``error`` (a phantom "running" chunk would misdirect the
         diagnosis the timeline exists for)."""
         if self._timeline is None:
             return
@@ -778,7 +778,10 @@ class DecodePool:
                     self._work.wait()
                 if self._closed:
                     # closing mid-stream is an ERROR for waiters, never a
-                    # silently truncated "ok"
+                    # silently truncated "ok"; the chunks still in flight
+                    # are never fetched, so their records close as errors
+                    # (no phantom "running" dispatch after a close)
+                    self._abandon_in_flight()
                     self._fail_active(RuntimeError("decode pool closed mid-generation"))
                     return
                 self._admit_pending()

@@ -17,6 +17,9 @@ from typing import Any, Optional
 
 import torch
 
+from gofr_tpu_torch.parallel.serving import ShardedTransformer
+from gofr_tpu_torch.training.trainer import unplace_train_state
+
 _FILE = "state.pt"
 
 
@@ -51,6 +54,18 @@ def save_train_state(path: str, params: dict, opt_state: Any, step: int) -> None
         {"params": params, "opt_state": opt_state, "step": int(step)},
         os.path.join(os.path.abspath(path), f"state_{int(step)}"),
     )
+
+
+def save_state(path: str, state: dict) -> None:
+    """``save_train_state`` of a training state, placed on a mesh or not:
+    a placed state is gathered to the unsharded layout on the CPU first
+    (``trainer.unplace_train_state``), so it writes the same bytes as the
+    unsharded state it came from would (the JAX checkpoint saves sharded
+    arrays the same way). Resume by restoring into an unsharded state and
+    placing it again."""
+    if isinstance(state["model"], ShardedTransformer):
+        state = unplace_train_state(state, "cpu")
+    save_train_state(path, state["model"].state_dict(), state["opt_state"], state["step"])
 
 
 def latest_step(path: str) -> Optional[int]:

@@ -16,15 +16,19 @@ model in bf16 on one 80 GB card has no room for. The same code runs on
 the CPU and on the card.
 
 A transform has ``init(params) -> state`` and ``update(grads, state,
-params)``: ``clip_by_global_norm`` rescales ``grads`` in place, and
+params, norm=None)``: ``clip_by_global_norm`` rescales ``grads`` in place, and
 ``adamw``, the last transform of a chain, applies its step to ``params``
-in place (optax's update followed by ``optax.apply_updates``).
+in place (optax's update followed by ``optax.apply_updates``). ``norm``
+is the global norm of the LOGICAL gradient, given where ``grads`` hold
+copies (a mesh step: every replica's and every replicated leaf's copy
+takes the same update, and each logical block counts once in the norm);
+without it the clip reads the norm of ``grads``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Sequence, Union
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 
@@ -52,12 +56,13 @@ class clip_by_global_norm:  # noqa: N801 - optax's name
 
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor], state: dict,
-               params: Sequence[torch.Tensor]) -> None:
-        norm = global_norm(grads)
+               params: Sequence[torch.Tensor], norm: Optional[torch.Tensor] = None) -> None:
+        if norm is None:
+            norm = global_norm(grads)
         if bool(norm < self.max_norm):
             return
         for g in grads:
-            g.div_(norm.to(g.dtype)).mul_(self.max_norm)
+            g.div_(norm.to(g.device, g.dtype)).mul_(self.max_norm)
 
 
 class adamw:  # noqa: N801 - optax's name
@@ -83,7 +88,7 @@ class adamw:  # noqa: N801 - optax's name
 
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor], state: dict,
-               params: Sequence[torch.Tensor]) -> None:
+               params: Sequence[torch.Tensor], norm: Optional[torch.Tensor] = None) -> None:
         count = state["count"]
         lr = self.learning_rate(count)
         bc1 = 1.0 - self.b1 ** (count + 1)
@@ -110,9 +115,9 @@ class chain:  # noqa: N801 - optax's name
         return [t.init(params) for t in self.transforms]
 
     def update(self, grads: Sequence[torch.Tensor], state: list,
-               params: Sequence[torch.Tensor]) -> None:
+               params: Sequence[torch.Tensor], norm: Optional[torch.Tensor] = None) -> None:
         for t, s in zip(self.transforms, state):
-            t.update(grads, s, params)
+            t.update(grads, s, params, norm=norm)
 
 
 class masked:  # noqa: N801 - optax's name
@@ -133,7 +138,9 @@ class masked:  # noqa: N801 - optax's name
     def init(self, params: Sequence[torch.Tensor]):
         return self.inner.init(self._pick(params))
 
-    def update(self, grads: Sequence[torch.Tensor], state, params: Sequence[torch.Tensor]) -> None:
+    def update(self, grads: Sequence[torch.Tensor], state, params: Sequence[torch.Tensor],
+               norm: Optional[torch.Tensor] = None) -> None:
+        # the inner transforms see a subset: a norm of the whole set is not theirs
         self.inner.update(self._pick(grads), state, self._pick(params))
 
 
@@ -146,7 +153,7 @@ class set_to_zero:  # noqa: N801 - optax's name
 
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor], state: dict,
-               params: Sequence[torch.Tensor]) -> None:
+               params: Sequence[torch.Tensor], norm: Optional[torch.Tensor] = None) -> None:
         for g in grads:
             g.zero_()
 

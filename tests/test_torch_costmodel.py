@@ -15,6 +15,9 @@ ring (``anomaly.py``) and fit (``tpu/costcal.py``) against gofr_tpu's
   an injected slow prefill raises one ``slow_dispatch`` (on the ring, the
   counter and the rider's flight record), and ``COSTMODEL=off`` removes
   the surface.
+- The port's own rule (the JAX package judges every dispatch): a slow
+  prefill run while the profiler traces gets no residual and raises no
+  anomaly; the same slow prefill after the trace raises one.
 """
 
 import json
@@ -39,6 +42,7 @@ from gofr_tpu_torch import anomaly as ta
 from gofr_tpu_torch.config import DECLARED_KEYS
 from gofr_tpu_torch.models.llama import TINY
 from gofr_tpu_torch.models.transformer import Transformer
+from gofr_tpu_torch.profiling import profiler
 from gofr_tpu_torch.tpu import costcal as tcal
 from gofr_tpu_torch.tpu import costmodel as tc
 from gofr_tpu_torch.tpu.flops import transformer_param_count
@@ -333,6 +337,30 @@ def test_healthy_echo_traffic_raises_no_anomaly_and_a_slow_one_does(monkeypatch,
         assert ('gofr_tpu_dispatch_anomalies_total{kind="prefill",cause="slow_dispatch"} 1'
                 in metrics)
         assert app.container.tpu.engine.state == "serving"
+    finally:
+        app.shutdown()
+
+
+def test_a_dispatch_under_the_profiler_is_not_judged(monkeypatch, tmp_path):
+    app = _echo_app(monkeypatch, tmp_path)
+    try:
+        dev = app.container.tpu
+        # every prefill slowed past 4x its prediction and the 50 ms floor
+        dev.runner.stall_hook = lambda: time.sleep(0.25)
+        profiler().start(str(tmp_path / "trace"))
+        try:
+            assert _call(app, "/v1/completions", {"prompt": "traced", "max_tokens": 2})[0] == 200
+        finally:
+            profiler().stop()
+        traced = dev.timeline.records(limit=1, kind="prefill")[0]
+        assert traced["predicted_ms"] == 0.2 and traced["duration_s"] >= 0.25
+        assert traced["residual_ratio"] is None and traced["anomaly"] is None
+        assert _call(app, "/admin/anomalies")[1]["data"]["count"] == 0
+        assert _call(app, "/v1/completions", {"prompt": "untraced", "max_tokens": 2})[0] == 200
+        dev.runner.stall_hook = None
+        events = _call(app, "/admin/anomalies?cause=slow_dispatch")[1]["data"]["anomalies"]
+        assert len(events) == 1 and events[0]["kind"] == "prefill"
+        assert events[0]["dispatch_id"] > traced["dispatch_id"]
     finally:
         app.shutdown()
 

@@ -4,12 +4,14 @@ and its states, a second start refused while one traces, a stop with no
 trace refused, the admin endpoints (``GET /admin/profiler``, ``POST
 /admin/profiler/start|stop``) behind ``ADMIN_TOKEN`` with the
 ``gofr_tpu_profiler_active`` gauge, and a Chrome trace of the CPU activity
-written into the directory the start named, or ``PROFILE_DIR``.
+written into the directory the start named, or ``PROFILE_DIR``; and the
+port's ``traced``, the spans the cost model does not judge.
 (The JAX profiler's own capture is an XLA trace, slow-marked in the JAX
 suite; the states, messages and response shapes are compared here.)"""
 
 import json
 import socket
+import time
 import urllib.error
 import urllib.request
 
@@ -53,6 +55,20 @@ def test_profiler_lifecycle_writes_a_chrome_trace(tmp_path):
     names = {e.get("name") for e in _trace_events(tmp_path / "trace" / TRACE_FILE)}
     assert any("mm" in str(n) for n in names)
     assert p.status() == {"state": "idle"}
+
+
+def test_traced_spans_each_trace_to_the_end_of_its_export(tmp_path):
+    p = Profiler()
+    before = time.perf_counter()
+    assert not p.traced(before - 1.0, before)
+    p.start(str(tmp_path / "t"))
+    during = time.perf_counter()
+    # inside the running trace, and a span that reaches into it
+    assert p.traced(during, during) and p.traced(before - 1.0, during)
+    p.stop()
+    after = time.perf_counter()
+    assert p.traced(during, during) and p.traced(before - 1.0, after)
+    assert not p.traced(before - 1.0, before) and not p.traced(after, after + 1.0)
 
 
 def test_double_start_and_idle_stop_are_refused(tmp_path):

@@ -522,14 +522,17 @@ def test_a_launch_blocked_behind_a_stuck_card_is_a_wedge(tiny_pair):
         pool = dev.decode_pool
         run = pool._run_executable
         release = threading.Event()
+        before = []
 
         def blocked():  # held until the recovery began, as a full launch queue holds
             vars(pool).pop("_run_executable")
+            # the walk is the held chunk's: read from its start (a prefill
+            # slowed by a loaded host may walk degraded -> serving before it)
+            before.append(len(dev.engine.snapshot()["history"]))
             release.wait(30)
             return run()
 
         pool._run_executable = blocked
-        before = len(dev.engine.snapshot()["history"])
         def release_once_recovering():
             try:
                 _wait(lambda: dev.recovery.snapshot()["incidents"], message="the incident")
@@ -544,10 +547,13 @@ def test_a_launch_blocked_behind_a_stuck_card_is_a_wedge(tiny_pair):
         release.set()
         _wait(lambda: dev.engine.state == "serving"
               and dev.recovery.snapshot()["recoveries"].get("recovered"), message="recovery")
-        walk = [h["state"] for h in dev.engine.snapshot()["history"][before:]]
+        walk = [h["state"] for h in dev.engine.snapshot()["history"][before[0]:]]
         assert walk == ["degraded", "wedged", "recovering", "warming", "serving"]
         assert [q["kind"] for q in dev.watchdog.snapshot()["quarantined"]] == ["decode_chunk"]
         assert dev.decode_pool is not pool and dev.runner.model is model
+        # the wedge under test is over: the rebuilt stack's check runs under
+        # a watchdog a loaded host's chunk cannot trip (0.1 s wedges at 0.3 s)
+        dev.watchdog.arm(60.0)
         assert dev.generate([3, 1, 4, 1, 5], 6) == jdev.generate([3, 1, 4, 1, 5], 6)
     finally:
         dev.close()

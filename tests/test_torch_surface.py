@@ -9,8 +9,9 @@
   JAX package's.
 - The verify skill's echo recipe, through the shim, on both packages: the
   same completion.
-- ``comm -23`` of the two packages' modules leaves only MoE and the
-  training side of ``parallel/``.
+- ``comm -23`` of the two packages' modules leaves only MoE
+  (``models/moe.py``, ``parallel/expert.py``) and multihost
+  (``parallel/multihost.py``).
 """
 
 import json
@@ -82,14 +83,16 @@ def test_top_level_covers_the_jax_package():
 
 
 def test_only_moe_and_parallel_are_left_to_port():
+    """MoE (``models/moe.py``, ``parallel/expert.py``) and multihost
+    (``parallel/multihost.py``): the last slice."""
+
     def modules(pkg: str) -> set:
         root = REPO / pkg
         return {p.relative_to(root).as_posix() for p in root.rglob("*.py")
                 if "__pycache__" not in p.parts}
 
     left = modules("gofr_tpu") - modules("gofr_tpu_torch")
-    assert left == {"models/moe.py"} | {f"parallel/{m}.py" for m in (
-        "expert", "multihost", "pipeline", "ring", "ulysses")}
+    assert left == {"models/moe.py", "parallel/expert.py", "parallel/multihost.py"}
 
 
 def _free_port() -> int:
