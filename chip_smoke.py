@@ -131,10 +131,10 @@ Phases, each fatal on failure (no phase is skipped or caught):
    a twentieth and w8a8 within a tenth of the largest |logit|), each
    weight-only product on the card within one bf16 rounding of the CPU's,
    phase 10's configuration serving
-   4 concurrent greedy streams of 32 tokens (aggregate tokens/s and TPOT,
+   4 concurrent greedy streams of 16 tokens (aggregate tokens/s and TPOT,
    beside the bf16 model's) and the first prompt alone equal to its ids
    among 3 co-tenants; int8 weights with ``MODEL_KV_DTYPE=f8`` (the pool's
-   e4m3 cache at half the bf16 bytes, 8 streams, n_layers decode launches
+   e4m3 cache at half the bf16 bytes, 8 streams of 16 tokens, n_layers decode launches
    a step, the upcast's device time a step under torch.profiler);
    penalties on the bf16 model with ``DECODE_POOL_PENALTIES=eager``
    (logit_bias +100 forces its id at every step, -100 bans the plain
@@ -184,7 +184,7 @@ Phases, each fatal on failure (no phase is skipped or caught):
 14. multi-LoRA (run right after phase 13, on its model, before the model
    is freed): two rank-8 adapters (alpha 16) over all eight weight keys
    (22,030,336 parameters) trained with ``make_lora_train_step`` at phase
-   9's shape (B=1, 2049-token crops of a seeded corpus, remat, 4 steps,
+   9's shape (B=1, 2049-token crops of a seeded corpus, remat, 2 steps,
    clipped AdamW at 1e-2): ``calm`` over the bf16 base, ``wild`` as QLoRA
    over ``model.quantized("int8")``, each with its step time, tokens/s,
    peak memory, losses (finite), launches (every forward, dQ and dK/dV
@@ -200,7 +200,7 @@ Phases, each fatal on failure (no phase is skipped or caught):
    adapter slot and without (launches under torch.profiler, device time by
    ``graph_ms``); an adapter's own device memory against the 44.06 MB
    reckoned; the admin routes (401 without the token; a third adapter
-   loaded during a live adapter stream, its bank swap deferred until the
+   loaded during a live adapter stream of 96 tokens, its bank swap deferred until the
    slot finishes; listed; unloaded); a penalized request beside the live
    adapter slot and a penalized adapter request, both solo (the pool's
    ``adapter_mix`` and ``penalized_adapter`` rejects); /v1/models; an
@@ -321,8 +321,10 @@ Phases, each fatal on failure (no phase is skipped or caught):
    and MODEL_NAME=mlp (f32, TF32 off) behind a copy of
    ``examples/http-server/main.py``'s ``/infer``: 8 concurrent requests
    equal to the CPU's within 2e-5, a 63-wide input's 400.
-19. the fleet (last, after phase 15; phase 5's weights from phase 12's
-   checkpoint, kept until here): the parent's model is gone; a block's
+19. the fleet (last, after phase 15; the first 8 layers of phase 5's
+   weights, llama3-8b's widths at a cut depth: phase 12's checkpoint's
+   first shard, kept until here, served as ``llama3-8b-l8``, a name the
+   replicas' sitecustomize registers): the parent's model is gone; a block's
    parts at llama3-8b's geometry (the arena's export, ``zlib.crc32``, the
    decoder's framing, the ingest); two replica processes (``python -m
    gofr_tpu_torch.devtools.replica_proc`` under ``devtools/supervise``,
@@ -356,7 +358,9 @@ Phases, each fatal on failure (no phase is skipped or caught):
    MiniMySQL in this process; ``python -m gofr_tpu_torch.examples.sample_cmd``
    as a process (``hello --name=x`` and an unknown command's exit 1); the
    ``lora_finetune`` example's ``finetune`` through ``new_cmd`` and
-   ``run_cmd`` in this process (llama3-8b, seeded init, the demo ramp
+   ``run_cmd`` in this process (llama3-8b's widths at 8 layers,
+   ``llama3-8b-l8``, registered in this process and in the example
+   processes' sitecustomize; seeded init, the demo ramp
    corpus at B=4 S=64, rank 8, 4 steps): each step's loss and ms, the
    forward, dQ and dK/dV launches (sm90 only), the merge's and the write's
    seconds, peak memory; the sm90 forward at that shape against its plain
@@ -426,12 +430,38 @@ Phases, each fatal on failure (no phase is skipped or caught):
    group (B=1 S=4096 Hq=16 Hkv=4); (f) the JAX package's refusals word for
    word: Ulysses at sp = 8 over 4 heads, a pipeline over a batch of 3 in 2
    microbatches. One ``mesh-train`` line.
+23. MoE over the ep axis and the multihost runtime (after phase 22):
+   ``MoEConfig()`` at its own widths (Mixtral-8x7B's: dim 4096, 32 heads,
+   8 KV heads, hidden 14336, vocab 32000, 8 experts, top-2, bf16, seed 0)
+   cut to 4 layers (32 take 93.4 GB), B = 2 crops of 2049: (a) the dense
+   forward: finite logits, ``load_balance`` >= 0.99, 4 sm90 launches; an
+   f32 copy's loss and gradients (aux_weight 0, remat; its f32 attention
+   the reference's, uncounted); (c) the dense bf16 loss and gradients (4
+   forward, dQ and dK/dV launches, all sm90); then ep = 2 over two shards
+   of the one card (``place_moe_params``): (b) the ep forward at capacity
+   factor 4 (no drops; one sm90 forward a shard a layer, B=1 S=2048)
+   against (a)'s logits (max |diff| / max |logit| <= 2e-2); (d) at 0.25:
+   finite, the dropped assignments counted (> 0); (c) the ep loss and
+   gradients (remat: 16 forward, 8 dQ, 8 dK/dV launches): the loss within
+   1e-3 of the dense one, ``w_gate``, ``w_down``, ``router`` and ``wq``
+   within 2e-2 (max |diff| / max |grad|), each leg's gap to the f32 copy
+   beside; (e) int8: experts dense, attention and ``lm_head`` packed, a
+   finite forward; the three kernels at the dense model's attention (B=2
+   S=2048) against their plain versions with device time, bound and SDPA;
+   (f) ``new()`` of the tiny model on the card with ``TPU_COORDINATOR``,
+   ``TPU_NUM_PROCESSES=1``, ``TPU_PROCESS_ID=0``: the boot joins an
+   NCCL-backed group, ``process_info`` {0, 1, 1, 1}, ``global_psum_check``
+   None, a CUDA all-reduce, one request served, the group destroyed at
+   shutdown. One ``moe`` line with each leg's ms, the peak memory and the
+   phase's seconds.
 
 Prints a ``{"kernels": [...]}`` line (phase 21's launches under each
 entry's ``mesh_launches``, its two shard rows beside them; phase 22's
 pipeline launches under ``mesh_train_launches`` and its nine rows at its
-legs' shapes), the card's name and power limit, and last ``{"ok": true,
-"device": {...}}``.
+legs' shapes; phase 23's ep shards' launches under ``moe_launches`` and
+its three rows at the dense MoE model's shape), the card's name and power
+limit, and last ``{"ok": true, "device": {...}}``. Each phase's seconds
+print as ``phase N: X s``.
 
 ``--serve-ab PARENT_TREE`` runs instead phases 5 and 10 of PARENT_TREE's
 ``chip_smoke.py`` and of this one, each in its own process, in three arms
@@ -449,7 +479,9 @@ and 10 on cuda:0, then phase 21's direct leg over [cuda:0, cuda:1] and
 over every card, and its served leg with ``TPU_MESH=tp=<cards>`` over the
 real enumeration: the serving mesh across distinct cards, each shard's
 weights and KV on its own card; then phase 9 and phase 22's legs over
-[cuda:0, cuda:1]; it prints one ``mesh-cards`` line.
+[cuda:0, cuda:1]; then two ranks, one card each, join a process group
+over NCCL and run the multihost worker's checks (the CPU tests' over
+gloo); it prints one ``mesh-cards`` line.
 
 ``--repeat-serve-train N`` runs instead phase 10, the pool's decode kernel
 and phase 9 N times in one process, on a fresh llama3-8b each time, under
@@ -1982,8 +2014,59 @@ def mesh_cards(torch, flash, card: str) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     legs["train"] = mesh_training(torch, flash, card, train, gen, cards[:2])
+    legs["multihost"] = multihost_cards()
     print(f"mesh-cards [{card}] x {n}: {json.dumps(legs)}", flush=True)
     return 0
+
+
+# the CPU tests' multihost worker (tests/test_torch_multihost.py) on a card
+MULTIHOST_WORKER = """
+from gofr_tpu_torch.config import EnvFileConfig
+from gofr_tpu_torch.parallel import multihost
+
+cfg = EnvFileConfig()
+assert multihost.init_from_config(cfg) is True
+assert multihost.init_from_config(cfg) is True
+info = multihost.process_info()
+assert info["process_count"] == 2 and info["global_devices"] == 2 * info["local_devices"], info
+total = multihost.global_psum_check()
+assert total == info["global_devices"], (total, info)
+print(f"rank {info['process_id']} OK total={total}", flush=True)
+multihost.shutdown()
+"""
+
+
+def multihost_cards() -> dict:
+    """Two ranks, one card each (``CUDA_VISIBLE_DEVICES``), join a process
+    group over NCCL on localhost and run the multihost worker's checks;
+    each is killed after 120 s."""
+    from gofr_tpu_torch.config import DECLARED_KEYS
+
+    port, here = free_port(), os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    for rank in range(2):
+        env = {k: v for k, v in os.environ.items() if k not in DECLARED_KEYS}
+        env.update(TPU_COORDINATOR=f"127.0.0.1:{port}", TPU_NUM_PROCESSES="2",
+                   TPU_PROCESS_ID=str(rank), TORCH_DEVICE="cuda", CUDA_VISIBLE_DEVICES=str(rank),
+                   PYTHONPATH=os.pathsep.join([here, os.environ.get("PYTHONPATH", "")]))
+        procs.append(subprocess.Popen([sys.executable, "-c", MULTIHOST_WORKER], env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    outputs = []
+    try:
+        for p in procs:
+            outputs.append(p.communicate(timeout=120)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate(timeout=10)
+    for rank, (p, text_out) in enumerate(zip(procs, outputs)):
+        print(f"multihost rank {rank} over NCCL: exit {p.returncode}: {text_out[-500:]}",
+              flush=True)
+        check(p.returncode == 0 and f"rank {rank} OK total=2.0" in text_out,
+              f"multihost: rank {rank} failed")
+    return {"ranks": 2, "ok": True}
 
 
 def serving_mesh(torch, flash, card: str, model, default: dict, gen) -> dict:
@@ -2337,6 +2420,9 @@ QUANT_LOGIT_TOL = {"int8": ("share", 0.05), "int4": ("atol", 1e-2), "w8a8": ("sh
 # to bf16 apart (2^-7 of |y|)
 WEIGHT_ONLY_MM_TOL = (1e-3, 2.0 ** -7)  # atol, rtol
 EOS_IDS = (128001, 128009)  # Llama-3 instruct's generation_config.json lists both
+# greedy tokens a request of phase 12's streams (each mode's, the f8
+# cache's, MODEL_PATH's): every check holds at any length
+DEPLOY_TOKENS = 16
 F8 = "float8_e4m3fn"
 
 
@@ -2504,7 +2590,7 @@ def deployment(torch, flash, card: str, model, ckpt: str) -> dict:
     tally = {"sm90": 0, "decode": 0, "mma": 0}  # the served requests' launches
     cfg = model.cfg
     prompts4 = [text(300 + i, 120 + 90 * i) for i in range(4)]
-    greedy = {"max_tokens": 32, "temperature": 0}
+    greedy = {"max_tokens": DEPLOY_TOKENS, "temperature": 0}
     bf16_bytes = model.weight_bytes()
     check(bf16_bytes == expected_weight_bytes(cfg, None), "deployment: bf16 weight bytes")
     out: dict = {"weight_gb": {"bf16": bf16_bytes / 1e9}, "serve": {}}
@@ -2686,7 +2772,7 @@ def serve_f8(torch, flash, card: str, qmodel, tally: dict) -> dict:
                     enumerate((100, 170, 240, 310, 380, 450, 500, 600))]
         with served(flash, dev, tally, "deployment f8") as block:
             rate, tpot, counts = concurrent_streams(app.http_port, prompts8,
-                                                    {"max_tokens": 32, "temperature": 0})
+                                                    {"max_tokens": DEPLOY_TOKENS, "temperature": 0})
         n_layers = dev.runner.cfg.n_layers
         check(block["dispatches"] > 0, "deployment f8: the streams did not decode in the pool")
         a_step = block["in_pool"] / (block["dispatches"] * pool.chunk)
@@ -2951,7 +3037,8 @@ def from_checkpoint(torch, flash, card: str, model, prompts: list, int8_ids: lis
         generations = recorded(dev)
         for prompt, ids in zip(prompts, int8_ids):
             with served(flash, dev, tally, "model_path"):
-                status, _, _, _ = post(app.http_port, {"prompt": prompt, "max_tokens": 32,
+                status, _, _, _ = post(app.http_port, {"prompt": prompt,
+                                                       "max_tokens": DEPLOY_TOKENS,
                                                        "temperature": 0})
             check(status == 200, f"model_path: {status}")
             cut = next((i for i, t in enumerate(ids) if t in EOS_IDS), len(ids))
@@ -3558,7 +3645,11 @@ def speculation(torch, flash, card: str, model, ckpt: str, gen) -> dict:
 # layer weights and the lm_head (4096 + 128256)
 LORA_RANK, LORA_ALPHA, LORA_LR = 8, 16.0, 1e-2
 LORA_PARAMS = 22_030_336
-LORA_STEPS = 4
+LORA_STEPS = 2
+# the adapter stream that holds a slot while a third adapter loads (its
+# deferred bank swap): 96 tokens outlast the load and the penalized request
+# beside it many times over
+LORA_LIVE_TOKENS = 96
 LORA_SEQ = 2049  # phase 9's crops: the model sees 2048
 MIXED_MODELS = (None, "calm", "wild", None, "calm", "wild", None, "calm")
 
@@ -3881,7 +3972,8 @@ def lora_admin(torch, dev, port: int, paths: dict, prompts: list) -> dict:
     # a long adapter stream holds a slot while the third adapter loads
     result: list = []
     long = threading.Thread(target=lambda: result.append(post(
-        port, {"prompt": prompts[2], "max_tokens": 256, "temperature": 0, "adapter": "calm",
+        port, {"prompt": prompts[2], "max_tokens": LORA_LIVE_TOKENS, "temperature": 0,
+               "adapter": "calm",
                "stream": True}, stream=True)))
     long.start()
     for _ in range(600):
@@ -6004,6 +6096,317 @@ def mesh_training(torch, flash, card: str, phase9: dict, gen, devices: list = No
     return line
 
 
+# -- phase 23: MoE over the ep axis and the multihost runtime -----------------------
+
+# MoEConfig()'s own widths (Mixtral-8x7B's published ones: dim 4096, 32 heads,
+# 8 KV heads, hidden 14336, vocab 32000, 8 experts, top-2) at this depth: all
+# 32 layers take 32 x 2.90 GB + 0.52 GB = 93.4 GB of bf16 weights, more than
+# the card holds; 4 take 12.1 GB
+MOE_LAYERS = 4
+MOE_SEQ = 2049  # phase 9's crops: the model sees 2048
+# the ep = 2 path against the dense one: the logits' max |difference| over
+# their max |value| (bf16, 2e-2); the loss, relative; each gradient leaf's max
+# |difference| over its max |value| (phase 22's measure and bound)
+MOE_LOGIT_GAP = 2e-2
+MOE_LOSS_RTOL = 1e-3
+MOE_GRAD_GAP = 2e-2
+MOE_GRAD_KEYS = ("w_gate", "w_down", "router", "wq")
+
+
+def moe_grad_gaps(got: dict, want: dict) -> dict:
+    """Each MOE_GRAD_KEYS weight's worst layer: max |got - want| over max
+    |want|. ``got`` a gradient a layer, or the ep placement's blocks a
+    layer (a list over the shards: an expert stack's E/ep slices, a
+    replicated weight's copies, their gradients summed); ``want`` dense
+    gradients."""
+    gaps = {}
+    for key in MOE_GRAD_KEYS:
+        worst = 0.0
+        for li, ref in enumerate(want[key]):
+            blocks = got[key][li]
+            if isinstance(blocks, list):
+                if key in ("w_gate", "w_up", "w_down"):
+                    per = ref.shape[0] // len(blocks)
+                    diff = max(float((b.grad.float() - ref[j * per:(j + 1) * per].float())
+                                     .abs().max()) for j, b in enumerate(blocks))
+                else:
+                    total = sum(b.grad.float() for b in blocks)
+                    diff = float((total - ref.float()).abs().max())
+            else:
+                diff = float((blocks.float() - ref.float()).abs().max())
+            worst = max(worst, diff / max(float(ref.float().abs().max()), 1e-30))
+        gaps[key] = worst
+    return gaps
+
+
+def moe_ep(torch, flash) -> dict:
+    """Phase 23 (a)-(e): MoEConfig() at MOE_LAYERS layers, seed 0, B = 2
+    crops of MOE_SEQ. (a) the dense forward; then an f32 copy's loss and
+    gradients (aux_weight 0, remat; the bf16 floor's reference, its f32
+    attention uncounted), (c) the dense bf16 loss and gradients, then ep = 2
+    over two shards of the one card: (b) the ep forward at capacity factor 4
+    (no drops), (d) at 0.25 (drops counted), (c) the ep loss and gradients
+    (remat); (e) the int8 model."""
+    import dataclasses
+
+    from gofr_tpu_torch.models import moe
+    from gofr_tpu_torch.models.quant import Pack, quantize_params
+    from gofr_tpu_torch.parallel import expert
+    from gofr_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = dataclasses.replace(moe.MoEConfig(), n_layers=MOE_LAYERS)
+    check(cfg.dim == 4096 and cfg.n_heads == 32 and cfg.n_kv_heads == 8 and
+          cfg.hidden_dim == 14336 and cfg.vocab_size == 32000 and cfg.n_experts == 8 and
+          cfg.top_k == 2 and cfg.dtype == torch.bfloat16, f"moe: MoEConfig() is {cfg}")
+    ample = dataclasses.replace(cfg, capacity_factor=4.0)  # C = T_local: nothing drops
+    no_aux = dataclasses.replace(ample, aux_weight=0.0)
+    tight = dataclasses.replace(cfg, capacity_factor=0.25)
+    out: dict = {"layers": MOE_LAYERS, "batch": [2, MOE_SEQ - 1]}
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = moe.MoETransformer.random(cfg, "cuda", seed=0)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t
+    out["weight_gb"] = model.weight_bytes() / 1e9
+    tokens = torch.as_tensor(train_batch(cfg, MOE_SEQ, 2), device="cuda")
+    inputs = tokens[:, :-1]
+    # (a) the dense forward, twice (the first warms the allocator)
+    with torch.no_grad():
+        moe.moe_forward(model, inputs)
+        (logits, aux), counts, ms = counted(torch, flash, lambda: moe.moe_forward(model, inputs))
+    out["dense_forward"] = {"ms": ms, "launches": counts,
+                            "load_balance": float(aux["load_balance"]),
+                            "router_z": float(aux["router_z"])}
+    print(f"moe (a) dense forward B=2 S={MOE_SEQ - 1}: {ms:.1f} ms, launches fwd/dq/dkv/fwd "
+          f"sm90/dq sm90/dkv sm90 {counts}, load_balance {out['dense_forward']['load_balance']:.4f}"
+          f", router_z {out['dense_forward']['router_z']:.2f}", flush=True)
+    check(bool(torch.isfinite(logits).all()), "moe (a): non-finite logits")
+    check(tuple(logits.shape) == (2, MOE_SEQ - 1, cfg.vocab_size), "moe (a): logits shape")
+    check(out["dense_forward"]["load_balance"] >= 0.99, "moe (a): load_balance under 0.99")
+    check(counts == [MOE_LAYERS, 0, 0, MOE_LAYERS, 0, 0],
+          f"moe (a): launches {counts}, want {MOE_LAYERS} sm90 forwards and nothing else")
+    # the f32 copy's gradients: the reference each bf16 leg's gap is read beside
+    truth_model = model.dequantized(torch.float32)
+    truth_params = [getattr(layer, k) for layer in truth_model.layers for k in MOE_GRAD_KEYS]
+    for p in truth_params:
+        p.requires_grad_(True)
+    t = time.perf_counter()
+    truth_loss = moe.moe_loss(truth_model, tokens, no_aux, remat=True)
+    grads = torch.autograd.grad(truth_loss, truth_params)
+    torch.cuda.synchronize()
+    out["f32_ms"] = (time.perf_counter() - t) * 1e3
+    n_k = len(MOE_GRAD_KEYS)
+    truth = {k: [grads[li * n_k + j] for li in range(MOE_LAYERS)]
+             for j, k in enumerate(MOE_GRAD_KEYS)}
+    del truth_model, truth_params, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c) the dense bf16 loss and gradients
+    dense_params = [getattr(layer, k) for layer in model.layers for k in MOE_GRAD_KEYS]
+    for p in dense_params:
+        p.requires_grad_(True)
+    dense = loss_and_grads(torch, flash, lambda: moe.moe_loss(model, tokens, no_aux),
+                           dense_params)
+    dense_grads = {k: [dense["grads"][li * n_k + j] for li in range(MOE_LAYERS)]
+                   for j, k in enumerate(MOE_GRAD_KEYS)}
+    del dense["grads"]
+    for p in dense_params:
+        p.requires_grad_(False)
+    dense["truth_gaps"] = moe_grad_gaps(dense_grads, truth)
+    # (b) and (d): ep = 2 over two shards of the one card
+    mesh = make_mesh({"ep": 2}, devices=[torch.device("cuda", 0)] * 2)
+    t = time.perf_counter()
+    placed = expert.place_moe_params(model, mesh)
+    torch.cuda.synchronize()
+    out["place_s"] = time.perf_counter() - t
+    ep_fwd = expert.make_moe_forward(ample, mesh)
+    with torch.no_grad():
+        ep_fwd(placed, inputs)
+        (ep_logits, ep_aux), counts, ms = counted(torch, flash, lambda: ep_fwd(placed, inputs))
+    gap = float((ep_logits - logits).abs().max() / logits.abs().max())
+    out["ep_forward"] = {"ms": ms, "launches": counts, "logit_gap": gap,
+                         "load_balance": float(ep_aux["load_balance"])}
+    print(f"moe (b) ep=2 forward (2 shards of B=1 S={MOE_SEQ - 1}, capacity factor 4): "
+          f"{ms:.1f} ms, launches {counts}, logits max |diff| / max |logit| against (a) "
+          f"{gap:.3e} (tol {MOE_LOGIT_GAP}), dense argmax equal "
+          f"{float((ep_logits.argmax(-1) == logits.argmax(-1)).float().mean()):.4f}", flush=True)
+    check(bool(torch.isfinite(ep_logits).all()), "moe (b): non-finite logits")
+    check(counts == [2 * MOE_LAYERS, 0, 0, 2 * MOE_LAYERS, 0, 0],
+          f"moe (b): launches {counts}, want one sm90 forward a shard a layer")
+    check(gap <= MOE_LOGIT_GAP, "moe (b): the ep logits part from the dense ones")
+    del ep_logits, logits
+    stats: dict = {}
+    with torch.no_grad():
+        (tight_logits, _), counts, ms = counted(torch, flash, lambda: expert.make_moe_forward(
+            tight, mesh, stats=stats)(placed, inputs))
+    out["overflow"] = {"ms": ms, "launches": counts, **stats,
+                       "capacity": expert._capacity(MOE_SEQ - 1, tight)}
+    print(f"moe (d) capacity factor 0.25 (C = {out['overflow']['capacity']} a shard): "
+          f"{stats['dropped']} of {stats['assignments']} expert assignments dropped, their "
+          f"tokens on the residual stream; logits finite "
+          f"{bool(torch.isfinite(tight_logits).all())}; {ms:.1f} ms", flush=True)
+    check(bool(torch.isfinite(tight_logits).all()), "moe (d): non-finite logits")
+    check(stats["dropped"] > 0, "moe (d): nothing dropped at capacity factor 0.25")
+    check(counts[3] == 2 * MOE_LAYERS and counts[0] == counts[3], f"moe (d): launches {counts}")
+    del tight_logits
+    # (c) the ep loss and gradients (remat: the forward's launches doubled)
+    ep_params = [b for li in range(MOE_LAYERS) for k in MOE_GRAD_KEYS
+                 for b in placed.blocks(k, li)]
+    for p in ep_params:
+        p.requires_grad_(True)
+    ep_loss = expert.make_moe_loss(no_aux, mesh, remat=True)
+    ep = loss_and_grads(torch, flash, lambda: ep_loss(placed, tokens), ep_params)
+    for p, g in zip(ep_params, ep.pop("grads")):
+        p.grad = g
+    ep_blocks = {k: [placed.blocks(k, li) for li in range(MOE_LAYERS)] for k in MOE_GRAD_KEYS}
+    ep["gaps"] = moe_grad_gaps(ep_blocks, dense_grads)
+    ep["truth_gaps"] = moe_grad_gaps(ep_blocks, truth)
+    ep["loss_gap"] = abs(ep["loss"] - dense["loss"]) / abs(dense["loss"])
+    out["loss"] = {"dense": {k: v for k, v in dense.items()}, "ep": ep,
+                   "f32": float(truth_loss)}
+    print(f"moe (c) loss aux_weight 0: dense {dense['loss']:.6f} ({dense['ms']:.1f} ms a loss and "
+          f"its gradients, launches {dense['launches']}), ep=2 {ep['loss']:.6f} ({ep['ms']:.1f} ms, "
+          f"launches {ep['launches']}), f32 copy {float(truth_loss):.6f}; loss gap "
+          f"{ep['loss_gap']:.3e} (tol {MOE_LOSS_RTOL}); worst gradient gaps ep to dense "
+          f"{json.dumps(ep['gaps'])} (tol {MOE_GRAD_GAP}); to the f32 copy: ep "
+          f"{json.dumps(ep['truth_gaps'])}, dense {json.dumps(dense['truth_gaps'])}", flush=True)
+    check(dense["launches"] == [MOE_LAYERS] * 6,
+          f"moe (c): the dense loss and gradients launched {dense['launches']}")
+    check(ep["launches"] == [4 * MOE_LAYERS, 2 * MOE_LAYERS, 2 * MOE_LAYERS] * 2,
+          f"moe (c): the ep loss and gradients launched {ep['launches']}")
+    check(ep["loss_gap"] <= MOE_LOSS_RTOL, "moe (c): the ep loss parts from the dense one")
+    check(max(ep["gaps"].values()) <= MOE_GRAD_GAP, "moe (c): an ep gradient parts")
+    del placed, ep_params, ep_blocks, dense_grads, truth, dense_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (e) int8: attention and lm_head packed, the experts dense
+    q = quantize_params(model, "int8")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    experts_dense = all(isinstance(getattr(layer, k), torch.nn.Parameter)
+                        for layer in q.layers for k in moe.EXPERT_KEYS)
+    attn_packed = all(isinstance(getattr(layer, k), Pack)
+                      for layer in q.layers for k in ("wq", "wk", "wv", "wo"))
+    with torch.no_grad():
+        (q_logits, _), counts, ms = counted(torch, flash, lambda: moe.moe_forward(q, inputs))
+    out["int8"] = {"weight_gb": q.weight_bytes() / 1e9, "ms": ms, "launches": counts,
+                   "finite": bool(torch.isfinite(q_logits).all())}
+    print(f"moe (e) int8: experts dense {experts_dense}, attention packed {attn_packed}, lm_head "
+          f"packed {isinstance(q.lm_head, Pack)}; weight bytes {out['int8']['weight_gb']:.3f} GB "
+          f"(bf16 {out['weight_gb']:.3f} GB); forward {ms:.1f} ms, launches {counts}, finite "
+          f"{out['int8']['finite']}", flush=True)
+    check(experts_dense and attn_packed and isinstance(q.lm_head, Pack),
+          "moe (e): int8 must pack attention and lm_head and keep the experts dense")
+    check(out["int8"]["finite"], "moe (e): non-finite int8 logits")
+    check(counts == [MOE_LAYERS, 0, 0, MOE_LAYERS, 0, 0], f"moe (e): launches {counts}")
+    del q, q_logits
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    # each kernel's launches at the ep shards' shape (B=1 S=2048, phase 9's)
+    # and at the dense model's (B=2 S=2048)
+    out["launches"] = {
+        "shard": [out["ep_forward"]["launches"][3] + out["overflow"]["launches"][3]
+                  + ep["launches"][3], ep["launches"][4], ep["launches"][5]],
+        "dense": [out["dense_forward"]["launches"][3] + dense["launches"][3]
+                  + out["int8"]["launches"][3], dense["launches"][4], dense["launches"][5]]}
+    return out
+
+
+def moe_kernels(torch, flash, gen) -> dict:
+    """The forward, dQ and dK/dV at the dense MoE model's attention (B=2
+    S=2048 Hq=32 Hkv=8 D=128 bf16 causal) against their plain versions,
+    with device time, bound, plain and SDPA (is_causal)."""
+    c = bwd_case(torch, flash, gen, 2, 2048, 2048, 32, 8, 128, torch.bfloat16, [0, 0],
+                 [2048, 2048], poison=False)
+    case = (c["q"], c["k"], c["v"], c["offs"], c["lens"])
+    _, _, e_fwd = compare(torch, flash, "MoE B=2 S=2048 forward", case)
+    e_dq, e_dkv, _, variant = compare_bwd(torch, flash, "MoE B=2 S=2048 backward", c)
+    check(variant == "sm90", f"moe: the backward at B=2 S=2048 took {variant}")
+    row = device_row(time_shape(torch, flash, "MoE B=2 S=2048 forward", case, 20,
+                                is_causal=True, device=True))
+    rows = {"fwd": {**row, "max_abs_err": e_fwd}, **bwd_device_rows(torch, flash, c)}
+    rows["dq"]["max_abs_err"], rows["dkv"]["max_abs_err"] = e_dq, e_dkv
+    print(f"moe-kernels B=2 S=2048: {json.dumps(rows)}", flush=True)
+    return rows
+
+
+def moe_multihost(torch, flash, card: str) -> dict:
+    """Phase 23 (f): ``new()`` of the tiny model on the card with
+    TPU_COORDINATOR (a free local port), TPU_NUM_PROCESSES=1 and
+    TPU_PROCESS_ID=0: the boot joins an NCCL-backed process group, one
+    request is served, a CUDA tensor's all-reduce at world size 1 returns
+    its value, and the shutdown leaves the group. Two ranks cannot share
+    the one card (NCCL refuses two ranks on one device): the CPU tests run
+    two ranks over gloo."""
+    import torch.distributed as dist
+
+    import gofr_tpu_torch
+    from gofr_tpu_torch.parallel import multihost
+
+    env = {"MODEL_NAME": "tiny", "TOKENIZER": "byte", "TORCH_DEVICE": "cuda",
+           "LOG_LEVEL": "ERROR", "HTTP_PORT": str(free_port()), "TIMEBASE_ENABLED": "off",
+           "TPU_COORDINATOR": f"127.0.0.1:{free_port()}", "TPU_NUM_PROCESSES": "1",
+           "TPU_PROCESS_ID": "0"}
+    out: dict = {}
+    t = time.perf_counter()
+    with environment(env):
+        app = gofr_tpu_torch.new()
+    try:
+        out["boot_s"] = time.perf_counter() - t
+        gofr_tpu_torch.register_openai_routes(app)
+        app.start()
+        dev = app.container.tpu
+        stages = [s["stage"] for s in dev.boot_timeline]
+        out["backend"] = str(dist.get_backend())
+        out["process_info"] = multihost.process_info()
+        out["psum"] = multihost.global_psum_check()
+        x = torch.full((4,), 3.0, device="cuda")
+        dist.all_reduce(x)
+        out["all_reduce"] = x.tolist()
+        before = flash.launches.value
+        status, data, _, _ = post(app.http_port, {"prompt": "multihost", "max_tokens": 8,
+                                                  "temperature": 0})
+        out["request_launches"] = flash.launches.value - before
+        out["status"] = status
+        print(f"moe (f) multihost: booted in {out['boot_s']:.1f}s through "
+              f"{[s for s in stages if 'multi-host' in s]}, backend {out['backend']}, "
+              f"process_info {out['process_info']}, global_psum_check {out['psum']}, CUDA "
+              f"all_reduce of 3.0 at world size 1 -> {out['all_reduce'][0]}; /v1/completions "
+              f"{status}", flush=True)
+        check("joining multi-host runtime" in stages, f"multihost: no join in {stages}")
+        check(dist.is_initialized() and dist.get_world_size() == 1, "multihost: not joined")
+        check("nccl" in out["backend"], f"multihost: backend {out['backend']}, not NCCL")
+        check(out["process_info"] == {"process_id": 0, "process_count": 1, "local_devices": 1,
+                                      "global_devices": 1},
+              f"multihost: process_info {out['process_info']}")
+        check(out["psum"] is None, "multihost: global_psum_check at one process")
+        check(out["all_reduce"] == [3.0] * 4, "multihost: the all-reduce changed its value")
+        check(status == 200 and data["usage"]["completion_tokens"] >= 1,
+              f"multihost: {status} {data}")
+    finally:
+        app.shutdown()
+    out["left"] = not dist.is_initialized()
+    print(f"moe (f) multihost: after shutdown the process group is destroyed: {out['left']}",
+          flush=True)
+    check(out["left"], "multihost: the process group outlived the app")
+    return out
+
+
+def moe_multihost_phase(torch, flash, card: str, gen) -> dict:
+    """Phase 23: MoE over the ep axis (a)-(e), its kernels at the dense
+    model's shape, and the multihost runtime (f). Prints one ``moe``
+    line."""
+    t0 = time.perf_counter()
+    line = {"card": card, **moe_ep(torch, flash)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    line["kernel_rows"] = moe_kernels(torch, flash, gen)
+    line["multihost"] = moe_multihost(torch, flash, card)
+    line["phase_s"] = time.perf_counter() - t0
+    print(f"moe [{card}]: {json.dumps(line)}", flush=True)
+    return line
+
+
 def print_build(flash, built) -> None:
     """Each redesigned kernel's registers, spills and shared memory, from
     ptxas (-v) and the library (dynamic shared memory is set at launch);
@@ -6204,6 +6607,51 @@ if _trigger:
     threading.Thread(target=_fault, name="chip-smoke-fault", daemon=True).start()
 '''
 FAULT_SLEEP_S = 5.0
+# phases 19 and 20 serve llama3-8b's widths at a cut depth: the replica and
+# example processes, the CLI fine-tune and its merged checkpoint hold its
+# first CUT_LAYERS layers under the name CUT_MODEL, registered in the script
+# (``cut_depth``) and in the children (CUT_HOOK, their sitecustomize)
+CUT_LAYERS = 8
+CUT_MODEL = "llama3-8b-l8"
+CUT_HOOK = f'''
+from dataclasses import replace as _replace
+
+from gofr_tpu_torch.models import llama as _llama
+
+_llama.CONFIGS[{CUT_MODEL!r}] = _replace(_llama.LLAMA3_8B, n_layers={CUT_LAYERS})
+'''
+
+
+@contextlib.contextmanager
+def cut_depth():
+    """CUT_MODEL registered in this process for the block."""
+    from gofr_tpu_torch.models import llama
+
+    exec(CUT_HOOK, {})
+    try:
+        yield
+    finally:
+        llama.CONFIGS.pop(CUT_MODEL, None)
+
+
+def cut_checkpoint(ckpt: str, path: str) -> int:
+    """A CUT_MODEL checkpoint in the empty directory ``path`` from phase
+    12's (``write_checkpoint``: 8 layers a shard, the first shard with the
+    embedding, the final norm and lm_head): its first shard linked, an
+    index of its tensors, the generation config copied. -> its bytes."""
+    with open(os.path.join(ckpt, "model.safetensors.index.json")) as f:
+        weight_map = json.load(f)["weight_map"]
+    first = sorted(set(weight_map.values()))[0]
+    keep = {k: v for k, v in weight_map.items() if v == first}
+    check(f"model.layers.{CUT_LAYERS - 1}.mlp.down_proj.weight" in keep
+          and f"model.layers.{CUT_LAYERS}.mlp.down_proj.weight" not in keep,
+          f"fleet: {first} does not hold layers 0..{CUT_LAYERS - 1}")
+    os.symlink(os.path.join(ckpt, first), os.path.join(path, first))
+    nbytes = os.path.getsize(os.path.join(ckpt, first))
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": nbytes}, "weight_map": keep}, f)
+    shutil.copy(os.path.join(ckpt, "generation_config.json"), path)
+    return nbytes
 
 
 def get_body(address: str, path: str, timeout: float = 30.0) -> tuple:
@@ -6472,7 +6920,10 @@ def fleet(torch, flash, card: str, ckpt: str, gen) -> dict:
     print(f"fleet: a block's parts (ms, 8 MiB): {json.dumps(out['transfer_costs'])}", flush=True)
     workdir = tempfile.mkdtemp(prefix="gofr_fleet_")
     with open(os.path.join(workdir, "sitecustomize.py"), "w") as f:
-        f.write(FAULT_HOOK)
+        f.write(FAULT_HOOK + CUT_HOOK)
+    cut = os.path.join(workdir, "cut")
+    os.mkdir(cut)
+    out["checkpoint_gb"] = cut_checkpoint(ckpt, cut) / 1e9
     here = os.path.dirname(os.path.abspath(__file__))
     base_env = {k: v for k, v in os.environ.items()
                 if k not in DECLARED_KEYS and k not in UNHONORED_KEYS}
@@ -6480,7 +6931,7 @@ def fleet(torch, flash, card: str, ckpt: str, gen) -> dict:
     # frame then carries its token ids
     base_env.update({
         **{k: v for k, v in PHASE10_ENV.items() if k != "TOKENIZER"}, **FLEET_REPLICA_ENV,
-        "MODEL_PATH": ckpt,
+        "MODEL_NAME": CUT_MODEL, "MODEL_PATH": cut,
         "PYTHONPATH": os.pathsep.join([workdir, here, os.environ.get("PYTHONPATH", "")]),
         "CHIP_SMOKE_FAULT_CYCLES": str(int(cycles_per_second(torch) * FAULT_SLEEP_S)),
     })
@@ -6506,13 +6957,18 @@ def fleet(torch, flash, card: str, ckpt: str, gen) -> dict:
               f"logs: {pre.tail()} {dec.tail()}")
         out["boot_s"] = {**booted, "both": time.perf_counter() - boot_t}
         engines = {n: r.engine() for n, r in replicas.items()}
+        # a 64-token block of CUT_LAYERS layers' K and V (8 heads of 128, bf16)
+        block_bytes = CUT_LAYERS * 64 * 8 * 128 * 2 * 2
         for n, e in engines.items():
             check(e["role"] == {"pre": "prefill", "dec": "decode"}[n], f"fleet: {n} role {e['role']}")
-            check(e["kv_blocks"]["ledger"] == 256 and e["kv_blocks"]["hbm_budget_bytes"] == 2 << 30,
+            check(e["kv_blocks"]["block_bytes"] == block_bytes
+                  and e["kv_blocks"]["ledger"] == (2 << 30) // block_bytes
+                  and e["kv_blocks"]["hbm_budget_bytes"] == 2 << 30,
                   f"fleet: {n} arena {e['kv_blocks']}")
-        print(f"fleet: two replica processes ready in {out['boot_s']['both']:.1f}s "
+        print(f"fleet: two replica processes of {CUT_MODEL} ready in {out['boot_s']['both']:.1f}s "
               f"(prefill {out['boot_s']['pre']:.1f}s, decode {out['boot_s']['dec']:.1f}s); "
-              f"arena ledger 256 blocks of {engines['dec']['kv_blocks']['block_bytes']} B, "
+              f"arena ledger {(2 << 30) // block_bytes} blocks of "
+              f"{engines['dec']['kv_blocks']['block_bytes']} B, "
               f"{engines['dec']['kv_blocks']['total']} data blocks", flush=True)
         env = {**FLEET_ROUTER_ENV, "HTTP_PORT": str(free_port()),
                "FLEET_REPLICAS": f"pre={pre.address},dec={dec.address}"}
@@ -6629,7 +7085,7 @@ def fleet_pull(app, pre, dec) -> dict:
         a = dec.engine()
         check(local["status"] == 200 and local["done"], f"fleet: the local run {local['status']}")
         local_launches = _launch_delta(a, b)
-        check(local_launches["flash_fwd_sm90"] >= 32 * -(-n // 512),
+        check(local_launches["flash_fwd_sm90"] >= CUT_LAYERS * -(-n // 512),
               f"fleet: the local run did not prefill the whole prompt ({local_launches})")
         check(a["kv_transfer"]["ok"] == b["kv_transfer"]["ok"], "fleet: the local run pulled")
         row = {
@@ -7003,9 +7459,10 @@ def fleet_drain(app, reference: dict) -> dict:
 TRANSPORT_LENGTHS = (24, 150, 400)
 TRANSPORT_TOKENS = 32
 TRANSPORT_COST_LENGTH = 150  # the 1- and 8-stream legs' prompts, in bytes
-# the fine-tune: the lora_finetune example's CLI at llama3-8b, its demo
-# corpus (B=4 crops of 65 ids: the model sees S=64) and seeded init
-FINETUNE_ARGV = ("finetune", "--model=llama3-8b", "--steps=4", "--rank=8")
+# the fine-tune: the lora_finetune example's CLI at llama3-8b's widths
+# (CUT_MODEL: its first CUT_LAYERS layers), its demo corpus (B=4 crops of 65
+# ids: the model sees S=64) and seeded init
+FINETUNE_ARGV = ("finetune", f"--model={CUT_MODEL}", "--steps=4", "--rank=8")
 
 
 def _counters(flash) -> dict:
@@ -7158,7 +7615,7 @@ def _finetune(torch, flash, card: str, merged: str) -> dict:
 
     out: dict = {}
     with environment({"TORCH_DEVICE": "cuda", "LOG_LEVEL": "INFO", "TIMEBASE_ENABLED": "off",
-                      "SLO": "off"}):
+                      "SLO": "off"}), cut_depth():
         app = lora_finetune.build()
         check(app.container.tpu is None, "transports: the CLI app booted a device")
         torch.cuda.synchronize()
@@ -7254,7 +7711,10 @@ def transports(torch, flash, card: str, gen) -> dict:
     here = os.path.dirname(os.path.abspath(__file__))
     base_env = {k: v for k, v in os.environ.items()
                 if k not in DECLARED_KEYS and k not in UNHONORED_KEYS}
-    base_env["PYTHONPATH"] = os.pathsep.join([here, os.environ.get("PYTHONPATH", "")])
+    # the example processes register CUT_MODEL at start (their sitecustomize)
+    with open(os.path.join(workdir, "sitecustomize.py"), "w") as f:
+        f.write(CUT_HOOK)
+    base_env["PYTHONPATH"] = os.pathsep.join([workdir, here, os.environ.get("PYTHONPATH", "")])
     redis = MiniRedis().run()
     mysql = MiniMySQL(user="gofr", password="phase20")
     seed = new_client("127.0.0.1", redis.port)
@@ -7273,7 +7733,8 @@ def transports(torch, flash, card: str, gen) -> dict:
         # no tokenizer: the prompts are id lists, and /v1/completions then
         # answers with its ids (phase 19's id-only deployment)
         serve_env = {**base_env, **{k: v for k, v in PHASE10_ENV.items() if k != "TOKENIZER"},
-                     "MODEL_PATH": merged, "LOG_LEVEL": "ERROR", "TIMEBASE_ENABLED": "off"}
+                     "MODEL_NAME": CUT_MODEL, "MODEL_PATH": merged, "LOG_LEVEL": "ERROR",
+                     "TIMEBASE_ENABLED": "off"}
         a_env = {**serve_env, "HTTP_PORT": str(free_port()), "REDIS_HOST": "127.0.0.1",
                  "REDIS_PORT": str(redis.port), "DB_DIALECT": "mysql", "DB_HOST": "127.0.0.1",
                  "DB_PORT": str(mysql.port), "DB_USER": "gofr", "DB_PASSWORD": "phase20",
@@ -7641,6 +8102,27 @@ def mesh_train_entries(entries: list, run: dict) -> None:
                             **run["kernel_rows"][key][kind]})
 
 
+def moe_entries(entries: list, run: dict) -> None:
+    """Phase 23 in the kernels line: the ep shards' forward, dQ and dK/dV
+    launches (B=1 S=2048, phase 9's training shape) join the sm90 entries,
+    each also under ``moe_launches`` (0 elsewhere); then the three kernels
+    at the dense MoE model's shape (B=2 S=2048) with the dense legs'
+    launches and the phase's own rows (device times as ``ms``)."""
+    shard, dense = run["launches"]["shard"], run["launches"]["dense"]
+    counts = {"flash_fwd_sm90": shard[0], "flash_bwd_dq": shard[1], "flash_bwd_dkv": shard[2]}
+    for entry in entries:
+        entry["moe_launches"] = counts.get(entry["name"], 0)
+        entry["launches"] += entry["moe_launches"]
+    for kind, name, source, replaces, j in (
+            ("fwd", "flash_fwd_sm90", "gofr_tpu_torch/csrc/flash_fwd.cu", "flash.py:224", 0),
+            ("dq", "flash_bwd_dq", "gofr_tpu_torch/csrc/flash_bwd.cu", "flash.py:477", 1),
+            ("dkv", "flash_bwd_dkv", "gofr_tpu_torch/csrc/flash_bwd.cu", "flash.py:521", 2)):
+        entries.append({"name": f"{name} (MoE dense, B=2 S=2048 Hq=32 Hkv=8, phase 23)",
+                        "route": "cuda", "source": source, "replaces": f"gofr_tpu/ops/{replaces}",
+                        "launches": dense[j], "moe_launches": dense[j],
+                        **run["kernel_rows"][kind]})
+
+
 def encoder_entry(errs: dict, rows: dict, served: dict) -> dict:
     """The sm90 forward's D = 64 instance at bert-base's attention (phase
     15's path): its launches from phase 15's served requests, its numbers
@@ -7854,6 +8336,16 @@ def serve_ab(parent: str) -> int:
     return 0
 
 
+@contextlib.contextmanager
+def timed(label: str):
+    """``phase <label>: <seconds> s`` once the block ends (or fails)."""
+    t = time.perf_counter()
+    try:
+        yield
+    finally:
+        print(f"phase {label}: {time.perf_counter() - t:.1f} s", flush=True)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -7910,45 +8402,56 @@ def main(argv=None) -> int:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    errs, shapes = forward_phases(torch, flash, gen)
-    encoder_errs, encoder_rows = encoder_kernels(torch, flash, gen)
-    errs["mma"] += encoder_errs["mma"]
-    torch.cuda.empty_cache()
-    tiny = f32_path(torch, flash)
-    served, model = serve(torch, flash, card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    default = serve_default(torch, flash, card, model)
-    gc.collect()
-    torch.cuda.empty_cache()
-    sanitized = sanitized_server(torch, card, default)
-    mesh = serving_mesh(torch, flash, card, model, default, gen)
-    gc.collect()
-    torch.cuda.empty_cache()
-    openai = serve_openai(torch, flash, card, model)
-    gc.collect()
-    torch.cuda.empty_cache()
+    with timed("2-3"):
+        errs, shapes = forward_phases(torch, flash, gen)
+        encoder_errs, encoder_rows = encoder_kernels(torch, flash, gen)
+        errs["mma"] += encoder_errs["mma"]
+        torch.cuda.empty_cache()
+    with timed("4"):
+        tiny = f32_path(torch, flash)
+    with timed("5"):
+        served, model = serve(torch, flash, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+    with timed("10"):
+        default = serve_default(torch, flash, card, model)
+        gc.collect()
+        torch.cuda.empty_cache()
+    with timed("10b"):
+        sanitized = sanitized_server(torch, card, default)
+    with timed("21"):
+        mesh = serving_mesh(torch, flash, card, model, default, gen)
+        gc.collect()
+        torch.cuda.empty_cache()
+    with timed("11"):
+        openai = serve_openai(torch, flash, card, model)
+        gc.collect()
+        torch.cuda.empty_cache()
     # phase 12 writes phase 5's weights here; phase 13 drafts from them and
     # phase 19's replicas boot from them (deleted after phase 19, or at exit)
     ckpt = tempfile.mkdtemp(prefix="gofr_ckpt_")
     atexit.register(shutil.rmtree, ckpt, True)
-    deploy = deployment(torch, flash, card, model, ckpt)
-    gc.collect()
-    torch.cuda.empty_cache()
-    spec = speculation(torch, flash, card, model, ckpt, gen)
-    gc.collect()
-    torch.cuda.empty_cache()
-    loras = multi_lora(torch, flash, card, model)
-    gc.collect()
-    torch.cuda.empty_cache()
-    host_services(torch, flash, card, model)
-    gc.collect()
-    torch.cuda.empty_cache()
-    with host_pauses("phase 17") as no_request_in_flight:
+    with timed("12"):
+        deploy = deployment(torch, flash, card, model, ckpt)
+        gc.collect()
+        torch.cuda.empty_cache()
+    with timed("13"):
+        spec = speculation(torch, flash, card, model, ckpt, gen)
+        gc.collect()
+        torch.cuda.empty_cache()
+    with timed("14"):
+        loras = multi_lora(torch, flash, card, model)
+        gc.collect()
+        torch.cuda.empty_cache()
+    with timed("16"):
+        host_services(torch, flash, card, model)
+        gc.collect()
+        torch.cuda.empty_cache()
+    with timed("17"), host_pauses("phase 17") as no_request_in_flight:
         observability(torch, flash, card, model, no_request_in_flight)
     gc.collect()
     torch.cuda.empty_cache()
-    with host_pauses("phase 18"):
+    with timed("18"), host_pauses("phase 18"):
         overload_run = overload(torch, flash, card, model)
     del model
     gc.collect()
@@ -7956,26 +8459,37 @@ def main(argv=None) -> int:
     print(f"serve: shut down, memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
     pool_row = pool_decode_kernel(torch, flash, gen)
 
-    dq_errs, dkv_errs, bwd_rows, shapes["training_forward"] = backward_phases(torch, flash, gen)
-    torch.cuda.empty_cache()
-    tiny += f32_training(torch, flash)[0]
-    train = train_llama(torch, flash, card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    mesh_train = mesh_training(torch, flash, card, train, gen)
-    gc.collect()
-    torch.cuda.empty_cache()
-    encoders = encoder_serving(torch, flash, card)
-    gc.collect()
-    torch.cuda.empty_cache()
-    try:
-        fleet_run = fleet(torch, flash, card, ckpt, gen)
-    finally:
-        shutil.rmtree(ckpt, ignore_errors=True)
-    check(not os.path.exists(ckpt), "fleet: the checkpoint directory is still there")
-    gc.collect()
-    torch.cuda.empty_cache()
-    transports_run = transports(torch, flash, card, gen)
+    with timed("6-8"):
+        dq_errs, dkv_errs, bwd_rows, shapes["training_forward"] = backward_phases(torch, flash,
+                                                                                  gen)
+        torch.cuda.empty_cache()
+        tiny += f32_training(torch, flash)[0]
+    with timed("9"):
+        train = train_llama(torch, flash, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+    with timed("22"):
+        mesh_train = mesh_training(torch, flash, card, train, gen)
+        gc.collect()
+        torch.cuda.empty_cache()
+    with timed("23"):
+        moe_run = moe_multihost_phase(torch, flash, card, gen)
+        gc.collect()
+        torch.cuda.empty_cache()
+    with timed("15"):
+        encoders = encoder_serving(torch, flash, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+    with timed("19"):
+        try:
+            fleet_run = fleet(torch, flash, card, ckpt, gen)
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        check(not os.path.exists(ckpt), "fleet: the checkpoint directory is still there")
+        gc.collect()
+        torch.cuda.empty_cache()
+    with timed("20"):
+        transports_run = transports(torch, flash, card, gen)
 
     kernels = kernels_line(errs, shapes, served, train, tiny, dq_errs, dkv_errs, bwd_rows,
                            default, pool_row, openai, deploy, spec, loras, overload_run,
@@ -7983,6 +8497,7 @@ def main(argv=None) -> int:
     kernels["kernels"].insert(-2, encoder_entry(encoder_errs, encoder_rows, encoders))
     mesh_entries(kernels["kernels"], mesh)
     mesh_train_entries(kernels["kernels"], mesh_train)
+    moe_entries(kernels["kernels"], moe_run)
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)  # name, power limit as nvidia-smi gives them
     print(json.dumps({"ok": True, "device": {

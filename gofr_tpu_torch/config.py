@@ -73,6 +73,9 @@ DECLARED_KEYS: dict[str, str] = {
     "TORCH_DEVICE": "'cuda' (default) or 'cpu'",
     "TPU_MESH": "serving mesh over dp, fsdp and tp, e.g. tp=2 or tp=4,dp=4 (one process)",
     "TPU_TOPOLOGY": "TPU_MESH's alias in axis=N form (a physical grid such as 2x4 is none)",
+    "TPU_COORDINATOR": "multihost coordinator address",
+    "TPU_NUM_PROCESSES": "multihost process count",
+    "TPU_PROCESS_ID": "this host's multihost process id",
     "APP_NAME": "service name stamped on traces",
     "LOG_LEVEL": "DEBUG | INFO (default) | NOTICE | WARN | ERROR | FATAL",
     "HANDLER_THREADS": "sync handler thread-pool size (default 64)",
@@ -180,15 +183,12 @@ DECLARED_KEYS: dict[str, str] = {
     "GOFR_SANITIZE_GRAPH": "the observed lock-order graph's JSON file",
 }
 
-# The reference's keys the port does not honor yet: key -> (refuse, why,
-# with the ROADMAP item that ports it). ``refuse``: ignoring the key would
-# change the answers, the topology, a durability guarantee or the memory
-# the process takes, so a boot with it set fails; the others warn.
-_MULTIHOST = "§A2.3: the port runs one process, no multi-host runtime"
+# The reference's keys the port does not honor: key -> (refuse, why, with
+# the ROADMAP item that says so). ``refuse``: ignoring the key would change
+# the answers, the topology, a durability guarantee or the memory the
+# process takes, so a boot with it set fails; the others warn. No key
+# refuses today; the mechanism stays for the next one.
 UNHONORED_KEYS: dict[str, tuple[bool, str]] = {
-    "TPU_COORDINATOR": (True, _MULTIHOST),
-    "TPU_NUM_PROCESSES": (True, _MULTIHOST),
-    "TPU_PROCESS_ID": (True, _MULTIHOST),
     "MODEL_ATTN_IMPL": (False, "§B: every attention call runs the port's own kernels"),
     "COSTMODEL_HLO": (False, "§C: the port compiles no HLO; its cost sheets are analytic"),
 }

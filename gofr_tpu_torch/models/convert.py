@@ -6,7 +6,10 @@ accepts): for the decoder ``embed`` [V, D], ``norm_f`` [D], ``lm_head``
 for BERT (``bert_from_tree`` / ``tree_from_bert``) ``tok_embed``,
 ``pos_embed``, the final norm's ``norm_f_w`` / ``norm_f_b`` and its
 stacked ``layers``; for the MLP (``mlp_from_tree`` / ``tree_from_mlp``)
-``w1``, ``b1``, ``w2``, ``b2``. bfloat16
+``w1``, ``b1``, ``w2``, ``b2``; for the MoE decoder (``moe_from_tree``) the
+decoder's tree with each layer's ``router`` [n_layers, D, E] (f32) and
+expert stacks ``w_gate`` / ``w_up`` [n_layers, E, D, F] and ``w_down``
+[n_layers, E, F, D] in place of the dense MLP. bfloat16
 arrives as an ``ml_dtypes`` dtype; it is viewed as uint16 and then as
 ``torch.bfloat16`` (bit-exact) without importing ``ml_dtypes``. A quantized
 weight is the JAX package's pack: ``{"q", "scale"}`` (int8),
@@ -36,8 +39,9 @@ from gofr_tpu_torch.models.bert import LAYER_MATMULS as BERT_LAYER_MATMULS
 from gofr_tpu_torch.models.bert import LAYER_VECTORS as BERT_LAYER_VECTORS
 from gofr_tpu_torch.models.bert import Bert, BertConfig
 from gofr_tpu_torch.models.mlp import MLP, MLPConfig
+from gofr_tpu_torch.models.moe import MoEConfig, MoETransformer
 from gofr_tpu_torch.models.quant import Pack, pack_int4, unpack_int4
-from gofr_tpu_torch.models.transformer import _LAYER_SHAPES, Transformer, TransformerConfig
+from gofr_tpu_torch.models.transformer import Transformer, TransformerConfig
 
 
 def to_torch(arr: Any) -> torch.Tensor:
@@ -129,7 +133,7 @@ def transformer_from_tree(
 
         return apply_adapter(transformer_from_tree(tree, cfg, device), artifact)
     model = Transformer(cfg, device, tree_quant_mode(tree))
-    _fill(model, tree, ("embed", "norm_f", "lm_head"), ("attn_norm", "mlp_norm", *_LAYER_SHAPES))
+    _fill(model, tree, ("embed", "norm_f", "lm_head"), Transformer.layer_weights)
     return model
 
 
@@ -190,18 +194,29 @@ def _stack(leaves: list) -> Any:
 
 
 def tree_from_transformer(model: Transformer) -> dict:
-    """The model's weights as the JAX parameter tree: numpy arrays (packs
-    and LoRA-wrapped weights as dicts), the per-layer weights stacked
-    ``[n_layers, ...]`` under ``layers``."""
+    """The model's weights (a decoder's or an MoE decoder's) as the JAX
+    parameter tree: numpy arrays (packs and LoRA-wrapped weights as dicts),
+    the per-layer weights stacked ``[n_layers, ...]`` under ``layers``."""
     return {
         "embed": _leaf(model.embed),
         "norm_f": _leaf(model.norm_f),
         "lm_head": _leaf(model.lm_head),
         "layers": {
             name: _stack([_leaf(getattr(block, name)) for block in model.layers])
-            for name in ("attn_norm", "mlp_norm", *_LAYER_SHAPES)
+            for name in model.layer_weights
         },
     }
+
+
+@torch.no_grad()
+def moe_from_tree(tree: dict, cfg: MoEConfig,
+                  device: "torch.device | str" = "cuda") -> MoETransformer:
+    """The port's MoE decoder on ``device`` from the JAX ``init_moe`` tree,
+    one tensor at a time. A ``quantize_params`` tree gives the same packs
+    for attention and ``lm_head``, bit for bit, and dense experts."""
+    model = MoETransformer(cfg, device, tree_quant_mode(tree))
+    _fill(model, tree, ("embed", "norm_f", "lm_head"), MoETransformer.layer_weights)
+    return model
 
 
 @torch.no_grad()

@@ -137,7 +137,11 @@ class Block(nn.Module):
 class Transformer(nn.Module):
     """The decoder. Construct with ``Transformer.random(cfg, device, seed)``
     (seeded init on the device) or fill from the JAX tree with
-    ``models/convert.py``."""
+    ``models/convert.py``. A subclass swaps the layer (``block_class``) and
+    names its weights (``layer_weights``): ``models/moe.py``'s experts."""
+
+    block_class: Callable = Block
+    layer_weights: tuple = ("attn_norm", "mlp_norm", *_LAYER_SHAPES)
 
     def __init__(self, cfg: TransformerConfig, device: "torch.device | str" = "cuda",
                  quant: Any = None):
@@ -154,7 +158,8 @@ class Transformer(nn.Module):
             torch.ones(cfg.dim, dtype=cfg.dtype, device=device), requires_grad=False
         )
         self.lm_head = _weight(cfg, device, self.quant, "lm_head", (cfg.dim, cfg.vocab_size))
-        self.layers = nn.ModuleList(Block(cfg, device, self.quant) for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(
+            self.block_class(cfg, device, self.quant) for _ in range(cfg.n_layers))
         freqs = cached_freqs(cfg.head_dim, cfg.max_seq, cfg.rope_theta)
         self.register_buffer("freqs", torch.from_numpy(freqs).to(device), persistent=False)
 
@@ -169,7 +174,7 @@ class Transformer(nn.Module):
         for name in ("embed", "norm_f", "lm_head"):
             yield name, self
         for layer in self.layers:
-            for name in ("attn_norm", "mlp_norm", *_LAYER_SHAPES):
+            for name in self.layer_weights:
                 yield name, layer
 
     def weight_bytes(self) -> int:
@@ -206,14 +211,20 @@ class Transformer(nn.Module):
             if name in ("norm_f", "attn_norm", "mlp_norm"):
                 continue
             target = getattr(owner, name)
+            # fan-in: the input axis of an [..., in, out] weight
             if isinstance(target, Pack):
                 dense = torch.empty(target.dense_shape, dtype=cfg.dtype, device=model.device)
-                _fill_trunc_normal(dense, cfg.dim if name == "embed" else dense.shape[0], gen)
+                _fill_trunc_normal(dense, cfg.dim if name == "embed" else dense.shape[-2], gen)
                 model.set_weight(owner, name, dense)
                 del dense
             else:
-                _fill_trunc_normal(target, cfg.dim if name == "embed" else target.shape[0], gen)
+                _fill_trunc_normal(target, cfg.dim if name == "embed" else target.shape[-2], gen)
         return model
+
+    def _like(self, cfg: TransformerConfig, quant: Any = None) -> "Transformer":
+        """An empty model of this kind on this device (``quantized`` and
+        ``dequantized`` fill it)."""
+        return Transformer(cfg, self.device, quant)
 
     def with_weights(self, wrap: Callable[[str, Optional[int], Any], Any]) -> "Transformer":
         """A model that shares every tensor of this one (the same Parameter
@@ -244,7 +255,7 @@ class Transformer(nn.Module):
         weights (embeddings and norms copied), built one weight at a time."""
         if self.quant is not None:
             raise ValueError(f"the model is already quantized ({self.quant})")
-        out = Transformer(self.cfg, self.device, mode)
+        out = self._like(self.cfg, mode)
         for (name, owner), (_, src) in zip(out.named_weights(), self.named_weights()):
             out.set_weight(owner, name, getattr(src, name))
         return out
@@ -254,11 +265,13 @@ class Transformer(nn.Module):
         """A new dense model (``dtype``, default the config's) with this
         model's packs dequantized, one weight at a time."""
         cfg = self.cfg if dtype is None else dataclasses.replace(self.cfg, dtype=dtype)
-        out = Transformer(cfg, self.device)
+        out = self._like(cfg)
         for (name, owner), (_, src) in zip(out.named_weights(), self.named_weights()):
             w = getattr(src, name)
-            dense = dequantize_pack(w.pack, cfg.dtype) if isinstance(w, Pack) else w
-            out.set_weight(owner, name, dense.to(cfg.dtype))
+            # a dense weight converts in the copy, to its own dtype in ``out``
+            # (an MoE router stays f32)
+            out.set_weight(owner, name, dequantize_pack(w.pack, cfg.dtype)
+                           if isinstance(w, Pack) else w)
         return out
 
     # -- one decoder block ---------------------------------------------------
@@ -333,12 +346,20 @@ class Transformer(nn.Module):
         starts: Optional[torch.Tensor] = None,
         kv_lens: Optional[torch.Tensor] = None,
         attn_fn: Optional[Callable] = None,
-    ) -> torch.Tensor:
-        """One decoder layer: each half with its residual add."""
+        mlp_fn: Optional[Callable] = None,
+    ) -> Any:
+        """One decoder layer: each half with its residual add. ``mlp_fn(layer,
+        h)`` replaces the SwiGLU half (the JAX ``_block``'s hook): it gets the
+        ``mlp_norm``-normed hidden state and returns ``(out, aux)``, and the
+        layer then returns ``(x, aux)``; without it, the SwiGLU half and
+        ``x`` alone."""
         cfg = self.cfg
         x = x + self._attn_half(layer, x, positions, cfg.n_heads, cfg.n_kv_heads, kv_cache,
                                 write_at, starts, kv_lens, attn_fn=attn_fn)
-        return x + self._mlp_half(layer, x)
+        if mlp_fn is None:
+            return x + self._mlp_half(layer, x)
+        y, aux = mlp_fn(layer, rms_norm(x, layer.mlp_norm, cfg.norm_eps))
+        return x + y, aux
 
     def _freqs_on(self, device: torch.device) -> torch.Tensor:
         """The RoPE table on ``device`` (a sharded model keeps one a device;
@@ -356,7 +377,8 @@ class Transformer(nn.Module):
     # -- full-sequence forward -------------------------------------------------
     def transformer_forward(self, tokens: torch.Tensor, remat: bool = False,
                             positions: Optional[torch.Tensor] = None,
-                            attn_fn: Optional[Callable] = None) -> torch.Tensor:
+                            attn_fn: Optional[Callable] = None,
+                            mlp_fn: Optional[Callable] = None) -> Any:
         """[B, S] ids -> f32 logits [B, S, V] (no cache; training and
         scoring). Differentiable when the parameters require grad.
         ``remat`` recomputes each block in the backward instead of keeping
@@ -364,17 +386,23 @@ class Transformer(nn.Module):
         the JAX trainer's ``jax.checkpoint``: only the block inputs stay.
         ``positions`` [S] are the tokens' absolute positions (default 0..S-1;
         a sequence shard passes its own), ``attn_fn(q, k, v)`` replaces the
-        causal attention of every block."""
+        causal attention of every block. With ``mlp_fn`` (``_block``'s hook)
+        it returns ``(logits, [each layer's aux])``."""
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)
         x = self._embed(tokens)
+        auxes = []
         for layer in self.layers:
             if remat:
                 x = checkpoint(self._block, layer, x, positions, use_reentrant=False,
-                               attn_fn=attn_fn)
+                               attn_fn=attn_fn, mlp_fn=mlp_fn)
             else:
-                x = self._block(layer, x, positions, attn_fn=attn_fn)
-        return self._logits(rms_norm(x, self.norm_f, self.cfg.norm_eps))
+                x = self._block(layer, x, positions, attn_fn=attn_fn, mlp_fn=mlp_fn)
+            if mlp_fn is not None:
+                x, aux = x
+                auxes.append(aux)
+        logits = self._logits(rms_norm(x, self.norm_f, self.cfg.norm_eps))
+        return logits if mlp_fn is None else (logits, auxes)
 
     forward = transformer_forward
 

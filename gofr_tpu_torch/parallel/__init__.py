@@ -8,10 +8,17 @@ devices, shards the weights (and, serving, the KV and the pool's slots)
 over dp, fsdp and tp and runs the reduces itself (``parallel/serving.py``;
 training through ``training/trainer.py::place_train_state``, where autograd
 carries the gradients' collectives). ``ring.py`` and ``ulysses.py`` split
-the sequence over sp, ``pipeline.py`` the layers over pp. Expert
-parallelism and the multihost runtime wait for their slice (ROADMAP §A2).
+the sequence over sp, ``pipeline.py`` the layers over pp, ``expert.py``
+the MoE experts over ep. ``multihost.py`` joins the process group of a
+multi-host deployment (``torch.distributed``).
 """
 
+from gofr_tpu_torch.parallel.expert import (
+    make_moe_forward,
+    make_moe_loss,
+    moe_param_specs,
+    place_moe_params,
+)
 from gofr_tpu_torch.parallel.mesh import (
     AXES,
     Mesh,
@@ -49,4 +56,5 @@ __all__ = [
     "ulysses_attention", "make_ulysses_forward", "make_ulysses_loss",
     "make_pipeline_forward", "make_pipeline_loss", "place_pipeline_params",
     "pipeline_param_specs",
+    "make_moe_forward", "make_moe_loss", "moe_param_specs", "place_moe_params",
 ]

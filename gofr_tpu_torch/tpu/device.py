@@ -115,6 +115,7 @@ from gofr_tpu_torch.models.mlp import MLP, MLPConfig, init_mlp, mlp_forward
 from gofr_tpu_torch.models.quant import quantizer_for
 from gofr_tpu_torch.models.transformer import TOP_LOGPROBS, Transformer
 from gofr_tpu_torch.parallel import mesh as mesh_mod
+from gofr_tpu_torch.parallel import multihost
 from gofr_tpu_torch.parallel.mesh import mesh_axes as axes_of
 from gofr_tpu_torch.parallel.serving import ShardedTransformer
 from gofr_tpu_torch.ops.sampling import (
@@ -638,6 +639,9 @@ class TPUDevice:
         _parse_mesh_request(self._mesh_request)
         self.mesh: Optional[mesh_mod.Mesh] = None
         self.mesh_axes: Optional[dict[str, int]] = None
+        # TPU_COORDINATOR: the probe joins the process group; close leaves it
+        self._multihost = config if config.get("TPU_COORDINATOR") else None
+        self._joined = False
         # named adapter artifacts served over the one base (runtime loads
         # and unloads keep this spec in step), and the lock that serializes
         # adapter admin with the pool's bank rebuild
@@ -868,6 +872,14 @@ class TPUDevice:
         WATCHDOG_DISPATCH_TIMEOUT_S set, the watchdog armed at
         ``WATCHDOG_AUTO_TIMEOUT_S``."""
         echo = self.model_name == "echo"
+        if not echo and self._multihost is not None:
+            # a multi-host deployment joins its process group first (every
+            # rank blocks here until its peers arrive), as the JAX package
+            # joins jax.distributed before its device probe
+            self._boot_progress("joining multi-host runtime")
+            if multihost.init_from_config(self._multihost, self.logger):
+                self._joined = True
+                self.logger.infof("multi-host runtime joined: %s", multihost.process_info())
         self._boot_progress(
             "echo: no device to probe" if echo
             else f"probing the device (TORCH_DEVICE={self._device_name})"
@@ -2197,7 +2209,8 @@ class TPUDevice:
         """Stop the recovery supervisor, the watchdog, the pool (its worker
         joined; a stream still decoding gets an error, never a truncated
         result, and its journal entry stays interrupted), the batcher, the
-        runner and the journal's WAL. A background boot still running tears
+        runner, the journal's WAL and the process group the boot joined
+        (``TPU_COORDINATOR``). A background boot still running tears
         its stack down when it ends."""
         self._closed = True
         self.recovery.close()
@@ -2207,6 +2220,9 @@ class TPUDevice:
             self.engine.transition("closed")
         if self.journal_wal is not None:
             self.journal_wal.close()
+        if self._joined:  # the process group this device's boot joined
+            multihost.shutdown()
+            self._joined = False
 
 
 def _kernel_launches() -> dict:

@@ -29,8 +29,9 @@ from gofr_tpu_torch.container import Container
 from gofr_tpu_torch.logging import Level, Logger
 
 # at least these refuse (ignoring them changes the topology, a durability
-# guarantee or the memory the process takes)
-MUST_REFUSE = {"TPU_COORDINATOR", "TPU_NUM_PROCESSES", "TPU_PROCESS_ID"}
+# guarantee or the memory the process takes): none since the multihost keys
+# are honored
+MUST_REFUSE: set = set()
 
 # the keys the overload and failure layer honors: deadlines, priorities and
 # brownout, the timebase and postmortems, the SLO engine, recovery, and the
@@ -91,11 +92,12 @@ def test_the_port_partitions_the_jax_keys():
     assert {"APP_NAME", "LOG_LEVEL", "HANDLER_THREADS", "TPU_ENABLED", "TPU_BOOT",
             "ECHO_STEP_MS", "SPEC_FAKE_ACCEPT", "METRICS_MAX_SERIES", "METRICS_EXEMPLARS",
             "TRACER_HOST", "TRACER_PORT"} <= port_declared
-    # the 11 the rest of GoFr honors, the 9 of its tooling and the serving
-    # mesh's 2: 154 of the JAX package's 159
+    # the 11 the rest of GoFr honors, the 9 of its tooling, the serving
+    # mesh's 2 and the multihost runtime's 3: 157 of the JAX package's 159
     assert set(GOFR_KEYS) | set(TOOLING_KEYS) | {"TPU_MESH", "TPU_TOPOLOGY"} <= port_declared
-    assert (len(port_declared), len(UNHONORED_KEYS), len(JAX_KEYS)) == (154, 5, 159)
-    # what is left: the multihost keys, and two the port replaces
+    assert {"TPU_COORDINATOR", "TPU_NUM_PROCESSES", "TPU_PROCESS_ID"} <= port_declared
+    assert (len(port_declared), len(UNHONORED_KEYS), len(JAX_KEYS)) == (157, 2, 159)
+    # what is left: two keys the port replaces
     assert set(UNHONORED_KEYS) == MUST_REFUSE | {"MODEL_ATTN_IMPL", "COSTMODEL_HLO"}
 
 
@@ -160,10 +162,15 @@ def test_a_set_unhonored_key_refuses_or_warns(key, clean_env, tmp_path):
         ]
 
 
+# a refusing entry, for the mechanism's tests: no key of the reference
+# refuses the boot today
+REFUSING = (True, "§A: a key whose absence would change the answers")
+
+
 def test_the_env_file_counts_and_each_key_warns_once(clean_env, tmp_path):
     (tmp_path / ".env").write_text("MODEL_ATTN_IMPL=xla\nCOSTMODEL_HLO=a\n")
     clean_env.setenv("COSTMODEL_HLO", "b")  # in both: one warning
-    clean_env.setenv("TPU_COORDINATOR", "")  # empty is unset
+    clean_env.setenv("MODEL_ATTN_IMPL", "")  # empty is unset: the file's counts
     out = io.StringIO()
     saved, sys.stdout = sys.stdout, out
     try:
@@ -172,22 +179,25 @@ def test_the_env_file_counts_and_each_key_warns_once(clean_env, tmp_path):
         sys.stdout = saved
     assert [w.split()[0] for w in _warnings(out.getvalue())] == ["MODEL_ATTN_IMPL",
                                                                 "COSTMODEL_HLO"]
-    (tmp_path / ".env").write_text("TPU_NUM_PROCESSES=2\n")
-    with pytest.raises(ValueError, match="TPU_NUM_PROCESSES"):
+    clean_env.setitem(UNHONORED_KEYS, "COSTMODEL_HLO", REFUSING)
+    (tmp_path / ".env").write_text("COSTMODEL_HLO=2\n")
+    clean_env.delenv("COSTMODEL_HLO")
+    with pytest.raises(ValueError, match="COSTMODEL_HLO"):
         gofr_tpu_torch.new(str(tmp_path))
 
 
 def test_a_refused_key_stops_the_app_before_the_device(clean_env, tmp_path):
+    clean_env.setitem(UNHONORED_KEYS, "MODEL_ATTN_IMPL", REFUSING)
     clean_env.setenv("MODEL_NAME", "tiny")
     clean_env.setenv("TORCH_DEVICE", "cpu")
-    clean_env.setenv("TPU_COORDINATOR", "localhost:1234")
-    with pytest.raises(ValueError, match="TPU_COORDINATOR"):
+    clean_env.setenv("MODEL_ATTN_IMPL", "xla")
+    with pytest.raises(ValueError, match="MODEL_ATTN_IMPL"):
         gofr_tpu_torch.new(str(tmp_path))
 
 
 def test_undeclared_keys_still_raise(tmp_path):
     with pytest.raises(KeyError):
-        EnvFileConfig(str(tmp_path)).get("TPU_COORDINATOR")
+        EnvFileConfig(str(tmp_path)).get("MODEL_ATTN_IMPL")
 
 
 def test_parse_env_file_matches_jax(tmp_path):

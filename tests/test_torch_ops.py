@@ -248,6 +248,9 @@ def _imported_roots(path: Path) -> set:
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "gofr_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
+    scanned = {p.relative_to(REPO).as_posix() for p in files}
+    assert {"gofr_tpu_torch/models/moe.py", "gofr_tpu_torch/parallel/expert.py",
+            "gofr_tpu_torch/parallel/multihost.py"} <= scanned
     for path in files:
         for mod in _imported_roots(path):
             top = mod.split(".")[0]

@@ -9,9 +9,9 @@
   JAX package's.
 - The verify skill's echo recipe, through the shim, on both packages: the
   same completion.
-- ``comm -23`` of the two packages' modules leaves only MoE
+- ``comm -23`` of the two packages' modules is empty: MoE
   (``models/moe.py``, ``parallel/expert.py``) and multihost
-  (``parallel/multihost.py``).
+  (``parallel/multihost.py``) were the last.
 """
 
 import json
@@ -83,8 +83,9 @@ def test_top_level_covers_the_jax_package():
 
 
 def test_only_moe_and_parallel_are_left_to_port():
-    """MoE (``models/moe.py``, ``parallel/expert.py``) and multihost
-    (``parallel/multihost.py``): the last slice."""
+    """Nothing is left: every module of the JAX package has its port, MoE
+    (``models/moe.py``, ``parallel/expert.py``) and multihost
+    (``parallel/multihost.py``) the last."""
 
     def modules(pkg: str) -> set:
         root = REPO / pkg
@@ -92,7 +93,7 @@ def test_only_moe_and_parallel_are_left_to_port():
                 if "__pycache__" not in p.parts}
 
     left = modules("gofr_tpu") - modules("gofr_tpu_torch")
-    assert left == {"models/moe.py", "parallel/expert.py", "parallel/multihost.py"}
+    assert left == set()
 
 
 def _free_port() -> int:
