@@ -146,9 +146,15 @@ Phases, each fatal on failure (no phase is skipped or caught):
    ids) by a writer in this script, a device booted through ``MODEL_PATH``
    with ``MODEL_QUANT=int8`` (load seconds and GB/s): every tensor equal
    to the int8 packs, the same greedy ids, both EOS ids default stops; the
-   directory kept for phase 13, then deleted. The phase's launch counts
+   directory kept for phases 13, 18 and 19, then deleted. The phase's launch counts
    are those of its served requests alone (the deltas around each), each
-   pool dispatch checked at n_layers x DECODE_CHUNK decode launches;
+   pool dispatch checked at n_layers x DECODE_CHUNK decode launches. Every
+   leg's app, before it shuts down, holds its healthy traffic to zero
+   cost-model anomalies (``healthy_costs``: its serving path, e.g. ``int8``
+   or ``int8+f8kv``, judged on its fitted row in ``tpu/cost_profile.json``,
+   a path with no fitted row predicted and not judged), as every leg of
+   phases 13, 14 and 21 does; after phase 14 the run prints each path's
+   row fitted from these legs' records (``print_cost_fits``);
 13. speculation (run right after phase 12, on its model, phase 12's
    checkpoint kept for it): the forward at the verify shapes against its
    plain version (the pool's [8, w] verify at w = 2, 4, 5, 8 over a
@@ -243,7 +249,12 @@ Phases, each fatal on failure (no phase is skipped or caught):
    echo runner (no card) under ``SPEC_POOLED=on
    SPEC_FAKE_ACCEPT=3,1,0,2``: 40 ids the prompt's cycle, drafts accepted
    and rejected; ``/favicon.ico`` (1,150 bytes) and ``/.well-known/ready``;
-   ``TPU_MESH`` set stops the boot with its name;
+   ``TPU_MESH`` set stops the boot with its name; the tiny model on the
+   card under ``TPU_BOOT=background`` with its build made to fail once:
+   readiness 503 ``failed``, then ``health_check()`` rebuilds it (UP,
+   ``reinitialized``, its seconds), readiness 200 and a completion served
+   through the kernel; a ``ValueError`` boot stays DOWN and is never
+   rebuilt;
 17. observability (run right after phase 16, on its model, under 90 s), in
    phase 10's configuration with the watchdog armed by itself (120 s on
    cuda): 1 stream of 32 greedy tokens, then 8 streams in one bucket under
@@ -270,7 +281,11 @@ Phases, each fatal on failure (no phase is skipped or caught):
    ``/admin/anomalies`` shows the ``slow_dispatch``. The profiler's stop
    (its export) and the trace's reading (then one collection) run with no
    request in flight, and ``host phase 17`` marks each long collection
-   inside or outside those windows;
+   inside or outside those windows. One more request through an in-memory
+   span exporter: ``tpu-batch`` descends from the HTTP server span through
+   ``tpu-llama3-8b-generate``, its ``tpu.device_time_us`` above 0 and not
+   below its dispatch's duration less 10 %, ``tpu.tokens_out`` the
+   completion's;
 18. overload and failure (run right after phase 17, on its model, ~90 s), in
    phase 10's configuration with ``JOURNAL=on`` on a WAL (``JOURNAL_DIR``,
    a temporary directory), ``RECOVERY_ENABLED=on``, ``SLO_TARGETS`` and
@@ -303,7 +318,14 @@ Phases, each fatal on failure (no phase is skipped or caught):
    then 16 requests at priorities 2 and 8: every priority 2 shed with 429
    and ``Retry-After``, every priority 8 served, the level on the gauge and
    ``/admin/engine``, back to 0 after; (7) TPOT at 8 streams with the
-   journal off, in memory and on disk, in turns on one app;
+   journal off, in memory and on disk, in turns on one app. After (4)'s
+   recovery ``health_check()`` probes the card (a round trip on its own
+   stream: its ms); (8) an app booted from phase 12's checkpoint
+   (``MODEL_PATH``) serves 4 greedy prompts one at a time (the probe's ms
+   under that load), then ``reinit()`` loads the weights again, the old
+   ones freed first: its seconds, the peak memory across it (under the
+   memory before it plus half a model), the engine's states, the same ids
+   and health UP;
 15. the encoder and MLP families (run last, after phase 9): ``new()`` with
    MODEL_NAME=bert-base (bf16, full width and depth, MODEL_SEED=0, the byte
    tokenizer): its weight bytes on the card equal to ``bert_param_count``
@@ -400,7 +422,8 @@ Phases, each fatal on failure (no phase is skipped or caught):
    2 x n_layers x DECODE_CHUNK decode launches a pool chunk, no mma,
    ``/admin/engine``'s ``mesh`` and the pool's ``mesh_axes``, the
    ``gofr_tpu_mesh_axis_size`` gauge, no ``gofr_tpu_mesh_degrade_total``,
-   every flight record's ``mesh_axes``; TPOT and tokens/s beside phase
+   every flight record's ``mesh_axes``, zero cost-model anomalies on its
+   ``bf16/tp2`` path (phase 12's ``healthy_costs``); TPOT and tokens/s beside phase
    10's (two shards sharing one card's host-bound path, not a two-GPU
    mesh's speed); (c) with the real enumeration the boot fails "needs 2
    devices, have 1" and the device ends ``failed``. One ``mesh`` line.
@@ -1934,7 +1957,7 @@ def mesh_served(torch, flash, card: str, model, default: dict, tp: int = 2,
         check(flights and len(stamped) == len(flights), "mesh (b): a flight record lacks mesh_axes")
     finally:
         if app is not None:
-            app.shutdown()
+            close_leg(app, f"mesh (b) tp={tp}")
         os.environ.pop("TPU_MESH", None)
     check(not pool._thread.is_alive(), "mesh (b): the pool's worker outlived app.shutdown()")
     return {"tp": tp, "gib_allocated": held, "boot_s": boot_s,
@@ -2442,6 +2465,104 @@ def boot_deployment(model, env: dict):
     return app
 
 
+# the joined dispatch records (costcal.join_records) of every healthy leg
+# of phases 12-14 and 21 at full width, for the run's per-path fit
+# (print_cost_fits): the rows tpu/cost_profile.json commits under the
+# card's ``paths``
+COST_RECORDS: list = []
+
+
+def healthy_costs(dev, label: str) -> dict:
+    """A healthy leg's cost model, read before its app shuts down: its
+    serving path, each path's dispatches (judged: the path has a fitted row
+    in tpu/cost_profile.json, and those contending work shared are judged
+    against their prediction plus the contenders'; unfitted: predicted,
+    never judged), the anomalies with each one's path, prediction and
+    observation, and its joined records kept for the run's fit (the tiny
+    model's stay out: its host-bound rates would price a full-width
+    deployment on the same path). Fails on any anomaly, and on a dispatch
+    of a fitted path that went unjudged."""
+    from gofr_tpu_torch.tpu.costcal import join_records
+
+    costmodel = dev.costmodel
+    snap = costmodel.snapshot()
+    records = dev.timeline.records(limit=1 << 20)
+    if dev.model_name != "tiny":
+        COST_RECORDS.extend(join_records(records, snap["sheets"]))
+    by_path: dict = {}
+    unjudged = []
+    largest = {"alone": 0.0, "shared": 0.0}  # the largest residual ratio of each
+    for r in records:
+        if r.get("cost_path") is not None and r["status"] == "ok":
+            verdict = ("unfitted" if not r["cost_judged"] else
+                       "judged shared" if r["cost_shared_ms"] else "judged")
+            key = f"{r['cost_path']} {verdict}"
+            by_path[key] = by_path.get(key, 0) + 1
+            if r["cost_judged"] and r["residual_ratio"] is None:
+                unjudged.append(r["dispatch_id"])
+            elif r["cost_judged"]:
+                side = "shared" if r["cost_shared_ms"] else "alone"
+                largest[side] = max(largest[side], r["residual_ratio"])
+    # the ring is shared with the SLO engine's burn alerts (as in the JAX
+    # package): the cost model's verdicts are the dispatch causes
+    ring = costmodel.ring.events(limit=costmodel.ring.capacity)
+    events = [e for e in ring if e["cause"] in ("slow_dispatch", "ema_drift")]
+    others = sorted({e["cause"] for e in ring} - {"slow_dispatch", "ema_drift"})
+    print(f"cost [{label}]: path {snap['path']}, dispatches {by_path}, unfitted "
+          f"{snap['unfitted']}, anomalies {len(events)}, largest ratio alone "
+          f"{largest['alone']:.3f}, shared {largest['shared']:.3f}; other ring events "
+          f"{len(ring) - len(events)} {others}", flush=True)
+    for e in events:
+        print(f"cost [{label}]: anomaly {e['cause']} {e['kind']}/{e['bucket']} batch "
+              f"{e['batch_size']} path {e.get('path')}: {e['observed_ms']} ms against "
+              f"{e['predicted_ms']} predicted ({e.get('shared_ms')} of it contending work; "
+              f"x{e['residual_ratio']}, EMA {e['ema']})", flush=True)
+    check(not unjudged, f"{label}: dispatches {unjudged} of a fitted path went unjudged")
+    check(not events, f"{label}: healthy traffic raised {len(events)} cost-model anomalies")
+    return {"path": snap["path"], "dispatches": by_path, "anomalies": len(events)}
+
+
+def close_leg(app, label: str) -> None:
+    """Shut a leg's app down; when the leg ended cleanly, first hold its
+    healthy traffic to zero anomalies (``healthy_costs``)."""
+    try:
+        if sys.exc_info()[0] is None:
+            healthy_costs(app.container.tpu, label)
+    finally:
+        app.shutdown()
+
+
+def print_cost_fits(card: str) -> dict:
+    """The per-path fit (``costcal.fit_paths``) of every healthy leg's
+    records this run (``COST_RECORDS``), each row with its residual ratios
+    by family (min / median / max): the rows tpu/cost_profile.json commits
+    under the card's ``paths`` (bf16 keeps phase 17's)."""
+    import numpy as np
+
+    from gofr_tpu_torch.tpu.costcal import fit_paths
+
+    rows = fit_paths(COST_RECORDS, card.split(",")[0])
+    for path, row in rows.items():
+        ratios: dict = {}
+        for rec in COST_RECORDS:
+            if rec.get("path") != path:
+                continue
+            predicted = (max(rec["flops"] / row["eff_flops"],
+                             rec["bytes_accessed"] / row["eff_bw"]) * 1e3 + row["overhead_ms"])
+            ratios.setdefault(f"{rec['kind']}/{rec['bucket']}", []).append(
+                rec["duration_s"] * 1e3 / predicted)
+        row["source"] = (f"fit: chip_smoke.py phases 12-14 and 21 at full width, contending "
+                         f"dispatches left out, {card}")
+        print(f"cost: fitted row {path} " + json.dumps({k: row[k] for k in (
+            "eff_flops", "eff_bw", "overhead_ms", "eff_flops_source", "eff_bw_source",
+            "n_compute_bound", "n_bandwidth_bound", "source")}), flush=True)
+        print(f"cost: residual ratios of {path} on its fitted row (min/median/max) "
+              + json.dumps({f: [round(min(v), 3), round(float(np.median(v)), 3),
+                                round(max(v), 3)] for f, v in sorted(ratios.items())}),
+              flush=True)
+    return rows
+
+
 def recorded(dev) -> list:
     """Record each generation's (prompt ids, output) on ``dev``."""
     generations: list = []
@@ -2736,7 +2857,7 @@ def serve_streams(torch, flash, card: str, model, mode: str, prompts: list, gree
               f"torch.profiler: {step['launches_a_step']} kernels, "
               f"{step['device_ms_a_step']:.3f} ms of device time", flush=True)
     finally:
-        app.shutdown()
+        close_leg(app, f"deployment {label}")
     return {"tokens_per_s": rate, "tpot_ms": tpot, "ids": ids, **step}
 
 
@@ -2782,7 +2903,7 @@ def serve_f8(torch, flash, card: str, qmodel, tally: dict) -> dict:
         check(a_step == n_layers, "deployment f8: not n_layers decode launches a step")
         upcast = upcast_ms(torch, dev.runner.model)  # off the served path
     finally:
-        app.shutdown()
+        close_leg(app, "deployment f8")
     return {"tokens_per_s": rate, "tpot_ms": tpot, "cache_gb": f8_bytes / 1e9,
             "cache_gb_bf16": bf16_bytes / 1e9, "decode_launches_a_step": a_step, **upcast}
 
@@ -2898,7 +3019,7 @@ def penalties(torch, flash, card: str, model, tally: dict) -> dict:
         # launches a step of the penalized chunk against the plain chunk
         launches = penalized_launches(torch, dev.runner.model)
     finally:
-        app.shutdown()
+        close_leg(app, "penalties")
     return launches
 
 
@@ -3047,7 +3168,7 @@ def from_checkpoint(torch, flash, card: str, model, prompts: list, int8_ids: lis
         print(f"model_path: greedy ids of {len(prompts)} prompts equal (a)'s int8 model's; "
               f"default stops {sorted(dev.default_stop_ids)}", flush=True)
     finally:
-        app.shutdown()
+        close_leg(app, "model_path int8")
     return {"checkpoint_gb": nbytes / 1e9, "write_s": write_s, "load_s": load_s,
             "load_gb_per_s": nbytes / 1e9 / load_s, "free_gb": free / 1e9}
 
@@ -3350,7 +3471,7 @@ def spec_solo(torch, flash, card: str, model, ckpt: str, body: dict, out: dict,
         plain_tpot, _ = solo_streams(app.http_port, solo_prompts, body)
         plain_ids = [ids_for(dev, generations, p)[-1] for p in solo_prompts]
     finally:
-        app.shutdown()
+        close_leg(app, "spec solo plain")
     print(f"spec solo: plain solo decode TPOT {plain_tpot:.2f} ms over {len(solo_prompts)} "
           f"requests of 32 tokens", flush=True)
     out["solo"] = {"plain_tpot_ms": plain_tpot}
@@ -3400,7 +3521,7 @@ def spec_solo(torch, flash, card: str, model, ckpt: str, body: dict, out: dict,
                                               tally)
             out["solo"][label] = row
         finally:
-            app.shutdown()
+            close_leg(app, f"spec solo {label}")
             gc.collect()
             torch.cuda.empty_cache()
 
@@ -3478,7 +3599,7 @@ def spec_pooled(torch, flash, model, body: dict, out: dict, tally: dict) -> None
         answers = {tuple(dev._encode(p)): list(dev._encode(p)) + ids
                    for p, ids in zip(prompts, plain[8][2])}
     finally:
-        app.shutdown()
+        close_leg(app, "spec pooled plain")
     app = boot_deployment(model, {"SPEC_POOLED": "on", "SPEC_K_MAX": "4"})
     try:
         dev = app.container.tpu
@@ -3528,7 +3649,7 @@ def spec_pooled(torch, flash, model, body: dict, out: dict, tally: dict) -> None
               "context")
         out["by_streams"] = pooled
     finally:
-        app.shutdown()
+        close_leg(app, "spec pooled")
 
 
 def spec_tiny_f32(torch, flash) -> dict:
@@ -3575,7 +3696,7 @@ def spec_tiny_f32(torch, flash) -> dict:
                 check(st["cycles"] > 0 and st["accepted"] == st["drafted"],
                       f"tiny f32 solo spec: {st}")
         finally:
-            app.shutdown()
+            close_leg(app, f"tiny f32 {label}")
     check(ids["spec"] == ids["plain"], "tiny f32: pooled speculation's ids differ from the "
           "plain pool's")
     check(ids["solo spec"] == ids["solo"], "tiny f32: the solo draft mode's ids differ from "
@@ -3895,7 +4016,7 @@ def lora_serve(torch, flash, card: str, model, paths: dict) -> tuple:
             dev.tokenizer.encode(prompts[0])), "ids": ids, "score_ids": score_ids,
             "scored": scored["calm"]}
     finally:
-        app.shutdown()
+        close_leg(app, "lora serve")
     return out, keep
 
 
@@ -4052,7 +4173,7 @@ def lora_merged(torch, keep: dict) -> dict:
                       f"lora: calm's scoring against the merged weights' (max err {err})")
                 out["score_max_abs_err"] = err
         finally:
-            app.shutdown()
+            close_leg(app, "lora merged")
         del merged, app
         gc.collect()
         torch.cuda.empty_cache()
@@ -4124,7 +4245,8 @@ def environment(env: dict):
 def host_services(torch, flash, card: str, model) -> dict:
     """Phase 16 (after phase 14, on phase 5's model): TPU_BOOT=background
     readiness from the moment the server listens, with the kernels'
-    library unloaded first so the boot loads it; the echo runner under
+    library unloaded first so the boot loads it; a failed background boot
+    rebuilt by the health check (``failed_boot``); the echo runner under
     SPEC_POOLED with a SPEC_FAKE_ACCEPT schedule; /favicon.ico and
     /.well-known/ready; a refused key stopping the boot."""
     import gofr_tpu_torch
@@ -4196,6 +4318,8 @@ def host_services(torch, flash, card: str, model) -> dict:
         TPUDevice._boot_progress = progress
         flash.build = build
 
+    out["failed_boot"] = failed_boot(torch, flash)
+
     # the echo runner: pooled speculation on the scripted source; no card
     echo_env = {"MODEL_NAME": "echo", "TOKENIZER": "byte", "SPEC_POOLED": "on",
                 "SPEC_FAKE_ACCEPT": ECHO_SCHEDULE, "HTTP_PORT": str(free_port())}
@@ -4239,6 +4363,82 @@ def host_services(torch, flash, card: str, model) -> dict:
     out["phase_s"] = time.perf_counter() - t0
     print(f"host-metrics [{card}]: {json.dumps(out)}", flush=True)
     check(out["phase_s"] < 60, f"host: phase 16 took {out['phase_s']:.1f}s")
+    return out
+
+
+def failed_boot(torch, flash) -> dict:
+    """Phase 16 (b): the tiny model on the card with TPU_BOOT=background,
+    its build made to fail once (as gofr_tpu's
+    test_failed_background_boot_recovers makes it): readiness 503
+    ``failed``, then a health check that rebuilds (UP, ``reinitialized``)
+    and flips readiness to 200, and a completion served on the card
+    through the forward kernel. Then a ValueError boot: DOWN, and the
+    health check never rebuilds it."""
+    import gofr_tpu_torch
+    from gofr_tpu_torch.tpu.device import TPUDevice
+
+    build = TPUDevice._build_stack
+    calls = {"n": 0}
+
+    def flaky(self, *args, **kwargs):
+        calls["n"] += 1
+        if calls["n"] == 1:
+            raise RuntimeError("transient init failure (chip_smoke.py phase 16)")
+        return build(self, *args, **kwargs)
+
+    def bad_config(self, *args, **kwargs):
+        calls["n"] += 1
+        raise ValueError("a configuration error (chip_smoke.py phase 16)")
+
+    env = {"MODEL_NAME": "tiny", "TOKENIZER": "byte", "TORCH_DEVICE": "cuda",
+           "TPU_BOOT": "background"}
+    out: dict = {}
+    try:
+        TPUDevice._build_stack = flaky
+        with environment({**env, "HTTP_PORT": str(free_port())}):
+            app = gofr_tpu_torch.new()
+        gofr_tpu_torch.register_openai_routes(app)
+        app.start()
+        try:
+            port, dev = app.http_port, app.container.tpu
+            check(dev._ready.wait(120), "failed boot: the boot never ended")
+            status, _, body = get_raw(port, "/.well-known/ready")
+            check(status == 503 and json.loads(body)["state"] == "failed",
+                  f"failed boot: readiness {status} {body}")
+            t = time.perf_counter()
+            health = dev.health_check()
+            out["rebuild_s"] = time.perf_counter() - t
+            status, _, body = get_raw(port, "/.well-known/ready")
+            check(health["status"] == "UP" and health["details"].get("reinitialized") is True
+                  and status == 200, f"failed boot: health {health}, readiness {status} {body}")
+            launches = flash.launches.value
+            status, data, _, _ = post(port, {"prompt": ECHO_PROMPT, "max_tokens": 4,
+                                             "temperature": 0})
+            check(status == 200 and data["usage"]["completion_tokens"] >= 1
+                  and dev.device.type == "cuda" and flash.launches.value > launches,
+                  f"failed boot: the completion after the rebuild: {status} {data}")
+            out["after"] = dev.health_check()["details"]
+        finally:
+            app.shutdown()
+        print(f"host: a failed background boot rebuilt by the health check in "
+              f"{out['rebuild_s']:.2f}s (builds {calls['n']}), readiness 200, a completion "
+              f"served on {dev.device}; probe {out['after']['probe_ms']:.3f} ms", flush=True)
+        calls["n"] = 0
+        TPUDevice._build_stack = bad_config
+        with environment({**env, "HTTP_PORT": str(free_port())}):
+            app = gofr_tpu_torch.new()
+        try:
+            dev = app.container.tpu
+            check(dev._ready.wait(120), "failed boot: the ValueError boot never ended")
+            verdicts = [dev.health_check()["status"] for _ in range(2)]
+            check(verdicts == ["DOWN", "DOWN"] and calls["n"] == 1 and dev._boot_error_permanent,
+                  f"failed boot: a ValueError boot answered {verdicts} after {calls['n']} builds")
+        finally:
+            app.shutdown()
+        print(f"host: a ValueError boot stays DOWN, never rebuilt ({calls['n']} build)",
+              flush=True)
+    finally:
+        TPUDevice._build_stack = build
     return out
 
 
@@ -4373,6 +4573,7 @@ def observability(torch, flash, card: str, model, no_request_in_flight=contextli
         try:
             out.update(healthy_window(torch, flash, card, app, fit, join_records, np,
                                       no_request_in_flight))
+            out["spans"] = span_tree(app)
         finally:
             app.shutdown()
         out["stall"] = stalled_prefill(torch, model)
@@ -4381,6 +4582,73 @@ def observability(torch, flash, card: str, model, no_request_in_flight=contextli
     out["phase_s"] = time.perf_counter() - t0
     print(f"obs-metrics [{card}]: {json.dumps(out)}", flush=True)
     check(out["phase_s"] < 90, f"obs: phase 17 took {out['phase_s']:.1f}s")
+    return out
+
+
+class SpanList:
+    """An in-memory span exporter (``tracing.Tracer``'s)."""
+
+    def __init__(self):
+        self.spans: list = []
+
+    def export(self, span) -> None:
+        self.spans.append(span)
+
+    def shutdown(self) -> None:
+        pass
+
+
+def span_tree(app) -> dict:
+    """Phase 17's trace: one served request through an in-memory exporter.
+    ``tpu-batch`` (the prefill's dispatch) descends from the HTTP server
+    span through the device's ``tpu-<model>-generate``; its
+    ``tpu.device_time_us`` is above 0 and not below the dispatch's duration
+    in the timeline less 10 %; the generate span's ``tpu.tokens_out`` is
+    the completion's."""
+    from gofr_tpu_torch import tracing
+
+    port, dev = app.http_port, app.container.tpu
+    exporter, previous = SpanList(), tracing.get_tracer()
+    tracing.set_global_tracer(tracing.Tracer(exporter))
+    try:
+        status, data, _, _ = post(port, {"prompt": text(191, 300), "max_tokens": 8,
+                                         "temperature": 0})
+    finally:
+        tracing.set_global_tracer(previous)
+    check(status == 200, f"spans: {status} {data}")
+    servers = [x for x in exporter.spans if x.name == "POST /v1/completions"]
+    check(len(servers) == 1, f"spans: {len(servers)} server spans for one request")
+    server = servers[0]
+    trace = {x.span_id: x for x in exporter.spans if x.trace_id == server.trace_id}
+    batch = [x for x in trace.values() if x.name == "tpu-batch"]
+    generate = [x for x in trace.values() if x.name == f"tpu-{dev.model_name}-generate"]
+    check(len(batch) == 1 and len(generate) == 1,
+          f"spans: the trace holds {sorted(x.name for x in trace.values())}")
+    batch, generate = batch[0], generate[0]
+    chain, cursor = [batch.name], batch
+    while cursor.parent_id in trace:
+        cursor = trace[cursor.parent_id]
+        chain.append(cursor.name)
+    check(cursor is server and generate.name in chain,
+          f"spans: tpu-batch's chain {chain} does not reach the server span")
+    flight = [r for r in admin(port, "/admin/requests?limit=50")["requests"]
+              if r["trace_id"] == server.trace_id]
+    check(len(flight) == 1, "spans: no flight record for the traced request")
+    dispatches = {r["dispatch_id"]: r for r in
+                  admin(port, "/admin/dispatches?limit=512&kind=prefill")["dispatches"]}
+    prefill = [dispatches[i] for i in flight[0]["dispatch_ids"] if i in dispatches]
+    check(len(prefill) == 1, f"spans: the request's prefill dispatches {prefill}")
+    device_us = int(batch.tags["tpu.device_time_us"])
+    duration_us = prefill[0]["duration_s"] * 1e6
+    out = {"chain": chain, "tags": batch.tags, "duration_us": duration_us,
+           "tokens_out": generate.tags.get("tpu.tokens_out")}
+    print(f"spans: {json.dumps(out)}", flush=True)
+    check(device_us > 0 and device_us >= 0.9 * duration_us,
+          f"spans: tpu.device_time_us {device_us} against the dispatch's {duration_us:.0f} us")
+    check(batch.tags["tpu.model"] == dev.model_name and batch.tags["tpu.batch_size"] == "1",
+          f"spans: tpu-batch's tags {batch.tags}")
+    check(generate.tags.get("tpu.tokens_out") == str(data["usage"]["completion_tokens"]),
+          f"spans: tpu.tokens_out {generate.tags}")
     return out
 
 
@@ -4551,8 +4819,11 @@ def healthy_window(torch, flash, card: str, app, fit, join_records, np,
               and r["predicted_ms"] is not None]
     traced = [r for r in judged if ids_before < r["dispatch_id"] <= ids_traced]
     untraced = [r for r in judged if not ids_before < r["dispatch_id"] <= ids_traced]
+    # those that contending work shared (introspect.contends) are judged
+    # against their prediction plus the contenders'
+    shared = sum(1 for r in untraced if r.get("cost_shared_ms"))
     print(f"obs: {len(traced)} dispatches under the profiler held out of the cost model, "
-          f"{len(untraced)} judged", flush=True)
+          f"{len(untraced)} judged ({shared} priced with contending work)", flush=True)
     check(traced and all(r["residual_ratio"] is None for r in traced),
           "obs: a dispatch under the profiler was judged by the cost model")
     check(untraced and all(r["residual_ratio"] is not None for r in untraced),
@@ -4754,11 +5025,13 @@ def wait_free(dev, free, label: str) -> float:
     check(False, f"{label}: blocks not back ({dev.kv_pool.stats()}, {free} free before)")
 
 
-def overload(torch, flash, card: str, model) -> dict:
+def overload(torch, flash, card: str, model, ckpt: str) -> dict:
     """Phase 18 (after phase 17, on phase 5's model): deadlines, client
-    aborts, brownout, a wedge with its recovery and resume, a restart from
-    the WAL, the SLO engine and timebase, and the journal's cost, in phase
-    10's configuration with the journal on a WAL, recovery and SLO targets."""
+    aborts, brownout, a wedge with its recovery and resume, the device's
+    probe after it, a restart from the WAL, the SLO engine and timebase,
+    and the journal's cost, in phase 10's configuration with the journal on
+    a WAL, recovery and SLO targets; then ``reinit`` from phase 12's
+    checkpoint ``ckpt`` (``overload_reinit``)."""
     import gofr_tpu_torch
 
     t0 = time.perf_counter()
@@ -4784,6 +5057,13 @@ def overload(torch, flash, card: str, model) -> dict:
             out["deadlines"] = overload_deadlines(flash, app, calls)
             out["aborts"] = overload_aborts(app, calls)
             out["wedge"], wedged = overload_wedge(torch, flash, app, calls, cps, model)
+            # the device's probe after the wedge's recovery: a round trip on the card
+            health = dev.health_check()
+            out["health_after_recovery"] = health
+            print(f"overload: health after the recovery {health['status']}, the probe's round "
+                  f"trip {health['details'].get('probe_ms', 0):.3f} ms", flush=True)
+            check(health["status"] == "UP" and health["details"]["probe_ms"] > 0,
+                  f"overload: health after the recovery {health}")
             out["slo"] = overload_slo(app)
         finally:
             app.shutdown()
@@ -4800,6 +5080,7 @@ def overload(torch, flash, card: str, model) -> dict:
             out["journal_cost"] = overload_journal_cost(app)
         finally:
             app.shutdown()
+        out["reinit"] = overload_reinit(torch, ckpt)
     finally:
         shutil.rmtree(journal_dir, ignore_errors=True)
         shutil.rmtree(pm_dir, ignore_errors=True)
@@ -4815,6 +5096,67 @@ def overload(torch, flash, card: str, model) -> dict:
     out["phase_s"] = time.perf_counter() - t0
     print(f"overload-metrics [{card}]: {json.dumps(out)}", flush=True)
     check(out["phase_s"] < 180, f"overload: phase 18 took {out['phase_s']:.1f}s")
+    return out
+
+
+def overload_reinit(torch, ckpt: str) -> dict:
+    """(8) The rebuild on device loss, from MODEL_PATH: an app in phase 10's
+    configuration booted from phase 12's checkpoint serves 4 greedy
+    prompts one at a time (the device probed meanwhile, under load), then
+    ``reinit()`` tears the stack down and loads the weights again, the old
+    ones freed first: the same 4 prompts give the same ids, the engine
+    walks back to serving, health is UP, and the card's peak memory across
+    the rebuild stays under one more half a model's."""
+    app = boot_deployment(None, {"MODEL_PATH": ckpt})
+    try:
+        port, dev = app.http_port, app.container.tpu
+        generations = recorded(dev)
+        prompts = [text(700 + i, 100 + 90 * i) for i in range(4)]
+        greedy = {"max_tokens": DEPLOY_TOKENS, "temperature": 0}
+
+        def serve_all() -> list:
+            for p in prompts:
+                status, data, _, _ = post(port, {"prompt": p, **greedy})
+                check(status == 200, f"reinit: {status} {data}")
+            return [ids_for(dev, generations, p)[-1] for p in prompts]
+
+        loaded: list = []
+        runner = threading.Thread(target=lambda: loaded.append(serve_all()))
+        runner.start()
+        time.sleep(0.5)
+        under_load = dev.health_check()
+        runner.join(timeout=600)
+        check(loaded and under_load["status"] == "UP",
+              f"reinit: the probe under load {under_load}")
+        before = loaded[0]
+        weights = dev.runner.weight_bytes
+        dev.runner.model.reinit_marker = True  # gone with the old model
+        history0 = len(dev.engine.snapshot()["history"])
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        dev.reinit()
+        reinit_s = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated()
+        states = [f"{h['state']} ({h['detail']})" if h.get("detail") else h["state"]
+                  for h in dev.engine.snapshot()["history"][history0:]]
+        check(not hasattr(dev.runner.model, "reinit_marker"), "reinit: the old model was kept")
+        after = serve_all()
+        health = dev.health_check()
+        out = {"reinit_s": reinit_s, "memory_before_gib": mem0 / 2**30,
+               "peak_gib": peak / 2**30, "weights_gib": weights / 2**30, "states": states,
+               "probe_ms_under_load": under_load["details"]["probe_ms"],
+               "probe_ms": health["details"].get("probe_ms"), "ids_equal": after == before}
+        print(f"overload reinit: {json.dumps(out)}", flush=True)
+        check(after == before, "reinit: the rebuilt stack gave other ids")
+        check(health["status"] == "UP" and dev.engine.state == "serving",
+              f"reinit: health {health}, engine {dev.engine.state}")
+        check(peak < mem0 + weights / 2,
+              f"reinit: peak {peak / 2**30:.2f} GiB across the rebuild from "
+              f"{mem0 / 2**30:.2f} GiB: the old weights were not freed first")
+    finally:
+        app.shutdown()
     return out
 
 
@@ -8443,6 +8785,7 @@ def main(argv=None) -> int:
         loras = multi_lora(torch, flash, card, model)
         gc.collect()
         torch.cuda.empty_cache()
+    print_cost_fits(card)  # phases 12-14 and 21's paths, each fitted from its own records
     with timed("16"):
         host_services(torch, flash, card, model)
         gc.collect()
@@ -8452,7 +8795,7 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     with timed("18"), host_pauses("phase 18"):
-        overload_run = overload(torch, flash, card, model)
+        overload_run = overload(torch, flash, card, model, ckpt)
     del model
     gc.collect()
     torch.cuda.empty_cache()

@@ -72,6 +72,11 @@ class AnomalyRing:
     def capacity(self) -> int:
         return self._ring.maxlen or 0
 
+    def total(self) -> int:
+        """Events recorded since construction (retained or not)."""
+        with self._lock:
+            return self._total
+
     def stats(self) -> dict[str, Any]:
         with self._lock:
             return {

@@ -1,6 +1,10 @@
 """Config: the process environment over ``<configs_dir>/.env``.
 
-Trimmed copy of ``gofr_tpu/config.py``'s ``EnvFileConfig``. The port
+Copy of ``gofr_tpu/config.py``'s ``Config`` protocol, ``EnvConfig``,
+``EnvFileConfig``, ``new_env_file`` and ``environ_snapshot``. As in the
+JAX package, ``EnvFileConfig`` writes the file's keys into ``os.environ``
+without overriding a set one, so the raw readers (``get_env``,
+``env_flag``) and every child process see them. The port's own rule: it
 reads only the keys in ``DECLARED_KEYS``; asking for any other raises, so
 a key the port does not honor cannot be read by mistake.
 
@@ -17,7 +21,7 @@ once at WARN.
 from __future__ import annotations
 
 import os
-from typing import Any, Optional
+from typing import Any, Optional, Protocol
 
 DECLARED_KEYS: dict[str, str] = {
     "MODEL_NAME": "mlp (default) | bert-tiny | bert-base | tiny | small | llama3-8b | llama3-70b",
@@ -238,33 +242,63 @@ def parse_env_file(path: str) -> dict[str, str]:
     return out
 
 
-class EnvFileConfig:
-    """Loads ``<configs_dir>/.env`` into a private map; the environment
-    wins over the file."""
+class Config(Protocol):
+    """Two-method config surface every component depends on."""
 
-    def __init__(self, configs_dir: str = "./configs") -> None:
-        self.configs_dir = configs_dir
-        self._file = parse_env_file(os.path.join(configs_dir, ".env"))
+    def get(self, key: str) -> Optional[str]: ...
+
+    def get_or_default(self, key: str, default: str) -> str: ...
+
+
+def environ_snapshot() -> dict[str, str]:
+    """A point-in-time copy of the whole environment, for what must
+    iterate it (a postmortem's config fingerprint, a child's environment)
+    without scattering raw reads."""
+    return dict(os.environ)
+
+
+class EnvConfig:
+    """Config backed directly by the process environment; a key outside
+    ``DECLARED_KEYS`` raises."""
 
     def get(self, key: str) -> Optional[str]:
-        if key not in DECLARED_KEYS:
-            raise KeyError(f"config key {key!r} is not read by gofr_tpu_torch")
-        value = os.environ.get(key)
-        return value if value is not None else self._file.get(key)
+        return get_env(key)
 
     def get_or_default(self, key: str, default: str) -> str:
         value = self.get(key)
         return value if value not in (None, "") else default
 
     def unhonored(self) -> list[str]:
-        """The listed keys set (non-empty) in the environment or the file."""
+        """The listed keys set (non-empty) in the environment."""
+        return [key for key in UNHONORED_KEYS if os.environ.get(key)]
+
+
+class EnvFileConfig(EnvConfig):
+    """Loads ``<configs_dir>/.env`` into the environment (a set key wins
+    over the file's), then behaves like :class:`EnvConfig`. A missing file
+    is no error: the app runs on the ambient environment."""
+
+    def __init__(self, configs_dir: str = "./configs") -> None:
+        self.configs_dir = configs_dir
+        self._file = parse_env_file(os.path.join(configs_dir, ".env"))
+        for key, value in self._file.items():
+            os.environ.setdefault(key, value)
+
+    def unhonored(self) -> list[str]:
+        """The listed keys set (non-empty) in the environment or the file
+        (a key set empty in the environment keeps the file's value out of
+        it, and still counts)."""
         return [
             key for key in UNHONORED_KEYS
             if os.environ.get(key) or self._file.get(key)
         ]
 
 
-def check_unhonored(config: EnvFileConfig, logger: Any) -> None:
+def new_env_file(configs_dir: str = "./configs") -> EnvFileConfig:
+    return EnvFileConfig(configs_dir)
+
+
+def check_unhonored(config: EnvConfig, logger: Any) -> None:
     """Refuse a boot with a set key the port cannot ignore; warn once
     about each other set key of the reference's the port does not honor."""
     set_keys = config.unhonored()

@@ -191,6 +191,11 @@ def clamp_spec_k(
     return k
 
 
+# brownout levels: 0 normal, 1 sheds below-default-priority work, 2 sheds
+# default-and-below priority work and clamps max_tokens
+BROWNOUT_LEVELS = (0, 1, 2)
+
+
 class BrownoutController:
     """Graded overload response from host-side signals, each armed when its
     threshold is > 0: the queue depth (the batcher's queue and displaced

@@ -514,11 +514,12 @@ class SubprocessReplica:
                  max_restarts_in_window: int = 10):
         import sys
 
+        from gofr_tpu_torch.config import environ_snapshot
         from gofr_tpu_torch.devtools.supervise import Supervisor
 
         self.name = name
         self.port = port or _free_port()
-        child_env = dict(os.environ)
+        child_env = environ_snapshot()
         # the child must import the package whatever the caller's cwd is
         # (tests chdir into tmp dirs): prepend the package's parent to
         # PYTHONPATH explicitly instead of relying on an installed copy

@@ -28,10 +28,40 @@ class InvalidParamError(GofrError):
         super().__init__(f"'{len(self.params)}' invalid {noun} {', '.join(self.params)}")
 
 
+class MissingParamError(GofrError):
+    """A required request parameter is absent -> 400:
+    ``'1' missing parameter <what>``."""
+
+    status_code = 400
+
+    def __init__(self, *params: str):
+        self.params = list(params)
+        noun = "parameter" if len(self.params) == 1 else "parameters"
+        super().__init__(f"'{len(self.params)}' missing {noun} {', '.join(self.params)}")
+
+
 class UnauthenticatedError(GofrError):
     """Missing or wrong credentials -> 401."""
 
     status_code = 401
+
+
+class ForbiddenError(GofrError):
+    """Authenticated but not allowed -> 403."""
+
+    status_code = 403
+
+    def __init__(self, message: str = "forbidden"):
+        super().__init__(message)
+
+
+class RequestTimeoutError(GofrError):
+    """The request took too long -> 408."""
+
+    status_code = 408
+
+    def __init__(self, message: str = "request timed out"):
+        super().__init__(message)
 
 
 class EntityNotFoundError(GofrError):

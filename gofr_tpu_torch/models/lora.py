@@ -105,6 +105,11 @@ def is_lora(leaf: Any) -> bool:
     return isinstance(leaf, LoraWeight)
 
 
+def is_lora_stack(leaf: Any) -> bool:
+    """Whether ``leaf`` is a pooled bank entry (``build_lora_stack``)."""
+    return isinstance(leaf, LoraStack)
+
+
 def _common(x: torch.Tensor, *ts: torch.Tensor) -> tuple:
     """x and the adapter tensors in their promoted dtype (JAX's promotion:
     a bf16 adapter over an f32 model computes in f32)."""

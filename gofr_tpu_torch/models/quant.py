@@ -33,6 +33,7 @@ prefill of 8 x 512 rows through llama3-8b's ``w_gate``.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Optional
 
 import torch
@@ -220,6 +221,15 @@ class Pack(nn.Module):
                     f"pack {name!r} shape {tuple(src.shape)} does not fit {tuple(dst.shape)}"
                 )
             dst.copy_(src)
+
+
+def cast_params(model: nn.Module) -> int:
+    """Elements of ``model``'s weight-only packs (int8, int4, and the w8a8
+    ``lm_head``'s int8): ``mm`` casts each such pack whole to the
+    activation dtype before its product, a copy written and read again
+    each call (the cost model's bytes, ``costmodel.transformer_sheet``)."""
+    return sum(math.prod(m.dense_shape) for m in model.modules()
+               if isinstance(m, Pack) and m.names[0] in ("q", "q4"))
 
 
 def mm(x: torch.Tensor, w: Any) -> torch.Tensor:

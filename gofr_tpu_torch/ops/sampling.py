@@ -227,6 +227,21 @@ def sample_logits_rows(
     return torch.where(temp <= 0.0, greedy, sampled)
 
 
+def sample_logits(
+    logits: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    temperature=1.0,
+    top_k=0,
+    top_p=1.0,
+    min_p=0.0,
+) -> torch.Tensor:
+    """[B, V] logits -> [B] int32 ids under one set of knobs for every row
+    (the JAX package's ``sample_logits``; its PRNG key is ``generator``
+    here): a temperature of 0 or below takes each row's argmax."""
+    return sample_logits_rows(logits, generator, temperature, top_k, top_p,
+                              min_p).to(torch.int32)
+
+
 def stop_tokens_from_body(body: dict) -> Optional[list[int]]:
     """A request body's ``stop_tokens``: ids that end generation (the stop
     id is not emitted), or None. Raises ValueError on a malformed value (a

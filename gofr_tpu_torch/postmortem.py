@@ -32,6 +32,7 @@ import time
 import traceback
 from typing import Any, Optional
 
+from gofr_tpu_torch.config import environ_snapshot
 from gofr_tpu_torch.version import __version__
 
 SCHEMA = "gofr-postmortem/1"
@@ -388,7 +389,7 @@ def _config_fingerprint() -> dict[str, Any]:
     """Framework config keys present in the environment, secrets
     redacted, plus a stable hash of the redacted view — enough to say
     "these two wedges ran the same config" without leaking credentials."""
-    environ = dict(os.environ)
+    environ = environ_snapshot()
     keys: dict[str, str] = {}
     for key in sorted(environ):
         if not key.startswith(CONFIG_PREFIXES):

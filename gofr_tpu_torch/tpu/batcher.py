@@ -28,9 +28,11 @@ so the record covers the card's work), and active on the dispatch thread
 (``current_dispatch``) so the runner can stamp its MFU; each item's flight
 record (captured at submit) gets its enqueue and dispatch marks, the cohort,
 the dispatch id, the prefill chunk and the scheduler's defer. With a
-``watchdog`` the call runs under its deadline. Tracing spans of the JAX
-package are not ported yet. ``verify_width`` and its ladder
-cohort pooled speculation's verify widths.
+``watchdog`` the call runs under its deadline. Each item carries its
+caller's tracing span, and each dispatch opens a ``tpu-batch`` span
+parented to its first item's span and active on the dispatch thread, so
+the runner's tags land on it and it joins the HTTP server span's trace.
+``verify_width`` and its ladder cohort pooled speculation's verify widths.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from gofr_tpu_torch.deadline import current_deadline, deadline_exceeded_counter
 from gofr_tpu_torch.errors import DeadlineExceeded, TooManyRequestsError
 from gofr_tpu_torch.telemetry import current_record
 from gofr_tpu_torch.tpu.introspect import activate_dispatch
+from gofr_tpu_torch.tracing import current_span, get_tracer
 
 
 def next_pow2(n: int) -> int:
@@ -112,14 +115,15 @@ def pack_token_rows(
 
 
 class _Item:
-    __slots__ = ("payload", "future", "arrival", "record", "deadline")
+    __slots__ = ("payload", "future", "arrival", "span", "record", "deadline")
 
     def __init__(self, payload: Any):
         self.payload = payload
         self.future: Future = Future()
         self.arrival = time.perf_counter()
-        # the caller's flight record and deadline ride the item to the
+        # the caller's span, flight record and deadline ride the item to the
         # worker and the dispatch thread
+        self.span = current_span()
         self.record = current_record()
         self.deadline = current_deadline()
         if self.record is not None:
@@ -350,6 +354,11 @@ class DynamicBatcher:
         with self._count_lock:
             self.dispatches += 1
         drec = None
+        # one tpu-batch span a dispatch, parented to the first item with a
+        # span (a cohort can mix traces; one wins), active on this thread so
+        # run_batch tags it
+        parent = next((item.span for item in batch if item.span is not None), None)
+        span = get_tracer().start_span("tpu-batch", parent=parent)
         try:
             bucket, drec = self._note_dispatch(batch)
             if self.bucket_fn is not None:
@@ -374,17 +383,19 @@ class DynamicBatcher:
             self._finish_record(drec)
         except Exception as exc:
             self._finish_record(drec, status="error")
+            span.set_tag("error", exc)
             for item in batch:
                 if not item.future.cancelled():
                     item.future.set_exception(exc)
             return
         finally:
-            # a record left active on this reused pool thread would label
-            # later work; finish is idempotent, so this only closes a record
-            # a BaseException left running
+            # a record or span left active on this reused pool thread would
+            # label later work; finish is idempotent, so this only closes a
+            # record a BaseException left running
             if drec is not None:
                 activate_dispatch(None)
                 self._finish_record(drec, status="error")
+            span.__exit__(None, None, None)
         for item, result in zip(batch, results):
             if drec is not None and drec.anomaly and item.record is not None:
                 # the cost model flagged this dispatch at finish

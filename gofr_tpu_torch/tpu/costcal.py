@@ -18,6 +18,11 @@ takes the class's mean rate through the origin (``eff = mean(x) / mean(ms)
 
     records = join_records(dispatches, sheets)   # /admin/dispatches + /admin/costmodel
     row = fit(records, "NVIDIA H100 80GB HBM3", "gpu")
+    rows = fit_paths(records, "NVIDIA H100 80GB HBM3")  # one row a serving path
+
+The port's sheets name the serving path they price (``costmodel.
+serving_path``), and a card's profile row holds one fitted row per path
+(``paths``): ``fit_paths`` fits each path from its own records.
 """
 
 from __future__ import annotations
@@ -60,23 +65,51 @@ def join_records(dispatches: list[dict], sheets: list[dict]) -> list[dict[str, A
     """Dispatch records (``/admin/dispatches``) that finished ok, each
     with its family's sheet flops and bytes (``/admin/costmodel``'s
     ``sheets``: the exact key, else the bucket's sheet, as the cost model
-    resolves them)."""
-    exact = {(s["kind"], s["bucket"] or 0, s["batch"] or 0): s for s in sheets}
-    by_bucket = {(s["kind"], s["bucket"] or 0): s for s in sheets}
+    resolves them, of the record's serving path). A verify's sheet is its
+    width's (the record's ``tokens``); a record priced on a path carries
+    it as ``path``. A record that contending work shared
+    (``cost_shared_ms``) is left out: its time holds the others' work."""
+    def width(kind: str, tokens: Any) -> int:
+        return (tokens or 0) if kind == "spec_verify" else 0
+
+    exact = {(s["kind"], s["bucket"] or 0, s["batch"] or 0, s.get("width") or 0,
+              s.get("path")): s for s in sheets}
+    by_bucket = {(s["kind"], s["bucket"] or 0, s.get("width") or 0, s.get("path")): s
+                 for s in sheets}
     out = []
     for rec in dispatches:
-        if rec.get("status") != "ok" or rec["kind"] in UNPRICED_KINDS:
+        if rec.get("status") != "ok" or rec["kind"] in UNPRICED_KINDS or rec.get("cost_shared_ms"):
             continue
+        path = rec.get("cost_path")
         key = (rec["kind"], rec.get("bucket") or 0)
-        sheet = exact.get((*key, rec.get("batch_size") or 0)) or by_bucket.get(key)
+        w = width(rec["kind"], rec.get("tokens"))
+        sheet = (exact.get((*key, rec.get("batch_size") or 0, w, path))
+                 or by_bucket.get((*key, w, path)))
         if sheet is None or rec.get("duration_s") is None:
             continue
-        out.append({
+        joined = {
             "kind": rec["kind"], "bucket": key[1], "batch_size": rec.get("batch_size"),
             "flops": sheet["flops"] or 0.0, "bytes_accessed": sheet["bytes_accessed"] or 0.0,
             "duration_s": rec["duration_s"],
-        })
+        }
+        if path is not None:
+            joined["path"] = path
+        out.append(joined)
     return out
+
+
+def fit_paths(records: list[dict[str, Any]], device_kind: str,
+              platform: str = "gpu") -> dict[str, dict[str, Any]]:
+    """One ``fit`` row for each serving path among ``records``
+    (``join_records``' ``path``), from that path's records alone. A path
+    with no bandwidth-bound record gets no row: its pool chunks would be
+    judged on a default rate, not a measured one, so it stays unfitted."""
+    by_path: dict[str, list] = {}
+    for record in records:
+        if record.get("path") is not None:
+            by_path.setdefault(record["path"], []).append(record)
+    rows = {path: fit(group, device_kind, platform) for path, group in sorted(by_path.items())}
+    return {path: row for path, row in rows.items() if row["n_bandwidth_bound"]}
 
 
 def fit(records: list[dict[str, Any]], device_kind: str, platform: str = "gpu") -> dict[str, Any]:

@@ -25,6 +25,20 @@
   residual, no EMA update, no verdict): the trace records every thread's
   host ops, and that cost is in its wall time, not in the model. This is
   the port's own rule: the JAX package judges every dispatch.
+- **Serving paths** (the port's own rule too): a device names the path
+  its sheets price (``serving_path``: the weight mode, the KV dtype, solo
+  or pooled speculation, an adapter slot, the mesh shape), and a card's
+  profile row holds one fitted row per path (``paths``; the row's own
+  coefficients are the fit of the path it names, ``path``). A dispatch on
+  a path with no fitted row is still predicted (MFU and MBU stay) on the
+  card's own coefficients, but not judged: no residual, no EMA, no
+  verdict, and ``snapshot()`` lists the path under ``unfitted``. A
+  dispatch that contending work shared (``introspect.contends``: a
+  prefill beside any other dispatch, each waiting on the other's work on
+  the one stream) is judged against its own prediction plus the contenders'
+  (``cost_shared_ms``): its wall time holds their work. A sheet with no
+  path (the echo runner's, a test's) is judged as the JAX package judges
+  it.
 
 Host-side only: a dict lookup and a few float ops a dispatch.
 """
@@ -43,7 +57,7 @@ from gofr_tpu_torch.tpu.flops import device_peaks
 
 __all__ = [
     "CostModel", "CostSheet",
-    "UNPRICED_KINDS", "transformer_sheet",
+    "UNPRICED_KINDS", "adapter_path", "serving_path", "transformer_sheet",
 ]
 
 # dispatch kinds that never get a prediction: boot-time work has no
@@ -65,12 +79,32 @@ EMA_MIN_SAMPLES = 8
 NOMINAL_EFFICIENCY = 0.5
 
 
+def serving_path(weights: str, kv_f8: bool = False, draft: bool = False,
+                 spec: bool = False, mesh_axes: Optional[dict] = None) -> str:
+    """A deployment's serving path, the name its sheets and its fitted
+    profile row share: the weight mode (``bf16``, ``f32``, ``int8``,
+    ``int4``, ``w8a8``), ``+f8kv`` for an e4m3 KV cache, ``+draft`` for the
+    solo draft model, ``+spec`` for pooled speculation, and ``/`` the mesh
+    axes above 1 (``bf16/tp2``). A dispatch with an adapter slot adds
+    ``+lora`` (``adapter_path``)."""
+    name = weights + ("+f8kv" if kv_f8 else "") + ("+draft" if draft else "")
+    name += "+spec" if spec else ""
+    axes = [f"{axis}{size}" for axis, size in (mesh_axes or {}).items() if size > 1]
+    return name + ("/" + ",".join(axes) if axes else "")
+
+
+def adapter_path(path: str) -> str:
+    """The path of a dispatch of ``path``'s deployment with an adapter slot."""
+    head, sep, mesh = path.partition("/")
+    return head + "+lora" + sep + mesh
+
+
 class CostSheet:
     """One dispatch family's cost (immutable after install)."""
 
     __slots__ = (
         "kind", "bucket", "batch", "width", "flops", "bytes_accessed",
-        "peak_memory_bytes", "base_ms", "source",
+        "peak_memory_bytes", "base_ms", "source", "path",
     )
 
     def __init__(
@@ -84,6 +118,7 @@ class CostSheet:
         peak_memory_bytes: int = 0,
         base_ms: Optional[float] = None,
         source: str = "analytic",
+        path: Optional[str] = None,
     ):
         self.kind = kind
         self.bucket = int(bucket)
@@ -96,9 +131,10 @@ class CostSheet:
         # instead of flops/bytes — the roofline terms don't apply
         self.base_ms = base_ms
         self.source = source  # "analytic" | "synthetic"
+        self.path = path  # the serving path it prices (None: the JAX package's sheet)
 
     def key(self) -> tuple:
-        return (self.kind, self.bucket, self.batch, self.width)
+        return (self.kind, self.bucket, self.batch, self.width, self.path or "")
 
     def to_dict(self) -> dict[str, Any]:
         return {
@@ -111,6 +147,7 @@ class CostSheet:
             "peak_memory_bytes": self.peak_memory_bytes or None,
             "base_ms": self.base_ms,
             "source": self.source,
+            "path": self.path,
         }
 
 
@@ -154,7 +191,10 @@ class CostModel:
         # echo runner's synthetic table covers every echo dispatch
         self._sheets: dict[tuple, CostSheet] = {}
         self._by_bucket: dict[tuple, CostSheet] = {}
-        self._wildcard: dict[str, CostSheet] = {}
+        self._wildcard: dict[tuple, CostSheet] = {}
+        # the deployment's serving path (set_path): a record's sheet is its
+        # path's (adapter_path's for a dispatch with an adapter slot)
+        self.path: Optional[str] = None
         # residual families: (kind, bucket) -> EMA state
         self._families: dict[tuple, dict[str, Any]] = {}
         # calibration: profile rows + the resolved coefficients
@@ -165,6 +205,8 @@ class CostModel:
         self.eff_flops: Optional[float] = None
         self.eff_bw: Optional[float] = None
         self.overhead_ms: float = 0.0
+        # the matched row's fitted paths: name -> (eff_flops, eff_bw, overhead_ms, source)
+        self._path_rows: dict[str, tuple] = {}
         self.calibration: dict[str, Any] = {"source": "uncalibrated"}
         if metrics is not None:
             self._residual_gauge = metrics.gauge(
@@ -238,10 +280,20 @@ class CostModel:
             eff_bw = peak_bw * NOMINAL_EFFICIENCY
             overhead = 0.2
             source = "nominal"
+        path_rows: dict[str, tuple] = {}
+        if row is not None:
+            if row.get("path"):
+                path_rows[str(row["path"])] = (eff_flops, eff_bw, overhead, row.get("source"))
+            for name, fitted in (row.get("paths") or {}).items():
+                path_rows[str(name)] = (
+                    float(fitted.get("eff_flops") or 0.0), float(fitted.get("eff_bw") or 0.0),
+                    float(fitted.get("overhead_ms") or 0.0), fitted.get("source"),
+                )
         with self._lock:
             self.eff_flops = eff_flops if eff_flops > 0 else None
             self.eff_bw = eff_bw if eff_bw > 0 else None
             self.overhead_ms = overhead
+            self._path_rows = path_rows
             self.calibration = {
                 "source": source,
                 "matched": matched,
@@ -255,16 +307,23 @@ class CostModel:
                 # the matched row's own provenance (nominal, or the fit's
                 # card, power limit and run)
                 "row_source": row.get("source") if row is not None else None,
+                "fitted_paths": sorted(path_rows),
             }
 
     # -- sheet install / lookup ----------------------------------------------
+    def set_path(self, path: Optional[str]) -> None:
+        """The deployment's serving path (``serving_path``): the sheets a
+        record resolves to are this path's."""
+        with self._lock:
+            self.path = path
+
     def install(self, sheet: CostSheet) -> None:
         with self._lock:
             self._sheets[sheet.key()] = sheet
             if sheet.bucket or sheet.batch or sheet.width:
-                self._by_bucket[(sheet.kind, sheet.bucket)] = sheet
+                self._by_bucket[(sheet.kind, sheet.bucket, sheet.width, sheet.path)] = sheet
             else:
-                self._wildcard[sheet.kind] = sheet
+                self._wildcard[(sheet.kind, sheet.path)] = sheet
 
     def install_synthetic(self, kind: str, base_ms: float) -> None:
         """Kind-wide synthetic sheet (echo runner): one dispatch of
@@ -274,29 +333,34 @@ class CostModel:
 
     def install_analytic(
         self, kind: str, bucket: int, batch: int, flops: float,
-        bytes_accessed: float, width: int = 0,
+        bytes_accessed: float, width: int = 0, path: Optional[str] = None,
     ) -> CostSheet:
         """Install a family's sheet reckoned from the model's shapes
         (``transformer_sheet``): the port compiles nothing, so there is no
-        compiled cost analysis to harvest (source ``analytic``)."""
+        compiled cost analysis to harvest (source ``analytic``). ``path``:
+        the serving path it prices."""
         sheet = CostSheet(
             kind, bucket=bucket, batch=batch, width=width, flops=flops,
-            bytes_accessed=bytes_accessed, source="analytic",
+            bytes_accessed=bytes_accessed, source="analytic", path=path,
         )
         self.install(sheet)
         return sheet
 
     def sheet_for(
-        self, kind: str, bucket: int = 0, batch: int = 0, width: int = 0
+        self, kind: str, bucket: int = 0, batch: int = 0, width: int = 0,
+        path: Optional[str] = None,
     ) -> Optional[CostSheet]:
         """Exact key, else the bucket's sheet (the compiled shape pads
-        every batch to it), else the kind-wide wildcard (synthetic)."""
+        every batch to it), else the kind-wide wildcard (synthetic); of
+        ``path``, by default the deployment's."""
         with self._lock:
-            sheet = self._sheets.get((kind, bucket, batch, width))
+            if path is None:
+                path = self.path
+            sheet = self._sheets.get((kind, bucket, batch, width, path or ""))
             if sheet is None:
-                sheet = self._by_bucket.get((kind, bucket))
+                sheet = self._by_bucket.get((kind, bucket, width, path))
             if sheet is None:
-                sheet = self._wildcard.get(kind)
+                sheet = self._wildcard.get((kind, path))
             return sheet
 
     def sheet_flops(self, kind: str, bucket: int = 0, batch: int = 0) -> Optional[float]:
@@ -309,41 +373,62 @@ class CostModel:
 
     # -- prediction (DispatchTimeline.begin hook) -----------------------------
     def predict_ms(
-        self, kind: str, bucket: int = 0, batch: int = 0, width: int = 0
+        self, kind: str, bucket: int = 0, batch: int = 0, width: int = 0,
+        path: Optional[str] = None,
     ) -> tuple[Optional[float], Optional[str]]:
         """Calibrated roofline latency for one dispatch of the family:
         ``max(flops/eff_flops, bytes/eff_bw)*1e3 + overhead_ms`` (analytic
         sheets), or ``base_ms + overhead_ms`` (synthetic). Returns
         ``(None, None)`` for unpriced kinds and families with no sheet."""
+        predicted, source, _ = self._predict(kind, bucket, batch, width, path)
+        return predicted, source
+
+    def _coefficients(self, path: Optional[str]) -> tuple:
+        """(eff_flops, eff_bw, overhead_ms, judged) for a sheet of
+        ``path``: its fitted row, else the card's own coefficients,
+        unjudged. A sheet with no path is judged on the card's row."""
+        fitted = self._path_rows.get(path) if path is not None else None
+        if fitted is not None:
+            flops, bw, overhead, _ = fitted
+            return flops or None, bw or None, overhead, True
+        return self.eff_flops, self.eff_bw, self.overhead_ms, path is None
+
+    def _predict(self, kind: str, bucket: int, batch: int, width: int,
+                 path: Optional[str]) -> tuple:
+        """(predicted ms, source, the sheet) or (None, None, None)."""
         if kind in UNPRICED_KINDS:
-            return None, None
-        sheet = self.sheet_for(kind, bucket=bucket, batch=batch, width=width)
+            return None, None, None
+        sheet = self.sheet_for(kind, bucket=bucket, batch=batch, width=width, path=path)
         if sheet is None:
-            return None, None
+            return None, None, None
+        eff_flops, eff_bw, overhead, _ = self._coefficients(sheet.path)
         if sheet.base_ms is not None:
-            return sheet.base_ms + self.overhead_ms, sheet.source
-        flops_s = (
-            sheet.flops / self.eff_flops
-            if self.eff_flops and sheet.flops > 0 else 0.0
-        )
-        bw_s = (
-            sheet.bytes_accessed / self.eff_bw
-            if self.eff_bw and sheet.bytes_accessed > 0 else 0.0
-        )
+            return sheet.base_ms + overhead, sheet.source, sheet
+        flops_s = sheet.flops / eff_flops if eff_flops and sheet.flops > 0 else 0.0
+        bw_s = sheet.bytes_accessed / eff_bw if eff_bw and sheet.bytes_accessed > 0 else 0.0
         roofline = max(flops_s, bw_s)
         if roofline <= 0.0:
-            return None, None
-        return roofline * 1e3 + self.overhead_ms, sheet.source
+            return None, None, None
+        return roofline * 1e3 + overhead, sheet.source, sheet
 
     def annotate(self, record: Any) -> None:
         """``DispatchTimeline.begin`` hook: stamp the prediction (and its
-        source) onto the record before the dispatch runs."""
-        predicted, source = self.predict_ms(
-            record.kind, bucket=record.bucket, batch=record.batch_size,
+        source) onto the record before the dispatch runs, with the path
+        its sheet prices and whether that path is judged. A verify's
+        width is its token count."""
+        path = self.path
+        if getattr(record, "adapter", False) and path is not None:
+            path = adapter_path(path)
+        width = record.tokens if record.kind == "spec_verify" else 0
+        predicted, source, sheet = self._predict(
+            record.kind, record.bucket, record.batch_size, width, path,
         )
         if predicted is not None:
             record.predicted_ms = predicted
             record.cost_source = source
+            if sheet.path is not None:
+                record.cost_path = sheet.path
+                record.cost_judged = self._coefficients(sheet.path)[3]
 
     # -- residual / anomaly accounting (DispatchTimeline.finish hook) ---------
     def observe(self, record: Any) -> None:
@@ -358,8 +443,13 @@ class CostModel:
             return
         if record.status != "ok":
             return
+        if not getattr(record, "cost_judged", True):
+            return  # a path with no fitted row: predicted, never judged
         if profiler().traced(record.t_done - duration, record.t_done):
             return
+        # the contending work that shared its run (introspect.contends)
+        shared_ms = getattr(record, "cost_shared_ms", 0.0)
+        predicted += shared_ms
         observed_ms = duration * 1e3
         ratio = observed_ms / predicted
         record.residual_ratio = ratio
@@ -405,9 +495,14 @@ class CostModel:
             self._residual_gauge.set(
                 ema, kind=record.kind, bucket=str(record.bucket or 0)
             )
+        # the port's serving path rides its anomaly events (none on a
+        # sheet without one, as in the JAX package)
+        path = getattr(record, "cost_path", None)
+        extra = {"path": path, "shared_ms": round(shared_ms, 4)} if path is not None else {}
         for cause, threshold in verdicts:
             record.anomaly = cause
             self.ring.record(
+                **extra,
                 dispatch_id=record.dispatch_id,
                 kind=record.kind,
                 bucket=record.bucket or 0,
@@ -451,12 +546,25 @@ class CostModel:
             listed = list(self._sheets.values())
         return [s.to_dict() for s in sorted(listed, key=lambda s: s.key())]
 
+    def paths(self) -> dict[str, Any]:
+        """Each serving path the installed sheets price: whether the card's
+        profile has a fitted row for it (else its dispatches are predicted
+        and not judged) and that row's provenance."""
+        with self._lock:
+            names = sorted({s.path for s in self._sheets.values() if s.path is not None})
+            rows = dict(self._path_rows)
+        return {name: {"fitted": name in rows,
+                       "row_source": rows[name][3] if name in rows else None}
+                for name in names}
+
     def snapshot(self) -> dict[str, Any]:
         """The full /admin/costmodel shape: sheets,
-        calibration provenance, residual rollups, anomaly stats."""
+        calibration provenance, residual rollups, anomaly stats; with the
+        port's serving paths (a decoder's), also ``path``, ``paths`` and
+        the ``unfitted`` ones no fitted row judges."""
         with self._lock:
             calibration = dict(self.calibration)
-        return {
+        out = {
             "calibration": calibration,
             "thresholds": {
                 "anomaly_factor": self.anomaly_factor,
@@ -469,6 +577,11 @@ class CostModel:
             "residuals": self.residuals(),
             "anomalies": self.ring.stats(),
         }
+        paths = self.paths()
+        if paths:
+            out.update(path=self.path, paths=paths,
+                       unfitted=[name for name, p in paths.items() if not p["fitted"]])
+        return out
 
     def overview(self) -> dict[str, Any]:
         """The small block that rides ``engine_snapshot()`` (and the
@@ -502,27 +615,40 @@ def transformer_sheet(
     kv_read: float,
     steps: int = 1,
     logit_positions: int = 1,
+    cast_params: int = 0,
+    act_bytes: int = 2,
+    adapter_params: int = 0,
 ) -> tuple[float, float]:
     """(flops, bytes) of a decoder dispatch reckoned from its shapes:
     ``rows`` sequences of ``tokens`` new positions each, for ``steps``
     steps (a decode chunk); ``pairs`` the (query, key) pairs one row's
     attention computes a step (``tokens * (tokens + 1) / 2`` for a causal
-    prefill from position 0, the kv length for a decode step), ``kv_read``
-    the cached positions one row reads a step, and ``logit_positions`` the
-    positions a row takes logits at.
+    prefill from position 0, the kv length for a decode step, ``tokens``
+    times it for a verify of ``tokens`` positions), ``kv_read`` the cached
+    positions one row reads a step, and ``logit_positions`` the positions
+    a row takes logits at.
 
     - flops: 2 x the layers' matmul weights x each new position, 2 x
       dim x vocab x each logit position (the lm_head), and 4 x head_dim x
       n_heads x n_layers x each (query, key) pair (QK^T and PV); norms,
       RoPE, softmax and sampling are not counted (a floor, as MFU's);
-    - bytes: every weight once a step (the stream decode pays), the KV of
-      each position read, and the KV each new position writes."""
+    - bytes: every stored weight once a step (the stream decode pays), the
+      KV of each position read, and the KV each new position writes;
+    - the port's own products (``models/quant.py::mm``): an int8 or int4
+      pack is cast whole to the activation dtype before its product, so
+      each of its ``cast_params`` elements also costs a copy of
+      ``act_bytes`` written and read again a step;
+    - an adapter slot (``models/lora.py::plora_mm``): each row gathers its
+      adapter's ``adapter_params`` A and B elements (read, written, read
+      by the product) and computes 2 x that x each new position."""
     d, f = cfg.dim, cfg.hidden_dim
     kv_dim = cfg.n_kv_heads * cfg.head_dim
     layer_mm = d * d + 2 * d * kv_dim + d * d + 3 * d * f
     mm = 2.0 * cfg.n_layers * layer_mm * rows * tokens
     head = 2.0 * d * cfg.vocab_size * rows * logit_positions
     attn = 4.0 * cfg.head_dim * cfg.n_heads * cfg.n_layers * rows * pairs
-    flops = steps * (mm + head + attn)
-    nbytes = steps * (weight_bytes + kv_bytes_per_token * rows * (kv_read + tokens))
+    lora = 2.0 * adapter_params * rows * tokens
+    flops = steps * (mm + head + attn + lora)
+    weights = weight_bytes + 2.0 * cast_params * act_bytes + 3.0 * adapter_params * rows * act_bytes
+    nbytes = steps * (weights + kv_bytes_per_token * rows * (kv_read + tokens))
     return flops, nbytes

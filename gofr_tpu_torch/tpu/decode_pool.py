@@ -820,7 +820,8 @@ class DecodePool:
         if records is None:
             records = [(slot.index, slot.request) for slot in self._active.values()]
             self._chunk_lora = self._lora_chunk()
-        drec = self._begin_record("decode_chunk", records)
+        drec = self._begin_record("decode_chunk", records,
+                                  adapter=self._chunk_lora is not None)
         # what the chunk streams: the weights each step, and each active
         # row's KV up to its length that step (host-tracked lengths)
         kv_positions = sum(
@@ -876,12 +877,16 @@ class DecodePool:
             )
         return toks, lps, tvals, tids
 
-    def _begin_record(self, kind: str, records: list, tokens: int = 0) -> Any:
+    def _begin_record(self, kind: str, records: list, tokens: int = 0,
+                      adapter: bool = False) -> Any:
         """A dispatch's timeline record (None without a timeline), running
-        from now; every riding request's flight record learns its id."""
+        from now; every riding request's flight record learns its id.
+        ``adapter``: the chunk runs through the adapter bank (its cost
+        sheet is the adapter path's)."""
         if self._timeline is None:
             return None
-        drec = self._timeline.begin(kind, batch_size=len(records), tokens=tokens)
+        drec = self._timeline.begin(kind, batch_size=len(records), tokens=tokens,
+                                    adapter=adapter)
         drec.mark_running()
         for _, req in records:
             if req is not None and req.record is not None:

@@ -80,6 +80,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import gc
 import json
 import os
 import queue
@@ -110,9 +111,9 @@ from gofr_tpu_torch.metrics import COMPILE_BUCKETS, Registry
 from gofr_tpu_torch.models.bert import BERT_BASE, BERT_TINY, Bert, bert_embed
 from gofr_tpu_torch.models.ingest import is_safetensors_path, load_llama_params
 from gofr_tpu_torch.models.llama import CONFIGS
-from gofr_tpu_torch.models.lora import apply_adapter, build_lora_stack
+from gofr_tpu_torch.models.lora import LoraWeight, apply_adapter, build_lora_stack
 from gofr_tpu_torch.models.mlp import MLP, MLPConfig, init_mlp, mlp_forward
-from gofr_tpu_torch.models.quant import quantizer_for
+from gofr_tpu_torch.models.quant import cast_params, quantizer_for
 from gofr_tpu_torch.models.transformer import TOP_LOGPROBS, Transformer
 from gofr_tpu_torch.parallel import mesh as mesh_mod
 from gofr_tpu_torch.parallel import multihost
@@ -137,7 +138,14 @@ from gofr_tpu_torch.telemetry import (
     request_key,
 )
 from gofr_tpu_torch.tokenizer import load_tokenizer
-from gofr_tpu_torch.tpu.batcher import DynamicBatcher, next_pow2, pack_token_rows, pad_rows
+from gofr_tpu_torch.tracing import current_span, get_tracer
+from gofr_tpu_torch.tpu.batcher import (
+    DynamicBatcher,
+    next_pow2,
+    pack_token_rows,
+    pad_rows,
+    verify_width_ladder,
+)
 from gofr_tpu_torch.tpu.decode_pool import (
     DEADLINE,
     DONE,
@@ -147,7 +155,7 @@ from gofr_tpu_torch.tpu.decode_pool import (
     HostFetch,
     PoolFailure,
 )
-from gofr_tpu_torch.tpu.costmodel import CostModel, transformer_sheet
+from gofr_tpu_torch.tpu.costmodel import CostModel, adapter_path, serving_path, transformer_sheet
 from gofr_tpu_torch.tpu.flops import (
     bert_param_count,
     device_peak_flops,
@@ -189,6 +197,52 @@ WATCHDOG_AUTO_TIMEOUT_S = 120.0
 # parked on a wedged wait, which no join can cut short (a kernel cannot be
 # cancelled); it leaves, failing its rows, when the wait returns
 RECOVERY_POOL_JOIN_S = 2.0
+# at most one automatic rebuild (the health check's, _maybe_auto_reinit) in
+# this window, whether the last one worked or not: the JAX package's 30 s
+AUTO_REINIT_INTERVAL_S = 30.0
+# the health probe's bound on its round trip: far above a healthy one (it
+# runs on its own stream, beside the serving work), well under a health
+# scrape's timeout
+PROBE_TIMEOUT_S = 2.0
+
+
+class StickyDeviceFault(RuntimeError):
+    """A rebuild's probe met a CUDA fault: every later CUDA call of this
+    process fails, so only a process restart recovers (never retried)."""
+
+
+class NoDeviceError(RuntimeError):
+    """``TORCH_DEVICE=cuda`` with no card visible (no fault: nothing ran)."""
+
+
+class ProbeTimeout(RuntimeError):
+    """The health probe's round trip outlived ``PROBE_TIMEOUT_S``."""
+
+
+@dataclasses.dataclass
+class TPULog:
+    """Typed device-query log entry (GoFr style), logged at debug for
+    every batched dispatch."""
+
+    model: str
+    op: str
+    batch_size: int
+    duration_us: int
+
+    def pretty_terminal(self) -> str:
+        return (
+            f"\x1b[33mTPU\x1b[0m [{self.model}.{self.op} b={self.batch_size}] "
+            f"{self.duration_us}µs"
+        )
+
+    def log_fields(self) -> dict[str, Any]:
+        return {
+            "datasource": "tpu",
+            "model": self.model,
+            "op": self.op,
+            "batch_size": self.batch_size,
+            "duration_us": self.duration_us,
+        }
 
 
 def _parse_mesh_request(topology: str) -> Optional[dict[str, int]]:
@@ -268,7 +322,7 @@ def resolve_device(name: str) -> torch.device:
     if name not in ("cuda", "cpu"):
         raise ValueError(f"TORCH_DEVICE {name!r} not supported — use cuda or cpu")
     if name == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("TORCH_DEVICE=cuda but no CUDA device is visible")
+        raise NoDeviceError("TORCH_DEVICE=cuda but no CUDA device is visible")
     return torch.device(name)
 
 
@@ -705,6 +759,11 @@ class TPUDevice:
             enabled=fail["recovery_enabled"],
         )
         self._reinit_lock = threading.Lock()
+        # the automatic rebuild's window and its permanent-error latch
+        # (_maybe_auto_reinit), and the health probe's own stream
+        self._last_reinit = 0.0
+        self._boot_error_permanent = False
+        self._probe_stream: Any = None
         self.platform = "pending"
         self.device_kind = "pending"
         self.peak_flops = 0.0
@@ -719,9 +778,9 @@ class TPUDevice:
         self._mfu_window_lock = threading.Lock()
         self._build_args = (config, kv_dtype, raw_max_seq, buckets,
                             int(config.get_or_default("MODEL_SEED", "0")))
-        # a given model is the first stack's; a rebuild carries the old
-        # runner's over
-        self._given_models: Optional[tuple] = (model, draft_model)
+        # a given model is the boot's weights, as MODEL_PATH is: reinit
+        # builds on it again; a recovery carries the old runner's over
+        self._boot_models: tuple = (model, draft_model)
         self.runner: Any = None
         self.scheduler: Optional[InterferenceScheduler] = None
         self.kv_pool: Optional[BlockPool] = None
@@ -833,11 +892,12 @@ class TPUDevice:
         del self.boot_timeline[:]
         try:
             self._probe()
-            given, self._given_models = self._given_models, None
-            self._build_stack(*given)
+            self._build_stack(*self._boot_models)
         except BaseException as exc:
             self._close_boot_stage(status="error")
             self._boot_error = exc
+            # a configuration error: no automatic rebuild retries it
+            self._boot_error_permanent = isinstance(exc, ValueError)
             self.boot_status = {"state": "failed", "detail": repr(exc)}
             self.engine.transition("failed", repr(exc))
             self._ready.set()
@@ -1091,13 +1151,13 @@ class TPUDevice:
                     runner_close()
 
     def _carried_models(self) -> tuple:
-        """The weights a rebuild keeps: the old runner's model and its solo
+        """The weights a recovery keeps: the old runner's model and its solo
         speculation's draft (None for echo)."""
         runner = self.runner
         spec = getattr(runner, "spec", None)
         return getattr(runner, "model", None), spec.model if spec is not None else None
 
-    # -- wedge recovery --------------------------------------------------------
+    # -- rebuilds: wedge recovery, reinit on device loss ------------------------
     def recover(self, detail: str = "") -> None:
         """The recovery supervisor's rebuild: teardown, a fresh probe and the
         stack rebuilt over the same weights, walking the engine through
@@ -1105,29 +1165,64 @@ class TPUDevice:
         arriving mid-rebuild waits in ``wait_ready``); a failed rebuild
         leaves the boot error set and the event set, so waiters fail fast."""
         with self._reinit_lock:
-            self._ready.clear()
-            self.boot_status = {"state": "recovering", "detail": detail or "recovery rebuild"}
-            try:
-                self._reinit_locked(detail or "recovered")
-            except BaseException as exc:
-                self._boot_error = exc
-                self.boot_status = {"state": "failed", "detail": repr(exc)}
-                self._ready.set()
-                raise
+            self._rebuild(detail or "recovered", self._carried_models(),
+                          status=detail or "recovery rebuild")
 
-    def _reinit_locked(self, detail: str) -> None:
+    def reinit(self) -> None:
+        """Tear the stack down (runner, batcher, decode pool) and rebuild it
+        as the boot did: the weights re-load from ``MODEL_PATH`` (and
+        ``DRAFT_MODEL_PATH``), or re-seed, or build on the model given at
+        construction again; nothing of the old runner is carried (a
+        recovery, ``recover``, carries its weights). The old weights are
+        freed before the new ones land. In-flight requests on the old stack
+        fail with an error, never a truncated result; requests arriving
+        meanwhile wait for the rebuild. A failed rebuild raises, and leaves
+        the device failed until the next rebuild."""
+        with self._reinit_lock:
+            self._rebuild("reinitialized", self._boot_models, status="reinit")
+
+    def _rebuild(self, detail: str, models: tuple, status: str) -> None:
+        """One rebuild under the held reinit lock, readiness cleared while it
+        runs; a failure is the device's boot error (permanent for a
+        ``ValueError`` or a sticky device fault: no automatic rebuild
+        retries it) and re-raises."""
+        self._ready.clear()
+        self.boot_status = {"state": "recovering", "detail": status}
+        try:
+            self._reinit_locked(detail, models)
+        except BaseException as exc:
+            self._boot_error = exc
+            self._boot_error_permanent = isinstance(exc, (ValueError, StickyDeviceFault))
+            self.boot_status = {"state": "failed", "detail": repr(exc)}
+            self.engine.transition("failed", repr(exc))
+            self._ready.set()
+            raise
+
+    def _reinit_locked(self, detail: str, models: tuple) -> None:
         self.logger.warnf("rebuilding the device stack (model=%s)", self.model_name)
-        models = self._carried_models()
+        # stamped FIRST: a rebuild that fails because the card is still gone
+        # must also hold off the next automatic one (no rebuild storms)
+        self._last_reinit = time.monotonic()
         # the old stack may be wedged: its requests fail (their journal
         # entries stay interrupted), and a kernel still queued on the card
         # keeps running; the rebuilt stack's first work queues behind it
+        carried = models is not self._boot_models
         self._teardown_stack(recovery=True)
         self.runner = self.decode_pool = self.batcher = self.kv_pool = None
+        self.scheduler = None
+        if not carried:
+            # the old weights go before the new ones land: one model's
+            # memory across the rebuild, not two
+            gc.collect()
+            if self.device is not None and self.device.type == "cuda":
+                torch.cuda.empty_cache()
         del self.boot_timeline[:]
         try:
             self._reprobe()
-            self.engine.transition("warming", "recovery rebuild")
-            self._build_stack(*models, carried=True)
+            if carried:
+                # the incident's history reads recovering -> warming -> serving
+                self.engine.transition("warming", "recovery rebuild")
+            self._build_stack(*models, carried=carried)
         except BaseException:
             self._close_boot_stage(status="error")
             raise
@@ -1141,6 +1236,7 @@ class TPUDevice:
             self._ready.set()
             return
         self._boot_error = None
+        self._boot_error_permanent = False
         self.boot_status = {"state": "ready", "detail": ""}
         self.engine.transition("serving", detail)
         self._ready.set()
@@ -1149,18 +1245,45 @@ class TPUDevice:
         """The rebuild's probe. On a card it also synchronizes: a CUDA
         device fault (error 719 and the like) is sticky, so it fails here,
         and every attempt after it, with an error that names it and says a
-        process restart is needed."""
+        process restart is needed (``StickyDeviceFault``)."""
         try:
             self._probe()
             if self.device is not None and self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
+        except NoDeviceError:
+            raise  # no card: nothing faulted
         except Exception as exc:
             if "CUDA" in str(exc) or "cuda" in type(exc).__name__.lower():
-                raise RuntimeError(
+                raise StickyDeviceFault(
                     f"{exc} — a CUDA device fault is sticky (every later CUDA call of this "
                     "process fails): a process restart is needed"
                 ) from exc
             raise
+
+    def _maybe_auto_reinit(self) -> bool:
+        """The health check's rebuild: at most one every
+        ``AUTO_REINIT_INTERVAL_S``, whether the last attempt succeeded or
+        not (a dead card must not start a rebuild storm). A permanent error
+        (a ``ValueError`` of the configuration, a sticky device fault)
+        never retries. The lock is taken without blocking: while a rebuild
+        (or a recovery) runs, this health check answers at once instead of
+        queueing behind it. True after a successful rebuild."""
+        if self._boot_error_permanent:
+            return False
+        if not self._reinit_lock.acquire(blocking=False):
+            return False
+        try:
+            if time.monotonic() - self._last_reinit < AUTO_REINIT_INTERVAL_S:
+                return False
+            try:
+                self._rebuild("reinitialized", self._boot_models, status="auto reinit")
+                return True
+            except Exception as exc:
+                self.logger.errorf("device reinit failed%s: %r",
+                                   " permanently" if self._boot_error_permanent else "", exc)
+                return False
+        finally:
+            self._reinit_lock.release()
 
     def _brownout_queue_depth(self) -> int:
         """Brownout signal: requests waiting for a prefill batch (0 with no
@@ -1259,7 +1382,8 @@ class TPUDevice:
         self.kv_pool = self.runner.kv_pool
         self.runner.warmup(self._boot_progress)
         if self.costmodel is not None:
-            self._install_sheets(opts)
+            self._install_sheets()
+            self._install_adapter_sheets()
         # continuous batching: concurrent decodes share one dispatch per
         # chunk; seeded requests bypass it (generate routes them solo). The
         # pool's admission reserves each request's KV blocks on the SAME
@@ -1292,27 +1416,77 @@ class TPUDevice:
                 self._boot_progress("warming pooled multi-LoRA bank", kind="lora_bank")
                 self._refresh_pool_lora()
 
-    def _install_sheets(self, opts: dict) -> None:
-        """The decoder's analytic cost sheets (``costmodel.transformer_sheet``):
-        a batched prefill per bucket at the batcher's padded batch (causal
-        from position 0), a chunked slice at batch 1, and the pool's decode
-        chunk over its slots, priced at half the cache window a step (the
-        rows' lengths vary; the record's own MBU reads their true lengths)."""
-        runner, cfg = self.runner, self.runner.cfg
-        weights = float(runner.weight_bytes)
-        kv_tok = float(runner.kv_bytes_per_token)
-        bsz = next_pow2(self.max_batch)
+    def _install_sheets(self) -> None:
+        """The decoder's analytic cost sheets (``costmodel.transformer_sheet``)
+        on its serving path (``cost_path``): a batched prefill per bucket at
+        the batcher's padded batch (causal from position 0), a chunked slice
+        at batch 1, the pool's decode chunk over its slots, priced at half
+        the cache window a step (the rows' lengths vary; the record's own
+        MBU reads their true lengths), and with pooled speculation a verify
+        over the slots at each width of the ladder."""
+        runner, opts = self.runner, self.options
+        path = self.cost_path()
+        self.costmodel.set_path(path)
         for bucket in runner.buckets:
             pairs = bucket * (bucket + 1) / 2
-            flops, nbytes = transformer_sheet(cfg, weights, kv_tok, bsz, bucket, pairs, 0)
-            self.costmodel.install_analytic("prefill", bucket, bsz, flops, nbytes)
-            flops, nbytes = transformer_sheet(cfg, weights, kv_tok, 1, bucket, pairs, 0)
-            self.costmodel.install_analytic("prefill_chunk", bucket, 1, flops, nbytes)
+            self._install_sheet(path, "prefill", bucket, next_pow2(self.max_batch), bucket,
+                                pairs, 0)
+            self._install_sheet(path, "prefill_chunk", bucket, 1, bucket, pairs, 0)
+        if not opts["pool_enabled"]:
+            return
+        slots, window = opts["pool_slots"], runner.cfg.max_seq / 2
+        self._install_sheet(path, "decode_chunk", 0, slots, 1, window, window,
+                            steps=runner.decode_chunk_size)
+        if self.spec_options["spec_pooled"]:
+            for width in verify_width_ladder(self.spec_options["spec_k_max"]):
+                self._install_sheet(path, "spec_verify", 0, slots, width, width * window, window,
+                                    width=width, logit_positions=width)
+
+    def _install_adapter_sheets(self) -> None:
+        """The adapter path's sheets (``costmodel.adapter_path``): an adapter
+        request's solo slices and the pool's chunk with an adapter slot, at
+        the largest loaded adapter's A and B elements (adapters load and
+        unload at runtime: the bank's refresh calls it)."""
+        adapters = list(self.runner.adapters.values())
+        if self.costmodel is None or not adapters:
+            return
+        runner, opts = self.runner, self.options
+        path = adapter_path(self.cost_path())
+        elements = max(sum(m.lora_a.numel() + m.lora_b.numel() for m in a.modules()
+                           if isinstance(m, LoraWeight)) for a in adapters)
+        for bucket in runner.buckets:
+            self._install_sheet(path, "prefill_chunk", bucket, 1, bucket,
+                                bucket * (bucket + 1) / 2, 0, adapter_params=elements)
         if opts["pool_enabled"]:
-            slots, window = opts["pool_slots"], cfg.max_seq / 2
-            flops, nbytes = transformer_sheet(cfg, weights, kv_tok, slots, 1, window, window,
-                                              steps=runner.decode_chunk_size)
-            self.costmodel.install_analytic("decode_chunk", 0, slots, flops, nbytes)
+            window = runner.cfg.max_seq / 2
+            self._install_sheet(path, "decode_chunk", 0, opts["pool_slots"], 1, window, window,
+                                steps=runner.decode_chunk_size, adapter_params=elements)
+
+    def _install_sheet(self, path: str, kind: str, bucket: int, rows: int, tokens: int,
+                       pairs: float, kv_read: float, width: int = 0, **shape: Any) -> None:
+        """One family's sheet on ``path``, counting the port's own products
+        (an int8 or int4 pack's bf16 copy, an adapter slot's products)."""
+        runner = self.runner
+        flops, nbytes = transformer_sheet(
+            runner.cfg, float(runner.weight_bytes), float(runner.kv_bytes_per_token), rows,
+            tokens, pairs, kv_read, cast_params=runner.cast_params,
+            act_bytes=runner.cfg.dtype.itemsize, **shape,
+        )
+        self.costmodel.install_analytic(kind, bucket, rows, flops, nbytes, width=width, path=path)
+
+    def cost_path(self) -> str:
+        """The decoder's serving path (``costmodel.serving_path``): its
+        weight mode, KV dtype, speculation and mesh shape, the name its
+        cost sheets and its fitted profile row share."""
+        runner = self.runner
+        weights = self.quant or {torch.bfloat16: "bf16", torch.float32: "f32"}.get(
+            runner.cfg.dtype, str(runner.cfg.dtype).replace("torch.", ""))
+        return serving_path(
+            weights, kv_f8=runner.cache_dtype == torch.float8_e4m3fn,
+            draft=runner.spec is not None,
+            spec=self.options["pool_enabled"] and self.spec_options["spec_pooled"],
+            mesh_axes=self.mesh_axes,
+        )
 
     def describe(self) -> str:
         """The boot log's line: the model, the device and, under TPU_MESH,
@@ -1348,36 +1522,101 @@ class TPUDevice:
         )
 
     def health_check(self) -> dict:
-        """UP while booting (alive, not yet ready: readiness is the gate),
-        DOWN after a failed boot or a close, else UP with the device's
-        allocator bytes (host bookkeeping, no device read)."""
+        """UP while booting or rebuilding (alive, not yet ready: readiness is
+        the gate). After a failed boot or rebuild: the rate-limited rebuild
+        (``_maybe_auto_reinit``), UP with ``reinitialized`` when it works,
+        else DOWN. Else the allocator's bytes and a round trip on the device
+        (``_liveness_probe``, its ``probe_ms``): a probe that fails answers
+        DOWN with its ``error`` after one rate-limited rebuild and a second
+        probe; one that times out answers DOWN at once (a wedge is the
+        recovery supervisor's). DOWN after a close."""
         details: dict[str, Any] = {
             "model": self.model_name,
             "device": str(self.device) if self.device is not None else None,
         }
         if not self._ready.is_set():
             return {"status": "UP", "details": {**details, "boot": dict(self.boot_status)}}
+        if self._closed:
+            return {"status": "DOWN", "details": details}
         if self._boot_error is not None:
+            if self._maybe_auto_reinit():
+                return {"status": "UP", "details": {**details, "reinitialized": True}}
             return {"status": "DOWN", "details": {**details, "boot": dict(self.boot_status)}}
-        if self.device is not None and self.device.type == "cuda":
-            used = torch.cuda.memory_stats(self.device).get("allocated_bytes.all.current", 0)
-            limit = torch.cuda.get_device_properties(self.device).total_memory
-            details["memory_bytes_in_use"] = used
-            details["memory_bytes_limit"] = limit
-            self._mem_gauge.set(used, kind="in_use")
-            self._mem_gauge.set(limit, kind="limit")
-        return {"status": "DOWN" if self._closed else "UP", "details": details}
+        device = self.device
+        try:
+            if device is not None and device.type == "cuda":
+                used = torch.cuda.memory_stats(device).get("allocated_bytes.all.current", 0)
+                limit = torch.cuda.get_device_properties(device).total_memory
+                details["memory_bytes_in_use"] = used
+                details["memory_bytes_limit"] = limit
+                self._mem_gauge.set(used, kind="in_use")
+                self._mem_gauge.set(limit, kind="limit")
+            start = time.perf_counter()
+            ok = self._liveness_probe()
+            details["probe_ms"] = (time.perf_counter() - start) * 1e3
+        except ProbeTimeout as exc:
+            return {"status": "DOWN", "details": {**details, "error": str(exc)}}
+        except Exception as exc:
+            # device loss: one rate-limited rebuild, then probe again
+            if self._maybe_auto_reinit():
+                try:
+                    if self._liveness_probe():
+                        return {"status": "UP", "details": {**details, "reinitialized": True}}
+                except Exception as again:
+                    exc = again
+            return {"status": "DOWN", "details": {**details, "error": str(exc)}}
+        return {"status": "UP" if ok else "DOWN", "details": details}
+
+    def _liveness_probe(self) -> bool:
+        """A tiny round trip on the device: 8 ones summed there and read
+        back. On a card it runs on a stream of its own, so it never queues
+        behind the serving stream's work (a long prefill, a pool chunk),
+        and its wait is bounded by ``PROBE_TIMEOUT_S`` (``ProbeTimeout``):
+        the card is then busy past the bound or wedged. Echo has no device:
+        the host answers."""
+        device = self.device
+        if device is None or device.type != "cuda":
+            return float((torch.zeros(8) + 1.0).sum()) == 8.0
+        with torch.cuda.device(device):
+            if self._probe_stream is None:
+                self._probe_stream = torch.cuda.Stream(device)
+            host = torch.empty((), dtype=torch.float32, pin_memory=True)
+            with torch.cuda.stream(self._probe_stream):
+                total = (torch.zeros(8, device=device) + 1.0).sum()
+                host.copy_(total, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(self._probe_stream)
+        deadline = time.monotonic() + PROBE_TIMEOUT_S
+        while not done.query():
+            if time.monotonic() > deadline:
+                raise ProbeTimeout(
+                    f"device probe did not return within {PROBE_TIMEOUT_S:.0f} s "
+                    "(the card is wedged or saturated)"
+                )
+            time.sleep(0.0005)
+        return float(host) == 8.0
 
     def _run_batch(self, payloads: list) -> list:
         """The batcher's dispatch: the runner's batched forward (it ends at
-        its host sync, so ``elapsed`` covers the card's work), then for
+        its host sync, so ``elapsed`` covers the card's work), its
+        ``tpu-batch`` span tagged with ``tpu.batch_size``,
+        ``tpu.device_time_us`` (``elapsed``) and ``tpu.model`` and a
+        ``TPULog`` at debug, then for
         runners with a parameter count (the decoder and the encoder) the
         prefill's true tokens, ``gofr_tpu_mfu{op="prefill"}`` over the
         steady window and the dispatch record's own MFU (the analytic
         sheet's flops where one exists, else 2·N·tokens)."""
         start = time.perf_counter()
-        results = self.runner.run_batch(payloads)
-        elapsed = time.perf_counter() - start
+        span = current_span()  # the batcher's tpu-batch span, active on this thread
+        try:
+            results = self.runner.run_batch(payloads)
+        finally:
+            elapsed = time.perf_counter() - start
+            if span is not None:
+                span.set_tag("tpu.batch_size", len(payloads))
+                span.set_tag("tpu.device_time_us", int(elapsed * 1e6))
+                span.set_tag("tpu.model", self.model_name)
+        self.logger.debug(TPULog(self.model_name, "batch", len(payloads), int(elapsed * 1e6)))
         tokens = sum(int(getattr(p, "size", 0)) for p in payloads)
         drec = current_dispatch()  # the batcher activated this dispatch
         if drec is not None:
@@ -1417,7 +1656,7 @@ class TPUDevice:
     # -- the batched forward of any runner (the JAX package's infer) -------------
     def infer(self, payload: Any, timeout: float = 60.0) -> Any:
         """Blocking single inference through the dynamic batcher (sync
-        handlers). The payload is the runner's: a feature vector for the
+        handlers), in a ``tpu-<model>`` span. The payload is the runner's: a feature vector for the
         MLP, ids (or ``{"tokens": [...]}``) for BERT and the decoder, or
         text (a str or ``{"text": ...}``) with a tokenizer. The MLP returns
         its output row, BERT the embedding, the decoder its prefill state
@@ -1427,11 +1666,14 @@ class TPUDevice:
         # the batcher gets what remains of the caller's budget
         remaining = max(0.001, timeout - (time.perf_counter() - wait_start))
         start = time.perf_counter()
-        try:
-            result = self.batcher.infer(self._prepare(payload), timeout=remaining)
-        except Exception:
-            self._observe("infer", "error", start)
-            raise
+        # an activated span: the batcher's item captures it, so the
+        # dispatch's tpu-batch span joins the caller's trace
+        with get_tracer().start_span(f"tpu-{self.model_name}"):
+            try:
+                result = self.batcher.infer(self._prepare(payload), timeout=remaining)
+            except Exception:
+                self._observe("infer", "error", start)
+                raise
         self._observe("infer", "ok", start)
         return result
 
@@ -1507,7 +1749,8 @@ class TPUDevice:
         resume_from: int = 0,
     ) -> "list[int] | tuple":
         """Autoregressive generation (see the module docstring for the
-        route). ``adapter`` names a loaded LoRA adapter (an unknown one is
+        route) in a ``tpu-<model>-generate`` span tagged ``tpu.tokens_out``.
+        ``adapter`` names a loaded LoRA adapter (an unknown one is
         an InvalidParamError); ``adapter_params`` is the adapter model a
         stream pinned at its eager check, which a concurrent unload must
         not take from it. ``on_token`` receives each id as it decodes; ``stop`` (a
@@ -1568,13 +1811,17 @@ class TPUDevice:
         extra = {"resume_from": resume_from} if resume_from and self.supports_resume else {}
         journal_token = activate_journal_entry(entry) if entry is not None else None
         try:
-            out = runner.generate(
-                tokens, max_new_tokens, on_token=emit, stop=stop,
-                sampler=sampler, stop_tokens=stop_tokens, decode_pool=self.decode_pool,
-                prefill_batcher=self.batcher, scheduler=self.scheduler,
-                logprobs=logprobs, top_logprobs=top_logprobs, adapter=adapter,
-                adapter_params=adapter_params, ttft_cb=ttft, **extra,
-            )
+            # an activated span a request: the prefill batcher's item
+            # captures it, so tpu-batch nests under it in the same trace
+            with get_tracer().start_span(f"tpu-{self.model_name}-generate") as span:
+                out = runner.generate(
+                    tokens, max_new_tokens, on_token=emit, stop=stop,
+                    sampler=sampler, stop_tokens=stop_tokens, decode_pool=self.decode_pool,
+                    prefill_batcher=self.batcher, scheduler=self.scheduler,
+                    logprobs=logprobs, top_logprobs=top_logprobs, adapter=adapter,
+                    adapter_params=adapter_params, ttft_cb=ttft, **extra,
+                )
+                span.set_tag("tpu.tokens_out", len(out[0] if isinstance(out, tuple) else out))
         except Exception as exc:
             if record is not None:
                 record.note_error(exc)
@@ -1828,6 +2075,7 @@ class TPUDevice:
         runner's adapters, so adapter traffic shares the pool. A set whose
         adapters disagree on targets or rank disables the bank (logged):
         its requests decode solo, which is always correct."""
+        self._install_adapter_sheets()
         pool = self.decode_pool
         if pool is None:
             return
@@ -2223,6 +2471,12 @@ class TPUDevice:
         if self._joined:  # the process group this device's boot joined
             multihost.shutdown()
             self._joined = False
+
+
+def new_device(config: Any, logger: Any, metrics: Any) -> TPUDevice:
+    """The container's wiring entry (the JAX package's, as
+    ``redis.new_client`` and ``sql.new_sql`` are)."""
+    return TPUDevice(config, logger, metrics=metrics)
 
 
 def _kernel_launches() -> dict:
@@ -2921,6 +3175,7 @@ class _TransformerRunner:
         # parameters, the bytes a step streams, the KV bytes of a position
         self.n_params = transformer_param_count(cfg)
         self.weight_bytes = model.weight_bytes()
+        self.cast_params = cast_params(model)
         itemsize = torch.empty((), dtype=self.cache_dtype).element_size()
         self.kv_bytes_per_token = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * itemsize
         # multi-LoRA: named adapter models over the SHARED base tensors
@@ -3693,7 +3948,8 @@ class _TransformerRunner:
                     if drec is not None:
                         self.timeline.finish(drec)
                     drec = self.timeline.begin("prefill_chunk", bucket=bucket, batch_size=1,
-                                               tokens=size)
+                                               tokens=size,
+                                               adapter=model is not None and model is not self.model)
                     if record is not None:
                         record.note_dispatch_id(drec.dispatch_id)
                 logits, cache = self._prefill(tokens, cache, lengths, model)

@@ -90,7 +90,7 @@ class DispatchRecord:
         "dispatch_id", "kind", "bucket", "batch_size", "padded_tokens",
         "tokens", "detail", "status", "wall_start", "t_queued", "t_running",
         "t_done", "mfu", "mbu", "predicted_ms", "residual_ratio",
-        "cost_source", "anomaly",
+        "cost_source", "anomaly", "adapter", "cost_path", "cost_judged", "cost_shared_ms",
     )
 
     def __init__(
@@ -103,6 +103,7 @@ class DispatchRecord:
         tokens: int = 0,
         detail: str = "",
         queued_at: Optional[float] = None,
+        adapter: bool = False,
     ):
         self.dispatch_id = dispatch_id
         self.kind = kind
@@ -131,6 +132,16 @@ class DispatchRecord:
         self.residual_ratio: Optional[float] = None
         self.cost_source: Optional[str] = None
         self.anomaly: Optional[str] = None
+        # the port's serving paths (costmodel.serving_path): whether the
+        # dispatch carried an adapter slot, the path its sheet priced,
+        # whether that path has a fitted row (an unfitted path is
+        # predicted, never judged), and the predicted ms of the contending
+        # dispatches that shared its run (``contends``): it is judged
+        # against its own prediction plus theirs, the work it waits behind
+        self.adapter = adapter
+        self.cost_path: Optional[str] = None
+        self.cost_judged = True
+        self.cost_shared_ms = 0.0
 
     def mark_running(self) -> None:
         """Device execution begins (after any scheduler-interleave wait)."""
@@ -150,7 +161,7 @@ class DispatchRecord:
         return self.t_done - (self.t_running or self.t_queued)
 
     def to_dict(self) -> dict[str, Any]:
-        return {
+        out = {
             "dispatch_id": self.dispatch_id,
             "kind": self.kind,
             "status": self.status,
@@ -169,6 +180,30 @@ class DispatchRecord:
             "cost_source": self.cost_source,
             "anomaly": self.anomaly,
         }
+        if self.cost_path is not None:
+            # the port's own fields, present only when a path's sheet priced it
+            out["cost_path"] = self.cost_path
+            out["cost_judged"] = self.cost_judged
+            out["cost_shared_ms"] = self.cost_shared_ms
+        return out
+
+
+PREFILL_KINDS = ("prefill", "prefill_chunk")
+
+
+def contends(a: DispatchRecord, b: DispatchRecord) -> bool:
+    """Whether two dispatches priced on serving paths, in flight at once,
+    spend each other's time: a prefill (a batch, a request's slice or
+    tail) beside any other dispatch. Each record's wall time runs until
+    its host sync, which waits for all the work enqueued ahead of it on
+    the one stream (a pool chunk or verify behind a prefill's forward, a
+    prefill behind the pipelined chunks), and their launches share the
+    host. Pool dispatches overlap each other by design (pipelining), and
+    a path's row is fitted on that. Each of two that contend adds the
+    other's prediction to its ``cost_shared_ms``."""
+    if a.cost_path is None or b.cost_path is None:
+        return False
+    return a.kind in PREFILL_KINDS or b.kind in PREFILL_KINDS
 
 
 class DispatchTimeline:
@@ -218,15 +253,20 @@ class DispatchTimeline:
         tokens: int = 0,
         detail: str = "",
         queued_at: Optional[float] = None,
+        adapter: bool = False,
     ) -> DispatchRecord:
         record = DispatchRecord(
             next(self._ids), kind, bucket=bucket, batch_size=batch_size,
             padded_tokens=padded_tokens, tokens=tokens, detail=detail,
-            queued_at=queued_at,
+            queued_at=queued_at, adapter=adapter,
         )
         if self.costmodel is not None:
             self.costmodel.annotate(record)
         with self._lock:
+            for other in self._in_flight.values():
+                if contends(record, other):
+                    record.cost_shared_ms += other.predicted_ms
+                    other.cost_shared_ms += record.predicted_ms
             self._ring.append(record)
             self._by_kind[kind] = self._by_kind.get(kind, 0) + 1
             self._in_flight[record.dispatch_id] = record

@@ -395,6 +395,15 @@ class BlockPool:
                 self._cache_release(entry)
             self._publish()
 
+    def cache_discard(self, key: bytes) -> None:
+        """Release the one cached sequence under ``key``, if any (not
+        counted as an eviction)."""
+        with self.lock:
+            entry = self._cache.pop(key, None)
+            if entry is not None:
+                self._cache_release(entry)
+                self._publish()
+
     def _cache_release(self, entry: _CacheEntry) -> None:
         for b in entry.table.blocks:
             self._cache_ref[b] -= 1
