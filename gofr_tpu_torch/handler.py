@@ -305,6 +305,8 @@ def engine_admin_handler(ctx: Context) -> Any:
     if ctx.container.slo is not None:
         snap["slo"] = ctx.container.slo.headline()
     snap["tenants"] = ctx.container.tenants.overview()
+    # the OpenAI handlers' host seconds outside their waits on the device
+    snap["handlers"] = {"host_s": ctx.container.telemetry.handler_seconds()}
     return snap
 
 

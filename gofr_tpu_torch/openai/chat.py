@@ -5,7 +5,8 @@ the adapter's name); only the prompt (the chat template) and the response
 shapes (``chat.completion``, and ``chat.completion.chunk`` frames with
 deltas when streaming) differ. A streamed chat is cancelled when its client
 hangs up (``parse.abortable``), and a single stream numbers its frames (SSE
-``id:``)."""
+``id:``). The handler bills its host time outside the waits on the device
+(``telemetry.HandlerClock``), as in completions."""
 
 from __future__ import annotations
 
@@ -35,18 +36,19 @@ from gofr_tpu_torch.openai.parse import (
     stream_usage_opt,
 )
 from gofr_tpu_torch.openai.template import render_chat_prompt
-from gofr_tpu_torch.telemetry import flight
+from gofr_tpu_torch.telemetry import HandlerClock, flight
 
 
 def _stream_chat(
     ctx: Any, body: dict, prompt_ids: list, max_tokens: int, sampler: Any, stop_ids: Any,
     stop_strs: list, want_logprobs: bool, top_n: int, n: int, chat_id: str, created: int,
-    model: str, include_usage: bool, adapter: Any = None,
+    model: str, include_usage: bool, adapter: Any, clock: HandlerClock,
 ) -> Stream:
     """The SSE branch: the role first, then content deltas with host-side
     stop matching, a finish frame, ``[DONE]``. ``n`` > 1 interleaves the
     candidates' frames by ``index`` (greedy requests replicate one
-    stream)."""
+    stream). ``clock`` bills the host's time between the waits on the
+    tokens."""
     if top_n:
         raise HTTPError(
             400, "top-logprob alternatives are not supported when streaming; drop "
@@ -78,7 +80,7 @@ def _stream_chat(
     if n > 1:
         return _stream_chat_fanout(
             ctx, body, prompt_ids, max_tokens, sampler, stop_ids, stop_strs, want_logprobs,
-            n, chunk, usage_frame if include_usage else None, cancel, on_abort, adapter,
+            n, chunk, usage_frame if include_usage else None, cancel, on_abort, adapter, clock,
         )
     stream_iter = ctx.tpu.generate_stream(
         prompt_ids, max_tokens, sampler=sampler, stop_tokens=stop_ids, cancel=cancel,
@@ -92,7 +94,7 @@ def _stream_chat(
         scan = StopScanner(stop_strs) if stop_strs else None
         yield chunk({"role": "assistant"})  # the role arrives first
         try:
-            for item in stream_iter:
+            for item in clock.waits(stream_iter):
                 token, lp = item if want_logprobs else (item, None)
                 emitted += 1
                 text = dec.feed(token)
@@ -126,6 +128,7 @@ def _stream_chat(
         except Exception as exc:
             yield error_frame(exc)
         finally:
+            clock.lap()
             stream_iter.close()
 
     return Stream(events(), ids=True, on_abort=on_abort)
@@ -134,7 +137,7 @@ def _stream_chat(
 def _stream_chat_fanout(
     ctx: Any, body: dict, prompt_ids: list, max_tokens: int, sampler: Any, stop_ids: Any,
     stop_strs: list, want_logprobs: bool, n: int, chunk: Any, usage_frame: Any,
-    cancel: threading.Event, on_abort: Any, adapter: Any = None,
+    cancel: threading.Event, on_abort: Any, adapter: Any, clock: HandlerClock,
 ) -> Stream:
     """Interleaved multi-index chat SSE: every index opens with its own
     role frame and closes with its own finish frame; the shared driver owns
@@ -170,12 +173,13 @@ def _stream_chat_fanout(
     usage_frames = (lambda: [usage_frame(sum(emitted))]) if usage_frame is not None else None
     return Stream(
         drive_stream_fanout(iters, replicate, n, finish, want_logprobs, open_frames, feed,
-                            tail, usage_frames),
+                            tail, usage_frames, clock),
         on_abort=on_abort,
     )
 
 
 def chat_completions(ctx: Any) -> Any:
+    clock = HandlerClock(ctx.container.telemetry)
     (body, max_tokens, sampler, stop_ids, stop_strs, want_logprobs, top_n,
      adapter) = parse_request(ctx, default_max=64)
     tok = ctx.tpu.tokenizer
@@ -203,14 +207,16 @@ def chat_completions(ctx: Any) -> Any:
         trace_id=ctx.trace_id or "", tokens_in=len(prompt_ids),
         stream=bool(body.get("stream")),
     ) as fl:
+        clock.attach(fl.record)
         if body.get("stream"):
             return fl.defer(_stream_chat(
                 ctx, body, prompt_ids, max_tokens, sampler, stop_ids, stop_strs,
                 want_logprobs, top_n, n, chat_id, created, model, include_usage, adapter,
+                clock,
             ))
-        results, generated = fanout_generate(
-            ctx, body, prompt_ids, max_tokens, sampler, stop_ids, stop_strs, want_logprobs,
-            top_n, n, n, adapter,
+        results, generated = clock.waiting(
+            fanout_generate, ctx, body, prompt_ids, max_tokens, sampler, stop_ids,
+            stop_strs, want_logprobs, top_n, n, n, adapter,
         )
     choices = [
         {
@@ -230,6 +236,7 @@ def chat_completions(ctx: Any) -> Any:
         }
         for i, (out, logprobs, tops, text, finish) in enumerate(results)
     ]
+    clock.lap()
     return Raw({
         "id": chat_id,
         "object": "chat.completion",

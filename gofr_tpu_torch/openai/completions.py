@@ -4,9 +4,10 @@ n/best_of fan-out and its interleaved multi-index SSE; the
 ``stream_options.include_usage`` frame.
 
 Port of ``gofr_tpu/openai/completions.py``. Each request is a flight record
-(``telemetry.flight``): a streamed one finishes when its stream ends, or is
-cancelled when its client hangs up (``parse.abortable``: the decode frees
-its slot within a chunk). A single stream numbers its frames (SSE ``id:``
+(``telemetry.flight``), billed its handler's host time outside the waits on
+the device (``telemetry.HandlerClock``): a streamed one finishes when its
+stream ends, or is cancelled when its client hangs up (``parse.abortable``:
+the decode frees its slot within a chunk). A single stream numbers its frames (SSE ``id:``
 from the resume offset) and resumes: ``X-Resume-From: k`` continues an
 interrupted greedy or seeded stream at token k (``generate_stream``). An
 expired deadline answers 504. A LoRA adapter (``adapter``, or ``model`` naming one)
@@ -28,7 +29,7 @@ from typing import Any
 
 from gofr_tpu_torch.errors import HTTPError
 from gofr_tpu_torch.http.response import Raw, Stream
-from gofr_tpu_torch.telemetry import flight
+from gofr_tpu_torch.telemetry import HandlerClock, flight
 from gofr_tpu_torch.openai.fanout import (
     drive_stream_fanout,
     error_frame,
@@ -52,8 +53,8 @@ from gofr_tpu_torch.openai.parse import (
 def _stream_completion(
     ctx: Any, body: dict, prompt_ids: list, max_tokens: int, sampler: Any, stop_ids: Any,
     stop_strs: list, want_logprobs: bool, top_n: int, n: int, best_of: int, echo: bool,
-    cmpl_id: str, created: int, model: str, include_usage: bool, adapter: Any = None,
-    resume_from: int = 0,
+    cmpl_id: str, created: int, model: str, include_usage: bool, adapter: Any,
+    resume_from: int, clock: HandlerClock,
 ) -> Stream:
     """The SSE branch: per-token text frames with host-side stop matching,
     ending in ``data: [DONE]``. ``n`` > 1 streams the candidates at once as
@@ -61,7 +62,8 @@ def _stream_completion(
     one stream across every index (as the non-stream fan-out does). A
     single stream's frames are numbered from ``resume_from``, the position
     it resumes at (clamped to the budget: a client cut off between the last
-    token and ``[DONE]`` resumes into the tail)."""
+    token and ``[DONE]`` resumes into the tail). ``clock`` bills the host's
+    time between the waits on the tokens, frames written included."""
     if best_of > n:
         raise HTTPError(
             400, '"best_of" > "n" is not supported when streaming (candidates cannot be '
@@ -102,6 +104,7 @@ def _stream_completion(
         return _stream_completion_fanout(
             ctx, body, prompt_ids, max_tokens, sampler, stop_ids, stop_strs, want_logprobs,
             n, echo, chunk, usage_frame if include_usage else None, cancel, on_abort, adapter,
+            clock,
         )
     resume_from = min(resume_from, max_tokens)
     stream_iter = ctx.tpu.generate_stream(
@@ -123,7 +126,7 @@ def _stream_completion(
                 else:
                     for t in prompt_ids:
                         yield chunk("", token=t)
-            for item in stream_iter:
+            for item in clock.waits(stream_iter):
                 token, lp = item if want_logprobs else (item, None)
                 emitted += 1
                 if dec is None:
@@ -157,6 +160,7 @@ def _stream_completion(
         except Exception as exc:
             yield error_frame(exc)
         finally:
+            clock.lap()
             stream_iter.close()
 
     return Stream(events(), ids=True, id_offset=resume_from, on_abort=on_abort)
@@ -165,7 +169,7 @@ def _stream_completion(
 def _stream_completion_fanout(
     ctx: Any, body: dict, prompt_ids: list, max_tokens: int, sampler: Any, stop_ids: Any,
     stop_strs: list, want_logprobs: bool, n: int, echo: bool, chunk: Any, usage_frame: Any,
-    cancel: threading.Event, on_abort: Any, adapter: Any = None,
+    cancel: threading.Event, on_abort: Any, adapter: Any, clock: HandlerClock,
 ) -> Stream:
     """Interleaved multi-index SSE: the shared driver
     (``drive_stream_fanout``) owns the replicate/multiplex loops, the
@@ -205,12 +209,13 @@ def _stream_completion_fanout(
     usage_frames = (lambda: [usage_frame(sum(emitted))]) if usage_frame is not None else None
     return Stream(
         drive_stream_fanout(iters, replicate, n, finish, want_logprobs, open_frames, feed,
-                            tail, usage_frames),
+                            tail, usage_frames, clock),
         on_abort=on_abort,
     )
 
 
 def completions(ctx: Any) -> Any:
+    clock = HandlerClock(ctx.container.telemetry)
     (body, max_tokens, sampler, stop_ids, stop_strs, want_logprobs, top_n,
      adapter) = parse_request(ctx, default_max=16)
     n, best_of, echo = parse_fanout(body, allow_best_of=True)
@@ -238,6 +243,7 @@ def completions(ctx: Any) -> Any:
         trace_id=ctx.trace_id or "", tokens_in=len(prompt_ids),
         stream=bool(body.get("stream")),
     ) as fl:
+        clock.attach(fl.record)
         if body.get("stream"):
             # X-Resume-From: a client (or the fleet router) holding frames
             # 0..k-1 of an interrupted stream asks for the rest
@@ -255,7 +261,7 @@ def completions(ctx: Any) -> Any:
             return fl.defer(_stream_completion(
                 ctx, body, prompt_ids, max_tokens, sampler, stop_ids, stop_strs,
                 want_logprobs, top_n, n, best_of, echo, cmpl_id, created, model,
-                include_usage, adapter, resume_from,
+                include_usage, adapter, resume_from, clock,
             ))
         prompt_lps = None
         if echo and want_logprobs:
@@ -263,7 +269,7 @@ def completions(ctx: Any) -> Any:
             # conditional): the OpenAI convention and the eval-harness
             # loglikelihood pattern; an adapter's request scores under it
             # (and an unknown adapter 400s)
-            prompt_lps = [None] + ctx.tpu.score(prompt_ids, adapter=adapter)
+            prompt_lps = [None] + clock.waiting(ctx.tpu.score, prompt_ids, adapter=adapter)
         elif (max_tokens == 0 and adapter is not None
               and adapter not in ctx.tpu.list_adapters()):
             # pure echo without logprobs runs no model, yet the adapter it
@@ -274,9 +280,9 @@ def completions(ctx: Any) -> Any:
                         "length")] * n
             generated = 0
         else:
-            results, generated = fanout_generate(
-                ctx, body, prompt_ids, max_tokens, sampler, stop_ids, stop_strs,
-                want_logprobs, top_n, n, best_of, adapter,
+            results, generated = clock.waiting(
+                fanout_generate, ctx, body, prompt_ids, max_tokens, sampler, stop_ids,
+                stop_strs, want_logprobs, top_n, n, best_of, adapter,
             )
     choices = []
     for i, (out, logprobs, tops, text, finish) in enumerate(results):
@@ -302,6 +308,7 @@ def completions(ctx: Any) -> Any:
         if tok is None:
             choice["tokens"] = (prompt_ids + out) if echo else out
         choices.append(choice)
+    clock.lap()
     return Raw({
         "id": cmpl_id,
         "object": "text_completion",

@@ -15,6 +15,7 @@ from typing import Any
 
 from gofr_tpu_torch.errors import HTTPError
 from gofr_tpu_torch.openai.parse import StopScanner, sampler_from_body
+from gofr_tpu_torch.telemetry import HandlerClock
 
 STREAM_END = object()  # per-index end marker on the multiplex queue
 
@@ -175,7 +176,7 @@ def index_tail_text(dec: Any, scan: Any, finish: list, i: int, emitted: list,
 
 def drive_stream_fanout(
     iters: list, replicate: bool, n: int, finish: list, want_logprobs: bool,
-    open_frames: Any, feed: Any, tail: Any, usage_frames: Any = None,
+    open_frames: Any, feed: Any, tail: Any, usage_frames: Any, clock: HandlerClock,
 ) -> Any:
     """The interleaved-SSE driver both endpoints share: replicate mode
     consumes one iterator and fans its frames across the indexes (greedy
@@ -184,12 +185,13 @@ def drive_stream_fanout(
     decode is cancelled and anything more it produces, an error of the
     cancellation included, is dropped. An error of an unfinished index
     ends the whole stream with one error frame (a committed 200 cannot be
-    re-statused)."""
+    re-statused). ``clock`` (``telemetry.HandlerClock``) bills the host's
+    time between the waits on the candidates' tokens."""
     cancels: list = []
     try:
         yield from open_frames()
         if replicate:
-            for item in iters[0]:
+            for item in clock.waits(iters[0]):
                 token, lp = item if want_logprobs else (item, None)
                 for i in range(n):
                     if finish[i] is None:
@@ -203,7 +205,7 @@ def drive_stream_fanout(
             cancels.extend(cancels_)
             active = n
             while active:
-                i, item = q.get()
+                i, item = clock.waiting(q.get)
                 if item is STREAM_END:
                     active -= 1
                     yield from tail(i)
@@ -222,6 +224,7 @@ def drive_stream_fanout(
     except Exception as exc:
         yield error_frame(exc)
     finally:
+        clock.lap()
         if replicate:
             iters[0].close()  # driven by this thread: legal
         else:

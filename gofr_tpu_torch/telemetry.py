@@ -245,7 +245,7 @@ class FlightRecord:
         "prefill_chunks", "prefill_bucket", "sched_defer_s",
         "pool_reject_reason", "dispatch_ids", "anomalous_dispatches",
         "spec_drafted", "spec_accepted", "spec_dispatches", "spec_emitted",
-        "kv_blocks", "kv_aliased_blocks", "mesh_axes",
+        "kv_blocks", "kv_aliased_blocks", "mesh_axes", "handler_s",
         "tenant", "deadline_s", "priority", "shed_stage",
         "wall_start", "t_start", "t_enqueue", "t_dispatch",
         "t_first_token", "t_last_token", "t_done", "wall_done", "_lock",
@@ -310,6 +310,9 @@ class FlightRecord:
         # serving-mesh axes this request ran on ({"tp": 2, ...}; None =
         # single chip) — latency is only comparable within one topology
         self.mesh_axes: Optional[dict] = None
+        # the OpenAI handler's host seconds outside its waits on the device
+        # (``HandlerClock``), billed as they are spent
+        self.handler_s = 0.0
         # hashed tenant id (admission gate via the tenant contextvar —
         # same ride as the origin above); None on paths that never ran
         # admission (bare test containers, internal probes)
@@ -443,6 +446,10 @@ class FlightRecord:
             self.tokens_out += n
         self.t_last_token = time.perf_counter()
 
+    def note_handler(self, seconds: float) -> None:
+        with self._lock:
+            self.handler_s += seconds
+
     def note_shed(self, stage: str) -> None:
         """The FIRST stage that gave up on the request's deadline wins."""
         if not self.shed_stage:
@@ -507,7 +514,7 @@ class FlightRecord:
                 return None
             return self.wall_start + (mark - self.t_start)
 
-        return {
+        out = {
             "event": "request_flight",
             "trace_id": self.trace_id,
             "request_id": self.request_id or None,
@@ -547,6 +554,10 @@ class FlightRecord:
             "tpot_s": self.tpot,
             "duration_s": self.duration,
         }
+        if self.handler_s:
+            # the port's own field, present once an OpenAI handler billed it
+            out["handler_s"] = self.handler_s
+        return out
 
 
 
@@ -1108,6 +1119,62 @@ class TenantLedger:
         }
 
 
+class HandlerClock:
+    """The host seconds of one OpenAI request's threads outside their waits
+    on the device: from the handler's entry, each stretch between two waits
+    (parsing, tokenizing, templating, detokenizing, formatting logprobs,
+    writing frames) is billed when it ends, to the recorder's running total
+    and to the request's flight record (``handler_s``), so requests in
+    flight count too. A stretch before the record starts is billed to it
+    once it is attached. ``recorder`` None: nothing is totalled."""
+
+    __slots__ = ("recorder", "record", "_mark", "_unbilled")
+
+    def __init__(self, recorder: Optional["FlightRecorder"]):
+        self.recorder = recorder
+        self.record: Optional[FlightRecord] = None
+        self._unbilled = 0.0
+        self._mark = time.perf_counter()
+
+    def attach(self, record: Optional[FlightRecord]) -> None:
+        self.record = record
+        if record is not None and self._unbilled:
+            record.note_handler(self._unbilled)
+            self._unbilled = 0.0
+
+    def lap(self) -> None:
+        """Bill the host seconds since the last mark; the mark moves to now."""
+        now = time.perf_counter()
+        seconds, self._mark = now - self._mark, now
+        if self.recorder is not None:
+            self.recorder.note_handler(seconds)
+        if self.record is not None:
+            self.record.note_handler(seconds)
+        else:
+            self._unbilled += seconds
+
+    def waiting(self, fn: Any, *args: Any, **kwargs: Any) -> Any:
+        """``fn(*args, **kwargs)``, a wait on the device: not billed."""
+        self.lap()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            self._mark = time.perf_counter()
+
+    def waits(self, items: Any) -> Any:
+        """``items`` iterated, each ``next`` a wait on the device: not billed."""
+        it = iter(items)
+        while True:
+            self.lap()
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            finally:
+                self._mark = time.perf_counter()
+            yield item
+
+
 class FlightRecorder:
     """Thread-safe bounded store of completed FlightRecords.
 
@@ -1137,8 +1204,20 @@ class FlightRecorder:
             weakref.WeakValueDictionary()
         )
         self._lock = threading.Lock()
+        # the OpenAI handlers' host seconds outside their waits on the
+        # device, every request's (``HandlerClock``), in flight or done
+        self.handler_s = 0.0
 
     # -- lifecycle -----------------------------------------------------------
+    def note_handler(self, seconds: float) -> None:
+        with self._lock:
+            self.handler_s += seconds
+
+    def handler_seconds(self) -> float:
+        """The running total the OpenAI handlers billed (``HandlerClock``)."""
+        with self._lock:
+            return self.handler_s
+
     def start(
         self,
         model: str,

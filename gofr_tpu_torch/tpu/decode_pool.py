@@ -101,7 +101,11 @@ the gauges divide by is the pool's dispatch cadence:
 from this chunk's dispatch to the next one's, already made when a younger
 chunk is in flight (host-bound, the host's issue of a chunk; card-bound,
 the worker dispatches after each fetch, so the card's time a chunk), else
-the chunk's own dispatch-to-fetch span. (The JAX pool divides by the time
+the chunk's own dispatch-to-fetch span. Each record marks the host's
+phases (``introspect.PHASES``): its issue ends when the launches and the
+copy's start return, its wait is the worker's wait on the copy, and its
+finish runs from the copy's arrival through the pool lock and the delivery
+to the riders. (The JAX pool divides by the time
 between deliveries, floored at the span over the pipeline depth; the chunks
 left in flight when the last row finishes are fetched back to back, and
 read up to depth x the rate: on the card, MBU 0.49 against 0.13 at one
@@ -123,10 +127,11 @@ journal entry. ``close(timeout, strict=False)`` bounds the join for a
 recovery teardown, whose worker may be parked on a wedged wait.
 
 ``GOFR_POOL_DEBUG=1`` (read at import, as in the JAX pool) prints one
-stderr line a fetched chunk, in the JAX pool's format: ``[pool] chunk
-active=<riders> dispatch->fetch <ms> fetch-wait <ms> deliver <ms>``:
-the chunk's dispatch to the end of its host copy, the worker's wait on
-that copy, and the delivery to the riders.
+stderr line a fetched chunk that has a dispatch record, in the JAX pool's
+format: ``[pool] chunk active=<riders> dispatch->fetch <ms> fetch-wait
+<ms> deliver <ms>``: from the record's marks, the chunk's dispatch to the
+end of its host copy, the worker's wait on that copy, and the delivery to
+the riders.
 """
 
 from __future__ import annotations
@@ -155,6 +160,7 @@ from gofr_tpu_torch.ops.attention import kv_bits
 from gofr_tpu_torch.telemetry import current_journal_entry, current_record
 from gofr_tpu_torch.tpu.batcher import verify_width, verify_width_ladder
 from gofr_tpu_torch.tpu.flops import mbu, mfu, tree_bytes
+from gofr_tpu_torch.tpu.introspect import host_wait
 from gofr_tpu_torch.tpu.kv_blocks import to_device
 
 DONE = object()  # end-of-stream marker on a slot's token queue
@@ -837,6 +843,8 @@ class DecodePool:
             toks, lps, tvals, tids = self._run_executable()
             want_top = any(req is not None and req.want_top for _, req in records)
             fetch = HostFetch(toks, lps, *((tvals, tids) if want_top else ()))
+        if drec is not None:
+            drec.mark_issued()
         in_flight.append((records, fetch, want_top, drec, start, nbytes))
         self._pending_drec = None  # owned by in_flight now
         self.dispatches += 1
@@ -915,11 +923,9 @@ class DecodePool:
         the younger chunks meanwhile, and submits can take the lock to join
         the next dispatch), under the watchdog, then deliver its tokens."""
         records, fetch, want_top, drec, start, nbytes = in_flight.popleft()
-        fetch_start = time.perf_counter()
         try:
-            with self._watch("decode_chunk", drec):
+            with self._watch("decode_chunk", drec), host_wait(drec):
                 arrays = fetch.wait()
-            fetch_done = time.perf_counter()
             # the dispatch cadence: to the younger chunk's dispatch, else
             # this chunk's own span
             elapsed = (in_flight[0][4] if in_flight else time.perf_counter()) - start
@@ -931,11 +937,11 @@ class DecodePool:
             self._finish_record(drec, records, status="error")
             raise
         self._finish_record(drec, records)
-        if _POOL_DEBUG:
+        if _POOL_DEBUG and drec is not None:
             print(f"[pool] chunk active={len(records)} "
-                  f"dispatch->fetch {(fetch_done - start) * 1e3:.0f}ms "
-                  f"fetch-wait {(fetch_done - fetch_start) * 1e3:.0f}ms "
-                  f"deliver {(time.perf_counter() - fetch_done) * 1e3:.0f}ms",
+                  f"dispatch->fetch {(drec.t_synced - drec.t_running) * 1e3:.0f}ms "
+                  f"fetch-wait {(drec.t_synced - drec.t_wait) * 1e3:.0f}ms "
+                  f"deliver {(drec.t_done - drec.t_synced) * 1e3:.0f}ms",
                   file=sys.stderr, flush=True)
 
     def _deliver(self, records: list, toks: np.ndarray, lps: np.ndarray,
@@ -1188,10 +1194,12 @@ class DecodePool:
                     to_device(tokens, self._last_tokens.device), self.cache
                 )
                 fetch = HostFetch(next_ids)
+            if drec is not None:
+                drec.mark_issued()
             self._pending_drec = None
             if self._sched is not None:
                 self._sched.note_decode_chunk(len(records))
-            with self._watch("spec_verify", drec):
+            with self._watch("spec_verify", drec), host_wait(drec):
                 ids = fetch.wait()[0]
             elapsed = time.perf_counter() - start  # depth 1: the cycle
             with self._work:

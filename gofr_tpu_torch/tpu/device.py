@@ -169,6 +169,7 @@ from gofr_tpu_torch.tpu.introspect import (
     EngineState,
     StallWatchdog,
     current_dispatch,
+    host_wait,
 )
 from gofr_tpu_torch.tpu.recovery import RecoverySupervisor
 from gofr_tpu_torch.tpu.kv_blocks import (
@@ -3212,7 +3213,10 @@ class _TransformerRunner:
         # -1: exact hits only; 0: one smallest bucket's worth of tokens
         self._prefix_lcp_min = prefix_lcp_min if prefix_lcp_min != 0 else self.buckets[0]
         self._prefix_lock = threading.Lock()
-        self.prefix_stats = {"hits": 0, "partial_hits": 0, "misses": 0}
+        # lookups by outcome, and the prompt tokens served: taken from the
+        # prefix cache, or computed by a prefill (pad excluded)
+        self.prefix_stats = {"hits": 0, "partial_hits": 0, "misses": 0,
+                             "prefix_tokens": 0, "prefill_tokens": 0}
         self._init_paged_kv(kv_paged, kv_block_tokens, kv_blocks, kv_budget_bytes,
                             kv_reserve_seqs, prefix_cache, metrics)
 
@@ -3316,6 +3320,13 @@ class _TransformerRunner:
             to_device(tokens, self.device), cache, to_device(lengths, self.device)
         )
 
+    def _count_prompt(self, cached: int, computed: int) -> None:
+        """One prompt's tokens into ``prefix_stats``: ``cached`` taken from
+        the prefix cache, ``computed`` by a prefill."""
+        with self._count_lock:
+            self.prefix_stats["prefix_tokens"] += cached
+            self.prefix_stats["prefill_tokens"] += computed
+
     @torch.no_grad()
     def run_batch(self, payloads: list[np.ndarray]) -> list[_PrefillState]:
         """Batched prefill over one bucket -> per-request states. The batch
@@ -3330,7 +3341,11 @@ class _TransformerRunner:
         full_lengths = np.maximum(lengths, 1)  # padded rows need length >= 1
         cache = self.model.init_cache(bsz, self.cfg.max_seq, self.cache_dtype)
         logits, cache = self._prefill(tokens, cache, full_lengths)
-        next_ids = torch.argmax(logits, dim=-1).tolist()  # the batch's one sync
+        drec = current_dispatch()  # the batcher's record, when it dispatched
+        if drec is not None:
+            drec.mark_issued()
+        with host_wait(drec):
+            next_ids = torch.argmax(logits, dim=-1).tolist()  # the batch's one sync
         return [
             _PrefillState(
                 cache, logits, i, next_token=int(next_ids[i]), length=int(full_lengths[i])
@@ -3381,6 +3396,7 @@ class _TransformerRunner:
             if self.prefill_chunk_bucket is not None:
                 a_bucket = min(a_bucket, self.prefill_chunk_bucket)
             state = self._chunked_prefill(ids, bucket=a_bucket, scheduler=scheduler, model=model)
+            self._count_prompt(0, int(ids.size))
         elif self._prefix_cache is not None:
             state = self._prefix_lookup(
                 ids, need_logits=logprobs or sampler.penalized or not sampler.greedy
@@ -3396,6 +3412,7 @@ class _TransformerRunner:
                 state = prefill_batcher.infer(ids)
             else:
                 state = self.run_batch([ids])[0]
+            self._count_prompt(0, int(ids.size))
             if self._prefix_cache is not None:
                 self._prefix_store(ids, state)
         out: list[int] = []
@@ -3926,9 +3943,11 @@ class _TransformerRunner:
         Each slice is a ``prefill_chunk`` dispatch record, and the
         request's flight record gets its enqueue and dispatch marks (no
         batcher queue: the wait is ~0), the slices, their ids and the
-        scheduler's defers. A slice's record closes when the next one is
-        issued; the last stays running through the sync, so a stuck card
-        shows as that slice on /admin/dispatches."""
+        scheduler's defers. A slice's record is queued from the scheduler's
+        gate (its wait is the slice's queue phase), marks its issue when the
+        slice's launches return, and closes when the next slice is issued;
+        the last stays running through the sync (its host wait), so a stuck
+        card shows as that slice on /admin/dispatches."""
         bucket = bucket or self.buckets[-1]
         cache = self.model.init_cache(1, self.cfg.max_seq, self.cache_dtype)
         logits = None
@@ -3940,6 +3959,7 @@ class _TransformerRunner:
         drec = None
         try:
             for tokens, lengths, size in _prompt_chunks(ids, bucket):
+                queued = time.perf_counter()
                 if scheduler is not None:
                     wait = scheduler.admit_prefill(bucket)
                     if record is not None and wait:
@@ -3948,15 +3968,18 @@ class _TransformerRunner:
                     if drec is not None:
                         self.timeline.finish(drec)
                     drec = self.timeline.begin("prefill_chunk", bucket=bucket, batch_size=1,
-                                               tokens=size,
+                                               tokens=size, queued_at=queued,
                                                adapter=model is not None and model is not self.model)
+                    drec.mark_running()
                     if record is not None:
                         record.note_dispatch_id(drec.dispatch_id)
                 logits, cache = self._prefill(tokens, cache, lengths, model)
+                if drec is not None:
+                    drec.mark_issued()
                 if record is not None:
                     record.note_prefill_chunk(bucket=bucket)
                 total += size
-            with self._watch("prefill_chunk", drec):
+            with self._watch("prefill_chunk", drec), host_wait(drec):
                 next_token = int(torch.argmax(logits[0]))
         except BaseException:
             if drec is not None:
@@ -4000,9 +4023,11 @@ class _TransformerRunner:
                 self.prefix_stats["partial_hits"] += 1
         self._cache_events("prefix", "hit" if entry is not None else "partial_hit")
         if entry is not None:  # device work outside the lock
+            self._count_prompt(int(ids.size), 0)
             row, length, next_token, logits = entry
             return {"cache": _copy_row(row), "length": length, "next_token": next_token,
                     "logits": logits}
+        self._count_prompt(shared, int(ids.size) - shared)
         return self._tail_prefill(ids, _cache_with_len(_copy_row(row), shared), shared)
 
     def _paged_lookup(self, ids: np.ndarray, need_logits: bool) -> Optional[dict]:
@@ -4015,8 +4040,10 @@ class _TransformerRunner:
         kind, payload, shared = hit
         if kind == "hit":
             self._cache_events("prefix", "hit")
+            self._count_prompt(int(ids.size), 0)
             return payload
         self._cache_events("prefix", "partial_hit")
+        self._count_prompt(shared, int(ids.size) - shared)
         return self._tail_prefill(ids, payload, shared)
 
     def _lcp_scan(self, ids: np.ndarray) -> tuple:
@@ -4054,7 +4081,9 @@ class _TransformerRunner:
             for tokens, lengths, size in _prompt_chunks(tail, bucket):
                 logits, cache = self._prefill(tokens, cache, lengths)
                 total += size
-            with self._watch("prefill_chunk", drec):
+            if drec is not None:
+                drec.mark_issued()
+            with self._watch("prefill_chunk", drec), host_wait(drec):
                 next_token = int(torch.argmax(logits[0]))
         except BaseException:
             if drec is not None:
@@ -4139,7 +4168,9 @@ class _PagedPrefixStore:
         self.pool = pool
         self.arena = arena
         self.lcp_min = lcp_min  # resolved by the runner; -1 = exact only
-        self.stats = {"hits": 0, "partial_hits": 0, "misses": 0}
+        # the runner's prefix_stats: the tokens are the runner's to count
+        self.stats = {"hits": 0, "partial_hits": 0, "misses": 0,
+                      "prefix_tokens": 0, "prefill_tokens": 0}
         self._lock = threading.Lock()
 
     def __len__(self) -> int:

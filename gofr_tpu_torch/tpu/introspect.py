@@ -8,6 +8,10 @@ device-level mirror of the request flight recorder (``telemetry.py``).
   (kind, bucket, batch size, padded tokens, queued/running/done marks,
   MFU/MBU, the cost model's prediction and residual) in a bounded ring
   behind ``GET /admin/dispatches``. Flight records carry the ids they rode.
+  The serving dispatchers also mark the host's side of each dispatch
+  (``PHASES``), and the timeline keeps running totals of those phases by
+  kind (``stats()``, ``GET /admin/engine``) and hands its closed records
+  with their marks to a reader that polls (``since``).
 - ``EngineState``: booting -> warming -> serving, degraded and wedged
   while a watched wait outlives its deadline, failed and closed; on
   ``GET /admin/engine``, in the readiness body (503 while degraded or
@@ -71,6 +75,30 @@ _current_dispatch: contextvars.ContextVar[Optional["DispatchRecord"]] = (
 )
 
 
+# the host's side of a dispatch, between its marks: ``queue`` t_queued ->
+# t_running (the batcher's queue, the scheduler's gate), ``issue`` t_running
+# -> t_issued (the launches: the host returned from the last), ``between``
+# t_issued -> t_wait (the host at other work), ``wait`` t_wait -> t_synced
+# (the host waits on the card's result), ``finish`` t_synced -> t_done (the
+# delivery). A record with no host wait of its own (a prefill slice before
+# the last) has no wait and no finish: its between runs to its close
+PHASES = ("queue", "issue", "between", "wait", "finish")
+
+
+def phase_seconds(t_queued: float, t_running: Optional[float], t_issued: Optional[float],
+                  t_wait: Optional[float], t_synced: Optional[float],
+                  t_done: Optional[float]) -> Optional[tuple]:
+    """Seconds of each of ``PHASES`` from a record's marks, for a closed
+    record whose dispatcher marked its issue; None otherwise. An unmarked
+    wait (or sync) falls on the close."""
+    if t_done is None or t_issued is None or t_running is None:
+        return None
+    wait = t_wait if t_wait is not None else t_done
+    synced = t_synced if t_synced is not None else t_done
+    return (t_running - t_queued, t_issued - t_running, wait - t_issued, synced - wait,
+            t_done - synced)
+
+
 def current_dispatch() -> Optional["DispatchRecord"]:
     """The dispatch record of the dispatch executing on this thread."""
     return _current_dispatch.get()
@@ -89,7 +117,7 @@ class DispatchRecord:
     __slots__ = (
         "dispatch_id", "kind", "bucket", "batch_size", "padded_tokens",
         "tokens", "detail", "status", "wall_start", "t_queued", "t_running",
-        "t_done", "mfu", "mbu", "predicted_ms", "residual_ratio",
+        "t_issued", "t_wait", "t_synced", "t_done", "mfu", "mbu", "predicted_ms", "residual_ratio",
         "cost_source", "anomaly", "adapter", "cost_path", "cost_judged", "cost_shared_ms",
     )
 
@@ -120,6 +148,11 @@ class DispatchRecord:
         # no external queue mark -> execution starts now (dispatchers
         # with a real queue phase pass queued_at and mark_running later)
         self.t_running: Optional[float] = None if queued_at is not None else now
+        # the host's phase marks (``PHASES``), set once by the dispatchers
+        # that mark them; a record without ``t_issued`` has no phases
+        self.t_issued: Optional[float] = None
+        self.t_wait: Optional[float] = None
+        self.t_synced: Optional[float] = None
         self.t_done: Optional[float] = None
         self.mfu: Optional[float] = None
         self.mbu: Optional[float] = None
@@ -147,6 +180,33 @@ class DispatchRecord:
         """Device execution begins (after any scheduler-interleave wait)."""
         if self.t_running is None:
             self.t_running = time.perf_counter()
+
+    def mark_issued(self) -> None:
+        """The host returned from the dispatch's last launch."""
+        if self.t_issued is None:
+            self.t_issued = time.perf_counter()
+
+    def mark_wait(self) -> None:
+        """The host begins to wait on the card's result."""
+        if self.t_wait is None:
+            self.t_wait = time.perf_counter()
+
+    def mark_synced(self) -> None:
+        """The host's wait on the card's result ended."""
+        if self.t_synced is None:
+            self.t_synced = time.perf_counter()
+
+    def phases(self) -> Optional[tuple]:
+        """Seconds of each of ``PHASES`` (``phase_seconds``)."""
+        return phase_seconds(self.t_queued, self.t_running, self.t_issued, self.t_wait,
+                             self.t_synced, self.t_done)
+
+    def marks(self) -> dict[str, Any]:
+        """The record's raw ``perf_counter`` marks (None where unset)."""
+        return {"dispatch_id": self.dispatch_id, "kind": self.kind, "status": self.status,
+                "t_queued": self.t_queued, "t_running": self.t_running,
+                "t_issued": self.t_issued, "t_wait": self.t_wait,
+                "t_synced": self.t_synced, "t_done": self.t_done}
 
     @property
     def queue_wait(self) -> Optional[float]:
@@ -185,7 +245,24 @@ class DispatchRecord:
             out["cost_path"] = self.cost_path
             out["cost_judged"] = self.cost_judged
             out["cost_shared_ms"] = self.cost_shared_ms
+        phases = self.phases()
+        if phases is not None:
+            # the port's own fields, present once a marking dispatcher closed it
+            out["issue_s"], out["wait_s"], out["finish_s"] = phases[1], phases[3], phases[4]
         return out
+
+
+@contextlib.contextmanager
+def host_wait(record: Optional[DispatchRecord]) -> Iterator[None]:
+    """Mark the block as ``record``'s host wait on the card's result: its
+    wait begins on entry and its sync when the block ends (a wait that
+    raises leaves no sync). A no-op without a record."""
+    if record is None:
+        yield
+        return
+    record.mark_wait()
+    yield
+    record.mark_synced()
 
 
 PREFILL_KINDS = ("prefill", "prefill_chunk")
@@ -229,6 +306,8 @@ class DispatchTimeline:
         self._lock = threading.Lock()
         self._by_kind: dict[str, int] = {}
         self._in_flight: dict[int, DispatchRecord] = {}
+        # kind -> [closed marked records, then seconds of each of PHASES]
+        self._phase_totals: dict[str, list] = {}
         if metrics is not None:
             self._count = metrics.counter(
                 "gofr_tpu_dispatches_total",
@@ -280,8 +359,16 @@ class DispatchTimeline:
         record.mark_running()  # a dispatch that never ran still closes
         record.t_done = time.perf_counter()
         record.status = status
+        phases = record.phases()
         with self._lock:
             self._in_flight.pop(record.dispatch_id, None)
+            if phases is not None:
+                totals = self._phase_totals.get(record.kind)
+                if totals is None:
+                    totals = self._phase_totals[record.kind] = [0] + [0.0] * len(PHASES)
+                totals[0] += 1
+                for i, seconds in enumerate(phases, 1):
+                    totals[i] += seconds
         if self._dur is not None:
             self._dur.observe(record.duration or 0.0, kind=record.kind)
         if self.costmodel is not None:
@@ -303,13 +390,35 @@ class DispatchTimeline:
                 break
         return out
 
+    def since(self, dispatch_id: int) -> list[dict[str, Any]]:
+        """The closed records newer than ``dispatch_id``, oldest first,
+        with their marks (``DispatchRecord.marks``), up to the first that
+        still runs: a reader that passes the last id it got misses none
+        that the ring still held."""
+        with self._lock:
+            newer = [r for r in self._ring if r.dispatch_id > dispatch_id]
+        out = []
+        for record in newer:
+            if record.t_done is None:
+                break
+            out.append(record.marks())
+        return out
+
     def stats(self) -> dict[str, Any]:
         with self._lock:
-            return {
+            out: dict[str, Any] = {
                 "total": sum(self._by_kind.values()),
                 "by_kind": dict(self._by_kind),
                 "in_flight": len(self._in_flight),
             }
+            if self._phase_totals:
+                # the port's own totals, present once a marked record closed:
+                # per kind, the closed marked records and each phase's seconds
+                out["phases"] = {
+                    kind: {"n": t[0], **{f"{p}_s": t[i] for i, p in enumerate(PHASES, 1)}}
+                    for kind, t in self._phase_totals.items()
+                }
+            return out
 
 
 class EngineState:

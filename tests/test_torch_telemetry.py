@@ -267,6 +267,9 @@ def test_admin_requests_slo_and_tenants_match_jax(apps):
     assert got["count"] == want["count"] == len(TRAFFIC) - 1
     for w, g in zip(want["requests"], got["requests"]):
         assert g["priority"] == w["priority"] == 5  # PRIORITY_DEFAULT in both
+        # the port's own field: the handler's host seconds outside its waits
+        g = dict(g)
+        assert 0.0 < g.pop("handler_s") <= g["duration_s"] + 0.05
         assert _masked(g) == _masked(w)
     # the filters resolve the same records
     for query in ("?request_id=route-7", "?tenant=anonymous", "?errored=true", "?limit=2",
