@@ -1302,8 +1302,29 @@ def serve_default(torch, flash, card: str, model) -> dict:
                   f"over {len(stamps)} chunks", flush=True)
         print(f"default: /metrics scraped {len(active_seen)} times during the 8 streams, "
               f"decode slots active at most {max(active_seen, default=0):g}", flush=True)
-        check(not SCRAPE_8 or max(active_seen, default=0) == 8,
-              "default: /metrics during the 8 streams never showed 8 active decode slots")
+        if SCRAPE_8:
+            # the slot gauge on /metrics once 8 streams share the pool: the
+            # 8 above need not (each decodes faster than the 8 prefills spread)
+            held_seen, done = [], threading.Event()
+
+            def held_scraper():
+                while not done.is_set():
+                    held_seen.append(scrape(port).get("gofr_tpu_decode_slots_active", 0.0))
+                    done.wait(0.05)
+
+            watcher = threading.Thread(target=held_scraper, name="smoke-held-scrape")
+            watcher.start()
+            try:
+                with admitted_together(pool, 8):
+                    concurrent_streams(port, prompts8, greedy)
+            finally:
+                done.set()
+                watcher.join(timeout=60)
+            print(f"default: 8 streams admitted together: /metrics scraped {len(held_seen)} "
+                  f"times, decode slots active at most {max(held_seen, default=0):g}", flush=True)
+            check(max(held_seen, default=0) == 8,
+                  "default: /metrics during 8 streams admitted together never showed 8 active "
+                  "decode slots")
         long = text(7, 1500)
         p1 = runner.prefills
         status, frames, chunked_ttft, _ = post(port, {"prompt": long, "stream": True, **greedy},
@@ -1506,8 +1527,10 @@ def pack_times(tb, reps: int = 200) -> dict:
 
 # -- phase 10b: phase 10's server as a process, on the lock sanitizer ----------------
 
+# the JAX pool's format; `` graphed`` ends the line of a chunk replayed from its CUDA graph
 POOL_DEBUG_LINE = re.compile(
-    r"^\[pool\] chunk active=(\d+) dispatch->fetch (\d+)ms fetch-wait (\d+)ms deliver (\d+)ms$")
+    r"^\[pool\] chunk active=(\d+) dispatch->fetch (\d+)ms fetch-wait (\d+)ms deliver (\d+)ms"
+    r"( graphed)?$")
 
 
 def sanitized_server(torch, card: str, default: dict) -> dict:
@@ -1518,7 +1541,8 @@ def sanitized_server(torch, card: str, default: dict) -> dict:
     32 greedy tokens. Their ids equal phase 10's; the sanitizer's report at
     the process's end holds no lock-order cycle and no leaked thread (its
     hold warnings print with their sites); one ``[pool] chunk`` stderr line
-    a pool chunk, their medians, and TPOT beside phase 10's."""
+    a pool chunk, each a replay of the pool's graph, their medians, and TPOT
+    beside phase 10's."""
     import statistics
 
     from gofr_tpu_torch.config import DECLARED_KEYS, UNHONORED_KEYS
@@ -1608,6 +1632,7 @@ def sanitized_server(torch, card: str, default: dict) -> dict:
            "ids_equal": sum(not d["diverged"] for d in divergences),
            "phase10_tpot_ms": default["metrics"]["tpot_ms"][8], "chunks": chunks,
            "pool_debug_lines": len(lines), "pool_debug_medians": medians,
+           "graphed_lines": sum(bool(m.group(5)) for m in lines),
            "cycles": len(report["violations"]), "leaked_threads": report["leaked_threads"],
            "hold_warnings": len(report["hold_warnings"]), "edges": report["edges"]}
     for w in report["hold_warnings"]:
@@ -1619,12 +1644,15 @@ def sanitized_server(torch, card: str, default: dict) -> dict:
           f"ready in {boot_s:.1f}s: 8 streams of 32 greedy tokens, {out['ids_equal']} of 8 with "
           f"phase 10's ids (the rest part at a near tie); "
           f"TPOT {out['tpot_ms']:.2f} ms (phase 10's 8 streams {out['phase10_tpot_ms']:.2f} ms); "
-          f"{len(lines)} [pool] chunk lines for {chunks} pool chunks, medians "
+          f"{len(lines)} [pool] chunk lines for {chunks} pool chunks "
+          f"({out['graphed_lines']} graphed), medians "
           f"{json.dumps(medians)}; "
           f"sanitizer: {out['cycles']} cycles, leaked threads {out['leaked_threads']}, "
           f"{out['hold_warnings']} hold warnings, {out['edges']} lock-order edges [{card}]",
           flush=True)
     check(len(lines) == chunks, f"sanitized: {len(lines)} [pool] chunk lines, {chunks} chunks")
+    check(out["graphed_lines"] == chunks,
+          f"sanitized: {out['graphed_lines']} of {chunks} greedy chunks replayed a graph")
     check(out["cycles"] == 0, "sanitized: the sanitizer found a lock-order cycle")
     check(not out["leaked_threads"], f"sanitized: leaked threads {out['leaked_threads']}")
     return out
@@ -2616,6 +2644,31 @@ def expected_weight_bytes(cfg, mode) -> int:
     head = weight(d, cfg.vocab_size, "int8" if mode == "w8a8" else mode)
     return (cfg.vocab_size * d * 2 + d * 2 + head
             + cfg.n_layers * (2 * d * 2 + sum(weight(i, o, mode) for i, o in mats)))
+
+
+@contextlib.contextmanager
+def admitted_together(pool, n: int, timeout_s: float = 60.0):
+    """Hold the pool worker's first admission inside the block until ``n``
+    requests hold slots (or ``timeout_s``), so the next chunk carries all
+    ``n``: a replayed chunk decodes a stream's 32 tokens in under half a
+    second, less than the spread of ``n`` prefills, so streams sent
+    together need not share the pool otherwise. The worker waits on the
+    pool's own condition, which releases the lock to the submits."""
+    admit = pool._admit_pending
+    held = [True]
+
+    def gated():
+        t0 = time.monotonic()
+        while held[0] and len(pool._active) < n and time.monotonic() - t0 < timeout_s:
+            pool._work.wait(0.05)
+        held[0] = False
+        admit()
+
+    pool._admit_pending = gated
+    try:
+        yield
+    finally:
+        vars(pool).pop("_admit_pending", None)
 
 
 @contextlib.contextmanager
@@ -3974,6 +4027,21 @@ def lora_serve(torch, flash, card: str, model, paths: dict) -> tuple:
                         "mixed_chunks": sum(1 for lo, n, a in mixed if lo and 0 < n < a),
                         "dispatches": len(mixed)}
         check(out["mixed"]["lora_chunks"] > 0, "lora: no adapter chunk ran")
+        if not out["mixed"]["mixed_chunks"]:
+            # the 8 mixed streams need not overlap in the pool (a base row's
+            # replayed chunks outrun the adapter rows' solo prefill): the same
+            # 8 again, admitted together
+            pool._dispatch_chunk = seen
+            try:
+                mixed.clear()
+                with served(flash, dev, tally, "lora mixed together"), \
+                        admitted_together(pool, len(prompts)):
+                    mixed_streams(port, prompts, MIXED_MODELS, greedy)
+            finally:
+                pool._dispatch_chunk = dispatch
+            out["mixed"]["mixed_chunks_together"] = sum(1 for lo, n, a in mixed
+                                                        if lo and 0 < n < a)
+            out["mixed"]["mixed_chunks"] = out["mixed"]["mixed_chunks_together"]
         check(out["mixed"]["mixed_chunks"] > 0, "lora: adapter and base slots never shared a chunk")
         with served(flash, dev, tally, "lora base-only"):
             rate, tpot, counts = concurrent_streams(port, prompts, greedy)
@@ -4486,13 +4554,16 @@ def chunk_kernel_us(trace_path: str, ids: list) -> tuple:
     busy microseconds of every kernel, the window from the first kernel's
     start to the last one's end). A chunk's kernels are those whose launch
     (a runtime event, by correlation id) the pool's thread made between its
-    marker's launch and the next marker's."""
+    marker's launch and the next marker's; a CUDA graph's replay is one
+    launch, every kernel of the graph under its correlation id."""
     with open(trace_path, encoding="utf-8") as f:
         events = json.load(f)["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
     check(kernels, "obs: the trace holds no kernel (CUDA activity not recorded)")
-    by_corr = {e.get("args", {}).get("correlation"): e for e in kernels}
-    marker_corrs = {c for c, e in by_corr.items() if "spin" in e["name"]}
+    by_corr: dict = {}
+    for e in kernels:
+        by_corr.setdefault(e.get("args", {}).get("correlation"), []).append(e)
+    marker_corrs = {c for c, es in by_corr.items() if any("spin" in e["name"] for e in es)}
     if len(marker_corrs) != len(ids):
         names: dict = {}
         for e in kernels:
@@ -4516,7 +4587,7 @@ def chunk_kernel_us(trace_path: str, ids: list) -> tuple:
             k += 1
             per_chunk[ids[k]] = 0.0
         elif k >= 0:
-            per_chunk[ids[k]] += by_corr[corr]["dur"]
+            per_chunk[ids[k]] += sum(e["dur"] for e in by_corr[corr])
     busy = sum(e["dur"] for e in kernels)
     window = max(e["ts"] + e["dur"] for e in kernels) - min(e["ts"] for e in kernels)
     return per_chunk, busy, window
@@ -5172,7 +5243,9 @@ def overload_deadlines(flash, app, calls: list) -> dict:
     chunk)."""
     port, dev = app.http_port, app.container.tpu
     prompt = text(181, 200)
-    ref_n = 64  # the greedy ids the cut one must prefix: more than the budget decodes
+    # the greedy ids the cut one must prefix: the same request's whole answer,
+    # more than the budget decodes (a replayed pool chunk decodes ~145 in 1.5 s)
+    ref_n = 256
     t_ref = time.perf_counter()
     status, _, _, _ = post(port, {"prompt": prompt, "max_tokens": ref_n, "temperature": 0})
     ref_chunk_s = (time.perf_counter() - t_ref) / -(-ref_n // dev.decode_pool.chunk)
@@ -7485,6 +7558,19 @@ def donor_entry(pre, prompt: list) -> dict:
             "recoveries": engine["recovery"]["incidents"], "boot_id": engine["boot_id"]}
 
 
+def _idle_pins(pre, timeout_s: float = 20.0) -> dict:
+    """The donor's block counts once none is active or reserved: a request
+    it just answered may still hold its blocks for a moment after the
+    answer (read too soon, the baseline kept the warm-up's 8 active blocks,
+    which then never came "back")."""
+    t = time.perf_counter()
+    kv = pre.engine()["kv_blocks"]
+    while (kv["active"] or kv["reserved"]) and time.perf_counter() - t < timeout_s:
+        time.sleep(0.1)
+        kv = pre.engine()["kv_blocks"]
+    return kv
+
+
 def _pins_back(pre, before: dict, label: str) -> float:
     t = time.perf_counter()
     while time.perf_counter() - t < 20:
@@ -7519,7 +7605,7 @@ def fleet_fallbacks(pre, dec, proxy: str, chaos) -> dict:
             held = donor_entry(pre, prompt)
             print(f"fleet fallback {case}: the donor before the pull: {json.dumps(held)}",
                   flush=True)
-        pins = pre.engine()["kv_blocks"]
+        pins = _idle_pins(pre)
         if case == "bit flip":
             chaos.corrupting_proxy("flip", n=1, after_bytes=1024)  # past the header
         elif case == "slow donor":

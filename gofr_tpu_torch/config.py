@@ -36,7 +36,7 @@ DECLARED_KEYS: dict[str, str] = {
     "DECODE_CHUNK": "decode steps per host fetch",
     "DECODE_POOL": "'on' (default): continuous-batching decode pool; 'off': solo decode",
     "DECODE_SLOTS": "decode pool slots (default BATCH_MAX_SIZE)",
-    "DECODE_PIPELINE": "decode pool chunks in flight (default 3)",
+    "DECODE_PIPELINE": "decode pool eager chunks in flight (default 3; a graph replay keeps 1)",
     "DECODE_POOL_PENALTIES": "penalized requests in the pool: lazy (default) | eager | off",
     "KV_PAGED": "'on' (default): block-table prefix cache and KV admission ledger",
     "KV_BLOCK_TOKENS": "tokens per KV block (default 64; must divide max_seq)",

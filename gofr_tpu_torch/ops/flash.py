@@ -36,7 +36,8 @@ Each forward variant but mma has one instance per shape class
 ``launches``, ``launches_dq`` and ``launches_dkv`` count every variant;
 ``launches_fwd_sm90``, ``launches_fwd_decode``, ``launches_dq_sm90`` and
 ``launches_dkv_sm90`` one variant each; ``launches_fwd_instance[name]`` one
-forward instance each, by its ``fwd_instance`` name.
+forward instance each, by its ``fwd_instance`` name. A CUDA graph that
+captured launches adds them at each replay (``launch_counters``).
 
 Layouts: q [B, Sq, Hq, D]; k, v [B, Skv, Hkv, D]; Hq % Hkv == 0.
 ``q_offset`` (scalar or [B]) is the absolute position of q row 0;
@@ -98,9 +99,9 @@ class LaunchCounter:
         self._n = 0
         self._lock = threading.Lock()
 
-    def add(self) -> None:
+    def add(self, n: int = 1) -> None:
         with self._lock:
-            self._n += 1
+            self._n += n
 
     @property
     def value(self) -> int:
@@ -122,6 +123,18 @@ launches_dq = LaunchCounter()  # the backward's dQ kernel, both variants
 launches_dq_sm90 = LaunchCounter()  # the dQ kernel's sm90 variant alone
 launches_dkv = LaunchCounter()  # the backward's dK/dV kernel, both variants
 launches_dkv_sm90 = LaunchCounter()  # the dK/dV kernel's sm90 variant alone
+
+
+def launch_counters() -> dict[str, LaunchCounter]:
+    """Every launch counter by name: a CUDA graph reads them around its
+    capture, which launches nothing, and adds what it captured at each
+    replay."""
+    return {"launches": launches, "fwd_sm90": launches_fwd_sm90,
+            "fwd_decode": launches_fwd_decode,
+            **{f"fwd_instance.{k}": c for k, c in launches_fwd_instance.items()},
+            "dq": launches_dq, "dq_sm90": launches_dq_sm90, "dkv": launches_dkv,
+            "dkv_sm90": launches_dkv_sm90}
+
 
 # The redesigned kernels' tiles, as in csrc/flash_fwd.cu and csrc/flash_bwd.cu
 FWD_SM90_BLOCK_Q = 128

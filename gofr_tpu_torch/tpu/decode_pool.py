@@ -14,17 +14,32 @@ Mechanics:
   first token into the device-resident token row; nothing else of the row
   is touched;
 - the last sampled token of every slot stays on the card, fed forward from
-  chunk to chunk, so the worker keeps up to ``pipeline_depth`` chunks in
-  flight; each dispatch snapshots (slot -> request), so a slot freed and
-  reused mid-pipeline never leaks a chunk's tokens to the next request;
+  chunk to chunk, so the worker keeps up to ``pipeline_depth`` eager chunks
+  in flight; each dispatch snapshots (slot -> request), so a slot freed and
+  reused mid-pipeline never leaks a chunk's tokens to the next request. A
+  replayed chunk (below) keeps one in flight: its issue takes the host
+  next to nothing, so there is no host lead to hide, and every chunk
+  queued ahead on the stream would delay each prefill's sync behind it;
 - each chunk's tokens and logprobs start their copy to pinned host memory
   right after the dispatch, with an event recorded behind the copy
   (:class:`HostFetch`); the worker waits on that event alone, so the copy
   is never queued behind a younger chunk. Top-k alternatives are copied
   only when an active request asked for them;
 - idle slots decode in lockstep (fixed shapes) and are overwritten on reuse;
-  their ``lengths`` run on past ``max_seq``, where positions, the cache
-  write and every attention kernel clamp;
+  a freed slot's length restarts at 0 (the attention of an idle row reads
+  only what it wrote since), then runs on, past ``max_seq`` if it stays
+  idle that long, where positions, the cache write and every attention
+  kernel clamp;
+- on a card, the plain chunk of one unsharded model is captured once into
+  two CUDA graphs (``ChunkGraph``, at construction), greedy and sampled
+  (the sampled one draws from the pool's generator, registered with it),
+  and replayed on every dispatch they serve: one launch in place of
+  ~1,800 a step. A graph reads and writes fixed tensors, so nothing
+  rebinds them: the cache's ``k``, ``v`` and ``lengths``, the token row
+  and the knob vectors are written in place by every path (admissions,
+  eager chunks, spec cycles). ``chunk_path`` decides each chunk from what
+  the pool observes: adapter and penalized chunks, a sharded model and
+  the CPU run the same chunk function eagerly;
 - requests with a sampling seed bypass the pool (``device.py`` routes them
   solo: their generator sequence must reproduce);
 - penalized requests (repetition/presence/frequency penalties, logit
@@ -46,9 +61,12 @@ thread, the worker, issues them all: ``submit`` only queues an admission
 issues its writes before its next dispatch, so they land after every chunk
 dispatched before them and before every chunk after. The same thread
 issues the chunk dispatches, the copies to the host and the finish-time
-row read. A chunk's launches take the host hundreds of milliseconds at
-llama3-8b, so the worker dispatches outside the lock: a submit or a
-delivery never waits for them.
+row read. A replay overwrites the graph's output buffers, so each chunk's
+copies to the host are queued right behind its replay, before the next
+dispatch: stream order gives each copy its own chunk's tokens. An eager
+chunk's launches take the host hundreds of milliseconds at llama3-8b, so
+the worker dispatches outside the lock: a submit or a delivery never waits
+for them.
 
 Pooled speculation (``spec``, a ``PoolSpecConfig``: ``SPEC_POOLED``):
 a greedy request without penalties or logprobs is armed with an n-gram
@@ -95,8 +113,9 @@ running from its dispatch and done after the host's wait on its copy, so
 its duration holds the card's work (a launch returns at once); the riding
 requests' flight records get its id, their pool cohort and KV reservation.
 The wait runs under the watchdog, since a kernel that never ends hangs
-there, and so do the launches: a chunk's ~15,000 fill the CUDA launch queue
-behind a stuck kernel, and the host then blocks in the launch. The interval
+there, and so do the launches: an eager chunk's ~15,000 fill the CUDA launch
+queue behind a stuck kernel, and the host then blocks in the launch. A
+replayed chunk's record is marked ``graphed``. The interval
 the gauges divide by is the pool's dispatch cadence:
 from this chunk's dispatch to the next one's, already made when a younger
 chunk is in flight (host-bound, the host's issue of a chunk; card-bound,
@@ -131,7 +150,13 @@ stderr line a fetched chunk that has a dispatch record, in the JAX pool's
 format: ``[pool] chunk active=<riders> dispatch->fetch <ms> fetch-wait
 <ms> deliver <ms>``: from the record's marks, the chunk's dispatch to the
 end of its host copy, the worker's wait on that copy, and the delivery to
-the riders.
+the riders; `` graphed`` ends the line of a replayed chunk.
+
+Counters (``occupancy()``): ``graph_chunks`` (replays), ``eager_chunks``
+(chunks run eagerly, by ``chunk_path``'s reason), ``graph_capture_s`` and
+``graph_pool_bytes`` (the captured graphs' private memory). A replay adds
+the kernel launches its capture recorded to ``ops/flash.py``'s counters,
+so they count what the card ran.
 """
 
 from __future__ import annotations
@@ -156,6 +181,7 @@ from gofr_tpu_torch.deadline import (
     pool_reject_counter,
 )
 from gofr_tpu_torch.errors import DeadlineExceeded
+from gofr_tpu_torch.ops import flash
 from gofr_tpu_torch.ops.attention import kv_bits
 from gofr_tpu_torch.telemetry import current_journal_entry, current_record
 from gofr_tpu_torch.tpu.batcher import verify_width, verify_width_ladder
@@ -183,6 +209,68 @@ PENALTY_MODES = ("lazy", "eager", "off")  # DECODE_POOL_PENALTIES
 SPEC_IDLE_ROUNDS = 4
 
 
+def chunk_path(adapter: bool, penalized: bool, all_greedy: bool, sharded: bool,
+               device_type: str, captured: Any) -> str:
+    """How a pool chunk runs, from what the pool observes: "graph" (a
+    replay of the captured plain chunk for this ``all_greedy``) or why it
+    runs eagerly: "adapter", "penalized", "sharded", "cpu", or
+    "uncaptured" (no graph for it: the construction's own chunk, before
+    the capture). ``captured``: the ``all_greedy`` values whose plain
+    chunk was captured."""
+    if adapter:
+        return "adapter"
+    if penalized:
+        return "penalized"
+    if sharded:
+        return "sharded"
+    if device_type != "cuda":
+        return "cpu"
+    return "graph" if all_greedy in captured else "uncaptured"
+
+
+class ChunkGraph:
+    """The pool's plain chunk captured once into a CUDA graph (on its own
+    private memory pool), replayed in place of its launches. ``run``
+    computes the chunk on the pool's fixed tensors and returns its output
+    buffers, which every replay overwrites. A ``generator`` the chunk
+    draws from is registered with the graph: each replay advances it as
+    the eager chunk would. Capture launches nothing, so the kernel launch
+    counters are put back after it, and each replay adds what the capture
+    recorded."""
+
+    def __init__(self, run: Any, device: torch.device,
+                 generator: Optional[torch.Generator] = None):
+        counters = flash.launch_counters()
+        before = {name: c.value for name, c in counters.items()}
+        torch.cuda.synchronize(device)
+        # the capture empties the allocator's cache first: what it then
+        # reserves is the graph's private pool
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
+        start = time.perf_counter()
+        self.graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            self.graph.register_generator_state(generator)
+        # thread_local: another thread's CUDA call (the device's probe) must
+        # not break the capture
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.outputs = run()
+        self.capture_s = time.perf_counter() - start
+        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+        self.launches = {}
+        for name, c in counters.items():
+            n = c.value - before[name]
+            if n:
+                c.add(-n)
+                self.launches[c] = n
+
+    def replay(self) -> tuple:
+        self.graph.replay()
+        for c, n in self.launches.items():
+            c.add(n)
+        return self.outputs
+
+
 class PoolFailure:
     """Pushed to every waiter when the worker dies; carries the cause so
     request threads re-raise instead of silently truncating output."""
@@ -196,7 +284,10 @@ class HostFetch:
     dispatch. On a card: into pinned buffers with ``non_blocking``, and an
     event recorded right behind the copies; ``wait`` waits on that event
     alone, so work enqueued after it (the next chunk) does not hold it up.
-    On the CPU the values are already there."""
+    A graph replay's outputs are the graph's own buffers, which the next
+    replay overwrites: the copies are queued on the same stream right
+    behind the replay, before the next one, so they read this chunk's
+    values. On the CPU the values are already there."""
 
     def __init__(self, *tensors: torch.Tensor):
         self._event = None
@@ -351,6 +442,13 @@ class DecodePool:
         self._lora_dirty = True
         self._lora_ids_dev: Optional[torch.Tensor] = None
         self.lora_chunks = 0  # dispatches through the adapter chunk
+        # the plain chunk's CUDA graphs by all_greedy (on a card, one
+        # unsharded model), replays of them, and chunks run eagerly by
+        # ``chunk_path``'s reason
+        self._graphs: dict[bool, ChunkGraph] = {}
+        self.graph_chunks = 0
+        self.eager_chunks: dict[str, int] = {}
+        self._chunk_graphed = False  # whether the last chunk was a replay
         self._chunk_lora: Optional[tuple] = None  # the next chunk's (bank, ids)
         self._slots = [_Slot(i) for i in range(n_slots)]
         self._free = list(reversed(self._slots))
@@ -415,7 +513,14 @@ class DecodePool:
                 self._warm_spec()
         self.cache["lengths"].zero_()
         self._last_tokens.zero_()
+        if dev.type == "cuda" and self.mesh_axes is None:
+            # before the worker starts: the plain chunk, greedy and sampled
+            with torch.no_grad():
+                self._graphs[True] = ChunkGraph(lambda: self._plain_chunk(True), dev)
+                self._graphs[False] = ChunkGraph(lambda: self._plain_chunk(False), dev,
+                                                 self._generator)
         self.dispatches = 0
+        self.eager_chunks = {}
         if penalties == "eager":
             self._enable_penalties()
         self._thread = threading.Thread(target=self._run, daemon=True, name="gofr-decode-pool")
@@ -804,6 +909,7 @@ class DecodePool:
                 # window would never re-open); one whose drafts keep missing
                 # gets the pipeline back after a few dry rounds
                 depth = (1 if spec_armed and self._spec_idle < SPEC_IDLE_ROUNDS
+                         or self._chunk_path(bool(self._lora_slots))[0] == "graph"
                          else self.pipeline_depth)
                 if plan is None and self._active and len(in_flight) < depth:
                     records = [(slot.index, slot.request) for slot in self._active.values()]
@@ -845,6 +951,7 @@ class DecodePool:
             fetch = HostFetch(toks, lps, *((tvals, tids) if want_top else ()))
         if drec is not None:
             drec.mark_issued()
+            drec.graphed = self._chunk_graphed
         in_flight.append((records, fetch, want_top, drec, start, nbytes))
         self._pending_drec = None  # owned by in_flight now
         self.dispatches += 1
@@ -858,32 +965,62 @@ class DecodePool:
         active (``_chunk_lora``: the bank model and the slots' ids, read
         under the lock with the chunk's records), the penalized chunk while a
         penalized slot is (never both: ``_admit`` keeps them apart);
-        plain traffic keeps the plain one. (Only the worker empties
-        ``_pen_slots``; a submit adding to it between the snapshot and here
-        is harmless: its slot is not in this chunk's records, and a plain
-        slot samples alike under either chunk.)"""
+        plain traffic keeps the plain one, replayed from its graph where
+        ``chunk_path`` says so. (Only the worker empties ``_pen_slots``; a
+        submit adding to it between the snapshot and here is harmless: its
+        slot is not in this chunk's records, and a plain slot samples alike
+        under either chunk.)"""
+        path, all_greedy = self._chunk_path(self._chunk_lora is not None)
+        self._chunk_graphed = path == "graph"
+        if self._chunk_graphed:
+            self.graph_chunks += 1
+            return self._graphs[all_greedy].replay()
+        self.eager_chunks[path] = self.eager_chunks.get(path, 0) + 1
+        if self._chunk_lora is None and not self._pen_slots:
+            return self._plain_chunk(all_greedy)
         knobs = (self._temps_dev, self._top_ks_dev, self._top_ps_dev, self._min_ps_dev)
-        all_greedy = bool((self._temps <= 0.0).all())
         if self._chunk_lora is not None:
             bank, ids = self._chunk_lora
             self.lora_chunks += 1
-            (toks, lps, tvals, tids, self._last_tokens, self.cache) = bank.decode_chunk_pool_lora(
+            (toks, lps, tvals, tids, token, cache) = bank.decode_chunk_pool_lora(
                 ids, self._last_tokens, self.cache, self.chunk, self._generator, *knobs,
                 all_greedy=all_greedy,
             )
-        elif self._pen_slots:
-            (toks, lps, tvals, tids, self._last_tokens, self.cache, self._pres,
+        else:
+            (toks, lps, tvals, tids, token, cache, self._pres,
              self._cnts) = self.model.decode_chunk_pool_penalized(
                 self._last_tokens, self.cache, self.chunk, self._generator, *knobs,
                 self._pres, self._reps_dev, self._cnts, self._pps_dev, self._fps_dev,
                 self._bias, all_greedy=all_greedy,
             )
-        else:
-            (toks, lps, tvals, tids, self._last_tokens, self.cache) = self.model.decode_chunk_pool(
-                self._last_tokens, self.cache, self.chunk, self._generator, *knobs,
-                all_greedy=all_greedy,
-            )
+        self._commit(cache["lengths"], token)
         return toks, lps, tvals, tids
+
+    def _chunk_path(self, adapter: bool) -> tuple[str, bool]:
+        """(``chunk_path``'s verdict, all_greedy) for a chunk over the slots
+        as they are now, with or without an adapter slot."""
+        all_greedy = bool((self._temps <= 0.0).all())
+        return chunk_path(adapter, bool(self._pen_slots), all_greedy, self.mesh_axes is not None,
+                          self._last_tokens.device.type, self._graphs), all_greedy
+
+    def _plain_chunk(self, all_greedy: bool) -> tuple:
+        """The plain chunk over the pool's fixed tensors, eager or under a
+        graph's capture: the same computation either way."""
+        knobs = (self._temps_dev, self._top_ks_dev, self._top_ps_dev, self._min_ps_dev)
+        (toks, lps, tvals, tids, token, cache) = self.model.decode_chunk_pool(
+            self._last_tokens, self.cache, self.chunk, self._generator, *knobs,
+            all_greedy=all_greedy,
+        )
+        self._commit(cache["lengths"], token)
+        return toks, lps, tvals, tids
+
+    def _commit(self, lengths: torch.Tensor, token: Optional[torch.Tensor] = None) -> None:
+        """A dispatch's advanced lengths and feed-forward token, written
+        into the pool's own tensors in place: a captured graph holds their
+        addresses, so no path rebinds them."""
+        self.cache["lengths"].copy_(lengths)
+        if token is not None:
+            self._last_tokens.copy_(token)
 
     def _begin_record(self, kind: str, records: list, tokens: int = 0,
                       adapter: bool = False) -> Any:
@@ -941,7 +1078,8 @@ class DecodePool:
             print(f"[pool] chunk active={len(records)} "
                   f"dispatch->fetch {(drec.t_synced - drec.t_running) * 1e3:.0f}ms "
                   f"fetch-wait {(drec.t_synced - drec.t_wait) * 1e3:.0f}ms "
-                  f"deliver {(drec.t_done - drec.t_synced) * 1e3:.0f}ms",
+                  f"deliver {(drec.t_done - drec.t_synced) * 1e3:.0f}ms"
+                  + (" graphed" if drec.graphed else ""),
                   file=sys.stderr, flush=True)
 
     def _deliver(self, records: list, toks: np.ndarray, lps: np.ndarray,
@@ -1092,13 +1230,19 @@ class DecodePool:
             self._reset_slot(index)
 
     def _reset_slot(self, index: int) -> None:
-        """Greedy knobs on a freed slot: a past sampled request must not
-        keep the all-greedy fast path (no sort) off for every later chunk.
+        """Greedy knobs and a zero length on a freed slot (worker thread): a
+        past sampled request must not keep the all-greedy fast path (no
+        sort) off for every later chunk, nor an idle row read its old
+        request's whole cache every step.
         A penalized slot gets identity penalty knobs and a zero bias row:
         a plain request reusing it under the penalized chunk samples as
         under the plain one (presence and counts need no reset: identity
         knobs ignore them; the bias is added unconditionally)."""
         self._set_knobs(index, (0.0, 0, 1.0, 0.0))
+        with torch.no_grad():
+            # issued after every chunk dispatched so far: the idle row's
+            # attention then reads only what it writes from now on
+            self.cache["lengths"][index].zero_()
         if index in self._lora_slots:
             # the freed slot stops selecting the adapter: a plain request
             # reusing it under the adapter chunk gathers entry 0 (zero delta)
@@ -1121,7 +1265,8 @@ class DecodePool:
         for w in verify_width_ladder(self.spec_cfg.k_max):
             tokens = torch.zeros((self.n_slots, w), dtype=torch.int32,
                                  device=self._last_tokens.device)
-            ids, self.cache = self.model.verify_chunk(tokens, self.cache)
+            ids, cache = self.model.verify_chunk(tokens, self.cache)
+            self._commit(cache["lengths"])
             HostFetch(ids).wait()
 
     def _spec_arm(self, spec_ctx: Any, first_token: int, sampler: Any, penalty: Any,
@@ -1190,9 +1335,10 @@ class DecodePool:
         start = time.perf_counter()
         try:
             with self._watch("spec_verify", drec):  # a full launch queue blocks here
-                next_ids, self.cache = self.model.verify_chunk(
+                next_ids, cache = self.model.verify_chunk(
                     to_device(tokens, self._last_tokens.device), self.cache
                 )
+                self._commit(cache["lengths"])
                 fetch = HostFetch(next_ids)
             if drec is not None:
                 drec.mark_issued()
@@ -1250,9 +1396,7 @@ class DecodePool:
                 lengths[index] = slot.request.cache_len
                 pendings[index, 0] = slot.request.pending
         dev = self._last_tokens.device
-        self.cache = {"k": self.cache["k"], "v": self.cache["v"],
-                      "lengths": to_device(lengths, dev)}
-        self._last_tokens = to_device(pendings, dev)
+        self._commit(to_device(lengths, dev), to_device(pendings, dev))
         if self._sched is not None and not self._active:
             self._sched.note_decode_idle()
         # a verify is ONE forward whatever its width: weights stream once
@@ -1302,6 +1446,12 @@ class DecodePool:
                 "penalized_slots": len(self._pen_slots),
                 "lora_slots": len(self._lora_slots),
                 "lora_chunks": self.lora_chunks,
+                # chunks replayed from the captured graph, and those run
+                # eagerly by reason (``chunk_path``)
+                "graph_chunks": self.graph_chunks,
+                "eager_chunks": dict(self.eager_chunks),
+                "graph_capture_s": sum(g.capture_s for g in self._graphs.values()),
+                "graph_pool_bytes": sum(g.pool_bytes for g in self._graphs.values()),
                 "closed": self._closed,
                 "rejects": dict(self.rejects),
                 # the deadline admission gate's unit
@@ -1325,6 +1475,11 @@ class DecodePool:
             self._closed = True
             self._work.notify_all()
         self._thread.join(timeout=timeout)
-        if self._thread.is_alive() and strict:
-            raise RuntimeError(f"decode pool worker still running {timeout}s after close")
-        return not self._thread.is_alive()
+        if self._thread.is_alive():
+            if strict:
+                raise RuntimeError(f"decode pool worker still running {timeout}s after close")
+            return False
+        with self._work:
+            # the worker replays no more: the graphs' memory goes back
+            self._graphs.clear()
+        return True

@@ -119,6 +119,7 @@ class DispatchRecord:
         "tokens", "detail", "status", "wall_start", "t_queued", "t_running",
         "t_issued", "t_wait", "t_synced", "t_done", "mfu", "mbu", "predicted_ms", "residual_ratio",
         "cost_source", "anomaly", "adapter", "cost_path", "cost_judged", "cost_shared_ms",
+        "graphed",
     )
 
     def __init__(
@@ -175,6 +176,9 @@ class DispatchRecord:
         self.cost_path: Optional[str] = None
         self.cost_judged = True
         self.cost_shared_ms = 0.0
+        # a pool chunk: whether it was a replay of the captured CUDA graph
+        # (None on every other dispatch)
+        self.graphed: Optional[bool] = None
 
     def mark_running(self) -> None:
         """Device execution begins (after any scheduler-interleave wait)."""
@@ -245,6 +249,8 @@ class DispatchRecord:
             out["cost_path"] = self.cost_path
             out["cost_judged"] = self.cost_judged
             out["cost_shared_ms"] = self.cost_shared_ms
+        if self.graphed is not None:
+            out["graphed"] = self.graphed  # the port's own, on pool chunks
         phases = self.phases()
         if phases is not None:
             # the port's own fields, present once a marking dispatcher closed it
